@@ -1,0 +1,98 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Every ``eegsynth_torch/csrc/*.cu`` compiles into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes), for Hopper only (``sm_90a``). The library lands in ``build/kernels/``
+at the repository root under a name that carries a hash of the sources and
+flags: it is built at first use and rebuilt whenever a source changes. A
+failed build raises; there is no fallback.
+
+Pointers and the stream cross the C boundary as ``ctypes.c_void_p`` (a bare
+Python int would be cut to 32 bits).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    nvcc = Path(cuda_home) / "bin" / "nvcc"
+    if not nvcc.exists():
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "port's CUDA kernels cannot be built")
+    return str(nvcc)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libeegsynth_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these exact sources exists.
+    The compiler's report (``-Xptxas=-v``: registers, shared memory, spills)
+    is kept beside the library as ``<name>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)         # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.gru_seq_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+                + [ctypes.c_void_p]
+            lib.gru_seq_fwd.restype = ctypes.c_int
+            lib.eegsynth_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.eegsynth_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if code != 0:
+        msg = lib.eegsynth_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")

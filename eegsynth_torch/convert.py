@@ -1,0 +1,81 @@
+"""Carry TimeGAN weights between the JAX package's params tree and the port.
+
+The JAX package keeps TimeGAN parameters as a nested dict
+(``params["generator"]["gru"][0]["w_hh"]``, …; ``proj`` is ``None`` when
+h_dim == z_dim), with torch layouts. The port's ``TimeGAN`` module names the
+same arrays as the reference torch state_dict
+(``generator.rnn.rnn.weight_hh_l0``, …), so converting is a key remap, the
+one ``scripts/convert_torch_ckpt.py`` does for reference checkpoints.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from eegsynth_torch.models.timegan import TimeGAN, TimeGANConfig
+
+NETS = ("embedder", "recovery", "generator", "supervisor", "discriminator")
+_GRU_KEYS = (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+             ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))
+
+
+def _config_from_jax_params(tree: dict[str, Any]) -> TimeGANConfig:
+    """Model dimensions read off the arrays' shapes."""
+    emb = tree["embedder"]["gru"]
+    return TimeGANConfig(x_dim=int(np.shape(emb[0]["w_ih"])[1]),
+                         z_dim=int(np.shape(emb[0]["w_hh"])[1]),
+                         h_dim=int(np.shape(tree["generator"]["gru"][0]["w_hh"])[1]),
+                         num_layers=len(emb))
+
+
+def from_jax_params(tree: dict[str, Any], *, device: torch.device | str) -> TimeGAN:
+    """JAX params tree (nested dicts / lists of arrays) → ``TimeGAN`` on
+    ``device``. Strict: a missing, extra or misshapen array raises."""
+    sd: dict[str, Any] = {}
+    for net in NETS:
+        for k, layer in enumerate(tree[net]["gru"]):
+            for jk, tk in _GRU_KEYS:
+                sd[f"{net}.rnn.rnn.{tk}_l{k}"] = layer[jk]
+    sd["recovery.out.weight"] = tree["recovery"]["out"]["w"]
+    sd["recovery.out.bias"] = tree["recovery"]["out"]["b"]
+    for net in ("generator", "supervisor"):
+        proj = tree[net].get("proj")
+        if proj is not None:
+            sd[f"{net}.proj.weight"] = proj["w"]
+            sd[f"{net}.proj.bias"] = proj["b"]
+    fc = tree["discriminator"]["fc"]
+    sd["discriminator.fc.weight_orig"] = fc["w"]
+    sd["discriminator.fc.bias"] = fc["b"]
+    sd["discriminator.fc.weight_u"] = fc["u"]
+
+    # the init is overwritten below; a fixed seed keeps construction cheap and
+    # deterministic
+    model = TimeGAN(_config_from_jax_params(tree),
+                    generator=torch.Generator().manual_seed(0), device=device)
+    model.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32))
+                           for k, v in sd.items()}, strict=True)
+    return model
+
+
+def to_jax_params(model: TimeGAN) -> dict[str, Any]:
+    """``TimeGAN`` → JAX params tree of float32 numpy arrays (inverse of
+    :func:`from_jax_params`)."""
+    sd = {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
+    params: dict[str, Any] = {}
+    for net in NETS:
+        params[net] = {"gru": [
+            {jk: sd[f"{net}.rnn.rnn.{tk}_l{k}"] for jk, tk in _GRU_KEYS}
+            for k in range(model.cfg.num_layers)]}
+    params["recovery"]["out"] = {"w": sd["recovery.out.weight"],
+                                 "b": sd["recovery.out.bias"]}
+    for net in ("generator", "supervisor"):
+        params[net]["proj"] = ({"w": sd[f"{net}.proj.weight"],
+                                "b": sd[f"{net}.proj.bias"]}
+                               if f"{net}.proj.weight" in sd else None)
+    params["discriminator"]["fc"] = {"w": sd["discriminator.fc.weight_orig"],
+                                     "b": sd["discriminator.fc.bias"],
+                                     "u": sd["discriminator.fc.weight_u"]}
+    return params

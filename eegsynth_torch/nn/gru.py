@@ -1,0 +1,91 @@
+"""GRU layers on the port's own recurrence, with torch.nn.GRU's parameter names.
+
+Counterpart of ``eegsynth/nn/gru.py``. The input projection ``x @ W_ihᵀ + b_ih``
+has no sequential dependency, so it is hoisted out of the recurrence as one
+``torch.matmul`` over all T; only the small h-recurrence runs step by step, in
+:func:`eegsynth_torch.nn.gru_sequence.gru_sequence` (kernel K1 on the card).
+Gate math follows the PyTorch GRU definition (gate order r, z, n; reset gate
+applied to the projected hidden branch). The recurrence is never
+``torch.nn.GRU``: on CUDA that is cuDNN. Forward only.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from eegsynth_torch.nn.gru_sequence import gru_sequence
+from eegsynth_torch.nn.layers import xavier_uniform
+
+
+class GRULayer(NamedTuple):
+    """One layer's weights, PyTorch layout: w_ih (3H, in), w_hh (3H, H),
+    b_ih / b_hh (3H,)."""
+    w_ih: torch.Tensor
+    w_hh: torch.Tensor
+    b_ih: torch.Tensor
+    b_hh: torch.Tensor
+
+
+def gru_apply_time_major(layer: GRULayer, x: torch.Tensor,
+                         h0: torch.Tensor) -> torch.Tensor:
+    """Time-major layer: x (T, B, in), h0 (B, H) → ys (T, B, H)."""
+    xp = torch.matmul(x, layer.w_ih.t()) + layer.b_ih          # (T, B, 3H)
+    return gru_sequence(xp.contiguous(), layer.w_hh.t().contiguous(),
+                        layer.b_hh[None, :].contiguous(), h0.contiguous())
+
+
+def gru_apply(layer: GRULayer, x: torch.Tensor,
+              h0: torch.Tensor | None = None) -> torch.Tensor:
+    """Run one GRU layer over a batch-first sequence: x (B, T, in) → (B, T, H)."""
+    if h0 is None:
+        h0 = x.new_zeros((x.shape[0], layer.w_hh.shape[1]))
+    return gru_apply_time_major(layer, x.transpose(0, 1), h0).transpose(0, 1)
+
+
+class GRU(nn.Module):
+    """``num_layers`` GRU layers named as torch.nn.GRU names them
+    (``weight_ih_l0``, ``weight_hh_l0``, ``bias_ih_l0``, ``bias_hh_l0``, …).
+    Xavier-uniform weights / zero biases (reference init)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 1, *,
+                 generator: torch.Generator, device: torch.device | str):
+        super().__init__()
+        self.num_layers = num_layers
+        for k in range(num_layers):
+            in_dim = input_dim if k == 0 else hidden_dim
+            for name, shape in ((f"weight_ih_l{k}", (3 * hidden_dim, in_dim)),
+                                (f"weight_hh_l{k}", (3 * hidden_dim, hidden_dim))):
+                setattr(self, name, nn.Parameter(
+                    xavier_uniform(shape, generator).to(device)))
+            for name in (f"bias_ih_l{k}", f"bias_hh_l{k}"):
+                setattr(self, name, nn.Parameter(
+                    torch.zeros(3 * hidden_dim, device=device)))
+
+    def layer(self, k: int) -> GRULayer:
+        return GRULayer(getattr(self, f"weight_ih_l{k}"),
+                        getattr(self, f"weight_hh_l{k}"),
+                        getattr(self, f"bias_ih_l{k}"),
+                        getattr(self, f"bias_hh_l{k}"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, T, in) → (B, T, H), every layer from a zero state."""
+        for k in range(self.num_layers):
+            x = gru_apply(self.layer(k), x)
+        return x
+
+
+class GRUStack(nn.Module):
+    """The reference's GRU wrapper (``<net>.rnn``) around the layers
+    (``<net>.rnn.rnn``). Forward only, so inter-layer dropout never applies."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 1, *,
+                 generator: torch.Generator, device: torch.device | str):
+        super().__init__()
+        self.rnn = GRU(input_dim, hidden_dim, num_layers,
+                       generator=generator, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.rnn(x)

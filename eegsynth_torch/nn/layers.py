@@ -1,0 +1,39 @@
+"""Dense layer + initializers (PyTorch-parity xavier_uniform).
+
+Counterpart of ``eegsynth/nn/layers.py``. Weights are drawn on the host from
+the caller's ``torch.Generator`` and then moved to ``device``, so one seed
+gives the same weights on every device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def xavier_uniform(shape: tuple[int, ...], generator: torch.Generator,
+                   dtype=torch.float32) -> torch.Tensor:
+    """torch.nn.init.xavier_uniform_ semantics: fan_in/fan_out from the last two
+    dims as (out, in), bound sqrt(6/(fan_in+fan_out)). Drawn on the generator's
+    device."""
+    fan_out, fan_in = shape[-2], shape[-1]
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    return out.uniform_(-bound, bound, generator=generator)
+
+
+class Dense(nn.Module):
+    """Linear layer, torch layout ``weight`` (out, in) and ``bias`` (out,);
+    xavier-uniform weight + zero bias (reference init)."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, generator: torch.Generator,
+                 device: torch.device | str):
+        super().__init__()
+        self.weight = nn.Parameter(
+            xavier_uniform((out_dim, in_dim), generator).to(device))
+        self.bias = nn.Parameter(torch.zeros(out_dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.weight.t()) + self.bias
