@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's synthesis-serving path once on one CUDA card and check it.
+"""Drive the port's main paths once on one CUDA card and check them: synthesis
+serving, and multi-bucket TimeGAN training.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
@@ -9,19 +10,28 @@ Phases (each prints its lines; any failure exits non-zero, and no phase's
 failure is swallowed):
 
 1. device  — the card's name, torch / CUDA versions, name and power limit;
-2. build   — nvcc builds every kernel under eegsynth_torch/csrc/;
+2. build   — nvcc builds every kernel under eegsynth_torch/csrc/, one
+             process per source, in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes the serving path gives it, with times;
+             the shapes the main paths give it, with both times: K1 forward
+             (serving and training shapes), K1 backward and K2 (training);
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
              repeatability, denorm; then a per-layer breakdown of one
              request (host clock, and torch.profiler for the card's busy
-             share), card-vs-CPU and chunked-vs-one-shot checks.
+             share), card-vs-CPU and chunked-vs-one-shot checks;
+5. train   — train_all_buckets on 18 random buckets of (63, 768, 14)
+             (x14/z28/h56, the settings of configs/timegan_config.json with
+             1 AE epoch, 1 SUP epoch and 4 GAN steps); artifacts, finite
+             losses, every ckpt_best served back, the launch counts of K1
+             forward, K1 backward and K2 against their expected counts, the
+             median GAN-step time; then one GAN step against the CPU plain
+             path, and a per-layer split and profiler line of one GAN step.
 
 The last three lines are a JSON object listing each kernel (its launches in
-the served run, its error against the plain version and both times), the
-nvidia-smi name and power-limit line, and ``{"ok": true, "device": {...}}``.
+the main paths' runs, its error against the plain version and both times),
+the nvidia-smi name and power-limit line, and ``{"ok": true, "device": ...}``.
 Imports no JAX.
 """
 
@@ -43,21 +53,52 @@ import torch
 
 from eegsynth_torch import _build
 from eegsynth_torch.convert import from_jax_params, to_jax_params
-from eegsynth_torch.models.timegan import TimeGAN, TimeGANConfig, sample_noise
-from eegsynth_torch.nn.gru_sequence import gru_sequence, gru_sequence_reference
+from eegsynth_torch.models.timegan import (
+    TimeGAN, TimeGANConfig, sample_noise, timegan_init_stacked,
+)
+from eegsynth_torch.nn.gru_sequence import (
+    gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
+    gru_sequence_reference,
+)
 from eegsynth_torch.nn.layers import xavier_uniform
+from eegsynth_torch.nn.multigru import (
+    multigru_disc_inputs, multigru_disc_inputs_reference,
+)
 from eegsynth_torch.serve import ModelRegistry, make_server
-from eegsynth_torch.train.checkpoint import save_checkpoint
-from eegsynth_torch.train.timegan import synthesize_from_noise
+from eegsynth_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from eegsynth_torch.train.optim import make_gan_opts
+from eegsynth_torch.train.timegan import (
+    GEN_NETS, LOG_COLUMNS, TimeGANHParams, draw_gan, gan_step, gather_batch,
+    synthesize_from_noise,
+)
+from eegsynth_torch.train.timegan_multi import CONFIG_KEYS, train_all_buckets
+from eegsynth_torch.tree import tree_leaves, tree_map
 
 SERVE_BATCH, TIME_CHUNK = 256, 768
 KERNEL_TOL = 1e-4      # f32, another summation order, up to 1024 dependent steps
 CASCADE_TOL = 1e-4     # card vs CPU plain path, full cascade at the serving width
 CHUNK_TOL = 1e-5       # chunked vs one-shot on the card (same kernel, same order;
                        # only cuBLAS's choice for the hoisted products may differ)
-# (T, B, H, input): the serving width (generator / supervisor / recovery
-# recurrence), the embedder-sized H = 28, and a ragged batch at the H cap
-KERNEL_SHAPES = ((768, 256, 56, 28), (768, 256, 28, 14), (1024, 37, 128, 28))
+# (nb, T, B, H, input): the serving width (generator / supervisor / recovery
+# recurrence, nb = 1), the embedder-sized H = 28, a ragged batch at the H cap,
+# and the training shape: 18 buckets of B 63
+KERNEL_SHAPES = ((1, 768, 256, 56, 28), (1, 768, 256, 28, 14),
+                 (1, 1024, 37, 128, 28), (18, 768, 63, 56, 28))
+# K1 backward at the training shapes: the G/S/R width, the embedder's H 28,
+# and a ragged (nb 3, T 1024, B 37, H 128)
+BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128))
+# K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims, and adaptive_dims'
+# T > 800 dims z36/h72
+MULTIGRU_SHAPES = ((18, 768, 63, (28, 56, 56, 28)), (18, 1024, 63, (36, 72, 72, 36)))
+# Training: 18 buckets (9 postures x 2 conditions) of 63 random windows
+N_BUCKETS, N_WINDOWS, SEQ_LEN, CHANNELS = 18, 63, 768, 14
+GAN_STEPS = 4
+# One GAN step, card against the CPU plain path, on the same parameters and
+# draws. Logged values: 1e-4 relative (f32 sums in another order over 768
+# steps, in K1, K2 and the reductions). Parameters after the update: 2e-4
+# absolute, a fifth of lr_g: Adam's first update is lr·g/(|g| + 1e-8), so a
+# gradient within rounding error of zero may land anywhere in ±lr·|g|/1e-8.
+STEP_LOG_RTOL, STEP_PARAM_ATOL = 1e-4, 2e-4
 
 
 def fail(msg: str) -> None:
@@ -108,24 +149,34 @@ def _time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def _gru_inputs(T, B, H, I, seed, device):
+def _gru_inputs(nb, T, B, H, I, seed, device):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    x = torch.rand((T, B, I), generator=g)
-    w_ih = xavier_uniform((3 * H, I), g)
-    w_hh = xavier_uniform((3 * H, H), g)
-    b_ih = 0.1 * torch.randn(3 * H, generator=g)
-    b_hh = 0.1 * torch.randn(1, 3 * H, generator=g)
-    h0 = torch.rand((B, H), generator=g) - 0.5
-    xp = torch.matmul(x, w_ih.t()) + b_ih
-    return [t.to(device).contiguous() for t in (xp, w_hh.t(), b_hh, h0)]
+    x = torch.rand((nb, T, B, I), generator=g)
+    w_ih = xavier_uniform((nb, 3 * H, I), g)
+    w_hh = xavier_uniform((nb, 3 * H, H), g)
+    b_ih = 0.1 * torch.randn(nb, 1, 1, 3 * H, generator=g)
+    b_hh = 0.1 * torch.randn(nb, 1, 3 * H, generator=g)
+    h0 = torch.rand((nb, B, H), generator=g) - 0.5
+    xp = torch.matmul(x, w_ih.transpose(1, 2).unsqueeze(1)) + b_ih
+    return [t.to(device).contiguous() for t in (xp, w_hh.transpose(1, 2), b_hh, h0)]
 
 
 def phase_kernels(smi: str) -> dict:
+    """Every kernel against its plain version at the main paths' shapes.
+    Returns, per kernel, the largest error and the times at its headline
+    shape (K1 forward: the serving shape; the others: the training shape)."""
+    return {"gru_sequence": _check_k1_fwd(smi), "gru_sequence_bwd": _check_k1_bwd(smi),
+            "multigru_disc_inputs": _check_k2(smi)}
+
+
+def _check_k1_fwd(smi: str) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    serving = None
+    head = None
     worst = 0.0
-    for i, (T, B, H, I) in enumerate(KERNEL_SHAPES):
-        args = _gru_inputs(T, B, H, I, seed=i, device="cuda")
+    for i, (nb, T, B, H, I) in enumerate(KERNEL_SHAPES):
+        args = _gru_inputs(nb, T, B, H, I, seed=i, device="cuda")
+        if nb == 1:
+            args = [a[0] for a in args]         # the serving path's unstacked call
         with torch.inference_mode():
             got = gru_sequence(*args)
             ref = gru_sequence_reference(*args)
@@ -134,18 +185,100 @@ def phase_kernels(smi: str) -> dict:
             ms = _time_ms(lambda: gru_sequence(*args), reps=20)
             plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=3)
         finite = bool(torch.isfinite(got).all())
-        rows = -(-B // sms)
-        print(f"[kernel] gru_sequence T={T} B={B} H={H} in={I}: "
+        rows = -(-nb * B // sms)
+        print(f"[kernel] gru_sequence nb={nb} T={T} B={B} H={H} in={I}: "
               f"max|diff|={err:.3e} (tol {KERNEL_TOL:g}) kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, tile {rows} rows x {-(-B // rows)} "
-              f"blocks | {smi}", flush=True)
+              f"blocks x {nb} buckets | {smi}", flush=True)
         if not finite or err > KERNEL_TOL:
             fail(f"gru_sequence disagrees with its plain version at "
-                 f"T={T} B={B} H={H}: max|diff|={err} finite={finite}")
+                 f"nb={nb} T={T} B={B} H={H}: max|diff|={err} finite={finite}")
         worst = max(worst, err)
-        if serving is None:
-            serving = {"ms": ms, "plain_ms": plain_ms}
-    return {"max_abs_err": worst, **serving}
+        if head is None:
+            head = {"ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, **head}
+
+
+def _check_k1_bwd(smi: str) -> dict:
+    """The kernel's own outputs (dxp, dh0) within KERNEL_TOL; dW and db, one
+    matrix product and one sum over T·B rows after the kernel, within
+    KERNEL_TOL of their largest magnitude."""
+    head = None
+    worst = 0.0
+    for i, (nb, T, B, H) in enumerate(BWD_SHAPES):
+        args = _gru_inputs(nb, T, B, H, 28, seed=10 + i, device="cuda")
+        with torch.no_grad():
+            ys = gru_sequence(*args)
+            d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(i))
+            d_ys = d_ys.cuda()
+            got = gru_sequence_bwd(*args, ys, d_ys)
+            ref = gru_sequence_bwd_reference(*args, ys, d_ys)
+            torch.cuda.synchronize()
+            errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+            scale = [max(1.0, r.abs().max().item()) for r in ref]
+            ms = _time_ms(lambda: gru_sequence_bwd(*args, ys, d_ys), reps=10)
+            plain_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
+                                reps=3)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        err = max(errs[0], errs[3])
+        print(f"[kernel] gru_sequence_bwd nb={nb} T={T} B={B} H={H}: "
+              f"max|diff| dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol {KERNEL_TOL:g}); "
+              f"dW {errs[1]:.3e} of {scale[1]:.3g}, db {errs[2]:.3e} of "
+              f"{scale[2]:.3g} (tol {KERNEL_TOL:g} relative); kernel + dW "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms | {smi}", flush=True)
+        if (not finite or err > KERNEL_TOL or errs[1] > KERNEL_TOL * scale[1]
+                or errs[2] > KERNEL_TOL * scale[2]):
+            fail(f"gru_sequence_bwd disagrees with its plain version at nb={nb} "
+                 f"T={T} B={B} H={H}: {errs} finite={finite}")
+        worst = max(worst, err)
+        if head is None:
+            head = {"ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, **head}
+
+
+def _multigru_inputs(nb, T, B, dims, seed):
+    He, Hg, Hs, Z = dims
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, sc=1.0):
+        return (torch.randn(shape, generator=g) * sc).cuda()
+
+    weights = [r(nb, He, 3 * He, sc=He ** -0.5), r(nb, 3 * He, sc=0.1),
+               r(nb, Hg, 3 * Hg, sc=Hg ** -0.5), r(nb, 3 * Hg, sc=0.1),
+               r(nb, Hg, Z, sc=Hg ** -0.5), r(nb, Z, sc=0.1),
+               r(nb, Z, 3 * Hs, sc=Z ** -0.5), r(nb, 3 * Hs, sc=0.1),
+               r(nb, Hs, 3 * Hs, sc=Hs ** -0.5), r(nb, 3 * Hs, sc=0.1),
+               r(nb, Hs, Z, sc=Hs ** -0.5), r(nb, Z, sc=0.1)]
+    return [r(nb, T, B, 3 * He), r(nb, T, B, 3 * Hg), *weights]
+
+
+def _check_k2(smi: str) -> dict:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    head = None
+    worst = 0.0
+    for i, (nb, T, B, dims) in enumerate(MULTIGRU_SHAPES):
+        args = _multigru_inputs(nb, T, B, dims, seed=20 + i)
+        with torch.no_grad():
+            got = multigru_disc_inputs(*args)
+            ref = multigru_disc_inputs_reference(*args)
+            torch.cuda.synchronize()
+            err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+            ms = _time_ms(lambda: multigru_disc_inputs(*args), reps=10)
+            plain_ms = _time_ms(lambda: multigru_disc_inputs_reference(*args), reps=3)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        rows = -(-B // max(1, sms // nb))
+        print(f"[kernel] multigru_disc_inputs nb={nb} T={T} B={B} "
+              f"He/Hg/Hs/Z={'/'.join(map(str, dims))}: max|diff|={err:.3e} "
+              f"(tol {KERNEL_TOL:g}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"tile {rows} rows x {-(-B // rows)} blocks x {nb} buckets | {smi}",
+              flush=True)
+        if not finite or err > KERNEL_TOL:
+            fail(f"multigru_disc_inputs disagrees with its plain version at "
+                 f"nb={nb} T={T} B={B} dims={dims}: max|diff|={err} finite={finite}")
+        worst = max(worst, err)
+        if head is None:
+            head = {"ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, **head}
 
 
 def _write_runs(root: Path) -> tuple[Path, Path]:
@@ -373,22 +506,244 @@ def _check_cascade(model: TimeGAN, device: str) -> None:
         fail(f"chunked synthesis differs from one-shot on the card: {err}")
 
 
+def _write_buckets(root: Path) -> Path:
+    """18 bucket NPZs posture{1..9}_{no_exo,with_exo}.npz of random
+    (63, 768, 14) float32 windows in [0, 1), from a seed."""
+    data = root / "data"
+    data.mkdir()
+    rng = np.random.default_rng(0)
+    for posture in range(1, 10):
+        for cond in ("no_exo", "with_exo"):
+            np.savez(data / f"posture{posture}_{cond}.npz",
+                     X=rng.uniform(0, 1, (N_WINDOWS, SEQ_LEN, CHANNELS))
+                     .astype(np.float32), fs=np.float32(128.0))
+    return data
+
+
+def _train_hparams(**override) -> dict:
+    with open(Path(__file__).resolve().parent / "configs" / "timegan_config.json") as f:
+        cfg = json.load(f)
+    hp = {k: typ(cfg[k]) for k, typ in CONFIG_KEYS.items() if k in cfg}
+    return {**hp, **override}
+
+
+def phase_train(smi: str, device: str = "cuda") -> dict:
+    """train_all_buckets at full width; returns the launch counts of its run.
+    With ``device="cpu"`` it rehearses the phase: the counts then stay 0."""
+    hp = _train_hparams(ae_epochs=1, sup_epochs=1, gan_steps=GAN_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = _write_buckets(Path(tmp)), Path(tmp) / "runs"
+        counters = (gru_sequence, gru_sequence_bwd, multigru_disc_inputs)
+        for c in counters:
+            c.launches = 0
+        res = train_all_buckets(data, out, device=device, log_every=1, **hp)
+        fwd, bwd, k2 = (c.launches for c in counters)
+        # per AE step: E and R forward, both backward; per SUP step: E (no
+        # gradient) and S forward, S backward; per GAN step: K2 for the D
+        # inputs, G, S, R and E, R forward and backward; then 3 forward
+        # launches per bucket for synthetic.npz (one G→S→R cascade)
+        a, s_, g = res["ae_steps"], res["sup_steps"], GAN_STEPS
+        want = (2 * a + 2 * s_ + 5 * g + 3 * N_BUCKETS, 2 * a + s_ + 5 * g, g)
+        if torch.device(device).type != "cuda":
+            want = (0, 0, 0)
+        print(f"[train] {N_BUCKETS} buckets x ({N_WINDOWS}, {SEQ_LEN}, {CHANNELS}), "
+              f"{a} AE + {s_} SUP + {g} GAN steps in {res['total_seconds']:.2f} s; "
+              f"launches: gru_sequence {fwd} (expected {want[0]}), "
+              f"gru_sequence_bwd {bwd} (expected {want[1]}), "
+              f"multigru_disc_inputs {k2} (expected {want[2]}) | {smi}", flush=True)
+        if (fwd, bwd, k2) != want:
+            fail(f"training launch counts {(fwd, bwd, k2)} != expected {want}")
+        steps = res["gan_step_seconds"]
+        print(f"[train] GAN step wall times {['%.3f' % t for t in steps]} s; "
+              f"median of steps 2-{GAN_STEPS}: {statistics.median(steps[1:]):.3f} s "
+              f"= {N_BUCKETS / statistics.median(steps[1:]):.3f} aggregate "
+              f"bucket-steps/s | {smi}", flush=True)
+
+        names = sorted(f.stem for f in data.glob("*.npz"))
+        for name in names:
+            run = out / name
+            missing = [f for f in ("train_log.csv", "ckpt_latest.npz",
+                                   "ckpt_best.npz", "synthetic.npz")
+                       if not (run / f).exists()]
+            if missing:
+                fail(f"{name}: artifacts missing {missing}")
+            rows = np.loadtxt(run / "train_log.csv", delimiter=",", skiprows=1,
+                              usecols=range(2, 2 + len(LOG_COLUMNS)), ndmin=2)
+            if rows.shape != (GAN_STEPS, len(LOG_COLUMNS)) or not np.isfinite(rows).all():
+                fail(f"{name}: train_log.csv {rows.shape} finite "
+                     f"{np.isfinite(rows).all()}")
+            trees, _ = load_checkpoint(run / "ckpt_best.npz")
+            if set(trees) != {"model", "optG", "optD"}:
+                fail(f"{name}: ckpt_best.npz holds {sorted(trees)}")
+            with np.load(run / "synthetic.npz") as syn:
+                if syn["X"].shape != (N_WINDOWS, SEQ_LEN, CHANNELS) \
+                        or not np.isfinite(syn["X"]).all():
+                    fail(f"{name}: synthetic.npz {syn['X'].shape}")
+        reg = ModelRegistry(out, data, device=device)     # serves every ckpt_best
+        if sorted(reg.models) != names:
+            fail(f"the registry loaded {sorted(reg.models)}")
+        for name in names:
+            X = reg.synthesize(name, 8, SEQ_LEN, 0, False, 8, SEQ_LEN)
+            if X.shape != (8, SEQ_LEN, CHANNELS) or not np.isfinite(X).all():
+                fail(f"{name}: served {X.shape}")
+        last = np.loadtxt(out / names[0] / "train_log.csv", delimiter=",",
+                          skiprows=1, usecols=range(2, 10), ndmin=2)[-1]
+        print(f"[train] all {len(names)} buckets: train_log.csv finite, ckpt_best "
+              f"served back; {names[0]} step {GAN_STEPS}: "
+              + ", ".join(f"{c}={v:.4f}" for c, v in zip(LOG_COLUMNS, last)),
+              flush=True)
+    return {"gru_sequence": fwd, "gru_sequence_bwd": bwd, "multigru_disc_inputs": k2}
+
+
+def _step_inputs(nb: int, B: int, seed: int, device):
+    """Stacked models at full width, fresh optimizer states, a batch and one
+    step's draws, all from seeds, on ``device``."""
+    cfg = TimeGANConfig(x_dim=CHANNELS, z_dim=28, h_dim=56)
+    params = timegan_init_stacked(
+        cfg, [torch.Generator().manual_seed(seed + b) for b in range(nb)], device=device)
+    hp = TimeGANHParams(**_train_hparams(gan_steps=GAN_STEPS))
+    optD, optG = make_gan_opts(hp)
+    d_state = optD.init(params["discriminator"])
+    g_state = optG.init({k: params[k] for k in GEN_NETS})
+    X = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0, 1, (nb, N_WINDOWS, SEQ_LEN, CHANNELS)).astype(np.float32)).to(device)
+    gens = [torch.Generator(device=device).manual_seed(seed + b) for b in range(nb)]
+    draws = draw_gan(gens, torch.full((nb,), float(N_WINDOWS), device=device), B,
+                     SEQ_LEN, cfg.z_dim, device=device)
+    return params, hp, optD, d_state, optG, g_state, gather_batch(X, draws.idx), draws
+
+
+def phase_step_check(smi: str, device: str = "cuda") -> None:
+    """One GAN step on the card against the CPU plain path: nb 2, B 8, T 768,
+    full width, the same parameters and draws."""
+    params, hp, optD, d_state, optG, g_state, x, draws = _step_inputs(2, 8, 7, device)
+    cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)      # noqa: E731
+    t0 = time.perf_counter()
+    card_p, _, _, card_logs = gan_step(params, optD, d_state, optG, g_state, x,
+                                       draws, 1, hp)
+    _sync(device)
+    card_s = time.perf_counter() - t0
+    d_cpu, g_cpu = optD.init(cpu(params["discriminator"])), \
+        optG.init({k: cpu(params[k]) for k in GEN_NETS})
+    draws_cpu = type(draws)(**{k: v.cpu() for k, v in vars(draws).items()})
+    t0 = time.perf_counter()
+    cpu_p, _, _, cpu_logs = gan_step(cpu(params), optD, d_cpu, optG, g_cpu, x.cpu(),
+                                     draws_cpu, 1, hp)
+    cpu_s = time.perf_counter() - t0
+    log_err = ((card_logs.cpu() - cpu_logs).abs()
+               / cpu_logs.abs().clamp(min=1.0)).max().item()
+    p_err = max((a.cpu() - b).abs().max().item()
+                for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+    fmt = lambda row: ", ".join(f"{c}={v:.6f}" for c, v in zip(LOG_COLUMNS, row))  # noqa
+    print(f"[check] GAN step nb=2 B=8 T={SEQ_LEN} x14/z28/h56, card vs CPU plain "
+          f"path: bucket 0 card {fmt(card_logs[0].tolist())}", flush=True)
+    print(f"[check]   CPU {fmt(cpu_logs[0].tolist())}", flush=True)
+    print(f"[check]   logged values max relative diff {log_err:.3e} (tol "
+          f"{STEP_LOG_RTOL:g}); updated parameters max|diff| {p_err:.3e} (tol "
+          f"{STEP_PARAM_ATOL:g}); step {card_s:.3f} s on the card, {cpu_s:.3f} s "
+          f"on the CPU | {smi}", flush=True)
+    if not torch.isfinite(card_logs).all() or log_err > STEP_LOG_RTOL \
+            or p_err > STEP_PARAM_ATOL:
+        fail(f"the card's GAN step disagrees with the CPU: logs {log_err}, "
+             f"params {p_err}")
+
+
+def phase_train_layers(smi: str, device: str = "cuda") -> None:
+    """Where one GAN step's time goes at the training shape (nb 18, B 63):
+    host clock per layer, synchronised at each layer's end; then the card's
+    busy share over one unsynchronised step from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    params, hp, optD, d_state, optG, g_state, x, draws = _step_inputs(
+        N_BUCKETS, N_WINDOWS, 11, device)
+    state = [params, d_state, g_state]
+
+    def step(timer=None):
+        state[0], state[1], state[2], logs = gan_step(
+            state[0], optD, state[1], optG, state[2], x, draws, 2, hp, timer)
+        return logs
+
+    step()                                                   # warm-up
+    _sync(device)
+    split: dict[str, float] = {}
+    last = [time.perf_counter()]
+
+    def timer(name):
+        _sync(device)
+        now = time.perf_counter()
+        split[name] = split.get(name, 0.0) + (now - last[0]) * 1e3
+        last[0] = now
+
+    t0 = time.perf_counter()
+    last[0] = t0
+    step(timer)
+    total = (time.perf_counter() - t0) * 1e3
+    names = {"disc_inputs": "D-step inputs (K2)",
+             "discriminator": "discriminator + R1 (plain GRU, double backward)",
+             "g_forward": "G-step forward (K1 x5 + plain D + losses)",
+             "g_backward": "G-step backward (K1 bwd x5 + plain D)",
+             "optimizers": "optimizers (D and G)"}
+    print(f"[layers] one GAN step nb={N_BUCKETS} B={N_WINDOWS} T={SEQ_LEN}: "
+          f"{total:.1f} ms: " + "; ".join(f"{names[k]} {v:.1f} ms"
+                                          for k, v in split.items())
+          + f" | {smi}", flush=True)
+    if torch.device(device).type != "cuda":
+        return
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    dev_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+
+    def kernel_ms(tag):
+        return sum(e.self_device_time_total for e in on_card if tag in e.key) / 1e3
+
+    launches = sum(e.count for e in on_card)
+    print(f"[profile] one GAN step nb={N_BUCKETS}: device time {dev_ms:.1f} ms in "
+          f"{wall_ms:.1f} ms wall ({100 * dev_ms / wall_ms:.1f} % busy) over "
+          f"{launches} device operations: K2 {kernel_ms('multigru_fwd_kernel'):.3f} "
+          f"ms, K1 fwd {kernel_ms('gru_seq_fwd_kernel'):.3f} ms, K1 bwd "
+          f"{kernel_ms('gru_seq_bwd_kernel'):.3f} ms | {smi}", flush=True)
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
+    print("[profile] largest device operations: " + "; ".join(
+        f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
+        for e in top), flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
     kern = phase_kernels(smi)
-    launches = phase_serve(smi, kern["ms"])
-    if launches < 1:
+    serve_launches = phase_serve(smi, kern["gru_sequence"]["ms"])
+    if serve_launches < 1:
         fail("the served run launched gru_sequence no time")
+    train_launches = phase_train(smi)
+    phase_step_check(smi)
+    phase_train_layers(smi)
+    launches = {**train_launches,
+                "gru_sequence": serve_launches + train_launches["gru_sequence"]}
+    for k, n in launches.items():
+        if n < 1:
+            fail(f"the main paths launched {k} no time")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    sources = {"gru_sequence": ("eegsynth_torch/csrc/gru_seq.cu",
+                                "eegsynth/nn/pallas_gru.py:52"),
+               "gru_sequence_bwd": ("eegsynth_torch/csrc/gru_seq.cu",
+                                    "eegsynth/nn/pallas_gru.py:81"),
+               "multigru_disc_inputs": ("eegsynth_torch/csrc/multigru.cu",
+                                        "eegsynth/nn/pallas_multigru.py:156")}
     print(json.dumps({"kernels": [{
-        "name": "gru_sequence", "route": "cuda",
-        "source": "eegsynth_torch/csrc/gru_seq.cu",
-        "replaces": "eegsynth/nn/pallas_gru.py:52",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"]}]}), flush=True)
+        "name": k, "route": "cuda", "source": src, "replaces": rep,
+        "launches": launches[k], "max_abs_err": kern[k]["max_abs_err"],
+        "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"]}
+        for k, (src, rep) in sources.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -2,10 +2,11 @@
 
 Every ``eegsynth_torch/csrc/*.cu`` compiles into one shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes), for Hopper only (``sm_90a``). The library lands in ``build/kernels/``
-at the repository root under a name that carries a hash of the sources and
-flags: it is built at first use and rebuilt whenever a source changes. A
-failed build raises; there is no fallback.
+minutes), for Hopper only (``sm_90a``). The sources compile in parallel, one
+``nvcc`` process each, and are then linked. The library lands in
+``build/kernels/`` at the repository root under a name that carries a hash
+of the sources and flags: it is built at first use and rebuilt whenever a
+source changes. A failed build raises; there is no fallback.
 
 Pointers and the stream cross the C boundary as ``ctypes.c_void_p`` (a bare
 Python int would be cut to 32 bits).
@@ -19,12 +20,13 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -56,6 +58,10 @@ def library_path() -> Path:
     return BUILD_DIR / f"libeegsynth_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True)
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these exact sources exists.
     The compiler's report (``-Xptxas=-v``: registers, shared memory, spills)
@@ -64,15 +70,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    compiles = [[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(_sources(), objs)]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objs)]
+    try:
+        with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+            procs = list(pool.map(_run, compiles))
+        for cmd, proc in zip(compiles, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:"
+                                   f"\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        proc = _run(link)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with exit code {proc.returncode}:"
+                               f"\n{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text(
+            "".join(p.stdout + p.stderr for p in procs))
+        os.replace(tmp, out)     # atomic: a concurrent loader never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)         # atomic: a concurrent loader never sees half a file
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -82,9 +104,13 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.gru_seq_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-                + [ctypes.c_void_p]
-            lib.gru_seq_fwd.restype = ctypes.c_int
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            # pointers, then the int dimensions, then the stream
+            for fn, n_ptr, n_int in (("gru_seq_fwd", 5, 4), ("gru_seq_bwd", 9, 4),
+                                     ("multigru_fwd", 16, 7)):
+                f = getattr(lib, fn)
+                f.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
+                f.restype = i32
             lib.eegsynth_cuda_error_string.argtypes = [ctypes.c_int]
             lib.eegsynth_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

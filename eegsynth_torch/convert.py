@@ -6,6 +6,10 @@ h_dim == z_dim), with torch layouts. The port's ``TimeGAN`` module names the
 same arrays as the reference torch state_dict
 (``generator.rnn.rnn.weight_hh_l0``, …), so converting is a key remap, the
 one ``scripts/convert_torch_ckpt.py`` does for reference checkpoints.
+
+The multi-bucket trainer keeps the JAX tree itself, stacked over a leading
+bucket axis (:func:`stack_params`); :func:`unstack_params` slices one bucket
+out for a checkpoint or for ``from_jax_params``.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from eegsynth_torch.models.timegan import TimeGAN, TimeGANConfig
+from eegsynth_torch.models.timegan import TimeGAN, TimeGANConfig, params_tree
+from eegsynth_torch.tree import take, tree_map
 
 NETS = ("embedder", "recovery", "generator", "supervisor", "discriminator")
 _GRU_KEYS = (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
@@ -63,19 +68,18 @@ def from_jax_params(tree: dict[str, Any], *, device: torch.device | str) -> Time
 def to_jax_params(model: TimeGAN) -> dict[str, Any]:
     """``TimeGAN`` → JAX params tree of float32 numpy arrays (inverse of
     :func:`from_jax_params`)."""
-    sd = {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
-    params: dict[str, Any] = {}
-    for net in NETS:
-        params[net] = {"gru": [
-            {jk: sd[f"{net}.rnn.rnn.{tk}_l{k}"] for jk, tk in _GRU_KEYS}
-            for k in range(model.cfg.num_layers)]}
-    params["recovery"]["out"] = {"w": sd["recovery.out.weight"],
-                                 "b": sd["recovery.out.bias"]}
-    for net in ("generator", "supervisor"):
-        params[net]["proj"] = ({"w": sd[f"{net}.proj.weight"],
-                                "b": sd[f"{net}.proj.bias"]}
-                               if f"{net}.proj.weight" in sd else None)
-    params["discriminator"]["fc"] = {"w": sd["discriminator.fc.weight_orig"],
-                                     "b": sd["discriminator.fc.bias"],
-                                     "u": sd["discriminator.fc.weight_u"]}
-    return params
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), params_tree(model))
+
+
+def stack_params(trees: list[dict[str, Any]], *,
+                 device: torch.device | str) -> dict[str, Any]:
+    """Per-bucket trees of arrays → one tree of tensors on ``device`` with a
+    leading bucket axis (what ``jax.vmap(timegan_init)`` returns)."""
+    return tree_map(lambda *leaves: torch.from_numpy(
+        np.stack([np.asarray(a) for a in leaves])).to(device), *trees)
+
+
+def unstack_params(params: dict[str, Any], b: int) -> dict[str, Any]:
+    """Bucket ``b`` of a stacked tree as numpy arrays, ready for
+    :func:`from_jax_params` or a checkpoint."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), take(params, b))

@@ -1,32 +1,47 @@
 """TimeGAN: embedder / recovery / generator / supervisor / discriminator.
 
-Counterpart of ``eegsynth/models/timegan.py``, as ``nn.Module``s whose
-parameter names are the reference torch state_dict's
-(``generator.rnn.rnn.weight_ih_l0``, ``recovery.out.weight``,
-``discriminator.fc.weight_orig`` / ``weight_u``, …):
+Counterpart of ``eegsynth/models/timegan.py``, in two forms that share one
+set of functions:
 
-- Embedder      X (B,T,C)  → H (B,T,z)   GRU(x_dim→z_dim)
-- Recovery      H          → X̃ (B,T,C)   GRU(z_dim→h_dim) + Linear(h_dim→x_dim)
-- Generator     Z (B,T,z)  → Ê           GRU(z_dim→h_dim) + Linear(h_dim→z_dim)
-- Supervisor    Ê          → Ĥ           same shape as Generator
-- Discriminator H          → p(real)     GRU(z_dim→h_dim) + spectral-norm Linear
+- ``TimeGAN``, ``nn.Module``s whose parameter names are the reference torch
+  state_dict's (``generator.rnn.rnn.weight_ih_l0``, ``recovery.out.weight``,
+  ``discriminator.fc.weight_orig`` / ``weight_u``, …): one model, what the
+  serving path loads;
+- a params tree in the JAX package's layout (``p["generator"]["gru"][0]
+  ["w_hh"]``, ``p["discriminator"]["fc"]["u"]``, ``proj`` ``None`` when
+  h_dim == z_dim), every leaf stacked over a leading bucket axis ``nb``: the
+  multi-bucket trainer's models, the counterpart of ``jax.vmap`` over buckets
+  (:func:`timegan_init_stacked`). :func:`params_tree` gives a module's live
+  parameters in the same layout, so every function below takes either.
 
-Forward only: the synthesis path (generator → supervisor → recovery) and the
-composed functions the JAX package exposes.
+- Embedder      X (…,B,T,C) → H (…,B,T,z)   GRU(x_dim→z_dim)
+- Recovery      H           → X̃ (…,B,T,C)   GRU(z_dim→h_dim) + Linear(h_dim→x_dim)
+- Generator     Z (…,B,T,z) → Ê             GRU(z_dim→h_dim) + Linear(h_dim→z_dim)
+- Supervisor    Ê           → Ĥ             same shape as Generator
+- Discriminator H           → p(real)       GRU(z_dim→h_dim), last step,
+                                            spectral-norm Linear → sigmoid
+
+Every recurrence but the discriminator's runs kernel K1 (forward and backward)
+on the card; the D-step inputs of the stacked trainer run kernel K2
+(:func:`fused_disc_inputs`); the discriminator runs the plain recurrence,
+which R1 differentiates twice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 from torch import nn
 
-from eegsynth_torch.nn.gru import GRUStack, gru_apply_time_major
-from eegsynth_torch.nn.layers import Dense
-from eegsynth_torch.nn.spectral_norm import SNDense
+from eegsynth_torch.nn.gru import GRULayer, GRUStack, gru_apply_time_major
+from eegsynth_torch.nn.layers import Dense, linear
+from eegsynth_torch.nn.multigru import multigru_disc_inputs
+from eegsynth_torch.nn.spectral_norm import SNDense, sn_dense_apply
 
 Carry = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+Params = dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,26 +110,108 @@ class TimeGAN(nn.Module):
         self.discriminator = Discriminator(cfg, **kw)
 
 
-def encode(model: TimeGAN, x: torch.Tensor) -> torch.Tensor:
+def params_tree(model: TimeGAN) -> Params:
+    """The module's live parameters (and ``u`` buffer) in the JAX package's
+    tree layout; no copy."""
+    def gru(net):
+        g = net.rnn.rnn
+        return [{"w_ih": getattr(g, f"weight_ih_l{k}"),
+                 "w_hh": getattr(g, f"weight_hh_l{k}"),
+                 "b_ih": getattr(g, f"bias_ih_l{k}"),
+                 "b_hh": getattr(g, f"bias_hh_l{k}")}
+                for k in range(g.num_layers)]
+
+    def dense(d):
+        return None if isinstance(d, nn.Identity) else {"w": d.weight, "b": d.bias}
+
+    m = model
+    fc = m.discriminator.fc
+    return {"embedder": {"gru": gru(m.embedder)},
+            "recovery": {"gru": gru(m.recovery), "out": dense(m.recovery.out)},
+            "generator": {"gru": gru(m.generator), "proj": dense(m.generator.proj)},
+            "supervisor": {"gru": gru(m.supervisor),
+                           "proj": dense(m.supervisor.proj)},
+            "discriminator": {"gru": gru(m.discriminator),
+                              "fc": {"w": fc.weight_orig, "b": fc.bias,
+                                     "u": fc.weight_u}}}
+
+
+def timegan_init_stacked(cfg: TimeGANConfig, generators: list[torch.Generator],
+                         *, device: torch.device | str) -> Params:
+    """One model per generator, stacked over a leading bucket axis: bucket b
+    holds exactly the weights of ``TimeGAN(cfg, generator=generators[b])``."""
+    from eegsynth_torch.convert import stack_params, to_jax_params
+    return stack_params([to_jax_params(TimeGAN(cfg, generator=g, device="cpu"))
+                         for g in generators], device=device)
+
+
+def _tree(model: TimeGAN | Params) -> Params:
+    return params_tree(model) if isinstance(model, nn.Module) else model
+
+
+def _layer(layer: dict) -> GRULayer:
+    return GRULayer(layer["w_ih"], layer["w_hh"], layer["b_ih"], layer["b_hh"])
+
+
+def _proj(p: dict | None, v: torch.Tensor) -> torch.Tensor:
+    return v if p is None else linear(v, p["w"], p["b"])
+
+
+def _run_gru(layers: list, x: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+    """Batch-first stack x (…, B, T, in) → (…, B, T, H), zero initial states,
+    no inter-layer dropout."""
+    y = x.transpose(-3, -2)
+    for layer in layers:
+        h0 = y.new_zeros((*y.shape[:-3], y.shape[-2], layer["w_hh"].shape[-1]))
+        y = gru_apply_time_major(_layer(layer), y, h0, impl)
+    return y.transpose(-3, -2)
+
+
+def encode(model: TimeGAN | Params, x: torch.Tensor) -> torch.Tensor:
     """X → H."""
-    return model.embedder.rnn(x)
+    return _run_gru(_tree(model)["embedder"]["gru"], x)
 
 
-def recover(model: TimeGAN, h: torch.Tensor) -> torch.Tensor:
+def recover(model: TimeGAN | Params, h: torch.Tensor) -> torch.Tensor:
     """H → X̃: GRU + output head."""
-    return model.recovery.out(model.recovery.rnn(h))
+    r = _tree(model)["recovery"]
+    return _proj(r["out"], _run_gru(r["gru"], h))
 
 
-def gen_latent(model: TimeGAN, z: torch.Tensor) -> torch.Tensor:
-    return model.generator.proj(model.generator.rnn(z))
+def reconstruct(model: TimeGAN | Params, x: torch.Tensor) -> torch.Tensor:
+    """X → X̃ = recovery(embedder(x)), two K1 launches for single-layer stacks
+    (also the JAX package's ``fused_reconstruct``: the same recurrences)."""
+    p = _tree(model)
+    return recover(p, encode(p, x))
 
 
-def refine_latent(model: TimeGAN, e: torch.Tensor) -> torch.Tensor:
-    return model.supervisor.proj(model.supervisor.rnn(e))
+fused_reconstruct = reconstruct
 
 
-def decode(model: TimeGAN, h: torch.Tensor) -> torch.Tensor:
+def gen_latent(model: TimeGAN | Params, z: torch.Tensor) -> torch.Tensor:
+    g = _tree(model)["generator"]
+    return _proj(g["proj"], _run_gru(g["gru"], z))
+
+
+def refine_latent(model: TimeGAN | Params, e: torch.Tensor) -> torch.Tensor:
+    s = _tree(model)["supervisor"]
+    return _proj(s["proj"], _run_gru(s["gru"], e))
+
+
+def decode(model: TimeGAN | Params, h: torch.Tensor) -> torch.Tensor:
     return recover(model, h)
+
+
+def discriminate(d: Params, h: torch.Tensor, u: torch.Tensor, train: bool):
+    """H (…, B, T, z) → (p(real) (…, B, 1), u_out), the JAX ``_disc_apply``:
+    last-step GRU output, spectral-norm head, sigmoid. ``d`` is the
+    discriminator's tree; its power-iteration vector is passed as ``u``
+    explicitly. In train mode ``u`` advances once; in eval mode ``u_out`` is
+    ``u``. The recurrence is the plain one, which autograd differentiates
+    twice (R1)."""
+    y = _run_gru(d["gru"], h, impl="plain")
+    logits, u_out = sn_dense_apply({**d["fc"], "u": u}, y[..., -1, :], train=train)
+    return torch.sigmoid(logits), u_out
 
 
 def sample_noise(generator: torch.Generator, batch: int, seq_len: int,
@@ -125,19 +222,25 @@ def sample_noise(generator: torch.Generator, batch: int, seq_len: int,
                       device=device)
 
 
-def _fusable(model: TimeGAN) -> bool:
-    return model.cfg.num_layers == 1
+def _fusable(model: TimeGAN | Params) -> bool:
+    p = _tree(model)
+    return all(len(p[k]["gru"]) == 1
+               for k in ("generator", "supervisor", "recovery", "embedder"))
 
 
-def cascade_init_carry(model: TimeGAN, batch: int, *,
+def cascade_init_carry(model: TimeGAN | Params, batch: int, *,
                        device: torch.device | str) -> Carry:
     """Zero hidden states (h_gen, h_sup, h_rec) for the G→S→R cascade."""
-    return tuple(torch.zeros((batch, net.rnn.rnn.weight_hh_l0.shape[1]),
-                             device=device)
-                 for net in (model.generator, model.supervisor, model.recovery))
+    p = _tree(model)
+    out = []
+    for net in ("generator", "supervisor", "recovery"):
+        w_hh = p[net]["gru"][0]["w_hh"]
+        out.append(torch.zeros((*w_hh.shape[:-2], batch, w_hh.shape[-1]),
+                               device=device))
+    return tuple(out)
 
 
-def gen_refine_carry(model: TimeGAN, z: torch.Tensor, carry: Carry,
+def gen_refine_carry(model: TimeGAN | Params, z: torch.Tensor, carry: Carry,
                      with_decode: bool = False):
     """The G→S→R cascade over this chunk of ``z``, starting from the given
     (h_gen, h_sup, h_rec) hidden states.
@@ -150,26 +253,59 @@ def gen_refine_carry(model: TimeGAN, z: torch.Tensor, carry: Carry,
     equal one full-length run. Needs the single-layer configuration."""
     if not _fusable(model):
         raise ValueError("gen_refine_carry needs single-layer GRU stacks")
-    g, s, r = model.generator, model.supervisor, model.recovery
+    p = _tree(model)
+    g, s, r = p["generator"], p["supervisor"], p["recovery"]
     h_g, h_s, h_r = carry
-    ys_g = gru_apply_time_major(g.rnn.rnn.layer(0), z.transpose(0, 1), h_g)
-    ys_s = gru_apply_time_major(s.rnn.rnn.layer(0), g.proj(ys_g), h_s)
-    h_hat = s.proj(ys_s)                                      # (T, B, z)
+    ys_g = gru_apply_time_major(_layer(g["gru"][0]), z.transpose(-3, -2), h_g)
+    ys_s = gru_apply_time_major(_layer(s["gru"][0]), _proj(g["proj"], ys_g), h_s)
+    h_hat = _proj(s["proj"], ys_s)                            # (…, T, B, z)
+    last = lambda ys: ys[..., -1, :, :].clone()               # noqa: E731
     if not with_decode:
-        return (ys_g[-1].clone(), ys_s[-1].clone(), h_r), h_hat.transpose(0, 1)
-    ys_r = gru_apply_time_major(r.rnn.rnn.layer(0), h_hat, h_r)
-    x_hat = r.out(ys_r)                                       # (T, B, C)
-    carry_out = (ys_g[-1].clone(), ys_s[-1].clone(), ys_r[-1].clone())
-    return carry_out, (h_hat.transpose(0, 1), x_hat.transpose(0, 1))
+        return (last(ys_g), last(ys_s), h_r), h_hat.transpose(-3, -2)
+    ys_r = gru_apply_time_major(_layer(r["gru"][0]), h_hat, h_r)
+    x_hat = _proj(r["out"], ys_r)                             # (…, T, B, C)
+    carry_out = (last(ys_g), last(ys_s), last(ys_r))
+    return carry_out, (h_hat.transpose(-3, -2), x_hat.transpose(-3, -2))
 
 
-def fused_gen_refine(model: TimeGAN, z: torch.Tensor, with_decode: bool = False):
+def fused_gen_refine(model: TimeGAN | Params, z: torch.Tensor,
+                     with_decode: bool = False):
     """Ĥ = supervisor(generator(z)) (and optionally X̂ = recovery(Ĥ)).
 
     Returns ``h_hat`` or ``(h_hat, x_hat)``. Falls back to the composed
     functions for multi-layer stacks."""
-    if not _fusable(model):
-        h_hat = refine_latent(model, gen_latent(model, z))
-        return (h_hat, recover(model, h_hat)) if with_decode else h_hat
-    init = cascade_init_carry(model, z.shape[0], device=z.device)
-    return gen_refine_carry(model, z, init, with_decode)[1]
+    p = _tree(model)
+    if not _fusable(p):
+        h_hat = refine_latent(p, gen_latent(p, z))
+        return (h_hat, recover(p, h_hat)) if with_decode else h_hat
+    init = cascade_init_carry(p, z.shape[-3], device=z.device)
+    return gen_refine_carry(p, z, init, with_decode)[1]
+
+
+def fused_disc_inputs(params: Params, x: torch.Tensor, z: torch.Tensor):
+    """D-step latents (h_real, h_fake) = (embedder(x), supervisor(generator(z)))
+    of stacked buckets: x (nb, B, T, C), z (nb, B, T, z) → (nb, B, T, z) each.
+
+    Kernel K2 on the card, its plain version on the CPU: the JAX vmapped
+    ``fused_disc_inputs`` / ``multigru_disc_inputs_pallas``. The input
+    projections are hoisted as two batched products. Forward only, and needs
+    single-layer stacks with generator and supervisor projections
+    (h_dim != z_dim, which ``adaptive_dims`` always gives)."""
+    e, g, s = params["embedder"], params["generator"], params["supervisor"]
+    if not _fusable(params) or g["proj"] is None or s["proj"] is None:
+        raise ValueError("fused_disc_inputs needs single-layer stacks with "
+                         "generator/supervisor projections (h_dim != z_dim)")
+    el, gl, sl = e["gru"][0], g["gru"][0], s["gru"][0]
+    t = lambda w: w.transpose(-1, -2).contiguous()            # noqa: E731
+    with torch.no_grad():
+        xp_e = linear(x.transpose(1, 2), el["w_ih"], el["b_ih"])   # (nb, T, B, 3He)
+        xp_g = linear(z.transpose(1, 2), gl["w_ih"], gl["b_ih"])
+        h_real, h_fake = multigru_disc_inputs(
+            xp_e.contiguous(), xp_g.contiguous(),
+            t(el["w_hh"]), el["b_hh"].contiguous(),
+            t(gl["w_hh"]), gl["b_hh"].contiguous(),
+            t(g["proj"]["w"]), g["proj"]["b"].contiguous(),
+            t(sl["w_ih"]), sl["b_ih"].contiguous(),
+            t(sl["w_hh"]), sl["b_hh"].contiguous(),
+            t(s["proj"]["w"]), s["proj"]["b"].contiguous())
+    return h_real.transpose(1, 2), h_fake.transpose(1, 2)

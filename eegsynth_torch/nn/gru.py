@@ -2,11 +2,23 @@
 
 Counterpart of ``eegsynth/nn/gru.py``. The input projection ``x @ W_ihᵀ + b_ih``
 has no sequential dependency, so it is hoisted out of the recurrence as one
-``torch.matmul`` over all T; only the small h-recurrence runs step by step, in
-:func:`eegsynth_torch.nn.gru_sequence.gru_sequence` (kernel K1 on the card).
-Gate math follows the PyTorch GRU definition (gate order r, z, n; reset gate
-applied to the projected hidden branch). The recurrence is never
-``torch.nn.GRU``: on CUDA that is cuDNN. Forward only.
+batched ``torch.matmul`` over all T; only the small h-recurrence runs step by
+step. Gate math follows the PyTorch GRU definition (gate order r, z, n; reset
+gate applied to the projected hidden branch). The recurrence is never
+``torch.nn.GRU``: on CUDA that is cuDNN.
+
+Two recurrences, picked by ``impl``:
+
+- ``"kernel"`` (default): :func:`eegsynth_torch.nn.gru_sequence.gru_sequence`,
+  kernel K1 forward and backward on the card, first-order differentiable.
+- ``"plain"``: the plain PyTorch loop, differentiable twice by autograd. The
+  counterpart of JAX's ``impl="xla"``, used only by the discriminator, because
+  R1 differentiates through it twice (``eegsynth/train/timegan.py:135-143``).
+  It is a path of its own, not a fallback for K1, and never touches K1's
+  launch counters.
+
+Weights may carry leading axes (the stacked buckets of the multi-bucket
+trainer, ``nb`` first); inputs then carry the same leading axes.
 """
 
 from __future__ import annotations
@@ -16,33 +28,40 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from eegsynth_torch.nn.gru_sequence import gru_sequence
-from eegsynth_torch.nn.layers import xavier_uniform
+from eegsynth_torch.nn.gru_sequence import gru_sequence, gru_sequence_reference
+from eegsynth_torch.nn.layers import linear, xavier_uniform
 
 
 class GRULayer(NamedTuple):
-    """One layer's weights, PyTorch layout: w_ih (3H, in), w_hh (3H, H),
-    b_ih / b_hh (3H,)."""
+    """One layer's weights, PyTorch layout: w_ih (…, 3H, in), w_hh (…, 3H, H),
+    b_ih / b_hh (…, 3H), with optional leading (bucket) axes."""
     w_ih: torch.Tensor
     w_hh: torch.Tensor
     b_ih: torch.Tensor
     b_hh: torch.Tensor
 
 
-def gru_apply_time_major(layer: GRULayer, x: torch.Tensor,
-                         h0: torch.Tensor) -> torch.Tensor:
-    """Time-major layer: x (T, B, in), h0 (B, H) → ys (T, B, H)."""
-    xp = torch.matmul(x, layer.w_ih.t()) + layer.b_ih          # (T, B, 3H)
-    return gru_sequence(xp.contiguous(), layer.w_hh.t().contiguous(),
-                        layer.b_hh[None, :].contiguous(), h0.contiguous())
+def gru_apply_time_major(layer: GRULayer, x: torch.Tensor, h0: torch.Tensor,
+                         impl: str = "kernel") -> torch.Tensor:
+    """Time-major layer: x (…, T, B, in), h0 (…, B, H) → ys (…, T, B, H)."""
+    xp = linear(x, layer.w_ih, layer.b_ih)                      # (…, T, B, 3H)
+    w_hh_t = layer.w_hh.transpose(-1, -2)
+    b_hh = layer.b_hh.unsqueeze(-2)
+    if impl == "plain":
+        return gru_sequence_reference(xp, w_hh_t, b_hh, h0)
+    if impl != "kernel":
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    return gru_sequence(xp.contiguous(), w_hh_t.contiguous(), b_hh.contiguous(),
+                        h0.contiguous())
 
 
-def gru_apply(layer: GRULayer, x: torch.Tensor,
-              h0: torch.Tensor | None = None) -> torch.Tensor:
-    """Run one GRU layer over a batch-first sequence: x (B, T, in) → (B, T, H)."""
+def gru_apply(layer: GRULayer, x: torch.Tensor, h0: torch.Tensor | None = None,
+              impl: str = "kernel") -> torch.Tensor:
+    """Run one GRU layer over a batch-first sequence: x (…, B, T, in) → (…, B, T, H)."""
     if h0 is None:
-        h0 = x.new_zeros((x.shape[0], layer.w_hh.shape[1]))
-    return gru_apply_time_major(layer, x.transpose(0, 1), h0).transpose(0, 1)
+        h0 = x.new_zeros((*x.shape[:-2], layer.w_hh.shape[-1]))
+    ys = gru_apply_time_major(layer, x.transpose(-3, -2), h0, impl)
+    return ys.transpose(-3, -2)
 
 
 class GRU(nn.Module):
@@ -79,7 +98,8 @@ class GRU(nn.Module):
 
 class GRUStack(nn.Module):
     """The reference's GRU wrapper (``<net>.rnn``) around the layers
-    (``<net>.rnn.rnn``). Forward only, so inter-layer dropout never applies."""
+    (``<net>.rnn.rnn``). Inter-layer dropout never applies: the module serves
+    trained weights, and the trainer takes single-layer stacks only."""
 
     def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 1, *,
                  generator: torch.Generator, device: torch.device | str):

@@ -24,6 +24,16 @@ def xavier_uniform(shape: tuple[int, ...], generator: torch.Generator,
     return out.uniform_(-bound, bound, generator=generator)
 
 
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x @ wᵀ + b`` for w (…, out, in), b (…, out) and x (…, *, in), where
+    the leading axes of ``w`` (stacked buckets) lead ``x`` too: one batched
+    product over every bucket."""
+    lead = w.shape[:-2]
+    flat = x.reshape(*lead, -1, x.shape[-1])
+    y = torch.matmul(flat, w.transpose(-1, -2)) + b.unsqueeze(-2)
+    return y.reshape(*x.shape[:-1], w.shape[-2])
+
+
 class Dense(nn.Module):
     """Linear layer, torch layout ``weight`` (out, in) and ``bias`` (out,);
     xavier-uniform weight + zero bias (reference init)."""
@@ -36,4 +46,4 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.weight.t()) + self.bias
+        return linear(x, self.weight, self.bias)

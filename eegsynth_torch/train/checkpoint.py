@@ -2,11 +2,20 @@
 
 Counterpart of ``eegsynth/train/checkpoint.py``, NPZ backend only. A
 checkpoint holds named trees (nested dicts and lists of arrays, e.g.
-``{"model": params}``); each leaf is stored under ``<name><path>``, where the
-path is written as ``jax.tree_util.keystr`` writes it, e.g.
-``model['generator']['gru'][0]['w_hh']``, plus a ``__meta__`` JSON blob. A
-``None`` subtree stores nothing, as in JAX. The key strings are parsed here
-without jax, so a model saved by either package loads in the other.
+``{"model": params, "optG": ..., "optD": ...}``); each leaf is stored under
+``<name><path>``, where the path is written as ``jax.tree_util.keystr`` writes
+it, plus a ``__meta__`` JSON blob. Three kinds of path segment:
+
+- ``['name']``, a dict key: ``model['generator']['gru'][0]['w_hh']``;
+- ``[i]``, a list or tuple index;
+- ``.name``, a NamedTuple field, as in the optax states the trainers save:
+  ``optD[1][0].count``, ``optD[1][0].mu['fc']['w']``. Such a node is an
+  :class:`Attrs` here.
+
+A ``None`` subtree stores nothing, as in JAX (an optax ``EmptyState`` stores
+nothing either), and a list index with nothing stored under it reads back as
+``None``. The key strings are parsed here without jax, so a checkpoint saved
+by either package loads in the other.
 
 Orbax checkpoint directories (``*.orbax``) are not read: NPZ is the format
 both packages share.
@@ -22,7 +31,12 @@ from typing import Any
 import numpy as np
 
 _ORBAX_SUFFIX = ".orbax"
-_SEGMENT = re.compile(r"\[(?:'([^']*)'|(\d+))\]")
+_SEGMENT = re.compile(r"\[(?:'([^']*)'|(\d+))\]|\.([A-Za-z_]\w*)")
+
+
+class Attrs(dict):
+    """A tree node whose children are attributes: the counterpart of a JAX
+    NamedTuple (an optax state). Written back as ``.name`` segments."""
 
 
 def _require_npz(path: Path | str) -> None:
@@ -51,7 +65,10 @@ def _to_numpy(leaf) -> np.ndarray:
 def _flatten(tree: Any, prefix: str, out: dict[str, np.ndarray]) -> None:
     if tree is None:
         return
-    if isinstance(tree, dict):
+    if isinstance(tree, Attrs):
+        for k in tree:
+            _flatten(tree[k], f"{prefix}.{k}", out)
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             _flatten(tree[k], f"{prefix}[{k!r}]", out)
     elif isinstance(tree, (list, tuple)):
@@ -61,30 +78,34 @@ def _flatten(tree: Any, prefix: str, out: dict[str, np.ndarray]) -> None:
         out[prefix] = _to_numpy(tree)
 
 
-def _parse_key(key: str) -> tuple[str, list[str | int]]:
-    """``"model['gru'][0]['w']"`` → ``("model", ["gru", 0, "w"])``."""
-    name, _, rest = key.partition("[")
-    rest = "[" + rest if rest else ""
+def _parse_key(key: str) -> tuple[str, list[tuple[str, str | int]]]:
+    """``"optD[1][0].mu['w']"`` → ``("optD", [("[]", 1), ("[]", 0),
+    (".", "mu"), ("[]", "w")])``: each segment with its kind."""
+    cut = min((i for i in (key.find("["), key.find(".")) if i >= 0),
+              default=len(key))
+    name, rest = key[:cut], key[cut:]
     path, pos = [], 0
     for m in _SEGMENT.finditer(rest):
         if m.start() != pos:
             break
-        path.append(m.group(1) if m.group(2) is None else int(m.group(2)))
+        if m.group(3) is not None:
+            path.append((".", m.group(3)))
+        else:
+            path.append(("[]", m.group(1) if m.group(2) is None else int(m.group(2))))
         pos = m.end()
-    if pos != len(rest):
+    if pos != len(rest) or not name:
         raise ValueError(f"unparseable checkpoint key {key!r}")
     return name, path
 
 
 def _listify(node):
-    """Turn the int-keyed dicts built while unflattening into lists."""
+    """Turn the int-keyed dicts built while unflattening into lists; an index
+    with nothing stored under it (an empty subtree) becomes ``None``."""
     if not isinstance(node, dict):
         return node
     if node and all(isinstance(k, int) for k in node):
-        if sorted(node) != list(range(len(node))):
-            raise ValueError(f"checkpoint list indices not contiguous: {sorted(node)}")
-        return [_listify(node[i]) for i in range(len(node))]
-    return {k: _listify(v) for k, v in node.items()}
+        return [_listify(node.get(i)) for i in range(max(node) + 1)]
+    return type(node)((k, _listify(v)) for k, v in node.items())
 
 
 def _unflatten(payload: dict[str, np.ndarray]) -> dict[str, Any]:
@@ -94,10 +115,12 @@ def _unflatten(payload: dict[str, np.ndarray]) -> dict[str, Any]:
         if not path:
             root[name] = arr
             continue
-        node = root.setdefault(name, {})
-        for seg in path[:-1]:
-            node = node.setdefault(seg, {})
-        node[path[-1]] = arr
+        # a node's type follows the kind of segment that indexes into it
+        kinds = [kind for kind, _ in path]
+        node = root.setdefault(name, Attrs() if kinds[0] == "." else {})
+        for (_, seg), next_kind in zip(path[:-1], kinds[1:]):
+            node = node.setdefault(seg, Attrs() if next_kind == "." else {})
+        node[path[-1][1]] = arr
     return {k: _listify(v) for k, v in root.items()}
 
 
@@ -121,8 +144,9 @@ def load_meta(path: Path | str) -> dict:
 
 
 def load_checkpoint(path: Path | str) -> tuple[dict[str, Any], dict]:
-    """Return (trees, meta): every named tree rebuilt as nested dicts and
-    lists of numpy arrays from the stored key paths."""
+    """Return (trees, meta): every named tree in the file (``model``, and
+    ``optG`` / ``optD`` where the trainer saved them) rebuilt as nested dicts,
+    :class:`Attrs` and lists of numpy arrays from the stored key paths."""
     _require_npz(path)
     with np.load(path) as data:   # close the zip handle: a server loads many
         meta = json.loads(bytes(data["__meta__"]).decode("utf-8"))

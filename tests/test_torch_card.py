@@ -1,8 +1,9 @@
-"""eegsynth_torch on a CUDA card: the Hopper GRU kernel against its plain
-version, its wrapper's checks, and the serving cascade chunked against
-one-shot.
+"""eegsynth_torch on a CUDA card: the Hopper kernels (K1 forward and
+backward, K2) against their plain versions, K1's bucket axis against separate
+launches, the wrappers' checks, a training step's gradients against the CPU,
+and the serving cascade chunked against one-shot.
 
-Every test skips without a card: the kernel has no CPU mode. This file
+Every test skips without a card: the kernels have no CPU mode. This file
 imports no jax, so it also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_card.py -q
@@ -13,7 +14,13 @@ import pytest
 import torch
 
 from eegsynth_torch.models.timegan import TimeGAN, TimeGANConfig
-from eegsynth_torch.nn.gru_sequence import gru_sequence, gru_sequence_reference
+from eegsynth_torch.nn.gru_sequence import (
+    gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
+    gru_sequence_reference,
+)
+from eegsynth_torch.nn.multigru import (
+    multigru_disc_inputs, multigru_disc_inputs_reference,
+)
 from eegsynth_torch.train.timegan import synthesize_from_noise
 
 pytestmark = pytest.mark.cuda
@@ -26,12 +33,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(T, B, H, device, seed=0):
+def _inputs(T, B, H, device, seed=0, lead=()):
     rng = np.random.default_rng(seed)
-    xp = rng.standard_normal((T, B, 3 * H)).astype(np.float32)
-    w = (rng.standard_normal((H, 3 * H)) / np.sqrt(H)).astype(np.float32)
-    b = (rng.standard_normal((1, 3 * H)) * 0.1).astype(np.float32)
-    h0 = rng.uniform(-0.5, 0.5, (B, H)).astype(np.float32)
+    xp = rng.standard_normal((*lead, T, B, 3 * H)).astype(np.float32)
+    w = (rng.standard_normal((*lead, H, 3 * H)) / np.sqrt(H)).astype(np.float32)
+    b = (rng.standard_normal((*lead, 1, 3 * H)) * 0.1).astype(np.float32)
+    h0 = rng.uniform(-0.5, 0.5, (*lead, B, H)).astype(np.float32)
     return [torch.from_numpy(a).to(device) for a in (xp, w, b, h0)]
 
 
@@ -60,8 +67,89 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
         gru_sequence(xp, w.t().contiguous().t(), b, h0)
     with pytest.raises(ValueError, match="several devices"):
         gru_sequence(xp, w.cpu(), b, h0)
-    with pytest.raises(RuntimeError, match="forward only"):
-        gru_sequence(xp.requires_grad_(), w, b, h0)
+    with pytest.raises(ValueError, match="H=160"):
+        gru_sequence(*_inputs(4, 2, 160, cuda_device))
+    ys = gru_sequence(xp, w, b, h0)[None]
+    with pytest.raises(TypeError, match="float32"):
+        gru_sequence_bwd(xp[None], w[None], b[None], h0[None], ys, ys.double())
+    xe, xg, weights = _multigru_inputs(1, 4, 2, 8, 16, 16, 8, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        multigru_disc_inputs(xe.transpose(1, 2).contiguous().transpose(1, 2), xg,
+                             *weights)
+    wide = _multigru_inputs(1, 4, 2, 64, 128, 128, 64, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        multigru_disc_inputs(wide[0], wide[1], *wide[2])
+
+
+# (nb, T, B, H): the training widths (generator/supervisor/recovery and the
+# embedder), a ragged batch at the H cap, a batch over one tile per SM
+@pytest.mark.parametrize("nb,T,B,H", [(18, 768, 63, 56), (18, 768, 63, 28),
+                                      (3, 1024, 37, 128), (2, 64, 133, 20)])
+def test_backward_kernel_matches_plain(cuda_device, nb, T, B, H):
+    inputs = _inputs(T, B, H, cuda_device, seed=H, lead=(nb,))
+    ys = gru_sequence_reference(*inputs)
+    d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(1))
+    d_ys = d_ys.to(cuda_device)
+    before = gru_sequence_bwd.launches
+    got = gru_sequence_bwd(*inputs, ys, d_ys)
+    ref = gru_sequence_bwd_reference(*inputs, ys, d_ys)
+    torch.cuda.synchronize()
+    assert gru_sequence_bwd.launches == before + 1
+    for g, r, name in zip(got, ref, ("dxp", "dw", "db", "dh0")):
+        assert g.shape == r.shape and torch.isfinite(g).all(), name
+        # f32 over up to 1024 reverse steps; dW and db sum T·B terms
+        scale = max(1.0, r.abs().max().item())
+        assert (g - r).abs().max().item() <= 1e-4 * scale, name
+
+
+def test_bucket_axis_equals_separate_launches(cuda_device):
+    nb, T, B, H = 5, 200, 19, 56
+    inputs = _inputs(T, B, H, cuda_device, seed=2, lead=(nb,))
+    stacked = gru_sequence(*inputs)
+    for k in range(nb):
+        one = gru_sequence(*(a[k].contiguous() for a in inputs))
+        assert torch.equal(stacked[k], one)
+
+
+def test_autograd_matches_cpu(cuda_device):
+    """Gradients through gru_sequence on the card (K1 forward and backward)
+    equal the CPU's (the plain versions)."""
+    cpu = [a.requires_grad_() for a in _inputs(96, 9, 28, "cpu", seed=3, lead=(2,))]
+    card = [a.detach().to(cuda_device).requires_grad_() for a in cpu]
+    w = torch.randn((2, 96, 9, 28), generator=torch.Generator().manual_seed(4))
+    (gru_sequence(*cpu) * w).sum().backward()
+    (gru_sequence(*card) * w.to(cuda_device)).sum().backward()
+    for a, b in zip(cpu, card):
+        assert (a.grad - b.grad.cpu()).abs().max().item() <= 1e-4
+
+
+def _multigru_inputs(nb, T, B, He, Hg, Hs, Z, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(device)  # noqa
+    xe, xg = r(nb, T, B, 3 * He), r(nb, T, B, 3 * Hg)
+    weights = [r(nb, He, 3 * He, sc=He ** -0.5), r(nb, 3 * He, sc=0.1),
+               r(nb, Hg, 3 * Hg, sc=Hg ** -0.5), r(nb, 3 * Hg, sc=0.1),
+               r(nb, Hg, Z, sc=Hg ** -0.5), r(nb, Z, sc=0.1),
+               r(nb, Z, 3 * Hs, sc=Z ** -0.5), r(nb, 3 * Hs, sc=0.1),
+               r(nb, Hs, 3 * Hs, sc=Hs ** -0.5), r(nb, 3 * Hs, sc=0.1),
+               r(nb, Hs, Z, sc=Hs ** -0.5), r(nb, Z, sc=0.1)]
+    return xe, xg, weights
+
+
+# the reference width at the training shape, the T > 800 width, ragged
+@pytest.mark.parametrize("nb,T,B,dims", [(18, 768, 63, (28, 56, 56, 28)),
+                                         (18, 1024, 63, (36, 72, 72, 36)),
+                                         (3, 50, 7, (8, 12, 12, 8))])
+def test_multigru_kernel_matches_plain(cuda_device, nb, T, B, dims):
+    xe, xg, weights = _multigru_inputs(nb, T, B, *dims, cuda_device)
+    before = multigru_disc_inputs.launches
+    got = multigru_disc_inputs(xe, xg, *weights)
+    ref = multigru_disc_inputs_reference(xe, xg, *weights)
+    torch.cuda.synchronize()
+    assert multigru_disc_inputs.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.isfinite(g).all()
+        assert (g - r).abs().max().item() <= 1e-4
 
 
 def test_cascade_chunked_equals_one_shot(cuda_device):
