@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's main paths once on one CUDA card and check them: synthesis
-serving, and multi-bucket TimeGAN training.
+"""Drive the port's main paths once on one CUDA card and check them: TimeGAN
+synthesis serving, multi-bucket TimeGAN training, and transformer-CGAN
+training and serving.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
@@ -14,7 +15,9 @@ failure is swallowed):
              process per source, in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the main paths give it, with both times: K1 forward
-             (serving and training shapes), K1 backward and K2 (training);
+             (serving and training shapes), K1 backward and K2 (training),
+             K3a, K3b and K3c (the CGAN's 96- and 768-token geometries, a
+             ragged T, a long T), and dense attention beside K3a;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -27,7 +30,15 @@ failure is swallowed):
              losses, every ckpt_best served back, the launch counts of K1
              forward, K1 backward and K2 against their expected counts, the
              median GAN-step time; then one GAN step against the CPU plain
-             path, and a per-layer split and profiler line of one GAN step.
+             path, and a per-layer split and profiler line of one GAN step;
+6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
+             heads 4, patch 8, batch 64) on 9 random posture buckets for 2
+             epochs with flash attention forced; artifacts, finite
+             metrics.csv, the K3 launch counts per step; one CGAN step
+             against the CPU plain path; a patch-1 generator served over
+             /synthesize_cgan with "auto" attention (K3a launches, X against
+             the CPU plain generator); a per-layer split and profiler line of
+             one CGAN step.
 
 The last three lines are a JSON object listing each kernel (its launches in
 the main paths' runs, its error against the plain version and both times),
@@ -52,9 +63,14 @@ import numpy as np
 import torch
 
 from eegsynth_torch import _build
-from eegsynth_torch.convert import from_jax_params, to_jax_params
+from eegsynth_torch.convert import from_jax_params, to_jax_params, tree_to_numpy
+from eegsynth_torch.models.cgan_transformer import generator_apply as cgan_generator_apply
 from eegsynth_torch.models.timegan import (
     TimeGAN, TimeGANConfig, sample_noise, timegan_init_stacked,
+)
+from eegsynth_torch.nn.attention import (
+    attention_dense, flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain,
+    flash_forward, flash_forward_plain, set_attention_impl,
 )
 from eegsynth_torch.nn.gru_sequence import (
     gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
@@ -65,6 +81,7 @@ from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
 )
 from eegsynth_torch.serve import ModelRegistry, make_server
+from eegsynth_torch.train import cgan as cgan_train
 from eegsynth_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from eegsynth_torch.train.optim import make_gan_opts
 from eegsynth_torch.train.timegan import (
@@ -90,6 +107,13 @@ BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128))
 # K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims, and adaptive_dims'
 # T > 800 dims z36/h72
 MULTIGRU_SHAPES = ((18, 768, 63, (28, 56, 56, 28)), (18, 1024, 63, (36, 72, 72, 36)))
+# K3 (B, H, T, D): the transformer CGAN's training geometry (96 tokens at
+# patch 8), its patch-1 geometry (768 tokens), a ragged T with an odd D, and
+# a long T
+ATTN_SHAPES = ((64, 4, 96, 64), (64, 4, 768, 64), (2, 3, 200, 48), (8, 4, 4096, 64))
+ATTN_FWD_TOL = 1e-5    # o and lse, absolute: f32 sums in another order
+ATTN_BWD_RTOL = 1e-4   # dq, dk, dv, relative to the largest magnitude: sums
+                       # of up to 4096 terms in another order
 # Training: 18 buckets (9 postures x 2 conditions) of 63 random windows
 N_BUCKETS, N_WINDOWS, SEQ_LEN, CHANNELS = 18, 63, 768, 14
 GAN_STEPS = 4
@@ -99,6 +123,24 @@ GAN_STEPS = 4
 # absolute, a fifth of lr_g: Adam's first update is lr·g/(|g| + 1e-8), so a
 # gradient within rounding error of zero may land anywhere in ±lr·|g|/1e-8.
 STEP_LOG_RTOL, STEP_PARAM_ATOL = 1e-4, 2e-4
+# Transformer CGAN (v1) at the JAX defaults: dim 256, depth 4, heads 4,
+# patch 8 (96 tokens), batch 64; 9 posture buckets of 64 random windows give
+# 9 steps per epoch, so R1 fires at steps 0 and 8. The generator's attention
+# is forced to flash: per step 8 K3a (4 blocks x the D step's and the G
+# step's forward), 4 K3b and 4 K3c (the G step's backward); the
+# discriminator launches none.
+CGAN_WINDOWS, CGAN_EPOCHS = 64, 2
+CGAN_K3 = (8, 4, 4)
+# One CGAN step on the card against the CPU plain path (B 8, full width):
+# logs 1e-4 relative; Adam's first moments (the gradients) 1e-4 of each
+# leaf's largest; parameters 1e-5, except elements whose gradient sits at
+# rounding level (|g| <= 1e-5), which Adam's first step moves by about
+# lr·sign(g) whatever its size: those are held through the gradient.
+CGAN_LOG_RTOL, CGAN_MU_RTOL, CGAN_PARAM_ATOL, CGAN_GRAD_FLOOR = 1e-4, 1e-4, 1e-5, 1e-5
+# Serving: a patch-1 generator (768 tokens, so "auto" takes K3a) at
+# serve_batch 256; the card's X against the CPU plain generator on the same
+# noise for the first rows
+CGAN_SERVE_TOL, CGAN_SERVE_CHECK_ROWS = 1e-4, 32
 
 
 def fail(msg: str) -> None:
@@ -130,7 +172,7 @@ def phase_build() -> None:
     log = path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("entry function", "registers", "spill", "smem")):
                 print(f"[build] {line.strip()}", flush=True)
 
 
@@ -166,7 +208,7 @@ def phase_kernels(smi: str) -> dict:
     Returns, per kernel, the largest error and the times at its headline
     shape (K1 forward: the serving shape; the others: the training shape)."""
     return {"gru_sequence": _check_k1_fwd(smi), "gru_sequence_bwd": _check_k1_bwd(smi),
-            "multigru_disc_inputs": _check_k2(smi)}
+            "multigru_disc_inputs": _check_k2(smi), **_check_k3(smi)}
 
 
 def _check_k1_fwd(smi: str) -> dict:
@@ -281,6 +323,73 @@ def _check_k2(smi: str) -> dict:
     return {"max_abs_err": worst, **head}
 
 
+def _attn_inputs(B, H, T, D, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((B, H, T, D), generator=g).cuda() for _ in range(4)]
+
+
+def _check_k3(smi: str) -> dict:
+    """K3a (o, lse within ATTN_FWD_TOL absolute), K3b and K3c (within
+    ATTN_BWD_RTOL of the largest magnitude) against their plain versions at
+    ATTN_SHAPES; then dense attention's time at 96 and 768 tokens, beside
+    K3a's, for where "auto"'s 512-token threshold stands on this card."""
+    heads = {}
+    worst = {"flash_forward": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    for i, (B, H, T, D) in enumerate(ATTN_SHAPES):
+        q, k, v, do = _attn_inputs(B, H, T, D, seed=30 + i)
+        with torch.no_grad():
+            o, lse = flash_forward(q, k, v)
+            o_ref, lse_ref = flash_forward_plain(q, k, v)
+            delta = (do * o_ref).sum(-1)
+            dq = flash_dq(q, k, v, do, lse_ref, delta)
+            dk, dv = flash_dkv(q, k, v, do, lse_ref, delta)
+            dq_ref = flash_dq_plain(q, k, v, do, lse_ref, delta)
+            dk_ref, dv_ref = flash_dkv_plain(q, k, v, do, lse_ref, delta)
+            torch.cuda.synchronize()
+            errs = {"flash_forward": max((o - o_ref).abs().max().item(),
+                                         (lse - lse_ref).abs().max().item())}
+            rel = {}
+            for name, pairs in (("flash_dq", ((dq, dq_ref),)),
+                                ("flash_dkv", ((dk, dk_ref), (dv, dv_ref)))):
+                errs[name] = max((g - r).abs().max().item() for g, r in pairs)
+                rel[name] = max((g - r).abs().max().item() / r.abs().max().item()
+                                for g, r in pairs)
+            finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, dq, dk, dv))
+            reps = 10 if T < 4096 else 5
+            times = {
+                "flash_forward": (_time_ms(lambda: flash_forward(q, k, v), reps),
+                                  _time_ms(lambda: flash_forward_plain(q, k, v), 3)),
+                "flash_dq": (_time_ms(lambda: flash_dq(q, k, v, do, lse_ref, delta), reps),
+                             _time_ms(lambda: flash_dq_plain(q, k, v, do, lse_ref,
+                                                             delta), 3)),
+                "flash_dkv": (_time_ms(lambda: flash_dkv(q, k, v, do, lse_ref, delta),
+                                       reps),
+                              _time_ms(lambda: flash_dkv_plain(q, k, v, do, lse_ref,
+                                                               delta), 3))}
+        for name in worst:
+            ms, plain_ms = times[name]
+            tol = (f"(tol {ATTN_FWD_TOL:g} on o and lse)" if name == "flash_forward"
+                   else f"= {rel[name]:.3e} relative (tol {ATTN_BWD_RTOL:g})")
+            print(f"[kernel] {name} B={B} H={H} T={T} D={D}: max|diff|={errs[name]:.3e} "
+                  f"{tol} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms | {smi}",
+                  flush=True)
+            worst[name] = max(worst[name], errs[name])
+            heads.setdefault(name, {"ms": ms, "plain_ms": plain_ms})
+        if (not finite or errs["flash_forward"] > ATTN_FWD_TOL
+                or rel["flash_dq"] > ATTN_BWD_RTOL or rel["flash_dkv"] > ATTN_BWD_RTOL):
+            fail(f"flash attention disagrees with its plain versions at B={B} H={H} "
+                 f"T={T} D={D}: {errs} relative {rel} finite={finite}")
+    for B, H, T, D in ((64, 4, 96, 64), (64, 4, 768, 64)):
+        q, k, v, _ = _attn_inputs(B, H, T, D, seed=40)
+        with torch.no_grad():
+            dense_ms = _time_ms(lambda: attention_dense(q, k, v), 10)
+            flash_ms = _time_ms(lambda: flash_forward(q, k, v), 10)
+        print(f"[kernel] attention forward B={B} H={H} T={T} D={D}: dense "
+              f"{dense_ms:.4f} ms, K3a {flash_ms:.4f} ms ('auto' takes K3a on the "
+              f"card from T=512) | {smi}", flush=True)
+    return {name: {"max_abs_err": worst[name], **heads[name]} for name in worst}
+
+
 def _write_runs(root: Path) -> tuple[Path, Path]:
     runs, real = root / "runs", root / "real"
     real.mkdir(parents=True)
@@ -303,18 +412,18 @@ def _write_runs(root: Path) -> tuple[Path, Path]:
     return runs, real
 
 
-def _post(addr, body: dict) -> tuple[np.ndarray, float]:
+def _post(addr, body: dict, path: str = "/synthesize") -> tuple[np.ndarray, float]:
     conn = http.client.HTTPConnection(*addr, timeout=600)
     t0 = time.perf_counter()
     try:
-        conn.request("POST", "/synthesize", body=json.dumps(body))
+        conn.request("POST", path, body=json.dumps(body))
         resp = conn.getresponse()
         data = resp.read()
     finally:
         conn.close()
     wall = time.perf_counter() - t0
     if resp.status != 200:
-        fail(f"POST /synthesize {body} -> {resp.status}: {data[:300]!r}")
+        fail(f"POST {path} {body} -> {resp.status}: {data[:300]!r}")
     if body.get("format") == "json":
         return np.asarray(json.loads(data)["X"], np.float32), wall
     with np.load(io.BytesIO(data)) as npz:
@@ -715,6 +824,292 @@ def phase_train_layers(smi: str, device: str = "cuda") -> None:
         for e in top), flush=True)
 
 
+# ------------------------------------------------------------------
+# Transformer CGAN
+# ------------------------------------------------------------------
+
+def _write_posture_buckets(root: Path, n: int, condition: str = "no_exo") -> Path:
+    """posture{1..9}_{condition}.npz of random (n, 768, 14) windows with the
+    keys load_condition_dataset reads, from a seed."""
+    data = root / "cgan_data"
+    data.mkdir()
+    rng = np.random.default_rng(1)
+    for posture in range(1, 10):
+        np.savez(data / f"posture{posture}_{condition}.npz",
+                 X=rng.uniform(0, 1, (n, SEQ_LEN, CHANNELS)).astype(np.float32),
+                 posture=np.int32(posture), fs=np.float32(128.0),
+                 scale_min=rng.uniform(-50, -10, CHANNELS).astype(np.float32),
+                 scale_range=rng.uniform(20, 100, CHANNELS).astype(np.float32),
+                 ch_names=np.array([f"ch{i}" for i in range(CHANNELS)]))
+    return data
+
+
+def _k3_counters():
+    return (flash_forward, flash_dq, flash_dkv)
+
+
+def phase_cgan_train(smi: str, device: str = "cuda") -> dict:
+    """train_one_condition (v1) at full width with the generator's attention
+    forced to flash: artifacts, finite metrics.csv, and the K3 launch counts
+    of the run against CGAN_K3 per step. With ``device="cpu"`` it rehearses
+    the phase (the counts then stay 0)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _write_posture_buckets(Path(tmp), CGAN_WINDOWS)
+        runs = Path(tmp) / "cgan_runs"
+        for c in _k3_counters():
+            c.launches = 0
+        set_attention_impl("flash")
+        try:
+            res = cgan_train.train_one_condition(
+                data, runs, "no_exo", device=device, arch="transformer",
+                epochs=CGAN_EPOCHS, save_every=CGAN_EPOCHS, print_every=1)
+        finally:
+            set_attention_impl("auto")
+        got = tuple(c.launches for c in _k3_counters())
+        steps = res["steps_per_epoch"] * CGAN_EPOCHS
+        want = tuple(n * steps for n in CGAN_K3)
+        if torch.device(device).type != "cuda":
+            want = (0, 0, 0)
+        secs = res["epoch_seconds"]
+        print(f"[cgan-train] v1 no_exo, 9 x ({CGAN_WINDOWS}, {SEQ_LEN}, {CHANNELS}), "
+              f"dim 256 depth 4 heads 4 patch 8, batch 64: {steps} steps in "
+              f"{sum(secs):.2f} s (epochs {['%.3f' % t for t in secs]} s; epoch 2: "
+              f"{secs[-1] / res['steps_per_epoch'] * 1e3:.1f} ms per step, R1 at steps "
+              f"0 and 8); launches flash_forward {got[0]} (expected {want[0]}), "
+              f"flash_dq {got[1]} (expected {want[1]}), flash_dkv {got[2]} "
+              f"(expected {want[2]}) | {smi}", flush=True)
+        if got != want:
+            fail(f"CGAN training launch counts {got} != expected {want}")
+        run = runs / "no_exo"
+        names = ["hparams.json", "metrics.csv", f"checkpoint_epoch{CGAN_EPOCHS}.npz",
+                 f"CGAN_generator_no_exo_epoch{CGAN_EPOCHS}.npz",
+                 "CGAN_generator_no_exo_best.npz", "CGAN_generator_no_exo_last.npz",
+                 "CGAN_globalD_no_exo_best.npz", "CGAN_localD_no_exo_best.npz"]
+        missing = [n for n in names if not (run / n).exists()]
+        if missing:
+            fail(f"CGAN artifacts missing {missing}")
+        rows = np.loadtxt(run / "metrics.csv", delimiter=",", skiprows=1, ndmin=2)
+        if rows.shape != (CGAN_EPOCHS, 11) or not np.isfinite(rows).all():
+            fail(f"CGAN metrics.csv {rows.shape} finite {np.isfinite(rows).all()}")
+        G, bn, cfg, _ = cgan_train.load_generator(
+            run / "CGAN_generator_no_exo_best.npz", device=device)
+        x = cgan_train.generate_batch(G, bn, cfg, torch.Generator(device=device)
+                                      .manual_seed(0), 16, 3)
+        if x.shape != (16, CHANNELS, SEQ_LEN) or not torch.isfinite(x).all():
+            fail(f"the best CGAN generator gave {tuple(x.shape)}")
+        print(f"[cgan-train] artifacts written; metrics.csv epoch {CGAN_EPOCHS}: "
+              f"g_loss {rows[-1, 1]:.4f}, d_loss {rows[-1, 2]:.4f}; the best "
+              f"generator reloads and generates", flush=True)
+    return dict(zip(("flash_forward", "flash_dq", "flash_dkv"), got))
+
+
+def _perturbed_generator(cfg, g: torch.Generator) -> dict:
+    """A generator on the host whose adaLN weights are 0.02·N(0, 1), not
+    zero: a fresh generator's blocks are the identity, and its attention's
+    gradient exactly zero, so a check from init would check nothing."""
+    G, _ = cgan_train.generator_init(cfg, g, device="cpu")
+    for ada in [G[f"blk{i}"]["ada"] for i in range(cfg.depth)] + [G["head_ada"]]:
+        ada["w"] = 0.02 * torch.randn(ada["w"].shape, generator=g)
+    return G
+
+
+def _cgan_step_inputs(B: int, device, seed: int):
+    """A full-width v1 model with perturbed adaLN weights, fresh Adam states,
+    9 x B random windows on ``device``, and one step's draws made on the
+    host and moved to ``device``."""
+    hp = cgan_train.CGANHParams(arch="transformer", batch_size=B)
+    cfg = cgan_train.build_cfg(hp, 9)
+    g = torch.Generator().manual_seed(seed)
+    G = _perturbed_generator(cfg, g)
+    D = {k: cgan_train.disc_init(cfg, g, device="cpu") for k in ("dg", "dl")}
+    X = torch.rand((9 * B, CHANNELS, SEQ_LEN), generator=g)
+    table = torch.arange(9 * B).reshape(9, B)
+    counts = torch.full((9,), float(B))
+    draws = cgan_train.draw_cgan_step(g, hp, cfg, table, counts, prewarm=False,
+                                      device="cpu")
+    to = lambda tree: tree_map(lambda t: t.to(device), tree)  # noqa: E731
+    return hp, cfg, to(G), to(D), X.to(device), cgan_train.draws_to(draws, device)
+
+
+def _run_cgan_step(hp, cfg, G, D, X, draws, step_idx, timer=None):
+    optG = cgan_train.Adam(hp.lr_g, hp.beta1, hp.beta2)
+    optD = cgan_train.Adam(hp.lr_d, hp.beta1, hp.beta2)
+    return cgan_train.cgan_step(G, {}, D, G, optG.init(G), optD.init(D), X, draws,
+                                step_idx, 0.1, cfg=cfg, hp=hp, optG=optG, optD=optD,
+                                prewarm=False, timer=timer)
+
+
+def phase_cgan_step_check(smi: str, device: str = "cuda") -> None:
+    """One CGAN step (R1 on, flash forced) on the card against the same step
+    on the CPU with the plain versions: B 8, full width, the same draws."""
+    hp, cfg, G, D, X, draws = _cgan_step_inputs(8, device, seed=4)
+    cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    set_attention_impl("flash")
+    try:
+        t0 = time.perf_counter()
+        card = _run_cgan_step(hp, cfg, G, D, X, draws, 0)
+        _sync(device)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = _run_cgan_step(hp, cfg, cpu(G), cpu(D), X.cpu(),
+                              cgan_train.draws_to(draws, "cpu"), 0)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        set_attention_impl("auto")
+    logs, ref = card[-1].cpu(), host[-1]
+    log_err = ((logs - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    mu_err = p_err = 0.0
+    excused = 0
+    for params, ref_params, state, ref_state in ((card[0], host[0], card[4], host[4]),
+                                                 (card[2], host[2], card[5], host[5])):
+        for p, pr, m, mr in zip(tree_leaves(params), tree_leaves(ref_params),
+                                tree_leaves(state.mu), tree_leaves(ref_state.mu)):
+            m, p = m.cpu(), p.cpu()
+            mu_err = max(mu_err, (m - mr).abs().max().item()
+                         / max(1.0, mr.abs().max().item()))
+            far = (p - pr).abs() > CGAN_PARAM_ATOL
+            small_g = mr.abs() / (1 - hp.beta1) <= CGAN_GRAD_FLOOR
+            if (far & ~small_g).any():
+                p_err = max(p_err, (p - pr).abs()[far & ~small_g].max().item())
+            excused += int((far & small_g).sum())
+    print(f"[check] CGAN step v1 B=8 dim 256 depth 4, R1 on, flash forced, card vs "
+          f"CPU plain path: logs card {[round(v, 6) for v in logs.tolist()]}, CPU "
+          f"{[round(v, 6) for v in ref.tolist()]}", flush=True)
+    print(f"[check]   logs max relative diff {log_err:.3e} (tol {CGAN_LOG_RTOL:g}); "
+          f"Adam first moments {mu_err:.3e} of each leaf's largest (tol "
+          f"{CGAN_MU_RTOL:g}); parameters beyond {CGAN_PARAM_ATOL:g}: {p_err:.3e} "
+          f"(must be 0), {excused} elements with |g| <= {CGAN_GRAD_FLOOR:g} excused; "
+          f"step {card_s:.3f} s on the card, {cpu_s:.3f} s on the CPU | {smi}",
+          flush=True)
+    if (not torch.isfinite(logs).all() or log_err > CGAN_LOG_RTOL
+            or mu_err > CGAN_MU_RTOL or p_err > 0):
+        fail(f"the card's CGAN step disagrees with the CPU: logs {log_err}, "
+             f"moments {mu_err}, params {p_err}")
+
+
+def phase_cgan_serve(smi: str, device: str = "cuda") -> int:
+    """A patch-1 transformer generator (768 tokens) served over HTTP with
+    "auto" attention: K3a must fire depth x micro-batches times; the card's X
+    against the CPU plain generator on the same noise. Returns the K3a
+    launches of the served run."""
+    hp = cgan_train.CGANHParams(arch="transformer", tf_patch=1)
+    cfg = cgan_train.build_cfg(hp, 9)
+    G = _perturbed_generator(cfg, torch.Generator().manual_seed(5))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "cgan"
+        (root / "no_exo").mkdir(parents=True)
+        save_checkpoint(root / "no_exo" / "CGAN_generator_no_exo_best.npz",
+                        {"model": tree_to_numpy(G), "bn": {}},
+                        cgan_train.generator_meta(hp, 9, "no_exo"))
+        reg = ModelRegistry(None, None, device=device, cgan_root=root)
+        srv = make_server(reg, "127.0.0.1", 0, SERVE_BATCH, TIME_CHUNK)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            health = _get(srv.server_address, "/healthz")
+            if health != {"status": "ok", "runs": [], "cgan": ["no_exo"]}:
+                fail(f"/healthz: {health}")
+            body = {"model": "no_exo", "label": 4, "n": SERVE_BATCH, "seed": 3}
+            walls = []
+            for _ in range(3):       # three identical requests; the last is read
+                flash_forward.launches = 0
+                X, wall = _post(srv.server_address, body, "/synthesize_cgan")
+                walls.append(wall)
+            launches = flash_forward.launches
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+    want = cfg.depth if torch.device(device).type == "cuda" else 0
+    print(f"[serve-cgan] POST /synthesize_cgan {json.dumps(body)} -> {X.shape}, "
+          f"patch 1 ({cfg.tokens} tokens), 'auto' attention: "
+          f"{['%.1f' % (w * 1e3) for w in walls]} ms, "
+          f"{SERVE_BATCH / walls[-1]:.1f} windows/s warm; flash_forward launches "
+          f"{launches} (expected {want}) | {smi}", flush=True)
+    if X.shape != (SERVE_BATCH, SEQ_LEN, CHANNELS) or not np.isfinite(X).all():
+        fail(f"/synthesize_cgan returned {X.shape}")
+    if launches != want:
+        fail(f"/synthesize_cgan launched flash_forward {launches} times, "
+             f"expected {want}")
+    gen = torch.Generator(device=device).manual_seed(body["seed"])
+    z = torch.randn((SERVE_BATCH, cfg.noise_dim), generator=gen, device=device)
+    rows = min(CGAN_SERVE_CHECK_ROWS, SERVE_BATCH)
+    with torch.inference_mode():
+        ref = cgan_generator_apply(G, {}, z[:rows].cpu(),
+                                   torch.full((rows,), body["label"]), cfg,
+                                   train=False)[0]
+    err = np.abs(X[:rows] - ref.numpy().transpose(0, 2, 1)).max()
+    print(f"[serve-cgan] served X vs the CPU plain generator on the same noise, "
+          f"first {rows} rows: max|diff|={err:.3e} (tol {CGAN_SERVE_TOL:g})",
+          flush=True)
+    if err > CGAN_SERVE_TOL:
+        fail(f"served CGAN X disagrees with the CPU plain generator: {err}")
+    return launches
+
+
+def phase_cgan_layers(smi: str, device: str = "cuda") -> None:
+    """Where one training step's time goes at the training shape (B 64,
+    full width, flash forced): host clock per layer, synchronised at each
+    layer's end, for a step without R1 and one with; then the card's busy
+    share and the K3 kernels' device time over one step (no R1)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    hp, cfg, G, D, X, draws = _cgan_step_inputs(64, device, seed=6)
+    set_attention_impl("flash")
+    try:
+        _run_cgan_step(hp, cfg, G, D, X, draws, 1)                 # warm-up
+        _sync(device)
+        for step_idx, what in ((1, "no R1"), (0, "R1")):
+            split: dict[str, float] = {}
+            last = [time.perf_counter()]
+
+            def timer(name):
+                _sync(device)
+                now = time.perf_counter()
+                split[name] = split.get(name, 0.0) + (now - last[0]) * 1e3
+                last[0] = now
+
+            t0 = last[0] = time.perf_counter()
+            _run_cgan_step(hp, cfg, G, D, X, draws, step_idx, timer)
+            total = (time.perf_counter() - t0) * 1e3
+            names = {"d_step": "D step (G forward: 4 K3a; 4 D passes, dense attention"
+                               + (", R1 double backward" if step_idx == 0 else "") + ")",
+                     "g_forward": "G-step forward (4 K3a, D passes, losses)",
+                     "g_backward": "G-step backward (4 K3b + 4 K3c)",
+                     "optimizers": "Adam G and D, EMA"}
+            print(f"[layers] one CGAN step B=64 dim 256 depth 4, {what}: {total:.1f} ms: "
+                  + "; ".join(f"{names[k]} {v:.1f} ms" for k, v in split.items())
+                  + f" | {smi}", flush=True)
+        if torch.device(device).type != "cuda":
+            return
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _run_cgan_step(hp, cfg, G, D, X, draws, 1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        set_attention_impl("auto")
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    dev_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+
+    def kernel_ms(tag):
+        return sum(e.self_device_time_total for e in on_card if tag in e.key) / 1e3
+
+    k3 = [kernel_ms(t) for t in ("flash_fwd_kernel", "flash_dq_kernel",
+                                 "flash_dkv_kernel")]
+    print(f"[profile] one CGAN step B=64 (no R1): device time {dev_ms:.1f} ms in "
+          f"{wall_ms:.1f} ms wall ({100 * dev_ms / wall_ms:.1f} % busy) over "
+          f"{sum(e.count for e in on_card)} device operations: K3a {k3[0]:.3f} ms, "
+          f"K3b {k3[1]:.3f} ms, K3c {k3[2]:.3f} ms ({100 * sum(k3) / dev_ms:.1f} % of "
+          f"device time) | {smi}", flush=True)
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
+    print("[profile] largest device operations: " + "; ".join(
+        f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
+        for e in top), flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -726,8 +1121,13 @@ def main() -> None:
     train_launches = phase_train(smi)
     phase_step_check(smi)
     phase_train_layers(smi)
-    launches = {**train_launches,
-                "gru_sequence": serve_launches + train_launches["gru_sequence"]}
+    cgan_launches = phase_cgan_train(smi)
+    phase_cgan_step_check(smi)
+    cgan_serve_launches = phase_cgan_serve(smi)
+    phase_cgan_layers(smi)
+    launches = {**train_launches, **cgan_launches,
+                "gru_sequence": serve_launches + train_launches["gru_sequence"],
+                "flash_forward": cgan_launches["flash_forward"] + cgan_serve_launches}
     for k, n in launches.items():
         if n < 1:
             fail(f"the main paths launched {k} no time")
@@ -738,7 +1138,13 @@ def main() -> None:
                "gru_sequence_bwd": ("eegsynth_torch/csrc/gru_seq.cu",
                                     "eegsynth/nn/pallas_gru.py:81"),
                "multigru_disc_inputs": ("eegsynth_torch/csrc/multigru.cu",
-                                        "eegsynth/nn/pallas_multigru.py:156")}
+                                        "eegsynth/nn/pallas_multigru.py:156"),
+               "flash_forward": ("eegsynth_torch/csrc/flash_attn.cu",
+                                 "eegsynth/nn/attention.py:130"),
+               "flash_dq": ("eegsynth_torch/csrc/flash_attn.cu",
+                            "eegsynth/nn/attention.py:231"),
+               "flash_dkv": ("eegsynth_torch/csrc/flash_attn.cu",
+                             "eegsynth/nn/attention.py:248")}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[k], "max_abs_err": kern[k]["max_abs_err"],

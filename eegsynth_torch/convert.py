@@ -1,4 +1,6 @@
-"""Carry TimeGAN weights between the JAX package's params tree and the port.
+"""Carry weights between the JAX package's params trees and the port.
+
+TimeGAN:
 
 The JAX package keeps TimeGAN parameters as a nested dict
 (``params["generator"]["gru"][0]["w_hh"]``, …; ``proj`` is ``None`` when
@@ -10,6 +12,13 @@ one ``scripts/convert_torch_ckpt.py`` does for reference checkpoints.
 The multi-bucket trainer keeps the JAX tree itself, stacked over a leading
 bucket axis (:func:`stack_params`); :func:`unstack_params` slices one bucket
 out for a checkpoint or for ``from_jax_params``.
+
+Transformer CGAN: the port keeps the JAX tree itself (``{"blk0": {"attn":
+{"wq": {"w", "b"}}}}``) for parameters and optimizer states alike, so
+converting is a change of leaf type: :func:`tree_to_device` takes a tree of
+numpy arrays (as ``train.checkpoint.load_checkpoint`` returns it, from a
+checkpoint written by either package) onto a device, and
+:func:`tree_to_numpy` brings a tree of tensors back for a checkpoint.
 """
 
 from __future__ import annotations
@@ -83,3 +92,14 @@ def unstack_params(params: dict[str, Any], b: int) -> dict[str, Any]:
     """Bucket ``b`` of a stacked tree as numpy arrays, ready for
     :func:`from_jax_params` or a checkpoint."""
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), take(params, b))
+
+
+def tree_to_device(tree: Any, *, device: torch.device | str) -> Any:
+    """A tree of numpy arrays → the same tree of tensors on ``device``
+    (dtypes kept; ``Attrs`` nodes and ``None`` subtrees kept)."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """A tree of tensors → the same tree of numpy arrays on the host."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)

@@ -1,4 +1,5 @@
-"""Dense layer + initializers (PyTorch-parity xavier_uniform).
+"""Dense layer + initializers (PyTorch-parity xavier_uniform and nn.Linear's
+default).
 
 Counterpart of ``eegsynth/nn/layers.py``. Weights are drawn on the host from
 the caller's ``torch.Generator`` and then moved to ``device``, so one seed
@@ -22,6 +23,18 @@ def xavier_uniform(shape: tuple[int, ...], generator: torch.Generator,
     bound = math.sqrt(6.0 / (fan_in + fan_out))
     out = torch.empty(shape, dtype=dtype, device=generator.device)
     return out.uniform_(-bound, bound, generator=generator)
+
+
+def torch_dense_init(in_dim: int, out_dim: int, generator: torch.Generator,
+                     dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """torch.nn.Linear's default init (kaiming_uniform with a = √5): weight
+    (out, in) and bias (out,) both ~ U(±1/√in_dim), as the JAX package's
+    ``torch_dense_init``. Drawn on the generator's device."""
+    bound = 1.0 / math.sqrt(in_dim)
+    kw = {"dtype": dtype, "device": generator.device}
+    w = torch.empty((out_dim, in_dim), **kw).uniform_(-bound, bound, generator=generator)
+    b = torch.empty((out_dim,), **kw).uniform_(-bound, bound, generator=generator)
+    return {"w": w, "b": b}
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

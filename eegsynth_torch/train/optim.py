@@ -1,4 +1,13 @@
-"""The TimeGAN trainers' optimizers, with optax semantics, for stacked buckets.
+"""The trainers' optimizers, with optax semantics.
+
+:class:`Adam` is ``optax.adam(lr, b1, b2)`` on one (unstacked) tree, for the
+CGAN trainer: no clip, eps 1e-8 outside the square root, bias correction on
+the update count, and a constant rate or a schedule of the update count.
+:meth:`Adam.state_tree` gives optax's layout, ``(ScaleByAdamState(count,
+mu, nu), EmptyState())``, or ``ScaleByScheduleState(count)`` second when the
+rate is scheduled.
+
+The rest of this module serves the TimeGAN trainers, on stacked buckets.
 
 Counterpart of ``_make_opt``, ``_multistep_lr`` and ``make_gan_opts``
 (``eegsynth/train/timegan.py:114-132,293-305``):
@@ -26,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from eegsynth_torch.train.checkpoint import Attrs
@@ -106,3 +116,46 @@ def make_gan_opts(hp) -> tuple[Optimizer, Optimizer]:
     optG = Optimizer(_multistep_lr(hp.lr_g, milestones), hp.grad_clip,
                      hp.beta1, hp.beta2)
     return optD, optG
+
+
+class Adam:
+    """``optax.adam(lr, b1, b2)`` on an unstacked tree; ``lr`` is a float or
+    a schedule of the update count (``train.cgan.make_lr``).
+
+    Every leaf of the tree has moments, including leaves that receive a zero
+    gradient (the spectral-norm ``u`` vectors, which JAX's
+    ``stop_gradient`` keeps out of the loss): optax keeps moments for every
+    leaf, and the checkpoint layout follows it."""
+
+    def __init__(self, lr: float | Callable[[int], float], b1: float, b2: float,
+                 eps: float = 1e-8):
+        self.scheduled = callable(lr)
+        self.lr = lr if callable(lr) else (lambda count, lr=lr: lr)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: Any) -> OptState:
+        return OptState(0, tree_map(torch.zeros_like, params),
+                        tree_map(torch.zeros_like, params))
+
+    @torch.no_grad()
+    def update(self, grads: Any, state: OptState, params: Any):
+        """One step: returns (new params, new state)."""
+        b1, b2, count = self.b1, self.b2, state.count + 1
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
+        nu = tree_map(lambda g, v: (1 - b2) * g ** 2 + b2 * v, grads, state.nu)
+        # optax raises the float32 decay to the int32 count in float32
+        f32 = np.float32
+        bc1, bc2 = float(1 - f32(b1) ** count), float(1 - f32(b2) ** count)
+        step = -self.lr(state.count)
+
+        def apply(p, m, v):
+            return p + step * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps))
+
+        return tree_map(apply, params, mu, nu), OptState(count, mu, nu)
+
+    def state_tree(self, state: OptState) -> list:
+        """The state in optax's layout: ``[ScaleByAdamState,
+        ScaleByScheduleState | None]`` (``None`` for the empty state)."""
+        count = torch.tensor(state.count, dtype=torch.int32)
+        adam = Attrs(count=count, mu=state.mu, nu=state.nu)
+        return [adam, Attrs(count=count.clone()) if self.scheduled else None]

@@ -1,0 +1,124 @@
+"""eegsynth_torch.nn.attention against eegsynth.nn.attention on the CPU: the
+plain versions of the flash kernels K3a, K3b and K3c against the Pallas
+kernels in interpret mode, ``mha``'s dispatch, and first-order-only
+``flash_attention``. Same numpy inputs on both sides; the JAX side runs with
+x64 off (float32, as the port)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eegsynth.nn.attention import _fa_impl, attention_xla
+from eegsynth.nn.attention import flash_attention as jax_flash
+from eegsynth_torch.nn import attention as A
+
+# float32 on both sides, sums in another order (blocked online softmax
+# against one logsumexp): o and lse within 2e-6, gradients within 2e-6
+FWD_TOL = 2e-6
+BWD_TOL = 2e-6
+
+
+def _inputs(shape, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+# the shapes of tests/test_attention.py: the CGAN's training geometry, a T
+# that is not a multiple of 128 with an odd head dim, two and three blocks
+@pytest.mark.parametrize("B,H,T,D", [(2, 2, 96, 64), (1, 3, 200, 48),
+                                     (2, 1, 256, 64), (1, 2, 384, 32)])
+def test_forward_plain_matches_pallas(B, H, T, D):
+    q, k, v = _inputs((B, H, T, D), 3, seed=T)
+    with jax.enable_x64(False):
+        o_pad, lse_pad, _ = _fa_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True)
+        o_jax = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True))
+    o_pad = np.asarray(o_pad)[:, :T].reshape(B, H, T, D)
+    lse_pad = np.asarray(lse_pad)[:, :T, 0].reshape(B, H, T)
+    o, lse = A.flash_forward_plain(*_t(q, k, v))
+    np.testing.assert_allclose(o.numpy(), o_pad, atol=FWD_TOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), lse_pad, atol=FWD_TOL, rtol=0)
+    np.testing.assert_allclose(A.flash_attention(*_t(q, k, v)).numpy(), o_jax,
+                               atol=FWD_TOL, rtol=0)
+    # the wrapper takes the plain version for CPU tensors, launching nothing
+    before = A.flash_forward.launches
+    o_w, lse_w = A.flash_forward(*_t(q, k, v))
+    assert torch.equal(o_w, o) and torch.equal(lse_w, lse)
+    assert A.flash_forward.launches == before
+
+
+@pytest.mark.parametrize("B,H,T,D", [(2, 2, 96, 32), (1, 2, 200, 32)])
+def test_backward_plain_matches_pallas_vjp(B, H, T, D):
+    q, k, v, g = _inputs((B, H, T, D), 4, seed=D + T)
+    with jax.enable_x64(False):
+        out, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, True),
+                           *map(jnp.asarray, (q, k, v)))
+        want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    tq, tk, tv, tg = _t(q, k, v, g)
+    o, lse = A.flash_forward_plain(tq, tk, tv)
+    got = A.flash_backward_plain(tq, tk, tv, o, lse, tg)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b, atol=BWD_TOL, rtol=0)
+    # through the autograd.Function: the same gradients
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    A.flash_attention(*leaves).backward(tg)
+    for x, b in zip(leaves, want):
+        np.testing.assert_allclose(x.grad.numpy(), b, atol=BWD_TOL, rtol=0)
+    # K3b's and K3c's plain versions are the two halves of it
+    delta = (tg * o).sum(-1)
+    dq = A.flash_dq(tq, tk, tv, tg, lse, delta)
+    dk, dv = A.flash_dkv(tq, tk, tv, tg, lse, delta)
+    for a, b in zip((dq, dk, dv), got):
+        assert torch.equal(a, b)
+
+
+def test_dense_matches_xla():
+    q, k, v = _inputs((2, 2, 40, 16), 3, seed=1)
+    with jax.enable_x64(False):
+        want = np.asarray(attention_xla(*map(jnp.asarray, (q, k, v))))
+    np.testing.assert_allclose(A.attention_dense(*_t(q, k, v)).numpy(), want,
+                               atol=FWD_TOL, rtol=0)
+
+
+def test_mha_dispatch_on_cpu():
+    q, k, v = _t(*_inputs((1, 2, 64, 16), 3, seed=2))
+    ref = A.attention_dense(q, k, v)
+    try:
+        A.set_attention_impl("auto")
+        assert torch.equal(A.mha(q, k, v), ref)        # CPU tensors: dense
+        long = _t(*_inputs((1, 1, 512, 8), 3, seed=3))
+        assert torch.equal(A.mha(*long), A.attention_dense(*long))
+        A.set_attention_impl("flash")
+        torch.testing.assert_close(A.mha(q, k, v), ref, atol=FWD_TOL, rtol=0)
+        assert torch.equal(A.mha(q, k, v, impl="dense"), ref)
+        with pytest.raises(ValueError):
+            A.set_attention_impl("pallas")
+        with pytest.raises(ValueError):
+            A.mha(q, k, v, impl="xla")
+    finally:
+        A.set_attention_impl("auto")
+
+
+def test_second_derivative_raises_for_flash_only():
+    q, k, v = [x.requires_grad_() for x in _t(*_inputs((1, 2, 24, 8), 3, seed=4))]
+    (g,) = torch.autograd.grad((A.attention_dense(q, k, v) ** 2).sum(), q,
+                               create_graph=True)
+    (gg,) = torch.autograd.grad(g.pow(2).sum(), k)      # dense: twice works
+    assert torch.isfinite(gg).all()
+    (g,) = torch.autograd.grad((A.flash_attention(q, k, v) ** 2).sum(), q,
+                               create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g.pow(2).sum().backward()
+
+
+def test_wrappers_check_shapes():
+    q, k, v = _t(*_inputs((1, 2, 8, 4), 3))
+    with pytest.raises(ValueError, match="k must be"):
+        A.flash_forward(q, k[:, :1], v)
+    with pytest.raises(ValueError, match="lse must be"):
+        A.flash_dq(q, k, v, q, torch.zeros(1, 2, 7), torch.zeros(1, 2, 8))

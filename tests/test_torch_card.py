@@ -1,7 +1,8 @@
 """eegsynth_torch on a CUDA card: the Hopper kernels (K1 forward and
-backward, K2) against their plain versions, K1's bucket axis against separate
-launches, the wrappers' checks, a training step's gradients against the CPU,
-and the serving cascade chunked against one-shot.
+backward, K2, flash attention K3a/K3b/K3c) against their plain versions,
+K1's bucket axis against separate launches, the wrappers' checks, gradients
+through K1 and through flash_attention against the CPU, and the serving
+cascade chunked against one-shot.
 
 Every test skips without a card: the kernels have no CPU mode. This file
 imports no jax, so it also runs on a machine without it:
@@ -14,6 +15,10 @@ import pytest
 import torch
 
 from eegsynth_torch.models.timegan import TimeGAN, TimeGANConfig
+from eegsynth_torch.nn.attention import (
+    flash_attention, flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain,
+    flash_forward, flash_forward_plain, mha,
+)
 from eegsynth_torch.nn.gru_sequence import (
     gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
     gru_sequence_reference,
@@ -163,3 +168,67 @@ def test_cascade_chunked_equals_one_shot(cuda_device):
         x, carry = synthesize_from_noise(model, z[:, t0:t0 + 64], carry)
         pieces.append(x)
     assert (torch.cat(pieces, 1) - one_shot).abs().max().item() <= 1e-5
+
+
+def _attn(B, H, T, D, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((B, H, T, D), generator=g).to(device) for _ in range(4)]
+
+
+# the CGAN's training geometry, its patch-1 geometry, ragged T with an odd D,
+# one row, D at its cap, a T just over one tile
+@pytest.mark.parametrize("B,H,T,D", [(64, 4, 96, 64), (4, 4, 768, 64),
+                                     (2, 3, 200, 48), (1, 1, 1, 16),
+                                     (2, 2, 130, 128), (3, 1, 65, 20)])
+def test_flash_kernels_match_plain(cuda_device, B, H, T, D):
+    q, k, v, do = _attn(B, H, T, D, cuda_device, seed=T)
+    counters = (flash_forward, flash_dq, flash_dkv)
+    before = [c.launches for c in counters]
+    o, lse = flash_forward(q, k, v)
+    o_ref, lse_ref = flash_forward_plain(q, k, v)
+    delta = (do * o_ref).sum(-1)
+    dq = flash_dq(q, k, v, do, lse_ref, delta)
+    dk, dv = flash_dkv(q, k, v, do, lse_ref, delta)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    # f32 sums in another order: 1e-5 on o and lse, 1e-4 relative on the
+    # gradients
+    assert (o - o_ref).abs().max().item() <= 1e-5
+    assert (lse - lse_ref).abs().max().item() <= 1e-5
+    refs = (flash_dq_plain(q, k, v, do, lse_ref, delta),
+            *flash_dkv_plain(q, k, v, do, lse_ref, delta))
+    for got, ref in zip((dq, dk, dv), refs):
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_flash_attention_autograd_matches_cpu(cuda_device):
+    """flash_attention's forward and gradients on the card (K3a, K3b, K3c)
+    equal the CPU's (the plain versions); a second derivative raises."""
+    cpu = [t.requires_grad_() for t in _attn(2, 2, 150, 32, "cpu", seed=5)[:3]]
+    card = [t.detach().to(cuda_device).requires_grad_() for t in cpu]
+    w = torch.randn((2, 2, 150, 32), generator=torch.Generator().manual_seed(6))
+    out_cpu, out_card = flash_attention(*cpu), flash_attention(*card)
+    assert (out_cpu - out_card.cpu()).abs().max().item() <= 1e-5
+    (out_cpu * w).sum().backward()
+    (out_card * w.to(cuda_device)).sum().backward()
+    for a, b in zip(cpu, card):
+        assert (a.grad - b.grad.cpu()).abs().max().item() <= 1e-4
+    x = card[0].detach().requires_grad_()
+    (g,) = torch.autograd.grad(flash_attention(x, card[1], card[2]).sum(), x,
+                               create_graph=True)
+    with pytest.raises(RuntimeError):
+        g.sum().backward()
+
+
+def test_flash_wrappers_raise_instead_of_falling_back(cuda_device):
+    q, k, v, _ = _attn(1, 2, 16, 8, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        flash_forward(q.double(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="several devices"):
+        flash_forward(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="D=160"):
+        flash_forward(*_attn(1, 1, 4, 160, cuda_device)[:3])
+    assert mha(q, k, v, impl="auto").shape == q.shape      # T < 512: dense

@@ -1,5 +1,6 @@
-"""eegsynth_torch.serve on the CPU: the TimeGAN endpoints of
-scripts/serve_synthesis.py, same JSON, shapes, caps and error codes."""
+"""eegsynth_torch.serve on the CPU: the TimeGAN and transformer-CGAN
+endpoints of scripts/serve_synthesis.py, same JSON, shapes, caps and error
+codes; a conv-arch CGAN generator is refused at load."""
 
 import http.client
 import io
@@ -21,6 +22,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
 
 SERVE_BATCH, TIME_CHUNK = 4, 16
 RUNS = ("posture1_no_exo", "posture2_with_exo")
+CGAN_TAG = "with_exo"        # a v1 transformer generator (9 posture classes)
+CGAN_TINY = {"tf_dim": 16, "tf_depth": 1, "tf_heads": 2, "tf_patch": 8}
 
 
 def _write_runs(root: Path):
@@ -42,6 +45,28 @@ def _write_runs(root: Path):
     return runs, real
 
 
+def _write_cgan(root: Path, arch: str = "transformer") -> Path:
+    """<root>/<tag>/CGAN_generator_<tag>_best.npz written by the JAX package,
+    adaLN heads perturbed so that label and noise reach the output."""
+    from eegsynth.models import cgan as jconv
+    from eegsynth.train import cgan as jtrain
+
+    hp = jtrain.CGANHParams(arch=arch, **CGAN_TINY)
+    with jax.enable_x64(False):
+        if arch == "transformer":
+            cfg = jtrain.build_cfg(hp, 9)
+            G, bn = jtrain.generator_init(jax.random.key(7), cfg)
+            G["blk0"]["ada"]["w"] = 0.1 * jax.random.normal(jax.random.key(8),
+                                                           G["blk0"]["ada"]["w"].shape)
+        else:
+            G, bn = jconv.generator_init(jax.random.key(7), jconv.CGANConfig())
+    d = root / CGAN_TAG
+    d.mkdir(parents=True)
+    save_checkpoint(d / f"CGAN_generator_{CGAN_TAG}_best.npz", {"model": G, "bn": bn},
+                    jtrain.generator_meta(hp, 9, CGAN_TAG))
+    return root
+
+
 def _serve(reg):
     srv = make_server(reg, "127.0.0.1", 0, SERVE_BATCH, TIME_CHUNK)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
@@ -54,8 +79,17 @@ def dirs(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def served(dirs):
-    srv = _serve(ModelRegistry(*dirs, device="cpu"))
+def cgan_root(tmp_path_factory, dirs):
+    np.savez(dirs[1] / f"posture1_{CGAN_TAG}.npz",
+             X=np.zeros((1, 768, 14), np.float32),
+             scale_min=np.full((14,), -3.0, np.float32),
+             scale_range=np.full((14,), 6.0, np.float32))
+    return _write_cgan(tmp_path_factory.mktemp("cgan_root"))
+
+
+@pytest.fixture(scope="module")
+def served(dirs, cgan_root):
+    srv = _serve(ModelRegistry(*dirs, device="cpu", cgan_root=cgan_root))
     yield srv.server_address
     srv.shutdown()
     srv.server_close()
@@ -84,14 +118,14 @@ def _synth(addr, **body):
         return npz["X"]
 
 
-def test_healthz_and_runs_match_jax_server(served, dirs):
+def test_healthz_and_runs_match_jax_server(served, dirs, cgan_root):
     from serve_synthesis import ModelRegistry as JaxRegistry
     from serve_synthesis import make_handler as jax_handler
     from http.server import ThreadingHTTPServer
 
     jsrv = ThreadingHTTPServer(("127.0.0.1", 0),
-                               jax_handler(JaxRegistry(*dirs), SERVE_BATCH,
-                                           TIME_CHUNK))
+                               jax_handler(JaxRegistry(*dirs, cgan_root=cgan_root),
+                                           SERVE_BATCH, TIME_CHUNK))
     threading.Thread(target=jsrv.serve_forever, daemon=True).start()
     try:
         for path in ("/healthz", "/runs"):
@@ -103,6 +137,8 @@ def test_healthz_and_runs_match_jax_server(served, dirs):
         jsrv.shutdown()
         jsrv.server_close()
     obj = json.loads(_request(served, "GET", "/runs")[2])
+    assert obj["cgan"] == {CGAN_TAG: {"arch": "transformer", "variant": "v1",
+                                      "num_classes": 9, "noise_dim": 100}}
     assert obj["timegan"]["posture1_no_exo"]["has_scalers"]
     assert not obj["timegan"]["posture2_with_exo"]["has_scalers"]
 
@@ -153,6 +189,9 @@ def test_denorm(served):
     ("POST", "/synthesize", {"run": RUNS[0], "seq_len": (1 << 20) + 1}, 400),
     ("POST", "/synthesize", {"n": 2}, 400),
     ("POST", "/synthesize_cgan", {"model": "no_exo", "n": 2}, 404),
+    ("POST", "/synthesize_cgan", {"model": CGAN_TAG, "n": 0}, 400),
+    ("POST", "/synthesize_cgan", {"model": CGAN_TAG, "label": 9}, 400),
+    ("POST", "/synthesize_cgan", {"n": 2}, 400),
     ("GET", "/bogus", None, 404),
 ])
 def test_errors(served, method, path, body, code):
@@ -178,11 +217,66 @@ def test_device_cuda_without_card_raises(dirs, monkeypatch):
               "--device", "cuda", "--port", "0"])
 
 
-def test_unported_options_refused(dirs):
-    with pytest.raises(SystemExit, match="CGAN"):
-        main(["--runs_dir", str(dirs[0]), "--cgan_root", str(dirs[0]),
+def test_unported_options_refused(dirs, tmp_path):
+    """A conv-arch CGAN generator under --cgan_root is refused at load with
+    an error naming the missing port; bf16 serving is refused too."""
+    conv_root = _write_cgan(tmp_path / "conv", arch="conv")
+    with pytest.raises(NotImplementedError, match="conv CGAN"):
+        main(["--runs_dir", str(dirs[0]), "--cgan_root", str(conv_root),
               "--device", "cpu"])
     reg = ModelRegistry(*dirs, device="cpu")
     with pytest.raises(NotImplementedError):
         make_server(reg, "127.0.0.1", 0, SERVE_BATCH, TIME_CHUNK,
                     precision="bf16")
+
+
+def _synth_cgan(addr, **body):
+    status, ctype, data = _request(addr, "POST", "/synthesize_cgan", body)
+    assert status == 200, data
+    if body.get("format") == "json":
+        return np.asarray(json.loads(data)["X"], np.float32)
+    assert ctype == "application/octet-stream"
+    with np.load(io.BytesIO(data)) as npz:
+        return npz["X"]
+
+
+def test_synthesize_cgan_shapes_seed_and_scaling(served):
+    """n over serve_batch takes two micro-batches; the same seed gives the
+    same X (npz or json); inverse_scale applies the class's bucket scalers."""
+    X = _synth_cgan(served, model=CGAN_TAG, label=0, n=6, seed=1)
+    assert X.shape == (6, 768, 14) and X.dtype == np.float32
+    assert np.isfinite(X).all() and 0 < X.min() and X.max() < 1
+    np.testing.assert_array_equal(
+        _synth_cgan(served, model=CGAN_TAG, label=0, n=6, seed=1, format="json"), X)
+    assert not np.array_equal(_synth_cgan(served, model=CGAN_TAG, label=0, n=6,
+                                          seed=2), X)
+    assert not np.array_equal(_synth_cgan(served, model=CGAN_TAG, label=5, n=6,
+                                          seed=1), X)
+    scaled = _synth_cgan(served, model=CGAN_TAG, label=0, n=6, seed=1,
+                         inverse_scale=True)
+    np.testing.assert_allclose(scaled, X * 6.0 - 3.0, rtol=1e-6, atol=1e-6)
+    # no scalers for posture 2 of this condition: a no-op
+    np.testing.assert_array_equal(
+        _synth_cgan(served, model=CGAN_TAG, label=1, n=2, seed=1, inverse_scale=True),
+        _synth_cgan(served, model=CGAN_TAG, label=1, n=2, seed=1))
+
+
+def test_served_cgan_generator_matches_jax(dirs, cgan_root):
+    """The registry's generator is the JAX checkpoint's: same output on the
+    same noise."""
+    from eegsynth.train import cgan as jtrain
+    from eegsynth_torch.models.cgan_transformer import generator_apply
+
+    reg = ModelRegistry(*dirs, device="cpu", cgan_root=cgan_root)
+    m = reg.cgan[CGAN_TAG]
+    z = np.random.default_rng(3).standard_normal((3, 100)).astype(np.float32)
+    labels = np.array([0, 4, 8], np.int32)
+    path = cgan_root / CGAN_TAG / f"CGAN_generator_{CGAN_TAG}_best.npz"
+    with jax.enable_x64(False):
+        G, bn, cfg, _ = jtrain.load_generator(path)
+        want = np.asarray(jtrain.generator_apply(G, bn, z, labels, cfg, train=False)[0])
+    got = generator_apply(m["G"], m["bn"], torch.from_numpy(z),
+                          torch.from_numpy(labels).long(), m["cfg"], train=False)[0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    X = reg.synthesize_cgan(CGAN_TAG, 3, 5, 0, False, SERVE_BATCH)
+    assert X.shape == (5, 768, 14)
