@@ -14,10 +14,16 @@ failure is swallowed):
 2. build   — nvcc builds every kernel under eegsynth_torch/csrc/, one
              process per source, in parallel;
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes the main paths give it, with both times: K1 forward
-             (serving and training shapes), K1 backward and K2 (training),
-             K3a, K3b and K3c (the CGAN's 96- and 768-token geometries, a
-             ragged T, a long T), and dense attention beside K3a;
+             the shapes the main paths give it, with both times and its
+             bound (FLOPs at the TF32 tensor-core rate or bytes at the HBM
+             rate, the larger): K1 forward (serving and training shapes),
+             K1 backward and K2 (training), K3a, K3b and K3c (the CGAN's 96-
+             and 768-token geometries, the latter at serve_batch 256 too, a
+             ragged T, a long T); one PyTorch call computing the same
+             function timed in turns with the kernel where there is one
+             (cuDNN's GRU beside K1 forward, memory-efficient SDPA's forward
+             beside K3a and its backward beside K3b + K3c); dense attention
+             beside K3a;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -41,7 +47,9 @@ failure is swallowed):
              one CGAN step.
 
 The last three lines are a JSON object listing each kernel (its launches in
-the main paths' runs, its error against the plain version and both times),
+the main paths' runs, its error against the plain version, its time, the
+plain version's, its bound and what bounds it, and the library call's time
+or null),
 the nvidia-smi name and power-limit line, and ``{"ok": true, "device": ...}``.
 Imports no JAX.
 """
@@ -108,9 +116,15 @@ BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128))
 # T > 800 dims z36/h72
 MULTIGRU_SHAPES = ((18, 768, 63, (28, 56, 56, 28)), (18, 1024, 63, (36, 72, 72, 36)))
 # K3 (B, H, T, D): the transformer CGAN's training geometry (96 tokens at
-# patch 8), its patch-1 geometry (768 tokens), a ragged T with an odd D, and
-# a long T
-ATTN_SHAPES = ((64, 4, 96, 64), (64, 4, 768, 64), (2, 3, 200, 48), (8, 4, 4096, 64))
+# patch 8), its patch-1 geometry (768 tokens) at the training batch and at
+# serve_batch 256, a ragged T with an odd D, and a long T
+ATTN_SHAPES = ((64, 4, 96, 64), (64, 4, 768, 64), (256, 4, 768, 64), (2, 3, 200, 48),
+               (8, 4, 4096, 64))
+# One H100 SXM (NVIDIA's data sheet, 700 W): dense TF32 tensor-core FLOP/s,
+# the fastest the card multiplies float32 inputs, and HBM3 bytes/s. Every
+# kernel's bound uses both, whatever unit the kernel itself runs on.
+PEAK_FLOPS, PEAK_BYTES = 495e12, 3.35e12
+ATTN_HEADLINE = (64, 4, 768, 64)   # the shape of the kernels line's K3 rows
 ATTN_FWD_TOL = 1e-5    # o and lse, absolute: f32 sums in another order
 ATTN_BWD_RTOL = 1e-4   # dq, dk, dv, relative to the largest magnitude: sums
                        # of up to 4096 terms in another order
@@ -172,7 +186,8 @@ def phase_build() -> None:
     log = path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if any(k in line for k in ("entry function", "registers", "spill", "smem")):
+            if any(k in line for k in ("entry function", "registers", "spill", "smem",
+                                       "Performance Loss")):
                 print(f"[build] {line.strip()}", flush=True)
 
 
@@ -189,6 +204,38 @@ def _time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _turns_ms(kernel, library, reps: int) -> tuple[float, float]:
+    """Kernel and library call timed in turns (library, kernel, kernel,
+    library), each a median of ``reps``; returns the mean of each pair."""
+    lib = [_time_ms(library, reps)]
+    ker = [_time_ms(kernel, reps), _time_ms(kernel, reps)]
+    lib.append(_time_ms(library, reps))
+    return statistics.mean(ker), statistics.mean(lib)
+
+
+def _bound(flops: float, *tensors: torch.Tensor) -> tuple[float, str]:
+    """The least time the card could take for a function: the larger of its
+    FLOPs at the dense TF32 tensor-core rate and its bytes (``tensors``: each
+    input read once, each output written once) at the HBM rate. Returns
+    (ms, "operations" or "bytes")."""
+    ops_ms = flops / PEAK_FLOPS * 1e3
+    bytes_ms = sum(t.numel() * t.element_size() for t in tensors) / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _row(ms, plain_ms, bound, library_ms=None) -> dict:
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
+
+
+def _roofline(name: str, row: dict, smi: str, library: str | None = None) -> None:
+    lib = (f"; library {library} {row['library_ms']:.4f} ms"
+           if row["library_ms"] is not None else "; no single library call")
+    print(f"[bound] {name}: kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f} % of the "
+          f"bound{lib} | {smi}", flush=True)
 
 
 def _gru_inputs(nb, T, B, H, I, seed, device):
@@ -211,6 +258,21 @@ def phase_kernels(smi: str) -> dict:
             "multigru_disc_inputs": _check_k2(smi), **_check_k3(smi)}
 
 
+def _cudnn_gru(xp, w_hh_t, b_hh, h0):
+    """One cuDNN GRU call computing K1's ys: input weight I₃ₕ and zero input
+    bias, so its input is xp itself; W_hh and b_hh as K1's. It runs under the
+    port's allow_tf32 = False. Timed beside K1, never used by the port."""
+    H = h0.shape[-1]
+    gru = torch.nn.GRU(3 * H, H).to(xp.device)
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(torch.eye(3 * H))
+        gru.bias_ih_l0.zero_()
+        gru.weight_hh_l0.copy_(w_hh_t.t())
+        gru.bias_hh_l0.copy_(b_hh.reshape(-1))
+    gru.flatten_parameters()
+    return lambda: gru(xp, h0[None])[0]
+
+
 def _check_k1_fwd(smi: str) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     head = None
@@ -224,7 +286,12 @@ def _check_k1_fwd(smi: str) -> dict:
             ref = gru_sequence_reference(*args)
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
-            ms = _time_ms(lambda: gru_sequence(*args), reps=20)
+            if head is None:                    # the headline (serving) shape
+                cudnn = _cudnn_gru(*args)
+                lib_err = (cudnn() - got).abs().max().item()
+                ms, lib_ms = _turns_ms(lambda: gru_sequence(*args), cudnn, reps=20)
+            else:
+                ms = _time_ms(lambda: gru_sequence(*args), reps=20)
             plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=3)
         finite = bool(torch.isfinite(got).all())
         rows = -(-nb * B // sms)
@@ -237,7 +304,12 @@ def _check_k1_fwd(smi: str) -> dict:
                  f"nb={nb} T={T} B={B} H={H}: max|diff|={err} finite={finite}")
         worst = max(worst, err)
         if head is None:
-            head = {"ms": ms, "plain_ms": plain_ms}
+            head = _row(ms, plain_ms, _bound(2 * nb * T * B * H * 3 * H, *args, got),
+                        lib_ms)
+            print(f"[kernel] gru_sequence vs cuDNN GRU (nn.GRU, input weight I): "
+                  f"max|diff|={lib_err:.3e}, cuDNN {lib_ms:.4f} ms, K1 {ms:.4f} ms "
+                  f"(in turns) | {smi}", flush=True)
+            _roofline(f"gru_sequence nb={nb} T={T} B={B} H={H}", head, smi, "cuDNN GRU")
     return {"max_abs_err": worst, **head}
 
 
@@ -274,7 +346,10 @@ def _check_k1_bwd(smi: str) -> dict:
                  f"T={T} B={B} H={H}: {errs} finite={finite}")
         worst = max(worst, err)
         if head is None:
-            head = {"ms": ms, "plain_ms": plain_ms}
+            # three products per step: the gates' recompute, dh·W_hh and dW
+            head = _row(ms, plain_ms, _bound(3 * 2 * nb * T * B * H * 3 * H, *args,
+                                             ys, d_ys, *got))
+            _roofline(f"gru_sequence_bwd nb={nb} T={T} B={B} H={H}", head, smi)
     return {"max_abs_err": worst, **head}
 
 
@@ -319,7 +394,10 @@ def _check_k2(smi: str) -> dict:
                  f"nb={nb} T={T} B={B} dims={dims}: max|diff|={err} finite={finite}")
         worst = max(worst, err)
         if head is None:
-            head = {"ms": ms, "plain_ms": plain_ms}
+            He, Hg, Hs, Z = dims
+            macs = He * 3 * He + Hg * 3 * Hg + Hg * Z + Z * 3 * Hs + Hs * 3 * Hs + Hs * Z
+            head = _row(ms, plain_ms, _bound(2 * nb * T * B * macs, *args, *got))
+            _roofline(f"multigru_disc_inputs nb={nb} T={T} B={B}", head, smi)
     return {"max_abs_err": worst, **head}
 
 
@@ -328,10 +406,32 @@ def _attn_inputs(B, H, T, D, seed):
     return [torch.randn((B, H, T, D), generator=g).cuda() for _ in range(4)]
 
 
+def _sdpa_calls(q, k, v, do):
+    """PyTorch's memory-efficient attention on the same float32 inputs, the
+    yardstick beside K3: its forward (o, lse) as one call, and its backward
+    (dq, dk, dv, with delta inside) as one autograd.grad. Timed here, never
+    used by the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def forward():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True)[:2]
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad(), sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+
+    def backward():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+    return forward, backward
+
+
 def _check_k3(smi: str) -> dict:
     """K3a (o, lse within ATTN_FWD_TOL absolute), K3b and K3c (within
     ATTN_BWD_RTOL of the largest magnitude) against their plain versions at
-    ATTN_SHAPES; then dense attention's time at 96 and 768 tokens, beside
+    ATTN_SHAPES, with each kernel's bound, and PyTorch's memory-efficient
+    attention (forward beside K3a, backward beside K3b + K3c) timed in turns
+    with them; then dense attention's time at 96 and 768 tokens, beside
     K3a's, for where "auto"'s 512-token threshold stands on this card."""
     heads = {}
     worst = {"flash_forward": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
@@ -356,29 +456,57 @@ def _check_k3(smi: str) -> dict:
                                 for g, r in pairs)
             finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, dq, dk, dv))
             reps = 10 if T < 4096 else 5
+            k3b = lambda: flash_dq(q, k, v, do, lse_ref, delta)     # noqa: E731
+            k3c = lambda: flash_dkv(q, k, v, do, lse_ref, delta)    # noqa: E731
+            lib_fwd, lib_bwd = _sdpa_calls(q, k, v, do)
+            lib_o, lib_lse = lib_fwd()
+            lib_grads = lib_bwd()
+            lib_err = ((lib_o - o_ref).abs().max().item(),
+                       (lib_lse[..., :T] - lse_ref).abs().max().item(),
+                       max((g - r).abs().max().item() / r.abs().max().item()
+                           for g, r in zip(lib_grads, (dq_ref, dk_ref, dv_ref))))
+            fwd_ms, lib_fwd_ms = _turns_ms(lambda: flash_forward(q, k, v), lib_fwd, reps)
+            bwd_ms, lib_bwd_ms = _turns_ms(lambda: (k3b(), k3c()), lib_bwd, reps)
             times = {
-                "flash_forward": (_time_ms(lambda: flash_forward(q, k, v), reps),
-                                  _time_ms(lambda: flash_forward_plain(q, k, v), 3)),
-                "flash_dq": (_time_ms(lambda: flash_dq(q, k, v, do, lse_ref, delta), reps),
+                "flash_forward": (fwd_ms, _time_ms(lambda: flash_forward_plain(q, k, v), 3)),
+                "flash_dq": (_time_ms(k3b, reps),
                              _time_ms(lambda: flash_dq_plain(q, k, v, do, lse_ref,
                                                              delta), 3)),
-                "flash_dkv": (_time_ms(lambda: flash_dkv(q, k, v, do, lse_ref, delta),
-                                       reps),
+                "flash_dkv": (_time_ms(k3c, reps),
                               _time_ms(lambda: flash_dkv_plain(q, k, v, do, lse_ref,
                                                                delta), 3))}
+        prod = 2 * B * H * T * T * D                  # FLOPs of one T x T x D product
+        bounds = {"flash_forward": _bound(2 * prod, q, k, v, o, lse),
+                  "flash_dq": _bound(3 * prod, q, k, v, do, lse, delta, dq),
+                  "flash_dkv": _bound(4 * prod, q, k, v, do, lse, delta, dk, dv)}
+        library = {"flash_forward": lib_fwd_ms, "flash_dq": lib_bwd_ms,
+                   "flash_dkv": lib_bwd_ms}
         for name in worst:
             ms, plain_ms = times[name]
             tol = (f"(tol {ATTN_FWD_TOL:g} on o and lse)" if name == "flash_forward"
                    else f"= {rel[name]:.3e} relative (tol {ATTN_BWD_RTOL:g})")
+            row = _row(ms, plain_ms, bounds[name], library[name])
             print(f"[kernel] {name} B={B} H={H} T={T} D={D}: max|diff|={errs[name]:.3e} "
-                  f"{tol} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms | {smi}",
-                  flush=True)
+                  f"{tol} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                  f"{100 * row['bound_ms'] / ms:.1f} % of it) | {smi}", flush=True)
             worst[name] = max(worst[name], errs[name])
-            heads.setdefault(name, {"ms": ms, "plain_ms": plain_ms})
+            if (B, H, T, D) == ATTN_HEADLINE:
+                heads[name] = row
+        print(f"[kernel] memory-efficient SDPA B={B} H={H} T={T} D={D}: forward "
+              f"{lib_fwd_ms:.4f} ms vs K3a {fwd_ms:.4f} ms; backward {lib_bwd_ms:.4f} "
+              f"ms vs K3b + K3c {bwd_ms:.4f} ms (in turns); its o, lse, gradients "
+              f"against the plain versions {lib_err[0]:.3e}, {lib_err[1]:.3e}, "
+              f"{lib_err[2]:.3e} relative | {smi}", flush=True)
         if (not finite or errs["flash_forward"] > ATTN_FWD_TOL
                 or rel["flash_dq"] > ATTN_BWD_RTOL or rel["flash_dkv"] > ATTN_BWD_RTOL):
             fail(f"flash attention disagrees with its plain versions at B={B} H={H} "
                  f"T={T} D={D}: {errs} relative {rel} finite={finite}")
+    for name, row in heads.items():
+        _roofline(f"{name} B={ATTN_HEADLINE[0]} H={ATTN_HEADLINE[1]} "
+                  f"T={ATTN_HEADLINE[2]} D={ATTN_HEADLINE[3]}", row, smi,
+                  "memory-efficient SDPA " + ("forward" if name == "flash_forward"
+                                              else "backward (dq, dk, dv)"))
     for B, H, T, D in ((64, 4, 96, 64), (64, 4, 768, 64)):
         q, k, v, _ = _attn_inputs(B, H, T, D, seed=40)
         with torch.no_grad():
@@ -1097,8 +1225,8 @@ def phase_cgan_layers(smi: str, device: str = "cuda") -> None:
     def kernel_ms(tag):
         return sum(e.self_device_time_total for e in on_card if tag in e.key) / 1e3
 
-    k3 = [kernel_ms(t) for t in ("flash_fwd_kernel", "flash_dq_kernel",
-                                 "flash_dkv_kernel")]
+    # K3c's time includes its split pre-pass (flash_dkv_split_kernel)
+    k3 = [kernel_ms(t) for t in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_")]
     print(f"[profile] one CGAN step B=64 (no R1): device time {dev_ms:.1f} ms in "
           f"{wall_ms:.1f} ms wall ({100 * dev_ms / wall_ms:.1f} % busy) over "
           f"{sum(e.count for e in on_card)} device operations: K3a {k3[0]:.3f} ms, "
@@ -1139,16 +1267,15 @@ def main() -> None:
                                     "eegsynth/nn/pallas_gru.py:81"),
                "multigru_disc_inputs": ("eegsynth_torch/csrc/multigru.cu",
                                         "eegsynth/nn/pallas_multigru.py:156"),
-               "flash_forward": ("eegsynth_torch/csrc/flash_attn.cu",
+               "flash_forward": ("eegsynth_torch/csrc/flash_attn_tc.cu",
                                  "eegsynth/nn/attention.py:130"),
                "flash_dq": ("eegsynth_torch/csrc/flash_attn.cu",
                             "eegsynth/nn/attention.py:231"),
-               "flash_dkv": ("eegsynth_torch/csrc/flash_attn.cu",
+               "flash_dkv": ("eegsynth_torch/csrc/flash_attn_tc.cu",
                              "eegsynth/nn/attention.py:248")}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
-        "launches": launches[k], "max_abs_err": kern[k]["max_abs_err"],
-        "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"]}
+        "launches": launches[k], **kern[k]}
         for k, (src, rep) in sources.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

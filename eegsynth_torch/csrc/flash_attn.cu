@@ -1,55 +1,47 @@
-// Flash-attention kernels K3a (forward), K3b (dq) and K3c (dk, dv) for
-// Hopper, sm_90a: full (non-causal) softmax attention in float32.
+// Flash-attention dq kernel K3b for Hopper, sm_90a: the first half of the
+// backward of full (non-causal) softmax attention in float32. The forward K3a
+// and the dk/dv kernel K3c run on the tensor cores and are in
+// flash_attn_tc.cu; this kernel still runs FP32 FMAs on the CUDA cores.
 //
-// Replaces the TPU kernels of eegsynth/nn/attention.py:
-//   K3a  _fa_forward (pallas_call, body _fa_fwd_kernel)
+// Replaces the TPU kernel of eegsynth/nn/attention.py:
 //   K3b  _fa_backward's dq pallas_call (body _fa_dq_kernel)
-//   K3c  _fa_backward's dk/dv pallas_call (body _fa_dkv_kernel)
 //
 //   q, k, v, do (BH, T, D) float32, lse and delta (BH, T), scale = D^-0.5
-//   K3a: s = (q k^T) scale, online softmax over key tiles -> o, lse = m + log l
-//   K3b: p = exp(s - lse), ds = p (do v^T - delta) scale, dq = ds k
-//   K3c: dv = p^T do, dk = ds^T q
+//   p = exp(s - lse), ds = p (do v^T - delta) scale, dq = ds k
 // delta = rowsum(do * o) is computed by the caller, as the JAX package does
 // in XLA outside its kernels.
 //
-// The TPU kernels zero-pad T to a multiple of 128 and pick 512/256/128-row
-// blocks; the grid's last dimension walks the other operand's blocks in
-// order and carries the running state in VMEM scratch. Here blocks run in no
-// order, so each block owns one output tile and loops over the other
-// operand's tiles itself: no atomics, no state crosses blocks. The kernels
-// mask the ragged edge themselves instead of padding: key columns at or
-// beyond T score -1e30 (exp gives 0), rows beyond T are neither computed
-// into an output nor written, and in K3c a query row beyond T contributes
-// p = ds = 0 (the JAX package gets that from zero dO and zero delta on its
-// padded rows).
+// The TPU kernel zero-pads T to a multiple of 128 and picks 512/256/128-row
+// blocks; the grid's last dimension walks the key blocks in order and
+// carries dq in VMEM scratch. Here blocks run in no order, so each block owns
+// one 64-row query tile and loops over the key tiles itself: no atomics, no
+// state crosses blocks. The kernel masks the ragged edge itself instead of
+// padding: key columns at or beyond T score -1e30 (exp gives 0), rows beyond
+// T are neither computed into an output nor written.
 //
-// What bounds them on this card: the two tile products per tile pair
-// (4 B T^2 D FMAs forward, 10 backward), issued here as scalar FP32 FMAs on
-// the CUDA cores (67 TFLOP/s peak at 700 W), each fed from shared memory. A
-// thread computes a 4 x 4 register tile of scores (4 rows x 4 columns 16
-// apart) and a 4 x ceil(D/16) tile of the output, so each shared load
-// feeds 4 FMAs; the shared-memory bandwidth of those loads, not HBM, is the
-// limit (a kernel reads each of q, k, v, do once per tile pair it touches).
-// Tensor cores (wgmma, TF32) would change the numbers against the plain
-// version and are later work.
+// What bounds it on this card: three tile products per tile pair (6 B T^2 D
+// FLOPs), issued here as scalar FP32 FMAs on the CUDA cores (67 TFLOP/s peak
+// at 700 W), each fed from shared memory. A thread computes a 4 x 4 register
+// tile of scores (4 rows x 4 columns 16 apart) and a 4 x ceil(D/16) tile of
+// dq, so each shared load feeds 4 FMAs; the shared-memory bandwidth of those
+// loads, not HBM, is the limit. The tensor-core design of K3a and K3c
+// (split-TF32 wgmma) is the next step for it.
 //
 // Layout of the work:
 //  - 64 x 64 tiles, 256 threads as 16 x 16: thread (ty, tx) holds score rows
-//    4 ty .. 4 ty + 3 and columns tx, tx + 16, tx + 32, tx + 48, and output
-//    rows 4 ty .. 4 ty + 3 at head-dimension columns tx + 16 j.
+//    4 ty .. 4 ty + 3 and columns tx, tx + 16, tx + 32, tx + 48, and dq rows
+//    4 ty .. 4 ty + 3 at head-dimension columns tx + 16 j.
 //  - D-wide tiles in shared memory have a pitch of D + 1 floats: 16
 //    neighbouring rows read at the same d hit 16 different banks.
-//  - The row statistics (m, l, alpha; lse, delta) live in shared memory,
-//    and one warp reduces 8 score rows per step in the forward.
+//  - lse and delta per row live in shared memory.
 //  - D <= 128; a template on ceil(D / 16), rounded up to a power of two,
 //    sizes the register tiles (the model's D = 64 fits exactly). Shared
-//    memory goes above 48 KB (up to 166 KB in K3c at D = 128), so each
-//    launch sets the dynamic shared-memory attribute.
-//  - expf / logf, not the fast intrinsics, keep the kernels within 1e-5 of
-//    the plain PyTorch versions.
-// The kernels allocate nothing and do not synchronise: the caller owns the
-// outputs and the stream.
+//    memory goes above 48 KB, so each launch sets the dynamic shared-memory
+//    attribute.
+//  - expf, not the fast intrinsic, keeps the kernel within 1e-4 of the plain
+//    PyTorch version.
+// The kernel allocates nothing and does not synchronise: the caller owns the
+// output and the stream.
 
 #include <cuda_runtime.h>
 
@@ -103,130 +95,11 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a,
   }
 }
 
-// K3a. Grid (query tile, b h). Shared: q, k, v tiles (pitch D + 1), the
-// score tile, and m, l, alpha per row.
-template <int NJ>
-__global__ void flash_fwd_kernel(const float* __restrict__ q,
-                                 const float* __restrict__ k,
-                                 const float* __restrict__ v,
-                                 float* __restrict__ o,
-                                 float* __restrict__ lse, int T, int D,
-                                 float scale) {
-  extern __shared__ float smem[];
-  const int dp = D + 1;
-  float* qs = smem;
-  float* ks = qs + kTile * dp;
-  float* vs = ks + kTile * dp;
-  float* ps = vs + kTile * dp;
-  float* row_m = ps + kTile * kPitchS;
-  float* row_l = row_m + kTile;
-  float* row_a = row_l + kTile;
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * kTile;
-  const size_t base = (size_t)blockIdx.y * T * D;
-
-  load_tile(qs, q + base, q0, T, D);
-  if (tid < kTile) {
-    row_m[tid] = kNeg;
-    row_l[tid] = 0.f;
-  }
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < T; k0 += kTile) {
-    __syncthreads();                 // the last tile's readers are done
-    load_tile(ks, k + base, k0, T, D);
-    load_tile(vs, v + base, k0, T, D);
-    __syncthreads();
-
-    float s[4][4] = {};
-    tile_dot(s, qs, ks, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        ps[(ty * 4 + i) * kPitchS + c] = (k0 + c < T) ? s[i][j] * scale : kNeg;
-      }
-    __syncthreads();
-
-    // online softmax: warp w updates rows 8 w .. 8 w + 7
-    for (int rr = 0; rr < 8; ++rr) {
-      const int r = warp * 8 + rr;
-      float* row = ps + r * kPitchS;
-      const float x0 = row[lane], x1 = row[lane + 32];
-      float mx = fmaxf(x0, x1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = row_m[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      row[lane] = p0;
-      row[lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        row_a[r] = alpha;
-        row_l[r] = alpha * row_l[r] + sum;
-        row_m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = row_a[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    for (int kk = 0; kk < kTile; ++kk) {
-      float p[4], vv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * kPitchS + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = tx + 16 * j;
-        vv[j] = c < D ? vs[kk * dp + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r >= T) continue;
-    const float l = row_l[r];
-    const float l_safe = l == 0.f ? 1.f : l;
-    float* orow = o + base + (size_t)(q0 + r) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < D) orow[c] = acc[i][j] / l_safe;
-    }
-    if (tx == 0) lse[(size_t)blockIdx.y * T + q0 + r] = row_m[r] + logf(l_safe);
-  }
-}
-
-// The score tile of a backward step: p = exp(s - lse) and
+// The ds tile of a backward step: p = exp(s - lse) and
 // ds = p (do v^T - delta) scale for rows 4 ty + i, columns tx + 16 j.
-// Query rows at or beyond T give p = ds = 0; key columns at or beyond T
-// score -1e30.
-__device__ __forceinline__ void bwd_scores(float (&p)[4][4], float (&ds)[4][4],
+// Query rows at or beyond T give ds = 0; key columns at or beyond T score
+// -1e30.
+__device__ __forceinline__ void bwd_scores(float (&ds)[4][4],
                                            const float* qs, const float* dos,
                                            const float* ks, const float* vs,
                                            const float* row_lse,
@@ -244,7 +117,6 @@ __device__ __forceinline__ void bwd_scores(float (&p)[4][4], float (&ds)[4][4],
     for (int j = 0; j < 4; ++j) {
       const float sv = (k0 + tx + 16 * j < T) ? s[i][j] * scale : kNeg;
       const float pv = row_in ? expf(sv - row_lse[r]) : 0.f;
-      p[i][j] = pv;
       ds[i][j] = pv * (dpv[i][j] - row_dlt[r]) * scale;
     }
   }
@@ -292,9 +164,8 @@ __global__ void flash_dq_kernel(const float* __restrict__ q,
     load_tile(vs, v + base, k0, T, D);
     __syncthreads();
 
-    float p[4][4], ds[4][4];
-    bwd_scores(p, ds, qs, dos, ks, vs, row_lse, row_dlt, q0, k0, T, D, scale,
-               ty, tx);
+    float ds[4][4];
+    bwd_scores(ds, qs, dos, ks, vs, row_lse, row_dlt, q0, k0, T, D, scale, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -326,105 +197,6 @@ __global__ void flash_dq_kernel(const float* __restrict__ q,
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
       if (c < D) row[c] = acc[i][j];
-    }
-  }
-}
-
-// K3c. Grid (key tile, b h). Shared: the block's k, v tiles and each query
-// step's q, do tiles (pitch D + 1), the p and ds tiles, lse and delta per
-// query row. Thread (ty, tx) accumulates dk and dv for key rows 4 ty + i at
-// columns tx + 16 j.
-template <int NJ>
-__global__ void flash_dkv_kernel(const float* __restrict__ q,
-                                 const float* __restrict__ k,
-                                 const float* __restrict__ v,
-                                 const float* __restrict__ d_o,
-                                 const float* __restrict__ lse,
-                                 const float* __restrict__ delta,
-                                 float* __restrict__ dk,
-                                 float* __restrict__ dv, int T, int D,
-                                 float scale) {
-  extern __shared__ float smem[];
-  const int dp = D + 1;
-  float* ks = smem;
-  float* vs = ks + kTile * dp;
-  float* qs = vs + kTile * dp;
-  float* dos = qs + kTile * dp;
-  float* pss = dos + kTile * dp;
-  float* dss = pss + kTile * kPitchS;
-  float* row_lse = dss + kTile * kPitchS;
-  float* row_dlt = row_lse + kTile;
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * kTile;
-  const size_t base = (size_t)blockIdx.y * T * D;
-  const size_t rbase = (size_t)blockIdx.y * T;
-
-  load_tile(ks, k + base, k0, T, D);
-  load_tile(vs, v + base, k0, T, D);
-  float acc_k[4][NJ], acc_v[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < T; q0 += kTile) {
-    __syncthreads();
-    load_tile(qs, q + base, q0, T, D);
-    load_tile(dos, d_o + base, q0, T, D);
-    load_rows(row_lse, lse + rbase, q0, T);
-    load_rows(row_dlt, delta + rbase, q0, T);
-    __syncthreads();
-
-    // scores with query rows 4 ty + i and key columns tx + 16 j
-    float p[4][4], ds[4][4];
-    bwd_scores(p, ds, qs, dos, ks, vs, row_lse, row_dlt, q0, k0, T, D, scale,
-               ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pss[(ty * 4 + i) * kPitchS + tx + 16 * j] = p[i][j];
-        dss[(ty * 4 + i) * kPitchS + tx + 16 * j] = ds[i][j];
-      }
-    __syncthreads();
-
-    for (int qq = 0; qq < kTile; ++qq) {
-      float pv[4], dsv[4], gv[NJ], qv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = pss[qq * kPitchS + ty * 4 + i];
-        dsv[i] = dss[qq * kPitchS + ty * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = tx + 16 * j;
-        gv[j] = c < D ? dos[qq * dp + c] : 0.f;
-        qv[j] = c < D ? qs[qq * dp + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          acc_v[i][j] = fmaf(pv[i], gv[j], acc_v[i][j]);
-          acc_k[i][j] = fmaf(dsv[i], qv[j], acc_k[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (k0 + r >= T) continue;
-    float* krow = dk + base + (size_t)(k0 + r) * D;
-    float* vrow = dv + base + (size_t)(k0 + r) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < D) {
-        krow[c] = acc_k[i][j];
-        vrow[c] = acc_v[i][j];
-      }
     }
   }
 }
@@ -471,19 +243,6 @@ int launch(Kernel kernel, int tiles, int BH, size_t smem, cudaStream_t stream,
 
 }  // namespace
 
-extern "C" int flash_fwd(const float* q, const float* k, const float* v,
-                         float* o, float* lse, int BH, int T, int D,
-                         cudaStream_t stream) {
-  if (bad_dims(BH, T, D)) return static_cast<int>(cudaErrorInvalidValue);
-  if (BH == 0 || T == 0) return 0;
-  const float scale = head_scale(D);
-  const int tiles = (T + kTile - 1) / kTile;
-  return with_nj(D, [&](auto nj) {
-    return launch(flash_fwd_kernel<decltype(nj)::value>, tiles, BH,
-                  smem_bytes(D, 3, 1, 3), stream, q, k, v, o, lse, T, D, scale);
-  });
-}
-
 extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,
                             const float* d_o, const float* lse,
                             const float* delta, float* dq, int BH, int T, int D,
@@ -496,20 +255,5 @@ extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,
     return launch(flash_dq_kernel<decltype(nj)::value>, tiles, BH,
                   smem_bytes(D, 4, 1, 2), stream, q, k, v, d_o, lse, delta, dq,
                   T, D, scale);
-  });
-}
-
-extern "C" int flash_bwd_dkv(const float* q, const float* k, const float* v,
-                             const float* d_o, const float* lse,
-                             const float* delta, float* dk, float* dv, int BH,
-                             int T, int D, cudaStream_t stream) {
-  if (bad_dims(BH, T, D)) return static_cast<int>(cudaErrorInvalidValue);
-  if (BH == 0 || T == 0) return 0;
-  const float scale = head_scale(D);
-  const int tiles = (T + kTile - 1) / kTile;
-  return with_nj(D, [&](auto nj) {
-    return launch(flash_dkv_kernel<decltype(nj)::value>, tiles, BH,
-                  smem_bytes(D, 4, 2, 2), stream, q, k, v, d_o, lse, delta, dk,
-                  dv, T, D, scale);
   });
 }

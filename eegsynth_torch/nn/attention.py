@@ -7,10 +7,12 @@ Counterpart of ``eegsynth/nn/attention.py``:
 - :func:`flash_attention`, blocked online-softmax attention through
   :class:`FlashAttention`, whose forward is K3a and whose backward is
   delta = rowsum(dO∘O) as a torch op, then K3b (dq) and K3c (dk, dv)
-  (``eegsynth_torch/csrc/flash_attn.cu``, built at first use by
-  ``eegsynth_torch._build``). First-order only, as the JAX custom VJP: a
-  second derivative raises, so paths that differentiate twice (R1 through
-  the transformer discriminator) take the dense path;
+  (K3a and K3c on the tensor cores, split-TF32 ``wgmma``, in
+  ``eegsynth_torch/csrc/flash_attn_tc.cu``; K3b in ``csrc/flash_attn.cu``;
+  built at first use by ``eegsynth_torch._build``). First-order only, as
+  the JAX custom VJP: a second derivative raises, so paths that
+  differentiate twice (R1 through the transformer discriminator) take the
+  dense path;
 - :func:`mha` and :func:`set_attention_impl`, the dispatch: ``"dense"``,
   ``"flash"`` and ``"auto"`` mirror JAX's ``"xla"``, ``"pallas"`` and
   ``"auto"``. ``"auto"`` takes the kernel for CUDA tensors with T ≥ 512 (the
@@ -35,6 +37,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from eegsynth_torch import _build
 from eegsynth_torch.nn.gru_sequence import _device_of, _launch
 
 MAX_HEAD_DIM = 128
@@ -155,7 +158,10 @@ def flash_dkv(q, k, v, do, lse, delta):
     B, H, T, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if B * H and T:
-        _launch("flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv, B * H, T, D)
+        # q and do split into the kernel's query tiles by its pre-pass
+        n = _build.load_library().flash_bwd_dkv_scratch(B * H, T, D)
+        scratch = torch.empty(n, dtype=torch.float32, device=q.device)
+        _launch("flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv, scratch, B * H, T, D)
         flash_dkv.launches += 1
     return dk, dv
 

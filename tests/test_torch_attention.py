@@ -1,8 +1,9 @@
 """eegsynth_torch.nn.attention against eegsynth.nn.attention on the CPU: the
 plain versions of the flash kernels K3a, K3b and K3c against the Pallas
-kernels in interpret mode, ``mha``'s dispatch, and first-order-only
-``flash_attention``. Same numpy inputs on both sides; the JAX side runs with
-x64 off (float32, as the port)."""
+kernels in interpret mode, ``mha``'s dispatch, first-order-only
+``flash_attention``, and the split-TF32 products of the card's K3a and K3c,
+emulated, against the card's tolerances. Same numpy inputs on both sides;
+the JAX side runs with x64 off (float32, as the port)."""
 
 import jax
 import jax.numpy as jnp
@@ -122,3 +123,74 @@ def test_wrappers_check_shapes():
         A.flash_forward(q, k[:, :1], v)
     with pytest.raises(ValueError, match="lse must be"):
         A.flash_dq(q, k, v, q, torch.zeros(1, 2, 7), torch.zeros(1, 2, 8))
+
+
+# ------------------------------------------------------------------
+# The card kernels' numerics: split-TF32 products
+# ------------------------------------------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, on the bits: what the K3a/K3c kernels feed the tensor cores."""
+    bits = x.contiguous().numpy().view(np.uint32)
+    rounded = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return torch.from_numpy(rounded.view(np.float32))
+
+
+def _mm_split(a, b):
+    """a @ b as the kernels compute it: x = hi + lo, both TF32, and the
+    products lo·hi + hi·lo + hi·hi summed in float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _mm_tf32(a, b):
+    """One-pass TF32: each operand rounded once."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _k3a_k3c(q, k, v, do, mm):
+    """K3a's and K3c's formulas (the plain versions') with every tile product
+    through ``mm``; delta = rowsum(dO∘O) in float32 between them, as
+    FlashAttention.backward computes it."""
+    scale = q.shape[-1] ** -0.5
+    s = mm(q, k.transpose(-1, -2)) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    o = mm(torch.exp(s - lse[..., None]), v)
+    delta = (do * o).sum(-1)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (mm(do, v.transpose(-1, -2)) - delta[..., None]) * scale
+    return o, lse, mm(ds.transpose(-1, -2), q), mm(p.transpose(-1, -2), do)
+
+
+# the card's tolerances (chip_smoke.py: ATTN_FWD_TOL, ATTN_BWD_RTOL)
+CARD_FWD_TOL, CARD_BWD_RTOL = 1e-5, 1e-4
+
+
+@pytest.mark.parametrize("B,H,T,D", [(2, 4, 96, 64), (1, 3, 200, 48)])
+def test_split_tf32_meets_the_card_tolerances(B, H, T, D):
+    """The products K3a and K3c run on the tensor cores, emulated here (TF32
+    rounding on the bits, float32 sums), hold the card's tolerances against
+    the Pallas kernels in interpret mode: 1e-5 on o and lse, 1e-4 of the
+    largest magnitude on dk and dv. One-pass TF32 misses both: that is why
+    every product is split."""
+    q, k, v, g = _inputs((B, H, T, D), 4, seed=7 * T + D)
+    with jax.enable_x64(False):
+        o_pad, lse_pad, _ = _fa_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True)
+        _, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, True),
+                         *map(jnp.asarray, (q, k, v)))
+        _, dk_want, dv_want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    o_want = np.asarray(o_pad)[:, :T].reshape(B, H, T, D)
+    lse_want = np.asarray(lse_pad)[:, :T, 0].reshape(B, H, T)
+
+    def errors(mm):
+        o, lse, dk, dv = _k3a_k3c(*_t(q, k, v, g), mm)
+        return (max(np.abs(o.numpy() - o_want).max(), np.abs(lse.numpy() - lse_want).max()),
+                max(np.abs(dk.numpy() - dk_want).max() / np.abs(dk_want).max(),
+                    np.abs(dv.numpy() - dv_want).max() / np.abs(dv_want).max()))
+
+    fwd, bwd = errors(_mm_split)
+    assert fwd <= CARD_FWD_TOL and bwd <= CARD_BWD_RTOL, (fwd, bwd)
+    fwd, bwd = errors(_mm_tf32)
+    assert fwd > CARD_FWD_TOL and bwd > CARD_BWD_RTOL, (fwd, bwd)
