@@ -22,9 +22,9 @@ set of functions:
                                             spectral-norm Linear → sigmoid
 
 Every recurrence but the discriminator's runs kernel K1 (forward and backward)
-on the card; the D-step inputs of the stacked trainer run kernel K2
-(:func:`fused_disc_inputs`); the discriminator runs the plain recurrence,
-which R1 differentiates twice.
+on the card; the D-step inputs of the stacked trainer run kernel K2 where it
+takes the widths, else three K1 forward launches (:func:`fused_disc_inputs`);
+the discriminator runs the plain recurrence, which R1 differentiates twice.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from torch import nn
 
 from eegsynth_torch.nn.gru import GRULayer, GRUStack, gru_apply_time_major
 from eegsynth_torch.nn.layers import Dense, linear
-from eegsynth_torch.nn.multigru import multigru_disc_inputs
+from eegsynth_torch.nn.multigru import k2_fits, multigru_disc_inputs, smem_limit
 from eegsynth_torch.nn.spectral_norm import SNDense, sn_dense_apply
 
 Carry = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -282,19 +282,41 @@ def fused_gen_refine(model: TimeGAN | Params, z: torch.Tensor,
     return gen_refine_carry(p, z, init, with_decode)[1]
 
 
+def _takes_k2(params: Params, x: torch.Tensor) -> bool:
+    """K2's route: single-layer stacks with generator and supervisor
+    projections and, on the card, widths whose block fits in its shared
+    memory. Decided from shapes and the device before any launch."""
+    g, s = params["generator"], params["supervisor"]
+    if not _fusable(params) or g["proj"] is None or s["proj"] is None:
+        return False
+    if x.device.type != "cuda":
+        return True
+    width = lambda net: params[net]["gru"][0]["w_hh"].shape[-1]   # noqa: E731
+    return k2_fits(width("embedder"), width("generator"), width("supervisor"),
+                   g["proj"]["w"].shape[-2], smem_limit(x.device))
+
+
 def fused_disc_inputs(params: Params, x: torch.Tensor, z: torch.Tensor):
     """D-step latents (h_real, h_fake) = (embedder(x), supervisor(generator(z)))
     of stacked buckets: x (nb, B, T, C), z (nb, B, T, z) → (nb, B, T, z) each.
+    Forward only.
 
-    Kernel K2 on the card, its plain version on the CPU: the JAX vmapped
-    ``fused_disc_inputs`` / ``multigru_disc_inputs_pallas``. The input
-    projections are hoisted as two batched products. Forward only, and needs
-    single-layer stacks with generator and supervisor projections
-    (h_dim != z_dim, which ``adaptive_dims`` always gives)."""
+    Two routes, chosen by :func:`_takes_k2` before any launch:
+
+    - kernel K2 on the card, its plain version on the CPU (the JAX vmapped
+      ``fused_disc_inputs`` / ``multigru_disc_inputs_pallas``), with the
+      input projections hoisted as two batched products: single-layer
+      stacks with both projections whose widths K2 takes (up to z36/h72 on
+      the H100);
+    - otherwise the composed networks, ``encode`` and ``refine_latent ∘
+      gen_latent`` (the JAX fallback, the same math as its fused scan): 3 K1
+      forward launches on the card for single-layer stacks, the projections
+      as products. Wider models (z40/h80 from 20 channels), stacks without
+      projections (h_dim == z_dim) and multi-layer stacks take it."""
+    if not _takes_k2(params, x):
+        with torch.no_grad():
+            return encode(params, x), refine_latent(params, gen_latent(params, z))
     e, g, s = params["embedder"], params["generator"], params["supervisor"]
-    if not _fusable(params) or g["proj"] is None or s["proj"] is None:
-        raise ValueError("fused_disc_inputs needs single-layer stacks with "
-                         "generator/supervisor projections (h_dim != z_dim)")
     el, gl, sl = e["gru"][0], g["gru"][0], s["gru"][0]
     t = lambda w: w.transpose(-1, -2).contiguous()            # noqa: E731
     with torch.no_grad():

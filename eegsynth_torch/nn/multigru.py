@@ -21,11 +21,13 @@ h_fake (nb, T, B, Z).
 
 Accepted widths on the card: every width at most 128 (``MAX_HIDDEN``), and
 the six weight matrices, six biases and one batch row of state within the
-card's opt-in
-shared memory per block (227 KB on the H100): the reference width
-(He = Z = 28, Hg = Hs = 56) takes 116 KB, the T > 800 width (z 36, h 72)
-192 KB. Wider models raise ``ValueError``; nothing falls back to the plain
-version.
+card's opt-in shared memory per block (227 KB on the H100; :func:`k2_fits`):
+the reference width (He = Z = 28, Hg = Hs = 56) takes 116 KB, the T > 800
+width (z 36, h 72) 192 KB, z 40 / h 80 (20 channels) does not fit. Called
+with wider models, the wrapper raises ``ValueError``; nothing falls back to
+the plain version. ``models/timegan.py``'s ``fused_disc_inputs`` checks
+:func:`k2_fits` before it calls the wrapper and takes the composed K1
+recurrences for widths K2 does not take.
 """
 
 from __future__ import annotations
@@ -77,6 +79,19 @@ def smem_bytes(He: int, Hg: int, Hs: int, Z: int, rows: int = 1) -> int:
     return 4 * (weights + rows * per_row)
 
 
+def smem_limit(device: torch.device) -> int:
+    """The card's opt-in shared memory per block (Hopper's 232,448 B where
+    an older torch lacks the property)."""
+    return getattr(torch.cuda.get_device_properties(device),
+                   "shared_memory_per_block_optin", 232448)
+
+
+def k2_fits(He: int, Hg: int, Hs: int, Z: int, limit: int) -> bool:
+    """Whether one block of K2 at these widths fits in ``limit`` bytes of
+    shared memory (:func:`smem_limit`)."""
+    return smem_bytes(He, Hg, Hs, Z) <= limit
+
+
 def _dims(xp_e, xp_g, w):
     if xp_e.dim() != 4 or xp_g.dim() != 4:
         raise ValueError("xp_e, xp_g must be (nb, T, B, 3H)")
@@ -113,10 +128,8 @@ def multigru_disc_inputs(xp_e, xp_g, w_e, b_e, w_g, b_g, w_pg, b_pg, w_is,
         return multigru_disc_inputs_reference(xp_e, xp_g, *weights.values())
     _check_cuda("multigru_disc_inputs", max(He, Hg, Hs, Z), xp_e=xp_e, xp_g=xp_g,
                 **weights)
-    # Hopper's opt-in limit where the property is missing from older torch
-    limit = getattr(torch.cuda.get_device_properties(device),
-                    "shared_memory_per_block_optin", 232448)
-    if smem_bytes(He, Hg, Hs, Z) > limit:
+    limit = smem_limit(device)
+    if not k2_fits(He, Hg, Hs, Z, limit):
         raise ValueError(
             f"multigru_disc_inputs: widths He={He} Hg={Hg} Hs={Hs} Z={Z} need "
             f"{smem_bytes(He, Hg, Hs, Z)} B of shared memory per block (limit "

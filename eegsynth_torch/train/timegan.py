@@ -194,9 +194,10 @@ def gan_step(params: Params, optD: Optimizer, d_state: OptState,
     its batch x (nb, B, T, C). Returns (params, d_state, g_state, logs
     (nb, 8)) with the log columns of ``LOG_COLUMNS``.
 
-    D step: h_real, h_fake from kernel K2 (no gradient), instance noise,
-    smoothed BCE on ``d_real`` (the stored ``u``) and ``d_fake`` (the ``u``
-    ``d_real`` produced), R1 on the noisy real latents in eval mode with the
+    D step: h_real, h_fake from kernel K2, or from three K1 launches where
+    K2 does not take the widths (no gradient; ``fused_disc_inputs``),
+    instance noise, smoothed BCE on ``d_real`` (the stored ``u``) and
+    ``d_fake`` (the ``u`` ``d_real`` produced), R1 on the noisy real latents in eval mode with the
     pre-step ``u``, the accuracy throttle; the updated D keeps the ``u`` from
     after ``d_fake``. G step: the G→S→R cascade and E→R on K1, the D forward
     in train mode with the updated D (no gradient reaches D), which advances

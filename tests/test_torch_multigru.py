@@ -1,8 +1,10 @@
 """K2 on the CPU: the plain version of the fused multi-network kernel against
 the JAX package's ``multigru_disc_inputs_pallas`` in interpret mode, on the
-same stacked parameters and inputs, and the port's ``fused_disc_inputs``
-against its own composed recurrences. The kernel itself is checked on the
-card by tests/test_torch_card.py and chip_smoke.py."""
+same stacked parameters and inputs, the port's ``fused_disc_inputs``
+against its own composed recurrences, and its route rule: the widths K2
+takes (``k2_fits``), and the composed route for the others against the JAX
+package's ``fused_disc_inputs``. The kernel itself is checked on the card by
+tests/test_torch_card.py and chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -11,9 +13,10 @@ import pytest
 import torch
 
 from eegsynth.models.timegan import TimeGANConfig, timegan_init
+from eegsynth.models.timegan import fused_disc_inputs as jax_fused_disc_inputs
 from eegsynth.nn.pallas_multigru import multigru_disc_inputs_pallas
 from eegsynth_torch.models import timegan as ttg
-from eegsynth_torch.nn.multigru import multigru_disc_inputs, smem_bytes
+from eegsynth_torch.nn.multigru import k2_fits, multigru_disc_inputs, smem_bytes
 from eegsynth_torch.tree import tree_map
 
 # float32 on both sides, another summation order over up to 16 steps
@@ -63,11 +66,62 @@ def test_fused_equals_composed():
                                    rtol=1e-5, atol=1e-6)
 
 
-def test_identity_projection_raises():
-    params = _stacked(TimeGANConfig(x_dim=3, z_dim=8, h_dim=8), 1)
+def _jax_disc_inputs(params, x, z):
+    """The JAX package's fused_disc_inputs, vmapped over the bucket axis
+    (its fused scan, or its composed fallback), in float32."""
+    with jax.enable_x64(False):
+        h_real, h_fake = jax.vmap(jax_fused_disc_inputs)(params, jnp.asarray(x),
+                                                          jnp.asarray(z))
+    return np.asarray(h_real), np.asarray(h_fake)
+
+
+def _disc_inputs_case(cfg, nb, B, T, seed):
+    params = _stacked(cfg, nb, seed=seed)
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (nb, B, T, cfg.x_dim)).astype(np.float32)
+    z = rng.uniform(0, 1, (nb, B, T, cfg.z_dim)).astype(np.float32)
     tp = tree_map(lambda a: torch.from_numpy(np.array(a)), params)
-    with pytest.raises(ValueError, match="projections"):
-        ttg.fused_disc_inputs(tp, torch.zeros(1, 2, 4, 3), torch.zeros(1, 2, 4, 8))
+    return params, tp, x, z
+
+
+def test_identity_projection_raises():
+    """A stack without projections (h_dim == z_dim) raised here before K2's
+    route got its rule; it now takes the composed networks and matches the
+    JAX package's fused_disc_inputs."""
+    params, tp, x, z = _disc_inputs_case(TimeGANConfig(x_dim=3, z_dim=8, h_dim=8),
+                                         2, 3, 12, seed=2)
+    assert not ttg._takes_k2(tp, torch.from_numpy(x))
+    got = ttg.fused_disc_inputs(tp, torch.from_numpy(x), torch.from_numpy(z))
+    for g, w in zip(got, _jax_disc_inputs(params, x, z)):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0)
+
+
+# the reference width, adaptive_dims' T > 800 width (both fit the H100's
+# 232,448 B of opt-in shared memory per block), and 20 channels' z40/h80
+@pytest.mark.parametrize("dims,fits", [((28, 56, 56, 28), True),
+                                       ((36, 72, 72, 36), True),
+                                       ((40, 80, 80, 40), False)])
+def test_k2_fits(dims, fits):
+    assert k2_fits(*dims, 232448) is fits
+
+
+@pytest.mark.parametrize("route", ["composed", "k2_plain"])
+def test_wide_disc_inputs_match_jax(monkeypatch, route):
+    """z40/h80 (20 channels), which K2 does not take on the H100: the
+    composed route (what the card runs there, 3 K1 forward launches) and,
+    on the CPU, K2's plain version both match the JAX package's vmapped
+    fused_disc_inputs within 1e-5."""
+    cfg = TimeGANConfig(x_dim=20, z_dim=40, h_dim=80)
+    params, tp, x, z = _disc_inputs_case(cfg, 2, 5, 48, seed=3)
+    assert ttg._takes_k2(tp, torch.from_numpy(x))     # the CPU keeps K2's route
+    if route == "composed":
+        monkeypatch.setattr(ttg, "_takes_k2", lambda params, x: False)
+    before = multigru_disc_inputs.launches
+    got = ttg.fused_disc_inputs(tp, torch.from_numpy(x), torch.from_numpy(z))
+    assert multigru_disc_inputs.launches == before
+    for g, w in zip(got, _jax_disc_inputs(params, x, z)):
+        assert g.shape == (2, 5, 48, 40) and not g.requires_grad
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0)
 
 
 def test_shared_memory_budget():
