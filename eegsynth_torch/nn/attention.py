@@ -7,16 +7,18 @@ Counterpart of ``eegsynth/nn/attention.py``:
 - :func:`flash_attention`, blocked online-softmax attention through
   :class:`FlashAttention`, whose forward is K3a and whose backward is
   delta = rowsum(dO∘O) as a torch op, then K3b (dq) and K3c (dk, dv)
-  (K3a and K3c on the tensor cores, split-TF32 ``wgmma``, in
-  ``eegsynth_torch/csrc/flash_attn_tc.cu``; K3b in ``csrc/flash_attn.cu``;
-  built at first use by ``eegsynth_torch._build``). First-order only, as
-  the JAX custom VJP: a second derivative raises, so paths that
-  differentiate twice (R1 through the transformer discriminator) take the
-  dense path;
+  (all three on the tensor cores, split-TF32 ``wgmma``, in
+  ``eegsynth_torch/csrc/flash_attn_tc.cu``, built at first use by
+  ``eegsynth_torch._build``). First-order only, as the JAX custom VJP: a
+  second derivative raises, so paths that differentiate twice (R1 through
+  the transformer discriminator) take the dense path;
 - :func:`mha` and :func:`set_attention_impl`, the dispatch: ``"dense"``,
   ``"flash"`` and ``"auto"`` mirror JAX's ``"xla"``, ``"pallas"`` and
   ``"auto"``. ``"auto"`` takes the kernel for CUDA tensors with T ≥ 512 (the
-  TPU's threshold, kept as the dispatch rule) and dense attention otherwise.
+  TPU's threshold, kept as the dispatch rule) whose shape the kernels take
+  (D ≤ 128, B·H ≤ 65535; :func:`auto_takes_flash`), and dense attention
+  otherwise: there JAX's TPU path runs its kernel, the port dense attention,
+  the same function within float32 rounding.
 
 Each kernel has a plain PyTorch version with its signature
 (:func:`flash_forward_plain`, :func:`flash_dq_plain`,
@@ -193,13 +195,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return FlashAttention.apply(*f32).to(q.dtype)
 
 
+def auto_takes_flash(shape, device_type: str) -> bool:
+    """``"auto"``'s rule for q of ``shape`` (B, H, T, D) on a device of
+    ``device_type``: the kernels for CUDA tensors with T ≥ 512 (the TPU's
+    threshold) in the shapes they take (D ≤ MAX_HEAD_DIM, B·H ≤ MAX_BH),
+    dense attention for everything else."""
+    B, H, T, D = shape
+    return (device_type == "cuda" and T >= 512 and D <= MAX_HEAD_DIM
+            and B * H <= MAX_BH)
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         impl: str | None = None) -> torch.Tensor:
     """Dispatching multi-head attention. ``impl`` overrides the module
-    default."""
+    default. Forced ``"flash"`` raises on CUDA for shapes the kernels do not
+    take; ``"auto"`` sends those to dense attention."""
     impl = impl or _ATTN_IMPL
     if impl == "auto":
-        impl = "flash" if (q.is_cuda and q.shape[2] >= 512) else "dense"
+        impl = "flash" if auto_takes_flash(q.shape, q.device.type) else "dense"
     if impl == "flash":
         return flash_attention(q, k, v)
     if impl != "dense":

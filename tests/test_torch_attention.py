@@ -105,6 +105,18 @@ def test_mha_dispatch_on_cpu():
         A.set_attention_impl("auto")
 
 
+# "auto" on the card: the kernels from 512 tokens, for the head dims
+# (D ≤ 128) and B·H (≤ 65535, the grid's second dimension) they take
+@pytest.mark.parametrize("shape,device,flash", [
+    ((64, 4, 768, 64), "cuda", True), ((2, 1, 512, 128), "cuda", True),
+    ((1, 2, 512, 160), "cuda", False), ((64, 4, 511, 64), "cuda", False),
+    ((16384, 4, 512, 64), "cuda", False), ((65535, 1, 512, 64), "cuda", True),
+    ((65536, 1, 512, 64), "cuda", False), ((64, 4, 768, 64), "cpu", False),
+])
+def test_auto_rule(shape, device, flash):
+    assert A.auto_takes_flash(shape, device) is flash
+
+
 def test_second_derivative_raises_for_flash_only():
     q, k, v = [x.requires_grad_() for x in _t(*_inputs((1, 2, 24, 8), 3, seed=4))]
     (g,) = torch.autograd.grad((A.attention_dense(q, k, v) ** 2).sum(), q,

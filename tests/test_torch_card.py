@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from eegsynth_torch.models.timegan import TimeGAN, TimeGANConfig
+from eegsynth_torch.models.timegan import (
+    TimeGAN, TimeGANConfig, fused_disc_inputs, timegan_init_stacked,
+)
 from eegsynth_torch.nn.attention import (
-    flash_attention, flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain,
-    flash_forward, flash_forward_plain, mha,
+    attention_dense, flash_attention, flash_dkv, flash_dkv_plain, flash_dq,
+    flash_dq_plain, flash_forward, flash_forward_plain, mha,
 )
 from eegsynth_torch.nn.gru_sequence import (
     gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
@@ -27,6 +29,7 @@ from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
 )
 from eegsynth_torch.train.timegan import synthesize_from_noise
+from eegsynth_torch.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -157,6 +160,28 @@ def test_multigru_kernel_matches_plain(cuda_device, nb, T, B, dims):
         assert (g - r).abs().max().item() <= 1e-4
 
 
+def test_wide_disc_inputs_take_k1(cuda_device):
+    """z40/h80 (20 channels) does not fit K2's shared memory: on the card
+    fused_disc_inputs runs the composed networks, 3 K1 forward launches and
+    no K2, and matches the CPU's route (K2's plain version)."""
+    cfg = TimeGANConfig(x_dim=20, z_dim=40, h_dim=80)
+    nb, B, T = 18, 63, 768
+    params = timegan_init_stacked(
+        cfg, [torch.Generator().manual_seed(b) for b in range(nb)], device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0, 1, (nb, B, T, 20)).astype(np.float32))
+    z = torch.from_numpy(rng.uniform(0, 1, (nb, B, T, 40)).astype(np.float32))
+    card = tree_map(lambda t: t.to(cuda_device), params)
+    k1, k2 = gru_sequence.launches, multigru_disc_inputs.launches
+    got = fused_disc_inputs(card, x.to(cuda_device), z.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (gru_sequence.launches - k1, multigru_disc_inputs.launches - k2) == (3, 0)
+    want = fused_disc_inputs(params, x, z)
+    for g, w in zip(got, want):
+        assert g.shape == (nb, B, T, 40) and torch.isfinite(g).all()
+        assert (g.cpu() - w).abs().max().item() <= 1e-4
+
+
 def test_cascade_chunked_equals_one_shot(cuda_device):
     model = TimeGAN(TimeGANConfig(), generator=torch.Generator().manual_seed(0),
                     device=cuda_device).eval()
@@ -261,6 +286,18 @@ def test_flash_attention_autograd_matches_cpu(cuda_device):
                                create_graph=True)
     with pytest.raises(RuntimeError):
         g.sum().backward()
+
+
+def test_auto_takes_dense_past_the_kernels_limits(cuda_device):
+    """At head dim 160 and 512 tokens "auto" runs dense attention on the
+    card, launching no flash kernel; forced "flash" raises there."""
+    q, k, v, _ = _attn(1, 2, 512, 160, cuda_device, seed=12)
+    before = flash_forward.launches
+    got = mha(q, k, v, impl="auto")
+    assert flash_forward.launches == before
+    assert torch.equal(got, attention_dense(q, k, v))
+    with pytest.raises(ValueError, match="D=160"):
+        mha(q, k, v, impl="flash")
 
 
 def test_flash_wrappers_raise_instead_of_falling_back(cuda_device):
