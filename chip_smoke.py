@@ -12,7 +12,8 @@ failure is swallowed):
 
 1. device  — the card's name, torch / CUDA versions, name and power limit;
 2. build   — nvcc builds every kernel under eegsynth_torch/csrc/, one
-             process per source, in parallel;
+             process per source, in parallel; cuobjdump -sass counts the
+             HGMMA (wgmma) instructions of every K3a, K3b and K3c instance;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the main paths give it, with both times and its
              bound (FLOPs at the TF32 tensor-core rate or bytes at the HBM
@@ -23,7 +24,8 @@ failure is swallowed):
              function timed in turns with the kernel where there is one
              (cuDNN's GRU beside K1 forward, memory-efficient SDPA's forward
              beside K3a and its backward beside K3b + K3c); dense attention
-             beside K3a;
+             beside K3a; "auto" attention's shape rule (the kernels at head
+             dim 64, dense attention at 160, forced "flash" raising there);
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -35,8 +37,11 @@ failure is swallowed):
              1 AE epoch, 1 SUP epoch and 4 GAN steps); artifacts, finite
              losses, every ckpt_best served back, the launch counts of K1
              forward, K1 backward and K2 against their expected counts, the
-             median GAN-step time; then one GAN step against the CPU plain
-             path, and a per-layer split and profiler line of one GAN step;
+             median GAN-step time; the same on 2 buckets of (63, 768, 20)
+             (z40/h80, which K2 does not take: its D-step inputs run 3 K1
+             forward launches, K2 none) for 2 GAN steps; then one GAN step
+             against the CPU plain path at 14 and at 20 channels, and a
+             per-layer split and profiler line of one GAN step;
 6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
              heads 4, patch 8, batch 64) on 9 random posture buckets for 2
              epochs with flash attention forced; artifacts, finite
@@ -59,6 +64,7 @@ from __future__ import annotations
 import http.client
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -74,11 +80,11 @@ from eegsynth_torch import _build
 from eegsynth_torch.convert import from_jax_params, to_jax_params, tree_to_numpy
 from eegsynth_torch.models.cgan_transformer import generator_apply as cgan_generator_apply
 from eegsynth_torch.models.timegan import (
-    TimeGAN, TimeGANConfig, sample_noise, timegan_init_stacked,
+    TimeGAN, TimeGANConfig, adaptive_dims, sample_noise, timegan_init_stacked,
 )
 from eegsynth_torch.nn.attention import (
     attention_dense, flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain,
-    flash_forward, flash_forward_plain, set_attention_impl,
+    flash_forward, flash_forward_plain, mha, set_attention_impl,
 )
 from eegsynth_torch.nn.gru_sequence import (
     gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
@@ -131,6 +137,11 @@ ATTN_BWD_RTOL = 1e-4   # dq, dk, dv, relative to the largest magnitude: sums
 # Training: 18 buckets (9 postures x 2 conditions) of 63 random windows
 N_BUCKETS, N_WINDOWS, SEQ_LEN, CHANNELS = 18, 63, 768, 14
 GAN_STEPS = 4
+# Wide data: 20 channels give adaptive_dims' z40/h80, which K2 does not take
+# (its block needs more than the H100's 232,448 B of shared memory), so the
+# D-step inputs run the composed route, 3 K1 forward launches; a short run
+# of 2 buckets
+WIDE_CHANNELS, WIDE_BUCKETS, WIDE_GAN_STEPS = 20, 2, 2
 # One GAN step, card against the CPU plain path, on the same parameters and
 # draws. Logged values: 1e-4 relative (f32 sums in another order over 768
 # steps, in K1, K2 and the reductions). Parameters after the update: 2e-4
@@ -189,6 +200,33 @@ def phase_build() -> None:
             if any(k in line for k in ("entry function", "registers", "spill", "smem",
                                        "Performance Loss")):
                 print(f"[build] {line.strip()}", flush=True)
+
+
+def phase_sass() -> None:
+    """The HGMMA (wgmma) instructions of every instance of the tensor-core
+    flash kernels K3a, K3b and K3c in the built library, from ``cuobjdump
+    -sass``: each instance must have some, or its products do not run on the
+    tensor cores."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts: dict[str, dict[int, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", line)
+            name = (m.group(1), int(m.group(2))) if m else None
+            if name:
+                counts.setdefault(name[0], {})[name[1]] = 0
+        elif name and "HGMMA" in line:
+            counts[name[0]][name[1]] += 1
+    for kernel in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
+        per_dp = counts.get(kernel, {})
+        print(f"[sass] {kernel} HGMMA per instance: " + ", ".join(
+            f"DP {dp}: {n}" for dp, n in sorted(per_dp.items())), flush=True)
+        if sorted(per_dp) != [16, 32, 64, 128] or not all(per_dp.values()):
+            fail(f"{kernel}: instances without HGMMA or missing: {per_dp}")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -518,6 +556,33 @@ def _check_k3(smi: str) -> dict:
     return {name: {"max_abs_err": worst[name], **heads[name]} for name in worst}
 
 
+def phase_auto_rule(smi: str) -> None:
+    """"auto" attention on the card: the kernels at (1, 2, 512, 64); dense
+    attention, with no flash launch, at head dim 160, past the kernels'
+    D <= 128; forced "flash" raises there."""
+    for shape, flash in (((1, 2, 512, 64), True), ((1, 2, 512, 160), False)):
+        q, k, v, _ = _attn_inputs(*shape, seed=41)
+        before = flash_forward.launches
+        with torch.no_grad():
+            got = mha(q, k, v, impl="auto")
+            ref = attention_dense(q, k, v)
+        torch.cuda.synchronize()
+        launches = flash_forward.launches - before
+        err = (got - ref).abs().max().item()
+        print(f"[auto] mha 'auto' B, H, T, D = {shape}: flash_forward launches "
+              f"{launches} (expected {int(flash)}), max|diff| against dense "
+              f"{err:.3e} (tol {ATTN_FWD_TOL:g}) | {smi}", flush=True)
+        if launches != int(flash) or err > ATTN_FWD_TOL or (not flash and err != 0):
+            fail(f"'auto' attention at {shape}: {launches} flash launches, "
+                 f"max|diff| {err}")
+    try:
+        mha(q, k, v, impl="flash")
+    except ValueError as e:
+        print(f"[auto] forced 'flash' at head dim 160 raises: {e}", flush=True)
+    else:
+        fail("forced 'flash' at head dim 160 did not raise")
+
+
 def _write_runs(root: Path) -> tuple[Path, Path]:
     runs, real = root / "runs", root / "real"
     real.mkdir(parents=True)
@@ -743,17 +808,19 @@ def _check_cascade(model: TimeGAN, device: str) -> None:
         fail(f"chunked synthesis differs from one-shot on the card: {err}")
 
 
-def _write_buckets(root: Path) -> Path:
-    """18 bucket NPZs posture{1..9}_{no_exo,with_exo}.npz of random
-    (63, 768, 14) float32 windows in [0, 1), from a seed."""
+def _write_buckets(root: Path, n_buckets: int = N_BUCKETS,
+                   channels: int = CHANNELS) -> Path:
+    """The first ``n_buckets`` of the 18 bucket NPZs
+    posture{1..9}_{no_exo,with_exo}.npz, random (63, 768, channels) float32
+    windows in [0, 1), from a seed."""
     data = root / "data"
     data.mkdir()
     rng = np.random.default_rng(0)
-    for posture in range(1, 10):
-        for cond in ("no_exo", "with_exo"):
-            np.savez(data / f"posture{posture}_{cond}.npz",
-                     X=rng.uniform(0, 1, (N_WINDOWS, SEQ_LEN, CHANNELS))
-                     .astype(np.float32), fs=np.float32(128.0))
+    names = [f"posture{p}_{c}" for p in range(1, 10) for c in ("no_exo", "with_exo")]
+    for name in names[:n_buckets]:
+        np.savez(data / f"{name}.npz",
+                 X=rng.uniform(0, 1, (N_WINDOWS, SEQ_LEN, channels))
+                 .astype(np.float32), fs=np.float32(128.0))
     return data
 
 
@@ -764,36 +831,47 @@ def _train_hparams(**override) -> dict:
     return {**hp, **override}
 
 
-def phase_train(smi: str, device: str = "cuda") -> dict:
-    """train_all_buckets at full width; returns the launch counts of its run.
+def phase_train(smi: str, device: str = "cuda", n_buckets: int = N_BUCKETS,
+                channels: int = CHANNELS, gan_steps: int = GAN_STEPS,
+                k2_route: bool = True) -> dict:
+    """train_all_buckets at full width on ``n_buckets`` buckets of
+    ``channels`` channels (adaptive_dims sets the widths); returns the
+    launch counts of its run. ``k2_route``: the D-step inputs run K2, else
+    the composed route's 3 K1 forward launches (widths K2 does not take).
     With ``device="cpu"`` it rehearses the phase: the counts then stay 0."""
-    hp = _train_hparams(ae_epochs=1, sup_epochs=1, gan_steps=GAN_STEPS)
+    hp = _train_hparams(ae_epochs=1, sup_epochs=1, gan_steps=gan_steps)
+    tag = "[train]" if k2_route else "[train-wide]"
     with tempfile.TemporaryDirectory() as tmp:
-        data, out = _write_buckets(Path(tmp)), Path(tmp) / "runs"
+        data = _write_buckets(Path(tmp), n_buckets, channels)
+        out = Path(tmp) / "runs"
         counters = (gru_sequence, gru_sequence_bwd, multigru_disc_inputs)
         for c in counters:
             c.launches = 0
         res = train_all_buckets(data, out, device=device, log_every=1, **hp)
         fwd, bwd, k2 = (c.launches for c in counters)
         # per AE step: E and R forward, both backward; per SUP step: E (no
-        # gradient) and S forward, S backward; per GAN step: K2 for the D
-        # inputs, G, S, R and E, R forward and backward; then 3 forward
-        # launches per bucket for synthetic.npz (one G→S→R cascade)
-        a, s_, g = res["ae_steps"], res["sup_steps"], GAN_STEPS
-        want = (2 * a + 2 * s_ + 5 * g + 3 * N_BUCKETS, 2 * a + s_ + 5 * g, g)
+        # gradient) and S forward, S backward; per GAN step: K2 (or E, G and
+        # S forward) for the D inputs, G, S, R and E, R forward and
+        # backward; then 3 forward launches per bucket for synthetic.npz
+        # (one G→S→R cascade)
+        a, s_, g = res["ae_steps"], res["sup_steps"], gan_steps
+        d_inputs = (0, 1) if k2_route else (3, 0)
+        want = (2 * a + 2 * s_ + (5 + d_inputs[0]) * g + 3 * n_buckets,
+                2 * a + s_ + 5 * g, d_inputs[1] * g)
         if torch.device(device).type != "cuda":
             want = (0, 0, 0)
-        print(f"[train] {N_BUCKETS} buckets x ({N_WINDOWS}, {SEQ_LEN}, {CHANNELS}), "
-              f"{a} AE + {s_} SUP + {g} GAN steps in {res['total_seconds']:.2f} s; "
-              f"launches: gru_sequence {fwd} (expected {want[0]}), "
-              f"gru_sequence_bwd {bwd} (expected {want[1]}), "
+        z_dim, h_dim = adaptive_dims(channels, SEQ_LEN)
+        print(f"{tag} {n_buckets} buckets x ({N_WINDOWS}, {SEQ_LEN}, {channels}), "
+              f"z{z_dim}/h{h_dim}, {a} AE + {s_} SUP + {g} GAN steps in "
+              f"{res['total_seconds']:.2f} s; launches: gru_sequence {fwd} (expected "
+              f"{want[0]}), gru_sequence_bwd {bwd} (expected {want[1]}), "
               f"multigru_disc_inputs {k2} (expected {want[2]}) | {smi}", flush=True)
         if (fwd, bwd, k2) != want:
             fail(f"training launch counts {(fwd, bwd, k2)} != expected {want}")
         steps = res["gan_step_seconds"]
-        print(f"[train] GAN step wall times {['%.3f' % t for t in steps]} s; "
-              f"median of steps 2-{GAN_STEPS}: {statistics.median(steps[1:]):.3f} s "
-              f"= {N_BUCKETS / statistics.median(steps[1:]):.3f} aggregate "
+        print(f"{tag} GAN step wall times {['%.3f' % t for t in steps]} s; "
+              f"median of steps 2-{gan_steps}: {statistics.median(steps[1:]):.3f} s "
+              f"= {n_buckets / statistics.median(steps[1:]):.3f} aggregate "
               f"bucket-steps/s | {smi}", flush=True)
 
         names = sorted(f.stem for f in data.glob("*.npz"))
@@ -806,14 +884,14 @@ def phase_train(smi: str, device: str = "cuda") -> dict:
                 fail(f"{name}: artifacts missing {missing}")
             rows = np.loadtxt(run / "train_log.csv", delimiter=",", skiprows=1,
                               usecols=range(2, 2 + len(LOG_COLUMNS)), ndmin=2)
-            if rows.shape != (GAN_STEPS, len(LOG_COLUMNS)) or not np.isfinite(rows).all():
+            if rows.shape != (gan_steps, len(LOG_COLUMNS)) or not np.isfinite(rows).all():
                 fail(f"{name}: train_log.csv {rows.shape} finite "
                      f"{np.isfinite(rows).all()}")
             trees, _ = load_checkpoint(run / "ckpt_best.npz")
             if set(trees) != {"model", "optG", "optD"}:
                 fail(f"{name}: ckpt_best.npz holds {sorted(trees)}")
             with np.load(run / "synthetic.npz") as syn:
-                if syn["X"].shape != (N_WINDOWS, SEQ_LEN, CHANNELS) \
+                if syn["X"].shape != (N_WINDOWS, SEQ_LEN, channels) \
                         or not np.isfinite(syn["X"]).all():
                     fail(f"{name}: synthetic.npz {syn['X'].shape}")
         reg = ModelRegistry(out, data, device=device)     # serves every ckpt_best
@@ -821,21 +899,23 @@ def phase_train(smi: str, device: str = "cuda") -> dict:
             fail(f"the registry loaded {sorted(reg.models)}")
         for name in names:
             X = reg.synthesize(name, 8, SEQ_LEN, 0, False, 8, SEQ_LEN)
-            if X.shape != (8, SEQ_LEN, CHANNELS) or not np.isfinite(X).all():
+            if X.shape != (8, SEQ_LEN, channels) or not np.isfinite(X).all():
                 fail(f"{name}: served {X.shape}")
         last = np.loadtxt(out / names[0] / "train_log.csv", delimiter=",",
                           skiprows=1, usecols=range(2, 10), ndmin=2)[-1]
-        print(f"[train] all {len(names)} buckets: train_log.csv finite, ckpt_best "
-              f"served back; {names[0]} step {GAN_STEPS}: "
+        print(f"{tag} all {len(names)} buckets: train_log.csv finite, ckpt_best "
+              f"served back; {names[0]} step {gan_steps}: "
               + ", ".join(f"{c}={v:.4f}" for c, v in zip(LOG_COLUMNS, last)),
               flush=True)
     return {"gru_sequence": fwd, "gru_sequence_bwd": bwd, "multigru_disc_inputs": k2}
 
 
-def _step_inputs(nb: int, B: int, seed: int, device):
-    """Stacked models at full width, fresh optimizer states, a batch and one
-    step's draws, all from seeds, on ``device``."""
-    cfg = TimeGANConfig(x_dim=CHANNELS, z_dim=28, h_dim=56)
+def _step_inputs(nb: int, B: int, seed: int, device, channels: int = CHANNELS):
+    """Stacked models at full width for ``channels`` channels (adaptive_dims:
+    z28/h56 at 14), fresh optimizer states, a batch and one step's draws,
+    all from seeds, on ``device``."""
+    z_dim, h_dim = adaptive_dims(channels, SEQ_LEN)
+    cfg = TimeGANConfig(x_dim=channels, z_dim=z_dim, h_dim=h_dim)
     params = timegan_init_stacked(
         cfg, [torch.Generator().manual_seed(seed + b) for b in range(nb)], device=device)
     hp = TimeGANHParams(**_train_hparams(gan_steps=GAN_STEPS))
@@ -843,7 +923,7 @@ def _step_inputs(nb: int, B: int, seed: int, device):
     d_state = optD.init(params["discriminator"])
     g_state = optG.init({k: params[k] for k in GEN_NETS})
     X = torch.from_numpy(np.random.default_rng(seed).uniform(
-        0, 1, (nb, N_WINDOWS, SEQ_LEN, CHANNELS)).astype(np.float32)).to(device)
+        0, 1, (nb, N_WINDOWS, SEQ_LEN, channels)).astype(np.float32)).to(device)
     gens = [torch.Generator(device=device).manual_seed(seed + b) for b in range(nb)]
     draws = draw_gan(gens, torch.full((nb,), float(N_WINDOWS), device=device), B,
                      SEQ_LEN, cfg.z_dim, device=device)
@@ -852,14 +932,27 @@ def _step_inputs(nb: int, B: int, seed: int, device):
 
 def phase_step_check(smi: str, device: str = "cuda") -> None:
     """One GAN step on the card against the CPU plain path: nb 2, B 8, T 768,
-    full width, the same parameters and draws."""
-    params, hp, optD, d_state, optG, g_state, x, draws = _step_inputs(2, 8, 7, device)
+    full width, the same parameters and draws; at 14 channels (z28/h56, the
+    D-step inputs from K2) and at 20 (z40/h80, which K2 does not take: 3 K1
+    forward launches instead)."""
+    for channels, k2_route in ((CHANNELS, True), (WIDE_CHANNELS, False)):
+        _step_check(smi, device, channels, k2_route)
+
+
+def _step_check(smi: str, device: str, channels: int, k2_route: bool) -> None:
+    params, hp, optD, d_state, optG, g_state, x, draws = _step_inputs(
+        2, 8, 7, device, channels)
     cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)      # noqa: E731
+    k1, k2 = gru_sequence.launches, multigru_disc_inputs.launches
     t0 = time.perf_counter()
     card_p, _, _, card_logs = gan_step(params, optD, d_state, optG, g_state, x,
                                        draws, 1, hp)
     _sync(device)
     card_s = time.perf_counter() - t0
+    k1, k2 = gru_sequence.launches - k1, multigru_disc_inputs.launches - k2
+    want = (5 + (0 if k2_route else 3), 1 if k2_route else 0)
+    if torch.device(device).type != "cuda":
+        want = (0, 0)
     d_cpu, g_cpu = optD.init(cpu(params["discriminator"])), \
         optG.init({k: cpu(params[k]) for k in GEN_NETS})
     draws_cpu = type(draws)(**{k: v.cpu() for k, v in vars(draws).items()})
@@ -872,17 +965,22 @@ def phase_step_check(smi: str, device: str = "cuda") -> None:
     p_err = max((a.cpu() - b).abs().max().item()
                 for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
     fmt = lambda row: ", ".join(f"{c}={v:.6f}" for c, v in zip(LOG_COLUMNS, row))  # noqa
-    print(f"[check] GAN step nb=2 B=8 T={SEQ_LEN} x14/z28/h56, card vs CPU plain "
-          f"path: bucket 0 card {fmt(card_logs[0].tolist())}", flush=True)
+    z_dim, h_dim = adaptive_dims(channels, SEQ_LEN)
+    print(f"[check] GAN step nb=2 B=8 T={SEQ_LEN} x{channels}/z{z_dim}/h{h_dim}, card "
+          f"vs CPU plain path: bucket 0 card {fmt(card_logs[0].tolist())}", flush=True)
     print(f"[check]   CPU {fmt(cpu_logs[0].tolist())}", flush=True)
     print(f"[check]   logged values max relative diff {log_err:.3e} (tol "
           f"{STEP_LOG_RTOL:g}); updated parameters max|diff| {p_err:.3e} (tol "
           f"{STEP_PARAM_ATOL:g}); step {card_s:.3f} s on the card, {cpu_s:.3f} s "
-          f"on the CPU | {smi}", flush=True)
+          f"on the CPU; launches gru_sequence {k1}, multigru_disc_inputs {k2} "
+          f"(expected {want[0]}, {want[1]}) | {smi}", flush=True)
     if not torch.isfinite(card_logs).all() or log_err > STEP_LOG_RTOL \
             or p_err > STEP_PARAM_ATOL:
-        fail(f"the card's GAN step disagrees with the CPU: logs {log_err}, "
-             f"params {p_err}")
+        fail(f"the card's GAN step disagrees with the CPU at {channels} channels: "
+             f"logs {log_err}, params {p_err}")
+    if (k1, k2) != want:
+        fail(f"the GAN step at {channels} channels launched gru_sequence {k1}, "
+             f"multigru_disc_inputs {k2} times, expected {want}")
 
 
 def phase_train_layers(smi: str, device: str = "cuda") -> None:
@@ -1242,19 +1340,27 @@ def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
+    phase_sass()
     kern = phase_kernels(smi)
+    phase_auto_rule(smi)
     serve_launches = phase_serve(smi, kern["gru_sequence"]["ms"])
     if serve_launches < 1:
         fail("the served run launched gru_sequence no time")
     train_launches = phase_train(smi)
+    wide_launches = phase_train(smi, n_buckets=WIDE_BUCKETS, channels=WIDE_CHANNELS,
+                                gan_steps=WIDE_GAN_STEPS, k2_route=False)
     phase_step_check(smi)
     phase_train_layers(smi)
     cgan_launches = phase_cgan_train(smi)
     phase_cgan_step_check(smi)
     cgan_serve_launches = phase_cgan_serve(smi)
     phase_cgan_layers(smi)
-    launches = {**train_launches, **cgan_launches,
-                "gru_sequence": serve_launches + train_launches["gru_sequence"],
+    launches = {**cgan_launches,
+                "gru_sequence": serve_launches + train_launches["gru_sequence"]
+                + wide_launches["gru_sequence"],
+                "gru_sequence_bwd": train_launches["gru_sequence_bwd"]
+                + wide_launches["gru_sequence_bwd"],
+                "multigru_disc_inputs": train_launches["multigru_disc_inputs"],
                 "flash_forward": cgan_launches["flash_forward"] + cgan_serve_launches}
     for k, n in launches.items():
         if n < 1:
@@ -1269,7 +1375,7 @@ def main() -> None:
                                         "eegsynth/nn/pallas_multigru.py:156"),
                "flash_forward": ("eegsynth_torch/csrc/flash_attn_tc.cu",
                                  "eegsynth/nn/attention.py:130"),
-               "flash_dq": ("eegsynth_torch/csrc/flash_attn.cu",
+               "flash_dq": ("eegsynth_torch/csrc/flash_attn_tc.cu",
                             "eegsynth/nn/attention.py:231"),
                "flash_dkv": ("eegsynth_torch/csrc/flash_attn_tc.cu",
                              "eegsynth/nn/attention.py:248")}

@@ -1,15 +1,15 @@
-// Flash-attention forward (K3a) and dk/dv (K3c) for Hopper, sm_90a, on the
-// tensor cores: full (non-causal) softmax attention in float32.
+// Flash-attention forward (K3a), dq (K3b) and dk/dv (K3c) for Hopper,
+// sm_90a, on the tensor cores: full (non-causal) softmax attention in float32.
 //
 // Replaces the TPU kernels of eegsynth/nn/attention.py:
 //   K3a  _fa_forward (pallas_call, body _fa_fwd_kernel)
+//   K3b  _fa_backward's dq pallas_call (body _fa_dq_kernel)
 //   K3c  _fa_backward's dk/dv pallas_call (body _fa_dkv_kernel)
-// (K3b, the dq kernel, is in flash_attn.cu.)
 //
 //   q, k, v, do (BH, T, D) float32, lse and delta (BH, T), scale = D^-0.5
 //   K3a: s = (q k^T) scale, online softmax over key tiles -> o, lse = m + log l
-//   K3c: p = exp(s - lse), ds = p (do v^T - delta) scale,
-//        dv = p^T do, dk = ds^T q
+//   K3b, K3c: p = exp(s - lse), ds = p (do v^T - delta) scale,
+//        K3b: dq = ds k; K3c: dv = p^T do, dk = ds^T q
 // delta = rowsum(do * o) is computed by the caller, as the JAX package does
 // in XLA outside its kernels.
 //
@@ -30,10 +30,12 @@
 // bytes contiguous, 8-row groups SBO = 128 bytes apart, 4-value chunks along
 // K LBO bytes apart.
 //  - "row" tiles (R rows, the D values of a row along K): q and k in K3a;
-//    k, v (the A operands), q and do (B of s^T = k q^T and dp^T = v do^T) in
-//    K3c. Element (r, d) at (d / 4) 4R + 4r + d % 4 floats.
+//    q, do (the A operands), k and v (B of s = q k^T and dp = do v^T) in
+//    K3b; k, v (the A operands), q and do (B of s^T = k q^T and
+//    dp^T = v do^T) in K3c. Element (r, d) at (d / 4) 4R + 4r + d % 4 floats.
 //  - "col" tiles (the transpose: D rows, the R rows along K): v in K3a (B of
-//    o += p v), q and do in K3c (B of dk += ds^T q and dv += p^T do).
+//    o += p v), k in K3b (B of dq += ds k), q and do in K3c (B of
+//    dk += ds^T q and dv += p^T do).
 //    Element (d, r) at (s / 4) 4D + 4d + s % 4 with s the slot of row r:
 //    in each group of 8 rows, row 2t sits in slot t and row 2t + 1 in slot
 //    t + 4. The accumulator fragment of a wgmma holds columns 2t, 2t + 1 of
@@ -54,6 +56,21 @@
 // shuffles per row for the max and the sum), then P split in registers and
 // fed to P V as the register A operand.
 //
+// K3b: K3a's structure with a second product where the softmax was. Grid
+// (query tile of BM = 128 rows, b h), two warpgroups of 64 rows (one at
+// DP = 128, for shared memory); the block owns its rows' dq, keeps it in
+// registers over the whole loop and writes it once: no atomics, so dq is
+// the same bits on every run. The query tile's q and do hi/lo stay in
+// shared memory, and each thread holds lse and delta of its two rows in
+// registers. Per key tile of BN rows (64 at DP <= 32, 32 at DP = 64, 16 at
+// DP = 128, for shared memory: 215,040 bytes at DP = 64), loaded two stages
+// deep as raw rows and split once for both warpgroups into k and v row
+// tiles and a k col tile: S = Q K^T and dP = dO V^T as one batch of wgmma
+// into two 64 x BN accumulators, dS in registers (keys at or beyond T give
+// p = 0; query rows at or beyond T have q = do = lse = delta = 0, so dS = 0,
+// and are not written), then dS split in registers and fed to dS K as the
+// register A operand, into a fresh accumulator folded into dq in float32.
+//
 // K3c: a pre-pass (flash_dkv_split_kernel) splits q and do once into the
 // query tiles of BM rows (32; 16 at DP = 128) the main kernel reads, in
 // scratch the caller allocates: row hi, row lo, col hi, col lo for each. The
@@ -68,13 +85,14 @@
 // in a branch (ptxas serializes wgmma in divergent code).
 //
 // What bounds them: the split triples the tensor-core work, so the ceiling
-// is 3 x FLOPs at 495 TFLOP/s (TF32 dense, 700 W): 0.234 ms for K3a and
-// 0.469 ms for K3c at (64, 4, 768, 64). Below that, one block per SM (shared
-// memory, below) runs the tile loads, the splits, the products and the
-// softmax of a tile one after the other, synchronised at every tile, so the
-// tensor cores idle while the CUDA cores work and the other way round; and
-// K3c's blocks each read every query tile of their b h (4 x the raw bytes,
-// as hi/lo row and col tiles) from L2.
+// is 3 x FLOPs at 495 TFLOP/s (TF32 dense, 700 W): 0.234 ms for K3a,
+// 0.351 ms for K3b and 0.469 ms for K3c at (64, 4, 768, 64). Below that, one
+// block per SM (shared memory, below) runs the tile loads, the splits, the
+// products and the softmax (or dS) of a tile one after the other,
+// synchronised at every tile, so the tensor cores idle while the CUDA cores
+// work and the other way round; K3b splits each key tile three ways in
+// every block (T / BM times per b h); and K3c's blocks each read every query
+// tile of their b h (4 x the raw bytes, as hi/lo row and col tiles) from L2.
 //
 // ptxas (-Xptxas=-v, on the H100 build), DP = 16 / 32 / 64 / 128: K3a 183 /
 // 203 / 255 / 255 registers, K3c 69 / 121 / 168 / 243, its pre-pass 30; no
@@ -773,6 +791,155 @@ flash_dkv_kernel(const float* __restrict__ k, const float* __restrict__ v,
   }
 }
 
+// ---- K3b ------------------------------------------------------------------------
+
+template <int DP>
+struct Dq {
+  static constexpr int NWG = DP == 128 ? 1 : 2;       // warpgroups, 64 query rows each
+  static constexpr int NT = NWG * kWG;
+  static constexpr int BM = NWG * kRows;               // query rows per block
+  static constexpr int BN = DP == 128 ? 16 : DP == 64 ? 32 : 64;   // key rows per tile
+  static constexpr int kQ = BM * DP;                   // floats of one q or do tile
+  static constexpr int kK = BN * DP;                   // of one split k or v tile
+  static constexpr int kRaw = BN * (DP + 4);           // of one raw k or v tile
+  static constexpr size_t kSmem = sizeof(float) * (4 * kQ + 6 * kK + 4 * kRaw);
+  // the raw q and do tiles go where the key tiles go later
+  static_assert(2 * BM * (DP + 4) <= 6 * kK + 4 * kRaw, "raw q, do do not fit");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(Dq<DP>::NT, 1)
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ d_o,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dq, int T, int D, float scale, bool vec) {
+  using F = Dq<DP>;
+  constexpr int BN = F::BN, BM = F::BM, NT = F::NT;
+  extern __shared__ __align__(128) float smem[];
+  float* qh = smem;
+  float* ql = qh + F::kQ;
+  float* doh = ql + F::kQ;
+  float* dol = doh + F::kQ;
+  float* kh = dol + F::kQ;             // k as a row tile: B of S = Q K^T
+  float* kl = kh + F::kK;
+  float* vh = kl + F::kK;              // v as a row tile: B of dP = dO V^T
+  float* vl = vh + F::kK;
+  float* kch = vl + F::kK;             // k as a col tile: B of dQ += dS K
+  float* kcl = kch + F::kK;
+  float* raw = kcl + F::kK;            // [stage][k, v][BN x (DP + 4)]
+
+  const int wg = threadIdx.x / kWG, warp = threadIdx.x % kWG / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int q0 = blockIdx.x * BM;
+  const size_t base = (size_t)blockIdx.y * T * D;
+  const size_t rbase = (size_t)blockIdx.y * T;
+  const int n_tiles = (T + BN - 1) / BN;
+  const float scale2 = scale * 1.4426950408889634f;   // log2(e) scale
+
+  // the block's q and do, raw through the key tiles' space, split once
+  load_raw<BM, DP, NT>(kh, q + base, q0, T, D, vec);
+  load_raw<BM, DP, NT>(kh + BM * (DP + 4), d_o + base, q0, T, D, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_rows<BM, DP, NT>(kh, qh, ql);
+  split_rows<BM, DP, NT>(kh + BM * (DP + 4), doh, dol);
+  __syncthreads();
+  load_raw<BN, DP, NT>(raw, k + base, 0, T, D, vec);
+  load_raw<BN, DP, NT>(raw + F::kRaw, v + base, 0, T, D, vec);
+  cp_async_commit();
+  // this warpgroup's 64 rows of the BM-row q and do tiles
+  const float* wqh = qh + 4 * kRows * wg;
+  const float* wql = ql + 4 * kRows * wg;
+  const float* wdoh = doh + 4 * kRows * wg;
+  const float* wdol = dol + 4 * kRows * wg;
+
+  // lse (in base-2 units) and delta of rows g and g + 8 of the warp's 16;
+  // rows at or beyond T take 0, and with q = do = 0 their ds is 0
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + kRows * wg + 16 * warp + g + 8 * h;
+    lse2[h] = r < T ? lse[rbase + r] * 1.4426950408889634f : 0.f;
+    dlt[h] = r < T ? delta[rbase + r] : 0.f;
+  }
+
+  float acc[DP / 2];
+  zero(acc);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const float* rk = raw + (j & 1) * 2 * F::kRaw;
+    if (j + 1 < n_tiles) {
+      float* nk = raw + ((j + 1) & 1) * 2 * F::kRaw;
+      load_raw<BN, DP, NT>(nk, k + base, (j + 1) * BN, T, D, vec);
+      load_raw<BN, DP, NT>(nk + F::kRaw, v + base, (j + 1) * BN, T, D, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();       // tile j has landed; the last tile's products are done
+    split_rows<BN, DP, NT>(rk, kh, kl);
+    split_rows<BN, DP, NT>(rk + F::kRaw, vh, vl);
+    split_cols<BN, DP, NT>(rk, kch, kcl);
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T, one batch of wgmma
+    float s[BN / 2], dp[BN / 2];
+    zero(s);
+    zero(dp);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_ss<BN, BM, BN, DP / 8>(s, wqh, wql, kh, kl);
+    mma_ss<BN, BM, BN, DP / 8>(dp, wdoh, wdol, vh, vl);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // ds = p (dp - delta) scale, p = exp(s scale - lse) and 0 for keys >= T
+    const int k0 = j * BN;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      const int col = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+      const float p = col < T ? exp2f(fmaf(s[i], scale2, -lse2[h])) : 0.f;
+      s[i] = p * (dp[i] - dlt[h]) * scale;
+    }
+
+    // this tile's dS K into a fresh accumulator, folded in in float32 (see K3a)
+    uint32_t fh[BN / 8][4], fl[BN / 8][4];
+    acc_to_frags<BN / 2>(s, fh, fl);
+    float part[DP / 2];
+    zero(part);
+    fence_regs(part);
+    fence_regs(fh);
+    fence_regs(fl);
+    wgmma_fence();
+    mma_rs<DP, BN / 8>(part, fh, fl, kch, kcl);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
+    fence_regs(fh);
+    fence_regs(fl);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] += part[i];
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + kRows * wg + 16 * warp + g + 8 * h;
+    if (r >= T) continue;
+    float* row = dq + base + (size_t)r * D;
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) {
+      if (((i >> 1) & 1) != h) continue;
+      const int c = 8 * (i / 4) + 2 * t4 + (i & 1);
+      if (c < D) row[c] = acc[i];
+    }
+  }
+}
+
 // ---- launchers ------------------------------------------------------------------
 
 // D^-0.5 rounded once to float, as the JAX package's Python float is.
@@ -817,6 +984,22 @@ extern "C" int flash_fwd(const float* q, const float* k, const float* v,
     using F = Fwd<decltype(dp)::value>;
     return launch(flash_fwd_kernel<decltype(dp)::value>, (T + F::BM - 1) / F::BM, BH,
                   F::NT, F::kSmem, stream, q, k, v, o, lse, T, D, head_scale(D), vec);
+  });
+}
+
+extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,
+                            const float* d_o, const float* lse,
+                            const float* delta, float* dq, int BH, int T, int D,
+                            cudaStream_t stream) {
+  if (bad_dims(BH, T, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (BH == 0 || T == 0) return 0;
+  const bool vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                   aligned16(d_o);
+  return with_dp(D, [&](auto dp) {
+    using F = Dq<decltype(dp)::value>;
+    return launch(flash_dq_kernel<decltype(dp)::value>, (T + F::BM - 1) / F::BM, BH,
+                  F::NT, F::kSmem, stream, q, k, v, d_o, lse, delta, dq, T, D,
+                  head_scale(D), vec);
   });
 }
 

@@ -227,20 +227,22 @@ def test_flash_kernels_match_plain(cuda_device, B, H, T, D):
     for got, ref, name in zip((dq, dk, dv), refs, ("dq", "dk", "dv")):
         assert torch.isfinite(got).all()
         size = ref.abs().max().item()
-        if T == 1 and name == "dk":
-            # one key: the softmax has zero gradient, so dk is rounding noise
-            # in both versions (ds = p (dp - delta) scale with dp = delta in
-            # exact arithmetic); K3c's tensor-core sums do not reproduce the
-            # plain version's noise, so its error is held to the size of the
-            # terms that cancel, |delta| scale, times q
-            size = (delta.abs().max() * D ** -0.5 * q.abs().max()).item()
+        if T == 1 and name in ("dq", "dk"):
+            # one key: the softmax has zero gradient, so dq and dk are
+            # rounding noise in both versions (ds = p (dp - delta) scale with
+            # dp = delta in exact arithmetic); K3b's and K3c's tensor-core
+            # sums do not reproduce the plain version's noise, so their error
+            # is held to the size of the terms that cancel, |delta| scale,
+            # times k (dq = ds k) or q (dk = ds^T q)
+            other = k if name == "dq" else q
+            size = (delta.abs().max() * D ** -0.5 * other.abs().max()).item()
         assert (got - ref).abs().max().item() <= 1e-4 * size, name
 
 
 def test_flash_kernels_take_unaligned_inputs(cuda_device):
     """Contiguous views that start 4 bytes into their storage are not
-    16-byte aligned: K3a and K3c load them with 4-byte copies and still
-    match their plain versions."""
+    16-byte aligned: K3a, K3b and K3c load them with 4-byte copies and
+    still match their plain versions."""
     B, H, T, D = 2, 2, 150, 32
     g = torch.Generator().manual_seed(11)
     q, k, v, do = [torch.randn(B * H * T * D + 1, generator=g).to(cuda_device)[1:]
@@ -251,21 +253,24 @@ def test_flash_kernels_take_unaligned_inputs(cuda_device):
     assert (o - o_ref).abs().max().item() <= 1e-5
     assert (lse - lse_ref).abs().max().item() <= 1e-5
     delta = (do * o_ref).sum(-1)
-    for got, ref in zip(flash_dkv(q, k, v, do, lse_ref, delta),
-                        flash_dkv_plain(q, k, v, do, lse_ref, delta)):
-        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    got = (flash_dq(q, k, v, do, lse_ref, delta), *flash_dkv(q, k, v, do, lse_ref, delta))
+    refs = (flash_dq_plain(q, k, v, do, lse_ref, delta),
+            *flash_dkv_plain(q, k, v, do, lse_ref, delta))
+    for a, ref in zip(got, refs):
+        assert (a - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
 def test_flash_kernels_are_deterministic(cuda_device):
-    """Two launches of K3a and of K3c on the same inputs give bitwise equal
-    o, lse, dk and dv: no atomics, a fixed order of sums."""
+    """Two launches of K3a, K3b and K3c on the same inputs give bitwise
+    equal o, lse, dq, dk and dv: no atomics, a fixed order of sums."""
     q, k, v, do = _attn(8, 4, 768, 64, cuda_device, seed=9)
     o, lse = flash_forward(q, k, v)
     o2, lse2 = flash_forward(q, k, v)
     delta = (do * o).sum(-1)
+    dq, dq2 = flash_dq(q, k, v, do, lse, delta), flash_dq(q, k, v, do, lse, delta)
     dk, dv = flash_dkv(q, k, v, do, lse, delta)
     dk2, dv2 = flash_dkv(q, k, v, do, lse, delta)
-    for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)):
+    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
         assert torch.equal(a, b)
 
 
