@@ -24,8 +24,12 @@ failure is swallowed):
              function timed in turns with the kernel where there is one
              (cuDNN's GRU beside K1 forward, memory-efficient SDPA's forward
              beside K3a and its backward beside K3b + K3c); dense attention
-             beside K3a; "auto" attention's shape rule (the kernels at head
-             dim 64, dense attention at 160, forced "flash" raising there);
+             beside K3a; the wide kernels (head dims past 128, on the CUDA
+             cores) the same way at head dim 256, 160 and a ragged 131; dq
+             and dk at one key (T = 1) against float64, in units of the
+             terms that cancel there; "auto" attention (the tensor-core
+             kernels at head dim 64, the wide ones at 160); the D-step
+             inputs' composed route at z40/h80 timed beside K2;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -49,7 +53,9 @@ failure is swallowed):
              against the CPU plain path; a patch-1 generator served over
              /synthesize_cgan with "auto" attention (K3a launches, X against
              the CPU plain generator); a per-layer split and profiler line of
-             one CGAN step.
+             one CGAN step; then a transformer CGAN of dim 512 with 2 heads
+             (head dim 256) at patch 1 (768 tokens), batch 8, trained 1 epoch
+             with "auto" attention: the wide kernels' launch counts.
 
 The last three lines are a JSON object listing each kernel (its launches in
 the main paths' runs, its error against the plain version, its time, the
@@ -80,7 +86,8 @@ from eegsynth_torch import _build
 from eegsynth_torch.convert import from_jax_params, to_jax_params, tree_to_numpy
 from eegsynth_torch.models.cgan_transformer import generator_apply as cgan_generator_apply
 from eegsynth_torch.models.timegan import (
-    TimeGAN, TimeGANConfig, adaptive_dims, sample_noise, timegan_init_stacked,
+    TimeGAN, TimeGANConfig, adaptive_dims, fused_disc_inputs, sample_noise,
+    timegan_init_stacked,
 )
 from eegsynth_torch.nn.attention import (
     attention_dense, flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain,
@@ -134,6 +141,20 @@ ATTN_HEADLINE = (64, 4, 768, 64)   # the shape of the kernels line's K3 rows
 ATTN_FWD_TOL = 1e-5    # o and lse, absolute: f32 sums in another order
 ATTN_BWD_RTOL = 1e-4   # dq, dk, dv, relative to the largest magnitude: sums
                        # of up to 4096 terms in another order
+# The wide kernels (D > 128, on the CUDA cores): head dim 256 (a transformer
+# CGAN of dim 512 with 2 heads, patch 1: 768 tokens, batch 64; the headline
+# of their rows), the "auto" shape at head dim 160, a ragged T with an odd D
+WIDE_ATTN_SHAPES = ((64, 2, 768, 256), (1, 2, 512, 160), (2, 3, 77, 131))
+# One key (T = 1): the softmax's gradient is zero and dq, dk are what is left
+# of dp - delta, rounding noise that the tensor cores' split-TF32 sums do not
+# share with the plain version's float32 product. There dq and dk are held
+# to their function in float64 on the same inputs, within T1_RTOL of the
+# size of the terms that cancel (sum_d |do_d v_d| times scale times |k| or
+# |q|), as in tests/test_torch_card.py. T1_RTOL is 3.8 times the largest
+# such error measured on an H100 (1.315e-7, K3b at D 128; the plain float32
+# version's errors were up to 1.5e-8; PERF.md)
+T1_SHAPES = ((1, 1, 1, 16), (1, 2, 1, 64), (2, 2, 1, 128), (1, 2, 1, 160))
+T1_RTOL = 5e-7
 # Training: 18 buckets (9 postures x 2 conditions) of 63 random windows
 N_BUCKETS, N_WINDOWS, SEQ_LEN, CHANNELS = 18, 63, 768, 14
 GAN_STEPS = 4
@@ -156,6 +177,9 @@ STEP_LOG_RTOL, STEP_PARAM_ATOL = 1e-4, 2e-4
 # discriminator launches none.
 CGAN_WINDOWS, CGAN_EPOCHS = 64, 2
 CGAN_K3 = (8, 4, 4)
+# Head dim 256 (dim 512, 2 heads) at patch 1: 9 buckets of 8 windows, batch
+# 8, one epoch of 9 steps; "auto" takes the wide kernels at 768 tokens
+CGAN_WIDE_BATCH = 8
 # One CGAN step on the card against the CPU plain path (B 8, full width):
 # logs 1e-4 relative; Adam's first moments (the gradients) 1e-4 of each
 # leaf's largest; parameters 1e-5, except elements whose gradient sits at
@@ -293,7 +317,8 @@ def phase_kernels(smi: str) -> dict:
     Returns, per kernel, the largest error and the times at its headline
     shape (K1 forward: the serving shape; the others: the training shape)."""
     return {"gru_sequence": _check_k1_fwd(smi), "gru_sequence_bwd": _check_k1_bwd(smi),
-            "multigru_disc_inputs": _check_k2(smi), **_check_k3(smi)}
+            "multigru_disc_inputs": _check_k2(smi), **_check_k3(smi),
+            **_check_k3_wide(smi)}
 
 
 def _cudnn_gru(xp, w_hh_t, b_hh, h0):
@@ -436,7 +461,33 @@ def _check_k2(smi: str) -> dict:
             macs = He * 3 * He + Hg * 3 * Hg + Hg * Z + Z * 3 * Hs + Hs * 3 * Hs + Hs * Z
             head = _row(ms, plain_ms, _bound(2 * nb * T * B * macs, *args, *got))
             _roofline(f"multigru_disc_inputs nb={nb} T={T} B={B}", head, smi)
+    _time_composed_route(smi, head["ms"])
     return {"max_abs_err": worst, **head}
+
+
+def _time_composed_route(smi: str, k2_ms: float) -> None:
+    """The D-step inputs at z40/h80 (20 channels), which K2 does not take:
+    fused_disc_inputs' composed route (3 K1 forward launches, the input
+    and output projections as products) at the training shape, beside K2
+    at the reference width."""
+    nb, T, B = MULTIGRU_SHAPES[0][:3]
+    cfg = TimeGANConfig(x_dim=WIDE_CHANNELS, z_dim=40, h_dim=80)
+    params = timegan_init_stacked(
+        cfg, [torch.Generator().manual_seed(b) for b in range(nb)], device="cuda")
+    g = torch.Generator().manual_seed(21)
+    x = torch.rand((nb, B, T, WIDE_CHANNELS), generator=g).cuda()
+    z = torch.rand((nb, B, T, 40), generator=g).cuda()
+    before = (gru_sequence.launches, multigru_disc_inputs.launches)
+    fused_disc_inputs(params, x, z)
+    torch.cuda.synchronize()
+    launches = (gru_sequence.launches - before[0],
+                multigru_disc_inputs.launches - before[1])
+    ms = _time_ms(lambda: fused_disc_inputs(params, x, z), reps=5)
+    print(f"[kernel] D-step inputs nb={nb} T={T} B={B} z40/h80, composed route "
+          f"(K1 forward x{launches[0]}, K2 x{launches[1]}, projections as "
+          f"products): {ms:.4f} ms; K2 at z28/h56 {k2_ms:.4f} ms | {smi}", flush=True)
+    if launches != (3, 0):
+        fail(f"the composed D-step route launched (K1, K2) {launches}, expected (3, 0)")
 
 
 def _attn_inputs(B, H, T, D, seed):
@@ -556,31 +607,135 @@ def _check_k3(smi: str) -> dict:
     return {name: {"max_abs_err": worst[name], **heads[name]} for name in worst}
 
 
+def _check_k3_wide(smi: str) -> dict:
+    """The wide kernels (K3a, K3b, K3c for D > 128) against their plain
+    versions at WIDE_ATTN_SHAPES, as _check_k3 holds the tensor-core ones,
+    with memory-efficient SDPA timed in turns beside them; rows at the
+    first shape."""
+    heads = {}
+    worst = {"flash_forward_wide": 0.0, "flash_dq_wide": 0.0, "flash_dkv_wide": 0.0}
+    for i, (B, H, T, D) in enumerate(WIDE_ATTN_SHAPES):
+        q, k, v, do = _attn_inputs(B, H, T, D, seed=50 + i)
+        counts = [c.wide_launches for c in _k3_counters()]
+        with torch.no_grad():
+            o, lse = flash_forward(q, k, v)
+            o_ref, lse_ref = flash_forward_plain(q, k, v)
+            delta = (do * o_ref).sum(-1)
+            dq = flash_dq(q, k, v, do, lse_ref, delta)
+            dk, dv = flash_dkv(q, k, v, do, lse_ref, delta)
+            dq_ref = flash_dq_plain(q, k, v, do, lse_ref, delta)
+            dk_ref, dv_ref = flash_dkv_plain(q, k, v, do, lse_ref, delta)
+            torch.cuda.synchronize()
+            if [c.wide_launches - n for c, n in zip(_k3_counters(), counts)] != [1, 1, 1]:
+                fail(f"the wide kernels did not run at B={B} H={H} T={T} D={D}")
+            errs = {"flash_forward_wide": max((o - o_ref).abs().max().item(),
+                                              (lse - lse_ref).abs().max().item())}
+            rel = {}
+            for name, pairs in (("flash_dq_wide", ((dq, dq_ref),)),
+                                ("flash_dkv_wide", ((dk, dk_ref), (dv, dv_ref)))):
+                errs[name] = max((g - r).abs().max().item() for g, r in pairs)
+                rel[name] = max((g - r).abs().max().item() / r.abs().max().item()
+                                for g, r in pairs)
+            finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, dq, dk, dv))
+            k3b = lambda: flash_dq(q, k, v, do, lse_ref, delta)     # noqa: E731
+            k3c = lambda: flash_dkv(q, k, v, do, lse_ref, delta)    # noqa: E731
+            fwd = lambda: flash_forward(q, k, v)                    # noqa: E731
+            if D % 4 == 0:       # memory-efficient SDPA takes no other D
+                lib_fwd, lib_bwd = _sdpa_calls(q, k, v, do)
+                fwd_ms, lib_fwd_ms = _turns_ms(fwd, lib_fwd, 5)
+                bwd_ms, lib_bwd_ms = _turns_ms(lambda: (k3b(), k3c()), lib_bwd, 5)
+            else:
+                fwd_ms, lib_fwd_ms = _time_ms(fwd, 5), None
+                bwd_ms, lib_bwd_ms = _time_ms(lambda: (k3b(), k3c()), 5), None
+            times = {
+                "flash_forward_wide": (fwd_ms, _time_ms(lambda: flash_forward_plain(q, k, v), 3)),
+                "flash_dq_wide": (_time_ms(k3b, 5), _time_ms(
+                    lambda: flash_dq_plain(q, k, v, do, lse_ref, delta), 3)),
+                "flash_dkv_wide": (_time_ms(k3c, 5), _time_ms(
+                    lambda: flash_dkv_plain(q, k, v, do, lse_ref, delta), 3))}
+        prod = 2 * B * H * T * T * D
+        bounds = {"flash_forward_wide": _bound(2 * prod, q, k, v, o, lse),
+                  "flash_dq_wide": _bound(3 * prod, q, k, v, do, lse, delta, dq),
+                  "flash_dkv_wide": _bound(4 * prod, q, k, v, do, lse, delta, dk, dv)}
+        library = {"flash_forward_wide": lib_fwd_ms, "flash_dq_wide": lib_bwd_ms,
+                   "flash_dkv_wide": lib_bwd_ms}
+        for name in worst:
+            ms, plain_ms = times[name]
+            tol = (f"(tol {ATTN_FWD_TOL:g} on o and lse)" if name == "flash_forward_wide"
+                   else f"= {rel[name]:.3e} relative (tol {ATTN_BWD_RTOL:g})")
+            row = _row(ms, plain_ms, bounds[name], library[name])
+            print(f"[kernel] {name} B={B} H={H} T={T} D={D}: max|diff|={errs[name]:.3e} "
+                  f"{tol} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                  f"{100 * row['bound_ms'] / ms:.1f} % of it) | {smi}", flush=True)
+            worst[name] = max(worst[name], errs[name])
+            if i == 0:
+                heads[name] = row
+        if lib_fwd_ms is not None:
+            print(f"[kernel] memory-efficient SDPA B={B} H={H} T={T} D={D}: forward "
+                  f"{lib_fwd_ms:.4f} ms vs wide K3a {fwd_ms:.4f} ms; backward "
+                  f"{lib_bwd_ms:.4f} ms vs wide K3b + K3c {bwd_ms:.4f} ms (in turns) "
+                  f"| {smi}", flush=True)
+        if (not finite or errs["flash_forward_wide"] > ATTN_FWD_TOL
+                or rel["flash_dq_wide"] > ATTN_BWD_RTOL
+                or rel["flash_dkv_wide"] > ATTN_BWD_RTOL):
+            fail(f"the wide flash kernels disagree with their plain versions at B={B} "
+                 f"H={H} T={T} D={D}: {errs} relative {rel} finite={finite}")
+    B, H, T, D = WIDE_ATTN_SHAPES[0]
+    for name, row in heads.items():
+        _roofline(f"{name} B={B} H={H} T={T} D={D}", row, smi, "memory-efficient SDPA "
+                  + ("forward" if name == "flash_forward_wide" else "backward (dq, dk, dv)"))
+    return {name: {"max_abs_err": worst[name], **heads[name]} for name in worst}
+
+
+def phase_t1(smi: str) -> None:
+    """dq (K3b) and dk (K3c) at one key, tensor-core and wide kernels,
+    against their function in float64 on the same inputs, in units of the
+    terms that cancel there; the plain float32 versions' errors beside them
+    (see T1_RTOL)."""
+    for i, (B, H, T, D) in enumerate(T1_SHAPES):
+        q, k, v, do = _attn_inputs(B, H, T, D, seed=60 + i)
+        with torch.no_grad():
+            o_ref, lse_ref = flash_forward_plain(q, k, v)
+            delta = (do * o_ref).sum(-1)
+            args = (q, k, v, do, lse_ref, delta)
+            f64 = [t.double() for t in args]
+            terms = (do.double().abs() * v.double().abs()).sum(-1).max().item() * D ** -0.5
+            got = {"dq": (flash_dq(*args), flash_dq_plain(*args), flash_dq_plain(*f64), k),
+                   "dk": (flash_dkv(*args)[0], flash_dkv_plain(*args)[0],
+                          flash_dkv_plain(*f64)[0], q)}
+            for name, (kern, plain, exact, other) in got.items():
+                size = terms * other.abs().max().item()
+                err = (kern.double() - exact).abs().max().item() / size
+                plain_err = (plain.double() - exact).abs().max().item() / size
+                print(f"[t1] {name} B={B} H={H} T=1 D={D}: kernel {err:.3e}, plain "
+                      f"float32 {plain_err:.3e} of the cancelling terms' size "
+                      f"{size:.3e} (tol {T1_RTOL:g}) | {smi}", flush=True)
+                if not err <= T1_RTOL:
+                    fail(f"{name} at T = 1, D = {D}: {err} of the cancelling terms")
+
+
 def phase_auto_rule(smi: str) -> None:
-    """"auto" attention on the card: the kernels at (1, 2, 512, 64); dense
-    attention, with no flash launch, at head dim 160, past the kernels'
-    D <= 128; forced "flash" raises there."""
-    for shape, flash in (((1, 2, 512, 64), True), ((1, 2, 512, 160), False)):
+    """"auto" attention on the card at 512 tokens: the tensor-core kernels
+    at head dim 64, the wide kernels at 160, each matching dense
+    attention."""
+    for shape, wide in (((1, 2, 512, 64), False), ((1, 2, 512, 160), True)):
         q, k, v, _ = _attn_inputs(*shape, seed=41)
-        before = flash_forward.launches
+        before = (flash_forward.launches, flash_forward.wide_launches)
         with torch.no_grad():
             got = mha(q, k, v, impl="auto")
             ref = attention_dense(q, k, v)
         torch.cuda.synchronize()
-        launches = flash_forward.launches - before
+        launches = (flash_forward.launches - before[0],
+                    flash_forward.wide_launches - before[1])
+        want = (0, 1) if wide else (1, 0)
         err = (got - ref).abs().max().item()
         print(f"[auto] mha 'auto' B, H, T, D = {shape}: flash_forward launches "
-              f"{launches} (expected {int(flash)}), max|diff| against dense "
-              f"{err:.3e} (tol {ATTN_FWD_TOL:g}) | {smi}", flush=True)
-        if launches != int(flash) or err > ATTN_FWD_TOL or (not flash and err != 0):
-            fail(f"'auto' attention at {shape}: {launches} flash launches, "
-                 f"max|diff| {err}")
-    try:
-        mha(q, k, v, impl="flash")
-    except ValueError as e:
-        print(f"[auto] forced 'flash' at head dim 160 raises: {e}", flush=True)
-    else:
-        fail("forced 'flash' at head dim 160 did not raise")
+              f"{launches[0]} tensor-core, {launches[1]} wide (expected {want}), "
+              f"max|diff| against dense {err:.3e} (tol {ATTN_FWD_TOL:g}) | {smi}",
+              flush=True)
+        if launches != want or err > ATTN_FWD_TOL:
+            fail(f"'auto' attention at {shape}: launches {launches}, max|diff| {err}")
 
 
 def _write_runs(root: Path) -> tuple[Path, Path]:
@@ -1273,6 +1428,43 @@ def phase_cgan_serve(smi: str, device: str = "cuda") -> int:
     return launches
 
 
+def phase_cgan_wide(smi: str, device: str = "cuda") -> dict:
+    """train_one_condition (v1) of a transformer CGAN with head dim 256
+    (dim 512, 2 heads) at patch 1 (768 tokens), batch 8, 1 epoch, "auto"
+    attention: the generator's attention runs the wide kernels (per step as
+    CGAN_K3), the tensor-core ones never. Returns the wide launch counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _write_posture_buckets(Path(tmp), CGAN_WIDE_BATCH)
+        runs = Path(tmp) / "cgan_runs"
+        for c in _k3_counters():
+            c.launches = c.wide_launches = 0
+        res = cgan_train.train_one_condition(
+            data, runs, "no_exo", device=device, arch="transformer", epochs=1,
+            save_every=1, print_every=1, batch_size=CGAN_WIDE_BATCH, tf_dim=512,
+            tf_heads=2, tf_patch=1)
+        wide = tuple(c.wide_launches for c in _k3_counters())
+        tc = tuple(c.launches for c in _k3_counters())
+        steps = res["steps_per_epoch"]
+        want = tuple(n * steps for n in CGAN_K3)
+        if torch.device(device).type != "cuda":
+            want = (0, 0, 0)
+        print(f"[cgan-wide] v1 no_exo, 9 x ({CGAN_WIDE_BATCH}, {SEQ_LEN}, {CHANNELS}), "
+              f"dim 512 depth 4 heads 2 (head dim 256) patch 1 (768 tokens), batch "
+              f"{CGAN_WIDE_BATCH}, 'auto' attention: {steps} steps in "
+              f"{sum(res['epoch_seconds']):.2f} s; wide launches flash_forward "
+              f"{wide[0]}, flash_dq {wide[1]}, flash_dkv {wide[2]} (expected {want}); "
+              f"tensor-core launches {tc} (expected (0, 0, 0)) | {smi}", flush=True)
+        if wide != want or tc != (0, 0, 0):
+            fail(f"the wide CGAN run launched wide {wide}, tensor-core {tc}; "
+                 f"expected wide {want}")
+        rows = np.loadtxt(runs / "no_exo" / "metrics.csv", delimiter=",", skiprows=1,
+                          ndmin=2)
+        if rows.shape != (1, 11) or not np.isfinite(rows).all() or not \
+                (runs / "no_exo" / "CGAN_generator_no_exo_best.npz").exists():
+            fail(f"wide CGAN metrics.csv {rows.shape} finite {np.isfinite(rows).all()}")
+    return dict(zip(("flash_forward_wide", "flash_dq_wide", "flash_dkv_wide"), wide))
+
+
 def phase_cgan_layers(smi: str, device: str = "cuda") -> None:
     """Where one training step's time goes at the training shape (B 64,
     full width, flash forced): host clock per layer, synchronised at each
@@ -1342,6 +1534,7 @@ def main() -> None:
     phase_build()
     phase_sass()
     kern = phase_kernels(smi)
+    phase_t1(smi)
     phase_auto_rule(smi)
     serve_launches = phase_serve(smi, kern["gru_sequence"]["ms"])
     if serve_launches < 1:
@@ -1355,7 +1548,8 @@ def main() -> None:
     phase_cgan_step_check(smi)
     cgan_serve_launches = phase_cgan_serve(smi)
     phase_cgan_layers(smi)
-    launches = {**cgan_launches,
+    wide_attn_launches = phase_cgan_wide(smi)
+    launches = {**cgan_launches, **wide_attn_launches,
                 "gru_sequence": serve_launches + train_launches["gru_sequence"]
                 + wide_launches["gru_sequence"],
                 "gru_sequence_bwd": train_launches["gru_sequence_bwd"]
@@ -1378,7 +1572,13 @@ def main() -> None:
                "flash_dq": ("eegsynth_torch/csrc/flash_attn_tc.cu",
                             "eegsynth/nn/attention.py:231"),
                "flash_dkv": ("eegsynth_torch/csrc/flash_attn_tc.cu",
-                             "eegsynth/nn/attention.py:248")}
+                             "eegsynth/nn/attention.py:248"),
+               "flash_forward_wide": ("eegsynth_torch/csrc/flash_attn_wide.cu",
+                                      "eegsynth/nn/attention.py:130"),
+               "flash_dq_wide": ("eegsynth_torch/csrc/flash_attn_wide.cu",
+                                 "eegsynth/nn/attention.py:231"),
+               "flash_dkv_wide": ("eegsynth_torch/csrc/flash_attn_wide.cu",
+                                  "eegsynth/nn/attention.py:248")}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[k], **kern[k]}

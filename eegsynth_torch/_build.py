@@ -108,7 +108,9 @@ def load_library() -> ctypes.CDLL:
             # pointers, then the int dimensions, then the stream
             for fn, n_ptr, n_int in (("gru_seq_fwd", 5, 4), ("gru_seq_bwd", 9, 4),
                                      ("multigru_fwd", 16, 7), ("flash_fwd", 5, 3),
-                                     ("flash_bwd_dq", 7, 3), ("flash_bwd_dkv", 9, 3)):
+                                     ("flash_bwd_dq", 7, 3), ("flash_bwd_dkv", 9, 3),
+                                     ("flash_fwd_wide", 5, 3), ("flash_bwd_dq_wide", 7, 3),
+                                     ("flash_bwd_dkv_wide", 8, 3)):
                 f = getattr(lib, fn)
                 f.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
                 f.restype = i32

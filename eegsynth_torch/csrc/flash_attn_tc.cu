@@ -45,7 +45,10 @@
 // Tiles land with cp.async (16 bytes a copy when D % 4 == 0 and the rows are
 // 16-byte aligned, else 4). Rows at or beyond T and columns at or beyond D
 // arrive as zeros (cp.async's zero fill): nothing is padded in memory. D is
-// rounded up to DP in {16, 32, 64, 128}, a template parameter.
+// rounded up to DP in {16, 32, 64, 128}, a template parameter; heads wider
+// than 128 take the kernels of flash_attn_wide.cu. Every grid below, (tile,
+// b h), is laid out in one dimension, tiles fastest, so that B H has no
+// limit of its own.
 //
 // K3a: grid (query tile of BM = 128 rows, b h), two warpgroups of 64 rows
 // (one at DP = 128, for shared memory). The query tile's hi/lo stay in
@@ -106,6 +109,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -454,6 +458,15 @@ __device__ __forceinline__ void mma_rs(float (&acc)[DP / 2], const uint32_t (&a_
   }
 }
 
+// The grid's one dimension runs over tiles of R rows fastest, then b h, so
+// that B H has no limit of its own: this block's first row and its b h.
+template <int R>
+__device__ __forceinline__ void block_tile(int T, int& r0, int& bh) {
+  const int tiles = (T + R - 1) / R;
+  r0 = (blockIdx.x % tiles) * R;
+  bh = blockIdx.x / tiles;
+}
+
 template <int N>
 __device__ __forceinline__ void zero(float (&r)[N]) {
 #pragma unroll
@@ -494,8 +507,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int wg = threadIdx.x / kWG, warp = threadIdx.x % kWG / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int q0 = blockIdx.x * BM;
-  const size_t base = (size_t)blockIdx.y * T * D;
+  int q0, bh;
+  block_tile<BM>(T, q0, bh);
+  const size_t base = (size_t)bh * T * D;
   const int n_tiles = (T + BN - 1) / BN;
   // s and p in base-2 units: exp(x scale - m) = exp2(x scale log2(e) - m2)
   const float scale2 = scale * 1.4426950408889634f;
@@ -604,7 +618,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (c < D) orow[c] = acc[i] / l_safe;
     }
     if (t4 == 0)
-      lse[(size_t)blockIdx.y * T + r] = m[h] * 0.6931471805599453f + logf(l_safe);
+      lse[(size_t)bh * T + r] = m[h] * 0.6931471805599453f + logf(l_safe);
   }
 }
 
@@ -628,17 +642,19 @@ struct Dkv {
 
 // K3c's pre-pass: q and do split once into the query tiles the main kernel
 // copies (a block of it would otherwise split each of them T / 64 times).
-// Grid (query tile, b h, q or do); scratch [q, do][b h][tile][4][BM DP].
+// Grid (query tile x b h, q or do); scratch [q, do][b h][tile][4][BM DP].
 template <int DP>
 __global__ void __launch_bounds__(kWG)
 flash_dkv_split_kernel(const float* __restrict__ q, const float* __restrict__ d_o,
-                       float* __restrict__ scratch, int T, int D, bool vec) {
+                       float* __restrict__ scratch, int BH, int T, int D, bool vec) {
   constexpr int BM = Dkv<DP>::BM, kQ = Dkv<DP>::kQ;
   __shared__ __align__(16) float raw[BM * (DP + 4)];
-  const float* src = (blockIdx.z == 0 ? q : d_o) + (size_t)blockIdx.y * T * D;
-  float* dst = scratch + (((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-                          blockIdx.x) * 4 * kQ;
-  load_raw<BM, DP, kWG>(raw, src, blockIdx.x * BM, T, D, vec);
+  int r0, bh;
+  block_tile<BM>(T, r0, bh);
+  const float* src = (blockIdx.y == 0 ? q : d_o) + (size_t)bh * T * D;
+  float* dst = scratch + (((size_t)blockIdx.y * BH + bh) * ((T + BM - 1) / BM) +
+                          r0 / BM) * 4 * kQ;
+  load_raw<BM, DP, kWG>(raw, src, r0, T, D, vec);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -665,9 +681,10 @@ flash_dkv_kernel(const float* __restrict__ k, const float* __restrict__ v,
 
   const int wg = threadIdx.x / kWG, tid = threadIdx.x % kWG;
   const int warp = tid / 32, lane = threadIdx.x % 32, t4 = lane % 4;
-  const int k0 = blockIdx.x * kRows;
-  const size_t base = (size_t)blockIdx.y * T * D;
-  const size_t rbase = (size_t)blockIdx.y * T;
+  int k0, bh;
+  block_tile<kRows>(T, k0, bh);
+  const size_t base = (size_t)bh * T * D;
+  const size_t rbase = (size_t)bh * T;
   const int n_tiles = (T + BM - 1) / BM;
   const float scale2 = scale * 1.4426950408889634f;   // log2(e) scale
 
@@ -686,7 +703,7 @@ flash_dkv_kernel(const float* __restrict__ k, const float* __restrict__ v,
   auto load_tile = [&](int jj, int st) {
     float* dst = tiles + st * F::kTile;
     for (int z = 0; z < 2; ++z) {
-      const float* src = scratch + (((size_t)z * BH + blockIdx.y) * n_tiles + jj) * 4 * kQ;
+      const float* src = scratch + (((size_t)z * BH + bh) * n_tiles + jj) * 4 * kQ;
       for (int i = threadIdx.x; i < kQ; i += NT)      // 4 kQ floats, 16 bytes a copy
         cp_async16(dst + z * 4 * kQ + 4 * i, src + 4 * i, 16);
     }
@@ -832,9 +849,10 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int wg = threadIdx.x / kWG, warp = threadIdx.x % kWG / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int q0 = blockIdx.x * BM;
-  const size_t base = (size_t)blockIdx.y * T * D;
-  const size_t rbase = (size_t)blockIdx.y * T;
+  int q0, bh;
+  block_tile<BM>(T, q0, bh);
+  const size_t base = (size_t)bh * T * D;
+  const size_t rbase = (size_t)bh * T;
   const int n_tiles = (T + BN - 1) / BN;
   const float scale2 = scale * 1.4426950408889634f;   // log2(e) scale
 
@@ -949,8 +967,12 @@ float head_scale(int D) {
   return static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
 }
 
+// Past D = 128 the rows' columns no longer fit; flash_attn_wide.cu takes
+// those. The grid's one dimension holds T / 16 (the smallest tile) x B H
+// blocks at most.
 bool bad_dims(int BH, int T, int D) {
-  return BH < 0 || BH > 65535 || T < 0 || D < 1 || D > kMaxD;
+  return BH < 0 || T < 0 || D < 1 || D > kMaxD ||
+         (long long)BH * ((T + 15) / 16) > INT_MAX;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -970,7 +992,7 @@ int launch(Kernel kernel, int tiles, int BH, int threads, size_t smem,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(tiles, BH), threads, smem, stream>>>(args...);
+  kernel<<<tiles * BH, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1026,8 +1048,8 @@ extern "C" int flash_bwd_dkv(const float* q, const float* k, const float* v,
   return with_dp(D, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
     using F = Dkv<DP>;
-    flash_dkv_split_kernel<DP><<<dim3((T + F::BM - 1) / F::BM, BH, 2), kWG, 0, stream>>>(
-        q, d_o, scratch, T, D, vec);
+    flash_dkv_split_kernel<DP><<<dim3((T + F::BM - 1) / F::BM * BH, 2), kWG, 0, stream>>>(
+        q, d_o, scratch, BH, T, D, vec);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     return launch(flash_dkv_kernel<DP>, (T + kRows - 1) / kRows, BH, F::NT, F::kSmem,

@@ -8,25 +8,27 @@ Counterpart of ``eegsynth/nn/attention.py``:
   :class:`FlashAttention`, whose forward is K3a and whose backward is
   delta = rowsum(dO∘O) as a torch op, then K3b (dq) and K3c (dk, dv)
   (all three on the tensor cores, split-TF32 ``wgmma``, in
-  ``eegsynth_torch/csrc/flash_attn_tc.cu``, built at first use by
-  ``eegsynth_torch._build``). First-order only, as the JAX custom VJP: a
+  ``eegsynth_torch/csrc/flash_attn_tc.cu``, for head dims up to 128; wider
+  heads run all three on the CUDA cores, ``csrc/flash_attn_wide.cu``; built
+  at first use by ``eegsynth_torch._build``). First-order only, as the JAX
+  custom VJP: a
   second derivative raises, so paths that differentiate twice (R1 through
   the transformer discriminator) take the dense path;
 - :func:`mha` and :func:`set_attention_impl`, the dispatch: ``"dense"``,
   ``"flash"`` and ``"auto"`` mirror JAX's ``"xla"``, ``"pallas"`` and
-  ``"auto"``. ``"auto"`` takes the kernel for CUDA tensors with T ≥ 512 (the
-  TPU's threshold, kept as the dispatch rule) whose shape the kernels take
-  (D ≤ 128, B·H ≤ 65535; :func:`auto_takes_flash`), and dense attention
-  otherwise: there JAX's TPU path runs its kernel, the port dense attention,
-  the same function within float32 rounding.
+  ``"auto"``. ``"auto"`` takes the kernels for CUDA tensors with T ≥ 512
+  (the TPU's threshold, kept as the dispatch rule; :func:`auto_takes_flash`)
+  at any D and any B·H, and dense attention otherwise.
 
 Each kernel has a plain PyTorch version with its signature
 (:func:`flash_forward_plain`, :func:`flash_dq_plain`,
 :func:`flash_dkv_plain`) using the kernels' formulas: the scale ``D**-0.5``
 applied after the dot, ``p = exp(s − lse)``, ``ds = p∘(dP − delta)·scale``.
 The wrappers (:func:`flash_forward`, :func:`flash_dq`, :func:`flash_dkv`)
-run the plain version for CPU tensors and launch the kernel, or raise, for
-CUDA tensors; ``<wrapper>.launches`` counts the launches.
+run the plain version for CPU tensors and launch a kernel, or raise, for
+CUDA tensors: the tensor-core kernel for D ≤ ``MAX_TC_HEAD_DIM``, counted by
+``<wrapper>.launches``, and the wide kernel past it, counted by
+``<wrapper>.wide_launches``.
 
 Layout: q, k, v are (B, H, T, D), full (non-causal) attention, computed in
 float32 (inputs are cast, the output cast back); lse and delta are
@@ -42,10 +44,9 @@ from torch.autograd.function import once_differentiable
 from eegsynth_torch import _build
 from eegsynth_torch.nn.gru_sequence import _device_of, _launch
 
-MAX_HEAD_DIM = 128
-"""Largest D the kernels take (the model uses 64)."""
-MAX_BH = 65535
-"""Largest B·H the kernels take (the grid's second dimension)."""
+MAX_TC_HEAD_DIM = 128
+"""Largest D of the tensor-core kernels (the model uses 64); wider heads
+take the wide kernels."""
 
 _ATTN_IMPL = "auto"
 
@@ -116,11 +117,6 @@ def _check(name: str, shape, **tensors: torch.Tensor) -> torch.device:
                 raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
             if not t.is_contiguous():
                 raise ValueError(f"{name}: {key} must be contiguous")
-        B, H, _, D = shape
-        if D > MAX_HEAD_DIM:
-            raise ValueError(f"{name}: D={D} > {MAX_HEAD_DIM}")
-        if B * H > MAX_BH:
-            raise ValueError(f"{name}: B*H={B * H} > {MAX_BH}")
     return device
 
 
@@ -133,7 +129,10 @@ def flash_forward(q, k, v):
     B, H, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    if B * H and T:
+    if B * H and T and D > MAX_TC_HEAD_DIM:
+        _launch("flash_fwd_wide", q, k, v, o, lse, B * H, T, D)
+        flash_forward.wide_launches += 1
+    elif B * H and T:
         _launch("flash_fwd", q, k, v, o, lse, B * H, T, D)
         flash_forward.launches += 1
     return o, lse
@@ -146,7 +145,10 @@ def flash_dq(q, k, v, do, lse, delta):
         return flash_dq_plain(q, k, v, do, lse, delta)
     B, H, T, D = q.shape
     dq = torch.empty_like(q)
-    if B * H and T:
+    if B * H and T and D > MAX_TC_HEAD_DIM:
+        _launch("flash_bwd_dq_wide", q, k, v, do, lse, delta, dq, B * H, T, D)
+        flash_dq.wide_launches += 1
+    elif B * H and T:
         _launch("flash_bwd_dq", q, k, v, do, lse, delta, dq, B * H, T, D)
         flash_dq.launches += 1
     return dq
@@ -159,7 +161,10 @@ def flash_dkv(q, k, v, do, lse, delta):
         return flash_dkv_plain(q, k, v, do, lse, delta)
     B, H, T, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if B * H and T:
+    if B * H and T and D > MAX_TC_HEAD_DIM:
+        _launch("flash_bwd_dkv_wide", q, k, v, do, lse, delta, dk, dv, B * H, T, D)
+        flash_dkv.wide_launches += 1
+    elif B * H and T:
         # q and do split into the kernel's query tiles by its pre-pass
         n = _build.load_library().flash_bwd_dkv_scratch(B * H, T, D)
         scratch = torch.empty(n, dtype=torch.float32, device=q.device)
@@ -198,18 +203,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 def auto_takes_flash(shape, device_type: str) -> bool:
     """``"auto"``'s rule for q of ``shape`` (B, H, T, D) on a device of
     ``device_type``: the kernels for CUDA tensors with T ≥ 512 (the TPU's
-    threshold) in the shapes they take (D ≤ MAX_HEAD_DIM, B·H ≤ MAX_BH),
-    dense attention for everything else."""
-    B, H, T, D = shape
-    return (device_type == "cuda" and T >= 512 and D <= MAX_HEAD_DIM
-            and B * H <= MAX_BH)
+    threshold, as JAX's ``mha``), dense attention for everything else."""
+    return device_type == "cuda" and shape[2] >= 512
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         impl: str | None = None) -> torch.Tensor:
     """Dispatching multi-head attention. ``impl`` overrides the module
-    default. Forced ``"flash"`` raises on CUDA for shapes the kernels do not
-    take; ``"auto"`` sends those to dense attention."""
+    default."""
     impl = impl or _ATTN_IMPL
     if impl == "auto":
         impl = "flash" if auto_takes_flash(q.shape, q.device.type) else "dense"
@@ -220,6 +221,6 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return attention_dense(q, k, v)
 
 
-flash_forward.launches = 0
-flash_dq.launches = 0
-flash_dkv.launches = 0
+flash_forward.launches = flash_forward.wide_launches = 0
+flash_dq.launches = flash_dq.wide_launches = 0
+flash_dkv.launches = flash_dkv.wide_launches = 0

@@ -31,9 +31,11 @@ def _t(*arrays):
 
 
 # the shapes of tests/test_attention.py: the CGAN's training geometry, a T
-# that is not a multiple of 128 with an odd head dim, two and three blocks
+# that is not a multiple of 128 with an odd head dim, two and three blocks;
+# and a head dim past 128, which the card's wide kernels take
 @pytest.mark.parametrize("B,H,T,D", [(2, 2, 96, 64), (1, 3, 200, 48),
-                                     (2, 1, 256, 64), (1, 2, 384, 32)])
+                                     (2, 1, 256, 64), (1, 2, 384, 32),
+                                     (1, 2, 130, 160)])
 def test_forward_plain_matches_pallas(B, H, T, D):
     q, k, v = _inputs((B, H, T, D), 3, seed=T)
     with jax.enable_x64(False):
@@ -47,13 +49,13 @@ def test_forward_plain_matches_pallas(B, H, T, D):
     np.testing.assert_allclose(A.flash_attention(*_t(q, k, v)).numpy(), o_jax,
                                atol=FWD_TOL, rtol=0)
     # the wrapper takes the plain version for CPU tensors, launching nothing
-    before = A.flash_forward.launches
+    before = (A.flash_forward.launches, A.flash_forward.wide_launches)
     o_w, lse_w = A.flash_forward(*_t(q, k, v))
     assert torch.equal(o_w, o) and torch.equal(lse_w, lse)
-    assert A.flash_forward.launches == before
+    assert (A.flash_forward.launches, A.flash_forward.wide_launches) == before
 
 
-@pytest.mark.parametrize("B,H,T,D", [(2, 2, 96, 32), (1, 2, 200, 32)])
+@pytest.mark.parametrize("B,H,T,D", [(2, 2, 96, 32), (1, 2, 200, 32), (1, 1, 130, 160)])
 def test_backward_plain_matches_pallas_vjp(B, H, T, D):
     q, k, v, g = _inputs((B, H, T, D), 4, seed=D + T)
     with jax.enable_x64(False):
@@ -105,13 +107,13 @@ def test_mha_dispatch_on_cpu():
         A.set_attention_impl("auto")
 
 
-# "auto" on the card: the kernels from 512 tokens, for the head dims
-# (D ≤ 128) and B·H (≤ 65535, the grid's second dimension) they take
+# "auto" on the card: the kernels from 512 tokens, as JAX's mha, at any head
+# dim (the tensor-core kernels to 128, the wide kernels past it) and any B·H
 @pytest.mark.parametrize("shape,device,flash", [
     ((64, 4, 768, 64), "cuda", True), ((2, 1, 512, 128), "cuda", True),
-    ((1, 2, 512, 160), "cuda", False), ((64, 4, 511, 64), "cuda", False),
-    ((16384, 4, 512, 64), "cuda", False), ((65535, 1, 512, 64), "cuda", True),
-    ((65536, 1, 512, 64), "cuda", False), ((64, 4, 768, 64), "cpu", False),
+    ((1, 2, 512, 160), "cuda", True), ((64, 4, 511, 64), "cuda", False),
+    ((16384, 4, 512, 64), "cuda", True), ((65535, 1, 512, 64), "cuda", True),
+    ((65536, 1, 512, 64), "cuda", True), ((64, 4, 768, 64), "cpu", False),
 ])
 def test_auto_rule(shape, device, flash):
     assert A.auto_takes_flash(shape, device) is flash
