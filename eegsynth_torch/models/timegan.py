@@ -37,7 +37,7 @@ from torch import nn
 
 from eegsynth_torch.nn.gru import GRULayer, GRUStack, gru_apply_time_major
 from eegsynth_torch.nn.layers import Dense, linear
-from eegsynth_torch.nn.multigru import k2_fits, multigru_disc_inputs, smem_limit
+from eegsynth_torch.nn.multigru import H100_SMEM_OPTIN, k2_fits, multigru_disc_inputs
 from eegsynth_torch.nn.spectral_norm import SNDense, sn_dense_apply
 
 Carry = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -282,18 +282,17 @@ def fused_gen_refine(model: TimeGAN | Params, z: torch.Tensor,
     return gen_refine_carry(p, z, init, with_decode)[1]
 
 
-def _takes_k2(params: Params, x: torch.Tensor) -> bool:
+def _takes_k2(params: Params) -> bool:
     """K2's route: single-layer stacks with generator and supervisor
-    projections and, on the card, widths whose block fits in its shared
-    memory. Decided from shapes and the device before any launch."""
+    projections, at widths whose block fits in the H100's shared memory.
+    Decided from the widths alone, before any launch, so the CPU takes the
+    card's route."""
     g, s = params["generator"], params["supervisor"]
     if not _fusable(params) or g["proj"] is None or s["proj"] is None:
         return False
-    if x.device.type != "cuda":
-        return True
     width = lambda net: params[net]["gru"][0]["w_hh"].shape[-1]   # noqa: E731
     return k2_fits(width("embedder"), width("generator"), width("supervisor"),
-                   g["proj"]["w"].shape[-2], smem_limit(x.device))
+                   g["proj"]["w"].shape[-2], H100_SMEM_OPTIN)
 
 
 def fused_disc_inputs(params: Params, x: torch.Tensor, z: torch.Tensor):
@@ -301,21 +300,27 @@ def fused_disc_inputs(params: Params, x: torch.Tensor, z: torch.Tensor):
     of stacked buckets: x (nb, B, T, C), z (nb, B, T, z) → (nb, B, T, z) each.
     Forward only.
 
-    Two routes, chosen by :func:`_takes_k2` before any launch:
+    Two routes, chosen by :func:`_takes_k2` from the widths before any
+    launch, the same on the card and on the CPU:
 
-    - kernel K2 on the card, its plain version on the CPU (the JAX vmapped
-      ``fused_disc_inputs`` / ``multigru_disc_inputs_pallas``), with the
-      input projections hoisted as two batched products: single-layer
-      stacks with both projections whose widths K2 takes (up to z36/h72 on
-      the H100);
+    - :func:`_k2_disc_inputs`, kernel K2 on the card, its plain version on
+      the CPU (the JAX vmapped ``fused_disc_inputs`` /
+      ``multigru_disc_inputs_pallas``): single-layer stacks with both
+      projections whose widths K2 takes (up to z36/h72);
     - otherwise the composed networks, ``encode`` and ``refine_latent ∘
       gen_latent`` (the JAX fallback, the same math as its fused scan): 3 K1
       forward launches on the card for single-layer stacks, the projections
       as products. Wider models (z40/h80 from 20 channels), stacks without
       projections (h_dim == z_dim) and multi-layer stacks take it."""
-    if not _takes_k2(params, x):
-        with torch.no_grad():
-            return encode(params, x), refine_latent(params, gen_latent(params, z))
+    if _takes_k2(params):
+        return _k2_disc_inputs(params, x, z)
+    with torch.no_grad():
+        return encode(params, x), refine_latent(params, gen_latent(params, z))
+
+
+def _k2_disc_inputs(params: Params, x: torch.Tensor, z: torch.Tensor):
+    """:func:`fused_disc_inputs` through K2 (its plain version on the CPU),
+    the input projections hoisted as two batched products."""
     e, g, s = params["embedder"], params["generator"], params["supervisor"]
     el, gl, sl = e["gru"][0], g["gru"][0], s["gru"][0]
     t = lambda w: w.transpose(-1, -2).contiguous()            # noqa: E731

@@ -26,8 +26,9 @@ the reference width (He = Z = 28, Hg = Hs = 56) takes 116 KB, the T > 800
 width (z 36, h 72) 192 KB, z 40 / h 80 (20 channels) does not fit. Called
 with wider models, the wrapper raises ``ValueError``; nothing falls back to
 the plain version. ``models/timegan.py``'s ``fused_disc_inputs`` checks
-:func:`k2_fits` before it calls the wrapper and takes the composed K1
-recurrences for widths K2 does not take.
+:func:`k2_fits` at the H100's limit before it calls the wrapper, on the card
+and on the CPU alike, and takes the composed K1 recurrences for widths K2
+does not take.
 """
 
 from __future__ import annotations
@@ -79,11 +80,16 @@ def smem_bytes(He: int, Hg: int, Hs: int, Z: int, rows: int = 1) -> int:
     return 4 * (weights + rows * per_row)
 
 
+H100_SMEM_OPTIN = 232448
+"""The H100's opt-in shared memory per block, in bytes: the limit the route
+rule of ``models/timegan.py`` holds K2's widths to on every device."""
+
+
 def smem_limit(device: torch.device) -> int:
-    """The card's opt-in shared memory per block (Hopper's 232,448 B where
-    an older torch lacks the property)."""
+    """The card's opt-in shared memory per block (the H100's where an older
+    torch lacks the property)."""
     return getattr(torch.cuda.get_device_properties(device),
-                   "shared_memory_per_block_optin", 232448)
+                   "shared_memory_per_block_optin", H100_SMEM_OPTIN)
 
 
 def k2_fits(He: int, Hg: int, Hs: int, Z: int, limit: int) -> bool:

@@ -90,7 +90,7 @@ def test_identity_projection_raises():
     JAX package's fused_disc_inputs."""
     params, tp, x, z = _disc_inputs_case(TimeGANConfig(x_dim=3, z_dim=8, h_dim=8),
                                          2, 3, 12, seed=2)
-    assert not ttg._takes_k2(tp, torch.from_numpy(x))
+    assert not ttg._takes_k2(tp)
     got = ttg.fused_disc_inputs(tp, torch.from_numpy(x), torch.from_numpy(z))
     for g, w in zip(got, _jax_disc_inputs(params, x, z)):
         np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0)
@@ -106,18 +106,17 @@ def test_k2_fits(dims, fits):
 
 
 @pytest.mark.parametrize("route", ["composed", "k2_plain"])
-def test_wide_disc_inputs_match_jax(monkeypatch, route):
-    """z40/h80 (20 channels), which K2 does not take on the H100: the
-    composed route (what the card runs there, 3 K1 forward launches) and,
-    on the CPU, K2's plain version both match the JAX package's vmapped
-    fused_disc_inputs within 1e-5."""
+def test_wide_disc_inputs_match_jax(route):
+    """z40/h80 (20 channels), which K2 does not take on the H100:
+    fused_disc_inputs takes the composed route there on every device (on
+    the card 3 K1 forward launches), and it and K2's plain version both
+    match the JAX package's vmapped fused_disc_inputs within 1e-5."""
     cfg = TimeGANConfig(x_dim=20, z_dim=40, h_dim=80)
     params, tp, x, z = _disc_inputs_case(cfg, 2, 5, 48, seed=3)
-    assert ttg._takes_k2(tp, torch.from_numpy(x))     # the CPU keeps K2's route
-    if route == "composed":
-        monkeypatch.setattr(ttg, "_takes_k2", lambda params, x: False)
+    assert not ttg._takes_k2(tp)
+    run = ttg.fused_disc_inputs if route == "composed" else ttg._k2_disc_inputs
     before = multigru_disc_inputs.launches
-    got = ttg.fused_disc_inputs(tp, torch.from_numpy(x), torch.from_numpy(z))
+    got = run(tp, torch.from_numpy(x), torch.from_numpy(z))
     assert multigru_disc_inputs.launches == before
     for g, w in zip(got, _jax_disc_inputs(params, x, z)):
         assert g.shape == (2, 5, 48, 40) and not g.requires_grad
