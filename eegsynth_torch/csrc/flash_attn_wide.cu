@@ -14,30 +14,31 @@
 // scale, dq = ds k, dv = p^T do, dk = ds^T q.
 //
 // Layout of the work: a block of 8 warps owns 32 consecutive output rows
-// of one b h, 4 rows a warp (query rows in K3a and K3b, key rows in K3c);
-// the grid is (row tiles x b h) in one dimension, so B H has no limit of its
-// own. The other side streams past in tiles of 32 rows, one a lane, staged
-// in shared memory 64 columns at a time (pitch 65: lane r reads row r
-// without bank conflicts), and the warp's own 4 rows beside them. Per tile
-// each lane computes the full-D dot products of its row with the warp's 4
-// rows (K3a: s; K3b: s and dp; K3c: s^T and dp^T), chunk by chunk: each
-// staged value of the lane's row serves 4 multiply-adds, and the warp's rows
-// come as 16-byte broadcast loads. In K3a warp shuffles give each row's max
+// of one b h, 4 rows a warp (query rows in K3a and K3b, key rows in K3c),
+// and one group of up to 256 output columns; the grid is (row tile, column
+// group, b h) in one dimension, so B H has no limit of its own. A lane holds
+// its 4 rows' accumulators for 8 columns (the group's columns lane + 32 i) in
+// registers for the whole loop and writes them once. The other side streams
+// past in tiles of 32 rows, one a lane, staged in shared memory 64 columns
+// at a time (pitch 65: lane r reads row r without bank conflicts), with the
+// warp's own 4 rows beside them; each stage is copied with cp.async while
+// the block computes on the one before (two buffers). Per tile each lane
+// first computes the full-D dot products of its row with the warp's 4 rows
+// (K3a: s; K3b: s and dp; K3c: s^T and dp^T), chunk by chunk: each staged
+// value of the lane's row serves 4 multiply-adds, and the warp's rows come
+// as 16-byte broadcast loads. In K3a warp shuffles then give each row's max
 // and sum over the tile for the online softmax. The tile's 32 weights a row
-// (p, ds) then go to shared memory, and the warp adds weights x tile to its
-// 4 output rows, lanes strided over the columns, chunk by chunk,
-// read-modify-write in the output rows themselves (global memory, in L2):
-// an accumulator of any width, no registers per column, so D has no limit.
-// Each output row is written by one warp in a fixed order, with no atomics:
-// the results are the same bits on every run.
+// (p, ds) go to shared memory, and the lanes add weights x tile to their
+// accumulators over the group's column chunks. Past 256 columns a block per
+// group recomputes the dot products, so D has no limit. No atomics, a fixed
+// order of sums: the results are the same bits on every run.
 //
 // What bounds them: the loads from shared memory that feed the FP32
 // multiply-adds (about one load for two multiply-adds), not the FP32 rate;
 // 4 products (K3a: s, o; K3b: s, dp, dq; K3c: s, dp, dv, dk) of B H T^2 D
-// multiply-adds each. The tiles are restaged from L2 for each block of 32
-// rows, and each output row is read and written once a tile. A later
-// version would put the products on the tensor cores as flash_attn_tc.cu
-// does, with D split across the loop.
+// multiply-adds each, and two barriers a staged chunk. A later version would
+// put the products on the tensor cores as flash_attn_tc.cu does, with D
+// split across the loop.
 // The kernels allocate nothing and do not synchronise: the caller owns the
 // outputs and the stream.
 
@@ -46,6 +47,7 @@
 #include <climits>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -56,23 +58,33 @@ constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 constexpr int kTile = 32;                    // streamed rows of a tile, one a lane
 constexpr int kChunk = 64;                   // columns staged at a time
 constexpr int kPitch = kChunk + 1;           // floats between a tile's staged rows
+constexpr int kCols = 256;                   // output columns of a block
+constexpr int kGroupChunks = kCols / kChunk;
+constexpr int kLaneCols = kCols / 32;        // accumulators of a lane per row
+constexpr int kTileFloats = kTile * kPitch;  // one staged tile (a multiple of 4)
+constexpr int kRowFloats = kWarps * kRowsPerWarp * kChunk;   // the block's own rows
 constexpr float kNeg = -1e30f;
 
-// This warp's first output row and its b h. The grid's one dimension runs
-// over row tiles fastest, then b h.
-struct Rows {
+using Acc = float[kRowsPerWarp][kLaneCols];
+
+// Where this block and warp are: the grid's one dimension runs over row
+// tiles fastest, then column groups, then b h.
+struct Place {
   size_t bh;
-  int row0;
+  int row0;       // the warp's first output row
   int live;       // how many of the warp's rows are < T
+  int group;      // the block's column group: columns [256 group, 256 group + 256)
 };
 
-__device__ __forceinline__ Rows my_rows(int T) {
+__device__ __forceinline__ Place my_place(int T, int D) {
   const int tiles = (T + kRowsPerBlock - 1) / kRowsPerBlock;
-  Rows r;
-  r.bh = blockIdx.x / tiles;
-  r.row0 = (blockIdx.x % tiles) * kRowsPerBlock + threadIdx.x / 32 * kRowsPerWarp;
-  r.live = max(0, min(kRowsPerWarp, T - r.row0));
-  return r;
+  const int groups = (D + kCols - 1) / kCols;
+  Place p;
+  p.bh = blockIdx.x / tiles / groups;
+  p.group = blockIdx.x / tiles % groups;
+  p.row0 = (blockIdx.x % tiles) * kRowsPerBlock + threadIdx.x / 32 * kRowsPerWarp;
+  p.live = max(0, min(kRowsPerWarp, T - p.row0));
+  return p;
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -87,15 +99,33 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Rows [r0, r0 + R) x columns [c0, c0 + n) of a (T, D) matrix into dst
-// (row pitch P), NT threads (thread tid) sharing the copy; zeros at rows
-// >= T and columns >= n, up to kChunk.
+// ---- staging: cp.async, 4 bytes a copy, zero-filled -------------------------------
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
+                  "r"(in ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Start copying rows [r0, r0 + R) x columns [c0, c0 + n) of a (T, D) matrix
+// into dst (row pitch P), NT threads (thread tid) sharing the copy; zeros at
+// rows >= T and columns >= n, up to kChunk.
 template <int R, int P, int NT>
 __device__ __forceinline__ void stage(float* dst, const float* src, int r0, int c0, int n,
                                       int T, int D, int tid) {
   for (int i = tid; i < R * kChunk; i += NT) {
     const int r = i / kChunk, c = i % kChunk;
-    dst[r * P + c] = r0 + r < T && c < n ? src[(size_t)(r0 + r) * D + c0 + c] : 0.f;
+    const bool in = r0 + r < T && c < n;
+    cp_async4(dst + r * P + c, in ? src + (size_t)(r0 + r) * D + c0 + c : src, in);
   }
 }
 
@@ -105,11 +135,14 @@ __device__ __forceinline__ void stage_tile(float* tile, const float* src, int r0
   stage<kTile, kPitch, kThreads>(tile, src, r0, c0, n, T, D, threadIdx.x);
 }
 
-// A warp stages a chunk of its own rows.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0, int c0,
+// A warp stages a chunk of its own rows into its part of `rows`.
+__device__ __forceinline__ void stage_rows(float* rows, const float* src, int r0, int c0,
                                            int n, int T, int D) {
-  stage<kRowsPerWarp, kChunk, 32>(dst, src, r0, c0, n, T, D, threadIdx.x % 32);
+  stage<kRowsPerWarp, kChunk, 32>(rows + threadIdx.x / 32 * kRowsPerWarp * kChunk, src, r0,
+                                  c0, n, T, D, threadIdx.x % 32);
 }
+
+// ---- the two products ---------------------------------------------------------------
 
 // s[r] += rows[r, :n] . tile[lane, :n] for the warp's rows r: one staged
 // value of the lane's row serves kRowsPerWarp multiply-adds, the rows' four
@@ -118,42 +151,84 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0,
 __device__ __forceinline__ void dot_chunk(float (&s)[kRowsPerWarp], const float* rows,
                                           const float* tile, int n) {
   const float* mine = tile + (threadIdx.x % 32) * kPitch;
+  const float* own = rows + threadIdx.x / 32 * kRowsPerWarp * kChunk;
   for (int c = 0; c < n; c += 4) {
     const float t0 = mine[c], t1 = mine[c + 1], t2 = mine[c + 2], t3 = mine[c + 3];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(rows + r * kChunk + c);
+      const float4 x = *reinterpret_cast<const float4*>(own + r * kChunk + c);
       s[r] = fmaf(x.w, t3, fmaf(x.z, t2, fmaf(x.y, t1, fmaf(x.x, t0, s[r]))));
     }
   }
 }
 
-// For the warp's first `live` rows r: out[r, c0 + c] = w[r, :] . tile[:, c]
-// + (first ? 0 : alpha[r] out[r, c0 + c]) for c < n, lanes strided over c;
-// out is the warp's first row in global memory, rows D apart.
-__device__ __forceinline__ void accumulate(float* out, int D, int live, const float* w,
-                                           const float* tile, int c0, int n,
-                                           const float (&alpha)[kRowsPerWarp], bool first) {
-  for (int c = threadIdx.x % 32; c < n; c += 32) {
-    float acc[kRowsPerWarp] = {};
+// acc[r][2 q + h] += w[r, :] . tile[:, 32 h + lane], h = 0, 1: chunk q of
+// the block's column group (q picks registers, so every q is spelled out).
+__device__ __forceinline__ void accumulate(Acc& acc, const float* w, const float* tile,
+                                           int q) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int qq = 0; qq < kGroupChunks; ++qq) {
+    if (qq != q) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* col = tile + 32 * h + lane;
+      float a[kRowsPerWarp] = {};
 #pragma unroll 2
-    for (int j = 0; j < kTile; j += 4) {
-      const float t0 = tile[j * kPitch + c], t1 = tile[(j + 1) * kPitch + c];
-      const float t2 = tile[(j + 2) * kPitch + c], t3 = tile[(j + 3) * kPitch + c];
+      for (int j = 0; j < kTile; j += 4) {
+        const float t0 = col[j * kPitch], t1 = col[(j + 1) * kPitch];
+        const float t2 = col[(j + 2) * kPitch], t3 = col[(j + 3) * kPitch];
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(w + r * kTile + j);
-        acc[r] = fmaf(x.w, t3, fmaf(x.z, t2, fmaf(x.y, t1, fmaf(x.x, t0, acc[r]))));
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const float4 x = *reinterpret_cast<const float4*>(w + r * kTile + j);
+          a[r] = fmaf(x.w, t3, fmaf(x.z, t2, fmaf(x.y, t1, fmaf(x.x, t0, a[r]))));
+        }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      if (r >= live) break;
-      float* o = out + (size_t)r * D + c0 + c;
-      *o = first ? acc[r] : fmaf(*o, alpha[r], acc[r]);
+      for (int r = 0; r < kRowsPerWarp; ++r) acc[r][2 * qq + h] += a[r];
     }
   }
 }
+
+// The warp's live rows of acc (times 1 / l[r] where l is given) into out,
+// the (T, D) matrix of this b h, at the block's column group.
+__device__ __forceinline__ void write_rows(float* out, const Acc& acc, const Place& me,
+                                           int D, const float* l) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    if (r >= me.live) break;
+    const float inv = l ? 1.f / (l[r] == 0.f ? 1.f : l[r]) : 1.f;
+    float* row = out + (size_t)(me.row0 + r) * D + kCols * me.group;
+#pragma unroll
+    for (int i = 0; i < kLaneCols; ++i) {
+      const int c = kChunk * (i / 2) + 32 * (i % 2) + lane;
+      if (kCols * me.group + c < D) row[c] = l ? acc[r][i] * inv : acc[r][i];
+    }
+  }
+}
+
+// The loop over steps: per streamed tile, the D / 64 chunks of the dot
+// products, then the column group's chunks of the accumulation. Step s
+// stages into buffer s % 2 while the block computes on the other.
+struct Steps {
+  int dot, acc, per_tile, total;
+  __device__ Steps(int T, int D, int group) {
+    dot = (D + kChunk - 1) / kChunk;
+    acc = min(kGroupChunks, dot - kGroupChunks * group);
+    per_tile = dot + acc;
+    total = (T + kTile - 1) / kTile * per_tile;
+  }
+  // (first streamed row, first column, columns, chunk of the group or -1
+  // for a dot chunk) of step s
+  __device__ void at(int s, int D, int group, int& r0, int& c0, int& n, int& q) const {
+    const int i = s % per_tile;
+    r0 = s / per_tile * kTile;
+    q = i < dot ? -1 : i - dot;
+    c0 = kChunk * (i < dot ? i : kGroupChunks * group + q);
+    n = min(kChunk, D - c0);
+  }
+};
 
 // ---- K3a ------------------------------------------------------------------------
 
@@ -161,54 +236,75 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       float* __restrict__ lse, int T, int D, float scale) {
-  __shared__ float tile[kTile * kPitch];
-  __shared__ __align__(16) float rows[kWarps][kRowsPerWarp * kChunk];
-  __shared__ __align__(16) float w[kWarps][kRowsPerWarp * kTile];
-  const Rows me = my_rows(T);
+  extern __shared__ __align__(16) float smem[];
+  float* tiles = smem;                               // [buffer][kTileFloats]
+  float* rows = tiles + 2 * kTileFloats;             // [buffer][kRowFloats]
+  float* w = rows + 2 * kRowFloats;                  // [warp][row][key]
+  const Place me = my_place(T, D);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t base = me.bh * T * D;
-  float* out = o + base + (size_t)me.row0 * D;
+  const Steps st(T, D, me.group);
+  float* ww = w + warp * kRowsPerWarp * kTile;
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], alpha[kRowsPerWarp];
+  auto issue = [&](int step) {
+    int r0, c0, n, qc;
+    st.at(step, D, me.group, r0, c0, n, qc);
+    const int b = step & 1;
+    stage_tile(tiles + b * kTileFloats, (qc < 0 ? k : v) + base, r0, c0, n, T, D);
+    if (qc < 0) stage_rows(rows + b * kRowFloats, q + base, me.row0, c0, n, T, D);
+    cp_async_commit();
+  };
+
+  Acc acc = {};
+  float m[kRowsPerWarp], l[kRowsPerWarp], s[kRowsPerWarp] = {};
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) m[r] = kNeg, l[r] = 0.f;
-  for (int j0 = 0; j0 < T; j0 += kTile) {
-    float s[kRowsPerWarp] = {};
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      const int n = min(kChunk, D - c0);
-      __syncthreads();                 // the last pass has read the tile
-      stage_tile(tile, k + base, j0, c0, n, T, D);
-      stage_rows(rows[warp], q + base, me.row0, c0, n, T, D);
-      __syncthreads();
-      dot_chunk(s, rows[warp], tile, n);
+  issue(0);
+  for (int step = 0; step < st.total; ++step) {
+    if (step + 1 < st.total) {
+      issue(step + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    // online softmax over the tile's 32 keys, one a lane, for each row
-    const bool key = j0 + lane < T;
+    __syncthreads();                   // step's stage has landed
+    int r0, c0, n, qc;
+    st.at(step, D, me.group, r0, c0, n, qc);
+    const int b = step & 1;
+    if (qc < 0) {
+      if (c0 == 0) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float x = key ? s[r] * scale : kNeg;
-      const float m_new = fmaxf(m[r], warp_max(x));
-      alpha[r] = expf(m[r] - m_new);
-      const float p = key ? expf(x - m_new) : 0.f;
-      l[r] = fmaf(alpha[r], l[r], warp_sum(p));
-      m[r] = m_new;
-      w[warp][r * kTile + lane] = p;
+        for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
+      }
+      dot_chunk(s, rows + b * kRowFloats, tiles + b * kTileFloats, n);
+      if (c0 + kChunk >= D) {
+        // online softmax over the tile's 32 keys, one a lane, for each row
+        const bool key = r0 + lane < T;
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const float x = key ? s[r] * scale : kNeg;
+          const float m_new = fmaxf(m[r], warp_max(x));
+          const float alpha = expf(m[r] - m_new);
+          const float p = key ? expf(x - m_new) : 0.f;
+          l[r] = fmaf(alpha, l[r], warp_sum(p));
+          m[r] = m_new;
+          ww[r * kTile + lane] = p;
+#pragma unroll
+          for (int i = 0; i < kLaneCols; ++i) acc[r][i] *= alpha;
+        }
+        __syncwarp();
+      }
+    } else {
+      accumulate(acc, ww, tiles + b * kTileFloats, qc);
     }
-    __syncwarp();
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      const int n = min(kChunk, D - c0);
-      __syncthreads();
-      stage_tile(tile, v + base, j0, c0, n, T, D);
-      __syncthreads();
-      accumulate(out, D, me.live, w[warp], tile, c0, n, alpha, j0 == 0);
-    }
+    __syncthreads();                   // buffer b is free for step + 2
   }
+  write_rows(o + base, acc, me, D, l);
+  if (me.group == 0 && lane == 0) {
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    if (r >= me.live) break;
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    for (int c = lane; c < D; c += 32) out[(size_t)r * D + c] /= l_safe;
-    if (lane == 0) lse[me.bh * T + me.row0 + r] = m[r] + logf(l_safe);
+    for (int r = 0; r < kRowsPerWarp; ++r)
+      if (r < me.live)
+        lse[me.bh * T + me.row0 + r] = m[r] + logf(l[r] == 0.f ? 1.f : l[r]);
   }
 }
 
@@ -219,52 +315,75 @@ flash_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ d_o,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dq, int T, int D, float scale) {
-  __shared__ float kt[kTile * kPitch];
-  __shared__ float vt[kTile * kPitch];
-  __shared__ __align__(16) float rows[2][kWarps][kRowsPerWarp * kChunk];   // q, do
-  __shared__ __align__(16) float w[kWarps][kRowsPerWarp * kTile];
-  const Rows me = my_rows(T);
+  extern __shared__ __align__(16) float smem[];
+  float* tiles = smem;                               // [buffer][k, v][kTileFloats]
+  float* rows = tiles + 4 * kTileFloats;             // [buffer][q, do][kRowFloats]
+  float* w = rows + 4 * kRowFloats;                  // [warp][row][key]
+  const Place me = my_place(T, D);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t base = me.bh * T * D;
-  float* out = dq + base + (size_t)me.row0 * D;
+  const Steps st(T, D, me.group);
+  float* ww = w + warp * kRowsPerWarp * kTile;
   // lse and delta of the warp's rows; rows at or beyond T take p = 0
   float lse_r[kRowsPerWarp], dlt[kRowsPerWarp];
-  const float one[kRowsPerWarp] = {1.f, 1.f, 1.f, 1.f};
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     lse_r[r] = r < me.live ? lse[me.bh * T + me.row0 + r] : 0.f;
     dlt[r] = r < me.live ? delta[me.bh * T + me.row0 + r] : 0.f;
   }
 
-  for (int j0 = 0; j0 < T; j0 += kTile) {
-    float s[kRowsPerWarp] = {}, dp[kRowsPerWarp] = {};
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      const int n = min(kChunk, D - c0);
-      __syncthreads();
-      stage_tile(kt, k + base, j0, c0, n, T, D);
-      stage_tile(vt, v + base, j0, c0, n, T, D);
-      stage_rows(rows[0][warp], q + base, me.row0, c0, n, T, D);
-      stage_rows(rows[1][warp], d_o + base, me.row0, c0, n, T, D);
-      __syncthreads();
-      dot_chunk(s, rows[0][warp], kt, n);
-      dot_chunk(dp, rows[1][warp], vt, n);
+  auto issue = [&](int step) {
+    int r0, c0, n, qc;
+    st.at(step, D, me.group, r0, c0, n, qc);
+    float* t = tiles + (step & 1) * 2 * kTileFloats;
+    float* own = rows + (step & 1) * 2 * kRowFloats;
+    stage_tile(t, k + base, r0, c0, n, T, D);
+    if (qc < 0) {
+      stage_tile(t + kTileFloats, v + base, r0, c0, n, T, D);
+      stage_rows(own, q + base, me.row0, c0, n, T, D);
+      stage_rows(own + kRowFloats, d_o + base, me.row0, c0, n, T, D);
     }
-    // keys at or beyond T give p = 0
-    const bool key = j0 + lane < T;
+    cp_async_commit();
+  };
+
+  Acc acc = {};
+  float s[kRowsPerWarp] = {}, dp[kRowsPerWarp] = {};
+  issue(0);
+  for (int step = 0; step < st.total; ++step) {
+    if (step + 1 < st.total) {
+      issue(step + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int r0, c0, n, qc;
+    st.at(step, D, me.group, r0, c0, n, qc);
+    const float* t = tiles + (step & 1) * 2 * kTileFloats;
+    const float* own = rows + (step & 1) * 2 * kRowFloats;
+    if (qc < 0) {
+      if (c0 == 0) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float p = key && r < me.live ? expf(s[r] * scale - lse_r[r]) : 0.f;
-      w[warp][r * kTile + lane] = p * (dp[r] - dlt[r]) * scale;
+        for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
+      }
+      dot_chunk(s, own, t, n);
+      dot_chunk(dp, own + kRowFloats, t + kTileFloats, n);
+      if (c0 + kChunk >= D) {
+        // keys at or beyond T give p = 0
+        const bool key = r0 + lane < T;
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const float p = key && r < me.live ? expf(s[r] * scale - lse_r[r]) : 0.f;
+          ww[r * kTile + lane] = p * (dp[r] - dlt[r]) * scale;
+        }
+        __syncwarp();
+      }
+    } else {
+      accumulate(acc, ww, t, qc);
     }
-    __syncwarp();
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      const int n = min(kChunk, D - c0);
-      __syncthreads();
-      stage_tile(kt, k + base, j0, c0, n, T, D);
-      __syncthreads();
-      accumulate(out, D, me.live, w[warp], kt, c0, n, one, j0 == 0);
-    }
+    __syncthreads();
   }
+  write_rows(dq + base, acc, me, D, nullptr);
 }
 
 // ---- K3c ------------------------------------------------------------------------
@@ -275,96 +394,128 @@ flash_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv, int T, int D,
                       float scale) {
-  __shared__ float qt[kTile * kPitch];
-  __shared__ float dot[kTile * kPitch];
-  __shared__ __align__(16) float rows[2][kWarps][kRowsPerWarp * kChunk];   // k, v
-  __shared__ __align__(16) float w[2][kWarps][kRowsPerWarp * kTile];       // p, ds
-  const Rows me = my_rows(T);                         // key rows
+  extern __shared__ __align__(16) float smem[];
+  float* tiles = smem;                               // [buffer][q, do][kTileFloats]
+  float* rows = tiles + 4 * kTileFloats;             // [buffer][k, v][kRowFloats]
+  float* w = rows + 4 * kRowFloats;                  // [p, ds][warp][row][query]
+  const Place me = my_place(T, D);                   // key rows
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t base = me.bh * T * D;
-  float* dk_out = dk + base + (size_t)me.row0 * D;
-  float* dv_out = dv + base + (size_t)me.row0 * D;
-  const float one[kRowsPerWarp] = {1.f, 1.f, 1.f, 1.f};
+  const Steps st(T, D, me.group);
+  float* wp = w + warp * kRowsPerWarp * kTile;
+  float* wds = wp + kWarps * kRowsPerWarp * kTile;
 
-  for (int i0 = 0; i0 < T; i0 += kTile) {
-    // the lane's query row; rows at or beyond T give p = ds = 0
-    const bool query = i0 + lane < T;
-    const float lse_i = query ? lse[me.bh * T + i0 + lane] : 0.f;
-    const float dlt_i = query ? delta[me.bh * T + i0 + lane] : 0.f;
-    float s[kRowsPerWarp] = {}, dp[kRowsPerWarp] = {};
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      const int n = min(kChunk, D - c0);
-      __syncthreads();
-      stage_tile(qt, q + base, i0, c0, n, T, D);
-      stage_tile(dot, d_o + base, i0, c0, n, T, D);
-      stage_rows(rows[0][warp], k + base, me.row0, c0, n, T, D);
-      stage_rows(rows[1][warp], v + base, me.row0, c0, n, T, D);
-      __syncthreads();
-      dot_chunk(s, rows[0][warp], qt, n);
-      dot_chunk(dp, rows[1][warp], dot, n);
+  auto issue = [&](int step) {
+    int r0, c0, n, qc;
+    st.at(step, D, me.group, r0, c0, n, qc);
+    float* t = tiles + (step & 1) * 2 * kTileFloats;
+    float* own = rows + (step & 1) * 2 * kRowFloats;
+    stage_tile(t, q + base, r0, c0, n, T, D);
+    stage_tile(t + kTileFloats, d_o + base, r0, c0, n, T, D);
+    if (qc < 0) {
+      stage_rows(own, k + base, me.row0, c0, n, T, D);
+      stage_rows(own + kRowFloats, v + base, me.row0, c0, n, T, D);
     }
+    cp_async_commit();
+  };
+
+  Acc dk_acc = {}, dv_acc = {};
+  float s[kRowsPerWarp] = {}, dp[kRowsPerWarp] = {};
+  issue(0);
+  for (int step = 0; step < st.total; ++step) {
+    if (step + 1 < st.total) {
+      issue(step + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int r0, c0, n, qc;
+    st.at(step, D, me.group, r0, c0, n, qc);
+    const float* t = tiles + (step & 1) * 2 * kTileFloats;
+    const float* own = rows + (step & 1) * 2 * kRowFloats;
+    if (qc < 0) {
+      if (c0 == 0) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float p = query ? expf(s[r] * scale - lse_i) : 0.f;
-      w[0][warp][r * kTile + lane] = p;
-      w[1][warp][r * kTile + lane] = p * (dp[r] - dlt_i) * scale;
+        for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
+      }
+      dot_chunk(s, own, t, n);
+      dot_chunk(dp, own + kRowFloats, t + kTileFloats, n);
+      if (c0 + kChunk >= D) {
+        // the lane's query row; rows at or beyond T give p = ds = 0
+        const bool query = r0 + lane < T;
+        const float lse_i = query ? lse[me.bh * T + r0 + lane] : 0.f;
+        const float dlt_i = query ? delta[me.bh * T + r0 + lane] : 0.f;
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const float p = query ? expf(s[r] * scale - lse_i) : 0.f;
+          wp[r * kTile + lane] = p;
+          wds[r * kTile + lane] = p * (dp[r] - dlt_i) * scale;
+        }
+        __syncwarp();
+      }
+    } else {
+      accumulate(dv_acc, wp, t + kTileFloats, qc);
+      accumulate(dk_acc, wds, t, qc);
     }
-    __syncwarp();
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      const int n = min(kChunk, D - c0);
-      __syncthreads();
-      stage_tile(qt, q + base, i0, c0, n, T, D);
-      stage_tile(dot, d_o + base, i0, c0, n, T, D);
-      __syncthreads();
-      accumulate(dv_out, D, me.live, w[0][warp], dot, c0, n, one, i0 == 0);
-      accumulate(dk_out, D, me.live, w[1][warp], qt, c0, n, one, i0 == 0);
-    }
+    __syncthreads();
   }
+  write_rows(dk + base, dk_acc, me, D, nullptr);
+  write_rows(dv + base, dv_acc, me, D, nullptr);
 }
 
 // ---- launchers ------------------------------------------------------------------
+
+// Dynamic shared memory of each kernel: two buffers of its staged tiles and
+// own rows, and the weights.
+constexpr size_t kFwdSmem = sizeof(float) * (2 * kTileFloats + 2 * kRowFloats +
+                                             kWarps * kRowsPerWarp * kTile);
+constexpr size_t kBwdSmem = sizeof(float) * (4 * kTileFloats + 4 * kRowFloats +
+                                             2 * kWarps * kRowsPerWarp * kTile);
 
 // D^-0.5 rounded once to float, as the JAX package's Python float is.
 float head_scale(int D) {
   return static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
 }
 
-// The grid's one dimension holds row tiles x b h blocks.
-int blocks(int BH, int T) {
-  const long long n = (long long)BH * ((T + kRowsPerBlock - 1) / kRowsPerBlock);
-  return BH < 0 || T < 0 || n > INT_MAX ? -1 : static_cast<int>(n);
+// The grid's one dimension holds row tiles x column groups x b h blocks.
+int blocks(int BH, int T, int D) {
+  if (BH < 0 || T < 0 || D < 1) return -1;
+  const long long n = (long long)BH * ((T + kRowsPerBlock - 1) / kRowsPerBlock) *
+                      ((D + kCols - 1) / kCols);
+  return n > INT_MAX ? -1 : static_cast<int>(n);
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int n, size_t smem, cudaStream_t stream, Args... args) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n, kThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int flash_fwd_wide(const float* q, const float* k, const float* v, float* o,
                               float* lse, int BH, int T, int D, cudaStream_t stream) {
-  const int n = blocks(BH, T);
-  if (n < 0 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  flash_fwd_wide_kernel<<<n, kThreads, 0, stream>>>(q, k, v, o, lse, T, D, head_scale(D));
-  return static_cast<int>(cudaGetLastError());
+  return launch(flash_fwd_wide_kernel, blocks(BH, T, D), kFwdSmem, stream, q, k, v, o, lse,
+                T, D, head_scale(D));
 }
 
 extern "C" int flash_bwd_dq_wide(const float* q, const float* k, const float* v,
                                  const float* d_o, const float* lse, const float* delta,
                                  float* dq, int BH, int T, int D, cudaStream_t stream) {
-  const int n = blocks(BH, T);
-  if (n < 0 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  flash_dq_wide_kernel<<<n, kThreads, 0, stream>>>(q, k, v, d_o, lse, delta, dq, T, D,
-                                                   head_scale(D));
-  return static_cast<int>(cudaGetLastError());
+  return launch(flash_dq_wide_kernel, blocks(BH, T, D), kBwdSmem, stream, q, k, v, d_o, lse,
+                delta, dq, T, D, head_scale(D));
 }
 
 extern "C" int flash_bwd_dkv_wide(const float* q, const float* k, const float* v,
                                   const float* d_o, const float* lse, const float* delta,
                                   float* dk, float* dv, int BH, int T, int D,
                                   cudaStream_t stream) {
-  const int n = blocks(BH, T);
-  if (n < 0 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  flash_dkv_wide_kernel<<<n, kThreads, 0, stream>>>(q, k, v, d_o, lse, delta, dk, dv, T,
-                                                    D, head_scale(D));
-  return static_cast<int>(cudaGetLastError());
+  return launch(flash_dkv_wide_kernel, blocks(BH, T, D), kBwdSmem, stream, q, k, v, d_o,
+                lse, delta, dk, dv, T, D, head_scale(D));
 }
