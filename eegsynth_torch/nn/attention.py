@@ -11,9 +11,8 @@ Counterpart of ``eegsynth/nn/attention.py``:
   ``eegsynth_torch/csrc/flash_attn_tc.cu``, for head dims up to 128; wider
   heads run all three on the CUDA cores, ``csrc/flash_attn_wide.cu``; built
   at first use by ``eegsynth_torch._build``). First-order only, as the JAX
-  custom VJP: a
-  second derivative raises, so paths that differentiate twice (R1 through
-  the transformer discriminator) take the dense path;
+  custom VJP: a second derivative raises, so paths that differentiate twice
+  (R1 through the transformer discriminator) take the dense path;
 - :func:`mha` and :func:`set_attention_impl`, the dispatch: ``"dense"``,
   ``"flash"`` and ``"auto"`` mirror JAX's ``"xla"``, ``"pallas"`` and
   ``"auto"``. ``"auto"`` takes the kernels for CUDA tensors with T ≥ 512
