@@ -111,7 +111,8 @@ def load_library() -> ctypes.CDLL:
                                      ("flash_bwd_dq", 7, 3), ("flash_bwd_dkv", 9, 3),
                                      ("flash_fwd_wide", 5, 3), ("flash_bwd_dq_wide", 7, 3),
                                      ("flash_bwd_dkv_wide", 8, 3),
-                                     ("flash_bwd_dq_wide_tc", 7, 3)):
+                                     ("flash_bwd_dq_wide_tc", 7, 3),
+                                     ("flash_bwd_dkv_wide_tc", 8, 3)):
                 f = getattr(lib, fn)
                 f.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
                 f.restype = i32

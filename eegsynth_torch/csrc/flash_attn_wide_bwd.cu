@@ -302,6 +302,14 @@ flash_dq_wide_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
   wide_bwd<false>(q, d_o, k, v, k, k, lse, delta, dq, dq, T, D, scale, vec);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkv_wide_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ d_o,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* dk, float* dv, int T, int D, float scale, bool vec) {
+  wide_bwd<true>(k, v, q, d_o, d_o, q, lse, delta, dv, dk, T, D, scale, vec);
+}
+
 // Blocks of the one grid dimension, own tiles x column groups of `span`
 // x b h; -1 for dimensions it does not take.
 int blocks(int BH, int T, int D, int span) {
@@ -328,4 +336,12 @@ extern "C" int flash_bwd_dq_wide_tc(const float* q, const float* k, const float*
                                     float* dq, int BH, int T, int D, cudaStream_t stream) {
   return launch_wide(flash_dq_wide_tc_kernel, blocks(BH, T, D, 2 * kGW), q, k, v, d_o, D,
                      stream, lse, delta, dq, T);
+}
+
+extern "C" int flash_bwd_dkv_wide_tc(const float* q, const float* k, const float* v,
+                                     const float* d_o, const float* lse, const float* delta,
+                                     float* dk, float* dv, int BH, int T, int D,
+                                     cudaStream_t stream) {
+  return launch_wide(flash_dkv_wide_tc_kernel, blocks(BH, T, D, kGW), q, k, v, d_o, D,
+                     stream, lse, delta, dk, dv, T);
 }
