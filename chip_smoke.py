@@ -13,7 +13,8 @@ failure is swallowed):
 1. device  — the card's name, torch / CUDA versions, name and power limit;
 2. build   — nvcc builds every kernel under eegsynth_torch/csrc/, one
              process per source, in parallel; cuobjdump -sass counts the
-             HGMMA (wgmma) instructions of every K3a, K3b and K3c instance;
+             HGMMA (wgmma) instructions of every K3a, K3b and K3c instance,
+             the wide K3b and K3c (head dims past 128) included;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the main paths give it, with both times and its
              bound (FLOPs at the TF32 tensor-core rate or bytes at the HBM
@@ -24,8 +25,9 @@ failure is swallowed):
              function timed in turns with the kernel where there is one
              (cuDNN's GRU beside K1 forward, memory-efficient SDPA's forward
              beside K3a and its backward beside K3b + K3c); dense attention
-             beside K3a; the wide kernels (head dims past 128, on the CUDA
-             cores) the same way at head dim 256, 160 and a ragged 131; dq
+             beside K3a; the wide kernels (head dims past 128: K3a on the
+             CUDA cores, K3b and K3c on the tensor cores) the same way at
+             head dim 256, 160 and a ragged 131; dq
              and dk at one key (T = 1) against float64, in units of the
              terms that cancel there; "auto" attention (the tensor-core
              kernels at head dim 64, the wide ones at 160); the D-step
@@ -141,7 +143,8 @@ ATTN_HEADLINE = (64, 4, 768, 64)   # the shape of the kernels line's K3 rows
 ATTN_FWD_TOL = 1e-5    # o and lse, absolute: f32 sums in another order
 ATTN_BWD_RTOL = 1e-4   # dq, dk, dv, relative to the largest magnitude: sums
                        # of up to 4096 terms in another order
-# The wide kernels (D > 128, on the CUDA cores): head dim 256 (a transformer
+# The wide kernels (D > 128: K3a on the CUDA cores, K3b and K3c on the tensor
+# cores, flash_attn_wide_bwd.cu): head dim 256 (a transformer
 # CGAN of dim 512 with 2 heads, patch 1: 768 tokens, batch 64; the headline
 # of their rows), the "auto" shape at head dim 160, a ragged T with an odd D
 WIDE_ATTN_SHAPES = ((64, 2, 768, 256), (1, 2, 512, 160), (2, 3, 77, 131))
@@ -152,8 +155,10 @@ WIDE_ATTN_SHAPES = ((64, 2, 768, 256), (1, 2, 512, 160), (2, 3, 77, 131))
 # size of the terms that cancel (sum_d |do_d v_d| times scale times |k| or
 # |q|), as in tests/test_torch_card.py. T1_RTOL is 3.8 times the largest
 # such error measured on an H100 (1.315e-7, K3b at D 128; the plain float32
-# version's errors were up to 1.5e-8; PERF.md)
-T1_SHAPES = ((1, 1, 1, 16), (1, 2, 1, 64), (2, 2, 1, 128), (1, 2, 1, 160))
+# version's errors were up to 1.5e-8; PERF.md). D 160 and 256 run the wide
+# K3b and K3c, whose sums over D are taken chunk by chunk
+T1_SHAPES = ((1, 1, 1, 16), (1, 2, 1, 64), (2, 2, 1, 128), (1, 2, 1, 160),
+             (1, 2, 1, 256))
 T1_RTOL = 5e-7
 # Training: 18 buckets (9 postures x 2 conditions) of 63 random windows
 N_BUCKETS, N_WINDOWS, SEQ_LEN, CHANNELS = 18, 63, 768, 14
@@ -228,9 +233,9 @@ def phase_build() -> None:
 
 def phase_sass() -> None:
     """The HGMMA (wgmma) instructions of every instance of the tensor-core
-    flash kernels K3a, K3b and K3c in the built library, from ``cuobjdump
-    -sass``: each instance must have some, or its products do not run on the
-    tensor cores."""
+    flash kernels K3a, K3b and K3c, and of the wide K3b and K3c, in the
+    built library, from ``cuobjdump -sass``: each instance must have some,
+    or its products do not run on the tensor cores."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True,
@@ -240,7 +245,9 @@ def phase_sass() -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", line)
-            name = (m.group(1), int(m.group(2))) if m else None
+            wide = re.search(r"(flash_(?:dq|dkv)_wide_tc_kernel)", line)
+            name = ((m.group(1), int(m.group(2))) if m else
+                    (wide.group(1), 0) if wide else None)
             if name:
                 counts.setdefault(name[0], {})[name[1]] = 0
         elif name and "HGMMA" in line:
@@ -251,6 +258,11 @@ def phase_sass() -> None:
             f"DP {dp}: {n}" for dp, n in sorted(per_dp.items())), flush=True)
         if sorted(per_dp) != [16, 32, 64, 128] or not all(per_dp.values()):
             fail(f"{kernel}: instances without HGMMA or missing: {per_dp}")
+    for kernel in ("flash_dq_wide_tc_kernel", "flash_dkv_wide_tc_kernel"):
+        n = counts.get(kernel, {}).get(0, 0)
+        print(f"[sass] {kernel} (head dims past 128) HGMMA: {n}", flush=True)
+        if not n:
+            fail(f"{kernel}: missing or without HGMMA")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -1575,9 +1587,9 @@ def main() -> None:
                              "eegsynth/nn/attention.py:248"),
                "flash_forward_wide": ("eegsynth_torch/csrc/flash_attn_wide.cu",
                                       "eegsynth/nn/attention.py:130"),
-               "flash_dq_wide": ("eegsynth_torch/csrc/flash_attn_wide.cu",
+               "flash_dq_wide": ("eegsynth_torch/csrc/flash_attn_wide_bwd.cu",
                                  "eegsynth/nn/attention.py:231"),
-               "flash_dkv_wide": ("eegsynth_torch/csrc/flash_attn_wide.cu",
+               "flash_dkv_wide": ("eegsynth_torch/csrc/flash_attn_wide_bwd.cu",
                                   "eegsynth/nn/attention.py:248")}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,

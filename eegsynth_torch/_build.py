@@ -5,8 +5,9 @@ plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes), for Hopper only (``sm_90a``). The sources compile in parallel, one
 ``nvcc`` process each, and are then linked. The library lands in
 ``build/kernels/`` at the repository root under a name that carries a hash
-of the sources and flags: it is built at first use and rebuilt whenever a
-source changes. A failed build raises; there is no fallback.
+of the sources (the ``csrc/*.cuh`` headers included) and flags: it is built
+at first use and rebuilt whenever a source changes. A failed build raises;
+there is no fallback.
 
 Pointers and the stream cross the C boundary as ``ctypes.c_void_p`` (a bare
 Python int would be cut to 32 bits).
@@ -110,9 +111,7 @@ def load_library() -> ctypes.CDLL:
                                      ("multigru_fwd", 16, 7), ("flash_fwd", 5, 3),
                                      ("flash_bwd_dq", 7, 3), ("flash_bwd_dkv", 9, 3),
                                      ("flash_fwd_wide", 5, 3), ("flash_bwd_dq_wide", 7, 3),
-                                     ("flash_bwd_dkv_wide", 8, 3),
-                                     ("flash_bwd_dq_wide_tc", 7, 3),
-                                     ("flash_bwd_dkv_wide_tc", 8, 3)):
+                                     ("flash_bwd_dkv_wide", 8, 3)):
                 f = getattr(lib, fn)
                 f.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
                 f.restype = i32

@@ -11,7 +11,9 @@
 //   K3b, K3c: p = exp(s - lse), ds = p (do v^T - delta) scale,
 //        K3b: dq = ds k; K3c: dv = p^T do, dk = ds^T q
 // delta = rowsum(do * o) is computed by the caller, as the JAX package does
-// in XLA outside its kernels.
+// in XLA outside its kernels. The primitives below (cp.async tile loads,
+// the split, the layouts, wgmma) live in tf32_wgmma.cuh, shared with the
+// wide backward kernels.
 //
 // Products. Every tile product is a warpgroup MMA (wgmma, m64nNk8, TF32
 // inputs, float32 sums). TF32 keeps 10 mantissa bits, far outside the 1e-5
@@ -46,7 +48,8 @@
 // 16-byte aligned, else 4). Rows at or beyond T and columns at or beyond D
 // arrive as zeros (cp.async's zero fill): nothing is padded in memory. D is
 // rounded up to DP in {16, 32, 64, 128}, a template parameter; heads wider
-// than 128 take the kernels of flash_attn_wide.cu. Every grid below, (tile,
+// than 128 take flash_attn_wide.cu (K3a) and flash_attn_wide_bwd.cu (K3b,
+// K3c). Every grid below, (tile,
 // b h), is laid out in one dimension, tiles fastest, so that B H has no
 // limit of its own.
 //
@@ -604,7 +607,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---- launchers ------------------------------------------------------------------
 
 
-// Past D = 128 the rows' columns no longer fit; flash_attn_wide.cu takes
+// Past D = 128 the rows' columns no longer fit; the wide kernels take
 // those. The grid's one dimension holds T / 16 (the smallest tile) x B H
 // blocks at most.
 bool bad_dims(int BH, int T, int D) {

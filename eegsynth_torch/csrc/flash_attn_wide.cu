@@ -1,46 +1,41 @@
-// Flash-attention forward (K3a), dq (K3b) and dk/dv (K3c) for head dims over
-// 128, for Hopper, sm_90a, on the CUDA cores: full (non-causal) softmax
-// attention in float32.
+// Flash-attention forward (K3a) for head dims over 128, for Hopper, sm_90a,
+// on the CUDA cores: full (non-causal) softmax attention in float32. The
+// backward for these heads (K3b, K3c) runs on the tensor cores, in
+// flash_attn_wide_bwd.cu.
 //
-// Replaces, for D > 128, the same TPU kernels of eegsynth/nn/attention.py as
-// flash_attn_tc.cu, whose tensor-core kernels hold their rows' D columns in
-// registers and shared memory and stop at D = 128:
+// Replaces, for D > 128, the same TPU kernel of eegsynth/nn/attention.py as
+// flash_attn_tc.cu's flash_fwd, whose tensor-core kernel holds its rows' D
+// columns in registers and shared memory and stops at D = 128:
 //   K3a  _fa_forward (pallas_call, body _fa_fwd_kernel)
-//   K3b  _fa_backward's dq pallas_call (body _fa_dq_kernel)
-//   K3c  _fa_backward's dk/dv pallas_call (body _fa_dkv_kernel)
-// The same formulas and layout: q, k, v, do (BH, T, D) float32, lse and
-// delta (BH, T), scale = D^-0.5; K3a: s = (q k^T) scale, online softmax ->
-// o, lse = m + log l; K3b, K3c: p = exp(s - lse), ds = p (do v^T - delta)
-// scale, dq = ds k, dv = p^T do, dk = ds^T q.
+// The same formulas and layout: q, k, v (BH, T, D) float32, lse (BH, T),
+// scale = D^-0.5; s = (q k^T) scale, online softmax -> o, lse = m + log l.
 //
-// Layout of the work: a block of 8 warps owns 32 consecutive output rows
-// of one b h, 4 rows a warp (query rows in K3a and K3b, key rows in K3c),
-// and one group of up to 256 output columns; the grid is (row tile, column
-// group, b h) in one dimension, so B H has no limit of its own. A lane holds
-// its 4 rows' accumulators for 8 columns (the group's columns lane + 32 i) in
-// registers for the whole loop and writes them once. The other side streams
-// past in tiles of 32 rows, one a lane, staged in shared memory 64 columns
-// at a time (pitch 65: lane r reads row r without bank conflicts), with the
-// warp's own 4 rows beside them; each stage is copied with cp.async while
-// the block computes on the one before (two buffers). Per tile each lane
-// first computes the full-D dot products of its row with the warp's 4 rows
-// (K3a: s; K3b: s and dp; K3c: s^T and dp^T), chunk by chunk: each staged
-// value of the lane's row serves 4 multiply-adds, and the warp's rows come
-// as 16-byte broadcast loads. In K3a warp shuffles then give each row's max
-// and sum over the tile for the online softmax. The tile's 32 weights a row
-// (p, ds) go to shared memory, and the lanes add weights x tile to their
+// Layout of the work: a block of 8 warps owns 32 consecutive query rows of
+// one b h, 4 rows a warp, and one group of up to 256 output columns; the
+// grid is (row tile, column group, b h) in one dimension, so B H has no
+// limit of its own. A lane holds its 4 rows' accumulators for 8 columns
+// (the group's columns lane + 32 i) in registers for the whole loop and
+// writes them once. The keys stream past in tiles of 32 rows, one a lane,
+// staged in shared memory 64 columns at a time (pitch 65: lane r reads row
+// r without bank conflicts), with the warp's own 4 rows beside them; each
+// stage is copied with cp.async while the block computes on the one before
+// (two buffers). Per tile each lane first computes the full-D dot products
+// s of its key with the warp's 4 rows, chunk by chunk: each staged value of
+// the lane's row serves 4 multiply-adds, and the warp's rows come as
+// 16-byte broadcast loads. Warp shuffles then give each row's max and sum
+// over the tile for the online softmax. The tile's 32 weights a row (p) go
+// to shared memory, and the lanes add weights x v tile to their
 // accumulators over the group's column chunks. Past 256 columns a block per
 // group recomputes the dot products, so D has no limit. No atomics, a fixed
 // order of sums: the results are the same bits on every run.
 //
-// What bounds them: the loads from shared memory that feed the FP32
+// What bounds it: the loads from shared memory that feed the FP32
 // multiply-adds (about one load for two multiply-adds), not the FP32 rate;
-// 4 products (K3a: s, o; K3b: s, dp, dq; K3c: s, dp, dv, dk) of B H T^2 D
-// multiply-adds each, and two barriers a staged chunk. A later version would
-// put the products on the tensor cores as flash_attn_tc.cu does, with D
-// split across the loop.
-// The kernels allocate nothing and do not synchronise: the caller owns the
-// outputs and the stream.
+// 2 products (s, o) of B H T^2 D multiply-adds each, and two barriers a
+// staged chunk. A later version would put the products on the tensor cores
+// as flash_attn_wide_bwd.cu does, with D split across the loop.
+// The kernel allocates nothing and does not synchronise: the caller owns
+// the outputs and the stream.
 
 #include <cuda_runtime.h>
 
@@ -190,20 +185,20 @@ __device__ __forceinline__ void accumulate(Acc& acc, const float* w, const float
   }
 }
 
-// The warp's live rows of acc (times 1 / l[r] where l is given) into out,
-// the (T, D) matrix of this b h, at the block's column group.
+// The warp's live rows of acc times 1 / l[r] into out, the (T, D) matrix of
+// this b h, at the block's column group.
 __device__ __forceinline__ void write_rows(float* out, const Acc& acc, const Place& me,
                                            int D, const float* l) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     if (r >= me.live) break;
-    const float inv = l ? 1.f / (l[r] == 0.f ? 1.f : l[r]) : 1.f;
+    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
     float* row = out + (size_t)(me.row0 + r) * D + kCols * me.group;
 #pragma unroll
     for (int i = 0; i < kLaneCols; ++i) {
       const int c = kChunk * (i / 2) + 32 * (i % 2) + lane;
-      if (kCols * me.group + c < D) row[c] = l ? acc[r][i] * inv : acc[r][i];
+      if (kCols * me.group + c < D) row[c] = acc[r][i] * inv;
     }
   }
 }
@@ -308,170 +303,12 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- K3b ------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-flash_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ d_o,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dq, int T, int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* tiles = smem;                               // [buffer][k, v][kTileFloats]
-  float* rows = tiles + 4 * kTileFloats;             // [buffer][q, do][kRowFloats]
-  float* w = rows + 4 * kRowFloats;                  // [warp][row][key]
-  const Place me = my_place(T, D);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = me.bh * T * D;
-  const Steps st(T, D, me.group);
-  float* ww = w + warp * kRowsPerWarp * kTile;
-  // lse and delta of the warp's rows; rows at or beyond T take p = 0
-  float lse_r[kRowsPerWarp], dlt[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    lse_r[r] = r < me.live ? lse[me.bh * T + me.row0 + r] : 0.f;
-    dlt[r] = r < me.live ? delta[me.bh * T + me.row0 + r] : 0.f;
-  }
-
-  auto issue = [&](int step) {
-    int r0, c0, n, qc;
-    st.at(step, D, me.group, r0, c0, n, qc);
-    float* t = tiles + (step & 1) * 2 * kTileFloats;
-    float* own = rows + (step & 1) * 2 * kRowFloats;
-    stage_tile(t, k + base, r0, c0, n, T, D);
-    if (qc < 0) {
-      stage_tile(t + kTileFloats, v + base, r0, c0, n, T, D);
-      stage_rows(own, q + base, me.row0, c0, n, T, D);
-      stage_rows(own + kRowFloats, d_o + base, me.row0, c0, n, T, D);
-    }
-    cp_async_commit();
-  };
-
-  Acc acc = {};
-  float s[kRowsPerWarp] = {}, dp[kRowsPerWarp] = {};
-  issue(0);
-  for (int step = 0; step < st.total; ++step) {
-    if (step + 1 < st.total) {
-      issue(step + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    int r0, c0, n, qc;
-    st.at(step, D, me.group, r0, c0, n, qc);
-    const float* t = tiles + (step & 1) * 2 * kTileFloats;
-    const float* own = rows + (step & 1) * 2 * kRowFloats;
-    if (qc < 0) {
-      if (c0 == 0) {
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
-      }
-      dot_chunk(s, own, t, n);
-      dot_chunk(dp, own + kRowFloats, t + kTileFloats, n);
-      if (c0 + kChunk >= D) {
-        // keys at or beyond T give p = 0
-        const bool key = r0 + lane < T;
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float p = key && r < me.live ? expf(s[r] * scale - lse_r[r]) : 0.f;
-          ww[r * kTile + lane] = p * (dp[r] - dlt[r]) * scale;
-        }
-        __syncwarp();
-      }
-    } else {
-      accumulate(acc, ww, t, qc);
-    }
-    __syncthreads();
-  }
-  write_rows(dq + base, acc, me, D, nullptr);
-}
-
-// ---- K3c ------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ d_o,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, int T, int D,
-                      float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* tiles = smem;                               // [buffer][q, do][kTileFloats]
-  float* rows = tiles + 4 * kTileFloats;             // [buffer][k, v][kRowFloats]
-  float* w = rows + 4 * kRowFloats;                  // [p, ds][warp][row][query]
-  const Place me = my_place(T, D);                   // key rows
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = me.bh * T * D;
-  const Steps st(T, D, me.group);
-  float* wp = w + warp * kRowsPerWarp * kTile;
-  float* wds = wp + kWarps * kRowsPerWarp * kTile;
-
-  auto issue = [&](int step) {
-    int r0, c0, n, qc;
-    st.at(step, D, me.group, r0, c0, n, qc);
-    float* t = tiles + (step & 1) * 2 * kTileFloats;
-    float* own = rows + (step & 1) * 2 * kRowFloats;
-    stage_tile(t, q + base, r0, c0, n, T, D);
-    stage_tile(t + kTileFloats, d_o + base, r0, c0, n, T, D);
-    if (qc < 0) {
-      stage_rows(own, k + base, me.row0, c0, n, T, D);
-      stage_rows(own + kRowFloats, v + base, me.row0, c0, n, T, D);
-    }
-    cp_async_commit();
-  };
-
-  Acc dk_acc = {}, dv_acc = {};
-  float s[kRowsPerWarp] = {}, dp[kRowsPerWarp] = {};
-  issue(0);
-  for (int step = 0; step < st.total; ++step) {
-    if (step + 1 < st.total) {
-      issue(step + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    int r0, c0, n, qc;
-    st.at(step, D, me.group, r0, c0, n, qc);
-    const float* t = tiles + (step & 1) * 2 * kTileFloats;
-    const float* own = rows + (step & 1) * 2 * kRowFloats;
-    if (qc < 0) {
-      if (c0 == 0) {
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
-      }
-      dot_chunk(s, own, t, n);
-      dot_chunk(dp, own + kRowFloats, t + kTileFloats, n);
-      if (c0 + kChunk >= D) {
-        // the lane's query row; rows at or beyond T give p = ds = 0
-        const bool query = r0 + lane < T;
-        const float lse_i = query ? lse[me.bh * T + r0 + lane] : 0.f;
-        const float dlt_i = query ? delta[me.bh * T + r0 + lane] : 0.f;
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float p = query ? expf(s[r] * scale - lse_i) : 0.f;
-          wp[r * kTile + lane] = p;
-          wds[r * kTile + lane] = p * (dp[r] - dlt_i) * scale;
-        }
-        __syncwarp();
-      }
-    } else {
-      accumulate(dv_acc, wp, t + kTileFloats, qc);
-      accumulate(dk_acc, wds, t, qc);
-    }
-    __syncthreads();
-  }
-  write_rows(dk + base, dk_acc, me, D, nullptr);
-  write_rows(dv + base, dv_acc, me, D, nullptr);
-}
-
 // ---- launchers ------------------------------------------------------------------
 
-// Dynamic shared memory of each kernel: two buffers of its staged tiles and
-// own rows, and the weights.
+// Dynamic shared memory: two buffers of the staged tiles and own rows, and
+// the weights.
 constexpr size_t kFwdSmem = sizeof(float) * (2 * kTileFloats + 2 * kRowFloats +
                                              kWarps * kRowsPerWarp * kTile);
-constexpr size_t kBwdSmem = sizeof(float) * (4 * kTileFloats + 4 * kRowFloats +
-                                             2 * kWarps * kRowsPerWarp * kTile);
 
 // D^-0.5 rounded once to float, as the JAX package's Python float is.
 float head_scale(int D) {
@@ -503,19 +340,4 @@ extern "C" int flash_fwd_wide(const float* q, const float* k, const float* v, fl
                               float* lse, int BH, int T, int D, cudaStream_t stream) {
   return launch(flash_fwd_wide_kernel, blocks(BH, T, D), kFwdSmem, stream, q, k, v, o, lse,
                 T, D, head_scale(D));
-}
-
-extern "C" int flash_bwd_dq_wide(const float* q, const float* k, const float* v,
-                                 const float* d_o, const float* lse, const float* delta,
-                                 float* dq, int BH, int T, int D, cudaStream_t stream) {
-  return launch(flash_dq_wide_kernel, blocks(BH, T, D), kBwdSmem, stream, q, k, v, d_o, lse,
-                delta, dq, T, D, head_scale(D));
-}
-
-extern "C" int flash_bwd_dkv_wide(const float* q, const float* k, const float* v,
-                                  const float* d_o, const float* lse, const float* delta,
-                                  float* dk, float* dv, int BH, int T, int D,
-                                  cudaStream_t stream) {
-  return launch(flash_dkv_wide_kernel, blocks(BH, T, D), kBwdSmem, stream, q, k, v, d_o,
-                lse, delta, dk, dv, T, D, head_scale(D));
 }

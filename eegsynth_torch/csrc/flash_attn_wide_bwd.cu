@@ -331,17 +331,17 @@ int launch_wide(Kernel kernel, int n, const float* q, const float* k, const floa
 
 }  // namespace
 
-extern "C" int flash_bwd_dq_wide_tc(const float* q, const float* k, const float* v,
-                                    const float* d_o, const float* lse, const float* delta,
-                                    float* dq, int BH, int T, int D, cudaStream_t stream) {
+extern "C" int flash_bwd_dq_wide(const float* q, const float* k, const float* v,
+                                 const float* d_o, const float* lse, const float* delta,
+                                 float* dq, int BH, int T, int D, cudaStream_t stream) {
   return launch_wide(flash_dq_wide_tc_kernel, blocks(BH, T, D, 2 * kGW), q, k, v, d_o, D,
                      stream, lse, delta, dq, T);
 }
 
-extern "C" int flash_bwd_dkv_wide_tc(const float* q, const float* k, const float* v,
-                                     const float* d_o, const float* lse, const float* delta,
-                                     float* dk, float* dv, int BH, int T, int D,
-                                     cudaStream_t stream) {
+extern "C" int flash_bwd_dkv_wide(const float* q, const float* k, const float* v,
+                                  const float* d_o, const float* lse, const float* delta,
+                                  float* dk, float* dv, int BH, int T, int D,
+                                  cudaStream_t stream) {
   return launch_wide(flash_dkv_wide_tc_kernel, blocks(BH, T, D, kGW), q, k, v, d_o, D,
                      stream, lse, delta, dk, dv, T);
 }

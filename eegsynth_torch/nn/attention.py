@@ -6,13 +6,15 @@ Counterpart of ``eegsynth/nn/attention.py``:
   plain PyTorch and twice differentiable;
 - :func:`flash_attention`, blocked online-softmax attention through
   :class:`FlashAttention`, whose forward is K3a and whose backward is
-  delta = rowsum(dO∘O) as a torch op, then K3b (dq) and K3c (dk, dv)
-  (all three on the tensor cores, split-TF32 ``wgmma``, in
-  ``eegsynth_torch/csrc/flash_attn_tc.cu``, for head dims up to 128; wider
-  heads run all three on the CUDA cores, ``csrc/flash_attn_wide.cu``; built
-  at first use by ``eegsynth_torch._build``). First-order only, as the JAX
-  custom VJP: a second derivative raises, so paths that differentiate twice
-  (R1 through the transformer discriminator) take the dense path;
+  delta = rowsum(dO∘O) as a torch op, then K3b (dq) and K3c (dk, dv). For
+  head dims up to 128 all three run on the tensor cores with split-TF32
+  ``wgmma`` (``eegsynth_torch/csrc/flash_attn_tc.cu``); past 128, K3b and
+  K3c run on the tensor cores too, with D streamed in chunks and the
+  output columns held in groups (``csrc/flash_attn_wide_bwd.cu``), and K3a
+  on the CUDA cores (``csrc/flash_attn_wide.cu``). All are built at first
+  use by ``eegsynth_torch._build``. First-order only, as the JAX custom
+  VJP: a second derivative raises, so paths that differentiate twice (R1
+  through the transformer discriminator) take the dense path;
 - :func:`mha` and :func:`set_attention_impl`, the dispatch: ``"dense"``,
   ``"flash"`` and ``"auto"`` mirror JAX's ``"xla"``, ``"pallas"`` and
   ``"auto"``. ``"auto"`` takes the kernels for CUDA tensors with T ≥ 512
@@ -25,9 +27,9 @@ Each kernel has a plain PyTorch version with its signature
 applied after the dot, ``p = exp(s − lse)``, ``ds = p∘(dP − delta)·scale``.
 The wrappers (:func:`flash_forward`, :func:`flash_dq`, :func:`flash_dkv`)
 run the plain version for CPU tensors and launch a kernel, or raise, for
-CUDA tensors: the tensor-core kernel for D ≤ ``MAX_TC_HEAD_DIM``, counted by
-``<wrapper>.launches``, and the wide kernel past it, counted by
-``<wrapper>.wide_launches``.
+CUDA tensors, chosen from D before the launch: the kernel for
+D ≤ ``MAX_TC_HEAD_DIM``, counted by ``<wrapper>.launches``, and the wide
+kernel past it, counted by ``<wrapper>.wide_launches``.
 
 Layout: q, k, v are (B, H, T, D), full (non-causal) attention, computed in
 float32 (inputs are cast, the output cast back); lse and delta are
@@ -44,10 +46,17 @@ from eegsynth_torch import _build
 from eegsynth_torch.nn.gru_sequence import _device_of, _launch
 
 MAX_TC_HEAD_DIM = 128
-"""Largest D of the tensor-core kernels (the model uses 64); wider heads
-take the wide kernels."""
+"""Largest D of the kernels that hold whole rows of D columns
+(``flash_attn_tc.cu``; the model uses 64). Wider heads take the wide
+kernels: K3b and K3c on the tensor cores with D split into chunks and
+column groups, K3a on the CUDA cores."""
 
 _ATTN_IMPL = "auto"
+
+
+def takes_wide_kernels(D: int) -> bool:
+    """Whether a head dim of ``D`` takes the wide kernels on the card."""
+    return D > MAX_TC_HEAD_DIM
 
 
 def set_attention_impl(impl: str) -> None:
@@ -128,7 +137,7 @@ def flash_forward(q, k, v):
     B, H, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    if B * H and T and D > MAX_TC_HEAD_DIM:
+    if B * H and T and takes_wide_kernels(D):
         _launch("flash_fwd_wide", q, k, v, o, lse, B * H, T, D)
         flash_forward.wide_launches += 1
     elif B * H and T:
@@ -144,7 +153,7 @@ def flash_dq(q, k, v, do, lse, delta):
         return flash_dq_plain(q, k, v, do, lse, delta)
     B, H, T, D = q.shape
     dq = torch.empty_like(q)
-    if B * H and T and D > MAX_TC_HEAD_DIM:
+    if B * H and T and takes_wide_kernels(D):
         _launch("flash_bwd_dq_wide", q, k, v, do, lse, delta, dq, B * H, T, D)
         flash_dq.wide_launches += 1
     elif B * H and T:
@@ -160,7 +169,7 @@ def flash_dkv(q, k, v, do, lse, delta):
         return flash_dkv_plain(q, k, v, do, lse, delta)
     B, H, T, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if B * H and T and D > MAX_TC_HEAD_DIM:
+    if B * H and T and takes_wide_kernels(D):
         _launch("flash_bwd_dkv_wide", q, k, v, do, lse, delta, dk, dv, B * H, T, D)
         flash_dkv.wide_launches += 1
     elif B * H and T:

@@ -55,7 +55,8 @@ def test_forward_plain_matches_pallas(B, H, T, D):
     assert (A.flash_forward.launches, A.flash_forward.wide_launches) == before
 
 
-@pytest.mark.parametrize("B,H,T,D", [(2, 2, 96, 32), (1, 2, 200, 32), (1, 1, 130, 160)])
+@pytest.mark.parametrize("B,H,T,D", [(2, 2, 96, 32), (1, 2, 200, 32), (1, 1, 130, 160),
+                                     (1, 1, 70, 256)])
 def test_backward_plain_matches_pallas_vjp(B, H, T, D):
     q, k, v, g = _inputs((B, H, T, D), 4, seed=D + T)
     with jax.enable_x64(False):
@@ -119,6 +120,14 @@ def test_auto_rule(shape, device, flash):
     assert A.auto_takes_flash(shape, device) is flash
 
 
+# which kernels a head dim takes on the card: whole rows to 128, the wide
+# kernels past it
+@pytest.mark.parametrize("D,wide", [(1, False), (64, False), (128, False), (129, True),
+                                    (256, True), (512, True)])
+def test_takes_wide_kernels(D, wide):
+    assert A.takes_wide_kernels(D) is wide
+
+
 def test_second_derivative_raises_for_flash_only():
     q, k, v = [x.requires_grad_() for x in _t(*_inputs((1, 2, 24, 8), 3, seed=4))]
     (g,) = torch.autograd.grad((A.attention_dense(q, k, v) ** 2).sum(), q,
@@ -179,17 +188,48 @@ def _k3_products(q, k, v, do, mm):
             mm(p.transpose(-1, -2), do))
 
 
+def _mm_chunks(a, b, chunk, mm):
+    """a @ b with the contraction (a's last axis) taken ``chunk`` values at
+    a time, each chunk's product through ``mm`` into a fresh sum, the
+    chunks' sums added in float32: how the wide K3b and K3c sum over D (32
+    columns a step) and over the streamed rows (64 a tile)."""
+    out = mm(a[..., :chunk], b[..., :chunk, :])
+    for c in range(chunk, a.shape[-1], chunk):
+        out = out + mm(a[..., c:c + chunk], b[..., c:c + chunk, :])
+    return out
+
+
+def _wide_products(q, k, v, do, mm):
+    """The wide kernels' arithmetic past head dim 128: K3a in float32 on the
+    CUDA cores (the plain version), K3b and K3c with s and dp summed over D
+    in chunks of 32 and dq, dk, dv over the streamed rows in tiles of 64,
+    each piece's product through ``mm``. Returns (o, lse, dq, dk, dv)."""
+    scale = q.shape[-1] ** -0.5
+    o, lse = A.flash_forward_plain(q, k, v)
+    delta = (do * o).sum(-1)
+    s = _mm_chunks(q, k.transpose(-1, -2), 32, mm) * scale
+    p = torch.exp(s - lse[..., None])
+    ds = p * (_mm_chunks(do, v.transpose(-1, -2), 32, mm) - delta[..., None]) * scale
+    return (o, lse, _mm_chunks(ds, k, 64, mm),
+            _mm_chunks(ds.transpose(-1, -2), q, 64, mm),
+            _mm_chunks(p.transpose(-1, -2), do, 64, mm))
+
+
 # the card's tolerances (chip_smoke.py: ATTN_FWD_TOL, ATTN_BWD_RTOL)
 CARD_FWD_TOL, CARD_BWD_RTOL = 1e-5, 1e-4
 
 
-@pytest.mark.parametrize("B,H,T,D", [(2, 4, 96, 64), (1, 3, 200, 48)])
+# head dims to 128 (flash_attn_tc.cu), then 160 and 256, past it (the wide
+# kernels, their sums over D chunk by chunk)
+@pytest.mark.parametrize("B,H,T,D", [(2, 4, 96, 64), (1, 3, 200, 48), (1, 2, 40, 160),
+                                     (1, 1, 24, 256)])
 def test_split_tf32_meets_the_card_tolerances(B, H, T, D):
     """The products K3a, K3b and K3c run on the tensor cores, emulated here
     (TF32 rounding on the bits, float32 sums), hold the card's tolerances
     against the Pallas kernels in interpret mode: 1e-5 on o and lse, 1e-4 of
     the largest magnitude on dq, dk and dv. One-pass TF32 misses both: that
-    is why every product is split."""
+    is why every product is split. Past head dim 128 only K3b and K3c run
+    on the tensor cores, and the emulation sums as they do."""
     q, k, v, g = _inputs((B, H, T, D), 4, seed=7 * T + D)
     with jax.enable_x64(False):
         o_pad, lse_pad, _ = _fa_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True)
@@ -198,9 +238,11 @@ def test_split_tf32_meets_the_card_tolerances(B, H, T, D):
         grads_want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
     o_want = np.asarray(o_pad)[:, :T].reshape(B, H, T, D)
     lse_want = np.asarray(lse_pad)[:, :T, 0].reshape(B, H, T)
+    wide = A.takes_wide_kernels(D)
 
     def errors(mm):
-        o, lse, *grads = _k3_products(*_t(q, k, v, g), mm)
+        products = _wide_products if wide else _k3_products
+        o, lse, *grads = products(*_t(q, k, v, g), mm)
         return (max(np.abs(o.numpy() - o_want).max(), np.abs(lse.numpy() - lse_want).max()),
                 max(np.abs(a.numpy() - w).max() / np.abs(w).max()
                     for a, w in zip(grads, grads_want)))
@@ -208,4 +250,5 @@ def test_split_tf32_meets_the_card_tolerances(B, H, T, D):
     fwd, bwd = errors(_mm_split)
     assert fwd <= CARD_FWD_TOL and bwd <= CARD_BWD_RTOL, (fwd, bwd)
     fwd, bwd = errors(_mm_tf32)
-    assert fwd > CARD_FWD_TOL and bwd > CARD_BWD_RTOL, (fwd, bwd)
+    assert bwd > CARD_BWD_RTOL, bwd
+    assert wide or fwd > CARD_FWD_TOL, fwd
