@@ -118,6 +118,39 @@ static_assert(2 * kSwap <= kSplit, "p and dp do not fit the split area");
 
 constexpr float kLog2e = 1.4426950408889634f;
 
+// ---- the K3c cluster: two blocks, one key tile, two column groups -------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of both blocks arrives; shared memory written before it is
+// visible to the other block after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The float at p's offset in the shared memory of cluster block `rank`.
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// Column groups a block's output columns fall into: K3b's blocks each
+// cover 256, K3c's 128, their count rounded up to the cluster of two (a
+// block past D computes its half of the contraction and writes nothing).
+template <bool kDkv>
+__host__ __device__ __forceinline__ int block_groups(int D) {
+  return kDkv ? 2 * ((D + 2 * kGW - 1) / (2 * kGW)) : (D + 2 * kGW - 1) / (2 * kGW);
+}
+
 // The block's own rows are read from a0 (warpgroup 0's A: q in K3b, k in
 // K3c) and a1 (do, v); the streamed rows from b0 (warpgroup 0's B: k, q)
 // and b1 (v, do) for the contractions, and from c0 and c1 (warpgroup 0's
@@ -143,14 +176,19 @@ __device__ __forceinline__ void wide_bwd(
   const int wg = threadIdx.x / kWG, tid = threadIdx.x % kWG;
   const int warp = tid / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   const int tiles = (T + kRows - 1) / kRows;
-  const int groups = (D + kSpan - 1) / kSpan;
-  const int r0 = blockIdx.x % tiles * kRows;
-  const int grp = blockIdx.x / tiles % groups;
-  const size_t bh = blockIdx.x / tiles / groups;
+  const int groups = block_groups<kDkv>(D);
+  const int grp = blockIdx.x % groups;
+  const int r0 = blockIdx.x / groups % tiles * kRows;
+  const size_t bh = blockIdx.x / groups / tiles;
   const size_t base = bh * T * D, rbase = bh * T;
   const int col0 = grp * kSpan + (kDkv ? 0 : wg * kGW);   // this warpgroup's columns
-  const int nd = (D + kDC - 1) / kDC;                     // contraction steps a tile
-  const int per = nd + kAccSteps;
+  // K3c: the cluster's two blocks share the contraction, rank 0 the first
+  // half of the chunks, rank 1 the rest; K3b: a block takes them all
+  const int nd = (D + kDC - 1) / kDC;
+  const uint32_t rank = kDkv ? cluster_rank() : 0;
+  const int c_first = rank ? (nd + 1) / 2 : 0;
+  const int n_dot = kDkv ? (rank ? nd - c_first : (nd + 1) / 2) : nd;  // steps a tile
+  const int per = n_dot + kAccSteps;
   const int total = (T + kBN - 1) / kBN * per;
   const float scale2 = scale * kLog2e;
 
@@ -158,13 +196,14 @@ __device__ __forceinline__ void wide_bwd(
   auto issue = [&](int s) {
     float* dst = raw + (s & 1) * kStage;
     const int j0 = s / per * kBN, i = s % per;
-    if (i < nd) {
-      load_cols<kRows, kDC, kThreads>(dst, a0 + base, r0, i * kDC, T, D, vec);
-      load_cols<kRows, kDC, kThreads>(dst + kDotRaw, a1 + base, r0, i * kDC, T, D, vec);
-      load_cols<kBN, kDC, kThreads>(dst + 2 * kDotRaw, b0 + base, j0, i * kDC, T, D, vec);
-      load_cols<kBN, kDC, kThreads>(dst + 3 * kDotRaw, b1 + base, j0, i * kDC, T, D, vec);
+    if (i < n_dot) {
+      const int c = (c_first + i) * kDC;
+      load_cols<kRows, kDC, kThreads>(dst, a0 + base, r0, c, T, D, vec);
+      load_cols<kRows, kDC, kThreads>(dst + kDotRaw, a1 + base, r0, c, T, D, vec);
+      load_cols<kBN, kDC, kThreads>(dst + 2 * kDotRaw, b0 + base, j0, c, T, D, vec);
+      load_cols<kBN, kDC, kThreads>(dst + 3 * kDotRaw, b1 + base, j0, c, T, D, vec);
     } else {
-      const int c = grp * kSpan + (i - nd) * kCC;
+      const int c = grp * kSpan + (i - n_dot) * kCC;
       load_cols<kBN, kCC, kThreads>(dst, c0 + base, j0, c, T, D, vec);
       load_cols<kBN, kCC, kThreads>(dst + kAccRaw, c1 + base, j0, c + (kDkv ? 0 : kGW), T,
                                     D, vec);
@@ -200,7 +239,7 @@ __device__ __forceinline__ void wide_bwd(
     // columns the streamed rows j0 + 8 (i / 4) + 2 t4 + i % 2
     float x[kBN / 2];
     zero(x);
-    for (int i = 0; i < nd; ++i, ++step) {
+    for (int i = 0; i < n_dot; ++i, ++step) {
       begin();
       const float* rs = raw + (step & 1) * kStage;
 #pragma unroll
@@ -228,6 +267,15 @@ __device__ __forceinline__ void wide_bwd(
     // then ds = p (dp - delta) scale in both
     __syncthreads();
     float* mine = swap + wg * kSwap;
+    if constexpr (kDkv) {
+      // s^T and dp^T: this block's chunks plus the other block's
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) mine[e * kWG + tid] = x[e];
+      cluster_sync();
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) x[e] += ld_cluster(mine + e * kWG + tid, rank ^ 1);
+      cluster_sync();                           // the other block has read this one's
+    }
     const float* other = swap + (1 - wg) * kSwap;
 #pragma unroll
     for (int e = 0; e < kBN / 2; ++e) {
@@ -302,7 +350,7 @@ flash_dq_wide_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
   wide_bwd<false>(q, d_o, k, v, k, k, lse, delta, dq, dq, T, D, scale, vec);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
 flash_dkv_wide_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ d_o,
                          const float* __restrict__ lse, const float* __restrict__ delta,
@@ -310,11 +358,12 @@ flash_dkv_wide_tc_kernel(const float* __restrict__ q, const float* __restrict__ 
   wide_bwd<true>(k, v, q, d_o, d_o, q, lse, delta, dv, dk, T, D, scale, vec);
 }
 
-// Blocks of the one grid dimension, own tiles x column groups of `span`
-// x b h; -1 for dimensions it does not take.
-int blocks(int BH, int T, int D, int span) {
+// Blocks of the one grid dimension, column groups x own tiles x b h; -1
+// for dimensions it does not take.
+template <bool kDkv>
+int blocks(int BH, int T, int D) {
   if (BH < 0 || T < 0 || D < 1) return -1;
-  const long long n = (long long)BH * ((T + kRows - 1) / kRows) * ((D + span - 1) / span);
+  const long long n = (long long)BH * ((T + kRows - 1) / kRows) * block_groups<kDkv>(D);
   return n > INT_MAX ? -1 : static_cast<int>(n);
 }
 
@@ -334,7 +383,7 @@ int launch_wide(Kernel kernel, int n, const float* q, const float* k, const floa
 extern "C" int flash_bwd_dq_wide(const float* q, const float* k, const float* v,
                                  const float* d_o, const float* lse, const float* delta,
                                  float* dq, int BH, int T, int D, cudaStream_t stream) {
-  return launch_wide(flash_dq_wide_tc_kernel, blocks(BH, T, D, 2 * kGW), q, k, v, d_o, D,
+  return launch_wide(flash_dq_wide_tc_kernel, blocks<false>(BH, T, D), q, k, v, d_o, D,
                      stream, lse, delta, dq, T);
 }
 
@@ -342,6 +391,6 @@ extern "C" int flash_bwd_dkv_wide(const float* q, const float* k, const float* v
                                   const float* d_o, const float* lse, const float* delta,
                                   float* dk, float* dv, int BH, int T, int D,
                                   cudaStream_t stream) {
-  return launch_wide(flash_dkv_wide_tc_kernel, blocks(BH, T, D, kGW), q, k, v, d_o, D,
+  return launch_wide(flash_dkv_wide_tc_kernel, blocks<true>(BH, T, D), q, k, v, d_o, D,
                      stream, lse, delta, dk, dv, T);
 }
