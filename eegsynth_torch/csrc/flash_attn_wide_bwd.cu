@@ -104,17 +104,17 @@ constexpr int kCC = 64;                         // output columns per accumulati
 constexpr int kAccSteps = kGW / kCC;
 constexpr int kDotRaw = kRows * (kDC + 4);      // floats of one raw chunk tile
 constexpr int kAccRaw = kBN * (kCC + 4);        // of one raw column slice
-constexpr int kStage = 4 * kDotRaw;             // one raw stage: 4 chunk tiles
+constexpr int kStage = 2 * kDotRaw;             // a warpgroup's raw stage: 2 chunk tiles
 constexpr int kDotTile = kRows * kDC;           // one hi or lo row tile of a chunk
 constexpr int kAccTile = kCC * kBN;             // one hi or lo col tile
-constexpr int kSplit = 8 * kDotTile;            // the split tiles of a step
+constexpr int kSplit = 4 * kDotTile;            // a warpgroup's split tiles of a step
 constexpr int kSwap = kBN / 2 * kWG;            // one warpgroup's p or dp
 constexpr int kOut = kGW / 2 * kWG;             // one warpgroup's output sums
-constexpr size_t kSmem = sizeof(float) * (2 * kStage + kSplit + 2 * kOut);
+constexpr size_t kSmem = sizeof(float) * 2 * (2 * kStage + kSplit + kOut);
 static_assert(kBN == kRows, "the streamed tile is the own tile's height");
-static_assert(2 * kAccRaw <= kStage, "two column slices do not fit a stage");
-static_assert(4 * kAccTile <= kSplit, "four col tiles do not fit the split area");
-static_assert(2 * kSwap <= kSplit, "p and dp do not fit the split area");
+static_assert(kAccRaw <= kStage, "a column slice does not fit a stage");
+static_assert(2 * kAccTile <= kSplit, "two col tiles do not fit the split area");
+static_assert(kSwap <= kSplit, "p or dp does not fit the split area");
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -165,16 +165,20 @@ __device__ __forceinline__ void wide_bwd(
     const float* __restrict__ lse, const float* __restrict__ delta, float* out0,
     float* out1, int T, int D, float scale, bool vec) {
   constexpr int kSpan = kDkv ? kGW : 2 * kGW;   // output columns of a block
-  extern __shared__ __align__(128) float smem[];
-  float* raw = smem;                            // [stage][kStage]
-  float* sp = raw + 2 * kStage;                 // the step's hi/lo tiles
-  float* swap = sp;                             // [warpgroup][kSwap]: p, dp
-  // the warpgroup's output sums, [element][thread]: each thread owns its
-  // fragment's 64 values, so they take no registers between tiles
-  float* acc = sp + kSplit + threadIdx.x / kWG * kOut;
-
   const int wg = threadIdx.x / kWG, tid = threadIdx.x % kWG;
   const int warp = tid / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  // Each warpgroup copies, splits and multiplies its own tiles between
+  // barriers of its own (named barrier 1 + wg), so the two run apart
+  // between swaps: one splits while the other's products run.
+  extern __shared__ __align__(128) float smem[];
+  float* raw = smem + wg * 2 * kStage;          // this warpgroup's [stage][kStage]
+  float* sp = smem + 4 * kStage;                // [warpgroup][kSplit]: a step's hi/lo tiles
+  float* mine = sp + wg * kSplit;               // this warpgroup's, and its p or dp
+  const float* other = sp + (1 - wg) * kSplit;
+  // the warpgroup's output sums, [element][thread]: each thread owns its
+  // fragment's 64 values, so they take no registers between tiles
+  float* acc = sp + 2 * kSplit + wg * kOut;
+
   const int tiles = (T + kRows - 1) / kRows;
   const int groups = block_groups<kDkv>(D);
   const int grp = blockIdx.x % groups;
@@ -191,22 +195,20 @@ __device__ __forceinline__ void wide_bwd(
   const int per = n_dot + kAccSteps;
   const int total = (T + kBN - 1) / kBN * per;
   const float scale2 = scale * kLog2e;
+  const float* own = (wg == 0 ? a0 : a1) + base;
+  const float* strm = (wg == 0 ? b0 : b1) + base;
+  const float* slices = (wg == 0 ? c0 : c1) + base;
 
-  // step s's raw tiles into stage s % 2 (committed by the caller)
+  // step s's raw tiles of this warpgroup into its stage s % 2
   auto issue = [&](int s) {
     float* dst = raw + (s & 1) * kStage;
     const int j0 = s / per * kBN, i = s % per;
     if (i < n_dot) {
       const int c = (c_first + i) * kDC;
-      load_cols<kRows, kDC, kThreads>(dst, a0 + base, r0, c, T, D, vec);
-      load_cols<kRows, kDC, kThreads>(dst + kDotRaw, a1 + base, r0, c, T, D, vec);
-      load_cols<kBN, kDC, kThreads>(dst + 2 * kDotRaw, b0 + base, j0, c, T, D, vec);
-      load_cols<kBN, kDC, kThreads>(dst + 3 * kDotRaw, b1 + base, j0, c, T, D, vec);
+      load_cols<kRows, kDC, kWG>(dst, own, r0, c, T, D, vec, tid);
+      load_cols<kBN, kDC, kWG>(dst + kDotRaw, strm, j0, c, T, D, vec, tid);
     } else {
-      const int c = grp * kSpan + (i - n_dot) * kCC;
-      load_cols<kBN, kCC, kThreads>(dst, c0 + base, j0, c, T, D, vec);
-      load_cols<kBN, kCC, kThreads>(dst + kAccRaw, c1 + base, j0, c + (kDkv ? 0 : kGW), T,
-                                    D, vec);
+      load_cols<kBN, kCC, kWG>(dst, slices, j0, col0 + (i - n_dot) * kCC, T, D, vec, tid);
     }
   };
   // start the next step's copies, wait for this step's
@@ -215,7 +217,7 @@ __device__ __forceinline__ void wide_bwd(
     if (step + 1 < total) issue(step + 1);
     cp_async_commit();
     cp_async_wait<1>();
-    __syncthreads();   // this step's tiles are in; the last step's products are done
+    bar_sync(kWG, 1 + wg);   // this step's tiles are in; the last step's products are done
   };
 
   // K3b: lse (base 2) and delta of rows g and g + 8 of the warp's 16 own
@@ -242,19 +244,16 @@ __device__ __forceinline__ void wide_bwd(
     for (int i = 0; i < n_dot; ++i, ++step) {
       begin();
       const float* rs = raw + (step & 1) * kStage;
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        split_rows<kRows, kDC, kThreads>(rs + t * kDotRaw, sp + 2 * t * kDotTile,
-                                         sp + (2 * t + 1) * kDotTile);
+      split_rows<kRows, kDC, kWG>(rs, mine, mine + kDotTile, tid);
+      split_rows<kBN, kDC, kWG>(rs + kDotRaw, mine + 2 * kDotTile, mine + 3 * kDotTile, tid);
       fence_proxy_async();
-      __syncthreads();
-      const float* a = sp + 2 * wg * kDotTile;
-      const float* b = sp + (4 + 2 * wg) * kDotTile;
+      bar_sync(kWG, 1 + wg);
       float part[kBN / 2];
       zero(part);
       fence_regs(part);
       wgmma_fence();
-      mma_ss<kBN, kRows, kBN, kDC / 8>(part, a, a + kDotTile, b, b + kDotTile);
+      mma_ss<kBN, kRows, kBN, kDC / 8>(part, mine, mine + kDotTile, mine + 2 * kDotTile,
+                                       mine + 3 * kDotTile);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(part);
@@ -263,10 +262,9 @@ __device__ __forceinline__ void wide_bwd(
     }
 
     // p (warpgroup 0; 0 for streamed rows at or beyond T) and dp swapped
-    // through the split area, once every warpgroup's products are done;
+    // through the split areas, once both warpgroups' products are done;
     // then ds = p (dp - delta) scale in both
     __syncthreads();
-    float* mine = swap + wg * kSwap;
     if constexpr (kDkv) {
       // s^T and dp^T: this block's chunks plus the other block's
 #pragma unroll
@@ -276,7 +274,6 @@ __device__ __forceinline__ void wide_bwd(
       for (int e = 0; e < kBN / 2; ++e) x[e] += ld_cluster(mine + e * kWG + tid, rank ^ 1);
       cluster_sync();                           // the other block has read this one's
     }
-    const float* other = swap + (1 - wg) * kSwap;
 #pragma unroll
     for (int e = 0; e < kBN / 2; ++e) {
       const int col = j0 + 8 * (e / 4) + 2 * t4 + (e & 1);
@@ -296,6 +293,7 @@ __device__ __forceinline__ void wide_bwd(
       const float ds = p * (dp - d) * scale;
       x[e] = kDkv && wg == 0 ? p : ds;
     }
+    __syncthreads();                            // the other warpgroup has read this one's
 
     // this tile's ds k (K3b), p^T do or ds^T q (K3c) for the warpgroup's
     // columns, 64 at a time, each into a fresh accumulator
@@ -304,19 +302,16 @@ __device__ __forceinline__ void wide_bwd(
 #pragma unroll
     for (int a = 0; a < kAccSteps; ++a, ++step) {
       begin();
-      const float* rs = raw + (step & 1) * kStage;
-      split_cols<kBN, kCC, kThreads>(rs, sp, sp + kAccTile);
-      split_cols<kBN, kCC, kThreads>(rs + kAccRaw, sp + 2 * kAccTile, sp + 3 * kAccTile);
+      split_cols<kBN, kCC, kWG>(raw + (step & 1) * kStage, mine, mine + kAccTile, tid);
       fence_proxy_async();
-      __syncthreads();
-      const float* c = sp + 2 * wg * kAccTile;
+      bar_sync(kWG, 1 + wg);
       float part[kCC / 2];
       zero(part);
       fence_regs(part);
       fence_regs(fh);
       fence_regs(fl);
       wgmma_fence();
-      mma_rs<kCC, kBN / 8>(part, fh, fl, c, c + kAccTile);
+      mma_rs<kCC, kBN / 8>(part, fh, fl, mine, mine + kAccTile);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(part);

@@ -71,14 +71,14 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// Named barrier 1 between K3c's two warpgroups: the producer arrives, the
-// consumer waits.
-__device__ __forceinline__ void bar_arrive(int threads) {
-  asm volatile("bar.arrive 1, %0;\n" :: "r"(threads) : "memory");
+// Named barrier `id` (1 by default: between K3c's two warpgroups, the
+// producer arrives, the consumer waits); 0 is __syncthreads'.
+__device__ __forceinline__ void bar_arrive(int threads, int id = 1) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
-__device__ __forceinline__ void bar_sync(int threads) {
-  asm volatile("bar.sync 1, %0;\n" :: "r"(threads) : "memory");
+__device__ __forceinline__ void bar_sync(int threads, int id = 1) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // Shared memory written by ordinary stores, read next by wgmma (the async
@@ -256,21 +256,21 @@ __device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) 
 // Start the copies of rows [r0, r0 + R) x columns [c0, c0 + W) of a (T, D)
 // matrix into a raw row-major R x W tile of pitch W + 4; rows >= T and
 // columns >= D are zero-filled. `vec`: D % 4 == 0, c0 % 4 == 0 and the
-// matrix is 16-byte aligned.
+// matrix is 16-byte aligned. NT threads share the copies; this is thread t.
 template <int R, int W, int NT>
 __device__ __forceinline__ void load_cols(float* dst, const float* src, int r0, int c0,
-                                          int T, int D, bool vec) {
+                                          int T, int D, bool vec, int t) {
   constexpr int P = W + 4;
   if (vec) {
     constexpr int NC = W / 4;
-    for (int i = threadIdx.x; i < R * NC; i += NT) {
+    for (int i = t; i < R * NC; i += NT) {
       const int r = i / NC, c = c0 + 4 * (i % NC);
       const bool in = r0 + r < T && c < D;
       cp_async16(dst + r * P + c - c0, in ? src + (size_t)(r0 + r) * D + c : src,
                  in ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < R * W; i += NT) {
+    for (int i = t; i < R * W; i += NT) {
       const int r = i / W, c = c0 + i % W;
       const bool in = r0 + r < T && c < D;
       cp_async4(dst + r * P + c - c0, in ? src + (size_t)(r0 + r) * D + c : src,
@@ -283,7 +283,7 @@ __device__ __forceinline__ void load_cols(float* dst, const float* src, int r0, 
 template <int R, int DP, int NT>
 __device__ __forceinline__ void load_raw(float* dst, const float* src, int r0,
                                          int T, int D, bool vec) {
-  load_cols<R, DP, NT>(dst, src, r0, 0, T, D, vec);
+  load_cols<R, DP, NT>(dst, src, r0, 0, T, D, vec, threadIdx.x);
 }
 
 // A vector of rows [r0, r0 + R) (lse or delta), zero-filled at or beyond T.
@@ -297,11 +297,13 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src, int r0, i
 
 // Raw R x DP tile -> hi/lo row tiles. Eight neighbouring threads take eight
 // rows of one 4-value chunk: conflict-free loads (pitch DP + 4) and one
-// contiguous 128-byte store each.
+// contiguous 128-byte store each. NT threads share the work; this is thread
+// t (by default the block's threads).
 template <int R, int DP, int NT>
-__device__ __forceinline__ void split_rows(const float* raw, float* hi, float* lo) {
+__device__ __forceinline__ void split_rows(const float* raw, float* hi, float* lo,
+                                           int t = -1) {
   constexpr int NC = DP / 4;
-  for (int i = threadIdx.x; i < R * NC; i += NT) {
+  for (int i = t < 0 ? threadIdx.x : t; i < R * NC; i += NT) {
     const int r = (i & 7) | ((i / (8 * NC)) << 3);
     const int c = (i >> 3) % NC;
     float4 h, l;
@@ -315,9 +317,10 @@ __device__ __forceinline__ void split_rows(const float* raw, float* hi, float* l
 // groups of 8). A thread gathers rows 8a + par + {0, 2, 4, 6} of column d,
 // which are slots 4 par + {0, 1, 2, 3}: one 16-byte store each of hi and lo.
 template <int R, int DP, int NT>
-__device__ __forceinline__ void split_cols(const float* raw, float* hi, float* lo) {
+__device__ __forceinline__ void split_cols(const float* raw, float* hi, float* lo,
+                                           int t = -1) {
   constexpr int P = DP + 4;
-  for (int i = threadIdx.x; i < R / 4 * DP; i += NT) {
+  for (int i = t < 0 ? threadIdx.x : t; i < R / 4 * DP; i += NT) {
     const int d = i % DP, par = (i / DP) & 1, a = i / (2 * DP);
     const float* col = raw + (8 * a + par) * P + d;
     const float4 x = make_float4(col[0], col[2 * P], col[4 * P], col[6 * P]);
