@@ -244,19 +244,31 @@ __device__ __forceinline__ void wide_bwd(
     for (int i = 0; i < n_dot; ++i, ++step) {
       begin();
       const float* rs = raw + (step & 1) * kStage;
-      split_rows<kRows, kDC, kWG>(rs, mine, mine + kDotTile, tid);
-      split_rows<kBN, kDC, kWG>(rs + kDotRaw, mine + 2 * kDotTile, mine + 3 * kDotTile, tid);
+      // the own rows' chunk straight from the raw tile into the thread's A
+      // fragments (rows g, g + 8 of the warp's 16; columns 8 kk + t4,
+      // 8 kk + t4 + 4), split in registers; the streamed rows' as row tiles
+      uint32_t ah[kDC / 8][4], al[kDC / 8][4];
+      const float* ar = rs + (16 * warp + g) * (kDC + 4) + t4;
+#pragma unroll
+      for (int kk = 0; kk < kDC / 8; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split(ar[(8 * (j & 1)) * (kDC + 4) + 8 * kk + 4 * (j >> 1)], ah[kk][j], al[kk][j]);
+      split_rows<kBN, kDC, kWG>(rs + kDotRaw, mine, mine + kDotTile, tid);
       fence_proxy_async();
       bar_sync(kWG, 1 + wg);
       float part[kBN / 2];
       zero(part);
       fence_regs(part);
+      fence_regs(ah);
+      fence_regs(al);
       wgmma_fence();
-      mma_ss<kBN, kRows, kBN, kDC / 8>(part, mine, mine + kDotTile, mine + 2 * kDotTile,
-                                       mine + 3 * kDotTile);
+      mma_rs<kBN, kDC / 8>(part, ah, al, mine, mine + kDotTile);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(part);
+      fence_regs(ah);
+      fence_regs(al);
 #pragma unroll
       for (int e = 0; e < kBN / 2; ++e) x[e] += part[e];
     }
