@@ -115,6 +115,7 @@ static_assert(kBN == kRows, "the streamed tile is the own tile's height");
 static_assert(kAccRaw <= kStage, "a column slice does not fit a stage");
 static_assert(2 * kAccTile <= kSplit, "two col tiles do not fit the split area");
 static_assert(kSwap <= kSplit, "p or dp does not fit the split area");
+static_assert(kSwap <= kStage, "K3c's partial sums do not fit a raw stage");
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -126,11 +127,15 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
-// Every thread of both blocks arrives; shared memory written before it is
-// visible to the other block after it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+// The cluster barrier in two halves: every thread of both blocks arrives
+// (shared memory written before it is visible to the other block after the
+// wait), and waits for all to have arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // The float at p's offset in the shared memory of cluster block `rank`.
@@ -190,8 +195,8 @@ __device__ __forceinline__ void wide_bwd(
   // half of the chunks, rank 1 the rest; K3b: a block takes them all
   const int nd = (D + kDC - 1) / kDC;
   const uint32_t rank = kDkv ? cluster_rank() : 0;
-  const int c_first = rank ? (nd + 1) / 2 : 0;
-  const int n_dot = kDkv ? (rank ? nd - c_first : (nd + 1) / 2) : nd;  // steps a tile
+  const int n_dot = kDkv ? (nd + 1) / 2 : nd;   // steps a tile; past nd, zero chunks
+  const int c_first = rank * n_dot;
   const int per = n_dot + kAccSteps;
   const int total = (T + kBN - 1) / kBN * per;
   const float scale2 = scale * kLog2e;
@@ -214,6 +219,10 @@ __device__ __forceinline__ void wide_bwd(
   // start the next step's copies, wait for this step's
   int step = 0;
   auto begin = [&]() {
+    // K3c: the copies of the second accumulation step go to the stage that
+    // holds this block's partial sums; the other block has read them once
+    // the cluster barrier is complete
+    if (kDkv && step % per == n_dot) cluster_wait();
     if (step + 1 < total) issue(step + 1);
     cp_async_commit();
     cp_async_wait<1>();
@@ -276,15 +285,20 @@ __device__ __forceinline__ void wide_bwd(
     // p (warpgroup 0; 0 for streamed rows at or beyond T) and dp swapped
     // through the split areas, once both warpgroups' products are done;
     // then ds = p (dp - delta) scale in both
-    __syncthreads();
     if constexpr (kDkv) {
-      // s^T and dp^T: this block's chunks plus the other block's
+      // s^T and dp^T: this block's chunks plus the other block's, through
+      // the raw stage of the last contraction step (both blocks run the
+      // same steps); the barrier is also the block's
+      float* partial = raw + ((step - 1) & 1) * kStage;
 #pragma unroll
-      for (int e = 0; e < kBN / 2; ++e) mine[e * kWG + tid] = x[e];
-      cluster_sync();
+      for (int e = 0; e < kBN / 2; ++e) partial[e * kWG + tid] = x[e];
+      cluster_arrive();
+      cluster_wait();
 #pragma unroll
-      for (int e = 0; e < kBN / 2; ++e) x[e] += ld_cluster(mine + e * kWG + tid, rank ^ 1);
-      cluster_sync();                           // the other block has read this one's
+      for (int e = 0; e < kBN / 2; ++e) x[e] += ld_cluster(partial + e * kWG + tid, rank ^ 1);
+      cluster_arrive();                         // read; waited for in begin()
+    } else {
+      __syncthreads();
     }
 #pragma unroll
     for (int e = 0; e < kBN / 2; ++e) {
