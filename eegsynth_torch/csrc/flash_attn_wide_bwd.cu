@@ -32,63 +32,70 @@
 //    covers 256 columns and S and dP are computed once for both: 3 products
 //    per tile pair up to D = 256;
 //  - K3c: warpgroup 0 adds p^T do to dv and warpgroup 1 ds^T q to dk, both
-//    over the block's 128 columns [128 g, 128 g + 128): at D = 256 two
-//    blocks per key tile each recompute S^T and dP^T, 6 products in place
-//    of 4. Sharing them (a 2-block cluster through distributed shared
-//    memory, or four warpgroups) would cost a cross-block barrier per tile,
-//    or registers the block does not have (four warpgroups leave 128 a
-//    thread; a warpgroup's s or dp, its fresh partial and the p or ds
-//    fragments alone take 128).
-// The grid is (own tile, column group, b h) in one dimension, tiles
-// fastest, so B H has no limit of its own; any D >= 1 (the dispatch gives
-// D > 128), ragged D and T included: rows at or beyond T and columns at or
-// beyond D arrive as zeros (cp.async's zero fill), nothing is padded in
-// memory, and columns past D are not written. Each block writes its rows'
-// columns once: no atomics, dq, dk, dv are the same bits on every run.
+//    over the block's 128 columns [128 g, 128 g + 128). The blocks of a key
+//    tile's column groups 2c and 2c + 1 form a cluster of two: each
+//    computes half of the chunks of s^T and dp^T (a zero chunk pads an odd
+//    count), and they add their partial sums through distributed shared
+//    memory, so the pair runs 4 products per tile pair and not 6. The
+//    partial sums go through the raw stage of the last contraction step,
+//    and the barrier that frees it again is split: a block arrives once it
+//    has read the other's sums and waits only before its copies overwrite
+//    that stage. (Four warpgroups in one block would leave 128 registers a
+//    thread, too few for a warpgroup's sums, partial and fragments.)
+// The grid is (column group, own tile, b h) in one dimension, groups
+// fastest (K3c's clusters are neighbouring blocks), so B H has no limit of
+// its own; any D >= 1 (the dispatch gives D > 128), ragged D and T
+// included: rows at or beyond T and columns at or beyond D arrive as zeros
+// (cp.async's zero fill), nothing is padded in memory, and columns past D
+// are not written. Each block writes its rows' columns once: no atomics,
+// dq, dk, dv are the same bits on every run.
 //
 // Steps. Per streamed tile the block runs ceil(D / 32) contraction steps
-// and 2 accumulation steps of 64 output columns. Each step's raw tiles are
-// copied with cp.async one step ahead (two stages), split into hi/lo tiles
-// for both warpgroups, then multiplied:
-//  - contraction step: the own rows' chunk of q and do (K3b) or k and v
-//    (K3c), the streamed rows' chunk of k and v (K3b) or q and do (K3c), as
-//    hi/lo row tiles; each warpgroup's 64 x 64 product of the chunk goes
+// (K3c: half of them) and 2 accumulation steps of 64 output columns. Each
+// warpgroup copies the raw tiles its own products read with cp.async one
+// step ahead (two stages), splits them and multiplies, between named
+// barriers of its own (1 + warpgroup), so the two warpgroups run apart
+// between swaps and one splits while the other's products run:
+//  - contraction step: the own rows' chunk of q or do (K3b), k or v (K3c)
+//    goes from its raw tile straight into the thread's A fragments, split
+//    in registers; the streamed rows' chunk of k or v (K3b), q or do (K3c)
+//    is split into a hi/lo row tile; the 64 x 64 product of the chunk goes
 //    into a fresh accumulator that is added to s (or dp) in float32, so no
 //    tensor-core sum runs over more than 4 k-steps x 3 passes;
-//  - accumulation step: the streamed rows' 64 columns of k (K3b, one slice
-//    for each warpgroup) or of do and q (K3c) as hi/lo col tiles; ds (or p)
-//    from the registers as the A operand (the accumulator's fragment is the
-//    A fragment), into a fresh accumulator added to the warpgroup's output
-//    sums in float32. The sums live in shared memory, each thread's 64 at
-//    its own addresses: held in registers they pushed the kernels to 255
-//    registers with spills.
+//  - accumulation step: the streamed rows' 64 columns of k (K3b) or of do
+//    and q (K3c) as a hi/lo col tile; ds (or p) from the registers as the
+//    A operand (the accumulator's fragment is the A fragment), into a
+//    fresh accumulator added to the warpgroup's output sums in float32.
+//    The sums live in shared memory, each thread's 64 at its own
+//    addresses: held in registers they pushed the kernels to 255 registers
+//    with spills.
 // No wgmma sits in a branch (ptxas serializes them there): each warpgroup
 // picks its tiles by offset, and the roles differ only in data.
 //
-// Memory. No scratch. Dynamic shared memory 204,800 bytes: two raw stages
-// of 4 x 64 x 36 floats, the split tiles of one step (8 x 64 x 32 floats;
-// p and dp are swapped through them), the output sums (2 x 64 x 128
-// floats). At (B, H, T, D) = (64, 2, 768, 256) each block reads 320 KB per
-// streamed tile from L2 (256 KB of chunks, 64 KB of output-column
-// slices), 3.84 MB over its 12 tiles: K3b's 1,536 blocks 5.9 GB, K3c's
-// 3,072 blocks 11.8 GB; q, k, v and do are 101 MB each.
+// Memory. No scratch. Dynamic shared memory 204,800 bytes: for each
+// warpgroup two raw stages of 2 x 64 x 36 floats, the split tiles of one
+// step (4 x 64 x 32 floats; p and dp are swapped through them) and the
+// output sums (64 x 128 floats). At (B, H, T, D) = (64, 2, 768, 256) a
+// K3b block reads 320 KB per streamed tile from L2 (256 KB of chunks,
+// 64 KB of output-column slices), 3.84 MB over its 12 tiles, 5.9 GB over
+// its 1,536 blocks; a K3c block 192 KB per tile, 7.1 GB over 3,072 blocks;
+// q, k, v and do are 101 MB each.
 //
 // What bounds them: the split triples the tensor-core work, so the ceiling
 // at (64, 2, 768, 256) is 3 x the products x 0.0781 ms (one product,
 // 2 B H T^2 D FLOPs, at 495 TFLOP/s TF32 dense, H100 SXM at 700 W): 0.703 ms
-// for K3b (3 products), 1.41 ms for K3c (6). Below that, as in
-// flash_attn_tc.cu, each step waits for its copies, splits and multiplies
-// in turn, between two block barriers, with one block (8 warps) on each SM
-// to hide the latencies; the own rows' chunks are copied and split again
-// for every streamed tile; and the L2 reads above are of the order of the
-// products' time. On an H100 the copies, the splits and the products each
-// take a large share of a step and no one of them dominates (PERF.md).
-// Deeper copy pipelines (three and four stages) and narrower accumulation
-// steps (32 columns) were slower; so was taking the own rows' operand from
-// registers with the next step's split overlapping the products.
+// for K3b (3 products), 0.937 ms for K3c (4). Below that, each warpgroup
+// waits for its copies, splits and multiplies in turn, with two
+// warpgroups (8 warps) on an SM to hide the latencies; the own rows'
+// chunks are copied again for every streamed tile; and the L2 reads above
+// are of the order of the products' time. Tried on an H100 and slower:
+// deeper copy pipelines (three and four stages), narrower accumulation
+// steps (32 columns), fetching the tiles through registers into double
+// buffers, and the transposed accumulation product (the column slice as
+// the register operand, ds as the shared one) was no faster (PERF.md).
 //
-// ptxas (-Xptxas=-v, on the H100 build): 227 registers a thread for K3b,
-// 225 for K3c; no spills.
+// ptxas (-Xptxas=-v, on the H100 build): 209 registers a thread for K3b
+// and for K3c; no spills.
 // The kernels allocate nothing and do not synchronise: the caller owns the
 // outputs and the stream.
 

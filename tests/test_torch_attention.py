@@ -199,20 +199,36 @@ def _mm_chunks(a, b, chunk, mm):
     return out
 
 
+def _mm_halves(a, b, mm):
+    """a @ b over D as the wide K3c sums it: the two blocks of a cluster
+    each take half of the 32-column chunks (``_mm_chunks``), and their
+    partial sums are added."""
+    half = 32 * ((-(-a.shape[-1] // 32) + 1) // 2)
+    out = _mm_chunks(a[..., :half], b[..., :half, :], 32, mm)
+    if half < a.shape[-1]:
+        out = out + _mm_chunks(a[..., half:], b[..., half:, :], 32, mm)
+    return out
+
+
 def _wide_products(q, k, v, do, mm):
     """The wide kernels' arithmetic past head dim 128: K3a in float32 on the
-    CUDA cores (the plain version), K3b and K3c with s and dp summed over D
-    in chunks of 32 and dq, dk, dv over the streamed rows in tiles of 64,
-    each piece's product through ``mm``. Returns (o, lse, dq, dk, dv)."""
+    CUDA cores (the plain version); K3b with s and dp summed over D in
+    chunks of 32, K3c in two halves of such chunks; dq, dk, dv summed over
+    the streamed rows in tiles of 64; each piece's product through ``mm``.
+    Returns (o, lse, dq, dk, dv)."""
     scale = q.shape[-1] ** -0.5
     o, lse = A.flash_forward_plain(q, k, v)
     delta = (do * o).sum(-1)
-    s = _mm_chunks(q, k.transpose(-1, -2), 32, mm) * scale
-    p = torch.exp(s - lse[..., None])
-    ds = p * (_mm_chunks(do, v.transpose(-1, -2), 32, mm) - delta[..., None]) * scale
+
+    def probs(over_d):
+        p = torch.exp(over_d(q, k.transpose(-1, -2)) * scale - lse[..., None])
+        return p, p * (over_d(do, v.transpose(-1, -2)) - delta[..., None]) * scale
+
+    _, ds = probs(lambda a, b: _mm_chunks(a, b, 32, mm))
+    p_c, ds_c = probs(lambda a, b: _mm_halves(a, b, mm))
     return (o, lse, _mm_chunks(ds, k, 64, mm),
-            _mm_chunks(ds.transpose(-1, -2), q, 64, mm),
-            _mm_chunks(p.transpose(-1, -2), do, 64, mm))
+            _mm_chunks(ds_c.transpose(-1, -2), q, 64, mm),
+            _mm_chunks(p_c.transpose(-1, -2), do, 64, mm))
 
 
 # the card's tolerances (chip_smoke.py: ATTN_FWD_TOL, ATTN_BWD_RTOL)
@@ -220,7 +236,8 @@ CARD_FWD_TOL, CARD_BWD_RTOL = 1e-5, 1e-4
 
 
 # head dims to 128 (flash_attn_tc.cu), then 160 and 256, past it (the wide
-# kernels, their sums over D chunk by chunk)
+# kernels, their sums over D chunk by chunk; 160 gives K3c's halves 3 and 2
+# chunks)
 @pytest.mark.parametrize("B,H,T,D", [(2, 4, 96, 64), (1, 3, 200, 48), (1, 2, 40, 160),
                                      (1, 1, 24, 256)])
 def test_split_tf32_meets_the_card_tolerances(B, H, T, D):
