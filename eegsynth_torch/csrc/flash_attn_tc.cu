@@ -164,7 +164,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  split_rows<BM, DP, NT>(kh, qh, ql);
+  split_rows<BM, DP, NT>(kh, qh, ql, threadIdx.x);
   // this warpgroup's 64 rows of the BM-row q tile: 4 floats a row
   const float* wqh = qh + 4 * kRows * wg;
   const float* wql = ql + 4 * kRows * wg;
@@ -183,8 +183,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();       // tile j has landed; the last tile's products are done
-    split_rows<BN, DP, NT>(rk, kh, kl);
-    split_cols<BN, DP, NT>(rk + F::kRaw, vh, vl);
+    split_rows<BN, DP, NT>(rk, kh, kl, threadIdx.x);
+    split_cols<BN, DP, NT>(rk + F::kRaw, vh, vl, threadIdx.x);
     fence_proxy_async();
     __syncthreads();
 
@@ -302,8 +302,8 @@ flash_dkv_split_kernel(const float* __restrict__ q, const float* __restrict__ d_
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  split_rows<BM, DP, kWG>(raw, dst, dst + kQ);
-  split_cols<BM, DP, kWG>(raw, dst + 2 * kQ, dst + 3 * kQ);
+  split_rows<BM, DP, kWG>(raw, dst, dst + kQ, threadIdx.x);
+  split_cols<BM, DP, kWG>(raw, dst + 2 * kQ, dst + 3 * kQ, threadIdx.x);
 }
 
 template <int DP>
@@ -338,8 +338,8 @@ flash_dkv_kernel(const float* __restrict__ k, const float* __restrict__ v,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  split_rows<kRows, DP, NT>(tiles, kh, kl);
-  split_rows<kRows, DP, NT>(tiles + kRows * (DP + 4), vh, vl);
+  split_rows<kRows, DP, NT>(tiles, kh, kl, threadIdx.x);
+  split_rows<kRows, DP, NT>(tiles + kRows * (DP + 4), vh, vl, threadIdx.x);
   __syncthreads();
 
   // query tile jj of q and of do (4 kQ floats each, contiguous in the
@@ -506,8 +506,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  split_rows<BM, DP, NT>(kh, qh, ql);
-  split_rows<BM, DP, NT>(kh + BM * (DP + 4), doh, dol);
+  split_rows<BM, DP, NT>(kh, qh, ql, threadIdx.x);
+  split_rows<BM, DP, NT>(kh + BM * (DP + 4), doh, dol, threadIdx.x);
   __syncthreads();
   load_raw<BN, DP, NT>(raw, k + base, 0, T, D, vec);
   load_raw<BN, DP, NT>(raw + F::kRaw, v + base, 0, T, D, vec);
@@ -541,9 +541,9 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();       // tile j has landed; the last tile's products are done
-    split_rows<BN, DP, NT>(rk, kh, kl);
-    split_rows<BN, DP, NT>(rk + F::kRaw, vh, vl);
-    split_cols<BN, DP, NT>(rk, kch, kcl);
+    split_rows<BN, DP, NT>(rk, kh, kl, threadIdx.x);
+    split_rows<BN, DP, NT>(rk + F::kRaw, vh, vl, threadIdx.x);
+    split_cols<BN, DP, NT>(rk, kch, kcl, threadIdx.x);
     fence_proxy_async();
     __syncthreads();
 

@@ -298,12 +298,11 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src, int r0, i
 // Raw R x DP tile -> hi/lo row tiles. Eight neighbouring threads take eight
 // rows of one 4-value chunk: conflict-free loads (pitch DP + 4) and one
 // contiguous 128-byte store each. NT threads share the work; this is thread
-// t (by default the block's threads).
+// t.
 template <int R, int DP, int NT>
-__device__ __forceinline__ void split_rows(const float* raw, float* hi, float* lo,
-                                           int t = -1) {
+__device__ __forceinline__ void split_rows(const float* raw, float* hi, float* lo, int t) {
   constexpr int NC = DP / 4;
-  for (int i = t < 0 ? threadIdx.x : t; i < R * NC; i += NT) {
+  for (int i = t; i < R * NC; i += NT) {
     const int r = (i & 7) | ((i / (8 * NC)) << 3);
     const int c = (i >> 3) % NC;
     float4 h, l;
@@ -316,11 +315,11 @@ __device__ __forceinline__ void split_rows(const float* raw, float* hi, float* l
 // Raw R x DP tile -> hi/lo col tiles (its transpose, rows slot-permuted in
 // groups of 8). A thread gathers rows 8a + par + {0, 2, 4, 6} of column d,
 // which are slots 4 par + {0, 1, 2, 3}: one 16-byte store each of hi and lo.
+// NT threads share the work; this is thread t.
 template <int R, int DP, int NT>
-__device__ __forceinline__ void split_cols(const float* raw, float* hi, float* lo,
-                                           int t = -1) {
+__device__ __forceinline__ void split_cols(const float* raw, float* hi, float* lo, int t) {
   constexpr int P = DP + 4;
-  for (int i = t < 0 ? threadIdx.x : t; i < R / 4 * DP; i += NT) {
+  for (int i = t; i < R / 4 * DP; i += NT) {
     const int d = i % DP, par = (i / DP) & 1, a = i / (2 * DP);
     const float* col = raw + (8 * a + par) * P + d;
     const float4 x = make_float4(col[0], col[2 * P], col[4 * P], col[6 * P]);
