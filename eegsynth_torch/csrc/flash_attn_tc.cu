@@ -100,9 +100,9 @@
 // every block (T / BM times per b h); and K3c's blocks each read every query
 // tile of their b h (4 x the raw bytes, as hi/lo row and col tiles) from L2.
 //
-// ptxas (-Xptxas=-v, on the H100 build), DP = 16 / 32 / 64 / 128: K3a 183 /
-// 203 / 255 / 255 registers, K3b 158 / 178 / 210 / 232, K3c 69 / 121 / 168
-// / 243, its pre-pass 30; no spills. Dynamic shared memory at DP = 64 / 128:
+// ptxas (-Xptxas=-v, on the H100 build), DP = 16 / 32 / 64 / 128: K3a 185 /
+// 203 / 255 / 255 registers, K3b 158 / 184 / 212 / 234, K3c 72 / 121 / 168
+// / 245, its pre-pass 30; no spills. Dynamic shared memory at DP = 64 / 128:
 // K3a 200,704 / 198,656 bytes (q hi/lo, k hi/lo, v^T hi/lo, raw k and v in
 // two stages), K3b 215,040 / 214,016 bytes (q, do hi/lo, k, v and k^T
 // hi/lo, raw k and v in two stages), K3c 205,312 / 200,832 bytes (k, v

@@ -94,8 +94,8 @@
 // buffers, and the transposed accumulation product (the column slice as
 // the register operand, ds as the shared one) was no faster (PERF.md).
 //
-// ptxas (-Xptxas=-v, on the H100 build): 209 registers a thread for K3b
-// and for K3c; no spills.
+// ptxas (-Xptxas=-v, on the H100 build): 210 registers a thread for K3b,
+// 207 for K3c; no spills.
 // The kernels allocate nothing and do not synchronise: the caller owns the
 // outputs and the stream.
 
