@@ -16,7 +16,7 @@
 // float32 accumulator takes 128 registers a thread, twice that with the
 // fresh per-tile accumulator beside it (the limit is 255). So the
 // contractions over D (s = q k^T, dp = do v^T) are streamed in chunks of
-// kDC = 32 columns, and each warpgroup owns kGW = 128 output columns.
+// kDC = 64 columns, and each warpgroup owns kGW = 128 output columns.
 //
 // One body, two kernels. A block owns 64 output rows ("own" rows: query
 // rows in K3b, key rows in K3c) and walks over the other side in tiles of
@@ -37,10 +37,10 @@
 //    computes half of the chunks of s^T and dp^T (a zero chunk pads an odd
 //    count), and they add their partial sums through distributed shared
 //    memory, so the pair runs 4 products per tile pair and not 6. The
-//    partial sums go through the raw stage of the last contraction step,
-//    and the barrier that frees it again is split: a block arrives once it
-//    has read the other's sums and waits only before its copies overwrite
-//    that stage. (Four warpgroups in one block would leave 128 registers a
+//    partial sums go through the second half of the split area, and the
+//    barrier that frees it again is split: a block arrives once it has read
+//    the other's sums and waits only before its next split overwrites
+//    them. (Four warpgroups in one block would leave 128 registers a
 //    thread, too few for a warpgroup's sums, partial and fragments.)
 // The grid is (column group, own tile, b h) in one dimension, groups
 // fastest (K3c's clusters are neighbouring blocks), so B H has no limit of
@@ -50,18 +50,19 @@
 // are not written. Each block writes its rows' columns once: no atomics,
 // dq, dk, dv are the same bits on every run.
 //
-// Steps. Per streamed tile the block runs ceil(D / 32) contraction steps
+// Steps. Per streamed tile the block runs ceil(D / 64) contraction steps
 // (K3c: half of them) and 2 accumulation steps of 64 output columns. Each
-// warpgroup copies the raw tiles its own products read with cp.async one
-// step ahead (two stages), splits them and multiplies, between named
-// barriers of its own (1 + warpgroup), so the two warpgroups run apart
-// between swaps and one splits while the other's products run:
+// warpgroup copies the raw tiles its own products read with cp.async into
+// its one raw stage, splits them, starts the next step's copies and
+// multiplies, between named barriers of its own (1 + warpgroup): the
+// copies run during the products, and the two warpgroups run apart between
+// swaps, so one splits while the other's products run:
 //  - contraction step: the own rows' chunk of q or do (K3b), k or v (K3c)
 //    goes from its raw tile straight into the thread's A fragments, split
 //    in registers; the streamed rows' chunk of k or v (K3b), q or do (K3c)
 //    is split into a hi/lo row tile; the 64 x 64 product of the chunk goes
 //    into a fresh accumulator that is added to s (or dp) in float32, so no
-//    tensor-core sum runs over more than 4 k-steps x 3 passes;
+//    tensor-core sum runs over more than 8 k-steps x 3 passes;
 //  - accumulation step: the streamed rows' 64 columns of k (K3b) or of do
 //    and q (K3c) as a hi/lo col tile; ds (or p) from the registers as the
 //    A operand (the accumulator's fragment is the A fragment), into a
@@ -72,10 +73,10 @@
 // No wgmma sits in a branch (ptxas serializes them there): each warpgroup
 // picks its tiles by offset, and the roles differ only in data.
 //
-// Memory. No scratch. Dynamic shared memory 204,800 bytes: for each
-// warpgroup two raw stages of 2 x 64 x 36 floats, the split tiles of one
-// step (4 x 64 x 32 floats; p and dp are swapped through them) and the
-// output sums (64 x 128 floats). At (B, H, T, D) = (64, 2, 768, 256) a
+// Memory. No scratch. Dynamic shared memory 200,704 bytes: for each
+// warpgroup a raw stage of 2 x 64 x 68 floats, the split tiles of one step
+// (2 x 64 x 64 floats; p and dp, and K3c's partial sums, are swapped
+// through them) and the output sums (64 x 128 floats). At (B, H, T, D) = (64, 2, 768, 256) a
 // K3b block reads 320 KB per streamed tile from L2 (256 KB of chunks,
 // 64 KB of output-column slices), 3.84 MB over its 12 tiles, 5.9 GB over
 // its 1,536 blocks; a K3c block 192 KB per tile, 7.1 GB over 3,072 blocks;
@@ -88,14 +89,15 @@
 // waits for its copies, splits and multiplies in turn, with two
 // warpgroups (8 warps) on an SM to hide the latencies; the own rows'
 // chunks are copied again for every streamed tile; and the L2 reads above
-// are of the order of the products' time. Tried on an H100 and slower:
-// deeper copy pipelines (three and four stages), narrower accumulation
-// steps (32 columns), fetching the tiles through registers into double
-// buffers, and the transposed accumulation product (the column slice as
-// the register operand, ds as the shared one) was no faster (PERF.md).
+// are of the order of the products' time. Tried on an H100 and slower
+// (PERF.md): with 32-column chunks, three or four copy stages in place of
+// two, and 32-column accumulation steps; fetching the tiles through
+// registers into double buffers; and the transposed accumulation product
+// (the column slice as the register operand, ds as the shared one) was no
+// faster.
 //
-// ptxas (-Xptxas=-v, on the H100 build): 210 registers a thread for K3b,
-// 207 for K3c; no spills.
+// ptxas (-Xptxas=-v, on the H100 build): 212 registers a thread for K3b,
+// 197 for K3c; no spills.
 // The kernels allocate nothing and do not synchronise: the caller owns the
 // outputs and the stream.
 
@@ -105,7 +107,7 @@ namespace {
 
 constexpr int kThreads = 2 * kWG;               // two warpgroups, one per role
 constexpr int kBN = 64;                         // streamed rows per tile
-constexpr int kDC = 32;                         // columns of D per contraction step
+constexpr int kDC = 64;                         // columns of D per contraction step
 constexpr int kGW = 128;                        // output columns of a warpgroup
 constexpr int kCC = 64;                         // output columns per accumulation step
 constexpr int kAccSteps = kGW / kCC;
@@ -114,15 +116,14 @@ constexpr int kAccRaw = kBN * (kCC + 4);        // of one raw column slice
 constexpr int kStage = 2 * kDotRaw;             // a warpgroup's raw stage: 2 chunk tiles
 constexpr int kDotTile = kRows * kDC;           // one hi or lo row tile of a chunk
 constexpr int kAccTile = kCC * kBN;             // one hi or lo col tile
-constexpr int kSplit = 4 * kDotTile;            // a warpgroup's split tiles of a step
+constexpr int kSplit = 2 * kDotTile;            // a warpgroup's split tiles of a step
 constexpr int kSwap = kBN / 2 * kWG;            // one warpgroup's p or dp
 constexpr int kOut = kGW / 2 * kWG;             // one warpgroup's output sums
-constexpr size_t kSmem = sizeof(float) * 2 * (2 * kStage + kSplit + kOut);
+constexpr size_t kSmem = sizeof(float) * 2 * (kStage + kSplit + kOut);
 static_assert(kBN == kRows, "the streamed tile is the own tile's height");
 static_assert(kAccRaw <= kStage, "a column slice does not fit a stage");
 static_assert(2 * kAccTile <= kSplit, "two col tiles do not fit the split area");
-static_assert(kSwap <= kSplit, "p or dp does not fit the split area");
-static_assert(kSwap <= kStage, "K3c's partial sums do not fit a raw stage");
+static_assert(2 * kSwap <= kSplit, "p or dp and K3c's partial sums do not fit");
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -183,8 +184,8 @@ __device__ __forceinline__ void wide_bwd(
   // barriers of its own (named barrier 1 + wg), so the two run apart
   // between swaps: one splits while the other's products run.
   extern __shared__ __align__(128) float smem[];
-  float* raw = smem + wg * 2 * kStage;          // this warpgroup's [stage][kStage]
-  float* sp = smem + 4 * kStage;                // [warpgroup][kSplit]: a step's hi/lo tiles
+  float* raw = smem + wg * kStage;              // this warpgroup's raw stage
+  float* sp = smem + 2 * kStage;                // [warpgroup][kSplit]: a step's hi/lo tiles
   float* mine = sp + wg * kSplit;               // this warpgroup's, and its p or dp
   const float* other = sp + (1 - wg) * kSplit;
   // the warpgroup's output sums, [element][thread]: each thread owns its
@@ -213,7 +214,7 @@ __device__ __forceinline__ void wide_bwd(
 
   // step s's raw tiles of this warpgroup into its stage s % 2
   auto issue = [&](int s) {
-    float* dst = raw + (s & 1) * kStage;
+    float* dst = raw;
     const int j0 = s / per * kBN, i = s % per;
     if (i < n_dot) {
       const int c = (c_first + i) * kDC;
@@ -226,14 +227,16 @@ __device__ __forceinline__ void wide_bwd(
   // start the next step's copies, wait for this step's
   int step = 0;
   auto begin = [&]() {
-    // K3c: the copies of the second accumulation step go to the stage that
-    // holds this block's partial sums; the other block has read them once
-    // the cluster barrier is complete
-    if (kDkv && step % per == n_dot) cluster_wait();
+    cp_async_wait<0>();
+    bar_sync(kWG, 1 + wg);   // this step's tiles are in; the last step's products are done
+  };
+  // once the step's tiles are split (and the raw stage read): the next
+  // step's copies, which run during this step's products
+  auto split_done = [&]() {
+    fence_proxy_async();
+    bar_sync(kWG, 1 + wg);
     if (step + 1 < total) issue(step + 1);
     cp_async_commit();
-    cp_async_wait<1>();
-    bar_sync(kWG, 1 + wg);   // this step's tiles are in; the last step's products are done
   };
 
   // K3b: lse (base 2) and delta of rows g and g + 8 of the warp's 16 own
@@ -259,7 +262,7 @@ __device__ __forceinline__ void wide_bwd(
     zero(x);
     for (int i = 0; i < n_dot; ++i, ++step) {
       begin();
-      const float* rs = raw + (step & 1) * kStage;
+      const float* rs = raw;
       // the own rows' chunk straight from the raw tile into the thread's A
       // fragments (rows g, g + 8 of the warp's 16; columns 8 kk + t4,
       // 8 kk + t4 + 4), split in registers; the streamed rows' as row tiles
@@ -271,8 +274,7 @@ __device__ __forceinline__ void wide_bwd(
         for (int j = 0; j < 4; ++j)
           split(ar[(8 * (j & 1)) * (kDC + 4) + 8 * kk + 4 * (j >> 1)], ah[kk][j], al[kk][j]);
       split_rows<kBN, kDC, kWG>(rs + kDotRaw, mine, mine + kDotTile, tid);
-      fence_proxy_async();
-      bar_sync(kWG, 1 + wg);
+      split_done();
       float part[kBN / 2];
       zero(part);
       fence_regs(part);
@@ -294,16 +296,16 @@ __device__ __forceinline__ void wide_bwd(
     // then ds = p (dp - delta) scale in both
     if constexpr (kDkv) {
       // s^T and dp^T: this block's chunks plus the other block's, through
-      // the raw stage of the last contraction step (both blocks run the
-      // same steps); the barrier is also the block's
-      float* partial = raw + ((step - 1) & 1) * kStage;
+      // the second half of the split area (p and dp go to the first); the
+      // barrier is also the block's
+      float* partial = mine + kSwap;
 #pragma unroll
       for (int e = 0; e < kBN / 2; ++e) partial[e * kWG + tid] = x[e];
       cluster_arrive();
       cluster_wait();
 #pragma unroll
       for (int e = 0; e < kBN / 2; ++e) x[e] += ld_cluster(partial + e * kWG + tid, rank ^ 1);
-      cluster_arrive();                         // read; waited for in begin()
+      cluster_arrive();                         // read; waited for before the next split
     } else {
       __syncthreads();
     }
@@ -335,9 +337,11 @@ __device__ __forceinline__ void wide_bwd(
 #pragma unroll
     for (int a = 0; a < kAccSteps; ++a, ++step) {
       begin();
-      split_cols<kBN, kCC, kWG>(raw + (step & 1) * kStage, mine, mine + kAccTile, tid);
-      fence_proxy_async();
-      bar_sync(kWG, 1 + wg);
+      // K3c: the other block has read this one's partial sums once the
+      // cluster barrier is complete
+      if (kDkv && a == 0) cluster_wait();
+      split_cols<kBN, kCC, kWG>(raw, mine, mine + kAccTile, tid);
+      split_done();
       float part[kCC / 2];
       zero(part);
       fence_regs(part);

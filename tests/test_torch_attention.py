@@ -191,8 +191,8 @@ def _k3_products(q, k, v, do, mm):
 def _mm_chunks(a, b, chunk, mm):
     """a @ b with the contraction (a's last axis) taken ``chunk`` values at
     a time, each chunk's product through ``mm`` into a fresh sum, the
-    chunks' sums added in float32: how the wide K3b and K3c sum over D (32
-    columns a step) and over the streamed rows (64 a tile)."""
+    chunks' sums added in float32: how the wide K3b and K3c sum over D and
+    over the streamed rows (64 a step or a tile)."""
     out = mm(a[..., :chunk], b[..., :chunk, :])
     for c in range(chunk, a.shape[-1], chunk):
         out = out + mm(a[..., c:c + chunk], b[..., c:c + chunk, :])
@@ -201,19 +201,19 @@ def _mm_chunks(a, b, chunk, mm):
 
 def _mm_halves(a, b, mm):
     """a @ b over D as the wide K3c sums it: the two blocks of a cluster
-    each take half of the 32-column chunks (``_mm_chunks``), and their
+    each take half of the 64-column chunks (``_mm_chunks``), and their
     partial sums are added."""
-    half = 32 * ((-(-a.shape[-1] // 32) + 1) // 2)
-    out = _mm_chunks(a[..., :half], b[..., :half, :], 32, mm)
+    half = 64 * ((-(-a.shape[-1] // 64) + 1) // 2)
+    out = _mm_chunks(a[..., :half], b[..., :half, :], 64, mm)
     if half < a.shape[-1]:
-        out = out + _mm_chunks(a[..., half:], b[..., half:, :], 32, mm)
+        out = out + _mm_chunks(a[..., half:], b[..., half:, :], 64, mm)
     return out
 
 
 def _wide_products(q, k, v, do, mm):
     """The wide kernels' arithmetic past head dim 128: K3a in float32 on the
     CUDA cores (the plain version); K3b with s and dp summed over D in
-    chunks of 32, K3c in two halves of such chunks; dq, dk, dv summed over
+    chunks of 64, K3c in two halves of such chunks; dq, dk, dv summed over
     the streamed rows in tiles of 64; each piece's product through ``mm``.
     Returns (o, lse, dq, dk, dv)."""
     scale = q.shape[-1] ** -0.5
@@ -224,7 +224,7 @@ def _wide_products(q, k, v, do, mm):
         p = torch.exp(over_d(q, k.transpose(-1, -2)) * scale - lse[..., None])
         return p, p * (over_d(do, v.transpose(-1, -2)) - delta[..., None]) * scale
 
-    _, ds = probs(lambda a, b: _mm_chunks(a, b, 32, mm))
+    _, ds = probs(lambda a, b: _mm_chunks(a, b, 64, mm))
     p_c, ds_c = probs(lambda a, b: _mm_halves(a, b, mm))
     return (o, lse, _mm_chunks(ds, k, 64, mm),
             _mm_chunks(ds_c.transpose(-1, -2), q, 64, mm),
@@ -236,7 +236,7 @@ CARD_FWD_TOL, CARD_BWD_RTOL = 1e-5, 1e-4
 
 
 # head dims to 128 (flash_attn_tc.cu), then 160 and 256, past it (the wide
-# kernels, their sums over D chunk by chunk; 160 gives K3c's halves 3 and 2
+# kernels, their sums over D chunk by chunk; 160 gives K3c's halves 2 and 1
 # chunks)
 @pytest.mark.parametrize("B,H,T,D", [(2, 4, 96, 64), (1, 3, 200, 48), (1, 2, 40, 160),
                                      (1, 1, 24, 256)])
