@@ -14,7 +14,7 @@ failure is swallowed):
 2. build   — nvcc builds every kernel under eegsynth_torch/csrc/, one
              process per source, in parallel; cuobjdump -sass counts the
              HGMMA (wgmma) instructions of every K3a, K3b and K3c instance,
-             the wide K3b and K3c (head dims past 128) included;
+             the wide K3a, K3b and K3c (head dims past 128) included;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the main paths give it, with both times and its
              bound (FLOPs at the TF32 tensor-core rate or bytes at the HBM
@@ -25,9 +25,10 @@ failure is swallowed):
              function timed in turns with the kernel where there is one
              (cuDNN's GRU beside K1 forward, memory-efficient SDPA's forward
              beside K3a and its backward beside K3b + K3c); dense attention
-             beside K3a; the wide kernels (head dims past 128: K3a on the
-             CUDA cores, K3b and K3c on the tensor cores) the same way at
-             head dim 256, 160 and a ragged 131; dq
+             beside K3a; the wide kernels (head dims past 128, all three on
+             the tensor cores) the same way at head dim 256, 160 and a
+             ragged 131, the wide K3a's share of its split-TF32 ceiling
+             beside its share of the bound; dq
              and dk at one key (T = 1) against float64, in units of the
              terms that cancel there; "auto" attention (the tensor-core
              kernels at head dim 64, the wide ones at 160); the D-step
@@ -143,10 +144,11 @@ ATTN_HEADLINE = (64, 4, 768, 64)   # the shape of the kernels line's K3 rows
 ATTN_FWD_TOL = 1e-5    # o and lse, absolute: f32 sums in another order
 ATTN_BWD_RTOL = 1e-4   # dq, dk, dv, relative to the largest magnitude: sums
                        # of up to 4096 terms in another order
-# The wide kernels (D > 128: K3a on the CUDA cores, K3b and K3c on the tensor
-# cores, flash_attn_wide_bwd.cu): head dim 256 (a transformer
-# CGAN of dim 512 with 2 heads, patch 1: 768 tokens, batch 64; the headline
-# of their rows), the "auto" shape at head dim 160, a ragged T with an odd D
+# The wide kernels (D > 128, all on the tensor cores: K3a in
+# flash_attn_wide.cu, K3b and K3c in flash_attn_wide_bwd.cu): head dim 256
+# (a transformer CGAN of dim 512 with 2 heads, patch 1: 768 tokens, batch
+# 64; the headline of their rows), the "auto" shape at head dim 160, a
+# ragged T with an odd D
 WIDE_ATTN_SHAPES = ((64, 2, 768, 256), (1, 2, 512, 160), (2, 3, 77, 131))
 # One key (T = 1): the softmax's gradient is zero and dq, dk are what is left
 # of dp - delta, rounding noise that the tensor cores' split-TF32 sums do not
@@ -233,9 +235,9 @@ def phase_build() -> None:
 
 def phase_sass() -> None:
     """The HGMMA (wgmma) instructions of every instance of the tensor-core
-    flash kernels K3a, K3b and K3c, and of the wide K3b and K3c, in the
-    built library, from ``cuobjdump -sass``: each instance must have some,
-    or its products do not run on the tensor cores."""
+    flash kernels K3a, K3b and K3c, and of the wide K3a, K3b and K3c, in
+    the built library, from ``cuobjdump -sass``: each instance must have
+    some, or its products do not run on the tensor cores."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True,
@@ -245,7 +247,7 @@ def phase_sass() -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", line)
-            wide = re.search(r"(flash_(?:dq|dkv)_wide_tc_kernel)", line)
+            wide = re.search(r"(flash_(?:fwd|dq|dkv)_wide_tc_kernel)", line)
             name = ((m.group(1), int(m.group(2))) if m else
                     (wide.group(1), 0) if wide else None)
             if name:
@@ -258,7 +260,8 @@ def phase_sass() -> None:
             f"DP {dp}: {n}" for dp, n in sorted(per_dp.items())), flush=True)
         if sorted(per_dp) != [16, 32, 64, 128] or not all(per_dp.values()):
             fail(f"{kernel}: instances without HGMMA or missing: {per_dp}")
-    for kernel in ("flash_dq_wide_tc_kernel", "flash_dkv_wide_tc_kernel"):
+    for kernel in ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
+                   "flash_dkv_wide_tc_kernel"):
         n = counts.get(kernel, {}).get(0, 0)
         print(f"[sass] {kernel} (head dims past 128) HGMMA: {n}", flush=True)
         if not n:
@@ -697,6 +700,12 @@ def _check_k3_wide(smi: str) -> dict:
     for name, row in heads.items():
         _roofline(f"{name} B={B} H={H} T={T} D={D}", row, smi, "memory-efficient SDPA "
                   + ("forward" if name == "flash_forward_wide" else "backward (dq, dk, dv)"))
+    # split-TF32 runs each product as three TF32 passes: 3 x the FLOP bound
+    row = heads["flash_forward_wide"]
+    print(f"[bound] flash_forward_wide B={B} H={H} T={T} D={D}: "
+          f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound, "
+          f"{100 * 3 * row['bound_ms'] / row['ms']:.1f} % of the split-TF32 ceiling "
+          f"{3 * row['bound_ms']:.4f} ms | {smi}", flush=True)
     return {name: {"max_abs_err": worst[name], **heads[name]} for name in worst}
 
 

@@ -1,343 +1,324 @@
 // Flash-attention forward (K3a) for head dims over 128, for Hopper, sm_90a,
-// on the CUDA cores: full (non-causal) softmax attention in float32. The
-// backward for these heads (K3b, K3c) runs on the tensor cores, in
-// flash_attn_wide_bwd.cu.
+// on the tensor cores: full (non-causal) softmax attention in float32, with
+// split-TF32 wgmma (tf32_wgmma.cuh). The backward for these heads (K3b,
+// K3c) is flash_attn_wide_bwd.cu.
 //
 // Replaces, for D > 128, the same TPU kernel of eegsynth/nn/attention.py as
-// flash_attn_tc.cu's flash_fwd, whose tensor-core kernel holds its rows' D
-// columns in registers and shared memory and stops at D = 128:
+// flash_attn_tc.cu's flash_fwd, whose kernel holds whole rows of D columns
+// in shared memory and registers and stops at D = 128:
 //   K3a  _fa_forward (pallas_call, body _fa_fwd_kernel)
 // The same formulas and layout: q, k, v (BH, T, D) float32, lse (BH, T),
-// scale = D^-0.5; s = (q k^T) scale, online softmax -> o, lse = m + log l.
+// scale = D^-0.5 rounded once to float; s = (q k^T) scale, an online
+// softmax over key tiles (keys at or beyond T masked), o = acc / l and
+// lse = m + log l, with l = 0 read as 1.
 //
-// Layout of the work: a block of 8 warps owns 32 consecutive query rows of
-// one b h, 4 rows a warp, and one group of up to 256 output columns; the
-// grid is (row tile, column group, b h) in one dimension, so B H has no
-// limit of its own. A lane holds its 4 rows' accumulators for 8 columns
-// (the group's columns lane + 32 i) in registers for the whole loop and
-// writes them once. The keys stream past in tiles of 32 rows, one a lane,
-// staged in shared memory 64 columns at a time (pitch 65: lane r reads row
-// r without bank conflicts), with the warp's own 4 rows beside them; each
-// stage is copied with cp.async while the block computes on the one before
-// (two buffers). Per tile each lane first computes the full-D dot products
-// s of its key with the warp's 4 rows, chunk by chunk: each staged value of
-// the lane's row serves 4 multiply-adds, and the warp's rows come as
-// 16-byte broadcast loads. Warp shuffles then give each row's max and sum
-// over the tile for the online softmax. The tile's 32 weights a row (p) go
-// to shared memory, and the lanes add weights x v tile to their
-// accumulators over the group's column chunks. Past 256 columns a block per
-// group recomputes the dot products, so D has no limit. No atomics, a fixed
-// order of sums: the results are the same bits on every run.
+// Layout. A block of two warpgroups owns 64 query rows of one b h and one
+// group of 256 output columns; warpgroup w owns columns [256 g + 128 w,
+// 256 g + 128 w + 128). The grid is (column group, query tile, b h) in one
+// dimension, groups fastest, so B H has no limit of its own. Any D >= 1
+// (the dispatch gives D > 128) and any T, ragged edges included: rows at
+// or beyond T and columns at or beyond D arrive as zeros (cp.async's zero
+// fill), nothing is padded in memory, and rows past T and columns past D
+// are not written; lse is written by warpgroup 0 of column group 0 alone.
+// No atomics: o and lse are the same bits on every run.
 //
-// What bounds it: the loads from shared memory that feed the FP32
-// multiply-adds (about one load for two multiply-adds), not the FP32 rate;
-// 2 products (s, o) of B H T^2 D multiply-adds each, and two barriers a
-// staged chunk. A later version would put the products on the tensor cores
-// as flash_attn_wide_bwd.cu does, with D split across the loop.
+// Per key tile of kBN = 64 rows:
+//  - s = q k^T over D in 64-column chunks, the two warpgroups each taking
+//    half of the chunks (a zero chunk pads an odd count); each chunk's
+//    product goes into a fresh accumulator added to the warpgroup's partial
+//    sum in float32, and the two partial sums are added through shared
+//    memory, so both warpgroups hold the same bits of s (x + y is y + x);
+//  - both run the same online softmax on their fragment in registers, in
+//    base 2 (a thread holds 2 rows, a quad of 4 threads a whole row), so
+//    both apply the same alpha and p;
+//  - p is split in registers and fed to p v as the register A operand
+//    (the accumulator's fragment is the A fragment); v comes as hi/lo col
+//    tiles, 64 output columns a step, each step's product into a fresh
+//    accumulator folded into the o sums (64 a thread, in registers) after
+//    they are scaled by alpha.
+// Steps. Each warpgroup copies the raw tiles its own products read with
+// cp.async into its one raw stage, splits them, starts the next step's
+// copies and multiplies, between named barriers of its own (1 + warpgroup),
+// as flash_attn_wide_bwd.cu does: the copies run during the products, and
+// the two warpgroups run apart except where they add s. Up to D = 256 the
+// own rows' q chunks (two a warpgroup) are copied once and stay raw in
+// shared memory; past it they are copied again beside k's for every key
+// tile, and a block per column group recomputes s. Either way q's chunk
+// goes from its raw tile straight into the thread's A fragments, split in
+// registers, and k's chunk becomes a hi/lo row tile. No wgmma sits in a
+// branch (ptxas serializes them there): the tiles are picked by offset.
+//
+// Memory. No scratch. Dynamic shared memory 169,984 bytes: for each
+// warpgroup a raw stage of 64 x 68 floats, q's two resident chunks (or,
+// past D = 256, q's chunk of the step) and the split tiles of a step
+// (2 x 64 x 64 floats; the partial sums of s are swapped through them). At
+// (B, H, T, D) = (64, 2, 768, 256): 1,536 blocks, each reading its q rows
+// once (64 KB) and 12 key tiles of k and v (128 KB each) from L2, 1.6 MB a
+// block, 2.5 GB in all; q, k and v are 101 MB each.
+//
+// What bounds it: 2 products of 2 B H T^2 D FLOPs, 0.1562 ms at 495 TFLOP/s
+// (TF32 dense, H100 SXM at 700 W) at (64, 2, 768, 256); the split triples
+// the tensor-core work, so the ceiling there is 0.469 ms. Below that, each
+// warpgroup waits for its copies, splits and multiplies in turn, two
+// warpgroups (8 warps) a SM hide each other's latencies, and they meet
+// twice a key tile to add s. Tried on an H100 in probe builds and slower
+// (PERF.md): q copied again for every key tile at every D (with the
+// partial sums of s in a double-buffered area of their own, one block
+// barrier a tile); q split once into resident hi/lo row tiles (A from
+// shared memory); the o sums in shared memory; q's chunk split into row
+// tiles each step; two copy stages a warpgroup.
+//
+// ptxas (-Xptxas=-v, on the H100 build): REGS registers a thread, no spills.
 // The kernel allocates nothing and does not synchronise: the caller owns
 // the outputs and the stream.
 
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cmath>
-#include <cstddef>
-#include <cstdint>
+#include "tf32_wgmma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 4;              // output rows of a warp
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-constexpr int kTile = 32;                    // streamed rows of a tile, one a lane
-constexpr int kChunk = 64;                   // columns staged at a time
-constexpr int kPitch = kChunk + 1;           // floats between a tile's staged rows
-constexpr int kCols = 256;                   // output columns of a block
-constexpr int kGroupChunks = kCols / kChunk;
-constexpr int kLaneCols = kCols / 32;        // accumulators of a lane per row
-constexpr int kTileFloats = kTile * kPitch;  // one staged tile (a multiple of 4)
-constexpr int kRowFloats = kWarps * kRowsPerWarp * kChunk;   // the block's own rows
+constexpr int kThreads = 2 * kWG;               // two warpgroups, one column half each
+constexpr int kBN = 64;                         // key rows per tile
+constexpr int kDC = 64;                         // columns of D per contraction step
+constexpr int kGW = 128;                        // output columns of a warpgroup
+constexpr int kCC = 64;                         // output columns per accumulation step
+constexpr int kAccSteps = kGW / kCC;
+constexpr int kDotRaw = kRows * (kDC + 4);      // floats of one raw chunk tile
+constexpr int kAccRaw = kBN * (kCC + 4);        // of one raw v slice
+constexpr int kDotTile = kRows * kDC;           // one hi or lo row tile of a chunk
+constexpr int kAccTile = kCC * kBN;             // one hi or lo col tile
+constexpr int kSwap = kBN / 2 * kWG;            // one warpgroup's partial s
+static_assert(kBN == kRows, "the key tile is the query tile's height");
+static_assert(kAccRaw <= kDotRaw, "a v slice does not fit the raw stage");
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNeg = -1e30f;
 
-using Acc = float[kRowsPerWarp][kLaneCols];
+// A warpgroup's shared memory: three raw chunk tiles (the raw stage, k's
+// chunk or a v slice, then q's two resident chunks, or past D = 256 q's
+// chunk of the step), then the split tiles of one step.
+constexpr int kRawF = 3 * kDotRaw;
+constexpr int kWgF = kRawF + 2 * kDotTile;
+constexpr size_t kSmem = sizeof(float) * 2 * kWgF;
+static_assert(2 * kAccTile <= 2 * kDotTile, "two col tiles do not fit the split area");
+static_assert(kSwap <= 2 * kDotTile, "a partial s does not fit the split area");
 
-// Where this block and warp are: the grid's one dimension runs over row
-// tiles fastest, then column groups, then b h.
-struct Place {
-  size_t bh;
-  int row0;       // the warp's first output row
-  int live;       // how many of the warp's rows are < T
-  int group;      // the block's column group: columns [256 group, 256 group + 256)
-};
-
-__device__ __forceinline__ Place my_place(int T, int D) {
-  const int tiles = (T + kRowsPerBlock - 1) / kRowsPerBlock;
-  const int groups = (D + kCols - 1) / kCols;
-  Place p;
-  p.bh = blockIdx.x / tiles / groups;
-  p.group = blockIdx.x / tiles % groups;
-  p.row0 = (blockIdx.x % tiles) * kRowsPerBlock + threadIdx.x / 32 * kRowsPerWarp;
-  p.live = max(0, min(kRowsPerWarp, T - p.row0));
-  return p;
+// Column groups of 256 output columns, a block each.
+__host__ __device__ __forceinline__ int col_groups(int D) {
+  return (D + 2 * kGW - 1) / (2 * kGW);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wide_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int T, int D, float scale, bool vec) {
+  const int wg = threadIdx.x / kWG, tid = threadIdx.x % kWG;
+  const int warp = tid / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  extern __shared__ __align__(128) float smem[];
+  float* raw = smem + wg * kWgF;                // this warpgroup's raw tiles
+  float* mine = raw + kRawF;                    // its split tiles
+  const float* other = smem + (1 - wg) * kWgF + kRawF;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+  const int tiles = (T + kRows - 1) / kRows;
+  const int groups = col_groups(D);
+  const int grp = blockIdx.x % groups;
+  const int r0 = blockIdx.x / groups % tiles * kRows;
+  const size_t bh = blockIdx.x / groups / tiles;
+  const size_t base = bh * T * D;
+  const int col0 = grp * 2 * kGW + wg * kGW;    // this warpgroup's output columns
+  // the warpgroups share the contraction over D: warpgroup 0 the first half
+  // of the chunks, warpgroup 1 the rest; past nd, zero chunks
+  const int nd = (D + kDC - 1) / kDC;
+  const int n_dot = (nd + 1) / 2;
+  const int c_first = wg * n_dot;
+  const int per = n_dot + kAccSteps;
+  const int total = (T + kBN - 1) / kBN * per;
+  const float scale2 = scale * kLog2e;
+  const float* qb = q + base;
+  const float* kb = k + base;
+  const float* vb = v + base;
+  // up to 256 columns (two chunks a warpgroup) the own rows' q chunks stay
+  // in shared memory, raw, for the whole loop; past that they are copied
+  // again beside k's for every key tile
+  const bool resident = n_dot <= 2;
+  float* qres = raw + kDotRaw;
 
-// ---- staging: cp.async, 4 bytes a copy, zero-filled -------------------------------
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
-                  "r"(in ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Start copying rows [r0, r0 + R) x columns [c0, c0 + n) of a (T, D) matrix
-// into dst (row pitch P), NT threads (thread tid) sharing the copy; zeros at
-// rows >= T and columns >= n, up to kChunk.
-template <int R, int P, int NT>
-__device__ __forceinline__ void stage(float* dst, const float* src, int r0, int c0, int n,
-                                      int T, int D, int tid) {
-  for (int i = tid; i < R * kChunk; i += NT) {
-    const int r = i / kChunk, c = i % kChunk;
-    const bool in = r0 + r < T && c < n;
-    cp_async4(dst + r * P + c, in ? src + (size_t)(r0 + r) * D + c0 + c : src, in);
-  }
-}
-
-// The block stages a tile of the streamed side.
-__device__ __forceinline__ void stage_tile(float* tile, const float* src, int r0, int c0,
-                                           int n, int T, int D) {
-  stage<kTile, kPitch, kThreads>(tile, src, r0, c0, n, T, D, threadIdx.x);
-}
-
-// A warp stages a chunk of its own rows into its part of `rows`.
-__device__ __forceinline__ void stage_rows(float* rows, const float* src, int r0, int c0,
-                                           int n, int T, int D) {
-  stage<kRowsPerWarp, kChunk, 32>(rows + threadIdx.x / 32 * kRowsPerWarp * kChunk, src, r0,
-                                  c0, n, T, D, threadIdx.x % 32);
-}
-
-// ---- the two products ---------------------------------------------------------------
-
-// s[r] += rows[r, :n] . tile[lane, :n] for the warp's rows r: one staged
-// value of the lane's row serves kRowsPerWarp multiply-adds, the rows' four
-// values come as one broadcast 16-byte load. Columns past n are zeros up to
-// a multiple of 4.
-__device__ __forceinline__ void dot_chunk(float (&s)[kRowsPerWarp], const float* rows,
-                                          const float* tile, int n) {
-  const float* mine = tile + (threadIdx.x % 32) * kPitch;
-  const float* own = rows + threadIdx.x / 32 * kRowsPerWarp * kChunk;
-  for (int c = 0; c < n; c += 4) {
-    const float t0 = mine[c], t1 = mine[c + 1], t2 = mine[c + 2], t3 = mine[c + 3];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(own + r * kChunk + c);
-      s[r] = fmaf(x.w, t3, fmaf(x.z, t2, fmaf(x.y, t1, fmaf(x.x, t0, s[r]))));
+  // step s's raw tiles of this warpgroup into its stage
+  auto issue = [&](int s) {
+    const int j0 = s / per * kBN, i = s % per;
+    if (i < n_dot) {
+      const int c = (c_first + i) * kDC;
+      if (!resident) load_cols<kRows, kDC, kWG>(raw + kDotRaw, qb, r0, c, T, D, vec, tid);
+      load_cols<kBN, kDC, kWG>(raw, kb, j0, c, T, D, vec, tid);
+    } else {
+      load_cols<kBN, kCC, kWG>(raw, vb, j0, col0 + (i - n_dot) * kCC, T, D, vec, tid);
     }
-  }
-}
-
-// acc[r][2 q + h] += w[r, :] . tile[:, 32 h + lane], h = 0, 1: chunk q of
-// the block's column group (q picks registers, so every q is spelled out).
-__device__ __forceinline__ void accumulate(Acc& acc, const float* w, const float* tile,
-                                           int q) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int qq = 0; qq < kGroupChunks; ++qq) {
-    if (qq != q) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float* col = tile + 32 * h + lane;
-      float a[kRowsPerWarp] = {};
-#pragma unroll 2
-      for (int j = 0; j < kTile; j += 4) {
-        const float t0 = col[j * kPitch], t1 = col[(j + 1) * kPitch];
-        const float t2 = col[(j + 2) * kPitch], t3 = col[(j + 3) * kPitch];
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float4 x = *reinterpret_cast<const float4*>(w + r * kTile + j);
-          a[r] = fmaf(x.w, t3, fmaf(x.z, t2, fmaf(x.y, t1, fmaf(x.x, t0, a[r]))));
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) acc[r][2 * qq + h] += a[r];
-    }
-  }
-}
-
-// The warp's live rows of acc times 1 / l[r] into out, the (T, D) matrix of
-// this b h, at the block's column group.
-__device__ __forceinline__ void write_rows(float* out, const Acc& acc, const Place& me,
-                                           int D, const float* l) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    if (r >= me.live) break;
-    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-    float* row = out + (size_t)(me.row0 + r) * D + kCols * me.group;
-#pragma unroll
-    for (int i = 0; i < kLaneCols; ++i) {
-      const int c = kChunk * (i / 2) + 32 * (i % 2) + lane;
-      if (kCols * me.group + c < D) row[c] = acc[r][i] * inv;
-    }
-  }
-}
-
-// The loop over steps: per streamed tile, the D / 64 chunks of the dot
-// products, then the column group's chunks of the accumulation. Step s
-// stages into buffer s % 2 while the block computes on the other.
-struct Steps {
-  int dot, acc, per_tile, total;
-  __device__ Steps(int T, int D, int group) {
-    dot = (D + kChunk - 1) / kChunk;
-    acc = min(kGroupChunks, dot - kGroupChunks * group);
-    per_tile = dot + acc;
-    total = (T + kTile - 1) / kTile * per_tile;
-  }
-  // (first streamed row, first column, columns, chunk of the group or -1
-  // for a dot chunk) of step s
-  __device__ void at(int s, int D, int group, int& r0, int& c0, int& n, int& q) const {
-    const int i = s % per_tile;
-    r0 = s / per_tile * kTile;
-    q = i < dot ? -1 : i - dot;
-    c0 = kChunk * (i < dot ? i : kGroupChunks * group + q);
-    n = min(kChunk, D - c0);
-  }
-};
-
-// ---- K3a ------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int T, int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* tiles = smem;                               // [buffer][kTileFloats]
-  float* rows = tiles + 2 * kTileFloats;             // [buffer][kRowFloats]
-  float* w = rows + 2 * kRowFloats;                  // [warp][row][key]
-  const Place me = my_place(T, D);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = me.bh * T * D;
-  const Steps st(T, D, me.group);
-  float* ww = w + warp * kRowsPerWarp * kTile;
-
-  auto issue = [&](int step) {
-    int r0, c0, n, qc;
-    st.at(step, D, me.group, r0, c0, n, qc);
-    const int b = step & 1;
-    stage_tile(tiles + b * kTileFloats, (qc < 0 ? k : v) + base, r0, c0, n, T, D);
-    if (qc < 0) stage_rows(rows + b * kRowFloats, q + base, me.row0, c0, n, T, D);
+  };
+  int step = 0;
+  // wait for this step's copies
+  auto begin = [&]() {
+    cp_async_wait<0>();
+    bar_sync(kWG, 1 + wg);   // this step's tiles are in; the last step's products are done
+  };
+  // once the step's tiles are split (and the raw stage read): the next
+  // step's copies, which run during this step's products
+  auto split_done = [&]() {
+    fence_proxy_async();
+    bar_sync(kWG, 1 + wg);
+    if (step + 1 < total) issue(step + 1);
     cp_async_commit();
   };
 
-  Acc acc = {};
-  float m[kRowsPerWarp], l[kRowsPerWarp], s[kRowsPerWarp] = {};
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) m[r] = kNeg, l[r] = 0.f;
+  if (resident) {
+    for (int i = 0; i < n_dot; ++i)
+      load_cols<kRows, kDC, kWG>(qres + i * kDotRaw, qb, r0, (c_first + i) * kDC, T, D, vec,
+                                 tid);
+  }
   issue(0);
-  for (int step = 0; step < st.total; ++step) {
-    if (step + 1 < st.total) {
-      issue(step + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  cp_async_commit();
+
+  float oacc[kGW / 2];
+  zero(oacc);
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  for (int j0 = 0; j0 < T; j0 += kBN) {
+    // this warpgroup's half of s = q k^T over D, chunk by chunk
+    float x[kBN / 2];
+    zero(x);
+    for (int i = 0; i < n_dot; ++i, ++step) {
+      begin();
+      // the own rows' chunk from its raw tile straight into the thread's A
+      // fragments (rows g, g + 8 of the warp's 16; columns 8 kk + t4,
+      // 8 kk + t4 + 4), split in registers; k's chunk as row tiles
+      const float* ar = (resident ? qres + i * kDotRaw : raw + kDotRaw) +
+                        (16 * warp + g) * (kDC + 4) + t4;
+      uint32_t ah[kDC / 8][4], al[kDC / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kDC / 8; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split(ar[(8 * (j & 1)) * (kDC + 4) + 8 * kk + 4 * (j >> 1)], ah[kk][j], al[kk][j]);
+      split_rows<kBN, kDC, kWG>(raw, mine, mine + kDotTile, tid);
+      split_done();
+      float part[kBN / 2];
+      zero(part);
+      fence_regs(part);
+      fence_regs(ah);
+      fence_regs(al);
+      wgmma_fence();
+      mma_rs<kBN, kDC / 8>(part, ah, al, mine, mine + kDotTile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(part);
+      fence_regs(ah);
+      fence_regs(al);
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) x[e] += part[e];
     }
-    __syncthreads();                   // step's stage has landed
-    int r0, c0, n, qc;
-    st.at(step, D, me.group, r0, c0, n, qc);
-    const int b = step & 1;
-    if (qc < 0) {
-      if (c0 == 0) {
+
+    // s = the two halves' sum, the same bits in both warpgroups (x + y is
+    // y + x)
 #pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
-      }
-      dot_chunk(s, rows + b * kRowFloats, tiles + b * kTileFloats, n);
-      if (c0 + kChunk >= D) {
-        // online softmax over the tile's 32 keys, one a lane, for each row
-        const bool key = r0 + lane < T;
+    for (int e = 0; e < kBN / 2; ++e) mine[e * kWG + tid] = x[e];
+    __syncthreads();
 #pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float x = key ? s[r] * scale : kNeg;
-          const float m_new = fmaxf(m[r], warp_max(x));
-          const float alpha = expf(m[r] - m_new);
-          const float p = key ? expf(x - m_new) : 0.f;
-          l[r] = fmaf(alpha, l[r], warp_sum(p));
-          m[r] = m_new;
-          ww[r * kTile + lane] = p;
+    for (int e = 0; e < kBN / 2; ++e) x[e] += other[e * kWG + tid];
+    __syncthreads();                            // the other warpgroup has read this one's
+
+    // online softmax over the tile in base 2, rows g and g + 8 of the warp's
+    // 16; keys at or beyond T are masked
+    float mx[2] = {kNeg, kNeg};
 #pragma unroll
-          for (int i = 0; i < kLaneCols; ++i) acc[r][i] *= alpha;
-        }
-        __syncwarp();
-      }
-    } else {
-      accumulate(acc, ww, tiles + b * kTileFloats, qc);
+    for (int e = 0; e < kBN / 2; ++e) {
+      const int col = j0 + 8 * (e / 4) + 2 * t4 + (e & 1);
+      x[e] = col < T ? x[e] * scale2 : kNeg;
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x[e]);
     }
-    __syncthreads();                   // buffer b is free for step + 2
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e) {
+      const int h = (e >> 1) & 1;
+      x[e] = exp2f(x[e] - m[h]);
+      sum[h] += x[e];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = alpha[h] * l[h] + sum[h];
+    }
+
+    // p v for the warpgroup's 128 columns, 64 at a time, each into a fresh
+    // accumulator folded into o after o is scaled by alpha
+    uint32_t ph[kBN / 8][4], pl[kBN / 8][4];
+    acc_to_frags<kBN / 2>(x, ph, pl);
+#pragma unroll
+    for (int a = 0; a < kAccSteps; ++a, ++step) {
+      begin();
+      split_cols<kBN, kCC, kWG>(raw, mine, mine + kAccTile, tid);
+      split_done();
+      float part[kCC / 2];
+      zero(part);
+      fence_regs(part);
+      fence_regs(ph);
+      fence_regs(pl);
+      wgmma_fence();
+      mma_rs<kCC, kBN / 8>(part, ph, pl, mine, mine + kAccTile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(part);
+      fence_regs(ph);
+      fence_regs(pl);
+#pragma unroll
+      for (int e = 0; e < kCC / 2; ++e)
+        oacc[kCC / 2 * a + e] = fmaf(oacc[kCC / 2 * a + e], alpha[(e >> 1) & 1], part[e]);
+    }
   }
-  write_rows(o + base, acc, me, D, l);
-  if (me.group == 0 && lane == 0) {
+
+  // o = sums / l and lse = m + log l (l = 0 read as 1); rows at or beyond T
+  // and columns at or beyond D are not written, lse by one warpgroup of
+  // column group 0
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-      if (r < me.live)
-        lse[me.bh * T + me.row0 + r] = m[r] + logf(l[r] == 0.f ? 1.f : l[r]);
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * warp + g + 8 * h;
+    if (r >= T) continue;
+    const float l_safe = l[h] == 0.f ? 1.f : l[h];
+    float* row = o + base + (size_t)r * D;
+#pragma unroll
+    for (int e = 0; e < kGW / 2; ++e) {
+      if (((e >> 1) & 1) != h) continue;
+      const int c = col0 + kCC * (e / (kCC / 2)) + 8 * (e % (kCC / 2) / 4) + 2 * t4 + (e & 1);
+      if (c < D) row[c] = oacc[e] / l_safe;
+    }
+    if (grp == 0 && wg == 0 && t4 == 0)
+      lse[bh * T + r] = m[h] * kLn2 + logf(l_safe);
   }
 }
 
-// ---- launchers ------------------------------------------------------------------
-
-// Dynamic shared memory: two buffers of the staged tiles and own rows, and
-// the weights.
-constexpr size_t kFwdSmem = sizeof(float) * (2 * kTileFloats + 2 * kRowFloats +
-                                             kWarps * kRowsPerWarp * kTile);
-
-// D^-0.5 rounded once to float, as the JAX package's Python float is.
-float head_scale(int D) {
-  return static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-}
-
-// The grid's one dimension holds row tiles x column groups x b h blocks.
+// Blocks of the one grid dimension, column groups x query tiles x b h; -1
+// for dimensions it does not take.
 int blocks(int BH, int T, int D) {
   if (BH < 0 || T < 0 || D < 1) return -1;
-  const long long n = (long long)BH * ((T + kRowsPerBlock - 1) / kRowsPerBlock) *
-                      ((D + kCols - 1) / kCols);
+  const long long n = (long long)BH * ((T + kRows - 1) / kRows) * col_groups(D);
   return n > INT_MAX ? -1 : static_cast<int>(n);
-}
-
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int n, size_t smem, cudaStream_t stream, Args... args) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n, kThreads, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int flash_fwd_wide(const float* q, const float* k, const float* v, float* o,
                               float* lse, int BH, int T, int D, cudaStream_t stream) {
-  return launch(flash_fwd_wide_kernel, blocks(BH, T, D), kFwdSmem, stream, q, k, v, o, lse,
-                T, D, head_scale(D));
+  const int n = blocks(BH, T, D);
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const bool vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  return launch(flash_fwd_wide_tc_kernel, n, kThreads, kSmem, stream, q, k, v, o, lse, T, D,
+                head_scale(D), vec);
 }

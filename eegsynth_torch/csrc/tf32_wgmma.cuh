@@ -1,6 +1,7 @@
 // Split-TF32 warpgroup MMA for Hopper (sm_90a): the primitives the
 // tensor-core flash-attention kernels share (flash_attn_tc.cu: K3a, K3b and
-// K3c for head dims to 128; flash_attn_wide_bwd.cu: K3b and K3c past 128).
+// K3c for head dims to 128; flash_attn_wide.cu: K3a past 128;
+// flash_attn_wide_bwd.cu: K3b and K3c past 128).
 //
 // - cp.async copies of raw row-major tiles into shared memory, 16 or 4
 //   bytes a copy, zero-filled past the matrix's rows and columns;

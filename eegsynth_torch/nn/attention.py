@@ -8,11 +8,11 @@ Counterpart of ``eegsynth/nn/attention.py``:
   :class:`FlashAttention`, whose forward is K3a and whose backward is
   delta = rowsum(dO∘O) as a torch op, then K3b (dq) and K3c (dk, dv). For
   head dims up to 128 all three run on the tensor cores with split-TF32
-  ``wgmma`` (``eegsynth_torch/csrc/flash_attn_tc.cu``); past 128, K3b and
-  K3c run on the tensor cores too, with D streamed in chunks and the
-  output columns held in groups (``csrc/flash_attn_wide_bwd.cu``), and K3a
-  on the CUDA cores (``csrc/flash_attn_wide.cu``). All are built at first
-  use by ``eegsynth_torch._build``. First-order only, as the JAX custom
+  ``wgmma`` (``eegsynth_torch/csrc/flash_attn_tc.cu``); past 128 they run
+  on the tensor cores too, with D streamed in chunks and the output
+  columns held in groups (K3a in ``csrc/flash_attn_wide.cu``, K3b and K3c
+  in ``csrc/flash_attn_wide_bwd.cu``). All are built at first use by
+  ``eegsynth_torch._build``. First-order only, as the JAX custom
   VJP: a second derivative raises, so paths that differentiate twice (R1
   through the transformer discriminator) take the dense path;
 - :func:`mha` and :func:`set_attention_impl`, the dispatch: ``"dense"``,
@@ -48,8 +48,8 @@ from eegsynth_torch.nn.gru_sequence import _device_of, _launch
 MAX_TC_HEAD_DIM = 128
 """Largest D of the kernels that hold whole rows of D columns
 (``flash_attn_tc.cu``; the model uses 64). Wider heads take the wide
-kernels: K3b and K3c on the tensor cores with D split into chunks and
-column groups, K3a on the CUDA cores."""
+kernels, also on the tensor cores, with D split into chunks and column
+groups."""
 
 _ATTN_IMPL = "auto"
 

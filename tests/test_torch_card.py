@@ -264,8 +264,8 @@ def _t1_error(name, got, q, k, v, do, lse, delta):
 # heads wider than 128 (the wide kernels): the "auto" shape at head dim
 # 160, a ragged T with an odd D just past 128, head dim 256 (a transformer
 # CGAN of dim 512 with 2 heads) at 768 tokens, a D of two column groups of
-# K3b, the first D past 128, a D of four column groups of K3c, and one key
-# at head dim 256
+# K3a and K3b, the first D past 128, a D of four column groups of K3c, and
+# one key at head dim 256; K3a twice, bitwise equal
 @pytest.mark.parametrize("B,H,T,D", [(1, 2, 512, 160), (2, 3, 77, 131),
                                      (2, 2, 768, 256), (1, 1, 40, 300),
                                      (2, 2, 64, 129), (1, 1, 100, 512),
@@ -284,6 +284,8 @@ def test_wide_flash_kernels_match_plain(cuda_device, B, H, T, D):
         [(n, w + 1) for n, w in before]
     assert (o - o_ref).abs().max().item() <= 1e-5
     assert (lse - lse_ref).abs().max().item() <= 1e-5
+    o2, lse2 = flash_forward(q, k, v)      # no atomics: the same bits again
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     refs = (flash_dq_plain(q, k, v, do, lse_ref, delta),
             *flash_dkv_plain(q, k, v, do, lse_ref, delta))
     for got, ref, name in zip((dq, dk, dv), refs, ("dq", "dk", "dv")):
