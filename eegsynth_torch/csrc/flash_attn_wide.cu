@@ -61,14 +61,19 @@
 // the tensor-core work, so the ceiling there is 0.469 ms. Below that, each
 // warpgroup waits for its copies, splits and multiplies in turn, two
 // warpgroups (8 warps) a SM hide each other's latencies, and they meet
-// twice a key tile to add s. Tried on an H100 in probe builds and slower
-// (PERF.md): q copied again for every key tile at every D (with the
-// partial sums of s in a double-buffered area of their own, one block
-// barrier a tile); q split once into resident hi/lo row tiles (A from
-// shared memory); the o sums in shared memory; q's chunk split into row
-// tiles each step; two copy stages a warpgroup.
+// twice a key tile to add s. Timers in a probe build showed the copies'
+// wait hidden, but the splits and the issue of the copies together longer
+// than the wgmma: their shared-memory traffic beside the wgmma's own
+// reads is the next limit.
+// Tried on an H100 in probe builds and slower or no faster (PERF.md): q
+// copied again for every key tile at every D (with the partial sums of s
+// in a double-buffered area of their own, one block barrier a tile); q
+// split once into resident hi/lo row tiles (A from shared memory); the o
+// sums in shared memory; q's chunk split into row tiles each step; two
+// copy stages a warpgroup; the next copies issued while the wgmma runs
+// (255 registers, spills); the tile loops unrolled to a fixed count.
 //
-// ptxas (-Xptxas=-v, on the H100 build): REGS registers a thread, no spills.
+// ptxas (-Xptxas=-v, on the H100 build): 226 registers a thread, no spills.
 // The kernel allocates nothing and does not synchronise: the caller owns
 // the outputs and the stream.
 
@@ -100,7 +105,7 @@ constexpr float kNeg = -1e30f;
 constexpr int kRawF = 3 * kDotRaw;
 constexpr int kWgF = kRawF + 2 * kDotTile;
 constexpr size_t kSmem = sizeof(float) * 2 * kWgF;
-static_assert(2 * kAccTile <= 2 * kDotTile, "two col tiles do not fit the split area");
+static_assert(kAccTile <= kDotTile, "v's col tiles do not fit the split area");
 static_assert(kSwap <= 2 * kDotTile, "a partial s does not fit the split area");
 
 // Column groups of 256 output columns, a block each.

@@ -201,9 +201,10 @@ def _mm_chunks(a, b, chunk, mm):
 
 
 def _mm_halves(a, b, mm):
-    """a @ b over D as the wide K3c sums it: the two blocks of a cluster
-    each take half of the 64-column chunks (``_mm_chunks``), and their
-    partial sums are added."""
+    """a @ b over D as the wide K3c and K3a sum it: the two blocks of a
+    cluster (K3c) or the two warpgroups of a block (K3a) each take half of
+    the 64-column chunks (``_mm_chunks``), and their partial sums are
+    added."""
     half = 64 * ((-(-a.shape[-1] // 64) + 1) // 2)
     out = _mm_chunks(a[..., :half], b[..., :half, :], 64, mm)
     if half < a.shape[-1]:
