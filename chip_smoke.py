@@ -97,7 +97,7 @@ from eegsynth_torch.nn.attention import (
     flash_forward, flash_forward_plain, mha, set_attention_impl,
 )
 from eegsynth_torch.nn.gru_sequence import (
-    gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
+    forward_tile, gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
     gru_sequence_reference,
 )
 from eegsynth_torch.nn.layers import xavier_uniform
@@ -125,6 +125,9 @@ CHUNK_TOL = 1e-5       # chunked vs one-shot on the card (same kernel, same orde
 # and the training shape: 18 buckets of B 63
 KERNEL_SHAPES = ((1, 768, 256, 56, 28), (1, 768, 256, 28, 14),
                  (1, 1024, 37, 128, 28), (18, 768, 63, 56, 28))
+# K1 forward's instances (k-slice KL, lanes S a dot product): KL 16 with S
+# 1, 2, 4 for H <= 64, KL 32 with S 4 above
+K1_FWD_INSTANCES = ("KL 16, S 1", "KL 16, S 2", "KL 16, S 4", "KL 32, S 4")
 # K1 backward at the training shapes: the G/S/R width, the embedder's H 28,
 # and a ragged (nb 3, T 1024, B 37, H 128)
 BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128))
@@ -231,6 +234,30 @@ def phase_build() -> None:
             if any(k in line for k in ("entry function", "registers", "spill", "smem",
                                        "Performance Loss")):
                 print(f"[build] {line.strip()}", flush=True)
+    _check_k1_fwd_spills(log.read_text() if log.exists() else "")
+
+
+def _check_k1_fwd_spills(report: str) -> None:
+    """K1 forward holds W_hh^T in registers: every instance of
+    gru_seq_fwd_kernel (KL, S) in ptxas's report must show no spill stores
+    or loads, and all K1_FWD_INSTANCES must be there."""
+    spills: dict[str, tuple[int, int]] = {}
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S*gru_seq_fwd_kernelILi(\d+)ELi(\d+)E\S*)",
+                      line)
+        if m:
+            name = f"KL {m.group(2)}, S {m.group(3)}"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    print(f"[build] gru_seq_fwd_kernel spill stores / loads (bytes): " + ", ".join(
+        f"{k}: {v[0]} / {v[1]}" for k, v in sorted(spills.items())), flush=True)
+    if sorted(spills) != sorted(K1_FWD_INSTANCES) or any(any(v) for v in spills.values()):
+        fail(f"gru_seq_fwd_kernel: instances missing or spilling: {spills} "
+             f"(expected {K1_FWD_INSTANCES}, no spills)")
 
 
 def phase_sass() -> None:
@@ -372,11 +399,15 @@ def _check_k1_fwd(smi: str) -> dict:
                 ms = _time_ms(lambda: gru_sequence(*args), reps=20)
             plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=3)
         finite = bool(torch.isfinite(got).all())
-        rows = -(-nb * B // sms)
+        tile = forward_tile(nb, B, H)
+        blocks = tile["blocks"] * nb
         print(f"[kernel] gru_sequence nb={nb} T={T} B={B} H={H} in={I}: "
               f"max|diff|={err:.3e} (tol {KERNEL_TOL:g}) kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, tile {rows} rows x {-(-B // rows)} "
-              f"blocks x {nb} buckets | {smi}", flush=True)
+              f"plain {plain_ms:.4f} ms, tile {tile['rows']} rows x "
+              f"{tile['blocks']} tiles x {nb} buckets = {blocks} blocks of "
+              f"{tile['threads']} threads, KL {tile['kl']}, S {tile['s']}, "
+              f"{tile['smem']} B shared; {'one wave' if blocks <= sms else 'past one wave'} "
+              f"on {sms} SMs | {smi}", flush=True)
         if not finite or err > KERNEL_TOL:
             fail(f"gru_sequence disagrees with its plain version at "
                  f"nb={nb} T={T} B={B} H={H}: max|diff|={err} finite={finite}")

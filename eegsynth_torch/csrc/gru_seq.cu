@@ -17,34 +17,67 @@
 // What bounds it on this card: a chain of T dependent small products, each a
 // (rows x H) @ (H x 3H) with an H-deep dot product per output (56 at the
 // serving width). Reading xp and writing ys is the only HBM traffic, spread
-// evenly over the run, and the arithmetic is a few MFLOP per step, so neither
-// bandwidth nor FLOP/s bound it: the latency of one step, times T, does.
+// evenly over the run. At the serving shape (2 rows a block) neither
+// bandwidth nor FLOP/s bounds it: the latency of one step, times T, does. At
+// the training shape (9 rows a block) the step's 9 x 9,408 multiply-adds
+// come close to what an SM's 128 FP32 lanes issue in the same time.
 //
-// What the design does about that:
-//  - Batch rows and buckets are independent, so the grid runs over (tile of
-//    `rows` batch rows, bucket) and each block walks all T steps in a loop; no
-//    block ever waits on another. rows = ceil(nb B / #SMs) gives one tile per
-//    SM: B = 256, nb = 1 (serving) is 2 rows x 128 blocks; B = 63, nb = 18
-//    (training) is 9 rows x 7 tiles x 18 buckets = 126 blocks.
-//  - Each block keeps its own bucket's W_hh^T in shared memory for all T.
-//  - Forward: one thread owns one (row, hidden unit j). It keeps its own h
-//    and its three gate accumulators in registers and produces h'[row, j]
-//    alone, so a step needs one barrier; h is double-buffered in shared memory
-//    for the others to read. The next step's xp is loaded before this step's
-//    product, so its HBM latency is off the chain.
-//  - Backward (exact reverse-time BPTT of _gru_seq_bwd): the same thread owns
-//    the same (row, j) and carries dh[row, j] in a register from t = T-1 down
-//    to 0. Each step recomputes r, z, n from h_prev (ys[t-1] or h0) with the
-//    forward's own product, writes dxp[t] and the n-gate part of dhp
-//    (dn_pre * r; the r and z parts equal dxp's), then takes the second
-//    product dh_prev = dh z + dhp W_hh. That product reads W_hh^T by row
-//    (stride 3H): the shared copy is stored with a pitch of 3H + 1 floats, so
-//    32 neighbouring threads hit 32 different banks. Two barriers per step:
-//    after h_prev is in shared memory, and after the dhp row is.
-//    dW_hh^T = h_prev^T dhp and db_hh = sum dhp are left to one batched
-//    matrix product after the kernel (no atomics across blocks, deterministic).
-//  - expf / tanhf (not the fast-math intrinsics) keep the kernels within 1e-4
-//    of the plain PyTorch versions over 1024 dependent steps.
+// Batch rows and buckets are independent, so the grid runs over (tile of
+// `rows` batch rows, bucket) and each block walks all T steps in a loop; no
+// block ever waits on another. rows = ceil(nb B / #SMs) gives one tile per
+// SM: B = 256, nb = 1 (serving) is 2 rows x 128 blocks; B = 63, nb = 18
+// (training) is 9 rows x 7 tiles x 18 buckets = 126 blocks.
+//
+// Forward: weights stationary, the dot product split across lanes.
+//  - Thread (j, s), s < S, holds the KL-long k-slice s of W_hh^T's columns
+//    j, H + j and 2H + j in 3 KL registers, loaded once before the time loop
+//    (zeros at k >= H, and at j >= H for the threads that pad the block to
+//    whole warps). KL is 16 for H <= 64 and 32 above; S, the power of two at
+//    or above ceil(H / KL), is at most 4, and the S lanes of one j are
+//    neighbours in one warp. The block has H S threads rounded up to a warp
+//    (224 at H 56: 48 weight registers; 512 at H 128: 96 weight registers,
+//    and the launch bound of 512 leaves 128 a thread). Each instance's launch
+//    bound is its largest block; ptxas must report no spills for any
+//    (chip_smoke.py checks).
+//  - h lies in shared memory, double-buffered, in slices of KL values at a
+//    pitch of KL + 4 floats (so the S slices a quarter warp reads lie in
+//    distinct banks), zeros past H: a thread reads its slice of a row as
+//    float4s with no bound check.
+//  - Each thread serves every row of its block, a group of RG rows at a time
+//    (RG = 4 at KL 16, 2 at KL 32; the ragged tail takes a group of RG / 2
+//    where that covers it). For each row of a group it sums its slice into
+//    three accumulators, a fully unrolled chain of KL multiply-adds each, so
+//    3 RG chains run side by side. Registers do not grow with rows, so
+//    rows needs no register cap; shared memory is its only cap.
+//  - The S partial sums are added with __shfl_xor_sync, log2 S rounds that
+//    also scatter the group's rows over the lanes (lane s ends up with row
+//    s of a 4-row group). Every row is summed in the same order: slices k
+//    and k + S/2 first, then their sums at distance S/4, and so on
+//    (tests/test_torch_gru.py emulates it).
+//  - The lane holding a row's sums computes its gates, writes h' to the
+//    next h buffer and to ys: one barrier a step. The transcendentals are
+//    spread over the lanes.
+//  - xp arrives through a ring of kRing steps in shared memory, filled by
+//    cp.async kRing - 1 steps ahead: a block's rows of one step are rows x 3H
+//    contiguous floats, copied 16 bytes at a time where 3H % 4 == 0 and xp is
+//    16-byte aligned, 4 bytes otherwise.
+//  - No tensor cores: a step's product is at most (9 x 56) @ (56 x 168), and
+//    split-TF32 mma.sync would put a chain of about 21 dependent products on
+//    each step, which does not shorten the latency that bounds the kernel.
+// Backward (exact reverse-time BPTT of _gru_seq_bwd): one thread owns one
+//    (row, j), keeps W_hh^T in shared memory and carries dh[row, j] in a
+//    register from t = T-1 down to 0. Each step recomputes r, z, n from
+//    h_prev (ys[t-1] or h0) with the forward's product, writes dxp[t] and
+//    the n-gate part of dhp (dn_pre * r; the r and z parts equal dxp's),
+//    then takes the second product dh_prev = dh z + dhp W_hh. That product
+//    reads W_hh^T by row (stride 3H): the shared copy is stored with a pitch
+//    of 3H + 1 floats, so 32 neighbouring threads hit 32 different banks.
+//    Two barriers per step: after h_prev is in shared memory, and after the
+//    dhp row is. dW_hh^T = h_prev^T dhp and db_hh = sum dhp are left to one
+//    batched matrix product after the kernel (no atomics across blocks,
+//    deterministic).
+// expf / tanhf (not the fast-math intrinsics) keep the kernels within 1e-4
+// of the plain PyTorch versions over 1024 dependent steps.
 // The kernels allocate nothing and do not synchronise: the caller owns the
 // outputs and the stream.
 
@@ -52,28 +85,127 @@
 
 #include <algorithm>
 #include <cstddef>
+#include <cstdint>
+
+#include "tf32_wgmma.cuh"  // cp_async4, cp_async16, cp_async_commit, cp_async_wait
+
+// The forward's compile-time choices, defaults as measured best (PERF.md):
+// KL for H <= 64 (16 or 32), and the depth of the xp ring.
+#ifndef GRU_FWD_KL
+#define GRU_FWD_KL 16
+#endif
+#ifndef GRU_FWD_RING
+#define GRU_FWD_RING 8
+#endif
 
 namespace {
 
 constexpr int kMaxHidden = 128;
 constexpr int kMaxThreads = 1024;
+constexpr int kSmallKL = GRU_FWD_KL;  // k-slice length for H <= 64
+constexpr int kRing = GRU_FWD_RING;   // steps of xp in the ring
+static_assert(kSmallKL == 16 || kSmallKL == 32, "GRU_FWD_KL is 16 or 32");
+static_assert(kRing >= 2, "GRU_FWD_RING is at least 2");
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// No __launch_bounds__ here: with __launch_bounds__(1024) this kernel ran
-// 1.5x slower at every shape measured (2.29 vs 1.47 ms at T 768, B 256,
-// H 56), at the same 32 registers. Without it ptxas still stays at 32, so
-// 1024-thread blocks launch. The backward kernel keeps its bound: it needs
-// 49 registers, and more than 64 would refuse a 1024-thread launch.
-__global__ void gru_seq_fwd_kernel(const float* __restrict__ xp,
-                                   const float* __restrict__ w_hh_t,
-                                   const float* __restrict__ b_hh,
-                                   const float* __restrict__ h0,
-                                   float* __restrict__ ys,
-                                   int T, int B, int H, int rows) {
-  extern __shared__ float smem[];
+// Rows of one group (RG) and the largest block of an instance (KL, S).
+template <int KL>
+constexpr int fwd_group() { return KL <= 16 ? 4 : 2; }
+
+template <int KL, int S>
+constexpr int fwd_max_threads() { return KL * S * S < 32 ? 32 : KL * S * S; }
+
+// Adds the S lanes' partial sums of N rows (a[0..N)) across the lanes at
+// xor distance M, M / 2, ..., 1. While a lane holds more than one row, each
+// round also halves its rows: the lane whose M bit is set keeps the upper
+// half, its partner the lower, and `off` counts the rows passed over. Once
+// one row is left, the rounds add it in place.
+template <int RG, int M, int N>
+__device__ __forceinline__ void reduce_rows(float (&a)[RG][3], int s, int& off) {
+  if constexpr (M >= 1) {
+    if constexpr (N > 1) {
+      constexpr int N2 = N / 2;
+      const bool hi = (s & M) != 0;
+#pragma unroll
+      for (int i = 0; i < N2; ++i) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const float send = hi ? a[i][g] : a[i + N2][g];
+          const float keep = hi ? a[i + N2][g] : a[i][g];
+          a[i][g] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+        }
+      }
+      if (hi) off += N2;
+      reduce_rows<RG, M / 2, N2>(a, s, off);
+    } else {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) a[0][g] += __shfl_xor_sync(0xffffffffu, a[0][g], M);
+      reduce_rows<RG, M / 2, 1>(a, s, off);
+    }
+  }
+}
+
+// One step of rows [g0, g0 + RG) of the tile's n rows: rows past n repeat
+// row n - 1 (so every load is in bounds) and are not written.
+template <int KL, int S, int RG>
+__device__ __forceinline__ void fwd_rows(const float (&w)[3][KL], const float (&bias)[3],
+                                         const float* __restrict__ h_cur,
+                                         float* __restrict__ h_next,
+                                         const float* __restrict__ x_cur,
+                                         float* __restrict__ ys_t, int g0, int n,
+                                         int s, int j, int hj, int H) {
+  constexpr int P = S * (KL + 4);
+  float a[RG][3];
+#pragma unroll
+  for (int u = 0; u < RG; ++u) {
+    const float4* hv = reinterpret_cast<const float4*>(
+        h_cur + min(g0 + u, n - 1) * P + s * (KL + 4));
+    a[u][0] = a[u][1] = a[u][2] = 0.f;
+#pragma unroll
+    for (int q = 0; q < KL / 4; ++q) {
+      const float4 h4 = hv[q];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        a[u][g] = fmaf(h4.x, w[g][4 * q], a[u][g]);
+        a[u][g] = fmaf(h4.y, w[g][4 * q + 1], a[u][g]);
+        a[u][g] = fmaf(h4.z, w[g][4 * q + 2], a[u][g]);
+        a[u][g] = fmaf(h4.w, w[g][4 * q + 3], a[u][g]);
+      }
+    }
+  }
+  int off = 0;
+  reduce_rows<RG, S / 2, RG>(a, s, off);
+  constexpr int kHeld = RG >= S ? RG / S : 1;   // rows a lane holds
+  constexpr int kShare = RG >= S ? 1 : S / RG;  // lanes holding the same row
+  if (j < H && (s & (kShare - 1)) == 0) {
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i) {
+      const int r = g0 + off + i;
+      if (r < n) {
+        const float* x = x_cur + r * 3 * H + j;
+        const float h = h_cur[r * P + hj];
+        const float rg = sigmoid(x[0] + (a[i][0] + bias[0]));
+        const float zg = sigmoid(x[H] + (a[i][1] + bias[1]));
+        const float ng = tanhf(x[2 * H] + rg * (a[i][2] + bias[2]));
+        const float hn = (1.0f - zg) * ng + zg * h;
+        h_next[r * P + hj] = hn;
+        ys_t[r * H + j] = hn;
+      }
+    }
+  }
+}
+
+template <int KL, int S>
+__global__ void __launch_bounds__(fwd_max_threads<KL, S>())
+gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_t,
+                   const float* __restrict__ b_hh, const float* __restrict__ h0,
+                   float* __restrict__ ys, int T, int B, int H, int rows, int vec) {
+  constexpr int P = S * (KL + 4);  // row pitch of h in shared memory
+  constexpr int RG = fwd_group<KL>();
+  extern __shared__ __align__(16) float fwd_smem[];
   const int G = 3 * H;
   const size_t bucket = blockIdx.y;
   xp += bucket * T * B * G;
@@ -82,62 +214,69 @@ __global__ void gru_seq_fwd_kernel(const float* __restrict__ xp,
   b_hh += bucket * G;
   h0 += bucket * B * H;
 
-  float* w_s = smem;            // (H, 3H)
-  float* h_s = smem + H * G;    // two buffers of (rows, H)
+  const int b0 = blockIdx.x * rows;
+  const int n = min(rows, B - b0);    // rows of this tile
+  float* h_s = fwd_smem;              // two buffers of (rows, P)
+  float* x_s = fwd_smem + 2 * rows * P;  // kRing steps of (rows, 3H)
 
-  for (int i = threadIdx.x; i < H * G; i += blockDim.x) w_s[i] = w_hh_t[i];
-
-  const int r = threadIdx.x / H;        // row within the tile
-  const int j = threadIdx.x - r * H;    // hidden unit
-  const int b = blockIdx.x * rows + r;  // batch row
-  const bool active = r < rows && b < B;
-
-  float h = 0.f, bias_r = 0.f, bias_z = 0.f, bias_n = 0.f;
-  float x_r = 0.f, x_z = 0.f, x_n = 0.f;
-  if (active) {
-    h = h0[(size_t)b * H + j];
-    bias_r = b_hh[j];
-    bias_z = b_hh[H + j];
-    bias_n = b_hh[2 * H + j];
-    const float* x0 = xp + (size_t)b * G;
-    x_r = x0[j];
-    x_z = x0[H + j];
-    x_n = x0[2 * H + j];
+  const int j = threadIdx.x / S;
+  const int s = threadIdx.x % S;
+  const int hj = (j / KL) * (KL + 4) + j % KL;  // h[., j] within a row
+  float w[3][KL], bias[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    bias[g] = j < H ? b_hh[g * H + j] : 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KL; ++kk) {
+      const int k = s * KL + kk;
+      w[g][kk] = j < H && k < H ? w_hh_t[(size_t)k * G + g * H + j] : 0.f;
+    }
   }
-  if (r < rows) h_s[r * H + j] = h;
+
+  for (int i = threadIdx.x; i < 2 * rows * P; i += blockDim.x) h_s[i] = 0.f;
   __syncthreads();
+  for (int i = threadIdx.x; i < n * H; i += blockDim.x) {
+    const int r = i / H, c = i - r * H;
+    h_s[r * P + (c / KL) * (KL + 4) + c % KL] = h0[(size_t)(b0 + r) * H + c];
+  }
+
+  // xp of step t for this tile: n 3H contiguous floats, into slot t % kRing
+  const int len = n * G;
+  auto fetch = [&](int t) {
+    const float* src = xp + ((size_t)t * B + b0) * G;
+    float* dst = x_s + (t % kRing) * rows * G;
+    if (vec) {
+      for (int i = 4 * threadIdx.x; i < len; i += 4 * blockDim.x)
+        cp_async16(dst + i, src + i, 16);
+    } else {
+      for (int i = threadIdx.x; i < len; i += blockDim.x) cp_async4(dst + i, src + i, 4);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < kRing - 1; ++t) {
+    if (t < T) fetch(t);
+    cp_async_commit();
+  }
+  cp_async_wait<kRing - 2>();
+  __syncthreads();  // h0 and step 0's xp are in place
 
   for (int t = 0; t < T; ++t) {
-    const float* h_cur = h_s + (t & 1) * rows * H + r * H;
-    float* h_next = h_s + ((t + 1) & 1) * rows * H;
-    float nx_r = 0.f, nx_z = 0.f, nx_n = 0.f;
-    if (active) {
-      if (t + 1 < T) {
-        const float* xn = xp + ((size_t)(t + 1) * B + b) * G;
-        nx_r = xn[j];
-        nx_z = xn[H + j];
-        nx_n = xn[2 * H + j];
-      }
-      float a_r = 0.f, a_z = 0.f, a_n = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float hk = h_cur[k];
-        const float* w = w_s + k * G + j;
-        a_r = fmaf(hk, w[0], a_r);
-        a_z = fmaf(hk, w[H], a_z);
-        a_n = fmaf(hk, w[2 * H], a_n);
-      }
-      const float rg = sigmoid(x_r + (a_r + bias_r));
-      const float zg = sigmoid(x_z + (a_z + bias_z));
-      const float ng = tanhf(x_n + rg * (a_n + bias_n));
-      h = (1.0f - zg) * ng + zg * h;
-      h_next[r * H + j] = h;
-      ys[((size_t)t * B + b) * H + j] = h;
-    }
-    x_r = nx_r;
-    x_z = nx_z;
-    x_n = nx_n;
-    __syncthreads();
+    // the slot refilled here was read in step t - 1, before the last barrier
+    if (t + kRing - 1 < T) fetch(t + kRing - 1);
+    cp_async_commit();
+    const float* h_cur = h_s + (t & 1) * rows * P;
+    float* h_next = h_s + ((t + 1) & 1) * rows * P;
+    const float* x_cur = x_s + (t % kRing) * rows * G;
+    float* ys_t = ys + ((size_t)t * B + b0) * H;
+    int g0 = 0;
+    for (; g0 + RG <= n; g0 += RG)
+      fwd_rows<KL, S, RG>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
+    if (n - g0 > RG / 2)
+      fwd_rows<KL, S, RG>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
+    else if (n > g0)
+      fwd_rows<KL, S, RG / 2>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
+    cp_async_wait<kRing - 2>();  // step t + 1's xp has landed (this thread's copies)
+    __syncthreads();             // h' and step t + 1's xp are visible to all
   }
 }
 
@@ -299,6 +438,56 @@ bool bad_dims(int nb, int T, int B, int H) {
   return nb < 0 || T < 0 || B < 0 || H <= 0 || H > kMaxHidden || nb > 65535;
 }
 
+// The forward's tile: the instance (KL, S), threads, rows per block (one tile
+// per SM where shared memory allows), tiles per bucket and shared bytes.
+struct FwdTile {
+  int kl, s, threads, rows, blocks;
+  size_t smem;
+};
+
+cudaError_t fwd_tile(int nb, int B, int H, FwdTile* tile) {
+  int dev = 0, sms = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const int kl = H <= 64 ? kSmallKL : 32;
+  int s = 1;
+  while (s * kl < H) s *= 2;
+  const long long row_bytes =
+      (2LL * s * (kl + 4) + (long long)kRing * 3 * H) * (long long)sizeof(float);
+  const long long total = (long long)std::max(nb, 1) * std::max(B, 1);
+  long long rows = (total + sms - 1) / sms;
+  rows = std::min<long long>(rows, std::max(B, 1));
+  rows = std::min<long long>(rows, max_smem / row_bytes);
+  tile->kl = kl;
+  tile->s = s;
+  tile->threads = (H * s + 31) / 32 * 32;
+  tile->rows = static_cast<int>(std::max<long long>(rows, 1));
+  tile->blocks = (B + tile->rows - 1) / tile->rows;
+  tile->smem = static_cast<size_t>(tile->rows * row_bytes);
+  return cudaSuccess;
+}
+
+template <int KL, int S>
+cudaError_t fwd_launch(const FwdTile& tile, const float* xp, const float* w_hh_t,
+                       const float* b_hh, const float* h0, float* ys, int nb,
+                       int T, int B, int H, cudaStream_t stream) {
+  const auto kernel = gru_seq_fwd_kernel<KL, S>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(tile.smem));
+  if (err != cudaSuccess) return err;
+  const int vec = (3 * H) % 4 == 0 && reinterpret_cast<uintptr_t>(xp) % 16 == 0;
+  kernel<<<dim3(tile.blocks, nb), tile.threads, tile.smem, stream>>>(
+      xp, w_hh_t, b_hh, h0, ys, T, B, H, tile.rows, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int gru_seq_fwd(const float* xp, const float* w_hh_t,
@@ -306,21 +495,32 @@ extern "C" int gru_seq_fwd(const float* xp, const float* w_hh_t,
                            int nb, int T, int B, int H, cudaStream_t stream) {
   if (bad_dims(nb, T, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   if (nb == 0 || T == 0 || B == 0) return 0;
-  const long long w_bytes = 3LL * H * H * (long long)sizeof(float);
-  const long long row_bytes = 2LL * H * (long long)sizeof(float);
-  int rows = 1;
-  cudaError_t err = plan(nb, B, H, w_bytes, row_bytes, &rows);
+  FwdTile tile;
+  cudaError_t err = fwd_tile(nb, B, H, &tile);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(w_bytes + rows * row_bytes);
-  const int threads = (rows * H + 31) / 32 * 32;
-  const dim3 grid((B + rows - 1) / rows, nb);
-  err = cudaFuncSetAttribute(gru_seq_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  if (tile.kl == 32 && tile.s == 4) {
+    err = fwd_launch<32, 4>(tile, xp, w_hh_t, b_hh, h0, ys, nb, T, B, H, stream);
+  } else if (tile.s == 1) {
+    err = fwd_launch<kSmallKL, 1>(tile, xp, w_hh_t, b_hh, h0, ys, nb, T, B, H, stream);
+  } else if (tile.s == 2) {
+    err = fwd_launch<kSmallKL, 2>(tile, xp, w_hh_t, b_hh, h0, ys, nb, T, B, H, stream);
+  } else {
+    err = fwd_launch<kSmallKL, 4>(tile, xp, w_hh_t, b_hh, h0, ys, nb, T, B, H, stream);
+  }
+  return static_cast<int>(err);
+}
+
+// The forward's tile for (nb, B, H) on the current card, for reports:
+// out = {rows, tiles per bucket, threads, KL, S, shared bytes}.
+extern "C" int gru_seq_fwd_tile(int nb, int B, int H, int* out) {
+  if (bad_dims(nb, 1, B, H)) return static_cast<int>(cudaErrorInvalidValue);
+  FwdTile tile;
+  const cudaError_t err = fwd_tile(nb, B, H, &tile);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gru_seq_fwd_kernel<<<grid, threads, smem, stream>>>(xp, w_hh_t, b_hh, h0, ys,
-                                                      T, B, H, rows);
-  return static_cast<int>(cudaGetLastError());
+  const int vals[6] = {tile.rows, tile.blocks, tile.threads, tile.kl, tile.s,
+                       static_cast<int>(tile.smem)};
+  std::copy(vals, vals + 6, out);
+  return 0;
 }
 
 extern "C" int gru_seq_bwd(const float* xp, const float* w_hh_t,

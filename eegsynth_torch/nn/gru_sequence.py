@@ -20,6 +20,8 @@ the shapes are the Pallas kernel's own.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -125,6 +127,17 @@ def _launch(fn: str, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, fn)(*ptrs, stream)
     _build.check(lib, fn, code)
+
+
+def forward_tile(nb: int, B: int, H: int) -> dict[str, int]:
+    """The forward kernel's tile for (nb, B, H) on the current card: batch
+    rows a block, tiles a bucket (the grid is tiles × nb), threads a block,
+    the k-slice length KL, the lanes S that split one dot product, and the
+    block's shared bytes."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 6)()
+    _build.check(lib, "gru_seq_fwd_tile", lib.gru_seq_fwd_tile(nb, B, H, out))
+    return dict(zip(("rows", "blocks", "threads", "kl", "s", "smem"), out))
 
 
 def _forward(xp, w_hh_t, b_hh, h0) -> torch.Tensor:

@@ -52,20 +52,39 @@ def _inputs(T, B, H, device, seed=0, lead=()):
 
 
 # serving width, embedder width, H cap with a ragged batch, a batch just
-# over one tile per SM, an H that is not a multiple of 32, one step
-@pytest.mark.parametrize("T,B,H", [(768, 256, 56), (768, 256, 28),
-                                   (1024, 37, 128), (64, 133, 56), (50, 7, 20),
-                                   (1, 3, 8)])
-def test_kernel_matches_plain(cuda_device, T, B, H):
-    inputs = _inputs(T, B, H, cuda_device)
+# over one tile per SM, an H that is not a multiple of 32, one step; the
+# forward's instance boundaries (KL 16 up to H 64, KL 32 past it) and H 127
+# (3H not a multiple of 4: 4-byte copies of xp); the training shape through
+# the bucket axis (9 rows a block, a ragged group of rows)
+@pytest.mark.parametrize("T,B,H,nb", [(768, 256, 56, None), (768, 256, 28, None),
+                                      (1024, 37, 128, None), (64, 133, 56, None),
+                                      (50, 7, 20, None), (1, 3, 8, None),
+                                      (300, 37, 64, None), (300, 37, 65, None),
+                                      (300, 37, 96, None), (300, 37, 127, None),
+                                      (768, 63, 56, 18)])
+def test_kernel_matches_plain(cuda_device, T, B, H, nb):
+    lead = () if nb is None else (nb,)
+    inputs = _inputs(T, B, H, cuda_device, lead=lead)
     before = gru_sequence.launches
     got = gru_sequence(*inputs)
     ref = gru_sequence_reference(*inputs)
     torch.cuda.synchronize()
     assert gru_sequence.launches == before + 1
-    assert got.shape == (T, B, H) and torch.isfinite(got).all()
+    assert got.shape == (*lead, T, B, H) and torch.isfinite(got).all()
     # f32 with another summation order over up to 1024 dependent steps
     assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("nb,T,B,H", [(1, 768, 256, 56), (18, 768, 63, 56),
+                                      (2, 100, 37, 128)])
+def test_kernel_repeats_bitwise(cuda_device, nb, T, B, H):
+    """Two launches on the same inputs give the same bits: the kernel's sums
+    have a fixed order (no atomics)."""
+    inputs = _inputs(T, B, H, cuda_device, seed=5, lead=(nb,))
+    first = gru_sequence(*inputs)
+    second = gru_sequence(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda_device):

@@ -46,6 +46,69 @@ def test_reference_matches_pallas_interpret(T, B, H):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
 
 
+def _kernel_sum_order(xp, w, b, h0):
+    """K1 forward's arithmetic in the Hopper kernel's order
+    (eegsynth_torch/csrc/gru_seq.cu), in numpy float32: each of S lanes sums
+    a KL-long k-slice of h W_hhᵀ as a chain of multiply-adds from zero (h and
+    W padded with zeros past H), the S partial sums are added pairwise at
+    distance S/2, then S/4, ... (the shuffle butterfly), then b_hh, then the
+    gates. A multiply-add is rounded once from float64, as fmaf is (within
+    double rounding)."""
+    T, B, G = xp.shape
+    H = G // 3
+    kl = 16 if H <= 64 else 32
+    s = 1
+    while s * kl < H:
+        s *= 2
+    w_pad = np.zeros((s * kl, G), np.float32)
+    w_pad[:H] = w
+    w_sl = w_pad.reshape(s, kl, G).astype(np.float64)
+    h = h0.astype(np.float32)
+    ys = np.empty((T, B, H), np.float32)
+    for t in range(T):
+        h_pad = np.zeros((B, s * kl), np.float32)
+        h_pad[:, :H] = h
+        h_sl = h_pad.reshape(B, s, kl).transpose(1, 0, 2).astype(np.float64)
+        part = np.zeros((s, B, G), np.float32)
+        for k in range(kl):
+            part = (h_sl[:, :, k, None] * w_sl[:, None, k, :] + part).astype(np.float32)
+        while len(part) > 1:
+            half = len(part) // 2
+            part = part[:half] + part[half:]
+        acc = part[0]
+        x = xp[t]
+        r = 1 / (1 + np.exp(-(x[:, :H] + (acc[:, :H] + b[0, :H]))))
+        z = 1 / (1 + np.exp(-(x[:, H:2 * H] + (acc[:, H:2 * H] + b[0, H:2 * H]))))
+        n = np.tanh(x[:, 2 * H:] + r * (acc[:, 2 * H:] + b[0, 2 * H:]))
+        h = ((1 - z) * n + z * h).astype(np.float32)
+        ys[t] = h
+    return ys
+
+
+# the H cap (KL 32, S 4) over 1024 steps; the serving width (KL 16, S 4)
+@pytest.mark.parametrize("T,B,H", [(1024, 5, 128), (768, 4, 56)])
+def test_kernel_sum_order_matches_reference(T, B, H):
+    """The kernel's summation order (sliced k, zero padding, butterfly) stays
+    within the card tests' 1e-4 of the plain recurrence: f32 sums in another
+    order over up to 1024 dependent steps."""
+    inputs = list(_seq_inputs(np.random.default_rng(T + H), T, B, H))
+    inputs[1] /= np.float32(0.3 * np.sqrt(H))    # W ~ 1/sqrt(H), as at init
+    got = _kernel_sum_order(*inputs)
+    ref = gru_sequence_reference(*(torch.from_numpy(a) for a in inputs))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref.numpy(), rtol=0, atol=1e-4)
+
+
+def test_kernel_sum_order_matches_pallas_interpret():
+    """The same order against the Pallas kernel in interpret mode at H 20
+    (KL 16, S 2: 12 zero-padded k)."""
+    T, B, H = 16, 3, 20
+    inputs = _seq_inputs(np.random.default_rng(T), T, B, H)
+    ref = jax_gru_sequence(*(jnp.asarray(a) for a in inputs), True)
+    np.testing.assert_allclose(_kernel_sum_order(*inputs), np.asarray(ref),
+                               rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
 @pytest.mark.parametrize("B,T,I,H", [(4, 37, 14, 28), (2, 16, 28, 56)])
 def test_gru_apply_matches_jax(impl, B, T, I, H):
