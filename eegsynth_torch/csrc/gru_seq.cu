@@ -113,10 +113,10 @@ __device__ __forceinline__ float sigmoid(float x) {
 
 // Rows of one group (RG) and the largest block of an instance (KL, S).
 template <int KL>
-constexpr int fwd_group() { return KL <= 16 ? 4 : 2; }
+constexpr int kFwdGroup = KL <= 16 ? 4 : 2;
 
 template <int KL, int S>
-constexpr int fwd_max_threads() { return KL * S * S < 32 ? 32 : KL * S * S; }
+constexpr int kFwdMaxThreads = KL * S * S < 32 ? 32 : KL * S * S;
 
 // Adds the S lanes' partial sums of N rows (a[0..N)) across the lanes at
 // xor distance M, M / 2, ..., 1. While a lane holds more than one row, each
@@ -199,12 +199,12 @@ __device__ __forceinline__ void fwd_rows(const float (&w)[3][KL], const float (&
 }
 
 template <int KL, int S>
-__global__ void __launch_bounds__(fwd_max_threads<KL, S>())
+__global__ void __launch_bounds__((kFwdMaxThreads<KL, S>))
 gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_t,
                    const float* __restrict__ b_hh, const float* __restrict__ h0,
                    float* __restrict__ ys, int T, int B, int H, int rows, int vec) {
   constexpr int P = S * (KL + 4);  // row pitch of h in shared memory
-  constexpr int RG = fwd_group<KL>();
+  constexpr int RG = kFwdGroup<KL>;
   extern __shared__ __align__(16) float fwd_smem[];
   const int G = 3 * H;
   const size_t bucket = blockIdx.y;
