@@ -111,22 +111,36 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// Rows of one group (RG) and the largest block of an instance (KL, S).
-template <int KL>
-constexpr int kFwdGroup = KL <= 16 ? 4 : 2;
-
+// The largest block of an instance (KL, S).
 template <int KL, int S>
 constexpr int kFwdMaxThreads = KL * S * S < 32 ? 32 : KL * S * S;
 
+// The reduction below, from N rows a lane at lane distances S/2, ..., 1:
+// the rows a lane holds at its end, and the lane bits over which lanes hold
+// the same rows (a lane computes the gates iff its bits there are 0).
+__host__ __device__ constexpr int fwd_held(int S, int N) {
+  for (int m = S / 2; m >= 1; m /= 2) N = N % 2 == 0 ? N / 2 : N;
+  return N;
+}
+
+__host__ __device__ constexpr int fwd_shared_bits(int S, int N) {
+  int bits = 0;
+  for (int m = S / 2; m >= 1; m /= 2) {
+    if (N % 2 == 0) N /= 2;
+    else bits |= m;
+  }
+  return bits;
+}
+
 // Adds the S lanes' partial sums of N rows (a[0..N)) across the lanes at
-// xor distance M, M / 2, ..., 1. While a lane holds more than one row, each
-// round also halves its rows: the lane whose M bit is set keeps the upper
-// half, its partner the lower, and `off` counts the rows passed over. Once
-// one row is left, the rounds add it in place.
+// xor distance M, M / 2, ..., 1. While a lane holds an even number of rows,
+// a round also halves them: the lane whose M bit is set keeps the upper
+// half, its partner the lower, and `off` counts the rows passed over. With
+// an odd number left, the rounds add them in place.
 template <int RG, int M, int N>
 __device__ __forceinline__ void reduce_rows(float (&a)[RG][3], int s, int& off) {
   if constexpr (M >= 1) {
-    if constexpr (N > 1) {
+    if constexpr (N % 2 == 0) {
       constexpr int N2 = N / 2;
       const bool hi = (s & M) != 0;
 #pragma unroll
@@ -142,14 +156,18 @@ __device__ __forceinline__ void reduce_rows(float (&a)[RG][3], int s, int& off) 
       reduce_rows<RG, M / 2, N2>(a, s, off);
     } else {
 #pragma unroll
-      for (int g = 0; g < 3; ++g) a[0][g] += __shfl_xor_sync(0xffffffffu, a[0][g], M);
-      reduce_rows<RG, M / 2, 1>(a, s, off);
+      for (int i = 0; i < N; ++i) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) a[i][g] += __shfl_xor_sync(0xffffffffu, a[i][g], M);
+      }
+      reduce_rows<RG, M / 2, N>(a, s, off);
     }
   }
 }
 
-// One step of rows [g0, g0 + RG) of the tile's n rows: rows past n repeat
-// row n - 1 (so every load is in bounds) and are not written.
+// One step of rows [g0, g0 + RG) of the tile's n rows, all in one
+// straight run: the RG rows' sums, their reduction, then their gates. Rows
+// past n repeat row n - 1 (so every load is in bounds) and are not written.
 template <int KL, int S, int RG>
 __device__ __forceinline__ void fwd_rows(const float (&w)[3][KL], const float (&bias)[3],
                                          const float* __restrict__ h_cur,
@@ -178,24 +196,53 @@ __device__ __forceinline__ void fwd_rows(const float (&w)[3][KL], const float (&
   }
   int off = 0;
   reduce_rows<RG, S / 2, RG>(a, s, off);
-  constexpr int kHeld = RG >= S ? RG / S : 1;   // rows a lane holds
-  constexpr int kShare = RG >= S ? 1 : S / RG;  // lanes holding the same row
-  if (j < H && (s & (kShare - 1)) == 0) {
+  constexpr int kHeld = fwd_held(S, RG);
+  if (j < H && (s & fwd_shared_bits(S, RG)) == 0) {
 #pragma unroll
     for (int i = 0; i < kHeld; ++i) {
       const int r = g0 + off + i;
+      const int rc = min(r, n - 1);
+      const float* x = x_cur + rc * 3 * H + j;
+      const float h = h_cur[rc * P + hj];
+      const float rg = sigmoid(x[0] + (a[i][0] + bias[0]));
+      const float zg = sigmoid(x[H] + (a[i][1] + bias[1]));
+      const float ng = tanhf(x[2 * H] + rg * (a[i][2] + bias[2]));
+      const float hn = (1.0f - zg) * ng + zg * h;
       if (r < n) {
-        const float* x = x_cur + r * 3 * H + j;
-        const float h = h_cur[r * P + hj];
-        const float rg = sigmoid(x[0] + (a[i][0] + bias[0]));
-        const float zg = sigmoid(x[H] + (a[i][1] + bias[1]));
-        const float ng = tanhf(x[2 * H] + rg * (a[i][2] + bias[2]));
-        const float hn = (1.0f - zg) * ng + zg * h;
         h_next[r * P + hj] = hn;
         ys_t[r * H + j] = hn;
       }
     }
   }
+}
+
+// All n rows of one step: one group of the fewest rows in {2, 4, ..., 12}
+// that covers them (groups of 12 while more than 12 are left); at 512
+// threads (KL 32, S 4), whose 128 registers a thread leave room beside the
+// 96 weights for one row's sums only, a row at a time.
+template <int KL, int S>
+__device__ __forceinline__ void fwd_step(const float (&w)[3][KL], const float (&bias)[3],
+                                         const float* __restrict__ h_cur,
+                                         float* __restrict__ h_next,
+                                         const float* __restrict__ x_cur,
+                                         float* __restrict__ ys_t, int n, int s,
+                                         int j, int hj, int H) {
+#define GRU_FWD_ROWS(RG, g0) \
+  fwd_rows<KL, S, RG>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H)
+  if constexpr (kFwdMaxThreads<KL, S> <= 256) {
+    int g0 = 0;
+    for (; n - g0 > 12; g0 += 12) GRU_FWD_ROWS(12, g0);
+    const int rest = n - g0;
+    if (rest <= 2) GRU_FWD_ROWS(2, g0);
+    else if (rest <= 4) GRU_FWD_ROWS(4, g0);
+    else if (rest <= 6) GRU_FWD_ROWS(6, g0);
+    else if (rest <= 8) GRU_FWD_ROWS(8, g0);
+    else if (rest <= 10) GRU_FWD_ROWS(10, g0);
+    else GRU_FWD_ROWS(12, g0);
+  } else {
+    for (int g0 = 0; g0 < n; ++g0) GRU_FWD_ROWS(1, g0);
+  }
+#undef GRU_FWD_ROWS
 }
 
 template <int KL, int S>
@@ -204,7 +251,6 @@ gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_
                    const float* __restrict__ b_hh, const float* __restrict__ h0,
                    float* __restrict__ ys, int T, int B, int H, int rows, int vec) {
   constexpr int P = S * (KL + 4);  // row pitch of h in shared memory
-  constexpr int RG = kFwdGroup<KL>;
   extern __shared__ __align__(16) float fwd_smem[];
   const int G = 3 * H;
   const size_t bucket = blockIdx.y;
@@ -268,13 +314,7 @@ gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_
     float* h_next = h_s + ((t + 1) & 1) * rows * P;
     const float* x_cur = x_s + (t % kRing) * rows * G;
     float* ys_t = ys + ((size_t)t * B + b0) * H;
-    int g0 = 0;
-    for (; g0 + RG <= n; g0 += RG)
-      fwd_rows<KL, S, RG>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
-    if (n - g0 > RG / 2)
-      fwd_rows<KL, S, RG>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
-    else if (n > g0)
-      fwd_rows<KL, S, RG / 2>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
+    fwd_step<KL, S>(w, bias, h_cur, h_next, x_cur, ys_t, n, s, j, hj, H);
     cp_async_wait<kRing - 2>();  // step t + 1's xp has landed (this thread's copies)
     __syncthreads();             // h' and step t + 1's xp are visible to all
   }
