@@ -125,9 +125,10 @@ CHUNK_TOL = 1e-5       # chunked vs one-shot on the card (same kernel, same orde
 # and the training shape: 18 buckets of B 63
 KERNEL_SHAPES = ((1, 768, 256, 56, 28), (1, 768, 256, 28, 14),
                  (1, 1024, 37, 128, 28), (18, 768, 63, 56, 28))
-# K1 forward's instances (k-slice KL, lanes S a dot product): KL 16 with S
-# 1, 2, 4 for H <= 64, KL 32 with S 4 above
-K1_FWD_INSTANCES = ("KL 16, S 1", "KL 16, S 2", "KL 16, S 4", "KL 32, S 4")
+# K1 forward's instances (k-slice KL, lanes S a dot product, largest H):
+# KL 16 with S 1, 2, 4 up to H 64, KL 32 with S 4 above
+K1_FWD_INSTANCES = ("KL 16, S 1, H <= 16", "KL 16, S 2, H <= 32", "KL 16, S 4, H <= 64",
+                    "KL 32, S 4, H <= 96", "KL 32, S 4, H <= 128")
 # K1 backward at the training shapes: the G/S/R width, the embedder's H 28,
 # and a ragged (nb 3, T 1024, B 37, H 128)
 BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128))
@@ -239,15 +240,15 @@ def phase_build() -> None:
 
 def _check_k1_fwd_spills(report: str) -> None:
     """K1 forward holds W_hh^T in registers: every instance of
-    gru_seq_fwd_kernel (KL, S) in ptxas's report must show no spill stores
+    gru_seq_fwd_kernel (KL, S, largest H) in ptxas's report must show no spill stores
     or loads, and all K1_FWD_INSTANCES must be there."""
     spills: dict[str, tuple[int, int]] = {}
     name = None
     for line in report.splitlines():
-        m = re.search(r"Function properties for (\S*gru_seq_fwd_kernelILi(\d+)ELi(\d+)E\S*)",
+        m = re.search(r"Function properties for \S*gru_seq_fwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                       line)
         if m:
-            name = f"KL {m.group(2)}, S {m.group(3)}"
+            name = f"KL {m.group(1)}, S {m.group(2)}, H <= {m.group(3)}"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:

@@ -90,57 +90,51 @@
 #include "tf32_wgmma.cuh"  // cp_async4, cp_async16, cp_async_commit, cp_async_wait
 
 // The forward's compile-time choices, defaults as measured best (PERF.md):
-// KL for H <= 64 (16 or 32), and the depth of the xp ring.
-#ifndef GRU_FWD_KL
-#define GRU_FWD_KL 16
+// the k-slice length for 96 < H <= 128 (32 or 64), the depth of the xp
+// ring, and the blocks a tile plan aims at on each SM.
+#ifndef GRU_FWD_WIDE_KL
+#define GRU_FWD_WIDE_KL 32
 #endif
 #ifndef GRU_FWD_RING
-#define GRU_FWD_RING 8
+#define GRU_FWD_RING 16
+#endif
+#ifndef GRU_FWD_BLOCKS_PER_SM
+#define GRU_FWD_BLOCKS_PER_SM 1
 #endif
 
 namespace {
 
 constexpr int kMaxHidden = 128;
 constexpr int kMaxThreads = 1024;
-constexpr int kSmallKL = GRU_FWD_KL;  // k-slice length for H <= 64
-constexpr int kRing = GRU_FWD_RING;   // steps of xp in the ring
-static_assert(kSmallKL == 16 || kSmallKL == 32, "GRU_FWD_KL is 16 or 32");
+constexpr int kWideKL = GRU_FWD_WIDE_KL;  // k-slice length for 96 < H <= 128
+constexpr int kRing = GRU_FWD_RING;       // steps of xp in the ring
+constexpr int kBlocksPerSM = GRU_FWD_BLOCKS_PER_SM;
+static_assert(kWideKL == 32 || kWideKL == 64, "GRU_FWD_WIDE_KL is 32 or 64");
 static_assert(kRing >= 2, "GRU_FWD_RING is at least 2");
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// The largest block of an instance (KL, S).
-template <int KL, int S>
-constexpr int kFwdMaxThreads = KL * S * S < 32 ? 32 : KL * S * S;
+// An instance (KL, S, HM) takes H <= HM. Its launch bound is its largest
+// block, HM S threads; the registers that leave a thread fix how many rows'
+// sums it keeps at once (RG): 4 at KL 16, 2 at KL 32 under 384 threads, 1
+// at 512 threads or at KL 64.
+template <int S, int HM>
+constexpr int kFwdThreads = (HM * S + 31) / 32 * 32;
 
-// The reduction below, from N rows a lane at lane distances S/2, ..., 1:
-// the rows a lane holds at its end, and the lane bits over which lanes hold
-// the same rows (a lane computes the gates iff its bits there are 0).
-__host__ __device__ constexpr int fwd_held(int S, int N) {
-  for (int m = S / 2; m >= 1; m /= 2) N = N % 2 == 0 ? N / 2 : N;
-  return N;
-}
-
-__host__ __device__ constexpr int fwd_shared_bits(int S, int N) {
-  int bits = 0;
-  for (int m = S / 2; m >= 1; m /= 2) {
-    if (N % 2 == 0) N /= 2;
-    else bits |= m;
-  }
-  return bits;
-}
+template <int KL, int S, int HM>
+constexpr int kFwdGroup = KL == 16 ? 4 : KL == 32 && kFwdThreads<S, HM> <= 384 ? 2 : 1;
 
 // Adds the S lanes' partial sums of N rows (a[0..N)) across the lanes at
-// xor distance M, M / 2, ..., 1. While a lane holds an even number of rows,
-// a round also halves them: the lane whose M bit is set keeps the upper
-// half, its partner the lower, and `off` counts the rows passed over. With
-// an odd number left, the rounds add them in place.
+// xor distance M, M / 2, ..., 1. While a lane holds more than one row, each
+// round also halves its rows: the lane whose M bit is set keeps the upper
+// half, its partner the lower, and `off` counts the rows passed over. Once
+// one row is left, the rounds add it in place.
 template <int RG, int M, int N>
 __device__ __forceinline__ void reduce_rows(float (&a)[RG][3], int s, int& off) {
   if constexpr (M >= 1) {
-    if constexpr (N % 2 == 0) {
+    if constexpr (N > 1) {
       constexpr int N2 = N / 2;
       const bool hi = (s & M) != 0;
 #pragma unroll
@@ -156,20 +150,17 @@ __device__ __forceinline__ void reduce_rows(float (&a)[RG][3], int s, int& off) 
       reduce_rows<RG, M / 2, N2>(a, s, off);
     } else {
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-#pragma unroll
-        for (int g = 0; g < 3; ++g) a[i][g] += __shfl_xor_sync(0xffffffffu, a[i][g], M);
-      }
-      reduce_rows<RG, M / 2, N>(a, s, off);
+      for (int g = 0; g < 3; ++g) a[0][g] += __shfl_xor_sync(0xffffffffu, a[0][g], M);
+      reduce_rows<RG, M / 2, 1>(a, s, off);
     }
   }
 }
 
-// One step of rows [g0, g0 + RG) of the tile's n rows, all in one
-// straight run: the RG rows' sums, their reduction, then their gates. Rows
-// past n repeat row n - 1 (so every load is in bounds) and are not written.
+// One step of rows [g0, g0 + RG) of the tile's n rows: rows past n repeat
+// row n - 1 (so every load is in bounds) and are not written.
 template <int KL, int S, int RG>
-__device__ __forceinline__ void fwd_rows(const float (&w)[3][KL], const float (&bias)[3],
+__device__ __forceinline__ void fwd_rows(const float (&w)[3][KL],
+                                         const float* __restrict__ b_s,
                                          const float* __restrict__ h_cur,
                                          float* __restrict__ h_next,
                                          const float* __restrict__ x_cur,
@@ -196,19 +187,19 @@ __device__ __forceinline__ void fwd_rows(const float (&w)[3][KL], const float (&
   }
   int off = 0;
   reduce_rows<RG, S / 2, RG>(a, s, off);
-  constexpr int kHeld = fwd_held(S, RG);
-  if (j < H && (s & fwd_shared_bits(S, RG)) == 0) {
+  constexpr int kHeld = RG >= S ? RG / S : 1;   // rows a lane holds
+  constexpr int kShare = RG >= S ? 1 : S / RG;  // lanes holding the same row
+  if (j < H && (s & (kShare - 1)) == 0) {
 #pragma unroll
     for (int i = 0; i < kHeld; ++i) {
       const int r = g0 + off + i;
-      const int rc = min(r, n - 1);
-      const float* x = x_cur + rc * 3 * H + j;
-      const float h = h_cur[rc * P + hj];
-      const float rg = sigmoid(x[0] + (a[i][0] + bias[0]));
-      const float zg = sigmoid(x[H] + (a[i][1] + bias[1]));
-      const float ng = tanhf(x[2 * H] + rg * (a[i][2] + bias[2]));
-      const float hn = (1.0f - zg) * ng + zg * h;
       if (r < n) {
+        const float* x = x_cur + r * 3 * H + j;
+        const float h = h_cur[r * P + hj];
+        const float rg = sigmoid(x[0] + (a[i][0] + b_s[j]));
+        const float zg = sigmoid(x[H] + (a[i][1] + b_s[H + j]));
+        const float ng = tanhf(x[2 * H] + rg * (a[i][2] + b_s[2 * H + j]));
+        const float hn = (1.0f - zg) * ng + zg * h;
         h_next[r * P + hj] = hn;
         ys_t[r * H + j] = hn;
       }
@@ -216,41 +207,13 @@ __device__ __forceinline__ void fwd_rows(const float (&w)[3][KL], const float (&
   }
 }
 
-// All n rows of one step: one group of the fewest rows in {2, 4, ..., 12}
-// that covers them (groups of 12 while more than 12 are left); at 512
-// threads (KL 32, S 4), whose 128 registers a thread leave room beside the
-// 96 weights for one row's sums only, a row at a time.
-template <int KL, int S>
-__device__ __forceinline__ void fwd_step(const float (&w)[3][KL], const float (&bias)[3],
-                                         const float* __restrict__ h_cur,
-                                         float* __restrict__ h_next,
-                                         const float* __restrict__ x_cur,
-                                         float* __restrict__ ys_t, int n, int s,
-                                         int j, int hj, int H) {
-#define GRU_FWD_ROWS(RG, g0) \
-  fwd_rows<KL, S, RG>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H)
-  if constexpr (kFwdMaxThreads<KL, S> <= 256) {
-    int g0 = 0;
-    for (; n - g0 > 12; g0 += 12) GRU_FWD_ROWS(12, g0);
-    const int rest = n - g0;
-    if (rest <= 2) GRU_FWD_ROWS(2, g0);
-    else if (rest <= 4) GRU_FWD_ROWS(4, g0);
-    else if (rest <= 6) GRU_FWD_ROWS(6, g0);
-    else if (rest <= 8) GRU_FWD_ROWS(8, g0);
-    else if (rest <= 10) GRU_FWD_ROWS(10, g0);
-    else GRU_FWD_ROWS(12, g0);
-  } else {
-    for (int g0 = 0; g0 < n; ++g0) GRU_FWD_ROWS(1, g0);
-  }
-#undef GRU_FWD_ROWS
-}
-
-template <int KL, int S>
-__global__ void __launch_bounds__((kFwdMaxThreads<KL, S>))
+template <int KL, int S, int HM>
+__global__ void __launch_bounds__((kFwdThreads<S, HM>))
 gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_t,
                    const float* __restrict__ b_hh, const float* __restrict__ h0,
                    float* __restrict__ ys, int T, int B, int H, int rows, int vec) {
   constexpr int P = S * (KL + 4);  // row pitch of h in shared memory
+  constexpr int RG = kFwdGroup<KL, S, HM>;
   extern __shared__ __align__(16) float fwd_smem[];
   const int G = 3 * H;
   const size_t bucket = blockIdx.y;
@@ -261,17 +224,17 @@ gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_
   h0 += bucket * B * H;
 
   const int b0 = blockIdx.x * rows;
-  const int n = min(rows, B - b0);    // rows of this tile
-  float* h_s = fwd_smem;              // two buffers of (rows, P)
+  const int n = min(rows, B - b0);       // rows of this tile
+  float* h_s = fwd_smem;                 // two buffers of (rows, P)
   float* x_s = fwd_smem + 2 * rows * P;  // kRing steps of (rows, 3H)
+  float* b_s = x_s + kRing * rows * G;   // b_hh (3H)
 
   const int j = threadIdx.x / S;
   const int s = threadIdx.x % S;
   const int hj = (j / KL) * (KL + 4) + j % KL;  // h[., j] within a row
-  float w[3][KL], bias[3];
+  float w[3][KL];
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
-    bias[g] = j < H ? b_hh[g * H + j] : 0.f;
 #pragma unroll
     for (int kk = 0; kk < KL; ++kk) {
       const int k = s * KL + kk;
@@ -280,6 +243,7 @@ gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_
   }
 
   for (int i = threadIdx.x; i < 2 * rows * P; i += blockDim.x) h_s[i] = 0.f;
+  for (int i = threadIdx.x; i < G; i += blockDim.x) b_s[i] = b_hh[i];
   __syncthreads();
   for (int i = threadIdx.x; i < n * H; i += blockDim.x) {
     const int r = i / H, c = i - r * H;
@@ -314,7 +278,15 @@ gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_
     float* h_next = h_s + ((t + 1) & 1) * rows * P;
     const float* x_cur = x_s + (t % kRing) * rows * G;
     float* ys_t = ys + ((size_t)t * B + b0) * H;
-    fwd_step<KL, S>(w, bias, h_cur, h_next, x_cur, ys_t, n, s, j, hj, H);
+    int g0 = 0;
+    for (; g0 + RG <= n; g0 += RG)
+      fwd_rows<KL, S, RG>(w, b_s, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
+    if constexpr (RG > 1) {
+      if (n - g0 > RG / 2)
+        fwd_rows<KL, S, RG>(w, b_s, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
+      else if (n > g0)
+        fwd_rows<KL, S, RG / 2>(w, b_s, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
+    }
     cp_async_wait<kRing - 2>();  // step t + 1's xp has landed (this thread's copies)
     __syncthreads();             // h' and step t + 1's xp are visible to all
   }
@@ -478,8 +450,9 @@ bool bad_dims(int nb, int T, int B, int H) {
   return nb < 0 || T < 0 || B < 0 || H <= 0 || H > kMaxHidden || nb > 65535;
 }
 
-// The forward's tile: the instance (KL, S), threads, rows per block (one tile
-// per SM where shared memory allows), tiles per bucket and shared bytes.
+// The forward's tile: the instance (KL, S), threads, rows per block
+// (kBlocksPerSM tiles per SM where shared memory allows), tiles per bucket
+// and shared bytes.
 struct FwdTile {
   int kl, s, threads, rows, blocks;
   size_t smem;
@@ -496,29 +469,31 @@ cudaError_t fwd_tile(int nb, int B, int H, FwdTile* tile) {
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (err != cudaSuccess) return err;
-  const int kl = H <= 64 ? kSmallKL : 32;
+  const int kl = H <= 64 ? 16 : H <= 96 ? 32 : kWideKL;
   int s = 1;
   while (s * kl < H) s *= 2;
   const long long row_bytes =
       (2LL * s * (kl + 4) + (long long)kRing * 3 * H) * (long long)sizeof(float);
+  const long long fixed_bytes = 3LL * H * (long long)sizeof(float);
   const long long total = (long long)std::max(nb, 1) * std::max(B, 1);
-  long long rows = (total + sms - 1) / sms;
+  const long long slots = (long long)sms * kBlocksPerSM;
+  long long rows = (total + slots - 1) / slots;
   rows = std::min<long long>(rows, std::max(B, 1));
-  rows = std::min<long long>(rows, max_smem / row_bytes);
+  rows = std::min<long long>(rows, (max_smem - fixed_bytes) / row_bytes);
   tile->kl = kl;
   tile->s = s;
   tile->threads = (H * s + 31) / 32 * 32;
   tile->rows = static_cast<int>(std::max<long long>(rows, 1));
   tile->blocks = (B + tile->rows - 1) / tile->rows;
-  tile->smem = static_cast<size_t>(tile->rows * row_bytes);
+  tile->smem = static_cast<size_t>(fixed_bytes + tile->rows * row_bytes);
   return cudaSuccess;
 }
 
-template <int KL, int S>
+template <int KL, int S, int HM>
 cudaError_t fwd_launch(const FwdTile& tile, const float* xp, const float* w_hh_t,
                        const float* b_hh, const float* h0, float* ys, int nb,
                        int T, int B, int H, cudaStream_t stream) {
-  const auto kernel = gru_seq_fwd_kernel<KL, S>;
+  const auto kernel = gru_seq_fwd_kernel<KL, S, HM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(tile.smem));
   if (err != cudaSuccess) return err;
@@ -538,15 +513,14 @@ extern "C" int gru_seq_fwd(const float* xp, const float* w_hh_t,
   FwdTile tile;
   cudaError_t err = fwd_tile(nb, B, H, &tile);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (tile.kl == 32 && tile.s == 4) {
-    err = fwd_launch<32, 4>(tile, xp, w_hh_t, b_hh, h0, ys, nb, T, B, H, stream);
-  } else if (tile.s == 1) {
-    err = fwd_launch<kSmallKL, 1>(tile, xp, w_hh_t, b_hh, h0, ys, nb, T, B, H, stream);
-  } else if (tile.s == 2) {
-    err = fwd_launch<kSmallKL, 2>(tile, xp, w_hh_t, b_hh, h0, ys, nb, T, B, H, stream);
-  } else {
-    err = fwd_launch<kSmallKL, 4>(tile, xp, w_hh_t, b_hh, h0, ys, nb, T, B, H, stream);
-  }
+#define GRU_FWD_LAUNCH(KL, S, HM) \
+  fwd_launch<KL, S, HM>(tile, xp, w_hh_t, b_hh, h0, ys, nb, T, B, H, stream)
+  if (H <= 16) err = GRU_FWD_LAUNCH(16, 1, 16);
+  else if (H <= 32) err = GRU_FWD_LAUNCH(16, 2, 32);
+  else if (H <= 64) err = GRU_FWD_LAUNCH(16, 4, 64);
+  else if (H <= 96) err = GRU_FWD_LAUNCH(32, 4, 96);
+  else err = GRU_FWD_LAUNCH(kWideKL, 128 / kWideKL, 128);
+#undef GRU_FWD_LAUNCH
   return static_cast<int>(err);
 }
 

@@ -38,28 +38,55 @@ SHAPES = ((1, 768, 256, 56), (18, 768, 63, 56), (1, 768, 256, 28),
           (1, 1024, 37, 128), (2, 768, 63, 80), (18, 768, 63, 40))
 TOL = 1e-4     # as the card tests: f32 sums in another order over <= 1024 steps
 
+# sigmoid as 1/2 + tanh(x/2)/2: tanhf alone, no division
+TANH_SIGMOID = (("return 1.0f / (1.0f + expf(-x));",
+                 "return fmaf(0.5f, tanhf(0.5f * x), 0.5f);"),)
+# clock64() around the phases of one step, summed over the steps by thread 0
+# of block (0, 0) (lane 0 of j 0: it computes gates); gru_seq_fwd_phases
+# returns {sums, group phases, whole steps, T}
+TIMERS = (
+    ('#include "tf32_wgmma.cuh"',
+     '#include "tf32_wgmma.cuh"\n__device__ long long g_fwd_phase[5];'),
+    ("int s, int j, int hj, int H) {\n  constexpr int P = S * (KL + 4);\n  float a[RG][3];",
+     "int s, int j, int hj, int H, long long (&ph)[4]) {\n  constexpr int P = S * (KL + 4);"
+     "\n  float a[RG][3];\n  const long long c0 = clock64();"),
+    ("  int off = 0;\n  reduce_rows<RG, S / 2, RG>(a, s, off);",
+     "  const long long c1 = clock64();\n  int off = 0;\n  reduce_rows<RG, S / 2, RG>(a, s, off);"
+     "\n  const long long c2 = clock64();"),
+    ("        ys_t[r * H + j] = hn;\n      }\n    }\n  }\n}",
+     "        ys_t[r * H + j] = hn;\n      }\n    }\n  }\n  const long long c3 = clock64();"
+     "\n  ph[0] += c1 - c0;\n  ph[1] += c2 - c1;\n  ph[2] += c3 - c2;\n}"),
+    ("s, j, hj, H);", "s, j, hj, H, ph);"),
+    ("  for (int t = 0; t < T; ++t) {\n    // the slot",
+     "  long long ph[4] = {0, 0, 0, 0};\n  for (int t = 0; t < T; ++t) {\n"
+     "    const long long t0 = clock64();\n    // the slot"),
+    ("    __syncthreads();             // h' and step t + 1's xp are visible to all\n  }",
+     "    __syncthreads();             // h' and step t + 1's xp are visible to all\n"
+     "    ph[3] += clock64() - t0;\n  }\n"
+     "  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {\n"
+     "    for (int k = 0; k < 4; ++k) g_fwd_phase[k] = ph[k];\n    g_fwd_phase[4] = T;\n  }"),
+    ('extern "C" const char* eegsynth_cuda_error_string',
+     'extern "C" int gru_seq_fwd_phases(long long* out) {\n'
+     '  return static_cast<int>(cudaMemcpyFromSymbol(out, g_fwd_phase, sizeof(g_fwd_phase)));\n}'
+     '\n\nextern "C" const char* eegsynth_cuda_error_string'),
+)
+CHEAP_GATES = (("1.0f / (1.0f + expf(-x))", "0.5f * x"),
+               ("tanhf(x[2 * H]", "(0.5f * x[2 * H]"))
+NO_SHUFFLES = (("__shfl_xor_sync(0xffffffffu, send, M)", "send"),
+               ("__shfl_xor_sync(0xffffffffu, a[0][g], M)", "a[0][g]"))
+
 # name: (source patches (old, new), -D flags, keeps the arithmetic)
-STAND_INS = {
-    "cheap gates": ((("1.0f / (1.0f + expf(-x))", "0.5f * x"),
-                     ("tanhf(x[2 * H]", "(0.5f * x[2 * H]")), (), False),
-    "no shuffles": ((("__shfl_xor_sync(0xffffffffu, send, M)", "send"),
-                     ("__shfl_xor_sync(0xffffffffu, a[i][g], M)", "a[i][g]")), (), False),
-    "cheap gates, no shuffles": ((("1.0f / (1.0f + expf(-x))", "0.5f * x"),
-                                  ("tanhf(x[2 * H]", "(0.5f * x[2 * H]"),
-                                  ("__shfl_xor_sync(0xffffffffu, send, M)", "send"),
-                                  ("__shfl_xor_sync(0xffffffffu, a[i][g], M)", "a[i][g]")),
-                                 (), False),
-    "no barrier": ((("    __syncthreads();             // h' and", "    // h' and"),), (),
-                   False),
-}
 VARIANTS = {
     "this tree": ((), (), True),
-    "ring 4": ((), ("-DGRU_FWD_RING=4",), True),
-    "ring 16": ((), ("-DGRU_FWD_RING=16",), True),
-    "KL 32 at H <= 64": ((), ("-DGRU_FWD_KL=32",), True),
-    "KL 32 groups at 512 threads": (
-        (("kFwdMaxThreads<KL, S> <= 256", "kFwdMaxThreads<KL, S> <= 512"),), (), True),
-    **STAND_INS,
+    "ring 8": ((), ("-DGRU_FWD_RING=8",), True),
+    "2 blocks an SM": ((), ("-DGRU_FWD_BLOCKS_PER_SM=2",), True),
+    "tanh sigmoid": (TANH_SIGMOID, (), True),
+    "tanh sigmoid, 2 blocks an SM": (TANH_SIGMOID, ("-DGRU_FWD_BLOCKS_PER_SM=2",), True),
+    "KL 64 past H 96": ((), ("-DGRU_FWD_WIDE_KL=64",), True),
+    "timers": (TIMERS, (), True),
+    "timers, tanh sigmoid": (TIMERS + TANH_SIGMOID, (), True),
+    "cheap gates": (CHEAP_GATES, (), False),
+    "no shuffles": (NO_SHUFFLES, (), False),
 }
 
 
@@ -77,15 +104,23 @@ def _compile(name: str, src: str, flags, out: Path) -> tuple[str, str]:
 def _report(name: str, log: str) -> None:
     inst = None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*gru_seq_fwd_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Function properties for \S*gru_seq_fwd_kernel"
+                      r"ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?", line)
         if m:
-            inst = f"KL {m.group(1)}, S {m.group(2)}"
+            inst = f"KL {m.group(1)}, S {m.group(2)}" + (
+                f", H <= {m.group(3)}" if m.group(3) else "")
         elif inst and "spill" in line:
             spill = line.strip()
         elif inst and "Used" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             print(f"[ptxas] {name}: {inst}: {regs} registers; {spill}", flush=True)
             inst = None
+
+
+def _clocks() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
 
 
 def _time_ms(fn, reps: int = 15) -> float:
@@ -131,6 +166,8 @@ def main() -> None:
             lib = ctypes.CDLL(str(work / f"lib{i}.so"))
             lib.gru_seq_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
+            if hasattr(lib, "gru_seq_fwd_phases"):
+                lib.gru_seq_fwd_phases.argtypes = [ctypes.c_void_p]
             libs[name] = lib
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator().manual_seed(0)
@@ -157,6 +194,19 @@ def main() -> None:
         for order in (list(libs), list(libs)[::-1]):
             for name in order:
                 times[name].append(_time_ms(lambda: run(libs[name])))
+        for name, lib in libs.items():
+            if hasattr(lib, "gru_seq_fwd_phases"):
+                run(lib)
+                torch.cuda.synchronize()
+                ph = (ctypes.c_longlong * 5)()
+                if lib.gru_seq_fwd_phases(ph):
+                    raise RuntimeError("gru_seq_fwd_phases failed")
+                fma, red, gates, step = (v / ph[4] for v in ph[:4])
+                print(f"[phases] nb={nb} T={T} B={B} H={H} {name}: cycles a step, "
+                      f"block (0, 0) thread 0: step {step:.0f} = row groups' sums "
+                      f"issued {fma:.0f} + reduction {red:.0f} + gates {gates:.0f} + "
+                      f"the rest (copies issued, wait, barrier) "
+                      f"{step - fma - red - gates:.0f} | {_clocks()}", flush=True)
         for name in libs:
             exact = jobs[name][2]
             ok = errs[name] <= TOL
