@@ -126,9 +126,10 @@ CHUNK_TOL = 1e-5       # chunked vs one-shot on the card (same kernel, same orde
 KERNEL_SHAPES = ((1, 768, 256, 56, 28), (1, 768, 256, 28, 14),
                  (1, 1024, 37, 128, 28), (18, 768, 63, 56, 28))
 # K1 forward's instances (k-slice KL, lanes S a dot product, largest H):
-# KL 16 with S 1, 2, 4 up to H 64, KL 32 with S 4 above
+# KL 16 with S 1, 2, 4 up to H 64, KL 32 with S 4 up to H 96, KL 64 with S 2
+# up to H 128
 K1_FWD_INSTANCES = ("KL 16, S 1, H <= 16", "KL 16, S 2, H <= 32", "KL 16, S 4, H <= 64",
-                    "KL 32, S 4, H <= 96", "KL 32, S 4, H <= 128")
+                    "KL 32, S 4, H <= 96", "KL 64, S 2, H <= 128")
 # K1 backward at the training shapes: the G/S/R width, the embedder's H 28,
 # and a ragged (nb 3, T 1024, B 37, H 128)
 BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128))

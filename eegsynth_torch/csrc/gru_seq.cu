@@ -16,11 +16,15 @@
 //
 // What bounds it on this card: a chain of T dependent small products, each a
 // (rows x H) @ (H x 3H) with an H-deep dot product per output (56 at the
-// serving width). Reading xp and writing ys is the only HBM traffic, spread
-// evenly over the run. At the serving shape (2 rows a block) neither
-// bandwidth nor FLOP/s bounds it: the latency of one step, times T, does. At
-// the training shape (9 rows a block) the step's 9 x 9,408 multiply-adds
-// come close to what an SM's 128 FP32 lanes issue in the same time.
+// serving width), then the gates. Reading xp and writing ys is the only HBM
+// traffic, spread evenly over the run, and the arithmetic is a few MFLOP a
+// step, so neither bandwidth nor FLOP/s bounds it: one step's latency,
+// times T, does. clock64() timers on an H100 (PERF.md) put a step at
+// the serving shape at about 1,100 cycles: a third the gates, a quarter
+// the sums, a third the copies, the wait and the barrier. At the training
+// shape (9 rows a block, 7 warps on the SM's 4 schedulers) a step takes
+// about 3,500 cycles, most of it issuing the sums and the gates of its
+// three groups of rows.
 //
 // Batch rows and buckets are independent, so the grid runs over (tile of
 // `rows` batch rows, bucket) and each block walks all T steps in a loop; no
@@ -32,23 +36,28 @@
 //  - Thread (j, s), s < S, holds the KL-long k-slice s of W_hh^T's columns
 //    j, H + j and 2H + j in 3 KL registers, loaded once before the time loop
 //    (zeros at k >= H, and at j >= H for the threads that pad the block to
-//    whole warps). KL is 16 for H <= 64 and 32 above; S, the power of two at
-//    or above ceil(H / KL), is at most 4, and the S lanes of one j are
-//    neighbours in one warp. The block has H S threads rounded up to a warp
-//    (224 at H 56: 48 weight registers; 512 at H 128: 96 weight registers,
-//    and the launch bound of 512 leaves 128 a thread). Each instance's launch
-//    bound is its largest block; ptxas must report no spills for any
-//    (chip_smoke.py checks).
+//    whole warps). KL is 16 up to H 64, 32 up to H 96 and 64 up to H 128;
+//    S, the power of two at or above ceil(H / KL), is at most 4, and the S
+//    lanes of one j are neighbours in one warp. The block has H S threads
+//    rounded up to a warp: 224 at H 56.
+//  - Registers: each instance (KL, S, largest H) has its largest block as
+//    its launch bound, so a thread may hold 65,536 / bound registers. KL 16:
+//    48 weights under 255; KL 32 to H 96: 96 weights under 170 (384
+//    threads); KL 64 to H 128: 192 weights under 255 (256 threads). KL 32
+//    at H 128 would need 512 threads and leave 128 registers, and spilled.
+//    ptxas must report no spills for any instance (chip_smoke.py checks).
 //  - h lies in shared memory, double-buffered, in slices of KL values at a
 //    pitch of KL + 4 floats (so the S slices a quarter warp reads lie in
 //    distinct banks), zeros past H: a thread reads its slice of a row as
 //    float4s with no bound check.
 //  - Each thread serves every row of its block, a group of RG rows at a time
-//    (RG = 4 at KL 16, 2 at KL 32; the ragged tail takes a group of RG / 2
-//    where that covers it). For each row of a group it sums its slice into
-//    three accumulators, a fully unrolled chain of KL multiply-adds each, so
-//    3 RG chains run side by side. Registers do not grow with rows, so
-//    rows needs no register cap; shared memory is its only cap.
+//    (RG = 4 at KL 16, 2 at KL 32, 1 at KL 64; the ragged tail takes a
+//    group of RG / 2 where that covers it). For each row of a group it sums
+//    its slice into three accumulators, a fully unrolled chain of KL
+//    multiply-adds each, so 3 RG chains run side by side. Registers do not
+//    grow with rows, so rows needs no register cap; shared memory is its
+//    only cap. (One group of all of a step's rows was slower: its rows did
+//    not spread over the lanes, so the gates ran deeper on fewer lanes.)
 //  - The S partial sums are added with __shfl_xor_sync, log2 S rounds that
 //    also scatter the group's rows over the lanes (lane s ends up with row
 //    s of a 4-row group). Every row is summed in the same order: slices k
@@ -76,8 +85,10 @@
 //    dhp row is. dW_hh^T = h_prev^T dhp and db_hh = sum dhp are left to one
 //    batched matrix product after the kernel (no atomics across blocks,
 //    deterministic).
-// expf / tanhf (not the fast-math intrinsics) keep the kernels within 1e-4
-// of the plain PyTorch versions over 1024 dependent steps.
+// The accurate expf and tanhf (not the fast-math intrinsics, and no
+// --use_fast_math) keep the kernels within 1e-4 of the plain PyTorch
+// versions over 1024 dependent steps; the forward's sigmoid is
+// 1/2 + tanhf(x/2)/2 (sigmoid_fwd), the backward's 1/(1 + expf(-x)).
 // The kernels allocate nothing and do not synchronise: the caller owns the
 // outputs and the stream.
 
@@ -89,42 +100,38 @@
 
 #include "tf32_wgmma.cuh"  // cp_async4, cp_async16, cp_async_commit, cp_async_wait
 
-// The forward's compile-time choices, defaults as measured best (PERF.md):
-// the k-slice length for 96 < H <= 128 (32 or 64), the depth of the xp
-// ring, and the blocks a tile plan aims at on each SM.
-#ifndef GRU_FWD_WIDE_KL
-#define GRU_FWD_WIDE_KL 32
-#endif
+// The depth of the forward's xp ring, in steps (16 measured best; PERF.md).
 #ifndef GRU_FWD_RING
 #define GRU_FWD_RING 16
-#endif
-#ifndef GRU_FWD_BLOCKS_PER_SM
-#define GRU_FWD_BLOCKS_PER_SM 1
 #endif
 
 namespace {
 
 constexpr int kMaxHidden = 128;
 constexpr int kMaxThreads = 1024;
-constexpr int kWideKL = GRU_FWD_WIDE_KL;  // k-slice length for 96 < H <= 128
-constexpr int kRing = GRU_FWD_RING;       // steps of xp in the ring
-constexpr int kBlocksPerSM = GRU_FWD_BLOCKS_PER_SM;
-static_assert(kWideKL == 32 || kWideKL == 64, "GRU_FWD_WIDE_KL is 32 or 64");
+constexpr int kRing = GRU_FWD_RING;  // steps of xp in the ring
 static_assert(kRing >= 2, "GRU_FWD_RING is at least 2");
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// The forward's sigmoid, 1/2 + tanh(x/2)/2: the accurate tanhf and no
+// division, whose correctly rounded reciprocal costs the gates a longer
+// chain (16-17 % of the forward at every shape measured; PERF.md).
+__device__ __forceinline__ float sigmoid_fwd(float x) {
+  return fmaf(0.5f, tanhf(0.5f * x), 0.5f);
+}
+
 // An instance (KL, S, HM) takes H <= HM. Its launch bound is its largest
-// block, HM S threads; the registers that leave a thread fix how many rows'
-// sums it keeps at once (RG): 4 at KL 16, 2 at KL 32 under 384 threads, 1
-// at 512 threads or at KL 64.
+// block, HM S threads rounded up to a warp; the registers that leaves a
+// thread beside its 3 KL weights fix how many rows' sums it keeps at once
+// (RG): 4 at KL 16, 2 at KL 32 (384 threads: 170 registers), 1 at KL 64.
 template <int S, int HM>
 constexpr int kFwdThreads = (HM * S + 31) / 32 * 32;
 
-template <int KL, int S, int HM>
-constexpr int kFwdGroup = KL == 16 ? 4 : KL == 32 && kFwdThreads<S, HM> <= 384 ? 2 : 1;
+template <int KL>
+constexpr int kFwdGroup = KL == 16 ? 4 : KL == 32 ? 2 : 1;
 
 // Adds the S lanes' partial sums of N rows (a[0..N)) across the lanes at
 // xor distance M, M / 2, ..., 1. While a lane holds more than one row, each
@@ -159,8 +166,7 @@ __device__ __forceinline__ void reduce_rows(float (&a)[RG][3], int s, int& off) 
 // One step of rows [g0, g0 + RG) of the tile's n rows: rows past n repeat
 // row n - 1 (so every load is in bounds) and are not written.
 template <int KL, int S, int RG>
-__device__ __forceinline__ void fwd_rows(const float (&w)[3][KL],
-                                         const float* __restrict__ b_s,
+__device__ __forceinline__ void fwd_rows(const float (&w)[3][KL], const float (&bias)[3],
                                          const float* __restrict__ h_cur,
                                          float* __restrict__ h_next,
                                          const float* __restrict__ x_cur,
@@ -196,9 +202,9 @@ __device__ __forceinline__ void fwd_rows(const float (&w)[3][KL],
       if (r < n) {
         const float* x = x_cur + r * 3 * H + j;
         const float h = h_cur[r * P + hj];
-        const float rg = sigmoid(x[0] + (a[i][0] + b_s[j]));
-        const float zg = sigmoid(x[H] + (a[i][1] + b_s[H + j]));
-        const float ng = tanhf(x[2 * H] + rg * (a[i][2] + b_s[2 * H + j]));
+        const float rg = sigmoid_fwd(x[0] + (a[i][0] + bias[0]));
+        const float zg = sigmoid_fwd(x[H] + (a[i][1] + bias[1]));
+        const float ng = tanhf(x[2 * H] + rg * (a[i][2] + bias[2]));
         const float hn = (1.0f - zg) * ng + zg * h;
         h_next[r * P + hj] = hn;
         ys_t[r * H + j] = hn;
@@ -213,7 +219,7 @@ gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_
                    const float* __restrict__ b_hh, const float* __restrict__ h0,
                    float* __restrict__ ys, int T, int B, int H, int rows, int vec) {
   constexpr int P = S * (KL + 4);  // row pitch of h in shared memory
-  constexpr int RG = kFwdGroup<KL, S, HM>;
+  constexpr int RG = kFwdGroup<KL>;
   extern __shared__ __align__(16) float fwd_smem[];
   const int G = 3 * H;
   const size_t bucket = blockIdx.y;
@@ -227,14 +233,14 @@ gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_
   const int n = min(rows, B - b0);       // rows of this tile
   float* h_s = fwd_smem;                 // two buffers of (rows, P)
   float* x_s = fwd_smem + 2 * rows * P;  // kRing steps of (rows, 3H)
-  float* b_s = x_s + kRing * rows * G;   // b_hh (3H)
 
   const int j = threadIdx.x / S;
   const int s = threadIdx.x % S;
   const int hj = (j / KL) * (KL + 4) + j % KL;  // h[., j] within a row
-  float w[3][KL];
+  float w[3][KL], bias[3];
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
+    bias[g] = j < H ? b_hh[g * H + j] : 0.f;
 #pragma unroll
     for (int kk = 0; kk < KL; ++kk) {
       const int k = s * KL + kk;
@@ -243,7 +249,6 @@ gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_
   }
 
   for (int i = threadIdx.x; i < 2 * rows * P; i += blockDim.x) h_s[i] = 0.f;
-  for (int i = threadIdx.x; i < G; i += blockDim.x) b_s[i] = b_hh[i];
   __syncthreads();
   for (int i = threadIdx.x; i < n * H; i += blockDim.x) {
     const int r = i / H, c = i - r * H;
@@ -280,12 +285,12 @@ gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_
     float* ys_t = ys + ((size_t)t * B + b0) * H;
     int g0 = 0;
     for (; g0 + RG <= n; g0 += RG)
-      fwd_rows<KL, S, RG>(w, b_s, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
+      fwd_rows<KL, S, RG>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
     if constexpr (RG > 1) {
       if (n - g0 > RG / 2)
-        fwd_rows<KL, S, RG>(w, b_s, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
+        fwd_rows<KL, S, RG>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
       else if (n > g0)
-        fwd_rows<KL, S, RG / 2>(w, b_s, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
+        fwd_rows<KL, S, RG / 2>(w, bias, h_cur, h_next, x_cur, ys_t, g0, n, s, j, hj, H);
     }
     cp_async_wait<kRing - 2>();  // step t + 1's xp has landed (this thread's copies)
     __syncthreads();             // h' and step t + 1's xp are visible to all
@@ -450,9 +455,9 @@ bool bad_dims(int nb, int T, int B, int H) {
   return nb < 0 || T < 0 || B < 0 || H <= 0 || H > kMaxHidden || nb > 65535;
 }
 
-// The forward's tile: the instance (KL, S), threads, rows per block
-// (kBlocksPerSM tiles per SM where shared memory allows), tiles per bucket
-// and shared bytes.
+// The forward's tile: the instance (KL, S), threads, rows per block (one
+// tile per SM where shared memory allows), tiles per bucket and shared
+// bytes.
 struct FwdTile {
   int kl, s, threads, rows, blocks;
   size_t smem;
@@ -469,23 +474,21 @@ cudaError_t fwd_tile(int nb, int B, int H, FwdTile* tile) {
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (err != cudaSuccess) return err;
-  const int kl = H <= 64 ? 16 : H <= 96 ? 32 : kWideKL;
+  const int kl = H <= 64 ? 16 : H <= 96 ? 32 : 64;
   int s = 1;
   while (s * kl < H) s *= 2;
   const long long row_bytes =
       (2LL * s * (kl + 4) + (long long)kRing * 3 * H) * (long long)sizeof(float);
-  const long long fixed_bytes = 3LL * H * (long long)sizeof(float);
   const long long total = (long long)std::max(nb, 1) * std::max(B, 1);
-  const long long slots = (long long)sms * kBlocksPerSM;
-  long long rows = (total + slots - 1) / slots;
+  long long rows = (total + sms - 1) / sms;
   rows = std::min<long long>(rows, std::max(B, 1));
-  rows = std::min<long long>(rows, (max_smem - fixed_bytes) / row_bytes);
+  rows = std::min<long long>(rows, max_smem / row_bytes);
   tile->kl = kl;
   tile->s = s;
   tile->threads = (H * s + 31) / 32 * 32;
   tile->rows = static_cast<int>(std::max<long long>(rows, 1));
   tile->blocks = (B + tile->rows - 1) / tile->rows;
-  tile->smem = static_cast<size_t>(fixed_bytes + tile->rows * row_bytes);
+  tile->smem = static_cast<size_t>(tile->rows * row_bytes);
   return cudaSuccess;
 }
 
@@ -519,7 +522,7 @@ extern "C" int gru_seq_fwd(const float* xp, const float* w_hh_t,
   else if (H <= 32) err = GRU_FWD_LAUNCH(16, 2, 32);
   else if (H <= 64) err = GRU_FWD_LAUNCH(16, 4, 64);
   else if (H <= 96) err = GRU_FWD_LAUNCH(32, 4, 96);
-  else err = GRU_FWD_LAUNCH(kWideKL, 128 / kWideKL, 128);
+  else err = GRU_FWD_LAUNCH(64, 2, 128);
 #undef GRU_FWD_LAUNCH
   return static_cast<int>(err);
 }

@@ -46,17 +46,22 @@ def test_reference_matches_pallas_interpret(T, B, H):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
 
 
+def _sigmoid_fwd(x):
+    return (np.float32(0.5) * np.tanh(np.float32(0.5) * x) + np.float32(0.5)).astype(
+        np.float32)
+
+
 def _kernel_sum_order(xp, w, b, h0):
     """K1 forward's arithmetic in the Hopper kernel's order
     (eegsynth_torch/csrc/gru_seq.cu), in numpy float32: each of S lanes sums
     a KL-long k-slice of h W_hhᵀ as a chain of multiply-adds from zero (h and
     W padded with zeros past H), the S partial sums are added pairwise at
     distance S/2, then S/4, ... (the shuffle butterfly), then b_hh, then the
-    gates. A multiply-add is rounded once from float64, as fmaf is (within
-    double rounding)."""
+    gates, with the kernel's sigmoid 1/2 + tanh(x/2)/2. A multiply-add is
+    rounded once from float64, as fmaf is (within double rounding)."""
     T, B, G = xp.shape
     H = G // 3
-    kl = 16 if H <= 64 else 32
+    kl = 16 if H <= 64 else 32 if H <= 96 else 64
     s = 1
     while s * kl < H:
         s *= 2
@@ -77,16 +82,17 @@ def _kernel_sum_order(xp, w, b, h0):
             part = part[:half] + part[half:]
         acc = part[0]
         x = xp[t]
-        r = 1 / (1 + np.exp(-(x[:, :H] + (acc[:, :H] + b[0, :H]))))
-        z = 1 / (1 + np.exp(-(x[:, H:2 * H] + (acc[:, H:2 * H] + b[0, H:2 * H]))))
+        r = _sigmoid_fwd(x[:, :H] + (acc[:, :H] + b[0, :H]))
+        z = _sigmoid_fwd(x[:, H:2 * H] + (acc[:, H:2 * H] + b[0, H:2 * H]))
         n = np.tanh(x[:, 2 * H:] + r * (acc[:, 2 * H:] + b[0, 2 * H:]))
         h = ((1 - z) * n + z * h).astype(np.float32)
         ys[t] = h
     return ys
 
 
-# the H cap (KL 32, S 4) over 1024 steps; the serving width (KL 16, S 4)
-@pytest.mark.parametrize("T,B,H", [(1024, 5, 128), (768, 4, 56)])
+# the H cap (KL 64, S 2) over 1024 steps; the serving width (KL 16, S 4);
+# the wide model's h80 (KL 32, S 4)
+@pytest.mark.parametrize("T,B,H", [(1024, 5, 128), (768, 4, 56), (768, 3, 80)])
 def test_kernel_sum_order_matches_reference(T, B, H):
     """The kernel's summation order (sliced k, zero padding, butterfly) stays
     within the card tests' 1e-4 of the plain recurrence: f32 sums in another
