@@ -100,17 +100,11 @@
 
 #include "tf32_wgmma.cuh"  // cp_async4, cp_async16, cp_async_commit, cp_async_wait
 
-// The depth of the forward's xp ring, in steps (16 measured best; PERF.md).
-#ifndef GRU_FWD_RING
-#define GRU_FWD_RING 16
-#endif
-
 namespace {
 
 constexpr int kMaxHidden = 128;
 constexpr int kMaxThreads = 1024;
-constexpr int kRing = GRU_FWD_RING;  // steps of xp in the ring
-static_assert(kRing >= 2, "GRU_FWD_RING is at least 2");
+constexpr int kRing = 16;  // steps of xp in the forward's ring (8 and 16 measured)
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
