@@ -12,19 +12,23 @@ failure is swallowed):
 
 1. device  — the card's name, torch / CUDA versions, name and power limit;
 2. build   — nvcc builds every kernel under eegsynth_torch/csrc/, one
-             process per source, in parallel; cuobjdump -sass counts the
+             process per source, in parallel; ptxas must report no spills
+             for any instance of K1 forward or backward; cuobjdump -sass
+             counts the
              HGMMA (wgmma) instructions of every K3a, K3b and K3c instance,
              the wide K3a, K3b and K3c (head dims past 128) included;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the main paths give it, with both times and its
              bound (FLOPs at the TF32 tensor-core rate or bytes at the HBM
              rate, the larger): K1 forward (serving and training shapes),
-             K1 backward and K2 (training), K3a, K3b and K3c (the CGAN's 96-
-             and 768-token geometries, the latter at serve_batch 256 too, a
-             ragged T, a long T); one PyTorch call computing the same
-             function timed in turns with the kernel where there is one
-             (cuDNN's GRU beside K1 forward, memory-efficient SDPA's forward
-             beside K3a and its backward beside K3b + K3c); dense attention
+             K1 backward (the whole call and the kernel alone) and K2
+             (training), K3a, K3b and K3c (the CGAN's 96- and 768-token
+             geometries, the latter at serve_batch 256 too, a ragged T, a
+             long T); one PyTorch call computing the same function timed
+             in turns with the kernel where there is one (cuDNN's GRU
+             beside K1 forward, its backward beside K1 backward at one
+             bucket, memory-efficient SDPA's forward beside K3a and its
+             backward beside K3b + K3c); dense attention
              beside K3a; the wide kernels (head dims past 128, all three on
              the tensor cores) the same way at head dim 256, 160 and a
              ragged 131, the wide K3a's share of its split-TF32 ceiling
@@ -97,8 +101,8 @@ from eegsynth_torch.nn.attention import (
     flash_forward, flash_forward_plain, mha, set_attention_impl,
 )
 from eegsynth_torch.nn.gru_sequence import (
-    forward_tile, gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
-    gru_sequence_reference,
+    forward_tile, gru_sequence, gru_sequence_bwd, gru_sequence_bwd_recurrence,
+    gru_sequence_bwd_reference, gru_sequence_reference,
 )
 from eegsynth_torch.nn.layers import xavier_uniform
 from eegsynth_torch.nn.multigru import (
@@ -125,14 +129,16 @@ CHUNK_TOL = 1e-5       # chunked vs one-shot on the card (same kernel, same orde
 # and the training shape: 18 buckets of B 63
 KERNEL_SHAPES = ((1, 768, 256, 56, 28), (1, 768, 256, 28, 14),
                  (1, 1024, 37, 128, 28), (18, 768, 63, 56, 28))
-# K1 forward's instances (k-slice KL, lanes S a dot product, largest H):
-# KL 16 with S 1, 2, 4 up to H 64, KL 32 with S 4 up to H 96, KL 64 with S 2
-# up to H 128
-K1_FWD_INSTANCES = ("KL 16, S 1, H <= 16", "KL 16, S 2, H <= 32", "KL 16, S 4, H <= 64",
+# K1 forward's and backward's instances (k-slice KL, lanes S a dot product,
+# largest H): KL 16 with S 1, 2, 4 up to H 64, KL 32 with S 4 up to H 96,
+# KL 64 with S 2 up to H 128
+K1_INSTANCES = ("KL 16, S 1, H <= 16", "KL 16, S 2, H <= 32", "KL 16, S 4, H <= 64",
                     "KL 32, S 4, H <= 96", "KL 64, S 2, H <= 128")
 # K1 backward at the training shapes: the G/S/R width, the embedder's H 28,
-# and a ragged (nb 3, T 1024, B 37, H 128)
+# and a ragged (nb 3, T 1024, B 37, H 128); cuDNN's GRU backward computes
+# the same function at one bucket of the first (BWD_CUDNN_SHAPE)
 BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128))
+BWD_CUDNN_SHAPE = (1, 768, 63, 56)
 # K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims, and adaptive_dims'
 # T > 800 dims z36/h72
 MULTIGRU_SHAPES = ((18, 768, 63, (28, 56, 56, 28)), (18, 1024, 63, (36, 72, 72, 36)))
@@ -236,18 +242,19 @@ def phase_build() -> None:
             if any(k in line for k in ("entry function", "registers", "spill", "smem",
                                        "Performance Loss")):
                 print(f"[build] {line.strip()}", flush=True)
-    _check_k1_fwd_spills(log.read_text() if log.exists() else "")
+    report = log.read_text() if log.exists() else ""
+    for kernel in ("gru_seq_fwd_kernel", "gru_seq_bwd_kernel"):
+        _check_k1_spills(kernel, report)
 
 
-def _check_k1_fwd_spills(report: str) -> None:
-    """K1 forward holds W_hh^T in registers: every instance of
-    gru_seq_fwd_kernel (KL, S, largest H) in ptxas's report must show no spill stores
-    or loads, and all K1_FWD_INSTANCES must be there."""
+def _check_k1_spills(kernel: str, report: str) -> None:
+    """K1 forward and backward hold W_hh^T (or its rows) in registers: every
+    instance of ``kernel`` (KL, S, largest H) in ptxas's report must show no
+    spill stores or loads, and all K1_INSTANCES must be there."""
     spills: dict[str, tuple[int, int]] = {}
     name = None
     for line in report.splitlines():
-        m = re.search(r"Function properties for \S*gru_seq_fwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
-                      line)
+        m = re.search(rf"Function properties for \S*{kernel}ILi(\d+)ELi(\d+)ELi(\d+)E", line)
         if m:
             name = f"KL {m.group(1)}, S {m.group(2)}, H <= {m.group(3)}"
             continue
@@ -255,11 +262,11 @@ def _check_k1_fwd_spills(report: str) -> None:
         if m and name:
             spills[name] = (int(m.group(1)), int(m.group(2)))
             name = None
-    print(f"[build] gru_seq_fwd_kernel spill stores / loads (bytes): " + ", ".join(
+    print(f"[build] {kernel} spill stores / loads (bytes): " + ", ".join(
         f"{k}: {v[0]} / {v[1]}" for k, v in sorted(spills.items())), flush=True)
-    if sorted(spills) != sorted(K1_FWD_INSTANCES) or any(any(v) for v in spills.values()):
-        fail(f"gru_seq_fwd_kernel: instances missing or spilling: {spills} "
-             f"(expected {K1_FWD_INSTANCES}, no spills)")
+    if sorted(spills) != sorted(K1_INSTANCES) or any(any(v) for v in spills.values()):
+        fail(f"{kernel}: instances missing or spilling: {spills} "
+             f"(expected {K1_INSTANCES}, no spills)")
 
 
 def phase_sass() -> None:
@@ -365,18 +372,24 @@ def phase_kernels(smi: str) -> dict:
             **_check_k3_wide(smi)}
 
 
-def _cudnn_gru(xp, w_hh_t, b_hh, h0):
-    """One cuDNN GRU call computing K1's ys: input weight I₃ₕ and zero input
+def _cudnn_gru_module(w_hh_t, b_hh) -> torch.nn.GRU:
+    """cuDNN's GRU computing K1's function: input weight I₃ₕ and zero input
     bias, so its input is xp itself; W_hh and b_hh as K1's. It runs under the
     port's allow_tf32 = False. Timed beside K1, never used by the port."""
-    H = h0.shape[-1]
-    gru = torch.nn.GRU(3 * H, H).to(xp.device)
+    H = w_hh_t.shape[0]
+    gru = torch.nn.GRU(3 * H, H).to(w_hh_t.device)
     with torch.no_grad():
         gru.weight_ih_l0.copy_(torch.eye(3 * H))
         gru.bias_ih_l0.zero_()
         gru.weight_hh_l0.copy_(w_hh_t.t())
         gru.bias_hh_l0.copy_(b_hh.reshape(-1))
     gru.flatten_parameters()
+    return gru
+
+
+def _cudnn_gru(xp, w_hh_t, b_hh, h0):
+    """One cuDNN GRU call computing K1's ys."""
+    gru = _cudnn_gru_module(w_hh_t, b_hh)
     return lambda: gru(xp, h0[None])[0]
 
 
@@ -424,10 +437,52 @@ def _check_k1_fwd(smi: str) -> dict:
     return {"max_abs_err": worst, **head}
 
 
+def _bwd_kernel_alone(args, ys, d_ys):
+    """One launch of K1's backward kernel, as the wrapper feeds it (hp from
+    the batched product, h_prev), but writing dhp to a buffer of its own so
+    that hp stays intact from one timed launch to the next."""
+    xp, w_hh_t, b_hh, h0 = args
+    nb, T, B, H = ys.shape
+    h_prev = torch.cat([h0.unsqueeze(1), ys[:, :T - 1]], dim=1).reshape(nb, T * B, H)
+    hp = torch.matmul(h_prev, w_hh_t)
+    dhp = torch.empty_like(hp)
+    return lambda: gru_sequence_bwd_recurrence(xp, hp, h_prev, d_ys, w_hh_t, b_hh, dhp)
+
+
+def _bwd_errors(got, ref) -> tuple[list[float], list[float], bool]:
+    """dxp and dh0 within KERNEL_TOL; dW and db within KERNEL_TOL of their
+    largest magnitude (sums over T·B rows)."""
+    errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+    scale = [max(1.0, r.abs().max().item()) for r in ref]
+    ok = (all(bool(torch.isfinite(g).all()) for g in got) and errs[0] <= KERNEL_TOL
+          and errs[3] <= KERNEL_TOL and errs[1] <= KERNEL_TOL * scale[1]
+          and errs[2] <= KERNEL_TOL * scale[2])
+    return errs, scale, ok
+
+
+def _cudnn_gru_bwd(xp, w_hh_t, b_hh, h0, d_ys):
+    """cuDNN's GRU backward computing K1's backward at one bucket: the GRU of
+    _cudnn_gru_module, run once, then one autograd.grad on xp, W_hh, b_hh
+    and h0 per call (cuDNN also forms the input weight's gradient, a 3H x 3H
+    product over T·B rows, that K1's backward has no need of). Returns the
+    call and a map of its gradients to K1's layouts."""
+    gru = _cudnn_gru_module(w_hh_t, b_hh)
+    x = xp.detach().requires_grad_()
+    h = h0[None].detach().requires_grad_()
+    out = gru(x, h)[0]
+    leaves = [x, gru.weight_hh_l0, gru.bias_hh_l0, h]
+
+    def as_k1(g):
+        return g[0][None], g[1].t()[None], g[2].reshape(1, 1, -1), g[3]
+
+    return lambda: torch.autograd.grad(out, leaves, d_ys, retain_graph=True), as_k1
+
+
 def _check_k1_bwd(smi: str) -> dict:
-    """The kernel's own outputs (dxp, dh0) within KERNEL_TOL; dW and db, one
-    matrix product and one sum over T·B rows after the kernel, within
-    KERNEL_TOL of their largest magnitude."""
+    """At each of BWD_SHAPES the whole backward (the hp product, the kernel,
+    the dW product and the db sum) and the kernel alone, against the plain
+    backward; then the whole backward at one bucket against cuDNN's GRU
+    backward, in turns."""
     head = None
     worst = 0.0
     for i, (nb, T, B, H) in enumerate(BWD_SHAPES):
@@ -439,28 +494,47 @@ def _check_k1_bwd(smi: str) -> dict:
             got = gru_sequence_bwd(*args, ys, d_ys)
             ref = gru_sequence_bwd_reference(*args, ys, d_ys)
             torch.cuda.synchronize()
-            errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
-            scale = [max(1.0, r.abs().max().item()) for r in ref]
+            errs, scale, ok = _bwd_errors(got, ref)
             ms = _time_ms(lambda: gru_sequence_bwd(*args, ys, d_ys), reps=10)
+            kernel_ms = _time_ms(_bwd_kernel_alone(args, ys, d_ys), reps=10)
             plain_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
                                 reps=3)
-        finite = all(bool(torch.isfinite(g).all()) for g in got)
-        err = max(errs[0], errs[3])
         print(f"[kernel] gru_sequence_bwd nb={nb} T={T} B={B} H={H}: "
               f"max|diff| dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol {KERNEL_TOL:g}); "
               f"dW {errs[1]:.3e} of {scale[1]:.3g}, db {errs[2]:.3e} of "
-              f"{scale[2]:.3g} (tol {KERNEL_TOL:g} relative); kernel + dW "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms | {smi}", flush=True)
-        if (not finite or err > KERNEL_TOL or errs[1] > KERNEL_TOL * scale[1]
-                or errs[2] > KERNEL_TOL * scale[2]):
+              f"{scale[2]:.3g} (tol {KERNEL_TOL:g} relative); whole call (hp product, "
+              f"kernel, dW product, db sum) {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms | {smi}", flush=True)
+        if not ok:
             fail(f"gru_sequence_bwd disagrees with its plain version at nb={nb} "
-                 f"T={T} B={B} H={H}: {errs} finite={finite}")
-        worst = max(worst, err)
+                 f"T={T} B={B} H={H}: {errs} finite="
+                 f"{all(bool(torch.isfinite(g).all()) for g in got)}")
+        worst = max(worst, errs[0], errs[3])
         if head is None:
-            # three products per step: the gates' recompute, dh·W_hh and dW
+            # three products: hp, dh·W_hh, dW
             head = _row(ms, plain_ms, _bound(3 * 2 * nb * T * B * H * 3 * H, *args,
                                              ys, d_ys, *got))
             _roofline(f"gru_sequence_bwd nb={nb} T={T} B={B} H={H}", head, smi)
+    nb, T, B, H = BWD_CUDNN_SHAPE
+    args = _gru_inputs(nb, T, B, H, 28, seed=13, device="cuda")
+    with torch.no_grad():
+        ys = gru_sequence(*args)
+        d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(3)).cuda()
+        ref = gru_sequence_bwd_reference(*args, ys, d_ys)
+        got = gru_sequence_bwd(*args, ys, d_ys)
+    cudnn, as_k1 = _cudnn_gru_bwd(*(a[0] for a in args), d_ys[0])
+    lib_errs = _bwd_errors(as_k1(cudnn()), ref)[0]
+    errs, _, ok = _bwd_errors(got, ref)
+    with torch.no_grad():
+        ms, lib_ms = _turns_ms(lambda: gru_sequence_bwd(*args, ys, d_ys), cudnn, reps=10)
+    print(f"[kernel] gru_sequence_bwd nb={nb} T={T} B={B} H={H} vs cuDNN GRU backward "
+          f"(autograd.grad on xp, W_hh, b_hh, h0; cuDNN also forms dW_ih): K1 whole call "
+          f"{ms:.4f} ms, cuDNN {lib_ms:.4f} ms (in turns); max|diff| against the plain "
+          f"backward: K1 dxp {errs[0]:.3e} dh0 {errs[3]:.3e}, cuDNN dxp {lib_errs[0]:.3e} "
+          f"dh0 {lib_errs[3]:.3e} | {smi}", flush=True)
+    if not ok:
+        fail(f"gru_sequence_bwd disagrees with its plain version at nb={nb} T={T} "
+             f"B={B} H={H}: {errs}")
     return {"max_abs_err": worst, **head}
 
 

@@ -73,22 +73,61 @@
 //  - No tensor cores: a step's product is at most (9 x 56) @ (56 x 168), and
 //    split-TF32 mma.sync would put a chain of about 21 dependent products on
 //    each step, which does not shorten the latency that bounds the kernel.
-// Backward (exact reverse-time BPTT of _gru_seq_bwd): one thread owns one
-//    (row, j), keeps W_hh^T in shared memory and carries dh[row, j] in a
-//    register from t = T-1 down to 0. Each step recomputes r, z, n from
-//    h_prev (ys[t-1] or h0) with the forward's product, writes dxp[t] and
-//    the n-gate part of dhp (dn_pre * r; the r and z parts equal dxp's),
-//    then takes the second product dh_prev = dh z + dhp W_hh. That product
-//    reads W_hh^T by row (stride 3H): the shared copy is stored with a pitch
-//    of 3H + 1 floats, so 32 neighbouring threads hit 32 different banks.
-//    Two barriers per step: after h_prev is in shared memory, and after the
-//    dhp row is. dW_hh^T = h_prev^T dhp and db_hh = sum dhp are left to one
-//    batched matrix product after the kernel (no atomics across blocks,
-//    deterministic).
+// Backward (exact reverse-time BPTT of _gru_seq_bwd): the forward's layout
+// of threads and weights, transposed, on the one product left on the chain.
+// What bounds it: the chain of T dependent (rows x 3H) @ (3H x H) products,
+// and within a step the issue of the sums' multiply-adds and shared-memory
+// loads, the coefficients and the copies (clock64() timers; PERF.md).
+//  - hp = h_prev W_hh^T does not depend on dh: it needs only the saved ys
+//    and h0 (h_prev = [h0, ys[:-1]]). The wrapper computes it for all T B
+//    rows as one batched matrix product before the kernel, as the JAX
+//    package computes it outside its Pallas kernel; the kernel adds b_hh.
+//    Recomputing hp inside would need a second 3 KL set of weights a thread
+//    (spills past KL 16) and double a step's multiply-adds.
+//  - The serial part is dh_prev = dh z + dhp W_hh with dhp = dh (c_r, c_z,
+//    c_n): c_r = (1-z)(1-n^2) hp_n r(1-r), c_z = (h_prev-n) z(1-z), c_n =
+//    (1-z)(1-n^2) r, and dxp = dh (c_r, c_z, (1-z)(1-n^2)). The coefficients
+//    come from xp, hp and h_prev alone, so they are computed off the chain,
+//    two steps ahead (in reverse step t, step t - 2's), into a double
+//    buffer in shared memory. Thread (j, s) computes column j's for rows s,
+//    s + S, ...: at KL 16 with S 2 or 4 inside each row group, where their
+//    loads and transcendentals issue beside the group's sums (at S 2 12 %
+//    faster than a stage of their own; PERF.md), otherwise in a stage of
+//    their own before the groups. On the chain stay an add and a few
+//    multiplies by dh.
+//  - Thread (j, s) holds row j of W_hh^T, w_hh_t[j, g H + i] for i in its
+//    KL-long slice s and g in {r, z, n}: 3 KL registers, the forward's
+//    instances (KL 16 with S 1, 2, 4 up to H 64, KL 32 with S 4 up to H 96,
+//    KL 64 with S 2 up to H 128, each bound at its largest block). Groups
+//    of 4 rows at KL 16 and of 1 at KL 32 and 64 (two rows a group spilled
+//    at KL 32).
+//  - dhp of a step lies in shared memory, double-buffered, each gate's row
+//    in slices of KL at the forward's pitch of KL + 4 floats, zeros past H.
+//    For each row of a group a lane sums its three KL-long chains (one a
+//    gate, from zero), adds them as (r + z) + n, and the forward's
+//    butterfly adds the S lanes' sums and spreads the group's rows over the
+//    lanes (tests/test_torch_gru_bwd.py emulates this order). The lane
+//    holding row r's sum for j owns (r, j): it keeps st =
+//    dh[r, j] z + d_ys in shared memory, loads st, the step's coefficients
+//    and d_ys before the sums, forms dh_prev = st + sum, and writes dhp of
+//    the step before to the next buffer and to HBM, dxp to HBM. One barrier
+//    a step.
+//  - xp, hp, h_prev and d_ys of a step (8H floats a row) arrive through a
+//    ring of kBwdRing steps in shared memory, filled by cp.async kBwdRing
+//    steps ahead (16-byte copies where H % 4 == 0 and all four are 16-byte
+//    aligned, 4-byte otherwise); the tile's rows are capped by shared
+//    memory.
+//  - The kernel writes dhp over hp in place (the wrapper passes one buffer
+//    for both): each (t, row) belongs to one block, whose copy of hp[t] has
+//    landed before the owner writes dhp[t]. dW_hh^T = h_prev^T dhp and
+//    db_hh = sum dhp are batched products and a sum after the kernel (no
+//    atomics across blocks, deterministic).
+//  - Both kernels use the sigmoid 1/2 + tanhf(x/2)/2 (sigmoid_fwd): no
+//    division, and the function the forward's ys were made with. The
+//    backward with 1/(1 + expf(-x)) was 5-28 % slower (PERF.md).
 // The accurate expf and tanhf (not the fast-math intrinsics, and no
 // --use_fast_math) keep the kernels within 1e-4 of the plain PyTorch
-// versions over 1024 dependent steps; the forward's sigmoid is
-// 1/2 + tanhf(x/2)/2 (sigmoid_fwd), the backward's 1/(1 + expf(-x)).
+// versions over 1024 dependent steps.
 // The kernels allocate nothing and do not synchronise: the caller owns the
 // outputs and the stream.
 
@@ -103,37 +142,40 @@
 namespace {
 
 constexpr int kMaxHidden = 128;
-constexpr int kMaxThreads = 1024;
 constexpr int kRing = 16;  // steps of xp in the forward's ring (8 and 16 measured)
+constexpr int kBwdRing = 8;  // steps of inputs in the backward's ring
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// The forward's sigmoid, 1/2 + tanh(x/2)/2: the accurate tanhf and no
+// The sigmoid of both kernels, 1/2 + tanh(x/2)/2: the accurate tanhf and no
 // division, whose correctly rounded reciprocal costs the gates a longer
 // chain (16-17 % of the forward at every shape measured; PERF.md).
 __device__ __forceinline__ float sigmoid_fwd(float x) {
   return fmaf(0.5f, tanhf(0.5f * x), 0.5f);
 }
 
-// An instance (KL, S, HM) takes H <= HM. Its launch bound is its largest
-// block, HM S threads rounded up to a warp; the registers that leaves a
-// thread beside its 3 KL weights fix how many rows' sums it keeps at once
-// (RG): 4 at KL 16, 2 at KL 32 (384 threads: 170 registers), 1 at KL 64.
+// An instance (KL, S, HM) of either kernel takes H <= HM. Its launch bound
+// is its largest block, HM S threads rounded up to a warp; the registers
+// that leaves a thread beside its 3 KL weights fix how many rows' sums it
+// keeps at once (RG): 4 at KL 16, 2 at KL 32 (384 threads: 170 registers),
+// 1 at KL 64.
 template <int S, int HM>
-constexpr int kFwdThreads = (HM * S + 31) / 32 * 32;
+constexpr int kBlockThreads = (HM * S + 31) / 32 * 32;
 
 template <int KL>
-constexpr int kFwdGroup = KL == 16 ? 4 : KL == 32 ? 2 : 1;
+constexpr int kRowGroup = KL == 16 ? 4 : KL == 32 ? 2 : 1;
 
-// Adds the S lanes' partial sums of N rows (a[0..N)) across the lanes at
-// xor distance M, M / 2, ..., 1. While a lane holds more than one row, each
+// The backward's groups: one row at KL 32, where two rows' sums beside the
+// owners' pointers spilled at the 384-thread bound (168 registers).
+template <int KL>
+constexpr int kBwdRowGroup = KL == 16 ? 4 : 1;
+
+// Adds the S lanes' partial sums of N rows (a[0..N), NV values a row: the
+// forward's three gates, the backward's one sum) across the lanes at xor
+// distance M, M / 2, ..., 1. While a lane holds more than one row, each
 // round also halves its rows: the lane whose M bit is set keeps the upper
 // half, its partner the lower, and `off` counts the rows passed over. Once
 // one row is left, the rounds add it in place.
-template <int RG, int M, int N>
-__device__ __forceinline__ void reduce_rows(float (&a)[RG][3], int s, int& off) {
+template <int RG, int M, int N, int NV>
+__device__ __forceinline__ void reduce_rows(float (&a)[RG][NV], int s, int& off) {
   if constexpr (M >= 1) {
     if constexpr (N > 1) {
       constexpr int N2 = N / 2;
@@ -141,7 +183,7 @@ __device__ __forceinline__ void reduce_rows(float (&a)[RG][3], int s, int& off) 
 #pragma unroll
       for (int i = 0; i < N2; ++i) {
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
+        for (int g = 0; g < NV; ++g) {
           const float send = hi ? a[i][g] : a[i + N2][g];
           const float keep = hi ? a[i + N2][g] : a[i][g];
           a[i][g] = keep + __shfl_xor_sync(0xffffffffu, send, M);
@@ -151,7 +193,7 @@ __device__ __forceinline__ void reduce_rows(float (&a)[RG][3], int s, int& off) 
       reduce_rows<RG, M / 2, N2>(a, s, off);
     } else {
 #pragma unroll
-      for (int g = 0; g < 3; ++g) a[0][g] += __shfl_xor_sync(0xffffffffu, a[0][g], M);
+      for (int g = 0; g < NV; ++g) a[0][g] += __shfl_xor_sync(0xffffffffu, a[0][g], M);
       reduce_rows<RG, M / 2, 1>(a, s, off);
     }
   }
@@ -208,12 +250,12 @@ __device__ __forceinline__ void fwd_rows(const float (&w)[3][KL], const float (&
 }
 
 template <int KL, int S, int HM>
-__global__ void __launch_bounds__((kFwdThreads<S, HM>))
+__global__ void __launch_bounds__((kBlockThreads<S, HM>))
 gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_t,
                    const float* __restrict__ b_hh, const float* __restrict__ h0,
                    float* __restrict__ ys, int T, int B, int H, int rows, int vec) {
   constexpr int P = S * (KL + 4);  // row pitch of h in shared memory
-  constexpr int RG = kFwdGroup<KL>;
+  constexpr int RG = kRowGroup<KL>;
   extern __shared__ __align__(16) float fwd_smem[];
   const int G = 3 * H;
   const size_t bucket = blockIdx.y;
@@ -291,173 +333,289 @@ gru_seq_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-gru_seq_bwd_kernel(const float* __restrict__ xp,
-                   const float* __restrict__ w_hh_t,
-                   const float* __restrict__ b_hh,
-                   const float* __restrict__ h0,
-                   const float* __restrict__ ys,
-                   const float* __restrict__ d_ys,
-                   float* __restrict__ dxp,
-                   float* __restrict__ dhn,
-                   float* __restrict__ dh0,
-                   int T, int B, int H, int rows) {
-  extern __shared__ float smem[];
-  const int G = 3 * H;
-  const int P = G + 1;  // row pitch of the shared W_hh^T: conflict-free column reads
-  const size_t bucket = blockIdx.y;
-  xp += bucket * T * B * G;
-  dxp += bucket * T * B * G;
-  ys += bucket * T * B * H;
-  d_ys += bucket * T * B * H;
-  dhn += bucket * T * B * H;
-  w_hh_t += bucket * H * G;
-  b_hh += bucket * G;
-  h0 += bucket * B * H;
-  dh0 += bucket * B * H;
-
-  float* w_s = smem;              // (H, P)
-  float* h_s = w_s + H * P;       // (rows, H): h_prev of the current step
-  float* g_s = h_s + rows * H;    // (rows, 3H): dhp of the current step
-
-  for (int i = threadIdx.x; i < H * G; i += blockDim.x) {
-    const int k = i / G;
-    w_s[k * P + (i - k * G)] = w_hh_t[i];
-  }
-
-  const int r = threadIdx.x / H;
-  const int j = threadIdx.x - r * H;
-  const int b = blockIdx.x * rows + r;
-  const bool active = r < rows && b < B;
-
-  // h_prev of step t is ys[t - 1], or h0 at t = 0
-  auto h_prev_at = [&](int t) -> float {
-    return t > 0 ? ys[((size_t)(t - 1) * B + b) * H + j] : h0[(size_t)b * H + j];
-  };
-
-  float bias_r = 0.f, bias_z = 0.f, bias_n = 0.f;
-  float hp_j = 0.f, x_r = 0.f, x_z = 0.f, x_n = 0.f, dy = 0.f;
-  if (active && T > 0) {
-    bias_r = b_hh[j];
-    bias_z = b_hh[H + j];
-    bias_n = b_hh[2 * H + j];
-    const int t = T - 1;
-    hp_j = h_prev_at(t);
-    const float* x0 = xp + ((size_t)t * B + b) * G;
-    x_r = x0[j];
-    x_z = x0[H + j];
-    x_n = x0[2 * H + j];
-    dy = d_ys[((size_t)t * B + b) * H + j];
-  }
-
-  float dh = 0.f;
-  for (int t = T - 1; t >= 0; --t) {
-    if (r < rows) h_s[r * H + j] = hp_j;
-    __syncthreads();  // h_prev complete; the last step's dhp reads are done
-
-    float n_hp = 0.f, n_x_r = 0.f, n_x_z = 0.f, n_x_n = 0.f, n_dy = 0.f;
-    float zg = 0.f;
-    if (active) {
-      if (t > 0) {
-        n_hp = h_prev_at(t - 1);
-        const float* xn = xp + ((size_t)(t - 1) * B + b) * G;
-        n_x_r = xn[j];
-        n_x_z = xn[H + j];
-        n_x_n = xn[2 * H + j];
-        n_dy = d_ys[((size_t)(t - 1) * B + b) * H + j];
-      }
-      const float* h_row = h_s + r * H;
-      float a_r = 0.f, a_z = 0.f, a_n = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float hk = h_row[k];
-        const float* w = w_s + k * P + j;
-        a_r = fmaf(hk, w[0], a_r);
-        a_z = fmaf(hk, w[H], a_z);
-        a_n = fmaf(hk, w[2 * H], a_n);
-      }
-      const float rg = sigmoid(x_r + (a_r + bias_r));
-      zg = sigmoid(x_z + (a_z + bias_z));
-      const float hn = a_n + bias_n;
-      const float ng = tanhf(x_n + rg * hn);
-
-      dh += dy;
-      const float dz = dh * (hp_j - ng);
-      const float dn = dh * (1.0f - zg);
-      const float dn_pre = dn * (1.0f - ng * ng);
-      const float dr = dn_pre * hn;
-      const float dhn_j = dn_pre * rg;
-      const float dz_pre = dz * zg * (1.0f - zg);
-      const float dr_pre = dr * rg * (1.0f - rg);
-
-      float* dx = dxp + ((size_t)t * B + b) * G;
-      dx[j] = dr_pre;
-      dx[H + j] = dz_pre;
-      dx[2 * H + j] = dn_pre;
-      dhn[((size_t)t * B + b) * H + j] = dhn_j;
-      float* g_row = g_s + r * G;
-      g_row[j] = dr_pre;
-      g_row[H + j] = dz_pre;
-      g_row[2 * H + j] = dhn_j;
-    }
-    __syncthreads();  // the dhp row is complete
-
-    if (active) {
-      // dh_prev[j] = dh z + sum_g dhp[g] W_hh[g, j], W_hh[g, j] = W_hh^T[j, g]
-      const float* g_row = g_s + r * G;
-      const float* w_row = w_s + j * P;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int g = 0; g < G; ++g) acc = fmaf(g_row[g], w_row[g], acc);
-      dh = dh * zg + acc;
-    }
-    hp_j = n_hp;
-    x_r = n_x_r;
-    x_z = n_x_z;
-    x_n = n_x_n;
-    dy = n_dy;
-  }
-  if (active) dh0[(size_t)b * H + j] = dh;
+// The backward's coefficients of one (row, j) of a step, from its inputs in
+// the ring: x = xp[row, j] and p = (h_prev W_hh^T)[row, j], gates at stride
+// H, b = b_hh[j] of the three gates, h = h_prev[row, j]. Returns c_r, c_z,
+// c_n, (1-z)(1-n^2) and z.
+__device__ __forceinline__ void bwd_coefficients(const float* __restrict__ x,
+                                                 const float* __restrict__ p,
+                                                 const float (&b)[3], float h, float (&c)[5],
+                                                 int H) {
+  const float hp_r = p[0] + b[0], hp_z = p[H] + b[1], hp_n = p[2 * H] + b[2];
+  const float r = sigmoid_fwd(x[0] + hp_r);
+  const float z = sigmoid_fwd(x[H] + hp_z);
+  const float n = tanhf(x[2 * H] + r * hp_n);
+  const float omz = 1.0f - z;
+  const float e = omz * (1.0f - n * n);
+  c[0] = (e * hp_n) * (r * (1.0f - r));
+  c[1] = (h - n) * (z * omz);
+  c[2] = e * r;
+  c[3] = e;
+  c[4] = z;
 }
 
-// Tiling shared by both kernels: rows per block so that the nb * ceil(B / rows)
-// blocks come close to one per SM, within the thread and shared-memory limits.
-cudaError_t plan(int nb, int B, int H, long long fixed_bytes,
-                 long long row_bytes, int* rows_out) {
-  int dev = 0, sms = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// The first of the rows that lane s holds after reduce_rows<RG, M, N>.
+template <int M, int N>
+__device__ __forceinline__ int first_held(int s) {
+  if constexpr (M >= 1 && N > 1) {
+    return ((s & M) ? N / 2 : 0) + first_held<M / 2, N / 2>(s);
+  } else {
+    return 0;
   }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// Reverse step t of rows [g0, g0 + RG) of the tile's n rows (rows past n
+// repeat row n - 1, so every load is in bounds, and are not written):
+//  - the owners load their operands first: st = dh_t z_t + d_ys[t - 1],
+//    step t - 1's coefficients (c_cur, planes of cn floats) and d_ys[t - 2]
+//    (in2: the ring's slot of step t - 2);
+//  - with kInGroup, lane s computes step t - 2's coefficients of the
+//    group's rows g0 + s, g0 + s + S, ... into c_next (t >= 2);
+//  - each row's sum dhp_t W_hh over the lanes' slices, reduced over the S
+//    lanes;
+//  - the owner of (r, j): dh_{t-1} = st + sum; for t >= 1 dhp_{t-1} to
+//    g_next and HBM, dxp_{t-1} to HBM, st = dh_{t-1} z_{t-1} + d_ys[t - 2];
+//    at t = 0 dh0.
+// None of the loads and coefficients depends on the sums: they are issued
+// while the sums' multiply-adds are.
+template <int KL, int S, int RG, bool kInGroup>
+__device__ __forceinline__ void bwd_rows(const float (&w)[3][KL], const float (&bias)[3],
+                                         const float* __restrict__ g_cur,
+                                         float* __restrict__ g_next,
+                                         const float* __restrict__ c_cur,
+                                         float* __restrict__ c_next,
+                                         const float* __restrict__ in2,
+                                         float* __restrict__ st_s,
+                                         float* __restrict__ dxp_t,
+                                         float* __restrict__ dhp_t,
+                                         float* __restrict__ dh0, int g0, int n, int cn,
+                                         int s, int j, int hj, int H, int t) {
+  constexpr int P = S * (KL + 4);
+  constexpr int kHeld = RG >= S ? RG / S : 1;   // rows a lane holds
+  constexpr int kShare = RG >= S ? 1 : S / RG;  // lanes holding the same row
+  const int G = 3 * H;
+  const int jc = min(j, H - 1);  // lanes past H read column H - 1 and store nothing
+  const int first = first_held<S / 2, RG>(s);
+  float st[kHeld], co[kHeld][5], dy[kHeld];
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    const int r = min(g0 + first + i, n - 1);
+    st[i] = st_s[r * H + jc];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) co[i][k] = c_cur[k * cn + r * H + jc];
+    dy[i] = t >= 2 ? in2[7 * cn + r * H + jc] : 0.f;
   }
-  if (err != cudaSuccess) return err;
-  const int max_rows_smem = static_cast<int>((max_smem - fixed_bytes) / row_bytes);
-  if (max_rows_smem < 1) return cudaErrorInvalidConfiguration;
-  const long long total = (long long)nb * B;
-  int rows = static_cast<int>((total + sms - 1) / sms);
-  rows = std::min(rows, B);
-  rows = std::min(rows, kMaxThreads / H);
-  rows = std::min(rows, max_rows_smem);
-  *rows_out = std::max(rows, 1);
-  return cudaSuccess;
+  if constexpr (kInGroup) {
+#pragma unroll
+    for (int k = 0; k < (RG + S - 1) / S; ++k) {
+      const int u = s + k * S;
+      const int row = g0 + u;
+      const int r = min(row, n - 1);
+      float cv[5];
+      bwd_coefficients(in2 + r * G + jc, in2 + 3 * cn + r * G + jc, bias,
+                       in2[6 * cn + r * H + jc], cv, H);
+      if (t >= 2 && u < RG && row < n && j < H) {
+#pragma unroll
+        for (int q = 0; q < 5; ++q) c_next[q * cn + row * H + j] = cv[q];
+      }
+    }
+  }
+  float a[RG][1];
+#pragma unroll
+  for (int u = 0; u < RG; ++u) {
+    const float* gv = g_cur + min(g0 + u, n - 1) * 3 * P + s * (KL + 4);
+    float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < KL / 4; ++q) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float4 d4 = reinterpret_cast<const float4*>(gv + g * P)[q];
+        acc[g] = fmaf(d4.x, w[g][4 * q], acc[g]);
+        acc[g] = fmaf(d4.y, w[g][4 * q + 1], acc[g]);
+        acc[g] = fmaf(d4.z, w[g][4 * q + 2], acc[g]);
+        acc[g] = fmaf(d4.w, w[g][4 * q + 3], acc[g]);
+      }
+    }
+    a[u][0] = (acc[0] + acc[1]) + acc[2];
+  }
+  int off = 0;  // equals first
+  reduce_rows<RG, S / 2, RG>(a, s, off);
+  if (j < H && (s & (kShare - 1)) == 0) {
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i) {
+      const int r = g0 + first + i;
+      if (r < n) {
+        const float dh = st[i] + a[i][0];
+        if (t == 0) {
+          dh0[r * H + j] = dh;
+          continue;
+        }
+        const float d_r = dh * co[i][0], d_z = dh * co[i][1], d_n = dh * co[i][2];
+        float* gn = g_next + r * 3 * P + hj;
+        gn[0] = d_r;
+        gn[P] = d_z;
+        gn[2 * P] = d_n;
+        float* dp = dhp_t + r * G + j;
+        dp[0] = d_r;
+        dp[H] = d_z;
+        dp[2 * H] = d_n;
+        float* dx = dxp_t + r * G + j;
+        dx[0] = d_r;
+        dx[H] = d_z;
+        dx[2 * H] = dh * co[i][3];
+        st_s[r * H + j] = fmaf(dh, co[i][4], dy[i]);
+      }
+    }
+  }
+}
+
+// hp and dhp may be one buffer (see the header), so neither is __restrict__.
+template <int KL, int S, int HM>
+__global__ void __launch_bounds__((kBlockThreads<S, HM>))
+gru_seq_bwd_kernel(const float* __restrict__ xp, const float* hp,
+                   const float* __restrict__ h_prev, const float* __restrict__ d_ys,
+                   const float* __restrict__ w_hh_t, const float* __restrict__ b_hh,
+                   float* __restrict__ dxp, float* dhp, float* __restrict__ dh0, int T,
+                   int B, int H, int rows, int vec) {
+  constexpr int P = S * (KL + 4);  // pitch of one gate's dhp in shared memory
+  constexpr int RG = kBwdRowGroup<KL>;
+  // KL 16 with S 2 or 4 computes the coefficients inside the row groups,
+  // beside the sums; KL 32 and 64, whose weights leave no registers for
+  // that, and S 1 (four rows a lane, which spilled), in a stage of their own
+  // before them
+  constexpr bool kInGroup = KL == 16 && S > 1;
+  extern __shared__ __align__(16) float bwd_smem[];
+  const int G = 3 * H;
+  const size_t bucket = blockIdx.y;
+  xp += bucket * T * B * G;
+  hp += bucket * T * B * G;
+  dxp += bucket * T * B * G;
+  dhp += bucket * T * B * G;
+  h_prev += bucket * T * B * H;
+  d_ys += bucket * T * B * H;
+  w_hh_t += bucket * H * G;
+  b_hh += bucket * G;
+  dh0 += bucket * B * H;
+
+  const int b0 = blockIdx.x * rows;
+  const int n = min(rows, B - b0);  // rows of this tile
+  const int cn = rows * H;          // one plane of (rows, H)
+  const int slot = 8 * cn;          // one step of the ring: xp, hp, h_prev, d_ys
+  float* g_s = bwd_smem;            // two buffers of (rows, 3P): dhp
+  float* c_s = g_s + 6 * rows * P;  // two buffers of 5 planes: the coefficients
+  float* st_s = c_s + 10 * cn;      // (rows, H): dh z + d_ys, the owners'
+  float* x_s = st_s + cn;           // kBwdRing steps
+
+  const int j = threadIdx.x / S;
+  const int s = threadIdx.x % S;
+  const int hj = (j / KL) * (KL + 4) + j % KL;  // dhp[., g, j] within a gate's row
+  float w[3][KL], bias[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    bias[g] = j < H ? b_hh[g * H + j] : 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KL; ++kk) {
+      const int i = s * KL + kk;
+      w[g][kk] = j < H && i < H ? w_hh_t[(size_t)j * G + g * H + i] : 0.f;
+    }
+  }
+  for (int i = threadIdx.x; i < 6 * rows * P; i += blockDim.x) g_s[i] = 0.f;
+
+  // the inputs of step u for this tile into slot u % kBwdRing: four runs of
+  // contiguous floats, n 3H of xp and of hp, n H of h_prev and of d_ys
+  auto fetch = [&](int u) {
+    float* dst = x_s + (u % kBwdRing) * slot;
+    const size_t row0 = (size_t)u * B + b0;
+    const float* src[4] = {xp + row0 * G, hp + row0 * G, h_prev + row0 * H,
+                           d_ys + row0 * H};
+    const int at[4] = {0, 3 * cn, 6 * cn, 7 * cn};
+    const int len[4] = {n * G, n * G, n * H, n * H};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (vec) {
+        for (int i = 4 * threadIdx.x; i < len[k]; i += 4 * blockDim.x)
+          cp_async16(dst + at[k] + i, src[k] + i, 16);
+      } else {
+        for (int i = threadIdx.x; i < len[k]; i += blockDim.x)
+          cp_async4(dst + at[k] + i, src[k] + i, 4);
+      }
+    }
+  };
+  // step u's coefficients of the tile, thread (j, s) taking rows s, s + S, ...
+  auto coefficients = [&](int u) {
+    if (j >= H) return;
+    const float* in = x_s + (u % kBwdRing) * slot;
+    float* c = c_s + (u & 1) * 5 * cn;
+    for (int r = s; r < n; r += S) {
+      float cv[5];
+      bwd_coefficients(in + r * G + j, in + 3 * cn + r * G + j, bias,
+                       in[6 * cn + r * H + j], cv, H);
+#pragma unroll
+      for (int q = 0; q < 5; ++q) c[q * cn + r * H + j] = cv[q];
+    }
+  };
+
+  // steps T - 1 down to T - kBwdRing, one group each
+#pragma unroll
+  for (int k = 0; k < kBwdRing; ++k) {
+    if (T - 1 - k >= 0) fetch(T - 1 - k);
+    cp_async_commit();
+  }
+  cp_async_wait<kBwdRing - 2>();
+  __syncthreads();  // steps T - 1 and T - 2 have landed; dhp is zero
+  if (T > 0) coefficients(T - 1);
+  const float* dy_last = x_s + ((T + kBwdRing - 1) % kBwdRing) * slot + 7 * cn;
+  for (int i = threadIdx.x; i < n * H; i += blockDim.x) st_s[i] = T > 0 ? dy_last[i] : 0.f;
+  __syncthreads();  // step T - 1's coefficients and st
+
+  // Step t takes dhp_t to dh_{t-1}; at t = T, dhp_T is the zeroed buffer.
+  for (int t = T; t >= 0; --t) {
+    // the slot refilled here held step t - 1, last read before the last barrier
+    if (t - kBwdRing - 1 >= 0) fetch(t - kBwdRing - 1);
+    cp_async_commit();
+    if constexpr (!kInGroup) {
+      if (t >= 2) coefficients(t - 2);
+    }
+    // the step's row groups
+    const float* g_cur = g_s + (t & 1) * 3 * rows * P;
+    float* g_next = g_s + ((t + 1) & 1) * 3 * rows * P;
+    const float* c_cur = c_s + ((t + 1) & 1) * 5 * cn;
+    float* c_next = c_s + (t & 1) * 5 * cn;
+    const float* in2 = x_s + ((t + kBwdRing - 2) % kBwdRing) * slot;
+    const size_t o = ((size_t)max(t - 1, 0) * B + b0) * G;
+    float* dxp_t = dxp + o;
+    float* dhp_t = dhp + o;
+    float* dh0_t = dh0 + (size_t)b0 * H;
+    int g0 = 0;
+    for (; g0 + RG <= n; g0 += RG)
+      bwd_rows<KL, S, RG, kInGroup>(w, bias, g_cur, g_next, c_cur, c_next, in2, st_s,
+                                    dxp_t, dhp_t, dh0_t, g0, n, cn, s, j, hj, H, t);
+    if constexpr (RG > 1) {
+      if (n - g0 > RG / 2)
+        bwd_rows<KL, S, RG, kInGroup>(w, bias, g_cur, g_next, c_cur, c_next, in2, st_s,
+                                      dxp_t, dhp_t, dh0_t, g0, n, cn, s, j, hj, H, t);
+      else if (n > g0)
+        bwd_rows<KL, S, RG / 2, kInGroup>(w, bias, g_cur, g_next, c_cur, c_next, in2,
+                                          st_s, dxp_t, dhp_t, dh0_t, g0, n, cn,
+                                          s, j, hj, H, t);
+    }
+    cp_async_wait<kBwdRing - 2>();
+    __syncthreads();  // dhp of step t - 1, its coefficients and step t - 3's inputs
+  }
 }
 
 bool bad_dims(int nb, int T, int B, int H) {
   return nb < 0 || T < 0 || B < 0 || H <= 0 || H > kMaxHidden || nb > 65535;
 }
 
-// The forward's tile: the instance (KL, S), threads, rows per block (one
-// tile per SM where shared memory allows), tiles per bucket and shared
-// bytes.
-struct FwdTile {
+// A kernel's tile: the instance (KL, S), threads, rows per block (one tile
+// per SM where shared memory allows), tiles per bucket and shared bytes.
+struct Tile {
   int kl, s, threads, rows, blocks;
   size_t smem;
 };
 
-cudaError_t fwd_tile(int nb, int B, int H, FwdTile* tile) {
+cudaError_t make_tile(int nb, int B, int H, bool bwd, Tile* tile) {
   int dev = 0, sms = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -471,8 +629,13 @@ cudaError_t fwd_tile(int nb, int B, int H, FwdTile* tile) {
   const int kl = H <= 64 ? 16 : H <= 96 ? 32 : 64;
   int s = 1;
   while (s * kl < H) s *= 2;
-  const long long row_bytes =
-      (2LL * s * (kl + 4) + (long long)kRing * 3 * H) * (long long)sizeof(float);
+  // a row's floats: the forward's two h buffers and xp ring; the
+  // backward's two dhp buffers, two sets of five coefficient planes, st
+  // and its ring of xp, hp, h_prev and d_ys
+  const long long floats =
+      bwd ? 6LL * s * (kl + 4) + 11LL * H + (long long)kBwdRing * 8 * H
+          : 2LL * s * (kl + 4) + (long long)kRing * 3 * H;
+  const long long row_bytes = floats * (long long)sizeof(float);
   const long long total = (long long)std::max(nb, 1) * std::max(B, 1);
   long long rows = (total + sms - 1) / sms;
   rows = std::min<long long>(rows, std::max(B, 1));
@@ -487,7 +650,7 @@ cudaError_t fwd_tile(int nb, int B, int H, FwdTile* tile) {
 }
 
 template <int KL, int S, int HM>
-cudaError_t fwd_launch(const FwdTile& tile, const float* xp, const float* w_hh_t,
+cudaError_t fwd_launch(const Tile& tile, const float* xp, const float* w_hh_t,
                        const float* b_hh, const float* h0, float* ys, int nb,
                        int T, int B, int H, cudaStream_t stream) {
   const auto kernel = gru_seq_fwd_kernel<KL, S, HM>;
@@ -500,6 +663,22 @@ cudaError_t fwd_launch(const FwdTile& tile, const float* xp, const float* w_hh_t
   return cudaGetLastError();
 }
 
+template <int KL, int S, int HM>
+cudaError_t bwd_launch(const Tile& tile, const float* xp, const float* hp,
+                       const float* h_prev, const float* d_ys, const float* w_hh_t,
+                       const float* b_hh, float* dxp, float* dhp, float* dh0, int nb,
+                       int T, int B, int H, cudaStream_t stream) {
+  const auto kernel = gru_seq_bwd_kernel<KL, S, HM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(tile.smem));
+  if (err != cudaSuccess) return err;
+  const auto aligned = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int vec = H % 4 == 0 && aligned(xp) && aligned(hp) && aligned(h_prev) && aligned(d_ys);
+  kernel<<<dim3(tile.blocks, nb), tile.threads, tile.smem, stream>>>(
+      xp, hp, h_prev, d_ys, w_hh_t, b_hh, dxp, dhp, dh0, T, B, H, tile.rows, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int gru_seq_fwd(const float* xp, const float* w_hh_t,
@@ -507,8 +686,8 @@ extern "C" int gru_seq_fwd(const float* xp, const float* w_hh_t,
                            int nb, int T, int B, int H, cudaStream_t stream) {
   if (bad_dims(nb, T, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   if (nb == 0 || T == 0 || B == 0) return 0;
-  FwdTile tile;
-  cudaError_t err = fwd_tile(nb, B, H, &tile);
+  Tile tile;
+  cudaError_t err = make_tile(nb, B, H, false, &tile);
   if (err != cudaSuccess) return static_cast<int>(err);
 #define GRU_FWD_LAUNCH(KL, S, HM) \
   fwd_launch<KL, S, HM>(tile, xp, w_hh_t, b_hh, h0, ys, nb, T, B, H, stream)
@@ -525,8 +704,8 @@ extern "C" int gru_seq_fwd(const float* xp, const float* w_hh_t,
 // out = {rows, tiles per bucket, threads, KL, S, shared bytes}.
 extern "C" int gru_seq_fwd_tile(int nb, int B, int H, int* out) {
   if (bad_dims(nb, 1, B, H)) return static_cast<int>(cudaErrorInvalidValue);
-  FwdTile tile;
-  const cudaError_t err = fwd_tile(nb, B, H, &tile);
+  Tile tile;
+  const cudaError_t err = make_tile(nb, B, H, false, &tile);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vals[6] = {tile.rows, tile.blocks, tile.threads, tile.kl, tile.s,
                        static_cast<int>(tile.smem)};
@@ -534,27 +713,28 @@ extern "C" int gru_seq_fwd_tile(int nb, int B, int H, int* out) {
   return 0;
 }
 
-extern "C" int gru_seq_bwd(const float* xp, const float* w_hh_t,
-                           const float* b_hh, const float* h0, const float* ys,
-                           const float* d_ys, float* dxp, float* dhn, float* dh0,
-                           int nb, int T, int B, int H, cudaStream_t stream) {
+// hp (nb, T, B, 3H) = h_prev W_hh^T (without b_hh, which the kernel adds),
+// h_prev (nb, T, B, H) = [h0, ys[:-1]]; dhp may be hp itself (written over
+// it in place).
+extern "C" int gru_seq_bwd(const float* xp, const float* hp, const float* h_prev,
+                           const float* d_ys, const float* w_hh_t, const float* b_hh,
+                           float* dxp, float* dhp, float* dh0, int nb, int T, int B,
+                           int H, cudaStream_t stream) {
   if (bad_dims(nb, T, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   if (nb == 0 || B == 0) return 0;
-  const long long w_bytes = (long long)H * (3 * H + 1) * (long long)sizeof(float);
-  const long long row_bytes = 4LL * H * (long long)sizeof(float);
-  int rows = 1;
-  cudaError_t err = plan(nb, B, H, w_bytes, row_bytes, &rows);
+  Tile tile;
+  cudaError_t err = make_tile(nb, B, H, true, &tile);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(w_bytes + rows * row_bytes);
-  const int threads = (rows * H + 31) / 32 * 32;
-  const dim3 grid((B + rows - 1) / rows, nb);
-  err = cudaFuncSetAttribute(gru_seq_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gru_seq_bwd_kernel<<<grid, threads, smem, stream>>>(
-      xp, w_hh_t, b_hh, h0, ys, d_ys, dxp, dhn, dh0, T, B, H, rows);
-  return static_cast<int>(cudaGetLastError());
+#define GRU_BWD_LAUNCH(KL, S, HM)                                                   \
+  bwd_launch<KL, S, HM>(tile, xp, hp, h_prev, d_ys, w_hh_t, b_hh, dxp, dhp, dh0, nb, T, \
+                        B, H, stream)
+  if (H <= 16) err = GRU_BWD_LAUNCH(16, 1, 16);
+  else if (H <= 32) err = GRU_BWD_LAUNCH(16, 2, 32);
+  else if (H <= 64) err = GRU_BWD_LAUNCH(16, 4, 64);
+  else if (H <= 96) err = GRU_BWD_LAUNCH(32, 4, 96);
+  else err = GRU_BWD_LAUNCH(64, 2, 128);
+#undef GRU_BWD_LAUNCH
+  return static_cast<int>(err);
 }
 
 extern "C" const char* eegsynth_cuda_error_string(int code) {

@@ -21,6 +21,7 @@ the shapes are the Pallas kernel's own.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -152,13 +153,48 @@ def _forward(xp, w_hh_t, b_hh, h0) -> torch.Tensor:
     return ys
 
 
+DW_CHUNKS = 16
+"""dW_hhᵀ's T·B-deep sum is split into this many chunks, one batched product
+each, added in a fixed order: cuBLAS runs the single deep product on few
+blocks (PERF.md §6)."""
+
+
+def weight_grads(h_prev: torch.Tensor, dhp: torch.Tensor):
+    """dW_hhᵀ = h_prevᵀ dhp and db_hh = Σ dhp over the T·B rows of
+    h_prev (nb, T·B, H) and dhp (nb, T·B, 3H): (nb, H, 3H), (nb, 1, 3H)."""
+    nb, rows, H = h_prev.shape
+    c = math.gcd(rows, DW_CHUNKS)
+    dw = torch.matmul(h_prev.view(nb, c, rows // c, H).transpose(2, 3),
+                      dhp.view(nb, c, rows // c, dhp.shape[-1])).sum(dim=1)
+    return dw, dhp.sum(dim=1, keepdim=True)
+
+
+def gru_sequence_bwd_recurrence(xp, hp, h_prev, d_ys, w_hh_t, b_hh, dhp):
+    """Launch K1's backward kernel on CUDA tensors: the reverse recurrence
+    fed with hp = h_prev W_hhᵀ (nb, T·B, 3H; the kernel adds b_hh), h_prev
+    (nb, T·B, H) and d_ys; writes dhp (which may be ``hp`` itself: the kernel
+    overwrites it in place) and returns (dxp, dh0).
+    ``gru_sequence_bwd.launches`` counts its launches."""
+    nb, T, B, H = d_ys.shape
+    dxp = torch.empty_like(xp)
+    dh0 = torch.empty((nb, B, H), dtype=torch.float32, device=xp.device)
+    if nb and B:
+        _launch("gru_seq_bwd", xp, hp, h_prev, d_ys, w_hh_t, b_hh, dxp, dhp, dh0,
+                nb, T, B, H)
+        gru_sequence_bwd.launches += 1
+    return dxp, dh0
+
+
 def gru_sequence_bwd(xp, w_hh_t, b_hh, h0, ys, d_ys):
     """K1's backward on stacked inputs: (dxp, dw_hh_t, db_hh, dh0).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel for
-    dxp, dh0 and the n-gate part of dhp, then reduce dW_hh^T = h_prevᵀ dhp and
-    db_hh = Σ dhp over all (T·B) rows with one batched matrix product and one
-    sum. ``gru_sequence_bwd.launches`` counts the kernel's launches."""
+    CPU tensors take the plain version. CUDA tensors run three parts: one
+    batched matrix product hp = h_prev W_hhᵀ over all T·B rows (h_prev =
+    [h0, ys[:-1]]); the kernel (:func:`gru_sequence_bwd_recurrence`: the
+    reverse recurrence, which adds b_hh to hp, writes dxp and dh0, and
+    writes dhp over hp); then :func:`weight_grads`, dW_hhᵀ = h_prevᵀ dhp as
+    batched products and db_hh = Σ dhp as one sum.
+    ``gru_sequence_bwd.launches`` counts the kernel's launches."""
     nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
     for name, t in (("ys", ys), ("d_ys", d_ys)):
         if tuple(t.shape) != (nb, T, B, H):
@@ -168,23 +204,17 @@ def gru_sequence_bwd(xp, w_hh_t, b_hh, h0, ys, d_ys):
         return gru_sequence_bwd_reference(xp, w_hh_t, b_hh, h0, ys, d_ys)
     _check_cuda("gru_sequence_bwd", H, xp=xp, w_hh_t=w_hh_t, b_hh=b_hh, h0=h0,
                 ys=ys, d_ys=d_ys)
-    dxp = torch.empty_like(xp)
-    dhn = torch.empty_like(ys)
-    dh0 = torch.empty_like(h0)
-    if nb and B:
-        _launch("gru_seq_bwd", xp, w_hh_t, b_hh, h0, ys, d_ys, dxp, dhn, dh0,
-                nb, T, B, H)
-        gru_sequence_bwd.launches += 1
-    dhp = torch.cat([dxp[..., :2 * H], dhn], dim=-1).reshape(nb, T * B, 3 * H)
-    h_prev = torch.cat([h0.unsqueeze(1), ys[:, :-1]], dim=1).reshape(nb, T * B, H)
-    dw = torch.matmul(h_prev.transpose(1, 2), dhp)
-    db = dhp.sum(dim=1, keepdim=True)
-    return dxp, dw, db, dh0
+    h_prev = torch.cat([h0.unsqueeze(1), ys[:, :T - 1]], dim=1) if T else ys
+    h_prev = h_prev.reshape(nb, T * B, H)
+    dhp = torch.matmul(h_prev, w_hh_t)      # hp; the kernel writes dhp over it
+    dxp, dh0 = gru_sequence_bwd_recurrence(xp, dhp, h_prev, d_ys, w_hh_t, b_hh, dhp)
+    return (dxp, *weight_grads(h_prev, dhp), dh0)
 
 
 class GRUSequence(torch.autograd.Function):
-    """K1 with its backward kernel: forward saves ``ys``, backward runs
-    :func:`gru_sequence_bwd`. First-order only."""
+    """K1 with its backward kernel: the forward runs the forward kernel and
+    saves ``ys``; the backward runs :func:`gru_sequence_bwd`, on the card the
+    hp product, the backward kernel and the dW product. First-order only."""
 
     @staticmethod
     def forward(ctx, xp, w_hh_t, b_hh, h0):

@@ -109,10 +109,23 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
         multigru_disc_inputs(wide[0], wide[1], *wide[2])
 
 
+def _assert_bwd_matches(got, ref):
+    for g, r, name in zip(got, ref, ("dxp", "dw", "db", "dh0")):
+        assert g.shape == r.shape and torch.isfinite(g).all(), name
+        # f32 over up to 1024 reverse steps; dW and db sum T·B terms
+        scale = max(1.0, r.abs().max().item())
+        assert (g - r).abs().max().item() <= 1e-4 * scale, name
+
+
 # (nb, T, B, H): the training widths (generator/supervisor/recovery and the
-# embedder), a ragged batch at the H cap, a batch over one tile per SM
+# embedder), a ragged batch at the H cap, a batch over one tile per SM with
+# a ragged last tile (3 rows a block, 1 in the last); every other instance
+# of the kernel (H 16: KL 16, S 1; H 80: KL 32, S 4), H 127 (H % 4 != 0:
+# 4-byte copies) and one step
 @pytest.mark.parametrize("nb,T,B,H", [(18, 768, 63, 56), (18, 768, 63, 28),
-                                      (3, 1024, 37, 128), (2, 64, 133, 20)])
+                                      (3, 1024, 37, 128), (2, 64, 133, 20),
+                                      (2, 100, 37, 16), (2, 300, 37, 80),
+                                      (2, 50, 37, 127), (3, 1, 5, 56)])
 def test_backward_kernel_matches_plain(cuda_device, nb, T, B, H):
     inputs = _inputs(T, B, H, cuda_device, seed=H, lead=(nb,))
     ys = gru_sequence_reference(*inputs)
@@ -123,11 +136,51 @@ def test_backward_kernel_matches_plain(cuda_device, nb, T, B, H):
     ref = gru_sequence_bwd_reference(*inputs, ys, d_ys)
     torch.cuda.synchronize()
     assert gru_sequence_bwd.launches == before + 1
-    for g, r, name in zip(got, ref, ("dxp", "dw", "db", "dh0")):
-        assert g.shape == r.shape and torch.isfinite(g).all(), name
-        # f32 over up to 1024 reverse steps; dW and db sum T·B terms
-        scale = max(1.0, r.abs().max().item())
-        assert (g - r).abs().max().item() <= 1e-4 * scale, name
+    _assert_bwd_matches(got, ref)
+
+
+def test_backward_kernel_without_steps(cuda_device):
+    """T = 0: no step to walk back; dh0, dW and db are zero."""
+    inputs = _inputs(0, 5, 28, cuda_device, lead=(2,))
+    ys = gru_sequence_reference(*inputs)
+    before = gru_sequence_bwd.launches
+    dxp, dw, db, dh0 = gru_sequence_bwd(*inputs, ys, torch.zeros_like(ys))
+    torch.cuda.synchronize()
+    assert gru_sequence_bwd.launches == before + 1
+    assert dxp.shape == inputs[0].shape
+    for t in (dw, db, dh0):
+        assert torch.equal(t, torch.zeros_like(t))
+
+
+def test_backward_kernel_takes_unaligned_inputs(cuda_device):
+    """xp and d_ys as contiguous views 4 bytes into their storage, not
+    16-byte aligned: the kernel copies them 4 bytes at a time and still
+    matches the plain backward."""
+    nb, T, B, H = 2, 200, 19, 56
+    xp, w, b, h0 = _inputs(T, B, H, cuda_device, seed=7, lead=(nb,))
+    xp = torch.cat([xp.new_zeros(1), xp.reshape(-1)])[1:].view(xp.shape)
+    ys = gru_sequence_reference(xp, w, b, h0)
+    d_ys = torch.randn(ys.numel() + 1, generator=torch.Generator().manual_seed(2))
+    d_ys = d_ys.to(cuda_device)[1:].view(ys.shape)
+    assert xp.is_contiguous() and xp.data_ptr() % 16 and d_ys.data_ptr() % 16
+    got = gru_sequence_bwd(xp, w, b, h0, ys, d_ys)
+    _assert_bwd_matches(got, gru_sequence_bwd_reference(xp, w, b, h0, ys, d_ys))
+
+
+@pytest.mark.parametrize("nb,T,B,H", [(18, 768, 63, 56), (2, 100, 37, 128)])
+def test_backward_repeats_bitwise(cuda_device, nb, T, B, H):
+    """Two backward calls on the same inputs give the same bits: the
+    kernel's sums have a fixed order and dW, db are one product and one sum
+    after it (no atomics)."""
+    inputs = _inputs(T, B, H, cuda_device, seed=6, lead=(nb,))
+    ys = gru_sequence(*inputs)
+    d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(8))
+    d_ys = d_ys.to(cuda_device)
+    first = gru_sequence_bwd(*inputs, ys, d_ys)
+    second = gru_sequence_bwd(*inputs, ys, d_ys)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dxp", "dw", "db", "dh0")):
+        assert torch.equal(a, b), name
 
 
 def test_bucket_axis_equals_separate_launches(cuda_device):
@@ -148,6 +201,24 @@ def test_autograd_matches_cpu(cuda_device):
     (gru_sequence(*cpu) * w).sum().backward()
     (gru_sequence(*card) * w.to(cuda_device)).sum().backward()
     for a, b in zip(cpu, card):
+        assert (a.grad - b.grad.cpu()).abs().max().item() <= 1e-4
+
+
+def test_unstacked_autograd_matches_cpu(cuda_device):
+    """One model (nb 1, no bucket axis) through gru_sequence's autograd
+    path: one forward and one backward launch on the card, gradients equal
+    to the CPU's."""
+    cpu = [a.requires_grad_() for a in _inputs(128, 7, 56, "cpu", seed=4)]
+    card = [a.detach().to(cuda_device).requires_grad_() for a in cpu]
+    w = torch.randn((128, 7, 56), generator=torch.Generator().manual_seed(5))
+    (gru_sequence(*cpu) * w).sum().backward()
+    before = (gru_sequence.launches, gru_sequence_bwd.launches)
+    (gru_sequence(*card) * w.to(cuda_device)).sum().backward()
+    torch.cuda.synchronize()
+    assert (gru_sequence.launches, gru_sequence_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b in zip(cpu, card):
+        assert a.grad.shape == b.grad.shape
         assert (a.grad - b.grad.cpu()).abs().max().item() <= 1e-4
 
 
