@@ -13,7 +13,8 @@ failure is swallowed):
 1. device  — the card's name, torch / CUDA versions, name and power limit;
 2. build   — nvcc builds every kernel under eegsynth_torch/csrc/, one
              process per source, in parallel; ptxas must report no spills
-             for any instance of K1 forward or backward; cuobjdump -sass
+             for any instance of K1 forward or backward or of K2;
+             cuobjdump -sass
              counts the
              HGMMA (wgmma) instructions of every K3a, K3b and K3c instance,
              the wide K3a, K3b and K3c (head dims past 128) included;
@@ -36,7 +37,8 @@ failure is swallowed):
              and dk at one key (T = 1) against float64, in units of the
              terms that cancel there; "auto" attention (the tensor-core
              kernels at head dim 64, the wide ones at 160); the D-step
-             inputs' composed route at z40/h80 timed beside K2;
+             inputs' composed route (3 K1 forward launches and products)
+             timed in turns with K2's route at z28/h56 and z40/h80;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -49,8 +51,8 @@ failure is swallowed):
              losses, every ckpt_best served back, the launch counts of K1
              forward, K1 backward and K2 against their expected counts, the
              median GAN-step time; the same on 2 buckets of (63, 768, 20)
-             (z40/h80, which K2 does not take: its D-step inputs run 3 K1
-             forward launches, K2 none) for 2 GAN steps; then one GAN step
+             (z40/h80, its D-step inputs through K2 as well) for 2 GAN
+             steps; then one GAN step
              against the CPU plain path at 14 and at 20 channels, and a
              per-layer split and profiler line of one GAN step;
 6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
@@ -93,8 +95,8 @@ from eegsynth_torch import _build
 from eegsynth_torch.convert import from_jax_params, to_jax_params, tree_to_numpy
 from eegsynth_torch.models.cgan_transformer import generator_apply as cgan_generator_apply
 from eegsynth_torch.models.timegan import (
-    TimeGAN, TimeGANConfig, adaptive_dims, fused_disc_inputs, sample_noise,
-    timegan_init_stacked,
+    TimeGAN, TimeGANConfig, adaptive_dims, encode, fused_disc_inputs, gen_latent,
+    refine_latent, sample_noise, timegan_init_stacked,
 )
 from eegsynth_torch.nn.attention import (
     attention_dense, flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain,
@@ -106,7 +108,7 @@ from eegsynth_torch.nn.gru_sequence import (
 )
 from eegsynth_torch.nn.layers import xavier_uniform
 from eegsynth_torch.nn.multigru import (
-    multigru_disc_inputs, multigru_disc_inputs_reference,
+    k2_tile, multigru_disc_inputs, multigru_disc_inputs_reference,
 )
 from eegsynth_torch.serve import ModelRegistry, make_server
 from eegsynth_torch.train import cgan as cgan_train
@@ -139,9 +141,12 @@ K1_INSTANCES = ("KL 16, S 1, H <= 16", "KL 16, S 2, H <= 32", "KL 16, S 4, H <= 
 # the same function at one bucket of the first (BWD_CUDNN_SHAPE)
 BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128))
 BWD_CUDNN_SHAPE = (1, 768, 63, 56)
-# K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims, and adaptive_dims'
-# T > 800 dims z36/h72
-MULTIGRU_SHAPES = ((18, 768, 63, (28, 56, 56, 28)), (18, 1024, 63, (36, 72, 72, 36)))
+# K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims (the headline), and
+# adaptive_dims' T > 800 dims z36/h72, 20 channels' z40/h80, the widest
+# width z64/h128, and a ragged narrow shape at z16/h32
+MULTIGRU_SHAPES = ((18, 768, 63, (28, 56, 56, 28)), (18, 1024, 63, (36, 72, 72, 36)),
+                   (18, 768, 63, (40, 80, 80, 40)), (18, 1024, 63, (64, 128, 128, 64)),
+                   (3, 50, 7, (16, 32, 32, 16)))
 # K3 (B, H, T, D): the transformer CGAN's training geometry (96 tokens at
 # patch 8), its patch-1 geometry (768 tokens) at the training batch and at
 # serve_batch 256, a ragged T with an odd D, and a long T
@@ -176,10 +181,8 @@ T1_RTOL = 5e-7
 # Training: 18 buckets (9 postures x 2 conditions) of 63 random windows
 N_BUCKETS, N_WINDOWS, SEQ_LEN, CHANNELS = 18, 63, 768, 14
 GAN_STEPS = 4
-# Wide data: 20 channels give adaptive_dims' z40/h80, which K2 does not take
-# (its block needs more than the H100's 232,448 B of shared memory), so the
-# D-step inputs run the composed route, 3 K1 forward launches; a short run
-# of 2 buckets
+# Wide data: 20 channels give adaptive_dims' z40/h80 (K2's instance with KL
+# 32); a short run of 2 buckets
 WIDE_CHANNELS, WIDE_BUCKETS, WIDE_GAN_STEPS = 20, 2, 2
 # One GAN step, card against the CPU plain path, on the same parameters and
 # draws. Logged values: 1e-4 relative (f32 sums in another order over 768
@@ -243,14 +246,15 @@ def phase_build() -> None:
                                        "Performance Loss")):
                 print(f"[build] {line.strip()}", flush=True)
     report = log.read_text() if log.exists() else ""
-    for kernel in ("gru_seq_fwd_kernel", "gru_seq_bwd_kernel"):
-        _check_k1_spills(kernel, report)
+    for kernel in ("gru_seq_fwd_kernel", "gru_seq_bwd_kernel", "multigru_fwd_kernel"):
+        _check_spills(kernel, report)
 
 
-def _check_k1_spills(kernel: str, report: str) -> None:
-    """K1 forward and backward hold W_hh^T (or its rows) in registers: every
-    instance of ``kernel`` (KL, S, largest H) in ptxas's report must show no
-    spill stores or loads, and all K1_INSTANCES must be there."""
+def _check_spills(kernel: str, report: str) -> None:
+    """K1 forward and backward and K2 hold W_hh^T (or its rows) in
+    registers: every instance of ``kernel`` (KL, S, largest width) in
+    ptxas's report must show no spill stores or loads, and all
+    K1_INSTANCES (K2 has the same five) must be there."""
     spills: dict[str, tuple[int, int]] = {}
     name = None
     for line in report.splitlines():
@@ -555,7 +559,6 @@ def _multigru_inputs(nb, T, B, dims, seed):
 
 
 def _check_k2(smi: str) -> dict:
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     head = None
     worst = 0.0
     for i, (nb, T, B, dims) in enumerate(MULTIGRU_SHAPES):
@@ -568,11 +571,14 @@ def _check_k2(smi: str) -> dict:
             ms = _time_ms(lambda: multigru_disc_inputs(*args), reps=10)
             plain_ms = _time_ms(lambda: multigru_disc_inputs_reference(*args), reps=3)
         finite = all(bool(torch.isfinite(g).all()) for g in got)
-        rows = -(-B // max(1, sms // nb))
+        tile = k2_tile(nb, B, *dims)
         print(f"[kernel] multigru_disc_inputs nb={nb} T={T} B={B} "
               f"He/Hg/Hs/Z={'/'.join(map(str, dims))}: max|diff|={err:.3e} "
               f"(tol {KERNEL_TOL:g}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"tile {rows} rows x {-(-B // rows)} blocks x {nb} buckets | {smi}",
+              f"tile {tile['rows']} rows x {tile['tiles']} tiles x {nb} buckets = "
+              f"{tile['clusters']} clusters of 3 blocks of {tile['threads']} threads "
+              f"(KL {tile['kl']}, S {tile['s']}, KLZ {tile['klz']}), {tile['smem']} B "
+              f"shared a block, {tile['resident']} clusters resident at once | {smi}",
               flush=True)
         if not finite or err > KERNEL_TOL:
             fail(f"multigru_disc_inputs disagrees with its plain version at "
@@ -583,33 +589,46 @@ def _check_k2(smi: str) -> dict:
             macs = He * 3 * He + Hg * 3 * Hg + Hg * Z + Z * 3 * Hs + Hs * 3 * Hs + Hs * Z
             head = _row(ms, plain_ms, _bound(2 * nb * T * B * macs, *args, *got))
             _roofline(f"multigru_disc_inputs nb={nb} T={T} B={B}", head, smi)
-    _time_composed_route(smi, head["ms"])
+    _time_composed_route(smi)
     return {"max_abs_err": worst, **head}
 
 
-def _time_composed_route(smi: str, k2_ms: float) -> None:
-    """The D-step inputs at z40/h80 (20 channels), which K2 does not take:
-    fused_disc_inputs' composed route (3 K1 forward launches, the input
-    and output projections as products) at the training shape, beside K2
-    at the reference width."""
+def _time_composed_route(smi: str) -> None:
+    """The D-step inputs at the training shape through K2's route
+    (fused_disc_inputs: the two input products, K2, the transposes) and
+    through the composed route (encode and refine_latent ∘ gen_latent: 3 K1
+    forward launches, the projections as products) in turns, at z28/h56
+    (14 channels) and z40/h80 (20). No single PyTorch call computes K2's
+    function; the composed route is its nearest yardstick."""
     nb, T, B = MULTIGRU_SHAPES[0][:3]
-    cfg = TimeGANConfig(x_dim=WIDE_CHANNELS, z_dim=40, h_dim=80)
-    params = timegan_init_stacked(
-        cfg, [torch.Generator().manual_seed(b) for b in range(nb)], device="cuda")
-    g = torch.Generator().manual_seed(21)
-    x = torch.rand((nb, B, T, WIDE_CHANNELS), generator=g).cuda()
-    z = torch.rand((nb, B, T, 40), generator=g).cuda()
-    before = (gru_sequence.launches, multigru_disc_inputs.launches)
-    fused_disc_inputs(params, x, z)
-    torch.cuda.synchronize()
-    launches = (gru_sequence.launches - before[0],
-                multigru_disc_inputs.launches - before[1])
-    ms = _time_ms(lambda: fused_disc_inputs(params, x, z), reps=5)
-    print(f"[kernel] D-step inputs nb={nb} T={T} B={B} z40/h80, composed route "
-          f"(K1 forward x{launches[0]}, K2 x{launches[1]}, projections as "
-          f"products): {ms:.4f} ms; K2 at z28/h56 {k2_ms:.4f} ms | {smi}", flush=True)
-    if launches != (3, 0):
-        fail(f"the composed D-step route launched (K1, K2) {launches}, expected (3, 0)")
+    for channels in (CHANNELS, WIDE_CHANNELS):
+        z_dim, h_dim = adaptive_dims(channels, T)
+        cfg = TimeGANConfig(x_dim=channels, z_dim=z_dim, h_dim=h_dim)
+        params = timegan_init_stacked(
+            cfg, [torch.Generator().manual_seed(b) for b in range(nb)], device="cuda")
+        g = torch.Generator().manual_seed(21)
+        x = torch.rand((nb, B, T, channels), generator=g).cuda()
+        z = torch.rand((nb, B, T, z_dim), generator=g).cuda()
+        before = (gru_sequence.launches, multigru_disc_inputs.launches)
+        with torch.no_grad():
+            via_k2 = fused_disc_inputs(params, x, z)
+            composed = encode(params, x), refine_latent(params, gen_latent(params, z))
+            torch.cuda.synchronize()
+            launches = (gru_sequence.launches - before[0],
+                        multigru_disc_inputs.launches - before[1])
+            err = max((a - b).abs().max().item() for a, b in zip(via_k2, composed))
+            k2_ms, composed_ms = _turns_ms(
+                lambda: fused_disc_inputs(params, x, z),
+                lambda: (encode(params, x), refine_latent(params, gen_latent(params, z))),
+                reps=10)
+        print(f"[kernel] D-step inputs nb={nb} T={T} B={B} z{z_dim}/h{h_dim}: K2's route "
+              f"{k2_ms:.4f} ms, the composed route (K1 forward x3, projections as "
+              f"products) {composed_ms:.4f} ms in turns; max|diff| {err:.3e} | {smi}",
+              flush=True)
+        if launches != (3, 1):
+            fail(f"the two D-step routes launched (K1, K2) {launches}, expected (3, 1)")
+        if err > KERNEL_TOL:
+            fail(f"K2's route and the composed route differ by {err} at z{z_dim}/h{h_dim}")
 
 
 def _attn_inputs(B, H, T, D, seed):
@@ -1115,15 +1134,13 @@ def _train_hparams(**override) -> dict:
 
 
 def phase_train(smi: str, device: str = "cuda", n_buckets: int = N_BUCKETS,
-                channels: int = CHANNELS, gan_steps: int = GAN_STEPS,
-                k2_route: bool = True) -> dict:
+                channels: int = CHANNELS, gan_steps: int = GAN_STEPS) -> dict:
     """train_all_buckets at full width on ``n_buckets`` buckets of
     ``channels`` channels (adaptive_dims sets the widths); returns the
-    launch counts of its run. ``k2_route``: the D-step inputs run K2, else
-    the composed route's 3 K1 forward launches (widths K2 does not take).
-    With ``device="cpu"`` it rehearses the phase: the counts then stay 0."""
+    launch counts of its run. With ``device="cpu"`` it rehearses the phase:
+    the counts then stay 0."""
     hp = _train_hparams(ae_epochs=1, sup_epochs=1, gan_steps=gan_steps)
-    tag = "[train]" if k2_route else "[train-wide]"
+    tag = "[train]" if channels == CHANNELS else "[train-wide]"
     with tempfile.TemporaryDirectory() as tmp:
         data = _write_buckets(Path(tmp), n_buckets, channels)
         out = Path(tmp) / "runs"
@@ -1133,14 +1150,11 @@ def phase_train(smi: str, device: str = "cuda", n_buckets: int = N_BUCKETS,
         res = train_all_buckets(data, out, device=device, log_every=1, **hp)
         fwd, bwd, k2 = (c.launches for c in counters)
         # per AE step: E and R forward, both backward; per SUP step: E (no
-        # gradient) and S forward, S backward; per GAN step: K2 (or E, G and
-        # S forward) for the D inputs, G, S, R and E, R forward and
-        # backward; then 3 forward launches per bucket for synthetic.npz
-        # (one G→S→R cascade)
+        # gradient) and S forward, S backward; per GAN step: K2 for the D
+        # inputs, G, S, R and E, R forward and backward; then 3 forward
+        # launches per bucket for synthetic.npz (one G→S→R cascade)
         a, s_, g = res["ae_steps"], res["sup_steps"], gan_steps
-        d_inputs = (0, 1) if k2_route else (3, 0)
-        want = (2 * a + 2 * s_ + (5 + d_inputs[0]) * g + 3 * n_buckets,
-                2 * a + s_ + 5 * g, d_inputs[1] * g)
+        want = (2 * a + 2 * s_ + 5 * g + 3 * n_buckets, 2 * a + s_ + 5 * g, g)
         if torch.device(device).type != "cuda":
             want = (0, 0, 0)
         z_dim, h_dim = adaptive_dims(channels, SEQ_LEN)
@@ -1215,14 +1229,13 @@ def _step_inputs(nb: int, B: int, seed: int, device, channels: int = CHANNELS):
 
 def phase_step_check(smi: str, device: str = "cuda") -> None:
     """One GAN step on the card against the CPU plain path: nb 2, B 8, T 768,
-    full width, the same parameters and draws; at 14 channels (z28/h56, the
-    D-step inputs from K2) and at 20 (z40/h80, which K2 does not take: 3 K1
-    forward launches instead)."""
-    for channels, k2_route in ((CHANNELS, True), (WIDE_CHANNELS, False)):
-        _step_check(smi, device, channels, k2_route)
+    full width, the same parameters and draws; at 14 channels (z28/h56) and
+    at 20 (z40/h80), the D-step inputs from K2 at both."""
+    for channels in (CHANNELS, WIDE_CHANNELS):
+        _step_check(smi, device, channels)
 
 
-def _step_check(smi: str, device: str, channels: int, k2_route: bool) -> None:
+def _step_check(smi: str, device: str, channels: int) -> None:
     params, hp, optD, d_state, optG, g_state, x, draws = _step_inputs(
         2, 8, 7, device, channels)
     cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)      # noqa: E731
@@ -1233,7 +1246,7 @@ def _step_check(smi: str, device: str, channels: int, k2_route: bool) -> None:
     _sync(device)
     card_s = time.perf_counter() - t0
     k1, k2 = gru_sequence.launches - k1, multigru_disc_inputs.launches - k2
-    want = (5 + (0 if k2_route else 3), 1 if k2_route else 0)
+    want = (5, 1)
     if torch.device(device).type != "cuda":
         want = (0, 0)
     d_cpu, g_cpu = optD.init(cpu(params["discriminator"])), \
@@ -1669,7 +1682,7 @@ def main() -> None:
         fail("the served run launched gru_sequence no time")
     train_launches = phase_train(smi)
     wide_launches = phase_train(smi, n_buckets=WIDE_BUCKETS, channels=WIDE_CHANNELS,
-                                gan_steps=WIDE_GAN_STEPS, k2_route=False)
+                                gan_steps=WIDE_GAN_STEPS)
     phase_step_check(smi)
     phase_train_layers(smi)
     cgan_launches = phase_cgan_train(smi)
@@ -1682,7 +1695,8 @@ def main() -> None:
                 + wide_launches["gru_sequence"],
                 "gru_sequence_bwd": train_launches["gru_sequence_bwd"]
                 + wide_launches["gru_sequence_bwd"],
-                "multigru_disc_inputs": train_launches["multigru_disc_inputs"],
+                "multigru_disc_inputs": train_launches["multigru_disc_inputs"]
+                + wide_launches["multigru_disc_inputs"],
                 "flash_forward": cgan_launches["flash_forward"] + cgan_serve_launches}
     for k, n in launches.items():
         if n < 1:

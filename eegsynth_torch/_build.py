@@ -117,6 +117,8 @@ def load_library() -> ctypes.CDLL:
                 f.restype = i32
             lib.gru_seq_fwd_tile.argtypes = [i32] * 3 + [ptr]
             lib.gru_seq_fwd_tile.restype = i32
+            lib.multigru_fwd_tile.argtypes = [i32] * 6 + [ptr]
+            lib.multigru_fwd_tile.restype = i32
             lib.flash_bwd_dkv_scratch.argtypes = [i32] * 3
             lib.flash_bwd_dkv_scratch.restype = ctypes.c_size_t
             lib.eegsynth_cuda_error_string.argtypes = [ctypes.c_int]

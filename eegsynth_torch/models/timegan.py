@@ -22,9 +22,10 @@ set of functions:
                                             spectral-norm Linear → sigmoid
 
 Every recurrence but the discriminator's runs kernel K1 (forward and backward)
-on the card; the D-step inputs of the stacked trainer run kernel K2 where it
-takes the widths, else three K1 forward launches (:func:`fused_disc_inputs`);
-the discriminator runs the plain recurrence, which R1 differentiates twice.
+on the card; the D-step inputs of the stacked trainer run kernel K2 for
+single-layer stacks with projections, else three K1 forward launches
+(:func:`fused_disc_inputs`); the discriminator runs the plain recurrence,
+which R1 differentiates twice.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from torch import nn
 
 from eegsynth_torch.nn.gru import GRULayer, GRUStack, gru_apply_time_major
 from eegsynth_torch.nn.layers import Dense, linear
-from eegsynth_torch.nn.multigru import H100_SMEM_OPTIN, k2_fits, multigru_disc_inputs
+from eegsynth_torch.nn.gru_sequence import MAX_HIDDEN
+from eegsynth_torch.nn.multigru import multigru_disc_inputs
 from eegsynth_torch.nn.spectral_norm import SNDense, sn_dense_apply
 
 Carry = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -284,15 +286,15 @@ def fused_gen_refine(model: TimeGAN | Params, z: torch.Tensor,
 
 def _takes_k2(params: Params) -> bool:
     """K2's route: single-layer stacks with generator and supervisor
-    projections, at widths whose block fits in the H100's shared memory.
-    Decided from the widths alone, before any launch, so the CPU takes the
+    projections and every width at most 128 (every ``adaptive_dims`` width).
+    Decided from the shapes alone, before any launch, so the CPU takes the
     card's route."""
     g, s = params["generator"], params["supervisor"]
     if not _fusable(params) or g["proj"] is None or s["proj"] is None:
         return False
-    width = lambda net: params[net]["gru"][0]["w_hh"].shape[-1]   # noqa: E731
-    return k2_fits(width("embedder"), width("generator"), width("supervisor"),
-                   g["proj"]["w"].shape[-2], H100_SMEM_OPTIN)
+    widths = [params[net]["gru"][0]["w_hh"].shape[-1]
+              for net in ("embedder", "generator", "supervisor")]
+    return max(*widths, g["proj"]["w"].shape[-2]) <= MAX_HIDDEN
 
 
 def fused_disc_inputs(params: Params, x: torch.Tensor, z: torch.Tensor):
@@ -306,33 +308,40 @@ def fused_disc_inputs(params: Params, x: torch.Tensor, z: torch.Tensor):
     - :func:`_k2_disc_inputs`, kernel K2 on the card, its plain version on
       the CPU (the JAX vmapped ``fused_disc_inputs`` /
       ``multigru_disc_inputs_pallas``): single-layer stacks with both
-      projections whose widths K2 takes (up to z36/h72);
+      projections, every ``adaptive_dims`` width (z16/h32 to z64/h128);
     - otherwise the composed networks, ``encode`` and ``refine_latent ∘
       gen_latent`` (the JAX fallback, the same math as its fused scan): 3 K1
       forward launches on the card for single-layer stacks, the projections
-      as products. Wider models (z40/h80 from 20 channels), stacks without
-      projections (h_dim == z_dim) and multi-layer stacks take it."""
+      as products. Only stacks without projections (h_dim == z_dim) and
+      multi-layer stacks take it (and widths past 128, which K1 raises
+      on)."""
     if _takes_k2(params):
         return _k2_disc_inputs(params, x, z)
     with torch.no_grad():
         return encode(params, x), refine_latent(params, gen_latent(params, z))
 
 
-def _k2_disc_inputs(params: Params, x: torch.Tensor, z: torch.Tensor):
-    """:func:`fused_disc_inputs` through K2 (its plain version on the CPU),
-    the input projections hoisted as two batched products."""
+def k2_inputs(params: Params, x: torch.Tensor, z: torch.Tensor) -> tuple:
+    """The arguments of :func:`multigru_disc_inputs` for x (nb, B, T, C) and
+    z (nb, B, T, z): the input projections hoisted as two batched products
+    (time-major), then the twelve weights and biases, transposed."""
     e, g, s = params["embedder"], params["generator"], params["supervisor"]
     el, gl, sl = e["gru"][0], g["gru"][0], s["gru"][0]
     t = lambda w: w.transpose(-1, -2).contiguous()            # noqa: E731
     with torch.no_grad():
         xp_e = linear(x.transpose(1, 2), el["w_ih"], el["b_ih"])   # (nb, T, B, 3He)
         xp_g = linear(z.transpose(1, 2), gl["w_ih"], gl["b_ih"])
-        h_real, h_fake = multigru_disc_inputs(
-            xp_e.contiguous(), xp_g.contiguous(),
-            t(el["w_hh"]), el["b_hh"].contiguous(),
-            t(gl["w_hh"]), gl["b_hh"].contiguous(),
-            t(g["proj"]["w"]), g["proj"]["b"].contiguous(),
-            t(sl["w_ih"]), sl["b_ih"].contiguous(),
-            t(sl["w_hh"]), sl["b_hh"].contiguous(),
-            t(s["proj"]["w"]), s["proj"]["b"].contiguous())
+        return (xp_e.contiguous(), xp_g.contiguous(),
+                t(el["w_hh"]), el["b_hh"].contiguous(),
+                t(gl["w_hh"]), gl["b_hh"].contiguous(),
+                t(g["proj"]["w"]), g["proj"]["b"].contiguous(),
+                t(sl["w_ih"]), sl["b_ih"].contiguous(),
+                t(sl["w_hh"]), sl["b_hh"].contiguous(),
+                t(s["proj"]["w"]), s["proj"]["b"].contiguous())
+
+
+def _k2_disc_inputs(params: Params, x: torch.Tensor, z: torch.Tensor):
+    """:func:`fused_disc_inputs` through K2 (its plain version on the CPU)."""
+    with torch.no_grad():
+        h_real, h_fake = multigru_disc_inputs(*k2_inputs(params, x, z))
     return h_real.transpose(1, 2), h_fake.transpose(1, 2)

@@ -19,22 +19,23 @@ w_e (nb, He, 3He), w_g (nb, Hg, 3Hg), w_pg (nb, Hg, Z), w_is (nb, Z, 3Hs),
 w_s (nb, Hs, 3Hs), w_ps (nb, Hs, Z); biases (nb, n) → h_real (nb, T, B, He),
 h_fake (nb, T, B, Z).
 
-Accepted widths on the card: every width at most 128 (``MAX_HIDDEN``), and
-the six weight matrices, six biases and one batch row of state within the
-card's opt-in shared memory per block (227 KB on the H100; :func:`k2_fits`):
-the reference width (He = Z = 28, Hg = Hs = 56) takes 116 KB, the T > 800
-width (z 36, h 72) 192 KB, z 40 / h 80 (20 channels) does not fit. Called
-with wider models, the wrapper raises ``ValueError``; nothing falls back to
-the plain version. ``models/timegan.py``'s ``fused_disc_inputs`` checks
-:func:`k2_fits` at the H100's limit before it calls the wrapper, on the card
-and on the CPU alike, and takes the composed K1 recurrences for widths K2
-does not take.
+Accepted widths on the card: every width at most 128 (``MAX_HIDDEN``), the
+widest ``adaptive_dims`` gives (z64/h128) included, and any nb, T and B.
+The kernel runs the three cells on the three blocks of a thread-block
+cluster (generator, supervisor, embedder), each with its recurrent weights
+in registers as K1's forward, the projections beside the cells' sums, and
+G's and S's outputs passed on through rings in the next block's shared
+memory (``multigru.cu``'s header). Called with anything else, the wrapper
+raises; nothing falls back to the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from eegsynth_torch import _build
 from eegsynth_torch.nn.gru_sequence import _check_cuda, _device_of, _gates, _launch
 
 WEIGHTS = ("w_e", "b_e", "w_g", "b_g", "w_pg", "b_pg", "w_is", "b_is",
@@ -71,31 +72,16 @@ def multigru_disc_inputs_reference(xp_e, xp_g, w_e, b_e, w_g, b_g, w_pg, b_pg,
     return torch.stack(real, dim=1), torch.stack(fake, dim=1)
 
 
-def smem_bytes(He: int, Hg: int, Hs: int, Z: int, rows: int = 1) -> int:
-    """Shared memory of one block of ``rows`` batch rows (``multigru.cu``'s
-    ``Dims``): weights and biases, plus the state of each row."""
-    weights = (3 * He * He + 3 * Hg * Hg + Hg * Z + 3 * Z * Hs + 3 * Hs * Hs
-               + Hs * Z + 3 * He + 3 * Hg + Z + 6 * Hs + Z)
-    per_row = 2 * He + 2 * Hg + Z + 3 * Hs + 2 * Hs
-    return 4 * (weights + rows * per_row)
-
-
-H100_SMEM_OPTIN = 232448
-"""The H100's opt-in shared memory per block, in bytes: the limit the route
-rule of ``models/timegan.py`` holds K2's widths to on every device."""
-
-
-def smem_limit(device: torch.device) -> int:
-    """The card's opt-in shared memory per block (the H100's where an older
-    torch lacks the property)."""
-    return getattr(torch.cuda.get_device_properties(device),
-                   "shared_memory_per_block_optin", H100_SMEM_OPTIN)
-
-
-def k2_fits(He: int, Hg: int, Hs: int, Z: int, limit: int) -> bool:
-    """Whether one block of K2 at these widths fits in ``limit`` bytes of
-    shared memory (:func:`smem_limit`)."""
-    return smem_bytes(He, Hg, Hs, Z) <= limit
+def k2_tile(nb: int, B: int, He: int, Hg: int, Hs: int, Z: int) -> dict[str, int]:
+    """The kernel's tile for (nb, B, widths) on the current card: batch rows a
+    cluster, tiles a bucket, threads and shared bytes a block, the clusters of
+    the launch and how many can be resident at once, and the instance's KL, S
+    and KLZ (the slice of e W_is's depth Z)."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 9)()
+    _build.check(lib, "multigru_fwd_tile", lib.multigru_fwd_tile(nb, B, He, Hg, Hs, Z, out))
+    return dict(zip(("rows", "tiles", "threads", "smem", "clusters", "resident", "kl",
+                     "s", "klz"), out))
 
 
 def _dims(xp_e, xp_g, w):
@@ -134,13 +120,6 @@ def multigru_disc_inputs(xp_e, xp_g, w_e, b_e, w_g, b_g, w_pg, b_pg, w_is,
         return multigru_disc_inputs_reference(xp_e, xp_g, *weights.values())
     _check_cuda("multigru_disc_inputs", max(He, Hg, Hs, Z), xp_e=xp_e, xp_g=xp_g,
                 **weights)
-    limit = smem_limit(device)
-    if not k2_fits(He, Hg, Hs, Z, limit):
-        raise ValueError(
-            f"multigru_disc_inputs: widths He={He} Hg={Hg} Hs={Hs} Z={Z} need "
-            f"{smem_bytes(He, Hg, Hs, Z)} B of shared memory per block (limit "
-            f"{limit} B); the kernel takes up to the T > 800 width of "
-            "adaptive_dims (z 36, h 72)")
     h_real = torch.empty((nb, T, B, He), dtype=torch.float32, device=device)
     h_fake = torch.empty((nb, T, B, Z), dtype=torch.float32, device=device)
     if nb and T and B:

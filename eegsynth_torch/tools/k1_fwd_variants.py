@@ -1,8 +1,9 @@
 """Time variants of K1's forward kernel (``csrc/gru_seq.cu``) against each
 other on one CUDA card, in turns, at the main paths' shapes.
 
-Each variant is ``gru_seq.cu`` (from this tree, or from the file given with
-``--base``) built alone with nvcc into a library of its own, with a
+Each variant is ``gru_seq.cu`` (from this tree, with ``gru_cell.cuh``
+inlined, or from the file given with ``--base``) built alone with nvcc into
+a library of its own, with a
 constant changed or with one part of the step replaced by a cheap stand-in.
 The stand-ins give wrong results on purpose: the time they save is what
 that part costs the step. Variants that keep the arithmetic are held to
@@ -142,7 +143,10 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    here = (CSRC / "gru_seq.cu").read_text()
+    # the forward's cell code lives in gru_cell.cuh: inline it, so that the
+    # patches reach it
+    cell = (CSRC / "gru_cell.cuh").read_text().replace("#pragma once\n", "")
+    here = (CSRC / "gru_seq.cu").read_text().replace('#include "gru_cell.cuh"', cell)
     jobs = {}
     for name, (patches, exact) in VARIANTS.items():
         src = here

@@ -55,7 +55,9 @@ class TimeGANHParams:
 
     ``fused_step`` and ``pallas_multigru`` are kept for config compatibility
     and change nothing here: on the card the stacked trainer's D-step inputs
-    always run kernel K2, and its G-step recurrences kernel K1. ``chunk`` (GAN
+    run kernel K2 (single-layer stacks with projections, every
+    ``adaptive_dims`` width; three K1 launches otherwise), and its G-step
+    recurrences kernel K1. ``chunk`` (GAN
     steps per device dispatch in JAX) has no counterpart either: the port
     takes one step per call."""
     batch_size: int = 64
@@ -194,8 +196,9 @@ def gan_step(params: Params, optD: Optimizer, d_state: OptState,
     its batch x (nb, B, T, C). Returns (params, d_state, g_state, logs
     (nb, 8)) with the log columns of ``LOG_COLUMNS``.
 
-    D step: h_real, h_fake from kernel K2, or from three K1 launches where
-    K2 does not take the widths (no gradient; ``fused_disc_inputs``),
+    D step: h_real, h_fake from kernel K2, or from three K1 launches for
+    stacks without projections or of several layers (no gradient;
+    ``fused_disc_inputs``),
     instance noise, smoothed BCE on ``d_real`` (the stored ``u``) and
     ``d_fake`` (the ``u`` ``d_real`` produced), R1 on the noisy real latents in eval mode with the
     pre-step ``u``, the accuracy throttle; the updated D keeps the ``u`` from

@@ -104,8 +104,8 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         multigru_disc_inputs(xe.transpose(1, 2).contiguous().transpose(1, 2), xg,
                              *weights)
-    wide = _multigru_inputs(1, 4, 2, 64, 128, 128, 64, cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
+    wide = _multigru_inputs(1, 4, 2, 64, 129, 129, 64, cuda_device)
+    with pytest.raises(ValueError, match="H=129"):
         multigru_disc_inputs(wide[0], wide[1], *wide[2])
 
 
@@ -235,26 +235,66 @@ def _multigru_inputs(nb, T, B, He, Hg, Hs, Z, device, seed=0):
     return xe, xg, weights
 
 
-# the reference width at the training shape, the T > 800 width, ragged
+# the reference width at the training shape, the T > 800 width, ragged;
+# adaptive_dims' narrowest (z16/h32), 20 channels (z40/h80) and widest
+# (z64/h128) widths, every width at 128 (the largest shared memory a block
+# takes: W_is^T at Z = Hs = 128), mixed widths; one step, and no step (no
+# launch: nothing to compute)
 @pytest.mark.parametrize("nb,T,B,dims", [(18, 768, 63, (28, 56, 56, 28)),
                                          (18, 1024, 63, (36, 72, 72, 36)),
-                                         (3, 50, 7, (8, 12, 12, 8))])
+                                         (3, 50, 7, (8, 12, 12, 8)),
+                                         (2, 300, 37, (16, 32, 32, 16)),
+                                         (18, 768, 63, (40, 80, 80, 40)),
+                                         (3, 1024, 37, (64, 128, 128, 64)),
+                                         (2, 64, 5, (128, 128, 128, 128)),
+                                         (2, 100, 19, (20, 100, 72, 90)),
+                                         (3, 1, 5, (28, 56, 56, 28)),
+                                         (2, 0, 5, (28, 56, 56, 28))])
 def test_multigru_kernel_matches_plain(cuda_device, nb, T, B, dims):
     xe, xg, weights = _multigru_inputs(nb, T, B, *dims, cuda_device)
     before = multigru_disc_inputs.launches
     got = multigru_disc_inputs(xe, xg, *weights)
     ref = multigru_disc_inputs_reference(xe, xg, *weights)
     torch.cuda.synchronize()
-    assert multigru_disc_inputs.launches == before + 1
+    assert multigru_disc_inputs.launches == before + (1 if T else 0)
     for g, r in zip(got, ref):
         assert g.shape == r.shape and torch.isfinite(g).all()
+        if T:
+            assert (g - r).abs().max().item() <= 1e-4
+
+
+def test_multigru_takes_unaligned_inputs(cuda_device):
+    """xp_e and xp_g as contiguous views 4 bytes into their storage, not
+    16-byte aligned: the kernel copies them 4 bytes at a time and still
+    matches the plain version."""
+    nb, T, B, dims = 2, 200, 19, (28, 56, 56, 28)
+    xe, xg, weights = _multigru_inputs(nb, T, B, *dims, cuda_device, seed=3)
+    xe, xg = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape) for t in (xe, xg))
+    assert xe.is_contiguous() and xe.data_ptr() % 16 and xg.data_ptr() % 16
+    got = multigru_disc_inputs(xe, xg, *weights)
+    ref = multigru_disc_inputs_reference(xe, xg, *weights)
+    for g, r in zip(got, ref):
         assert (g - r).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("nb,T,B,dims", [(18, 768, 63, (28, 56, 56, 28)),
+                                         (3, 300, 37, (64, 128, 128, 64))])
+def test_multigru_repeats_bitwise(cuda_device, nb, T, B, dims):
+    """Two launches on the same inputs give the same bits: every sum has a
+    fixed order, and the rings between the blocks change only when a value
+    arrives, not what it is."""
+    xe, xg, weights = _multigru_inputs(nb, T, B, *dims, cuda_device, seed=5)
+    first = multigru_disc_inputs(xe, xg, *weights)
+    second = multigru_disc_inputs(xe, xg, *weights)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_wide_disc_inputs_take_k1(cuda_device):
-    """z40/h80 (20 channels) does not fit K2's shared memory: on the card
-    fused_disc_inputs runs the composed networks, 3 K1 forward launches and
-    no K2, and matches the same route on the CPU."""
+    """z40/h80 (20 channels): on the card fused_disc_inputs runs K2 (its
+    three cells on a cluster of three blocks), no K1, and matches the same
+    route on the CPU."""
     cfg = TimeGANConfig(x_dim=20, z_dim=40, h_dim=80)
     nb, B, T = 18, 63, 768
     params = timegan_init_stacked(
@@ -266,7 +306,7 @@ def test_wide_disc_inputs_take_k1(cuda_device):
     k1, k2 = gru_sequence.launches, multigru_disc_inputs.launches
     got = fused_disc_inputs(card, x.to(cuda_device), z.to(cuda_device))
     torch.cuda.synchronize()
-    assert (gru_sequence.launches - k1, multigru_disc_inputs.launches - k2) == (3, 0)
+    assert (gru_sequence.launches - k1, multigru_disc_inputs.launches - k2) == (0, 1)
     want = fused_disc_inputs(params, x, z)
     for g, w in zip(got, want):
         assert g.shape == (nb, B, T, 40) and torch.isfinite(g).all()
