@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's main paths once on one CUDA card and check them: TimeGAN
-synthesis serving, multi-bucket TimeGAN training, and transformer-CGAN
-training and serving.
+synthesis serving, multi-bucket TimeGAN training and the eval of what it
+synthesized, and transformer-CGAN training and serving.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
@@ -25,9 +25,10 @@ failure is swallowed):
              K1 backward (the whole call and the kernel alone) and K2
              (training), K3a, K3b and K3c (the CGAN's 96- and 768-token
              geometries, the latter at serve_batch 256 too, a ragged T, a
-             long T); one PyTorch call computing the same function timed
+             long T), K1 forward and backward at the eval scorers' H 24
+             shapes; one PyTorch call computing the same function timed
              in turns with the kernel where there is one (cuDNN's GRU
-             beside K1 forward, its backward beside K1 backward at one
+             beside K1 forward and its backward beside K1 backward, at one
              bucket, memory-efficient SDPA's forward beside K3a and its
              backward beside K3b + K3c); dense attention
              beside K3a; the wide kernels (head dims past 128, all three on
@@ -55,6 +56,12 @@ failure is swallowed):
              steps; then one GAN step
              against the CPU plain path at 14 and at 20 channels, and a
              per-layer split and profiler line of one GAN step;
+5b. eval   — run_timegan_eval (by condition) of the 18 trained buckets
+             and their synthetic.npz: 18 pairs and the global corpus, the
+             GRU(24) scorers on K1 forward and backward (the launch counts
+             against their expected counts), the CSVs checked, the time
+             split; one scorer stack and one pair's statistics on the card
+             against the CPU;
 6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
              heads 4, patch 8, batch 64) on 9 random posture buckets for 2
              epochs with flash attention forced; artifacts, finite
@@ -76,6 +83,7 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import csv
 import http.client
 import io
 import json
@@ -93,6 +101,10 @@ import torch
 
 from eegsynth_torch import _build
 from eegsynth_torch.convert import from_jax_params, to_jax_params, tree_to_numpy
+from eegsynth_torch.eval.classifiers import _run_grouped as eval_run_grouped
+from eegsynth_torch.eval.classifiers import discriminative_task
+from eegsynth_torch.eval.drivers import load_pairs_by_condition, run_timegan_eval
+from eegsynth_torch.eval.stats import statistical_similarity
 from eegsynth_torch.models.cgan_transformer import generator_apply as cgan_generator_apply
 from eegsynth_torch.models.timegan import (
     TimeGAN, TimeGANConfig, adaptive_dims, encode, fused_disc_inputs, gen_latent,
@@ -128,18 +140,27 @@ CHUNK_TOL = 1e-5       # chunked vs one-shot on the card (same kernel, same orde
                        # only cuBLAS's choice for the hoisted products may differ)
 # (nb, T, B, H, input): the serving width (generator / supervisor / recovery
 # recurrence, nb = 1), the embedder-sized H = 28, a ragged batch at the H cap,
-# and the training shape: 18 buckets of B 63
+# the training shape: 18 buckets of B 63; then the eval's GRU(24) scorers
+# (EVAL_SHAPES, nb = scorers in one stack, B = their training rows)
+# Eval, 18 buckets of 63 windows of (768, 14): the discriminative stacks
+# (18 pairs of 88 training rows, the global corpus's 1587) and the
+# predictive ones (36 TSTR / TRTS tasks of 63 rows at T 767, the global 2 of
+# 1134)
+EVAL_SHAPES = ((18, 768, 88, 24, 14), (1, 768, 1587, 24, 14),
+               (36, 767, 63, 24, 14), (2, 767, 1134, 24, 14))
 KERNEL_SHAPES = ((1, 768, 256, 56, 28), (1, 768, 256, 28, 14),
-                 (1, 1024, 37, 128, 28), (18, 768, 63, 56, 28))
+                 (1, 1024, 37, 128, 28), (18, 768, 63, 56, 28), *EVAL_SHAPES)
 # K1 forward's and backward's instances (k-slice KL, lanes S a dot product,
 # largest H): KL 16 with S 1, 2, 4 up to H 64, KL 32 with S 4 up to H 96,
 # KL 64 with S 2 up to H 128
 K1_INSTANCES = ("KL 16, S 1, H <= 16", "KL 16, S 2, H <= 32", "KL 16, S 4, H <= 64",
                     "KL 32, S 4, H <= 96", "KL 64, S 2, H <= 128")
 # K1 backward at the training shapes: the G/S/R width, the embedder's H 28,
-# and a ragged (nb 3, T 1024, B 37, H 128); cuDNN's GRU backward computes
-# the same function at one bucket of the first (BWD_CUDNN_SHAPE)
-BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128))
+# a ragged (nb 3, T 1024, B 37, H 128), and the eval's; cuDNN's GRU backward
+# computes the same function at one bucket of the first (BWD_CUDNN_SHAPE)
+# and at the eval's shape of nb 1
+BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128),
+              *(shape[:4] for shape in EVAL_SHAPES))
 BWD_CUDNN_SHAPE = (1, 768, 63, 56)
 # K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims (the headline), and
 # adaptive_dims' T > 800 dims z36/h72, 20 channels' z40/h80, the widest
@@ -181,6 +202,16 @@ T1_RTOL = 5e-7
 # Training: 18 buckets (9 postures x 2 conditions) of 63 random windows
 N_BUCKETS, N_WINDOWS, SEQ_LEN, CHANNELS = 18, 63, 768, 14
 GAN_STEPS = 4
+# The eval of the trained buckets: the scorers' epochs (the JAX package's
+# defaults), its CSVs' metric columns in the JAX package's order, and the
+# card against the CPU: a scorer stack's logits after 2 epochs (f32 over 768
+# steps, as KERNEL_TOL), Welch and the correlations relative (f32 sums in
+# another order), the ACF (float64 on the host in both)
+EVAL_DISC_EPOCHS, EVAL_PRED_EPOCHS = 20, 50
+EVAL_METRIC_COLS = ["disc_acc", "disc_auc", "rmse_tstr", "r2_tstr", "rmse_trts",
+                    "r2_trts", "psd_diff", "acf_diff", "coh_diff",
+                    "n_real", "n_fake", "seq_len", "n_ch"]
+EVAL_LOGIT_TOL, EVAL_STAT_RTOL, EVAL_ACF_TOL = 1e-4, 1e-5, 1e-10
 # Wide data: 20 channels give adaptive_dims' z40/h80 (K2's instance with KL
 # 32); a short run of 2 buckets
 WIDE_CHANNELS, WIDE_BUCKETS, WIDE_GAN_STEPS = 20, 2, 2
@@ -398,6 +429,9 @@ def _cudnn_gru(xp, w_hh_t, b_hh, h0):
 
 
 def _check_k1_fwd(smi: str) -> dict:
+    """K1 forward at each of KERNEL_SHAPES against the plain version, with
+    its bound; at one bucket (nb 1, the unstacked call) cuDNN's GRU in turns
+    beside it. The kernels line takes the first (serving) shape."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     head = None
     worst = 0.0
@@ -405,12 +439,13 @@ def _check_k1_fwd(smi: str) -> dict:
         args = _gru_inputs(nb, T, B, H, I, seed=i, device="cuda")
         if nb == 1:
             args = [a[0] for a in args]         # the serving path's unstacked call
+        lib_ms = None
         with torch.inference_mode():
             got = gru_sequence(*args)
             ref = gru_sequence_reference(*args)
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
-            if head is None:                    # the headline (serving) shape
+            if nb == 1:
                 cudnn = _cudnn_gru(*args)
                 lib_err = (cudnn() - got).abs().max().item()
                 ms, lib_ms = _turns_ms(lambda: gru_sequence(*args), cudnn, reps=20)
@@ -431,13 +466,14 @@ def _check_k1_fwd(smi: str) -> dict:
             fail(f"gru_sequence disagrees with its plain version at "
                  f"nb={nb} T={T} B={B} H={H}: max|diff|={err} finite={finite}")
         worst = max(worst, err)
-        if head is None:
-            head = _row(ms, plain_ms, _bound(2 * nb * T * B * H * 3 * H, *args, got),
-                        lib_ms)
-            print(f"[kernel] gru_sequence vs cuDNN GRU (nn.GRU, input weight I): "
-                  f"max|diff|={lib_err:.3e}, cuDNN {lib_ms:.4f} ms, K1 {ms:.4f} ms "
-                  f"(in turns) | {smi}", flush=True)
-            _roofline(f"gru_sequence nb={nb} T={T} B={B} H={H}", head, smi, "cuDNN GRU")
+        row = _row(ms, plain_ms, _bound(2 * nb * T * B * H * 3 * H, *args, got), lib_ms)
+        if nb == 1:
+            print(f"[kernel] gru_sequence nb={nb} T={T} B={B} H={H} vs cuDNN GRU "
+                  f"(nn.GRU, input weight I): max|diff|={lib_err:.3e}, cuDNN "
+                  f"{lib_ms:.4f} ms, K1 {ms:.4f} ms (in turns) | {smi}", flush=True)
+        _roofline(f"gru_sequence nb={nb} T={T} B={B} H={H}", row, smi,
+                  "cuDNN GRU" if nb == 1 else None)
+        head = head or row
     return {"max_abs_err": worst, **head}
 
 
@@ -485,8 +521,9 @@ def _cudnn_gru_bwd(xp, w_hh_t, b_hh, h0, d_ys):
 def _check_k1_bwd(smi: str) -> dict:
     """At each of BWD_SHAPES the whole backward (the hp product, the kernel,
     the dW product and the db sum) and the kernel alone, against the plain
-    backward; then the whole backward at one bucket against cuDNN's GRU
-    backward, in turns."""
+    backward, with its bound; then the whole backward at one bucket
+    (BWD_CUDNN_SHAPE and the shapes of nb 1) against cuDNN's GRU backward,
+    in turns. The kernels line takes the first shape."""
     head = None
     worst = 0.0
     for i, (nb, T, B, H) in enumerate(BWD_SHAPES):
@@ -514,16 +551,27 @@ def _check_k1_bwd(smi: str) -> dict:
                  f"T={T} B={B} H={H}: {errs} finite="
                  f"{all(bool(torch.isfinite(g).all()) for g in got)}")
         worst = max(worst, errs[0], errs[3])
-        if head is None:
-            # three products: hp, dh·W_hh, dW
-            head = _row(ms, plain_ms, _bound(3 * 2 * nb * T * B * H * 3 * H, *args,
-                                             ys, d_ys, *got))
-            _roofline(f"gru_sequence_bwd nb={nb} T={T} B={B} H={H}", head, smi)
-    nb, T, B, H = BWD_CUDNN_SHAPE
-    args = _gru_inputs(nb, T, B, H, 28, seed=13, device="cuda")
+        # three products: hp, dh·W_hh, dW
+        row = _row(ms, plain_ms, _bound(3 * 2 * nb * T * B * H * 3 * H, *args,
+                                        ys, d_ys, *got))
+        _roofline(f"gru_sequence_bwd nb={nb} T={T} B={B} H={H}", row, smi)
+        head = head or row
+    _k1_bwd_vs_cudnn(smi, BWD_CUDNN_SHAPE, 13)
+    for i, shape in enumerate(BWD_SHAPES):
+        if shape[0] == 1:
+            _k1_bwd_vs_cudnn(smi, shape, 20 + i)
+    return {"max_abs_err": worst, **head}
+
+
+def _k1_bwd_vs_cudnn(smi: str, shape: tuple, seed: int) -> None:
+    """K1's whole backward at one bucket against cuDNN's GRU backward on the
+    same inputs, in turns; both held to the plain backward."""
+    nb, T, B, H = shape
+    args = _gru_inputs(nb, T, B, H, 28, seed=seed, device="cuda")
     with torch.no_grad():
         ys = gru_sequence(*args)
-        d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(3)).cuda()
+        d_ys = torch.randn(ys.shape,
+                           generator=torch.Generator().manual_seed(seed)).cuda()
         ref = gru_sequence_bwd_reference(*args, ys, d_ys)
         got = gru_sequence_bwd(*args, ys, d_ys)
     cudnn, as_k1 = _cudnn_gru_bwd(*(a[0] for a in args), d_ys[0])
@@ -539,7 +587,6 @@ def _check_k1_bwd(smi: str) -> dict:
     if not ok:
         fail(f"gru_sequence_bwd disagrees with its plain version at nb={nb} T={T} "
              f"B={B} H={H}: {errs}")
-    return {"max_abs_err": worst, **head}
 
 
 def _multigru_inputs(nb, T, B, dims, seed):
@@ -1133,78 +1180,154 @@ def _train_hparams(**override) -> dict:
     return {**hp, **override}
 
 
-def phase_train(smi: str, device: str = "cuda", n_buckets: int = N_BUCKETS,
-                channels: int = CHANNELS, gan_steps: int = GAN_STEPS) -> dict:
+def phase_train(smi: str, root: Path, device: str = "cuda",
+                n_buckets: int = N_BUCKETS, channels: int = CHANNELS,
+                gan_steps: int = GAN_STEPS) -> dict:
     """train_all_buckets at full width on ``n_buckets`` buckets of
-    ``channels`` channels (adaptive_dims sets the widths); returns the
-    launch counts of its run. With ``device="cpu"`` it rehearses the phase:
-    the counts then stay 0."""
+    ``channels`` channels (adaptive_dims sets the widths), the buckets in
+    ``root``/data and the runs in ``root``/runs; returns the launch counts
+    of its run. With ``device="cpu"`` it rehearses the phase: the counts
+    then stay 0."""
     hp = _train_hparams(ae_epochs=1, sup_epochs=1, gan_steps=gan_steps)
     tag = "[train]" if channels == CHANNELS else "[train-wide]"
-    with tempfile.TemporaryDirectory() as tmp:
-        data = _write_buckets(Path(tmp), n_buckets, channels)
-        out = Path(tmp) / "runs"
-        counters = (gru_sequence, gru_sequence_bwd, multigru_disc_inputs)
-        for c in counters:
-            c.launches = 0
-        res = train_all_buckets(data, out, device=device, log_every=1, **hp)
-        fwd, bwd, k2 = (c.launches for c in counters)
-        # per AE step: E and R forward, both backward; per SUP step: E (no
-        # gradient) and S forward, S backward; per GAN step: K2 for the D
-        # inputs, G, S, R and E, R forward and backward; then 3 forward
-        # launches per bucket for synthetic.npz (one G→S→R cascade)
-        a, s_, g = res["ae_steps"], res["sup_steps"], gan_steps
-        want = (2 * a + 2 * s_ + 5 * g + 3 * n_buckets, 2 * a + s_ + 5 * g, g)
-        if torch.device(device).type != "cuda":
-            want = (0, 0, 0)
-        z_dim, h_dim = adaptive_dims(channels, SEQ_LEN)
-        print(f"{tag} {n_buckets} buckets x ({N_WINDOWS}, {SEQ_LEN}, {channels}), "
-              f"z{z_dim}/h{h_dim}, {a} AE + {s_} SUP + {g} GAN steps in "
-              f"{res['total_seconds']:.2f} s; launches: gru_sequence {fwd} (expected "
-              f"{want[0]}), gru_sequence_bwd {bwd} (expected {want[1]}), "
-              f"multigru_disc_inputs {k2} (expected {want[2]}) | {smi}", flush=True)
-        if (fwd, bwd, k2) != want:
-            fail(f"training launch counts {(fwd, bwd, k2)} != expected {want}")
-        steps = res["gan_step_seconds"]
-        print(f"{tag} GAN step wall times {['%.3f' % t for t in steps]} s; "
-              f"median of steps 2-{gan_steps}: {statistics.median(steps[1:]):.3f} s "
-              f"= {n_buckets / statistics.median(steps[1:]):.3f} aggregate "
-              f"bucket-steps/s | {smi}", flush=True)
+    data = _write_buckets(root, n_buckets, channels)
+    out = root / "runs"
+    counters = (gru_sequence, gru_sequence_bwd, multigru_disc_inputs)
+    for c in counters:
+        c.launches = 0
+    res = train_all_buckets(data, out, device=device, log_every=1, **hp)
+    fwd, bwd, k2 = (c.launches for c in counters)
+    # per AE step: E and R forward, both backward; per SUP step: E (no
+    # gradient) and S forward, S backward; per GAN step: K2 for the D
+    # inputs, G, S, R and E, R forward and backward; then 3 forward
+    # launches per bucket for synthetic.npz (one G→S→R cascade)
+    a, s_, g = res["ae_steps"], res["sup_steps"], gan_steps
+    want = (2 * a + 2 * s_ + 5 * g + 3 * n_buckets, 2 * a + s_ + 5 * g, g)
+    if torch.device(device).type != "cuda":
+        want = (0, 0, 0)
+    z_dim, h_dim = adaptive_dims(channels, SEQ_LEN)
+    print(f"{tag} {n_buckets} buckets x ({N_WINDOWS}, {SEQ_LEN}, {channels}), "
+          f"z{z_dim}/h{h_dim}, {a} AE + {s_} SUP + {g} GAN steps in "
+          f"{res['total_seconds']:.2f} s; launches: gru_sequence {fwd} (expected "
+          f"{want[0]}), gru_sequence_bwd {bwd} (expected {want[1]}), "
+          f"multigru_disc_inputs {k2} (expected {want[2]}) | {smi}", flush=True)
+    if (fwd, bwd, k2) != want:
+        fail(f"training launch counts {(fwd, bwd, k2)} != expected {want}")
+    steps = res["gan_step_seconds"]
+    print(f"{tag} GAN step wall times {['%.3f' % t for t in steps]} s; "
+          f"median of steps 2-{gan_steps}: {statistics.median(steps[1:]):.3f} s "
+          f"= {n_buckets / statistics.median(steps[1:]):.3f} aggregate "
+          f"bucket-steps/s | {smi}", flush=True)
 
-        names = sorted(f.stem for f in data.glob("*.npz"))
-        for name in names:
-            run = out / name
-            missing = [f for f in ("train_log.csv", "ckpt_latest.npz",
-                                   "ckpt_best.npz", "synthetic.npz")
-                       if not (run / f).exists()]
-            if missing:
-                fail(f"{name}: artifacts missing {missing}")
-            rows = np.loadtxt(run / "train_log.csv", delimiter=",", skiprows=1,
-                              usecols=range(2, 2 + len(LOG_COLUMNS)), ndmin=2)
-            if rows.shape != (gan_steps, len(LOG_COLUMNS)) or not np.isfinite(rows).all():
-                fail(f"{name}: train_log.csv {rows.shape} finite "
-                     f"{np.isfinite(rows).all()}")
-            trees, _ = load_checkpoint(run / "ckpt_best.npz")
-            if set(trees) != {"model", "optG", "optD"}:
-                fail(f"{name}: ckpt_best.npz holds {sorted(trees)}")
-            with np.load(run / "synthetic.npz") as syn:
-                if syn["X"].shape != (N_WINDOWS, SEQ_LEN, channels) \
-                        or not np.isfinite(syn["X"]).all():
-                    fail(f"{name}: synthetic.npz {syn['X'].shape}")
-        reg = ModelRegistry(out, data, device=device)     # serves every ckpt_best
-        if sorted(reg.models) != names:
-            fail(f"the registry loaded {sorted(reg.models)}")
-        for name in names:
-            X = reg.synthesize(name, 8, SEQ_LEN, 0, False, 8, SEQ_LEN)
-            if X.shape != (8, SEQ_LEN, channels) or not np.isfinite(X).all():
-                fail(f"{name}: served {X.shape}")
-        last = np.loadtxt(out / names[0] / "train_log.csv", delimiter=",",
-                          skiprows=1, usecols=range(2, 10), ndmin=2)[-1]
-        print(f"{tag} all {len(names)} buckets: train_log.csv finite, ckpt_best "
-              f"served back; {names[0]} step {gan_steps}: "
-              + ", ".join(f"{c}={v:.4f}" for c, v in zip(LOG_COLUMNS, last)),
-              flush=True)
+    names = sorted(f.stem for f in data.glob("*.npz"))
+    for name in names:
+        run = out / name
+        missing = [f for f in ("train_log.csv", "ckpt_latest.npz",
+                               "ckpt_best.npz", "synthetic.npz")
+                   if not (run / f).exists()]
+        if missing:
+            fail(f"{name}: artifacts missing {missing}")
+        rows = np.loadtxt(run / "train_log.csv", delimiter=",", skiprows=1,
+                          usecols=range(2, 2 + len(LOG_COLUMNS)), ndmin=2)
+        if rows.shape != (gan_steps, len(LOG_COLUMNS)) or not np.isfinite(rows).all():
+            fail(f"{name}: train_log.csv {rows.shape} finite "
+                 f"{np.isfinite(rows).all()}")
+        trees, _ = load_checkpoint(run / "ckpt_best.npz")
+        if set(trees) != {"model", "optG", "optD"}:
+            fail(f"{name}: ckpt_best.npz holds {sorted(trees)}")
+        with np.load(run / "synthetic.npz") as syn:
+            if syn["X"].shape != (N_WINDOWS, SEQ_LEN, channels) \
+                    or not np.isfinite(syn["X"]).all():
+                fail(f"{name}: synthetic.npz {syn['X'].shape}")
+    reg = ModelRegistry(out, data, device=device)     # serves every ckpt_best
+    if sorted(reg.models) != names:
+        fail(f"the registry loaded {sorted(reg.models)}")
+    for name in names:
+        X = reg.synthesize(name, 8, SEQ_LEN, 0, False, 8, SEQ_LEN)
+        if X.shape != (8, SEQ_LEN, channels) or not np.isfinite(X).all():
+            fail(f"{name}: served {X.shape}")
+    last = np.loadtxt(out / names[0] / "train_log.csv", delimiter=",",
+                      skiprows=1, usecols=range(2, 10), ndmin=2)[-1]
+    print(f"{tag} all {len(names)} buckets: train_log.csv finite, ckpt_best "
+          f"served back; {names[0]} step {gan_steps}: "
+          + ", ".join(f"{c}={v:.4f}" for c, v in zip(LOG_COLUMNS, last)),
+          flush=True)
     return {"gru_sequence": fwd, "gru_sequence_bwd": bwd, "multigru_disc_inputs": k2}
+
+
+def phase_eval(smi: str, root: Path, device: str = "cuda") -> dict:
+    """run_timegan_eval (by condition) of the buckets and synthetic.npz
+    files that phase_train left in ``root``: 18 pairs of 63 + 63 windows and
+    the global corpus of 1134 + 1134. The CSVs (rows, columns in the JAX
+    package's order, finite values, counts), K1's launch counts (one forward
+    and one backward a scorer stack and epoch, one forward for its test
+    rows), the time split; then one scorer stack and one pair's statistics
+    on the card against the CPU. Returns the launch counts of the run."""
+    pairs = load_pairs_by_condition(root / "data", root / "runs")
+    counters = (gru_sequence, gru_sequence_bwd)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = run_timegan_eval(root / "data", root / "runs", root / "eval",
+                           by_condition=True, device=device)
+    wall = time.perf_counter() - t0
+    fwd, bwd = (c.launches for c in counters)
+    # two discriminative stacks (18 pairs; the global pair) and two
+    # predictive ones (36 TSTR / TRTS tasks; the global 2)
+    want = (2 * (EVAL_DISC_EPOCHS + 1) + 2 * (EVAL_PRED_EPOCHS + 1),
+            2 * EVAL_DISC_EPOCHS + 2 * EVAL_PRED_EPOCHS)
+    if torch.device(device).type != "cuda":
+        want = (0, 0)
+    split = res["seconds"]
+    print(f"[eval] run_timegan_eval by condition: {len(pairs)} pairs of "
+          f"({N_WINDOWS}, {SEQ_LEN}, {CHANNELS}) + the global corpus in {wall:.2f} s: "
+          + "; ".join(f"{k} {v:.2f} s" for k, v in split.items())
+          + f"; launches gru_sequence {fwd} (expected {want[0]}), gru_sequence_bwd "
+          f"{bwd} (expected {want[1]}) | {smi}", flush=True)
+    if (fwd, bwd) != want:
+        fail(f"eval launch counts {(fwd, bwd)} != expected {want}")
+    for name, lead, n_rows, n in (("metrics_per_posture_condition.csv",
+                                   ["posture", "condition"], N_BUCKETS, N_WINDOWS),
+                                  ("metrics_global.csv", [], 1, N_BUCKETS * N_WINDOWS)):
+        with open(root / "eval" / name) as f:
+            reader = csv.DictReader(f)
+            rows = list(reader)
+        values = np.array([[float(r[c]) for c in EVAL_METRIC_COLS] for r in rows])
+        counts = {(int(r["n_real"]), int(r["n_fake"])) for r in rows}
+        if reader.fieldnames != lead + EVAL_METRIC_COLS or len(rows) != n_rows \
+                or not np.isfinite(values).all() or counts != {(n, n)}:
+            fail(f"{name}: columns {reader.fieldnames}, {len(rows)} rows, counts "
+                 f"{counts}, finite {np.isfinite(values).all()}")
+    g = res["global"]
+    print(f"[eval] CSVs: {N_BUCKETS} + 1 rows, finite; global disc_acc "
+          f"{g['disc_acc']:.4f} auc {g['disc_auc']:.4f} rmse_tstr {g['rmse_tstr']:.4f} "
+          f"r2_tstr {g['r2_tstr']:.4f} psd {g['psd_diff']:.3e} acf {g['acf_diff']:.4f} "
+          f"coh {g['coh_diff']:.4f}", flush=True)
+
+    # card against CPU, outside the counted run
+    keys = sorted(pairs)[:2]
+    tasks = [discriminative_task(*pairs[k])[0] for k in keys]
+    t0 = time.perf_counter()
+    card = eval_run_grouped(tasks, 2, 1e-3, True, device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = eval_run_grouped(tasks, 2, 1e-3, True, "cpu")
+    cpu_s = time.perf_counter() - t0
+    err = max(float(np.abs(a - b).max()) for a, b in zip(card, host))
+    got = statistical_similarity(*pairs[keys[0]], device=device)
+    ref = statistical_similarity(*pairs[keys[0]], device="cpu")
+    rel = [abs(got[i] - ref[i]) / abs(ref[i]) for i in (0, 2)]
+    acf_err = abs(got[1] - ref[1])
+    print(f"[eval] card vs CPU: one discriminative stack of {len(tasks)} pairs, 2 "
+          f"epochs: logits max|diff| {err:.3e} (tol {EVAL_LOGIT_TOL:g}), {card_s:.2f} s "
+          f"on the card, {cpu_s:.2f} s on the CPU; statistics of {keys[0]}: psd "
+          f"{rel[0]:.3e}, coh {rel[1]:.3e} relative (tol {EVAL_STAT_RTOL:g}), acf "
+          f"{acf_err:.3e} (tol {EVAL_ACF_TOL:g}) | {smi}", flush=True)
+    if not err <= EVAL_LOGIT_TOL or not max(rel) <= EVAL_STAT_RTOL \
+            or not acf_err <= EVAL_ACF_TOL:
+        fail(f"the eval on the card disagrees with the CPU: logits {err}, "
+             f"psd/coh {rel}, acf {acf_err}")
+    return {"gru_sequence": fwd, "gru_sequence_bwd": bwd}
 
 
 def _step_inputs(nb: int, B: int, seed: int, device, channels: int = CHANNELS):
@@ -1680,9 +1803,12 @@ def main() -> None:
     serve_launches = phase_serve(smi, kern["gru_sequence"]["ms"])
     if serve_launches < 1:
         fail("the served run launched gru_sequence no time")
-    train_launches = phase_train(smi)
-    wide_launches = phase_train(smi, n_buckets=WIDE_BUCKETS, channels=WIDE_CHANNELS,
-                                gan_steps=WIDE_GAN_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches = phase_train(smi, Path(tmp))
+        eval_launches = phase_eval(smi, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        wide_launches = phase_train(smi, Path(tmp), n_buckets=WIDE_BUCKETS,
+                                    channels=WIDE_CHANNELS, gan_steps=WIDE_GAN_STEPS)
     phase_step_check(smi)
     phase_train_layers(smi)
     cgan_launches = phase_cgan_train(smi)
@@ -1692,9 +1818,9 @@ def main() -> None:
     wide_attn_launches = phase_cgan_wide(smi)
     launches = {**cgan_launches, **wide_attn_launches,
                 "gru_sequence": serve_launches + train_launches["gru_sequence"]
-                + wide_launches["gru_sequence"],
+                + eval_launches["gru_sequence"] + wide_launches["gru_sequence"],
                 "gru_sequence_bwd": train_launches["gru_sequence_bwd"]
-                + wide_launches["gru_sequence_bwd"],
+                + eval_launches["gru_sequence_bwd"] + wide_launches["gru_sequence_bwd"],
                 "multigru_disc_inputs": train_launches["multigru_disc_inputs"]
                 + wide_launches["multigru_disc_inputs"],
                 "flash_forward": cgan_launches["flash_forward"] + cgan_serve_launches}

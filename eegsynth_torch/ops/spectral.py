@@ -1,12 +1,66 @@
-"""Spectral helpers of the CGAN losses.
+"""Spectral helpers: the Welch PSD of the evaluation and the CGAN losses' rFFT
+power.
 
-Counterpart of ``rfft_power`` in ``eegsynth/ops/spectral.py``. The Welch PSD
-of the evaluation is ported with the eval functions.
+Counterpart of ``eegsynth/ops/spectral.py`` (``hann_periodic``,
+``welch_psd``, ``trapezoid``, ``rfft_power``). Everything computes in the
+input's dtype, on the input's device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def hann_periodic(n: int, dtype=torch.float64, device=None) -> torch.Tensor:
+    """Periodic Hann window: scipy.signal.get_window('hann', n), fftbins=True.
+    Computed in float64 on the host, then cast."""
+    k = np.arange(n)
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * k / n)
+    return torch.as_tensor(w, dtype=dtype, device=device)
+
+
+def welch_psd(x: torch.Tensor, fs: float = 128.0, nperseg: int = 256,
+              noverlap: int | None = None, detrend: str | None = "constant",
+              axis: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Welch power spectral density with scipy.signal.welch's defaults.
+
+    Periodic Hann window, ``noverlap = nperseg // 2``, ``nperseg = min(nperseg,
+    T)``, constant detrend per segment, density scaling, one-sided doubling
+    (except DC and the even-length Nyquist bin), the mean over segments.
+    Returns ``(freqs, psd)``, ``psd`` with the time axis replaced in place by
+    the frequency bins."""
+    x = x.movedim(axis, -1)
+    T = x.shape[-1]
+    nperseg = min(nperseg, T)
+    if noverlap is None:
+        noverlap = nperseg // 2
+    segs = x.unfold(-1, nperseg, nperseg - noverlap)        # (..., n_seg, nperseg)
+    if detrend == "constant":
+        segs = segs - segs.mean(dim=-1, keepdim=True)
+    elif detrend:  # don't silently skip e.g. scipy's "linear"
+        raise ValueError(f"unsupported detrend mode {detrend!r} "
+                         "(supported: 'constant', False/None)")
+
+    win = hann_periodic(nperseg, dtype=x.dtype, device=x.device)
+    scale = 1.0 / (fs * torch.sum(win * win))
+    spec = torch.fft.rfft(segs * win, dim=-1)
+    psd = (spec.real ** 2 + spec.imag ** 2) * scale
+    mask = np.full((nperseg // 2 + 1,), 2.0)
+    mask[0] = 1.0
+    if nperseg % 2 == 0:
+        mask[-1] = 1.0
+    psd = psd * torch.as_tensor(mask, dtype=psd.dtype, device=psd.device)
+    psd = psd.mean(dim=-2).movedim(-1, axis)
+    freqs = torch.fft.rfftfreq(nperseg, d=1.0 / fs, dtype=x.dtype, device=x.device)
+    return freqs, psd
+
+
+def trapezoid(y: torch.Tensor, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """np.trapezoid along ``axis`` of ``y`` at the sample points ``x``."""
+    y = y.movedim(axis, -1)
+    dx = torch.diff(x)
+    return torch.sum((y[..., 1:] + y[..., :-1]) * 0.5 * dx, dim=-1)
 
 
 def rfft_power(x: torch.Tensor, dim: int = -2) -> torch.Tensor:

@@ -2,8 +2,9 @@
 backward, K2, flash attention K3a/K3b/K3c, for head dims to 128 and past
 it) against their plain versions,
 K1's bucket axis against separate launches, the wrappers' checks, gradients
-through K1 and through flash_attention against the CPU, and the serving
-cascade chunked against one-shot.
+through K1 and through flash_attention against the CPU, the serving
+cascade chunked against one-shot, and the eval's GRU(24) scorers and
+statistics against the CPU.
 
 Every test skips without a card: the kernels have no CPU mode. This file
 imports no jax, so it also runs on a machine without it:
@@ -15,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from eegsynth_torch.eval import classifiers as eval_classifiers
+from eegsynth_torch.eval.stats import statistical_similarity
 from eegsynth_torch.models.timegan import (
     TimeGAN, TimeGANConfig, fused_disc_inputs, timegan_init_stacked,
 )
@@ -55,13 +58,16 @@ def _inputs(T, B, H, device, seed=0, lead=()):
 # over one tile per SM, an H that is not a multiple of 32, one step; the
 # forward's instance boundaries (KL 16 up to H 64, KL 32 past it) and H 127
 # (3H not a multiple of 4: 4-byte copies of xp); the training shape through
-# the bucket axis (9 rows a block, a ragged group of rows)
+# the bucket axis (9 rows a block, a ragged group of rows); the eval's
+# GRU(24) scorers at cut T: a stack of tasks of 63 rows, and one task of
+# 1587 rows (13 rows a block)
 @pytest.mark.parametrize("T,B,H,nb", [(768, 256, 56, None), (768, 256, 28, None),
                                       (1024, 37, 128, None), (64, 133, 56, None),
                                       (50, 7, 20, None), (1, 3, 8, None),
                                       (300, 37, 64, None), (300, 37, 65, None),
                                       (300, 37, 96, None), (300, 37, 127, None),
-                                      (768, 63, 56, 18)])
+                                      (768, 63, 56, 18), (200, 63, 24, 36),
+                                      (200, 1587, 24, 1)])
 def test_kernel_matches_plain(cuda_device, T, B, H, nb):
     lead = () if nb is None else (nb,)
     inputs = _inputs(T, B, H, cuda_device, lead=lead)
@@ -121,11 +127,13 @@ def _assert_bwd_matches(got, ref):
 # embedder), a ragged batch at the H cap, a batch over one tile per SM with
 # a ragged last tile (3 rows a block, 1 in the last); every other instance
 # of the kernel (H 16: KL 16, S 1; H 80: KL 32, S 4), H 127 (H % 4 != 0:
-# 4-byte copies) and one step
+# 4-byte copies) and one step; the eval's GRU(24) scorers at cut T (a stack
+# of tasks of 63 rows, one task of 1134 rows)
 @pytest.mark.parametrize("nb,T,B,H", [(18, 768, 63, 56), (18, 768, 63, 28),
                                       (3, 1024, 37, 128), (2, 64, 133, 20),
                                       (2, 100, 37, 16), (2, 300, 37, 80),
-                                      (2, 50, 37, 127), (3, 1, 5, 56)])
+                                      (2, 50, 37, 127), (3, 1, 5, 56),
+                                      (36, 200, 63, 24), (1, 200, 1134, 24)])
 def test_backward_kernel_matches_plain(cuda_device, nb, T, B, H):
     inputs = _inputs(T, B, H, cuda_device, seed=H, lead=(nb,))
     ys = gru_sequence_reference(*inputs)
@@ -535,3 +543,58 @@ def test_flash_wrappers_raise_instead_of_falling_back(cuda_device):
     assert (flash_forward.launches, flash_forward.wide_launches) == \
         (before[0], before[1] + 1)
     assert mha(q, k, v, impl="auto").shape == q.shape      # T < 512: dense
+
+
+def _scorer_tasks(n_tasks, rows, test_rows, T, C, out_dim, seed):
+    rng = np.random.default_rng(seed)
+    return [{"params": eval_classifiers._rnn_head_init(i, C, 24, out_dim),
+             "Xtr": rng.uniform(0, 1, (rows, T, C)).astype(np.float32),
+             "ytr": (rng.integers(0, 2, (rows, out_dim)) if out_dim == 1 else
+                     rng.uniform(0, 1, (rows, out_dim))).astype(np.float32),
+             "Xte": rng.uniform(0, 1, (test_rows, T, C)).astype(np.float32)}
+            for i in range(n_tasks)]
+
+
+@pytest.mark.parametrize("classify", [True, False])
+def test_eval_scorer_group_matches_cpu(cuda_device, classify):
+    """One stack of GRU(24) scorers trained 2 epochs on the card (K1 forward
+    and backward, nb = tasks) and on the CPU (the plain versions): the test
+    rows' outputs within 1e-4; each epoch one forward and one backward
+    launch, then one forward for the test rows."""
+    tasks = _scorer_tasks(3, 63, 27, 96, 14, 1 if classify else 14, seed=0)
+    cpu = eval_classifiers._run_grouped(tasks, 2, 1e-3, classify, "cpu")
+    before = (gru_sequence.launches, gru_sequence_bwd.launches)
+    card = eval_classifiers._run_grouped(tasks, 2, 1e-3, classify, cuda_device)
+    assert (gru_sequence.launches, gru_sequence_bwd.launches) == \
+        (before[0] + 3, before[1] + 2)
+    for a, b in zip(card, cpu):
+        assert a.shape == b.shape and np.isfinite(a).all()
+        assert np.abs(a - b).max() <= 1e-4
+
+
+def test_eval_statistics_match_cpu(cuda_device):
+    """Welch and the channel correlations on the card against the CPU
+    (relative 1e-5); the ACF feature runs on the host in float64 either way."""
+    rng = np.random.default_rng(1)
+    real = rng.uniform(0, 1, (63, 768, 14)).astype(np.float32)
+    fake = rng.uniform(0, 1, (63, 768, 14)).astype(np.float32)
+    card = statistical_similarity(real, fake, device=cuda_device)
+    cpu = statistical_similarity(real, fake, device="cpu")
+    assert card[0] == pytest.approx(cpu[0], rel=1e-5)
+    assert card[1] == pytest.approx(cpu[1], rel=0, abs=1e-10)
+    assert card[2] == pytest.approx(cpu[2], rel=1e-5)
+
+
+def test_eval_scores_launch_k1(cuda_device):
+    """The batch scorers on the card go through K1: two pairs of one shape
+    are one stack, so 2 epochs launch the forward 3 times and the backward
+    twice."""
+    rng = np.random.default_rng(2)
+    pairs = [(rng.uniform(0, 1, (20, 64, 5)).astype(np.float32),
+              rng.uniform(0, 1, (20, 64, 5)).astype(np.float32)) for _ in range(2)]
+    before = (gru_sequence.launches, gru_sequence_bwd.launches)
+    res = eval_classifiers.discriminative_scores_batch(pairs, epochs=2,
+                                                       device=cuda_device)
+    assert (gru_sequence.launches, gru_sequence_bwd.launches) == \
+        (before[0] + 3, before[1] + 2)
+    assert all(0.0 <= acc <= 1.0 and np.isfinite(auc) for acc, auc in res)

@@ -36,7 +36,7 @@ def _layer(params) -> GRULayer:
                       for k in ("w_ih", "w_hh", "b_ih", "b_hh")))
 
 
-@pytest.mark.parametrize("T,B,H", [(9, 2, 4), (37, 4, 28), (16, 3, 56)])
+@pytest.mark.parametrize("T,B,H", [(9, 2, 4), (37, 4, 28), (16, 3, 56), (20, 5, 24)])
 def test_reference_matches_pallas_interpret(T, B, H):
     """K1's plain version against the Pallas kernel, nonzero h0."""
     inputs = _seq_inputs(np.random.default_rng(T), T, B, H)

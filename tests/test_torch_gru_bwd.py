@@ -33,7 +33,7 @@ def _inputs(rng, T, B, H, lead=()):
     return (xp, w, b, h0), dy
 
 
-@pytest.mark.parametrize("T,B,H", [(9, 2, 4), (16, 4, 12), (12, 3, 28)])
+@pytest.mark.parametrize("T,B,H", [(9, 2, 4), (16, 4, 12), (12, 3, 28), (20, 5, 24)])
 def test_bwd_reference_matches_jax_vjp(T, B, H):
     (xp, w, b, h0), dy = _inputs(np.random.default_rng(T), T, B, H)
     with jax.enable_x64(False):
