@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's main paths once on one CUDA card and check them: TimeGAN
 synthesis serving, multi-bucket TimeGAN training and the eval of what it
-synthesized, and transformer-CGAN training and serving.
+synthesized, sequential TimeGAN training through the CLI, and
+transformer-CGAN training and serving.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
@@ -26,7 +27,8 @@ failure is swallowed):
              (training), K3a, K3b and K3c (the CGAN's 96- and 768-token
              geometries, the latter at serve_batch 256 too, a ragged T, a
              long T), K1 forward and backward at the eval scorers' H 24
-             shapes; one PyTorch call computing the same function timed
+             shapes and at the sequential trainer's (one bucket of B 64, T
+             768 and 767); one PyTorch call computing the same function timed
              in turns with the kernel where there is one (cuDNN's GRU
              beside K1 forward and its backward beside K1 backward, at one
              bucket, memory-efficient SDPA's forward beside K3a and its
@@ -62,6 +64,16 @@ failure is swallowed):
              against their expected counts), the CSVs checked, the time
              split; one scorer stack and one pair's statistics on the card
              against the CPU;
+5c. train-seq — the CLI ``python -m eegsynth_torch.train.timegan`` in
+             this process: one bucket of (100, 768, 14) for 3 GAN steps at
+             chunk 2, resumed to 5 (log rows under one header, ckpt_latest's
+             step and optimizer count, synthetic.npz), then 2 layers with
+             dropout (K1 only); each run's launch counts against their
+             expected counts; one GAN step of the 2-layer stack with dropout
+             masks against the CPU plain path; the GAN step rate at nb 1,
+             B 64 and K2 against the composed route there; the stacked
+             trainer's --ckpt_every and --resume on 2 buckets, the resumed
+             log bit-identical to the uninterrupted one;
 6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
              heads 4, patch 8, batch 64) on 9 random posture buckets for 2
              epochs with flash attention forced; artifacts, finite
@@ -127,10 +139,11 @@ from eegsynth_torch.train import cgan as cgan_train
 from eegsynth_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from eegsynth_torch.train.optim import make_gan_opts
 from eegsynth_torch.train.timegan import (
-    GEN_NETS, LOG_COLUMNS, TimeGANHParams, draw_gan, gan_step, gather_batch,
-    synthesize_from_noise,
+    CONFIG_KEYS, GEN_NETS, LOG_COLUMNS, TimeGANHParams, draw_gan, draw_gan_masks,
+    draw_perm_idx, gan_step, gather_batch, synthesize_from_noise,
 )
-from eegsynth_torch.train.timegan_multi import CONFIG_KEYS, train_all_buckets
+from eegsynth_torch.train.timegan import main as timegan_cli
+from eegsynth_torch.train.timegan_multi import train_all_buckets
 from eegsynth_torch.tree import tree_leaves, tree_map
 
 SERVE_BATCH, TIME_CHUNK = 256, 768
@@ -148,8 +161,12 @@ CHUNK_TOL = 1e-5       # chunked vs one-shot on the card (same kernel, same orde
 # 1134)
 EVAL_SHAPES = ((18, 768, 88, 24, 14), (1, 768, 1587, 24, 14),
                (36, 767, 63, 24, 14), (2, 767, 1134, 24, 14))
+# The sequential trainer (one bucket, B 64): every G/S/R recurrence at T 768,
+# the supervisor's at T 767 (SEQ_SHAPES, also for the backward)
+SEQ_SHAPES = ((1, 768, 64, 56), (1, 767, 64, 56))
 KERNEL_SHAPES = ((1, 768, 256, 56, 28), (1, 768, 256, 28, 14),
-                 (1, 1024, 37, 128, 28), (18, 768, 63, 56, 28), *EVAL_SHAPES)
+                 (1, 1024, 37, 128, 28), (18, 768, 63, 56, 28), *EVAL_SHAPES,
+                 *((*shape, 28) for shape in SEQ_SHAPES))
 # K1 forward's and backward's instances (k-slice KL, lanes S a dot product,
 # largest H): KL 16 with S 1, 2, 4 up to H 64, KL 32 with S 4 up to H 96,
 # KL 64 with S 2 up to H 128
@@ -160,14 +177,15 @@ K1_INSTANCES = ("KL 16, S 1, H <= 16", "KL 16, S 2, H <= 32", "KL 16, S 4, H <= 
 # computes the same function at one bucket of the first (BWD_CUDNN_SHAPE)
 # and at the eval's shape of nb 1
 BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128),
-              *(shape[:4] for shape in EVAL_SHAPES))
+              *(shape[:4] for shape in EVAL_SHAPES), *SEQ_SHAPES)
 BWD_CUDNN_SHAPE = (1, 768, 63, 56)
 # K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims (the headline), and
 # adaptive_dims' T > 800 dims z36/h72, 20 channels' z40/h80, the widest
-# width z64/h128, and a ragged narrow shape at z16/h32
+# width z64/h128, a ragged narrow shape at z16/h32, and the sequential
+# trainer's one bucket of B 64
 MULTIGRU_SHAPES = ((18, 768, 63, (28, 56, 56, 28)), (18, 1024, 63, (36, 72, 72, 36)),
                    (18, 768, 63, (40, 80, 80, 40)), (18, 1024, 63, (64, 128, 128, 64)),
-                   (3, 50, 7, (16, 32, 32, 16)))
+                   (3, 50, 7, (16, 32, 32, 16)), (1, 768, 64, (28, 56, 56, 28)))
 # K3 (B, H, T, D): the transformer CGAN's training geometry (96 tokens at
 # patch 8), its patch-1 geometry (768 tokens) at the training batch and at
 # serve_batch 256, a ragged T with an odd D, and a long T
@@ -212,6 +230,13 @@ EVAL_METRIC_COLS = ["disc_acc", "disc_auc", "rmse_tstr", "r2_tstr", "rmse_trts",
                     "r2_trts", "psd_diff", "acf_diff", "coh_diff",
                     "n_real", "n_fake", "seq_len", "n_ch"]
 EVAL_LOGIT_TOL, EVAL_STAT_RTOL, EVAL_ACF_TOL = 1e-4, 1e-5, 1e-10
+# The sequential trainer ([train-seq]): one bucket of 100 windows, so B 64
+# leaves a padded second batch in each AE and SUP epoch; the CLI for 3 GAN
+# steps at chunk 2, resumed to 5; a 2-layer run with dropout; 5 timed
+# steps after one warm-up; the stacked trainer's ckpt_every / resume on 2
+# buckets (the state saved at step 2 of 3)
+SEQ_WINDOWS, SEQ_BATCH, SEQ_GAN_STEPS, SEQ_RESUME_STEPS = 100, 64, 3, 5
+SEQ_LAYERS_STEPS, SEQ_RATE_STEPS, SEQ_CHECK_BATCH = 2, 5, 8
 # Wide data: 20 channels give adaptive_dims' z40/h80 (K2's instance with KL
 # 32); a short run of 2 buckets
 WIDE_CHANNELS, WIDE_BUCKETS, WIDE_GAN_STEPS = 20, 2, 2
@@ -631,24 +656,24 @@ def _check_k2(smi: str) -> dict:
             fail(f"multigru_disc_inputs disagrees with its plain version at "
                  f"nb={nb} T={T} B={B} dims={dims}: max|diff|={err} finite={finite}")
         worst = max(worst, err)
-        if head is None:
-            He, Hg, Hs, Z = dims
-            macs = He * 3 * He + Hg * 3 * Hg + Hg * Z + Z * 3 * Hs + Hs * 3 * Hs + Hs * Z
-            head = _row(ms, plain_ms, _bound(2 * nb * T * B * macs, *args, *got))
-            _roofline(f"multigru_disc_inputs nb={nb} T={T} B={B}", head, smi)
-    _time_composed_route(smi)
+        He, Hg, Hs, Z = dims
+        macs = He * 3 * He + Hg * 3 * Hg + Hg * Z + Z * 3 * Hs + Hs * 3 * Hs + Hs * Z
+        row = _row(ms, plain_ms, _bound(2 * nb * T * B * macs, *args, *got))
+        _roofline(f"multigru_disc_inputs nb={nb} T={T} B={B} "
+                  f"He/Hg/Hs/Z={'/'.join(map(str, dims))}", row, smi)
+        head = head or row
+    _time_composed_route(smi, *MULTIGRU_SHAPES[0][:3], (CHANNELS, WIDE_CHANNELS))
     return {"max_abs_err": worst, **head}
 
 
-def _time_composed_route(smi: str) -> None:
-    """The D-step inputs at the training shape through K2's route
+def _time_composed_route(smi: str, nb: int, T: int, B: int, widths: tuple) -> None:
+    """The D-step inputs of nb buckets of B rows through K2's route
     (fused_disc_inputs: the two input products, K2, the transposes) and
     through the composed route (encode and refine_latent ∘ gen_latent: 3 K1
-    forward launches, the projections as products) in turns, at z28/h56
-    (14 channels) and z40/h80 (20). No single PyTorch call computes K2's
-    function; the composed route is its nearest yardstick."""
-    nb, T, B = MULTIGRU_SHAPES[0][:3]
-    for channels in (CHANNELS, WIDE_CHANNELS):
+    forward launches, the projections as products) in turns, at each of
+    ``widths`` channels (14: z28/h56; 20: z40/h80). No single PyTorch call
+    computes K2's function; the composed route is its nearest yardstick."""
+    for channels in widths:
         z_dim, h_dim = adaptive_dims(channels, T)
         cfg = TimeGANConfig(x_dim=channels, z_dim=z_dim, h_dim=h_dim)
         params = timegan_init_stacked(
@@ -1330,6 +1355,227 @@ def phase_eval(smi: str, root: Path, device: str = "cuda") -> dict:
     return {"gru_sequence": fwd, "gru_sequence_bwd": bwd}
 
 
+def _seq_launches(n: int, layers: int, ae: int, sup: int, gan: int) -> tuple:
+    """(K1 forward, K1 backward, K2) launches of one train_single_npz run of
+    ``n`` windows at batch SEQ_BATCH: per AE batch E and R forward and
+    backward, per SUP batch E (no gradient) and S forward, S backward, each
+    once a layer; per GAN step K2 for the D inputs at one layer (E, G, S on
+    K1 with dropout masks at more), G, S, R and E, R forward and backward;
+    then G, S, R forward for synthetic.npz."""
+    L, batches = layers, -(-n // SEQ_BATCH)
+    fwd = 2 * L * batches * (ae + sup) + (5 * L + (3 * L if L > 1 else 0)) * gan + 3 * L
+    bwd = 2 * L * batches * ae + L * batches * sup + 5 * L * gan
+    return fwd, bwd, gan if L == 1 else 0
+
+
+def _counted(run) -> tuple:
+    """Run ``run`` with the launch counters set to 0; return its result and
+    the (K1 forward, K1 backward, K2) launches it made."""
+    counters = (gru_sequence, gru_sequence_bwd, multigru_disc_inputs)
+    for c in counters:
+        c.launches = 0
+    res = run()
+    return res, tuple(c.launches for c in counters)
+
+
+def phase_train_seq(smi: str, root: Path, device: str = "cuda") -> dict:
+    """The sequential trainer and the stacked trainer's new options at full
+    width, through the CLI (``python -m eegsynth_torch.train.timegan``) in
+    this process: one bucket of SEQ_WINDOWS random (768, 14) windows for
+    SEQ_GAN_STEPS GAN steps at chunk 2, resumed to SEQ_RESUME_STEPS (log rows,
+    one header, ckpt_latest's step and count, synthetic.npz); the same at 2
+    layers with dropout 0.2 (K1 only, no K2); one GAN step of that stack
+    with masks on the card against the CPU; SEQ_RATE_STEPS timed GAN steps
+    at nb 1, B 64 and K2 against the composed route there; then
+    --parallel_buckets --ckpt_every on 2 buckets, resumed from the saved
+    state, whose logs must equal the uninterrupted run's bit for bit.
+    Returns the launch counts of the CLI runs. With ``device="cpu"`` it
+    rehearses the phase: the counts then stay 0."""
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    hp = _train_hparams()
+    cfg_path = root / "seq_config.json"
+    cfg_path.write_text(json.dumps(hp))
+    data = root / "seq_data"
+    data.mkdir()
+    name = "posture1_no_exo"
+    rng = np.random.default_rng(3)
+    np.savez(data / f"{name}.npz", X=rng.uniform(0, 1, (SEQ_WINDOWS, SEQ_LEN, CHANNELS))
+             .astype(np.float32), fs=np.float32(128.0))
+    total = np.zeros(3, dtype=np.int64)
+
+    def cli(out, *flags):
+        return timegan_cli(["--config", str(cfg_path), "--data_dir", str(data),
+                            "--out_dir", str(out), "--device", device,
+                            "--ae_epochs", "1", "--sup_epochs", "1", *flags])
+
+    def check(tag, launches, want):
+        want = want if cuda else (0, 0, 0)
+        print(f"[train-seq] {tag}: launches gru_sequence {launches[0]}, "
+              f"gru_sequence_bwd {launches[1]}, multigru_disc_inputs {launches[2]} "
+              f"(expected {want}) | {smi}", flush=True)
+        if tuple(launches) != tuple(want):
+            fail(f"[train-seq] {tag}: launch counts {launches} != expected {want}")
+        total[:] += launches
+
+    t0 = time.perf_counter()
+    res, launches = _counted(lambda: cli(root / "seq", "--gan_steps",
+                                         str(SEQ_GAN_STEPS), "--chunk", "2"))
+    check(f"{name} N={SEQ_WINDOWS} B={SEQ_BATCH}, 1 AE + 1 SUP epoch (2 batches, "
+          f"the second padded) + {SEQ_GAN_STEPS} GAN steps in "
+          f"{time.perf_counter() - t0:.2f} s", launches,
+          _seq_launches(SEQ_WINDOWS, 1, 1, 1, SEQ_GAN_STEPS))
+    t0 = time.perf_counter()
+    _, launches = _counted(lambda: cli(root / "seq", "--gan_steps",
+                                       str(SEQ_RESUME_STEPS), "--chunk", "2", "--resume"))
+    resumed = SEQ_RESUME_STEPS - SEQ_GAN_STEPS
+    check(f"--resume to {SEQ_RESUME_STEPS} in {time.perf_counter() - t0:.2f} s",
+          launches, _seq_launches(SEQ_WINDOWS, 1, 0, 0, resumed))
+    run = root / "seq" / name
+    lines = (run / "train_log.csv").read_text().splitlines()
+    steps = [ln.split(",")[0] for ln in lines[1:]]
+    rows = np.array([[float(v) for v in ln.split(",")[2:]] for ln in lines[1:]])
+    trees, meta = load_checkpoint(run / "ckpt_latest.npz")
+    count = int(trees["optG"][1][0]["count"])
+    with np.load(run / "synthetic.npz") as syn:
+        X_syn = syn["X"]
+    print(f"[train-seq] train_log.csv steps {','.join(steps)} under "
+          f"{sum(ln.startswith('step,') for ln in lines)} header; ckpt_latest step "
+          f"{meta['step']}, optG count {count}; synthetic.npz {X_syn.shape}; "
+          f"step {SEQ_RESUME_STEPS}: " + ", ".join(
+              f"{c}={v:.4f}" for c, v in zip(LOG_COLUMNS, rows[-1])), flush=True)
+    if lines[0] != "step,phase," + ",".join(LOG_COLUMNS) or \
+            steps != [str(s) for s in range(1, SEQ_RESUME_STEPS + 1)] or \
+            not np.isfinite(rows).all() or meta["step"] != SEQ_RESUME_STEPS or \
+            count != SEQ_RESUME_STEPS or \
+            X_syn.shape != (SEQ_WINDOWS, SEQ_LEN, CHANNELS) or not np.isfinite(X_syn).all():
+        fail("[train-seq] the sequential run and its resume left wrong artifacts")
+
+    t0 = time.perf_counter()
+    _, launches = _counted(lambda: cli(root / "seq2", "--gan_steps",
+                                       str(SEQ_LAYERS_STEPS), "--layers", "2",
+                                       "--dropout", "0.2"))
+    check(f"layers 2, dropout 0.2, {SEQ_LAYERS_STEPS} GAN steps in "
+          f"{time.perf_counter() - t0:.2f} s", launches,
+          _seq_launches(SEQ_WINDOWS, 2, 1, 1, SEQ_LAYERS_STEPS))
+    rows = np.loadtxt(root / "seq2" / name / "train_log.csv", delimiter=",",
+                      skiprows=1, usecols=range(2, 10), ndmin=2)
+    if rows.shape != (SEQ_LAYERS_STEPS, 8) or not np.isfinite(rows).all():
+        fail(f"[train-seq] the 2-layer run logged {rows.shape}")
+
+    _seq_step_check(smi, device)
+    _seq_step_rate(smi, device)
+    if cuda:
+        _time_composed_route(smi, 1, SEQ_LEN, SEQ_BATCH, (CHANNELS,))
+
+    # the stacked trainer: ckpt_every, then resume from the saved state
+    stacked = root / "stacked"
+    stacked.mkdir()
+    data2 = _write_buckets(stacked, 2, CHANNELS)
+    flags = ("--parallel_buckets", "--gan_steps", "3", "--ckpt_every", "2",
+             "--data_dir", str(data2))
+    t0 = time.perf_counter()
+    res, launches = _counted(lambda: cli(stacked / "full", *flags))
+    a = res["ae_steps"]
+    check(f"--parallel_buckets --ckpt_every 2, 2 buckets, 3 GAN steps in "
+          f"{time.perf_counter() - t0:.2f} s", launches,
+          (4 * a + 15 + 3 * 2, 3 * a + 15, 3))
+    (stacked / "resumed").mkdir()
+    (stacked / "resumed" / "_multi_state.npz").write_bytes(
+        (stacked / "full" / "_multi_state.npz").read_bytes())
+    t0 = time.perf_counter()
+    _, launches = _counted(lambda: cli(stacked / "resumed", *flags, "--resume"))
+    check(f"--parallel_buckets --resume from step 2 in {time.perf_counter() - t0:.2f} s",
+          launches, (5 + 3 * 2, 5, 1))
+    same = [(stacked / "full" / b / "train_log.csv").read_bytes()
+            == (stacked / "resumed" / b / "train_log.csv").read_bytes()
+            for b in ("posture1_no_exo", "posture1_with_exo")]
+    print(f"[train-seq] stacked resume: train_log.csv bit-identical to the "
+          f"uninterrupted run's: {same} | {smi}", flush=True)
+    if not all(same):
+        fail("[train-seq] the resumed stacked run's log differs from the "
+             "uninterrupted run's")
+    print(f"[train-seq] phase passed in {time.perf_counter() - t_phase:.2f} s | {smi}",
+          flush=True)
+    return dict(zip(("gru_sequence", "gru_sequence_bwd", "multigru_disc_inputs"),
+                    (int(v) for v in total)))
+
+
+def _seq_step_check(smi: str, device: str) -> None:
+    """One sequential GAN step of 2-layer stacks with dropout masks (nb 1,
+    B SEQ_CHECK_BATCH, T 768, full width) on the card against the CPU plain
+    path, on the same parameters, draws and masks."""
+    hp = TimeGANHParams(**_train_hparams(gan_steps=GAN_STEPS, layers=2, dropout=0.2))
+    z_dim, h_dim = adaptive_dims(CHANNELS, SEQ_LEN)
+    cfg = TimeGANConfig(x_dim=CHANNELS, z_dim=z_dim, h_dim=h_dim, num_layers=2)
+    params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(5)], device="cpu")
+    g = torch.Generator().manual_seed(6)
+    X = torch.rand((1, SEQ_WINDOWS, SEQ_LEN, CHANNELS), generator=g)
+    idx = draw_perm_idx([g], SEQ_WINDOWS, SEQ_CHECK_BATCH, device="cpu")
+    draws = draw_gan([g], None, SEQ_CHECK_BATCH, SEQ_LEN, z_dim, device="cpu", idx=idx)
+    draws.masks = draw_gan_masks([g], params, SEQ_CHECK_BATCH, SEQ_LEN, 0.2,
+                                 device="cpu")
+    out = {}
+    for dev in (device, "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        d = type(draws)(**{k: tree_map(lambda t: t.to(dev), v)
+                           for k, v in vars(draws).items()})
+        optD, optG = make_gan_opts(hp)
+        t0 = time.perf_counter()
+        new_p, _, _, logs = gan_step(p, optD, optD.init(p["discriminator"]), optG,
+                                     optG.init({k: p[k] for k in GEN_NETS}),
+                                     gather_batch(X.to(dev), d.idx), d, 1, hp)
+        _sync(dev)
+        out[dev] = (tree_map(lambda t: t.cpu(), new_p), logs.cpu(),
+                    time.perf_counter() - t0)
+    (card_p, card_logs, card_s), (cpu_p, cpu_logs, cpu_s) = out[device], out["cpu"]
+    log_err = ((card_logs - cpu_logs).abs() / cpu_logs.abs().clamp(min=1.0)).max().item()
+    p_err = max((a - b).abs().max().item()
+                for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+    print(f"[train-seq] GAN step nb=1 B={SEQ_CHECK_BATCH} T={SEQ_LEN} layers 2 with "
+          f"dropout masks, card vs CPU plain path: logged values max relative diff "
+          f"{log_err:.3e} (tol {STEP_LOG_RTOL:g}); updated parameters max|diff| "
+          f"{p_err:.3e} (tol {STEP_PARAM_ATOL:g}); step {card_s:.3f} s on the card, "
+          f"{cpu_s:.3f} s on the CPU | {smi}", flush=True)
+    if not torch.isfinite(card_logs).all() or log_err > STEP_LOG_RTOL \
+            or p_err > STEP_PARAM_ATOL:
+        fail(f"[train-seq] the card's 2-layer GAN step disagrees with the CPU: "
+             f"logs {log_err}, params {p_err}")
+
+
+def _seq_step_rate(smi: str, device: str) -> None:
+    """SEQ_RATE_STEPS sequential GAN steps (nb 1, B 64, T 768, z28/h56, one
+    layer: K2 for the D inputs) after one warm-up, each synchronised; the
+    rate of the timed steps (bench.py's primary metric's step)."""
+    z_dim, h_dim = adaptive_dims(CHANNELS, SEQ_LEN)
+    params = timegan_init_stacked(
+        TimeGANConfig(x_dim=CHANNELS, z_dim=z_dim, h_dim=h_dim),
+        [torch.Generator().manual_seed(7)], device=device)
+    hp = TimeGANHParams(**_train_hparams())
+    optD, optG = make_gan_opts(hp)
+    state = [params, optD.init(params["discriminator"]),
+             optG.init({k: params[k] for k in GEN_NETS})]
+    X = torch.from_numpy(np.random.default_rng(8).uniform(
+        0, 1, (1, SEQ_WINDOWS, SEQ_LEN, CHANNELS)).astype(np.float32)).to(device)
+    gens = [torch.Generator(device=device).manual_seed(9)]
+    B = min(SEQ_BATCH, SEQ_WINDOWS)
+    times = []
+    for step in range(1, SEQ_RATE_STEPS + 2):
+        t0 = time.perf_counter()
+        idx = draw_perm_idx(gens, SEQ_WINDOWS, B, device=device)
+        draws = draw_gan(gens, None, B, SEQ_LEN, z_dim, device=device, idx=idx)
+        state[0], state[1], state[2], _ = gan_step(
+            state[0], optD, state[1], optG, state[2], gather_batch(X, idx), draws,
+            step, hp)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    warm = times[1:]
+    print(f"[train-seq] sequential GAN step nb=1 B={B} T={SEQ_LEN} "
+          f"z{z_dim}/h{h_dim}: {len(warm) / sum(warm):.4f} steps/s over "
+          f"{len(warm)} warm steps ({', '.join(f'{t:.3f}' for t in warm)} s; "
+          f"warm-up {times[0]:.3f} s) | {smi}", flush=True)
+
+
 def _step_inputs(nb: int, B: int, seed: int, device, channels: int = CHANNELS):
     """Stacked models at full width for ``channels`` channels (adaptive_dims:
     z28/h56 at 14), fresh optimizer states, a batch and one step's draws,
@@ -1374,7 +1620,8 @@ def _step_check(smi: str, device: str, channels: int) -> None:
         want = (0, 0)
     d_cpu, g_cpu = optD.init(cpu(params["discriminator"])), \
         optG.init({k: cpu(params[k]) for k in GEN_NETS})
-    draws_cpu = type(draws)(**{k: v.cpu() for k, v in vars(draws).items()})
+    draws_cpu = type(draws)(**{k: tree_map(lambda t: t.cpu(), v)
+                               for k, v in vars(draws).items()})
     t0 = time.perf_counter()
     cpu_p, _, _, cpu_logs = gan_step(cpu(params), optD, d_cpu, optG, g_cpu, x.cpu(),
                                      draws_cpu, 1, hp)
@@ -1807,6 +2054,8 @@ def main() -> None:
         train_launches = phase_train(smi, Path(tmp))
         eval_launches = phase_eval(smi, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
+        seq_launches = phase_train_seq(smi, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
         wide_launches = phase_train(smi, Path(tmp), n_buckets=WIDE_BUCKETS,
                                     channels=WIDE_CHANNELS, gan_steps=WIDE_GAN_STEPS)
     phase_step_check(smi)
@@ -1818,10 +2067,13 @@ def main() -> None:
     wide_attn_launches = phase_cgan_wide(smi)
     launches = {**cgan_launches, **wide_attn_launches,
                 "gru_sequence": serve_launches + train_launches["gru_sequence"]
-                + eval_launches["gru_sequence"] + wide_launches["gru_sequence"],
+                + eval_launches["gru_sequence"] + seq_launches["gru_sequence"]
+                + wide_launches["gru_sequence"],
                 "gru_sequence_bwd": train_launches["gru_sequence_bwd"]
-                + eval_launches["gru_sequence_bwd"] + wide_launches["gru_sequence_bwd"],
+                + eval_launches["gru_sequence_bwd"] + seq_launches["gru_sequence_bwd"]
+                + wide_launches["gru_sequence_bwd"],
                 "multigru_disc_inputs": train_launches["multigru_disc_inputs"]
+                + seq_launches["multigru_disc_inputs"]
                 + wide_launches["multigru_disc_inputs"],
                 "flash_forward": cgan_launches["flash_forward"] + cgan_serve_launches}
     for k, n in launches.items():

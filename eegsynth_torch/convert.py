@@ -103,3 +103,33 @@ def tree_to_device(tree: Any, *, device: torch.device | str) -> Any:
 def tree_to_numpy(tree: Any) -> Any:
     """A tree of tensors → the same tree of numpy arrays on the host."""
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+
+def restore_like(template: Any, tree: Any, path: str = "") -> Any:
+    """A tree of numpy arrays as ``train.checkpoint.load_checkpoint`` returns
+    it (dicts, ``Attrs`` and lists; an empty subtree absent or ``None``) →
+    ``template``'s structure, as tensors of the template's dtype on its
+    device. A stored leaf with one axis fewer than its template leaf (one
+    model's, as a checkpoint of one bucket holds it) gains a leading bucket
+    axis of 1. A missing leaf raises ``KeyError``, any other shape mismatch
+    ``ValueError``."""
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        get = tree.get if isinstance(tree, dict) else (lambda k: None)
+        return type(template)((k, restore_like(template[k], get(k), f"{path}[{k!r}]"))
+                              for k in template)
+    if isinstance(template, (list, tuple)):
+        items = tree if isinstance(tree, (list, tuple)) else []
+        return type(template)(
+            restore_like(t, items[i] if i < len(items) else None, f"{path}[{i}]")
+            for i, t in enumerate(template))
+    if tree is None:
+        raise KeyError(f"no stored leaf at {path or 'the root'}")
+    a = torch.from_numpy(np.array(tree)).to(device=template.device, dtype=template.dtype)
+    if a.dim() == template.dim() - 1:
+        a = a.unsqueeze(0)
+    if a.shape != template.shape:
+        raise ValueError(f"stored shape {tuple(a.shape)} at {path} does not fit "
+                         f"{tuple(template.shape)}")
+    return a

@@ -4,8 +4,8 @@ Counterpart of ``eegsynth/losses/timegan.py``. Every loss reduces over its
 sample axes and keeps any leading (bucket) axes, so one call scores all
 stacked buckets: x (…, B, T, C) → (…). Randomness is passed in: the label
 uniforms and the instance-noise normals are arguments, drawn by the caller.
-The per-sample weight masks of the sequential trainer's padded epochs come
-with that trainer.
+``recon_loss`` and ``sup_loss`` take the per-sample weight masks (…, B) of the
+sequential trainer's padded epochs.
 """
 
 from __future__ import annotations
@@ -16,15 +16,28 @@ from eegsynth_torch.ops.acf import acf_per_channel
 from eegsynth_torch.ops.stats import channel_cov
 
 
-def recon_loss(x: torch.Tensor, x_tilde: torch.Tensor,
-               eps: float = 1e-8) -> torch.Tensor:
-    """10·sqrt(MSE + eps) over (B, T, C)."""
-    return 10.0 * torch.sqrt(((x - x_tilde) ** 2).mean(dim=(-3, -2, -1)) + eps)
+def sample_mean(se: torch.Tensor,
+                weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean of se (…, B, T, C) over (B, T, C); with a per-sample weight
+    (…, B), ``sum(se·w) / (sum(w)·T·C)``, so padded rows of weight 0 drop
+    out."""
+    if weight is None:
+        return se.mean(dim=(-3, -2, -1))
+    w = weight[..., None, None]
+    return ((se * w).sum(dim=(-3, -2, -1))
+            / (weight.sum(dim=-1) * se.shape[-2] * se.shape[-1]))
 
 
-def sup_loss(h: torch.Tensor) -> torch.Tensor:
-    """Mean squared one-step latent difference over (B, T-1, z)."""
-    return ((h[..., 1:, :] - h[..., :-1, :]) ** 2).mean(dim=(-3, -2, -1))
+def recon_loss(x: torch.Tensor, x_tilde: torch.Tensor, eps: float = 1e-8,
+               weight: torch.Tensor | None = None) -> torch.Tensor:
+    """10·sqrt(MSE + eps) over (B, T, C), weighted per sample if given."""
+    return 10.0 * torch.sqrt(sample_mean((x - x_tilde) ** 2, weight) + eps)
+
+
+def sup_loss(h: torch.Tensor, weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean squared one-step latent difference over (B, T-1, z), weighted per
+    sample if given."""
+    return sample_mean((h[..., 1:, :] - h[..., :-1, :]) ** 2, weight)
 
 
 def bce(p: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

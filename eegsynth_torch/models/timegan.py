@@ -159,59 +159,90 @@ def _proj(p: dict | None, v: torch.Tensor) -> torch.Tensor:
     return v if p is None else linear(v, p["w"], p["b"])
 
 
-def _run_gru(layers: list, x: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
-    """Batch-first stack x (…, B, T, in) → (…, B, T, H), zero initial states,
-    no inter-layer dropout."""
+def _run_gru(layers: list, x: torch.Tensor, impl: str = "kernel",
+             dropout: float = 0.0, masks: list | None = None) -> torch.Tensor:
+    """Batch-first stack x (…, B, T, in) → (…, B, T, H), zero initial states.
+
+    Inter-layer dropout (torch ``nn.GRU`` semantics, the JAX
+    ``gru_stack_apply``): ``masks`` holds one boolean keep-mask per layer
+    boundary, batch-first (…, B, T, H) like that layer's output, and layer
+    k's output becomes ``where(keep, y / (1 - dropout), 0)`` before layer
+    k + 1. ``None`` is eval mode, or a stack without dropout. Each layer
+    stays one recurrence launch; the mask is an elementwise step between
+    launches."""
+    if masks is not None and len(masks) != len(layers) - 1:
+        raise ValueError(f"{len(layers)} layers take {len(layers) - 1} dropout "
+                         f"masks, got {len(masks)}")
     y = x.transpose(-3, -2)
-    for layer in layers:
+    for k, layer in enumerate(layers):
         h0 = y.new_zeros((*y.shape[:-3], y.shape[-2], layer["w_hh"].shape[-1]))
         y = gru_apply_time_major(_layer(layer), y, h0, impl)
+        if masks is not None and k < len(layers) - 1:
+            keep = masks[k].transpose(-3, -2)
+            y = torch.where(keep, y / (1.0 - dropout), torch.zeros_like(y))
     return y.transpose(-3, -2)
 
 
-def encode(model: TimeGAN | Params, x: torch.Tensor) -> torch.Tensor:
-    """X → H."""
-    return _run_gru(_tree(model)["embedder"]["gru"], x)
+def split_masks(masks: list | None, n: int):
+    """The masks of two stacks run one after the other: the first ``n``,
+    then the rest."""
+    return (None, None) if masks is None else (masks[:n], masks[n:])
 
 
-def recover(model: TimeGAN | Params, h: torch.Tensor) -> torch.Tensor:
+def encode(model: TimeGAN | Params, x: torch.Tensor, dropout: float = 0.0,
+           masks: list | None = None) -> torch.Tensor:
+    """X → H. ``dropout`` / ``masks`` as :func:`_run_gru` (train mode)."""
+    return _run_gru(_tree(model)["embedder"]["gru"], x, dropout=dropout, masks=masks)
+
+
+def recover(model: TimeGAN | Params, h: torch.Tensor, dropout: float = 0.0,
+            masks: list | None = None) -> torch.Tensor:
     """H → X̃: GRU + output head."""
     r = _tree(model)["recovery"]
-    return _proj(r["out"], _run_gru(r["gru"], h))
+    return _proj(r["out"], _run_gru(r["gru"], h, dropout=dropout, masks=masks))
 
 
-def reconstruct(model: TimeGAN | Params, x: torch.Tensor) -> torch.Tensor:
+def reconstruct(model: TimeGAN | Params, x: torch.Tensor, dropout: float = 0.0,
+                masks: list | None = None) -> torch.Tensor:
     """X → X̃ = recovery(embedder(x)), two K1 launches for single-layer stacks
-    (also the JAX package's ``fused_reconstruct``: the same recurrences)."""
+    (also the JAX package's ``fused_reconstruct``: the same recurrences).
+    ``masks``: the embedder's layer boundaries, then the recovery's."""
     p = _tree(model)
-    return recover(p, encode(p, x))
+    m_e, m_r = split_masks(masks, len(p["embedder"]["gru"]) - 1)
+    return recover(p, encode(p, x, dropout, m_e), dropout, m_r)
 
 
 fused_reconstruct = reconstruct
 
 
-def gen_latent(model: TimeGAN | Params, z: torch.Tensor) -> torch.Tensor:
+def gen_latent(model: TimeGAN | Params, z: torch.Tensor, dropout: float = 0.0,
+               masks: list | None = None) -> torch.Tensor:
     g = _tree(model)["generator"]
-    return _proj(g["proj"], _run_gru(g["gru"], z))
+    return _proj(g["proj"], _run_gru(g["gru"], z, dropout=dropout, masks=masks))
 
 
-def refine_latent(model: TimeGAN | Params, e: torch.Tensor) -> torch.Tensor:
+def refine_latent(model: TimeGAN | Params, e: torch.Tensor, dropout: float = 0.0,
+                  masks: list | None = None) -> torch.Tensor:
     s = _tree(model)["supervisor"]
-    return _proj(s["proj"], _run_gru(s["gru"], e))
+    return _proj(s["proj"], _run_gru(s["gru"], e, dropout=dropout, masks=masks))
 
 
-def decode(model: TimeGAN | Params, h: torch.Tensor) -> torch.Tensor:
-    return recover(model, h)
+def decode(model: TimeGAN | Params, h: torch.Tensor, dropout: float = 0.0,
+           masks: list | None = None) -> torch.Tensor:
+    return recover(model, h, dropout, masks)
 
 
-def discriminate(d: Params, h: torch.Tensor, u: torch.Tensor, train: bool):
+def discriminate(d: Params, h: torch.Tensor, u: torch.Tensor, train: bool,
+                 dropout: float = 0.0, masks: list | None = None):
     """H (…, B, T, z) → (p(real) (…, B, 1), u_out), the JAX ``_disc_apply``:
     last-step GRU output, spectral-norm head, sigmoid. ``d`` is the
     discriminator's tree; its power-iteration vector is passed as ``u``
-    explicitly. In train mode ``u`` advances once; in eval mode ``u_out`` is
-    ``u``. The recurrence is the plain one, which autograd differentiates
-    twice (R1)."""
-    y = _run_gru(d["gru"], h, impl="plain")
+    explicitly. In train mode ``u`` advances once and dropout ``masks`` may
+    apply; in eval mode (R1) ``u_out`` is ``u`` and no mask applies. The
+    recurrence is the plain one, which autograd differentiates twice (R1)."""
+    if masks is not None and not train:
+        raise ValueError("dropout masks apply only in train mode")
+    y = _run_gru(d["gru"], h, impl="plain", dropout=dropout, masks=masks)
     logits, u_out = sn_dense_apply({**d["fc"], "u": u}, y[..., -1, :], train=train)
     return torch.sigmoid(logits), u_out
 

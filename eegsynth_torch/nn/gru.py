@@ -98,8 +98,9 @@ class GRU(nn.Module):
 
 class GRUStack(nn.Module):
     """The reference's GRU wrapper (``<net>.rnn``) around the layers
-    (``<net>.rnn.rnn``). Inter-layer dropout never applies: the module serves
-    trained weights, and the trainer takes single-layer stacks only."""
+    (``<net>.rnn.rnn``). Inter-layer dropout never applies here: the module
+    serves trained weights. The trainers apply it on the params tree
+    (``models.timegan._run_gru``), with masks they draw."""
 
     def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 1, *,
                  generator: torch.Generator, device: torch.device | str):

@@ -27,7 +27,7 @@ buckets take every step together, so the update count is one Python int.
 :meth:`Optimizer.state_tree` gives the state in optax's tree layout
 (``[1][0].count / .mu / .nu``, and ``[1][1].count`` for a scheduled rate), so
 a checkpoint written by the port loads into the JAX package's optimizer
-templates.
+templates; :meth:`Optimizer.restore` reads it back, from either package.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from eegsynth_torch.convert import restore_like
 from eegsynth_torch.train.checkpoint import Attrs
 from eegsynth_torch.tree import tree_leaves, tree_map
 
@@ -105,6 +106,20 @@ class Optimizer:
         count = torch.full((nb,), state.count, dtype=torch.int32)
         adam = Attrs(count=count, mu=state.mu, nu=state.nu)
         return [None, [adam, Attrs(count=count.clone()) if self.scheduled else None]]
+
+    def restore(self, tree: list, like: OptState) -> OptState:
+        """The inverse of :meth:`state_tree`: optax's layout, as
+        ``train.checkpoint.load_checkpoint`` returns it from a checkpoint of
+        either package, → an :class:`OptState` shaped like ``like`` (the
+        bucket axis added where the checkpoint holds one model, whose count
+        is a scalar). ``count`` carries over, so the schedule goes on where
+        it stopped."""
+        adam = tree[1][0]
+        counts = np.unique(np.asarray(adam["count"]))
+        if len(counts) != 1:
+            raise ValueError(f"buckets at different update counts {counts}")
+        return OptState(int(counts[0]), restore_like(like.mu, adam["mu"]),
+                        restore_like(like.nu, adam["nu"]))
 
 
 def make_gan_opts(hp) -> tuple[Optimizer, Optimizer]:

@@ -17,28 +17,35 @@ As in the JAX trainer:
   ``synthetic.npz`` of ``n_valid`` windows.
 
 Randomness: bucket b's weights come from a CPU ``torch.Generator`` seeded
-from (seed, b), and its batches and noise from a generator on the device
-seeded from (seed, b, phase); they do not reproduce JAX's threefry streams.
+from (seed, b), and its batches, noise and dropout masks from a generator on
+the device seeded from (seed, b, phase); they do not reproduce JAX's
+threefry streams.
+
+Options, as in JAX: multi-layer stacks with inter-layer dropout (masks per
+bucket from its own generator, in the GAN phase only, as JAX's pre-phases
+run without dropout); ``bucket_weights``, per-bucket G-loss weights;
+``ckpt_every`` / ``resume`` through ``out_root/_multi_state.npz``, which also
+holds each bucket's GAN generator, so a resumed run's log equals an
+uninterrupted run's bit for bit on the same device.
 
 Not ported (ROADMAP "Do not port"): ``mesh``, ``max_stack``,
-``dispatch_budget``; and, for a later slice, ``bucket_weights``,
-``ckpt_every`` / ``resume``, ``profile_dir``, multi-layer stacks.
+``dispatch_budget``; and ``profile_dir``.
 
-    python -m eegsynth_torch.train.timegan_multi --config configs/timegan_config.json \\
-        --data_dir ./preprocessed --out_dir ./timegan_runs --device cuda
+    python -m eegsynth_torch.train.timegan --parallel_buckets \\
+        --config configs/timegan_config.json --data_dir ./preprocessed \\
+        --out_dir ./timegan_runs --device cuda
 """
 
 from __future__ import annotations
 
-import argparse
-import json
+import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from eegsynth_torch.convert import from_jax_params, unstack_params
+from eegsynth_torch.convert import from_jax_params, restore_like, unstack_params
 from eegsynth_torch.data.io import bucket_paths, load_bucket
 from eegsynth_torch.models.timegan import (
     TimeGANConfig, adaptive_dims, timegan_init_stacked,
@@ -46,19 +53,12 @@ from eegsynth_torch.models.timegan import (
 from eegsynth_torch.train import checkpoint as ckpt_io
 from eegsynth_torch.train.optim import Optimizer, make_gan_opts
 from eegsynth_torch.train.timegan import (
-    GEN_NETS, LOG_COLUMNS, TimeGANHParams, draw_batch_idx, draw_gan, gan_step,
-    gather_batch,
-    pre_phase_step, synthesize,
+    _AE, _GAN, _INIT, _SUP, _SYNTH, GEN_NETS, LOG_COLUMNS, LOG_HEADER,
+    TIMEGAN_G_WEIGHT_NAMES, BestTracker, TimeGANHParams, bucket_generators,
+    bucket_seed, draw_batch_idx, draw_gan, draw_gan_masks, dropout_rate, gan_step,
+    gather_batch, pre_phase_step, synthesize,
 )
-from eegsynth_torch.tree import take, tree_map
-
-_INIT, _AE, _SUP, _GAN, _SYNTH = range(5)   # seed streams per bucket
-
-
-def bucket_seed(seed: int, b: int, stream: int) -> int:
-    """A 63-bit seed for bucket ``b``'s ``stream`` (init, phases, synthesis)."""
-    state = np.random.SeedSequence([seed, b, stream]).generate_state(2, np.uint32)
-    return int(state[0]) << 31 | int(state[1]) >> 1
+from eegsynth_torch.tree import take
 
 
 def stack_buckets(files: list[Path]):
@@ -77,22 +77,45 @@ def stack_buckets(files: list[Path]):
     return X, n_valid, names, fss
 
 
-def _generators(seed: int, nb: int, stream: int, device) -> list[torch.Generator]:
-    return [torch.Generator(device=device).manual_seed(bucket_seed(seed, b, stream))
-            for b in range(nb)]
+def bucket_weight_matrix(bucket_weights: dict, names: list[str],
+                         hp: TimeGANHParams) -> np.ndarray:
+    """(nb, 4) G-loss weights in ``TIMEGAN_G_WEIGHT_NAMES`` order: the hp's,
+    overridden per named bucket (JAX ``train_all_buckets``'s validation)."""
+    unknown = set(bucket_weights) - set(names)
+    if unknown:
+        raise ValueError(f"bucket_weights for unknown buckets "
+                         f"{sorted(unknown)}; have {names}")
+    W = np.tile(np.asarray([getattr(hp, n) for n in TIMEGAN_G_WEIGHT_NAMES],
+                           np.float32), (len(names), 1))
+    for bname, overrides in bucket_weights.items():
+        bad = set(overrides) - set(TIMEGAN_G_WEIGHT_NAMES)
+        if bad:
+            raise ValueError(f"unsweepable weights {sorted(bad)}; "
+                             f"sweepable: {TIMEGAN_G_WEIGHT_NAMES}")
+        b = names.index(bname)
+        for j, n in enumerate(TIMEGAN_G_WEIGHT_NAMES):
+            W[b, j] = float(overrides.get(n, W[b, j]))
+    return W
 
 
 def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
-                      log_every: int = 100, **hparams) -> dict:
+                      log_every: int = 100, bucket_weights: dict | None = None,
+                      ckpt_every: int | None = None, resume: bool = False,
+                      **hparams) -> dict:
     """Stacked multi-bucket training; writes the per-bucket artifact set.
     Returns aggregate throughput stats, each GAN step's wall time (host clock,
-    synchronised) and the pre-phase step counts."""
+    synchronised) and the pre-phase step counts.
+
+    ``bucket_weights``: ``{bucket_name: {weight: value}}`` G-loss weight
+    overrides (``TIMEGAN_G_WEIGHT_NAMES``); buckets not named keep the hp's.
+    ``ckpt_every``: every this many GAN steps (before the last) the stacked
+    state (params, both optimizers, best tracking, the logs so far, each
+    bucket's GAN generator) goes to ``out_root/_multi_state.npz``;
+    ``resume`` continues from it, skipping phases 1-2, and refuses a file of
+    another run (names, seed, gan_steps, chunk)."""
     device = torch.device(device)
     out_root = Path(out_root)
     hp = TimeGANHParams(**hparams)
-    if hp.layers != 1:
-        raise NotImplementedError("the stacked trainer takes single-layer "
-                                  "GRU stacks (the reference's layers=1)")
     if hp.epoch_cycle:
         raise ValueError("epoch_cycle is a sequential-trainer A/B instrument; "
                          "unsupported with stacked buckets")
@@ -104,25 +127,42 @@ def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
     z_dim, h_dim = adaptive_dims(C, T)
     cfg = TimeGANConfig(x_dim=C, z_dim=z_dim, h_dim=h_dim, num_layers=hp.layers,
                         dropout=hp.dropout)
+    rate = dropout_rate(hp)
     print(f"==> {nb} buckets | T={T} C={C} z={z_dim} h={h_dim} "
           f"N∈[{int(n_valid_host.min())},{n_max}] | {device}", flush=True)
+
+    state_path = out_root / "_multi_state.npz"
+    run_meta = {"names": ",".join(names), "seed": hp.seed,
+                "gan_steps": hp.gan_steps, "chunk_eff": hp.chunk}
+    resume_meta = None
+    if resume and state_path.exists():
+        rmeta = ckpt_io.load_meta(state_path)
+        got = {k: type(v)(rmeta.get(k)) for k, v in run_meta.items()}
+        if got != run_meta:
+            raise ValueError(f"{state_path} does not match this run (saved {got}, "
+                             f"expected {run_meta}): wrong out_root or changed "
+                             "config")
+        resume_meta = rmeta
+        print(f"==> resuming GAN phase from step {rmeta['done']} ({state_path})",
+              flush=True)
 
     t_all = time.perf_counter()
     X = torch.from_numpy(X_host).to(device)
     n_valid = torch.from_numpy(n_valid_host).to(device=device, dtype=torch.float32)
-    params = timegan_init_stacked(cfg, _generators(hp.seed, nb, _INIT, "cpu"),
+    params = timegan_init_stacked(cfg, bucket_generators(hp.seed, nb, _INIT, "cpu"),
                                   device=device)
     B = min(hp.batch_size, n_max)
     steps_per_epoch = -(-n_max // B)
 
-    # Phases 1 + 2: autoencoder, then supervisor
-    for tag, stream, which, epochs, nets in (
-            ("AE", _AE, "ae", hp.ae_epochs, ("embedder", "recovery")),
-            ("SUP", _SUP, "sup", hp.sup_epochs, None)):
+    # Phases 1 + 2: autoencoder, then supervisor (no dropout, as in JAX);
+    # a resumed run restores their outcome instead
+    phases = (("AE", _AE, "ae", hp.ae_epochs, ("embedder", "recovery")),
+              ("SUP", _SUP, "sup", hp.sup_epochs, None))
+    for tag, stream, which, epochs, nets in phases if resume_meta is None else ():
         opt = Optimizer(hp.lr_g, hp.grad_clip, hp.beta1, hp.beta2)
         sub = ({k: params[k] for k in nets} if nets else params["supervisor"])
         state = opt.init(sub)
-        gens = _generators(hp.seed, nb, stream, device)
+        gens = bucket_generators(hp.seed, nb, stream, device)
         n_steps = epochs * steps_per_epoch
         loss = torch.full((nb,), float("nan"), device=device)
         for _ in range(n_steps):
@@ -136,27 +176,52 @@ def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
     optD, optG = make_gan_opts(hp)
     d_state = optD.init(params["discriminator"])
     g_state = optG.init({k: params[k] for k in GEN_NETS})
-    gens = _generators(hp.seed, nb, _GAN, device)
-    best_params = params
-    best_loss = torch.full((nb,), float("inf"), device=device)
-    best_step = torch.zeros((nb,), dtype=torch.long, device=device)
-    logs, step_seconds = [], []
+    gens = bucket_generators(hp.seed, nb, _GAN, device)
+    weights = None
+    if bucket_weights:
+        weights = torch.from_numpy(
+            bucket_weight_matrix(bucket_weights, names, hp)).to(device)
+        print(f"==> per-bucket G weights active for {sorted(bucket_weights)}",
+              flush=True)
+    best = BestTracker.start(params)
+    logs, step_seconds, done0 = [], [], 0
+    if resume_meta is not None:
+        trees, _ = ckpt_io.load_checkpoint(state_path)
+        params = restore_like(params, trees["model"])
+        d_state = optD.restore(trees["optD"], d_state)
+        g_state = optG.restore(trees["optG"], g_state)
+        best = BestTracker(restore_like(params, trees["best"]),
+                           torch.from_numpy(trees["best_loss"]).to(device),
+                           torch.from_numpy(trees["best_step"]).long().to(device))
+        for g, rng in zip(gens, trees["rng"]):
+            g.set_state(torch.from_numpy(rng))
+        done0 = int(resume_meta["done"])
+        logs = list(torch.from_numpy(trees["logs"]).to(device).unbind(1))
+
+    def save_state(done: int) -> None:
+        out_root.mkdir(parents=True, exist_ok=True)
+        ckpt_io.save_checkpoint(
+            state_path,
+            {"model": params, "optD": optD.state_tree(d_state),
+             "optG": optG.state_tree(g_state), "best": best.params,
+             "best_loss": best.loss, "best_step": best.step,
+             "logs": torch.stack(logs, dim=1),
+             "rng": [g.get_state() for g in gens]},
+            {**run_meta, "done": done, "chunks_done": done})
+        print(f"[state] saved {state_path.name} @ step {done}", flush=True)
+
     t0 = time.perf_counter()
-    for step in range(1, hp.gan_steps + 1):
+    for step in range(done0 + 1, hp.gan_steps + 1):
         t_step = time.perf_counter()
         draws = draw_gan(gens, n_valid, B, T, z_dim, device=device)
+        if rate > 0:
+            draws.masks = draw_gan_masks(gens, params, B, T, rate, device=device)
         x = gather_batch(X, draws.idx)
         params, d_state, g_state, lg = gan_step(params, optD, d_state, optG,
-                                                g_state, x, draws, step, hp)
+                                                g_state, x, draws, step, hp,
+                                                weights=weights)
         logs.append(lg)
-        # best-by-G-total, per bucket, on the post-update parameters
-        is_best = lg[:, 2] < best_loss
-        best_params = tree_map(
-            lambda new, old: torch.where(
-                is_best.view((nb,) + (1,) * (new.dim() - 1)), new, old),
-            params, best_params)
-        best_loss = torch.where(is_best, lg[:, 2], best_loss)
-        best_step = torch.where(is_best, torch.full_like(best_step, step), best_step)
+        best.update(params, lg, step)
         if device.type == "cuda":
             torch.cuda.synchronize(device)   # a step takes seconds: cheap
         step_seconds.append(time.perf_counter() - t_step)
@@ -165,24 +230,24 @@ def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
             print(f"[GAN] step {step}/{hp.gan_steps}  mean over {nb} buckets: "
                   f"D={row[0]:.4f} acc≈{row[1]:.2f} G={row[2]:.4f} "
                   f"({step_seconds[-1]:.3f} s)", flush=True)
+        if ckpt_every and step < hp.gan_steps and step % ckpt_every == 0:
+            save_state(step)
     gan_seconds = time.perf_counter() - t0
-    agg = nb * hp.gan_steps / max(gan_seconds, 1e-9)
-    print(f"[GAN] {nb}×{hp.gan_steps} steps in {gan_seconds:.1f}s → "
+    agg = nb * (hp.gan_steps - done0) / max(gan_seconds, 1e-9)
+    print(f"[GAN] {nb}×{hp.gan_steps - done0} steps in {gan_seconds:.1f}s → "
           f"{agg:.1f} aggregate steps/s", flush=True)
 
     # Per-bucket artifacts
     logs_host = (torch.stack(logs, dim=1).cpu().numpy() if logs
                  else np.zeros((nb, 0, len(LOG_COLUMNS)), np.float32))
-    to_np = lambda tree: tree_map(lambda t: t.detach().cpu().numpy(), tree)  # noqa: E731
-    opt_trees = {"optG": to_np(optG.state_tree(g_state)),
-                 "optD": to_np(optD.state_tree(d_state))}
-    best_step_host, best_loss_host = best_step.cpu().numpy(), best_loss.cpu().numpy()
+    opt_trees = {"optG": optG.state_tree(g_state), "optD": optD.state_tree(d_state)}
+    best_step_host, best_loss_host = best.step.cpu().numpy(), best.loss.cpu().numpy()
     meta_base = {"z_dim": z_dim, "h_dim": h_dim, "x_dim": C, "layers": hp.layers}
     for b, name in enumerate(names):
         out_dir = out_root / name
         out_dir.mkdir(parents=True, exist_ok=True)
         with open(out_dir / "train_log.csv", "w") as f:
-            f.write("step,phase," + ",".join(LOG_COLUMNS) + "\n")
+            f.write(LOG_HEADER)
             for s in range(hp.gan_steps):
                 f.write(f"{s + 1},GAN," + ",".join(repr(float(v))
                         for v in logs_host[b, s]) + "\n")
@@ -193,7 +258,7 @@ def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
                                 {**meta_base, "npz": f"{name}.npz", "fs": fss[b],
                                  "step": hp.gan_steps})
         ckpt_io.save_checkpoint(out_dir / "ckpt_best.npz",
-                                {"model": unstack_params(best_params, b), **opt_b},
+                                {"model": unstack_params(best.params, b), **opt_b},
                                 {**meta_base, "npz": f"{name}.npz", "best": True,
                                  "fs": fss[b], "step": int(best_step_host[b]),
                                  "best_loss": float(best_loss_host[b])})
@@ -212,50 +277,11 @@ def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
             "sup_steps": hp.sup_epochs * steps_per_epoch}
 
 
-CONFIG_KEYS = {
-    "batch_size": int, "ae_epochs": int, "sup_epochs": int, "gan_steps": int,
-    "lr_g": float, "lr_d": float, "beta1": float, "beta2": float,
-    "alpha_sup": float, "beta_rec": float, "label_smooth": float,
-    "inst_noise_start": float, "inst_noise_end": float, "grad_clip": float,
-    "layers": int, "dropout": float, "seed": int, "r1_gamma": float,
-    "d_min_acc": float, "d_max_acc": float, "gamma_cov": float,
-    "gamma_acf": float, "acf_max_lag": int, "chunk": int,
-}
-"""The config keys of ``scripts/train_timegan.py``, with their types."""
-
-
 def main(argv: list[str] | None = None) -> dict:
-    ap = argparse.ArgumentParser(
-        description="Stacked multi-bucket TimeGAN training (the port of "
-                    "scripts/train_timegan.py --parallel_buckets)")
-    ap.add_argument("--config", type=str, default=None,
-                    help="JSON config, the schema of configs/timegan_config.json")
-    ap.add_argument("--data_dir", type=str, default=None)
-    ap.add_argument("--out_dir", type=str, default=None)
-    ap.add_argument("--device", type=str, default="cuda",
-                    help="cuda (the kernels) or cpu (their plain versions)")
-    ap.add_argument("--log_every", type=int, default=100)
-    for k, typ in CONFIG_KEYS.items():
-        ap.add_argument(f"--{k}", type=typ, default=None)
-    args = ap.parse_args(argv)
-
-    cfg = {}
-    if args.config:
-        with open(args.config, encoding="utf-8") as f:
-            cfg = json.load(f)
-    data_dir = Path(args.data_dir or cfg.get("data_dir", "./preprocessed"))
-    out_root = Path(args.out_dir or cfg.get("out_dir", "./timegan_runs"))
-    hp = {k: typ(getattr(args, k) if getattr(args, k) is not None else cfg[k])
-          for k, typ in CONFIG_KEYS.items()
-          if getattr(args, k) is not None or k in cfg}
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available")
-    res = train_all_buckets(data_dir, out_root, device=device,
-                            log_every=args.log_every, **hp)
-    print(f"\nAggregate: {res['aggregate_steps_per_sec']:.1f} GAN steps/s "
-          f"across {res['n_buckets']} buckets ({res['total_seconds']:.1f}s total)")
-    return res
+    """``python -m eegsynth_torch.train.timegan --parallel_buckets``, kept
+    under this module's name."""
+    from eegsynth_torch.train.timegan import main as cli
+    return cli(["--parallel_buckets", *(sys.argv[1:] if argv is None else argv)])
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@ backward, K2, flash attention K3a/K3b/K3c, for head dims to 128 and past
 it) against their plain versions,
 K1's bucket axis against separate launches, the wrappers' checks, gradients
 through K1 and through flash_attention against the CPU, the serving
-cascade chunked against one-shot, and the eval's GRU(24) scorers and
-statistics against the CPU.
+cascade chunked against one-shot, the eval's GRU(24) scorers and
+statistics against the CPU, and the sequential trainer: one GAN step of a
+2-layer stack with dropout masks against the CPU, and a short run.
 
 Every test skips without a card: the kernels have no CPU mode. This file
 imports no jax, so it also runs on a machine without it:
@@ -32,8 +33,10 @@ from eegsynth_torch.nn.gru_sequence import (
 from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
 )
+from eegsynth_torch.train import timegan as ttrain
+from eegsynth_torch.train.optim import make_gan_opts
 from eegsynth_torch.train.timegan import synthesize_from_noise
-from eegsynth_torch.tree import tree_map
+from eegsynth_torch.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -67,7 +70,9 @@ def _inputs(T, B, H, device, seed=0, lead=()):
                                       (300, 37, 64, None), (300, 37, 65, None),
                                       (300, 37, 96, None), (300, 37, 127, None),
                                       (768, 63, 56, 18), (200, 63, 24, 36),
-                                      (200, 1587, 24, 1)])
+                                      (200, 1587, 24, 1), (768, 64, 56, 1),
+                                      (767, 64, 56, 1), (768, 26, 56, 1),
+                                      (767, 26, 56, 1)])
 def test_kernel_matches_plain(cuda_device, T, B, H, nb):
     lead = () if nb is None else (nb,)
     inputs = _inputs(T, B, H, cuda_device, lead=lead)
@@ -128,12 +133,16 @@ def _assert_bwd_matches(got, ref):
 # a ragged last tile (3 rows a block, 1 in the last); every other instance
 # of the kernel (H 16: KL 16, S 1; H 80: KL 32, S 4), H 127 (H % 4 != 0:
 # 4-byte copies) and one step; the eval's GRU(24) scorers at cut T (a stack
-# of tasks of 63 rows, one task of 1134 rows)
+# of tasks of 63 rows, one task of 1134 rows); the sequential trainer's
+# one bucket of B 64 and of a small bucket's odd B 26, at T 768 and at the
+# supervisor's T 767
 @pytest.mark.parametrize("nb,T,B,H", [(18, 768, 63, 56), (18, 768, 63, 28),
                                       (3, 1024, 37, 128), (2, 64, 133, 20),
                                       (2, 100, 37, 16), (2, 300, 37, 80),
                                       (2, 50, 37, 127), (3, 1, 5, 56),
-                                      (36, 200, 63, 24), (1, 200, 1134, 24)])
+                                      (36, 200, 63, 24), (1, 200, 1134, 24),
+                                      (1, 768, 64, 56), (1, 767, 64, 56),
+                                      (1, 768, 26, 56), (1, 767, 26, 56)])
 def test_backward_kernel_matches_plain(cuda_device, nb, T, B, H):
     inputs = _inputs(T, B, H, cuda_device, seed=H, lead=(nb,))
     ys = gru_sequence_reference(*inputs)
@@ -247,8 +256,9 @@ def _multigru_inputs(nb, T, B, He, Hg, Hs, Z, device, seed=0):
 # adaptive_dims' narrowest (z16/h32), 20 channels (z40/h80) and widest
 # (z64/h128) widths, every width at 128 (the largest shared memory a block
 # takes: W_is^T at Z = Hs = 128), mixed widths; one step, and no step (no
-# launch: nothing to compute)
+# launch: nothing to compute); the sequential trainer's one bucket of B 64
 @pytest.mark.parametrize("nb,T,B,dims", [(18, 768, 63, (28, 56, 56, 28)),
+                                         (1, 768, 64, (28, 56, 56, 28)),
                                          (18, 1024, 63, (36, 72, 72, 36)),
                                          (3, 50, 7, (8, 12, 12, 8)),
                                          (2, 300, 37, (16, 32, 32, 16)),
@@ -598,3 +608,62 @@ def test_eval_scores_launch_k1(cuda_device):
     assert (gru_sequence.launches, gru_sequence_bwd.launches) == \
         (before[0] + 3, before[1] + 2)
     assert all(0.0 <= acc <= 1.0 and np.isfinite(auc) for acc, auc in res)
+
+
+def test_dropout_gan_step_matches_cpu(cuda_device):
+    """One sequential GAN step of 2-layer stacks with dropout masks (the
+    composed route: K1 for every recurrence, no K2) on the card and on the
+    CPU, on the same parameters and draws: logs within 1e-4 relative,
+    parameters within 2e-4 (a fifth of lr_g: Adam's first update magnifies
+    a gradient at rounding level)."""
+    hp = ttrain.TimeGANHParams(layers=2, dropout=0.2, gan_steps=4, batch_size=4)
+    cfg = TimeGANConfig(x_dim=14, num_layers=2)
+    params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(0)], device="cpu")
+    g = torch.Generator().manual_seed(1)
+    X = torch.rand((1, 8, 96, 14), generator=g)
+    draws = ttrain.draw_gan([g], None, 4, 96, 28, device="cpu",
+                            idx=ttrain.draw_perm_idx([g], 8, 4, device="cpu"))
+    draws.masks = ttrain.draw_gan_masks([g], params, 4, 96, 0.2, device="cpu")
+    results = []
+    for device in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(device), params)
+        d = ttrain.GANDraws(**{k: tree_map(lambda t: t.to(device), v)
+                               for k, v in vars(draws).items()})
+        optD, optG = make_gan_opts(hp)
+        before = (gru_sequence.launches, multigru_disc_inputs.launches)
+        out = ttrain.gan_step(p, optD, optD.init(p["discriminator"]), optG,
+                              optG.init({k: p[k] for k in ttrain.GEN_NETS}),
+                              ttrain.gather_batch(X.to(device), d.idx), d, 1, hp)
+        launches = (gru_sequence.launches - before[0],
+                    multigru_disc_inputs.launches - before[1])
+        results.append((tree_map(lambda t: t.cpu(), out[0]), out[3].cpu(), launches))
+    (cpu_p, cpu_logs, _), (card_p, card_logs, launches) = results
+    # D inputs: E, G, S; G step: G, S, E, R and R on h_hat; two layers each
+    assert launches == (16, 0)
+    assert torch.isfinite(card_logs).all()
+    assert ((card_logs - cpu_logs).abs() / cpu_logs.abs().clamp(min=1.0)).max() <= 1e-4
+    for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)):
+        assert (a - b).abs().max().item() <= 2e-4
+
+
+def test_train_single_npz_on_the_card(cuda_device, tmp_path):
+    """A short sequential run on the card, through K1 forward and backward
+    and K2: finite logs of every step and every artifact."""
+    rng = np.random.default_rng(0)
+    np.savez(tmp_path / "posture1_no_exo.npz",
+             X=rng.uniform(0, 1, (12, 128, 14)).astype(np.float32))
+    before = (gru_sequence.launches, gru_sequence_bwd.launches,
+              multigru_disc_inputs.launches)
+    res = ttrain.train_single_npz(tmp_path / "posture1_no_exo.npz", tmp_path / "run",
+                                  device=cuda_device, ae_epochs=1, sup_epochs=1,
+                                  gan_steps=3, batch_size=8)
+    after = (gru_sequence.launches, gru_sequence_bwd.launches,
+             multigru_disc_inputs.launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert after[2] - before[2] == 3                  # K2 once a GAN step
+    rows = np.loadtxt(tmp_path / "run" / "train_log.csv", delimiter=",",
+                      skiprows=1, usecols=range(2, 10), ndmin=2)
+    assert rows.shape == (3, 8) and np.isfinite(rows).all()
+    assert res["steps_per_sec"] > 0 and 1 <= res["best_step"] <= 3
+    with np.load(tmp_path / "run" / "synthetic.npz") as s:
+        assert s["X"].shape == (12, 128, 14) and np.isfinite(s["X"]).all()
