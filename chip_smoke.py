@@ -140,7 +140,7 @@ from eegsynth_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from eegsynth_torch.train.optim import make_gan_opts
 from eegsynth_torch.train.timegan import (
     CONFIG_KEYS, GEN_NETS, LOG_COLUMNS, TimeGANHParams, draw_gan, draw_gan_masks,
-    draw_perm_idx, gan_step, gather_batch, synthesize_from_noise,
+    gan_step, gather_batch, synthesize_from_noise,
 )
 from eegsynth_torch.train.timegan import main as timegan_cli
 from eegsynth_torch.train.timegan_multi import train_all_buckets
@@ -231,12 +231,14 @@ EVAL_METRIC_COLS = ["disc_acc", "disc_auc", "rmse_tstr", "r2_tstr", "rmse_trts",
                     "n_real", "n_fake", "seq_len", "n_ch"]
 EVAL_LOGIT_TOL, EVAL_STAT_RTOL, EVAL_ACF_TOL = 1e-4, 1e-5, 1e-10
 # The sequential trainer ([train-seq]): one bucket of 100 windows, so B 64
-# leaves a padded second batch in each AE and SUP epoch; the CLI for 3 GAN
-# steps at chunk 2, resumed to 5; a 2-layer run with dropout; 5 timed
-# steps after one warm-up; the stacked trainer's ckpt_every / resume on 2
-# buckets (the state saved at step 2 of 3)
-SEQ_WINDOWS, SEQ_BATCH, SEQ_GAN_STEPS, SEQ_RESUME_STEPS = 100, 64, 3, 5
-SEQ_LAYERS_STEPS, SEQ_RATE_STEPS, SEQ_CHECK_BATCH = 2, 5, 8
+# leaves a padded second batch in each AE and SUP epoch; the CLI for one
+# warm-up and 5 timed GAN steps at chunk 2, resumed to 9 (a short last
+# chunk); a 2-layer run with dropout; one GAN step of that stack at B 8
+# on the card against the CPU; the stacked trainer's ckpt_every / resume
+# on 2 buckets (the state saved at step 2 of 3)
+SEQ_WINDOWS, SEQ_BATCH, SEQ_RATE_STEPS, SEQ_RESUME_STEPS = 100, 64, 5, 9
+SEQ_GAN_STEPS = 1 + SEQ_RATE_STEPS
+SEQ_LAYERS_STEPS, SEQ_CHECK_BATCH = 2, 8
 # Wide data: 20 channels give adaptive_dims' z40/h80 (K2's instance with KL
 # 32); a short run of 2 buckets
 WIDE_CHANNELS, WIDE_BUCKETS, WIDE_GAN_STEPS = 20, 2, 2
@@ -245,7 +247,10 @@ WIDE_CHANNELS, WIDE_BUCKETS, WIDE_GAN_STEPS = 20, 2, 2
 # steps, in K1, K2 and the reductions). Parameters after the update: 2e-4
 # absolute, a fifth of lr_g: Adam's first update is lr·g/(|g| + 1e-8), so a
 # gradient within rounding error of zero may land anywhere in ±lr·|g|/1e-8.
-STEP_LOG_RTOL, STEP_PARAM_ATOL = 1e-4, 2e-4
+# The optimizers' first moments after the step, (1 − b1)·g: 1e-3 of each
+# leaf's largest magnitude. Unlike the parameters, they scale with |g|, so a
+# gradient that is wrong in magnitude but right in sign shows here.
+STEP_LOG_RTOL, STEP_PARAM_ATOL, STEP_MU_RTOL = 1e-4, 2e-4, 1e-3
 # Transformer CGAN (v1) at the JAX defaults: dim 256, depth 4, heads 4,
 # patch 8 (96 tokens), batch 64; 9 posture buckets of 64 random windows give
 # 9 steps per epoch, so R1 fires at steps 0 and 8. The generator's attention
@@ -1385,8 +1390,9 @@ def phase_train_seq(smi: str, root: Path, device: str = "cuda") -> dict:
     SEQ_GAN_STEPS GAN steps at chunk 2, resumed to SEQ_RESUME_STEPS (log rows,
     one header, ckpt_latest's step and count, synthetic.npz); the same at 2
     layers with dropout 0.2 (K1 only, no K2); one GAN step of that stack
-    with masks on the card against the CPU; SEQ_RATE_STEPS timed GAN steps
-    at nb 1, B 64 and K2 against the composed route there; then
+    with masks on the card against the CPU; the rate of the first run's
+    SEQ_RATE_STEPS warm GAN steps at nb 1, B 64 and K2 against the composed
+    route there; then
     --parallel_buckets --ckpt_every on 2 buckets, resumed from the saved
     state, whose logs must equal the uninterrupted run's bit for bit.
     Returns the launch counts of the CLI runs. With ``device="cpu"`` it
@@ -1463,8 +1469,15 @@ def phase_train_seq(smi: str, root: Path, device: str = "cuda") -> dict:
     if rows.shape != (SEQ_LAYERS_STEPS, 8) or not np.isfinite(rows).all():
         fail(f"[train-seq] the 2-layer run logged {rows.shape}")
 
-    _seq_step_check(smi, device)
-    _seq_step_rate(smi, device)
+    warm = res[name]["gan_step_seconds"][1:]
+    z_dim, h_dim = adaptive_dims(CHANNELS, SEQ_LEN)
+    print(f"[train-seq] sequential GAN step nb=1 B={SEQ_BATCH} T={SEQ_LEN} "
+          f"z{z_dim}/h{h_dim}: {len(warm) / sum(warm):.4f} steps/s over "
+          f"{len(warm)} warm steps of the first run ({', '.join(f'{t:.3f}' for t in warm)}"
+          f" s; warm-up {res[name]['gan_step_seconds'][0]:.3f} s) | {smi}", flush=True)
+
+    _step_check(smi, device, nb=1, B=SEQ_CHECK_BATCH, layers=2, dropout=0.2,
+                tag="[train-seq]")
     if cuda:
         _time_composed_route(smi, 1, SEQ_LEN, SEQ_BATCH, (CHANNELS,))
 
@@ -1501,90 +1514,18 @@ def phase_train_seq(smi: str, root: Path, device: str = "cuda") -> dict:
                     (int(v) for v in total)))
 
 
-def _seq_step_check(smi: str, device: str) -> None:
-    """One sequential GAN step of 2-layer stacks with dropout masks (nb 1,
-    B SEQ_CHECK_BATCH, T 768, full width) on the card against the CPU plain
-    path, on the same parameters, draws and masks."""
-    hp = TimeGANHParams(**_train_hparams(gan_steps=GAN_STEPS, layers=2, dropout=0.2))
-    z_dim, h_dim = adaptive_dims(CHANNELS, SEQ_LEN)
-    cfg = TimeGANConfig(x_dim=CHANNELS, z_dim=z_dim, h_dim=h_dim, num_layers=2)
-    params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(5)], device="cpu")
-    g = torch.Generator().manual_seed(6)
-    X = torch.rand((1, SEQ_WINDOWS, SEQ_LEN, CHANNELS), generator=g)
-    idx = draw_perm_idx([g], SEQ_WINDOWS, SEQ_CHECK_BATCH, device="cpu")
-    draws = draw_gan([g], None, SEQ_CHECK_BATCH, SEQ_LEN, z_dim, device="cpu", idx=idx)
-    draws.masks = draw_gan_masks([g], params, SEQ_CHECK_BATCH, SEQ_LEN, 0.2,
-                                 device="cpu")
-    out = {}
-    for dev in (device, "cpu"):
-        p = tree_map(lambda t: t.to(dev), params)
-        d = type(draws)(**{k: tree_map(lambda t: t.to(dev), v)
-                           for k, v in vars(draws).items()})
-        optD, optG = make_gan_opts(hp)
-        t0 = time.perf_counter()
-        new_p, _, _, logs = gan_step(p, optD, optD.init(p["discriminator"]), optG,
-                                     optG.init({k: p[k] for k in GEN_NETS}),
-                                     gather_batch(X.to(dev), d.idx), d, 1, hp)
-        _sync(dev)
-        out[dev] = (tree_map(lambda t: t.cpu(), new_p), logs.cpu(),
-                    time.perf_counter() - t0)
-    (card_p, card_logs, card_s), (cpu_p, cpu_logs, cpu_s) = out[device], out["cpu"]
-    log_err = ((card_logs - cpu_logs).abs() / cpu_logs.abs().clamp(min=1.0)).max().item()
-    p_err = max((a - b).abs().max().item()
-                for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
-    print(f"[train-seq] GAN step nb=1 B={SEQ_CHECK_BATCH} T={SEQ_LEN} layers 2 with "
-          f"dropout masks, card vs CPU plain path: logged values max relative diff "
-          f"{log_err:.3e} (tol {STEP_LOG_RTOL:g}); updated parameters max|diff| "
-          f"{p_err:.3e} (tol {STEP_PARAM_ATOL:g}); step {card_s:.3f} s on the card, "
-          f"{cpu_s:.3f} s on the CPU | {smi}", flush=True)
-    if not torch.isfinite(card_logs).all() or log_err > STEP_LOG_RTOL \
-            or p_err > STEP_PARAM_ATOL:
-        fail(f"[train-seq] the card's 2-layer GAN step disagrees with the CPU: "
-             f"logs {log_err}, params {p_err}")
-
-
-def _seq_step_rate(smi: str, device: str) -> None:
-    """SEQ_RATE_STEPS sequential GAN steps (nb 1, B 64, T 768, z28/h56, one
-    layer: K2 for the D inputs) after one warm-up, each synchronised; the
-    rate of the timed steps (bench.py's primary metric's step)."""
-    z_dim, h_dim = adaptive_dims(CHANNELS, SEQ_LEN)
-    params = timegan_init_stacked(
-        TimeGANConfig(x_dim=CHANNELS, z_dim=z_dim, h_dim=h_dim),
-        [torch.Generator().manual_seed(7)], device=device)
-    hp = TimeGANHParams(**_train_hparams())
-    optD, optG = make_gan_opts(hp)
-    state = [params, optD.init(params["discriminator"]),
-             optG.init({k: params[k] for k in GEN_NETS})]
-    X = torch.from_numpy(np.random.default_rng(8).uniform(
-        0, 1, (1, SEQ_WINDOWS, SEQ_LEN, CHANNELS)).astype(np.float32)).to(device)
-    gens = [torch.Generator(device=device).manual_seed(9)]
-    B = min(SEQ_BATCH, SEQ_WINDOWS)
-    times = []
-    for step in range(1, SEQ_RATE_STEPS + 2):
-        t0 = time.perf_counter()
-        idx = draw_perm_idx(gens, SEQ_WINDOWS, B, device=device)
-        draws = draw_gan(gens, None, B, SEQ_LEN, z_dim, device=device, idx=idx)
-        state[0], state[1], state[2], _ = gan_step(
-            state[0], optD, state[1], optG, state[2], gather_batch(X, idx), draws,
-            step, hp)
-        _sync(device)
-        times.append(time.perf_counter() - t0)
-    warm = times[1:]
-    print(f"[train-seq] sequential GAN step nb=1 B={B} T={SEQ_LEN} "
-          f"z{z_dim}/h{h_dim}: {len(warm) / sum(warm):.4f} steps/s over "
-          f"{len(warm)} warm steps ({', '.join(f'{t:.3f}' for t in warm)} s; "
-          f"warm-up {times[0]:.3f} s) | {smi}", flush=True)
-
-
-def _step_inputs(nb: int, B: int, seed: int, device, channels: int = CHANNELS):
+def _step_inputs(nb: int, B: int, seed: int, device, channels: int = CHANNELS,
+                 layers: int = 1, dropout: float = 0.0):
     """Stacked models at full width for ``channels`` channels (adaptive_dims:
-    z28/h56 at 14), fresh optimizer states, a batch and one step's draws,
-    all from seeds, on ``device``."""
+    z28/h56 at 14) of ``layers`` layers, fresh optimizer states, a batch and
+    one step's draws, with dropout masks where ``dropout`` is live, all from
+    seeds, on ``device``."""
     z_dim, h_dim = adaptive_dims(channels, SEQ_LEN)
-    cfg = TimeGANConfig(x_dim=channels, z_dim=z_dim, h_dim=h_dim)
+    cfg = TimeGANConfig(x_dim=channels, z_dim=z_dim, h_dim=h_dim, num_layers=layers)
     params = timegan_init_stacked(
         cfg, [torch.Generator().manual_seed(seed + b) for b in range(nb)], device=device)
-    hp = TimeGANHParams(**_train_hparams(gan_steps=GAN_STEPS))
+    hp = TimeGANHParams(**_train_hparams(gan_steps=GAN_STEPS, layers=layers,
+                                         dropout=dropout))
     optD, optG = make_gan_opts(hp)
     d_state = optD.init(params["discriminator"])
     g_state = optG.init({k: params[k] for k in GEN_NETS})
@@ -1593,6 +1534,8 @@ def _step_inputs(nb: int, B: int, seed: int, device, channels: int = CHANNELS):
     gens = [torch.Generator(device=device).manual_seed(seed + b) for b in range(nb)]
     draws = draw_gan(gens, torch.full((nb,), float(N_WINDOWS), device=device), B,
                      SEQ_LEN, cfg.z_dim, device=device)
+    if dropout > 0:
+        draws.masks = draw_gan_masks(gens, params, B, SEQ_LEN, dropout, device=device)
     return params, hp, optD, d_state, optG, g_state, gather_batch(X, draws.idx), draws
 
 
@@ -1604,18 +1547,25 @@ def phase_step_check(smi: str, device: str = "cuda") -> None:
         _step_check(smi, device, channels)
 
 
-def _step_check(smi: str, device: str, channels: int) -> None:
+def _step_check(smi: str, device: str, channels: int = CHANNELS, nb: int = 2,
+                B: int = 8, layers: int = 1, dropout: float = 0.0,
+                tag: str = "[check]") -> None:
+    """One GAN step of ``nb`` buckets at batch ``B`` on the card against the
+    CPU plain path, on the same parameters, draws and dropout masks: the
+    logged values, the updated parameters and both optimizers' first
+    moments. Without masks the D-step inputs come from K2 (5 K1 forward
+    launches and 1 K2); with them every recurrence is K1 (8 a layer)."""
     params, hp, optD, d_state, optG, g_state, x, draws = _step_inputs(
-        2, 8, 7, device, channels)
+        nb, B, 7, device, channels, layers, dropout)
     cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)      # noqa: E731
     k1, k2 = gru_sequence.launches, multigru_disc_inputs.launches
     t0 = time.perf_counter()
-    card_p, _, _, card_logs = gan_step(params, optD, d_state, optG, g_state, x,
-                                       draws, 1, hp)
+    card_p, card_d, card_g, card_logs = gan_step(params, optD, d_state, optG,
+                                                 g_state, x, draws, 1, hp)
     _sync(device)
     card_s = time.perf_counter() - t0
     k1, k2 = gru_sequence.launches - k1, multigru_disc_inputs.launches - k2
-    want = (5, 1)
+    want = (5, 1) if draws.masks is None else (8 * layers, 0)
     if torch.device(device).type != "cuda":
         want = (0, 0)
     d_cpu, g_cpu = optD.init(cpu(params["discriminator"])), \
@@ -1623,30 +1573,39 @@ def _step_check(smi: str, device: str, channels: int) -> None:
     draws_cpu = type(draws)(**{k: tree_map(lambda t: t.cpu(), v)
                                for k, v in vars(draws).items()})
     t0 = time.perf_counter()
-    cpu_p, _, _, cpu_logs = gan_step(cpu(params), optD, d_cpu, optG, g_cpu, x.cpu(),
-                                     draws_cpu, 1, hp)
+    cpu_p, cpu_d, cpu_g, cpu_logs = gan_step(cpu(params), optD, d_cpu, optG, g_cpu,
+                                             x.cpu(), draws_cpu, 1, hp)
     cpu_s = time.perf_counter() - t0
     log_err = ((card_logs.cpu() - cpu_logs).abs()
                / cpu_logs.abs().clamp(min=1.0)).max().item()
     p_err = max((a.cpu() - b).abs().max().item()
                 for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+    # each leaf's error over its largest magnitude (u, with no gradient,
+    # has mu 0 on both sides)
+    mu_err = max(((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                 for card, host in ((card_d, cpu_d), (card_g, cpu_g))
+                 for a, b in zip(tree_leaves(card.mu), tree_leaves(host.mu)))
     fmt = lambda row: ", ".join(f"{c}={v:.6f}" for c, v in zip(LOG_COLUMNS, row))  # noqa
     z_dim, h_dim = adaptive_dims(channels, SEQ_LEN)
-    print(f"[check] GAN step nb=2 B=8 T={SEQ_LEN} x{channels}/z{z_dim}/h{h_dim}, card "
-          f"vs CPU plain path: bucket 0 card {fmt(card_logs[0].tolist())}", flush=True)
-    print(f"[check]   CPU {fmt(cpu_logs[0].tolist())}", flush=True)
-    print(f"[check]   logged values max relative diff {log_err:.3e} (tol "
+    print(f"{tag} GAN step nb={nb} B={B} T={SEQ_LEN} x{channels}/z{z_dim}/h{h_dim}, "
+          f"layers {layers}, dropout {dropout:g} ({'with' if draws.masks else 'no'} "
+          f"masks), card vs CPU plain path: bucket 0 card {fmt(card_logs[0].tolist())}",
+          flush=True)
+    print(f"{tag}   CPU {fmt(cpu_logs[0].tolist())}", flush=True)
+    print(f"{tag}   logged values max relative diff {log_err:.3e} (tol "
           f"{STEP_LOG_RTOL:g}); updated parameters max|diff| {p_err:.3e} (tol "
-          f"{STEP_PARAM_ATOL:g}); step {card_s:.3f} s on the card, {cpu_s:.3f} s "
-          f"on the CPU; launches gru_sequence {k1}, multigru_disc_inputs {k2} "
-          f"(expected {want[0]}, {want[1]}) | {smi}", flush=True)
+          f"{STEP_PARAM_ATOL:g}); Adam first moments max|diff| / leaf max "
+          f"{mu_err:.3e} (tol {STEP_MU_RTOL:g}); step {card_s:.3f} s on the card, "
+          f"{cpu_s:.3f} s on the CPU; launches gru_sequence {k1}, "
+          f"multigru_disc_inputs {k2} (expected {want[0]}, {want[1]}) | {smi}",
+          flush=True)
     if not torch.isfinite(card_logs).all() or log_err > STEP_LOG_RTOL \
-            or p_err > STEP_PARAM_ATOL:
-        fail(f"the card's GAN step disagrees with the CPU at {channels} channels: "
-             f"logs {log_err}, params {p_err}")
+            or p_err > STEP_PARAM_ATOL or not mu_err <= STEP_MU_RTOL:
+        fail(f"{tag} the card's GAN step (layers {layers}) disagrees with the CPU at "
+             f"{channels} channels: logs {log_err}, params {p_err}, mu {mu_err}")
     if (k1, k2) != want:
-        fail(f"the GAN step at {channels} channels launched gru_sequence {k1}, "
-             f"multigru_disc_inputs {k2} times, expected {want}")
+        fail(f"{tag} the GAN step (layers {layers}) at {channels} channels launched "
+             f"gru_sequence {k1}, multigru_disc_inputs {k2} times, expected {want}")
 
 
 def phase_train_layers(smi: str, device: str = "cuda") -> None:

@@ -205,14 +205,11 @@ def recover(model: TimeGAN | Params, h: torch.Tensor, dropout: float = 0.0,
 def reconstruct(model: TimeGAN | Params, x: torch.Tensor, dropout: float = 0.0,
                 masks: list | None = None) -> torch.Tensor:
     """X → X̃ = recovery(embedder(x)), two K1 launches for single-layer stacks
-    (also the JAX package's ``fused_reconstruct``: the same recurrences).
+    (the same recurrences as the JAX package's ``fused_reconstruct``).
     ``masks``: the embedder's layer boundaries, then the recovery's."""
     p = _tree(model)
     m_e, m_r = split_masks(masks, len(p["embedder"]["gru"]) - 1)
     return recover(p, encode(p, x, dropout, m_e), dropout, m_r)
-
-
-fused_reconstruct = reconstruct
 
 
 def gen_latent(model: TimeGAN | Params, z: torch.Tensor, dropout: float = 0.0,

@@ -54,7 +54,7 @@ from eegsynth_torch.losses.timegan import (
 from eegsynth_torch.models.timegan import (
     Carry, Params, TimeGAN, TimeGANConfig, _fusable, adaptive_dims,
     cascade_init_carry, decode, discriminate, encode, fused_disc_inputs,
-    fused_gen_refine, fused_reconstruct, gen_latent, gen_refine_carry,
+    fused_gen_refine, gen_latent, gen_refine_carry,
     reconstruct, refine_latent, sample_noise, split_masks, timegan_init_stacked,
 )
 from eegsynth_torch.train import checkpoint as ckpt_io
@@ -358,7 +358,7 @@ def gan_step(params: Params, optD: Optimizer, d_state: OptState,
     ``d_real`` produced), R1 on the noisy real latents in eval mode (no
     mask) with the pre-step ``u``, the accuracy throttle; the updated D
     keeps the ``u`` from after ``d_fake``. G step: the G→S→R cascade and
-    E→R on K1, the D forward in train mode with the updated D (no gradient
+    E→R on K1 (3 + 2 launches a layer), each with its masks, the D forward in train mode with the updated D (no gradient
     reaches D), which advances ``u`` once more, and that ``u`` is stored.
 
     ``weights`` (nb, 4), in ``TIMEGAN_G_WEIGHT_NAMES`` order, replaces the
@@ -415,14 +415,10 @@ def gan_step(params: Params, optD: Optimizer, d_state: OptState,
     # ---------------- G step ----------------
     gser = _requires_grad({k: params[k] for k in GEN_NETS})
     p = {**params, **gser}
-    if draws.masks is None:
-        h_hat, x_hat = fused_gen_refine(p, draws.z2, with_decode=True)
-        x_rec = fused_reconstruct(p, x)
-    else:
-        h_hat = refine_latent(p, gen_latent(p, draws.z2, rate, masks["g_gen"]),
-                              rate, masks["g_refine"])
-        x_rec = reconstruct(p, x, rate, masks["g_reconstruct"])
-        x_hat = decode(p, h_hat, rate, masks["g_decode"])
+    h_hat = refine_latent(p, gen_latent(p, draws.z2, rate, masks.get("g_gen")),
+                          rate, masks.get("g_refine"))
+    x_rec = reconstruct(p, x, rate, masks.get("g_reconstruct"))
+    x_hat = decode(p, h_hat, rate, masks.get("g_decode"))
     mark("g_forward")
     d_fake_g, u3 = discriminate(d_new, add_instance_noise(h_hat, draws.eps_g, inst),
                                 u2, True, rate, masks.get("g_disc"))

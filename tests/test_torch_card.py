@@ -615,7 +615,9 @@ def test_dropout_gan_step_matches_cpu(cuda_device):
     composed route: K1 for every recurrence, no K2) on the card and on the
     CPU, on the same parameters and draws: logs within 1e-4 relative,
     parameters within 2e-4 (a fifth of lr_g: Adam's first update magnifies
-    a gradient at rounding level)."""
+    a gradient at rounding level), and both optimizers' first moments, which
+    scale with |g| where the first update sees only its sign, within 1e-3
+    of each leaf's largest magnitude."""
     hp = ttrain.TimeGANHParams(layers=2, dropout=0.2, gan_steps=4, batch_size=4)
     cfg = TimeGANConfig(x_dim=14, num_layers=2)
     params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(0)], device="cpu")
@@ -636,14 +638,17 @@ def test_dropout_gan_step_matches_cpu(cuda_device):
                               ttrain.gather_batch(X.to(device), d.idx), d, 1, hp)
         launches = (gru_sequence.launches - before[0],
                     multigru_disc_inputs.launches - before[1])
-        results.append((tree_map(lambda t: t.cpu(), out[0]), out[3].cpu(), launches))
-    (cpu_p, cpu_logs, _), (card_p, card_logs, launches) = results
+        mu = [t.cpu() for state in out[1:3] for t in tree_leaves(state.mu)]
+        results.append((tree_map(lambda t: t.cpu(), out[0]), out[3].cpu(), launches, mu))
+    (cpu_p, cpu_logs, _, cpu_mu), (card_p, card_logs, launches, card_mu) = results
     # D inputs: E, G, S; G step: G, S, E, R and R on h_hat; two layers each
     assert launches == (16, 0)
     assert torch.isfinite(card_logs).all()
     assert ((card_logs - cpu_logs).abs() / cpu_logs.abs().clamp(min=1.0)).max() <= 1e-4
     for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)):
         assert (a - b).abs().max().item() <= 2e-4
+    for a, b in zip(card_mu, cpu_mu):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
 
 
 def test_train_single_npz_on_the_card(cuda_device, tmp_path):
