@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's main paths once on one CUDA card and check them: TimeGAN
 synthesis serving, multi-bucket TimeGAN training and the eval of what it
-synthesized, sequential TimeGAN training through the CLI, and
-transformer-CGAN training and serving.
+synthesized, sequential TimeGAN training through the CLI, and CGAN
+training and serving, transformer and conv.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
@@ -83,7 +83,21 @@ failure is swallowed):
              the CPU plain generator); a per-layer split and profiler line of
              one CGAN step; then a transformer CGAN of dim 512 with 2 heads
              (head dim 256) at patch 1 (768 tokens), batch 8, trained 1 epoch
-             with "auto" attention: the wide kernels' launch counts.
+             with "auto" attention: the wide kernels' launch counts;
+6b. cgan-conv — the conv CGAN (arch "conv", the JAX default) at the JAX
+             defaults: train_one_condition (v1) for 2 epochs at batch 64 on 9
+             random posture buckets of 64 windows (R1 at steps 0 and 8), its
+             8 artifacts, finite metrics.csv, the generator files' bn the
+             trainer's, the best generator reloaded; 1 epoch with
+             precision_d="bf16" (finite logs, every parameter and optimizer
+             leaf float32); train_one_posture (v2) with 1 prewarm epoch and
+             1 epoch; the trained generator served over /synthesize_cgan (n
+             256) against the CPU generator, the seeded request repeated; one
+             v1 step (R1 on) and one v2 step (keep masks) at B 8 on the card
+             against the CPU; the warm step time at B 64 in f32 and bf16
+             (median of the second of two 9-step epochs), a per-layer split
+             and the card's busy share over one step; no hand kernel (K1, K2,
+             K3) launches in the phase: the convolutions are cuDNN's.
 
 The last three lines are a JSON object listing each kernel (its launches in
 the main paths' runs, its error against the plain version, its time, the
@@ -268,6 +282,12 @@ CGAN_WIDE_BATCH = 8
 # rounding level (|g| <= 1e-5), which Adam's first step moves by about
 # lr·sign(g) whatever its size: those are held through the gradient.
 CGAN_LOG_RTOL, CGAN_MU_RTOL, CGAN_PARAM_ATOL, CGAN_GRAD_FLOOR = 1e-4, 1e-4, 1e-5, 1e-5
+# The conv generator's bn running statistics after that step: 1e-5 absolute
+# (O(1) values, means over B·L of float32 convolutions in another order)
+CGAN_BN_ATOL = 1e-5
+# The conv CGAN ([cgan-conv]) at the JAX defaults' batch, on CGAN_WINDOWS
+# windows a posture bucket
+CGAN_CONV_BATCH = 64
 # Serving: a patch-1 generator (768 tokens, so "auto" takes K3a) at
 # serve_batch 256; the card's X against the CPU plain generator on the same
 # noise for the first rows
@@ -1764,28 +1784,34 @@ def _perturbed_generator(cfg, g: torch.Generator) -> dict:
     return G
 
 
-def _cgan_step_inputs(B: int, device, seed: int):
-    """A full-width v1 model with perturbed adaLN weights, fresh Adam states,
-    9 x B random windows on ``device``, and one step's draws made on the
-    host and moved to ``device``."""
-    hp = cgan_train.CGANHParams(arch="transformer", batch_size=B)
-    cfg = cgan_train.build_cfg(hp, 9)
+def _cgan_step_inputs(B: int, device, seed: int, **hp_over):
+    """A full-width model (the transformer v1 unless ``hp_over`` says
+    otherwise; its adaLN weights perturbed), bn state, 9 (v1) or 2 (v2)
+    classes of B random windows on ``device``, and one step's draws made
+    on the host and moved to ``device``."""
+    hp = cgan_train.CGANHParams(**{"arch": "transformer", **hp_over, "batch_size": B})
+    K = 9 if hp.variant == "v1" else 2
+    cfg = cgan_train.build_cfg(hp, K)
     g = torch.Generator().manual_seed(seed)
-    G = _perturbed_generator(cfg, g)
+    if hp.arch == "transformer":
+        G, bn = _perturbed_generator(cfg, g), {}
+    else:
+        G, bn = cgan_train.generator_init(cfg, g, device="cpu")
     D = {k: cgan_train.disc_init(cfg, g, device="cpu") for k in ("dg", "dl")}
-    X = torch.rand((9 * B, CHANNELS, SEQ_LEN), generator=g)
-    table = torch.arange(9 * B).reshape(9, B)
-    counts = torch.full((9,), float(B))
+    X = torch.rand((K * B, CHANNELS, SEQ_LEN), generator=g)
+    table = torch.arange(K * B).reshape(K, B)
+    counts = torch.full((K,), float(B))
     draws = cgan_train.draw_cgan_step(g, hp, cfg, table, counts, prewarm=False,
                                       device="cpu")
     to = lambda tree: tree_map(lambda t: t.to(device), tree)  # noqa: E731
-    return hp, cfg, to(G), to(D), X.to(device), cgan_train.draws_to(draws, device)
+    return (hp, cfg, to(G), to(bn), to(D), X.to(device),
+            cgan_train.draws_to(draws, device))
 
 
-def _run_cgan_step(hp, cfg, G, D, X, draws, step_idx, timer=None):
+def _run_cgan_step(hp, cfg, G, bn, D, X, draws, step_idx, timer=None):
     optG = cgan_train.Adam(hp.lr_g, hp.beta1, hp.beta2)
     optD = cgan_train.Adam(hp.lr_d, hp.beta1, hp.beta2)
-    return cgan_train.cgan_step(G, {}, D, G, optG.init(G), optD.init(D), X, draws,
+    return cgan_train.cgan_step(G, bn, D, G, optG.init(G), optD.init(D), X, draws,
                                 step_idx, 0.1, cfg=cfg, hp=hp, optG=optG, optD=optD,
                                 prewarm=False, timer=timer)
 
@@ -1793,20 +1819,33 @@ def _run_cgan_step(hp, cfg, G, D, X, draws, step_idx, timer=None):
 def phase_cgan_step_check(smi: str, device: str = "cuda") -> None:
     """One CGAN step (R1 on, flash forced) on the card against the same step
     on the CPU with the plain versions: B 8, full width, the same draws."""
-    hp, cfg, G, D, X, draws = _cgan_step_inputs(8, device, seed=4)
-    cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
     set_attention_impl("flash")
     try:
-        t0 = time.perf_counter()
-        card = _run_cgan_step(hp, cfg, G, D, X, draws, 0)
-        _sync(device)
-        card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        host = _run_cgan_step(hp, cfg, cpu(G), cpu(D), X.cpu(),
-                              cgan_train.draws_to(draws, "cpu"), 0)
-        cpu_s = time.perf_counter() - t0
+        _cgan_step_check(smi, device, "v1 B=8 dim 256 depth 4, R1 on, flash forced",
+                         seed=4)
     finally:
         set_attention_impl("auto")
+
+
+def _cgan_step_check(smi: str, device: str, what: str, seed: int,
+                     floor_from_moments: bool = False, **hp_over) -> None:
+    """One CGAN step (step index 0: R1 fires) on ``device`` against the
+    same step on the CPU with the plain versions, B 8, full width, the same
+    draws: the logs, the parameters, Adam's first moments and the bn state
+    within the CGAN_* tolerances. ``floor_from_moments`` (the conv model)
+    excuses, besides gradients at rounding level, an element whose gradient
+    is within the first moments' own tolerance of zero: its sign is not
+    held, and Adam's first step moves it by ±lr whatever its size."""
+    hp, cfg, G, bn, D, X, draws = _cgan_step_inputs(8, device, seed, **hp_over)
+    cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    t0 = time.perf_counter()
+    card = _run_cgan_step(hp, cfg, G, bn, D, X, draws, 0)
+    _sync(device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = _run_cgan_step(hp, cfg, cpu(G), cpu(bn), cpu(D), X.cpu(),
+                          cgan_train.draws_to(draws, "cpu"), 0)
+    cpu_s = time.perf_counter() - t0
     logs, ref = card[-1].cpu(), host[-1]
     log_err = ((logs - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
     mu_err = p_err = 0.0
@@ -1819,23 +1858,32 @@ def phase_cgan_step_check(smi: str, device: str = "cuda") -> None:
             mu_err = max(mu_err, (m - mr).abs().max().item()
                          / max(1.0, mr.abs().max().item()))
             far = (p - pr).abs() > CGAN_PARAM_ATOL
-            small_g = mr.abs() / (1 - hp.beta1) <= CGAN_GRAD_FLOOR
+            floor = CGAN_GRAD_FLOOR
+            if floor_from_moments:
+                floor = max(floor, CGAN_MU_RTOL * max(1.0, mr.abs().max().item())
+                            / (1 - hp.beta1))
+            small_g = mr.abs() / (1 - hp.beta1) <= floor
             if (far & ~small_g).any():
                 p_err = max(p_err, (p - pr).abs()[far & ~small_g].max().item())
             excused += int((far & small_g).sum())
-    print(f"[check] CGAN step v1 B=8 dim 256 depth 4, R1 on, flash forced, card vs "
+    bn_err = max([(a.cpu() - b).abs().max().item()
+                  for a, b in zip(tree_leaves(card[1]), tree_leaves(host[1]))] or [0.0])
+    print(f"[check] CGAN step {what}, card vs "
           f"CPU plain path: logs card {[round(v, 6) for v in logs.tolist()]}, CPU "
           f"{[round(v, 6) for v in ref.tolist()]}", flush=True)
     print(f"[check]   logs max relative diff {log_err:.3e} (tol {CGAN_LOG_RTOL:g}); "
           f"Adam first moments {mu_err:.3e} of each leaf's largest (tol "
           f"{CGAN_MU_RTOL:g}); parameters beyond {CGAN_PARAM_ATOL:g}: {p_err:.3e} "
-          f"(must be 0), {excused} elements with |g| <= {CGAN_GRAD_FLOOR:g} excused; "
-          f"step {card_s:.3f} s on the card, {cpu_s:.3f} s on the CPU | {smi}",
+          f"(must be 0), {excused} elements with |g| <= "
+          + ("the moments' tolerance" if floor_from_moments else f"{CGAN_GRAD_FLOOR:g}")
+          + " excused; "
+          + (f"bn state {bn_err:.3e} (tol {CGAN_BN_ATOL:g}); " if card[1] else "")
+          + f"step {card_s:.3f} s on the card, {cpu_s:.3f} s on the CPU | {smi}",
           flush=True)
     if (not torch.isfinite(logs).all() or log_err > CGAN_LOG_RTOL
-            or mu_err > CGAN_MU_RTOL or p_err > 0):
-        fail(f"the card's CGAN step disagrees with the CPU: logs {log_err}, "
-             f"moments {mu_err}, params {p_err}")
+            or mu_err > CGAN_MU_RTOL or p_err > 0 or bn_err > CGAN_BN_ATOL):
+        fail(f"the card's CGAN step ({what}) disagrees with the CPU: logs {log_err}, "
+             f"moments {mu_err}, params {p_err}, bn {bn_err}")
 
 
 def phase_cgan_serve(smi: str, device: str = "cuda") -> int:
@@ -1935,32 +1983,53 @@ def phase_cgan_wide(smi: str, device: str = "cuda") -> dict:
     return dict(zip(("flash_forward_wide", "flash_dq_wide", "flash_dkv_wide"), wide))
 
 
+def _layer_split(run_step, device: str) -> tuple[float, dict]:
+    """(total ms, {layer: ms}) of ``run_step(timer)``, host clock,
+    synchronised at each layer's end."""
+    split: dict[str, float] = {}
+    last = [time.perf_counter()]
+
+    def timer(name):
+        _sync(device)
+        now = time.perf_counter()
+        split[name] = split.get(name, 0.0) + (now - last[0]) * 1e3
+        last[0] = now
+
+    t0 = last[0] = time.perf_counter()
+    run_step(timer)
+    return (time.perf_counter() - t0) * 1e3, split
+
+
+def _profile_step(run_step) -> tuple[list, float, float]:
+    """torch.profiler over one ``run_step()`` on the card: (its device
+    operations, their device time in ms, the wall time in ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return on_card, sum(e.self_device_time_total for e in on_card) / 1e3, wall_ms
+
+
 def phase_cgan_layers(smi: str, device: str = "cuda") -> None:
     """Where one training step's time goes at the training shape (B 64,
     full width, flash forced): host clock per layer, synchronised at each
     layer's end, for a step without R1 and one with; then the card's busy
     share and the K3 kernels' device time over one step (no R1)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    hp, cfg, G, D, X, draws = _cgan_step_inputs(64, device, seed=6)
+    hp, cfg, G, bn, D, X, draws = _cgan_step_inputs(64, device, seed=6)
     set_attention_impl("flash")
     try:
-        _run_cgan_step(hp, cfg, G, D, X, draws, 1)                 # warm-up
+        _run_cgan_step(hp, cfg, G, bn, D, X, draws, 1)             # warm-up
         _sync(device)
         for step_idx, what in ((1, "no R1"), (0, "R1")):
-            split: dict[str, float] = {}
-            last = [time.perf_counter()]
-
-            def timer(name):
-                _sync(device)
-                now = time.perf_counter()
-                split[name] = split.get(name, 0.0) + (now - last[0]) * 1e3
-                last[0] = now
-
-            t0 = last[0] = time.perf_counter()
-            _run_cgan_step(hp, cfg, G, D, X, draws, step_idx, timer)
-            total = (time.perf_counter() - t0) * 1e3
+            total, split = _layer_split(
+                lambda timer: _run_cgan_step(hp, cfg, G, bn, D, X, draws,  # noqa: B023
+                                             step_idx, timer), device)
             names = {"d_step": "D step (G forward: 4 K3a; 4 D passes, dense attention"
                                + (", R1 double backward" if step_idx == 0 else "") + ")",
                      "g_forward": "G-step forward (4 K3a, D passes, losses)",
@@ -1971,16 +2040,10 @@ def phase_cgan_layers(smi: str, device: str = "cuda") -> None:
                   + f" | {smi}", flush=True)
         if torch.device(device).type != "cuda":
             return
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _run_cgan_step(hp, cfg, G, D, X, draws, 1)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        on_card, dev_ms, wall_ms = _profile_step(
+            lambda: _run_cgan_step(hp, cfg, G, bn, D, X, draws, 1))
     finally:
         set_attention_impl("auto")
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    dev_ms = sum(e.self_device_time_total for e in on_card) / 1e3
 
     def kernel_ms(tag):
         return sum(e.self_device_time_total for e in on_card if tag in e.key) / 1e3
@@ -1996,6 +2059,263 @@ def phase_cgan_layers(smi: str, device: str = "cuda") -> None:
     print("[profile] largest device operations: " + "; ".join(
         f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
         for e in top), flush=True)
+
+
+def _hand_kernel_counts() -> dict:
+    """Every hand kernel's launch counter: K1 forward and backward, K2, and
+    K3a / K3b / K3c on the tensor cores and past head dim 128."""
+    counts = {"gru_sequence": gru_sequence.launches,
+              "gru_sequence_bwd": gru_sequence_bwd.launches,
+              "multigru_disc_inputs": multigru_disc_inputs.launches}
+    for c in _k3_counters():
+        counts[c.__name__] = c.launches
+        counts[c.__name__ + "_wide"] = c.wide_launches
+    return counts
+
+
+def _zero_hand_kernel_counts() -> None:
+    gru_sequence.launches = gru_sequence_bwd.launches = 0
+    multigru_disc_inputs.launches = 0
+    for c in _k3_counters():
+        c.launches = c.wide_launches = 0
+
+
+def _write_posture_both(root: Path, posture: int, n: int) -> Path:
+    """posture{posture}_{no_exo,with_exo}.npz of random (n, 768, 14)
+    windows: the v2 trainer's data, from a seed."""
+    data = root / "cgan_v2_data"
+    data.mkdir()
+    rng = np.random.default_rng(2)
+    for cond in ("no_exo", "with_exo"):
+        np.savez(data / f"posture{posture}_{cond}.npz",
+                 X=rng.uniform(0, 1, (n, SEQ_LEN, CHANNELS)).astype(np.float32),
+                 posture=np.int32(posture), fs=np.float32(128.0),
+                 scale_min=np.zeros(CHANNELS, np.float32),
+                 scale_range=np.ones(CHANNELS, np.float32),
+                 ch_names=np.array([f"ch{i}" for i in range(CHANNELS)]))
+    return data
+
+
+def _all_f32(trees) -> bool:
+    return all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+               for t in tree_leaves(trees))
+
+
+def _conv_artifacts(run: Path, res: dict, epochs: int, tag: str = "no_exo") -> np.ndarray:
+    """The 8 artifacts of a run, its metrics.csv finite; the epoch and last
+    generator files hold the bn the trainer returned, the best one a
+    finite bn of the conv generator's layout. Returns the metrics rows."""
+    names = ["hparams.json", "metrics.csv", f"checkpoint_epoch{epochs}.npz",
+             f"CGAN_generator_{tag}_epoch{epochs}.npz", f"CGAN_generator_{tag}_best.npz",
+             f"CGAN_generator_{tag}_last.npz", f"CGAN_globalD_{tag}_best.npz",
+             f"CGAN_localD_{tag}_best.npz"]
+    missing = [n for n in names if not (run / n).exists()]
+    if missing:
+        fail(f"conv CGAN artifacts missing {missing}")
+    rows = np.loadtxt(run / "metrics.csv", delimiter=",", skiprows=1, ndmin=2)
+    if rows.shape[1] != 11 or not np.isfinite(rows).all():
+        fail(f"conv CGAN metrics.csv {rows.shape} finite {np.isfinite(rows).all()}")
+    want = tree_to_numpy(res["bn"])
+    for which in (f"epoch{epochs}", "last", "best"):
+        trees, _ = load_checkpoint(run / f"CGAN_generator_{tag}_{which}.npz")
+        got = trees["bn"]
+        if sorted(got) != [f"up{i}" for i in range(1, 6)] or not all(
+                np.isfinite(a).all() for a in tree_leaves(got)):
+            fail(f"{which} generator's bn {sorted(got)}")
+        if which != "best" and not all(np.array_equal(a, b) for a, b in
+                                       zip(tree_leaves(got), tree_leaves(want))):
+            fail(f"the {which} generator's bn is not the trainer's")
+    return rows
+
+
+def _conv_step_ms(device: str, precision: str) -> tuple[float, list]:
+    """Two epochs of 9 steps at B 64 on one model (R1 at steps 0 and 8 of
+    each, as the trainer), each step synchronised: the median of the
+    second epoch's step times (ms) and all of them."""
+    hp = cgan_train.CGANHParams(precision_d=precision, batch_size=CGAN_CONV_BATCH)
+    cfg = cgan_train.build_cfg(hp, 9)
+    g = torch.Generator().manual_seed(7)
+    G, bn = cgan_train.generator_init(cfg, g, device=device)
+    D = {k: cgan_train.disc_init(cfg, g, device=device) for k in ("dg", "dl")}
+    optG = cgan_train.Adam(hp.lr_g, hp.beta1, hp.beta2)
+    optD = cgan_train.Adam(hp.lr_d, hp.beta1, hp.beta2)
+    ema, gs, ds = G, optG.init(G), optD.init(D)
+    X = torch.rand((9 * CGAN_WINDOWS, CHANNELS, SEQ_LEN), generator=g).to(device)
+    table = torch.arange(9 * CGAN_WINDOWS, device=device).reshape(9, CGAN_WINDOWS)
+    counts = torch.full((9,), float(CGAN_WINDOWS), device=device)
+    gen = torch.Generator(device=device).manual_seed(8)
+    times = []
+    for _ in range(2):
+        for step_idx in range(9):
+            draws = cgan_train.draw_cgan_step(gen, hp, cfg, table, counts,
+                                              prewarm=False, device=device)
+            _sync(device)
+            t0 = time.perf_counter()
+            G, bn, D, ema, gs, ds, logs = cgan_train.cgan_step(
+                G, bn, D, ema, gs, ds, X, draws, step_idx, 0.1, cfg=cfg, hp=hp,
+                optG=optG, optD=optD, prewarm=False)
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+    if not torch.isfinite(logs).all():
+        fail(f"the timed conv steps ({precision}) gave logs {logs.tolist()}")
+    return statistics.median(times[9:]), times
+
+
+def phase_cgan_conv(smi: str, device: str = "cuda") -> None:
+    """The conv CGAN (the JAX default, arch "conv") at the JAX defaults:
+    v1 trained 2 epochs at B 64 on 9 random posture buckets (artifacts, bn
+    in the generator files, the best generator reloaded), 1 epoch with
+    precision_d="bf16" (finite logs, every leaf float32), v2 with 1 prewarm
+    epoch and 1 epoch; one v1 step (R1 on) and one v2 step (keep masks) on
+    the card against the CPU; the trained generator served over
+    /synthesize_cgan against the CPU generator; the warm step time in f32
+    and bf16 with a per-layer split and the card's busy share. No hand
+    kernel may launch in the phase: the convolutions are cuDNN's. With
+    ``device="cpu"`` it rehearses the phase (no timing on the profiler)."""
+    t_phase = time.perf_counter()
+    _zero_hand_kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _write_posture_buckets(Path(tmp), CGAN_WINDOWS)
+        runs = Path(tmp) / "conv_runs"
+        res = cgan_train.train_one_condition(
+            data, runs, "no_exo", device=device, epochs=CGAN_EPOCHS,
+            save_every=CGAN_EPOCHS, print_every=1, batch_size=CGAN_CONV_BATCH)
+        run = runs / "no_exo"
+        rows = _conv_artifacts(run, res, CGAN_EPOCHS)
+        steps = res["steps_per_epoch"] * CGAN_EPOCHS
+        G, bn, cfg, meta = cgan_train.load_generator(run / "CGAN_generator_no_exo_best.npz",
+                                                     device=device)
+        x = cgan_train.generate_batch(G, bn, cfg, torch.Generator(device=device)
+                                      .manual_seed(0), 16, 3)
+        if (meta["arch"] != "conv" or x.shape != (16, CHANNELS, SEQ_LEN)
+                or not (x.min() >= 0 and x.max() <= 1)):
+            fail(f"the best conv generator ({meta.get('arch')}) gave {tuple(x.shape)} "
+                 f"in [{x.min().item()}, {x.max().item()}]")
+        secs = res["epoch_seconds"]
+        print(f"[cgan-conv] v1 no_exo arch conv, 9 x ({CGAN_WINDOWS}, {SEQ_LEN}, "
+              f"{CHANNELS}), G 512->16 channels, D 14->512, batch {CGAN_CONV_BATCH}: "
+              f"{steps} steps in "
+              f"{sum(secs):.2f} s (epochs {['%.3f' % t for t in secs]} s; R1 at steps 0 "
+              f"and 8); 8 artifacts, metrics.csv finite (epoch {CGAN_EPOCHS}: g_loss "
+              f"{rows[-1, 1]:.4f}, d_loss {rows[-1, 2]:.4f}), the generator files' bn "
+              f"the trainer's, the best generator reloads: {tuple(x.shape)} in [0, 1] "
+              f"| {smi}", flush=True)
+        res16 = cgan_train.train_one_condition(
+            data, Path(tmp) / "conv_bf16", "no_exo", device=device, epochs=1,
+            save_every=1, print_every=1, precision_d="bf16", batch_size=CGAN_CONV_BATCH)
+        rows16 = _conv_artifacts(Path(tmp) / "conv_bf16" / "no_exo", res16, 1)
+        leaves = (res16["G"], res16["bn"], res16["D"], res16["ema"], res16["g_state"].mu,
+                  res16["g_state"].nu, res16["d_state"].mu, res16["d_state"].nu)
+        if not _all_f32(leaves):
+            fail("the bf16 D run left a parameter or moment that is not finite float32")
+        print(f"[cgan-conv] precision_d bf16, 1 epoch: {res16['steps_per_epoch']} steps "
+              f"in {res16['epoch_seconds'][0]:.2f} s; logs finite (g_loss "
+              f"{rows16[-1, 1]:.4f}, d_loss {rows16[-1, 2]:.4f}); every parameter and "
+              f"optimizer leaf float32 | {smi}", flush=True)
+        data2 = _write_posture_both(Path(tmp), 1, CGAN_WINDOWS)
+        res2 = cgan_train.train_one_posture(data2, Path(tmp) / "conv_v2", 1, device=device,
+                                            prewarm=1, epochs=1, save_every=2,
+                                            print_every=1, batch_size=CGAN_CONV_BATCH)
+        rows2 = _conv_artifacts(Path(tmp) / "conv_v2" / "posture1", res2, 2, "posture1")
+        if rows2.shape[0] != 2 or rows2[0, 2] != 0 or rows2[0, 3:].any():
+            fail(f"v2 metrics.csv {rows2.tolist()}: the prewarm epoch must not update D")
+        print(f"[cgan-conv] v2 posture1 (2 x {CGAN_WINDOWS} windows), 1 prewarm epoch + 1: "
+              f"{res2['g_state'].count} G and {res2['d_state'].count} D updates, "
+              f"artifacts and metrics.csv as expected | {smi}", flush=True)
+        served = _conv_serve(smi, run, device)
+    for variant, what in (("v1", "conv v1 B=8, R1 on"), ("v2", "conv v2 B=8, keep masks")):
+        _cgan_step_check(smi, device, what, seed=9, floor_from_moments=True, arch="conv",
+                         **(cgan_train.V2_OVERRIDES if variant == "v2" else {}))
+    ms = {}
+    for precision in ("f32", "bf16"):
+        ms[precision], times = _conv_step_ms(device, precision)
+        print(f"[cgan-conv] warm conv step B={CGAN_CONV_BATCH} {precision}: median of the second epoch "
+              f"{ms[precision]:.2f} ms ({1e3 / ms[precision]:.2f} steps/s); steps "
+              f"{['%.1f' % t for t in times]} ms | {smi}", flush=True)
+    hp, cfg, G, bn, D, X, draws = _cgan_step_inputs(CGAN_CONV_BATCH, device, 10,
+                                                    arch="conv")
+    _run_cgan_step(hp, cfg, G, bn, D, X, draws, 1)                 # warm-up
+    for step_idx, what in ((1, "no R1"), (0, "R1")):
+        total, split = _layer_split(
+            lambda timer: _run_cgan_step(hp, cfg, G, bn, D, X, draws,  # noqa: B023
+                                         step_idx, timer), device)
+        names = {"d_step": "D step (G forward in train mode; 4 D passes"
+                           + (", R1 double backward" if step_idx == 0 else "") + ")",
+                 "g_forward": "G-step forward (G, 2 D passes, features, losses)",
+                 "g_backward": "G-step backward", "optimizers": "Adam G and D, EMA"}
+        print(f"[layers] one conv CGAN step B={CGAN_CONV_BATCH} f32, {what}: {total:.1f} ms: "
+              + "; ".join(f"{names[k]} {v:.1f} ms" for k, v in split.items())
+              + f" | {smi}", flush=True)
+    if torch.device(device).type == "cuda":
+        on_card, dev_ms, wall_ms = _profile_step(
+            lambda: _run_cgan_step(hp, cfg, G, bn, D, X, draws, 1))
+        conv_ms = sum(e.self_device_time_total for e in on_card
+                      if "conv" in e.key.lower() or "cudnn" in e.key.lower()
+                      or "xmma" in e.key.lower() or "sm90" in e.key.lower()) / 1e3
+        print(f"[profile] one conv CGAN step B=64 f32 (no R1): device time {dev_ms:.1f} ms "
+              f"in {wall_ms:.1f} ms wall ({100 * dev_ms / wall_ms:.1f} % busy) over "
+              f"{sum(e.count for e in on_card)} device operations; convolution kernels "
+              f"{conv_ms:.1f} ms | {smi}", flush=True)
+        top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
+        print("[profile] largest device operations: " + "; ".join(
+            f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
+            for e in top), flush=True)
+    counts = _hand_kernel_counts()
+    print(f"[cgan-conv] hand-kernel launches over the phase: {counts} (all must be 0); "
+          f"the phase took {time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
+    if any(counts.values()):
+        fail(f"the conv CGAN phase launched a hand kernel: {counts}")
+    if served < 1:
+        fail("the conv generator served no request")
+
+
+def _conv_serve(smi: str, run: Path, device: str) -> int:
+    """The run's best conv generator served over HTTP at serve_batch 256:
+    POST /synthesize_cgan n 256, one label, three times; the same seed
+    gives the same X, and X is the CPU generator's on the same noise
+    (first rows). Returns the requests answered."""
+    root = run.parent
+    reg = ModelRegistry(None, None, device=device, cgan_root=root)
+    srv = make_server(reg, "127.0.0.1", 0, SERVE_BATCH, TIME_CHUNK)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        runs = _get(srv.server_address, "/runs")["cgan"]
+        if runs.get("no_exo", {}).get("arch") != "conv":
+            fail(f"/runs: {runs}")
+        body = {"model": "no_exo", "label": 4, "n": SERVE_BATCH, "seed": 3}
+        outs, walls = [], []
+        for _ in range(3):
+            X, wall = _post(srv.server_address, body, "/synthesize_cgan")
+            outs.append(X)
+            walls.append(wall)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    X = outs[-1]
+    if X.shape != (SERVE_BATCH, SEQ_LEN, CHANNELS) or not np.isfinite(X).all():
+        fail(f"/synthesize_cgan (conv) returned {X.shape}")
+    if not all(np.array_equal(o, X) for o in outs):
+        fail("the seeded conv /synthesize_cgan request did not repeat")
+    G, bn, cfg, _ = cgan_train.load_generator(root / "no_exo" / "CGAN_generator_no_exo_best.npz",
+                                              device="cpu")
+    gen = torch.Generator(device=device).manual_seed(body["seed"])
+    z = torch.randn((SERVE_BATCH, cfg.noise_dim), generator=gen, device=device)
+    rows = min(CGAN_SERVE_CHECK_ROWS, SERVE_BATCH)
+    with torch.inference_mode():
+        ref = cgan_train.generator_apply(G, bn, z[:rows].cpu(),
+                                         torch.full((rows,), body["label"]), cfg,
+                                         train=False)[0]
+    err = np.abs(X[:rows] - ref.numpy().transpose(0, 2, 1)).max()
+    print(f"[serve-cgan] conv: POST /synthesize_cgan {json.dumps(body)} -> {X.shape}: "
+          f"{['%.1f' % (w * 1e3) for w in walls]} ms, {SERVE_BATCH / walls[-1]:.1f} "
+          f"windows/s warm; the seeded request repeats; X vs the CPU generator on the "
+          f"same noise, first {rows} rows: max|diff|={err:.3e} (tol {CGAN_SERVE_TOL:g}) "
+          f"| {smi}", flush=True)
+    if err > CGAN_SERVE_TOL:
+        fail(f"served conv CGAN X disagrees with the CPU generator: {err}")
+    return len(outs)
 
 
 def main() -> None:
@@ -2024,6 +2344,7 @@ def main() -> None:
     cgan_serve_launches = phase_cgan_serve(smi)
     phase_cgan_layers(smi)
     wide_attn_launches = phase_cgan_wide(smi)
+    phase_cgan_conv(smi)
     launches = {**cgan_launches, **wide_attn_launches,
                 "gru_sequence": serve_launches + train_launches["gru_sequence"]
                 + eval_launches["gru_sequence"] + seq_launches["gru_sequence"]

@@ -47,16 +47,30 @@ def log_psd_loss(real: torch.Tensor, fake: torch.Tensor, eps: float = 1e-6) -> t
 
 def _coherence(x: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
     """Per-sample normalised cross-spectrum magnitude of each channel pair:
-    |A·conj(B)| / sqrt(|A|²|B|² + 1e-8), (B, C, T) → (B, P, F)."""
+    |A·conj(B)| / sqrt(|A|²|B|² + 1e-8), (B, C, T) → (B, P, F).
+
+    A bin that is exactly 0 (a constant stretch of a channel, or an FFT's
+    exact cancellation, which the card's FFT produces in training) has
+    |A·conj(B)| = 0, where sqrt's gradient is infinite: the JAX package's
+    gradient is NaN there, and one such bin turns the whole generator NaN.
+    Here the magnitude's gradient at 0 is 0, |z|'s subgradient; the value,
+    and the gradient at every other bin, are the JAX package's."""
     spec = torch.fft.rfft(x, dim=2)
     A, Bc = spec[:, pairs[:, 0]], spec[:, pairs[:, 1]]
     cross = A * torch.conj(Bc)
-    num = torch.sqrt(cross.real ** 2 + cross.imag ** 2)
+    sq = cross.real ** 2 + cross.imag ** 2
+    live = sq > 0
+    num = torch.where(live, torch.sqrt(torch.where(live, sq, torch.ones_like(sq))),
+                      torch.zeros_like(sq))
     den = torch.sqrt((A.real ** 2 + A.imag ** 2) * (Bc.real ** 2 + Bc.imag ** 2) + 1e-8)
     return num / den
 
 
 def _pairs(pairs, device) -> torch.Tensor:
+    """Channel pairs (P, 2) as int64 on ``device``: an array, or a tensor on
+    any device (a drawn subset lives on the card)."""
+    if isinstance(pairs, torch.Tensor):
+        return pairs.to(device=device, dtype=torch.long)
     return torch.as_tensor(np.asarray(pairs), dtype=torch.long, device=device)
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Synthesis serving endpoint: trained TimeGAN and transformer-CGAN models
-resident on the card, HTTP in front.
+"""Synthesis serving endpoint: trained TimeGAN and CGAN models resident on
+the card, HTTP in front.
 
 Counterpart of ``scripts/serve_synthesis.py``, with the same API, request
 caps, error codes and flags (``--platform`` becomes ``--device``):
@@ -12,12 +12,13 @@ caps, error codes and flags (``--platform`` becomes ``--device``):
   chunks with carried GRU state (see ``train.timegan.synthesize``), so each
   chunk is three launches of the GRU sequence kernel,
 - optional per-bucket denormalization with the real scalers,
-- ``--cgan_root``: transformer-CGAN generators
+- ``--cgan_root``: CGAN generators, conv or transformer
   (``<root>/<tag>/CGAN_generator_<tag>_{best,last}.npz``, the architecture
-  rebuilt from the checkpoint meta), served in ``serve_batch`` micro-batches;
-  the generator's attention takes the flash kernel K3a on the card from 512
-  tokens (patch 1 at 768 samples). A conv-arch generator is refused at load:
-  the conv CGAN is not ported yet.
+  rebuilt from the checkpoint meta, the conv generator with its bn
+  statistics), served in ``serve_batch`` micro-batches in eval mode; the
+  conv generator's convolutions are cuDNN's, the transformer's attention
+  takes the flash kernel K3a on the card from 512 tokens (patch 1 at 768
+  samples).
 
 Socket I/O runs on one thread per connection (a slow or hung client never
 blocks other requests); all device work serializes behind one lock.
@@ -100,8 +101,7 @@ class ModelRegistry:
 
     def _load_cgan(self, root: Path):
         """<root>/<tag>/CGAN_generator_<tag>_{best,last}.npz (tag = condition
-        for v1, posture{p} for v2); the best one where both exist. A conv
-        generator raises ``NotImplementedError`` (load_generator)."""
+        for v1, posture{p} for v2); the best one where both exist."""
         for d in sorted(p for p in root.iterdir() if p.is_dir()):
             for which in ("best", "last"):
                 fp = d / f"CGAN_generator_{d.name}_{which}.npz"
@@ -327,9 +327,9 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--real_dir", type=str, default="./preprocessed",
                     help="real buckets for fs/denorm scalers")
     ap.add_argument("--cgan_root", type=str, default=None,
-                    help="also serve transformer-CGAN generators found under "
-                         "this root (<root>/<tag>/CGAN_generator_<tag>_"
-                         "{best,last}.npz); a conv generator is refused")
+                    help="also serve the CGAN generators (conv or "
+                         "transformer) found under this root "
+                         "(<root>/<tag>/CGAN_generator_<tag>_{best,last}.npz)")
     ap.add_argument("--host", type=str, default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8777)
     ap.add_argument("--prefer_latest", action="store_true")

@@ -1,6 +1,12 @@
-"""Transformer-CGAN training and generation, both reference flavours.
+"""CGAN training and generation, both reference flavours, both
+architectures.
 
-Counterpart of ``eegsynth/train/cgan.py`` for ``arch="transformer"``:
+Counterpart of ``eegsynth/train/cgan.py``. ``arch="conv"`` (the default) is
+the reference's own CGAN (``models/cgan.py``: an upsampling conv generator
+with class-conditional BN, spectral-norm conv discriminators);
+``arch="transformer"`` is the JAX package's extra
+(``models/cgan_transformer.py``). The loop does not depend on the
+architecture:
 
 - v1: one model per condition, posture-conditional (9 classes), balanced
   posture sampling, hinge + ACGAN + R1 every ``r1_every`` steps +
@@ -21,21 +27,35 @@ moments are trees in the JAX layout, so checkpoints and tests map leaf for
 leaf. The spectral-norm ``u`` vectors are state that advances along the
 step: the fake pass of the D loss runs on the ``u`` of the real pass, the
 advanced ``u`` is written back after the optimizer update, and the G step
-advances it once more.
+advances it once more. The conv generator's batch-norm running statistics
+advance in every generator pass in train mode: once in each of the
+``d_steps`` D updates and once in the G step. Every generator file and
+full-state checkpoint holds them (``"bn"``), and the best snapshot carries
+the live statistics of its epoch, as the JAX package does (the reference
+snapshots the stale initial buffers into its EMA copy).
 
-The generator's attention runs through ``nn/attention.py``'s ``mha``: on the
-card, K3a in both forward passes and K3b / K3c in the G step's backward
-when T/patch ≥ 512 or flash is forced (``set_attention_impl("flash")``).
+``precision_d="bf16"`` runs the conv trunks of the D update's four
+discriminator passes in bfloat16 by explicit casts, as the JAX package
+does; the power iterations, the head, the losses, R1, the gradient penalty
+and the G step stay float32, and every parameter and optimizer moment is
+float32. The convolutions are cuDNN's on the card: the conv path launches
+no hand kernel.
+
+The transformer generator's attention runs through ``nn/attention.py``'s
+``mha``: on the card, K3a in both forward passes and K3b / K3c in the G
+step's backward when T/patch ≥ 512 or flash is forced
+(``set_attention_impl("flash")``).
 The discriminator pins dense attention: R1 (``autograd.grad`` with
 ``create_graph=True``) differentiates it twice.
 
-Not ported: ``arch="conv"`` (the JAX default) and ``precision_d="bf16"``
-raise ``NotImplementedError`` until the conv CGAN slice; Orbax checkpoints,
-``async_ckpt``, ``mesh`` and multihost are on ROADMAP's do-not-port list
-(NPZ is the only checkpoint format); ``epochs_per_dispatch`` is kept for
-config compatibility and changes nothing.
+Not ported: ``tf_remat`` raises ``NotImplementedError``; Orbax
+checkpoints, ``async_ckpt``, ``mesh`` and multihost are on ROADMAP's
+do-not-port list (NPZ is the only checkpoint format);
+``epochs_per_dispatch`` is kept for config compatibility and changes
+nothing; ``--amp-d`` is a no-op flag, as in the JAX package
+(``--precision-d bf16`` is the control).
 
-    python -m eegsynth_torch.train.cgan --arch transformer \\
+    python -m eegsynth_torch.train.cgan \\
         --data-dir ./preprocessed --save-root ./cgan_runs --condition no_exo \\
         --device cuda
     python -m eegsynth_torch.train.cgan generate --condition no_exo \\
@@ -68,18 +88,57 @@ from eegsynth_torch.losses.spectral import (
     coh_loss_random, cov_loss, draw_coh_pairs, log_psd_loss,
     posture_conditional_losses, psd_loss,
 )
-from eegsynth_torch.models.cgan import CGANConfig
-from eegsynth_torch.models.cgan_transformer import (
-    TransformerCGANConfig, disc_apply, disc_features, disc_init,
-    generator_apply, generator_init,
-)
+from eegsynth_torch.models import cgan as _conv_model
+from eegsynth_torch.models import cgan_transformer as _tf_model
+from eegsynth_torch.models.cgan import DISC_CHANNELS, CGANConfig
+from eegsynth_torch.models.cgan_transformer import TransformerCGANConfig
+from eegsynth_torch.nn import precision
 from eegsynth_torch.train import checkpoint as ckpt_io
 from eegsynth_torch.train.optim import Adam, OptState
 from eegsynth_torch.tree import tree_leaves, tree_map
 
-CONV_SLICE = ("arch='conv' (the conv CGAN, with its precision_d='bf16' D "
-              "trunks) is not ported to eegsynth_torch yet: it comes with the "
-              "conv CGAN slice; use arch='transformer'")
+
+# Both architectures share the apply contracts, so the loop below does not
+# depend on the architecture.
+
+def _model(cfg):
+    return _tf_model if getattr(cfg, "arch", "conv") == "transformer" else _conv_model
+
+
+def generator_init(cfg, generator: torch.Generator, *, device: torch.device | str):
+    """(params, bn state) of ``cfg``'s generator; the transformer's state
+    is empty."""
+    return _model(cfg).generator_init(cfg, generator, device=device)
+
+
+def generator_apply(G, bn, z, labels, cfg, train=True):
+    return _model(cfg).generator_apply(G, bn, z, labels, cfg, train=train)
+
+
+def disc_init(cfg, generator: torch.Generator, *, device: torch.device | str):
+    return _model(cfg).disc_init(cfg, generator, device=device)
+
+
+def disc_apply(params, x, labels, cfg, train=True, dropout_keep=None,
+               compute_dtype=None):
+    """(score, logits, features, params with advanced ``u``);
+    ``compute_dtype`` reaches only the conv trunk (the transformer keeps
+    float32, and its hparams refuse ``precision_d="bf16"``)."""
+    if _model(cfg) is _tf_model:
+        return _tf_model.disc_apply(params, x, labels, cfg, train, dropout_keep)
+    return _conv_model.disc_apply(params, x, labels, cfg, train, dropout_keep,
+                                  compute_dtype=compute_dtype)
+
+
+def disc_features(params, x, cfg, train=True):
+    if _model(cfg) is _tf_model:
+        return _tf_model.disc_features(params, x, train=train, cfg=cfg)
+    return _conv_model.disc_features(params, x, train=train)
+
+
+def feature_dim(cfg) -> int:
+    """The width of the discriminator's pooled features (v2's keep masks)."""
+    return cfg.dim if _model(cfg) is _tf_model else DISC_CHANNELS[-1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +183,7 @@ class CGANHParams:
     async_ckpt: bool | None = None
     seed: int = 42
     variant: str = "v1"          # "v1" | "v2"
-    arch: str = "conv"           # "conv" (not ported yet) | "transformer"
+    arch: str = "conv"           # "conv" (reference parity) | "transformer"
     gan_loss: str = "hinge"      # "hinge" | "bce" | "wgan-gp"
     gp_weight: float = 10.0      # wgan-gp only
     tf_dim: int = 256
@@ -132,7 +191,7 @@ class CGANHParams:
     tf_heads: int = 4
     tf_patch: int = 8
     tf_remat: bool = False       # not ported yet
-    precision_d: str = "f32"     # "bf16" belongs to the conv discriminators
+    precision_d: str = "f32"     # "bf16": the D update's conv trunks in bfloat16
 
     def __post_init__(self):
         if self.r1_gamma is None:
@@ -197,10 +256,12 @@ def generator_meta(hp: CGANHParams, num_classes: int, tag: str) -> dict:
     return meta
 
 
-def build_cfg(hp: CGANHParams, num_classes: int) -> TransformerCGANConfig:
-    """The model configuration of ``hp`` (transformer only for now)."""
+def build_cfg(hp: CGANHParams, num_classes: int) -> CGANConfig:
+    """The model configuration of ``hp``: the conv model, or the
+    transformer for ``arch="transformer"``."""
     if hp.arch != "transformer":
-        raise NotImplementedError(CONV_SLICE)
+        return CGANConfig(noise_dim=hp.noise_dim, num_classes=num_classes,
+                          proj_scale=hp.proj_scale, variant=hp.variant)
     return TransformerCGANConfig(
         noise_dim=hp.noise_dim, num_classes=num_classes,
         proj_scale=hp.proj_scale, variant=hp.variant, dim=hp.tf_dim,
@@ -224,7 +285,7 @@ class DDraws:
     aug_fake: AugmentDraws | None
     crop_real: torch.Tensor | None  # () int64 local-crop start (v1)
     crop_fake: torch.Tensor | None
-    keep: list | None             # v2: 4 dropout keep masks (B, dim)
+    keep: list | None             # v2: 4 dropout keep masks (B, feature_dim)
     gp_eps: tuple | None          # wgan-gp: ε (B, 1, 1) global, local
 
 
@@ -304,7 +365,8 @@ def draw_cgan_step(generator: torch.Generator, hp: CGANHParams,
     v2 = hp.variant == "v2"
 
     def keeps(n):
-        return ([torch.rand((B, cfg.dim), **kw) < 1.0 - cfg.dropout for _ in range(n)]
+        return ([torch.rand((B, feature_dim(cfg)), **kw) < 1.0 - cfg.dropout
+                 for _ in range(n)]
                 if v2 and cfg.dropout > 0 else None)
 
     def augment():
@@ -377,11 +439,16 @@ def _r1_penalty(d_params, x_in, labels, cfg):
 
 def _d_update(G, bn, D, d_state, X, dd: DDraws, step_idx: int, sigma: float,
               cfg, hp: CGANHParams, optD: Adam):
+    """One D update: (D, d_state, bn, loss, diagnostics). The generator's
+    pass in train mode advances the bn statistics."""
     d_adv = _adversarial(hp.gan_loss)[0]
+    # bfloat16 conv trunks in the four passes below only: R1 and the
+    # gradient penalty stay float32
+    d_cd = None if hp.precision_d == "f32" else precision.compute_dtype(hp.precision_d)
     labels = dd.labels
     real = X[dd.rows]
     with torch.no_grad():
-        fake, _ = generator_apply(G, bn, dd.z, labels, cfg, train=True)
+        fake, bn = generator_apply(G, bn, dd.z, labels, cfg, train=True)
     real_in = torch.clamp(real + sigma * dd.noise_real, 0, 1)
     fake_in = torch.clamp(fake + sigma * dd.noise_fake, 0, 1)
     if hp.use_diffaugment:
@@ -392,10 +459,10 @@ def _d_update(G, bn, D, d_state, X, dd: DDraws, step_idx: int, sigma: float,
     keep = dd.keep or [None] * 4
 
     Dr = _trainable(D)
-    rs_g, rlog_g, _, Dg1 = disc_apply(Dr["dg"], real_in, labels, cfg, True, keep[0])
-    fs_g, flog_g, _, Dg2 = disc_apply(Dg1, fake_in, labels, cfg, True, keep[1])
-    rs_l, rlog_l, _, Dl1 = disc_apply(Dr["dl"], real_loc, labels, cfg, True, keep[2])
-    fs_l, flog_l, _, Dl2 = disc_apply(Dl1, fake_loc, labels, cfg, True, keep[3])
+    rs_g, rlog_g, _, Dg1 = disc_apply(Dr["dg"], real_in, labels, cfg, True, keep[0], d_cd)
+    fs_g, flog_g, _, Dg2 = disc_apply(Dg1, fake_in, labels, cfg, True, keep[1], d_cd)
+    rs_l, rlog_l, _, Dl1 = disc_apply(Dr["dl"], real_loc, labels, cfg, True, keep[2], d_cd)
+    fs_l, flog_l, _, Dl2 = disc_apply(Dl1, fake_loc, labels, cfg, True, keep[3], d_cd)
     loss = (d_adv(rs_g, fs_g) + d_adv(rs_l, fs_l)
             + hp.acgan_weight * (cross_entropy(rlog_g, labels)
                                  + cross_entropy(rlog_l, labels)))
@@ -417,12 +484,12 @@ def _d_update(G, bn, D, d_state, X, dd: DDraws, step_idx: int, sigma: float,
             rlog_l.argmax(1) == labels, flog_l.argmax(1) == labels)])
     grads = _grads(loss, Dr)
     D_new, d_state = optD.update(grads, d_state, tree_map(torch.detach, D))
-    return _copy_u(D_new, {"dg": Dg2, "dl": Dl2}), d_state, loss.detach(), diag
+    return _copy_u(D_new, {"dg": Dg2, "dl": Dl2}), d_state, bn, loss.detach(), diag
 
 
 def cgan_step(G, bn, D, ema, g_state: OptState, d_state: OptState,
               X: torch.Tensor, draws: CGANDraws, step_idx: int, sigma: float, *,
-              cfg: TransformerCGANConfig, hp: CGANHParams, optG: Adam,
+              cfg: CGANConfig, hp: CGANHParams, optG: Adam,
               optD: Adam, prewarm: bool, timer=None):
     """One training step: the D update(s), then the G update and the EMA.
 
@@ -433,15 +500,16 @@ def cgan_step(G, bn, D, ema, g_state: OptState, d_state: OptState,
     with logs (10,): the eight D diagnostics (global/local real and fake
     accuracy, then the ACGAN accuracies), the G loss and the D loss. In a
     prewarm epoch D is not updated, the diagnostics and the D loss are 0 and
-    the G loss has no adversarial term. ``timer``, if given, is called with a
-    layer name after each layer."""
+    the G loss has no adversarial term. ``bn`` advances in every D update
+    and in the G step. ``timer``, if given, is called with a layer name
+    after each layer."""
     mark = timer or (lambda name: None)
     device = X.device
     diag = torch.zeros((8,), device=device)
     d_loss = torch.zeros((), device=device)
     for dd in draws.d:
-        D, d_state, d_loss, diag = _d_update(G, bn, D, d_state, X, dd, step_idx,
-                                             sigma, cfg, hp, optD)
+        D, d_state, bn, d_loss, diag = _d_update(G, bn, D, d_state, X, dd, step_idx,
+                                                 sigma, cfg, hp, optD)
     mark("d_step")
 
     g_adv = _adversarial(hp.gan_loss)[1]
@@ -461,7 +529,7 @@ def cgan_step(G, bn, D, ema, g_state: OptState, d_state: OptState,
         loss = (g_adv(gs_g) + g_adv(gs_l)
                 + hp.g_acgan_weight * (cross_entropy(glog_g, labels_g)
                                        + cross_entropy(glog_l, labels_g)))
-    rfeat, _ = disc_features(D["dg"], real_g, train=False, cfg=cfg)
+    rfeat, _ = disc_features(D["dg"], real_g, cfg, train=False)
     loss = loss + hp.fm_weight * feature_matching(ffeat, rfeat)
     if hp.variant == "v1":
         loss = loss + posture_conditional_losses(
@@ -524,7 +592,7 @@ def _opt_state_like(params, tree, *, device, what: str) -> OptState:
                     _load_like(params, adam["nu"], device=device, what=f"{what}.nu"))
 
 
-def _train_cgan(X_np: np.ndarray, y_np: np.ndarray, cfg: TransformerCGANConfig,
+def _train_cgan(X_np: np.ndarray, y_np: np.ndarray, cfg: CGANConfig,
                 hp: CGANHParams, save_dir: Path, tag: str, label_base: int, *,
                 device: torch.device | str, resume: str = "", log=print) -> dict:
     """The training loop of both flavours: ``tag`` is the condition (v1) or
@@ -558,6 +626,7 @@ def _train_cgan(X_np: np.ndarray, y_np: np.ndarray, cfg: TransformerCGANConfig,
     if resume:
         trees, meta = ckpt_io.load_checkpoint(resume)
         G = _load_like(G, trees["G"], device=device, what="G")
+        bn = _load_like(bn, trees.get("bn", {}), device=device, what="bn")
         D = _load_like(D, trees["D"], device=device, what="D")
         ema = _load_like(G, trees["ema"], device=device, what="ema")
         g_state = _opt_state_like(G, trees["optG"], device=device, what="optG")
@@ -582,18 +651,21 @@ def _train_cgan(X_np: np.ndarray, y_np: np.ndarray, cfg: TransformerCGANConfig,
         metrics_csv.write_text(METRICS_HEADER_V2 if hp.variant == "v2"
                                else METRICS_HEADER_V1)
 
-    def save_generator(path, params):
-        ckpt_io.save_checkpoint(path, {"model": tree_to_numpy(params), "bn": {}},
+    def save_generator(path, params, bn_state):
+        ckpt_io.save_checkpoint(path, {"model": tree_to_numpy(params),
+                                       "bn": tree_to_numpy(bn_state)},
                                 generator_meta(hp, cfg.num_classes, tag))
 
-    best = {"G": ema if hp.ema else G, "dg": D["dg"], "dl": D["dl"]}
+    # the best snapshot holds the live bn statistics of its epoch
+    best = {"G": ema if hp.ema else G, "bn": bn, "dg": D["dg"], "dl": D["dl"]}
     best_dirty = False
 
     def flush_best():
         nonlocal best_dirty
         if not best_dirty:
             return
-        save_generator(save_dir / f"CGAN_generator_{tag}_best.npz", best["G"])
+        save_generator(save_dir / f"CGAN_generator_{tag}_best.npz", best["G"],
+                       best["bn"])
         for which, key in (("globalD", "dg"), ("localD", "dl")):
             ckpt_io.save_checkpoint(save_dir / f"CGAN_{which}_{tag}_best.npz",
                                     {"model": tree_to_numpy(best[key])}, {"tag": tag})
@@ -627,7 +699,7 @@ def _train_cgan(X_np: np.ndarray, y_np: np.ndarray, cfg: TransformerCGANConfig,
         # best on the last step's G loss, in adversarial epochs only
         if not prewarm and math.isfinite(g_loss) and g_loss < best_g:
             best_g, best_dirty = g_loss, True
-            best = {"G": ema if hp.ema else G, "dg": D["dg"], "dl": D["dl"]}
+            best = {"G": ema if hp.ema else G, "bn": bn, "dg": D["dg"], "dl": D["dl"]}
 
         done = ep + 1
         if done % hp.save_every == 0:
@@ -635,15 +707,15 @@ def _train_cgan(X_np: np.ndarray, y_np: np.ndarray, cfg: TransformerCGANConfig,
                          "optD": tree_to_numpy(optD.state_tree(d_state))}
             ckpt_io.save_checkpoint(
                 save_dir / f"checkpoint_epoch{done}.npz",
-                {"G": tree_to_numpy(G), "bn": {}, "D": tree_to_numpy(D),
+                {"G": tree_to_numpy(G), "bn": tree_to_numpy(bn), "D": tree_to_numpy(D),
                  "ema": tree_to_numpy(ema), **opt_trees},
                 {"epoch": done, "g_loss": g_loss, "d_loss": d_loss,
                  "best_g": best_g, "tag": tag})
-            save_generator(save_dir / f"CGAN_generator_{tag}_epoch{done}.npz", G)
+            save_generator(save_dir / f"CGAN_generator_{tag}_epoch{done}.npz", G, bn)
             flush_best()
 
     flush_best()
-    save_generator(save_dir / f"CGAN_generator_{tag}_last.npz", ema if hp.ema else G)
+    save_generator(save_dir / f"CGAN_generator_{tag}_last.npz", ema if hp.ema else G, bn)
     dt = time.perf_counter() - t0
     sps = (total_epochs - start_epoch) * steps / dt if dt > 0 else float("nan")
     log(f"[{tag}] Done. Best G loss: {best_g:.4f} ({sps:.2f} steps/s)")
@@ -682,13 +754,11 @@ def train_one_posture(data_dir, runs_root, posture: int, log=print, *,
 def load_generator(path, num_classes: int | None = None, variant: str = "v1", *,
                    device: torch.device | str):
     """Rebuild a saved generator from its meta: (params, bn, cfg, meta). A
-    generator without an "arch" key, or with "conv", is the conv model,
-    which raises ``NotImplementedError``."""
+    generator without an "arch" key, or with "conv", is the conv model, with
+    its bn statistics."""
     meta = ckpt_io.load_meta(path)
     var = str(meta.get("variant", variant))
     arch = str(meta.get("arch", "conv"))
-    if arch != "transformer":
-        raise NotImplementedError(f"{path}: {CONV_SLICE}")
     hp = CGANHParams(
         noise_dim=int(meta.get("noise_dim", 100)), variant=var,
         proj_scale=float(meta.get("proj_scale", 0.10 if var == "v2" else 0.25)),
@@ -696,17 +766,20 @@ def load_generator(path, num_classes: int | None = None, variant: str = "v1", *,
         tf_depth=int(meta.get("tf_depth", 4)), tf_heads=int(meta.get("tf_heads", 4)),
         tf_patch=int(meta.get("tf_patch", 8)))
     cfg = build_cfg(hp, int(meta.get("num_classes", num_classes or NUM_POSTURES)))
-    template, bn = generator_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    template, bn_t = generator_init(cfg, torch.Generator().manual_seed(0), device="cpu")
     trees, _ = ckpt_io.load_checkpoint(path)
-    return _load_like(template, trees["model"], device=device, what="model"), bn, cfg, meta
+    return (_load_like(template, trees["model"], device=device, what="model"),
+            _load_like(bn_t, trees.get("bn", {}), device=device, what="bn"), cfg, meta)
 
 
 @torch.inference_mode()
-def generate_batch(G, bn, cfg: TransformerCGANConfig, generator: torch.Generator,
+def generate_batch(G, bn, cfg: CGANConfig, generator: torch.Generator,
                    n: int, label: int) -> torch.Tensor:
     """n samples (n, C, T) of one class from N(0, 1) noise drawn on
-    ``generator`` (which must live on the parameters' device)."""
-    device = G["tok"].device
+    ``generator`` (which must live on the parameters' device). The
+    generator runs in eval mode (the conv model's BN on its running
+    statistics), so each row depends on its own noise only."""
+    device = tree_leaves(G)[0].device
     z = torch.randn((n, cfg.noise_dim), generator=generator, device=device)
     labels = torch.full((n,), label, dtype=torch.long, device=device)
     return generator_apply(G, bn, z, labels, cfg, train=False)[0]
@@ -735,8 +808,8 @@ HP_FLAGS = {
 
 def _parse(argv):
     p = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter,
-                                description="Transformer-CGAN training (the port "
-                                            "of scripts/train_cgan.py)")
+                                description="CGAN training, conv or transformer "
+                                            "(the port of scripts/train_cgan.py)")
     sub = p.add_subparsers(dest="cmd", required=False)
     p.add_argument("--config", type=str, default=None)
     p.add_argument("--data-dir", type=str, default=None,

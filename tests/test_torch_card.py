@@ -4,10 +4,13 @@ it) against their plain versions,
 K1's bucket axis against separate launches, the wrappers' checks, gradients
 through K1 and through flash_attention against the CPU, the serving
 cascade chunked against one-shot, the eval's GRU(24) scorers and
-statistics against the CPU, and the sequential trainer: one GAN step of a
-2-layer stack with dropout masks against the CPU, and a short run.
+statistics against the CPU, the sequential trainer (one GAN step of a
+2-layer stack with dropout masks against the CPU, and a short run), and the
+conv CGAN (a v1 and a v2 step against the CPU, a bfloat16 D step, the
+generator against the CPU).
 
-Every test skips without a card: the kernels have no CPU mode. This file
+Every test skips without a card: the kernels have no CPU mode, and a
+test of the card's route has nothing to compare without one. This file
 imports no jax, so it also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_card.py -q
@@ -33,6 +36,7 @@ from eegsynth_torch.nn.gru_sequence import (
 from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
 )
+from eegsynth_torch.train import cgan as cgan_train
 from eegsynth_torch.train import timegan as ttrain
 from eegsynth_torch.train.optim import make_gan_opts
 from eegsynth_torch.train.timegan import synthesize_from_noise
@@ -672,3 +676,95 @@ def test_train_single_npz_on_the_card(cuda_device, tmp_path):
     assert res["steps_per_sec"] > 0 and 1 <= res["best_step"] <= 3
     with np.load(tmp_path / "run" / "synthetic.npz") as s:
         assert s["X"].shape == (12, 128, 14) and np.isfinite(s["X"]).all()
+
+
+def _conv_step(device, hp, seed=3):
+    """One conv-CGAN step at full width (B = hp.batch_size, T 768) on
+    ``device`` from a seeded model and seeded draws made on the host, R1
+    firing (step index 0). Returns the step's outputs on the host and the
+    hand-kernel launches it made."""
+    K = 9 if hp.variant == "v1" else 2
+    cfg = cgan_train.build_cfg(hp, K)
+    g = torch.Generator().manual_seed(seed)
+    G, bn = cgan_train.generator_init(cfg, g, device="cpu")
+    D = {k: cgan_train.disc_init(cfg, g, device="cpu") for k in ("dg", "dl")}
+    B = hp.batch_size
+    X = torch.rand((K * B, 14, 768), generator=g)
+    draws = cgan_train.draw_cgan_step(g, hp, cfg, torch.arange(K * B).reshape(K, B),
+                                      torch.full((K,), float(B)), prewarm=False,
+                                      device="cpu")
+    to = lambda tree: tree_map(lambda t: t.to(device), tree)  # noqa: E731
+    G, bn, D = to(G), to(bn), to(D)
+    optG = cgan_train.Adam(hp.lr_g, hp.beta1, hp.beta2)
+    optD = cgan_train.Adam(hp.lr_d, hp.beta1, hp.beta2)
+    before = (gru_sequence.launches, multigru_disc_inputs.launches, flash_forward.launches)
+    out = cgan_train.cgan_step(G, bn, D, G, optG.init(G), optD.init(D), X.to(device),
+                               cgan_train.draws_to(draws, device), 0, 0.1, cfg=cfg, hp=hp,
+                               optG=optG, optD=optD, prewarm=False)
+    launches = (gru_sequence.launches - before[0],
+                multigru_disc_inputs.launches - before[1],
+                flash_forward.launches - before[2])
+    host = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    return (host(out[0]), host(out[1]), host(out[2]), out[4].count, host(out[4].mu),
+            host(out[5].mu), out[6].cpu()), launches
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_conv_cgan_step_matches_cpu(cuda_device, variant):
+    """One conv-CGAN step (v1 with R1, v2 with its keep masks), B 8, full
+    width, on the card and on the CPU on the same parameters and draws,
+    with chip_smoke.py's CGAN tolerances: logs within 1e-4 relative, Adam's
+    first moments within 1e-4 of each leaf's largest magnitude (at least
+    1), parameters within 1e-5 except where the gradient is within that
+    moment tolerance of zero (its sign is not held, and Adam's first step
+    moves it by ±lr whatever its size), the bn statistics within 1e-5. The
+    convolutions are cuDNN's: no hand kernel launches."""
+    over = cgan_train.V2_OVERRIDES if variant == "v2" else {}
+    hp = cgan_train.CGANHParams(**{**over, "batch_size": 8})
+    (cG, cbn, cD, _, cmuG, cmuD, clogs), _ = _conv_step("cpu", hp)
+    (G, bn, D, _, muG, muD, logs), launches = _conv_step(cuda_device, hp)
+    assert launches == (0, 0, 0)
+    assert torch.isfinite(logs).all()
+    assert ((logs - clogs).abs() / clogs.abs().clamp(min=1.0)).max() <= 1e-4
+    for a, b in zip(tree_leaves((muG, muD)), tree_leaves((cmuG, cmuD))):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
+    for p, pr, m in zip(tree_leaves((G, D)), tree_leaves((cG, cD)),
+                        tree_leaves((cmuG, cmuD))):
+        far = (p - pr).abs() > 1e-5
+        floor = max(1e-5, 1e-4 * max(1.0, m.abs().max().item()) / (1 - hp.beta1))
+        assert (m[far].abs() / (1 - hp.beta1) <= floor).all(), p.shape
+    for a, b in zip(tree_leaves(bn), tree_leaves(cbn)):
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+def test_conv_cgan_bf16_d_step(cuda_device):
+    """precision_d="bf16" on the card: the D update's conv trunks in
+    bfloat16, a finite step, and every parameter, bn statistic and Adam
+    moment float32; the logs near the float32 step's (the D loss passes
+    through the bfloat16 trunk: 2e-2 relative)."""
+    hp = cgan_train.CGANHParams(batch_size=8, precision_d="bf16")
+    (G, bn, D, count, muG, muD, logs), _ = _conv_step(cuda_device, hp)
+    (*_, logs32), _ = _conv_step(cuda_device, cgan_train.CGANHParams(batch_size=8))
+    assert count == 1 and torch.isfinite(logs).all()
+    for t in tree_leaves((G, bn, D, muG, muD)):
+        assert t.dtype == torch.float32 and torch.isfinite(t).all()
+    assert ((logs[8:] - logs32[8:]).abs() / logs32[8:].abs()).max() <= 2e-2
+    assert not torch.equal(logs, logs32)
+
+
+def test_conv_generator_matches_cpu(cuda_device):
+    """A conv generator's eval-mode output (n 64, bn statistics perturbed
+    from their init) on the card against the CPU within 1e-4."""
+    cfg = cgan_train.build_cfg(cgan_train.CGANHParams(), 9)
+    g = torch.Generator().manual_seed(4)
+    G, bn = cgan_train.generator_init(cfg, g, device="cpu")
+    bn = {k: {"mean": 0.1 * torch.randn(v["mean"].shape, generator=g),
+              "var": 1 + 0.2 * torch.rand(v["var"].shape, generator=g)}
+          for k, v in bn.items()}
+    z = torch.randn((64, 100), generator=g)
+    labels = torch.randint(0, 9, (64,), generator=g)
+    want = cgan_train.generator_apply(G, bn, z, labels, cfg, train=False)[0]
+    to = lambda tree: tree_map(lambda t: t.to(cuda_device), tree)  # noqa: E731
+    got = cgan_train.generator_apply(to(G), to(bn), z.to(cuda_device),
+                                     labels.to(cuda_device), cfg, train=False)[0]
+    assert (got.cpu() - want).abs().max().item() <= 1e-4

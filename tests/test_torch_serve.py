@@ -1,6 +1,6 @@
 """eegsynth_torch.serve on the CPU: the TimeGAN and transformer-CGAN
 endpoints of scripts/serve_synthesis.py, same JSON, shapes, caps and error
-codes; a conv-arch CGAN generator is refused at load."""
+codes (the conv CGAN's in ``test_torch_cgan_conv_train.py``)."""
 
 import http.client
 import io
@@ -217,13 +217,8 @@ def test_device_cuda_without_card_raises(dirs, monkeypatch):
               "--device", "cuda", "--port", "0"])
 
 
-def test_unported_options_refused(dirs, tmp_path):
-    """A conv-arch CGAN generator under --cgan_root is refused at load with
-    an error naming the missing port; bf16 serving is refused too."""
-    conv_root = _write_cgan(tmp_path / "conv", arch="conv")
-    with pytest.raises(NotImplementedError, match="conv CGAN"):
-        main(["--runs_dir", str(dirs[0]), "--cgan_root", str(conv_root),
-              "--device", "cpu"])
+def test_unported_options_refused(dirs):
+    """bf16 serving is refused."""
     reg = ModelRegistry(*dirs, device="cpu")
     with pytest.raises(NotImplementedError):
         make_server(reg, "127.0.0.1", 0, SERVE_BATCH, TIME_CHUNK,
