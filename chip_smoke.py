@@ -110,6 +110,7 @@ Imports no JAX.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import http.client
 import io
 import json
@@ -277,11 +278,21 @@ CGAN_K3 = (8, 4, 4)
 # 8, one epoch of 9 steps; "auto" takes the wide kernels at 768 tokens
 CGAN_WIDE_BATCH = 8
 # One CGAN step on the card against the CPU plain path (B 8, full width):
-# logs 1e-4 relative; Adam's first moments (the gradients) 1e-4 of each
-# leaf's largest; parameters 1e-5, except elements whose gradient sits at
-# rounding level (|g| <= 1e-5), which Adam's first step moves by about
-# lr·sign(g) whatever its size: those are held through the gradient.
-CGAN_LOG_RTOL, CGAN_MU_RTOL, CGAN_PARAM_ATOL, CGAN_GRAD_FLOOR = 1e-4, 1e-4, 1e-5, 1e-5
+# logs 1e-4 relative. For each parameter leaf, Adam's first moments (the
+# gradients) within 1e-4 of the larger of the leaf's largest and 1, and
+# within CGAN_MU_RTOL of the leaf's own largest: the transformer's step
+# departs from its float64 step by a few 1e-6 of that, the conv step by
+# some 1e-4 (float32 conditioning; the check prints both), so the conv
+# model's bound is CGAN_CONV_MU_RTOL. Parameters within 1e-5, except
+# elements whose sign is not held (Adam's first step moves them by about
+# lr·sign(g) whatever their size): a gradient at rounding level (|g| <=
+# 1e-5) or, in the conv model, within the moments' tolerance of zero. At
+# most CGAN_EXCUSED_SHARE of a leaf may be excused so, unless its whole
+# gradient is at rounding level on the card and on the CPU: a leaf whose
+# gradient is zero by construction (a conv bias ahead of a train-mode batch
+# norm, an attention key bias), named in the output.
+CGAN_LOG_RTOL, CGAN_MU_RTOL, CGAN_CONV_MU_RTOL = 1e-4, 1e-4, 1e-3
+CGAN_PARAM_ATOL, CGAN_GRAD_FLOOR, CGAN_EXCUSED_SHARE = 1e-5, 1e-5, 1e-2
 # The conv generator's bn running statistics after that step: 1e-5 absolute
 # (O(1) values, means over B·L of float32 convolutions in another order)
 CGAN_BN_ATOL = 1e-5
@@ -1699,19 +1710,23 @@ def phase_train_layers(smi: str, device: str = "cuda") -> None:
 # Transformer CGAN
 # ------------------------------------------------------------------
 
-def _write_posture_buckets(root: Path, n: int, condition: str = "no_exo") -> Path:
-    """posture{1..9}_{condition}.npz of random (n, 768, 14) windows with the
-    keys load_condition_dataset reads, from a seed."""
+def _write_posture_buckets(root: Path, n: int,
+                           conditions: tuple[str, ...] = ("no_exo",)) -> Path:
+    """posture{1..9}_{condition}.npz of random (n, 768, 14) windows for each
+    condition, with the keys load_condition_dataset reads, from a seed: v1
+    trains on one condition's nine postures, v2 on one posture's two
+    conditions."""
     data = root / "cgan_data"
     data.mkdir()
     rng = np.random.default_rng(1)
-    for posture in range(1, 10):
-        np.savez(data / f"posture{posture}_{condition}.npz",
-                 X=rng.uniform(0, 1, (n, SEQ_LEN, CHANNELS)).astype(np.float32),
-                 posture=np.int32(posture), fs=np.float32(128.0),
-                 scale_min=rng.uniform(-50, -10, CHANNELS).astype(np.float32),
-                 scale_range=rng.uniform(20, 100, CHANNELS).astype(np.float32),
-                 ch_names=np.array([f"ch{i}" for i in range(CHANNELS)]))
+    for condition in conditions:
+        for posture in range(1, 10):
+            np.savez(data / f"posture{posture}_{condition}.npz",
+                     X=rng.uniform(0, 1, (n, SEQ_LEN, CHANNELS)).astype(np.float32),
+                     posture=np.int32(posture), fs=np.float32(128.0),
+                     scale_min=rng.uniform(-50, -10, CHANNELS).astype(np.float32),
+                     scale_range=rng.uniform(20, 100, CHANNELS).astype(np.float32),
+                     ch_names=np.array([f"ch{i}" for i in range(CHANNELS)]))
     return data
 
 
@@ -1827,63 +1842,108 @@ def phase_cgan_step_check(smi: str, device: str = "cuda") -> None:
         set_attention_impl("auto")
 
 
-def _cgan_step_check(smi: str, device: str, what: str, seed: int,
-                     floor_from_moments: bool = False, **hp_over) -> None:
+def _leaf_names(tree, prefix: str = "") -> list[str]:
+    """The dotted path of each leaf of ``tree``, in tree_leaves' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [] if tree is None else [prefix[:-1]]
+
+
+def _f64(x):
+    """``x`` (a tensor, a tree or the step's draws) with every floating
+    tensor in float64."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _f64(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, (list, tuple)):
+        return type(x)(_f64(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _f64(v) for k, v in x.items()}
+    return x
+
+
+def _cgan_step_check(smi: str, device: str, what: str, seed: int, **hp_over) -> None:
     """One CGAN step (step index 0: R1 fires) on ``device`` against the
     same step on the CPU with the plain versions, B 8, full width, the same
-    draws: the logs, the parameters, Adam's first moments and the bn state
-    within the CGAN_* tolerances. ``floor_from_moments`` (the conv model)
-    excuses, besides gradients at rounding level, an element whose gradient
-    is within the first moments' own tolerance of zero: its sign is not
-    held, and Adam's first step moves it by ±lr whatever its size."""
+    draws: the logs, each parameter leaf and its Adam first moments, and the
+    bn state within the CGAN_* tolerances. The same step in float64 on the
+    CPU says how far the CPU's float32 step itself is from exact."""
     hp, cfg, G, bn, D, X, draws = _cgan_step_inputs(8, device, seed, **hp_over)
+    conv = hp.arch != "transformer"
+    mu_rtol = CGAN_CONV_MU_RTOL if conv else CGAN_MU_RTOL
     cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
     t0 = time.perf_counter()
     card = _run_cgan_step(hp, cfg, G, bn, D, X, draws, 0)
     _sync(device)
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    host = _run_cgan_step(hp, cfg, cpu(G), cpu(bn), cpu(D), X.cpu(),
-                          cgan_train.draws_to(draws, "cpu"), 0)
+    host_draws = cgan_train.draws_to(draws, "cpu")
+    host = _run_cgan_step(hp, cfg, cpu(G), cpu(bn), cpu(D), X.cpu(), host_draws, 0)
     cpu_s = time.perf_counter() - t0
+    exact = _run_cgan_step(hp, cfg, _f64(cpu(G)), _f64(cpu(bn)), _f64(cpu(D)),
+                           X.cpu().double(), _f64(host_draws), 0)
     logs, ref = card[-1].cpu(), host[-1]
     log_err = ((logs - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
-    mu_err = p_err = 0.0
-    excused = 0
-    for params, ref_params, state, ref_state in ((card[0], host[0], card[4], host[4]),
-                                                 (card[2], host[2], card[5], host[5])):
-        for p, pr, m, mr in zip(tree_leaves(params), tree_leaves(ref_params),
-                                tree_leaves(state.mu), tree_leaves(ref_state.mu)):
+    mu_err = host_err = p_err = rounding_g = 0.0
+    excused, rounding = [], []
+    for net, i in (("G", 0), ("D", 2)):
+        state, ref_state, exact_state = card[4 + i // 2], host[4 + i // 2], exact[4 + i // 2]
+        for name, p, pr, m, mr, m64 in zip(
+                _leaf_names(host[i]), tree_leaves(card[i]), tree_leaves(host[i]),
+                tree_leaves(state.mu), tree_leaves(ref_state.mu),
+                tree_leaves(exact_state.mu)):
             m, p = m.cpu(), p.cpu()
-            mu_err = max(mu_err, (m - mr).abs().max().item()
-                         / max(1.0, mr.abs().max().item()))
             far = (p - pr).abs() > CGAN_PARAM_ATOL
-            floor = CGAN_GRAD_FLOOR
-            if floor_from_moments:
-                floor = max(floor, CGAN_MU_RTOL * max(1.0, mr.abs().max().item())
-                            / (1 - hp.beta1))
-            small_g = mr.abs() / (1 - hp.beta1) <= floor
-            if (far & ~small_g).any():
-                p_err = max(p_err, (p - pr).abs()[far & ~small_g].max().item())
-            excused += int((far & small_g).sum())
+            g_scale = mr.abs().max().item() / (1 - hp.beta1)
+            if g_scale <= CGAN_GRAD_FLOOR:
+                rounding_g = max(rounding_g, m.abs().max().item() / (1 - hp.beta1))
+                if far.any():
+                    rounding.append(f"{net}.{name} {int(far.sum())}/{far.numel()}")
+                continue
+            scale = mr.abs().max().item()
+            tol = min(CGAN_MU_RTOL * max(1.0, scale), mu_rtol * scale)
+            mu_err = max(mu_err, (m - mr).abs().max().item() / tol)
+            host_err = max(host_err, (mr.double() - m64).abs().max().item() / scale)
+            floor = max(CGAN_GRAD_FLOOR, tol / (1 - hp.beta1)) if conv else CGAN_GRAD_FLOOR
+            small = mr.abs() / (1 - hp.beta1) <= floor
+            if (far & ~small).any():
+                p_err = max(p_err, (p - pr).abs()[far & ~small].max().item())
+            n = int((far & small).sum())
+            if n:
+                excused.append((n / far.numel(), n, f"{net}.{name} {n}/{far.numel()}"))
+    excused.sort(reverse=True)
+    share = excused[0][0] if excused else 0.0
     bn_err = max([(a.cpu() - b).abs().max().item()
                   for a, b in zip(tree_leaves(card[1]), tree_leaves(host[1]))] or [0.0])
     print(f"[check] CGAN step {what}, card vs "
           f"CPU plain path: logs card {[round(v, 6) for v in logs.tolist()]}, CPU "
           f"{[round(v, 6) for v in ref.tolist()]}", flush=True)
     print(f"[check]   logs max relative diff {log_err:.3e} (tol {CGAN_LOG_RTOL:g}); "
-          f"Adam first moments {mu_err:.3e} of each leaf's largest (tol "
-          f"{CGAN_MU_RTOL:g}); parameters beyond {CGAN_PARAM_ATOL:g}: {p_err:.3e} "
-          f"(must be 0), {excused} elements with |g| <= "
-          + ("the moments' tolerance" if floor_from_moments else f"{CGAN_GRAD_FLOOR:g}")
-          + " excused; "
+          f"Adam first moments at {mu_err:.3f} of their tolerance (must be <= 1: per "
+          f"leaf {mu_rtol:g} of its largest, {CGAN_MU_RTOL:g} of the larger of that and "
+          f"1; the CPU's float32 step departs from its float64 step by {host_err:.3e} of "
+          f"a leaf's largest); "
+          f"parameters beyond {CGAN_PARAM_ATOL:g}: {p_err:.3e} (must be 0); "
+          f"{sum(n for _, n, _ in excused)} elements "
+          f"with |g| <= " + ("the moments' tolerance" if conv else f"{CGAN_GRAD_FLOOR:g}")
+          + " excused, per leaf: "
+          f"{', '.join(e for *_, e in excused) or 'none'} (at most "
+          f"{CGAN_EXCUSED_SHARE:g} of a leaf: {share:.2e}); leaves at rounding level "
+          f"(|g| <= {CGAN_GRAD_FLOOR:g} on both, card {rounding_g:.2e}; zero by "
+          f"construction) moved by ±lr on their noise's sign: "
+          f"{', '.join(rounding) or 'none'}; "
           + (f"bn state {bn_err:.3e} (tol {CGAN_BN_ATOL:g}); " if card[1] else "")
           + f"step {card_s:.3f} s on the card, {cpu_s:.3f} s on the CPU | {smi}",
           flush=True)
-    if (not torch.isfinite(logs).all() or log_err > CGAN_LOG_RTOL
-            or mu_err > CGAN_MU_RTOL or p_err > 0 or bn_err > CGAN_BN_ATOL):
+    if (not torch.isfinite(logs).all() or log_err > CGAN_LOG_RTOL or mu_err > 1
+            or p_err > 0 or share > CGAN_EXCUSED_SHARE or rounding_g > CGAN_GRAD_FLOOR
+            or bn_err > CGAN_BN_ATOL):
         fail(f"the card's CGAN step ({what}) disagrees with the CPU: logs {log_err}, "
-             f"moments {mu_err}, params {p_err}, bn {bn_err}")
+             f"moments {mu_err} of their tolerance, params {p_err}, excused share {share}, "
+             f"rounding-level gradient {rounding_g}, bn {bn_err}")
 
 
 def phase_cgan_serve(smi: str, device: str = "cuda") -> int:
@@ -2080,22 +2140,6 @@ def _zero_hand_kernel_counts() -> None:
         c.launches = c.wide_launches = 0
 
 
-def _write_posture_both(root: Path, posture: int, n: int) -> Path:
-    """posture{posture}_{no_exo,with_exo}.npz of random (n, 768, 14)
-    windows: the v2 trainer's data, from a seed."""
-    data = root / "cgan_v2_data"
-    data.mkdir()
-    rng = np.random.default_rng(2)
-    for cond in ("no_exo", "with_exo"):
-        np.savez(data / f"posture{posture}_{cond}.npz",
-                 X=rng.uniform(0, 1, (n, SEQ_LEN, CHANNELS)).astype(np.float32),
-                 posture=np.int32(posture), fs=np.float32(128.0),
-                 scale_min=np.zeros(CHANNELS, np.float32),
-                 scale_range=np.ones(CHANNELS, np.float32),
-                 ch_names=np.array([f"ch{i}" for i in range(CHANNELS)]))
-    return data
-
-
 def _all_f32(trees) -> bool:
     return all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
                for t in tree_leaves(trees))
@@ -2175,7 +2219,7 @@ def phase_cgan_conv(smi: str, device: str = "cuda") -> None:
     t_phase = time.perf_counter()
     _zero_hand_kernel_counts()
     with tempfile.TemporaryDirectory() as tmp:
-        data = _write_posture_buckets(Path(tmp), CGAN_WINDOWS)
+        data = _write_posture_buckets(Path(tmp), CGAN_WINDOWS, ("no_exo", "with_exo"))
         runs = Path(tmp) / "conv_runs"
         res = cgan_train.train_one_condition(
             data, runs, "no_exo", device=device, epochs=CGAN_EPOCHS,
@@ -2212,8 +2256,7 @@ def phase_cgan_conv(smi: str, device: str = "cuda") -> None:
               f"in {res16['epoch_seconds'][0]:.2f} s; logs finite (g_loss "
               f"{rows16[-1, 1]:.4f}, d_loss {rows16[-1, 2]:.4f}); every parameter and "
               f"optimizer leaf float32 | {smi}", flush=True)
-        data2 = _write_posture_both(Path(tmp), 1, CGAN_WINDOWS)
-        res2 = cgan_train.train_one_posture(data2, Path(tmp) / "conv_v2", 1, device=device,
+        res2 = cgan_train.train_one_posture(data, Path(tmp) / "conv_v2", 1, device=device,
                                             prewarm=1, epochs=1, save_every=2,
                                             print_every=1, batch_size=CGAN_CONV_BATCH)
         rows2 = _conv_artifacts(Path(tmp) / "conv_v2" / "posture1", res2, 2, "posture1")
@@ -2224,7 +2267,7 @@ def phase_cgan_conv(smi: str, device: str = "cuda") -> None:
               f"artifacts and metrics.csv as expected | {smi}", flush=True)
         served = _conv_serve(smi, run, device)
     for variant, what in (("v1", "conv v1 B=8, R1 on"), ("v2", "conv v2 B=8, keep masks")):
-        _cgan_step_check(smi, device, what, seed=9, floor_from_moments=True, arch="conv",
+        _cgan_step_check(smi, device, what, seed=9, arch="conv",
                          **(cgan_train.V2_OVERRIDES if variant == "v2" else {}))
     ms = {}
     for precision in ("f32", "bf16"):

@@ -149,11 +149,13 @@ def disc_init(cfg: CGANConfig, generator: torch.Generator, *,
 
 
 def disc_features(params: dict, x: torch.Tensor, train: bool = True,
-                  compute_dtype: torch.dtype | None = None):
+                  compute_dtype: torch.dtype | None = None, *, cfg: CGANConfig | None = None):
     """Five strided spectral-norm convs with LeakyReLU(0.2), time-mean
     pooled: (features (B, 512), params with the convs' ``u`` advanced in
     train mode). The mean is taken after a cast back to the parameter
-    dtype, so a bfloat16 trunk still pools in float32."""
+    dtype, so a bfloat16 trunk still pools in float32. ``cfg`` is unused:
+    it is there so that both architectures take the same arguments."""
+    del cfg
     new = dict(params)
     pdtype = params["c1"]["w"].dtype
     h = x.to(compute_dtype if compute_dtype is not None else pdtype)

@@ -201,9 +201,14 @@ def disc_features(params: dict, x: torch.Tensor, train: bool = True, *,
 
 def disc_apply(params: dict, x: torch.Tensor, labels: torch.Tensor,
                cfg: TransformerCGANConfig, train: bool = True,
-               dropout_keep: torch.Tensor | None = None):
+               dropout_keep: torch.Tensor | None = None,
+               compute_dtype: torch.dtype | None = None):
     """→ (score (B, 1), ACGAN logits (B, K), features (B, dim), params with
-    the head's advanced ``u``)."""
+    the head's advanced ``u``). ``compute_dtype`` takes the conv model's
+    place in the call: this discriminator has no reduced-precision trunk
+    and refuses any."""
+    if compute_dtype is not None:
+        raise ValueError("the transformer discriminator runs in its parameters' dtype")
     f, _ = disc_features(params, x, train=train, cfg=cfg)
     score, logits, f_used, u_fc, u_cls = disc_head(params, f, labels, cfg, train,
                                                    dropout_keep)

@@ -23,7 +23,7 @@ features and the loss are float32. TF32 stays off (``eegsynth_torch``).
 Each formulation is checked against ``ncw`` on the same weights, then
 timed with CUDA events: the forward alone and the forward with the
 backward (the gradient of the sum of squares in every weight and the
-input), ``--iters`` calls after ``--warmup``, all formulations in turns.
+input), ``--iters`` calls after WARMUP, all formulations in turns.
 
     python3 -m eegsynth_torch.tools.bench_cgan_conv [--batch 64] [--iters 20]
 
@@ -40,12 +40,14 @@ import subprocess
 import torch
 import torch.nn.functional as F
 
+from eegsynth_torch.models.cgan import DISC_CHANNELS, GEN_CHANNELS
 from eegsynth_torch.nn.conv import conv1d_init, sn_conv1d_init
 from eegsynth_torch.nn.spectral_norm import spectral_normalize
 
-DISC_CH = (14, 32, 64, 128, 256, 512)
-GEN_CH = (512, 256, 128, 64, 32, 16)
+DISC_CH = (14, *DISC_CHANNELS)     # the 14 EEG channels in
+GEN_CH = GEN_CHANNELS
 SEQ_LEN, INIT_LEN = 768, 24
+WARMUP, SEED = 3, 0                # calls before each timing; the weights' seed
 FORMULATIONS = ("ncw", "nwc", "im2col")
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -175,8 +177,6 @@ def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--warmup", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_cgan_conv times the card: no CUDA device is available")
@@ -184,7 +184,7 @@ def main(argv: list[str] | None = None) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    gen = torch.Generator().manual_seed(args.seed)
+    gen = torch.Generator().manual_seed(SEED)
     errors = check(args.batch, device, gen)
     d_layers, g_layers = make_weights(gen, device)
     for p in d_layers + g_layers:
@@ -202,9 +202,9 @@ def main(argv: list[str] | None = None) -> dict:
             for _ in range(2):                 # two turns, the order reversed
                 for kind in FORMULATIONS:
                     fwd = _events_ms(lambda: stack(kind, layers, inp, dtype),  # noqa: B023
-                                     args.iters, args.warmup)
+                                     args.iters, WARMUP)
                     both = _events_ms(lambda: _forward_backward(  # noqa: B023
-                        stack, kind, layers, inp, dtype), args.iters, args.warmup)
+                        stack, kind, layers, inp, dtype), args.iters, WARMUP)
                     times.setdefault(kind, []).append((fwd, both))
             for kind in FORMULATIONS:
                 fwd = sum(t[0] for t in times[kind]) / 2

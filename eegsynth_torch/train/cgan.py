@@ -124,16 +124,12 @@ def disc_apply(params, x, labels, cfg, train=True, dropout_keep=None,
     """(score, logits, features, params with advanced ``u``);
     ``compute_dtype`` reaches only the conv trunk (the transformer keeps
     float32, and its hparams refuse ``precision_d="bf16"``)."""
-    if _model(cfg) is _tf_model:
-        return _tf_model.disc_apply(params, x, labels, cfg, train, dropout_keep)
-    return _conv_model.disc_apply(params, x, labels, cfg, train, dropout_keep,
+    return _model(cfg).disc_apply(params, x, labels, cfg, train, dropout_keep,
                                   compute_dtype=compute_dtype)
 
 
 def disc_features(params, x, cfg, train=True):
-    if _model(cfg) is _tf_model:
-        return _tf_model.disc_features(params, x, train=train, cfg=cfg)
-    return _conv_model.disc_features(params, x, train=train)
+    return _model(cfg).disc_features(params, x, train=train, cfg=cfg)
 
 
 def feature_dim(cfg) -> int:

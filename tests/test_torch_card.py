@@ -713,12 +713,15 @@ def _conv_step(device, hp, seed=3):
 def test_conv_cgan_step_matches_cpu(cuda_device, variant):
     """One conv-CGAN step (v1 with R1, v2 with its keep masks), B 8, full
     width, on the card and on the CPU on the same parameters and draws,
-    with chip_smoke.py's CGAN tolerances: logs within 1e-4 relative, Adam's
-    first moments within 1e-4 of each leaf's largest magnitude (at least
-    1), parameters within 1e-5 except where the gradient is within that
-    moment tolerance of zero (its sign is not held, and Adam's first step
-    moves it by ±lr whatever its size), the bn statistics within 1e-5. The
-    convolutions are cuDNN's: no hand kernel launches."""
+    with chip_smoke.py's conv CGAN tolerances, leaf by leaf: logs within
+    1e-4 relative; Adam's first moments within 1e-3 of the leaf's own
+    largest; parameters within 1e-5, except where the gradient is within
+    that tolerance of zero or under 1e-5 (its sign is not held, and Adam's
+    first step moves it by ±lr whatever its size), at most 1 % of a leaf;
+    a leaf whose whole gradient is under 1e-5 on the CPU (zero by
+    construction: a conv bias ahead of a train-mode batch norm) must be so
+    on the card too; the bn statistics within 1e-5. The convolutions are
+    cuDNN's: no hand kernel launches."""
     over = cgan_train.V2_OVERRIDES if variant == "v2" else {}
     hp = cgan_train.CGANHParams(**{**over, "batch_size": 8})
     (cG, cbn, cD, _, cmuG, cmuD, clogs), _ = _conv_step("cpu", hp)
@@ -726,13 +729,17 @@ def test_conv_cgan_step_matches_cpu(cuda_device, variant):
     assert launches == (0, 0, 0)
     assert torch.isfinite(logs).all()
     assert ((logs - clogs).abs() / clogs.abs().clamp(min=1.0)).max() <= 1e-4
-    for a, b in zip(tree_leaves((muG, muD)), tree_leaves((cmuG, cmuD))):
-        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
-    for p, pr, m in zip(tree_leaves((G, D)), tree_leaves((cG, cD)),
-                        tree_leaves((cmuG, cmuD))):
+    for p, pr, m, mr in zip(tree_leaves((G, D)), tree_leaves((cG, cD)),
+                            tree_leaves((muG, muD)), tree_leaves((cmuG, cmuD))):
+        g, gr = m.abs() / (1 - hp.beta1), mr.abs() / (1 - hp.beta1)
+        if gr.max() <= 1e-5:
+            assert g.max() <= 1e-5, p.shape
+            continue
+        assert (m - mr).abs().max() <= 1e-3 * mr.abs().max(), p.shape
         far = (p - pr).abs() > 1e-5
-        floor = max(1e-5, 1e-4 * max(1.0, m.abs().max().item()) / (1 - hp.beta1))
-        assert (m[far].abs() / (1 - hp.beta1) <= floor).all(), p.shape
+        small = gr <= max(1e-5, 1e-3 * gr.max().item())
+        assert not (far & ~small).any(), p.shape
+        assert (far & small).sum() <= 0.01 * p.numel(), p.shape
     for a, b in zip(tree_leaves(bn), tree_leaves(cbn)):
         assert (a - b).abs().max().item() <= 1e-5
 

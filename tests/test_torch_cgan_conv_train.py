@@ -3,7 +3,8 @@
 parameters, data and JAX's replayed draws (``replay_draws`` of
 ``test_torch_cgan_train.py``) at CGANConfig(init_len=3, seq_len=96),
 local_crop 32, B 4: v1 hinge with R1 firing and with R1 off. The v2 steps
-are in ``test_torch_cgan_conv_step.py``, two D updates in
+(one at T 768 with the coherence loss on) are in
+``test_torch_cgan_conv_step.py``, two D updates in
 ``test_torch_cgan_conv_d_steps.py``, the bfloat16 D update in
 ``test_torch_cgan_conv_bf16.py`` (one JAX compile of about a minute a
 case on one core, so a file holds at most two), files, resume, the CLI
@@ -11,13 +12,12 @@ and serving in ``test_torch_cgan_conv_io.py``; the step helpers here serve
 them all. The tolerances are ``test_torch_cgan_train.py``'s (``check_step``),
 and the bn statistics are held within 1e-6.
 
-The coherence loss is off in these steps (``coh_weight=0``). At T 96 its
-float32 gradient is ill-conditioned (``num / den`` of two nearly equal
+The coherence loss is off in the steps at T 96 (``coh_weight=0``). There
+its float32 gradient is ill-conditioned (``num / den`` of two nearly equal
 magnitudes): JAX's own float32 gradient differs from its float64 value by
 more than the first moments' 1e-5 of their scale (1.6e-4 on random
 inputs), while the two packages agree in float64 within 1e-9 (both pinned
-in ``test_torch_cgan_conv.py``). The transformer's step tests hold the
-same coherence code at T 768.
+in ``test_torch_cgan_conv.py``). One v2 step at T 768 holds it on.
 
 JAX runs with x64 off: float32 on both sides.
 """
@@ -53,13 +53,14 @@ JAX_COMPILE = {"xla_backend_optimization_level": 0,
 BN_ATOL, U_ATOL = 1e-6, 2e-6
 
 
-def _cfg(mod, hp, K):
-    return dataclasses.replace(mod.build_cfg(hp, K), **SMALL)
+def _cfg(mod, hp, K, size=SMALL):
+    return dataclasses.replace(mod.build_cfg(hp, K), **size)
 
 
-def run_conv_step_pair(variant="v1", prewarm=False, **over):
-    """The same conv step in both packages from the port's seeded init, the
-    coherence loss off (module docstring). Returns (port outputs, JAX
+def run_conv_step_pair(variant="v1", prewarm=False, size=SMALL, **over):
+    """The same conv step in both packages from the port's seeded init at
+    ``size`` (``init_len``, ``seq_len``), the coherence loss off unless
+    ``over`` sets it (module docstring). Returns (port outputs, JAX
     outputs, port hp, ``step``); ``step(hp, n_d)`` reruns the port's step
     on the same inputs with another hp, or with only the first ``n_d`` D
     updates' draws."""
@@ -68,14 +69,14 @@ def run_conv_step_pair(variant="v1", prewarm=False, **over):
           "local_crop": 32, "variant": variant, "coh_weight": 0.0, **over}
     hp, thp = J.CGANHParams(**kw), P.CGANHParams(**kw)
     rng = np.random.default_rng(0)
-    X = rng.uniform(0, 1, (4 * K, C, SMALL["seq_len"])).astype(np.float32)
+    X = rng.uniform(0, 1, (4 * K, C, size["seq_len"])).astype(np.float32)
     tab, cnt = build_label_table(np.repeat(np.arange(base, base + K), 4), K, base)
-    tcfg = _cfg(P, thp, K)
+    tcfg = _cfg(P, thp, K, size)
     gen = torch.Generator().manual_seed(1)
     tG, tbn = P.generator_init(tcfg, gen, device="cpu")
     tD = {k: P.disc_init(tcfg, gen, device="cpu") for k in ("dg", "dl")}
     with jax.enable_x64(False):
-        cfg = _cfg(J, hp, K)
+        cfg = _cfg(J, hp, K, size)
         G, bn, D = (jax.tree.map(jnp.asarray, tree_to_numpy(t)) for t in (tG, tbn, tD))
         optG = optax.adam(hp.lr_g, b1=hp.beta1, b2=hp.beta2)
         optD = optax.adam(hp.lr_d, b1=hp.beta1, b2=hp.beta2)

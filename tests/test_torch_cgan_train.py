@@ -192,24 +192,39 @@ def run_step_pair(variant="v1", prewarm=False, **over):
     return got, want, thp
 
 
-def check_step(got, want, hp, d_first_mu=None):
+def leaf_names(tree, prefix=""):
+    """The dotted path of each leaf of a parameter tree, in tree_leaves' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def check_step(got, want, hp, d_first_mu=None, g_zero_grad=()):
     """``d_first_mu``: with two D updates, D's first moments after the
     first one alone; an element whose gradient was at rounding level in
-    that update may also be anywhere within ±lr after it."""
+    that update may also be anywhere within ±lr after it. ``g_zero_grad``:
+    the paths of generator leaves whose gradient is zero in exact
+    arithmetic, whatever its rounding noise (a conv bias ahead of a
+    train-mode batch norm): held through their moments alone, as Adam's
+    first step moves each element by ±lr on its noise's sign."""
     G2, _, D2, ema2, gs, ds, logs = got
     jG2, _, jD2, jema2, jgs, jds, jlogs = want
     np.testing.assert_allclose(logs.numpy(), np.asarray(jlogs)[0], rtol=LOG_RTOL,
                                atol=1e-6)
-    for state, jstate, params, jparams, first in (
-            (gs, jgs, G2, jG2, None), (ds, jds, D2, jD2, d_first_mu)):
+    assert set(g_zero_grad) <= set(leaf_names(G2)), g_zero_grad
+    for state, jstate, params, jparams, first, zero in (
+            (gs, jgs, G2, jG2, None, g_zero_grad), (ds, jds, D2, jD2, d_first_mu, ())):
         assert state.count == int(jstate[0].count)
         firsts = tree_leaves(first) if first is not None else [None] * len(
             tree_leaves(params))
-        for m, mj, p, pj, m1 in zip(tree_leaves(state.mu), jax.tree.leaves(jstate[0].mu),
-                                    tree_leaves(params), jax.tree.leaves(jparams), firsts):
+        for name, m, mj, p, pj, m1 in zip(
+                leaf_names(params), tree_leaves(state.mu), jax.tree.leaves(jstate[0].mu),
+                tree_leaves(params), jax.tree.leaves(jparams), firsts):
             mj, pj = np.asarray(mj), np.asarray(pj)
             np.testing.assert_allclose(m.numpy(), mj, rtol=0,
                                        atol=MU_RTOL * max(1.0, np.abs(mj).max()))
+            if name in zero:
+                continue
             far = np.abs(p.numpy() - pj) > PARAM_ATOL
             # elements off by more than PARAM_ATOL: only where |g| is at
             # rounding level (g = mu / (1 - b1) after one step)

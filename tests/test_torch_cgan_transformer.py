@@ -140,6 +140,18 @@ def test_v2_train_mode_needs_a_keep_mask():
     assert torch.isfinite(s).all()
 
 
+def test_disc_refuses_a_compute_dtype():
+    """The discriminator takes the conv model's arguments, but it has no
+    reduced-precision trunk: a compute dtype raises, none runs as before."""
+    _, pcfg = _cfgs()
+    D = P.disc_init(pcfg, torch.Generator().manual_seed(0), device="cpu")
+    x, labels = torch.rand((B, 14, 768)), torch.zeros(B, dtype=torch.long)
+    with pytest.raises(ValueError, match="parameters' dtype"):
+        P.disc_apply(D, x, labels, pcfg, False, None, compute_dtype=torch.bfloat16)
+    s, *_ = P.disc_apply(D, x, labels, pcfg, False, None, compute_dtype=None)
+    assert torch.isfinite(s).all()
+
+
 def test_r1_with_flash_forced_matches_jax():
     """R1 differentiates the discriminator twice; with the impl forced to
     flash in both packages, the D still takes dense attention, so R1 and its
