@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's main paths once on one CUDA card and check them: TimeGAN
 synthesis serving, multi-bucket TimeGAN training and the eval of what it
-synthesized, sequential TimeGAN training through the CLI, and CGAN
-training and serving, transformer and conv.
+synthesized, bf16 and long-horizon synthesis, sequential TimeGAN training
+through the CLI, and CGAN training, serving and eval, transformer and conv.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
@@ -64,6 +64,17 @@ failure is swallowed):
              against their expected counts), the CSVs checked, the time
              split; one scorer stack and one pair's statistics on the card
              against the CPU;
+5d. synth-bf16 — bf16 against f32 synthesis of a full-width random
+             TimeGAN on the same noise at bench.py's shape (n 2048 x 768)
+             and the long horizon (n 512 x 8192 one-shot, n 256 x 8192 in
+             chunks of 1024): the cascade's times in turns, synthesize()
+             with its device->host copy, K1 forward's launches a chunk, the
+             bounds of JAX's own bf16 test, chunked bf16 against one-shot,
+             the card's split between K1 and the rest; a --precision bf16
+             server over HTTP against in-process bf16 synthesis;
+             generate_long_synth on the 18 trained runs at --gen_len 8192
+             --time_chunk 1024 --denorm (files, launches, the first run
+             against synthesize + denorm, the eval picks each file);
 5c. train-seq — the CLI ``python -m eegsynth_torch.train.timegan`` in
              this process: one bucket of (100, 768, 14) for 3 GAN steps at
              chunk 2, resumed to 5 (log rows under one header, ckpt_latest's
@@ -97,7 +108,13 @@ failure is swallowed):
              against the CPU; the warm step time at B 64 in f32 and bf16
              (median of the second of two 9-step epochs), a per-layer split
              and the card's busy share over one step; no hand kernel (K1, K2,
-             K3) launches in the phase: the convolutions are cuDNN's.
+             K3) launches in the phase: the convolutions are cuDNN's;
+6c. cgan-eval — inside 6b, on its runs: python -m
+             eegsynth_torch.eval.cgan_drivers condition (v1, 400 generated
+             windows a posture) and posture (v2, posture 1), the CSVs
+             checked, the time split into generation, features, fits and
+             statistics; the three metric functions on the card against
+             the CPU.
 
 The last three lines are a JSON object listing each kernel (its launches in
 the main paths' runs, its error against the plain version, its time, the
@@ -128,14 +145,21 @@ import torch
 
 from eegsynth_torch import _build
 from eegsynth_torch.convert import from_jax_params, to_jax_params, tree_to_numpy
+from eegsynth_torch.data.datasets import load_condition_dataset
+from eegsynth_torch.eval import cgan_eval
+from eegsynth_torch.eval.cgan_drivers import main as cgan_eval_cli
 from eegsynth_torch.eval.classifiers import _run_grouped as eval_run_grouped
 from eegsynth_torch.eval.classifiers import discriminative_task
-from eegsynth_torch.eval.drivers import load_pairs_by_condition, run_timegan_eval
+from eegsynth_torch.eval.drivers import (
+    find_synth_npz, load_pairs_by_condition, run_timegan_eval,
+)
+from eegsynth_torch.eval.features import psd_features_tensor
 from eegsynth_torch.eval.stats import statistical_similarity
+from eegsynth_torch.generate_long_synth import main as generate_long_synth_cli
 from eegsynth_torch.models.cgan_transformer import generator_apply as cgan_generator_apply
 from eegsynth_torch.models.timegan import (
     TimeGAN, TimeGANConfig, adaptive_dims, encode, fused_disc_inputs, gen_latent,
-    refine_latent, sample_noise, timegan_init_stacked,
+    params_tree, refine_latent, sample_noise, timegan_init_stacked,
 )
 from eegsynth_torch.nn.attention import (
     attention_dense, flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain,
@@ -149,13 +173,14 @@ from eegsynth_torch.nn.layers import xavier_uniform
 from eegsynth_torch.nn.multigru import (
     k2_tile, multigru_disc_inputs, multigru_disc_inputs_reference,
 )
+from eegsynth_torch.nn.precision import cast_floating
 from eegsynth_torch.serve import ModelRegistry, make_server
 from eegsynth_torch.train import cgan as cgan_train
 from eegsynth_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from eegsynth_torch.train.optim import make_gan_opts
 from eegsynth_torch.train.timegan import (
     CONFIG_KEYS, GEN_NETS, LOG_COLUMNS, TimeGANHParams, draw_gan, draw_gan_masks,
-    gan_step, gather_batch, synthesize_from_noise,
+    gan_step, gather_batch, synthesize, synthesize_from_noise,
 )
 from eegsynth_torch.train.timegan import main as timegan_cli
 from eegsynth_torch.train.timegan_multi import train_all_buckets
@@ -254,6 +279,17 @@ EVAL_LOGIT_TOL, EVAL_STAT_RTOL, EVAL_ACF_TOL = 1e-4, 1e-5, 1e-10
 SEQ_WINDOWS, SEQ_BATCH, SEQ_RATE_STEPS, SEQ_RESUME_STEPS = 100, 64, 5, 9
 SEQ_GAN_STEPS = 1 + SEQ_RATE_STEPS
 SEQ_LAYERS_STEPS, SEQ_CHECK_BATCH = 2, 8
+# bf16 synthesis ([synth-bf16]): bench.py's synthesis shape (n 2048 x 768,
+# one-shot) and the long horizon (n 512 x 8192 one-shot, n 256 x 8192 in
+# chunks of 1024), each in bf16 and in f32 on the same noise. bf16 is held
+# to f32 by tests/test_precision.py's bounds on JAX's own bf16 (correlation
+# over 0.999, max |diff| under 0.05), and so is a chunked bf16 run to the
+# one-shot one (its carried states are K1's float32 rows; only cuBLAS's
+# bfloat16 products may differ across shapes). generate_long_synth runs on
+# [train]'s 18 runs at the long horizon.
+SYNTH_SHAPES = ((2048, 768, None), (512, 8192, None), (256, 8192, 1024))
+BF16_CORR, BF16_MAX = 0.999, 0.05
+LONG_LEN, LONG_CHUNK = 8192, 1024
 # Wide data: 20 channels give adaptive_dims' z40/h80 (K2's instance with KL
 # 32); a short run of 2 buckets
 WIDE_CHANNELS, WIDE_BUCKETS, WIDE_GAN_STEPS = 20, 2, 2
@@ -299,6 +335,16 @@ CGAN_BN_ATOL = 1e-5
 # The conv CGAN ([cgan-conv]) at the JAX defaults' batch, on CGAN_WINDOWS
 # windows a posture bucket
 CGAN_CONV_BATCH = 64
+# The CGAN eval ([cgan-eval]) on [cgan-conv]'s runs: the v1 CLI on one
+# condition at the scripts' default 400 generated windows a posture (against
+# its CGAN_WINDOWS real ones), the v2/v3 CLI per posture ("match"). Then
+# the metric functions on the card against the CPU on CGAN_WINDOWS
+# generated windows a posture: accuracy within one test row and AUC within
+# 1e-3 (the same float64 Newton fit on features that differ by float32 FFT
+# rounding), the predictive and statistics rows within 1e-5 relative and
+# 1e-6 absolute (float32 FFTs, float64 fits)
+CGAN_EVAL_SAMPLES, CGAN_EVAL_AUC_TOL = 400, 1e-3
+CGAN_EVAL_RTOL, CGAN_EVAL_ATOL = 1e-5, 1e-6
 # Serving: a patch-1 generator (768 tokens, so "auto" takes K3a) at
 # serve_batch 256; the card's X against the CPU plain generator on the same
 # noise for the first rows
@@ -1222,7 +1268,7 @@ def _write_buckets(root: Path, n_buckets: int = N_BUCKETS,
                    channels: int = CHANNELS) -> Path:
     """The first ``n_buckets`` of the 18 bucket NPZs
     posture{1..9}_{no_exo,with_exo}.npz, random (63, 768, channels) float32
-    windows in [0, 1), from a seed."""
+    windows in [0, 1), from a seed, with fixed scalers (for --denorm)."""
     data = root / "data"
     data.mkdir()
     rng = np.random.default_rng(0)
@@ -1230,7 +1276,9 @@ def _write_buckets(root: Path, n_buckets: int = N_BUCKETS,
     for name in names[:n_buckets]:
         np.savez(data / f"{name}.npz",
                  X=rng.uniform(0, 1, (N_WINDOWS, SEQ_LEN, channels))
-                 .astype(np.float32), fs=np.float32(128.0))
+                 .astype(np.float32), fs=np.float32(128.0),
+                 scale_min=np.linspace(-40, -20, channels, dtype=np.float32),
+                 scale_range=np.linspace(30, 90, channels, dtype=np.float32))
     return data
 
 
@@ -1389,6 +1437,206 @@ def phase_eval(smi: str, root: Path, device: str = "cuda") -> dict:
         fail(f"the eval on the card disagrees with the CPU: logits {err}, "
              f"psd/coh {rel}, acf {acf_err}")
     return {"gru_sequence": fwd, "gru_sequence_bwd": bwd}
+
+
+def _cascade(net, z: torch.Tensor, chunk: int | None) -> torch.Tensor:
+    """The synthesis cascade on device noise z: one-shot, or in chunks of
+    ``chunk`` with the carried states; x (n, T, C) float32 on the device."""
+    if chunk is None:
+        return synthesize_from_noise(net, z)[0]
+    carry, xs = None, []
+    for t0 in range(0, z.shape[1], chunk):
+        x, carry = synthesize_from_noise(net, z[:, t0:t0 + chunk], carry)
+        xs.append(x)
+    return torch.cat(xs, 1)
+
+
+def _bf16_distance(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(correlation, max |a - b|) over every element, in float64."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return torch.corrcoef(torch.stack([a, b]))[0, 1].item(), (a - b).abs().max().item()
+
+
+def _hold_bf16(what: str, corr: float, err: float) -> None:
+    if not (corr > BF16_CORR and err < BF16_MAX):
+        fail(f"{what}: corr {corr} (bound > {BF16_CORR}), max|diff| {err} "
+             f"(bound < {BF16_MAX})")
+
+
+def phase_synth_bf16(smi: str, root: Path, device: str = "cuda") -> int:
+    """bf16 synthesis, serving and long-horizon generation. A full-width
+    random TimeGAN at SYNTH_SHAPES in bf16 and f32 on the same noise (the
+    cascade alone on device noise, then synthesize() with its noise draw and
+    device->host copy; K1 forward's launches per chunk; the card's split
+    between K1 and the rest from the profiler); a --precision bf16 server
+    over HTTP against in-process bf16 synthesis; generate_long_synth on the
+    runs phase_train left in ``root`` at the long horizon with --denorm.
+    Returns K1 forward's launches in the phase. With ``device="cpu"`` it
+    rehearses the phase (patch SYNTH_SHAPES and LONG_LEN down first)."""
+    on_card = torch.device(device).type == "cuda"
+    gru_sequence.launches = 0
+    model = TimeGAN(TimeGANConfig(), generator=torch.Generator().manual_seed(21),
+                    device=device).eval()
+    nets = {"f32": model, "bf16": cast_floating(params_tree(model), torch.bfloat16)}
+    gen = torch.Generator(device=device).manual_seed(22)
+    for n, T, chunk in SYNTH_SHAPES:
+        z = sample_noise(gen, n, T, model.cfg.z_dim, device=device)
+        noise = {"f32": z, "bf16": z.to(torch.bfloat16)}
+        want = 3 * (1 if chunk is None else -(-T // chunk)) if on_card else 0
+        x, ms = {}, {}
+        for precision in ("f32", "bf16", "bf16", "f32"):      # in turns
+            before = gru_sequence.launches
+            _sync(device)
+            t0 = time.perf_counter()
+            x[precision] = _cascade(nets[precision], noise[precision], chunk)
+            _sync(device)
+            ms.setdefault(precision, []).append((time.perf_counter() - t0) * 1e3)
+            if gru_sequence.launches - before != want:
+                fail(f"{precision} cascade ({n}, {T}, chunk {chunk}): "
+                     f"{gru_sequence.launches - before} gru_sequence launches, "
+                     f"expected {want}")
+        corr, err = _bf16_distance(x["bf16"], x["f32"])
+        what = f"n={n} T={T}" + ("" if chunk is None else f" time_chunk={chunk}")
+        host = {}
+        for precision in ("f32", "bf16"):
+            _sync(device)
+            t0 = time.perf_counter()
+            X = synthesize(model, n, T, generator=torch.Generator(device=device)
+                           .manual_seed(0), time_chunk=chunk, precision=precision)
+            host[precision] = (time.perf_counter() - t0) * 1e3
+            if X.shape != (n, T, CHANNELS) or X.dtype != np.float32:
+                fail(f"synthesize {what} {precision}: {X.shape} {X.dtype}")
+        rates = {p: n * T / min(v) * 1e3 for p, v in ms.items()}
+        print(f"[synth-bf16] {what}: cascade f32 {min(ms['f32']):.3f} ms, bf16 "
+              f"{min(ms['bf16']):.3f} ms (best of 2 in turns; {n / min(ms['f32']) * 1e3:.1f} "
+              f"/ {n / min(ms['bf16']) * 1e3:.1f} windows/s, {rates['f32']:.4g} / "
+              f"{rates['bf16']:.4g} samples/s; bf16/f32 time "
+              f"{min(ms['bf16']) / min(ms['f32']):.3f}); synthesize() with noise and "
+              f"device->host f32 {host['f32']:.1f} ms, bf16 {host['bf16']:.1f} ms; "
+              f"gru_sequence launches {want} a run; bf16 vs f32 corr {corr:.6f} "
+              f"max|diff| {err:.3e} (bounds > {BF16_CORR}, < {BF16_MAX}) | {smi}",
+              flush=True)
+        _hold_bf16(f"bf16 vs f32 at {what}", corr, err)
+        if chunk is not None:
+            one = _cascade(nets["bf16"], noise["bf16"], None)
+            corr, err = _bf16_distance(x["bf16"], one)
+            print(f"[synth-bf16] {what}: chunked bf16 vs one-shot bf16 corr "
+                  f"{corr:.9f} max|diff| {err:.3e}, bitwise equal "
+                  f"{bool(torch.equal(x['bf16'], one))}", flush=True)
+            _hold_bf16(f"chunked bf16 vs one-shot at {what}", corr, err)
+        del x, noise, z
+    if on_card:
+        _profile_synth(nets, smi)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, real = _write_runs(Path(tmp))
+        reg = ModelRegistry(runs, real, device=device)
+        srv = make_server(reg, "127.0.0.1", 0, SERVE_BATCH, TIME_CHUNK, precision="bf16")
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            first = {"run": "posture1_no_exo", "n": SERVE_BATCH, "seq_len": TIME_CHUNK,
+                     "seed": 0}
+            for body, chunks in ((first, 1), (first, 1),      # cold, then warm
+                                 ({"run": "posture2_with_exo", "n": 16,
+                                   "seq_len": LONG_LEN, "seed": 2, "denorm": True},
+                                  -(-LONG_LEN // TIME_CHUNK))):
+                before = gru_sequence.launches
+                X, wall = _post(srv.server_address, body)
+                got = gru_sequence.launches - before
+                args = (body["run"], body["n"], body["seq_len"], body["seed"],
+                        body.get("denorm", False), SERVE_BATCH, TIME_CHUNK)
+                ref = reg.synthesize(*args, precision="bf16")
+                f32 = reg.synthesize(*args)
+                corr, err = _bf16_distance(torch.from_numpy(X), torch.from_numpy(f32))
+                pack = {}
+                for what, arr in (("bf16", X), ("f32", f32)):
+                    t0 = time.perf_counter()
+                    pack[what] = (_npz_bytes(arr), (time.perf_counter() - t0) * 1e3)
+                print(f"[synth-bf16] --precision bf16 server {json.dumps(body)} -> "
+                      f"{X.shape} in {wall * 1e3:.1f} ms, gru_sequence launches {got}; "
+                      f"equal to in-process bf16 synthesize {np.array_equal(X, ref)}; "
+                      f"vs f32 corr {corr:.6f} max|diff| {err:.3e}; npz packing of "
+                      f"these windows {pack['bf16'][1]:.1f} ms ({pack['bf16'][0] / 1e6:.2f} "
+                      f"MB), of the f32 windows {pack['f32'][1]:.1f} ms "
+                      f"({pack['f32'][0] / 1e6:.2f} MB) | {smi}", flush=True)
+                if (X.dtype != np.float32 or not np.array_equal(X, ref)
+                        or got != (3 * chunks if on_card else 0)):
+                    fail(f"bf16 server {body}: {X.dtype}, launches {got}, equal "
+                         f"{np.array_equal(X, ref)}")
+                # denorm scales the windows by up to ~100: the bounds are
+                # those of the normalised windows
+                scale = np.abs(reg.models[body["run"]]["scale_range"]).max() \
+                    if body.get("denorm") else 1.0
+                _hold_bf16(f"bf16 server vs f32 {body}", corr, err / scale)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+
+    before = gru_sequence.launches
+    t0 = time.perf_counter()
+    written = generate_long_synth_cli(
+        ["--runs_dir", str(root / "runs"), "--real_dir", str(root / "data"),
+         "--gen_len", str(LONG_LEN), "--time_chunk", str(LONG_CHUNK), "--denorm",
+         "--device", device])
+    wall = time.perf_counter() - t0
+    got = gru_sequence.launches - before
+    want = 3 * -(-LONG_LEN // LONG_CHUNK) * N_BUCKETS if on_card else 0
+    first = sorted(written)[0]
+    with np.load(written[first]) as f:
+        X = f["X"]
+    with np.load(root / "data" / f"{first}.npz") as f:
+        mn, rg = f["scale_min"], f["scale_range"]
+    best, _ = load_checkpoint(root / "runs" / first / "ckpt_best.npz")
+    ref = synthesize(from_jax_params(best["model"], device=device).eval(), N_WINDOWS,
+                     LONG_LEN, generator=torch.Generator(device=device).manual_seed(0),
+                     time_chunk=LONG_CHUNK) * rg + mn
+    print(f"[synth-bf16] generate_long_synth --gen_len {LONG_LEN} --time_chunk "
+          f"{LONG_CHUNK} --denorm on {len(written)} runs in {wall:.2f} s "
+          f"({N_BUCKETS * N_WINDOWS * LONG_LEN / wall:.4g} samples/s, files "
+          f"included); gru_sequence launches {got} (expected {want}); {first}: "
+          f"{X.shape}, equal to synthesize + denorm {np.array_equal(X, ref)} | {smi}",
+          flush=True)
+    if (len(written) != N_BUCKETS or got != want or not np.array_equal(X, ref)
+            or X.shape != (N_WINDOWS, LONG_LEN, CHANNELS)):
+        fail(f"generate_long_synth: {len(written)} files, launches {got}, "
+             f"{first} {X.shape}")
+    for name, path in written.items():
+        with np.load(path) as f:
+            if f["X"].shape != (N_WINDOWS, LONG_LEN, CHANNELS) \
+                    or not np.isfinite(f["X"]).all():
+                fail(f"{name}: {path.name} {f['X'].shape}")
+        if find_synth_npz(root / "runs" / name) != path:
+            fail(f"{name}: the eval would not pick {path.name} first")
+    return gru_sequence.launches
+
+
+def _profile_synth(nets: dict, smi: str) -> None:
+    """The card's time in one cascade at bench.py's shape, per precision:
+    K1 against the rest (projections, casts)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n, T, _ = SYNTH_SHAPES[0]
+    z = torch.rand((n, T, nets["f32"].cfg.z_dim), device="cuda")
+    for precision, net in nets.items():
+        zp = z.to(torch.bfloat16) if precision == "bf16" else z
+        _cascade(net, zp, None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _cascade(net, zp, None)
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        dev = sum(e.self_device_time_total for e in on_card) / 1e3
+        k1 = sum(e.self_device_time_total for e in on_card
+                 if "gru_seq_fwd_kernel" in e.key) / 1e3
+        top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
+        print(f"[profile] cascade n={n} T={T} {precision}: device time {dev:.3f} ms, "
+              f"gru_sequence {k1:.3f} ms ({100 * k1 / dev:.1f} %), the rest "
+              f"{dev - k1:.3f} ms; largest: " + "; ".join(
+                  f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                  for e in top) + f" | {smi}", flush=True)
 
 
 def _seq_launches(n: int, layers: int, ae: int, sup: int, gan: int) -> tuple:
@@ -2266,6 +2514,7 @@ def phase_cgan_conv(smi: str, device: str = "cuda") -> None:
               f"{res2['g_state'].count} G and {res2['d_state'].count} D updates, "
               f"artifacts and metrics.csv as expected | {smi}", flush=True)
         served = _conv_serve(smi, run, device)
+        phase_cgan_eval(smi, Path(tmp), device)
     for variant, what in (("v1", "conv v1 B=8, R1 on"), ("v2", "conv v2 B=8, keep masks")):
         _cgan_step_check(smi, device, what, seed=9, arch="conv",
                          **(cgan_train.V2_OVERRIDES if variant == "v2" else {}))
@@ -2310,6 +2559,137 @@ def phase_cgan_conv(smi: str, device: str = "cuda") -> None:
         fail(f"the conv CGAN phase launched a hand kernel: {counts}")
     if served < 1:
         fail("the conv generator served no request")
+
+
+def _read_csv(path: Path) -> tuple[list[str], np.ndarray]:
+    """A metric CSV's header and its numeric columns (after level, posture
+    and, for the predictive one, split)."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    skip = 3 if rows[0][2] == "split" else 2
+    return rows[0], np.array([[float(v) for v in r[skip:]] for r in rows[1:]])
+
+
+CGAN_CSV_HEADERS = {"metrics_discriminative.csv": ["level", "posture", "acc", "auc"],
+                    "metrics_predictive.csv": ["level", "posture", "split", "rmse", "r2"],
+                    "metrics_stats.csv": ["level", "posture", "psd_l1", "acf_l1", "coh_l1"]}
+
+
+def _check_cgan_csvs(out: Path, n_real: int, n_gen: int, n_postures: int) -> None:
+    """The CSV trio of one evaluation of ``n_postures`` postures, ``n_real``
+    and ``n_gen`` windows a posture: the JAX package's headers, finite
+    values, one global row and one a posture over the guards (20 windows
+    for the discriminative rows, 10 a side for the others; two a posture in
+    the predictive one)."""
+    for name, header in CGAN_CSV_HEADERS.items():
+        got, values = _read_csv(out / name)
+        guarded = (n_real + n_gen >= 20 if name == "metrics_discriminative.csv"
+                   else min(n_real, n_gen) >= 10)
+        rows = (2 if name == "metrics_predictive.csv" else 1) * (
+            1 + n_postures * guarded)
+        if got != header or values.shape[0] != rows or not np.isfinite(values).all():
+            fail(f"{out / name}: header {got}, {values.shape[0]} rows (expected "
+                 f"{rows}), finite {np.isfinite(values).all()}")
+
+
+def _rows_within(what: str, card: list, host: list, n_test: dict) -> float:
+    """Largest departure of the card's metric rows from the CPU's, each in
+    units of its tolerance; fails past 1."""
+    worst = 0.0
+    if len(card) != len(host):
+        fail(f"{what}: {len(card)} rows on the card, {len(host)} on the CPU")
+    for c, h in zip(card, host):
+        for k, v in h.items():
+            if k in ("level", "posture", "split"):
+                if c[k] != v:
+                    fail(f"{what}: {k} {c[k]} != {v}")
+                continue
+            tol = {"acc": 1.0 / n_test.get(h["posture"], 1),
+                   "auc": CGAN_EVAL_AUC_TOL}.get(k, CGAN_EVAL_ATOL + CGAN_EVAL_RTOL * abs(v))
+            worst = max(worst, abs(c[k] - v) / tol)
+    if worst > 1.0:
+        fail(f"{what}: the card's rows depart from the CPU's by {worst:.3f} of "
+             f"their tolerance")
+    return worst
+
+
+def phase_cgan_eval(smi: str, root: Path, device: str = "cuda") -> None:
+    """Both CGAN eval CLIs (eegsynth_torch.eval.cgan_drivers) on the conv
+    runs phase_cgan_conv left in ``root``: ``condition`` on no_exo (v1, the
+    scripts' 400 generated windows a posture) and ``posture`` on the v2
+    run of posture 1; the CSVs checked; the time split into generation,
+    features, fits and statistics (the features timed alone at the same
+    shape); then the three metric functions on the card against the CPU."""
+    data = root / "cgan_data"
+    t0 = time.perf_counter()
+    secs = cgan_eval_cli(["condition", "--data-dir", str(data), "--runs-root",
+                          str(root / "conv_runs"), "--save-root", str(root / "cgan_eval"),
+                          "--condition", "no_exo", "--samples-per-posture",
+                          str(CGAN_EVAL_SAMPLES), "--device", device])["no_exo"]
+    wall = time.perf_counter() - t0
+    _check_cgan_csvs(root / "cgan_eval" / "no_exo", CGAN_WINDOWS, CGAN_EVAL_SAMPLES, 9)
+    n_feat = 9 * (CGAN_WINDOWS + CGAN_EVAL_SAMPLES)
+    x = np.random.default_rng(0).uniform(0, 1, (n_feat, CHANNELS, SEQ_LEN)) \
+        .astype(np.float32)
+    feat_s = []
+    for _ in range(3):
+        _sync(device)
+        t1 = time.perf_counter()
+        psd_features_tensor(x, device=device)
+        _sync(device)
+        feat_s.append(time.perf_counter() - t1)
+    del x
+    feat = min(feat_s)
+    fits = secs["discriminative"] - feat + secs["predictive"]
+    print(f"[cgan-eval] condition no_exo (v1 conv generator), 9 x {CGAN_WINDOWS} real "
+          f"+ 9 x {CGAN_EVAL_SAMPLES} generated windows: {wall:.2f} s; generation "
+          f"{secs['generation']:.3f} s, discriminative {secs['discriminative']:.3f} s "
+          f"(features of {n_feat} host windows alone {feat:.4f} s), predictive "
+          f"{secs['predictive']:.3f} s, statistics {secs['statistics']:.3f} s; fits "
+          f"(logistic + ridge) {fits:.3f} s; CSVs checked, finite | {smi}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    done = cgan_eval_cli(["posture", "--data-dir", str(data), "--runs-root",
+                          str(root / "conv_v2"), "--save-root",
+                          str(root / "cgan_eval_posture"), "--device", device])
+    wall = time.perf_counter() - t0
+    if done != [1]:
+        fail(f"the posture eval evaluated postures {done}, expected [1]")
+    for sub in ("posture1", "global"):
+        _check_cgan_csvs(root / "cgan_eval_posture" / sub, 2 * CGAN_WINDOWS,
+                         2 * CGAN_WINDOWS, 1)
+    print(f"[cgan-eval] posture (v2 conv generator of posture 1, 'match': "
+          f"{CGAN_WINDOWS} + {CGAN_WINDOWS} windows a side) and global/ in {wall:.2f} s; "
+          f"postures 2-9 skipped (no generator); CSVs finite | {smi}", flush=True)
+
+    # card against CPU on the same arrays, outside the CLIs
+    np.random.seed(0)
+    Xr, yr, _ = load_condition_dataset(data, "no_exo")
+    G, bn, cfg, _ = cgan_train.load_generator(
+        root / "conv_runs" / "no_exo" / "CGAN_generator_no_exo_best.npz", device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    Xg = np.concatenate([cgan_train.generate_batch(G, bn, cfg, gen, CGAN_WINDOWS, p)
+                         .cpu().numpy() for p in range(9)])
+    yg = np.repeat(np.arange(1, 10), CGAN_WINDOWS)
+    n_test = {0: int(np.ceil(0.3 * (len(Xr) + len(Xg))))}
+    n_test.update({p: int(np.ceil(0.3 * 2 * CGAN_WINDOWS)) for p in range(1, 10)})
+    worst, times = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (("discriminative", cgan_eval.discriminative_metrics),
+                         ("predictive", cgan_eval.predictive_scores),
+                         ("statistics", cgan_eval.stats_similarity)):
+            rows = {}
+            for dev in (device, "cpu"):
+                t1 = time.perf_counter()
+                rows[dev] = fn(Xr, Xg, yr, yg, Path(tmp) / f"{name}.csv", device=dev)
+                times[(name, dev)] = time.perf_counter() - t1
+            worst[name] = _rows_within(name, rows[device], rows["cpu"], n_test)
+    print(f"[cgan-eval] card vs CPU, 9 x {CGAN_WINDOWS} real + 9 x {CGAN_WINDOWS} "
+          f"generated: " + "; ".join(
+              f"{k} {v:.3f} of the tolerance ({times[(k, device)]:.3f} s on the card, "
+              f"{times[(k, 'cpu')]:.3f} s on the CPU)" for k, v in worst.items())
+          + f" | {smi}", flush=True)
 
 
 def _conv_serve(smi: str, run: Path, device: str) -> int:
@@ -2375,6 +2755,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         train_launches = phase_train(smi, Path(tmp))
         eval_launches = phase_eval(smi, Path(tmp))
+        synth_launches = phase_synth_bf16(smi, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         seq_launches = phase_train_seq(smi, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2390,8 +2771,8 @@ def main() -> None:
     phase_cgan_conv(smi)
     launches = {**cgan_launches, **wide_attn_launches,
                 "gru_sequence": serve_launches + train_launches["gru_sequence"]
-                + eval_launches["gru_sequence"] + seq_launches["gru_sequence"]
-                + wide_launches["gru_sequence"],
+                + eval_launches["gru_sequence"] + synth_launches
+                + seq_launches["gru_sequence"] + wide_launches["gru_sequence"],
                 "gru_sequence_bwd": train_launches["gru_sequence_bwd"]
                 + eval_launches["gru_sequence_bwd"] + seq_launches["gru_sequence_bwd"]
                 + wide_launches["gru_sequence_bwd"],

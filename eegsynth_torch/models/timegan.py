@@ -36,7 +36,9 @@ from typing import Any
 import torch
 from torch import nn
 
-from eegsynth_torch.nn.gru import GRULayer, GRUStack, gru_apply_time_major
+from eegsynth_torch.nn.gru import (
+    GRULayer, GRUStack, gru_apply_time_major, gru_recurrence,
+)
 from eegsynth_torch.nn.layers import Dense, linear
 from eegsynth_torch.nn.gru_sequence import MAX_HIDDEN
 from eegsynth_torch.nn.multigru import multigru_disc_inputs
@@ -260,13 +262,14 @@ def _fusable(model: TimeGAN | Params) -> bool:
 
 def cascade_init_carry(model: TimeGAN | Params, batch: int, *,
                        device: torch.device | str) -> Carry:
-    """Zero hidden states (h_gen, h_sup, h_rec) for the G→S→R cascade."""
+    """Zero hidden states (h_gen, h_sup, h_rec) for the G→S→R cascade. They
+    are float32 whatever the compute dtype: they are K1's recurrence state."""
     p = _tree(model)
     out = []
     for net in ("generator", "supervisor", "recovery"):
         w_hh = p[net]["gru"][0]["w_hh"]
         out.append(torch.zeros((*w_hh.shape[:-2], batch, w_hh.shape[-1]),
-                               device=device))
+                               dtype=torch.float32, device=device))
     return tuple(out)
 
 
@@ -280,20 +283,28 @@ def gen_refine_carry(model: TimeGAN | Params, z: torch.Tensor, carry: Carry,
     recurrence launch per network, time-major throughout, with each layer's
     ``h0`` taken from the carry and the new carry taken from each layer's last
     output row. A GRU is strictly causal, so chunks with threaded carries
-    equal one full-length run. Needs the single-layer configuration."""
+    equal one full-length run. Needs the single-layer configuration.
+
+    The compute dtype is z's, which must be the tree's: float32, or
+    bfloat16 for a tree cast by ``nn.precision.cast_floating``. The
+    projections run in it; each recurrence runs in float32
+    (:func:`~eegsynth_torch.nn.gru.gru_recurrence`) and its output is cast
+    back, while the carry keeps the float32 last rows, so a chunked
+    half-precision run equals the one-shot run too."""
     if not _fusable(model):
         raise ValueError("gen_refine_carry needs single-layer GRU stacks")
     p = _tree(model)
     g, s, r = p["generator"], p["supervisor"], p["recovery"]
     h_g, h_s, h_r = carry
-    ys_g = gru_apply_time_major(_layer(g["gru"][0]), z.transpose(-3, -2), h_g)
-    ys_s = gru_apply_time_major(_layer(s["gru"][0]), _proj(g["proj"], ys_g), h_s)
-    h_hat = _proj(s["proj"], ys_s)                            # (…, T, B, z)
+    dt = z.dtype
+    ys_g = gru_recurrence(_layer(g["gru"][0]), z.transpose(-3, -2), h_g)
+    ys_s = gru_recurrence(_layer(s["gru"][0]), _proj(g["proj"], ys_g.to(dt)), h_s)
+    h_hat = _proj(s["proj"], ys_s.to(dt))                     # (…, T, B, z)
     last = lambda ys: ys[..., -1, :, :].clone()               # noqa: E731
     if not with_decode:
         return (last(ys_g), last(ys_s), h_r), h_hat.transpose(-3, -2)
-    ys_r = gru_apply_time_major(_layer(r["gru"][0]), h_hat, h_r)
-    x_hat = _proj(r["out"], ys_r)                             # (…, T, B, C)
+    ys_r = gru_recurrence(_layer(r["gru"][0]), h_hat, h_r)
+    x_hat = _proj(r["out"], ys_r.to(dt))                      # (…, T, B, C)
     carry_out = (last(ys_g), last(ys_s), last(ys_r))
     return carry_out, (h_hat.transpose(-3, -2), x_hat.transpose(-3, -2))
 
@@ -302,8 +313,10 @@ def fused_gen_refine(model: TimeGAN | Params, z: torch.Tensor,
                      with_decode: bool = False):
     """Ĥ = supervisor(generator(z)) (and optionally X̂ = recovery(Ĥ)).
 
-    Returns ``h_hat`` or ``(h_hat, x_hat)``. Falls back to the composed
-    functions for multi-layer stacks."""
+    Returns ``h_hat`` or ``(h_hat, x_hat)`` in z's dtype (see
+    :func:`gen_refine_carry`). Falls back to the composed functions for
+    multi-layer stacks, whose layers each run their recurrence in float32
+    and cast back."""
     p = _tree(model)
     if not _fusable(p):
         h_hat = refine_latent(p, gen_latent(p, z))

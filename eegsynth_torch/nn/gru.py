@@ -17,6 +17,10 @@ Two recurrences, picked by ``impl``:
   It is a path of its own, not a fallback for K1, and never touches K1's
   launch counters.
 
+A half-precision layer (bfloat16 synthesis) projects its input in its own
+dtype and runs the recurrence in float32 (:func:`gru_recurrence`), so K1
+only ever sees float32.
+
 Weights may carry leading axes (the stacked buckets of the multi-bucket
 trainer, ``nb`` first); inputs then carry the same leading axes.
 """
@@ -41,18 +45,39 @@ class GRULayer(NamedTuple):
     b_hh: torch.Tensor
 
 
-def gru_apply_time_major(layer: GRULayer, x: torch.Tensor, h0: torch.Tensor,
-                         impl: str = "kernel") -> torch.Tensor:
-    """Time-major layer: x (…, T, B, in), h0 (…, B, H) → ys (…, T, B, H)."""
+_HALF_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def gru_recurrence(layer: GRULayer, x: torch.Tensor, h0: torch.Tensor,
+                   impl: str = "kernel") -> torch.Tensor:
+    """Time-major layer: x (…, T, B, in), h0 (…, B, H) → ys (…, T, B, H).
+
+    The input projection runs in the layer's dtype. A half-precision
+    layer's recurrence runs in float32: its xp, W_hh, b_hh and h0 are cast
+    to float32 (the rule of the JAX ``gru_apply_pallas`` for half-precision
+    callers of the GRU kernel), so K1 only ever sees float32, and ys stays
+    float32 for callers that carry its last row. Other dtypes (float32, and
+    the float64 of gradient checks) run as they come."""
     xp = linear(x, layer.w_ih, layer.b_ih)                      # (…, T, B, 3H)
     w_hh_t = layer.w_hh.transpose(-1, -2)
     b_hh = layer.b_hh.unsqueeze(-2)
+    if xp.dtype in _HALF_DTYPES:
+        xp, w_hh_t, b_hh = xp.float(), w_hh_t.float(), b_hh.float()
+    h0 = h0.to(xp.dtype)
     if impl == "plain":
         return gru_sequence_reference(xp, w_hh_t, b_hh, h0)
     if impl != "kernel":
         raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
     return gru_sequence(xp.contiguous(), w_hh_t.contiguous(), b_hh.contiguous(),
                         h0.contiguous())
+
+
+def gru_apply_time_major(layer: GRULayer, x: torch.Tensor, h0: torch.Tensor,
+                         impl: str = "kernel") -> torch.Tensor:
+    """Time-major layer: x (…, T, B, in), h0 (…, B, H) → ys (…, T, B, H) in
+    x's dtype; a half-precision layer runs :func:`gru_recurrence` in float32
+    and casts ys back."""
+    return gru_recurrence(layer, x, h0, impl).to(x.dtype)
 
 
 def gru_apply(layer: GRULayer, x: torch.Tensor, h0: torch.Tensor | None = None,

@@ -11,6 +11,9 @@ caps, error codes and flags (``--platform`` becomes ``--device``):
   ``--serve_batch`` and the sequence axis is streamed in ``--time_chunk``
   chunks with carried GRU state (see ``train.timegan.synthesize``), so each
   chunk is three launches of the GRU sequence kernel,
+- ``--precision bf16``: TimeGAN requests run the cascade in bfloat16 around
+  K1's float32 recurrences and answer float32 windows; CGAN requests stay
+  float32, as in the JAX server,
 - optional per-bucket denormalization with the real scalers,
 - ``--cgan_root``: CGAN generators, conv or transformer
   (``<root>/<tag>/CGAN_generator_<tag>_{best,last}.npz``, the architecture
@@ -55,6 +58,7 @@ import numpy as np
 import torch
 
 from eegsynth_torch.convert import from_jax_params
+from eegsynth_torch.nn.precision import compute_dtype
 from eegsynth_torch.train.cgan import generate_batch, load_generator
 from eegsynth_torch.train.checkpoint import (
     find_checkpoint, load_checkpoint, load_meta,
@@ -200,9 +204,7 @@ class ModelRegistry:
 
 def make_handler(reg: ModelRegistry, serve_batch: int, time_chunk: int,
                  precision: str = "f32"):
-    if precision != "f32":
-        raise NotImplementedError(f"--precision {precision}: only f32 serving "
-                                  "is ported")
+    compute_dtype(precision)         # an unknown precision raises ValueError
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet access log to stdout
@@ -339,7 +341,10 @@ def main(argv: list[str] | None = None):
                     help="fixed sequence chunk for long requests")
     ap.add_argument("--precision", type=str, default="f32",
                     choices=["f32", "bf16"],
-                    help="serving compute precision (bf16 is not ported yet)")
+                    help="TimeGAN serving compute precision: bf16 runs the "
+                         "cascade's projections in bfloat16 around K1's "
+                         "float32 recurrences (f32 weights and outputs); the "
+                         "CGAN route stays f32")
     ap.add_argument("--warmup", action="store_true",
                     help="build the kernels and run the serving shape for "
                          "every run at startup")

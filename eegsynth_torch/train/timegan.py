@@ -12,7 +12,7 @@ Counterpart of ``eegsynth/train/timegan.py``:
 - :func:`train_single_npz`, the sequential trainer of one bucket, and the
   CLI of ``scripts/train_timegan.py`` (:func:`main`; ``--parallel_buckets``
   runs ``timegan_multi.train_all_buckets``);
-- ``synthesize``: Z → decode(refine(gen(Z))).
+- ``synthesize``: Z → decode(refine(gen(Z))), in float32 or bfloat16.
 
 Every step runs on stacked buckets (a leading axis ``nb``); the sequential
 trainer is the stacked machinery at nb 1. Randomness is passed in: a step
@@ -27,8 +27,7 @@ the discriminator's plain recurrence: the ``_R1_FWD_OVER_REV=False`` branch
 of the JAX package, with the same value and θ-gradient as its default
 forward-over-reverse surrogate.
 
-Not ported: ``precision="bf16"`` synthesis; ``mesh``, multihost, Orbax
-checkpoints and ``profile_dir``.
+Not ported: ``mesh``, multihost, Orbax checkpoints and ``profile_dir``.
 
     python -m eegsynth_torch.train.timegan --config configs/timegan_config.json \\
         --data_dir ./preprocessed --out_dir ./timegan_runs [--parallel_buckets]
@@ -54,9 +53,10 @@ from eegsynth_torch.losses.timegan import (
 from eegsynth_torch.models.timegan import (
     Carry, Params, TimeGAN, TimeGANConfig, _fusable, adaptive_dims,
     cascade_init_carry, decode, discriminate, encode, fused_disc_inputs,
-    fused_gen_refine, gen_latent, gen_refine_carry,
+    fused_gen_refine, gen_latent, gen_refine_carry, params_tree,
     reconstruct, refine_latent, sample_noise, split_masks, timegan_init_stacked,
 )
+from eegsynth_torch.nn.precision import cast_floating, compute_dtype
 from eegsynth_torch.train import checkpoint as ckpt_io
 from eegsynth_torch.train.optim import Optimizer, OptState, make_gan_opts
 from eegsynth_torch.tree import take, tree_map
@@ -473,22 +473,26 @@ class BestTracker:
 
 
 @torch.inference_mode()
-def synthesize_from_noise(model: TimeGAN, z: torch.Tensor,
+def synthesize_from_noise(model: TimeGAN | Params, z: torch.Tensor,
                           carry: Carry | None = None):
     """One dispatch of the synthesis cascade on given noise z (B, T, z_dim).
 
-    Returns ``(x_hat (B, T, C), carry_out)``; ``carry=None`` starts from zero
-    hidden states (the JAX ``_synth_run``), a carry continues a chunked run
-    (``_synth_step``). Multi-layer stacks take the composed path, one-shot
-    only, and return ``carry_out=None``."""
+    Returns ``(x_hat (B, T, C) float32, carry_out)``; ``carry=None`` starts
+    from zero hidden states (the JAX ``_synth_run``), a carry continues a
+    chunked run (``_synth_step``). ``model`` may be a params tree cast to
+    bfloat16 (``nn.precision.cast_floating``) with z cast likewise: the
+    cascade then computes in bfloat16 around K1's float32 recurrences, the
+    carry stays float32 and x_hat returns in float32, as the JAX package's
+    do. Multi-layer stacks take the composed path, one-shot only, and return
+    ``carry_out=None``."""
     if not _fusable(model):
         if carry is not None:
             raise ValueError("a carried state needs single-layer GRU stacks")
-        return fused_gen_refine(model, z, with_decode=True)[1], None
+        return fused_gen_refine(model, z, with_decode=True)[1].float(), None
     if carry is None:
         carry = cascade_init_carry(model, z.shape[0], device=z.device)
     carry, (_, x_hat) = gen_refine_carry(model, z, carry, with_decode=True)
-    return x_hat, carry
+    return x_hat.float(), carry
 
 
 @torch.inference_mode()
@@ -506,23 +510,29 @@ def synthesize(model: TimeGAN, n: int, seq_len: int, *,
     ``time_chunk`` of noise, then slices. Chunk outputs land on the host, so
     device memory stays bounded at one chunk. The same generator state
     reproduces outputs only for identical (n, seq_len, batch, time_chunk).
-    Multi-layer stacks run one-shot."""
-    if precision != "f32":
-        raise NotImplementedError(f"precision={precision!r}: only 'f32' "
-                                  "synthesis is ported")
+    Multi-layer stacks run one-shot.
+
+    ``precision="bf16"`` runs the cascade in bfloat16 (the JAX
+    ``synthesize(precision="bf16")``): the model's weights are cast once per
+    call, the noise is drawn in float32 and cast, the recurrences run in
+    float32 on K1 (see :func:`synthesize_from_noise`), and the windows return
+    in float32. An unknown precision raises ``ValueError``."""
+    dtype = compute_dtype(precision)
     device = next(model.parameters()).device
+    net = cast_floating(params_tree(model), dtype)     # no copy in float32
     z_dim = model.cfg.z_dim
     chunked = (time_chunk is not None and time_chunk < seq_len
                and _fusable(model))
 
+    def noise(b: int, t: int) -> torch.Tensor:
+        return sample_noise(generator, b, t, z_dim, device=device).to(dtype)
+
     def run_batch(b: int) -> np.ndarray:
         if not chunked:
-            z = sample_noise(generator, b, seq_len, z_dim, device=device)
-            return synthesize_from_noise(model, z)[0].cpu().numpy()
+            return synthesize_from_noise(net, noise(b, seq_len))[0].cpu().numpy()
         carry, pieces = None, []
         for t0 in range(0, seq_len, time_chunk):
-            z = sample_noise(generator, b, time_chunk, z_dim, device=device)
-            x, carry = synthesize_from_noise(model, z, carry)
+            x, carry = synthesize_from_noise(net, noise(b, time_chunk), carry)
             pieces.append(x[:, :min(time_chunk, seq_len - t0)].cpu().numpy())
         return np.concatenate(pieces, axis=1)
 

@@ -7,7 +7,8 @@ cascade chunked against one-shot, the eval's GRU(24) scorers and
 statistics against the CPU, the sequential trainer (one GAN step of a
 2-layer stack with dropout masks against the CPU, and a short run), and the
 conv CGAN (a v1 and a v2 step against the CPU, a bfloat16 D step, the
-generator against the CPU).
+generator against the CPU), bfloat16 synthesis against the CPU, and the
+CGAN eval's metric functions against the CPU.
 
 Every test skips without a card: the kernels have no CPU mode, and a
 test of the card's route has nothing to compare without one. This file
@@ -20,10 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+from eegsynth_torch.eval import cgan_eval
 from eegsynth_torch.eval import classifiers as eval_classifiers
 from eegsynth_torch.eval.stats import statistical_similarity
 from eegsynth_torch.models.timegan import (
-    TimeGAN, TimeGANConfig, fused_disc_inputs, timegan_init_stacked,
+    TimeGAN, TimeGANConfig, fused_disc_inputs, params_tree, timegan_init_stacked,
 )
 from eegsynth_torch.nn.attention import (
     attention_dense, flash_attention, flash_dkv, flash_dkv_plain, flash_dq,
@@ -36,6 +38,7 @@ from eegsynth_torch.nn.gru_sequence import (
 from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
 )
+from eegsynth_torch.nn.precision import cast_floating
 from eegsynth_torch.train import cgan as cgan_train
 from eegsynth_torch.train import timegan as ttrain
 from eegsynth_torch.train.optim import make_gan_opts
@@ -775,3 +778,88 @@ def test_conv_generator_matches_cpu(cuda_device):
     got = cgan_train.generator_apply(to(G), to(bn), z.to(cuda_device),
                                      labels.to(cuda_device), cfg, train=False)[0]
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+# bf16 synthesis: tests/test_precision.py's bounds on JAX's bf16 against f32
+BF16_CORR, BF16_MAX = 0.999, 0.05
+
+
+def _bf16_close(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a, b = a.double().flatten().cpu(), b.double().flatten().cpu()
+    corr = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+    return corr > BF16_CORR and (a - b).abs().max().item() < BF16_MAX
+
+
+def test_bf16_synthesis_matches_cpu(cuda_device):
+    """The bf16 cascade (a cast tree, bf16 noise) on the card against the
+    CPU's and against the card's f32, by the bf16 bounds; 3 K1 launches a
+    chunk, the carry float32; chunked within the bounds of one-shot."""
+    model = TimeGAN(TimeGANConfig(), generator=torch.Generator().manual_seed(5),
+                    device="cpu").eval()
+    z = torch.rand((32, 3 * 64, 28), generator=torch.Generator().manual_seed(6))
+    tree = cast_floating(params_tree(model), torch.bfloat16)
+    want, _ = synthesize_from_noise(tree, z.to(torch.bfloat16))
+    card = tree_map(lambda t: t.to(cuda_device), tree)
+    zc = z.to(cuda_device, torch.bfloat16)
+    k1 = gru_sequence.launches
+    got, carry = synthesize_from_noise(card, zc)
+    torch.cuda.synchronize()
+    assert gru_sequence.launches - k1 == 3
+    assert got.dtype == torch.float32 and all(h.dtype == torch.float32 for h in carry)
+    assert _bf16_close(got, want)
+    f32, _ = synthesize_from_noise(model.to(cuda_device), z.to(cuda_device))
+    assert _bf16_close(got, f32)
+    carry, pieces = None, []
+    for t0 in range(0, zc.shape[1], 64):
+        x, carry = synthesize_from_noise(card, zc[:, t0:t0 + 64], carry)
+        pieces.append(x)
+    assert _bf16_close(torch.cat(pieces, 1), got)
+
+
+def test_k1_still_refuses_bf16(cuda_device):
+    """The bf16 path casts around K1; the wrapper itself takes float32 only."""
+    xp, w, b, h0 = (t.to(torch.bfloat16) for t in _inputs(8, 4, 16, cuda_device))
+    with pytest.raises(TypeError, match="float32"):
+        gru_sequence(xp, w, b, h0)
+
+
+def _cgan_eval_corpora():
+    rng = np.random.default_rng(0)
+    X, y = [], []
+    for shift, counts in ((0.5, {1: 30, 3: 24, 5: 26}), (0.4, {1: 30, 3: 22, 5: 28})):
+        xs, ys = [], []
+        for p, n in counts.items():
+            x = rng.standard_normal((n, 14, 768)).astype(np.float32)
+            xs.append(x + shift * np.sin(np.arange(768) / (3 + p)).astype(np.float32))
+            ys.append(np.full(n, p, np.int64))
+        X.append(np.concatenate(xs))
+        y.append(np.concatenate(ys))
+    return X[0], y[0], X[1], y[1]
+
+
+@pytest.mark.parametrize("v2_split", [False, True])
+def test_cgan_eval_metrics_match_cpu(cuda_device, tmp_path, v2_split):
+    """The CGAN eval's three metric families on the card against the CPU:
+    accuracy within one test row and AUC within 1e-3 (the same float64
+    Newton optimum on features that differ by float32 FFT rounding), the
+    rest within 1e-5 relative + 1e-6."""
+    Xr, yr, Xg, yg = _cgan_eval_corpora()
+    n_test = {0: np.ceil(0.3 * (len(Xr) + len(Xg)))}
+    n_test.update({p: np.ceil(0.3 * ((yr == p).sum() + (yg == p).sum()))
+                   for p in (1, 3, 5)})
+    for fn, kw in ((cgan_eval.discriminative_metrics, {"v2_split": v2_split}),
+                   (cgan_eval.predictive_scores, {}),
+                   (cgan_eval.stats_similarity, {})):
+        card = fn(Xr, Xg, yr, yg, tmp_path / "c.csv", device=cuda_device, **kw)
+        host = fn(Xr, Xg, yr, yg, tmp_path / "h.csv", device="cpu", **kw)
+        assert len(card) == len(host) > 1
+        for c, h in zip(card, host):
+            for k, v in h.items():
+                if k in ("level", "posture", "split"):
+                    assert c[k] == v
+                elif k == "acc":
+                    assert abs(c[k] - v) <= 1 / n_test[h["posture"]]
+                elif k == "auc":
+                    assert abs(c[k] - v) <= 1e-3
+                else:
+                    assert abs(c[k] - v) <= 1e-6 + 1e-5 * abs(v), (k, c[k], v)

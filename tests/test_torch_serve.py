@@ -218,11 +218,21 @@ def test_device_cuda_without_card_raises(dirs, monkeypatch):
 
 
 def test_unported_options_refused(dirs):
-    """bf16 serving is refused."""
+    """An unknown precision is refused; bf16 serving is taken, and its
+    windows are float32 within the bf16 bounds of the f32 ones."""
     reg = ModelRegistry(*dirs, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="precision"):
         make_server(reg, "127.0.0.1", 0, SERVE_BATCH, TIME_CHUNK,
-                    precision="bf16")
+                    precision="fp16")
+    srv = make_server(reg, "127.0.0.1", 0, SERVE_BATCH, TIME_CHUNK,
+                      precision="bf16")
+    srv.server_close()
+    args = (RUNS[0], 5, 40, 0, False, SERVE_BATCH, TIME_CHUNK)
+    x16 = reg.synthesize(*args, precision="bf16")
+    x32 = reg.synthesize(*args)
+    assert x16.shape == (5, 40, 3) and x16.dtype == np.float32
+    assert np.corrcoef(x16.ravel(), x32.ravel())[0, 1] > 0.999
+    assert np.abs(x16 - x32).max() < 0.05
 
 
 def _synth_cgan(addr, **body):

@@ -193,8 +193,11 @@ def test_synthesize_shapes_and_seed():
     assert X.shape == (5, 50, 14) and X.dtype == np.float32
     np.testing.assert_array_equal(X, run(batch=2, time_chunk=16))
     assert run().shape == (5, 50, 14)
-    with pytest.raises(NotImplementedError):
-        run(precision="bf16")
+    X16 = run(batch=2, time_chunk=16, precision="bf16")
+    assert X16.shape == (5, 50, 14) and X16.dtype == np.float32
+    np.testing.assert_array_equal(X16, run(batch=2, time_chunk=16, precision="bf16"))
+    with pytest.raises(ValueError, match="precision"):
+        run(precision="fp16")
 
 
 def test_synthesize_draws_full_last_chunk():
