@@ -2,7 +2,9 @@
 """Drive the port's main paths once on one CUDA card and check them: TimeGAN
 synthesis serving, multi-bucket TimeGAN training and the eval of what it
 synthesized, bf16 and long-horizon synthesis, sequential TimeGAN training
-through the CLI, and CGAN training, serving and eval, transformer and conv.
+through the CLI, the TimeGAN weight sweep, tuning, controls and
+--profile_dir, and CGAN training, serving and eval, transformer and conv,
+with the posture stack and the CGAN weight sweep.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
@@ -50,7 +52,7 @@ failure is swallowed):
              share), card-vs-CPU and chunked-vs-one-shot checks;
 5. train   — train_all_buckets on 18 random buckets of (63, 768, 14)
              (x14/z28/h56, the settings of configs/timegan_config.json with
-             1 AE epoch, 1 SUP epoch and 4 GAN steps); artifacts, finite
+             1 AE epoch, 1 SUP epoch and 3 GAN steps); artifacts, finite
              losses, every ckpt_best served back, the launch counts of K1
              forward, K1 backward and K2 against their expected counts, the
              median GAN-step time; the same on 2 buckets of (63, 768, 20)
@@ -73,11 +75,11 @@ failure is swallowed):
              the card's split between K1 and the rest; a --precision bf16
              server over HTTP against in-process bf16 synthesis;
              generate_long_synth on the 18 trained runs at --gen_len 8192
-             --time_chunk 1024 --denorm (files, launches, the first run
+             --time_chunk 1024 --denorm --n 8 (files, launches, the first run
              against synthesize + denorm, the eval picks each file);
 5c. train-seq — the CLI ``python -m eegsynth_torch.train.timegan`` in
-             this process: one bucket of (100, 768, 14) for 3 GAN steps at
-             chunk 2, resumed to 5 (log rows under one header, ckpt_latest's
+             this process: one bucket of (100, 768, 14) for 4 GAN steps at
+             chunk 2, resumed to 7 (log rows under one header, ckpt_latest's
              step and optimizer count, synthetic.npz), then 2 layers with
              dropout (K1 only); each run's launch counts against their
              expected counts; one GAN step of the 2-layer stack with dropout
@@ -85,6 +87,18 @@ failure is swallowed):
              B 64 and K2 against the composed route there; the stacked
              trainer's --ckpt_every and --resume on 2 buckets, the resumed
              log bit-identical to the uninterrupted one;
+5e. timegan-sweep — one random bucket of (63, 768, 14) through three
+             CLIs in this process: ``timegan_sweep`` (S 3, two equal points,
+             1 AE + 1 SUP epoch + 2 GAN steps, the statistics),
+             ``tune_bucket_weights`` (2 candidates x 2 replicas, 1 GAN
+             step) and ``disc_controls`` (two noise arms and half, 3 scorer
+             epochs); launch counts exact; whether the equal sweep points
+             are bitwise equal on the card; one stacked GAN step at nb 2
+             with per-member G weights against the CPU plain path;
+5f. profile-dir — ``--profile_dir`` of the TimeGAN CLI, sequential (one
+             bucket) and --parallel_buckets (two), one traced GAN step
+             each: the Chrome trace parses, and the hand kernels it holds
+             (events, device time) against the launches;
 6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
              heads 4, patch 8, batch 64) on 9 random posture buckets for 2
              epochs with flash attention forced; artifacts, finite
@@ -114,7 +128,18 @@ failure is swallowed):
              windows a posture) and posture (v2, posture 1), the CSVs
              checked, the time split into generation, features, fits and
              statistics; the three metric functions on the card against
-             the CPU.
+             the CPU;
+6d. cgan-multi — the conv v2 posture stack at B 64 on nine random
+             postures, one epoch, through ``python -m
+             eegsynth_torch.train.cgan_posture`` with --parallel-postures
+             and for one posture without; the artifacts; a stack member's
+             step (B 8) against its lone step on the card and on the CPU;
+6e. cgan-sweep — ``python -m eegsynth_torch.train.cgan_sweep``: the
+             transformer default (dim 256, depth 4, patch 8, tf_remat on)
+             at S 3 with two equal points, then conv at S 1, one epoch at
+             B 64 each, scored; whether the equal points are bitwise equal
+             on the card; a weighted remat step (R1 on) against the CPU;
+             the peak memory of one step at S 3 with and without remat.
 
 The last three lines are a JSON object listing each kernel (its launches in
 the main paths' runs, its error against the plain version, its time, the
@@ -150,6 +175,7 @@ from eegsynth_torch.eval import cgan_eval
 from eegsynth_torch.eval.cgan_drivers import main as cgan_eval_cli
 from eegsynth_torch.eval.classifiers import _run_grouped as eval_run_grouped
 from eegsynth_torch.eval.classifiers import discriminative_task
+from eegsynth_torch.eval.disc_controls import main as controls_cli
 from eegsynth_torch.eval.drivers import (
     find_synth_npz, load_pairs_by_condition, run_timegan_eval,
 )
@@ -176,6 +202,9 @@ from eegsynth_torch.nn.multigru import (
 from eegsynth_torch.nn.precision import cast_floating
 from eegsynth_torch.serve import ModelRegistry, make_server
 from eegsynth_torch.train import cgan as cgan_train
+from eegsynth_torch.train import cgan_multi, cgan_sweep
+from eegsynth_torch.train.cgan_posture import main as cgan_posture_cli
+from eegsynth_torch.train.cgan_sweep import main as cgan_sweep_cli
 from eegsynth_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from eegsynth_torch.train.optim import make_gan_opts
 from eegsynth_torch.train.timegan import (
@@ -184,6 +213,9 @@ from eegsynth_torch.train.timegan import (
 )
 from eegsynth_torch.train.timegan import main as timegan_cli
 from eegsynth_torch.train.timegan_multi import train_all_buckets
+from eegsynth_torch.train.timegan_sweep import main as timegan_sweep_cli
+from eegsynth_torch.train.timegan_sweep import timegan_weight_matrix
+from eegsynth_torch.tune_bucket_weights import main as tune_cli
 from eegsynth_torch.tree import tree_leaves, tree_map
 
 SERVE_BATCH, TIME_CHUNK = 256, 768
@@ -259,7 +291,7 @@ T1_SHAPES = ((1, 1, 1, 16), (1, 2, 1, 64), (2, 2, 1, 128), (1, 2, 1, 160),
 T1_RTOL = 5e-7
 # Training: 18 buckets (9 postures x 2 conditions) of 63 random windows
 N_BUCKETS, N_WINDOWS, SEQ_LEN, CHANNELS = 18, 63, 768, 14
-GAN_STEPS = 4
+GAN_STEPS = 3
 # The eval of the trained buckets: the scorers' epochs (the JAX package's
 # defaults), its CSVs' metric columns in the JAX package's order, and the
 # card against the CPU: a scorer stack's logits after 2 epochs (f32 over 768
@@ -272,13 +304,13 @@ EVAL_METRIC_COLS = ["disc_acc", "disc_auc", "rmse_tstr", "r2_tstr", "rmse_trts",
 EVAL_LOGIT_TOL, EVAL_STAT_RTOL, EVAL_ACF_TOL = 1e-4, 1e-5, 1e-10
 # The sequential trainer ([train-seq]): one bucket of 100 windows, so B 64
 # leaves a padded second batch in each AE and SUP epoch; the CLI for one
-# warm-up and 5 timed GAN steps at chunk 2, resumed to 9 (a short last
-# chunk); a 2-layer run with dropout; one GAN step of that stack at B 8
-# on the card against the CPU; the stacked trainer's ckpt_every / resume
-# on 2 buckets (the state saved at step 2 of 3)
-SEQ_WINDOWS, SEQ_BATCH, SEQ_RATE_STEPS, SEQ_RESUME_STEPS = 100, 64, 5, 9
+# warm-up and 3 timed GAN steps at chunk 2, resumed to 7 (a short last
+# chunk); a 2-layer run with dropout for 1 GAN step; one GAN step of that
+# stack at B 8 on the card against the CPU; the stacked trainer's
+# ckpt_every / resume on 2 buckets (the state saved at step 2 of 3)
+SEQ_WINDOWS, SEQ_BATCH, SEQ_RATE_STEPS, SEQ_RESUME_STEPS = 100, 64, 3, 7
 SEQ_GAN_STEPS = 1 + SEQ_RATE_STEPS
-SEQ_LAYERS_STEPS, SEQ_CHECK_BATCH = 2, 8
+SEQ_LAYERS_STEPS, SEQ_CHECK_BATCH = 1, 8
 # bf16 synthesis ([synth-bf16]): bench.py's synthesis shape (n 2048 x 768,
 # one-shot) and the long horizon (n 512 x 8192 one-shot, n 256 x 8192 in
 # chunks of 1024), each in bf16 and in f32 on the same noise. bf16 is held
@@ -286,10 +318,11 @@ SEQ_LAYERS_STEPS, SEQ_CHECK_BATCH = 2, 8
 # over 0.999, max |diff| under 0.05), and so is a chunked bf16 run to the
 # one-shot one (its carried states are K1's float32 rows; only cuBLAS's
 # bfloat16 products may differ across shapes). generate_long_synth runs on
-# [train]'s 18 runs at the long horizon.
+# [train]'s 18 runs at the long horizon, LONG_N windows a run (its time is
+# nearly all np.savez_compressed: 63 windows a run took 33-35 s).
 SYNTH_SHAPES = ((2048, 768, None), (512, 8192, None), (256, 8192, 1024))
 BF16_CORR, BF16_MAX = 0.999, 0.05
-LONG_LEN, LONG_CHUNK = 8192, 1024
+LONG_LEN, LONG_CHUNK, LONG_N = 8192, 1024, 8
 # Wide data: 20 channels give adaptive_dims' z40/h80 (K2's instance with KL
 # 32); a short run of 2 buckets
 WIDE_CHANNELS, WIDE_BUCKETS, WIDE_GAN_STEPS = 20, 2, 2
@@ -349,6 +382,22 @@ CGAN_EVAL_RTOL, CGAN_EVAL_ATOL = 1e-5, 1e-6
 # serve_batch 256; the card's X against the CPU plain generator on the same
 # noise for the first rows
 CGAN_SERVE_TOL, CGAN_SERVE_CHECK_ROWS = 1e-4, 32
+# The TimeGAN weight sweep ([timegan-sweep]) on one bucket of N_WINDOWS
+# windows: S 3 with two equal points, 2 GAN steps; tuning at 2 candidates x
+# 2 replicas (nb 4) for 1 GAN step; the controls' two noise arms and half,
+# one seed, a few scorer epochs. [profile-dir]: the traced CLI runs' GAN
+# steps, on windows of PROFILE_SEQ_LEN samples (the widths stay z28/h56): a
+# traced GAN step at T 768 wrote a trace of 500 MB (129 MB at T 192), since
+# the plain discriminator issues its operations step by step
+SWEEP_GRID = [{}, {}, {"gamma_acf": 0.1}]
+SWEEP_GAN_STEPS = 2
+TUNE_GRID, TUNE_REPLICAS, TUNE_GAN_STEPS = [{}, {"gamma_acf": 0.1}], 2, 1
+CONTROL_SIGMAS, CONTROL_EPOCHS = (0.001, 0.01), 3
+PROFILE_GAN_STEPS, PROFILE_SEQ_LEN = 1, 96
+# The CGAN sweep ([cgan-sweep]): S 3 with two equal points, scored at
+# CGAN_SWEEP_SAMPLES generated windows a posture
+CGAN_SWEEP_GRID = [{}, {}, {"psd_weight": 2.0, "fm_weight": 10.0}]
+CGAN_SWEEP_SAMPLES = 64
 
 
 def fail(msg: str) -> None:
@@ -1265,17 +1314,18 @@ def _check_cascade(model: TimeGAN, device: str) -> None:
 
 
 def _write_buckets(root: Path, n_buckets: int = N_BUCKETS,
-                   channels: int = CHANNELS) -> Path:
+                   channels: int = CHANNELS, seq_len: int | None = None) -> Path:
     """The first ``n_buckets`` of the 18 bucket NPZs
-    posture{1..9}_{no_exo,with_exo}.npz, random (63, 768, channels) float32
-    windows in [0, 1), from a seed, with fixed scalers (for --denorm)."""
+    posture{1..9}_{no_exo,with_exo}.npz, random (63, seq_len, channels)
+    float32 windows in [0, 1) (seq_len SEQ_LEN by default), from a seed,
+    with fixed scalers (for --denorm)."""
     data = root / "data"
     data.mkdir()
     rng = np.random.default_rng(0)
     names = [f"posture{p}_{c}" for p in range(1, 10) for c in ("no_exo", "with_exo")]
     for name in names[:n_buckets]:
         np.savez(data / f"{name}.npz",
-                 X=rng.uniform(0, 1, (N_WINDOWS, SEQ_LEN, channels))
+                 X=rng.uniform(0, 1, (N_WINDOWS, seq_len or SEQ_LEN, channels))
                  .astype(np.float32), fs=np.float32(128.0),
                  scale_min=np.linspace(-40, -20, channels, dtype=np.float32),
                  scale_range=np.linspace(30, 90, channels, dtype=np.float32))
@@ -1579,7 +1629,7 @@ def phase_synth_bf16(smi: str, root: Path, device: str = "cuda") -> int:
     written = generate_long_synth_cli(
         ["--runs_dir", str(root / "runs"), "--real_dir", str(root / "data"),
          "--gen_len", str(LONG_LEN), "--time_chunk", str(LONG_CHUNK), "--denorm",
-         "--device", device])
+         "--n", str(LONG_N), "--device", device])
     wall = time.perf_counter() - t0
     got = gru_sequence.launches - before
     want = 3 * -(-LONG_LEN // LONG_CHUNK) * N_BUCKETS if on_card else 0
@@ -1589,22 +1639,22 @@ def phase_synth_bf16(smi: str, root: Path, device: str = "cuda") -> int:
     with np.load(root / "data" / f"{first}.npz") as f:
         mn, rg = f["scale_min"], f["scale_range"]
     best, _ = load_checkpoint(root / "runs" / first / "ckpt_best.npz")
-    ref = synthesize(from_jax_params(best["model"], device=device).eval(), N_WINDOWS,
+    ref = synthesize(from_jax_params(best["model"], device=device).eval(), LONG_N,
                      LONG_LEN, generator=torch.Generator(device=device).manual_seed(0),
                      time_chunk=LONG_CHUNK) * rg + mn
     print(f"[synth-bf16] generate_long_synth --gen_len {LONG_LEN} --time_chunk "
-          f"{LONG_CHUNK} --denorm on {len(written)} runs in {wall:.2f} s "
-          f"({N_BUCKETS * N_WINDOWS * LONG_LEN / wall:.4g} samples/s, files "
+          f"{LONG_CHUNK} --denorm --n {LONG_N} on {len(written)} runs in {wall:.2f} s "
+          f"({N_BUCKETS * LONG_N * LONG_LEN / wall:.4g} samples/s, files "
           f"included); gru_sequence launches {got} (expected {want}); {first}: "
           f"{X.shape}, equal to synthesize + denorm {np.array_equal(X, ref)} | {smi}",
           flush=True)
     if (len(written) != N_BUCKETS or got != want or not np.array_equal(X, ref)
-            or X.shape != (N_WINDOWS, LONG_LEN, CHANNELS)):
+            or X.shape != (LONG_N, LONG_LEN, CHANNELS)):
         fail(f"generate_long_synth: {len(written)} files, launches {got}, "
              f"{first} {X.shape}")
     for name, path in written.items():
         with np.load(path) as f:
-            if f["X"].shape != (N_WINDOWS, LONG_LEN, CHANNELS) \
+            if f["X"].shape != (LONG_N, LONG_LEN, CHANNELS) \
                     or not np.isfinite(f["X"]).all():
                 fail(f"{name}: {path.name} {f['X'].shape}")
         if find_synth_npz(root / "runs" / name) != path:
@@ -1828,19 +1878,22 @@ def phase_step_check(smi: str, device: str = "cuda") -> None:
 
 def _step_check(smi: str, device: str, channels: int = CHANNELS, nb: int = 2,
                 B: int = 8, layers: int = 1, dropout: float = 0.0,
-                tag: str = "[check]") -> None:
+                tag: str = "[check]", weights: torch.Tensor | None = None) -> None:
     """One GAN step of ``nb`` buckets at batch ``B`` on the card against the
     CPU plain path, on the same parameters, draws and dropout masks: the
     logged values, the updated parameters and both optimizers' first
     moments. Without masks the D-step inputs come from K2 (5 K1 forward
-    launches and 1 K2); with them every recurrence is K1 (8 a layer)."""
+    launches and 1 K2); with them every recurrence is K1 (8 a layer).
+    ``weights`` (nb, 4) are per-bucket G-loss weights (the sweep's)."""
     params, hp, optD, d_state, optG, g_state, x, draws = _step_inputs(
         nb, B, 7, device, channels, layers, dropout)
+    w_card = None if weights is None else weights.to(device)
     cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)      # noqa: E731
     k1, k2 = gru_sequence.launches, multigru_disc_inputs.launches
     t0 = time.perf_counter()
     card_p, card_d, card_g, card_logs = gan_step(params, optD, d_state, optG,
-                                                 g_state, x, draws, 1, hp)
+                                                 g_state, x, draws, 1, hp,
+                                                 weights=w_card)
     _sync(device)
     card_s = time.perf_counter() - t0
     k1, k2 = gru_sequence.launches - k1, multigru_disc_inputs.launches - k2
@@ -1853,7 +1906,9 @@ def _step_check(smi: str, device: str, channels: int = CHANNELS, nb: int = 2,
                                for k, v in vars(draws).items()})
     t0 = time.perf_counter()
     cpu_p, cpu_d, cpu_g, cpu_logs = gan_step(cpu(params), optD, d_cpu, optG, g_cpu,
-                                             x.cpu(), draws_cpu, 1, hp)
+                                             x.cpu(), draws_cpu, 1, hp,
+                                             weights=None if weights is None
+                                             else weights.cpu())
     cpu_s = time.perf_counter() - t0
     log_err = ((card_logs.cpu() - cpu_logs).abs()
                / cpu_logs.abs().clamp(min=1.0)).max().item()
@@ -1868,8 +1923,8 @@ def _step_check(smi: str, device: str, channels: int = CHANNELS, nb: int = 2,
     z_dim, h_dim = adaptive_dims(channels, SEQ_LEN)
     print(f"{tag} GAN step nb={nb} B={B} T={SEQ_LEN} x{channels}/z{z_dim}/h{h_dim}, "
           f"layers {layers}, dropout {dropout:g} ({'with' if draws.masks else 'no'} "
-          f"masks), card vs CPU plain path: bucket 0 card {fmt(card_logs[0].tolist())}",
-          flush=True)
+          f"masks{'' if weights is None else ', per-bucket G weights'}), card vs "
+          f"CPU plain path: bucket 0 card {fmt(card_logs[0].tolist())}", flush=True)
     print(f"{tag}   CPU {fmt(cpu_logs[0].tolist())}", flush=True)
     print(f"{tag}   logged values max relative diff {log_err:.3e} (tol "
           f"{STEP_LOG_RTOL:g}); updated parameters max|diff| {p_err:.3e} (tol "
@@ -2071,12 +2126,12 @@ def _cgan_step_inputs(B: int, device, seed: int, **hp_over):
             cgan_train.draws_to(draws, device))
 
 
-def _run_cgan_step(hp, cfg, G, bn, D, X, draws, step_idx, timer=None):
+def _run_cgan_step(hp, cfg, G, bn, D, X, draws, step_idx, timer=None, weights=None):
     optG = cgan_train.Adam(hp.lr_g, hp.beta1, hp.beta2)
     optD = cgan_train.Adam(hp.lr_d, hp.beta1, hp.beta2)
     return cgan_train.cgan_step(G, bn, D, G, optG.init(G), optD.init(D), X, draws,
                                 step_idx, 0.1, cfg=cfg, hp=hp, optG=optG, optD=optD,
-                                prewarm=False, timer=timer)
+                                prewarm=False, timer=timer, weights=weights)
 
 
 def phase_cgan_step_check(smi: str, device: str = "cuda") -> None:
@@ -2113,37 +2168,53 @@ def _f64(x):
     return x
 
 
-def _cgan_step_check(smi: str, device: str, what: str, seed: int, **hp_over) -> None:
+def _cgan_step_check(smi: str, device: str, what: str, seed: int,
+                     weights: torch.Tensor | None = None, **hp_over) -> None:
     """One CGAN step (step index 0: R1 fires) on ``device`` against the
     same step on the CPU with the plain versions, B 8, full width, the same
-    draws: the logs, each parameter leaf and its Adam first moments, and the
-    bn state within the CGAN_* tolerances. The same step in float64 on the
-    CPU says how far the CPU's float32 step itself is from exact."""
+    draws (and G-loss ``weights``, if given): the logs, each parameter leaf
+    and its Adam first moments, and the bn state within the CGAN_*
+    tolerances. The same step in float64 on the CPU says how far the CPU's
+    float32 step itself is from exact."""
     hp, cfg, G, bn, D, X, draws = _cgan_step_inputs(8, device, seed, **hp_over)
-    conv = hp.arch != "transformer"
-    mu_rtol = CGAN_CONV_MU_RTOL if conv else CGAN_MU_RTOL
     cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
     t0 = time.perf_counter()
-    card = _run_cgan_step(hp, cfg, G, bn, D, X, draws, 0)
+    card = _run_cgan_step(hp, cfg, G, bn, D, X, draws, 0,
+                          weights=None if weights is None else weights.to(device))
     _sync(device)
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     host_draws = cgan_train.draws_to(draws, "cpu")
-    host = _run_cgan_step(hp, cfg, cpu(G), cpu(bn), cpu(D), X.cpu(), host_draws, 0)
+    host = _run_cgan_step(hp, cfg, cpu(G), cpu(bn), cpu(D), X.cpu(), host_draws, 0,
+                          weights=weights)
     cpu_s = time.perf_counter() - t0
     exact = _run_cgan_step(hp, cfg, _f64(cpu(G)), _f64(cpu(bn)), _f64(cpu(D)),
-                           X.cpu().double(), _f64(host_draws), 0)
-    logs, ref = card[-1].cpu(), host[-1]
+                           X.cpu().double(), _f64(host_draws), 0,
+                           weights=None if weights is None else weights.double())
+    _hold_cgan_step(smi, f"CGAN step {what}, card vs CPU plain path", hp, card, host,
+                    exact, f"step {card_s:.3f} s on the card, {cpu_s:.3f} s on the CPU")
+
+
+def _hold_cgan_step(smi: str, what: str, hp, card, host, exact=None,
+                    extra: str = "") -> None:
+    """``card`` (one cgan_step's outputs) against ``host`` (the reference
+    step's) by the CGAN_* rule: the logs, each parameter leaf and its Adam
+    first moments, and the bn state; ``exact``, the same step in float64,
+    says how far the reference's float32 step is from exact."""
+    conv = hp.arch != "transformer"
+    mu_rtol = CGAN_CONV_MU_RTOL if conv else CGAN_MU_RTOL
+    logs, ref = card[-1].cpu(), host[-1].cpu()
     log_err = ((logs - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
     mu_err = host_err = p_err = rounding_g = 0.0
     excused, rounding = [], []
     for net, i in (("G", 0), ("D", 2)):
-        state, ref_state, exact_state = card[4 + i // 2], host[4 + i // 2], exact[4 + i // 2]
+        state, ref_state = card[4 + i // 2], host[4 + i // 2]
+        exact_mu = (tree_leaves(exact[4 + i // 2].mu) if exact is not None
+                    else [None] * len(tree_leaves(ref_state.mu)))
         for name, p, pr, m, mr, m64 in zip(
                 _leaf_names(host[i]), tree_leaves(card[i]), tree_leaves(host[i]),
-                tree_leaves(state.mu), tree_leaves(ref_state.mu),
-                tree_leaves(exact_state.mu)):
-            m, p = m.cpu(), p.cpu()
+                tree_leaves(state.mu), tree_leaves(ref_state.mu), exact_mu):
+            m, p, pr, mr = m.cpu(), p.cpu(), pr.cpu(), mr.cpu()
             far = (p - pr).abs() > CGAN_PARAM_ATOL
             g_scale = mr.abs().max().item() / (1 - hp.beta1)
             if g_scale <= CGAN_GRAD_FLOOR:
@@ -2154,7 +2225,8 @@ def _cgan_step_check(smi: str, device: str, what: str, seed: int, **hp_over) -> 
             scale = mr.abs().max().item()
             tol = min(CGAN_MU_RTOL * max(1.0, scale), mu_rtol * scale)
             mu_err = max(mu_err, (m - mr).abs().max().item() / tol)
-            host_err = max(host_err, (mr.double() - m64).abs().max().item() / scale)
+            if m64 is not None:
+                host_err = max(host_err, (mr.double() - m64).abs().max().item() / scale)
             floor = max(CGAN_GRAD_FLOOR, tol / (1 - hp.beta1)) if conv else CGAN_GRAD_FLOOR
             small = mr.abs() / (1 - hp.beta1) <= floor
             if (far & ~small).any():
@@ -2164,16 +2236,16 @@ def _cgan_step_check(smi: str, device: str, what: str, seed: int, **hp_over) -> 
                 excused.append((n / far.numel(), n, f"{net}.{name} {n}/{far.numel()}"))
     excused.sort(reverse=True)
     share = excused[0][0] if excused else 0.0
-    bn_err = max([(a.cpu() - b).abs().max().item()
+    bn_err = max([(a.cpu() - b.cpu()).abs().max().item()
                   for a, b in zip(tree_leaves(card[1]), tree_leaves(host[1]))] or [0.0])
-    print(f"[check] CGAN step {what}, card vs "
-          f"CPU plain path: logs card {[round(v, 6) for v in logs.tolist()]}, CPU "
+    print(f"[check] {what}: logs {[round(v, 6) for v in logs.tolist()]}, reference "
           f"{[round(v, 6) for v in ref.tolist()]}", flush=True)
     print(f"[check]   logs max relative diff {log_err:.3e} (tol {CGAN_LOG_RTOL:g}); "
           f"Adam first moments at {mu_err:.3f} of their tolerance (must be <= 1: per "
           f"leaf {mu_rtol:g} of its largest, {CGAN_MU_RTOL:g} of the larger of that and "
-          f"1; the CPU's float32 step departs from its float64 step by {host_err:.3e} of "
-          f"a leaf's largest); "
+          f"1" + ("" if exact is None else f"; the reference's float32 step departs "
+                  f"from its float64 step by {host_err:.3e} of a leaf's largest")
+          + "); "
           f"parameters beyond {CGAN_PARAM_ATOL:g}: {p_err:.3e} (must be 0); "
           f"{sum(n for _, n, _ in excused)} elements "
           f"with |g| <= " + ("the moments' tolerance" if conv else f"{CGAN_GRAD_FLOOR:g}")
@@ -2184,12 +2256,11 @@ def _cgan_step_check(smi: str, device: str, what: str, seed: int, **hp_over) -> 
           f"construction) moved by ±lr on their noise's sign: "
           f"{', '.join(rounding) or 'none'}; "
           + (f"bn state {bn_err:.3e} (tol {CGAN_BN_ATOL:g}); " if card[1] else "")
-          + f"step {card_s:.3f} s on the card, {cpu_s:.3f} s on the CPU | {smi}",
-          flush=True)
+          + f"{extra} | {smi}", flush=True)
     if (not torch.isfinite(logs).all() or log_err > CGAN_LOG_RTOL or mu_err > 1
             or p_err > 0 or share > CGAN_EXCUSED_SHARE or rounding_g > CGAN_GRAD_FLOOR
             or bn_err > CGAN_BN_ATOL):
-        fail(f"the card's CGAN step ({what}) disagrees with the CPU: logs {log_err}, "
+        fail(f"{what}: the steps disagree: logs {log_err}, "
              f"moments {mu_err} of their tolerance, params {p_err}, excused share {share}, "
              f"rounding-level gradient {rounding_g}, bn {bn_err}")
 
@@ -2264,9 +2335,11 @@ def phase_cgan_wide(smi: str, device: str = "cuda") -> dict:
         runs = Path(tmp) / "cgan_runs"
         for c in _k3_counters():
             c.launches = c.wide_launches = 0
+        # save_every 2 > epochs: no full-state checkpoint (at dim 512 its
+        # compressed write took most of the phase's ~60 s)
         res = cgan_train.train_one_condition(
             data, runs, "no_exo", device=device, arch="transformer", epochs=1,
-            save_every=1, print_every=1, batch_size=CGAN_WIDE_BATCH, tf_dim=512,
+            save_every=2, print_every=1, batch_size=CGAN_WIDE_BATCH, tf_dim=512,
             tf_heads=2, tf_patch=1)
         wide = tuple(c.wide_launches for c in _k3_counters())
         tc = tuple(c.launches for c in _k3_counters())
@@ -2741,50 +2814,447 @@ def _conv_serve(smi: str, run: Path, device: str) -> int:
     return len(outs)
 
 
+# ------------------------------------------------------------------
+# Sweeps and stacks
+# ------------------------------------------------------------------
+
+def _same_npz(a: Path, b: Path) -> bool:
+    """Whether NPZ files ``a`` and ``b`` hold the same arrays bit for bit
+    (the meta blob aside)."""
+    with np.load(a) as x, np.load(b) as y:
+        return x.files == y.files and all(np.array_equal(x[k], y[k])
+                                          for k in x.files if k != "__meta__")
+
+
+def _bucket_launches(nb: int, ae: int, sup: int, gan: int) -> tuple:
+    """(K1 forward, K1 backward, K2) launches of a stacked run of ``nb``
+    members without dropout: per AE step E and R forward and backward, per
+    SUP step E (no gradient) and S forward, S backward; per GAN step K2 for
+    the D inputs, G, S, R and E, R forward and backward; then 3 forward
+    launches per member for its synthetic.npz."""
+    return 2 * ae + 2 * sup + 5 * gan + 3 * nb, 2 * ae + sup + 5 * gan, gan
+
+
+def phase_timegan_sweep(smi: str, root: Path, device: str = "cuda") -> dict:
+    """The TimeGAN weight sweep, bucket-weight tuning and the discriminative
+    controls at full width on one random bucket of (63, 768, 14), each
+    through its CLI in this process: ``timegan_sweep`` with SWEEP_GRID (S 3,
+    two equal points) and the sweep statistics; ``tune_bucket_weights``
+    with 2 candidates x 2 replicas (nb 4); ``disc_controls`` with two noise
+    arms and ``half``. Their launch counts exact; whether the equal points
+    are bitwise equal on the card; one stacked GAN step at nb 2 with a
+    per-member weight matrix on the card against the CPU. Returns the
+    launch counts of the CLI runs."""
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    data = root / "sweep_data"
+    data.mkdir()
+    npz = data / "posture2_with_exo.npz"
+    np.savez(npz, X=np.random.default_rng(5).uniform(
+        0, 1, (N_WINDOWS, SEQ_LEN, CHANNELS)).astype(np.float32), fs=np.float32(128.0))
+    hp = _train_hparams(ae_epochs=1, sup_epochs=1, gan_steps=SWEEP_GAN_STEPS)
+    cfg_path = root / "sweep_config.json"
+    cfg_path.write_text(json.dumps(hp))
+    pre = -(-N_WINDOWS // min(hp["batch_size"], N_WINDOWS))    # steps an epoch
+    total = np.zeros(3, dtype=np.int64)
+
+    def check(tag, launches, want):
+        want = want if cuda else (0, 0, 0)
+        print(f"[timegan-sweep] {tag}: launches gru_sequence {launches[0]}, "
+              f"gru_sequence_bwd {launches[1]}, multigru_disc_inputs {launches[2]} "
+              f"(expected {want}) | {smi}", flush=True)
+        if tuple(launches) != tuple(want):
+            fail(f"[timegan-sweep] {tag}: launch counts {launches} != expected {want}")
+        total[:] += launches
+
+    S = len(SWEEP_GRID)
+    t0 = time.perf_counter()
+    res, launches = _counted(lambda: timegan_sweep_cli(
+        ["--npz", str(npz), "--out", str(root / "tsweep"), "--grid",
+         json.dumps(SWEEP_GRID), "--config", str(cfg_path), "--device", device]))
+    check(f"timegan_sweep S {S} ({SWEEP_GRID}), 1 AE + 1 SUP epoch + "
+          f"{SWEEP_GAN_STEPS} GAN steps, statistics, in {time.perf_counter() - t0:.2f} s",
+          launches, _bucket_launches(S, pre, pre, SWEEP_GAN_STEPS))
+    names = ("ckpt_latest.npz", "ckpt_best.npz", "synthetic.npz")
+    points = [root / "tsweep" / f"sweep{i}" for i in range(S)]
+    saved = json.loads((root / "tsweep" / "sweep_results.json").read_text())
+    if len(saved) != S or not all(
+            (d / n).exists() for d in points for n in (*names, "hparams.json")) \
+            or not all(np.isfinite(list(r["stats"].values())).all() for r in saved):
+        fail(f"[timegan-sweep] the sweep's artifacts: {saved}")
+    equal = all(_same_npz(points[0] / n, points[1] / n) for n in names)
+    differs = not all(_same_npz(points[0] / n, points[2] / n) for n in names)
+    print(f"[timegan-sweep] equal-weight points sweep0 and sweep1 bitwise equal on the "
+          f"card (checkpoints and synthetic.npz): {equal}; sweep2 differs from sweep0: "
+          f"{differs}; final G "
+          f"{[round(r['final_g'], 6) for r in saved]}; statistics "
+          + "; ".join(f"{Path(r['dir']).name} psd {r['stats']['psd_diff']:.3e} acf "
+                      f"{r['stats']['acf_diff']:.4f} coh {r['stats']['coh_diff']:.4f}"
+                      for r in saved) + f" | {smi}", flush=True)
+    # two points with unequal weights (the sweep's first and last)
+    W = torch.from_numpy(timegan_weight_matrix(TimeGANHParams(**hp), SWEEP_GRID))[[0, -1]]
+    _step_check(smi, device, nb=2, B=8, tag="[timegan-sweep]", weights=W)
+
+    tune_cfg = root / "tune_config.json"
+    tune_cfg.write_text(json.dumps({**hp, "gan_steps": TUNE_GAN_STEPS}))
+    t0 = time.perf_counter()
+    out, launches = _counted(lambda: tune_cli(
+        ["--npz", str(npz), "--out", str(root / "tune"), "--grid", json.dumps(TUNE_GRID),
+         "--replicas", str(TUNE_REPLICAS), "--config", str(tune_cfg), "--device",
+         device]))
+    nb = len(TUNE_GRID) * TUNE_REPLICAS
+    check(f"tune_bucket_weights {len(TUNE_GRID)} candidates x {TUNE_REPLICAS} "
+          f"replicas (nb {nb}), {TUNE_GAN_STEPS} GAN step, in "
+          f"{time.perf_counter() - t0:.2f} s", launches,
+          _bucket_launches(nb, pre, pre, TUNE_GAN_STEPS))
+    rows = json.loads((root / "tune" / "results.json").read_text())
+    if len(rows) != nb or out["best"] not in rows or not all(
+            np.isfinite([r["psd"], r["acf"], r["coh"]]).all() for r in rows):
+        fail(f"[timegan-sweep] tuning's results.json: {rows}")
+    print(f"[timegan-sweep] tuning results.json: {[r['name'] for r in rows]}; best-of-k "
+          f"on acf: {out['best']['name']} ({out['best']['acf']:.4f}) | {smi}", flush=True)
+
+    t0 = time.perf_counter()
+    ctl, launches = _counted(lambda: controls_cli(
+        ["--real_dir", str(data), "--out", str(root / "controls"), "--sigmas",
+         *map(str, CONTROL_SIGMAS), "--seeds", "0", "--epochs", str(CONTROL_EPOCHS),
+         "--device", device]))
+    # the scorers of one shape train as one stack: the noise arms' (63 + 63
+    # rows) and half's (31 + 31), one K1 forward and backward an epoch each,
+    # and one more forward for the test rows
+    stacks = len({N_WINDOWS, N_WINDOWS // 2})
+    check(f"disc_controls, one bucket, {len(CONTROL_SIGMAS)} noise arms + half, one "
+          f"seed, {CONTROL_EPOCHS} scorer epochs ({stacks} scorer stacks), in "
+          f"{time.perf_counter() - t0:.2f} s", launches,
+          (stacks * (CONTROL_EPOCHS + 1), stacks * CONTROL_EPOCHS, 0))
+    lines = (root / "controls" / "controls.csv").read_text().splitlines()
+    if lines[0] != "bucket,N,arm,seed,acc,auc" or len(lines) != 2 + len(CONTROL_SIGMAS):
+        fail(f"[timegan-sweep] controls.csv: {lines}")
+    print(f"[timegan-sweep] controls.csv: " + "; ".join(
+        f"{r[2]} acc {r[4]:.3f} auc {r[5]:.3f}" for r in ctl)
+        + f"; phase passed in {time.perf_counter() - t_phase:.2f} s | {smi}", flush=True)
+    return dict(zip(("gru_sequence", "gru_sequence_bwd", "multigru_disc_inputs"),
+                    (int(v) for v in total)))
+
+
+def _trace_kernels(path: Path) -> dict:
+    """{hand kernel: (events, device ms)} of the kernel events of a Chrome
+    trace, by the kernels' symbol names."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for tag in ("gru_seq_fwd_kernel", "gru_seq_bwd_kernel", "multigru_fwd_kernel"):
+        hits = [e for e in events if e.get("cat") == "kernel" and tag in e.get("name", "")]
+        out[tag] = (len(hits), sum(float(e.get("dur", 0.0)) for e in hits) / 1e3)
+    return out
+
+
+def phase_profile_dir(smi: str, root: Path, device: str = "cuda") -> dict:
+    """``--profile_dir`` of the CLI ``python -m eegsynth_torch.train.timegan``
+    in both modes: the sequential trainer on one bucket and
+    ``--parallel_buckets`` on two, each for PROFILE_GAN_STEPS GAN steps, on
+    windows of PROFILE_SEQ_LEN samples.
+    Each trace must parse as JSON; the hand kernels it holds (events and
+    device time, by symbol name) against the run's launch counts. Returns
+    the launch counts of the runs."""
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    total = np.zeros(3, dtype=np.int64)
+    base = root / "profile"
+    base.mkdir()
+    data2 = _write_buckets(base, 2, seq_len=PROFILE_SEQ_LEN)
+    data1 = base / "one"
+    data1.mkdir()
+    (data1 / "posture1_no_exo.npz").write_bytes((data2 / "posture1_no_exo.npz").read_bytes())
+    hp = _train_hparams()
+    cfg_path = base / "config.json"
+    cfg_path.write_text(json.dumps(hp))
+    pre = -(-N_WINDOWS // min(hp["batch_size"], N_WINDOWS))
+    for tag, data, flags, nb in (("sequential", data1, [], 1),
+                                 ("--parallel_buckets", data2, ["--parallel_buckets"], 2)):
+        prof = base / f"trace_{nb}"
+        t0 = time.perf_counter()
+        _, launches = _counted(lambda: timegan_cli(     # noqa: B023
+            ["--config", str(cfg_path), "--data_dir", str(data),  # noqa: B023
+             "--out_dir", str(base / f"runs_{nb}"), "--device", device,  # noqa: B023
+             "--ae_epochs", "1", "--sup_epochs", "1", "--gan_steps",
+             str(PROFILE_GAN_STEPS), "--profile_dir", str(prof), *flags]))  # noqa: B023
+        secs = time.perf_counter() - t0
+        want = (_seq_launches(N_WINDOWS, 1, 1, 1, PROFILE_GAN_STEPS) if nb == 1 else
+                _bucket_launches(nb, pre, pre, PROFILE_GAN_STEPS)) if cuda else (0, 0, 0)
+        traces = sorted(prof.glob("*_gan.trace.json"))
+        if tuple(launches) != tuple(want) or len(traces) != 1:
+            fail(f"[profile-dir] {tag}: launches {launches} (expected {want}), traces "
+                 f"{[t.name for t in traces]}")
+        total[:] += launches
+        got = _trace_kernels(traces[0])
+        # in the traced GAN phase: K2 once a step, K1 forward 5 a step and
+        # backward 5 a step (the D inputs of the sequential trainer at one
+        # layer also come from K2)
+        print(f"[profile-dir] {tag}, {nb} bucket(s) of ({N_WINDOWS}, {PROFILE_SEQ_LEN}, "
+              f"{CHANNELS}), {PROFILE_GAN_STEPS} GAN steps "
+              f"traced, the run in {secs:.2f} s: {traces[0].name} "
+              f"{traces[0].stat().st_size / 1e6:.1f} MB parses as JSON; hand kernels "
+              f"in the trace (events, device ms): " + ", ".join(
+                  f"{k} {n}, {ms:.3f}" for k, (n, ms) in got.items())
+              + f"; the whole run launched gru_sequence {launches[0]}, "
+              f"gru_sequence_bwd {launches[1]}, multigru_disc_inputs {launches[2]} "
+              f"(expected {want}), its GAN phase K2 {PROFILE_GAN_STEPS}, K1 forward "
+              f"{5 * PROFILE_GAN_STEPS}, K1 backward {5 * PROFILE_GAN_STEPS} times "
+              f"| {smi}", flush=True)
+        if cuda and got["multigru_fwd_kernel"][0] == 0:
+            print(f"[profile-dir] {tag}: the trace holds no K2 event (a cluster "
+                  f"launch) though the GAN phase launched it | {smi}", flush=True)
+    print(f"[profile-dir] phase passed in {time.perf_counter() - t_phase:.2f} s | {smi}",
+          flush=True)
+    return dict(zip(("gru_sequence", "gru_sequence_bwd", "multigru_disc_inputs"),
+                    (int(v) for v in total)))
+
+
+def phase_cgan_multi(smi: str, device: str = "cuda") -> None:
+    """The v2 posture stack at the JAX defaults (conv, B 64) on nine random
+    postures of 2 x CGAN_WINDOWS windows, one epoch, through the CLI
+    ``python -m eegsynth_torch.train.cgan_posture`` with
+    ``--parallel-postures`` and, for posture 1, without; the artifacts;
+    then two members (postures 1 and 2) at B 8: member 1's stacked step on
+    the card against its lone step on the card and against the lone step on
+    the CPU (the CGAN_* per-leaf rule). No hand kernel may launch."""
+    t_phase = time.perf_counter()
+    _zero_hand_kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _write_posture_buckets(Path(tmp), CGAN_WINDOWS, ("no_exo", "with_exo"))
+        cli = ["--data-dir", str(data), "--epochs", "1", "--prewarm", "0",
+               "--batch-size", str(CGAN_CONV_BATCH), "--save-every", "1", "--device",
+               device]
+        t0 = time.perf_counter()
+        res = cgan_posture_cli([*cli, "--runs-root", f"{tmp}/par", "--parallel-postures"])
+        secs = time.perf_counter() - t0
+        missing = [f"posture{p}/{n}" for p in range(1, 10) for n in (
+            "hparams.json", "metrics.csv", f"CGAN_generator_posture{p}_best.npz",
+            f"CGAN_generator_posture{p}_last.npz", f"CGAN_generator_posture{p}_epoch1.npz",
+            f"CGAN_globalD_posture{p}_best.npz", f"CGAN_localD_posture{p}_best.npz")
+            if not (Path(tmp) / "par" / f"posture{p}" / n).exists()]
+        rows = np.loadtxt(Path(tmp) / "par" / "posture9" / "metrics.csv", delimiter=",",
+                          skiprows=1, ndmin=2)
+        if missing or rows.shape != (1, 11) or not np.isfinite(res["best_g"]).all():
+            fail(f"[cgan-multi] the stacked run: missing {missing}, posture9 metrics "
+                 f"{rows.shape}, best G {res['best_g']}")
+        steps = res["steps_per_epoch"]
+        print(f"[cgan-multi] cgan_posture --parallel-postures: 9 postures x {steps} "
+              f"steps (conv v2, B {CGAN_CONV_BATCH}, 2 x {CGAN_WINDOWS} windows a "
+              f"posture) in {secs:.2f} s (epoch {res['epoch_seconds'][0]:.2f} s: "
+              f"{res['epoch_seconds'][0] / (9 * steps) * 1e3:.1f} ms a member step); "
+              f"every posture's 7 artifacts; best G {np.round(res['best_g'], 3).tolist()} "
+              f"| {smi}", flush=True)
+        t0 = time.perf_counter()
+        seq = cgan_posture_cli([*cli, "--runs-root", f"{tmp}/seq", "--posture", "1"])
+        if not (Path(tmp) / "seq" / "posture1" / "checkpoint_epoch1.npz").exists() \
+                or not np.isfinite(seq[1]["best_g"]):
+            fail("[cgan-multi] cgan_posture without --parallel-postures")
+        print(f"[cgan-multi] cgan_posture --posture 1 (train_one_posture): "
+              f"{seq[1]['steps_per_epoch']} steps in {time.perf_counter() - t0:.2f} s; "
+              f"artifacts written | {smi}", flush=True)
+
+    hp = cgan_train.CGANHParams(**{**cgan_train.V2_OVERRIDES, "batch_size": 8})
+    cfg = cgan_train.build_cfg(hp, 2)
+    optG = cgan_train.Adam(hp.lr_g, hp.beta1, hp.beta2)
+    optD = cgan_train.Adam(hp.lr_d, hp.beta1, hp.beta2)
+    g = torch.Generator().manual_seed(12)
+    X = torch.rand((2, 16, CHANNELS, SEQ_LEN), generator=g)
+    tables = torch.arange(16).reshape(2, 8).expand(2, 2, 8).contiguous()
+    counts = torch.full((2, 2), 8.0)
+
+    def members(dev):
+        return [cgan_multi.init_member(cfg, hp.seed, p, optG, optD, device=dev)
+                for p in (1, 2)]
+
+    def gens(dev):
+        return [torch.Generator(device=dev).manual_seed(40 + p) for p in (1, 2)]
+
+    stack = members(device)
+    cgan_multi.stack_step(stack, X.to(device), tables.to(device), counts.to(device),
+                          gens(device), 0, 0.1, cfg=cfg, hp=hp, optG=optG, optD=optD,
+                          prewarm=False)
+    lone = members(device)[0]
+    gen = gens(device)[0]
+    draws = cgan_train.draw_cgan_step(gen, hp, cfg, tables[0].to(device),
+                                      counts[0].to(device), prewarm=False, device=device)
+    outs = {}
+    for where, dev in (("card", device), ("CPU", "cpu")):
+        m = lone if dev == device else members("cpu")[0]
+        outs[where] = cgan_train.cgan_step(
+            m.G, m.bn, m.D, m.ema, m.g_state, m.d_state, X[0].to(dev),
+            cgan_train.draws_to(draws, dev), 0, 0.1, cfg=cfg, hp=hp, optG=optG,
+            optD=optD, prewarm=False)
+    got = stack[0]
+    member = (got.G, got.bn, got.D, got.ema, got.g_state, got.d_state,
+              outs["card"][6])
+    _hold_cgan_step(smi, "[cgan-multi] posture stack member 1 (conv v2 B=8, R1 on) on "
+                    "the card against its lone step on the card", hp, member, outs["card"])
+    _hold_cgan_step(smi, "[cgan-multi] posture stack member 1 (conv v2 B=8, R1 on) on "
+                    "the card against its lone step on the CPU plain path", hp, member,
+                    outs["CPU"])
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(member[:4]),
+                                                 tree_leaves(outs["card"][:4])))
+    counts_now = _hand_kernel_counts()
+    print(f"[cgan-multi] member 1 bitwise equal to its lone step on the card: {same}; "
+          f"hand-kernel launches over the phase {counts_now} (all must be 0); the phase "
+          f"took {time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
+    if any(counts_now.values()):
+        fail(f"[cgan-multi] the conv posture stack launched hand kernels: {counts_now}")
+
+
+def _sweep_step_memory(device: str, remat: bool) -> tuple[float, float]:
+    """One step of a transformer sweep at the JAX defaults, B 64, the
+    CGAN_SWEEP_GRID points run in turn with their own weight vectors (R1 fires):
+    (torch.cuda.max_memory_allocated in MB over the step, the step in ms)."""
+    hp = cgan_train.CGANHParams(arch="transformer", tf_remat=remat,
+                                batch_size=CGAN_CONV_BATCH)
+    cfg = cgan_train.build_cfg(hp, 9)
+    g = torch.Generator().manual_seed(13)
+    G, bn = cgan_train.generator_init(cfg, g, device=device)
+    D = {k: cgan_train.disc_init(cfg, g, device=device) for k in ("dg", "dl")}
+    optG = cgan_train.Adam(hp.lr_g, hp.beta1, hp.beta2)
+    optD = cgan_train.Adam(hp.lr_d, hp.beta1, hp.beta2)
+    X = torch.rand((9 * CGAN_WINDOWS, CHANNELS, SEQ_LEN), generator=g).to(device)
+    table = torch.arange(9 * CGAN_WINDOWS, device=device).reshape(9, CGAN_WINDOWS)
+    counts = torch.full((9,), float(CGAN_WINDOWS), device=device)
+    W = torch.from_numpy(cgan_sweep.weight_matrix(hp, CGAN_SWEEP_GRID)).to(device)
+    states = [(G, bn, D, G, optG.init(G), optD.init(D)) for _ in CGAN_SWEEP_GRID]
+    draws = cgan_train.draw_cgan_step(torch.Generator(device=device).manual_seed(14),
+                                      hp, cfg, table, counts, prewarm=False,
+                                      device=device)
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i, st in enumerate(states):
+        states[i] = cgan_train.cgan_step(*st, X, draws, 0, 0.1, cfg=cfg, hp=hp,
+                                         optG=optG, optD=optD, prewarm=False,
+                                         weights=W[i])[:6]
+    _sync(device)
+    return torch.cuda.max_memory_allocated() / 2**20, (time.perf_counter() - t0) * 1e3
+
+
+def phase_cgan_sweep(smi: str, device: str = "cuda") -> None:
+    """The CGAN weight sweep through its CLI ``python -m
+    eegsynth_torch.train.cgan_sweep`` on nine random posture buckets of
+    CGAN_WINDOWS windows: the transformer default (dim 256, depth 4, patch
+    8) with tf_remat on, S 3 (CGAN_SWEEP_GRID, two equal points), one epoch
+    at B 64, scored at CGAN_SWEEP_SAMPLES windows a posture; then the conv
+    model at S 1; whether the equal points are bitwise equal on the card;
+    one weighted remat transformer step (R1 on) on the card against the
+    CPU; torch.cuda.max_memory_allocated of one step at S 3 with and without
+    remat. At 96 tokens "auto" attention launches no K3, and the conv path
+    no hand kernel."""
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    batch = cgan_train.CGANHParams().batch_size
+    _zero_hand_kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _write_posture_buckets(Path(tmp), CGAN_WINDOWS)
+        for arch, grid in (("transformer", CGAN_SWEEP_GRID), ("conv", [{}])):
+            out = Path(tmp) / arch
+            t0 = time.perf_counter()
+            res = cgan_sweep_cli(["--data-dir", str(data), "--out", str(out), "--grid",
+                                  json.dumps(grid), "--epochs", "1", "--arch", arch,
+                                  "--samples-per-posture", str(CGAN_SWEEP_SAMPLES),
+                                  "--device", device])
+            secs = time.perf_counter() - t0
+            hps = [json.loads((out / f"sweep{i}" / "hparams.json").read_text())
+                   for i in range(len(grid))]
+            ok = (len(res) == len(grid) and all(h["tf_remat"] == (arch == "transformer")
+                                                for h in hps)
+                  and all(np.isfinite([r["best_g"], r["stats"]["psd_l1"],
+                                       r["disc"]["acc"]]).all() for r in res)
+                  and (out / "sweep_results.json").exists())
+            print(f"[cgan-sweep] cgan_sweep --arch {arch}"
+                  f"{' (tf_remat on)' if arch == 'transformer' else ''}, S {len(grid)}, "
+                  f"one epoch of {9 * CGAN_WINDOWS // batch} steps at B {batch} (the "
+                  f"CLI's), scored at {CGAN_SWEEP_SAMPLES} windows a posture, "
+                  f"in {secs:.2f} s; best G {[round(r['best_g'], 4) for r in res]}; "
+                  f"psd_l1 {[round(r['stats']['psd_l1'], 3) for r in res]}, logreg acc "
+                  f"{[round(r['disc']['acc'], 3) for r in res]} | {smi}", flush=True)
+            if not ok:
+                fail(f"[cgan-sweep] the {arch} sweep's results: {res}")
+        last = [Path(tmp) / "transformer" / f"sweep{i}" / f"CGAN_generator_sweep{i}_last.npz"
+                for i in range(3)]
+        equal, differs = _same_npz(last[0], last[1]), not _same_npz(last[0], last[2])
+        print(f"[cgan-sweep] equal-weight points sweep0 and sweep1 bitwise equal on the "
+              f"card (last generators): {equal}; sweep2 differs: {differs} | {smi}",
+              flush=True)
+    hp0 = cgan_train.CGANHParams(arch="transformer")
+    W = torch.from_numpy(cgan_sweep.weight_matrix(hp0, CGAN_SWEEP_GRID))
+    _cgan_step_check(smi, device, "v1 B=8 dim 256 depth 4, tf_remat, R1 on, sweep "
+                     "point 2's weights", seed=15, weights=W[2], tf_remat=True)
+    if cuda:
+        mem = {remat: _sweep_step_memory(device, remat) for remat in (False, True)}
+        print(f"[cgan-sweep] one transformer sweep step, S {len(CGAN_SWEEP_GRID)}, B "
+              f"{CGAN_CONV_BATCH}, dim 256 depth 4, R1 on: torch.cuda.max_memory_allocated "
+              f"{mem[False][0]:.1f} MB without remat, {mem[True][0]:.1f} MB with "
+              f"({mem[True][0] / mem[False][0]:.3f}x); the step {mem[False][1]:.1f} / "
+              f"{mem[True][1]:.1f} ms | {smi}", flush=True)
+    counts_now = _hand_kernel_counts()
+    print(f"[cgan-sweep] hand-kernel launches over the phase {counts_now} (all must be "
+          f"0 at 96 tokens); the phase took {time.perf_counter() - t_phase:.1f} s | {smi}",
+          flush=True)
+    if any(counts_now.values()):
+        fail(f"[cgan-sweep] the sweep launched hand kernels: {counts_now}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(tag, phase, *args, **kw):
+        t0 = time.perf_counter()
+        out = phase(*args, **kw)
+        seconds[tag] = round(time.perf_counter() - t0, 2)
+        return out
+
     name, smi = phase_device()
-    phase_build()
-    phase_sass()
-    kern = phase_kernels(smi)
-    phase_t1(smi)
-    phase_auto_rule(smi)
-    serve_launches = phase_serve(smi, kern["gru_sequence"]["ms"])
+    timed("build", phase_build)
+    timed("sass", phase_sass)
+    kern = timed("kernels", phase_kernels, smi)
+    timed("t1", phase_t1, smi)
+    timed("auto", phase_auto_rule, smi)
+    serve_launches = timed("serve", phase_serve, smi, kern["gru_sequence"]["ms"])
     if serve_launches < 1:
         fail("the served run launched gru_sequence no time")
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches = phase_train(smi, Path(tmp))
-        eval_launches = phase_eval(smi, Path(tmp))
-        synth_launches = phase_synth_bf16(smi, Path(tmp))
+        train_launches = timed("train", phase_train, smi, Path(tmp))
+        eval_launches = timed("eval", phase_eval, smi, Path(tmp))
+        synth_launches = timed("synth-bf16", phase_synth_bf16, smi, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        seq_launches = phase_train_seq(smi, Path(tmp))
+        seq_launches = timed("train-seq", phase_train_seq, smi, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        wide_launches = phase_train(smi, Path(tmp), n_buckets=WIDE_BUCKETS,
-                                    channels=WIDE_CHANNELS, gan_steps=WIDE_GAN_STEPS)
-    phase_step_check(smi)
-    phase_train_layers(smi)
-    cgan_launches = phase_cgan_train(smi)
-    phase_cgan_step_check(smi)
-    cgan_serve_launches = phase_cgan_serve(smi)
-    phase_cgan_layers(smi)
-    wide_attn_launches = phase_cgan_wide(smi)
-    phase_cgan_conv(smi)
+        sweep_launches = timed("timegan-sweep", phase_timegan_sweep, smi, Path(tmp))
+        profile_launches = timed("profile-dir", phase_profile_dir, smi, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        wide_launches = timed("train-wide", phase_train, smi, Path(tmp),
+                              n_buckets=WIDE_BUCKETS, channels=WIDE_CHANNELS,
+                              gan_steps=WIDE_GAN_STEPS)
+    timed("check", phase_step_check, smi)
+    timed("layers", phase_train_layers, smi)
+    cgan_launches = timed("cgan-train", phase_cgan_train, smi)
+    timed("cgan-check", phase_cgan_step_check, smi)
+    cgan_serve_launches = timed("cgan-serve", phase_cgan_serve, smi)
+    timed("cgan-layers", phase_cgan_layers, smi)
+    wide_attn_launches = timed("cgan-wide", phase_cgan_wide, smi)
+    timed("cgan-conv", phase_cgan_conv, smi)
+    timed("cgan-multi", phase_cgan_multi, smi)
+    timed("cgan-sweep", phase_cgan_sweep, smi)
+    runs = (train_launches, eval_launches, seq_launches, wide_launches,
+            sweep_launches, profile_launches)
     launches = {**cgan_launches, **wide_attn_launches,
-                "gru_sequence": serve_launches + train_launches["gru_sequence"]
-                + eval_launches["gru_sequence"] + synth_launches
-                + seq_launches["gru_sequence"] + wide_launches["gru_sequence"],
-                "gru_sequence_bwd": train_launches["gru_sequence_bwd"]
-                + eval_launches["gru_sequence_bwd"] + seq_launches["gru_sequence_bwd"]
-                + wide_launches["gru_sequence_bwd"],
-                "multigru_disc_inputs": train_launches["multigru_disc_inputs"]
-                + seq_launches["multigru_disc_inputs"]
-                + wide_launches["multigru_disc_inputs"],
-                "flash_forward": cgan_launches["flash_forward"] + cgan_serve_launches}
+                **{k: sum(r.get(k, 0) for r in runs)
+                   for k in ("gru_sequence", "gru_sequence_bwd", "multigru_disc_inputs")}}
+    launches["gru_sequence"] += serve_launches + synth_launches
+    launches["flash_forward"] = cgan_launches["flash_forward"] + cgan_serve_launches
     for k, n in launches.items():
         if n < 1:
             fail(f"the main paths launched {k} no time")
-    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds "
+          f"by phase: {seconds}", flush=True)
     sources = {"gru_sequence": ("eegsynth_torch/csrc/gru_seq.cu",
                                 "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_bwd": ("eegsynth_torch/csrc/gru_seq.cu",

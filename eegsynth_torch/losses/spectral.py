@@ -100,15 +100,21 @@ def cov_loss(real: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
     return torch.mean((per_sample_channel_cov(fake) - per_sample_channel_cov(real)) ** 2)
 
 
+def live(w) -> bool:
+    """Whether a loss weight keeps its component: a tensor weight always
+    does (a weight sweep's vector, JAX's traced weights), a float when it
+    is above 0."""
+    return isinstance(w, torch.Tensor) or w > 0
+
+
 def posture_conditional_losses(real: torch.Tensor, fake: torch.Tensor,
                                labels: torch.Tensor, num_classes: int,
-                               psd_w: float, coh_w: float, cov_w: float,
-                               log_psd_w: float = 0.0) -> torch.Tensor:
+                               psd_w, coh_w, cov_w, log_psd_w=0.0) -> torch.Tensor:
     """PSD, coherence (the 4 fixed pairs), covariance and log-PSD losses per
     class present in the batch, averaged over those classes. Each class's
-    statistics are weighted means over its rows; a weight of 0 leaves its
-    component out."""
-    if not any(w > 0 for w in (psd_w, coh_w, cov_w, log_psd_w)):
+    statistics are weighted means over its rows. A weight is a float or a
+    0-d tensor; a float weight of 0 leaves its component out (:func:`live`)."""
+    if not any(live(w) for w in (psd_w, coh_w, cov_w, log_psd_w)):
         return torch.zeros((), dtype=real.dtype, device=real.device)
     onehot = F.one_hot(labels.long(), num_classes).to(real.dtype)   # (B, K)
     counts = onehot.sum(dim=0)
@@ -121,10 +127,10 @@ def posture_conditional_losses(real: torch.Tensor, fake: torch.Tensor,
         return torch.tensordot(onehot.T, v, dims=1) / n.reshape(shape)
 
     losses = torch.zeros((num_classes,), dtype=real.dtype, device=real.device)
-    if psd_w > 0:
+    if live(psd_w):
         d = wmean(rfft_power(fake, dim=2)) - wmean(rfft_power(real, dim=2))
         losses = losses + psd_w * d.abs().mean(dim=(1, 2))
-    if log_psd_w > 0:
+    if live(log_psd_w):
         def log_stats(x):
             lp = _log_power(x)
             m = wmean(lp)
@@ -134,11 +140,11 @@ def posture_conditional_losses(real: torch.Tensor, fake: torch.Tensor,
         mf, sf = log_stats(fake)
         losses = losses + log_psd_w * ((mf - mr).abs().mean(dim=(1, 2))
                                        + (sf - sr).abs().mean(dim=(1, 2)))
-    if coh_w > 0:
+    if live(coh_w):
         pairs = _pairs(FIXED_PAIRS, real.device)
         d = wmean(_coherence(fake, pairs)) - wmean(_coherence(real, pairs))
         losses = losses + coh_w * d.abs().mean(dim=(1, 2))
-    if cov_w > 0:
+    if live(cov_w):
         def cov(x):
             xc = x - x.mean(dim=2, keepdim=True)
             return torch.matmul(xc, xc.transpose(1, 2)) / (x.shape[2] - 1)

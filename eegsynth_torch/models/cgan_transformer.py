@@ -24,7 +24,11 @@ R1 differentiates it twice, and the kernels are first-order only.
 
 ``jax.nn.gelu`` is the tanh approximation, so the MLP uses
 ``gelu(approximate="tanh")``; LayerNorm's variance is biased with eps 1e-6.
-``remat=True`` (the JAX package's rematerialised D blocks) is not ported yet.
+``remat=True`` wraps each discriminator block in
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, as the JAX
+package wraps it in ``jax.checkpoint``: a block keeps only its input for the
+backward pass and recomputes the rest there. R1's double backward passes
+through it.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from eegsynth_torch.models.cgan import CGANConfig, disc_head
 from eegsynth_torch.nn.attention import mha
@@ -50,12 +55,7 @@ class TransformerCGANConfig(CGANConfig):
     patch: int = 8              # samples per token → 768/8 = 96 tokens
     mlp_ratio: int = 4
     attn_impl: str | None = None  # None → the module default ("auto")
-    remat: bool = False
-
-    def __post_init__(self):
-        if self.remat:
-            raise NotImplementedError("remat=True (rematerialised discriminator "
-                                      "blocks) is not ported to eegsynth_torch yet")
+    remat: bool = False         # recompute each D block in the backward pass
 
     @property
     def tokens(self) -> int:
@@ -190,11 +190,17 @@ def disc_features(params: dict, x: torch.Tensor, train: bool = True, *,
     l = t // cfg.patch
     h = x.to(params["pos"].dtype).transpose(1, 2).reshape(b, l, cfg.patch * c)
     h = _dense(params["embed_in"], h) + params["pos"][None, :l]
-    for i in range(cfg.depth):
-        blk = params[f"blk{i}"]
+
+    def block(blk, h):
         # dense attention always: R1 differentiates the discriminator twice
         h = h + _attn_apply(blk["attn"], _ln(h), cfg.heads, "dense")
-        h = h + _mlp_apply(blk["mlp"], _ln(h))
+        return h + _mlp_apply(blk["mlp"], _ln(h))
+
+    for i in range(cfg.depth):
+        if cfg.remat:
+            h = checkpoint(block, params[f"blk{i}"], h, use_reentrant=False)
+        else:
+            h = block(params[f"blk{i}"], h)
     h = _ln(h) * params["ln_g"] + params["ln_b"]
     return h.mean(dim=1), params
 

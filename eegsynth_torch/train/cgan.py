@@ -48,7 +48,10 @@ step's backward when T/patch ≥ 512 or flash is forced
 The discriminator pins dense attention: R1 (``autograd.grad`` with
 ``create_graph=True``) differentiates it twice.
 
-Not ported: ``tf_remat`` raises ``NotImplementedError``; Orbax
+``tf_remat`` recomputes each transformer discriminator block in the
+backward pass (``TransformerCGANConfig.remat``), R1 included. A weight
+vector in ``G_WEIGHT_NAMES`` order may replace the hp's G-loss weights in a
+step (the weight sweeps). Not ported: Orbax
 checkpoints, ``async_ckpt``, ``mesh`` and multihost are on ROADMAP's
 do-not-port list (NPZ is the only checkpoint format);
 ``epochs_per_dispatch`` is kept for config compatibility and changes
@@ -85,7 +88,7 @@ from eegsynth_torch.losses.gan import (
     g_bce, g_hinge, g_wgan, gradient_penalty,
 )
 from eegsynth_torch.losses.spectral import (
-    coh_loss_random, cov_loss, draw_coh_pairs, log_psd_loss,
+    coh_loss_random, cov_loss, draw_coh_pairs, live, log_psd_loss,
     posture_conditional_losses, psd_loss,
 )
 from eegsynth_torch.models import cgan as _conv_model
@@ -186,7 +189,7 @@ class CGANHParams:
     tf_depth: int = 4
     tf_heads: int = 4
     tf_patch: int = 8
-    tf_remat: bool = False       # not ported yet
+    tf_remat: bool = False       # recompute the transformer D blocks in backward
     precision_d: str = "f32"     # "bf16": the D update's conv trunks in bfloat16
 
     def __post_init__(self):
@@ -201,6 +204,10 @@ class CGANHParams:
                              "discriminators only (the transformer D keeps "
                              "f32 LayerNorms)")
 
+
+G_WEIGHT_NAMES = ("fm_weight", "psd_weight", "coh_weight", "cov_weight",
+                  "amp_weight", "g_acgan_weight", "log_psd_weight")
+"""The G-loss weights a weight vector of :func:`cgan_step` sets, in order."""
 
 V2_OVERRIDES = dict(epochs=600, prewarm=5, lr_g=6e-4, lr_d=8e-5, proj_scale=0.10,
                     acgan_weight=1.25, g_acgan_weight=1.5, inst_noise_end=0.06,
@@ -486,7 +493,8 @@ def _d_update(G, bn, D, d_state, X, dd: DDraws, step_idx: int, sigma: float,
 def cgan_step(G, bn, D, ema, g_state: OptState, d_state: OptState,
               X: torch.Tensor, draws: CGANDraws, step_idx: int, sigma: float, *,
               cfg: CGANConfig, hp: CGANHParams, optG: Adam,
-              optD: Adam, prewarm: bool, timer=None):
+              optD: Adam, prewarm: bool, timer=None,
+              weights: torch.Tensor | None = None):
     """One training step: the D update(s), then the G update and the EMA.
 
     ``X`` (N, C, T) is the training set on the device, ``draws`` come from
@@ -497,9 +505,13 @@ def cgan_step(G, bn, D, ema, g_state: OptState, d_state: OptState,
     accuracy, then the ACGAN accuracies), the G loss and the D loss. In a
     prewarm epoch D is not updated, the diagnostics and the D loss are 0 and
     the G loss has no adversarial term. ``bn`` advances in every D update
-    and in the G step. ``timer``, if given, is called with a layer name
-    after each layer."""
+    and in the G step. ``weights`` (len(G_WEIGHT_NAMES),) replaces the hp's
+    G-loss weights (JAX ``epoch_core(..., weights)``); every weighted
+    component is then computed, whatever its weight. ``timer``, if given, is
+    called with a layer name after each layer."""
     mark = timer or (lambda name: None)
+    w = (dict(zip(G_WEIGHT_NAMES, weights.unbind())) if weights is not None
+         else {n: getattr(hp, n) for n in G_WEIGHT_NAMES})
     device = X.device
     diag = torch.zeros((8,), device=device)
     d_loss = torch.zeros((), device=device)
@@ -523,21 +535,21 @@ def cgan_step(G, bn, D, ema, g_state: OptState, d_state: OptState,
     loss = torch.zeros((), device=device)
     if not prewarm:
         loss = (g_adv(gs_g) + g_adv(gs_l)
-                + hp.g_acgan_weight * (cross_entropy(glog_g, labels_g)
-                                       + cross_entropy(glog_l, labels_g)))
+                + w["g_acgan_weight"] * (cross_entropy(glog_g, labels_g)
+                                         + cross_entropy(glog_l, labels_g)))
     rfeat, _ = disc_features(D["dg"], real_g, cfg, train=False)
-    loss = loss + hp.fm_weight * feature_matching(ffeat, rfeat)
+    loss = loss + w["fm_weight"] * feature_matching(ffeat, rfeat)
     if hp.variant == "v1":
         loss = loss + posture_conditional_losses(
-            real_g, fake2, labels_g, cfg.num_classes, hp.psd_weight,
-            hp.coh_weight, hp.cov_weight, hp.log_psd_weight)
+            real_g, fake2, labels_g, cfg.num_classes, w["psd_weight"],
+            w["coh_weight"], w["cov_weight"], w["log_psd_weight"])
     else:
-        loss = loss + hp.psd_weight * psd_loss(real_g, fake2)
-        loss = loss + hp.coh_weight * coh_loss_random(gd.pairs, real_g, fake2)
-        loss = loss + hp.cov_weight * cov_loss(real_g, fake2)
-        loss = loss + hp.amp_weight * amp_calib_loss(real_g, fake2)
-        if hp.log_psd_weight > 0:
-            loss = loss + hp.log_psd_weight * log_psd_loss(real_g, fake2)
+        loss = loss + w["psd_weight"] * psd_loss(real_g, fake2)
+        loss = loss + w["coh_weight"] * coh_loss_random(gd.pairs, real_g, fake2)
+        loss = loss + w["cov_weight"] * cov_loss(real_g, fake2)
+        loss = loss + w["amp_weight"] * amp_calib_loss(real_g, fake2)
+        if live(w["log_psd_weight"]):
+            loss = loss + w["log_psd_weight"] * log_psd_loss(real_g, fake2)
     mark("g_forward")
     g_grads = _grads(loss, Gr)
     mark("g_backward")

@@ -27,7 +27,11 @@ the discriminator's plain recurrence: the ``_R1_FWD_OVER_REV=False`` branch
 of the JAX package, with the same value and θ-gradient as its default
 forward-over-reverse surrogate.
 
-Not ported: ``mesh``, multihost, Orbax checkpoints and ``profile_dir``.
+``profile_dir`` wraps the GAN phase, and only that phase, in a
+``torch.profiler`` trace (:func:`gan_profile`), as the JAX trainers wrap it
+in ``jax.profiler.trace``.
+
+Not ported: ``mesh``, multihost and Orbax checkpoints.
 
     python -m eegsynth_torch.train.timegan --config configs/timegan_config.json \\
         --data_dir ./preprocessed --out_dir ./timegan_runs [--parallel_buckets]
@@ -36,6 +40,7 @@ Not ported: ``mesh``, multihost, Orbax checkpoints and ``profile_dir``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -542,6 +547,28 @@ def synthesize(model: TimeGAN, n: int, seq_len: int, *,
                            for i in range(0, n, batch)], axis=0)
 
 
+@contextlib.contextmanager
+def gan_profile(profile_dir, name: str, device: torch.device):
+    """A ``torch.profiler`` trace of the enclosed steps, with CPU activity
+    and, on the card, CUDA activity, written as a Chrome trace to
+    ``profile_dir/<name>_gan.trace.json``; nothing when ``profile_dir`` is
+    None."""
+    if profile_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{name}_gan.trace.json"
+    prof.export_chrome_trace(str(path))
+    print(f"[profile] GAN phase trace: {path}", flush=True)
+
+
 LOG_HEADER = "step,phase," + ",".join(LOG_COLUMNS) + "\n"
 CKPT_EVERY = 500
 """``ckpt_latest`` is written whenever a multiple of this many GAN steps was
@@ -550,7 +577,8 @@ crossed (the reference's cadence, train_timegan.py:407), and at the end."""
 
 def train_single_npz(npz_path, out_dir, *, device: torch.device | str,
                      log_every: int = 100, resume: bool = False,
-                     ckpt_format: str = "npz", **hparams) -> dict:
+                     ckpt_format: str = "npz", profile_dir=None,
+                     **hparams) -> dict:
     """Train one TimeGAN on one (posture, condition) bucket NPZ (JAX
     ``train_single_npz``), the stacked machinery at nb 1.
 
@@ -567,6 +595,9 @@ def train_single_npz(npz_path, out_dir, *, device: torch.device | str,
     state from ``ckpt_best.npz``; the GAN stream is seeded from (seed, step),
     so the resumed run draws afresh; the log is appended to. Checkpoints are
     NPZ, readable by the JAX package; ``ckpt_format="orbax"`` raises.
+
+    ``profile_dir`` writes a Chrome trace of the GAN phase there
+    (``<npz stem>_gan.trace.json``, :func:`gan_profile`).
 
     Randomness: the weights and each phase's draws come from generators
     seeded from (seed, stream), bucket 0 of the stacked trainer's streams;
@@ -660,45 +691,46 @@ def train_single_npz(npz_path, out_dir, *, device: torch.device | str,
     t_start = time.perf_counter()
     done = start_step
     last_saved_best = int(best.step[0]) if resuming else -1
-    while done < hp.gan_steps:
-        n_steps = min(hp.chunk, hp.gan_steps - done)
-        perm, cursor = None, 0             # the epoch cycle restarts every chunk
-        rows = []
-        for step in range(done + 1, done + n_steps + 1):
-            t_step = time.perf_counter()
-            if hp.epoch_cycle:
-                idx, perm, cursor = epoch_cycle_next(perm, cursor, B, fresh_perm)
-            else:
-                idx = draw_perm_idx(gens, N, B, device=device)
-            draws = draw_gan(gens, None, B, T, z_dim, device=device, idx=idx)
-            if rate > 0:
-                draws.masks = draw_gan_masks(gens, params, B, T, rate, device=device)
-            params, d_state, g_state, lg = gan_step(
-                params, optD, d_state, optG, g_state, gather_batch(X, idx), draws,
-                step, hp)
-            best.update(params, lg, step)
-            rows.append(lg[0])
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            step_seconds.append(time.perf_counter() - t_step)
-        logs = torch.stack(rows).cpu().numpy()
-        with open(log_file, "a") as f:
-            for i, row in enumerate(logs):
-                s = done + i + 1
-                f.write(f"{s},GAN," + ",".join(repr(float(v)) for v in row) + "\n")
-                if s % log_every == 0:
-                    print(f"[GAN] step {s}/{hp.gan_steps}  D:loss={row[0]:.4f} "
-                          f"acc≈{row[1]:.2f}  G:total={row[2]:.4f} (adv={row[3]:.4f}, "
-                          f"sup={row[4]:.4f}, rec={row[5]:.4f}, cov={row[6]:.4f}, "
-                          f"acf={row[7]:.4f})", flush=True)
-        done += n_steps
-        if done // CKPT_EVERY > (done - n_steps) // CKPT_EVERY or done == hp.gan_steps:
-            save(out_dir / "ckpt_latest.npz", params, done)
-        best_step = int(best.step[0])
-        if best_step != last_saved_best:
-            save(out_dir / "ckpt_best.npz", best.params, best_step,
-                 {"best": True, "best_loss": float(best.loss[0])})
-            last_saved_best = best_step
+    with gan_profile(profile_dir, npz_path.stem, device):
+        while done < hp.gan_steps:
+            n_steps = min(hp.chunk, hp.gan_steps - done)
+            perm, cursor = None, 0             # the epoch cycle restarts every chunk
+            rows = []
+            for step in range(done + 1, done + n_steps + 1):
+                t_step = time.perf_counter()
+                if hp.epoch_cycle:
+                    idx, perm, cursor = epoch_cycle_next(perm, cursor, B, fresh_perm)
+                else:
+                    idx = draw_perm_idx(gens, N, B, device=device)
+                draws = draw_gan(gens, None, B, T, z_dim, device=device, idx=idx)
+                if rate > 0:
+                    draws.masks = draw_gan_masks(gens, params, B, T, rate, device=device)
+                params, d_state, g_state, lg = gan_step(
+                    params, optD, d_state, optG, g_state, gather_batch(X, idx), draws,
+                    step, hp)
+                best.update(params, lg, step)
+                rows.append(lg[0])
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                step_seconds.append(time.perf_counter() - t_step)
+            logs = torch.stack(rows).cpu().numpy()
+            with open(log_file, "a") as f:
+                for i, row in enumerate(logs):
+                    s = done + i + 1
+                    f.write(f"{s},GAN," + ",".join(repr(float(v)) for v in row) + "\n")
+                    if s % log_every == 0:
+                        print(f"[GAN] step {s}/{hp.gan_steps}  D:loss={row[0]:.4f} "
+                              f"acc≈{row[1]:.2f}  G:total={row[2]:.4f} (adv={row[3]:.4f}, "
+                              f"sup={row[4]:.4f}, rec={row[5]:.4f}, cov={row[6]:.4f}, "
+                              f"acf={row[7]:.4f})", flush=True)
+            done += n_steps
+            if done // CKPT_EVERY > (done - n_steps) // CKPT_EVERY or done == hp.gan_steps:
+                save(out_dir / "ckpt_latest.npz", params, done)
+            best_step = int(best.step[0])
+            if best_step != last_saved_best:
+                save(out_dir / "ckpt_best.npz", best.params, best_step,
+                     {"best": True, "best_loss": float(best.loss[0])})
+                last_saved_best = best_step
     gan_seconds = time.perf_counter() - t_start
     steps_per_sec = ((hp.gan_steps - start_step) / gan_seconds
                      if gan_seconds > 0 else float("nan"))
@@ -732,7 +764,6 @@ _REFUSED = {
     "async_ckpt": "checkpoints are NPZ, written synchronously",
     "dispatch_budget": "a guard for the remote TPU runtime's dispatch watchdog",
     "max_stack": "a guard for the remote TPU runtime's dispatch watchdog",
-    "profile_dir": "not ported: no torch.profiler trace of the GAN phase yet",
 }
 """Flags of ``scripts/train_timegan.py`` with no counterpart here, and why."""
 
@@ -779,7 +810,8 @@ def main(argv: list[str] | None = None):
                     default=None, help="refused")
     ap.add_argument("--dispatch_budget", type=int, default=None, help="refused")
     ap.add_argument("--max_stack", type=int, default=None, help="refused")
-    ap.add_argument("--profile_dir", type=str, default=None, help="refused")
+    ap.add_argument("--profile_dir", type=str, default=None,
+                    help="write a torch.profiler Chrome trace of the GAN phase here")
     for k, typ in CONFIG_KEYS.items():
         ap.add_argument(f"--{k}", type=typ, default=None)
     args = ap.parse_args(argv)
@@ -836,7 +868,7 @@ def main(argv: list[str] | None = None):
                                 log_every=args.log_every,
                                 bucket_weights=bucket_weights,
                                 ckpt_every=args.ckpt_every, resume=args.resume,
-                                **hp)
+                                profile_dir=args.profile_dir, **hp)
         print(f"\nAggregate: {res['aggregate_steps_per_sec']:.1f} GAN steps/s "
               f"across {res['n_buckets']} buckets ({res['total_seconds']:.1f}s total)")
     else:
@@ -852,7 +884,8 @@ def main(argv: list[str] | None = None):
             print(f"\n=== Training {fp.name} → {run_dir} ===", flush=True)
             res[fp.stem] = train_single_npz(fp, run_dir, device=device,
                                             log_every=args.log_every,
-                                            resume=args.resume, **hp)
+                                            resume=args.resume,
+                                            profile_dir=args.profile_dir, **hp)
     print("\nAll models trained. Checkpoints, logs, and synthetic data are under:",
           out_root, flush=True)
     return res

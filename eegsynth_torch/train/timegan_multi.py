@@ -28,8 +28,12 @@ run without dropout); ``bucket_weights``, per-bucket G-loss weights;
 holds each bucket's GAN generator, so a resumed run's log equals an
 uninterrupted run's bit for bit on the same device.
 
+``profile_dir`` writes a ``torch.profiler`` Chrome trace of the GAN phase.
+The phases themselves are :func:`run_stack`, which the TimeGAN weight
+sweep (``timegan_sweep.py``) drives with its own members.
+
 Not ported (ROADMAP "Do not port"): ``mesh``, ``max_stack``,
-``dispatch_budget``; and ``profile_dir``.
+``dispatch_budget``.
 
     python -m eegsynth_torch.train.timegan --parallel_buckets \\
         --config configs/timegan_config.json --data_dir ./preprocessed \\
@@ -55,8 +59,8 @@ from eegsynth_torch.train.optim import Optimizer, make_gan_opts
 from eegsynth_torch.train.timegan import (
     _AE, _GAN, _INIT, _SUP, _SYNTH, GEN_NETS, LOG_COLUMNS, LOG_HEADER,
     TIMEGAN_G_WEIGHT_NAMES, BestTracker, TimeGANHParams, bucket_generators,
-    bucket_seed, draw_batch_idx, draw_gan, draw_gan_masks, dropout_rate, gan_step,
-    gather_batch, pre_phase_step, synthesize,
+    bucket_seed, draw_batch_idx, draw_gan, draw_gan_masks, dropout_rate, gan_profile,
+    gan_step, gather_batch, pre_phase_step, synthesize,
 )
 from eegsynth_torch.tree import take
 
@@ -98,10 +102,114 @@ def bucket_weight_matrix(bucket_weights: dict, names: list[str],
     return W
 
 
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def run_stack(X: torch.Tensor, n_valid: torch.Tensor, hp: TimeGANHParams,
+              cfg: TimeGANConfig, *, init_gens: list, streams, device: torch.device,
+              weights: torch.Tensor | None = None, log_every: int = 100,
+              resume: tuple | None = None, ckpt_every: int | None = None,
+              save_state=None, profile_dir=None, profile_name: str = "stack",
+              log=_log) -> dict:
+    """The three phases of a stacked run: AE, SUP (no dropout, as in JAX),
+    then ``hp.gan_steps`` joint GAN steps, every member at once.
+
+    ``X`` (nb, n_max, T, C) holds each member's windows, of which the first
+    ``n_valid[b]`` are drawn (with replacement). Member b's weights come
+    from ``init_gens[b]`` (CPU generators); ``streams(stream)`` returns the
+    members' generators on the device for ``stream`` (``_AE``, ``_SUP``,
+    ``_GAN``). ``weights`` (nb, 4) are per-member G-loss weights
+    (:func:`gan_step`). ``resume`` = (trees, done) of a saved state skips
+    phases 1-2 and continues the GAN phase from it; every ``ckpt_every``
+    GAN steps (before the last) ``save_state(trees, done)`` receives the
+    state. ``profile_dir`` wraps the GAN phase in a ``torch.profiler``
+    trace (:func:`gan_profile`).
+
+    Returns the final state: ``params``, ``best`` (:class:`BestTracker`),
+    ``logs`` (one (nb, 8) tensor a step), the optimizers and their states,
+    each GAN step's wall time (host clock, synchronised), the GAN phase's
+    seconds, the first step run and the pre-phase step counts."""
+    nb, n_max, T, _ = X.shape
+    params = timegan_init_stacked(cfg, init_gens, device=device)
+    B = min(hp.batch_size, n_max)
+    steps_per_epoch = -(-n_max // B)
+    rate = dropout_rate(hp)
+
+    # Phases 1 + 2: autoencoder, then supervisor; a resumed run restores
+    # their outcome instead
+    phases = (("AE", _AE, "ae", hp.ae_epochs, ("embedder", "recovery")),
+              ("SUP", _SUP, "sup", hp.sup_epochs, None))
+    for tag, stream, which, epochs, nets in phases if resume is None else ():
+        opt = Optimizer(hp.lr_g, hp.grad_clip, hp.beta1, hp.beta2)
+        sub = ({k: params[k] for k in nets} if nets else params["supervisor"])
+        state = opt.init(sub)
+        gens = streams(stream)
+        n_steps = epochs * steps_per_epoch
+        loss = torch.full((nb,), float("nan"), device=device)
+        for _ in range(n_steps):
+            x = gather_batch(X, draw_batch_idx(gens, n_valid, B, device=device))
+            params, state, loss = pre_phase_step(params, opt, state, x, which)
+        log(f"[{tag}] {n_steps} steps × {nb} members  final "
+            f"{'recon' if which == 'ae' else 'sup'}≈{loss.mean().item():.5f}")
+
+    # Phase 3: joint GAN steps
+    optD, optG = make_gan_opts(hp)
+    d_state = optD.init(params["discriminator"])
+    g_state = optG.init({k: params[k] for k in GEN_NETS})
+    gens = streams(_GAN)
+    best = BestTracker.start(params)
+    logs, step_seconds, done0 = [], [], 0
+    if resume is not None:
+        trees, done0 = resume
+        params = restore_like(params, trees["model"])
+        d_state = optD.restore(trees["optD"], d_state)
+        g_state = optG.restore(trees["optG"], g_state)
+        best = BestTracker(restore_like(params, trees["best"]),
+                           torch.from_numpy(trees["best_loss"]).to(device),
+                           torch.from_numpy(trees["best_step"]).long().to(device))
+        for g, rng in zip(gens, trees["rng"]):
+            g.set_state(torch.from_numpy(rng))
+        logs = list(torch.from_numpy(trees["logs"]).to(device).unbind(1))
+
+    t0 = time.perf_counter()
+    with gan_profile(profile_dir, profile_name, device):
+        for step in range(done0 + 1, hp.gan_steps + 1):
+            t_step = time.perf_counter()
+            draws = draw_gan(gens, n_valid, B, T, cfg.z_dim, device=device)
+            if rate > 0:
+                draws.masks = draw_gan_masks(gens, params, B, T, rate, device=device)
+            x = gather_batch(X, draws.idx)
+            params, d_state, g_state, lg = gan_step(params, optD, d_state, optG,
+                                                    g_state, x, draws, step, hp,
+                                                    weights=weights)
+            logs.append(lg)
+            best.update(params, lg, step)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)   # a step takes seconds: cheap
+            step_seconds.append(time.perf_counter() - t_step)
+            if step % log_every == 0 or step == hp.gan_steps:
+                row = lg.mean(dim=0).tolist()
+                log(f"[GAN] step {step}/{hp.gan_steps}  mean over {nb} members: "
+                    f"D={row[0]:.4f} acc≈{row[1]:.2f} G={row[2]:.4f} "
+                    f"({step_seconds[-1]:.3f} s)")
+            if ckpt_every and step < hp.gan_steps and step % ckpt_every == 0:
+                save_state({"model": params, "optD": optD.state_tree(d_state),
+                            "optG": optG.state_tree(g_state), "best": best.params,
+                            "best_loss": best.loss, "best_step": best.step,
+                            "logs": torch.stack(logs, dim=1),
+                            "rng": [g.get_state() for g in gens]}, step)
+    return {"params": params, "best": best, "logs": logs, "optD": optD,
+            "d_state": d_state, "optG": optG, "g_state": g_state,
+            "step_seconds": step_seconds, "gan_seconds": time.perf_counter() - t0,
+            "done0": done0, "ae_steps": hp.ae_epochs * steps_per_epoch,
+            "sup_steps": hp.sup_epochs * steps_per_epoch}
+
+
 def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
                       log_every: int = 100, bucket_weights: dict | None = None,
                       ckpt_every: int | None = None, resume: bool = False,
-                      **hparams) -> dict:
+                      profile_dir=None, **hparams) -> dict:
     """Stacked multi-bucket training; writes the per-bucket artifact set.
     Returns aggregate throughput stats, each GAN step's wall time (host clock,
     synchronised) and the pre-phase step counts.
@@ -112,7 +220,8 @@ def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
     state (params, both optimizers, best tracking, the logs so far, each
     bucket's GAN generator) goes to ``out_root/_multi_state.npz``;
     ``resume`` continues from it, skipping phases 1-2, and refuses a file of
-    another run (names, seed, gan_steps, chunk)."""
+    another run (names, seed, gan_steps, chunk). ``profile_dir`` writes a
+    Chrome trace of the GAN phase there (``all_buckets_gan.trace.json``)."""
     device = torch.device(device)
     out_root = Path(out_root)
     hp = TimeGANHParams(**hparams)
@@ -127,14 +236,13 @@ def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
     z_dim, h_dim = adaptive_dims(C, T)
     cfg = TimeGANConfig(x_dim=C, z_dim=z_dim, h_dim=h_dim, num_layers=hp.layers,
                         dropout=hp.dropout)
-    rate = dropout_rate(hp)
     print(f"==> {nb} buckets | T={T} C={C} z={z_dim} h={h_dim} "
           f"N∈[{int(n_valid_host.min())},{n_max}] | {device}", flush=True)
 
     state_path = out_root / "_multi_state.npz"
     run_meta = {"names": ",".join(names), "seed": hp.seed,
                 "gan_steps": hp.gan_steps, "chunk_eff": hp.chunk}
-    resume_meta = None
+    resumed = None
     if resume and state_path.exists():
         rmeta = ckpt_io.load_meta(state_path)
         got = {k: type(v)(rmeta.get(k)) for k, v in run_meta.items()}
@@ -142,97 +250,34 @@ def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
             raise ValueError(f"{state_path} does not match this run (saved {got}, "
                              f"expected {run_meta}): wrong out_root or changed "
                              "config")
-        resume_meta = rmeta
+        resumed = (ckpt_io.load_checkpoint(state_path)[0], int(rmeta["done"]))
         print(f"==> resuming GAN phase from step {rmeta['done']} ({state_path})",
               flush=True)
 
-    t_all = time.perf_counter()
-    X = torch.from_numpy(X_host).to(device)
-    n_valid = torch.from_numpy(n_valid_host).to(device=device, dtype=torch.float32)
-    params = timegan_init_stacked(cfg, bucket_generators(hp.seed, nb, _INIT, "cpu"),
-                                  device=device)
-    B = min(hp.batch_size, n_max)
-    steps_per_epoch = -(-n_max // B)
-
-    # Phases 1 + 2: autoencoder, then supervisor (no dropout, as in JAX);
-    # a resumed run restores their outcome instead
-    phases = (("AE", _AE, "ae", hp.ae_epochs, ("embedder", "recovery")),
-              ("SUP", _SUP, "sup", hp.sup_epochs, None))
-    for tag, stream, which, epochs, nets in phases if resume_meta is None else ():
-        opt = Optimizer(hp.lr_g, hp.grad_clip, hp.beta1, hp.beta2)
-        sub = ({k: params[k] for k in nets} if nets else params["supervisor"])
-        state = opt.init(sub)
-        gens = bucket_generators(hp.seed, nb, stream, device)
-        n_steps = epochs * steps_per_epoch
-        loss = torch.full((nb,), float("nan"), device=device)
-        for _ in range(n_steps):
-            x = gather_batch(X, draw_batch_idx(gens, n_valid, B, device=device))
-            params, state, loss = pre_phase_step(params, opt, state, x, which)
-        print(f"[{tag}] {n_steps} steps × {nb} buckets  final "
-              f"{'recon' if which == 'ae' else 'sup'}≈{loss.mean().item():.5f}",
-              flush=True)
-
-    # Phase 3: joint GAN steps
-    optD, optG = make_gan_opts(hp)
-    d_state = optD.init(params["discriminator"])
-    g_state = optG.init({k: params[k] for k in GEN_NETS})
-    gens = bucket_generators(hp.seed, nb, _GAN, device)
     weights = None
     if bucket_weights:
         weights = torch.from_numpy(
             bucket_weight_matrix(bucket_weights, names, hp)).to(device)
         print(f"==> per-bucket G weights active for {sorted(bucket_weights)}",
               flush=True)
-    best = BestTracker.start(params)
-    logs, step_seconds, done0 = [], [], 0
-    if resume_meta is not None:
-        trees, _ = ckpt_io.load_checkpoint(state_path)
-        params = restore_like(params, trees["model"])
-        d_state = optD.restore(trees["optD"], d_state)
-        g_state = optG.restore(trees["optG"], g_state)
-        best = BestTracker(restore_like(params, trees["best"]),
-                           torch.from_numpy(trees["best_loss"]).to(device),
-                           torch.from_numpy(trees["best_step"]).long().to(device))
-        for g, rng in zip(gens, trees["rng"]):
-            g.set_state(torch.from_numpy(rng))
-        done0 = int(resume_meta["done"])
-        logs = list(torch.from_numpy(trees["logs"]).to(device).unbind(1))
 
-    def save_state(done: int) -> None:
+    def save_state(trees: dict, done: int) -> None:
         out_root.mkdir(parents=True, exist_ok=True)
-        ckpt_io.save_checkpoint(
-            state_path,
-            {"model": params, "optD": optD.state_tree(d_state),
-             "optG": optG.state_tree(g_state), "best": best.params,
-             "best_loss": best.loss, "best_step": best.step,
-             "logs": torch.stack(logs, dim=1),
-             "rng": [g.get_state() for g in gens]},
-            {**run_meta, "done": done, "chunks_done": done})
+        ckpt_io.save_checkpoint(state_path, trees,
+                                {**run_meta, "done": done, "chunks_done": done})
         print(f"[state] saved {state_path.name} @ step {done}", flush=True)
 
-    t0 = time.perf_counter()
-    for step in range(done0 + 1, hp.gan_steps + 1):
-        t_step = time.perf_counter()
-        draws = draw_gan(gens, n_valid, B, T, z_dim, device=device)
-        if rate > 0:
-            draws.masks = draw_gan_masks(gens, params, B, T, rate, device=device)
-        x = gather_batch(X, draws.idx)
-        params, d_state, g_state, lg = gan_step(params, optD, d_state, optG,
-                                                g_state, x, draws, step, hp,
-                                                weights=weights)
-        logs.append(lg)
-        best.update(params, lg, step)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)   # a step takes seconds: cheap
-        step_seconds.append(time.perf_counter() - t_step)
-        if step % log_every == 0 or step == hp.gan_steps:
-            row = lg.mean(dim=0).tolist()
-            print(f"[GAN] step {step}/{hp.gan_steps}  mean over {nb} buckets: "
-                  f"D={row[0]:.4f} acc≈{row[1]:.2f} G={row[2]:.4f} "
-                  f"({step_seconds[-1]:.3f} s)", flush=True)
-        if ckpt_every and step < hp.gan_steps and step % ckpt_every == 0:
-            save_state(step)
-    gan_seconds = time.perf_counter() - t0
+    t_all = time.perf_counter()
+    run = run_stack(
+        torch.from_numpy(X_host).to(device),
+        torch.from_numpy(n_valid_host).to(device=device, dtype=torch.float32),
+        hp, cfg, init_gens=bucket_generators(hp.seed, nb, _INIT, "cpu"),
+        streams=lambda stream: bucket_generators(hp.seed, nb, stream, device),
+        device=device, weights=weights, log_every=log_every, resume=resumed,
+        ckpt_every=ckpt_every, save_state=save_state, profile_dir=profile_dir,
+        profile_name="all_buckets")
+    params, best, logs = run["params"], run["best"], run["logs"]
+    gan_seconds, done0 = run["gan_seconds"], run["done0"]
     agg = nb * (hp.gan_steps - done0) / max(gan_seconds, 1e-9)
     print(f"[GAN] {nb}×{hp.gan_steps - done0} steps in {gan_seconds:.1f}s → "
           f"{agg:.1f} aggregate steps/s", flush=True)
@@ -240,7 +285,8 @@ def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
     # Per-bucket artifacts
     logs_host = (torch.stack(logs, dim=1).cpu().numpy() if logs
                  else np.zeros((nb, 0, len(LOG_COLUMNS)), np.float32))
-    opt_trees = {"optG": optG.state_tree(g_state), "optD": optD.state_tree(d_state)}
+    opt_trees = {"optG": run["optG"].state_tree(run["g_state"]),
+                 "optD": run["optD"].state_tree(run["d_state"])}
     best_step_host, best_loss_host = best.step.cpu().numpy(), best.loss.cpu().numpy()
     meta_base = {"z_dim": z_dim, "h_dim": h_dim, "x_dim": C, "layers": hp.layers}
     for b, name in enumerate(names):
@@ -272,9 +318,8 @@ def train_all_buckets(data_dir, out_root, *, device: torch.device | str,
 
     return {"aggregate_steps_per_sec": agg, "gan_seconds": gan_seconds,
             "total_seconds": time.perf_counter() - t_all, "n_buckets": nb,
-            "gan_step_seconds": step_seconds,
-            "ae_steps": hp.ae_epochs * steps_per_epoch,
-            "sup_steps": hp.sup_epochs * steps_per_epoch}
+            "gan_step_seconds": run["step_seconds"],
+            "ae_steps": run["ae_steps"], "sup_steps": run["sup_steps"]}
 
 
 def main(argv: list[str] | None = None) -> dict:

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.nn.attention import _fa_impl, attention_xla
 from eegsynth.nn.attention import flash_attention as jax_flash
 from eegsynth_torch.nn import attention as A

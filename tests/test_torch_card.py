@@ -7,8 +7,10 @@ cascade chunked against one-shot, the eval's GRU(24) scorers and
 statistics against the CPU, the sequential trainer (one GAN step of a
 2-layer stack with dropout masks against the CPU, and a short run), and the
 conv CGAN (a v1 and a v2 step against the CPU, a bfloat16 D step, the
-generator against the CPU), bfloat16 synthesis against the CPU, and the
-CGAN eval's metric functions against the CPU.
+generator against the CPU), bfloat16 synthesis against the CPU, the
+CGAN eval's metric functions against the CPU, a weight sweep's stacked GAN
+step against the CPU, a posture-stack member against its lone step, and a
+remat transformer step against the plain one.
 
 Every test skips without a card: the kernels have no CPU mode, and a
 test of the card's route has nothing to compare without one. This file
@@ -40,6 +42,7 @@ from eegsynth_torch.nn.multigru import (
 )
 from eegsynth_torch.nn.precision import cast_floating
 from eegsynth_torch.train import cgan as cgan_train
+from eegsynth_torch.train import cgan_multi
 from eegsynth_torch.train import timegan as ttrain
 from eegsynth_torch.train.optim import make_gan_opts
 from eegsynth_torch.train.timegan import synthesize_from_noise
@@ -732,9 +735,17 @@ def test_conv_cgan_step_matches_cpu(cuda_device, variant):
     assert launches == (0, 0, 0)
     assert torch.isfinite(logs).all()
     assert ((logs - clogs).abs() / clogs.abs().clamp(min=1.0)).max() <= 1e-4
-    for p, pr, m, mr in zip(tree_leaves((G, D)), tree_leaves((cG, cD)),
-                            tree_leaves((muG, muD)), tree_leaves((cmuG, cmuD))):
-        g, gr = m.abs() / (1 - hp.beta1), mr.abs() / (1 - hp.beta1)
+    _hold_conv_step((G, D), (muG, muD), bn, (cG, cD), (cmuG, cmuD), cbn, hp.beta1)
+
+
+def _hold_conv_step(params, mu, bn, ref_params, ref_mu, ref_bn, beta1):
+    """A conv-CGAN step's parameters, Adam first moments and bn against a
+    reference step's, leaf by leaf, by test_conv_cgan_step_matches_cpu's
+    rule."""
+    for p, pr, m, mr in zip(tree_leaves(params), tree_leaves(ref_params),
+                            tree_leaves(mu), tree_leaves(ref_mu)):
+        p, pr, m, mr = p.cpu(), pr.cpu(), m.cpu(), mr.cpu()
+        g, gr = m.abs() / (1 - beta1), mr.abs() / (1 - beta1)
         if gr.max() <= 1e-5:
             assert g.max() <= 1e-5, p.shape
             continue
@@ -743,8 +754,8 @@ def test_conv_cgan_step_matches_cpu(cuda_device, variant):
         small = gr <= max(1e-5, 1e-3 * gr.max().item())
         assert not (far & ~small).any(), p.shape
         assert (far & small).sum() <= 0.01 * p.numel(), p.shape
-    for a, b in zip(tree_leaves(bn), tree_leaves(cbn)):
-        assert (a - b).abs().max().item() <= 1e-5
+    for a, b in zip(tree_leaves(bn), tree_leaves(ref_bn)):
+        assert (a.cpu() - b.cpu()).abs().max().item() <= 1e-5
 
 
 def test_conv_cgan_bf16_d_step(cuda_device):
@@ -863,3 +874,111 @@ def test_cgan_eval_metrics_match_cpu(cuda_device, tmp_path, v2_split):
                     assert abs(c[k] - v) <= 1e-3
                 else:
                     assert abs(c[k] - v) <= 1e-6 + 1e-5 * abs(v), (k, c[k], v)
+
+
+def test_sweep_gan_step_matches_cpu(cuda_device):
+    """One stacked GAN step of three sweep points, B 4, T 96, each with its
+    own G-loss weights (points 0 and 1 equal in everything), through K2 and
+    K1 on the card and the plain versions on the CPU, with
+    test_dropout_gan_step_matches_cpu's tolerances; on the card the two
+    equal points come out bit for bit alike."""
+    hp = ttrain.TimeGANHParams(gan_steps=4, batch_size=4, fused_step=True)
+    cfg = TimeGANConfig(x_dim=14)
+    params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(0)
+                                        for _ in range(3)], device="cpu")
+    g = torch.Generator().manual_seed(1)
+    X = torch.rand((1, 8, 96, 14), generator=g).expand(3, 8, 96, 14)
+    gens = [torch.Generator().manual_seed(2) for _ in range(3)]
+    draws = ttrain.draw_gan(gens, torch.full((3,), 8.0), 4, 96, 28, device="cpu")
+    W = torch.tensor([[3.0, 0.15, 0.03, 0.02], [3.0, 0.15, 0.03, 0.02],
+                      [1.0, 0.5, 0.2, 0.3]])
+    results = []
+    for device in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(device), params)
+        d = ttrain.GANDraws(**{k: tree_map(lambda t: t.to(device), v)
+                               for k, v in vars(draws).items()})
+        optD, optG = make_gan_opts(hp)
+        before = (gru_sequence.launches, multigru_disc_inputs.launches)
+        out = ttrain.gan_step(p, optD, optD.init(p["discriminator"]), optG,
+                              optG.init({k: p[k] for k in ttrain.GEN_NETS}),
+                              ttrain.gather_batch(X.to(device), d.idx), d, 1, hp,
+                              weights=W.to(device))
+        launches = (gru_sequence.launches - before[0],
+                    multigru_disc_inputs.launches - before[1])
+        mu = [t.cpu() for state in out[1:3] for t in tree_leaves(state.mu)]
+        results.append((tree_map(lambda t: t.cpu(), out[0]), out[3].cpu(), launches, mu))
+    (cpu_p, cpu_logs, _, cpu_mu), (card_p, card_logs, launches, card_mu) = results
+    assert launches == (5, 1)
+    assert torch.isfinite(card_logs).all()
+    assert ((card_logs - cpu_logs).abs() / cpu_logs.abs().clamp(min=1.0)).max() <= 1e-4
+    for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)):
+        assert (a - b).abs().max().item() <= 2e-4
+    for a, b in zip(card_mu, cpu_mu):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+    assert torch.equal(card_logs[0], card_logs[1])
+    assert all(torch.equal(a[0], a[1]) for a in tree_leaves(card_p))
+    assert not torch.equal(card_logs[0], card_logs[2])
+
+
+def test_posture_stack_member_matches_its_lone_step(cuda_device):
+    """Two members of the conv v2 posture stack, B 8, full width, one step
+    (R1 fires) on the card: member 1 against its lone ``cgan_step`` on the
+    card on the same draws, by test_conv_cgan_step_matches_cpu's rule."""
+    hp = cgan_train.CGANHParams(**{**cgan_train.V2_OVERRIDES, "batch_size": 8})
+    cfg = cgan_train.build_cfg(hp, 2)
+    optG = cgan_train.Adam(hp.lr_g, hp.beta1, hp.beta2)
+    optD = cgan_train.Adam(hp.lr_d, hp.beta1, hp.beta2)
+    X = torch.rand((2, 16, 14, 768), generator=torch.Generator().manual_seed(3),
+                   ).to(cuda_device)
+    tables = torch.arange(16).reshape(2, 8).expand(2, 2, 8).contiguous().to(cuda_device)
+    counts = torch.full((2, 2), 8.0, device=cuda_device)
+
+    def fresh():
+        return ([cgan_multi.init_member(cfg, hp.seed, p, optG, optD, device=cuda_device)
+                 for p in (1, 2)],
+                [torch.Generator(device=cuda_device).manual_seed(p) for p in (1, 2)])
+
+    members, gens = fresh()
+    cgan_multi.stack_step(members, X, tables, counts, gens, 0, 0.1, cfg=cfg, hp=hp,
+                          optG=optG, optD=optD, prewarm=False)
+    (lone, *_), (gen, *_) = fresh()
+    draws = cgan_train.draw_cgan_step(gen, hp, cfg, tables[0], counts[0],
+                                      prewarm=False, device=cuda_device)
+    out = cgan_train.cgan_step(lone.G, lone.bn, lone.D, lone.ema, lone.g_state,
+                               lone.d_state, X[0], draws, 0, 0.1, cfg=cfg, hp=hp,
+                               optG=optG, optD=optD, prewarm=False)
+    m = members[0]
+    _hold_conv_step((m.G, m.D), (m.g_state.mu, m.d_state.mu), m.bn, (out[0], out[2]),
+                    (out[4].mu, out[5].mu), out[1], hp.beta1)
+
+
+def test_remat_transformer_step_matches_plain(cuda_device):
+    """One transformer CGAN step (dim 32, depth 2, B 8, T 768, R1 fires)
+    with tf_remat on the card against the same step without it on the card:
+    logs within 1e-5 relative, Adam's first moments within 1e-4 of each
+    leaf's largest, or of 1e-3 for a leaf at rounding level, such as the
+    key biases (the recomputed blocks run the same operations; only the
+    backward's order of accumulation may differ)."""
+    outs = []
+    for remat in (False, True):
+        hp = cgan_train.CGANHParams(arch="transformer", tf_dim=32, tf_depth=2,
+                                    tf_heads=2, batch_size=8, tf_remat=remat)
+        cfg = cgan_train.build_cfg(hp, 9)
+        g = torch.Generator().manual_seed(4)
+        G, bn = cgan_train.generator_init(cfg, g, device=cuda_device)
+        D = {k: cgan_train.disc_init(cfg, g, device=cuda_device) for k in ("dg", "dl")}
+        X = torch.rand((72, 14, 768), generator=g).to(cuda_device)
+        draws = cgan_train.draw_cgan_step(
+            torch.Generator().manual_seed(5), hp, cfg, torch.arange(72).reshape(9, 8),
+            torch.full((9,), 8.0), prewarm=False, device="cpu")
+        optG = cgan_train.Adam(hp.lr_g, hp.beta1, hp.beta2)
+        optD = cgan_train.Adam(hp.lr_d, hp.beta1, hp.beta2)
+        outs.append(cgan_train.cgan_step(
+            G, bn, D, G, optG.init(G), optD.init(D), X,
+            cgan_train.draws_to(draws, cuda_device), 0, 0.1, cfg=cfg, hp=hp,
+            optG=optG, optD=optD, prewarm=False))
+    (_, _, _, _, g0, d0, l0), (_, _, _, _, g1, d1, l1) = outs
+    assert torch.isfinite(l1).all() and l0[9] != 0
+    assert ((l1 - l0).abs() / l0.abs().clamp(min=1.0)).max() <= 1e-5
+    for a, b in zip(tree_leaves((g1.mu, d1.mu)), tree_leaves((g0.mu, d0.mu))):
+        assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-3)

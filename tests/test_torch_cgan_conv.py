@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.models import cgan as J
 from eegsynth.nn import conv as jconv
 from eegsynth.nn import norm as jnorm

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from test_torch_cgan_conv_train import P, run_conv_step_pair
+from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth_torch.tree import tree_leaves
 

@@ -6,6 +6,7 @@ so the bn statistics advance three times in the step.
 
 from test_torch_cgan_conv_train import check_conv_state, run_conv_step_pair
 from test_torch_cgan_train import check_step
+from test_torch_threads import one_thread_each  # noqa: F401
 
 
 def test_d_steps_2_advances_bn_three_times():

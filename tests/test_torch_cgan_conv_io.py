@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from test_torch_cgan_train import _write_buckets
+from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth.train import cgan as J
 from eegsynth.train import checkpoint as jckpt

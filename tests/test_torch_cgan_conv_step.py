@@ -14,6 +14,7 @@ import torch
 
 from test_torch_cgan_conv_train import J, check_conv_state, run_conv_step_pair
 from test_torch_cgan_train import check_step
+from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth.data.datasets import build_label_table
 from eegsynth.losses import spectral as JS

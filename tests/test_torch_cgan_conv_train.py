@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from test_torch_cgan_train import check_step, replay_draws
+from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth.data.datasets import build_label_table
 from eegsynth.train import cgan as J

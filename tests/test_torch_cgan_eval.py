@@ -29,7 +29,8 @@ import torch
 from sklearn.linear_model import LogisticRegression as SkLogisticRegression
 from sklearn.linear_model import Ridge as SkRidge
 from sklearn.preprocessing import StandardScaler as SkStandardScaler
-from threadpoolctl import threadpool_limits
+
+from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth.eval import cgan_eval as jeval
 from eegsynth.eval.features import psd_features as jax_psd_features
@@ -47,22 +48,6 @@ from eegsynth_torch.train.checkpoint import save_checkpoint
 T = 256
 FEAT_ATOL = 5e-4
 STAT_RTOL, STAT_ATOL = 1e-5, 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_each():
-    """One intra-op thread for torch and for numpy's BLAS while this file
-    runs. Under pytest-xdist, with a thread pool per worker process, the
-    workers oversubscribe the cores, and these fits and full-width
-    convolutions ran about 60 times slower than alone (spinning threads
-    waiting on descheduled ones)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with threadpool_limits(1):
-            yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _corpus(counts: dict, shift: float, seed: int):

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.losses import augment as JA
 from eegsynth.losses import gan as JG
 from eegsynth.losses import spectral as JS

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from test_torch_cgan_train import check_step, run_step_pair
+from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth_torch.train import cgan as P
 

@@ -25,6 +25,8 @@ import optax
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.data.datasets import build_label_table
 from eegsynth.losses.spectral import ALL_PAIRS
 from eegsynth.models.cgan import DISC_CHANNELS
@@ -440,8 +442,7 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(ValueError, match="NPZ"):
         P.train_one_condition(data, tmp_path / "r", "no_exo", device="cpu",
                               ckpt_format="orbax", **TINY)
-    with pytest.raises(NotImplementedError, match="remat"):
-        P.train_one_condition(data, tmp_path / "r", "no_exo", device="cpu",
-                              tf_remat=True, **TINY)
+    # tf_remat is ported: the transformer's D blocks recompute in backward
+    assert P.build_cfg(P.CGANHParams(tf_remat=True, **TINY), 9).remat
     with pytest.raises(SystemExit, match="one card"):
         P.main(["--mesh", "--data-dir", str(data), *CLI_TINY])

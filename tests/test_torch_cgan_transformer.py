@@ -6,11 +6,15 @@ the CPU) against JAX's dense path, and R1 through the discriminator with the
 attention impl forced to flash. Every generator starts from perturbed adaLN
 weights: at init the adaLN-zero gates keep attention out of the output."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth.models import cgan_transformer as J
 from eegsynth.nn.attention import set_attention_impl as jax_set_impl
@@ -204,8 +208,11 @@ def test_init_shapes_match_jax_and_adaln_zero():
     # torch_dense_init's bound: U(±1/√in)
     assert tG["cond2"]["w"].abs().max().item() <= 32 ** -0.5
     assert abs(float(tD["fc"]["u"].norm()) - 1.0) < 1e-6
-    with pytest.raises(NotImplementedError, match="remat"):
-        P.TransformerCGANConfig(remat=True)
+    # remat=True builds, and the remat D's features equal the plain D's
+    rcfg = dataclasses.replace(pcfg, remat=True)
+    x = torch.rand((2, pcfg.channels, pcfg.seq_len), generator=torch.Generator().manual_seed(2))
+    assert torch.equal(P.disc_features(tD, x, cfg=rcfg)[0],
+                       P.disc_features(tD, x, cfg=pcfg)[0])
 
 
 def _flat(tree, prefix=""):

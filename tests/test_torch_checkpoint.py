@@ -5,6 +5,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.models.timegan import TimeGANConfig, timegan_init
 from eegsynth.train import checkpoint as jck
 from eegsynth_torch.convert import from_jax_params, to_jax_params

@@ -14,6 +14,8 @@ import pytest
 import scipy.signal
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.eval import classifiers as jcls
 from eegsynth.eval import drivers as jdrivers
 from eegsynth.eval.stats import statistical_similarity as jax_similarity

@@ -14,6 +14,8 @@ import jax
 import numpy as np
 import pytest
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.eval import classifiers as jcls
 from eegsynth.eval import drivers as jdrivers
 from eegsynth_torch.eval import classifiers as tcls

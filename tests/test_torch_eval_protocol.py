@@ -10,6 +10,8 @@ from sklearn.metrics import (
 )
 from sklearn.model_selection import train_test_split
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth_torch.eval import protocol
 
 # float64 sums of at most a few hundred terms in another order

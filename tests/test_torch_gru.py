@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.nn.gru import gru_apply as jax_gru_apply
 from eegsynth.nn.gru import gru_init
 from eegsynth.nn.pallas_gru import gru_apply_pallas

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.losses import timegan as jl
 from eegsynth.ops.acf import acf_per_channel as j_acf
 from eegsynth.ops.stats import channel_corrcoef as j_corr

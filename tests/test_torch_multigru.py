@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.models.timegan import TimeGANConfig, timegan_init
 from eegsynth.models.timegan import fused_disc_inputs as jax_fused_disc_inputs
 from eegsynth.nn.pallas_multigru import multigru_disc_inputs_pallas

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.train import timegan as jtrain
 from eegsynth_torch.train import optim as topt
 from eegsynth_torch.train.checkpoint import Attrs

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.models.timegan import TimeGANConfig, timegan_init
 from eegsynth.train.checkpoint import save_checkpoint
 from eegsynth_torch.serve import ModelRegistry, main, make_server

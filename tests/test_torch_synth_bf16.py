@@ -24,7 +24,8 @@ import jax
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
+
+from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth.models import timegan as jtg
 from eegsynth.train.timegan import synthesize as jax_synthesize
@@ -42,22 +43,6 @@ FULL = jtg.TimeGANConfig(x_dim=14, z_dim=28, h_dim=56)
 SMALL = ttg.TimeGANConfig(x_dim=3, z_dim=16, h_dim=24)
 BF16_CORR, BF16_MAX = 0.999, 0.05        # tests/test_precision.py:49-52
 BF16 = torch.bfloat16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_each():
-    """One intra-op thread for torch and for numpy's BLAS while this file
-    runs. Under pytest-xdist, with a thread pool per worker process, the
-    workers oversubscribe the cores, and these fits and full-width
-    convolutions ran about 60 times slower than alone (spinning threads
-    waiting on descheduled ones)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with threadpool_limits(1):
-            yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _params(cfg, seed=0):

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.models import timegan as jtg
 from eegsynth.nn.spectral_norm import sn_dense_apply
 from eegsynth.train.timegan import _synth_run, _synth_step

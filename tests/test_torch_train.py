@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.models.timegan import TimeGANConfig, timegan_init
 from eegsynth.train import timegan as jtrain
 from eegsynth.train.timegan_multi import _make_pre_phase

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_thread_each  # noqa: F401
+
 from eegsynth.losses import timegan as jlosses
 from eegsynth.models import timegan as jmodels
 from eegsynth.models.timegan import TimeGANConfig, timegan_init
@@ -452,13 +454,30 @@ def test_bucket_weights_are_validated(tmp_path, weights, match):
 @pytest.mark.parametrize("flags", [["--mesh"], ["--multihost"],
                                    ["--ckpt_format", "orbax"], ["--async_ckpt"],
                                    ["--dispatch_budget", "10"], ["--max_stack", "2"],
-                                   ["--profile_dir", "prof"],
                                    ["--bucket_weights", "{}"], ["--ckpt_every", "2"]])
 def test_cli_refuses_flags_without_counterpart(tmp_path, flags):
     _data(tmp_path)
     with pytest.raises(SystemExit):
         _cli(tmp_path, tmp_path / "o", "--gan_steps", "1", *flags)
     assert not (tmp_path / "o" / "posture1_no_exo").exists()
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_cli_profile_dir_writes_a_gan_phase_trace(tmp_path, stacked):
+    """--profile_dir in both modes: a Chrome trace of the GAN phase (one per
+    bucket, or one for the stack) that parses as JSON and holds the GAN
+    step's operations; the runs' artifacts are written as without it."""
+    _data(tmp_path)
+    _cli(tmp_path, tmp_path / "o", "--gan_steps", "2", "--profile_dir",
+         str(tmp_path / "prof"), *(["--parallel_buckets"] if stacked else []))
+    names = (["all_buckets"] if stacked else ["posture1_no_exo", "posture2_with_exo"])
+    assert sorted(p.name for p in (tmp_path / "prof").iterdir()) == [
+        f"{n}_gan.trace.json" for n in names]
+    for n in names:
+        trace = json.loads((tmp_path / "prof" / f"{n}_gan.trace.json").read_text())
+        ops = {e.get("name") for e in trace["traceEvents"]}
+        assert {"aten::bmm", "BmmBackward0"} <= ops
+    assert (tmp_path / "o" / "posture2_with_exo" / "synthetic.npz").exists()
 
 
 def test_orbax_checkpoints_are_refused(tmp_path):
