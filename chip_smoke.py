@@ -3,8 +3,9 @@
 synthesis serving, multi-bucket TimeGAN training and the eval of what it
 synthesized, bf16 and long-horizon synthesis, sequential TimeGAN training
 through the CLI, the TimeGAN weight sweep, tuning, controls and
---profile_dir, and CGAN training, serving and eval, transformer and conv,
-with the posture stack and the CGAN weight sweep.
+--profile_dir, CGAN training, serving and eval, transformer and conv,
+with the posture stack and the CGAN weight sweep, and preprocessing of raw
+CSVs and the mental-fatigue reports.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
@@ -43,7 +44,11 @@ failure is swallowed):
              terms that cancel there; "auto" attention (the tensor-core
              kernels at head dim 64, the wide ones at 160); the D-step
              inputs' composed route (3 K1 forward launches and products)
-             timed in turns with K2's route at z28/h56 and z40/h80;
+             timed in turns with K2's route at z28/h56 and z40/h80; the IIR
+             filter kernel (no Pallas kernel: the JAX package's lax.scan) at
+             orders 2 and 8, float64 and float32, over a 60 s trial against
+             its plain version and over an hour against scipy's lfilter, with
+             its step-chain floor;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -59,7 +64,8 @@ failure is swallowed):
              (z40/h80, its D-step inputs through K2 as well) for 2 GAN
              steps; then one GAN step
              against the CPU plain path at 14 and at 20 channels, and a
-             per-layer split and profiler line of one GAN step;
+             per-layer split of one GAN step at nb 18 and its profiler
+             line at nb 2 (the same operations);
 5b. eval   — run_timegan_eval (by condition) of the 18 trained buckets
              and their synthetic.npz: 18 pairs and the global corpus, the
              GRU(24) scorers on K1 forward and backward (the launch counts
@@ -79,7 +85,7 @@ failure is swallowed):
              against synthesize + denorm, the eval picks each file);
 5c. train-seq — the CLI ``python -m eegsynth_torch.train.timegan`` in
              this process: one bucket of (100, 768, 14) for 4 GAN steps at
-             chunk 2, resumed to 7 (log rows under one header, ckpt_latest's
+             chunk 2, resumed to 5 (log rows under one header, ckpt_latest's
              step and optimizer count, synthetic.npz), then 2 layers with
              dropout (K1 only); each run's launch counts against their
              expected counts; one GAN step of the 2-layer stack with dropout
@@ -140,6 +146,19 @@ failure is swallowed):
              B 64 each, scored; whether the equal points are bitwise equal
              on the card; a weighted remat step (R1 on) against the CPU;
              the peak memory of one step at S 3 with and without remat.
+7. preprocess — ``python -m eegsynth_torch.preprocess`` in this process
+             over a raw tree like the reference's 6s_window/ (4 participants
+             x 9 postures x 2 conditions, 60 s at 128 Hz, participant 2 at
+             50 Hz mains; a rest file, a 5 s trial and a 10-channel trial to
+             skip), on the card (the IIR kernel, 4 launches a filtered
+             file) and on the CPU: every bucket, prep_index.csv and the skips
+             card against CPU; seconds, files/s, the kernel's share;
+7b. fatigue — ``python -m eegsynth_torch.fatigue_report``'s five
+             subcommands (bandpower, indices, paired, ttest --export-csv
+             --scaling p95, participants --inverse-scale) on [preprocess]'s
+             buckets, count-matched synthetic windows and its raw tree, on
+             the card and on the CPU: every CSV cell card against CPU; the
+             seconds of each.
 
 The last three lines are a JSON object listing each kernel (its launches in
 the main paths' runs, its error against the plain version, its time, the
@@ -151,12 +170,14 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import http.client
 import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -171,6 +192,7 @@ import torch
 from eegsynth_torch import _build
 from eegsynth_torch.convert import from_jax_params, to_jax_params, tree_to_numpy
 from eegsynth_torch.data.datasets import load_condition_dataset
+from eegsynth_torch.data.filters import design_filters
 from eegsynth_torch.eval import cgan_eval
 from eegsynth_torch.eval.cgan_drivers import main as cgan_eval_cli
 from eegsynth_torch.eval.classifiers import _run_grouped as eval_run_grouped
@@ -181,6 +203,7 @@ from eegsynth_torch.eval.drivers import (
 )
 from eegsynth_torch.eval.features import psd_features_tensor
 from eegsynth_torch.eval.stats import statistical_similarity
+from eegsynth_torch.fatigue_report import main as fatigue_cli
 from eegsynth_torch.generate_long_synth import main as generate_long_synth_cli
 from eegsynth_torch.models.cgan_transformer import generator_apply as cgan_generator_apply
 from eegsynth_torch.models.timegan import (
@@ -200,6 +223,8 @@ from eegsynth_torch.nn.multigru import (
     k2_tile, multigru_disc_inputs, multigru_disc_inputs_reference,
 )
 from eegsynth_torch.nn.precision import cast_floating
+from eegsynth_torch.ops.filtering import lfilter, lfilter_reference, lfilter_zi
+from eegsynth_torch.preprocess import main as preprocess_cli
 from eegsynth_torch.serve import ModelRegistry, make_server
 from eegsynth_torch.train import cgan as cgan_train
 from eegsynth_torch.train import cgan_multi, cgan_sweep
@@ -216,10 +241,13 @@ from eegsynth_torch.train.timegan_multi import train_all_buckets
 from eegsynth_torch.train.timegan_sweep import main as timegan_sweep_cli
 from eegsynth_torch.train.timegan_sweep import timegan_weight_matrix
 from eegsynth_torch.tune_bucket_weights import main as tune_cli
+from eegsynth_torch.tools.raw_tree import write_raw_tree
 from eegsynth_torch.tree import tree_leaves, tree_map
 
 SERVE_BATCH, TIME_CHUNK = 256, 768
 KERNEL_TOL = 1e-4      # f32, another summation order, up to 1024 dependent steps
+PLAIN_REPS = 1         # K1's and K2's plain versions (0.1-0.5 s a call): one timed
+                       # call after the warm-up; they are oracles, not yardsticks
 CASCADE_TOL = 1e-4     # card vs CPU plain path, full cascade at the serving width
 CHUNK_TOL = 1e-5       # chunked vs one-shot on the card (same kernel, same order;
                        # only cuBLAS's choice for the hoisted products may differ)
@@ -291,6 +319,7 @@ T1_SHAPES = ((1, 1, 1, 16), (1, 2, 1, 64), (2, 2, 1, 128), (1, 2, 1, 160),
 T1_RTOL = 5e-7
 # Training: 18 buckets (9 postures x 2 conditions) of 63 random windows
 N_BUCKETS, N_WINDOWS, SEQ_LEN, CHANNELS = 18, 63, 768, 14
+PROFILE_BUCKETS = 2    # [layers]' profiler pass: the op count does not depend on nb
 GAN_STEPS = 3
 # The eval of the trained buckets: the scorers' epochs (the JAX package's
 # defaults), its CSVs' metric columns in the JAX package's order, and the
@@ -304,11 +333,11 @@ EVAL_METRIC_COLS = ["disc_acc", "disc_auc", "rmse_tstr", "r2_tstr", "rmse_trts",
 EVAL_LOGIT_TOL, EVAL_STAT_RTOL, EVAL_ACF_TOL = 1e-4, 1e-5, 1e-10
 # The sequential trainer ([train-seq]): one bucket of 100 windows, so B 64
 # leaves a padded second batch in each AE and SUP epoch; the CLI for one
-# warm-up and 3 timed GAN steps at chunk 2, resumed to 7 (a short last
+# warm-up and 3 timed GAN steps at chunk 2, resumed to 5 (a short last
 # chunk); a 2-layer run with dropout for 1 GAN step; one GAN step of that
 # stack at B 8 on the card against the CPU; the stacked trainer's
 # ckpt_every / resume on 2 buckets (the state saved at step 2 of 3)
-SEQ_WINDOWS, SEQ_BATCH, SEQ_RATE_STEPS, SEQ_RESUME_STEPS = 100, 64, 3, 7
+SEQ_WINDOWS, SEQ_BATCH, SEQ_RATE_STEPS, SEQ_RESUME_STEPS = 100, 64, 3, 5
 SEQ_GAN_STEPS = 1 + SEQ_RATE_STEPS
 SEQ_LAYERS_STEPS, SEQ_CHECK_BATCH = 1, 8
 # bf16 synthesis ([synth-bf16]): bench.py's synthesis shape (n 2048 x 768,
@@ -398,6 +427,30 @@ PROFILE_GAN_STEPS, PROFILE_SEQ_LEN = 1, 96
 # CGAN_SWEEP_SAMPLES generated windows a posture
 CGAN_SWEEP_GRID = [{}, {}, {"psd_weight": 2.0, "fm_weight": 10.0}]
 CGAN_SWEEP_SAMPLES = 64
+# The IIR kernel (csrc/iir_filter.cu) at preprocessing's filters, fs 128: the
+# notch (order 2) and the 4th-order Butterworth band-pass (order 8) over one
+# 60 s trial with the band-pass's odd extension (7680 + 2 x 27 rows) and over
+# one hour (460,800 + 54), 14 columns, float64 (preprocessing's) and float32.
+# Relative to the largest output: the kernel rounds each operation as the
+# plain version does, so any difference is a fault, not an order of sums
+IIR_FS = 128.0
+IIR_SHAPES = ((7734, 14), (460854, 14))
+IIR_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# One H100 SXM (NVIDIA's data sheet, 700 W): FP64 and FP32 FLOP/s outside the
+# tensor cores, the IIR kernel's units
+PEAK_FLOPS_F64, PEAK_FLOPS_F32 = 34e12, 67e12
+# The step-chain floor: z0 -> y (add) -> a1 * y (mul) -> z0' (sub) a step, at
+# an assumed dependent-issue latency in cycles (not measured)
+IIR_CHAIN_OPS = 3
+IIR_LATENCY = {torch.float64: 8, torch.float32: 4}
+# [preprocess]: a raw tree like the reference's 6s_window/ (participants,
+# seconds a trial); card against CPU: X in [0, 1] float32 within an ulp or
+# two of its float64 filtering, the float32 scalers relative
+RAW_PARTICIPANTS, RAW_SECONDS = 4, 60.0
+PREP_X_ATOL, PREP_SCALE_RTOL = 2e-6, 1e-6
+# [fatigue]: every CSV cell card against CPU (float64 spectra, sums in
+# another order)
+CSV_RTOL, CSV_ATOL = 1e-9, 1e-12
 
 
 def fail(msg: str) -> None:
@@ -560,7 +613,7 @@ def phase_kernels(smi: str) -> dict:
     shape (K1 forward: the serving shape; the others: the training shape)."""
     return {"gru_sequence": _check_k1_fwd(smi), "gru_sequence_bwd": _check_k1_bwd(smi),
             "multigru_disc_inputs": _check_k2(smi), **_check_k3(smi),
-            **_check_k3_wide(smi)}
+            **_check_k3_wide(smi), "iir_filter": _check_iir(smi)}
 
 
 def _cudnn_gru_module(w_hh_t, b_hh) -> torch.nn.GRU:
@@ -607,7 +660,7 @@ def _check_k1_fwd(smi: str) -> dict:
                 ms, lib_ms = _turns_ms(lambda: gru_sequence(*args), cudnn, reps=20)
             else:
                 ms = _time_ms(lambda: gru_sequence(*args), reps=20)
-            plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=3)
+            plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS)
         finite = bool(torch.isfinite(got).all())
         tile = forward_tile(nb, B, H)
         blocks = tile["blocks"] * nb
@@ -695,7 +748,7 @@ def _check_k1_bwd(smi: str) -> dict:
             ms = _time_ms(lambda: gru_sequence_bwd(*args, ys, d_ys), reps=10)
             kernel_ms = _time_ms(_bwd_kernel_alone(args, ys, d_ys), reps=10)
             plain_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
-                                reps=3)
+                                reps=PLAIN_REPS)
         print(f"[kernel] gru_sequence_bwd nb={nb} T={T} B={B} H={H}: "
               f"max|diff| dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol {KERNEL_TOL:g}); "
               f"dW {errs[1]:.3e} of {scale[1]:.3g}, db {errs[2]:.3e} of "
@@ -772,7 +825,8 @@ def _check_k2(smi: str) -> dict:
             torch.cuda.synchronize()
             err = max((g - r).abs().max().item() for g, r in zip(got, ref))
             ms = _time_ms(lambda: multigru_disc_inputs(*args), reps=10)
-            plain_ms = _time_ms(lambda: multigru_disc_inputs_reference(*args), reps=3)
+            plain_ms = _time_ms(lambda: multigru_disc_inputs_reference(*args),
+                                reps=PLAIN_REPS)
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         tile = k2_tile(nb, B, *dims)
         print(f"[kernel] multigru_disc_inputs nb={nb} T={T} B={B} "
@@ -1945,7 +1999,8 @@ def _step_check(smi: str, device: str, channels: int = CHANNELS, nb: int = 2,
 def phase_train_layers(smi: str, device: str = "cuda") -> None:
     """Where one GAN step's time goes at the training shape (nb 18, B 63):
     host clock per layer, synchronised at each layer's end; then the card's
-    busy share over one unsynchronised step from torch.profiler."""
+    busy share over one unsynchronised step from torch.profiler, at nb
+    PROFILE_BUCKETS (the same operations at a smaller batch of buckets)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1981,11 +2036,21 @@ def phase_train_layers(smi: str, device: str = "cuda") -> None:
     print(f"[layers] one GAN step nb={N_BUCKETS} B={N_WINDOWS} T={SEQ_LEN}: "
           f"{total:.1f} ms: " + "; ".join(f"{names[k]} {v:.1f} ms"
                                           for k, v in split.items())
-          + f" | {smi}", flush=True)
+          + f" (host split at nb {N_BUCKETS}; the profiler pass below at nb "
+          f"{PROFILE_BUCKETS}) | {smi}", flush=True)
     if torch.device(device).type != "cuda":
         return
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the profiler pass at nb PROFILE_BUCKETS (the step's operation count does
+    # not depend on nb, its device time does), tracing the card alone: the
+    # host-side events of the step's ~215,000 operations took most of the
+    # phase's time to collect and aggregate
+    params, hp, optD, d_state, optG, g_state, x, draws = _step_inputs(
+        PROFILE_BUCKETS, N_WINDOWS, 11, device)
+    state[:] = [params, d_state, g_state]
+    step()                                                   # warm-up
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -1998,7 +2063,7 @@ def phase_train_layers(smi: str, device: str = "cuda") -> None:
         return sum(e.self_device_time_total for e in on_card if tag in e.key) / 1e3
 
     launches = sum(e.count for e in on_card)
-    print(f"[profile] one GAN step nb={N_BUCKETS}: device time {dev_ms:.1f} ms in "
+    print(f"[profile] one GAN step nb={PROFILE_BUCKETS}: device time {dev_ms:.1f} ms in "
           f"{wall_ms:.1f} ms wall ({100 * dev_ms / wall_ms:.1f} % busy) over "
           f"{launches} device operations: K2 {kernel_ms('multigru_fwd_kernel'):.3f} "
           f"ms, K1 fwd {kernel_ms('gru_seq_fwd_kernel'):.3f} ms, K1 bwd "
@@ -3201,6 +3266,271 @@ def phase_cgan_sweep(smi: str, device: str = "cuda") -> None:
         fail(f"[cgan-sweep] the sweep launched hand kernels: {counts_now}")
 
 
+# ------------------------------------------------------------------
+# Preprocessing and the mental-fatigue analysis
+# ------------------------------------------------------------------
+
+def _iir_inputs(T: int, M: int, order: int, dtype, seed: int):
+    """The notch (order 2) or band-pass (order 8) of preprocessing at fs 128,
+    a random walk x (T, M) and filtfilt's seed zi = lfilter_zi · x[0], on the
+    card; b and a as numpy float64."""
+    (b_bp, a_bp), (b_n, a_n) = design_filters(IIR_FS)
+    b, a = (b_bp, a_bp) if order == 8 else (b_n, a_n)
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((T, M))
+                         .cumsum(axis=0)).to(dtype)
+    zi = torch.as_tensor(lfilter_zi(b, a)).to(dtype)[:, None] * x[0]
+    return b, a, x.cuda(), zi.cuda()
+
+
+def _sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return float(out.splitlines()[0])
+
+
+def _check_iir(smi: str) -> dict:
+    """The IIR kernel against its plain version (the loop over time, on the
+    card) at one 60 s trial's padded length, and against scipy's lfilter
+    on the host (the same operations in the same order, equal to the plain
+    version bit for bit: tests/test_torch_filtering.py) at one hour's, where
+    the plain version would take millions of launches; orders 2 and 8, float64
+    and float32. Each with its time, the byte and operation bounds and the
+    step-chain floor. The kernels line takes (7734, 14), order 8, float64."""
+    import scipy.signal
+
+    clock = _sm_clock_mhz()
+    head, worst = None, 0.0
+    for T, M in IIR_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            for order in (8, 2):
+                b, a, x, zi = _iir_inputs(T, M, order, dtype, seed=T + order)
+                got = lfilter(b, a, x, zi=zi)
+                np_dtype = np.float64 if dtype == torch.float64 else np.float32
+                t0 = time.perf_counter()
+                ref, _ = scipy.signal.lfilter(b.astype(np_dtype), a.astype(np_dtype),
+                                              x.cpu().numpy(), axis=0,
+                                              zi=zi.cpu().numpy())
+                scipy_ms = (time.perf_counter() - t0) * 1e3
+                ref = torch.from_numpy(ref).cuda()
+                plain_ms = None
+                if T == IIR_SHAPES[0][0]:
+                    bt, at = (torch.as_tensor(c).to(dtype) for c in (b, a))
+                    ref = lfilter_reference(bt, at, x, zi)
+                    plain_ms = _time_ms(lambda: lfilter_reference(bt, at, x, zi), reps=1)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                rel = err / ref.abs().max().item()
+                ms = _time_ms(lambda: lfilter(b, a, x, zi=zi), reps=20 if T < 10 ** 5 else 5)
+                flops = T * M * (4 * order + 2)
+                peak = PEAK_FLOPS_F64 if dtype == torch.float64 else PEAK_FLOPS_F32
+                ops_ms = flops / peak * 1e3
+                bytes_ms = sum(t.numel() * t.element_size() for t in (x, zi, got)) \
+                    / PEAK_BYTES * 1e3
+                bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+                chain_ms = T * IIR_CHAIN_OPS * IIR_LATENCY[dtype] / (clock * 1e6) * 1e3
+                tag = f"iir_filter T={T} M={M} order {order} {str(dtype)[6:]}"
+                against = "plain (on the card)" if plain_ms is not None else \
+                    "scipy.signal.lfilter (host)"
+                plain = f"plain {plain_ms:.4f} ms, " if plain_ms is not None else \
+                    "plain not timed (T x 3 launches), "
+                print(f"[kernel] {tag}: max|diff| / max|{against}| = {rel:.3e} (tol "
+                      f"{IIR_RTOL[dtype]:g}) kernel {ms:.4f} ms, {plain}scipy.signal."
+                      f"lfilter on the host {scipy_ms:.4f} ms | {smi}", flush=True)
+                if not bool(torch.isfinite(got).all()) or rel > IIR_RTOL[dtype]:
+                    fail(f"iir_filter disagrees with {against} at {tag}: "
+                         f"relative max|diff| {rel}")
+                worst = max(worst, err)
+                row = _row(ms, plain_ms, bound)
+                _roofline(tag, row, smi)
+                print(f"[bound] {tag}: step-chain floor {chain_ms:.4f} ms ({T} steps x "
+                      f"{IIR_CHAIN_OPS} dependent operations x {IIR_LATENCY[dtype]} "
+                      f"cycles assumed, at the {clock:.0f} MHz maximum SM clock): kernel "
+                      f"at {100 * chain_ms / ms:.1f} % of it; bytes {bytes_ms:.5f} ms, "
+                      f"operations {ops_ms:.5f} ms | {smi}", flush=True)
+                if head is None:
+                    head = row
+    return {"max_abs_err": worst, **head}
+
+
+def _hold_prep(card: Path, host: Path) -> int:
+    """Card buckets against the CPU's: the same files and keys, X within
+    PREP_X_ATOL, the scalers within PREP_SCALE_RTOL, everything else equal,
+    prep_index.csv equal but for the directory. Returns the bucket count."""
+    names = sorted(p.name for p in card.glob("*.npz"))
+    if not names or names != sorted(p.name for p in host.glob("*.npz")):
+        fail(f"[preprocess] buckets differ: {names} against "
+             f"{sorted(p.name for p in host.glob('*.npz'))}")
+    for name in names:
+        with np.load(card / name, allow_pickle=True) as c, \
+                np.load(host / name, allow_pickle=True) as h:
+            if c.files != h.files:
+                fail(f"[preprocess] {name}: keys {c.files} against {h.files}")
+            for key in c.files:
+                a, b = c[key], h[key]
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    fail(f"[preprocess] {name}[{key}]: {a.dtype} {a.shape} against "
+                         f"{b.dtype} {b.shape}")
+                if key == "X":
+                    ok = np.abs(a - b).max() <= PREP_X_ATOL
+                elif key in ("scale_min", "scale_range"):
+                    ok = (np.abs(a - b) <= PREP_SCALE_RTOL * np.abs(b)).all()
+                else:
+                    ok = np.array_equal(a, b)
+                if not ok:
+                    fail(f"[preprocess] {name}[{key}] differs between the card and "
+                         f"the CPU")
+    index = [(d / "prep_index.csv").read_text().replace(str(d), "<out>")
+             for d in (card, host)]
+    if index[0] != index[1]:
+        fail("[preprocess] prep_index.csv differs between the card and the CPU")
+    return len(names)
+
+
+def phase_preprocess(smi: str, root: Path, device: str = "cuda") -> int:
+    """``python -m eegsynth_torch.preprocess`` in this process over a raw tree
+    like the reference's 6s_window/, on the card and then on the CPU; every
+    bucket card against CPU; the IIR kernel's launches (4 a processed file)
+    and its share of the card run. Returns the card run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    raw = root / "raw"
+    t0 = time.perf_counter()
+    files = write_raw_tree(raw, participants=RAW_PARTICIPANTS, seconds=RAW_SECONDS)
+    print(f"[preprocess] wrote {len(files)} CSVs ({RAW_PARTICIPANTS} participants x 9 "
+          f"postures x 2 conditions of {RAW_SECONDS:g} s at 128 Hz, participant 2 "
+          f"at 50 Hz mains; a rest file, a 5 s trial, a 10-channel trial) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    runs = []
+    for i, dev in enumerate((device, "cpu")):
+        out = root / ("prep_card", "prep_host")[i]
+        on_card = torch.device(dev).type == "cuda"
+        lfilter.launches = 0
+        buf = io.StringIO()
+        t_block = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            prof = stack.enter_context(profile(activities=[ProfilerActivity.CUDA])) \
+                if on_card else None
+            t0 = time.perf_counter()
+            rows = preprocess_cli(["--root", str(raw), "--out", str(out),
+                                   "--device", dev])
+            _sync(dev)
+            secs = time.perf_counter() - t0
+        block = time.perf_counter() - t_block
+        launches = lfilter.launches
+        log = buf.getvalue().replace(str(out), "<out>").splitlines()
+        # filtered: the files written into buckets and the one skipped
+        # after filtering for its channel count
+        done = sum(line.startswith("done ") or "cannot concatenate" in line
+                   for line in log)
+        kernel_ms = None
+        if prof is not None:
+            kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                            if "iir_filter_kernel" in e.key) / 1e3
+        runs.append((out, rows, log, secs, launches, done, kernel_ms, block - secs))
+    (card, rows_c, log_c, s_c, n_c, done_c, k_ms, prof_s), \
+        (host, rows_h, log_h, s_h, n_h, done_h, _, _) = runs
+    skips = [line for line in log_c if line.startswith("[SKIP]")]
+    if log_c != log_h or len(skips) != 2 or done_c != done_h:
+        fail(f"[preprocess] the card's and the CPU's runs logged differently or "
+             f"skipped {len(skips)} files, not 2 (the 5 s and the 10-channel "
+             f"trials; the rest file is no trial): {skips}")
+    if torch.device(device).type == "cuda" and (n_c != 4 * done_c or n_h != 0):
+        fail(f"[preprocess] iir_filter launched {n_c} times on the card for {done_c} "
+             f"filtered files (expected {4 * done_c}) and {n_h} on the CPU")
+    t0 = time.perf_counter()
+    n_buckets = _hold_prep(card, host)
+    hold_s = time.perf_counter() - t0
+    share = (f"kernel device time {k_ms:.2f} ms, {100 * k_ms / (s_c * 1e3):.3f} % of "
+             "the run" if k_ms else "kernel share not measured")
+    print(f"[preprocess] card: {done_c} files filtered, {len(skips)} skipped, "
+          f"{n_buckets} buckets in {s_c:.2f} s ({done_c / s_c:.2f} files/s), "
+          f"iir_filter launches {n_c} (4 a filtered file), {share}; CPU (plain "
+          f"recurrence): {s_h:.2f} s ({done_h / s_h:.2f} files/s); every bucket card "
+          f"= CPU (X within {PREP_X_ATOL:g}, scalers {PREP_SCALE_RTOL:g} relative, "
+          f"prep_index.csv and the skips equal; {hold_s:.2f} s); the profiler's "
+          f"start and stop {prof_s:.2f} s | {smi}", flush=True)
+    return n_c
+
+
+def _csv_cells_within(ours: Path, ref: Path) -> int:
+    """Every cell of two CSVs: strings equal, numbers within CSV_RTOL
+    relative (CSV_ATOL absolute), NaN where NaN. Returns the cell count."""
+    rows = []
+    for path in (ours, ref):
+        with open(path, newline="") as f:
+            rows.append(list(csv.reader(f)))
+    a, b = rows
+    if len(a) != len(b) or any(len(x) != len(y) for x, y in zip(a, b)):
+        fail(f"[fatigue] {ours.name}: shapes differ")
+    n = 0
+    for x, y in zip(a, b):
+        for cx, cy in zip(x, y):
+            n += 1
+            try:
+                fx, fy = float(cx), float(cy)
+            except ValueError:
+                if cx != cy:
+                    fail(f"[fatigue] {ours.name}: {cx!r} against {cy!r}")
+                continue
+            if np.isnan(fy) != np.isnan(fx) or (
+                    not np.isnan(fy) and abs(fx - fy) > CSV_ATOL + CSV_RTOL * abs(fy)):
+                fail(f"[fatigue] {ours.name}: {cx} against {cy}")
+    return n
+
+
+def phase_fatigue(smi: str, root: Path, device: str = "cuda") -> None:
+    """``python -m eegsynth_torch.fatigue_report``'s five subcommands in this
+    process on the card, then on the CPU: real/ the card's buckets from
+    [preprocess], synthetic/ count-matched random windows in [0, 1] under the
+    bucket names, runs/ the same as posture{p}_{cond}/synthetic.npz; every
+    CSV cell card against CPU."""
+    base = root / "fatigue"
+    real, syn = base / "root" / "real", base / "root" / "synthetic"
+    real.mkdir(parents=True)
+    syn.mkdir(parents=True)
+    rng = np.random.default_rng(31)
+    for fp in sorted((root / "prep_card").glob("*.npz")):
+        shutil.copy(fp, real / fp.name)
+        with np.load(fp, allow_pickle=True) as z:
+            X = rng.uniform(0, 1, z["X"].shape).astype(np.float32)
+            fs = z["fs"]
+        np.savez(syn / fp.name, X=X, fs=fs)
+        (base / "runs" / fp.stem).mkdir(parents=True)
+        np.savez(base / "runs" / fp.stem / "synthetic.npz", X=X, fs=fs)
+    tree = ["--root", str(base / "root")]
+    commands = {"bandpower": ["bandpower", *tree], "indices": ["indices", *tree],
+                "paired": ["paired", *tree],
+                "ttest": ["ttest", *tree, "--export-csv", "--scaling", "p95"],
+                "participants": ["participants", "--data-root", str(root / "raw"),
+                                 "--synth-dir", str(base / "runs"), "--real-dir",
+                                 str(real), "--inverse-scale"]}
+    seconds = {}
+    for i, dev in enumerate((device, "cpu")):
+        for name, argv in commands.items():
+            out = base / ("card", "host")[i] / name
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                fatigue_cli([*argv, "--out", str(out), "--device", dev])
+            _sync(dev)
+            seconds[(i, name)] = time.perf_counter() - t0
+    n_files = n_cells = 0
+    for name in commands:
+        card, host = base / "card" / name, base / "host" / name
+        files = sorted(p.relative_to(card) for p in card.rglob("*.csv"))
+        if not files or files != sorted(p.relative_to(host) for p in host.rglob("*.csv")):
+            fail(f"[fatigue] {name}: the card wrote {files}, the CPU "
+                 f"{sorted(p.relative_to(host) for p in host.rglob('*.csv'))}")
+        for rel in files:
+            n_cells += _csv_cells_within(card / rel, host / rel)
+        n_files += len(files)
+    print(f"[fatigue] five subcommands, {n_files} CSVs and {n_cells} cells card = CPU "
+          f"(numbers within {CSV_RTOL:g} relative); seconds card / CPU: " + ", ".join(
+              f"{name} {seconds[(0, name)]:.2f} / {seconds[(1, name)]:.2f}"
+              for name in commands) + f" | {smi}", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -3243,6 +3573,9 @@ def main() -> None:
     timed("cgan-conv", phase_cgan_conv, smi)
     timed("cgan-multi", phase_cgan_multi, smi)
     timed("cgan-sweep", phase_cgan_sweep, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        iir_launches = timed("preprocess", phase_preprocess, smi, Path(tmp))
+        timed("fatigue", phase_fatigue, smi, Path(tmp))
     runs = (train_launches, eval_launches, seq_launches, wide_launches,
             sweep_launches, profile_launches)
     launches = {**cgan_launches, **wide_attn_launches,
@@ -3250,6 +3583,7 @@ def main() -> None:
                    for k in ("gru_sequence", "gru_sequence_bwd", "multigru_disc_inputs")}}
     launches["gru_sequence"] += serve_launches + synth_launches
     launches["flash_forward"] = cgan_launches["flash_forward"] + cgan_serve_launches
+    launches["iir_filter"] = iir_launches
     for k, n in launches.items():
         if n < 1:
             fail(f"the main paths launched {k} no time")
@@ -3272,7 +3606,9 @@ def main() -> None:
                "flash_dq_wide": ("eegsynth_torch/csrc/flash_attn_wide_bwd.cu",
                                  "eegsynth/nn/attention.py:231"),
                "flash_dkv_wide": ("eegsynth_torch/csrc/flash_attn_wide_bwd.cu",
-                                  "eegsynth/nn/attention.py:248")}
+                                  "eegsynth/nn/attention.py:248"),
+               "iir_filter": ("eegsynth_torch/csrc/iir_filter.cu",
+                              "eegsynth/ops/filtering.py:76")}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[k], **kern[k]}

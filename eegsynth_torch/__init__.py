@@ -22,3 +22,10 @@ import torch
 # products and convolutions run in full float32 on the card.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+EPOC_CHANNELS = [
+    "AF3", "F7", "F3", "FC5", "T7", "P7", "O1",
+    "O2", "P8", "T8", "FC6", "F4", "F8", "AF4",
+]
+"""Canonical Emotiv EPOC+ channel order, a copy of ``eegsynth.EPOC_CHANNELS``
+(the JAX package's ``__init__`` imports jax)."""

@@ -9,8 +9,10 @@ statistics against the CPU, the sequential trainer (one GAN step of a
 conv CGAN (a v1 and a v2 step against the CPU, a bfloat16 D step, the
 generator against the CPU), bfloat16 synthesis against the CPU, the
 CGAN eval's metric functions against the CPU, a weight sweep's stacked GAN
-step against the CPU, a posture-stack member against its lone step, and a
-remat transformer step against the plain one.
+step against the CPU, a posture-stack member against its lone step, a
+remat transformer step against the plain one, the IIR filter kernel against
+its plain version, and preprocessing and the fatigue spectra against the
+CPU.
 
 Every test skips without a card: the kernels have no CPU mode, and a
 test of the card's route has nothing to compare without one. This file
@@ -982,3 +984,123 @@ def test_remat_transformer_step_matches_plain(cuda_device):
     assert ((l1 - l0).abs() / l0.abs().clamp(min=1.0)).max() <= 1e-5
     for a, b in zip(tree_leaves((g1.mu, d1.mu)), tree_leaves((g0.mu, d0.mu))):
         assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-3)
+
+
+# ------------------------------------------------------------------
+# The IIR filter kernel, preprocessing and the fatigue analysis
+# ------------------------------------------------------------------
+
+def _iir_case(T, M, order, dtype, seed):
+    from eegsynth_torch.data.filters import design_filters
+    from eegsynth_torch.ops.filtering import lfilter_zi
+    (b_bp, a_bp), (b_n, a_n) = design_filters(128.0)
+    b, a = (b_bp, a_bp) if order == 8 else (b_n, a_n)
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((T, M))
+                         .cumsum(axis=0)).to(dtype)
+    zi = torch.as_tensor(lfilter_zi(b, a)).to(dtype)[:, None] * x[0]
+    return b, a, x, zi
+
+
+@pytest.mark.parametrize("M", [1, 14, 300])
+@pytest.mark.parametrize("T", [10, 7734, 100000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", [2, 8])
+def test_iir_kernel_matches_plain(cuda_device, order, dtype, T, M):
+    """The IIR kernel against its plain version (run on the CPU on the same
+    inputs: the same operations in the same order, each rounded on its
+    own): within 1e-12 (float64) or 1e-5 (float32) of the largest output,
+    one launch a call."""
+    from eegsynth_torch.ops.filtering import _taps, lfilter, lfilter_reference
+    b, a, x, zi = _iir_case(T, M, order, dtype, seed=T + M + order)
+    before = lfilter.launches
+    got = lfilter(b, a, x.to(cuda_device), zi=zi.to(cuda_device))
+    torch.cuda.synchronize()
+    assert lfilter.launches == before + 1
+    ref = lfilter_reference(*_taps(b, a, dtype), x, zi)
+    assert got.dtype == dtype and got.shape == (T, M)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert (got.cpu() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def test_filtfilt_on_the_card_matches_cpu(cuda_device):
+    """filtfilt along axis 1 of a batch, two launches, against the CPU."""
+    from eegsynth_torch.data.filters import design_filters
+    from eegsynth_torch.ops.filtering import filtfilt, lfilter
+    (b, a), _ = design_filters(128.0)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((3, 900, 5)))
+    before = lfilter.launches
+    got = filtfilt(b, a, x.to(cuda_device), axis=1)
+    assert lfilter.launches == before + 2
+    ref = filtfilt(b, a, x, axis=1)
+    assert (got.cpu() - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
+
+
+def test_iir_kernel_failure_raises(cuda_device, monkeypatch):
+    """A CUDA tensor whose kernel call fails raises: it never returns the
+    plain version's result."""
+    from eegsynth_torch import _build
+    from eegsynth_torch.ops import filtering
+    b, a, x, zi = _iir_case(100, 3, 8, torch.float64, seed=0)
+    x, zi = x.to(cuda_device), zi.to(cuda_device)
+    lib = _build.load_library()
+
+    class Failing:
+        def __getattr__(self, name):
+            if name.startswith("iir_filter"):
+                return lambda *args: 1                 # cudaErrorInvalidValue
+            return getattr(lib, name)
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+    monkeypatch.setattr(_build, "load_library", lambda: Failing())
+    monkeypatch.setattr(filtering, "lfilter_reference", no_plain)
+    before = filtering.lfilter.launches
+    with pytest.raises(RuntimeError, match="iir_filter_f64: CUDA error 1"):
+        filtering.lfilter(b, a, x, zi=zi)
+    assert filtering.lfilter.launches == before
+    with pytest.raises(ValueError, match="taps"):
+        filtering.lfilter(np.ones(10), np.ones(10), x, zi=torch.zeros(9, 3).to(x))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        filtering.lfilter(b, a, x.to(torch.float16), zi=zi.to(torch.float16))
+
+
+def test_preprocess_on_the_card_matches_cpu(cuda_device, tmp_path):
+    """run_preprocess on a tiny raw tree, card against CPU: the same buckets,
+    X within 2e-6, the scalers within 1e-6 relative, everything else equal;
+    four IIR launches a filtered file on the card."""
+    from eegsynth_torch.data.preprocess import run_preprocess
+    from eegsynth_torch.ops.filtering import lfilter
+    from eegsynth_torch.tools.raw_tree import write_raw_tree
+    write_raw_tree(tmp_path / "raw", participants=2, postures=(1, 2), seconds=14.0)
+    logs = []
+    for dev in ("cuda", "cpu"):
+        log = []
+        lfilter.launches = 0
+        run_preprocess(tmp_path / "raw", tmp_path / dev, log=log.append, device=dev)
+        logs.append([str(line).replace(str(tmp_path / dev), "") for line in log])
+        if dev == "cuda":     # 8 trials and the 10-channel one are filtered
+            assert lfilter.launches == 4 * 9
+    assert logs[0] == logs[1]
+    for fp in sorted((tmp_path / "cpu").glob("*.npz")):
+        with np.load(fp, allow_pickle=True) as h, \
+                np.load(tmp_path / "cuda" / fp.name, allow_pickle=True) as c:
+            assert c.files == h.files
+            for key in h.files:
+                if key == "X":
+                    assert np.abs(c[key] - h[key]).max() <= 2e-6
+                elif key in ("scale_min", "scale_range"):
+                    np.testing.assert_allclose(c[key], h[key], rtol=1e-6)
+                else:
+                    np.testing.assert_array_equal(c[key], h[key])
+
+
+def test_fatigue_spectra_on_the_card_match_cpu(cuda_device):
+    """tbr_matrix (Welch) and compute_fatigue_tbr (batched rFFT), float64 on
+    the card against the CPU, within 1e-10 relative."""
+    from eegsynth_torch.analysis.fatigue import tbr_matrix
+    from eegsynth_torch.analysis.participant_fatigue import compute_fatigue_tbr
+    X = np.random.default_rng(2).standard_normal((63, 768, 14)).cumsum(axis=1)
+    for fn in (tbr_matrix, compute_fatigue_tbr):
+        got = fn(X.astype(np.float32), 128.0, device=cuda_device)
+        ref = fn(X.astype(np.float32), 128.0, device="cpu")
+        np.testing.assert_allclose(got, ref, rtol=1e-10, atol=0)
