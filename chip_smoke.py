@@ -4,8 +4,8 @@ synthesis serving, multi-bucket TimeGAN training and the eval of what it
 synthesized, bf16 and long-horizon synthesis, sequential TimeGAN training
 through the CLI, the TimeGAN weight sweep, tuning, controls and
 --profile_dir, CGAN training, serving and eval, transformer and conv,
-with the posture stack and the CGAN weight sweep, and preprocessing of raw
-CSVs and the mental-fatigue reports.
+with the posture stack and the CGAN weight sweep, preprocessing of raw
+CSVs and the mental-fatigue reports, and the figures.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
@@ -84,8 +84,8 @@ failure is swallowed):
              --time_chunk 1024 --denorm --n 8 (files, launches, the first run
              against synthesize + denorm, the eval picks each file);
 5c. train-seq — the CLI ``python -m eegsynth_torch.train.timegan`` in
-             this process: one bucket of (100, 768, 14) for 4 GAN steps at
-             chunk 2, resumed to 5 (log rows under one header, ckpt_latest's
+             this process: one bucket of (100, 768, 14) for 3 GAN steps at
+             chunk 2, resumed to 4 (log rows under one header, ckpt_latest's
              step and optimizer count, synthetic.npz), then 2 layers with
              dropout (K1 only); each run's launch counts against their
              expected counts; one GAN step of the 2-layer stack with dropout
@@ -147,8 +147,8 @@ failure is swallowed):
              on the card; a weighted remat step (R1 on) against the CPU;
              the peak memory of one step at S 3 with and without remat.
 7. preprocess — ``python -m eegsynth_torch.preprocess`` in this process
-             over a raw tree like the reference's 6s_window/ (4 participants
-             x 9 postures x 2 conditions, 60 s at 128 Hz, participant 2 at
+             over a raw tree like the reference's 6s_window/ (3 participants
+             x 9 postures x 2 conditions, 30 s at 128 Hz, participant 2 at
              50 Hz mains; a rest file, a 5 s trial and a 10-channel trial to
              skip), on the card (the IIR kernel, 4 launches a filtered
              file) and on the CPU: every bucket, prep_index.csv and the skips
@@ -158,7 +158,21 @@ failure is swallowed):
              --scaling p95, participants --inverse-scale) on [preprocess]'s
              buckets, count-matched synthetic windows and its raw tree, on
              the card and on the CPU: every CSV cell card against CPU; the
-             seconds of each.
+             seconds of each; the card run's 342 figures, each decoded, not
+             blank, of its size, named as the CPU run names them (whose
+             figures are recorded, not drawn);
+8. figures — 18 pairs of 200 real and 200 synthetic windows (768, 14),
+             the synthetic from the TimeGAN cascade on K1 (3 launches a
+             pair); ``python -m eegsynth_torch.visualization --zooms
+             --paired-legend`` (t-SNE of 6000 of 7200 windows x 10,752
+             features, 18 zoom pairs), the eval's pca_tsne_plots at
+             --tsne_max 6000, ``python -m eegsynth_torch.preprocessing_plots``
+             on one of [preprocess]'s CSVs; every PNG decoded, not blank, of
+             its size; PCA (1000 rows) and t-SNE (600 rows) on the card
+             against the CPU; the seconds of PCA, t-SNE (iterations, ms an
+             iteration) and drawing plus deflate. ``visualization_cgan`` runs
+             inside [cgan-conv] on its v2 generator, the CGAN eval's and the
+             TimeGAN eval's figures inside [cgan-eval] and [eval].
 
 The last three lines are a JSON object listing each kernel (its launches in
 the main paths' runs, its error against the plain version, its time, the
@@ -184,12 +198,13 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from eegsynth_torch import _build
+from eegsynth_torch import EPOC_CHANNELS, _build
 from eegsynth_torch.convert import from_jax_params, to_jax_params, tree_to_numpy
 from eegsynth_torch.data.datasets import load_condition_dataset
 from eegsynth_torch.data.filters import design_filters
@@ -199,7 +214,7 @@ from eegsynth_torch.eval.classifiers import _run_grouped as eval_run_grouped
 from eegsynth_torch.eval.classifiers import discriminative_task
 from eegsynth_torch.eval.disc_controls import main as controls_cli
 from eegsynth_torch.eval.drivers import (
-    find_synth_npz, load_pairs_by_condition, run_timegan_eval,
+    find_synth_npz, load_pairs_by_condition, pca_tsne_plots, run_timegan_eval,
 )
 from eegsynth_torch.eval.features import psd_features_tensor
 from eegsynth_torch.eval.stats import statistical_similarity
@@ -225,6 +240,7 @@ from eegsynth_torch.nn.multigru import (
 from eegsynth_torch.nn.precision import cast_floating
 from eegsynth_torch.ops.filtering import lfilter, lfilter_reference, lfilter_zi
 from eegsynth_torch.preprocess import main as preprocess_cli
+from eegsynth_torch.preprocessing_plots import main as preprocessing_plots_cli
 from eegsynth_torch.serve import ModelRegistry, make_server
 from eegsynth_torch.train import cgan as cgan_train
 from eegsynth_torch.train import cgan_multi, cgan_sweep
@@ -243,11 +259,15 @@ from eegsynth_torch.train.timegan_sweep import timegan_weight_matrix
 from eegsynth_torch.tune_bucket_weights import main as tune_cli
 from eegsynth_torch.tools.raw_tree import write_raw_tree
 from eegsynth_torch.tree import tree_leaves, tree_map
+from eegsynth_torch.visualization import main as visualization_cli
+from eegsynth_torch.visualization_cgan import main as visualization_cgan_cli
+from eegsynth_torch.viz import embed, raster
 
 SERVE_BATCH, TIME_CHUNK = 256, 768
 KERNEL_TOL = 1e-4      # f32, another summation order, up to 1024 dependent steps
 PLAIN_REPS = 1         # K1's and K2's plain versions (0.1-0.5 s a call): one timed
-                       # call after the warm-up; they are oracles, not yardsticks
+                       # call after the check's own call, which is its warm-up;
+                       # they are oracles, not yardsticks
 CASCADE_TOL = 1e-4     # card vs CPU plain path, full cascade at the serving width
 CHUNK_TOL = 1e-5       # chunked vs one-shot on the card (same kernel, same order;
                        # only cuBLAS's choice for the hoisted products may differ)
@@ -333,11 +353,11 @@ EVAL_METRIC_COLS = ["disc_acc", "disc_auc", "rmse_tstr", "r2_tstr", "rmse_trts",
 EVAL_LOGIT_TOL, EVAL_STAT_RTOL, EVAL_ACF_TOL = 1e-4, 1e-5, 1e-10
 # The sequential trainer ([train-seq]): one bucket of 100 windows, so B 64
 # leaves a padded second batch in each AE and SUP epoch; the CLI for one
-# warm-up and 3 timed GAN steps at chunk 2, resumed to 5 (a short last
-# chunk); a 2-layer run with dropout for 1 GAN step; one GAN step of that
-# stack at B 8 on the card against the CPU; the stacked trainer's
-# ckpt_every / resume on 2 buckets (the state saved at step 2 of 3)
-SEQ_WINDOWS, SEQ_BATCH, SEQ_RATE_STEPS, SEQ_RESUME_STEPS = 100, 64, 3, 5
+# warm-up and 2 timed GAN steps at chunk 2 (a short last chunk), resumed to
+# 4; a 2-layer run with dropout for 1 GAN step; one GAN step of that stack
+# at B 8 on the card against the CPU; the stacked trainer's ckpt_every /
+# resume on 2 buckets (the state saved at step 1 of 2)
+SEQ_WINDOWS, SEQ_BATCH, SEQ_RATE_STEPS, SEQ_RESUME_STEPS = 100, 64, 2, 4
 SEQ_GAN_STEPS = 1 + SEQ_RATE_STEPS
 SEQ_LAYERS_STEPS, SEQ_CHECK_BATCH = 1, 8
 # bf16 synthesis ([synth-bf16]): bench.py's synthesis shape (n 2048 x 768,
@@ -443,14 +463,25 @@ PEAK_FLOPS_F64, PEAK_FLOPS_F32 = 34e12, 67e12
 # an assumed dependent-issue latency in cycles (not measured)
 IIR_CHAIN_OPS = 3
 IIR_LATENCY = {torch.float64: 8, torch.float32: 4}
-# [preprocess]: a raw tree like the reference's 6s_window/ (participants,
-# seconds a trial); card against CPU: X in [0, 1] float32 within an ulp or
-# two of its float64 filtering, the float32 scalers relative
-RAW_PARTICIPANTS, RAW_SECONDS = 4, 60.0
+# [preprocess]: a raw tree like the reference's 6s_window/ (participants and
+# seconds a trial: 3 and 30, where they were 4 and 60, to pay for the figures
+# inside the script's time, since the CPU run's plain recurrence scales with
+# both); card against CPU: X in [0, 1] float32 within an ulp or two of its
+# float64 filtering, the float32 scalers relative
+RAW_PARTICIPANTS, RAW_SECONDS = 3, 30.0
 PREP_X_ATOL, PREP_SCALE_RTOL = 2e-6, 1e-6
 # [fatigue]: every CSV cell card against CPU (float64 spectra, sums in
 # another order)
 CSV_RTOL, CSV_ATOL = 1e-9, 1e-12
+# [figures]: 18 (posture, condition) pairs of FIG_WINDOWS real and as many
+# synthetic windows (768, 14), the synthetic drawn by a full-width TimeGAN's
+# cascade on K1; the cluster figures at the CLI's default t-SNE cap; the card
+# against the CPU: PCA on FIG_PCA_ROWS of the rows (float64, an eigenproblem
+# in another order: relative to each component's largest score), t-SNE on
+# FIG_TSNE_ROWS (its KL relative, trustworthiness at 10 neighbours absolute)
+FIG_WINDOWS, FIG_TSNE_MAX = 200, 6000
+FIG_PCA_ROWS, FIG_PCA_RTOL = 1000, 1e-6
+FIG_TSNE_ROWS, FIG_TSNE_KL_RTOL, FIG_TSNE_TW_TOL = 600, 0.05, 0.02
 
 
 def fail(msg: str) -> None:
@@ -548,9 +579,11 @@ def phase_sass() -> None:
             fail(f"{kernel}: missing or without HGMMA")
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Median over ``reps`` runs of one call, CUDA events, after a warm-up."""
-    fn()
+def _time_ms(fn, reps: int, warm: bool = True) -> float:
+    """Median over ``reps`` runs of one call, CUDA events, after a warm-up
+    (``warm`` False: the caller has just made that call)."""
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -561,6 +594,30 @@ def _time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@dataclasses.dataclass
+class _CardOp:
+    """One device operation of a profiled run: its name, launches and
+    device time in µs, under key_averages()' names."""
+    key: str
+    count: int
+    self_device_time_total: float
+
+
+def _on_card(prof) -> list[_CardOp]:
+    """The device operations of a finished torch.profiler run, summed by
+    name from its raw events. key_averages() gives the same sums, but first
+    builds a Python event for every operation: 27 s for 300,000 operations
+    in a CPU test, and one TimeGAN GAN step issues 215,000."""
+    from torch.autograd import DeviceType
+    ops: dict[str, _CardOp] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            op = ops.setdefault(e.name(), _CardOp(e.name(), 0, 0.0))
+            op.count += 1
+            op.self_device_time_total += e.duration_ns() / 1e3
+    return list(ops.values())
 
 
 def _turns_ms(kernel, library, reps: int) -> tuple[float, float]:
@@ -596,24 +653,36 @@ def _roofline(name: str, row: dict, smi: str, library: str | None = None) -> Non
 
 
 def _gru_inputs(nb, T, B, H, I, seed, device):
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    x = torch.rand((nb, T, B, I), generator=g)
+    """K1's inputs, drawn on ``device`` (on the host, the largest shapes'
+    draws and products took seconds each)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((nb, T, B, I), generator=g, device=device)
     w_ih = xavier_uniform((nb, 3 * H, I), g)
     w_hh = xavier_uniform((nb, 3 * H, H), g)
-    b_ih = 0.1 * torch.randn(nb, 1, 1, 3 * H, generator=g)
-    b_hh = 0.1 * torch.randn(nb, 1, 3 * H, generator=g)
-    h0 = torch.rand((nb, B, H), generator=g) - 0.5
+    b_ih = 0.1 * torch.randn(nb, 1, 1, 3 * H, generator=g, device=device)
+    b_hh = 0.1 * torch.randn(nb, 1, 3 * H, generator=g, device=device)
+    h0 = torch.rand((nb, B, H), generator=g, device=device) - 0.5
     xp = torch.matmul(x, w_ih.transpose(1, 2).unsqueeze(1)) + b_ih
-    return [t.to(device).contiguous() for t in (xp, w_hh.transpose(1, 2), b_hh, h0)]
+    return [t.contiguous() for t in (xp, w_hh.transpose(1, 2), b_hh, h0)]
 
 
 def phase_kernels(smi: str) -> dict:
     """Every kernel against its plain version at the main paths' shapes.
     Returns, per kernel, the largest error and the times at its headline
     shape (K1 forward: the serving shape; the others: the training shape)."""
-    return {"gru_sequence": _check_k1_fwd(smi), "gru_sequence_bwd": _check_k1_bwd(smi),
-            "multigru_disc_inputs": _check_k2(smi), **_check_k3(smi),
-            **_check_k3_wide(smi), "iir_filter": _check_iir(smi)}
+    rows, seconds = {}, {}
+    # (tag, the kernel's name, or None where the check returns rows by name)
+    for tag, name, check in (("K1 forward", "gru_sequence", _check_k1_fwd),
+                             ("K1 backward", "gru_sequence_bwd", _check_k1_bwd),
+                             ("K2", "multigru_disc_inputs", _check_k2),
+                             ("K3", None, _check_k3), ("wide K3", None, _check_k3_wide),
+                             ("IIR", "iir_filter", _check_iir)):
+        t0 = time.perf_counter()
+        out = check(smi)
+        seconds[tag] = round(time.perf_counter() - t0, 2)
+        rows.update(out if name is None else {name: out})
+    print(f"[kernels] seconds by check: {seconds} | {smi}", flush=True)
+    return rows
 
 
 def _cudnn_gru_module(w_hh_t, b_hh) -> torch.nn.GRU:
@@ -660,7 +729,8 @@ def _check_k1_fwd(smi: str) -> dict:
                 ms, lib_ms = _turns_ms(lambda: gru_sequence(*args), cudnn, reps=20)
             else:
                 ms = _time_ms(lambda: gru_sequence(*args), reps=20)
-            plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS)
+            plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS,
+                                warm=False)
         finite = bool(torch.isfinite(got).all())
         tile = forward_tile(nb, B, H)
         blocks = tile["blocks"] * nb
@@ -739,8 +809,8 @@ def _check_k1_bwd(smi: str) -> dict:
         args = _gru_inputs(nb, T, B, H, 28, seed=10 + i, device="cuda")
         with torch.no_grad():
             ys = gru_sequence(*args)
-            d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(i))
-            d_ys = d_ys.cuda()
+            d_ys = torch.randn(ys.shape, device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(i))
             got = gru_sequence_bwd(*args, ys, d_ys)
             ref = gru_sequence_bwd_reference(*args, ys, d_ys)
             torch.cuda.synchronize()
@@ -748,7 +818,7 @@ def _check_k1_bwd(smi: str) -> dict:
             ms = _time_ms(lambda: gru_sequence_bwd(*args, ys, d_ys), reps=10)
             kernel_ms = _time_ms(_bwd_kernel_alone(args, ys, d_ys), reps=10)
             plain_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
-                                reps=PLAIN_REPS)
+                                reps=PLAIN_REPS, warm=False)
         print(f"[kernel] gru_sequence_bwd nb={nb} T={T} B={B} H={H}: "
               f"max|diff| dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol {KERNEL_TOL:g}); "
               f"dW {errs[1]:.3e} of {scale[1]:.3g}, db {errs[2]:.3e} of "
@@ -779,8 +849,8 @@ def _k1_bwd_vs_cudnn(smi: str, shape: tuple, seed: int) -> None:
     args = _gru_inputs(nb, T, B, H, 28, seed=seed, device="cuda")
     with torch.no_grad():
         ys = gru_sequence(*args)
-        d_ys = torch.randn(ys.shape,
-                           generator=torch.Generator().manual_seed(seed)).cuda()
+        d_ys = torch.randn(ys.shape, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed))
         ref = gru_sequence_bwd_reference(*args, ys, d_ys)
         got = gru_sequence_bwd(*args, ys, d_ys)
     cudnn, as_k1 = _cudnn_gru_bwd(*(a[0] for a in args), d_ys[0])
@@ -799,11 +869,13 @@ def _k1_bwd_vs_cudnn(smi: str, shape: tuple, seed: int) -> None:
 
 
 def _multigru_inputs(nb, T, B, dims, seed):
+    """K2's inputs, drawn on the card (its two input products at T 1024 and
+    the widest width are 670 M floats)."""
     He, Hg, Hs, Z = dims
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
 
     def r(*shape, sc=1.0):
-        return (torch.randn(shape, generator=g) * sc).cuda()
+        return torch.randn(shape, generator=g, device="cuda") * sc
 
     weights = [r(nb, He, 3 * He, sc=He ** -0.5), r(nb, 3 * He, sc=0.1),
                r(nb, Hg, 3 * Hg, sc=Hg ** -0.5), r(nb, 3 * Hg, sc=0.1),
@@ -826,7 +898,7 @@ def _check_k2(smi: str) -> dict:
             err = max((g - r).abs().max().item() for g, r in zip(got, ref))
             ms = _time_ms(lambda: multigru_disc_inputs(*args), reps=10)
             plain_ms = _time_ms(lambda: multigru_disc_inputs_reference(*args),
-                                reps=PLAIN_REPS)
+                                reps=PLAIN_REPS, warm=False)
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         tile = k2_tile(nb, B, *dims)
         print(f"[kernel] multigru_disc_inputs nb={nb} T={T} B={B} "
@@ -1313,13 +1385,11 @@ def _breakdown(reg: ModelRegistry, smi: str, device: str,
         return
 
     # the card's busy share over one registry synthesize, from its own trace
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_ms = timed(lambda: reg.synthesize(
             run, SERVE_BATCH, TIME_CHUNK, 0, False, SERVE_BATCH, TIME_CHUNK), reps=1)
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    on_card = _on_card(prof)
     dev_ms = sum(e.self_device_time_total for e in on_card) / 1e3
     k1_ms = sum(e.self_device_time_total for e in on_card
                 if "gru_seq_fwd_kernel" in e.key) / 1e3
@@ -1719,7 +1789,6 @@ def phase_synth_bf16(smi: str, root: Path, device: str = "cuda") -> int:
 def _profile_synth(nets: dict, smi: str) -> None:
     """The card's time in one cascade at bench.py's shape, per precision:
     K1 against the rest (projections, casts)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     n, T, _ = SYNTH_SHAPES[0]
     z = torch.rand((n, T, nets["f32"].cfg.z_dim), device="cuda")
@@ -1730,8 +1799,7 @@ def _profile_synth(nets: dict, smi: str) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _cascade(net, zp, None)
             torch.cuda.synchronize()
-        on_card = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        on_card = _on_card(prof)
         dev = sum(e.self_device_time_total for e in on_card) / 1e3
         k1 = sum(e.self_device_time_total for e in on_card
                  if "gru_seq_fwd_kernel" in e.key) / 1e3
@@ -1868,20 +1936,20 @@ def phase_train_seq(smi: str, root: Path, device: str = "cuda") -> dict:
     stacked = root / "stacked"
     stacked.mkdir()
     data2 = _write_buckets(stacked, 2, CHANNELS)
-    flags = ("--parallel_buckets", "--gan_steps", "3", "--ckpt_every", "2",
+    flags = ("--parallel_buckets", "--gan_steps", "2", "--ckpt_every", "1",
              "--data_dir", str(data2))
     t0 = time.perf_counter()
     res, launches = _counted(lambda: cli(stacked / "full", *flags))
     a = res["ae_steps"]
-    check(f"--parallel_buckets --ckpt_every 2, 2 buckets, 3 GAN steps in "
+    check(f"--parallel_buckets --ckpt_every 1, 2 buckets, 2 GAN steps in "
           f"{time.perf_counter() - t0:.2f} s", launches,
-          (4 * a + 15 + 3 * 2, 3 * a + 15, 3))
+          (4 * a + 10 + 3 * 2, 3 * a + 10, 2))
     (stacked / "resumed").mkdir()
     (stacked / "resumed" / "_multi_state.npz").write_bytes(
         (stacked / "full" / "_multi_state.npz").read_bytes())
     t0 = time.perf_counter()
     _, launches = _counted(lambda: cli(stacked / "resumed", *flags, "--resume"))
-    check(f"--parallel_buckets --resume from step 2 in {time.perf_counter() - t0:.2f} s",
+    check(f"--parallel_buckets --resume from step 1 in {time.perf_counter() - t0:.2f} s",
           launches, (5 + 3 * 2, 5, 1))
     same = [(stacked / "full" / b / "train_log.csv").read_bytes()
             == (stacked / "resumed" / b / "train_log.csv").read_bytes()
@@ -2001,7 +2069,6 @@ def phase_train_layers(smi: str, device: str = "cuda") -> None:
     host clock per layer, synchronised at each layer's end; then the card's
     busy share over one unsynchronised step from torch.profiler, at nb
     PROFILE_BUCKETS (the same operations at a smaller batch of buckets)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     params, hp, optD, d_state, optG, g_state, x, draws = _step_inputs(
@@ -2042,21 +2109,22 @@ def phase_train_layers(smi: str, device: str = "cuda") -> None:
         return
 
     # the profiler pass at nb PROFILE_BUCKETS (the step's operation count does
-    # not depend on nb, its device time does), tracing the card alone: the
+    # not depend on nb, its device time does), tracing the card alone (the
     # host-side events of the step's ~215,000 operations took most of the
-    # phase's time to collect and aggregate
+    # phase's time to collect) and summed from the raw events (_on_card)
     params, hp, optD, d_state, optG, g_state, x, draws = _step_inputs(
         PROFILE_BUCKETS, N_WINDOWS, 11, device)
     state[:] = [params, d_state, g_state]
     step()                                                   # warm-up
     _sync(device)
+    t_pass = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    on_card = _on_card(prof)
+    pass_s = time.perf_counter() - t_pass
     dev_ms = sum(e.self_device_time_total for e in on_card) / 1e3
 
     def kernel_ms(tag):
@@ -2067,7 +2135,8 @@ def phase_train_layers(smi: str, device: str = "cuda") -> None:
           f"{wall_ms:.1f} ms wall ({100 * dev_ms / wall_ms:.1f} % busy) over "
           f"{launches} device operations: K2 {kernel_ms('multigru_fwd_kernel'):.3f} "
           f"ms, K1 fwd {kernel_ms('gru_seq_fwd_kernel'):.3f} ms, K1 bwd "
-          f"{kernel_ms('gru_seq_bwd_kernel'):.3f} ms | {smi}", flush=True)
+          f"{kernel_ms('gru_seq_bwd_kernel'):.3f} ms; the pass with its trace's "
+          f"collection and aggregation {pass_s:.2f} s | {smi}", flush=True)
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
     print("[profile] largest device operations: " + "; ".join(
         f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
@@ -2449,7 +2518,6 @@ def _layer_split(run_step, device: str) -> tuple[float, dict]:
 def _profile_step(run_step) -> tuple[list, float, float]:
     """torch.profiler over one ``run_step()`` on the card: (its device
     operations, their device time in ms, the wall time in ms)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2457,8 +2525,7 @@ def _profile_step(run_step) -> tuple[list, float, float]:
         run_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    on_card = _on_card(prof)
     return on_card, sum(e.self_device_time_total for e in on_card) / 1e3, wall_ms
 
 
@@ -2653,6 +2720,7 @@ def phase_cgan_conv(smi: str, device: str = "cuda") -> None:
               f"artifacts and metrics.csv as expected | {smi}", flush=True)
         served = _conv_serve(smi, run, device)
         phase_cgan_eval(smi, Path(tmp), device)
+        _cgan_figures(smi, Path(tmp), device)
     for variant, what in (("v1", "conv v1 B=8, R1 on"), ("v2", "conv v2 B=8, keep masks")):
         _cgan_step_check(smi, device, what, seed=9, arch="conv",
                          **(cgan_train.V2_OVERRIDES if variant == "v2" else {}))
@@ -2766,6 +2834,8 @@ def phase_cgan_eval(smi: str, root: Path, device: str = "cuda") -> None:
                           str(CGAN_EVAL_SAMPLES), "--device", device])["no_exo"]
     wall = time.perf_counter() - t0
     _check_cgan_csvs(root / "cgan_eval" / "no_exo", CGAN_WINDOWS, CGAN_EVAL_SAMPLES, 9)
+    scatter = {"pca_scatter.png": None, "tsne_scatter.png": None, "tsne_real_gen.png": None}
+    _check_pngs("cgan eval condition", root / "cgan_eval" / "no_exo", scatter)
     n_feat = 9 * (CGAN_WINDOWS + CGAN_EVAL_SAMPLES)
     x = np.random.default_rng(0).uniform(0, 1, (n_feat, CHANNELS, SEQ_LEN)) \
         .astype(np.float32)
@@ -2784,8 +2854,9 @@ def phase_cgan_eval(smi: str, root: Path, device: str = "cuda") -> None:
           f"{secs['generation']:.3f} s, discriminative {secs['discriminative']:.3f} s "
           f"(features of {n_feat} host windows alone {feat:.4f} s), predictive "
           f"{secs['predictive']:.3f} s, statistics {secs['statistics']:.3f} s; fits "
-          f"(logistic + ridge) {fits:.3f} s; CSVs checked, finite | {smi}",
-          flush=True)
+          f"(logistic + ridge) {fits:.3f} s; scatter plots (PCA, PCA-50 -> t-SNE of "
+          f"{9 * (CGAN_WINDOWS + CGAN_EVAL_SAMPLES)} feature rows) {secs['figures']:.3f} s; "
+          f"CSVs checked, finite; 3 PNGs checked | {smi}", flush=True)
 
     t0 = time.perf_counter()
     done = cgan_eval_cli(["posture", "--data-dir", str(data), "--runs-root",
@@ -2797,6 +2868,8 @@ def phase_cgan_eval(smi: str, root: Path, device: str = "cuda") -> None:
     for sub in ("posture1", "global"):
         _check_cgan_csvs(root / "cgan_eval_posture" / sub, 2 * CGAN_WINDOWS,
                          2 * CGAN_WINDOWS, 1)
+    _check_pngs("cgan eval posture", root / "cgan_eval_posture", {
+        f"global/{k}": v for k, v in scatter.items()})
     print(f"[cgan-eval] posture (v2 conv generator of posture 1, 'match': "
           f"{CGAN_WINDOWS} + {CGAN_WINDOWS} windows a side) and global/ in {wall:.2f} s; "
           f"postures 2-9 skipped (no generator); CSVs finite | {smi}", flush=True)
@@ -3317,7 +3390,8 @@ def _check_iir(smi: str) -> dict:
                 if T == IIR_SHAPES[0][0]:
                     bt, at = (torch.as_tensor(c).to(dtype) for c in (b, a))
                     ref = lfilter_reference(bt, at, x, zi)
-                    plain_ms = _time_ms(lambda: lfilter_reference(bt, at, x, zi), reps=1)
+                    plain_ms = _time_ms(lambda: lfilter_reference(bt, at, x, zi), reps=1,
+                                        warm=False)
                 torch.cuda.synchronize()
                 err = (got - ref).abs().max().item()
                 rel = err / ref.abs().max().item()
@@ -3426,7 +3500,7 @@ def phase_preprocess(smi: str, root: Path, device: str = "cuda") -> int:
                    for line in log)
         kernel_ms = None
         if prof is not None:
-            kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
+            kernel_ms = sum(e.self_device_time_total for e in _on_card(prof)
                             if "iir_filter_kernel" in e.key) / 1e3
         runs.append((out, rows, log, secs, launches, done, kernel_ms, block - secs))
     (card, rows_c, log_c, s_c, n_c, done_c, k_ms, prof_s), \
@@ -3480,6 +3554,16 @@ def _csv_cells_within(ours: Path, ref: Path) -> int:
     return n
 
 
+def _fatigue_size(name: str) -> tuple[int, int]:
+    """The pixel size of a fatigue_report figure (its figsize at dpi 200)."""
+    for suffix, inches in (("_PSD_mean.png", (8, 5)), ("_bandpowers.png", (14, 6)),
+                           ("_Workload_thetaF_over_alphaPO.png", (5, 5)),
+                           ("_tbr_4group.png", (14, 6)), ("_participant_tbr.png", (14, 6))):
+        if name.endswith(suffix):
+            return inches[0] * 200, inches[1] * 200
+    return 12 * 200, 6 * 200        # the region-grouped bars
+
+
 def phase_fatigue(smi: str, root: Path, device: str = "cuda") -> None:
     """``python -m eegsynth_torch.fatigue_report``'s five subcommands in this
     process on the card, then on the CPU: real/ the card's buckets from
@@ -3506,16 +3590,23 @@ def phase_fatigue(smi: str, root: Path, device: str = "cuda") -> None:
                 "participants": ["participants", "--data-root", str(root / "raw"),
                                  "--synth-dir", str(base / "runs"), "--real-dir",
                                  str(real), "--inverse-scale"]}
-    seconds = {}
+    seconds, drawn, recorded = {}, {}, {name: [] for name in commands}
     for i, dev in enumerate((device, "cpu")):
         for name, argv in commands.items():
             out = base / ("card", "host")[i] / name
+            _reset_fig_stats()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+                if i == 1:      # the CPU run is the CSVs' reference: its figures
+                    stack.enter_context(_figures_recorded(recorded[name]))  # are named
                 fatigue_cli([*argv, "--out", str(out), "--device", dev])
             _sync(dev)
             seconds[(i, name)] = time.perf_counter() - t0
-    n_files = n_cells = 0
+            if i == 0:
+                drawn[name] = (raster.STATS["figures"], raster.STATS["draw_s"],
+                               raster.STATS["png_s"])
+    n_files = n_cells = n_pngs = 0
     for name in commands:
         card, host = base / "card" / name, base / "host" / name
         files = sorted(p.relative_to(card) for p in card.rglob("*.csv"))
@@ -3525,10 +3616,240 @@ def phase_fatigue(smi: str, root: Path, device: str = "cuda") -> None:
         for rel in files:
             n_cells += _csv_cells_within(card / rel, host / rel)
         n_files += len(files)
+        pngs = {str(p.relative_to(host)): _fatigue_size(p.name) for p in recorded[name]}
+        if name in ("bandpower", "indices", "ttest", "participants") and not pngs:
+            fail(f"[fatigue] {name}: no figure")
+        n_pngs += _check_pngs(f"fatigue {name}", card, pngs)
     print(f"[fatigue] five subcommands, {n_files} CSVs and {n_cells} cells card = CPU "
           f"(numbers within {CSV_RTOL:g} relative); seconds card / CPU: " + ", ".join(
               f"{name} {seconds[(0, name)]:.2f} / {seconds[(1, name)]:.2f}"
               for name in commands) + f" | {smi}", flush=True)
+    print(f"[figures] fatigue_report figures on the card, {n_pngs} PNGs (the CPU run's "
+          f"names; each decoded, not blank): " + ", ".join(
+              f"{name} {n} figures, drawing {d:.2f} s + deflate {z:.2f} s"
+              for name, (n, d, z) in drawn.items() if n) + f" | {smi}", flush=True)
+
+
+def _png_info(path: Path) -> tuple[int, int, int]:
+    """(width, height, distinct colours) of a PNG the raster layer wrote
+    (8-bit RGB, filter 0), decoded with zlib; fails if it does not
+    decode."""
+    data = path.read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            head = body
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = int.from_bytes(head[:4], "big"), int.from_bytes(head[4:8], "big")
+    if head[8:10] != b"\x08\x02":
+        fail(f"{path}: not 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    px = rows[:, 1:].reshape(-1, 3)[::7].astype(np.uint32)
+    colours = len(np.unique((px[:, 0] << 16) | (px[:, 1] << 8) | px[:, 2]))
+    return w, h, colours
+
+
+def _check_pngs(what: str, out: Path, sizes: dict) -> int:
+    """Every PNG under ``out`` is one of ``sizes`` (relative name → (w, h),
+    or None for a cropped figure), all of them there, each decodes and is
+    not blank. Returns the count."""
+    got = sorted(str(p.relative_to(out)) for p in out.rglob("*.png"))
+    if got != sorted(sizes):
+        fail(f"[figures] {what}: wrote {got}, expected {sorted(sizes)}")
+    for name, size in sizes.items():
+        w, h, colours = _png_info(out / name)
+        if (size is not None and (w, h) != size) or colours < 3:
+            fail(f"[figures] {what}: {name} is {w} x {h} with {colours} colours "
+                 f"(expected {size}, not blank)")
+    return len(got)
+
+
+def _fig_stats() -> str:
+    e, r = embed.STATS, raster.STATS
+    per = 1e3 * e["tsne_s"] / max(1, e["tsne_iters"])
+    return (f"PCA {e['pca_s']:.2f} s ({e['pca_calls']} calls), t-SNE {e['tsne_s']:.2f} s "
+            f"({e['tsne_calls']} runs, {e['tsne_iters']} iterations, {per:.3f} ms an "
+            f"iteration), drawing {r['draw_s']:.2f} s + deflate {r['png_s']:.2f} s "
+            f"({r['figures']} figures)")
+
+
+def _reset_fig_stats() -> None:
+    embed.reset_stats()
+    raster.reset_stats()
+
+
+@contextlib.contextmanager
+def _figures_recorded(paths: list):
+    """Figures are recorded, not drawn (the CPU reference runs of phases
+    whose figures the card run draws)."""
+    real = raster.Figure.savefig
+    raster.Figure.savefig = lambda self, path, *a, **k: paths.append(Path(path))
+    try:
+        yield
+    finally:
+        raster.Figure.savefig = real
+
+
+def _figure_pairs(root: Path, device: str) -> int:
+    """real/posture{p}_{cond}.npz of FIG_WINDOWS (768, 14) windows in [0, 1]
+    (a sine of the pair's own frequency on every channel plus noise) and
+    runs/posture{p}_{cond}/synthetic.npz drawn by a full-width random
+    TimeGAN (x14/z28/h56, seeded per pair) on ``device``. Returns K1's
+    launches."""
+    real, runs = root / "real", root / "runs"
+    real.mkdir(parents=True)
+    rng = np.random.default_rng(41)
+    t = np.arange(SEQ_LEN) / 128.0
+    cfg = TimeGANConfig(x_dim=CHANNELS, z_dim=28, h_dim=56)
+    gru_sequence.launches = 0
+    for i, name in enumerate(f"posture{p}_{c}" for p in range(1, 10)
+                             for c in ("no_exo", "with_exo")):
+        phase = rng.uniform(0, 2 * np.pi, (FIG_WINDOWS, 1, CHANNELS))
+        X = 0.5 + 0.25 * np.sin(2 * np.pi * (2 + i) * t[None, :, None] + phase) \
+            + 0.05 * rng.standard_normal((FIG_WINDOWS, SEQ_LEN, CHANNELS))
+        np.savez(real / f"{name}.npz", X=np.clip(X, 0, 1).astype(np.float32),
+                 fs=np.float32(128.0), ch_names=np.array(EPOC_CHANNELS))
+        model = TimeGAN(cfg, generator=torch.Generator().manual_seed(100 + i), device=device)
+        fake = synthesize(model, FIG_WINDOWS, SEQ_LEN,
+                          generator=torch.Generator(device=device).manual_seed(i))
+        (runs / name).mkdir(parents=True)
+        np.savez(runs / name / "synthetic.npz", X=fake)
+    return gru_sequence.launches
+
+
+def phase_figures(smi: str, root: Path, device: str = "cuda") -> int:
+    """The figures at full width: 18 pairs of FIG_WINDOWS real and
+    synthetic windows (768, 14), the synthetic from the TimeGAN cascade on
+    K1; ``python -m eegsynth_torch.visualization --zooms --paired-legend``
+    at the default t-SNE cap (FIG_TSNE_MAX of 7200 windows of 10,752
+    features); the eval's pca_tsne_plots at --tsne_max FIG_TSNE_MAX;
+    ``python -m eegsynth_torch.preprocessing_plots`` on one of
+    [preprocess]'s CSVs; every PNG decodes, is not blank and has its size;
+    PCA and t-SNE on the card against the CPU. Returns K1's launches."""
+    fig = root / "figures"
+    t0 = time.perf_counter()
+    k1 = _figure_pairs(fig, device)
+    want_k1 = 3 * N_BUCKETS if torch.device(device).type == "cuda" else 0
+    print(f"[figures] 18 pairs of {FIG_WINDOWS} real + {FIG_WINDOWS} synthetic windows "
+          f"({SEQ_LEN}, {CHANNELS}) in {time.perf_counter() - t0:.2f} s; gru_sequence "
+          f"launches {k1} (expected {want_k1}) | {smi}", flush=True)
+    if k1 != want_k1:
+        fail(f"[figures] the synthetic windows launched K1 {k1} times, not {want_k1}")
+
+    zoom = (1080, 827)      # 6.0 x 4.6 in at 180 dpi
+    _reset_fig_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        visualization_cli(["--real_dir", str(fig / "real"), "--synth_dir",
+                           str(fig / "runs"), "--out", str(fig / "viz"), "--zooms",
+                           "--paired-legend", "--device", device])
+    secs = time.perf_counter() - t0
+    sizes = {"pca_combined.png": (1462, 986), "tsne_combined.png": (1462, 986)}
+    sizes.update({f"zoom_p{p}_{c}_{k}.png": zoom for p in range(1, 10)
+                  for c in ("no_exo", "with_exo") for k in ("pca", "tsne")})
+    n = _check_pngs("visualization", fig / "viz", sizes)
+    print(f"[figures] visualization --zooms --paired-legend (t-SNE of "
+          f"{min(FIG_TSNE_MAX, 2 * N_BUCKETS * FIG_WINDOWS)} of "
+          f"{2 * N_BUCKETS * FIG_WINDOWS} windows x {SEQ_LEN * CHANNELS} features, 18 "
+          f"zoom pairs): {secs:.2f} s; {_fig_stats()}; {n} PNGs checked | {smi}",
+          flush=True)
+
+    pairs = load_pairs_by_condition(fig / "real", fig / "runs")
+    keys = sorted(pairs)
+    R = np.concatenate([pairs[k][0] for k in keys])
+    F = np.concatenate([pairs[k][1] for k in keys])
+    labels = np.array([k[0] for k in keys for _ in range(FIG_WINDOWS)] * 2)
+    domain = np.array([1] * len(R) + [0] * len(F))
+    (fig / "eval").mkdir()
+    _reset_fig_stats()
+    t0 = time.perf_counter()
+    pca_tsne_plots(fig / "eval", R, F, labels, domain, FIG_TSNE_MAX, device=device)
+    secs = time.perf_counter() - t0
+    n = _check_pngs("pca_tsne_plots", fig / "eval",
+                    {"pca_global.png": (1120, 800), "tsne_global.png": (1120, 800)})
+    print(f"[figures] eval pca_tsne_plots --tsne_max {FIG_TSNE_MAX} ({len(R) + len(F)} "
+          f"windows x {SEQ_LEN * CHANNELS} features, t-SNE without a PCA-50 step): "
+          f"{secs:.2f} s; {_fig_stats()}; {n} PNGs checked | {smi}", flush=True)
+
+    csv_path = sorted((root / "raw").rglob("*.csv"))[0]
+    _reset_fig_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        preprocessing_plots_cli(["--csv", str(csv_path), "--out", str(fig / "prep"),
+                                 "--device", device])
+    secs = time.perf_counter() - t0
+    stages = ["1_raw_signal", "1_raw_spec", "2_notch_signal", "2_notch_spec", "2_notch_psd",
+              "3_bandpass_signal", "3_bandpass_spec", "3_bandpass_psd",
+              "4_resampled_signal", "4_resampled_spec", "4_resampled_psd",
+              "5_artifact_signal", "5_artifact_spec", "5_artifact_psd", "6_epoch_signal",
+              "6_epoch_spec", "6_epoch_psd", "7_features_spec"]
+    sizes = {f"{s}.png": (2000, 600) if "psd" not in s else (1600, 600) for s in stages}
+    sizes.update({"7_features_bandpower.png": (1200, 800),
+                  "8_labels_timeline.png": (2400, 600), "8_labels_tracks.png": (2400, 560),
+                  "8_labels_epoch_grid.png": (int(max(6, 0.6 * int(RAW_SECONDS // 6)) * 200),
+                                              360),
+                  "8_labels_card.png": (840, 560)})
+    n = _check_pngs("preprocessing_plots", fig / "prep", sizes)
+    print(f"[figures] preprocessing_plots on {csv_path.name} ({RAW_SECONDS:g} s at 128 Hz): "
+          f"{secs:.2f} s; {_fig_stats()}; {n} PNGs checked | {smi}", flush=True)
+
+    # the card against the CPU, outside the CLIs
+    X = torch.as_tensor(np.concatenate([R, F]).reshape(len(R) + len(F), -1)[::7][:FIG_PCA_ROWS])
+    got = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        got[dev] = (embed.pca(X.to(dev), 2).cpu().numpy(), time.perf_counter() - t0)
+    err = (np.abs(got[device][0] - got["cpu"][0]).max(0)
+           / np.abs(got["cpu"][0]).max(0)).max()
+    Xt = embed.pca(X[:FIG_TSNE_ROWS], 50)
+    runs_t = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        res = embed.tsne(Xt.to(dev), perplexity=30.0)
+        runs_t[dev] = (res, time.perf_counter() - t0)
+    kl = {d: r.kl_divergence for d, (r, _) in runs_t.items()}
+    tw = {d: embed.trustworthiness(Xt, r.embedding.cpu(), 10) for d, (r, _) in runs_t.items()}
+    kl_rel = abs(kl[device] - kl["cpu"]) / kl["cpu"]
+    print(f"[figures] card vs CPU: PCA-2 of {len(X)} rows x {X.shape[1]}: max |diff| "
+          f"{err:.3e} of each component's largest score (tol {FIG_PCA_RTOL:g}), "
+          f"{got[device][1]:.3f} s on the card, {got['cpu'][1]:.3f} s on the CPU; t-SNE "
+          f"of {FIG_TSNE_ROWS} (PCA-50): KL {kl[device]:.5f} / {kl['cpu']:.5f} (relative "
+          f"{kl_rel:.3e}, tol {FIG_TSNE_KL_RTOL:g}), trustworthiness@10 {tw[device]:.5f} / "
+          f"{tw['cpu']:.5f} (tol {FIG_TSNE_TW_TOL:g}), {runs_t[device][0].n_iter + 1} / "
+          f"{runs_t['cpu'][0].n_iter + 1} iterations in {runs_t[device][1]:.2f} / "
+          f"{runs_t['cpu'][1]:.2f} s | {smi}", flush=True)
+    if not (err <= FIG_PCA_RTOL and kl_rel <= FIG_TSNE_KL_RTOL
+            and abs(tw[device] - tw["cpu"]) <= FIG_TSNE_TW_TOL):
+        fail(f"[figures] the card's embeddings disagree with the CPU's: PCA {err}, KL "
+             f"{kl_rel}, trustworthiness {tw}")
+    return k1
+
+
+def _cgan_figures(smi: str, root: Path, device: str) -> None:
+    """``python -m eegsynth_torch.visualization_cgan`` on [cgan-conv]'s
+    posture buckets and its v2 generator of posture 1 (postures 2-9 have
+    none and are skipped): pca_36.png, tsne_36.png and posture 1's four
+    zooms, each decoded, not blank and of its size."""
+    _reset_fig_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        visualization_cgan_cli(["--data-dir", str(root / "cgan_data"), "--runs-root",
+                                str(root / "conv_v2"), "--out", str(root / "cgan_viz"),
+                                "--device", device])
+    secs = time.perf_counter() - t0
+    sizes = {"pca_36.png": (1462, 986), "tsne_36.png": (1462, 986)}
+    sizes.update({f"zooms/zoom_p1_{c}_{k}.png": (1080, 827)
+                  for c in ("no_exo", "with_exo") for k in ("pca", "tsne")})
+    n = _check_pngs("visualization_cgan", root / "cgan_viz", sizes)
+    print(f"[figures] visualization_cgan (v2 conv generator of posture 1, 2 x "
+          f"{CGAN_WINDOWS} windows a side): {secs:.2f} s; {_fig_stats()}; {n} PNGs "
+          f"checked | {smi}", flush=True)
 
 
 def main() -> None:
@@ -3576,12 +3897,13 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         iir_launches = timed("preprocess", phase_preprocess, smi, Path(tmp))
         timed("fatigue", phase_fatigue, smi, Path(tmp))
+        figure_launches = timed("figures", phase_figures, smi, Path(tmp))
     runs = (train_launches, eval_launches, seq_launches, wide_launches,
             sweep_launches, profile_launches)
     launches = {**cgan_launches, **wide_attn_launches,
                 **{k: sum(r.get(k, 0) for r in runs)
                    for k in ("gru_sequence", "gru_sequence_bwd", "multigru_disc_inputs")}}
-    launches["gru_sequence"] += serve_launches + synth_launches
+    launches["gru_sequence"] += serve_launches + synth_launches + figure_launches
     launches["flash_forward"] = cgan_launches["flash_forward"] + cgan_serve_launches
     launches["iir_filter"] = iir_launches
     for k, n in launches.items():

@@ -6,8 +6,8 @@ host, as there): RN-vs-RW and SN-vs-SW ``ttest_ind(equal_var=False)`` per
 channel, the v2 95th-percentile and v3 per-pair median display scales of the
 synthetic groups, the v4 CSV of t / p / scales, and the count-matched paired
 real-vs-synthetic test. Statistics are always computed on the unscaled
-values; the scales are for display only. The grouped bar figure of
-``four_group_report`` is not drawn here.
+values; the scales are for display only. ``four_group_report`` draws its
+grouped 4-bar figure with the stars by the port's raster layer.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from pathlib import Path
 
 import numpy as np
 from scipy.stats import ttest_ind
+
+from eegsynth_torch.viz import raster
 
 logger = logging.getLogger(__name__)
 
@@ -138,12 +140,13 @@ def display_scales(groups: dict, mode: str = "none"):
 
 
 def four_group_report(groups: dict, ch_names: list[str], posture: int,
-                      scaling: str = "none", export_csv=None):
+                      out_png, scaling: str = "none", export_csv=None):
     """Per-channel Welch t-tests RN vs RW and SN vs SW, group means and SDs
-    and the display scales of the synthetic groups; optionally the v4 CSV
-    (region-ordered Channel rows, the global scales repeated on each row).
-    Returns the stats dict. The JAX package also draws the grouped 4-bar
-    figure here; the port draws none."""
+    and the display scales of the synthetic groups; the grouped 4-bar
+    figure (region-ordered channels, SD error bars, the stars of RN vs RW
+    in black and of SN vs SW in C3) at ``out_png``;
+    optionally the v4 CSV (region-ordered Channel rows, the global scales
+    repeated on each row). Returns the stats dict."""
     n_ch = len(ch_names)
     means, stds = {}, {}
     for g in GROUPS:
@@ -161,6 +164,32 @@ def four_group_report(groups: dict, ch_names: list[str], posture: int,
 
     names, _ = reorder_by_region(ch_names, np.arange(n_ch))
     order = [ch_names.index(n) for n in names]
+
+    x = np.arange(n_ch)
+    width = 0.2
+    fig, ax = raster.subplots(figsize=(14, 6))
+    for gi, g in enumerate(GROUPS):
+        ax.bar(x + (gi - 1.5) * width, means[g][order] * scales[g], width,
+               yerr=stds[g][order] * scales[g], capsize=2, label=g)
+    ymax = np.nanmax([np.nanmax(means[g][order] * scales[g]) for g in GROUPS
+                      if np.isfinite(means[g]).any()] or [1.0])
+    for ci in range(n_ch):
+        src = order[ci]
+        star_r, star_s = sig_stars(p_R[src]), sig_stars(p_S[src])
+        if star_r:
+            ax.text(ci - width, ymax * 1.02, star_r, ha="center", fontsize=9)
+        if star_s:
+            ax.text(ci + width, ymax * 1.02, star_s, ha="center", fontsize=9,
+                    color="C3")
+    ax.set_xticks(x, names, rotation=45, ha="right")
+    ax.set_ylabel("TBR (Theta/Beta)")
+    title = f"Posture {posture}: TBR by channel (RN/RW/SN/SW)"
+    if scaling != "none":
+        title += f" [synthetic display-scaled: {scaling}]"
+    ax.set_title(title)
+    ax.legend()
+    fig.tight_layout()
+    fig.savefig(out_png, dpi=200)
 
     stats = {"ch_names": ch_names, "t_R": t_R, "p_R": p_R, "t_S": t_S, "p_S": p_S,
              "scales": scales, "means": {g: means[g] for g in GROUPS}}

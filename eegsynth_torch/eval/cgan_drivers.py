@@ -11,7 +11,9 @@ index for index. Generated windows come from the port's
 ``train.cgan.load_generator`` / ``generate_batch`` with a
 ``torch.Generator`` on the device seeded from ``--seed`` (per condition in
 ``condition``, once in ``posture``), so they do not reproduce the JAX
-package's draws. The scatter plots are not ported.
+package's draws. Each condition (``condition``) and ``global/``
+(``posture``) also gets the PCA / t-SNE scatter plots of
+``eval/cgan_eval.py``, the t-SNE at ``--tsne-perplexity``.
 
     python -m eegsynth_torch.eval.cgan_drivers condition --data-dir ./preprocessed \\
         --runs-root ./cgan_runs --save-root ./cgan_eval [--condition no_exo]
@@ -34,7 +36,7 @@ from eegsynth_torch.data.datasets import (
 )
 from eegsynth_torch.eval.cgan_eval import (
     NUM_POSTURES, discriminative_metrics, evaluate_condition, predictive_scores,
-    stats_similarity,
+    scatter_plots, stats_similarity,
 )
 from eegsynth_torch.train.cgan import generate_batch, load_generator
 
@@ -81,7 +83,8 @@ def eval_conditions(args, device: torch.device) -> dict:
 
         out_dir = Path(args.save_root) / condition
         seconds[condition] = {"generation": gen_s,
-                              **evaluate_condition(Xr, yr, Xg, yg, out_dir, args.seed,
+                              **evaluate_condition(Xr, yr, Xg, yg, out_dir,
+                                                   args.tsne_perplexity, args.seed,
                                                    device=device)}
         print(f"[{condition}] Saved results to {out_dir}")
     return seconds
@@ -148,9 +151,10 @@ def eval_postures(args, device: torch.device) -> list[int]:
         done.append(p)
 
     if glob_r:
-        _csv_trio(np.concatenate(glob_r), np.concatenate(glob_g),
-                  np.concatenate(glob_yr), np.concatenate(glob_yg),
-                  save_root / "global", args, device)
+        trio = (np.concatenate(glob_r), np.concatenate(glob_g),
+                np.concatenate(glob_yr), np.concatenate(glob_yg))
+        _csv_trio(*trio, save_root / "global", args, device)
+        scatter_plots(*trio, save_root / "global", seed=args.seed, device=device)
         print(f"Saved all evaluations under: {save_root}")
     return done
 
@@ -170,7 +174,7 @@ def main(argv: list[str] | None = None):
                       choices=["both", "with_exo", "no_exo"])
     cond.add_argument("--samples-per-posture", type=int, default=400)
     cond.add_argument("--tsne-perplexity", type=float, default=30.0,
-                      help="unused: the scatter plots are not ported")
+                      help="the scatter plots' t-SNE perplexity")
     post = sub.add_parser("posture", help="v2/v3: scripts/eval_cgan_posture.py",
                           formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     post.add_argument("--data-dir", type=str, default="./preprocessed")

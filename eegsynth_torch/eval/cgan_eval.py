@@ -7,8 +7,10 @@ headers and row order. The features, statistics and linear models run on
 ``eval/protocol.py``, which gives scikit-learn's split index for index.
 Artifacts per condition (v1) or per posture and ``global/`` (v2/v3):
 ``metrics_discriminative.csv``, ``metrics_predictive.csv``,
-``metrics_stats.csv``. The PCA / t-SNE scatter plots (``scatter_plots``)
-are not ported.
+``metrics_stats.csv``, and the PCA / t-SNE scatter plots of the log-PSD
+features (``scatter_plots``: ``pca_scatter.png``, ``tsne_scatter.png``,
+``tsne_real_gen.png``), their PCA and t-SNE on ``device``
+(``viz/embed.py``), their drawing on the host (``viz/raster.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from eegsynth_torch.eval.protocol import (
     accuracy_score, mean_squared_error, r2_score, roc_auc_score,
     stratified_split_indices,
 )
+from eegsynth_torch.viz import embed, raster
 
 NUM_POSTURES = 9
 FIXED_PAIRS = [(0, 13), (6, 7), (9, 10), (1, 12)]
@@ -203,11 +206,49 @@ def stats_similarity(Xr, Xg, yr, yg, out_csv, *,
     return rows
 
 
-def evaluate_condition(Xr, yr, Xg, yg, out_dir, seed=123, *,
+def scatter_plots(Xr, Xg, yr, yg, out_dir, perplexity=30.0, seed=123, *,
+                  device: torch.device | str) -> None:
+    """PCA and PCA-50 → t-SNE scatters of the log-PSD features: coloured by
+    posture through tab10 with a colorbar (pca_scatter.png,
+    tsne_scatter.png), and real against generated in C0 / C3
+    (tsne_real_gen.png). ``seed`` is kept for the JAX signature: the PCA is
+    exact and the t-SNE deterministic."""
+    out_dir = Path(out_dir)
+    Fr = psd_features_tensor(Xr, device=device)
+    Fg = psd_features_tensor(Xg, device=device)
+    X = torch.cat([Fr, Fg]).to(torch.float64)
+    y = np.hstack([yr, yg])
+    src = np.hstack([np.zeros(len(Fr)), np.ones(len(Fg))])
+
+    Zp = embed.pca(X, 2).cpu().numpy()
+    fig, ax = raster.subplots(figsize=(7, 6))
+    m = ax.scatter(Zp[:, 0], Zp[:, 1], c=y, cmap="tab10", s=10, alpha=0.7,
+                   edgecolors="none")
+    fig.colorbar(m, ax=ax, label="posture")
+    ax.set_title("PCA (color=posture)")
+    fig.savefig(out_dir / "pca_scatter.png", dpi=150, bbox_inches="tight")
+
+    X50 = embed.pca(X, min(50, X.shape[1] - 1))
+    Z = embed.tsne(X50, perplexity=perplexity).embedding.cpu().numpy()
+    fig, ax = raster.subplots(figsize=(7, 6))
+    m = ax.scatter(Z[:, 0], Z[:, 1], c=y, cmap="tab10", s=8, alpha=0.7,
+                   edgecolors="none")
+    fig.colorbar(m, ax=ax, label="posture")
+    ax.set_title("t-SNE (color=posture)")
+    fig.savefig(out_dir / "tsne_scatter.png", dpi=150, bbox_inches="tight")
+    fig, ax = raster.subplots(figsize=(7, 6))
+    ax.scatter(Z[src == 0, 0], Z[src == 0, 1], c="C0", s=8, alpha=0.6, label="real")
+    ax.scatter(Z[src == 1, 0], Z[src == 1, 1], c="C3", s=8, alpha=0.6, label="gen")
+    ax.legend()
+    ax.set_title("t-SNE (real vs gen)")
+    fig.savefig(out_dir / "tsne_real_gen.png", dpi=150, bbox_inches="tight")
+
+
+def evaluate_condition(Xr, yr, Xg, yg, out_dir, perplexity=30.0, seed=123, *,
                        device: torch.device | str) -> dict[str, float]:
-    """One condition's CSV trio; returns the seconds of each metric family
-    (host clock; each ends in a pull to the host). The JAX package also
-    draws PCA / t-SNE scatter plots here: they are not ported."""
+    """One condition's CSV trio and scatter set; returns the seconds of each
+    metric family and of the figures (host clock; each ends in a pull to
+    the host)."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     seconds = {}
@@ -220,4 +261,7 @@ def evaluate_condition(Xr, yr, Xg, yg, out_dir, seed=123, *,
         t0 = time.perf_counter()
         fn(Xr, Xg, yr, yg, out_dir / csv_name, device=device, **kw)
         seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scatter_plots(Xr, Xg, yr, yg, out_dir, perplexity, seed, device=device)
+    seconds["figures"] = time.perf_counter() - t0
     return seconds

@@ -1,15 +1,21 @@
 """TimeGAN evaluation driver: real/synthetic pair loading, the scorers and
-statistics of every pair and of the global corpus, the metric CSVs.
+statistics of every pair and of the global corpus, the metric CSVs and the
+PCA / t-SNE figures.
 
-Counterpart of ``eegsynth/eval/drivers.py`` without the PCA / t-SNE figures.
-The per-pair CSV is ``metrics_per_posture_condition.csv`` (one row per
-posture and condition, ``by_condition``) or ``metrics_per_posture.csv``
-(conditions merged); both runs also write ``metrics_global.csv``.
+Counterpart of ``eegsynth/eval/drivers.py``. The per-pair CSV is
+``metrics_per_posture_condition.csv`` (one row per posture and condition,
+``by_condition``) or ``metrics_per_posture.csv`` (conditions merged); both
+runs also write ``metrics_global.csv``, ``pca_global.png`` and
+``tsne_global.png`` (``--tsne_max`` caps the t-SNE's points;
+``scripts/evaluate_18.py`` uses 6000). The PCA and t-SNE run on the device
+(``viz/embed.py``), the drawing on the host; no matplotlib or scikit-learn
+is needed.
 
 Run it on the card (``--device cpu`` for the plain versions on the host):
 
     python -m eegsynth_torch.eval.drivers --real_dir <dir of posture*_*.npz> \\
-        --synth_dir <runs dir> --out <out dir> [--by_condition] [--fs 128]
+        --synth_dir <runs dir> --out <out dir> [--by_condition] [--fs 128] \\
+        [--tsne_max 6000]
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from eegsynth_torch.eval.classifiers import (
     predictive_scores_batch,
 )
 from eegsynth_torch.eval.stats import statistical_similarity
+from eegsynth_torch.viz import embed, raster
 
 METRIC_COLS = ["disc_acc", "disc_auc", "rmse_tstr", "r2_tstr", "rmse_trts",
                "r2_trts", "psd_diff", "acf_diff", "coh_diff",
@@ -114,13 +121,57 @@ def write_csv(path: Path, rows: list[dict], lead_cols: list[str]) -> None:
         w.writerows(rows)
 
 
+def scatter_by_posture(path: Path, emb: np.ndarray, labels: np.ndarray,
+                       domain: np.ndarray, title: str) -> None:
+    """Colour by posture (the colour cycle, real then generated), marker by
+    domain (real ``o``, generated ``x``)."""
+    fig, ax = raster.subplots(figsize=(7, 5))
+    for pid in np.unique(labels):
+        m_real = (labels == pid) & (domain == 1)
+        m_fake = (labels == pid) & (domain == 0)
+        ax.scatter(emb[m_real, 0], emb[m_real, 1], s=10, alpha=0.65, label=f"P{pid} real")
+        ax.scatter(emb[m_fake, 0], emb[m_fake, 1], s=10, alpha=0.65, marker="x",
+                   label=f"P{pid} gen")
+    ax.set_title(title)
+    ax.legend(bbox_to_anchor=(1.02, 1), loc="upper left", fontsize="small")
+    fig.tight_layout()
+    fig.savefig(path, dpi=160)
+
+
+def pca_tsne_plots(out: Path, R: np.ndarray, F: np.ndarray, labels: np.ndarray,
+                   domain: np.ndarray, tsne_max: int | None = None, *,
+                   device: torch.device | str = "cuda") -> None:
+    """pca_global.png (PCA-2 of every flattened window) and tsne_global.png
+    (t-SNE of at most ``tsne_max`` of them, drawn by
+    ``RandomState(0).permutation``), the embeddings on ``device``. Too few
+    points for the t-SNE's perplexity skip its figure with a message; any
+    other error propagates."""
+    X_all = np.concatenate([R, F], axis=0).reshape(len(R) + len(F), -1)
+    X = torch.as_tensor(X_all, device=device).to(torch.float64)
+    pc = embed.pca(X, 2).cpu().numpy()
+    scatter_by_posture(out / "pca_global.png", pc, labels, domain,
+                       "PCA: posture clusters (real vs generated)")
+    X_ts, lab_ts, dom_ts = X, labels, domain
+    if tsne_max is not None and len(X_all) > tsne_max:
+        idx = np.random.RandomState(0).permutation(len(X_all))[:tsne_max]
+        X_ts = X[torch.as_tensor(idx, device=X.device)]
+        lab_ts, dom_ts = labels[idx], domain[idx]
+    try:
+        ts2 = embed.tsne(X_ts, perplexity=30.0).embedding.cpu().numpy()
+    except embed.TooFewPoints as e:
+        print(f"t-SNE skipped: {e}")
+        return
+    scatter_by_posture(out / "tsne_global.png", ts2, lab_ts, dom_ts,
+                       "t-SNE: posture clusters (real vs generated)")
+
+
 def run_timegan_eval(real_dir, synth_dir, out, fs: float = 128.0,
-                     by_condition: bool = False,
+                     by_condition: bool = False, tsne_max: int | None = None,
                      device: torch.device | str = "cuda") -> dict:
     """Score every real/synthetic pair and the global corpus; write the
-    per-pair and the global metric CSVs. Returns {"rows", "global",
-    "seconds"}, the last the host time of each part (discriminative,
-    predictive, statistics, csv)."""
+    per-pair and the global metric CSVs and the PCA / t-SNE figures.
+    Returns {"rows", "global", "seconds"}, the last the host time of each
+    part (discriminative, predictive, statistics, csv, figures)."""
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)
     if by_condition:
@@ -151,6 +202,11 @@ def run_timegan_eval(real_dir, synth_dir, out, fs: float = 128.0,
                  for k, (r, f) in pairs.items()}
 
     keys = sorted(pairs.keys())
+    real_labels, fake_labels = [], []
+    for keyid in keys:
+        posture = keyid[0] if by_condition else keyid
+        real_labels += [posture] * len(pairs[keyid][0])
+        fake_labels += [posture] * len(pairs[keyid][1])
     R = np.concatenate([pairs[k][0][:, :t_min] for k in keys])
     F = np.concatenate([pairs[k][1][:, :t_min] for k in keys])
     corpora = [pairs[k] for k in keys] + [(R, F)]
@@ -194,6 +250,13 @@ def run_timegan_eval(real_dir, synth_dir, out, fs: float = 128.0,
     write_csv(out / per_csv, rows, lead)
     write_csv(out / "metrics_global.csv", [g], [])
     seconds["csv"] = time.perf_counter() - t0
+
+    # labels and domain all real then all generated, as the [R; F] rows
+    t0 = time.perf_counter()
+    labels = np.array(real_labels + fake_labels)
+    domain = np.array([1] * len(R) + [0] * len(F))
+    pca_tsne_plots(out, R, F, labels, domain, tsne_max, device=device)
+    seconds["figures"] = time.perf_counter() - t0
     print(f"Wrote {out / per_csv} and {out / 'metrics_global.csv'}", flush=True)
     return {"rows": rows, "global": g, "seconds": seconds}
 
@@ -209,10 +272,14 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--out", type=str, default="./eval_out")
     ap.add_argument("--fs", type=float, default=128.0)
     ap.add_argument("--by_condition", action="store_true")
+    ap.add_argument("--tsne_max", type=int, default=None,
+                    help="t-SNE over at most this many windows (evaluate_18.py: "
+                         "6000); default all")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
     return run_timegan_eval(args.real_dir, args.synth_dir, args.out, fs=args.fs,
-                            by_condition=args.by_condition, device=args.device)
+                            by_condition=args.by_condition, tsne_max=args.tsne_max,
+                            device=args.device)
 
 
 if __name__ == "__main__":

@@ -16,8 +16,12 @@ def psd_features_tensor(X, n_bins: int = 64, eps: float = 1e-6, *,
     """(N, C, T) → (N, C·n_bins) float32 tensor on ``device``: rFFT power /
     (T/2), log, then the frequency axis mean-pooled to ``n_bins`` (groups of
     ``bins // n_bins``, the rest dropped) when there are more bins, else
-    edge-padded to ``n_bins``; NaN and ±inf become 0."""
-    x = torch.as_tensor(np.asarray(X, dtype=np.float32), device=device)
+    edge-padded to ``n_bins``; NaN and ±inf become 0. X is numpy or a
+    tensor (which stays on the device when it is there)."""
+    if isinstance(X, torch.Tensor):
+        x = X.to(device=device, dtype=torch.float32)
+    else:
+        x = torch.as_tensor(np.asarray(X, dtype=np.float32), device=device)
     N, C, T = x.shape
     F = torch.fft.rfft(x, dim=2)
     P = (F.real ** 2 + F.imag ** 2) / (T / 2.0 + 1e-8)

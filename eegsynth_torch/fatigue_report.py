@@ -1,7 +1,8 @@
 """Mental-fatigue reports over real and synthetic NPZ sets: the CLI of
 ``scripts/fatigue_report.py`` with its five subcommands and their flags,
-plus ``--device``. It writes every CSV the JAX CLI writes (the same names,
-columns and row order) and draws no figures.
+plus ``--device``. It writes every CSV and figure the JAX CLI writes (the
+same names, columns and row order, the same figure contents), the figures
+drawn by the port's raster layer: no matplotlib is needed.
 
     python -m eegsynth_torch.fatigue_report bandpower|indices|paired \\
         --root <dir with real/ and synthetic/> --out <dir> [--device cpu]
@@ -12,17 +13,22 @@ columns and row order) and draws no figures.
         [--inverse-scale]
 
 - ``bandpower``: per NPZ, the channels' band powers of the epoch-mean Welch
-  PSD (``<stem>_bandpowers.csv``), and ``bandpower_summary.csv``;
+  PSD (``<stem>_bandpowers.csv`` and ``.png``), the mean PSD with its SEM
+  ribbon (``<stem>_PSD_mean.png``), and ``bandpower_summary.csv``;
 - ``indices``: band powers, TBR / TABR / ABR / θα per channel
   (``<stem>_indices_per_channel.csv``) and the workload and global indices
-  (``<stem>_indices_summary.csv``);
+  (``<stem>_indices_summary.csv``); figures ``<stem>_PSD_mean.png``,
+  ``_MF_TABR``, ``_TBR``, ``_ABR``, ``_ThetaAlpha``, ``_Alpha`` (region-grouped
+  bars) and ``_Workload_thetaF_over_alphaPO.png``;
 - ``ttest``: per posture, per-channel Welch t-tests of the Welch-TBR
-  matrices, RN vs RW and SN vs SW (``posture{p}_stats.csv`` with
+  matrices, RN vs RW and SN vs SW, the grouped 4-bar figure with stars
+  (``posture{p}_tbr_4group.png``; ``posture{p}_stats.csv`` with
   ``--export-csv``);
 - ``paired``: count-matched paired t-tests real vs synthetic per condition
   (``paired_ttests.csv``);
 - ``participants``: participant-paired TBR from the raw trial CSVs against
-  the synthetic runs (``participant_ttests.csv``).
+  the synthetic runs (``participant_ttests.csv``,
+  ``posture{p}_participant_tbr.png``).
 
 The spectra run on ``--device`` (default cuda) in float64; the t-tests on
 the host with scipy.stats.
@@ -68,6 +74,7 @@ def _write_bandpowers(base: Path, bp: dict, ch_names: list[str]) -> None:
 
 def cmd_bandpower(args):
     from eegsynth_torch.analysis.bandpower import band_powers, compute_psd_per_channel
+    from eegsynth_torch.analysis.plots import bandpower_bar_plot, psd_mean_plot
 
     out = Path(args.out)
     summary = []
@@ -75,9 +82,14 @@ def cmd_bandpower(args):
         X, fs, ch_names = _load(fp)
         od = out / subset
         od.mkdir(parents=True, exist_ok=True)
-        f, psd_mean, _ = compute_psd_per_channel(X, fs, device=args.device)
+        f, psd_mean, psd_sem = compute_psd_per_channel(X, fs, device=args.device)
         bp = band_powers(f, psd_mean)
-        _write_bandpowers(od / fp.stem, bp, ch_names)
+        base = od / fp.stem
+        _write_bandpowers(base, bp, ch_names)
+        psd_mean_plot(f, psd_mean, psd_sem, f"{subset} | {fp.name} | Mean PSD",
+                      f"{base}_PSD_mean.png")
+        bandpower_bar_plot(bp, ch_names, f"{subset} | {fp.name} | Band powers",
+                           f"{base}_bandpowers.png")
         summary.append({"subset": subset, "file": fp.name, "fs": fs,
                         "n_epochs": X.shape[0],
                         **{f"mean_{b}": float(np.mean(v)) for b, v in bp.items()}})
@@ -94,13 +106,14 @@ def cmd_indices(args):
     from eegsynth_torch.analysis.fatigue import (
         fatigue_indices, global_indices, workload_ratio,
     )
+    from eegsynth_torch.analysis.plots import grouped_bar_plot, psd_mean_plot, scalar_bar
 
     out = Path(args.out)
     for subset, fp in _iter_npzs(args.root):
         X, fs, ch_names = _load(fp)
         od = out / subset
         od.mkdir(parents=True, exist_ok=True)
-        f, psd_mean, _ = compute_psd_per_channel(X, fs, device=args.device)
+        f, psd_mean, psd_sem = compute_psd_per_channel(X, fs, device=args.device)
         bp = band_powers(f, psd_mean)
         idx = fatigue_indices(bp)
         wl = workload_ratio(bp, ch_names)
@@ -118,6 +131,21 @@ def cmd_indices(args):
             w = csv.DictWriter(fh, fieldnames=list(summary.keys()))
             w.writeheader()
             w.writerow(summary)
+
+        name = f"{subset.capitalize()} | {fp.name}"
+        psd_mean_plot(f, psd_mean, psd_sem, f"{name} | Mean PSD", f"{base}_PSD_mean.png")
+        for key, label, what, suffix in (
+                ("TABR ((Theta+Alpha)/Beta)", "TABR ((Theta+Alpha)/Beta)",
+                 "Mental Fatigue (TABR)", "MF_TABR"),
+                ("TBR (Theta/Beta)", "TBR (Theta/Beta)", "TBR", "TBR"),
+                ("ABR (Alpha/Beta)", "ABR (Alpha/Beta)", "ABR", "ABR"),
+                ("Theta/Alpha", "Theta/Alpha", "Theta/Alpha", "ThetaAlpha")):
+            grouped_bar_plot(ch_names, idx[key], label, f"{name} | {what}",
+                             f"{base}_{suffix}.png")
+        grouped_bar_plot(ch_names, bp["Alpha"], "Alpha Power (integrated PSD)",
+                         f"{name} | Alpha power (context)", f"{base}_Alpha.png")
+        scalar_bar(wl, "θf/αp", f"{name} | Workload (Frontal θ / ParOcc α)",
+                   f"{base}_Workload_thetaF_over_alphaPO.png")
         print(f"[indices] {subset}/{fp.name} workload={wl:.4f}")
 
 
@@ -143,9 +171,10 @@ def cmd_ttest(args):
         if ch_names is None:
             continue
         export = (out / f"posture{posture}_stats.csv") if args.export_csv else None
-        four_group_report(groups, ch_names, posture, scaling=args.scaling,
-                          export_csv=export)
-        print(f"[ttest] posture {posture} → {export or 'no CSV (no --export-csv)'}")
+        four_group_report(groups, ch_names, posture,
+                          out / f"posture{posture}_tbr_4group.png",
+                          scaling=args.scaling, export_csv=export)
+        print(f"[ttest] posture {posture} → {out}/posture{posture}_tbr_4group.png")
 
 
 def cmd_paired(args):
@@ -181,6 +210,36 @@ def cmd_paired(args):
             w.writerows(rows)
 
 
+def _participant_figure(p: int, bars, r_pvals, s_pvals, n_paired: int, path) -> None:
+    """Grouped 4-bar TBR figure of one posture (RN, RW, SN, SW), SD error
+    bars, the stars of the participant-paired tests."""
+    from eegsynth_torch import EPOC_CHANNELS
+    from eegsynth_torch.analysis.ttests import sig_stars
+    from eegsynth_torch.viz import raster
+
+    C = len(EPOC_CHANNELS)
+    x = np.arange(C)
+    width = 0.2
+    fig, ax = raster.subplots(figsize=(14, 6))
+    for gi, (g, mu, sd) in enumerate(bars):
+        ax.bar(x + (gi - 1.5) * width, np.nan_to_num(mu), width, yerr=np.nan_to_num(sd),
+               capsize=2, label=g)
+    finite = [np.nanmax(mu) for _, mu, _ in bars if np.isfinite(mu).any()]
+    ymax = max(finite) if finite else 1.0
+    for ci in range(C):
+        sr, ss = sig_stars(r_pvals[ci]), sig_stars(s_pvals[ci])
+        if sr:
+            ax.text(ci - width, ymax * 1.02, sr, ha="center", fontsize=9)
+        if ss:
+            ax.text(ci + width, ymax * 1.02, ss, ha="center", fontsize=9, color="C3")
+    ax.set_xticks(x, EPOC_CHANNELS, rotation=45, ha="right")
+    ax.set_ylabel("TBR (Theta/Beta)")
+    ax.set_title(f"Posture {p}: participant-paired TBR (paired n={n_paired})")
+    ax.legend()
+    fig.tight_layout()
+    fig.savefig(path, dpi=200)
+
+
 def cmd_participants(args):
     from eegsynth_torch import EPOC_CHANNELS
     from eegsynth_torch.analysis.participant_fatigue import (
@@ -190,10 +249,10 @@ def cmd_participants(args):
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     per_part = collect_real(Path(args.data_root), device=args.device)
-    r_means, _, r_pvals, counts = aggregate_real(per_part)
-    s_means, _, s_pvals = aggregate_fake(args.synth_dir, args.real_dir,
-                                         inverse_scale=args.inverse_scale,
-                                         real_counts=counts, device=args.device)
+    r_means, r_sds, r_pvals, counts = aggregate_real(per_part)
+    s_means, s_sds, s_pvals = aggregate_fake(args.synth_dir, args.real_dir,
+                                             inverse_scale=args.inverse_scale,
+                                             real_counts=counts, device=args.device)
     rows = []
     for p in range(1, 10):
         # a posture counts if either condition has finite means on either side
@@ -203,6 +262,12 @@ def cmd_participants(args):
                        for c in ("no_exo", "with_exo"))
         if not (have_real or have_syn):
             continue
+        bars = (("RN", r_means[p]["no_exo"], r_sds[p]["no_exo"]),
+                ("RW", r_means[p]["with_exo"], r_sds[p]["with_exo"]),
+                ("SN", s_means[p]["no_exo"], s_sds[p]["no_exo"]),
+                ("SW", s_means[p]["with_exo"], s_sds[p]["with_exo"]))
+        _participant_figure(p, bars, r_pvals[p], s_pvals[p], counts[p]["paired"],
+                            out / f"posture{p}_participant_tbr.png")
         for ci, ch in enumerate(EPOC_CHANNELS):
             rows.append({"posture": p, "channel": ch,
                          "real_no_exo": r_means[p]["no_exo"][ci],
@@ -222,8 +287,8 @@ def cmd_participants(args):
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
-        description="Mental-fatigue reports (CSVs only; this port draws no "
-                    "figures yet).",
+        description="Mental-fatigue reports: the CSVs and figures of "
+                    "scripts/fatigue_report.py.",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("participants", help="participant-paired TBR from raw CSVs")

@@ -202,7 +202,8 @@ def test_four_group_report_matches_jax(scaling, tmp_path, monkeypatch):
     names = list(reversed(ttt.ORDERED_CH))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        ours = ttt.four_group_report(g, names, 3, scaling=scaling,
+        ours = ttt.four_group_report(g, names, 3, tmp_path / "ours.png",
+                                     scaling=scaling,
                                      export_csv=tmp_path / "ours.csv")
         ref = jtt.four_group_report(g, names, 3, tmp_path / "fig.png", scaling=scaling,
                                     export_csv=tmp_path / "ref.csv")
@@ -214,6 +215,7 @@ def test_four_group_report_matches_jax(scaling, tmp_path, monkeypatch):
         np.testing.assert_allclose(ours["means"][code], ref["means"][code], rtol=1e-12)
     _hold_csv(_read(tmp_path / "ours.csv"), _read(tmp_path / "ref.csv"))
     assert _read(tmp_path / "ours.csv")[1][0] == "AF3"
+    assert (tmp_path / "ours.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
 
 @pytest.mark.parametrize("shape", [(9, 768, 14), (4, 300, 3), (2, 3, 5)])

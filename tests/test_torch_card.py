@@ -11,8 +11,9 @@ generator against the CPU), bfloat16 synthesis against the CPU, the
 CGAN eval's metric functions against the CPU, a weight sweep's stacked GAN
 step against the CPU, a posture-stack member against its lone step, a
 remat transformer step against the plain one, the IIR filter kernel against
-its plain version, and preprocessing and the fatigue spectra against the
-CPU.
+its plain version, preprocessing and the fatigue spectra against the
+CPU, and the figures' PCA, t-SNE, spectrogram and resampling against the
+CPU and a figure CLI on the card.
 
 Every test skips without a card: the kernels have no CPU mode, and a
 test of the card's route has nothing to compare without one. This file
@@ -49,6 +50,7 @@ from eegsynth_torch.train import timegan as ttrain
 from eegsynth_torch.train.optim import make_gan_opts
 from eegsynth_torch.train.timegan import synthesize_from_noise
 from eegsynth_torch.tree import tree_leaves, tree_map
+from eegsynth_torch.viz import embed
 
 pytestmark = pytest.mark.cuda
 
@@ -1104,3 +1106,55 @@ def test_fatigue_spectra_on_the_card_match_cpu(cuda_device):
         got = fn(X.astype(np.float32), 128.0, device=cuda_device)
         ref = fn(X.astype(np.float32), 128.0, device="cpu")
         np.testing.assert_allclose(got, ref, rtol=1e-10, atol=0)
+
+
+def _figure_rows(n, dims, seed=0):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0, 4.0, (3, dims))
+    return np.concatenate([c + rng.normal(size=(n // 3, dims)) for c in centres])
+
+
+@pytest.mark.parametrize("shape,k", [((600, 10752), 2), ((300, 896), 50), ((900, 50), 2)])
+def test_pca_on_the_card_matches_cpu(cuda_device, shape, k):
+    X = torch.as_tensor(_figure_rows(*shape))
+    got = embed.pca(X.to(cuda_device), k).cpu().numpy()
+    want = embed.pca(X, k).numpy()
+    scale = np.abs(want).max(axis=0)
+    assert (np.abs(got - want).max(axis=0) <= 1e-6 * scale).all()
+
+
+def test_tsne_on_the_card_matches_cpu(cuda_device):
+    X = embed.pca(torch.as_tensor(_figure_rows(600, 200, seed=1)), 50)
+    card = embed.tsne(X.to(cuda_device), perplexity=30.0)
+    host = embed.tsne(X, perplexity=30.0)
+    assert torch.equal(card.embedding, embed.tsne(X.to(cuda_device), 30.0).embedding)
+    assert abs(card.kl_divergence - host.kl_divergence) <= 0.05 * host.kl_divergence
+    tw = [embed.trustworthiness(X, r.embedding.cpu(), 10) for r in (card, host)]
+    assert abs(tw[0] - tw[1]) <= 0.02
+
+
+def test_figure_spectra_on_the_card_match_cpu(cuda_device):
+    from eegsynth_torch.ops.spectral import resample, spectrogram
+    x = torch.as_tensor(np.random.default_rng(2).normal(size=7734))
+    for a, b in zip(spectrogram(x.to(cuda_device), 128.0, 256), spectrogram(x, 128.0, 256)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-9,
+                                   atol=1e-12 * float(b.abs().max()))
+    np.testing.assert_allclose(resample(x.to(cuda_device), 3867).cpu().numpy(),
+                               resample(x, 3867).numpy(), rtol=0, atol=1e-12)
+
+
+def test_visualization_runs_on_the_card(cuda_device, tmp_path):
+    from eegsynth_torch.visualization import main as viz_cli
+    rng = np.random.default_rng(3)
+    for p, cond in ((1, "no_exo"), (2, "with_exo")):
+        (tmp_path / "runs" / f"posture{p}_{cond}").mkdir(parents=True)
+        (tmp_path / "real").mkdir(exist_ok=True)
+        np.savez(tmp_path / "real" / f"posture{p}_{cond}.npz",
+                 X=rng.uniform(0, 1, (40, 768, 14)).astype(np.float32))
+        np.savez(tmp_path / "runs" / f"posture{p}_{cond}" / "synthetic.npz",
+                 X=rng.uniform(0, 1, (40, 768, 14)).astype(np.float32))
+    embed.reset_stats()
+    viz_cli(["--real_dir", str(tmp_path / "real"), "--synth_dir", str(tmp_path / "runs"),
+             "--out", str(tmp_path / "out"), "--zooms"])
+    assert embed.STATS["tsne_calls"] == 3 and embed.STATS["pca_calls"] == 1 + 2 * 2 + 1
+    assert len(list((tmp_path / "out").glob("*.png"))) == 2 + 4

@@ -244,7 +244,7 @@ def test_condition_cli_matches_direct_calls(cgan_runs):
                           "--samples-per-posture", "5", "--seed", "7",
                           "--device", "cpu"])
     assert set(secs["no_exo"]) == {"generation", "discriminative", "predictive",
-                                   "statistics"}
+                                   "statistics", "figures"}
     np.random.seed(7)
     Xr, yr, _ = load_condition_dataset(root / "data", "no_exo")
     keep = []
@@ -259,7 +259,7 @@ def test_condition_cli_matches_direct_calls(cgan_runs):
     Xg = np.concatenate([_generate(path, 9, "v1", gen, 5, p) for p in range(9)])
     yg = np.repeat(np.arange(1, 10), 5)
     assert Xg.shape == (45, 14, 768) and len(Xr) == 45
-    teval.evaluate_condition(Xr, yr, Xg, yg, root / "direct1", 7, device="cpu")
+    teval.evaluate_condition(Xr, yr, Xg, yg, root / "direct1", seed=7, device="cpu")
     _same_csvs(root / "e1" / "no_exo", root / "direct1")
     assert [r[0] for r in _read(root / "e1" / "no_exo" / "metrics_stats.csv")] == \
         ["level", "global"]

@@ -112,7 +112,8 @@ def _both_evals(monkeypatch, real_dir, synth_dir, tmp_path, by_condition):
                else "metrics_per_posture.csv")
     lead = ["posture", "condition"] if by_condition else ["posture"]
     _assert_csvs_agree(tmp_path / "port", tmp_path / "jax", per_csv, lead)
-    assert set(got["seconds"]) == {"discriminative", "predictive", "statistics", "csv"}
+    assert set(got["seconds"]) == {"discriminative", "predictive", "statistics", "csv",
+                                   "figures"}
     return got, want
 
 

@@ -3,8 +3,9 @@ each subcommand run in process over the same inputs (two postures of
 buckets that the port preprocessed from a synthetic raw tree, count-matched
 synthetic windows, synthetic runs), and every CSV the JAX CLI writes compared
 cell by cell: the same files, header and row order, strings equal, numbers
-within 1e-9 relative (1e-12 absolute). The JAX CLI also draws figures; its
-figure calls are stubbed out here, since the port draws none."""
+within 1e-9 relative (1e-12 absolute). The JAX CLI's figure calls are
+stubbed out here and record the paths they would write; the port must
+write the same PNGs."""
 
 import csv
 import importlib.util
@@ -24,19 +25,26 @@ REPO = Path(__file__).resolve().parent.parent
 RTOL, ATOL = 1e-9, 1e-12
 
 
-def _jax_cli(argv, monkeypatch):
+def _jax_cli(argv, monkeypatch) -> list[Path]:
+    """Run the JAX CLI with its figures stubbed (recorded, not laid out or
+    drawn); returns the PNG paths it would have written."""
+    import matplotlib.figure
     import matplotlib.pyplot as plt
 
     import eegsynth.analysis.plots as plots
+    pngs = []
     for name in ("grouped_bar_plot", "scalar_bar", "psd_mean_plot", "bandpower_bar_plot"):
-        monkeypatch.setattr(plots, name, lambda *a, **k: None)
-    monkeypatch.setattr(plt, "savefig", lambda *a, **k: None)
+        monkeypatch.setattr(plots, name, lambda *a, **k: pngs.append(Path(a[-1])))
+    monkeypatch.setattr(plt, "savefig", lambda path, *a, **k: pngs.append(Path(path)))
+    monkeypatch.setattr(matplotlib.figure.Figure, "tight_layout", lambda self, *a, **k: None)
     spec = importlib.util.spec_from_file_location(
         "jax_fatigue_report", REPO / "scripts" / "fatigue_report.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     monkeypatch.setattr(sys, "argv", ["fatigue_report.py", *argv])
     mod.main()
+    plt.close("all")
+    return pngs
 
 
 @pytest.fixture(scope="module")
@@ -86,10 +94,11 @@ def _hold_csv(ours: Path, ref: Path) -> int:
     return len(a)
 
 
-def _hold_trees(ours: Path, ref: Path) -> list[str]:
+def _hold_trees(ours: Path, ref: Path, ref_pngs: list[Path]) -> list[str]:
     ref_csvs = sorted(p.relative_to(ref) for p in ref.rglob("*.csv"))
     assert sorted(p.relative_to(ours) for p in ours.rglob("*.csv")) == ref_csvs
-    assert not list(ours.rglob("*.png"))
+    assert sorted(p.relative_to(ours) for p in ours.rglob("*.png")) == \
+        sorted(p.relative_to(ref) for p in ref_pngs)
     for rel in ref_csvs:
         _hold_csv(ours / rel, ref / rel)
     return [str(r) for r in ref_csvs]
@@ -102,8 +111,8 @@ def _hold_trees(ours: Path, ref: Path) -> list[str]:
 def test_subcommand_csvs_equal_jax(argv, tree, tmp_path, monkeypatch):
     root = ["--root", str(tree / "root")]
     fatigue_cli([*argv, *root, "--out", str(tmp_path / "ours"), "--device", "cpu"])
-    _jax_cli([*argv, *root, "--out", str(tmp_path / "ref")], monkeypatch)
-    csvs = _hold_trees(tmp_path / "ours", tmp_path / "ref")
+    pngs = _jax_cli([*argv, *root, "--out", str(tmp_path / "ref")], monkeypatch)
+    csvs = _hold_trees(tmp_path / "ours", tmp_path / "ref", pngs)
     want = {"bandpower": 9, "indices": 24, "paired": 1, "ttest": 2}[argv[0]]
     assert len(csvs) == want, csvs
 
@@ -114,8 +123,8 @@ def test_participants_csv_equals_jax(inverse, tree, tmp_path, monkeypatch):
             str(tree / "runs"), "--real-dir", str(tree / "root" / "real"),
             *(["--inverse-scale"] if inverse else [])]
     fatigue_cli([*argv, "--out", str(tmp_path / "ours"), "--device", "cpu"])
-    _jax_cli([*argv, "--out", str(tmp_path / "ref")], monkeypatch)
-    assert _hold_trees(tmp_path / "ours", tmp_path / "ref") == ["participant_ttests.csv"]
+    pngs = _jax_cli([*argv, "--out", str(tmp_path / "ref")], monkeypatch)
+    assert _hold_trees(tmp_path / "ours", tmp_path / "ref", pngs) == ["participant_ttests.csv"]
     rows = _read(tmp_path / "ours" / "participant_ttests.csv")
     assert len(rows) == 1 + 2 * 14 and rows[1][-1] == "3"
 

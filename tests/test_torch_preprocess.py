@@ -244,4 +244,4 @@ assert not bad, bad
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          timeout=120, capture_output=True, text=True).stdout
-    assert "--dry_run" in out and "--device" in out and "draws no figures" in out
+    assert "--dry_run" in out and "--device" in out and "CSVs and figures" in out
