@@ -3,9 +3,11 @@
 synthesis serving, multi-bucket TimeGAN training and the eval of what it
 synthesized, bf16 and long-horizon synthesis, sequential TimeGAN training
 through the CLI, the TimeGAN weight sweep, tuning, controls and
---profile_dir, CGAN training, serving and eval, transformer and conv,
-with the posture stack and the CGAN weight sweep, preprocessing of raw
-CSVs and the mental-fatigue reports, and the figures.
+--profile_dir, a TimeGAN past h_dim 128, the reference-checkpoint
+converter, the bench tools, CGAN training, serving and eval, transformer
+and conv, with the posture stack and the CGAN weight sweep, preprocessing
+of raw CSVs and the mental-fatigue reports, the figures, and the one-command
+pipeline.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
@@ -48,7 +50,10 @@ failure is swallowed):
              filter kernel (no Pallas kernel: the JAX package's lax.scan) at
              orders 2 and 8, float64 and float32, over a 60 s trial against
              its plain version and over an hour against scipy's lfilter, with
-             its step-chain floor;
+             its step-chain floor; K1's wide route (H past 128, forward and
+             backward) against its plain versions at H 129, 256 and 512 (nb
+             2, odd B and T) and against cuDNN's GRU forward and backward at
+             (1, 768, 64, 256) and (1, 768, 64, 512);
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -105,6 +110,21 @@ failure is swallowed):
              bucket) and --parallel_buckets (two), one traced GAN step
              each: the Chrome trace parses, and the hand kernels it holds
              (events, device time) against the launches;
+5g. timegan-wide — a TimeGAN at x14/z64/h256 through train/timegan.py's
+             step functions: one AE and one SUP step, 2 GAN steps at B 16,
+             T 768, synthesize(); the wide K1 forward and backward launched,
+             no K2; one GAN step at B 4, T 96 against the CPU;
+5h. convert — ``python -m eegsynth_torch.convert_torch_ckpt``: a
+             reference-shaped TimeGAN checkpoint and conv generator made in
+             torch, converted and served over HTTP (the TimeGAN equal to the
+             port's model loaded from the same state_dict, the generator to
+             the reference forward), generate_long_synth on the converted
+             run, --reverse bit for bit;
+5i. bench-tools — ``tools.bench_synthesis`` (--parity at n 256 x 8192,
+             one row of each model), ``tools.bench_serve`` (4 clients and the
+             hung client for 5 s against the server, 0 errors),
+             ``tools.bench_kernels`` (H 56, 128, 256, 512, forward and
+             backward);
 6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
              heads 4, patch 8, batch 64) on 9 random posture buckets for 2
              epochs with flash attention forced; artifacts, finite
@@ -173,6 +193,11 @@ failure is swallowed):
              iteration) and drawing plus deflate. ``visualization_cgan`` runs
              inside [cgan-conv] on its v2 generator, the CGAN eval's and the
              TimeGAN eval's figures inside [cgan-eval] and [eval].
+9. pipeline — ``python -m eegsynth_torch.pipeline`` from a raw tree (3
+             participants x 2 postures x 2 conditions of 30 s): the six
+             stages as subprocesses of the port's CLIs on the card, every
+             manifest status ok, a second call skipping all six;
+             ``python -m eegsynth_torch.check_shape`` on its files.
 
 The last three lines are a JSON object listing each kernel (its launches in
 the main paths' runs, its error against the plain version, its time, the
@@ -190,6 +215,7 @@ import dataclasses
 import http.client
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -205,7 +231,11 @@ import numpy as np
 import torch
 
 from eegsynth_torch import EPOC_CHANNELS, _build
-from eegsynth_torch.convert import from_jax_params, to_jax_params, tree_to_numpy
+from eegsynth_torch.check_shape import main as check_shape_cli
+from eegsynth_torch.convert import (
+    from_jax_params, to_jax_params, tree_to_numpy, unstack_params,
+)
+from eegsynth_torch.convert_torch_ckpt import main as convert_cli
 from eegsynth_torch.data.datasets import load_condition_dataset
 from eegsynth_torch.data.filters import design_filters
 from eegsynth_torch.eval import cgan_eval
@@ -231,7 +261,8 @@ from eegsynth_torch.nn.attention import (
 )
 from eegsynth_torch.nn.gru_sequence import (
     forward_tile, gru_sequence, gru_sequence_bwd, gru_sequence_bwd_recurrence,
-    gru_sequence_bwd_reference, gru_sequence_reference,
+    gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference,
+    gru_sequence_wide, wide_tile,
 )
 from eegsynth_torch.nn.layers import xavier_uniform
 from eegsynth_torch.nn.multigru import (
@@ -239,6 +270,7 @@ from eegsynth_torch.nn.multigru import (
 )
 from eegsynth_torch.nn.precision import cast_floating
 from eegsynth_torch.ops.filtering import lfilter, lfilter_reference, lfilter_zi
+from eegsynth_torch.pipeline import main as pipeline_cli
 from eegsynth_torch.preprocess import main as preprocess_cli
 from eegsynth_torch.preprocessing_plots import main as preprocessing_plots_cli
 from eegsynth_torch.serve import ModelRegistry, make_server
@@ -247,16 +279,17 @@ from eegsynth_torch.train import cgan_multi, cgan_sweep
 from eegsynth_torch.train.cgan_posture import main as cgan_posture_cli
 from eegsynth_torch.train.cgan_sweep import main as cgan_sweep_cli
 from eegsynth_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from eegsynth_torch.train.optim import make_gan_opts
+from eegsynth_torch.train.optim import Optimizer, make_gan_opts
 from eegsynth_torch.train.timegan import (
     CONFIG_KEYS, GEN_NETS, LOG_COLUMNS, TimeGANHParams, draw_gan, draw_gan_masks,
-    gan_step, gather_batch, synthesize, synthesize_from_noise,
+    gan_step, gather_batch, pre_phase_step, synthesize, synthesize_from_noise,
 )
 from eegsynth_torch.train.timegan import main as timegan_cli
 from eegsynth_torch.train.timegan_multi import train_all_buckets
 from eegsynth_torch.train.timegan_sweep import main as timegan_sweep_cli
 from eegsynth_torch.train.timegan_sweep import timegan_weight_matrix
 from eegsynth_torch.tune_bucket_weights import main as tune_cli
+from eegsynth_torch.tools import bench_kernels, bench_serve, bench_synthesis
 from eegsynth_torch.tools.raw_tree import write_raw_tree
 from eegsynth_torch.tree import tree_leaves, tree_map
 from eegsynth_torch.visualization import main as visualization_cli
@@ -299,6 +332,13 @@ K1_INSTANCES = ("KL 16, S 1, H <= 16", "KL 16, S 2, H <= 32", "KL 16, S 4, H <= 
 BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128),
               *(shape[:4] for shape in EVAL_SHAPES), *SEQ_SHAPES)
 BWD_CUDNN_SHAPE = (1, 768, 63, 56)
+# K1's wide route (gru_seq_wide.cu, H past 128): the first width past the
+# register kernels' cap, H 256 and 512 (bench_kernels' sweep) at nb 2 with
+# odd T and B, against the plain versions; at one bucket of the sequential
+# trainer's B 64 and T 768, H 256 (the headline: the TimeGAN of
+# [timegan-wide]) and 512, against cuDNN's GRU forward and backward in turns
+WIDE_K1_SHAPES = ((2, 301, 37, 129), (2, 303, 33, 256), (2, 151, 37, 512))
+WIDE_K1_CUDNN_SHAPES = ((1, 768, 64, 256), (1, 768, 64, 512))
 # K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims (the headline), and
 # adaptive_dims' T > 800 dims z36/h72, 20 channels' z40/h80, the widest
 # width z64/h128, a ragged narrow shape at z16/h32, and the sequential
@@ -482,6 +522,35 @@ CSV_RTOL, CSV_ATOL = 1e-9, 1e-12
 FIG_WINDOWS, FIG_TSNE_MAX = 200, 6000
 FIG_PCA_ROWS, FIG_PCA_RTOL = 1000, 1e-6
 FIG_TSNE_ROWS, FIG_TSNE_KL_RTOL, FIG_TSNE_TW_TOL = 600, 0.05, 0.02
+
+# [timegan-wide]: a TimeGAN at x14/z64/h256 (a TimeGANConfig the JAX package
+# builds; its generator and supervisor recurrences run K1's wide route, the
+# embedder's and recovery's at H 64 the register kernels) on one random
+# bucket: one AE and one SUP step, TG_WIDE_GAN_STEPS GAN steps at B
+# TG_WIDE_BATCH, T 768, then synthesis; one GAN step at B 4, T
+# TG_WIDE_CHECK_T on the card against the CPU (the step tolerances)
+TG_WIDE_DIMS = (14, 64, 256)
+TG_WIDE_WINDOWS, TG_WIDE_BATCH, TG_WIDE_GAN_STEPS, TG_WIDE_CHECK_T = 32, 16, 2, 96
+# [convert]: a reference-shaped TimeGAN checkpoint (x14/z28/h56) and conv
+# generator (9 classes, the legacy key names) made in torch, converted,
+# served; the served conv generator against a functional torch version of
+# the reference's forward on the card (float32 convolutions in another
+# order: CGAN_SERVE_TOL)
+CONVERT_N, CONVERT_LEN = 64, 1536
+# [pipeline]: every stage from a raw tree (participants x 2 postures x 2
+# conditions of PIPE_SECONDS), tiny depth: 1 AE, 1 SUP epoch, 2 GAN steps
+PIPE_PARTICIPANTS, PIPE_POSTURES, PIPE_SECONDS = 3, (1, 2), 30.0
+PIPE_CONFIG = {"ae_epochs": 1, "sup_epochs": 1, "gan_steps": 2, "chunk": 2,
+               "batch_size": 8}
+# [bench-tools]: bench_synthesis' parity at the long horizon and one row of
+# each model at bench.py's batch; bench_serve's closed loop (4 clients, the
+# hung client) for BENCH_SERVE_SECONDS; bench_kernels' default sweep (H 56,
+# 128, 256, 512 at B 64, T 768)
+BENCH_SYNTH_RUNS = (["--parity", "--batch", "256", "--T", "8192", "--time_chunk", "1024"],
+                    ["--batch", "2048", "--iters", "5"])
+BENCH_SERVE_SECONDS = 5.0
+BENCH_KERNEL_ARGS = ["--iters", "3"]
+BENCH_KERNEL_HS = [56, 128, 256, 512]
 
 
 def fail(msg: str) -> None:
@@ -674,6 +743,7 @@ def phase_kernels(smi: str) -> dict:
     # (tag, the kernel's name, or None where the check returns rows by name)
     for tag, name, check in (("K1 forward", "gru_sequence", _check_k1_fwd),
                              ("K1 backward", "gru_sequence_bwd", _check_k1_bwd),
+                             ("wide K1", None, _check_k1_wide),
                              ("K2", "multigru_disc_inputs", _check_k2),
                              ("K3", None, _check_k3), ("wide K3", None, _check_k3_wide),
                              ("IIR", "iir_filter", _check_iir)):
@@ -866,6 +936,85 @@ def _k1_bwd_vs_cudnn(smi: str, shape: tuple, seed: int) -> None:
     if not ok:
         fail(f"gru_sequence_bwd disagrees with its plain version at nb={nb} T={T} "
              f"B={B} H={H}: {errs}")
+
+
+def _check_k1_wide(smi: str) -> dict:
+    """K1's wide route, forward and backward (the whole call: the hp
+    product, the kernel, the dW product), at WIDE_K1_SHAPES against the
+    plain versions, then at WIDE_K1_CUDNN_SHAPES against the plain versions
+    and cuDNN's GRU (forward, and backward by autograd.grad) in turns. The
+    kernels line takes the first cuDNN shape."""
+    rows, worst = {}, [0.0, 0.0]
+    for i, (nb, T, B, H) in enumerate(WIDE_K1_SHAPES + WIDE_K1_CUDNN_SHAPES):
+        args = _gru_inputs(nb, T, B, H, 28, seed=40 + i, device="cuda")
+        with torch.no_grad():
+            before = (gru_sequence.launches, gru_sequence_bwd.launches,
+                      gru_sequence_wide.launches, gru_sequence_bwd_wide.launches)
+            ys = gru_sequence(*args)
+            d_ys = torch.randn(ys.shape, device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(i))
+            got = gru_sequence_bwd(*args, ys, d_ys)
+            torch.cuda.synchronize()
+            routes = [a - b for a, b in zip((gru_sequence.launches,
+                                             gru_sequence_bwd.launches,
+                                             gru_sequence_wide.launches,
+                                             gru_sequence_bwd_wide.launches), before)]
+            ref_ys = gru_sequence_reference(*args)
+            ref = gru_sequence_bwd_reference(*args, ys, d_ys)
+            err = (ys - ref_ys).abs().max().item()
+            errs, scale, ok = _bwd_errors(got, ref)
+            lib_ms = lib_bwd_ms = None
+            if nb == 1:
+                one = [a[0] for a in args]
+                cudnn = _cudnn_gru(*one)
+                lib_err = (cudnn() - ys[0]).abs().max().item()
+                ms, lib_ms = _turns_ms(lambda: gru_sequence(*args), cudnn, reps=5)
+            else:
+                ms = _time_ms(lambda: gru_sequence(*args), reps=5)
+                bwd_ms = _time_ms(lambda: gru_sequence_bwd(*args, ys, d_ys), reps=5)
+            plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS,
+                                warm=False)
+            plain_bwd_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
+                                    reps=PLAIN_REPS, warm=False)
+        if nb == 1:
+            cudnn_bwd, as_k1 = _cudnn_gru_bwd(*(a[0] for a in args), d_ys[0])
+            lib_bwd_err = _bwd_errors(as_k1(cudnn_bwd()), ref)[0]
+            with torch.no_grad():
+                bwd_ms, lib_bwd_ms = _turns_ms(lambda: gru_sequence_bwd(*args, ys, d_ys),
+                                               cudnn_bwd, reps=3)
+        tile = wide_tile(nb, B, H)
+        print(f"[kernel] gru_sequence_wide nb={nb} T={T} B={B} H={H}: max|diff| ys "
+              f"{err:.3e}, dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol {KERNEL_TOL:g}); dW "
+              f"{errs[1]:.3e} of {scale[1]:.3g}, db {errs[2]:.3e} of {scale[2]:.3g} (tol "
+              f"{KERNEL_TOL:g} relative); launches K1 fwd / bwd / wide fwd / wide bwd "
+              f"{routes}; forward {ms:.4f} ms (plain {plain_ms:.4f}), backward whole call "
+              f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}); tile {tile['rows']} rows x "
+              f"{tile['blocks']} tiles x {nb} buckets of {tile['threads']} threads, "
+              f"{tile['fwd_smem']} / {tile['bwd_smem']} B shared | {smi}", flush=True)
+        if nb == 1:
+            print(f"[kernel] gru_sequence_wide nb=1 T={T} B={B} H={H} vs cuDNN GRU: "
+                  f"forward {ms:.4f} against {lib_ms:.4f} ms (max|diff| {lib_err:.3e}), "
+                  f"backward {bwd_ms:.4f} against {lib_bwd_ms:.4f} ms (cuDNN dxp "
+                  f"{lib_bwd_err[0]:.3e}), in turns | {smi}", flush=True)
+        if routes != [0, 0, 1, 1]:
+            fail(f"the wide route at H={H} launched {routes} (K1 fwd, bwd, wide fwd, "
+                 "wide bwd), expected [0, 0, 1, 1]")
+        if not ok or not bool(torch.isfinite(ys).all()) or err > KERNEL_TOL:
+            fail(f"K1's wide route disagrees with its plain version at nb={nb} T={T} "
+                 f"B={B} H={H}: ys {err}, backward {errs}")
+        worst = [max(worst[0], err), max(worst[1], errs[0], errs[3])]
+        fwd_row = _row(ms, plain_ms, _bound(2 * nb * T * B * H * 3 * H, *args, ys), lib_ms)
+        bwd_row = _row(bwd_ms, plain_bwd_ms, _bound(3 * 2 * nb * T * B * H * 3 * H, *args,
+                                                   ys, d_ys, *got), lib_bwd_ms)
+        _roofline(f"gru_sequence_wide nb={nb} T={T} B={B} H={H}", fwd_row, smi,
+                  "cuDNN GRU" if nb == 1 else None)
+        _roofline(f"gru_sequence_bwd_wide nb={nb} T={T} B={B} H={H}", bwd_row, smi,
+                  "cuDNN GRU backward" if nb == 1 else None)
+        if (nb, T, B, H) == WIDE_K1_CUDNN_SHAPES[0]:
+            rows = {"gru_sequence_wide": fwd_row, "gru_sequence_bwd_wide": bwd_row}
+    rows["gru_sequence_wide"]["max_abs_err"] = worst[0]
+    rows["gru_sequence_bwd_wide"]["max_abs_err"] = worst[1]
+    return rows
 
 
 def _multigru_inputs(nb, T, B, dims, seed):
@@ -3852,6 +4001,377 @@ def _cgan_figures(smi: str, root: Path, device: str) -> None:
           f"checked | {smi}", flush=True)
 
 
+def _wide_counts() -> tuple:
+    """K1 forward, K1 backward, the wide forward, the wide backward, K2."""
+    return (gru_sequence.launches, gru_sequence_bwd.launches, gru_sequence_wide.launches,
+            gru_sequence_bwd_wide.launches, multigru_disc_inputs.launches)
+
+
+def _since(before: tuple) -> list:
+    return [a - b for a, b in zip(_wide_counts(), before)]
+
+
+def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
+    """A TimeGAN at x14/z64/h256 through train/timegan.py's step functions
+    on the card: one AE and one SUP step, TG_WIDE_GAN_STEPS GAN steps on a
+    random bucket of (TG_WIDE_WINDOWS, 768, 14), then synthesize() of 64
+    windows; the wide K1 forward and backward launched, no K2 (the D-step
+    inputs take the composed route past H 128), finite losses and windows;
+    then one GAN step at B 4, T TG_WIDE_CHECK_T on the card against the CPU.
+    Returns the launches of the training and synthesis run."""
+    x_dim, z_dim, h_dim = TG_WIDE_DIMS
+    cfg = TimeGANConfig(x_dim=x_dim, z_dim=z_dim, h_dim=h_dim)
+    params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(0)], device=device)
+    hp = TimeGANHParams(**_train_hparams(gan_steps=TG_WIDE_GAN_STEPS,
+                                         batch_size=TG_WIDE_BATCH))
+    B = TG_WIDE_BATCH
+    X = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (1, TG_WIDE_WINDOWS, SEQ_LEN, x_dim)).astype(np.float32)).to(device)
+    before = _wide_counts()
+    t0 = time.perf_counter()
+    losses = {}
+    for which in ("ae", "sup"):
+        opt = Optimizer(hp.lr_g, hp.grad_clip, hp.beta1, hp.beta2)
+        state = opt.init({"embedder": params["embedder"], "recovery": params["recovery"]}
+                         if which == "ae" else params["supervisor"])
+        x = gather_batch(X, torch.arange(B, device=device)[None])
+        params, state, loss = pre_phase_step(params, opt, state, x, which)
+        losses[which] = loss.item()
+    optD, optG = make_gan_opts(hp)
+    d_state = optD.init(params["discriminator"])
+    g_state = optG.init({k: params[k] for k in GEN_NETS})
+    gens = [torch.Generator(device=device).manual_seed(1)]
+    logs = []
+    for step in range(1, TG_WIDE_GAN_STEPS + 1):
+        draws = draw_gan(gens, torch.full((1,), float(TG_WIDE_WINDOWS), device=device), B,
+                         SEQ_LEN, z_dim, device=device)
+        params, d_state, g_state, step_logs = gan_step(
+            params, optD, d_state, optG, g_state, gather_batch(X, draws.idx), draws, step, hp)
+        logs.append(step_logs[0].tolist())
+    _sync(device)
+    train_s = time.perf_counter() - t0
+    model = from_jax_params(unstack_params(params, 0), device=device).eval()
+    t0 = time.perf_counter()
+    windows = synthesize(model, 64, SEQ_LEN,
+                         generator=torch.Generator(device=device).manual_seed(2))
+    synth_s = time.perf_counter() - t0
+    k1, k1_bwd, wide, wide_bwd, k2 = _since(before)
+    fmt = lambda row: ", ".join(f"{c}={v:.5f}" for c, v in zip(LOG_COLUMNS, row))  # noqa
+    print(f"[timegan-wide] x{x_dim}/z{z_dim}/h{h_dim}, B {B}, T {SEQ_LEN}: AE loss "
+          f"{losses['ae']:.6f}, SUP loss {losses['sup']:.6f}; GAN step {TG_WIDE_GAN_STEPS}: "
+          f"{fmt(logs[-1])}; AE + SUP + {TG_WIDE_GAN_STEPS} GAN steps {train_s:.2f} s, "
+          f"synthesize(64 x {SEQ_LEN}) {synth_s:.2f} s -> {windows.shape}; launches K1 "
+          f"forward {k1}, backward {k1_bwd}, wide forward {wide}, wide backward "
+          f"{wide_bwd}, K2 {k2} | {smi}", flush=True)
+    if not (np.isfinite(logs).all() and all(np.isfinite(v) for v in losses.values())):
+        fail(f"[timegan-wide] non-finite losses: {losses}, {logs}")
+    if windows.shape != (64, SEQ_LEN, x_dim) or not np.isfinite(windows).all():
+        fail(f"[timegan-wide] synthesize gave {windows.shape}, finite "
+             f"{np.isfinite(windows).all()}")
+    on_card = torch.device(device).type == "cuda"
+    if on_card and (wide < 1 or wide_bwd < 1 or k2 != 0):
+        fail(f"[timegan-wide] launches: wide forward {wide}, wide backward {wide_bwd}, "
+             f"K2 {k2}; expected both wide kernels and no K2")
+    _wide_step_check(smi, device)
+    return {"gru_sequence": k1, "gru_sequence_bwd": k1_bwd, "gru_sequence_wide": wide,
+            "gru_sequence_bwd_wide": wide_bwd}
+
+
+def _wide_step_check(smi: str, device: str, B: int = 4) -> None:
+    """One GAN step of the x14/z64/h256 TimeGAN at T TG_WIDE_CHECK_T on the
+    card against the CPU plain path, on the same parameters and draws: the
+    step check's tolerances on the logged values, parameters and Adam's
+    first moments."""
+    x_dim, z_dim, h_dim = TG_WIDE_DIMS
+    T = TG_WIDE_CHECK_T
+    cfg = TimeGANConfig(x_dim=x_dim, z_dim=z_dim, h_dim=h_dim)
+    params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(3)], device="cpu")
+    hp = TimeGANHParams(**_train_hparams(gan_steps=GAN_STEPS, batch_size=B))
+    optD, optG = make_gan_opts(hp)
+    X = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (1, 16, T, x_dim))
+                         .astype(np.float32))
+    draws = draw_gan([torch.Generator().manual_seed(3)], torch.full((1,), 16.0), B, T,
+                     z_dim, device="cpu")
+    x = gather_batch(X, draws.idx)
+
+    def step(dev):
+        p = tree_map(lambda t: t.to(dev), params)
+        d = type(draws)(**{k: tree_map(lambda t: t.to(dev), v)
+                           for k, v in vars(draws).items()})
+        return gan_step(p, optD, optD.init(p["discriminator"]), optG,
+                        optG.init({k: p[k] for k in GEN_NETS}), x.to(dev), d, 1, hp)
+
+    before = _wide_counts()
+    card = step(device)
+    _sync(device)
+    launched = _since(before)
+    host = step("cpu")
+    log_err = ((card[3].cpu() - host[3]).abs() / host[3].abs().clamp(min=1.0)).max().item()
+    p_err = max((a.cpu() - b).abs().max().item()
+                for a, b in zip(tree_leaves(card[0]), tree_leaves(host[0])))
+    mu_err = max(((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                 for i in (1, 2)
+                 for a, b in zip(tree_leaves(card[i].mu), tree_leaves(host[i].mu)))
+    print(f"[timegan-wide] one GAN step at B {B}, T {T}, card vs CPU: logged values "
+          f"{log_err:.3e} (tol {STEP_LOG_RTOL:g}), parameters {p_err:.3e} (tol "
+          f"{STEP_PARAM_ATOL:g}), Adam first moments {mu_err:.3e} (tol {STEP_MU_RTOL:g}); "
+          f"launches K1 fwd / bwd / wide fwd / wide bwd / K2 {launched} | {smi}", flush=True)
+    if log_err > STEP_LOG_RTOL or p_err > STEP_PARAM_ATOL or not mu_err <= STEP_MU_RTOL:
+        fail(f"[timegan-wide] the card's GAN step disagrees with the CPU: logs {log_err}, "
+             f"params {p_err}, mu {mu_err}")
+
+
+def _reference_generator_sd(num_classes: int, seed: int) -> dict:
+    """A reference conv generator's state_dict at full width, random, under
+    the older key names the reference loader renames (u<i>., out.,
+    .cbn.emb.), with nonzero BatchNorm statistics."""
+    g = torch.Generator().manual_seed(seed)
+    chans = (512, 256, 128, 64, 32, 16)
+    sd = {"proj.weight": 0.05 * torch.randn(512 * 24, 100 + num_classes, generator=g),
+          "proj.bias": 0.05 * torch.randn(512 * 24, generator=g)}
+    for i in range(1, 6):
+        ci, co = chans[i - 1], chans[i]
+        sd[f"u{i}.conv.weight"] = 0.05 * torch.randn(co, ci, 3, generator=g)
+        sd[f"u{i}.conv.bias"] = 0.05 * torch.randn(co, generator=g)
+        sd[f"u{i}.cbn.emb.weight"] = torch.cat(
+            [1 + 0.1 * torch.randn(num_classes, co, generator=g),
+             0.1 * torch.randn(num_classes, co, generator=g)], dim=1)
+        sd[f"u{i}.cbn.bn.running_mean"] = 0.1 * torch.randn(co, generator=g)
+        sd[f"u{i}.cbn.bn.running_var"] = 1 + 0.3 * torch.rand(co, generator=g)
+        sd[f"u{i}.cbn.bn.num_batches_tracked"] = torch.tensor(7)
+    sd["out.weight"] = 0.05 * torch.randn(14, 16, 3, generator=g)
+    sd["out.bias"] = 0.05 * torch.randn(14, generator=g)
+    return sd
+
+
+def _reference_generator_forward(sd: dict, z, labels, num_classes: int):
+    """The reference Generator's eval-mode forward, written out in torch
+    functions on its own state_dict (legacy names): Linear → five (nearest
+    x2, conv k3, affine-free BN on the running statistics, class scale and
+    shift, ReLU) → conv k3 → sigmoid. (B, 14, 768)."""
+    F = torch.nn.functional
+    h = F.linear(torch.cat([z, F.one_hot(labels, num_classes).float()], dim=1),
+                 sd["proj.weight"], sd["proj.bias"]).view(-1, 512, 24)
+    for i in range(1, 6):
+        h = F.interpolate(h, scale_factor=2, mode="nearest")
+        h = F.conv1d(h, sd[f"u{i}.conv.weight"], sd[f"u{i}.conv.bias"], padding=1)
+        h = F.batch_norm(h, sd[f"u{i}.cbn.bn.running_mean"],
+                         sd[f"u{i}.cbn.bn.running_var"], training=False)
+        gb = F.embedding(labels, sd[f"u{i}.cbn.emb.weight"])
+        nf = h.shape[1]
+        h = F.relu(gb[:, :nf, None] * h + gb[:, nf:, None])
+    return torch.sigmoid(F.conv1d(h, sd["out.weight"], sd["out.bias"], padding=1))
+
+
+def phase_convert(smi: str, root: Path, device: str = "cuda") -> int:
+    """``python -m eegsynth_torch.convert_torch_ckpt`` in this process: a
+    reference-shaped TimeGAN checkpoint (ckpt_best.pt and ckpt_latest.pt of
+    one run, x14/z28/h56) and a conv generator (CGAN_generator_no_exo_best.pth,
+    legacy key names) made in torch and converted; both served over HTTP on
+    the card. The served TimeGAN windows equal, bit for bit, those of the
+    port's TimeGAN loaded from the same state_dict; the served CGAN windows
+    the reference forward's on the same noise. generate_long_synth on the
+    converted run; then --reverse, whose files hold the original tensors
+    bit for bit. Returns K1's launches in the served and generated runs."""
+    run = "posture1_no_exo"
+    cfg = TimeGANConfig(x_dim=14, z_dim=28, h_dim=56)
+    g = torch.Generator().manual_seed(5)
+    sd = {k: (v + 0.05 * torch.randn(v.shape, generator=g) if "bias" in k else v)
+          for k, v in TimeGAN(cfg, generator=g, device="cpu").state_dict().items()}
+    ref, ref_cgan = root / "ref_runs", root / "ref_cgan"
+    (ref / run).mkdir(parents=True)
+    for i, name in enumerate(("ckpt_best.pt", "ckpt_latest.pt")):
+        torch.save({"step": 10 * (i + 1), "model": sd, "optG": {}, "optD": {},
+                    "meta": {"npz": f"{run}.npz", "z_dim": 28, "h_dim": 56}}, ref / run / name)
+    gen_sd = _reference_generator_sd(9, 6)
+    (ref_cgan / "no_exo").mkdir(parents=True)
+    torch.save(gen_sd, ref_cgan / "no_exo" / "CGAN_generator_no_exo_best.pth")
+    conv, conv_cgan = root / "converted", root / "converted_cgan"
+    t0 = time.perf_counter()
+    convert_cli(["--runs_dir", str(ref), "--out_dir", str(conv)])
+    convert_cli(["--family", "cgan", "--runs_dir", str(ref_cgan), "--out_dir", str(conv_cgan)])
+    convert_s = time.perf_counter() - t0
+
+    gru_sequence.launches = 0
+    reg = ModelRegistry(conv, None, True, device=device, cgan_root=conv_cgan)
+    srv = make_server(reg, "127.0.0.1", 0, SERVE_BATCH, TIME_CHUNK)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        X, wall = _post(srv.server_address, {"run": run, "n": CONVERT_N,
+                                             "seq_len": CONVERT_LEN, "seed": 3})
+        Xc, wall_c = _post(srv.server_address, {"model": "no_exo", "label": 4,
+                                                "n": CONVERT_N, "seed": 3}, "/synthesize_cgan")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    launches = gru_sequence.launches
+    direct = TimeGAN(cfg, generator=torch.Generator().manual_seed(99), device="cpu")
+    direct.load_state_dict(sd)
+    reg.models[run]["model"] = direct.to(device).eval()
+    X_direct = reg.synthesize(run, CONVERT_N, CONVERT_LEN, 3, False, SERVE_BATCH, TIME_CHUNK)
+    with torch.inference_mode():
+        gen = torch.Generator(device=device).manual_seed(3)
+        z = torch.randn((SERVE_BATCH, 100), generator=gen, device=device)
+        labels = torch.full((SERVE_BATCH,), 4, dtype=torch.long, device=device)
+        want_c = _reference_generator_forward({k: v.to(device) for k, v in gen_sd.items()},
+                                              z, labels, 9)[:CONVERT_N]
+    c_err = float(np.abs(Xc - want_c.cpu().numpy().transpose(0, 2, 1)).max())
+    print(f"[convert] converted 2 TimeGAN checkpoints and 1 conv generator in "
+          f"{convert_s:.2f} s; served {run} {X.shape} in {wall * 1e3:.1f} ms: equal to the "
+          f"port's TimeGAN loaded from the same state_dict: {np.array_equal(X, X_direct)}; "
+          f"served no_exo {Xc.shape} in {wall_c * 1e3:.1f} ms: max|diff| against the "
+          f"reference forward {c_err:.3e} (tol {CGAN_SERVE_TOL:g}); K1 launches {launches} "
+          f"| {smi}", flush=True)
+    if X.shape != (CONVERT_N, CONVERT_LEN, 14) or not np.array_equal(X, X_direct):
+        fail("[convert] the converted TimeGAN does not serve what the model loaded from "
+             "the same state_dict synthesizes")
+    if Xc.shape != (CONVERT_N, SEQ_LEN, 14) or not c_err <= CGAN_SERVE_TOL:
+        fail(f"[convert] the converted conv generator is off the reference forward: {c_err}")
+
+    before = gru_sequence.launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        generate_long_synth_cli(["--runs_dir", str(conv), "--real_dir", str(root / "none"),
+                                 "--gen_len", str(2 * SEQ_LEN), "--n", "8",
+                                 "--time_chunk", str(SEQ_LEN), "--device", device])
+    with np.load(conv / run / "synthetic_long.npz") as z_long:
+        long = z_long["X"]
+    launches += gru_sequence.launches - before
+    if long.shape != (8, 2 * SEQ_LEN, 14) or not np.isfinite(long).all():
+        fail(f"[convert] generate_long_synth on the converted run gave {long.shape}")
+
+    rev, rev_cgan = root / "reverse", root / "reverse_cgan"
+    convert_cli(["--reverse", "--runs_dir", str(conv), "--out_dir", str(rev),
+                 "--which", "latest"])
+    convert_cli(["--reverse", "--family", "cgan", "--runs_dir", str(conv_cgan),
+                 "--out_dir", str(rev_cgan)])
+    back = torch.load(rev / run / "ckpt_latest.pt", weights_only=True)
+    back_g = torch.load(rev_cgan / "no_exo" / "CGAN_generator_no_exo_best.pth",
+                        weights_only=True)
+    renamed = {k.replace("u", "up", 1) if re.match(r"u\d\.", k) else
+               "to_" + k if k.startswith("out.") else k: v for k, v in gen_sd.items()}
+    renamed = {k.replace(".cbn.emb.", ".cbn.embed."): v for k, v in renamed.items()}
+    same_tg = all(torch.equal(back["model"][k], v) for k, v in sd.items())
+    same_g = sorted(back_g) == sorted(renamed) and all(
+        torch.equal(back_g[k], v) for k, v in renamed.items() if "num_batches" not in k)
+    print(f"[convert] --reverse: ckpt_latest.pt step {back['step']}, {len(back['model'])} "
+          f"tensors, the original's bit for bit: {same_tg}; the generator's {len(back_g)} "
+          f"tensors bit for bit: {same_g}; generate_long_synth {long.shape}", flush=True)
+    if not (same_tg and same_g and back["step"] == 20):
+        fail("[convert] --reverse does not give back the original tensors")
+    return launches
+
+
+@contextlib.contextmanager
+def _stdout_to(path: Path, mode: str = "w"):
+    """This process's standard output, and its children's, into ``path``
+    (the stages' logs); on a failure inside, the log's tail is printed."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    try:
+        with open(path, mode) as f:
+            os.dup2(f.fileno(), 1)
+            try:
+                yield
+            finally:
+                sys.stdout.flush()
+                os.dup2(saved, 1)
+    except BaseException:
+        print("".join(path.read_text().splitlines(keepends=True)[-40:]), flush=True)
+        raise
+    finally:
+        os.close(saved)
+
+
+def phase_pipeline(smi: str, root: Path, device: str = "cuda") -> None:
+    """``python -m eegsynth_torch.pipeline`` in this process from a raw tree:
+    all six stages, each a subprocess of the port's CLI on ``device``, at
+    tiny depth (synthesis at the windows' own length, which the figures'
+    pairs need); every manifest status ok; a second call skips all six.
+    ``python -m eegsynth_torch.check_shape`` on a bucket and a synthetic
+    file of the run."""
+    raw, work = root / "pipe_raw", root / "pipe_work"
+    write_raw_tree(raw, participants=PIPE_PARTICIPANTS, postures=PIPE_POSTURES,
+                   seconds=PIPE_SECONDS)
+    cfg = root / "pipe_config.json"
+    cfg.write_text(json.dumps(PIPE_CONFIG))
+    args = ["--raw_root", str(raw), "--work_dir", str(work), "--config", str(cfg),
+            "--device", device, "--gen_len", str(SEQ_LEN), "--n", "8",
+            "--stage-arg", "viz:--tsne_perplexity=5"]
+    log = root / "pipeline.log"
+    t0 = time.perf_counter()
+    with _stdout_to(log):
+        pipeline_cli(args)
+    first_s = time.perf_counter() - t0
+    manifest = json.loads((work / "pipeline_manifest.json").read_text())
+    stages = {s: v["status"] for s, v in manifest["stages"].items()}
+    t0 = time.perf_counter()
+    with _stdout_to(log, "a"):
+        pipeline_cli(args)
+    again_s = time.perf_counter() - t0
+    rerun = {s: v["status"] for s, v in
+             json.loads((work / "pipeline_manifest.json").read_text())["stages"].items()}
+    print(f"[pipeline] {len(stages)} stages in {first_s:.2f} s: "
+          + ", ".join(f"{s} {v['status']} {v.get('seconds')} s"
+                      for s, v in manifest["stages"].items())
+          + f"; eval_global disc_acc {manifest.get('eval_global', {}).get('disc_acc')}; "
+          f"the second call {again_s:.2f} s: {rerun} | {smi}", flush=True)
+    order = ["preprocess", "train", "synth", "eval", "fatigue", "viz"]
+    if list(stages) != order or set(stages.values()) != {"ok"}:
+        fail(f"[pipeline] stages {stages}")
+    if list(rerun) != order or set(rerun.values()) != {"skipped"}:
+        fail(f"[pipeline] the second call did not skip every stage: {rerun}")
+    files = [work / "preprocessed" / "posture1_no_exo.npz",
+             work / "timegan_runs" / "posture1_no_exo" / "synthetic_long.npz"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check_shape_cli([str(f) for f in files])
+    lines = out.getvalue().splitlines()
+    print("[pipeline] check_shape: " + " | ".join(lines), flush=True)
+    if f"  X: shape=(8, {SEQ_LEN}, 14) dtype=float32" not in lines:
+        fail(f"[pipeline] check_shape printed {lines}")
+
+
+def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> int:
+    """The three bench tools through their CLIs in this process:
+    bench_synthesis --parity and one row of each model; bench_serve for
+    BENCH_SERVE_SECONDS with 4 clients and the hung client against the
+    port's server on two full-width TimeGAN runs, 0 errors; bench_kernels'
+    default sweep, forward and backward. Returns K1's launches in the served
+    run.""" 
+    for args in BENCH_SYNTH_RUNS:
+        bench_synthesis.main(args + ["--device", device])
+    runs, real = _write_runs(root / "bench_serve")
+    reg = ModelRegistry(runs, real, device=device)
+    srv = make_server(reg, "127.0.0.1", 0, SERVE_BATCH, TIME_CHUNK)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    gru_sequence.launches = 0
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):   # the hung client's traceback
+            out = bench_serve.main(["--port", str(srv.server_address[1]), "--clients", "4",
+                                    "--seconds", str(BENCH_SERVE_SECONDS), "--n", "64",
+                                    "--timegan-runs", "posture1_no_exo,posture2_with_exo"])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    launches = gru_sequence.launches
+    print(f"[bench-tools] bench_serve: {json.dumps(out)}; K1 launches {launches} | {smi}",
+          flush=True)
+    if out["errors"] != 0 or out["requests"] < 4:
+        fail(f"[bench-tools] bench_serve: {out}")
+    for extra in ([], ["--backward"]):
+        rows = bench_kernels.main(BENCH_KERNEL_ARGS + ["--device", device] + extra)
+        print(f"[bench-tools] bench_kernels{' --backward' if extra else ''}: "
+              f"{json.dumps(rows)} | {smi}", flush=True)
+        if [r["H"] for r in rows] != BENCH_KERNEL_HS:
+            fail(f"[bench-tools] bench_kernels rows {rows}")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -3880,6 +4400,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         sweep_launches = timed("timegan-sweep", phase_timegan_sweep, smi, Path(tmp))
         profile_launches = timed("profile-dir", phase_profile_dir, smi, Path(tmp))
+    tg_wide_launches = timed("timegan-wide", phase_timegan_wide, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        convert_launches = timed("convert", phase_convert, smi, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_launches = timed("bench-tools", phase_bench_tools, smi, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         wide_launches = timed("train-wide", phase_train, smi, Path(tmp),
                               n_buckets=WIDE_BUCKETS, channels=WIDE_CHANNELS,
@@ -3898,12 +4423,15 @@ def main() -> None:
         iir_launches = timed("preprocess", phase_preprocess, smi, Path(tmp))
         timed("fatigue", phase_fatigue, smi, Path(tmp))
         figure_launches = timed("figures", phase_figures, smi, Path(tmp))
+        timed("pipeline", phase_pipeline, smi, Path(tmp))
     runs = (train_launches, eval_launches, seq_launches, wide_launches,
-            sweep_launches, profile_launches)
+            sweep_launches, profile_launches, tg_wide_launches)
     launches = {**cgan_launches, **wide_attn_launches,
                 **{k: sum(r.get(k, 0) for r in runs)
-                   for k in ("gru_sequence", "gru_sequence_bwd", "multigru_disc_inputs")}}
-    launches["gru_sequence"] += serve_launches + synth_launches + figure_launches
+                   for k in ("gru_sequence", "gru_sequence_bwd", "gru_sequence_wide",
+                             "gru_sequence_bwd_wide", "multigru_disc_inputs")}}
+    launches["gru_sequence"] += (serve_launches + synth_launches + figure_launches
+                                 + convert_launches + bench_launches)
     launches["flash_forward"] = cgan_launches["flash_forward"] + cgan_serve_launches
     launches["iir_filter"] = iir_launches
     for k, n in launches.items():
@@ -3915,6 +4443,10 @@ def main() -> None:
                                 "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_bwd": ("eegsynth_torch/csrc/gru_seq.cu",
                                     "eegsynth/nn/pallas_gru.py:81"),
+               "gru_sequence_wide": ("eegsynth_torch/csrc/gru_seq_wide.cu",
+                                     "eegsynth/nn/pallas_gru.py:52"),
+               "gru_sequence_bwd_wide": ("eegsynth_torch/csrc/gru_seq_wide.cu",
+                                         "eegsynth/nn/pallas_gru.py:81"),
                "multigru_disc_inputs": ("eegsynth_torch/csrc/multigru.cu",
                                         "eegsynth/nn/pallas_multigru.py:156"),
                "flash_forward": ("eegsynth_torch/csrc/flash_attn_tc.cu",

@@ -108,6 +108,7 @@ def load_library() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             # pointers, then the int dimensions, then the stream
             for fn, n_ptr, n_int in (("gru_seq_fwd", 5, 4), ("gru_seq_bwd", 9, 4),
+                                     ("gru_seq_wide_fwd", 5, 4), ("gru_seq_wide_bwd", 9, 4),
                                      ("multigru_fwd", 16, 7), ("flash_fwd", 5, 3),
                                      ("flash_bwd_dq", 7, 3), ("flash_bwd_dkv", 9, 3),
                                      ("flash_fwd_wide", 5, 3), ("flash_bwd_dq_wide", 7, 3),
@@ -116,8 +117,9 @@ def load_library() -> ctypes.CDLL:
                 f = getattr(lib, fn)
                 f.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
                 f.restype = i32
-            lib.gru_seq_fwd_tile.argtypes = [i32] * 3 + [ptr]
-            lib.gru_seq_fwd_tile.restype = i32
+            for fn in ("gru_seq_fwd_tile", "gru_seq_wide_tile"):
+                getattr(lib, fn).argtypes = [i32] * 3 + [ptr]
+                getattr(lib, fn).restype = i32
             lib.multigru_fwd_tile.argtypes = [i32] * 6 + [ptr]
             lib.multigru_fwd_tile.restype = i32
             lib.flash_bwd_dkv_scratch.argtypes = [i32] * 3

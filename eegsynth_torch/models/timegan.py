@@ -327,9 +327,11 @@ def fused_gen_refine(model: TimeGAN | Params, z: torch.Tensor,
 
 def _takes_k2(params: Params) -> bool:
     """K2's route: single-layer stacks with generator and supervisor
-    projections and every width at most 128 (every ``adaptive_dims`` width).
-    Decided from the shapes alone, before any launch, so the CPU takes the
-    card's route."""
+    projections and every width at most 128 (every ``adaptive_dims`` width;
+    K2 holds its weights in registers and stops there). Wider stacks take
+    the composed route, whose K1 runs at any width to 1024. Decided from
+    the shapes alone, before any launch, so the CPU takes the card's
+    route."""
     g, s = params["generator"], params["supervisor"]
     if not _fusable(params) or g["proj"] is None or s["proj"] is None:
         return False
@@ -353,9 +355,9 @@ def fused_disc_inputs(params: Params, x: torch.Tensor, z: torch.Tensor):
     - otherwise the composed networks, ``encode`` and ``refine_latent ∘
       gen_latent`` (the JAX fallback, the same math as its fused scan): 3 K1
       forward launches on the card for single-layer stacks, the projections
-      as products. Only stacks without projections (h_dim == z_dim) and
-      multi-layer stacks take it (and widths past 128, which K1 raises
-      on)."""
+      as products. Stacks without projections (h_dim == z_dim),
+      multi-layer stacks and widths past 128 take it (there K1 runs its
+      wide route)."""
     if _takes_k2(params):
         return _k2_disc_inputs(params, x, z)
     with torch.no_grad():

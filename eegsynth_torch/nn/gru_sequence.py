@@ -5,7 +5,9 @@ Counterpart of ``eegsynth/nn/pallas_gru.py`` (``_gru_seq_pallas``, and the
 custom VJP ``_gru_seq_bwd``). :func:`gru_sequence` is differentiable through
 :class:`GRUSequence`, whose forward and backward are both kernels on the card
 (``eegsynth_torch/csrc/gru_seq.cu``, built at first use by
-``eegsynth_torch._build``). On a CPU tensor each half runs its plain PyTorch
+``eegsynth_torch._build``); past H 128 both halves take the wide route
+(``eegsynth_torch/csrc/gru_seq_wide.cu``: W_hhᵀ streamed from L2 each step,
+up to H 1024). On a CPU tensor each half runs its plain PyTorch
 version (:func:`gru_sequence_reference`, :func:`gru_sequence_bwd_reference`),
 which is also the oracle the kernels are checked against on the card; on a
 CUDA tensor it launches the kernel or raises. The backward is first-order
@@ -29,7 +31,13 @@ from torch.autograd.function import once_differentiable
 from eegsynth_torch import _build
 
 MAX_HIDDEN = 128
-"""Largest H the kernels take: ``adaptive_dims`` caps h_dim at 128."""
+"""Largest H of K1's register-resident kernels (``gru_seq.cu``) and of K2,
+which holds W_hhᵀ slices in registers the same way; ``adaptive_dims`` caps
+h_dim here. K1 takes wider H through the wide route."""
+
+MAX_WIDE_HIDDEN = 1024
+"""Largest H of K1's wide route (``gru_seq_wide.cu``: one thread a column,
+1024 threads a block); the wrappers raise above it."""
 
 
 def _gates(x: torch.Tensor, hp: torch.Tensor, H: int):
@@ -110,14 +118,15 @@ def _device_of(name: str, *tensors: torch.Tensor) -> torch.device:
     return device
 
 
-def _check_cuda(name: str, H: int, **tensors: torch.Tensor) -> None:
+def _check_cuda(name: str, H: int, cap: int = MAX_HIDDEN,
+                **tensors: torch.Tensor) -> None:
     for key, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    if H > MAX_HIDDEN:
-        raise ValueError(f"{name}: H={H} > {MAX_HIDDEN}")
+    if H > cap:
+        raise ValueError(f"{name}: H={H} > {cap}")
 
 
 def _launch(fn: str, *args) -> None:
@@ -145,12 +154,37 @@ def _forward(xp, w_hh_t, b_hh, h0) -> torch.Tensor:
     nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
     if _device_of("gru_sequence", xp, w_hh_t, b_hh, h0).type == "cpu":
         return gru_sequence_reference(xp, w_hh_t, b_hh, h0)
-    _check_cuda("gru_sequence", H, xp=xp, w_hh_t=w_hh_t, b_hh=b_hh, h0=h0)
+    _check_cuda("gru_sequence", H, MAX_WIDE_HIDDEN, xp=xp, w_hh_t=w_hh_t,
+                b_hh=b_hh, h0=h0)
+    if H > MAX_HIDDEN:
+        return gru_sequence_wide(xp, w_hh_t, b_hh, h0)
     ys = torch.empty((nb, T, B, H), dtype=torch.float32, device=xp.device)
     if nb and T and B:
         _launch("gru_seq_fwd", xp, w_hh_t, b_hh, h0, ys, nb, T, B, H)
         gru_sequence.launches += 1
     return ys
+
+
+def gru_sequence_wide(xp, w_hh_t, b_hh, h0) -> torch.Tensor:
+    """Launch K1's wide forward kernel on stacked, checked CUDA tensors (any
+    H up to :data:`MAX_WIDE_HIDDEN`; :func:`gru_sequence` takes it past
+    :data:`MAX_HIDDEN`). ``gru_sequence_wide.launches`` counts its launches."""
+    nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
+    ys = torch.empty((nb, T, B, H), dtype=torch.float32, device=xp.device)
+    if nb and T and B:
+        _launch("gru_seq_wide_fwd", xp, w_hh_t, b_hh, h0, ys, nb, T, B, H)
+        gru_sequence_wide.launches += 1
+    return ys
+
+
+def wide_tile(nb: int, B: int, H: int) -> dict[str, int]:
+    """The wide route's tile for (nb, B, H) on the current card: batch rows
+    a block, tiles a bucket, threads a block, and the forward's and the
+    backward's shared bytes."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, "gru_seq_wide_tile", lib.gru_seq_wide_tile(nb, B, H, out))
+    return dict(zip(("rows", "blocks", "threads", "fwd_smem", "bwd_smem"), out))
 
 
 DW_CHUNKS = 16
@@ -192,9 +226,10 @@ def gru_sequence_bwd(xp, w_hh_t, b_hh, h0, ys, d_ys):
     batched matrix product hp = h_prev W_hhᵀ over all T·B rows (h_prev =
     [h0, ys[:-1]]); the kernel (:func:`gru_sequence_bwd_recurrence`: the
     reverse recurrence, which adds b_hh to hp, writes dxp and dh0, and
-    writes dhp over hp); then :func:`weight_grads`, dW_hhᵀ = h_prevᵀ dhp as
-    batched products and db_hh = Σ dhp as one sum.
-    ``gru_sequence_bwd.launches`` counts the kernel's launches."""
+    writes dhp over hp; past H 128 :func:`gru_sequence_bwd_wide`); then
+    :func:`weight_grads`, dW_hhᵀ = h_prevᵀ dhp as batched products and
+    db_hh = Σ dhp as one sum. ``gru_sequence_bwd.launches`` and
+    ``gru_sequence_bwd_wide.launches`` count the kernels' launches."""
     nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
     for name, t in (("ys", ys), ("d_ys", d_ys)):
         if tuple(t.shape) != (nb, T, B, H):
@@ -202,13 +237,32 @@ def gru_sequence_bwd(xp, w_hh_t, b_hh, h0, ys, d_ys):
     device = _device_of("gru_sequence_bwd", xp, w_hh_t, b_hh, h0, ys, d_ys)
     if device.type == "cpu":
         return gru_sequence_bwd_reference(xp, w_hh_t, b_hh, h0, ys, d_ys)
-    _check_cuda("gru_sequence_bwd", H, xp=xp, w_hh_t=w_hh_t, b_hh=b_hh, h0=h0,
-                ys=ys, d_ys=d_ys)
+    _check_cuda("gru_sequence_bwd", H, MAX_WIDE_HIDDEN, xp=xp, w_hh_t=w_hh_t,
+                b_hh=b_hh, h0=h0, ys=ys, d_ys=d_ys)
     h_prev = torch.cat([h0.unsqueeze(1), ys[:, :T - 1]], dim=1) if T else ys
     h_prev = h_prev.reshape(nb, T * B, H)
     dhp = torch.matmul(h_prev, w_hh_t)      # hp; the kernel writes dhp over it
-    dxp, dh0 = gru_sequence_bwd_recurrence(xp, dhp, h_prev, d_ys, w_hh_t, b_hh, dhp)
+    recurrence = (gru_sequence_bwd_recurrence if H <= MAX_HIDDEN
+                  else gru_sequence_bwd_wide)
+    dxp, dh0 = recurrence(xp, dhp, h_prev, d_ys, w_hh_t, b_hh, dhp)
     return (dxp, *weight_grads(h_prev, dhp), dh0)
+
+
+def gru_sequence_bwd_wide(xp, hp, h_prev, d_ys, w_hh_t, b_hh, dhp):
+    """Launch K1's wide backward kernel on CUDA tensors: the arguments and
+    results of :func:`gru_sequence_bwd_recurrence`, for any H up to
+    :data:`MAX_WIDE_HIDDEN`. The kernel streams W_hh, so it is passed
+    W_hhᵀ transposed back, contiguous. ``gru_sequence_bwd_wide.launches``
+    counts its launches."""
+    nb, T, B, H = d_ys.shape
+    dxp = torch.empty_like(xp)
+    dh0 = torch.empty((nb, B, H), dtype=torch.float32, device=xp.device)
+    if nb and B:
+        w_hh = w_hh_t.transpose(-1, -2).contiguous()
+        _launch("gru_seq_wide_bwd", xp, hp, h_prev, d_ys, w_hh, b_hh, dxp, dhp, dh0,
+                nb, T, B, H)
+        gru_sequence_bwd_wide.launches += 1
+    return dxp, dh0
 
 
 class GRUSequence(torch.autograd.Function):
@@ -233,8 +287,11 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
     """Run the recurrence: (nb,T,B,3H), (nb,H,3H), (nb,1,3H), (nb,B,H) →
     (nb,T,B,H), or the same without the leading bucket axis.
 
-    CPU tensors take the plain versions; CUDA tensors launch the kernels, and
-    ``gru_sequence.launches`` counts the forward launches."""
+    CPU tensors take the plain versions; CUDA tensors launch the kernels:
+    ``gru_sequence.launches`` counts the forward launches at H up to
+    :data:`MAX_HIDDEN`, ``gru_sequence_wide.launches`` the wide route's past
+    it (and ``gru_sequence_bwd`` / ``gru_sequence_bwd_wide`` the backward's).
+    H past :data:`MAX_WIDE_HIDDEN` raises."""
     if xp.dim() == 3:
         return gru_sequence(xp[None], w_hh_t[None], b_hh[None], h0[None])[0]
     return GRUSequence.apply(xp, w_hh_t, b_hh, h0)
@@ -242,3 +299,5 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
 
 gru_sequence.launches = 0
 gru_sequence_bwd.launches = 0
+gru_sequence_wide.launches = 0
+gru_sequence_bwd_wide.launches = 0

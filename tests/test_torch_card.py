@@ -38,7 +38,7 @@ from eegsynth_torch.nn.attention import (
 )
 from eegsynth_torch.nn.gru_sequence import (
     gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
-    gru_sequence_reference,
+    gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide,
 )
 from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
@@ -120,8 +120,8 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
         gru_sequence(xp, w.t().contiguous().t(), b, h0)
     with pytest.raises(ValueError, match="several devices"):
         gru_sequence(xp, w.cpu(), b, h0)
-    with pytest.raises(ValueError, match="H=160"):
-        gru_sequence(*_inputs(4, 2, 160, cuda_device))
+    with pytest.raises(ValueError, match="H=1056"):
+        gru_sequence(*_inputs(2, 2, 1056, cuda_device))
     ys = gru_sequence(xp, w, b, h0)[None]
     with pytest.raises(TypeError, match="float32"):
         gru_sequence_bwd(xp[None], w[None], b[None], h0[None], ys, ys.double())
@@ -212,6 +212,89 @@ def test_backward_repeats_bitwise(cuda_device, nb, T, B, H):
     torch.cuda.synchronize()
     for a, b, name in zip(first, second, ("dxp", "dw", "db", "dh0")):
         assert torch.equal(a, b), name
+
+
+# K1's wide route (gru_seq_wide.cu, H past 128): the first width past the
+# register kernels' cap (3H and H not multiples of 4: the scalar tails),
+# H 256 and 512 (bench_kernels' sweep) with odd T and B, a batch past one
+# wave of one-row tiles (four rows a block), one step, and the cap
+@pytest.mark.parametrize("nb,T,B,H", [(2, 101, 37, 129), (2, 301, 33, 256),
+                                      (2, 77, 5, 512), (1, 50, 600, 200),
+                                      (3, 1, 5, 256), (1, 20, 3, 1024)])
+def test_wide_kernels_match_plain(cuda_device, nb, T, B, H):
+    inputs = _inputs(T, B, H, cuda_device, seed=H, lead=(nb,))
+    before = (gru_sequence.launches, gru_sequence_wide.launches,
+              gru_sequence_bwd.launches, gru_sequence_bwd_wide.launches)
+    ys = gru_sequence(*inputs)
+    ref = gru_sequence_reference(*inputs)
+    d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(1))
+    d_ys = d_ys.to(cuda_device)
+    got = gru_sequence_bwd(*inputs, ys, d_ys)
+    want = gru_sequence_bwd_reference(*inputs, ys, d_ys)
+    torch.cuda.synchronize()
+    after = (gru_sequence.launches, gru_sequence_wide.launches,
+             gru_sequence_bwd.launches, gru_sequence_bwd_wide.launches)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 0, 1]
+    assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
+    assert (ys - ref).abs().max().item() <= 1e-4
+    _assert_bwd_matches(got, want)
+
+
+def test_wide_kernels_repeat_bitwise_and_take_unaligned_inputs(cuda_device):
+    """The wide route's sums have a fixed order: two calls give the same
+    bits. xp and d_ys 4 bytes into their storage are read as they are."""
+    nb, T, B, H = 2, 150, 9, 300
+    xp, w, b, h0 = _inputs(T, B, H, cuda_device, seed=5, lead=(nb,))
+    xp = torch.cat([xp.new_zeros(1), xp.reshape(-1)])[1:].view(xp.shape)
+    ys = gru_sequence(xp, w, b, h0)
+    assert torch.equal(ys, gru_sequence(xp, w, b, h0))
+    d_ys = torch.randn(ys.numel() + 1, generator=torch.Generator().manual_seed(3))
+    d_ys = d_ys.to(cuda_device)[1:].view(ys.shape)
+    first = gru_sequence_bwd(xp, w, b, h0, ys, d_ys)
+    second = gru_sequence_bwd(xp, w, b, h0, ys, d_ys)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    _assert_bwd_matches(first, gru_sequence_bwd_reference(xp, w, b, h0, ys, d_ys))
+
+
+def test_wide_timegan_step_runs_on_wide_k1(cuda_device):
+    """A TimeGAN at z64/h256 (a TimeGANConfig the JAX package builds): one
+    GAN step on the card takes the composed D-step route, no K2; the
+    generator's and supervisor's recurrences (H 256) run the wide K1
+    forward and backward, the embedder's and recovery's (H 64) the narrow
+    K1; the step matches the CPU."""
+    cfg = TimeGANConfig(x_dim=14, z_dim=64, h_dim=256)
+    nb, B, T = 1, 4, 64
+    params = timegan_init_stacked(
+        cfg, [torch.Generator().manual_seed(b) for b in range(nb)], device="cpu")
+    hp = ttrain.TimeGANHParams(batch_size=B)
+    optD, optG = make_gan_opts(hp)
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.uniform(0, 1, (nb, 16, T, 14)).astype(np.float32))
+    gens = [torch.Generator().manual_seed(b) for b in range(nb)]
+    draws = ttrain.draw_gan(gens, torch.full((nb,), 16.0), B, T, cfg.z_dim,
+                            device="cpu")
+    x = ttrain.gather_batch(X, draws.idx)
+
+    def step(device):
+        p = tree_map(lambda t: t.to(device), params)
+        d = type(draws)(**{k: tree_map(lambda t: t.to(device), v)
+                           for k, v in vars(draws).items()})
+        d_state = optD.init(p["discriminator"])
+        g_state = optG.init({k: p[k] for k in ttrain.GEN_NETS})
+        return ttrain.gan_step(p, optD, d_state, optG, g_state, x.to(device), d, 1, hp)
+
+    counts = lambda: (gru_sequence.launches, gru_sequence_wide.launches,  # noqa: E731
+                      gru_sequence_bwd.launches, gru_sequence_bwd_wide.launches,
+                      multigru_disc_inputs.launches)
+    before = counts()
+    card = step(cuda_device)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(counts(), before)]
+    assert launched[4] == 0 and launched[1] >= 2 and launched[3] >= 1
+    host = step("cpu")
+    logs = (card[3].cpu() - host[3]).abs() / host[3].abs().clamp(min=1.0)
+    assert torch.isfinite(card[3]).all() and logs.max().item() <= 1e-4
 
 
 def test_bucket_axis_equals_separate_launches(cuda_device):

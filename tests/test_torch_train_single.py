@@ -266,6 +266,40 @@ def test_gan_step_matches_jax(layers, weights):
     _close(best.params, best_p, rtol=0, atol=PARAM_ATOL)
 
 
+def test_gan_step_matches_jax_past_h_128():
+    """h_dim 160: past K2's widths and K1's register kernels (the card runs
+    K1's wide route there and the composed D-step route; here both
+    packages run their plain recurrences). One GAN step under
+    test_gan_step_matches_jax's tolerances."""
+    cfg = TimeGANConfig(x_dim=C, z_dim=8, h_dim=160)
+    with jax.enable_x64(False):
+        params = timegan_init(jax.random.key(2), cfg)
+    X = np.random.default_rng(2).uniform(0, 1, (N, T, C)).astype(np.float32)
+    hp = dict(batch_size=B, gan_steps=10, acf_max_lag=5)
+    jhp = jtrain.TimeGANHParams(**hp)
+    step, key = 2, jax.random.key(5)
+    with jax.enable_x64(False):
+        optD, optG = jtrain.make_gan_opts(jhp)
+        args = (params, optD.init(params["discriminator"]),
+                optG.init({k: params[k] for k in GEN}), params, jnp.float32(jnp.inf),
+                jnp.int32(0), key, jnp.int32(step - 1),
+                jnp.arange(1, 2, dtype=jnp.int32), jnp.asarray(X))
+        (new_p, new_d, new_g, _, _, _, _), logs = \
+            jtrain.make_gan_chunk(cfg, jhp, optD, optG)(B)(*args)
+        draws = _jax_gan_draws(key, N, False)
+    tp = _stacked(params)
+    thp = ttrain.TimeGANHParams(**hp)
+    tD, tG = topt.make_gan_opts(thp)
+    got_p, got_d, got_g, got_logs = ttrain.gan_step(
+        tp, tD, tD.init(tp["discriminator"]), tG, tG.init({k: tp[k] for k in GEN}),
+        ttrain.gather_batch(torch.from_numpy(X)[None], draws.idx), draws, step, thp)
+    np.testing.assert_allclose(got_logs.numpy(), np.asarray(logs), rtol=LOSS_TOL,
+                               atol=LOSS_TOL)
+    _close(got_d.mu, new_d[1][0].mu, rtol=1e-3, atol=1e-6)
+    _close(got_g.mu, new_g[1][0].mu, rtol=1e-3, atol=1e-6)
+    _close(got_p, new_p, rtol=0, atol=PARAM_ATOL)
+
+
 def test_epoch_cycle_matches_jax():
     """The epoch-cycled batches on the same permutations: a fresh one at
     each epoch's start, consecutive slices, the short tail dropped."""
