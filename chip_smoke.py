@@ -51,9 +51,14 @@ failure is swallowed):
              orders 2 and 8, float64 and float32, over a 60 s trial against
              its plain version and over an hour against scipy's lfilter, with
              its step-chain floor; K1's wide route (H past 128, forward and
-             backward) against its plain versions at H 129, 256 and 512 (nb
-             2, odd B and T) and against cuDNN's GRU forward and backward at
-             (1, 768, 64, 256) and (1, 768, 64, 512);
+             backward; the forward on a thread-block cluster up to its cap,
+             the streaming kernel past it) against its plain versions at H
+             129, 256 and 512 (nb 2, odd B and T) and at the cluster
+             route's cap and past it, each line with its route, cluster C
+             and rows R and the cluster's step-chain floor, and against
+             cuDNN's GRU forward and backward at (1, 768, 64, 256), 512 and
+             1024, the cluster forward in turns with the streaming one and
+             beside every cluster plan that fits;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -112,8 +117,9 @@ failure is swallowed):
              (events, device time) against the launches;
 5g. timegan-wide — a TimeGAN at x14/z64/h256 through train/timegan.py's
              step functions: one AE and one SUP step, 2 GAN steps at B 16,
-             T 768, synthesize(); the wide K1 forward and backward launched,
-             no K2; one GAN step at B 4, T 96 against the CPU;
+             T 768, synthesize(); the wide K1 forward (on its cluster kernel)
+             and backward launched, no K2; one GAN step at B 4, T 96 against
+             the CPU;
 5h. convert — ``python -m eegsynth_torch.convert_torch_ckpt``: a
              reference-shaped TimeGAN checkpoint and conv generator made in
              torch, converted and served over HTTP (the TimeGAN equal to the
@@ -123,8 +129,9 @@ failure is swallowed):
 5i. bench-tools — ``tools.bench_synthesis`` (--parity at n 256 x 8192,
              one row of each model), ``tools.bench_serve`` (4 clients and the
              hung client for 5 s against the server, 0 errors),
-             ``tools.bench_kernels`` (H 56, 128, 256, 512, forward and
-             backward);
+             ``tools.bench_kernels`` (H 56, 128, 256, 512 and 1024, forward
+             and backward: the wide forward on clusters and, at 1024, the
+             streaming one);
 6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
              heads 4, patch 8, batch 64) on 9 random posture buckets for 2
              epochs with flash attention forced; artifacts, finite
@@ -260,8 +267,8 @@ from eegsynth_torch.nn.attention import (
     flash_forward, flash_forward_plain, mha, set_attention_impl,
 )
 from eegsynth_torch.nn.gru_sequence import (
-    forward_tile, gru_sequence, gru_sequence_bwd, gru_sequence_bwd_recurrence,
-    gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference,
+    MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_card, cluster_chain_probe, cluster_fits,
+    cluster_plan, forward_tile, gru_sequence, gru_sequence_bwd, gru_sequence_bwd_recurrence, gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference,
     gru_sequence_wide, wide_tile,
 )
 from eegsynth_torch.nn.layers import xavier_uniform
@@ -332,13 +339,19 @@ K1_INSTANCES = ("KL 16, S 1, H <= 16", "KL 16, S 2, H <= 32", "KL 16, S 4, H <= 
 BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128),
               *(shape[:4] for shape in EVAL_SHAPES), *SEQ_SHAPES)
 BWD_CUDNN_SHAPE = (1, 768, 63, 56)
-# K1's wide route (gru_seq_wide.cu, H past 128): the first width past the
+# K1's wide route (H past 128: the forward on a thread-block cluster in
+# gru_seq_cluster.cu up to the H a cluster holds, the streaming kernels of
+# gru_seq_wide.cu above it and for the backward): the first width past the
 # register kernels' cap, H 256 and 512 (bench_kernels' sweep) at nb 2 with
-# odd T and B, against the plain versions; at one bucket of the sequential
-# trainer's B 64 and T 768, H 256 (the headline: the TimeGAN of
-# [timegan-wide]) and 512, against cuDNN's GRU forward and backward in turns
+# odd T and B, and the cluster route's last H and the next (found from the
+# card's numbers), against the plain versions; at one bucket of the
+# sequential trainer's B 64 and T 768, H 256 (the headline: the TimeGAN of
+# [timegan-wide]), 512 and 1024 (the streaming forward's headline: the
+# widest H of bench_kernels' sweep here), against cuDNN's GRU forward and
+# backward in turns, the cluster forward also against the streaming one
 WIDE_K1_SHAPES = ((2, 301, 37, 129), (2, 303, 33, 256), (2, 151, 37, 512))
-WIDE_K1_CUDNN_SHAPES = ((1, 768, 64, 256), (1, 768, 64, 512))
+WIDE_K1_CAP_SHAPES = ((2, 151, 37), (1, 101, 9))   # (nb, T, B) at the cap and past it
+WIDE_K1_CUDNN_SHAPES = ((1, 768, 64, 256), (1, 768, 64, 512), (1, 768, 64, 1024))
 # K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims (the headline), and
 # adaptive_dims' T > 800 dims z36/h72, 20 channels' z40/h80, the widest
 # width z64/h128, a ragged narrow shape at z16/h32, and the sequential
@@ -545,12 +558,12 @@ PIPE_CONFIG = {"ae_epochs": 1, "sup_epochs": 1, "gan_steps": 2, "chunk": 2,
 # [bench-tools]: bench_synthesis' parity at the long horizon and one row of
 # each model at bench.py's batch; bench_serve's closed loop (4 clients, the
 # hung client) for BENCH_SERVE_SECONDS; bench_kernels' default sweep (H 56,
-# 128, 256, 512 at B 64, T 768)
+# 128, 256, 512 at B 64, T 768) and H 1024, past the cluster forward's cap
 BENCH_SYNTH_RUNS = (["--parity", "--batch", "256", "--T", "8192", "--time_chunk", "1024"],
                     ["--batch", "2048", "--iters", "5"])
 BENCH_SERVE_SECONDS = 5.0
-BENCH_KERNEL_ARGS = ["--iters", "3"]
-BENCH_KERNEL_HS = [56, 128, 256, 512]
+BENCH_KERNEL_HS = [56, 128, 256, 512, 1024]
+BENCH_KERNEL_ARGS = ["--iters", "3", "--hs", ",".join(map(str, BENCH_KERNEL_HS))]
 
 
 def fail(msg: str) -> None:
@@ -689,13 +702,20 @@ def _on_card(prof) -> list[_CardOp]:
     return list(ops.values())
 
 
+def _in_turns(fns: dict, reps: int) -> dict:
+    """Each call's median of ``reps``, timed in turns (a, b, ..., b, a);
+    the mean of its two medians."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        times[name].append(_time_ms(fns[name], reps))
+    return {name: statistics.mean(t) for name, t in times.items()}
+
+
 def _turns_ms(kernel, library, reps: int) -> tuple[float, float]:
     """Kernel and library call timed in turns (library, kernel, kernel,
     library), each a median of ``reps``; returns the mean of each pair."""
-    lib = [_time_ms(library, reps)]
-    ker = [_time_ms(kernel, reps), _time_ms(kernel, reps)]
-    lib.append(_time_ms(library, reps))
-    return statistics.mean(ker), statistics.mean(lib)
+    times = _in_turns({"library": library, "kernel": kernel}, reps)
+    return times["kernel"], times["library"]
 
 
 def _bound(flops: float, *tensors: torch.Tensor) -> tuple[float, str]:
@@ -938,82 +958,149 @@ def _k1_bwd_vs_cudnn(smi: str, shape: tuple, seed: int) -> None:
              f"B={B} H={H}: {errs}")
 
 
+def _wide_route_counts() -> tuple:
+    """K1 forward, K1 backward, the wide route's cluster forward, its
+    streaming forward, the wide backward."""
+    return (gru_sequence.launches, gru_sequence_bwd.launches,
+            gru_sequence_wide.cluster_launches, gru_sequence_wide.launches,
+            gru_sequence_bwd_wide.launches)
+
+
+def _cluster_cap() -> int:
+    """The largest H on the cluster forward with this card's numbers."""
+    card = cluster_card()
+    return max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
+               if cluster_plan(1, 1, H, card)["route"] == "cluster")
+
+
+def _cluster_plans(args, plan: dict) -> str:
+    """Every cluster that fits (cluster_fits), timed at these inputs:
+    ``C<c> R<r> ms`` each, the plan's pick marked *."""
+    out = []
+    for C, R, g, _ in cluster_fits(args[3].shape[2], cluster_card()):
+        one = {"route": "cluster", "C": C, "R": R, **g}
+        ms = _time_ms(lambda: gru_sequence_wide(*args, plan=one), reps=3)  # noqa: B023
+        out.append(f"C{C} R{R}{'*' if (C, R) == (plan['C'], plan['R']) else ''} {ms:.4f}")
+    return "; ".join(out)
+
+
 def _check_k1_wide(smi: str) -> dict:
     """K1's wide route, forward and backward (the whole call: the hp
-    product, the kernel, the dW product), at WIDE_K1_SHAPES against the
-    plain versions, then at WIDE_K1_CUDNN_SHAPES against the plain versions
-    and cuDNN's GRU (forward, and backward by autograd.grad) in turns. The
-    kernels line takes the first cuDNN shape."""
-    rows, worst = {}, [0.0, 0.0]
-    for i, (nb, T, B, H) in enumerate(WIDE_K1_SHAPES + WIDE_K1_CUDNN_SHAPES):
+    product, the kernel, the dW product), at WIDE_K1_SHAPES and at the
+    cluster route's cap and past it against the plain versions, then at
+    WIDE_K1_CUDNN_SHAPES against the plain versions and cuDNN's GRU
+    (forward, and backward by autograd.grad) in turns; each shape's route,
+    cluster C and rows R; on the cluster route the step-chain floor (the
+    probe of the same plan: the exchange and the wait alone) and, at one
+    bucket, every cluster plan that fits; and on the same inputs the
+    streaming forward in turns (the kernel the route had before the
+    cluster).
+    The kernels line takes (1, 768, 64, 256) for the cluster forward and the
+    backward and (1, 768, 64, 1024) for the streaming forward."""
+    cap = _cluster_cap()
+    shapes = (WIDE_K1_SHAPES + tuple((*s, H) for s, H in zip(WIDE_K1_CAP_SHAPES, (cap, cap + 1)))
+              + WIDE_K1_CUDNN_SHAPES)
+    rows, worst = {}, {"gru_sequence_wide_cluster": 0.0, "gru_sequence_wide": 0.0,
+                       "gru_sequence_bwd_wide": 0.0}
+    for i, (nb, T, B, H) in enumerate(shapes):
         args = _gru_inputs(nb, T, B, H, 28, seed=40 + i, device="cuda")
+        tile = wide_tile(nb, B, H)
+        cluster = tile["route"] == "cluster"
+        name = "gru_sequence_wide_cluster" if cluster else "gru_sequence_wide"
         with torch.no_grad():
-            before = (gru_sequence.launches, gru_sequence_bwd.launches,
-                      gru_sequence_wide.launches, gru_sequence_bwd_wide.launches)
+            before = _wide_route_counts()
             ys = gru_sequence(*args)
             d_ys = torch.randn(ys.shape, device="cuda",
                                generator=torch.Generator(device="cuda").manual_seed(i))
             got = gru_sequence_bwd(*args, ys, d_ys)
             torch.cuda.synchronize()
-            routes = [a - b for a, b in zip((gru_sequence.launches,
-                                             gru_sequence_bwd.launches,
-                                             gru_sequence_wide.launches,
-                                             gru_sequence_bwd_wide.launches), before)]
+            routes = [a - b for a, b in zip(_wide_route_counts(), before)]
             ref_ys = gru_sequence_reference(*args)
             ref = gru_sequence_bwd_reference(*args, ys, d_ys)
             err = (ys - ref_ys).abs().max().item()
             errs, scale, ok = _bwd_errors(got, ref)
-            lib_ms = lib_bwd_ms = None
+            fwd = {"kernel": lambda: gru_sequence(*args)}
+            if cluster:
+                fwd["streaming"] = lambda: gru_sequence_wide(*args, plan={"route": "stream"})
             if nb == 1:
                 one = [a[0] for a in args]
-                cudnn = _cudnn_gru(*one)
-                lib_err = (cudnn() - ys[0]).abs().max().item()
-                ms, lib_ms = _turns_ms(lambda: gru_sequence(*args), cudnn, reps=5)
-            else:
-                ms = _time_ms(lambda: gru_sequence(*args), reps=5)
+                fwd["cuDNN"] = _cudnn_gru(*one)
+                lib_err = (fwd["cuDNN"]() - ys[0]).abs().max().item()
+            times = _in_turns(fwd, reps=5)
+            ms, lib_ms = times["kernel"], times.get("cuDNN")
+            floor_ms = (_time_ms(lambda: cluster_chain_probe(*args, tile["plan"]), reps=5)
+                        if cluster else None)
+            if nb != 1:
                 bwd_ms = _time_ms(lambda: gru_sequence_bwd(*args, ys, d_ys), reps=5)
             plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS,
                                 warm=False)
             plain_bwd_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
                                     reps=PLAIN_REPS, warm=False)
+        lib_bwd_ms = None
         if nb == 1:
             cudnn_bwd, as_k1 = _cudnn_gru_bwd(*(a[0] for a in args), d_ys[0])
             lib_bwd_err = _bwd_errors(as_k1(cudnn_bwd()), ref)[0]
             with torch.no_grad():
                 bwd_ms, lib_bwd_ms = _turns_ms(lambda: gru_sequence_bwd(*args, ys, d_ys),
                                                cudnn_bwd, reps=3)
-        tile = wide_tile(nb, B, H)
-        print(f"[kernel] gru_sequence_wide nb={nb} T={T} B={B} H={H}: max|diff| ys "
-              f"{err:.3e}, dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol {KERNEL_TOL:g}); dW "
-              f"{errs[1]:.3e} of {scale[1]:.3g}, db {errs[2]:.3e} of {scale[2]:.3g} (tol "
-              f"{KERNEL_TOL:g} relative); launches K1 fwd / bwd / wide fwd / wide bwd "
-              f"{routes}; forward {ms:.4f} ms (plain {plain_ms:.4f}), backward whole call "
-              f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}); tile {tile['rows']} rows x "
-              f"{tile['blocks']} tiles x {nb} buckets of {tile['threads']} threads, "
-              f"{tile['fwd_smem']} / {tile['bwd_smem']} B shared | {smi}", flush=True)
+        plan = tile["plan"]
+        route = (f"cluster C {plan['C']} x R {plan['R']} rows (S {plan['S']}, KL "
+                 f"{plan['KL']}, U {plan['U']}, {plan['threads']} threads, {plan['smem']} B "
+                 f"shared; {plan['clusters']} clusters, {plan['resident']} resident, "
+                 f"{plan['waves']} wave(s)); step-chain floor {floor_ms:.4f} ms; the "
+                 f"streaming forward on the same inputs {times['streaming']:.4f} ms in turns"
+                 if cluster else f"streaming, {tile['rows']} rows x {tile['blocks']} tiles x "
+                 f"{nb} buckets of {tile['threads']} threads, {tile['fwd_smem']} B shared")
+        print(f"[kernel] gru_sequence_wide nb={nb} T={T} B={B} H={H}: route {route}; "
+              f"max|diff| ys {err:.3e}, dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol "
+              f"{KERNEL_TOL:g}); dW {errs[1]:.3e} of {scale[1]:.3g}, db {errs[2]:.3e} of "
+              f"{scale[2]:.3g} (tol {KERNEL_TOL:g} relative); launches K1 fwd / bwd / "
+              f"cluster fwd / streaming fwd / wide bwd {routes}; forward {ms:.4f} ms "
+              f"(plain {plain_ms:.4f}), backward whole call {bwd_ms:.4f} ms (plain "
+              f"{plain_bwd_ms:.4f}); backward tile {tile['rows']} rows x {tile['blocks']} "
+              f"tiles of {tile['threads']} threads, {tile['bwd_smem']} B shared | {smi}",
+              flush=True)
         if nb == 1:
+            stream = (f", the streaming forward {times['streaming']:.4f} ms"
+                      if "streaming" in times else "")
             print(f"[kernel] gru_sequence_wide nb=1 T={T} B={B} H={H} vs cuDNN GRU: "
-                  f"forward {ms:.4f} against {lib_ms:.4f} ms (max|diff| {lib_err:.3e}), "
-                  f"backward {bwd_ms:.4f} against {lib_bwd_ms:.4f} ms (cuDNN dxp "
-                  f"{lib_bwd_err[0]:.3e}), in turns | {smi}", flush=True)
-        if routes != [0, 0, 1, 1]:
-            fail(f"the wide route at H={H} launched {routes} (K1 fwd, bwd, wide fwd, "
-                 "wide bwd), expected [0, 0, 1, 1]")
+                  f"forward {ms:.4f}{stream} against {lib_ms:.4f} ms (max|diff| "
+                  f"{lib_err:.3e}), backward {bwd_ms:.4f} against {lib_bwd_ms:.4f} ms "
+                  f"(cuDNN dxp {lib_bwd_err[0]:.3e}), in turns | {smi}", flush=True)
+        if cluster and nb == 1:
+            print(f"[kernel] gru_sequence_wide_cluster nb=1 T={T} B={B} H={H} plans (ms): "
+                  f"{_cluster_plans(args, plan)} | {smi}", flush=True)
+        want = [0, 0, 1, 0, 1] if cluster else [0, 0, 0, 1, 1]
+        if routes != want:
+            fail(f"the wide route at nb={nb} B={B} H={H} launched {routes} (K1 fwd, bwd, "
+                 f"cluster fwd, streaming fwd, wide bwd), expected {want}")
         if not ok or not bool(torch.isfinite(ys).all()) or err > KERNEL_TOL:
             fail(f"K1's wide route disagrees with its plain version at nb={nb} T={T} "
                  f"B={B} H={H}: ys {err}, backward {errs}")
-        worst = [max(worst[0], err), max(worst[1], errs[0], errs[3])]
+        worst[name] = max(worst[name], err)
+        worst["gru_sequence_bwd_wide"] = max(worst["gru_sequence_bwd_wide"], errs[0], errs[3])
         fwd_row = _row(ms, plain_ms, _bound(2 * nb * T * B * H * 3 * H, *args, ys), lib_ms)
         bwd_row = _row(bwd_ms, plain_bwd_ms, _bound(3 * 2 * nb * T * B * H * 3 * H, *args,
                                                    ys, d_ys, *got), lib_bwd_ms)
-        _roofline(f"gru_sequence_wide nb={nb} T={T} B={B} H={H}", fwd_row, smi,
-                  "cuDNN GRU" if nb == 1 else None)
-        _roofline(f"gru_sequence_bwd_wide nb={nb} T={T} B={B} H={H}", bwd_row, smi,
+        label = f"nb={nb} T={T} B={B} H={H}"
+        _roofline(f"{name} {label}", fwd_row, smi, "cuDNN GRU" if nb == 1 else None)
+        if cluster:
+            print(f"[bound] {name} {label}: step-chain floor {floor_ms:.4f} ms (the "
+                  f"exchange and the wait alone, {T} steps on clusters of {plan['C']}), "
+                  f"bound {fwd_row['bound_ms']:.4f} ms ({fwd_row['bound_by']}); kernel "
+                  f"{ms:.4f} ms, {ms / floor_ms:.2f}x the floor | {smi}", flush=True)
+        _roofline(f"gru_sequence_bwd_wide {label}", bwd_row, smi,
                   "cuDNN GRU backward" if nb == 1 else None)
         if (nb, T, B, H) == WIDE_K1_CUDNN_SHAPES[0]:
-            rows = {"gru_sequence_wide": fwd_row, "gru_sequence_bwd_wide": bwd_row}
-    rows["gru_sequence_wide"]["max_abs_err"] = worst[0]
-    rows["gru_sequence_bwd_wide"]["max_abs_err"] = worst[1]
+            rows.update({name: fwd_row, "gru_sequence_bwd_wide": bwd_row})
+        elif (nb, T, B, H) == WIDE_K1_CUDNN_SHAPES[-1]:
+            rows[name] = fwd_row
+    if set(rows) != set(worst):
+        fail(f"the wide route's headline shapes took {sorted(rows)}: the cluster route at "
+             f"H {WIDE_K1_CUDNN_SHAPES[0][3]}, the streaming one at "
+             f"{WIDE_K1_CUDNN_SHAPES[-1][3]} expected (cap {cap})")
+    for name, err in worst.items():
+        rows[name]["max_abs_err"] = err
     return rows
 
 
@@ -4002,9 +4089,8 @@ def _cgan_figures(smi: str, root: Path, device: str) -> None:
 
 
 def _wide_counts() -> tuple:
-    """K1 forward, K1 backward, the wide forward, the wide backward, K2."""
-    return (gru_sequence.launches, gru_sequence_bwd.launches, gru_sequence_wide.launches,
-            gru_sequence_bwd_wide.launches, multigru_disc_inputs.launches)
+    """_wide_route_counts, then K2."""
+    return (*_wide_route_counts(), multigru_disc_inputs.launches)
 
 
 def _since(before: tuple) -> list:
@@ -4015,8 +4101,9 @@ def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
     """A TimeGAN at x14/z64/h256 through train/timegan.py's step functions
     on the card: one AE and one SUP step, TG_WIDE_GAN_STEPS GAN steps on a
     random bucket of (TG_WIDE_WINDOWS, 768, 14), then synthesize() of 64
-    windows; the wide K1 forward and backward launched, no K2 (the D-step
-    inputs take the composed route past H 128), finite losses and windows;
+    windows; K1's wide route launched (the forward on its cluster kernel,
+    the streaming backward), no K2 (the D-step inputs take the composed
+    route past H 128), finite losses and windows;
     then one GAN step at B 4, T TG_WIDE_CHECK_T on the card against the CPU.
     Returns the launches of the training and synthesis run."""
     x_dim, z_dim, h_dim = TG_WIDE_DIMS
@@ -4055,25 +4142,27 @@ def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
     windows = synthesize(model, 64, SEQ_LEN,
                          generator=torch.Generator(device=device).manual_seed(2))
     synth_s = time.perf_counter() - t0
-    k1, k1_bwd, wide, wide_bwd, k2 = _since(before)
+    k1, k1_bwd, cluster, wide, wide_bwd, k2 = _since(before)
     fmt = lambda row: ", ".join(f"{c}={v:.5f}" for c, v in zip(LOG_COLUMNS, row))  # noqa
     print(f"[timegan-wide] x{x_dim}/z{z_dim}/h{h_dim}, B {B}, T {SEQ_LEN}: AE loss "
           f"{losses['ae']:.6f}, SUP loss {losses['sup']:.6f}; GAN step {TG_WIDE_GAN_STEPS}: "
           f"{fmt(logs[-1])}; AE + SUP + {TG_WIDE_GAN_STEPS} GAN steps {train_s:.2f} s, "
           f"synthesize(64 x {SEQ_LEN}) {synth_s:.2f} s -> {windows.shape}; launches K1 "
-          f"forward {k1}, backward {k1_bwd}, wide forward {wide}, wide backward "
-          f"{wide_bwd}, K2 {k2} | {smi}", flush=True)
+          f"forward {k1}, backward {k1_bwd}, wide forward on clusters {cluster}, "
+          f"streaming {wide}, wide backward {wide_bwd}, K2 {k2} | {smi}", flush=True)
     if not (np.isfinite(logs).all() and all(np.isfinite(v) for v in losses.values())):
         fail(f"[timegan-wide] non-finite losses: {losses}, {logs}")
     if windows.shape != (64, SEQ_LEN, x_dim) or not np.isfinite(windows).all():
         fail(f"[timegan-wide] synthesize gave {windows.shape}, finite "
              f"{np.isfinite(windows).all()}")
     on_card = torch.device(device).type == "cuda"
-    if on_card and (wide < 1 or wide_bwd < 1 or k2 != 0):
-        fail(f"[timegan-wide] launches: wide forward {wide}, wide backward {wide_bwd}, "
-             f"K2 {k2}; expected both wide kernels and no K2")
+    if on_card and (cluster < 1 or wide != 0 or wide_bwd < 1 or k2 != 0):
+        fail(f"[timegan-wide] launches: wide forward on clusters {cluster}, streaming "
+             f"{wide}, wide backward {wide_bwd}, K2 {k2}; expected the cluster forward, "
+             "the wide backward, no streaming forward and no K2")
     _wide_step_check(smi, device)
-    return {"gru_sequence": k1, "gru_sequence_bwd": k1_bwd, "gru_sequence_wide": wide,
+    return {"gru_sequence": k1, "gru_sequence_bwd": k1_bwd,
+            "gru_sequence_wide_cluster": cluster, "gru_sequence_wide": wide,
             "gru_sequence_bwd_wide": wide_bwd}
 
 
@@ -4115,7 +4204,8 @@ def _wide_step_check(smi: str, device: str, B: int = 4) -> None:
     print(f"[timegan-wide] one GAN step at B {B}, T {T}, card vs CPU: logged values "
           f"{log_err:.3e} (tol {STEP_LOG_RTOL:g}), parameters {p_err:.3e} (tol "
           f"{STEP_PARAM_ATOL:g}), Adam first moments {mu_err:.3e} (tol {STEP_MU_RTOL:g}); "
-          f"launches K1 fwd / bwd / wide fwd / wide bwd / K2 {launched} | {smi}", flush=True)
+          f"launches K1 fwd / bwd / cluster fwd / streaming fwd / wide bwd / K2 {launched} "
+          f"| {smi}", flush=True)
     if log_err > STEP_LOG_RTOL or p_err > STEP_PARAM_ATOL or not mu_err <= STEP_MU_RTOL:
         fail(f"[timegan-wide] the card's GAN step disagrees with the CPU: logs {log_err}, "
              f"params {p_err}, mu {mu_err}")
@@ -4334,13 +4424,14 @@ def phase_pipeline(smi: str, root: Path, device: str = "cuda") -> None:
         fail(f"[pipeline] check_shape printed {lines}")
 
 
-def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> int:
+def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> dict:
     """The three bench tools through their CLIs in this process:
     bench_synthesis --parity and one row of each model; bench_serve for
     BENCH_SERVE_SECONDS with 4 clients and the hung client against the
     port's server on two full-width TimeGAN runs, 0 errors; bench_kernels'
-    default sweep, forward and backward. Returns K1's launches in the served
-    run.""" 
+    default sweep and H 1024 (past the cluster forward's cap: the streaming
+    forward), forward and backward. Returns the launches of K1 in the served
+    run and of the wide route in bench_kernels.""" 
     for args in BENCH_SYNTH_RUNS:
         bench_synthesis.main(args + ["--device", device])
     runs, real = _write_runs(root / "bench_serve")
@@ -4363,13 +4454,18 @@ def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> int:
           flush=True)
     if out["errors"] != 0 or out["requests"] < 4:
         fail(f"[bench-tools] bench_serve: {out}")
+    before = _wide_route_counts()
     for extra in ([], ["--backward"]):
         rows = bench_kernels.main(BENCH_KERNEL_ARGS + ["--device", device] + extra)
         print(f"[bench-tools] bench_kernels{' --backward' if extra else ''}: "
               f"{json.dumps(rows)} | {smi}", flush=True)
         if [r["H"] for r in rows] != BENCH_KERNEL_HS:
             fail(f"[bench-tools] bench_kernels rows {rows}")
-    return launches
+    _, _, cluster, stream, wide_bwd = (a - b for a, b in zip(_wide_route_counts(), before))
+    print(f"[bench-tools] bench_kernels launched the wide forward on clusters {cluster} "
+          f"times, streaming {stream}, the wide backward {wide_bwd} | {smi}", flush=True)
+    return {"gru_sequence": launches, "gru_sequence_wide_cluster": cluster,
+            "gru_sequence_wide": stream, "gru_sequence_bwd_wide": wide_bwd}
 
 
 def main() -> None:
@@ -4425,13 +4521,14 @@ def main() -> None:
         figure_launches = timed("figures", phase_figures, smi, Path(tmp))
         timed("pipeline", phase_pipeline, smi, Path(tmp))
     runs = (train_launches, eval_launches, seq_launches, wide_launches,
-            sweep_launches, profile_launches, tg_wide_launches)
+            sweep_launches, profile_launches, tg_wide_launches, bench_launches)
     launches = {**cgan_launches, **wide_attn_launches,
                 **{k: sum(r.get(k, 0) for r in runs)
-                   for k in ("gru_sequence", "gru_sequence_bwd", "gru_sequence_wide",
-                             "gru_sequence_bwd_wide", "multigru_disc_inputs")}}
+                   for k in ("gru_sequence", "gru_sequence_bwd", "gru_sequence_wide_cluster",
+                             "gru_sequence_wide", "gru_sequence_bwd_wide",
+                             "multigru_disc_inputs")}}
     launches["gru_sequence"] += (serve_launches + synth_launches + figure_launches
-                                 + convert_launches + bench_launches)
+                                 + convert_launches)
     launches["flash_forward"] = cgan_launches["flash_forward"] + cgan_serve_launches
     launches["iir_filter"] = iir_launches
     for k, n in launches.items():
@@ -4443,6 +4540,8 @@ def main() -> None:
                                 "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_bwd": ("eegsynth_torch/csrc/gru_seq.cu",
                                     "eegsynth/nn/pallas_gru.py:81"),
+               "gru_sequence_wide_cluster": ("eegsynth_torch/csrc/gru_seq_cluster.cu",
+                                             "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_wide": ("eegsynth_torch/csrc/gru_seq_wide.cu",
                                      "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_bwd_wide": ("eegsynth_torch/csrc/gru_seq_wide.cu",

@@ -109,6 +109,7 @@ def load_library() -> ctypes.CDLL:
             # pointers, then the int dimensions, then the stream
             for fn, n_ptr, n_int in (("gru_seq_fwd", 5, 4), ("gru_seq_bwd", 9, 4),
                                      ("gru_seq_wide_fwd", 5, 4), ("gru_seq_wide_bwd", 9, 4),
+                                     ("gru_seq_cluster_fwd", 5, 9), ("gru_seq_cluster_chain", 5, 9),
                                      ("multigru_fwd", 16, 7), ("flash_fwd", 5, 3),
                                      ("flash_bwd_dq", 7, 3), ("flash_bwd_dkv", 9, 3),
                                      ("flash_fwd_wide", 5, 3), ("flash_bwd_dq_wide", 7, 3),
@@ -120,6 +121,8 @@ def load_library() -> ctypes.CDLL:
             for fn in ("gru_seq_fwd_tile", "gru_seq_wide_tile"):
                 getattr(lib, fn).argtypes = [i32] * 3 + [ptr]
                 getattr(lib, fn).restype = i32
+            lib.gru_seq_cluster_card.argtypes = [ptr]
+            lib.gru_seq_cluster_card.restype = i32
             lib.multigru_fwd_tile.argtypes = [i32] * 6 + [ptr]
             lib.multigru_fwd_tile.restype = i32
             lib.flash_bwd_dkv_scratch.argtypes = [i32] * 3

@@ -21,9 +21,10 @@
 // from L2 and does R 3 H^2 multiply-adds on it, after the step before has
 // finished; T steps in a chain. At H 512 that is 3 MB of L2 traffic a block
 // a step, so the per-SM L2 bandwidth, times T, bounds it, far above the HBM
-// bytes of xp and ys. A faster design splits W_hh^T's columns over a
-// cluster of blocks, each holding its slice in shared memory, and
-// broadcasts h through distributed shared memory every step (ROADMAP).
+// bytes of xp and ys. The forward up to the H a cluster's shared memory
+// holds runs gru_seq_cluster.cu instead, which splits W_hh^T's units over a
+// cluster of blocks and exchanges h through distributed shared memory every
+// step; this forward takes the widths above it, this backward every width.
 //
 // Forward: thread j (one per column, the block H threads rounded up to a
 // warp, so H <= 1024) computes hp[r, g H + j] for the three gates g and the

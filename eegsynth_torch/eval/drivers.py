@@ -276,7 +276,12 @@ def main(argv: list[str] | None = None) -> dict:
                     help="t-SNE over at most this many windows (evaluate_18.py: "
                          "6000); default all")
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--mesh", action="store_true",
+                    help="refused: the scorers run on one device (--device)")
     args = ap.parse_args(argv)
+    if args.mesh:
+        raise SystemExit("--mesh has no counterpart in eegsynth_torch: the scorer "
+                         "stacks run on one device (--device), not sharded over a mesh")
     return run_timegan_eval(args.real_dir, args.synth_dir, args.out, fs=args.fs,
                             by_condition=args.by_condition, tsne_max=args.tsne_max,
                             device=args.device)

@@ -6,7 +6,10 @@ custom VJP ``_gru_seq_bwd``). :func:`gru_sequence` is differentiable through
 :class:`GRUSequence`, whose forward and backward are both kernels on the card
 (``eegsynth_torch/csrc/gru_seq.cu``, built at first use by
 ``eegsynth_torch._build``); past H 128 both halves take the wide route
-(``eegsynth_torch/csrc/gru_seq_wide.cu``: W_hhᵀ streamed from L2 each step,
+(the forward on a thread-block cluster that holds W_hhᵀ in its blocks'
+shared memory, ``eegsynth_torch/csrc/gru_seq_cluster.cu``, up to the H a
+cluster holds; above that, and the backward at every wide H,
+``eegsynth_torch/csrc/gru_seq_wide.cu``: W_hhᵀ streamed from L2 each step,
 up to H 1024). On a CPU tensor each half runs its plain PyTorch
 version (:func:`gru_sequence_reference`, :func:`gru_sequence_bwd_reference`),
 which is also the oracle the kernels are checked against on the card; on a
@@ -165,26 +168,186 @@ def _forward(xp, w_hh_t, b_hh, h0) -> torch.Tensor:
     return ys
 
 
-def gru_sequence_wide(xp, w_hh_t, b_hh, h0) -> torch.Tensor:
-    """Launch K1's wide forward kernel on stacked, checked CUDA tensors (any
-    H up to :data:`MAX_WIDE_HIDDEN`; :func:`gru_sequence` takes it past
-    :data:`MAX_HIDDEN`). ``gru_sequence_wide.launches`` counts its launches."""
+CLUSTER_SIZES = (2, 4, 8, 16)
+"""Blocks a cluster of K1's cluster forward (``gru_seq_cluster.cu``); 16 is
+a non-portable size, taken where the card reports such clusters resident."""
+
+CLUSTER_ROWS = (1, 2, 4, 8)
+"""Batch rows a cluster (its kernel instances)."""
+
+CLUSTER_MAX_THREADS = 512
+"""Threads a block of the cluster forward (its launch bound)."""
+
+CLUSTER_BAR_BYTES = 16
+"""Shared bytes of the block's two mbarriers, ahead of W_hhᵀ's slice."""
+
+CLUSTER_MAX_REGS = 128
+"""Registers a thread of the cluster forward may take: 65,536 over its
+launch bound of 512 threads (the widest instance takes 118)."""
+
+EXCHANGE_CLOCKS = 1500
+"""The plan's estimate of one step's exchange of h' inside a cluster and the
+wait for it, in SM clocks, beside the sums' clocks (:func:`cluster_plan`):
+the step-chain probe took 0.55–1.10 µs a step (1,100–2,200 clocks at 1.98
+GHz) at the cluster shapes of ``chip_smoke.py``'s ``[bound]`` lines on the
+H100 (PERF.md §6)."""
+
+
+def cluster_geometry(H: int, C: int) -> dict[str, int]:
+    """A cluster of C blocks at width H: units a block U = ceil(H / C), the
+    lanes S that split a dot product (4 for C up to 4, else 8), the slice
+    KL = ceil(H / S) rounded up to 4, and threads a block, U·S rounded up to
+    a warp."""
+    S = 4 if C <= 4 else 8
+    U = -(-H // C)
+    KL = (-(-H // S) + 3) // 4 * 4
+    return {"S": S, "KL": KL, "U": U, "threads": -(-U * S // 32) * 32}
+
+
+def cluster_smem(R: int, S: int, KL: int, U: int) -> int:
+    """Shared bytes of a block of the cluster forward (as
+    ``gru_seq_cluster.cu``'s ``cluster_smem``): the mbarriers, W_hhᵀ's
+    slice of 3·U units over the padded depth S·KL, and two buffers of R rows
+    of h at S slices of KL + 4 or KL + 8."""
+    sp = KL + 4 if KL % 8 == 0 else KL + 8
+    return CLUSTER_BAR_BYTES + 4 * (3 * KL * U * S + 2 * R * S * sp)
+
+
+def _step_clocks(g: dict[str, int], R: int) -> float:
+    """The plan's model of one step of a block, in SM clocks: the larger of
+    its multiply-adds at 128 a clock and its shared-memory wavefronts (W_hhᵀ
+    as 512-byte warp reads, h as broadcasts), plus the exchange."""
+    work = 3 * g["U"] * g["S"] * g["KL"]
+    fma = work * R / 128
+    lds = work / 32 + g["threads"] // 32 * g["KL"] // 4 * R
+    return max(fma, lds) + EXCHANGE_CLOCKS
+
+
+def resident_clusters(card: dict, C: int, threads: int, smem: int) -> int:
+    """Clusters of C blocks of ``threads`` threads and ``smem`` shared bytes
+    resident at once: the card's count at one block an SM, times the blocks
+    an SM holds by its shared memory and by its registers at
+    :data:`CLUSTER_MAX_REGS` a thread (a cluster's blocks may share an SM)."""
+    by_smem = card["smem_sm"] // (smem + card["smem_reserved"])
+    by_regs = 65536 // (CLUSTER_MAX_REGS * threads)
+    return card["resident"].get(C, 0) * max(1, min(by_smem, by_regs))
+
+
+def cluster_fits(H: int, card: dict):
+    """Every cluster the card can run at width H, as (C, R,
+    :func:`cluster_geometry`, shared bytes): C of :data:`CLUSTER_SIZES`
+    with clusters resident, at most :data:`CLUSTER_MAX_THREADS` threads a
+    block and a unit for every block, and each R of :data:`CLUSTER_ROWS`
+    whose shared bytes fit a block."""
+    for C in CLUSTER_SIZES:
+        g = cluster_geometry(H, C)
+        if (card["resident"].get(C, 0) < 1 or g["threads"] > CLUSTER_MAX_THREADS
+                or (C - 1) * g["U"] >= H):
+            continue
+        for R in CLUSTER_ROWS:
+            smem = cluster_smem(R, g["S"], g["KL"], g["U"])
+            if smem <= card["smem"]:
+                yield C, R, g, smem
+
+
+def cluster_plan(nb: int, B: int, H: int, card: dict) -> dict:
+    """K1's wide forward route for (nb, B, H) on a card with ``card["smem"]``
+    shared bytes a block, ``card["smem_sm"]`` an SM (``card["smem_reserved"]``
+    of them reserved a block) and ``card["resident"][C]`` clusters of C
+    blocks resident at once at one block an SM (:func:`cluster_card`).
+
+    Each C of :func:`cluster_fits` takes the fewest rows R that put the
+    launch's nb·ceil(B / R) clusters in one wave (:func:`resident_clusters`),
+    else the most rows that fit. The plan is the C of the fewest modelled
+    clocks (waves × :func:`_step_clocks`) among those in one wave, or among
+    all where none is; the smaller C on a tie. Where no C fits (past the
+    cap: H 544 on the H100 with clusters of 16, else 384), the route is
+    ``"stream"``: ``gru_seq_wide.cu``'s forward."""
+    by_size: dict[int, list] = {}
+    for C, R, g, smem in cluster_fits(H, card):
+        by_size.setdefault(C, []).append(
+            (R, g, smem, resident_clusters(card, C, g["threads"], smem)))
+    best = None
+    for C, fits in by_size.items():
+        R, g, smem, resident = next((f for f in fits if nb * -(-B // f[0]) <= f[3]), fits[-1])
+        clusters = nb * -(-B // R)
+        waves = -(-clusters // resident)
+        clocks = waves * _step_clocks(g, R)
+        if best is None or (waves > 1, clocks) < (best["waves"] > 1, best["clocks"]):
+            best = {"route": "cluster", "C": C, "R": R, **g, "smem": smem,
+                    "clusters": clusters, "resident": resident, "waves": waves,
+                    "clocks": clocks}
+    return best or {"route": "stream"}
+
+
+_CARDS: dict[int, dict] = {}
+
+
+def cluster_card(device: torch.device | None = None) -> dict:
+    """The numbers :func:`cluster_plan` takes, from the card itself
+    (``gru_seq_cluster_card``; kept per device): SMs, shared bytes a block
+    and an SM and those reserved a block, and clusters of each C resident
+    at once, one block an SM."""
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _CARDS:
+        lib = _build.load_library()
+        out = (ctypes.c_int * 8)()
+        with torch.cuda.device(index):
+            _build.check(lib, "gru_seq_cluster_card", lib.gru_seq_cluster_card(out))
+        _CARDS[index] = {"sms": out[0], "smem": out[1], "smem_sm": out[2],
+                         "smem_reserved": out[3],
+                         "resident": dict(zip(CLUSTER_SIZES, out[4:8]))}
+    return _CARDS[index]
+
+
+def gru_sequence_wide(xp, w_hh_t, b_hh, h0, plan: dict | None = None) -> torch.Tensor:
+    """Launch K1's wide forward on stacked, checked CUDA tensors (any H up
+    to :data:`MAX_WIDE_HIDDEN`; :func:`gru_sequence` takes it past
+    :data:`MAX_HIDDEN`): the cluster kernel where :func:`cluster_plan` (or
+    the ``plan`` given) finds a cluster that holds W_hhᵀ, counted by
+    ``gru_sequence_wide.cluster_launches``; else the streaming kernel,
+    counted by ``gru_sequence_wide.launches``. A plan the kernel cannot
+    launch raises."""
     nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
     ys = torch.empty((nb, T, B, H), dtype=torch.float32, device=xp.device)
     if nb and T and B:
-        _launch("gru_seq_wide_fwd", xp, w_hh_t, b_hh, h0, ys, nb, T, B, H)
-        gru_sequence_wide.launches += 1
+        if plan is None:
+            plan = cluster_plan(nb, B, H, cluster_card(xp.device))
+        if plan["route"] == "cluster":
+            _launch("gru_seq_cluster_fwd", xp, w_hh_t, b_hh, h0, ys, nb, T, B, H,
+                    *(plan[k] for k in ("C", "R", "S", "KL", "U")))
+            gru_sequence_wide.cluster_launches += 1
+        else:
+            _launch("gru_seq_wide_fwd", xp, w_hh_t, b_hh, h0, ys, nb, T, B, H)
+            gru_sequence_wide.launches += 1
     return ys
 
 
-def wide_tile(nb: int, B: int, H: int) -> dict[str, int]:
-    """The wide route's tile for (nb, B, H) on the current card: batch rows
-    a block, tiles a bucket, threads a block, and the forward's and the
+def cluster_chain_probe(xp, w_hh_t, b_hh, h0, plan: dict) -> None:
+    """Launch the cluster forward's step-chain probe (``gru_seq_cluster_chain``)
+    on the inputs of a :func:`gru_sequence_wide` call and its cluster plan:
+    the same launch with each step's sums and gates left out, T steps of the
+    exchange of h and the wait for it alone. It writes nothing, is counted
+    by no launch counter, and is timed as the route's step-chain floor."""
+    nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
+    _launch("gru_seq_cluster_chain", xp, w_hh_t, b_hh, h0, xp, nb, T, B, H,
+            *(plan[k] for k in ("C", "R", "S", "KL", "U")))
+
+
+def wide_tile(nb: int, B: int, H: int) -> dict:
+    """The wide route for (nb, B, H) on the current card: the forward's
+    ``route`` (``"cluster"`` or ``"stream"``) with its cluster ``C`` and rows
+    ``R`` (None on the streaming kernel) and ``plan`` (:func:`cluster_plan`);
+    and the streaming kernels' tile (the backward's at every wide H): batch
+    rows a block, tiles a bucket, threads a block, and the forward's and the
     backward's shared bytes."""
     lib = _build.load_library()
     out = (ctypes.c_int * 5)()
     _build.check(lib, "gru_seq_wide_tile", lib.gru_seq_wide_tile(nb, B, H, out))
-    return dict(zip(("rows", "blocks", "threads", "fwd_smem", "bwd_smem"), out))
+    plan = cluster_plan(nb, B, H, cluster_card())
+    return {"route": plan["route"], "C": plan.get("C"), "R": plan.get("R"), "plan": plan,
+            **dict(zip(("rows", "blocks", "threads", "fwd_smem", "bwd_smem"), out))}
 
 
 DW_CHUNKS = 16
@@ -289,8 +452,10 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels:
     ``gru_sequence.launches`` counts the forward launches at H up to
-    :data:`MAX_HIDDEN`, ``gru_sequence_wide.launches`` the wide route's past
-    it (and ``gru_sequence_bwd`` / ``gru_sequence_bwd_wide`` the backward's).
+    :data:`MAX_HIDDEN`, ``gru_sequence_wide.cluster_launches`` and
+    ``gru_sequence_wide.launches`` the wide route's past it (the cluster and
+    the streaming kernel; and ``gru_sequence_bwd`` / ``gru_sequence_bwd_wide``
+    the backward's).
     H past :data:`MAX_WIDE_HIDDEN` raises."""
     if xp.dim() == 3:
         return gru_sequence(xp[None], w_hh_t[None], b_hh[None], h0[None])[0]
@@ -300,4 +465,5 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
 gru_sequence.launches = 0
 gru_sequence_bwd.launches = 0
 gru_sequence_wide.launches = 0
+gru_sequence_wide.cluster_launches = 0
 gru_sequence_bwd_wide.launches = 0

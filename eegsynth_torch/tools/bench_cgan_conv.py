@@ -23,9 +23,10 @@ features and the loss are float32. TF32 stays off (``eegsynth_torch``).
 Each formulation is checked against ``ncw`` on the same weights, then
 timed with CUDA events: the forward alone and the forward with the
 backward (the gradient of the sum of squares in every weight and the
-input), ``--iters`` calls after WARMUP, all formulations in turns.
+input), ``--iters`` windows of ``--inner`` calls each after WARMUP (a
+window's time divided by both), all formulations in turns.
 
-    python3 -m eegsynth_torch.tools.bench_cgan_conv [--batch 64] [--iters 20]
+    python3 -m eegsynth_torch.tools.bench_cgan_conv [--batch 64] [--iters 20] [--inner 1]
 
 Prints one line per stack, precision and formulation with the card's name
 and power limit, then one JSON line of the times (ms).
@@ -138,16 +139,17 @@ def _forward_backward(stack, kind, layers, x, dtype):
     return torch.autograd.grad(out.float().pow(2).sum(), [x, *params])
 
 
-def _events_ms(fn, iters: int, warmup: int) -> float:
+def _events_ms(fn, iters: int, warmup: int, inner: int = 1) -> float:
+    """ms a call: one timed window of ``iters`` × ``inner`` calls."""
     for _ in range(warmup):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    for _ in range(iters):
+    for _ in range(iters * inner):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (iters * inner)
 
 
 def check(batch: int, device, generator: torch.Generator) -> dict:
@@ -177,6 +179,10 @@ def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--inner", type=int, default=1,
+                    help="calls a timed iteration: a window runs iters x inner "
+                         "calls and is divided by both (scripts/bench_cgan_conv.py's "
+                         "chained steps a dispatch)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_cgan_conv times the card: no CUDA device is available")
@@ -184,6 +190,7 @@ def main(argv: list[str] | None = None) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[bench-conv] B={args.batch} iters={args.iters}x{args.inner} | {smi}", flush=True)
     gen = torch.Generator().manual_seed(SEED)
     errors = check(args.batch, device, gen)
     d_layers, g_layers = make_weights(gen, device)
@@ -202,9 +209,9 @@ def main(argv: list[str] | None = None) -> dict:
             for _ in range(2):                 # two turns, the order reversed
                 for kind in FORMULATIONS:
                     fwd = _events_ms(lambda: stack(kind, layers, inp, dtype),  # noqa: B023
-                                     args.iters, WARMUP)
+                                     args.iters, WARMUP, args.inner)
                     both = _events_ms(lambda: _forward_backward(  # noqa: B023
-                        stack, kind, layers, inp, dtype), args.iters, WARMUP)
+                        stack, kind, layers, inp, dtype), args.iters, WARMUP, args.inner)
                     times.setdefault(kind, []).append((fwd, both))
             for kind in FORMULATIONS:
                 fwd = sum(t[0] for t in times[kind]) / 2
@@ -215,7 +222,8 @@ def main(argv: list[str] | None = None) -> dict:
                       f"{prec} {kind}: forward {fwd:.4f} ms ({fl / fwd / 1e9:.2f} TFLOP/s), "
                       f"forward+backward {both:.4f} ms ({3 * fl / both / 1e9:.2f} TFLOP/s); "
                       f"against ncw {errors[(name, prec, kind)]:.2e} | {smi}", flush=True)
-    print(json.dumps({"bench_cgan_conv": results, "batch": args.batch, "card": smi}),
+    print(json.dumps({"bench_cgan_conv": results, "batch": args.batch, "iters": args.iters,
+                      "inner": args.inner, "card": smi}),
           flush=True)
     return results
 

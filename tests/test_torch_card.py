@@ -37,8 +37,9 @@ from eegsynth_torch.nn.attention import (
     flash_dq_plain, flash_forward, flash_forward_plain, mha,
 )
 from eegsynth_torch.nn.gru_sequence import (
-    gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
-    gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide,
+    MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_card, cluster_geometry, cluster_plan, gru_sequence,
+    gru_sequence_bwd, gru_sequence_bwd_reference, gru_sequence_bwd_wide,
+    gru_sequence_reference, gru_sequence_wide,
 )
 from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
@@ -214,17 +215,33 @@ def test_backward_repeats_bitwise(cuda_device, nb, T, B, H):
         assert torch.equal(a, b), name
 
 
-# K1's wide route (gru_seq_wide.cu, H past 128): the first width past the
-# register kernels' cap (3H and H not multiples of 4: the scalar tails),
-# H 256 and 512 (bench_kernels' sweep) with odd T and B, a batch past one
-# wave of one-row tiles (four rows a block), one step, and the cap
+def _wide_counts() -> tuple:
+    """K1 forward, the wide route's cluster and streaming forwards, K1
+    backward, the wide backward."""
+    return (gru_sequence.launches, gru_sequence_wide.cluster_launches,
+            gru_sequence_wide.launches, gru_sequence_bwd.launches,
+            gru_sequence_bwd_wide.launches)
+
+
+def _wide_forward(nb, B, H) -> list:
+    """The wide forward's launches _wide_counts expects at (nb, B, H): the
+    cluster kernel where the card's plan fits, else the streaming kernel."""
+    cluster = cluster_plan(nb, B, H, cluster_card())["route"] == "cluster"
+    return [0, int(cluster), int(not cluster)]
+
+
+# K1's wide route (H past 128; the forward on a cluster up to its cap, in
+# gru_seq_cluster.cu, the streaming kernels of gru_seq_wide.cu past it and
+# for the backward): the first width past the register kernels' cap (3H
+# and H not multiples of 4: the scalar tails), H 256 and 512
+# (bench_kernels' sweep) with odd T and B, a batch past one wave, one step,
+# and the largest H
 @pytest.mark.parametrize("nb,T,B,H", [(2, 101, 37, 129), (2, 301, 33, 256),
                                       (2, 77, 5, 512), (1, 50, 600, 200),
                                       (3, 1, 5, 256), (1, 20, 3, 1024)])
 def test_wide_kernels_match_plain(cuda_device, nb, T, B, H):
     inputs = _inputs(T, B, H, cuda_device, seed=H, lead=(nb,))
-    before = (gru_sequence.launches, gru_sequence_wide.launches,
-              gru_sequence_bwd.launches, gru_sequence_bwd_wide.launches)
+    before = _wide_counts()
     ys = gru_sequence(*inputs)
     ref = gru_sequence_reference(*inputs)
     d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(1))
@@ -232,12 +249,63 @@ def test_wide_kernels_match_plain(cuda_device, nb, T, B, H):
     got = gru_sequence_bwd(*inputs, ys, d_ys)
     want = gru_sequence_bwd_reference(*inputs, ys, d_ys)
     torch.cuda.synchronize()
-    after = (gru_sequence.launches, gru_sequence_wide.launches,
-             gru_sequence_bwd.launches, gru_sequence_bwd_wide.launches)
-    assert [a - b for a, b in zip(after, before)] == [0, 1, 0, 1]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [*_wide_forward(nb, B, H), 0, 1]
     assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
     assert (ys - ref).abs().max().item() <= 1e-4
     _assert_bwd_matches(got, want)
+
+
+# each cluster size, its plan given: widths not a multiple of C or of 4,
+# a ragged last block (H 129 on two blocks of 65 units, H 300 on sixteen of
+# 19), nb 3, and sixteen blocks at H 512 with eight rows (231,440 shared
+# bytes a block)
+@pytest.mark.parametrize("C,R,nb,T,B,H", [(2, 8, 1, 60, 37, 129), (4, 4, 2, 75, 9, 200),
+                                          (8, 2, 3, 33, 5, 300), (8, 4, 1, 40, 64, 256),
+                                          (16, 8, 1, 30, 64, 512), (16, 1, 2, 25, 3, 300)])
+def test_cluster_forward_each_size_matches_plain(cuda_device, C, R, nb, T, B, H):
+    inputs = _inputs(T, B, H, cuda_device, seed=H + C, lead=(nb,))
+    plan = {"route": "cluster", "C": C, "R": R, **cluster_geometry(H, C)}
+    before = _wide_counts()
+    ys = gru_sequence_wide(*inputs, plan=plan)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0]
+    assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
+    assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
+
+
+# the plan's own choice: a ragged batch past one wave, nb 3 at T 1, and
+# the training batch of eighteen buckets
+@pytest.mark.parametrize("nb,T,B,H", [(1, 40, 600, 300), (3, 1, 5, 200), (18, 50, 63, 256)])
+def test_cluster_route_matches_plain(cuda_device, nb, T, B, H):
+    inputs = _inputs(T, B, H, cuda_device, seed=T + H, lead=(nb,))
+    before = _wide_counts()
+    ys = gru_sequence(*inputs)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0]
+    assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
+
+
+def test_cluster_route_ends_at_its_cap(cuda_device):
+    """The largest H a cluster holds on this card runs the cluster kernel,
+    the next H the streaming kernel; both match the plain version. Two
+    calls of the cluster kernel give the same bits, and a plan it cannot
+    launch raises."""
+    card = cluster_card()
+    cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
+              if cluster_plan(1, 1, H, card)["route"] == "cluster")
+    for H, want in ((cap, [0, 1, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0])):
+        inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
+        before = _wide_counts()
+        ys = gru_sequence(*inputs)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_wide_counts(), before)] == want, H
+        assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
+    inputs = _inputs(200, 37, 256, cuda_device, seed=7, lead=(2,))
+    assert torch.equal(gru_sequence(*inputs), gru_sequence(*inputs))
+    inputs = _inputs(10, 3, 129, cuda_device, seed=8, lead=(1,))
+    empty_block = {"route": "cluster", "C": 16, "R": 1, **cluster_geometry(129, 16)}
+    with pytest.raises(RuntimeError, match="gru_seq_cluster_fwd"):
+        gru_sequence_wide(*inputs, plan=empty_block)
 
 
 def test_wide_kernels_repeat_bitwise_and_take_unaligned_inputs(cuda_device):
@@ -261,8 +329,8 @@ def test_wide_timegan_step_runs_on_wide_k1(cuda_device):
     """A TimeGAN at z64/h256 (a TimeGANConfig the JAX package builds): one
     GAN step on the card takes the composed D-step route, no K2; the
     generator's and supervisor's recurrences (H 256) run the wide K1
-    forward and backward, the embedder's and recovery's (H 64) the narrow
-    K1; the step matches the CPU."""
+    forward on its cluster kernel and the wide backward, the embedder's and
+    recovery's (H 64) the narrow K1; the step matches the CPU."""
     cfg = TimeGANConfig(x_dim=14, z_dim=64, h_dim=256)
     nb, B, T = 1, 4, 64
     params = timegan_init_stacked(
@@ -284,14 +352,12 @@ def test_wide_timegan_step_runs_on_wide_k1(cuda_device):
         g_state = optG.init({k: p[k] for k in ttrain.GEN_NETS})
         return ttrain.gan_step(p, optD, d_state, optG, g_state, x.to(device), d, 1, hp)
 
-    counts = lambda: (gru_sequence.launches, gru_sequence_wide.launches,  # noqa: E731
-                      gru_sequence_bwd.launches, gru_sequence_bwd_wide.launches,
-                      multigru_disc_inputs.launches)
+    counts = lambda: (*_wide_counts(), multigru_disc_inputs.launches)  # noqa: E731
     before = counts()
     card = step(cuda_device)
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(counts(), before)]
-    assert launched[4] == 0 and launched[1] >= 2 and launched[3] >= 1
+    assert launched[5] == 0 and launched[1] >= 2 and launched[2] == 0 and launched[4] >= 1
     host = step("cpu")
     logs = (card[3].cpu() - host[3]).abs() / host[3].abs().clamp(min=1.0)
     assert torch.isfinite(card[3]).all() and logs.max().item() <= 1e-4

@@ -309,6 +309,21 @@ def test_bench_formulations_agree_on_the_cpu(monkeypatch):
         bench.main([])
 
 
+def test_bench_takes_inner(monkeypatch):
+    """``--inner`` (``scripts/bench_cgan_conv.py``'s chained steps a
+    dispatch) is accepted: ``main`` gets past argument parsing to the
+    card check, not to argparse's exit 2; the timed window runs iters ×
+    inner calls and divides by both."""
+    from eegsynth_torch.tools import bench_cgan_conv as bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        bench.main(["--inner", "2"])
+    with pytest.raises(SystemExit) as bad:
+        bench.main(["--inner", "two"])
+    assert bad.value.code == 2
+
+
 def test_coherence_gradient_at_an_exact_zero_bin():
     """A constant channel has exactly-zero spectral bins: the JAX package's
     coherence gradient is NaN there (sqrt at 0), and one such bin makes a

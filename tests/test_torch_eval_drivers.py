@@ -152,6 +152,15 @@ def test_slice_train_then_eval_matches_jax(tmp_path, monkeypatch):
     assert all(np.isfinite(v) for v in got["global"].values())
 
 
+def test_mesh_is_refused_with_a_reason(tmp_path):
+    """``--mesh`` (``scripts/evaluate_18.py``, ``scripts/evaluation.py``) is
+    taken and refused with the reason, not argparse's exit 2."""
+    with pytest.raises(SystemExit, match="--mesh has no counterpart in eegsynth_torch: "
+                                         "the scorer stacks run on one device"):
+        tdrivers.main(["--mesh", "--out", str(tmp_path / "out"), "--device", "cpu"])
+    assert not (tmp_path / "out").exists()
+
+
 def test_eval_imports_neither_sklearn_nor_matplotlib():
     code = ("import sys, runpy\n"
             "import eegsynth_torch.eval, eegsynth_torch.eval.protocol\n"
