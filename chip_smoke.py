@@ -51,14 +51,15 @@ failure is swallowed):
              orders 2 and 8, float64 and float32, over a 60 s trial against
              its plain version and over an hour against scipy's lfilter, with
              its step-chain floor; K1's wide route (H past 128, forward and
-             backward; the forward on a thread-block cluster up to its cap,
-             the streaming kernel past it) against its plain versions at H
+             backward, each on a thread-block cluster up to its cap, the
+             streaming kernels past it) against its plain versions at H
              129, 256 and 512 (nb 2, odd B and T) and at the cluster
-             route's cap and past it, each line with its route, cluster C
-             and rows R and the cluster's step-chain floor, and against
-             cuDNN's GRU forward and backward at (1, 768, 64, 256), 512 and
-             1024, the cluster forward in turns with the streaming one and
-             beside every cluster plan that fits;
+             routes' cap and past it, each line with each half's route,
+             cluster C, rows R and waves and the clusters' step-chain
+             floors, and against cuDNN's GRU forward and backward at (1,
+             768, 64, 256), 512 and 1024, each cluster kernel in turns with
+             the streaming one it replaced and beside every cluster plan
+             that fits;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -117,8 +118,8 @@ failure is swallowed):
              (events, device time) against the launches;
 5g. timegan-wide — a TimeGAN at x14/z64/h256 through train/timegan.py's
              step functions: one AE and one SUP step, 2 GAN steps at B 16,
-             T 768, synthesize(); the wide K1 forward (on its cluster kernel)
-             and backward launched, no K2; one GAN step at B 4, T 96 against
+             T 768, synthesize(); the wide K1 forward and backward (on their
+             cluster kernels) launched, no K2; one GAN step at B 4, T 96 against
              the CPU;
 5h. convert — ``python -m eegsynth_torch.convert_torch_ckpt``: a
              reference-shaped TimeGAN checkpoint and conv generator made in
@@ -130,8 +131,8 @@ failure is swallowed):
              one row of each model), ``tools.bench_serve`` (4 clients and the
              hung client for 5 s against the server, 0 errors),
              ``tools.bench_kernels`` (H 56, 128, 256, 512 and 1024, forward
-             and backward: the wide forward on clusters and, at 1024, the
-             streaming one);
+             and backward: the wide forward and backward on clusters and, at
+             1024, the streaming ones);
 6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
              heads 4, patch 8, batch 64) on 9 random posture buckets for 2
              epochs with flash attention forced; artifacts, finite
@@ -267,9 +268,10 @@ from eegsynth_torch.nn.attention import (
     flash_forward, flash_forward_plain, mha, set_attention_impl,
 )
 from eegsynth_torch.nn.gru_sequence import (
-    MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_card, cluster_chain_probe, cluster_fits,
-    cluster_plan, forward_tile, gru_sequence, gru_sequence_bwd, gru_sequence_bwd_recurrence, gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference,
-    gru_sequence_wide, wide_tile,
+    MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_chain_probe, cluster_bwd_fits, cluster_bwd_plan,
+    cluster_card, cluster_chain_probe, cluster_fits, cluster_plan, forward_tile, gru_sequence,
+    gru_sequence_bwd, gru_sequence_bwd_recurrence, gru_sequence_bwd_reference,
+    gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide, wide_tile,
 )
 from eegsynth_torch.nn.layers import xavier_uniform
 from eegsynth_torch.nn.multigru import (
@@ -339,19 +341,25 @@ K1_INSTANCES = ("KL 16, S 1, H <= 16", "KL 16, S 2, H <= 32", "KL 16, S 4, H <= 
 BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128),
               *(shape[:4] for shape in EVAL_SHAPES), *SEQ_SHAPES)
 BWD_CUDNN_SHAPE = (1, 768, 63, 56)
-# K1's wide route (H past 128: the forward on a thread-block cluster in
-# gru_seq_cluster.cu up to the H a cluster holds, the streaming kernels of
-# gru_seq_wide.cu above it and for the backward): the first width past the
-# register kernels' cap, H 256 and 512 (bench_kernels' sweep) at nb 2 with
-# odd T and B, and the cluster route's last H and the next (found from the
-# card's numbers), against the plain versions; at one bucket of the
-# sequential trainer's B 64 and T 768, H 256 (the headline: the TimeGAN of
-# [timegan-wide]), 512 and 1024 (the streaming forward's headline: the
-# widest H of bench_kernels' sweep here), against cuDNN's GRU forward and
-# backward in turns, the cluster forward also against the streaming one
+# K1's wide route (H past 128: the forward and the backward on thread-block
+# clusters in gru_seq_cluster.cu and gru_seq_cluster_bwd.cu up to the H a
+# cluster holds, the streaming kernels of gru_seq_wide.cu above it): the
+# first width past the register kernels' cap, H 256 and 512 (bench_kernels'
+# sweep) at nb 2 with odd T and B, and the cluster routes' last H and the
+# next (found from the card's numbers), against the plain versions; at one
+# bucket of the sequential trainer's B 64 and T 768, H 256 (the headline:
+# the TimeGAN of [timegan-wide]), 512 and 1024 (the streaming kernels'
+# headline: the widest H of bench_kernels' sweep here), against cuDNN's GRU
+# forward and backward in turns, each cluster kernel also against the
+# streaming one
 WIDE_K1_SHAPES = ((2, 301, 37, 129), (2, 303, 33, 256), (2, 151, 37, 512))
 WIDE_K1_CAP_SHAPES = ((2, 151, 37), (1, 101, 9))   # (nb, T, B) at the cap and past it
 WIDE_K1_CUDNN_SHAPES = ((1, 768, 64, 256), (1, 768, 64, 512), (1, 768, 64, 1024))
+# the wide backward's plan sweep beside those two: [timegan-wide]'s
+# generator batch (B 16), its CPU check's (B 4, T 96), H 129, 200 and 384
+# at one bucket of B 64, and the cluster cap at nb 2
+WIDE_K1_BWD_SWEEP_SHAPES = ((1, 768, 16, 256), (1, 96, 4, 256), (1, 768, 64, 129),
+                            (1, 768, 64, 200), (1, 768, 64, 384), (2, 151, 37, 544))
 # K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims (the headline), and
 # adaptive_dims' T > 800 dims z36/h72, 20 channels' z40/h80, the widest
 # width z64/h128, a ragged narrow shape at z16/h32, and the sequential
@@ -960,17 +968,18 @@ def _k1_bwd_vs_cudnn(smi: str, shape: tuple, seed: int) -> None:
 
 def _wide_route_counts() -> tuple:
     """K1 forward, K1 backward, the wide route's cluster forward, its
-    streaming forward, the wide backward."""
+    streaming forward, its cluster backward, its streaming backward."""
     return (gru_sequence.launches, gru_sequence_bwd.launches,
             gru_sequence_wide.cluster_launches, gru_sequence_wide.launches,
-            gru_sequence_bwd_wide.launches)
+            gru_sequence_bwd_wide.cluster_launches, gru_sequence_bwd_wide.launches)
 
 
-def _cluster_cap() -> int:
-    """The largest H on the cluster forward with this card's numbers."""
+def _cluster_cap(plan=cluster_plan) -> int:
+    """The largest H on the cluster forward (``plan`` cluster_plan) or
+    backward (cluster_bwd_plan) with this card's numbers."""
     card = cluster_card()
     return max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
-               if cluster_plan(1, 1, H, card)["route"] == "cluster")
+               if plan(1, 1, H, card)["route"] == "cluster")
 
 
 def _cluster_plans(args, plan: dict) -> str:
@@ -984,29 +993,95 @@ def _cluster_plans(args, plan: dict) -> str:
     return "; ".join(out)
 
 
+def _wide_bwd_alone(args, ys, d_ys):
+    """The wide backward's kernel alone on a given plan, as the wrapper
+    feeds it (hp from the batched product, h_prev) but writing dhp to a
+    buffer of its own so that hp stays intact from one timed launch to the
+    next; and the plan's step-chain probe on the same inputs."""
+    xp, w_hh_t, b_hh, h0 = args
+    nb, T, B, H = ys.shape
+    h_prev = torch.cat([h0.unsqueeze(1), ys[:, :T - 1]], dim=1).reshape(nb, T * B, H)
+    hp = torch.matmul(h_prev, w_hh_t)
+    dhp = torch.empty_like(hp)
+    return (lambda plan: lambda: gru_sequence_bwd_wide(xp, hp, h_prev, d_ys, w_hh_t, b_hh,
+                                                       dhp, plan),
+            lambda plan: lambda: cluster_bwd_chain_probe(xp, hp, h_prev, d_ys, w_hh_t, b_hh,
+                                                         plan))
+
+
+def _cluster_bwd_plans(alone, H: int, plan: dict) -> str:
+    """Every backward cluster that fits (cluster_bwd_fits), its kernel alone
+    timed at these inputs: ``C<c> S<s> R<r> ms`` each, the plan's pick
+    marked *."""
+    out = []
+    for C, R, g, _ in cluster_bwd_fits(H, cluster_card()):
+        ms = _time_ms(alone({"route": "cluster", "C": C, "R": R, **g}), reps=3)
+        pick = (C, g["S"], R) == (plan["C"], plan["S"], plan["R"])
+        out.append(f"C{C} S{g['S']} R{R}{'*' if pick else ''} {ms:.4f}")
+    return "; ".join(out)
+
+
+def _sweep_bwd_plans(smi: str) -> None:
+    """At each of WIDE_K1_BWD_SWEEP_SHAPES, every backward cluster that fits
+    timed (the kernel alone) beside the plan's pick: how far the plan's
+    model ranks from the fastest plan."""
+    for i, (nb, T, B, H) in enumerate(WIDE_K1_BWD_SWEEP_SHAPES):
+        args = _gru_inputs(nb, T, B, H, 28, seed=60 + i, device="cuda")
+        plan = cluster_bwd_plan(nb, B, H, cluster_card())
+        with torch.no_grad():
+            ys = gru_sequence(*args)
+            d_ys = torch.randn(ys.shape, device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(i))
+            alone, _ = _wide_bwd_alone(args, ys, d_ys)
+            text = _cluster_bwd_plans(alone, H, plan)
+        times = [float(t.split()[-1]) for t in text.split("; ")]
+        pick = next(float(t.split()[-1]) for t in text.split("; ") if "*" in t)
+        print(f"[kernel] gru_sequence_bwd_wide_cluster nb={nb} T={T} B={B} H={H} plans "
+              f"(kernel alone, ms): {text}; the pick {pick / min(times):.3f}x the "
+              f"fastest | {smi}", flush=True)
+
+
+def _plan_text(plan: dict, probe: str) -> str:
+    """A cluster plan's C, R and geometry, clusters and waves."""
+    geometry = ", ".join(f"{k} {plan[k]}" for k in ("S", "KL", "KE", "U") if k in plan)
+    return (f"cluster C {plan['C']} x R {plan['R']} rows ({geometry}, {plan['threads']} "
+            f"threads, {plan['smem']} B shared; {plan['clusters']} clusters, "
+            f"{plan['resident']} resident, {plan['waves']} wave(s)); step-chain floor "
+            f"{probe}")
+
+
 def _check_k1_wide(smi: str) -> dict:
     """K1's wide route, forward and backward (the whole call: the hp
     product, the kernel, the dW product), at WIDE_K1_SHAPES and at the
-    cluster route's cap and past it against the plain versions, then at
+    cluster routes' cap and past it against the plain versions, then at
     WIDE_K1_CUDNN_SHAPES against the plain versions and cuDNN's GRU
-    (forward, and backward by autograd.grad) in turns; each shape's route,
-    cluster C and rows R; on the cluster route the step-chain floor (the
-    probe of the same plan: the exchange and the wait alone) and, at one
-    bucket, every cluster plan that fits; and on the same inputs the
-    streaming forward in turns (the kernel the route had before the
-    cluster).
-    The kernels line takes (1, 768, 64, 256) for the cluster forward and the
-    backward and (1, 768, 64, 1024) for the streaming forward."""
-    cap = _cluster_cap()
+    (forward, and backward by autograd.grad) in turns; each shape's forward
+    and backward route, cluster C, rows R and waves; on a cluster route the
+    step-chain floor (the probe of the same plan: the exchange and the wait
+    alone), and on the same inputs the streaming kernel in turns (the kernel
+    the route had before its cluster); at one bucket every cluster plan that
+    fits, forward and backward; then the backward's plans at
+    WIDE_K1_BWD_SWEEP_SHAPES.
+    The kernels line takes (1, 768, 64, 256) for the cluster forward and
+    backward and (1, 768, 64, 1024) for the streaming ones."""
+    cap, bwd_cap = _cluster_cap(), _cluster_cap(cluster_bwd_plan)
     shapes = (WIDE_K1_SHAPES + tuple((*s, H) for s, H in zip(WIDE_K1_CAP_SHAPES, (cap, cap + 1)))
               + WIDE_K1_CUDNN_SHAPES)
+    print(f"[kernel] K1's wide route: the cluster forward up to H {cap}, the cluster "
+          f"backward up to H {bwd_cap} on this card's numbers | {smi}", flush=True)
     rows, worst = {}, {"gru_sequence_wide_cluster": 0.0, "gru_sequence_wide": 0.0,
-                       "gru_sequence_bwd_wide": 0.0}
+                       "gru_sequence_bwd_wide_cluster": 0.0, "gru_sequence_bwd_wide": 0.0}
     for i, (nb, T, B, H) in enumerate(shapes):
         args = _gru_inputs(nb, T, B, H, 28, seed=40 + i, device="cuda")
         tile = wide_tile(nb, B, H)
         cluster = tile["route"] == "cluster"
+        bplan = tile["bwd_plan"]
+        bwd_cluster = bplan["route"] == "cluster"
+        if bwd_cluster != (H <= bwd_cap):
+            fail(f"the wide backward's route at nb={nb} B={B} H={H} is {bplan['route']}, "
+                 f"its cap H {bwd_cap}")
         name = "gru_sequence_wide_cluster" if cluster else "gru_sequence_wide"
+        bwd_name = "gru_sequence_bwd_wide_cluster" if bwd_cluster else "gru_sequence_bwd_wide"
         with torch.no_grad():
             before = _wide_route_counts()
             ys = gru_sequence(*args)
@@ -1030,55 +1105,68 @@ def _check_k1_wide(smi: str) -> dict:
             ms, lib_ms = times["kernel"], times.get("cuDNN")
             floor_ms = (_time_ms(lambda: cluster_chain_probe(*args, tile["plan"]), reps=5)
                         if cluster else None)
-            if nb != 1:
-                bwd_ms = _time_ms(lambda: gru_sequence_bwd(*args, ys, d_ys), reps=5)
+            bwd = {"kernel": lambda: gru_sequence_bwd(*args, ys, d_ys)}
+            if bwd_cluster:
+                bwd["streaming"] = lambda: gru_sequence_bwd(*args, ys, d_ys,
+                                                            plan={"route": "stream"})
+                alone, probe = _wide_bwd_alone(args, ys, d_ys)
+                bwd_alone_ms = _time_ms(alone(bplan), reps=5)
+                bwd_floor_ms = _time_ms(probe(bplan), reps=5)
             plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS,
                                 warm=False)
             plain_bwd_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
                                     reps=PLAIN_REPS, warm=False)
-        lib_bwd_ms = None
         if nb == 1:
-            cudnn_bwd, as_k1 = _cudnn_gru_bwd(*(a[0] for a in args), d_ys[0])
-            lib_bwd_err = _bwd_errors(as_k1(cudnn_bwd()), ref)[0]
-            with torch.no_grad():
-                bwd_ms, lib_bwd_ms = _turns_ms(lambda: gru_sequence_bwd(*args, ys, d_ys),
-                                               cudnn_bwd, reps=3)
+            bwd["cuDNN"], as_k1 = _cudnn_gru_bwd(*(a[0] for a in args), d_ys[0])
+            lib_bwd_err = _bwd_errors(as_k1(bwd["cuDNN"]()), ref)[0]
+        with torch.no_grad():
+            btimes = _in_turns(bwd, reps=3 if nb == 1 else 5)
+        bwd_ms, lib_bwd_ms = btimes["kernel"], btimes.get("cuDNN")
         plan = tile["plan"]
-        route = (f"cluster C {plan['C']} x R {plan['R']} rows (S {plan['S']}, KL "
-                 f"{plan['KL']}, U {plan['U']}, {plan['threads']} threads, {plan['smem']} B "
-                 f"shared; {plan['clusters']} clusters, {plan['resident']} resident, "
-                 f"{plan['waves']} wave(s)); step-chain floor {floor_ms:.4f} ms; the "
-                 f"streaming forward on the same inputs {times['streaming']:.4f} ms in turns"
+        route = (_plan_text(plan, f"{floor_ms:.4f} ms; the streaming forward on the same "
+                                  f"inputs {times['streaming']:.4f} ms in turns")
                  if cluster else f"streaming, {tile['rows']} rows x {tile['blocks']} tiles x "
                  f"{nb} buckets of {tile['threads']} threads, {tile['fwd_smem']} B shared")
-        print(f"[kernel] gru_sequence_wide nb={nb} T={T} B={B} H={H}: route {route}; "
-              f"max|diff| ys {err:.3e}, dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol "
-              f"{KERNEL_TOL:g}); dW {errs[1]:.3e} of {scale[1]:.3g}, db {errs[2]:.3e} of "
-              f"{scale[2]:.3g} (tol {KERNEL_TOL:g} relative); launches K1 fwd / bwd / "
-              f"cluster fwd / streaming fwd / wide bwd {routes}; forward {ms:.4f} ms "
-              f"(plain {plain_ms:.4f}), backward whole call {bwd_ms:.4f} ms (plain "
-              f"{plain_bwd_ms:.4f}); backward tile {tile['rows']} rows x {tile['blocks']} "
-              f"tiles of {tile['threads']} threads, {tile['bwd_smem']} B shared | {smi}",
-              flush=True)
+        bwd_route = (_plan_text(bplan, f"{bwd_floor_ms:.4f} ms, kernel alone "
+                                       f"{bwd_alone_ms:.4f} ms; the streaming backward's "
+                                       f"whole call on the same inputs "
+                                       f"{btimes['streaming']:.4f} ms in turns")
+                     if bwd_cluster else f"streaming, {tile['rows']} rows x {tile['blocks']} "
+                     f"tiles of {tile['threads']} threads, {tile['bwd_smem']} B shared")
+        print(f"[kernel] gru_sequence_wide nb={nb} T={T} B={B} H={H}: forward route {route}; "
+              f"backward route {bwd_route}; max|diff| ys {err:.3e}, dxp {errs[0]:.3e} dh0 "
+              f"{errs[3]:.3e} (tol {KERNEL_TOL:g}); dW {errs[1]:.3e} of {scale[1]:.3g}, db "
+              f"{errs[2]:.3e} of {scale[2]:.3g} (tol {KERNEL_TOL:g} relative); launches K1 "
+              f"fwd / bwd / cluster fwd / streaming fwd / cluster bwd / streaming bwd "
+              f"{routes}; forward {ms:.4f} ms (plain {plain_ms:.4f}), backward whole call "
+              f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}) | {smi}", flush=True)
         if nb == 1:
             stream = (f", the streaming forward {times['streaming']:.4f} ms"
                       if "streaming" in times else "")
+            bstream = (f", the streaming backward {btimes['streaming']:.4f} ms"
+                       if "streaming" in btimes else "")
             print(f"[kernel] gru_sequence_wide nb=1 T={T} B={B} H={H} vs cuDNN GRU: "
                   f"forward {ms:.4f}{stream} against {lib_ms:.4f} ms (max|diff| "
-                  f"{lib_err:.3e}), backward {bwd_ms:.4f} against {lib_bwd_ms:.4f} ms "
-                  f"(cuDNN dxp {lib_bwd_err[0]:.3e}), in turns | {smi}", flush=True)
-        if cluster and nb == 1:
-            print(f"[kernel] gru_sequence_wide_cluster nb=1 T={T} B={B} H={H} plans (ms): "
-                  f"{_cluster_plans(args, plan)} | {smi}", flush=True)
-        want = [0, 0, 1, 0, 1] if cluster else [0, 0, 0, 1, 1]
+                  f"{lib_err:.3e}), backward whole call {bwd_ms:.4f}{bstream} against "
+                  f"{lib_bwd_ms:.4f} ms (cuDNN dxp {lib_bwd_err[0]:.3e}), in turns | {smi}",
+                  flush=True)
+        if nb == 1:
+            if cluster:
+                print(f"[kernel] gru_sequence_wide_cluster nb=1 T={T} B={B} H={H} plans (ms): "
+                      f"{_cluster_plans(args, plan)} | {smi}", flush=True)
+            if bwd_cluster:
+                print(f"[kernel] gru_sequence_bwd_wide_cluster nb=1 T={T} B={B} H={H} plans "
+                      f"(kernel alone, ms): {_cluster_bwd_plans(alone, H, bplan)} | {smi}",
+                      flush=True)
+        want = [0, 0, int(cluster), int(not cluster), int(bwd_cluster), int(not bwd_cluster)]
         if routes != want:
             fail(f"the wide route at nb={nb} B={B} H={H} launched {routes} (K1 fwd, bwd, "
-                 f"cluster fwd, streaming fwd, wide bwd), expected {want}")
+                 f"cluster fwd, streaming fwd, cluster bwd, streaming bwd), expected {want}")
         if not ok or not bool(torch.isfinite(ys).all()) or err > KERNEL_TOL:
             fail(f"K1's wide route disagrees with its plain version at nb={nb} T={T} "
                  f"B={B} H={H}: ys {err}, backward {errs}")
         worst[name] = max(worst[name], err)
-        worst["gru_sequence_bwd_wide"] = max(worst["gru_sequence_bwd_wide"], errs[0], errs[3])
+        worst[bwd_name] = max(worst[bwd_name], errs[0], errs[3])
         fwd_row = _row(ms, plain_ms, _bound(2 * nb * T * B * H * 3 * H, *args, ys), lib_ms)
         bwd_row = _row(bwd_ms, plain_bwd_ms, _bound(3 * 2 * nb * T * B * H * 3 * H, *args,
                                                    ys, d_ys, *got), lib_bwd_ms)
@@ -1089,18 +1177,25 @@ def _check_k1_wide(smi: str) -> dict:
                   f"exchange and the wait alone, {T} steps on clusters of {plan['C']}), "
                   f"bound {fwd_row['bound_ms']:.4f} ms ({fwd_row['bound_by']}); kernel "
                   f"{ms:.4f} ms, {ms / floor_ms:.2f}x the floor | {smi}", flush=True)
-        _roofline(f"gru_sequence_bwd_wide {label}", bwd_row, smi,
+        _roofline(f"{bwd_name} {label}", bwd_row, smi,
                   "cuDNN GRU backward" if nb == 1 else None)
-        if (nb, T, B, H) == WIDE_K1_CUDNN_SHAPES[0]:
-            rows.update({name: fwd_row, "gru_sequence_bwd_wide": bwd_row})
-        elif (nb, T, B, H) == WIDE_K1_CUDNN_SHAPES[-1]:
-            rows[name] = fwd_row
+        if bwd_cluster:
+            print(f"[bound] {bwd_name} {label}: step-chain floor {bwd_floor_ms:.4f} ms (the "
+                  f"exchange of the partials and the wait alone, {T} steps on clusters of "
+                  f"{bplan['C']}, {bplan['waves']} wave(s)), bound {bwd_row['bound_ms']:.4f} "
+                  f"ms ({bwd_row['bound_by']}); kernel alone {bwd_alone_ms:.4f} ms, "
+                  f"{bwd_alone_ms / bwd_floor_ms:.2f}x the floor; whole call {bwd_ms:.4f} "
+                  f"ms, the streaming backward's {btimes['streaming']:.4f} ms | {smi}",
+                  flush=True)
+        if (nb, T, B, H) in (WIDE_K1_CUDNN_SHAPES[0], WIDE_K1_CUDNN_SHAPES[-1]):
+            rows.update({name: fwd_row, bwd_name: bwd_row})
     if set(rows) != set(worst):
-        fail(f"the wide route's headline shapes took {sorted(rows)}: the cluster route at "
-             f"H {WIDE_K1_CUDNN_SHAPES[0][3]}, the streaming one at "
-             f"{WIDE_K1_CUDNN_SHAPES[-1][3]} expected (cap {cap})")
+        fail(f"the wide route's headline shapes took {sorted(rows)}: the cluster routes at "
+             f"H {WIDE_K1_CUDNN_SHAPES[0][3]}, the streaming ones at "
+             f"{WIDE_K1_CUDNN_SHAPES[-1][3]} expected (caps {cap}, {bwd_cap})")
     for name, err in worst.items():
         rows[name]["max_abs_err"] = err
+    _sweep_bwd_plans(smi)
     return rows
 
 
@@ -4101,8 +4196,8 @@ def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
     """A TimeGAN at x14/z64/h256 through train/timegan.py's step functions
     on the card: one AE and one SUP step, TG_WIDE_GAN_STEPS GAN steps on a
     random bucket of (TG_WIDE_WINDOWS, 768, 14), then synthesize() of 64
-    windows; K1's wide route launched (the forward on its cluster kernel,
-    the streaming backward), no K2 (the D-step inputs take the composed
+    windows; K1's wide route launched (the forward and the backward on their
+    cluster kernels), no K2 (the D-step inputs take the composed
     route past H 128), finite losses and windows;
     then one GAN step at B 4, T TG_WIDE_CHECK_T on the card against the CPU.
     Returns the launches of the training and synthesis run."""
@@ -4142,28 +4237,30 @@ def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
     windows = synthesize(model, 64, SEQ_LEN,
                          generator=torch.Generator(device=device).manual_seed(2))
     synth_s = time.perf_counter() - t0
-    k1, k1_bwd, cluster, wide, wide_bwd, k2 = _since(before)
+    k1, k1_bwd, cluster, wide, cluster_bwd, wide_bwd, k2 = _since(before)
     fmt = lambda row: ", ".join(f"{c}={v:.5f}" for c, v in zip(LOG_COLUMNS, row))  # noqa
     print(f"[timegan-wide] x{x_dim}/z{z_dim}/h{h_dim}, B {B}, T {SEQ_LEN}: AE loss "
           f"{losses['ae']:.6f}, SUP loss {losses['sup']:.6f}; GAN step {TG_WIDE_GAN_STEPS}: "
           f"{fmt(logs[-1])}; AE + SUP + {TG_WIDE_GAN_STEPS} GAN steps {train_s:.2f} s, "
           f"synthesize(64 x {SEQ_LEN}) {synth_s:.2f} s -> {windows.shape}; launches K1 "
           f"forward {k1}, backward {k1_bwd}, wide forward on clusters {cluster}, "
-          f"streaming {wide}, wide backward {wide_bwd}, K2 {k2} | {smi}", flush=True)
+          f"streaming {wide}, wide backward on clusters {cluster_bwd}, streaming {wide_bwd}, "
+          f"K2 {k2} | {smi}", flush=True)
     if not (np.isfinite(logs).all() and all(np.isfinite(v) for v in losses.values())):
         fail(f"[timegan-wide] non-finite losses: {losses}, {logs}")
     if windows.shape != (64, SEQ_LEN, x_dim) or not np.isfinite(windows).all():
         fail(f"[timegan-wide] synthesize gave {windows.shape}, finite "
              f"{np.isfinite(windows).all()}")
     on_card = torch.device(device).type == "cuda"
-    if on_card and (cluster < 1 or wide != 0 or wide_bwd < 1 or k2 != 0):
+    if on_card and (cluster < 1 or wide != 0 or cluster_bwd < 1 or wide_bwd != 0 or k2 != 0):
         fail(f"[timegan-wide] launches: wide forward on clusters {cluster}, streaming "
-             f"{wide}, wide backward {wide_bwd}, K2 {k2}; expected the cluster forward, "
-             "the wide backward, no streaming forward and no K2")
+             f"{wide}, wide backward on clusters {cluster_bwd}, streaming {wide_bwd}, K2 "
+             f"{k2}; expected the cluster forward and backward, no streaming kernel and "
+             "no K2")
     _wide_step_check(smi, device)
     return {"gru_sequence": k1, "gru_sequence_bwd": k1_bwd,
             "gru_sequence_wide_cluster": cluster, "gru_sequence_wide": wide,
-            "gru_sequence_bwd_wide": wide_bwd}
+            "gru_sequence_bwd_wide_cluster": cluster_bwd, "gru_sequence_bwd_wide": wide_bwd}
 
 
 def _wide_step_check(smi: str, device: str, B: int = 4) -> None:
@@ -4204,7 +4301,8 @@ def _wide_step_check(smi: str, device: str, B: int = 4) -> None:
     print(f"[timegan-wide] one GAN step at B {B}, T {T}, card vs CPU: logged values "
           f"{log_err:.3e} (tol {STEP_LOG_RTOL:g}), parameters {p_err:.3e} (tol "
           f"{STEP_PARAM_ATOL:g}), Adam first moments {mu_err:.3e} (tol {STEP_MU_RTOL:g}); "
-          f"launches K1 fwd / bwd / cluster fwd / streaming fwd / wide bwd / K2 {launched} "
+          f"launches K1 fwd / bwd / cluster fwd / streaming fwd / cluster bwd / streaming "
+          f"bwd / K2 {launched} "
           f"| {smi}", flush=True)
     if log_err > STEP_LOG_RTOL or p_err > STEP_PARAM_ATOL or not mu_err <= STEP_MU_RTOL:
         fail(f"[timegan-wide] the card's GAN step disagrees with the CPU: logs {log_err}, "
@@ -4429,8 +4527,8 @@ def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> dict:
     bench_synthesis --parity and one row of each model; bench_serve for
     BENCH_SERVE_SECONDS with 4 clients and the hung client against the
     port's server on two full-width TimeGAN runs, 0 errors; bench_kernels'
-    default sweep and H 1024 (past the cluster forward's cap: the streaming
-    forward), forward and backward. Returns the launches of K1 in the served
+    default sweep and H 1024 (past the cluster routes' cap: the streaming
+    forward and backward), forward and backward. Returns the launches of K1 in the served
     run and of the wide route in bench_kernels.""" 
     for args in BENCH_SYNTH_RUNS:
         bench_synthesis.main(args + ["--device", device])
@@ -4461,11 +4559,14 @@ def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> dict:
               f"{json.dumps(rows)} | {smi}", flush=True)
         if [r["H"] for r in rows] != BENCH_KERNEL_HS:
             fail(f"[bench-tools] bench_kernels rows {rows}")
-    _, _, cluster, stream, wide_bwd = (a - b for a, b in zip(_wide_route_counts(), before))
+    _, _, cluster, stream, cluster_bwd, wide_bwd = (
+        a - b for a, b in zip(_wide_route_counts(), before))
     print(f"[bench-tools] bench_kernels launched the wide forward on clusters {cluster} "
-          f"times, streaming {stream}, the wide backward {wide_bwd} | {smi}", flush=True)
+          f"times, streaming {stream}, the wide backward on clusters {cluster_bwd}, "
+          f"streaming {wide_bwd} | {smi}", flush=True)
     return {"gru_sequence": launches, "gru_sequence_wide_cluster": cluster,
-            "gru_sequence_wide": stream, "gru_sequence_bwd_wide": wide_bwd}
+            "gru_sequence_wide": stream, "gru_sequence_bwd_wide_cluster": cluster_bwd,
+            "gru_sequence_bwd_wide": wide_bwd}
 
 
 def main() -> None:
@@ -4525,7 +4626,8 @@ def main() -> None:
     launches = {**cgan_launches, **wide_attn_launches,
                 **{k: sum(r.get(k, 0) for r in runs)
                    for k in ("gru_sequence", "gru_sequence_bwd", "gru_sequence_wide_cluster",
-                             "gru_sequence_wide", "gru_sequence_bwd_wide",
+                             "gru_sequence_wide", "gru_sequence_bwd_wide_cluster",
+                             "gru_sequence_bwd_wide",
                              "multigru_disc_inputs")}}
     launches["gru_sequence"] += (serve_launches + synth_launches + figure_launches
                                  + convert_launches)
@@ -4544,6 +4646,8 @@ def main() -> None:
                                              "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_wide": ("eegsynth_torch/csrc/gru_seq_wide.cu",
                                      "eegsynth/nn/pallas_gru.py:52"),
+               "gru_sequence_bwd_wide_cluster": ("eegsynth_torch/csrc/gru_seq_cluster_bwd.cu",
+                                                 "eegsynth/nn/pallas_gru.py:81"),
                "gru_sequence_bwd_wide": ("eegsynth_torch/csrc/gru_seq_wide.cu",
                                          "eegsynth/nn/pallas_gru.py:81"),
                "multigru_disc_inputs": ("eegsynth_torch/csrc/multigru.cu",

@@ -110,6 +110,8 @@ def load_library() -> ctypes.CDLL:
             for fn, n_ptr, n_int in (("gru_seq_fwd", 5, 4), ("gru_seq_bwd", 9, 4),
                                      ("gru_seq_wide_fwd", 5, 4), ("gru_seq_wide_bwd", 9, 4),
                                      ("gru_seq_cluster_fwd", 5, 9), ("gru_seq_cluster_chain", 5, 9),
+                                     ("gru_seq_cluster_bwd", 9, 9),
+                                     ("gru_seq_cluster_bwd_chain", 9, 9),
                                      ("multigru_fwd", 16, 7), ("flash_fwd", 5, 3),
                                      ("flash_bwd_dq", 7, 3), ("flash_bwd_dkv", 9, 3),
                                      ("flash_fwd_wide", 5, 3), ("flash_bwd_dq_wide", 7, 3),

@@ -1,5 +1,6 @@
 // Thread-block cluster primitives for Hopper (sm_90a) that K2
-// (multigru.cu) and K1's cluster route (gru_seq_cluster.cu) share: the
+// (multigru.cu) and K1's cluster route (gru_seq_cluster.cu forward,
+// gru_seq_cluster_bwd.cu backward) share: the
 // block's rank in its cluster, the cluster barrier, distributed shared
 // memory addresses, mbarriers with transaction counts, and st.async, a
 // store into another block's shared memory that completes its bytes on an
@@ -72,6 +73,14 @@ __device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank)
 __device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
   asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n"
                :: "r"(addr), "f"(v), "r"(bar) : "memory");
+}
+
+// Write the 16 bytes of v at the distributed shared memory address `addr`
+// (16-byte aligned); they complete on the mbarrier at `bar` (same block).
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+               "{%1, %2, %3, %4}, [%5];\n"
+               :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void fence_mbarrier_init() {

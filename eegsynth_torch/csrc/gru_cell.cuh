@@ -1,7 +1,9 @@
 // The GRU cell's device code that K1's forward (gru_seq.cu) and K2
-// (multigru.cu) share: the sigmoid, the instances' block sizes and row
-// groups, the shuffle butterfly over the S lanes of a dot product, and one
-// step of K1 forward's row group. gru_seq.cu's header describes the design;
+// (multigru.cu) share, and with them K1's cluster kernels
+// (gru_seq_cluster.cu, gru_seq_cluster_bwd.cu): the sigmoid, the instances'
+// block sizes and row groups, the shuffle butterfly over the S lanes of a
+// dot product and the rows a lane holds after it, and one step of K1
+// forward's row group. gru_seq.cu's header describes the design;
 // both kernels compile this code as it stands, so K1's arithmetic is the
 // same wherever it runs.
 
@@ -58,6 +60,17 @@ __device__ __forceinline__ void reduce_rows(float (&a)[RG][NV], int s, int& off)
       for (int g = 0; g < NV; ++g) a[0][g] += __shfl_xor_sync(0xffffffffu, a[0][g], M);
       reduce_rows<RG, M / 2, 1>(a, s, off);
     }
+  }
+}
+
+// The first of the rows that lane s holds after reduce_rows<RG, M, N>: the
+// lane whose M bit is set keeps the upper half of the rows each round.
+template <int M, int N>
+__device__ __forceinline__ int held_offset(int s) {
+  if constexpr (M >= 1 && N > 1) {
+    return ((s & M) ? N / 2 : 0) + held_offset<M / 2, N / 2>(s);
+  } else {
+    return 0;
   }
 }
 

@@ -70,7 +70,7 @@
 #include <cstdint>
 
 #include "cluster.cuh"     // cluster_rank, cluster_sync, remote, mbar_*, st_async
-#include "gru_cell.cuh"    // sigmoid_fwd, reduce_rows
+#include "gru_cell.cuh"    // sigmoid_fwd, reduce_rows, held_offset
 #include "tf32_wgmma.cuh"  // cp_async4, cp_async_commit, cp_async_wait, fence_proxy_async
 
 namespace {
@@ -79,17 +79,6 @@ constexpr int kMaxThreads = 512;  // a block: U S rounded up to a warp
 constexpr int kMinHidden = 1;
 constexpr int kMaxHidden = 1024;  // MAX_WIDE_HIDDEN; the plan's shared memory caps it lower
 constexpr int kBarBytes = 16;     // the two mbarriers, ahead of W_hh^T's slice
-
-// The rows of its tile that lane s holds after reduce_rows<R, M, N>: the
-// lane whose M bit is set keeps the upper half of the rows each round.
-template <int M, int N>
-__device__ __forceinline__ int held_offset(int s) {
-  if constexpr (M >= 1 && N > 1) {
-    return ((s & M) ? N / 2 : 0) + held_offset<M / 2, N / 2>(s);
-  } else {
-    return 0;
-  }
-}
 
 __host__ __device__ inline int slice_pitch(int KL) { return KL % 8 == 0 ? KL + 4 : KL + 8; }
 

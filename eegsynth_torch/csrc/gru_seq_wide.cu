@@ -2,10 +2,10 @@
 // backward for hidden widths past 128, with a leading bucket axis.
 //
 // Replaces the TPU kernel eegsynth/nn/pallas_gru.py:_gru_seq_pallas and its
-// custom VJP _gru_seq_bwd at the widths gru_seq.cu does not take: the JAX
-// GRU runs at any H (bench_kernels' default sweep is H 56, 128, 256, 512),
-// and a TimeGANConfig may set any h_dim. Same layouts and the same function
-// as gru_seq.cu:
+// custom VJP _gru_seq_bwd at the widths neither gru_seq.cu nor the cluster
+// kernels take: the JAX GRU runs at any H (bench_kernels' default sweep is
+// H 56, 128, 256, 512), and a TimeGANConfig may set any h_dim. Same layouts
+// and the same function as gru_seq.cu:
 //
 //   xp (nb, T, B, 3H), w_hh_t (nb, H, 3H) = W_hh^T, b_hh (nb, 3H),
 //   h0 (nb, B, H) -> ys (nb, T, B, H), f32, gates [r, z, n].
@@ -21,10 +21,13 @@
 // from L2 and does R 3 H^2 multiply-adds on it, after the step before has
 // finished; T steps in a chain. At H 512 that is 3 MB of L2 traffic a block
 // a step, so the per-SM L2 bandwidth, times T, bounds it, far above the HBM
-// bytes of xp and ys. The forward up to the H a cluster's shared memory
-// holds runs gru_seq_cluster.cu instead, which splits W_hh^T's units over a
-// cluster of blocks and exchanges h through distributed shared memory every
-// step; this forward takes the widths above it, this backward every width.
+// bytes of xp and ys. Up to the H a cluster's shared memory holds, both
+// halves run on a cluster of blocks that splits W_hh^T's units between
+// their shared memory instead: the forward in gru_seq_cluster.cu (h
+// all-gathered through distributed shared memory every step), the backward
+// in gru_seq_cluster_bwd.cu (dh reduce-scattered every step). This forward
+// and this backward take the widths above the clusters' cap (H 545 to 1024
+// on the H100).
 //
 // Forward: thread j (one per column, the block H threads rounded up to a
 // warp, so H <= 1024) computes hp[r, g H + j] for the three gates g and the
@@ -36,7 +39,8 @@
 // them. Thread j then forms the gates of column j and writes h' to the
 // other h buffer and to ys: one barrier a step.
 //
-// Backward (exact reverse-time BPTT of _gru_seq_bwd), as gru_seq.cu's: the
+// Backward (exact reverse-time BPTT of _gru_seq_bwd, above the cluster
+// backward's cap), as gru_seq.cu's: the
 // wrapper computes hp = h_prev W_hh^T for all T B rows as one batched
 // product before the kernel (the kernel adds b_hh), and dW_hh^T = h_prev^T
 // dhp and db_hh = sum dhp after it (gru_sequence.py weight_grads). Only

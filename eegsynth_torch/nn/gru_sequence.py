@@ -5,12 +5,15 @@ Counterpart of ``eegsynth/nn/pallas_gru.py`` (``_gru_seq_pallas``, and the
 custom VJP ``_gru_seq_bwd``). :func:`gru_sequence` is differentiable through
 :class:`GRUSequence`, whose forward and backward are both kernels on the card
 (``eegsynth_torch/csrc/gru_seq.cu``, built at first use by
-``eegsynth_torch._build``); past H 128 both halves take the wide route
-(the forward on a thread-block cluster that holds W_hhᵀ in its blocks'
-shared memory, ``eegsynth_torch/csrc/gru_seq_cluster.cu``, up to the H a
-cluster holds; above that, and the backward at every wide H,
-``eegsynth_torch/csrc/gru_seq_wide.cu``: W_hhᵀ streamed from L2 each step,
-up to H 1024). On a CPU tensor each half runs its plain PyTorch
+``eegsynth_torch._build``); past H 128 both halves take the wide route:
+each half on a thread-block cluster whose blocks hold W_hhᵀ's slice of
+their units in shared memory, up to the H a cluster holds (544 on the H100
+with clusters of 16), the forward in ``eegsynth_torch/csrc/gru_seq_cluster.cu``
+(h' all-gathered each step, :func:`cluster_plan`), the backward in
+``eegsynth_torch/csrc/gru_seq_cluster_bwd.cu`` (dh reduce-scattered each
+step, :func:`cluster_bwd_plan`); above that cap each half on
+``eegsynth_torch/csrc/gru_seq_wide.cu``, W_hhᵀ streamed from L2 each step,
+up to H 1024. On a CPU tensor each half runs its plain PyTorch
 version (:func:`gru_sequence_reference`, :func:`gru_sequence_bwd_reference`),
 which is also the oracle the kernels are checked against on the card; on a
 CUDA tensor it launches the kernel or raises. The backward is first-order
@@ -39,8 +42,8 @@ which holds W_hhᵀ slices in registers the same way; ``adaptive_dims`` caps
 h_dim here. K1 takes wider H through the wide route."""
 
 MAX_WIDE_HIDDEN = 1024
-"""Largest H of K1's wide route (``gru_seq_wide.cu``: one thread a column,
-1024 threads a block); the wrappers raise above it."""
+"""Largest H of K1's wide route (the streaming kernels of ``gru_seq_wide.cu``:
+one thread a column, 1024 threads a block); the wrappers raise above it."""
 
 
 def _gates(x: torch.Tensor, hp: torch.Tensor, H: int):
@@ -169,21 +172,24 @@ def _forward(xp, w_hh_t, b_hh, h0) -> torch.Tensor:
 
 
 CLUSTER_SIZES = (2, 4, 8, 16)
-"""Blocks a cluster of K1's cluster forward (``gru_seq_cluster.cu``); 16 is
-a non-portable size, taken where the card reports such clusters resident."""
+"""Blocks a cluster of K1's cluster forward and backward
+(``gru_seq_cluster.cu``, ``gru_seq_cluster_bwd.cu``); 16 is a non-portable
+size, taken where the card reports such clusters resident."""
 
 CLUSTER_ROWS = (1, 2, 4, 8)
 """Batch rows a cluster (its kernel instances)."""
 
 CLUSTER_MAX_THREADS = 512
-"""Threads a block of the cluster forward (its launch bound)."""
+"""Threads a block of the cluster forward and backward (their launch
+bound)."""
 
 CLUSTER_BAR_BYTES = 16
 """Shared bytes of the block's two mbarriers, ahead of W_hhᵀ's slice."""
 
 CLUSTER_MAX_REGS = 128
-"""Registers a thread of the cluster forward may take: 65,536 over its
-launch bound of 512 threads (the widest instance takes 118)."""
+"""Registers a thread of the cluster forward or backward may take: 65,536
+over their launch bound of 512 threads (the forward's widest instance takes
+118)."""
 
 EXCHANGE_CLOCKS = 1500
 """The plan's estimate of one step's exchange of h' inside a cluster and the
@@ -213,10 +219,11 @@ def cluster_smem(R: int, S: int, KL: int, U: int) -> int:
     return CLUSTER_BAR_BYTES + 4 * (3 * KL * U * S + 2 * R * S * sp)
 
 
-def _step_clocks(g: dict[str, int], R: int) -> float:
+def _step_clocks(g: dict[str, int], R: int, share: int) -> float:
     """The plan's model of one step of a block, in SM clocks: the larger of
     its multiply-adds at 128 a clock and its shared-memory wavefronts (W_hhᵀ
-    as 512-byte warp reads, h as broadcasts), plus the exchange."""
+    as 512-byte warp reads, h as broadcasts), plus the exchange. (The
+    blocks that share an SM, ``share``, do not enter it.)"""
     work = 3 * g["U"] * g["S"] * g["KL"]
     fma = work * R / 128
     lds = work / 32 + g["threads"] // 32 * g["KL"] // 4 * R
@@ -250,6 +257,35 @@ def cluster_fits(H: int, card: dict):
                 yield C, R, g, smem
 
 
+def _best_plan(nb: int, B: int, card: dict, fits, step_clocks, group) -> dict:
+    """The plan of the fewest modelled clocks among ``fits`` ((C, R,
+    geometry, shared bytes) of one route), taken in groups
+    (``group(C, R, geometry)``): each group takes the fewest rows R that put
+    the launch's nb·ceil(B / R) clusters in one wave
+    (:func:`resident_clusters`), else the most rows that fit; the plan is
+    the one of the fewest waves × ``step_clocks(geometry, R, share)`` among
+    those in one wave, or among all where none is; the first on a tie.
+    ``share`` is the blocks of one wave on an SM, at least 1.
+    ``{"route": "stream"}`` where nothing fits."""
+    groups: dict[tuple, list] = {}
+    for C, R, g, smem in fits:
+        groups.setdefault(group(C, R, g), []).append(
+            (C, R, g, smem, resident_clusters(card, C, g["threads"], smem)))
+    best = None
+    for options in groups.values():
+        C, R, g, smem, resident = next(
+            (f for f in options if nb * -(-B // f[1]) <= f[4]), options[-1])
+        clusters = nb * -(-B // R)
+        waves = -(-clusters // resident)
+        share = -(-min(clusters, resident) * C // card["sms"])
+        clocks = waves * step_clocks(g, R, share)
+        if best is None or (waves > 1, clocks) < (best["waves"] > 1, best["clocks"]):
+            best = {"route": "cluster", "C": C, "R": R, **g, "smem": smem,
+                    "clusters": clusters, "resident": resident, "waves": waves,
+                    "clocks": clocks}
+    return best or {"route": "stream"}
+
+
 def cluster_plan(nb: int, B: int, H: int, card: dict) -> dict:
     """K1's wide forward route for (nb, B, H) on a card with ``card["smem"]``
     shared bytes a block, ``card["smem_sm"]`` an SM (``card["smem_reserved"]``
@@ -263,21 +299,111 @@ def cluster_plan(nb: int, B: int, H: int, card: dict) -> dict:
     all where none is; the smaller C on a tie. Where no C fits (past the
     cap: H 544 on the H100 with clusters of 16, else 384), the route is
     ``"stream"``: ``gru_seq_wide.cu``'s forward."""
-    by_size: dict[int, list] = {}
-    for C, R, g, smem in cluster_fits(H, card):
-        by_size.setdefault(C, []).append(
-            (R, g, smem, resident_clusters(card, C, g["threads"], smem)))
-    best = None
-    for C, fits in by_size.items():
-        R, g, smem, resident = next((f for f in fits if nb * -(-B // f[0]) <= f[3]), fits[-1])
-        clusters = nb * -(-B // R)
-        waves = -(-clusters // resident)
-        clocks = waves * _step_clocks(g, R)
-        if best is None or (waves > 1, clocks) < (best["waves"] > 1, best["clocks"]):
-            best = {"route": "cluster", "C": C, "R": R, **g, "smem": smem,
-                    "clusters": clusters, "resident": resident, "waves": waves,
-                    "clocks": clocks}
-    return best or {"route": "stream"}
+    return _best_plan(nb, B, card, cluster_fits(H, card), _step_clocks,
+                      lambda C, R, g: C)
+
+
+CLUSTER_BWD_SLICES = (1, 2, 4, 8)
+"""Lanes S that split one output quad's sum in K1's cluster backward
+(``gru_seq_cluster_bwd.cu``)."""
+
+
+def cluster_bwd_geometry(H: int, C: int, S: int) -> dict[str, int]:
+    """K1's cluster backward on C blocks at width H with S lanes a quad:
+    units a block U = ceil(H / C), output quads NO = ceil(H / 4), entries a
+    lane KE = ceil(3U / S) rounded up to 4 (the kernel reads them as
+    float4s), and threads a block, NO·S rounded up to a warp."""
+    U = -(-H // C)
+    NO = -(-H // 4)
+    return {"S": S, "KE": (-(-3 * U // S) + 3) // 4 * 4, "U": U, "NO": NO,
+            "threads": -(-NO * S // 32) * 32}
+
+
+def cluster_bwd_smem(H: int, C: int, R: int, S: int, KE: int, U: int) -> int:
+    """Shared bytes of a block of the cluster backward (as
+    ``gru_seq_cluster_bwd.cu``'s ``cluster_bwd_smem``): the mbarriers, W_hh's
+    slice of S·KE entries by ceil(H / 4) float4 quads, two receive buffers of
+    C source blocks × R rows × (ceil(U / 4) + 1) quads, and two buffers of R
+    rows of dhp at S slices of KE or KE + 4, whichever is 4 past a multiple
+    of 8."""
+    recv_pitch = (-(-U // 4) + 1) * 4
+    pitch = KE + 4 if KE % 8 == 0 else KE
+    return CLUSTER_BAR_BYTES + 4 * (4 * KE * -(-H // 4) * S + 2 * C * R * recv_pitch
+                                    + 2 * R * S * pitch)
+
+
+BWD_ISSUE_CLOCKS = 1.5
+"""The plan's estimate of the SM clocks an instruction of a warp of the
+cluster backward's sums takes on its scheduler, stalls included
+(:func:`_bwd_step_clocks`)."""
+
+BWD_ENTRY_CLOCKS = 30
+"""The plan's estimate of one entry of a lane's chain of sums in the cluster
+backward, in SM clocks: its dependent shared-memory loads and
+multiply-adds."""
+
+BWD_ROUND_CLOCKS = 200
+"""The plan's estimate of one round of the cluster backward's butterfly
+over the S lanes of a quad (4R values a lane), in SM clocks."""
+
+BWD_EXCHANGE_CLOCKS = 1500
+"""The plan's estimate of one step's reduce-scatter of dh in the cluster
+backward and the wait for it, in SM clocks: the step-chain probe took
+0.77–1.12 µs a step (1,500–2,200 clocks at 1.98 GHz) at the one-wave
+shapes of ``chip_smoke.py``'s ``[bound]`` lines on the H100 (PERF.md §6). With
+the three constants above, the model ranks the plans that
+``chip_smoke.py`` times at every shape of its backward plan sweep (the
+``[kernel] gru_sequence_bwd_wide_cluster ... plans`` lines) so that the
+pick was the fastest at (1, 768, 64, 256) and 512 and within 10 % of the
+fastest at the sweep's other shapes on the H100; a ranking, not a
+time."""
+
+
+def _bwd_step_clocks(g: dict[str, int], R: int, share: int) -> float:
+    """The plan's model of one step of a block of the cluster backward, in SM
+    clocks: the larger of its issue (a warp's KE·(1 + R/4 + 4R)
+    instructions, a quarter of the warps on each scheduler, half again for
+    each other block on the SM) and a lane's chain of KE entries, plus the
+    butterfly's log2(S) rounds and the exchange."""
+    per_scheduler = -(-g["threads"] // 128) * (1 + (share - 1) / 2)
+    issue = BWD_ISSUE_CLOCKS * per_scheduler * g["KE"] * (1 + R / 4 + 4 * R)
+    chain = g["KE"] * BWD_ENTRY_CLOCKS
+    rounds = g["S"].bit_length() - 1
+    return max(issue, chain) + rounds * BWD_ROUND_CLOCKS + BWD_EXCHANGE_CLOCKS
+
+
+def cluster_bwd_fits(H: int, card: dict):
+    """Every cluster backward the card can run at width H, as (C, R,
+    :func:`cluster_bwd_geometry`, shared bytes): C of :data:`CLUSTER_SIZES`
+    with clusters resident and a unit for every block (at least 4 units a
+    block), S of :data:`CLUSTER_BWD_SLICES` with at most
+    :data:`CLUSTER_MAX_THREADS` threads a block, and each R of
+    :data:`CLUSTER_ROWS` with a thread for each of its R·U (row, unit)
+    pairs whose shared bytes fit a block."""
+    for C in CLUSTER_SIZES:
+        U = -(-H // C)
+        if card["resident"].get(C, 0) < 1 or (C - 1) * U >= H or U < 4:
+            continue
+        for S in CLUSTER_BWD_SLICES:
+            g = cluster_bwd_geometry(H, C, S)
+            if g["threads"] > CLUSTER_MAX_THREADS:
+                continue
+            for R in CLUSTER_ROWS:
+                smem = cluster_bwd_smem(H, C, R, S, g["KE"], U)
+                if R * U <= g["threads"] and smem <= card["smem"]:
+                    yield C, R, g, smem
+
+
+def cluster_bwd_plan(nb: int, B: int, H: int, card: dict) -> dict:
+    """K1's wide backward route for (nb, B, H) on the card's numbers (as
+    :func:`cluster_plan`): among every (C, S, R) of :func:`cluster_bwd_fits`
+    (rows are not taken fewest first: two clusters sharing an SM ran slower
+    than one cluster of twice the rows), the plan of the fewest modelled
+    clocks (waves × :func:`_bwd_step_clocks`), one wave first. Where
+    nothing fits (past the cap: H 544 on the H100 with clusters of 16, else
+    384), the route is ``"stream"``: ``gru_seq_wide.cu``'s backward."""
+    return _best_plan(nb, B, card, cluster_bwd_fits(H, card), _bwd_step_clocks,
+                      lambda C, R, g: (C, g["S"], R))
 
 
 _CARDS: dict[int, dict] = {}
@@ -339,14 +465,19 @@ def wide_tile(nb: int, B: int, H: int) -> dict:
     """The wide route for (nb, B, H) on the current card: the forward's
     ``route`` (``"cluster"`` or ``"stream"``) with its cluster ``C`` and rows
     ``R`` (None on the streaming kernel) and ``plan`` (:func:`cluster_plan`);
-    and the streaming kernels' tile (the backward's at every wide H): batch
-    rows a block, tiles a bucket, threads a block, and the forward's and the
-    backward's shared bytes."""
+    the backward's the same under ``bwd_route``, ``bwd_C``, ``bwd_R`` and
+    ``bwd_plan`` (:func:`cluster_bwd_plan`); and the streaming kernels'
+    tile: batch rows a block, tiles a bucket, threads a block, and the
+    forward's and the backward's shared bytes."""
     lib = _build.load_library()
     out = (ctypes.c_int * 5)()
     _build.check(lib, "gru_seq_wide_tile", lib.gru_seq_wide_tile(nb, B, H, out))
-    plan = cluster_plan(nb, B, H, cluster_card())
+    card = cluster_card()
+    plan = cluster_plan(nb, B, H, card)
+    bwd = cluster_bwd_plan(nb, B, H, card)
     return {"route": plan["route"], "C": plan.get("C"), "R": plan.get("R"), "plan": plan,
+            "bwd_route": bwd["route"], "bwd_C": bwd.get("C"), "bwd_R": bwd.get("R"),
+            "bwd_plan": bwd,
             **dict(zip(("rows", "blocks", "threads", "fwd_smem", "bwd_smem"), out))}
 
 
@@ -382,7 +513,7 @@ def gru_sequence_bwd_recurrence(xp, hp, h_prev, d_ys, w_hh_t, b_hh, dhp):
     return dxp, dh0
 
 
-def gru_sequence_bwd(xp, w_hh_t, b_hh, h0, ys, d_ys):
+def gru_sequence_bwd(xp, w_hh_t, b_hh, h0, ys, d_ys, plan: dict | None = None):
     """K1's backward on stacked inputs: (dxp, dw_hh_t, db_hh, dh0).
 
     CPU tensors take the plain version. CUDA tensors run three parts: one
@@ -391,8 +522,11 @@ def gru_sequence_bwd(xp, w_hh_t, b_hh, h0, ys, d_ys):
     reverse recurrence, which adds b_hh to hp, writes dxp and dh0, and
     writes dhp over hp; past H 128 :func:`gru_sequence_bwd_wide`); then
     :func:`weight_grads`, dW_hhᵀ = h_prevᵀ dhp as batched products and
-    db_hh = Σ dhp as one sum. ``gru_sequence_bwd.launches`` and
-    ``gru_sequence_bwd_wide.launches`` count the kernels' launches."""
+    db_hh = Σ dhp as one sum. ``gru_sequence_bwd.launches``,
+    ``gru_sequence_bwd_wide.cluster_launches`` and
+    ``gru_sequence_bwd_wide.launches`` count the kernels' launches. A
+    ``plan`` (past H 128 only) is the wide backward's, as
+    :func:`gru_sequence_bwd_wide` takes it."""
     nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
     for name, t in (("ys", ys), ("d_ys", d_ys)):
         if tuple(t.shape) != (nb, T, B, H):
@@ -405,27 +539,56 @@ def gru_sequence_bwd(xp, w_hh_t, b_hh, h0, ys, d_ys):
     h_prev = torch.cat([h0.unsqueeze(1), ys[:, :T - 1]], dim=1) if T else ys
     h_prev = h_prev.reshape(nb, T * B, H)
     dhp = torch.matmul(h_prev, w_hh_t)      # hp; the kernel writes dhp over it
-    recurrence = (gru_sequence_bwd_recurrence if H <= MAX_HIDDEN
-                  else gru_sequence_bwd_wide)
-    dxp, dh0 = recurrence(xp, dhp, h_prev, d_ys, w_hh_t, b_hh, dhp)
+    if H <= MAX_HIDDEN:
+        if plan is not None:
+            raise ValueError(f"gru_sequence_bwd: a plan is the wide route's, H={H}")
+        dxp, dh0 = gru_sequence_bwd_recurrence(xp, dhp, h_prev, d_ys, w_hh_t, b_hh, dhp)
+    else:
+        dxp, dh0 = gru_sequence_bwd_wide(xp, dhp, h_prev, d_ys, w_hh_t, b_hh, dhp, plan)
     return (dxp, *weight_grads(h_prev, dhp), dh0)
 
 
-def gru_sequence_bwd_wide(xp, hp, h_prev, d_ys, w_hh_t, b_hh, dhp):
-    """Launch K1's wide backward kernel on CUDA tensors: the arguments and
-    results of :func:`gru_sequence_bwd_recurrence`, for any H up to
-    :data:`MAX_WIDE_HIDDEN`. The kernel streams W_hh, so it is passed
-    W_hhᵀ transposed back, contiguous. ``gru_sequence_bwd_wide.launches``
-    counts its launches."""
+_BWD_PLAN_KEYS = ("C", "R", "S", "KE", "U")
+
+
+def gru_sequence_bwd_wide(xp, hp, h_prev, d_ys, w_hh_t, b_hh, dhp, plan: dict | None = None):
+    """Launch K1's wide backward on CUDA tensors: the arguments and results
+    of :func:`gru_sequence_bwd_recurrence`, for any H up to
+    :data:`MAX_WIDE_HIDDEN`. The cluster kernel where
+    :func:`cluster_bwd_plan` (or the ``plan`` given) finds a cluster that
+    holds W_hhᵀ, counted by ``gru_sequence_bwd_wide.cluster_launches``; else
+    the streaming kernel, which streams W_hh and is passed W_hhᵀ transposed
+    back, contiguous, counted by ``gru_sequence_bwd_wide.launches``. A plan
+    the kernel cannot launch raises."""
     nb, T, B, H = d_ys.shape
     dxp = torch.empty_like(xp)
     dh0 = torch.empty((nb, B, H), dtype=torch.float32, device=xp.device)
     if nb and B:
-        w_hh = w_hh_t.transpose(-1, -2).contiguous()
-        _launch("gru_seq_wide_bwd", xp, hp, h_prev, d_ys, w_hh, b_hh, dxp, dhp, dh0,
-                nb, T, B, H)
-        gru_sequence_bwd_wide.launches += 1
+        if plan is None:
+            plan = cluster_bwd_plan(nb, B, H, cluster_card(xp.device))
+        if plan["route"] == "cluster":
+            _launch("gru_seq_cluster_bwd", xp, hp, h_prev, d_ys, w_hh_t, b_hh, dxp, dhp, dh0,
+                    nb, T, B, H, *(plan[k] for k in _BWD_PLAN_KEYS))
+            gru_sequence_bwd_wide.cluster_launches += 1
+        else:
+            w_hh = w_hh_t.transpose(-1, -2).contiguous()
+            _launch("gru_seq_wide_bwd", xp, hp, h_prev, d_ys, w_hh, b_hh, dxp, dhp, dh0,
+                    nb, T, B, H)
+            gru_sequence_bwd_wide.launches += 1
     return dxp, dh0
+
+
+def cluster_bwd_chain_probe(xp, hp, h_prev, d_ys, w_hh_t, b_hh, plan: dict) -> None:
+    """Launch the cluster backward's step-chain probe
+    (``gru_seq_cluster_bwd_chain``) on the inputs of a
+    :func:`gru_sequence_bwd_wide` call and its cluster plan: the same launch
+    with each step's coefficients, dhp and sums left out, T steps of the
+    exchange of the partials and the wait for them alone. It writes nothing,
+    is counted by no launch counter, and is timed as the route's step-chain
+    floor."""
+    nb, T, B, H = d_ys.shape
+    _launch("gru_seq_cluster_bwd_chain", xp, hp, h_prev, d_ys, w_hh_t, b_hh, xp, xp, xp,
+            nb, T, B, H, *(plan[k] for k in _BWD_PLAN_KEYS))
 
 
 class GRUSequence(torch.autograd.Function):
@@ -454,8 +617,9 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
     ``gru_sequence.launches`` counts the forward launches at H up to
     :data:`MAX_HIDDEN`, ``gru_sequence_wide.cluster_launches`` and
     ``gru_sequence_wide.launches`` the wide route's past it (the cluster and
-    the streaming kernel; and ``gru_sequence_bwd`` / ``gru_sequence_bwd_wide``
-    the backward's).
+    the streaming kernel; and ``gru_sequence_bwd``,
+    ``gru_sequence_bwd_wide.cluster_launches`` and
+    ``gru_sequence_bwd_wide.launches`` the backward's).
     H past :data:`MAX_WIDE_HIDDEN` raises."""
     if xp.dim() == 3:
         return gru_sequence(xp[None], w_hh_t[None], b_hh[None], h0[None])[0]
@@ -467,3 +631,4 @@ gru_sequence_bwd.launches = 0
 gru_sequence_wide.launches = 0
 gru_sequence_wide.cluster_launches = 0
 gru_sequence_bwd_wide.launches = 0
+gru_sequence_bwd_wide.cluster_launches = 0

@@ -37,9 +37,9 @@ from eegsynth_torch.nn.attention import (
     flash_dq_plain, flash_forward, flash_forward_plain, mha,
 )
 from eegsynth_torch.nn.gru_sequence import (
-    MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_card, cluster_geometry, cluster_plan, gru_sequence,
-    gru_sequence_bwd, gru_sequence_bwd_reference, gru_sequence_bwd_wide,
-    gru_sequence_reference, gru_sequence_wide,
+    MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_geometry, cluster_bwd_plan, cluster_card,
+    cluster_geometry, cluster_plan, gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
+    gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide, weight_grads,
 )
 from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
@@ -217,10 +217,10 @@ def test_backward_repeats_bitwise(cuda_device, nb, T, B, H):
 
 def _wide_counts() -> tuple:
     """K1 forward, the wide route's cluster and streaming forwards, K1
-    backward, the wide backward."""
+    backward, the wide route's cluster and streaming backwards."""
     return (gru_sequence.launches, gru_sequence_wide.cluster_launches,
             gru_sequence_wide.launches, gru_sequence_bwd.launches,
-            gru_sequence_bwd_wide.launches)
+            gru_sequence_bwd_wide.cluster_launches, gru_sequence_bwd_wide.launches)
 
 
 def _wide_forward(nb, B, H) -> list:
@@ -230,9 +230,17 @@ def _wide_forward(nb, B, H) -> list:
     return [0, int(cluster), int(not cluster)]
 
 
-# K1's wide route (H past 128; the forward on a cluster up to its cap, in
-# gru_seq_cluster.cu, the streaming kernels of gru_seq_wide.cu past it and
-# for the backward): the first width past the register kernels' cap (3H
+def _wide_backward(nb, B, H) -> list:
+    """The wide backward's launches _wide_counts expects at (nb, B, H): the
+    cluster kernel where the card's backward plan fits, else the streaming
+    kernel."""
+    cluster = cluster_bwd_plan(nb, B, H, cluster_card())["route"] == "cluster"
+    return [0, int(cluster), int(not cluster)]
+
+
+# K1's wide route (H past 128; each half on a cluster up to its cap, in
+# gru_seq_cluster.cu and gru_seq_cluster_bwd.cu, the streaming kernels of
+# gru_seq_wide.cu past it): the first width past the register kernels' cap (3H
 # and H not multiples of 4: the scalar tails), H 256 and 512
 # (bench_kernels' sweep) with odd T and B, a batch past one wave, one step,
 # and the largest H
@@ -249,7 +257,8 @@ def test_wide_kernels_match_plain(cuda_device, nb, T, B, H):
     got = gru_sequence_bwd(*inputs, ys, d_ys)
     want = gru_sequence_bwd_reference(*inputs, ys, d_ys)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [*_wide_forward(nb, B, H), 0, 1]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [*_wide_forward(nb, B, H),
+                                                              *_wide_backward(nb, B, H)]
     assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
     assert (ys - ref).abs().max().item() <= 1e-4
     _assert_bwd_matches(got, want)
@@ -268,7 +277,7 @@ def test_cluster_forward_each_size_matches_plain(cuda_device, C, R, nb, T, B, H)
     before = _wide_counts()
     ys = gru_sequence_wide(*inputs, plan=plan)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0]
     assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
     assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
 
@@ -281,7 +290,7 @@ def test_cluster_route_matches_plain(cuda_device, nb, T, B, H):
     before = _wide_counts()
     ys = gru_sequence(*inputs)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0]
     assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
 
 
@@ -293,7 +302,7 @@ def test_cluster_route_ends_at_its_cap(cuda_device):
     card = cluster_card()
     cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
               if cluster_plan(1, 1, H, card)["route"] == "cluster")
-    for H, want in ((cap, [0, 1, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0])):
+    for H, want in ((cap, [0, 1, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0])):
         inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
         before = _wide_counts()
         ys = gru_sequence(*inputs)
@@ -306,6 +315,90 @@ def test_cluster_route_ends_at_its_cap(cuda_device):
     empty_block = {"route": "cluster", "C": 16, "R": 1, **cluster_geometry(129, 16)}
     with pytest.raises(RuntimeError, match="gru_seq_cluster_fwd"):
         gru_sequence_wide(*inputs, plan=empty_block)
+
+
+def _wide_bwd_inputs(nb, T, B, H, device, seed):
+    """A wide backward's inputs as gru_sequence_bwd feeds its kernel: the
+    forward's, ys from the plain recurrence, d_ys, h_prev = [h0, ys[:-1]]
+    and hp = h_prev W_hhᵀ (nb, T·B, ·)."""
+    inputs = _inputs(T, B, H, device, seed=seed, lead=(nb,))
+    ys = gru_sequence_reference(*inputs)
+    d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(seed)).to(device)
+    h_prev = torch.cat([inputs[3].unsqueeze(1), ys[:, :T - 1]], dim=1).reshape(nb, T * B, H)
+    return inputs, ys, d_ys, h_prev, torch.matmul(h_prev, inputs[1])
+
+
+# each cluster size, its backward plan given: widths not a multiple of C or
+# of 4 (quads that straddle two blocks), a ragged last block (H 129 on two
+# blocks of 65 units, H 300 on eight of 38 and on sixteen of 19), nb 3,
+# each S, and sixteen blocks at H 512 (218,160 shared bytes a block)
+@pytest.mark.parametrize("C,R,S,nb,T,B,H", [(2, 2, 4, 1, 60, 37, 129), (4, 4, 4, 2, 75, 9, 200),
+                                            (8, 2, 4, 3, 33, 5, 300), (8, 4, 2, 1, 40, 64, 256),
+                                            (16, 4, 1, 1, 30, 64, 512), (16, 1, 4, 2, 25, 3, 300),
+                                            (16, 8, 2, 1, 20, 20, 256), (16, 2, 8, 3, 21, 7, 256)])
+def test_cluster_backward_each_size_matches_plain(cuda_device, C, R, S, nb, T, B, H):
+    inputs, ys, d_ys, h_prev, hp = _wide_bwd_inputs(nb, T, B, H, cuda_device, seed=H + C)
+    plan = {"route": "cluster", "C": C, "R": R, **cluster_bwd_geometry(H, C, S)}
+    before = _wide_counts()
+    dxp, dh0 = gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
+                                     plan=plan)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 1, 0]
+    ref = gru_sequence_bwd_reference(*inputs, ys, d_ys)
+    dw, db = weight_grads(h_prev, hp)
+    _assert_bwd_matches((dxp, dw, db, dh0), ref)
+
+
+# the backward plan's own choice: eighteen buckets of the training batch
+# (past one wave), a ragged batch past one wave, and nb 3 at T 1
+@pytest.mark.parametrize("nb,T,B,H", [(18, 50, 63, 256), (1, 40, 600, 300), (3, 1, 5, 200)])
+def test_cluster_backward_route_matches_plain(cuda_device, nb, T, B, H):
+    inputs = _inputs(T, B, H, cuda_device, seed=T + H, lead=(nb,))
+    ys = gru_sequence_reference(*inputs)
+    d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    before = _wide_counts()
+    got = gru_sequence_bwd(*inputs, ys, d_ys)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 1, 0]
+    _assert_bwd_matches(got, gru_sequence_bwd_reference(*inputs, ys, d_ys))
+
+
+def test_cluster_backward_ends_at_its_cap(cuda_device):
+    """The largest H a backward cluster holds on this card runs the cluster
+    backward, the next H the streaming one; both match the plain backward.
+    Two calls of the cluster backward give the same bits, T = 0 gives zero
+    gradients, and a plan it cannot launch raises."""
+    card = cluster_card()
+    cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
+              if cluster_bwd_plan(1, 1, H, card)["route"] == "cluster")
+    for H, want in ((cap, [0, 0, 0, 0, 1, 0]), (cap + 1, [0, 0, 0, 0, 0, 1])):
+        inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
+        ys = gru_sequence_reference(*inputs)
+        d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(H)).to(cuda_device)
+        before = _wide_counts()
+        got = gru_sequence_bwd(*inputs, ys, d_ys)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_wide_counts(), before)] == want, H
+        _assert_bwd_matches(got, gru_sequence_bwd_reference(*inputs, ys, d_ys))
+    inputs = _inputs(200, 37, 256, cuda_device, seed=7, lead=(2,))
+    ys = gru_sequence(*inputs)
+    d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(9)).to(cuda_device)
+    for a, b in zip(gru_sequence_bwd(*inputs, ys, d_ys), gru_sequence_bwd(*inputs, ys, d_ys)):
+        assert torch.equal(a, b)
+    inputs = _inputs(0, 5, 256, cuda_device, lead=(2,))
+    ys = gru_sequence_reference(*inputs)
+    before = _wide_counts()
+    dxp, dw, db, dh0 = gru_sequence_bwd(*inputs, ys, torch.zeros_like(ys))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 1, 0]
+    assert dxp.shape == inputs[0].shape
+    for t in (dw, db, dh0):
+        assert torch.equal(t, torch.zeros_like(t))
+    inputs, ys, d_ys, h_prev, hp = _wide_bwd_inputs(1, 10, 3, 129, cuda_device, seed=8)
+    empty_block = {"route": "cluster", "C": 16, "R": 1, **cluster_bwd_geometry(129, 16, 1)}
+    with pytest.raises(RuntimeError, match="gru_seq_cluster_bwd"):
+        gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
+                              plan=empty_block)
 
 
 def test_wide_kernels_repeat_bitwise_and_take_unaligned_inputs(cuda_device):
@@ -329,7 +422,7 @@ def test_wide_timegan_step_runs_on_wide_k1(cuda_device):
     """A TimeGAN at z64/h256 (a TimeGANConfig the JAX package builds): one
     GAN step on the card takes the composed D-step route, no K2; the
     generator's and supervisor's recurrences (H 256) run the wide K1
-    forward on its cluster kernel and the wide backward, the embedder's and
+    forward and backward on their cluster kernels, the embedder's and
     recovery's (H 64) the narrow K1; the step matches the CPU."""
     cfg = TimeGANConfig(x_dim=14, z_dim=64, h_dim=256)
     nb, B, T = 1, 4, 64
@@ -357,7 +450,8 @@ def test_wide_timegan_step_runs_on_wide_k1(cuda_device):
     card = step(cuda_device)
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(counts(), before)]
-    assert launched[5] == 0 and launched[1] >= 2 and launched[2] == 0 and launched[4] >= 1
+    assert launched[6] == 0 and launched[1] >= 2 and launched[2] == 0 and launched[4] >= 1
+    assert launched[5] == 0
     host = step("cpu")
     logs = (card[3].cpu() - host[3]).abs() / host[3].abs().clamp(min=1.0)
     assert torch.isfinite(card[3]).all() and logs.max().item() <= 1e-4
