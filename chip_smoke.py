@@ -51,15 +51,17 @@ failure is swallowed):
              orders 2 and 8, float64 and float32, over a 60 s trial against
              its plain version and over an hour against scipy's lfilter, with
              its step-chain floor; K1's wide route (H past 128, forward and
-             backward, each on a thread-block cluster up to its cap, the
-             streaming kernels past it) against its plain versions at H
-             129, 256 and 512 (nb 2, odd B and T) and at the cluster
-             routes' cap and past it, each line with each half's route,
-             cluster C, rows R and waves and the clusters' step-chain
-             floors, and against cuDNN's GRU forward and backward at (1,
-             768, 64, 256), 512 and 1024, each cluster kernel in turns with
-             the streaming one it replaced and beside every cluster plan
-             that fits;
+             backward, each on a thread-block cluster up to its cap; past
+             it the forward on one cooperative grid, the backward on the
+             streaming kernel) against its plain versions at H 129, 256 and
+             512 (nb 2, odd B and T) and at the cluster routes' cap and past
+             it, each line with each half's route, cluster C, rows R and
+             waves or grid blocks and waves and the step-chain floors, and
+             against cuDNN's GRU forward and backward at (1, 768, 64, 256),
+             512 and 1024, each cluster and grid kernel in turns with the
+             streaming one it replaced and beside every cluster plan that
+             fits; the grid forward in waves of buckets against the
+             streaming forward at nb 3 and 18;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -116,11 +118,13 @@ failure is swallowed):
              bucket) and --parallel_buckets (two), one traced GAN step
              each: the Chrome trace parses, and the hand kernels it holds
              (events, device time) against the launches;
-5g. timegan-wide — a TimeGAN at x14/z64/h256 through train/timegan.py's
-             step functions: one AE and one SUP step, 2 GAN steps at B 16,
-             T 768, synthesize(); the wide K1 forward and backward (on their
-             cluster kernels) launched, no K2; one GAN step at B 4, T 96 against
-             the CPU;
+5g. timegan-wide — TimeGANs at x14/z64/h256 and x14/z64/h1024 through
+             train/timegan.py's step functions: one AE and one SUP step, its
+             GAN steps at B 16, T 768, synthesize(); the wide K1 forward and
+             backward launched (at h256 on their cluster kernels, at h1024
+             the forward on the grid and the backward streaming), never the
+             streaming forward, no K2; one GAN step at B 4, T 96 against the
+             CPU;
 5h. convert — ``python -m eegsynth_torch.convert_torch_ckpt``: a
              reference-shaped TimeGAN checkpoint and conv generator made in
              torch, converted and served over HTTP (the TimeGAN equal to the
@@ -132,7 +136,7 @@ failure is swallowed):
              hung client for 5 s against the server, 0 errors),
              ``tools.bench_kernels`` (H 56, 128, 256, 512 and 1024, forward
              and backward: the wide forward and backward on clusters and, at
-             1024, the streaming ones);
+             1024, the grid forward and the streaming backward);
 6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
              heads 4, patch 8, batch 64) on 9 random posture buckets for 2
              epochs with flash attention forced; artifacts, finite
@@ -269,9 +273,9 @@ from eegsynth_torch.nn.attention import (
 )
 from eegsynth_torch.nn.gru_sequence import (
     MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_chain_probe, cluster_bwd_fits, cluster_bwd_plan,
-    cluster_card, cluster_chain_probe, cluster_fits, cluster_plan, forward_tile, gru_sequence,
-    gru_sequence_bwd, gru_sequence_bwd_recurrence, gru_sequence_bwd_reference,
-    gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide, wide_tile,
+    cluster_card, cluster_chain_probe, cluster_fits, cluster_plan, forward_tile, grid_chain_probe,
+    gru_sequence, gru_sequence_bwd, gru_sequence_bwd_recurrence, gru_sequence_bwd_reference,
+    gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide, wide_plan, wide_tile,
 )
 from eegsynth_torch.nn.layers import xavier_uniform
 from eegsynth_torch.nn.multigru import (
@@ -343,18 +347,25 @@ BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128),
 BWD_CUDNN_SHAPE = (1, 768, 63, 56)
 # K1's wide route (H past 128: the forward and the backward on thread-block
 # clusters in gru_seq_cluster.cu and gru_seq_cluster_bwd.cu up to the H a
-# cluster holds, the streaming kernels of gru_seq_wide.cu above it): the
-# first width past the register kernels' cap, H 256 and 512 (bench_kernels'
-# sweep) at nb 2 with odd T and B, and the cluster routes' last H and the
-# next (found from the card's numbers), against the plain versions; at one
-# bucket of the sequential trainer's B 64 and T 768, H 256 (the headline:
-# the TimeGAN of [timegan-wide]), 512 and 1024 (the streaming kernels'
-# headline: the widest H of bench_kernels' sweep here), against cuDNN's GRU
-# forward and backward in turns, each cluster kernel also against the
-# streaming one
+# cluster holds; above it the forward on one cooperative grid,
+# gru_seq_grid.cu, and the backward on gru_seq_wide.cu's streaming kernel):
+# the first width past the register kernels' cap, H 256 and 512
+# (bench_kernels' sweep) at nb 2 with odd T and B, and the cluster routes'
+# last H and the next (found from the card's numbers), against the plain
+# versions; at one bucket of the sequential trainer's B 64 and T 768, H 256
+# (the headline: the TimeGAN of [timegan-wide]), 512 and 1024 (the grid
+# forward's and the streaming backward's headline: the widest H of
+# bench_kernels' sweep here and of [timegan-wide]), against cuDNN's GRU
+# forward and backward in turns, each cluster and grid forward also against
+# the streaming one
 WIDE_K1_SHAPES = ((2, 301, 37, 129), (2, 303, 33, 256), (2, 151, 37, 512))
 WIDE_K1_CAP_SHAPES = ((2, 151, 37), (1, 101, 9))   # (nb, T, B) at the cap and past it
 WIDE_K1_CUDNN_SHAPES = ((1, 768, 64, 256), (1, 768, 64, 512), (1, 768, 64, 1024))
+# the grid forward in waves (a bucket's blocks fill more than half the SMs
+# past the cap: one bucket a wave) against the streaming forward, which runs
+# every bucket at once, in turns: three buckets at a ragged H and eighteen
+# (the parallel trainer's buckets at the D step's batch) at the cap + 1
+WIDE_K1_WAVE_SHAPES = ((3, 768, 64, 600), (18, 768, 63, 545))
 # the wide backward's plan sweep beside those two: [timegan-wide]'s
 # generator batch (B 16), its CPU check's (B 4, T 96), H 129, 200 and 384
 # at one bucket of B 64, and the cluster cap at nb 2
@@ -544,14 +555,16 @@ FIG_WINDOWS, FIG_TSNE_MAX = 200, 6000
 FIG_PCA_ROWS, FIG_PCA_RTOL = 1000, 1e-6
 FIG_TSNE_ROWS, FIG_TSNE_KL_RTOL, FIG_TSNE_TW_TOL = 600, 0.05, 0.02
 
-# [timegan-wide]: a TimeGAN at x14/z64/h256 (a TimeGANConfig the JAX package
-# builds; its generator and supervisor recurrences run K1's wide route, the
-# embedder's and recovery's at H 64 the register kernels) on one random
-# bucket: one AE and one SUP step, TG_WIDE_GAN_STEPS GAN steps at B
-# TG_WIDE_BATCH, T 768, then synthesis; one GAN step at B 4, T
-# TG_WIDE_CHECK_T on the card against the CPU (the step tolerances)
-TG_WIDE_DIMS = (14, 64, 256)
-TG_WIDE_WINDOWS, TG_WIDE_BATCH, TG_WIDE_GAN_STEPS, TG_WIDE_CHECK_T = 32, 16, 2, 96
+# [timegan-wide]: TimeGANs at x14/z64/h256 and x14/z64/h1024 (TimeGANConfigs
+# the JAX package builds; their generator and supervisor recurrences run K1's
+# wide route: at h256 both halves on clusters, at h1024 the forward on the
+# grid and the backward on the streaming kernel; the embedder's and
+# recovery's at H 64 the register kernels), each on one random bucket: one
+# AE and one SUP step, its GAN steps (TG_WIDE_CONFIGS) at B TG_WIDE_BATCH,
+# T 768, then synthesis of 64 windows; one GAN step at B 4, T TG_WIDE_CHECK_T
+# on the card against the CPU (the step tolerances)
+TG_WIDE_CONFIGS = ((14, 64, 256, 2), (14, 64, 1024, 1))   # (x, z, h, GAN steps)
+TG_WIDE_WINDOWS, TG_WIDE_BATCH, TG_WIDE_CHECK_T = 32, 16, 96
 # [convert]: a reference-shaped TimeGAN checkpoint (x14/z28/h56) and conv
 # generator (9 classes, the legacy key names) made in torch, converted,
 # served; the served conv generator against a functional torch version of
@@ -567,11 +580,17 @@ PIPE_CONFIG = {"ae_epochs": 1, "sup_epochs": 1, "gan_steps": 2, "chunk": 2,
 # each model at bench.py's batch; bench_serve's closed loop (4 clients, the
 # hung client) for BENCH_SERVE_SECONDS; bench_kernels' default sweep (H 56,
 # 128, 256, 512 at B 64, T 768) and H 1024, past the cluster forward's cap
+# (the grid forward and the streaming backward)
 BENCH_SYNTH_RUNS = (["--parity", "--batch", "256", "--T", "8192", "--time_chunk", "1024"],
                     ["--batch", "2048", "--iters", "5"])
 BENCH_SERVE_SECONDS = 5.0
 BENCH_KERNEL_HS = [56, 128, 256, 512, 1024]
 BENCH_KERNEL_ARGS = ["--iters", "3", "--hs", ",".join(map(str, BENCH_KERNEL_HS))]
+# kernels of the kernels line that no main path takes any more (launches 0;
+# each timed in turns in the phase named), and why
+OFF_PATH = {"gru_sequence_wide": "the streaming forward runs only on plan={'route': "
+                                 "'stream'}; the grid forward took its place past the "
+                                 "cluster cap (timed in turns in _check_k1_wide)"}
 
 
 def fail(msg: str) -> None:
@@ -636,9 +655,10 @@ def _check_spills(kernel: str, report: str) -> None:
 
 def phase_sass() -> None:
     """The HGMMA (wgmma) instructions of every instance of the tensor-core
-    flash kernels K3a, K3b and K3c, and of the wide K3a, K3b and K3c, in
-    the built library, from ``cuobjdump -sass``: each instance must have
-    some, or its products do not run on the tensor cores."""
+    flash kernels K3a, K3b and K3c, of the wide K3a, K3b and K3c, and of K1's
+    grid forward, in the built library, from ``cuobjdump -sass``: each
+    instance must have some, or its products do not run on the tensor
+    cores."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True,
@@ -648,9 +668,10 @@ def phase_sass() -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", line)
-            wide = re.search(r"(flash_(?:fwd|dq|dkv)_wide_tc_kernel)", line)
+            wide = re.search(r"flash_(?:fwd|dq|dkv)_wide_tc_kernel|gru_grid_fwd_kernel(?=ILb0E)",
+                             line)
             name = ((m.group(1), int(m.group(2))) if m else
-                    (wide.group(1), 0) if wide else None)
+                    (wide.group(0), 0) if wide else None)
             if name:
                 counts.setdefault(name[0], {})[name[1]] = 0
         elif name and "HGMMA" in line:
@@ -661,10 +682,12 @@ def phase_sass() -> None:
             f"DP {dp}: {n}" for dp, n in sorted(per_dp.items())), flush=True)
         if sorted(per_dp) != [16, 32, 64, 128] or not all(per_dp.values()):
             fail(f"{kernel}: instances without HGMMA or missing: {per_dp}")
-    for kernel in ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
-                   "flash_dkv_wide_tc_kernel"):
+    for kernel, what in (("flash_fwd_wide_tc_kernel", "head dims past 128"),
+                         ("flash_dq_wide_tc_kernel", "head dims past 128"),
+                         ("flash_dkv_wide_tc_kernel", "head dims past 128"),
+                         ("gru_grid_fwd_kernel", "K1 forward past the clusters' cap")):
         n = counts.get(kernel, {}).get(0, 0)
-        print(f"[sass] {kernel} (head dims past 128) HGMMA: {n}", flush=True)
+        print(f"[sass] {kernel} ({what}) HGMMA: {n}", flush=True)
         if not n:
             fail(f"{kernel}: missing or without HGMMA")
 
@@ -967,11 +990,13 @@ def _k1_bwd_vs_cudnn(smi: str, shape: tuple, seed: int) -> None:
 
 
 def _wide_route_counts() -> tuple:
-    """K1 forward, K1 backward, the wide route's cluster forward, its
-    streaming forward, its cluster backward, its streaming backward."""
+    """K1 forward, K1 backward, the wide route's cluster forward, its grid
+    forward, its streaming forward, its cluster backward, its streaming
+    backward."""
     return (gru_sequence.launches, gru_sequence_bwd.launches,
-            gru_sequence_wide.cluster_launches, gru_sequence_wide.launches,
-            gru_sequence_bwd_wide.cluster_launches, gru_sequence_bwd_wide.launches)
+            gru_sequence_wide.cluster_launches, gru_sequence_wide.grid_launches,
+            gru_sequence_wide.launches, gru_sequence_bwd_wide.cluster_launches,
+            gru_sequence_bwd_wide.launches)
 
 
 def _cluster_cap(plan=cluster_plan) -> int:
@@ -1042,7 +1067,14 @@ def _sweep_bwd_plans(smi: str) -> None:
 
 
 def _plan_text(plan: dict, probe: str) -> str:
-    """A cluster plan's C, R and geometry, clusters and waves."""
+    """A cluster plan's C, R and geometry, clusters and waves; a grid plan's
+    U, blocks, chunk, stages and waves (the only grid plan that fits)."""
+    if plan["route"] == "grid":
+        return (f"grid of {plan['blocks']} blocks x U {plan['U']} units ({plan['threads']} "
+                f"threads, {plan['stages']} stages of {plan['chunk']} deep, {plan['smem']} B "
+                f"shared; {plan['buckets_per_wave']} bucket(s) a wave of {plan['resident']} "
+                f"resident blocks, {plan['waves']} wave(s); the only plan that fits); "
+                f"step-chain floor {probe}")
     geometry = ", ".join(f"{k} {plan[k]}" for k in ("S", "KL", "KE", "U") if k in plan)
     return (f"cluster C {plan['C']} x R {plan['R']} rows ({geometry}, {plan['threads']} "
             f"threads, {plan['smem']} B shared; {plan['clusters']} clusters, "
@@ -1056,31 +1088,40 @@ def _check_k1_wide(smi: str) -> dict:
     cluster routes' cap and past it against the plain versions, then at
     WIDE_K1_CUDNN_SHAPES against the plain versions and cuDNN's GRU
     (forward, and backward by autograd.grad) in turns; each shape's forward
-    and backward route, cluster C, rows R and waves; on a cluster route the
-    step-chain floor (the probe of the same plan: the exchange and the wait
-    alone), and on the same inputs the streaming kernel in turns (the kernel
-    the route had before its cluster); at one bucket every cluster plan that
-    fits, forward and backward; then the backward's plans at
-    WIDE_K1_BWD_SWEEP_SHAPES.
+    and backward route, cluster C, rows R and waves, or grid blocks, U and
+    waves; on a cluster or grid route the step-chain floor (the probe of
+    the same plan: the exchange and the wait alone, and on the grid the
+    read of h from L2), and on the same inputs the streaming kernel in
+    turns (the kernel the route had before); at one bucket every cluster
+    plan that fits, forward and backward; the grid forward in waves against
+    the streaming forward in turns at WIDE_K1_WAVE_SHAPES; then the
+    backward's plans at WIDE_K1_BWD_SWEEP_SHAPES.
     The kernels line takes (1, 768, 64, 256) for the cluster forward and
-    backward and (1, 768, 64, 1024) for the streaming ones."""
+    backward and (1, 768, 64, 1024) for the grid forward, the streaming
+    forward (timed in turns beside it) and the streaming backward."""
     cap, bwd_cap = _cluster_cap(), _cluster_cap(cluster_bwd_plan)
     shapes = (WIDE_K1_SHAPES + tuple((*s, H) for s, H in zip(WIDE_K1_CAP_SHAPES, (cap, cap + 1)))
               + WIDE_K1_CUDNN_SHAPES)
-    print(f"[kernel] K1's wide route: the cluster forward up to H {cap}, the cluster "
-          f"backward up to H {bwd_cap} on this card's numbers | {smi}", flush=True)
-    rows, worst = {}, {"gru_sequence_wide_cluster": 0.0, "gru_sequence_wide": 0.0,
-                       "gru_sequence_bwd_wide_cluster": 0.0, "gru_sequence_bwd_wide": 0.0}
+    print(f"[kernel] K1's wide route: the cluster forward up to H {cap}, the grid forward "
+          f"above it, the cluster backward up to H {bwd_cap} on this card's numbers | {smi}",
+          flush=True)
+    rows, worst = {}, {"gru_sequence_wide_cluster": 0.0, "gru_sequence_wide_grid": 0.0,
+                       "gru_sequence_wide": 0.0, "gru_sequence_bwd_wide_cluster": 0.0,
+                       "gru_sequence_bwd_wide": 0.0}
     for i, (nb, T, B, H) in enumerate(shapes):
         args = _gru_inputs(nb, T, B, H, 28, seed=40 + i, device="cuda")
         tile = wide_tile(nb, B, H)
-        cluster = tile["route"] == "cluster"
+        plan = tile["plan"]
+        cluster, grid = plan["route"] == "cluster", plan["route"] == "grid"
+        if grid != (H > cap) or cluster != (H <= cap):
+            fail(f"the wide forward's route at nb={nb} B={B} H={H} is {plan['route']}, the "
+                 f"cluster cap H {cap}")
         bplan = tile["bwd_plan"]
         bwd_cluster = bplan["route"] == "cluster"
         if bwd_cluster != (H <= bwd_cap):
             fail(f"the wide backward's route at nb={nb} B={B} H={H} is {bplan['route']}, "
                  f"its cap H {bwd_cap}")
-        name = "gru_sequence_wide_cluster" if cluster else "gru_sequence_wide"
+        name = "gru_sequence_wide_cluster" if cluster else "gru_sequence_wide_grid"
         bwd_name = "gru_sequence_bwd_wide_cluster" if bwd_cluster else "gru_sequence_bwd_wide"
         with torch.no_grad():
             before = _wide_route_counts()
@@ -1094,24 +1135,25 @@ def _check_k1_wide(smi: str) -> dict:
             ref = gru_sequence_bwd_reference(*args, ys, d_ys)
             err = (ys - ref_ys).abs().max().item()
             errs, scale, ok = _bwd_errors(got, ref)
-            fwd = {"kernel": lambda: gru_sequence(*args)}
-            if cluster:
-                fwd["streaming"] = lambda: gru_sequence_wide(*args, plan={"route": "stream"})
+            fwd = {"kernel": lambda: gru_sequence(*args),
+                   "streaming": lambda: gru_sequence_wide(*args, plan={"route": "stream"})}
+            stream_err = (fwd["streaming"]() - ref_ys).abs().max().item()
+            worst["gru_sequence_wide"] = max(worst["gru_sequence_wide"], stream_err)
             if nb == 1:
                 one = [a[0] for a in args]
                 fwd["cuDNN"] = _cudnn_gru(*one)
                 lib_err = (fwd["cuDNN"]() - ys[0]).abs().max().item()
             times = _in_turns(fwd, reps=5)
             ms, lib_ms = times["kernel"], times.get("cuDNN")
-            floor_ms = (_time_ms(lambda: cluster_chain_probe(*args, tile["plan"]), reps=5)
-                        if cluster else None)
+            probe = cluster_chain_probe if cluster else grid_chain_probe
+            floor_ms = _time_ms(lambda: probe(*args, plan), reps=5)
             bwd = {"kernel": lambda: gru_sequence_bwd(*args, ys, d_ys)}
             if bwd_cluster:
                 bwd["streaming"] = lambda: gru_sequence_bwd(*args, ys, d_ys,
                                                             plan={"route": "stream"})
-                alone, probe = _wide_bwd_alone(args, ys, d_ys)
+                alone, bprobe = _wide_bwd_alone(args, ys, d_ys)
                 bwd_alone_ms = _time_ms(alone(bplan), reps=5)
-                bwd_floor_ms = _time_ms(probe(bplan), reps=5)
+                bwd_floor_ms = _time_ms(bprobe(bplan), reps=5)
             plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS,
                                 warm=False)
             plain_bwd_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
@@ -1122,11 +1164,8 @@ def _check_k1_wide(smi: str) -> dict:
         with torch.no_grad():
             btimes = _in_turns(bwd, reps=3 if nb == 1 else 5)
         bwd_ms, lib_bwd_ms = btimes["kernel"], btimes.get("cuDNN")
-        plan = tile["plan"]
-        route = (_plan_text(plan, f"{floor_ms:.4f} ms; the streaming forward on the same "
-                                  f"inputs {times['streaming']:.4f} ms in turns")
-                 if cluster else f"streaming, {tile['rows']} rows x {tile['blocks']} tiles x "
-                 f"{nb} buckets of {tile['threads']} threads, {tile['fwd_smem']} B shared")
+        route = _plan_text(plan, f"{floor_ms:.4f} ms; the streaming forward on the same "
+                                 f"inputs {times['streaming']:.4f} ms in turns")
         bwd_route = (_plan_text(bplan, f"{bwd_floor_ms:.4f} ms, kernel alone "
                                        f"{bwd_alone_ms:.4f} ms; the streaming backward's "
                                        f"whole call on the same inputs "
@@ -1137,16 +1176,15 @@ def _check_k1_wide(smi: str) -> dict:
               f"backward route {bwd_route}; max|diff| ys {err:.3e}, dxp {errs[0]:.3e} dh0 "
               f"{errs[3]:.3e} (tol {KERNEL_TOL:g}); dW {errs[1]:.3e} of {scale[1]:.3g}, db "
               f"{errs[2]:.3e} of {scale[2]:.3g} (tol {KERNEL_TOL:g} relative); launches K1 "
-              f"fwd / bwd / cluster fwd / streaming fwd / cluster bwd / streaming bwd "
-              f"{routes}; forward {ms:.4f} ms (plain {plain_ms:.4f}), backward whole call "
+              f"fwd / bwd / cluster fwd / grid fwd / streaming fwd / cluster bwd / streaming "
+              f"bwd {routes}; forward {ms:.4f} ms (plain {plain_ms:.4f}), backward whole call "
               f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}) | {smi}", flush=True)
         if nb == 1:
-            stream = (f", the streaming forward {times['streaming']:.4f} ms"
-                      if "streaming" in times else "")
             bstream = (f", the streaming backward {btimes['streaming']:.4f} ms"
                        if "streaming" in btimes else "")
             print(f"[kernel] gru_sequence_wide nb=1 T={T} B={B} H={H} vs cuDNN GRU: "
-                  f"forward {ms:.4f}{stream} against {lib_ms:.4f} ms (max|diff| "
+                  f"forward {ms:.4f}, the streaming forward {times['streaming']:.4f} ms "
+                  f"against {lib_ms:.4f} ms (max|diff| "
                   f"{lib_err:.3e}), backward whole call {bwd_ms:.4f}{bstream} against "
                   f"{lib_bwd_ms:.4f} ms (cuDNN dxp {lib_bwd_err[0]:.3e}), in turns | {smi}",
                   flush=True)
@@ -1158,25 +1196,33 @@ def _check_k1_wide(smi: str) -> dict:
                 print(f"[kernel] gru_sequence_bwd_wide_cluster nb=1 T={T} B={B} H={H} plans "
                       f"(kernel alone, ms): {_cluster_bwd_plans(alone, H, bplan)} | {smi}",
                       flush=True)
-        want = [0, 0, int(cluster), int(not cluster), int(bwd_cluster), int(not bwd_cluster)]
+        want = [0, 0, int(cluster), plan["waves"] if grid else 0, 0, int(bwd_cluster),
+                int(not bwd_cluster)]
         if routes != want:
             fail(f"the wide route at nb={nb} B={B} H={H} launched {routes} (K1 fwd, bwd, "
-                 f"cluster fwd, streaming fwd, cluster bwd, streaming bwd), expected {want}")
+                 f"cluster fwd, grid fwd, streaming fwd, cluster bwd, streaming bwd), "
+                 f"expected {want}")
         if not ok or not bool(torch.isfinite(ys).all()) or err > KERNEL_TOL:
             fail(f"K1's wide route disagrees with its plain version at nb={nb} T={T} "
                  f"B={B} H={H}: ys {err}, backward {errs}")
+        if worst["gru_sequence_wide"] > KERNEL_TOL:
+            fail(f"the streaming forward disagrees with its plain version at nb={nb} T={T} "
+                 f"B={B} H={H}: {worst['gru_sequence_wide']}")
         worst[name] = max(worst[name], err)
         worst[bwd_name] = max(worst[bwd_name], errs[0], errs[3])
-        fwd_row = _row(ms, plain_ms, _bound(2 * nb * T * B * H * 3 * H, *args, ys), lib_ms)
+        bound = _bound(2 * nb * T * B * H * 3 * H, *args, ys)
+        fwd_row = _row(ms, plain_ms, bound, lib_ms)
         bwd_row = _row(bwd_ms, plain_bwd_ms, _bound(3 * 2 * nb * T * B * H * 3 * H, *args,
                                                    ys, d_ys, *got), lib_bwd_ms)
         label = f"nb={nb} T={T} B={B} H={H}"
         _roofline(f"{name} {label}", fwd_row, smi, "cuDNN GRU" if nb == 1 else None)
-        if cluster:
-            print(f"[bound] {name} {label}: step-chain floor {floor_ms:.4f} ms (the "
-                  f"exchange and the wait alone, {T} steps on clusters of {plan['C']}), "
-                  f"bound {fwd_row['bound_ms']:.4f} ms ({fwd_row['bound_by']}); kernel "
-                  f"{ms:.4f} ms, {ms / floor_ms:.2f}x the floor | {smi}", flush=True)
+        what = (f"the exchange and the wait alone, {T} steps on clusters of {plan['C']}"
+                if cluster else f"the wait, the read of h from L2 and the publication alone, "
+                f"{T} steps on {plan['blocks']} blocks, {plan['waves']} wave(s)")
+        print(f"[bound] {name} {label}: step-chain floor {floor_ms:.4f} ms ({what}), bound "
+              f"{fwd_row['bound_ms']:.4f} ms ({fwd_row['bound_by']}); kernel {ms:.4f} ms, "
+              f"{ms / floor_ms:.2f}x the floor; the streaming forward "
+              f"{times['streaming']:.4f} ms in turns | {smi}", flush=True)
         _roofline(f"{bwd_name} {label}", bwd_row, smi,
                   "cuDNN GRU backward" if nb == 1 else None)
         if bwd_cluster:
@@ -1189,14 +1235,50 @@ def _check_k1_wide(smi: str) -> dict:
                   flush=True)
         if (nb, T, B, H) in (WIDE_K1_CUDNN_SHAPES[0], WIDE_K1_CUDNN_SHAPES[-1]):
             rows.update({name: fwd_row, bwd_name: bwd_row})
+            if grid:
+                rows["gru_sequence_wide"] = _row(times["streaming"], plain_ms, bound, lib_ms)
     if set(rows) != set(worst):
         fail(f"the wide route's headline shapes took {sorted(rows)}: the cluster routes at "
-             f"H {WIDE_K1_CUDNN_SHAPES[0][3]}, the streaming ones at "
-             f"{WIDE_K1_CUDNN_SHAPES[-1][3]} expected (caps {cap}, {bwd_cap})")
+             f"H {WIDE_K1_CUDNN_SHAPES[0][3]}, the grid forward and the streaming forward "
+             f"and backward at {WIDE_K1_CUDNN_SHAPES[-1][3]} expected (caps {cap}, {bwd_cap})")
+    _grid_waves(smi, worst)
     for name, err in worst.items():
         rows[name]["max_abs_err"] = err
     _sweep_bwd_plans(smi)
     return rows
+
+
+def _grid_waves(smi: str, worst: dict) -> None:
+    """The automatic route at WIDE_K1_WAVE_SHAPES (the grid forward, one
+    launch a wave of buckets) and the streaming forward on the same inputs,
+    each against the plain version, timed in turns; adds their errors to
+    ``worst``."""
+    for i, (nb, T, B, H) in enumerate(WIDE_K1_WAVE_SHAPES):
+        args = _gru_inputs(nb, T, B, H, 28, seed=70 + i, device="cuda")
+        plan = wide_plan(nb, B, H, cluster_card())
+        fwd = {"grid": lambda: gru_sequence(*args),
+               "streaming": lambda: gru_sequence_wide(*args, plan={"route": "stream"})}
+        with torch.no_grad():
+            ref = gru_sequence_reference(*args)
+            before = gru_sequence_wide.grid_launches
+            errs = {k: (f() - ref).abs().max().item() for k, f in fwd.items()}
+            launched = gru_sequence_wide.grid_launches - before
+            times = _in_turns(fwd, reps=3)
+        print(f"[kernel] gru_sequence_wide_grid nb={nb} T={T} B={B} H={H} in waves: "
+              f"{plan['waves']} wave(s) of {plan['buckets_per_wave']} bucket(s) x "
+              f"{plan['blocks']} blocks ({launched} launches); grid {times['grid']:.4f} ms, "
+              f"the streaming forward {times['streaming']:.4f} ms in turns "
+              f"({times['streaming'] / times['grid']:.2f}x); max|diff| grid "
+              f"{errs['grid']:.3e}, streaming {errs['streaming']:.3e} (tol {KERNEL_TOL:g}) "
+              f"| {smi}", flush=True)
+        if plan["route"] != "grid" or launched != plan["waves"]:
+            fail(f"the wide forward at nb={nb} B={B} H={H}: route {plan['route']}, "
+                 f"{launched} grid launches for {plan.get('waves')} waves")
+        if max(errs.values()) > KERNEL_TOL:
+            fail(f"the grid or streaming forward disagrees with its plain version at "
+                 f"nb={nb} T={T} B={B} H={H}: {errs}")
+        worst["gru_sequence_wide_grid"] = max(worst["gru_sequence_wide_grid"], errs["grid"])
+        worst["gru_sequence_wide"] = max(worst["gru_sequence_wide"], errs["streaming"])
 
 
 def _multigru_inputs(nb, T, B, dims, seed):
@@ -4193,19 +4275,29 @@ def _since(before: tuple) -> list:
 
 
 def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
-    """A TimeGAN at x14/z64/h256 through train/timegan.py's step functions
-    on the card: one AE and one SUP step, TG_WIDE_GAN_STEPS GAN steps on a
-    random bucket of (TG_WIDE_WINDOWS, 768, 14), then synthesize() of 64
-    windows; K1's wide route launched (the forward and the backward on their
-    cluster kernels), no K2 (the D-step inputs take the composed
-    route past H 128), finite losses and windows;
-    then one GAN step at B 4, T TG_WIDE_CHECK_T on the card against the CPU.
-    Returns the launches of the training and synthesis run."""
-    x_dim, z_dim, h_dim = TG_WIDE_DIMS
+    """TimeGANs at each of TG_WIDE_CONFIGS (x14/z64/h256 and x14/z64/h1024)
+    through train/timegan.py's step functions on the card: one AE and one
+    SUP step, the config's GAN steps on a random bucket of
+    (TG_WIDE_WINDOWS, 768, 14), then synthesize() of 64 windows; K1's wide
+    route launched (at h256 the forward and the backward on their cluster
+    kernels; at h1024 the forward on the grid kernel and the backward on the
+    streaming kernel, the streaming forward never), no K2 (the D-step inputs
+    take the composed route past H 128), finite losses and windows; then one
+    GAN step at B 4, T TG_WIDE_CHECK_T on the card against the CPU. Returns
+    the launches of the training and synthesis runs."""
+    totals: dict = {}
+    for x_dim, z_dim, h_dim, gan_steps in TG_WIDE_CONFIGS:
+        for k, n in _timegan_wide_run(smi, device, x_dim, z_dim, h_dim, gan_steps).items():
+            totals[k] = totals.get(k, 0) + n
+    return totals
+
+
+def _timegan_wide_run(smi: str, device: str, x_dim: int, z_dim: int, h_dim: int,
+                      gan_steps: int) -> dict:
+    """One config of phase_timegan_wide."""
     cfg = TimeGANConfig(x_dim=x_dim, z_dim=z_dim, h_dim=h_dim)
     params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(0)], device=device)
-    hp = TimeGANHParams(**_train_hparams(gan_steps=TG_WIDE_GAN_STEPS,
-                                         batch_size=TG_WIDE_BATCH))
+    hp = TimeGANHParams(**_train_hparams(gan_steps=gan_steps, batch_size=TG_WIDE_BATCH))
     B = TG_WIDE_BATCH
     X = torch.from_numpy(np.random.default_rng(0).uniform(
         0, 1, (1, TG_WIDE_WINDOWS, SEQ_LEN, x_dim)).astype(np.float32)).to(device)
@@ -4224,7 +4316,7 @@ def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
     g_state = optG.init({k: params[k] for k in GEN_NETS})
     gens = [torch.Generator(device=device).manual_seed(1)]
     logs = []
-    for step in range(1, TG_WIDE_GAN_STEPS + 1):
+    for step in range(1, gan_steps + 1):
         draws = draw_gan(gens, torch.full((1,), float(TG_WIDE_WINDOWS), device=device), B,
                          SEQ_LEN, z_dim, device=device)
         params, d_state, g_state, step_logs = gan_step(
@@ -4237,38 +4329,45 @@ def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
     windows = synthesize(model, 64, SEQ_LEN,
                          generator=torch.Generator(device=device).manual_seed(2))
     synth_s = time.perf_counter() - t0
-    k1, k1_bwd, cluster, wide, cluster_bwd, wide_bwd, k2 = _since(before)
+    k1, k1_bwd, cluster, grid, wide, cluster_bwd, wide_bwd, k2 = _since(before)
     fmt = lambda row: ", ".join(f"{c}={v:.5f}" for c, v in zip(LOG_COLUMNS, row))  # noqa
     print(f"[timegan-wide] x{x_dim}/z{z_dim}/h{h_dim}, B {B}, T {SEQ_LEN}: AE loss "
-          f"{losses['ae']:.6f}, SUP loss {losses['sup']:.6f}; GAN step {TG_WIDE_GAN_STEPS}: "
-          f"{fmt(logs[-1])}; AE + SUP + {TG_WIDE_GAN_STEPS} GAN steps {train_s:.2f} s, "
+          f"{losses['ae']:.6f}, SUP loss {losses['sup']:.6f}; GAN step {gan_steps}: "
+          f"{fmt(logs[-1])}; AE + SUP + {gan_steps} GAN step(s) {train_s:.2f} s, "
           f"synthesize(64 x {SEQ_LEN}) {synth_s:.2f} s -> {windows.shape}; launches K1 "
-          f"forward {k1}, backward {k1_bwd}, wide forward on clusters {cluster}, "
-          f"streaming {wide}, wide backward on clusters {cluster_bwd}, streaming {wide_bwd}, "
-          f"K2 {k2} | {smi}", flush=True)
+          f"forward {k1}, backward {k1_bwd}, wide forward on clusters {cluster}, on the grid "
+          f"{grid}, streaming {wide}, wide backward on clusters {cluster_bwd}, streaming "
+          f"{wide_bwd}, K2 {k2} | {smi}", flush=True)
     if not (np.isfinite(logs).all() and all(np.isfinite(v) for v in losses.values())):
-        fail(f"[timegan-wide] non-finite losses: {losses}, {logs}")
+        fail(f"[timegan-wide] h{h_dim}: non-finite losses: {losses}, {logs}")
     if windows.shape != (64, SEQ_LEN, x_dim) or not np.isfinite(windows).all():
-        fail(f"[timegan-wide] synthesize gave {windows.shape}, finite "
+        fail(f"[timegan-wide] h{h_dim}: synthesize gave {windows.shape}, finite "
              f"{np.isfinite(windows).all()}")
-    on_card = torch.device(device).type == "cuda"
-    if on_card and (cluster < 1 or wide != 0 or cluster_bwd < 1 or wide_bwd != 0 or k2 != 0):
-        fail(f"[timegan-wide] launches: wide forward on clusters {cluster}, streaming "
-             f"{wide}, wide backward on clusters {cluster_bwd}, streaming {wide_bwd}, K2 "
-             f"{k2}; expected the cluster forward and backward, no streaming kernel and "
-             "no K2")
-    _wide_step_check(smi, device)
+    if torch.device(device).type == "cuda":
+        card = cluster_card()
+        clustered = cluster_plan(1, B, h_dim, card)["route"] == "cluster"
+        bwd_clustered = cluster_bwd_plan(1, B, h_dim, card)["route"] == "cluster"
+        if not ((cluster >= 1) == clustered and (grid >= 1) != clustered and wide == 0
+                and (cluster_bwd >= 1) == bwd_clustered
+                and (wide_bwd >= 1) != bwd_clustered and k2 == 0):
+            fail(f"[timegan-wide] h{h_dim}: launches wide forward on clusters {cluster}, on "
+                 f"the grid {grid}, streaming {wide}, wide backward on clusters "
+                 f"{cluster_bwd}, streaming {wide_bwd}, K2 {k2}; expected the "
+                 f"{'cluster' if clustered else 'grid'} forward and no streaming forward, the "
+                 f"{'cluster' if bwd_clustered else 'streaming'} backward, no K2")
+    _wide_step_check(smi, device, (x_dim, z_dim, h_dim))
     return {"gru_sequence": k1, "gru_sequence_bwd": k1_bwd,
-            "gru_sequence_wide_cluster": cluster, "gru_sequence_wide": wide,
-            "gru_sequence_bwd_wide_cluster": cluster_bwd, "gru_sequence_bwd_wide": wide_bwd}
+            "gru_sequence_wide_cluster": cluster, "gru_sequence_wide_grid": grid,
+            "gru_sequence_wide": wide, "gru_sequence_bwd_wide_cluster": cluster_bwd,
+            "gru_sequence_bwd_wide": wide_bwd}
 
 
-def _wide_step_check(smi: str, device: str, B: int = 4) -> None:
-    """One GAN step of the x14/z64/h256 TimeGAN at T TG_WIDE_CHECK_T on the
-    card against the CPU plain path, on the same parameters and draws: the
-    step check's tolerances on the logged values, parameters and Adam's
+def _wide_step_check(smi: str, device: str, dims: tuple, B: int = 4) -> None:
+    """One GAN step of a TimeGAN of ``dims`` (x, z, h) at T TG_WIDE_CHECK_T on
+    the card against the CPU plain path, on the same parameters and draws:
+    the step check's tolerances on the logged values, parameters and Adam's
     first moments."""
-    x_dim, z_dim, h_dim = TG_WIDE_DIMS
+    x_dim, z_dim, h_dim = dims
     T = TG_WIDE_CHECK_T
     cfg = TimeGANConfig(x_dim=x_dim, z_dim=z_dim, h_dim=h_dim)
     params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(3)], device="cpu")
@@ -4298,15 +4397,14 @@ def _wide_step_check(smi: str, device: str, B: int = 4) -> None:
     mu_err = max(((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
                  for i in (1, 2)
                  for a, b in zip(tree_leaves(card[i].mu), tree_leaves(host[i].mu)))
-    print(f"[timegan-wide] one GAN step at B {B}, T {T}, card vs CPU: logged values "
-          f"{log_err:.3e} (tol {STEP_LOG_RTOL:g}), parameters {p_err:.3e} (tol "
+    print(f"[timegan-wide] h{h_dim}: one GAN step at B {B}, T {T}, card vs CPU: logged "
+          f"values {log_err:.3e} (tol {STEP_LOG_RTOL:g}), parameters {p_err:.3e} (tol "
           f"{STEP_PARAM_ATOL:g}), Adam first moments {mu_err:.3e} (tol {STEP_MU_RTOL:g}); "
-          f"launches K1 fwd / bwd / cluster fwd / streaming fwd / cluster bwd / streaming "
-          f"bwd / K2 {launched} "
-          f"| {smi}", flush=True)
+          f"launches K1 fwd / bwd / cluster fwd / grid fwd / streaming fwd / cluster bwd / "
+          f"streaming bwd / K2 {launched} | {smi}", flush=True)
     if log_err > STEP_LOG_RTOL or p_err > STEP_PARAM_ATOL or not mu_err <= STEP_MU_RTOL:
-        fail(f"[timegan-wide] the card's GAN step disagrees with the CPU: logs {log_err}, "
-             f"params {p_err}, mu {mu_err}")
+        fail(f"[timegan-wide] h{h_dim}: the card's GAN step disagrees with the CPU: logs "
+             f"{log_err}, params {p_err}, mu {mu_err}")
 
 
 def _reference_generator_sd(num_classes: int, seed: int) -> dict:
@@ -4527,9 +4625,10 @@ def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> dict:
     bench_synthesis --parity and one row of each model; bench_serve for
     BENCH_SERVE_SECONDS with 4 clients and the hung client against the
     port's server on two full-width TimeGAN runs, 0 errors; bench_kernels'
-    default sweep and H 1024 (past the cluster routes' cap: the streaming
-    forward and backward), forward and backward. Returns the launches of K1 in the served
-    run and of the wide route in bench_kernels.""" 
+    default sweep and H 1024 (past the cluster routes' cap: the grid
+    forward and the streaming backward), forward and backward. Returns the
+    launches of K1 in the served run and of the wide route in
+    bench_kernels."""
     for args in BENCH_SYNTH_RUNS:
         bench_synthesis.main(args + ["--device", device])
     runs, real = _write_runs(root / "bench_serve")
@@ -4559,14 +4658,16 @@ def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> dict:
               f"{json.dumps(rows)} | {smi}", flush=True)
         if [r["H"] for r in rows] != BENCH_KERNEL_HS:
             fail(f"[bench-tools] bench_kernels rows {rows}")
-    _, _, cluster, stream, cluster_bwd, wide_bwd = (
+    _, _, cluster, grid, stream, cluster_bwd, wide_bwd = (
         a - b for a, b in zip(_wide_route_counts(), before))
     print(f"[bench-tools] bench_kernels launched the wide forward on clusters {cluster} "
-          f"times, streaming {stream}, the wide backward on clusters {cluster_bwd}, "
-          f"streaming {wide_bwd} | {smi}", flush=True)
+          f"times, on the grid {grid}, streaming {stream}, the wide backward on clusters "
+          f"{cluster_bwd}, streaming {wide_bwd} | {smi}", flush=True)
+    if torch.device(device).type == "cuda" and not (grid >= 1 and stream == 0):
+        fail(f"[bench-tools] bench_kernels at H 1024: grid forward {grid}, streaming {stream}")
     return {"gru_sequence": launches, "gru_sequence_wide_cluster": cluster,
-            "gru_sequence_wide": stream, "gru_sequence_bwd_wide_cluster": cluster_bwd,
-            "gru_sequence_bwd_wide": wide_bwd}
+            "gru_sequence_wide_grid": grid, "gru_sequence_wide": stream,
+            "gru_sequence_bwd_wide_cluster": cluster_bwd, "gru_sequence_bwd_wide": wide_bwd}
 
 
 def main() -> None:
@@ -4626,7 +4727,8 @@ def main() -> None:
     launches = {**cgan_launches, **wide_attn_launches,
                 **{k: sum(r.get(k, 0) for r in runs)
                    for k in ("gru_sequence", "gru_sequence_bwd", "gru_sequence_wide_cluster",
-                             "gru_sequence_wide", "gru_sequence_bwd_wide_cluster",
+                             "gru_sequence_wide_grid", "gru_sequence_wide",
+                             "gru_sequence_bwd_wide_cluster",
                              "gru_sequence_bwd_wide",
                              "multigru_disc_inputs")}}
     launches["gru_sequence"] += (serve_launches + synth_launches + figure_launches
@@ -4634,7 +4736,10 @@ def main() -> None:
     launches["flash_forward"] = cgan_launches["flash_forward"] + cgan_serve_launches
     launches["iir_filter"] = iir_launches
     for k, n in launches.items():
-        if n < 1:
+        if k in OFF_PATH:
+            if n:
+                fail(f"the main paths launched {k} {n} times: {OFF_PATH[k]}")
+        elif n < 1:
             fail(f"the main paths launched {k} no time")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds "
           f"by phase: {seconds}", flush=True)
@@ -4644,6 +4749,8 @@ def main() -> None:
                                     "eegsynth/nn/pallas_gru.py:81"),
                "gru_sequence_wide_cluster": ("eegsynth_torch/csrc/gru_seq_cluster.cu",
                                              "eegsynth/nn/pallas_gru.py:52"),
+               "gru_sequence_wide_grid": ("eegsynth_torch/csrc/gru_seq_grid.cu",
+                                          "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_wide": ("eegsynth_torch/csrc/gru_seq_wide.cu",
                                      "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_bwd_wide_cluster": ("eegsynth_torch/csrc/gru_seq_cluster_bwd.cu",

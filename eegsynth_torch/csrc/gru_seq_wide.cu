@@ -25,9 +25,13 @@
 // halves run on a cluster of blocks that splits W_hh^T's units between
 // their shared memory instead: the forward in gru_seq_cluster.cu (h
 // all-gathered through distributed shared memory every step), the backward
-// in gru_seq_cluster_bwd.cu (dh reduce-scattered every step). This forward
-// and this backward take the widths above the clusters' cap (H 545 to 1024
-// on the H100).
+// in gru_seq_cluster_bwd.cu (dh reduce-scattered every step). Above the
+// clusters' cap (H 545 to 1024 on the H100) the forward runs on one
+// cooperative grid whose blocks split W_hh^T's units between their shared
+// memory (gru_seq_grid.cu, h exchanged through L2 every step) and the
+// backward here. This forward runs only where a plan asks for it
+// (gru_sequence_wide(..., plan={"route": "stream"}): timing in turns, its
+// card tests, bench_kernels' streaming column).
 //
 // Forward: thread j (one per column, the block H threads rounded up to a
 // warp, so H <= 1024) computes hp[r, g H + j] for the three gates g and the

@@ -1,7 +1,8 @@
 // Split-TF32 warpgroup MMA for Hopper (sm_90a): the primitives the
 // tensor-core flash-attention kernels share (flash_attn_tc.cu: K3a, K3b and
 // K3c for head dims to 128; flash_attn_wide.cu: K3a past 128;
-// flash_attn_wide_bwd.cu: K3b and K3c past 128).
+// flash_attn_wide_bwd.cu: K3b and K3c past 128), and K1's grid forward
+// (gru_seq_grid.cu: N = 24, A from registers).
 //
 // - cp.async copies of raw row-major tiles into shared memory, 16 or 4
 //   bytes a copy, zero-filled past the matrix's rows and columns;
@@ -12,7 +13,7 @@
 // - matrix descriptors of the no-swizzle core-matrix layout (8 rows x 16
 //   bytes contiguous, 8-row groups 128 bytes apart, 4-value chunks along K
 //   LBO bytes apart) and wgmma m64nNk8 f32 += tf32 x tf32, A from shared
-//   memory (ss) or registers (rs), N = 16, 32, 64 or 128;
+//   memory (ss) or registers (rs), N = 16, 32, 64 or 128 (and 24: rs);
 // - mma_ss and mma_rs, a product over K as three wgmma passes a k-slice
 //   (lo.hi + hi.lo + hi.hi: about 2^-21 relative, float32's order);
 // - the launch helpers: one grid dimension, the scale D^-0.5.
@@ -142,6 +143,22 @@ struct Wgmma<16> {
         "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
         "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// N = 24 (A from registers only): K1's grid forward (gru_seq_grid.cu), whose
+// block owns 8 units, three gate columns each.
+template <>
+struct Wgmma<24> {
+  static __device__ __forceinline__ void rs(float (&d)[12], const uint32_t (&a)[4],
+                                          uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };

@@ -5,15 +5,26 @@ Counterpart of ``eegsynth/nn/pallas_gru.py`` (``_gru_seq_pallas``, and the
 custom VJP ``_gru_seq_bwd``). :func:`gru_sequence` is differentiable through
 :class:`GRUSequence`, whose forward and backward are both kernels on the card
 (``eegsynth_torch/csrc/gru_seq.cu``, built at first use by
-``eegsynth_torch._build``); past H 128 both halves take the wide route:
-each half on a thread-block cluster whose blocks hold W_hhᵀ's slice of
-their units in shared memory, up to the H a cluster holds (544 on the H100
-with clusters of 16), the forward in ``eegsynth_torch/csrc/gru_seq_cluster.cu``
-(h' all-gathered each step, :func:`cluster_plan`), the backward in
-``eegsynth_torch/csrc/gru_seq_cluster_bwd.cu`` (dh reduce-scattered each
-step, :func:`cluster_bwd_plan`); above that cap each half on
-``eegsynth_torch/csrc/gru_seq_wide.cu``, W_hhᵀ streamed from L2 each step,
-up to H 1024. On a CPU tensor each half runs its plain PyTorch
+``eegsynth_torch._build``). Which kernel takes which H (the numbers are the
+H100's):
+
+- up to H 128 (:data:`MAX_HIDDEN`), both halves hold W_hhᵀ in registers
+  (``gru_seq.cu``);
+- from H 129 to the clusters' cap (544 with clusters of 16, 384 without),
+  each half runs on a thread-block cluster whose blocks hold W_hhᵀ's slice
+  of their units in shared memory: the forward in
+  ``eegsynth_torch/csrc/gru_seq_cluster.cu`` (h' all-gathered each step,
+  :func:`cluster_plan`), the backward in
+  ``eegsynth_torch/csrc/gru_seq_cluster_bwd.cu`` (dh reduce-scattered each
+  step, :func:`cluster_bwd_plan`);
+- above the cap up to H 1024 (:data:`MAX_WIDE_HIDDEN`), the forward runs on
+  one cooperative grid whose blocks hold W_hhᵀ's slices in shared memory
+  and exchange h through L2 once a step
+  (``eegsynth_torch/csrc/gru_seq_grid.cu``, :func:`grid_plan`), the backward
+  on ``eegsynth_torch/csrc/gru_seq_wide.cu``, W_hh streamed from L2 each
+  step (that file's streaming forward runs only when a plan asks for it).
+
+On a CPU tensor each half runs its plain PyTorch
 version (:func:`gru_sequence_reference`, :func:`gru_sequence_bwd_reference`),
 which is also the oracle the kernels are checked against on the card; on a
 CUDA tensor it launches the kernel or raises. The backward is first-order
@@ -42,8 +53,10 @@ which holds W_hhᵀ slices in registers the same way; ``adaptive_dims`` caps
 h_dim here. K1 takes wider H through the wide route."""
 
 MAX_WIDE_HIDDEN = 1024
-"""Largest H of K1's wide route (the streaming kernels of ``gru_seq_wide.cu``:
-one thread a column, 1024 threads a block); the wrappers raise above it."""
+"""Largest H of K1's wide route: of the grid forward (``gru_seq_grid.cu``,
+whose W_hhᵀ in split TF32 fills 128 blocks' shared memory at H 1024) and of
+the streaming backward (``gru_seq_wide.cu``: one thread a column, 1024
+threads a block); the wrappers raise above it."""
 
 
 def _gates(x: torch.Tensor, hp: torch.Tensor, H: int):
@@ -298,7 +311,7 @@ def cluster_plan(nb: int, B: int, H: int, card: dict) -> dict:
     clocks (waves × :func:`_step_clocks`) among those in one wave, or among
     all where none is; the smaller C on a tie. Where no C fits (past the
     cap: H 544 on the H100 with clusters of 16, else 384), the route is
-    ``"stream"``: ``gru_seq_wide.cu``'s forward."""
+    ``"stream"``, and :func:`wide_plan` takes the grid plan instead."""
     return _best_plan(nb, B, card, cluster_fits(H, card), _step_clocks,
                       lambda C, R, g: C)
 
@@ -406,48 +419,155 @@ def cluster_bwd_plan(nb: int, B: int, H: int, card: dict) -> dict:
                       lambda C, R, g: (C, g["S"], R))
 
 
+GRID_UNITS = 8
+"""Units a block of K1's grid forward (``gru_seq_grid.cu``) owns: its wgmma
+is N = 3U = 24 gate columns wide (a multiple of 8). Sixteen units' slice of
+W_hhᵀ fits a block's shared memory only up to H 544, below the grid's
+widths."""
+
+GRID_STAGES = 2
+"""Stages of the grid forward's ring of h chunks: one landing while the
+tensor cores multiply the other (three or four ran no faster on the H100,
+PERF.md §6)."""
+
+GRID_CHUNK = 64
+"""Depth of h a stage of the grid forward holds at 64 rows (16 KB; at fewer
+rows a stage holds proportionally more depth)."""
+
+GRID_PAD = 32
+"""The grid forward pads h's depth (and W_hhᵀ's rows) to a multiple of this:
+two 16-deep parts, one for each set of fragments a warpgroup keeps in
+flight."""
+
+GRID_TILE_ROWS = 64
+"""Batch rows of the grid forward's wgmma tile; a block loops over
+ceil(B / 64) tiles a step."""
+
+GRID_THREADS = 256
+"""Threads a block of the grid forward: two warpgroups, one for each k-slice
+of a 16-deep part of h."""
+
+
+def grid_smem(H: int) -> int:
+    """Shared bytes of a block of the grid forward (as ``gru_seq_grid.cu``'s
+    ``grid_smem``): W_hhᵀ's slice of 3·:data:`GRID_UNITS` columns over the
+    depth padded to :data:`GRID_PAD`, TF32 hi and lo, and the ring of
+    :data:`GRID_STAGES` stages of 64 rows × :data:`GRID_CHUNK`."""
+    depth = -(-H // GRID_PAD) * GRID_PAD
+    return 4 * (2 * depth * 3 * GRID_UNITS + GRID_STAGES * GRID_TILE_ROWS * GRID_CHUNK)
+
+
+def grid_resident(card: dict, smem: int) -> int:
+    """Blocks of the grid forward at ``smem`` shared bytes resident at once:
+    the card's SMs times the blocks an SM holds, the fewer of its count at no
+    dynamic shared memory (``card["grid_blocks_sm"]``, 0 without cooperative
+    launches) and its shared memory's."""
+    by_smem = card["smem_sm"] // (smem + card["smem_reserved"])
+    return card["sms"] * min(card["grid_blocks_sm"], by_smem)
+
+
+def grid_plan(nb: int, B: int, H: int, card: dict) -> dict:
+    """K1's grid forward for (nb, B, H) on the card's numbers
+    (:func:`cluster_card`): ceil(H / 8) blocks a bucket (each owning a unit,
+    the last one's slice masked) of :func:`grid_smem` shared bytes; a
+    launch (a wave) holds the buckets whose blocks are resident at once,
+    the rest go in further launches. B does not enter: a block loops over
+    the batch in tiles of 64 rows. Raises where one bucket's blocks do not
+    fit resident at once (a card without cooperative launches, or too
+    little shared memory): no other route takes its place."""
+    blocks, smem = -(-H // GRID_UNITS), grid_smem(H)
+    resident = grid_resident(card, smem) if smem <= card["smem"] else 0
+    if resident < blocks:
+        raise RuntimeError(
+            f"K1's grid forward at H {H}: {blocks} blocks of {smem} shared bytes, "
+            f"{resident} resident at once on this card (cooperative launches "
+            f"{'yes' if card['grid_blocks_sm'] else 'no'})")
+    per_wave = max(1, min(max(nb, 1), resident // blocks))
+    return {"route": "grid", "U": GRID_UNITS, "blocks": blocks, "chunk": GRID_CHUNK,
+            "stages": GRID_STAGES, "threads": GRID_THREADS, "buckets_per_wave": per_wave,
+            "waves": -(-nb // per_wave), "smem": smem, "resident": resident}
+
+
+def wide_plan(nb: int, B: int, H: int, card: dict) -> dict:
+    """K1's wide forward route for (nb, B, H) on the card's numbers: the
+    cluster plan (:func:`cluster_plan`) up to the clusters' cap, the grid
+    plan (:func:`grid_plan`, which raises where it cannot launch) above it."""
+    plan = cluster_plan(nb, B, H, card)
+    return plan if plan["route"] == "cluster" else grid_plan(nb, B, H, card)
+
+
 _CARDS: dict[int, dict] = {}
 
 
 def cluster_card(device: torch.device | None = None) -> dict:
-    """The numbers :func:`cluster_plan` takes, from the card itself
-    (``gru_seq_cluster_card``; kept per device): SMs, shared bytes a block
-    and an SM and those reserved a block, and clusters of each C resident
-    at once, one block an SM."""
+    """The numbers :func:`cluster_plan` and :func:`grid_plan` take, from the
+    card itself (``gru_seq_cluster_card``, ``gru_seq_grid_card``; kept per
+    device): SMs, shared bytes a block and an SM and those reserved a block,
+    clusters of each C resident at once, one block an SM, and the grid
+    forward's blocks resident on an SM at no dynamic shared memory
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 where the card has no
+    cooperative launches)."""
     device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _CARDS:
         lib = _build.load_library()
         out = (ctypes.c_int * 8)()
+        grid = (ctypes.c_int * 2)()
         with torch.cuda.device(index):
             _build.check(lib, "gru_seq_cluster_card", lib.gru_seq_cluster_card(out))
+            _build.check(lib, "gru_seq_grid_card", lib.gru_seq_grid_card(grid))
         _CARDS[index] = {"sms": out[0], "smem": out[1], "smem_sm": out[2],
                          "smem_reserved": out[3],
-                         "resident": dict(zip(CLUSTER_SIZES, out[4:8]))}
+                         "resident": dict(zip(CLUSTER_SIZES, out[4:8])),
+                         "grid_blocks_sm": grid[1] * grid[0]}
     return _CARDS[index]
 
 
 def gru_sequence_wide(xp, w_hh_t, b_hh, h0, plan: dict | None = None) -> torch.Tensor:
     """Launch K1's wide forward on stacked, checked CUDA tensors (any H up
     to :data:`MAX_WIDE_HIDDEN`; :func:`gru_sequence` takes it past
-    :data:`MAX_HIDDEN`): the cluster kernel where :func:`cluster_plan` (or
-    the ``plan`` given) finds a cluster that holds W_hhᵀ, counted by
-    ``gru_sequence_wide.cluster_launches``; else the streaming kernel,
-    counted by ``gru_sequence_wide.launches``. A plan the kernel cannot
-    launch raises."""
+    :data:`MAX_HIDDEN`) on :func:`wide_plan`'s route, or the ``plan`` given:
+    the cluster kernel (counted by ``gru_sequence_wide.cluster_launches``)
+    where a cluster holds W_hhᵀ, the grid kernel (one launch a wave of
+    buckets, each counted by ``gru_sequence_wide.grid_launches``) above
+    that, and the streaming kernel (``gru_sequence_wide.launches``) only
+    for ``{"route": "stream"}``. A plan the card cannot launch raises."""
     nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
     ys = torch.empty((nb, T, B, H), dtype=torch.float32, device=xp.device)
     if nb and T and B:
         if plan is None:
-            plan = cluster_plan(nb, B, H, cluster_card(xp.device))
+            plan = wide_plan(nb, B, H, cluster_card(xp.device))
         if plan["route"] == "cluster":
             _launch("gru_seq_cluster_fwd", xp, w_hh_t, b_hh, h0, ys, nb, T, B, H,
                     *(plan[k] for k in ("C", "R", "S", "KL", "U")))
             gru_sequence_wide.cluster_launches += 1
-        else:
+        elif plan["route"] == "grid":
+            gru_sequence_wide.grid_launches += _grid_launch("gru_seq_grid_fwd", xp, w_hh_t,
+                                                            b_hh, h0, ys, plan)
+        elif plan["route"] == "stream":
             _launch("gru_seq_wide_fwd", xp, w_hh_t, b_hh, h0, ys, nb, T, B, H)
             gru_sequence_wide.launches += 1
+        else:
+            raise ValueError(f"gru_sequence_wide: no route {plan['route']!r}")
     return ys
+
+
+def _grid_launch(fn: str, xp, w_hh_t, b_hh, h0, ys, plan: dict) -> int:
+    """Launch ``fn`` (the grid forward or its probe) once for each wave of
+    the plan's ``buckets_per_wave`` buckets, on one zeroed workspace (the
+    flags and the exchange buffers of h of every bucket); returns the
+    launches."""
+    nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
+    lib = _build.load_library()
+    words = lib.gru_seq_grid_workspace(nb, B, H)
+    if words < 0:
+        raise ValueError(f"{fn}: no workspace for nb={nb} B={B} H={H}")
+    ws = torch.zeros(words, dtype=torch.int32, device=xp.device)
+    per_wave = plan["buckets_per_wave"]
+    for first in range(0, nb, per_wave):
+        _launch(fn, xp, w_hh_t, b_hh, h0, ys, ws, nb, T, B, H, first,
+                min(per_wave, nb - first))
+    return -(-nb // per_wave)
 
 
 def cluster_chain_probe(xp, w_hh_t, b_hh, h0, plan: dict) -> None:
@@ -461,19 +581,30 @@ def cluster_chain_probe(xp, w_hh_t, b_hh, h0, plan: dict) -> None:
             *(plan[k] for k in ("C", "R", "S", "KL", "U")))
 
 
+def grid_chain_probe(xp, w_hh_t, b_hh, h0, plan: dict) -> None:
+    """Launch the grid forward's step-chain probe (``gru_seq_grid_chain``) on
+    the inputs of a :func:`gru_sequence_wide` call and its grid plan: the
+    same launches with each step's product and gates left out, T steps of
+    the wait, the read of h from L2 and the publication alone. It writes
+    only its workspace, is counted by no launch counter, and is timed as the
+    route's step-chain floor."""
+    _grid_launch("gru_seq_grid_chain", xp, w_hh_t, b_hh, h0, xp, plan)
+
+
 def wide_tile(nb: int, B: int, H: int) -> dict:
     """The wide route for (nb, B, H) on the current card: the forward's
-    ``route`` (``"cluster"`` or ``"stream"``) with its cluster ``C`` and rows
-    ``R`` (None on the streaming kernel) and ``plan`` (:func:`cluster_plan`);
-    the backward's the same under ``bwd_route``, ``bwd_C``, ``bwd_R`` and
-    ``bwd_plan`` (:func:`cluster_bwd_plan`); and the streaming kernels'
-    tile: batch rows a block, tiles a bucket, threads a block, and the
-    forward's and the backward's shared bytes."""
+    ``route`` (``"cluster"`` or ``"grid"``) with its cluster
+    ``C`` and rows ``R`` (None off the cluster kernel) and ``plan``
+    (:func:`wide_plan`: the cluster or the grid plan); the backward's the
+    same under ``bwd_route``, ``bwd_C``, ``bwd_R`` and ``bwd_plan``
+    (:func:`cluster_bwd_plan`); and the streaming kernels' tile: batch rows
+    a block, tiles a bucket, threads a block, and the forward's and the
+    backward's shared bytes."""
     lib = _build.load_library()
     out = (ctypes.c_int * 5)()
     _build.check(lib, "gru_seq_wide_tile", lib.gru_seq_wide_tile(nb, B, H, out))
     card = cluster_card()
-    plan = cluster_plan(nb, B, H, card)
+    plan = wide_plan(nb, B, H, card)
     bwd = cluster_bwd_plan(nb, B, H, card)
     return {"route": plan["route"], "C": plan.get("C"), "R": plan.get("R"), "plan": plan,
             "bwd_route": bwd["route"], "bwd_C": bwd.get("C"), "bwd_R": bwd.get("R"),
@@ -615,9 +746,10 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels:
     ``gru_sequence.launches`` counts the forward launches at H up to
-    :data:`MAX_HIDDEN`, ``gru_sequence_wide.cluster_launches`` and
-    ``gru_sequence_wide.launches`` the wide route's past it (the cluster and
-    the streaming kernel; and ``gru_sequence_bwd``,
+    :data:`MAX_HIDDEN`, ``gru_sequence_wide.cluster_launches``,
+    ``gru_sequence_wide.grid_launches`` and ``gru_sequence_wide.launches``
+    the wide route's past it (the cluster, the grid and the streaming
+    kernel; and ``gru_sequence_bwd``,
     ``gru_sequence_bwd_wide.cluster_launches`` and
     ``gru_sequence_bwd_wide.launches`` the backward's).
     H past :data:`MAX_WIDE_HIDDEN` raises."""
@@ -630,5 +762,6 @@ gru_sequence.launches = 0
 gru_sequence_bwd.launches = 0
 gru_sequence_wide.launches = 0
 gru_sequence_wide.cluster_launches = 0
+gru_sequence_wide.grid_launches = 0
 gru_sequence_bwd_wide.launches = 0
 gru_sequence_bwd_wide.cluster_launches = 0

@@ -38,8 +38,9 @@ from eegsynth_torch.nn.attention import (
 )
 from eegsynth_torch.nn.gru_sequence import (
     MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_geometry, cluster_bwd_plan, cluster_card,
-    cluster_geometry, cluster_plan, gru_sequence, gru_sequence_bwd, gru_sequence_bwd_reference,
-    gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide, weight_grads,
+    cluster_geometry, cluster_plan, grid_plan, gru_sequence, gru_sequence_bwd,
+    gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide,
+    weight_grads, wide_plan,
 )
 from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
@@ -216,18 +217,21 @@ def test_backward_repeats_bitwise(cuda_device, nb, T, B, H):
 
 
 def _wide_counts() -> tuple:
-    """K1 forward, the wide route's cluster and streaming forwards, K1
+    """K1 forward, the wide route's cluster, grid and streaming forwards, K1
     backward, the wide route's cluster and streaming backwards."""
     return (gru_sequence.launches, gru_sequence_wide.cluster_launches,
-            gru_sequence_wide.launches, gru_sequence_bwd.launches,
-            gru_sequence_bwd_wide.cluster_launches, gru_sequence_bwd_wide.launches)
+            gru_sequence_wide.grid_launches, gru_sequence_wide.launches,
+            gru_sequence_bwd.launches, gru_sequence_bwd_wide.cluster_launches,
+            gru_sequence_bwd_wide.launches)
 
 
 def _wide_forward(nb, B, H) -> list:
     """The wide forward's launches _wide_counts expects at (nb, B, H): the
-    cluster kernel where the card's plan fits, else the streaming kernel."""
-    cluster = cluster_plan(nb, B, H, cluster_card())["route"] == "cluster"
-    return [0, int(cluster), int(not cluster)]
+    cluster kernel where the card's cluster plan fits, else the grid kernel
+    (one launch a wave of buckets)."""
+    plan = wide_plan(nb, B, H, cluster_card())
+    cluster = plan["route"] == "cluster"
+    return [0, int(cluster), 0 if cluster else plan["waves"], 0]
 
 
 def _wide_backward(nb, B, H) -> list:
@@ -239,8 +243,9 @@ def _wide_backward(nb, B, H) -> list:
 
 
 # K1's wide route (H past 128; each half on a cluster up to its cap, in
-# gru_seq_cluster.cu and gru_seq_cluster_bwd.cu, the streaming kernels of
-# gru_seq_wide.cu past it): the first width past the register kernels' cap (3H
+# gru_seq_cluster.cu and gru_seq_cluster_bwd.cu; past it the forward on the
+# grid of gru_seq_grid.cu, the backward on the streaming kernel of
+# gru_seq_wide.cu): the first width past the register kernels' cap (3H
 # and H not multiples of 4: the scalar tails), H 256 and 512
 # (bench_kernels' sweep) with odd T and B, a batch past one wave, one step,
 # and the largest H
@@ -277,7 +282,7 @@ def test_cluster_forward_each_size_matches_plain(cuda_device, C, R, nb, T, B, H)
     before = _wide_counts()
     ys = gru_sequence_wide(*inputs, plan=plan)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0, 0]
     assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
     assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
 
@@ -290,19 +295,19 @@ def test_cluster_route_matches_plain(cuda_device, nb, T, B, H):
     before = _wide_counts()
     ys = gru_sequence(*inputs)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0, 0]
     assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
 
 
 def test_cluster_route_ends_at_its_cap(cuda_device):
     """The largest H a cluster holds on this card runs the cluster kernel,
-    the next H the streaming kernel; both match the plain version. Two
+    the next H the grid kernel; both match the plain version. Two
     calls of the cluster kernel give the same bits, and a plan it cannot
     launch raises."""
     card = cluster_card()
     cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
               if cluster_plan(1, 1, H, card)["route"] == "cluster")
-    for H, want in ((cap, [0, 1, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0])):
+    for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0])):
         inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
         before = _wide_counts()
         ys = gru_sequence(*inputs)
@@ -315,6 +320,62 @@ def test_cluster_route_ends_at_its_cap(cuda_device):
     empty_block = {"route": "cluster", "C": 16, "R": 1, **cluster_geometry(129, 16)}
     with pytest.raises(RuntimeError, match="gru_seq_cluster_fwd"):
         gru_sequence_wide(*inputs, plan=empty_block)
+
+
+# the grid forward (gru_seq_grid.cu), the card's plan given: below the cap
+# at H 160 and 544 (forced; 20 and 68 blocks), the cap + 1 (69 blocks, the
+# last owning one unit), a ragged depth (600, 777: odd, 98 blocks), the
+# largest H (128 blocks), nb 3 (three waves at 1024), B 1, 9, 64 and 600
+# (ten 64-row tiles, the last ragged), B 70 (a full and a ragged tile) and
+# B 5 (a stage holding 50 parts of 16), T 1
+@pytest.mark.parametrize("nb,T,B,H", [(1, 30, 9, 160), (1, 101, 9, 545), (3, 40, 64, 600),
+                                      (1, 20, 600, 777), (3, 25, 64, 1024), (1, 1, 1, 1024),
+                                      (1, 50, 1, 545), (3, 1, 9, 777), (1, 12, 600, 1024),
+                                      (1, 40, 70, 160), (1, 30, 5, 544), (1, 30, 70, 777),
+                                      (1, 30, 5, 1024)])
+def test_grid_forward_matches_plain(cuda_device, nb, T, B, H):
+    inputs = _inputs(T, B, H, cuda_device, seed=H + T, lead=(nb,))
+    plan = grid_plan(nb, B, H, cluster_card())
+    before = _wide_counts()
+    ys = gru_sequence_wide(*inputs, plan=plan)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, plan["waves"], 0, 0, 0, 0]
+    assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
+    assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
+
+
+def test_grid_route_takes_over_past_the_cluster_cap(cuda_device):
+    """The automatic route: the largest H a cluster holds on this card runs
+    the cluster kernel, the next H and 1024 the grid kernel, by the
+    counters; all match the plain version. Two calls of the grid kernel
+    give the same bits; T = 0 launches nothing; a plan with more blocks than
+    the card holds resident at once is refused by the cooperative launch and
+    raises."""
+    card = cluster_card()
+    cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
+              if cluster_plan(1, 1, H, card)["route"] == "cluster")
+    for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0]),
+                    (MAX_WIDE_HIDDEN, [0, 0, 1, 0, 0, 0, 0])):
+        inputs = _inputs(40, 9, H, cuda_device, seed=H, lead=(1,))
+        before = _wide_counts()
+        ys = gru_sequence(*inputs)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_wide_counts(), before)] == want, H
+        assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
+    inputs = _inputs(200, 37, 777, cuda_device, seed=7, lead=(2,))
+    assert torch.equal(gru_sequence(*inputs), gru_sequence(*inputs))
+    inputs = _inputs(0, 9, 1024, cuda_device, lead=(3,))
+    before = _wide_counts()
+    ys = gru_sequence(*inputs)
+    torch.cuda.synchronize()
+    assert ys.shape == (3, 0, 9, 1024)
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 7
+    inputs = _inputs(10, 3, 1024, cuda_device, seed=8, lead=(2,))
+    plan = grid_plan(2, 3, 1024, card)
+    too_many = {**plan, "buckets_per_wave": 2}
+    assert 2 * plan["blocks"] > plan["resident"]
+    with pytest.raises(RuntimeError, match="gru_seq_grid_fwd"):
+        gru_sequence_wide(*inputs, plan=too_many)
 
 
 def _wide_bwd_inputs(nb, T, B, H, device, seed):
@@ -343,7 +404,7 @@ def test_cluster_backward_each_size_matches_plain(cuda_device, C, R, S, nb, T, B
     dxp, dh0 = gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
                                      plan=plan)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0]
     ref = gru_sequence_bwd_reference(*inputs, ys, d_ys)
     dw, db = weight_grads(h_prev, hp)
     _assert_bwd_matches((dxp, dw, db, dh0), ref)
@@ -359,7 +420,7 @@ def test_cluster_backward_route_matches_plain(cuda_device, nb, T, B, H):
     before = _wide_counts()
     got = gru_sequence_bwd(*inputs, ys, d_ys)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0]
     _assert_bwd_matches(got, gru_sequence_bwd_reference(*inputs, ys, d_ys))
 
 
@@ -371,7 +432,7 @@ def test_cluster_backward_ends_at_its_cap(cuda_device):
     card = cluster_card()
     cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
               if cluster_bwd_plan(1, 1, H, card)["route"] == "cluster")
-    for H, want in ((cap, [0, 0, 0, 0, 1, 0]), (cap + 1, [0, 0, 0, 0, 0, 1])):
+    for H, want in ((cap, [0, 0, 0, 0, 0, 1, 0]), (cap + 1, [0, 0, 0, 0, 0, 0, 1])):
         inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
         ys = gru_sequence_reference(*inputs)
         d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(H)).to(cuda_device)
@@ -390,7 +451,7 @@ def test_cluster_backward_ends_at_its_cap(cuda_device):
     before = _wide_counts()
     dxp, dw, db, dh0 = gru_sequence_bwd(*inputs, ys, torch.zeros_like(ys))
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0]
     assert dxp.shape == inputs[0].shape
     for t in (dw, db, dh0):
         assert torch.equal(t, torch.zeros_like(t))
@@ -450,8 +511,8 @@ def test_wide_timegan_step_runs_on_wide_k1(cuda_device):
     card = step(cuda_device)
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(counts(), before)]
-    assert launched[6] == 0 and launched[1] >= 2 and launched[2] == 0 and launched[4] >= 1
-    assert launched[5] == 0
+    assert launched[7] == 0 and launched[1] >= 2 and launched[2] == launched[3] == 0
+    assert launched[5] >= 1 and launched[6] == 0
     host = step("cpu")
     logs = (card[3].cpu() - host[3]).abs() / host[3].abs().clamp(min=1.0)
     assert torch.isfinite(card[3]).all() and logs.max().item() <= 1e-4

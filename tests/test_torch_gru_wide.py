@@ -1,10 +1,12 @@
 """K1's wide forward and backward on thread-block clusters
-(``csrc/gru_seq_cluster.cu``, ``csrc/gru_seq_cluster_bwd.cu``) on the CPU:
-the route, cluster and rows that ``cluster_plan`` and ``cluster_bwd_plan``
-pick at the H100's numbers, and each kernel's summation order, emulated in
-numpy float32, against the plain versions and the Pallas kernel (and its
-custom VJP) in interpret mode. The kernels themselves run on the card
-(tests/test_torch_card.py, chip_smoke.py)."""
+(``csrc/gru_seq_cluster.cu``, ``csrc/gru_seq_cluster_bwd.cu``) and, past the
+clusters' cap, the forward on one cooperative grid (``csrc/gru_seq_grid.cu``)
+on the CPU: the route, cluster and rows that ``cluster_plan`` and
+``cluster_bwd_plan`` pick at the H100's numbers and the grid plan above the
+cap, and each kernel's summation order, emulated in numpy float32, against
+the plain versions and the Pallas kernel (and its custom VJP) in interpret
+mode. The kernels themselves run on the card (tests/test_torch_card.py,
+chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -17,16 +19,21 @@ from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth.nn.pallas_gru import gru_sequence as jax_gru_sequence
 from eegsynth_torch.nn.gru_sequence import (
-    CLUSTER_MAX_THREADS, CLUSTER_ROWS, MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_fits,
-    cluster_bwd_plan, cluster_bwd_smem, cluster_fits, cluster_plan, cluster_smem,
-    gru_sequence_bwd_reference, gru_sequence_reference, resident_clusters, weight_grads)
+    CLUSTER_MAX_THREADS, CLUSTER_ROWS, GRID_CHUNK, GRID_PAD, GRID_STAGES, GRID_UNITS,
+    MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_fits, cluster_bwd_plan, cluster_bwd_smem,
+    cluster_fits, cluster_plan, cluster_smem, grid_plan, grid_resident, grid_smem,
+    gru_sequence_bwd_reference, gru_sequence_reference, resident_clusters, weight_grads,
+    wide_plan)
 
 # The H100 SXM's numbers (132 SMs, 232,448 shared bytes a block, 233,472 an
 # SM, 1,024 reserved a block) with the clusters resident at once for each C
-# at one block an SM that the H100 80GB HBM3 reports
-# (cudaOccupancyMaxActiveClusters); and the same card without clusters of 16.
+# at one block an SM (cudaOccupancyMaxActiveClusters) and the grid
+# forward's blocks an SM at no dynamic shared memory
+# (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its 256 threads' registers
+# allow one) that the H100 80GB HBM3 reports; and the same card without
+# clusters of 16.
 H100 = {"sms": 132, "smem": 232448, "smem_sm": 233472, "smem_reserved": 1024,
-        "resident": {2: 66, 4: 30, 8: 15, 16: 7}}
+        "resident": {2: 66, 4: 30, 8: 15, 16: 7}, "grid_blocks_sm": 1}
 H100_PORTABLE = {**H100, "resident": {**H100["resident"], 16: 0}}
 CAPS = {"16 blocks": (H100, 544), "8 blocks": (H100_PORTABLE, 384)}
 
@@ -42,7 +49,7 @@ def _one_wave_exists(nb, B, H, numbers):
 @pytest.mark.parametrize("B", [1, 4, 37, 64, 600])
 def test_cluster_plan_covers_every_wide_width(card, B):
     """For every H from 129 to 1024: the cluster route up to its cap and
-    the streaming kernel above it; a cluster plan's shared bytes fit a
+    the grid kernel above it (wide_plan); a cluster plan's shared bytes fit a
     block, its tiles of R rows cover B, every block owns a unit and C·U
     covers H (the last block's ragged slice masked), its depth S·KL covers
     H in float4s, short of a float4 a lane, its blocks keep to their thread bound, and it runs in one
@@ -51,7 +58,7 @@ def test_cluster_plan_covers_every_wide_width(card, B):
     for nb in (1, 3):
         routes = {}
         for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1):
-            plan = cluster_plan(nb, B, H, numbers)
+            plan = wide_plan(nb, B, H, numbers)
             routes[H] = plan["route"]
             if plan["route"] != "cluster":
                 continue
@@ -71,7 +78,60 @@ def test_cluster_plan_covers_every_wide_width(card, B):
             assert plan["waves"] == 1 or not one_wave, (nb, B, H, plan)
         assert [H for H, r in routes.items() if r == "cluster"] == list(
             range(MAX_HIDDEN + 1, cap + 1))
-        assert all(r == "stream" for H, r in routes.items() if H > cap)
+        assert all(r == "grid" for H, r in routes.items() if H > cap)
+
+
+@pytest.mark.parametrize("card", sorted(CAPS))
+@pytest.mark.parametrize("B", [1, 4, 37, 64, 600])
+def test_grid_plan_covers_every_width_past_the_cap(card, B):
+    """For every H from the clusters' cap + 1 to 1024 and nb 1 and 3, the
+    grid plan: its shared bytes fit a block, its blocks each own a unit and
+    together cover H (U·blocks >= H > U·(blocks - 1)), 3U is a multiple of 8
+    (wgmma's N), the blocks of a wave's buckets are resident at once, a
+    wave holds as many buckets as are resident, and its waves take all nb
+    buckets. B does not enter: a block loops over the batch in tiles of 64
+    rows."""
+    numbers, cap = CAPS[card]
+    for nb in (1, 3):
+        for H in range(cap + 1, MAX_WIDE_HIDDEN + 1):
+            plan = grid_plan(nb, B, H, numbers)
+            assert plan == grid_plan(nb, 1, H, numbers)
+            U, chunk, stages, blocks = (plan[k] for k in ("U", "chunk", "stages", "blocks"))
+            assert plan["route"] == "grid" and U == GRID_UNITS and (3 * U) % 8 == 0
+            assert chunk == GRID_CHUNK and stages == GRID_STAGES
+            assert plan["smem"] == grid_smem(H) <= numbers["smem"]
+            assert blocks * U >= H > (blocks - 1) * U
+            assert plan["resident"] == grid_resident(numbers, plan["smem"])
+            per_wave = plan["buckets_per_wave"]
+            assert 1 <= per_wave <= nb and blocks * per_wave <= plan["resident"]
+            assert per_wave == min(nb, plan["resident"] // blocks), (nb, H, plan)
+            assert plan["waves"] == -(-nb // per_wave)
+
+
+def test_grid_plan_at_the_headline_shapes():
+    """The grid plans the card's main paths start from: (1, 64, 1024) on 128
+    blocks of 8 units, chunks of 64 in two stages (229,376 shared bytes a
+    block), one wave; three buckets in three waves; (1, 9, 545) on 69 blocks,
+    chunks of 64 in two stages (143,360 bytes); the automatic route turns
+    from the cluster kernel to the grid at H 545; a card without cooperative
+    launches gets no grid plan, and the route past the cap raises there."""
+    plan = grid_plan(1, 64, 1024, H100)
+    assert (plan["U"], plan["blocks"], plan["chunk"], plan["stages"], plan["smem"],
+            plan["resident"], plan["waves"]) == (8, 128, 64, 2, 229376, 132, 1)
+    assert (grid_plan(3, 64, 1024, H100)["waves"],
+            grid_plan(3, 64, 1024, H100)["buckets_per_wave"]) == (3, 1)
+    plan = grid_plan(1, 9, 545, H100)
+    assert (plan["U"], plan["blocks"], plan["chunk"], plan["stages"], plan["smem"],
+            plan["waves"]) == (8, 69, 64, 2, 143360, 1)
+    assert wide_plan(1, 64, 544, H100)["route"] == "cluster"
+    assert wide_plan(1, 64, 545, H100)["route"] == "grid"
+    none = {**H100, "grid_blocks_sm": 0}
+    for H in (545, 1024):
+        with pytest.raises(RuntimeError, match="grid forward"):
+            grid_plan(1, 64, H, none)
+        with pytest.raises(RuntimeError, match="grid forward"):
+            wide_plan(1, 64, H, none)
+    assert wide_plan(1, 64, 544, none)["route"] == "cluster"
 
 
 def test_cluster_plan_at_the_headline_shapes():
@@ -160,6 +220,102 @@ def test_cluster_sum_order_matches_pallas_interpret():
     ref = jax_gru_sequence(*(jnp.asarray(a) for a in inputs), True)
     np.testing.assert_allclose(_cluster_sum_order(*inputs, kl, s), np.asarray(ref),
                                rtol=0, atol=1e-4)
+
+
+def _tf32(x):
+    """float32 rounded to TF32 on the bits (to nearest, ties away from
+    zero), as the kernels' split does."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _grid_sum_order(xp, w, b, h0):
+    """K1 grid forward's arithmetic in its order (csrc/gru_seq_grid.cu), in
+    numpy float32: h and W padded with zeros to a depth of GRID_PAD, their
+    depth taken in k-slices of 8 in the kernel's order (slice 2c + s, column
+    j holds depth 16c + 4(j % 4) + 2s + j / 4), each split x = hi + lo in
+    TF32; each k-slice's 8 products of lo.hi, hi.lo and hi.hi summed in
+    float32 (a wgmma's partial); warpgroup s takes the slices 2c + s, each
+    pass a chain for each part parity c mod 2 summed in slice order from
+    zero; a warpgroup's sum is hh + (lh + hl) with the two sets added in
+    order, warpgroup 0's plus warpgroup 1's; then b_hh and the gates with
+    the kernel's sigmoid 1/2 + tanh(x/2)/2. Which block owns a unit, the
+    chunk and the ring of stages change no sum."""
+    T, B, G = xp.shape
+    H = G // 3
+    kp = -(-H // GRID_PAD) * GRID_PAD
+    par = 2
+    kl = np.arange(kp)
+    kk, j = kl // 8, kl % 8
+    phys = (kk // 2) * 16 + (j % 4) * 4 + (kk % 2) * 2 + j // 4
+    w_pad = np.zeros((kp, G), np.float32)
+    w_pad[:H] = w
+    slices = kp // 8
+    w_log = w_pad[phys]
+    w_hi = _tf32(w_log)
+    w_lo = _tf32(w_log - w_hi)
+    w_hi, w_lo = (a.reshape(slices, 8, G) for a in (w_hi, w_lo))
+    # chain set c of warpgroup s holds the slices s + 2c, s + 2c + 2 par, ..., in order
+
+    def chain(p, s, c):
+        acc = p[s + 2 * c].copy()
+        for kg in range(s + 2 * c + 2 * par, slices, 2 * par):
+            acc += p[kg]        # float32, one rounding a slice
+        return acc
+
+    h = h0.astype(np.float32)
+    ys = np.empty((T, B, H), np.float32)
+    for t in range(T):
+        h_pad = np.zeros((B, kp), np.float32)
+        h_pad[:, :H] = h
+        a = h_pad[:, phys]
+        a_hi = _tf32(a)
+        a_lo = _tf32(a - a_hi)
+        a_hi, a_lo = (x.reshape(B, slices, 8).transpose(1, 0, 2) for x in (a_hi, a_lo))
+        parts = (a_lo @ w_hi, a_hi @ w_lo, a_hi @ w_hi)   # (slices, B, G) each
+        acc = None
+        for wg in (0, 1):
+            sums = [[chain(p, wg, c) for p in parts] for c in range(par)]
+            sl, sm, sh = sums[0]
+            for c in range(1, par):
+                sl, sm, sh = sl + sums[c][0], sm + sums[c][1], sh + sums[c][2]
+            part = sh + (sl + sm)
+            acc = part if acc is None else acc + part
+        x = xp[t]
+        r = _sigmoid_fwd(x[:, :H] + (acc[:, :H] + b[0, :H]))
+        z = _sigmoid_fwd(x[:, H:2 * H] + (acc[:, H:2 * H] + b[0, H:2 * H]))
+        n = np.tanh(x[:, 2 * H:] + r * (acc[:, 2 * H:] + b[0, 2 * H:]))
+        h = ((1 - z) * n + z * h).astype(np.float32)
+        ys[t] = h
+    return ys
+
+
+# past the cap: a ragged depth (600: 8 zero-padded k) and a ragged last
+# block (75 blocks of 8 units), and the largest H (128 blocks)
+@pytest.mark.parametrize("T,B,H", [(768, 2, 600), (768, 2, 1024)])
+def test_grid_sum_order_matches_reference(T, B, H):
+    """The grid kernel's summation order (split-TF32 products, its k-slice
+    order and chains) stays within the card tests' 1e-4 of the plain
+    recurrence over 768 dependent steps, W at its init scale
+    (~1/sqrt(H))."""
+    inputs = list(_seq_inputs(np.random.default_rng(T + H), T, B, H))
+    inputs[1] /= np.float32(0.3 * np.sqrt(H))
+    assert grid_plan(1, B, H, H100)["route"] == "grid"
+    got = _grid_sum_order(*inputs)
+    ref = gru_sequence_reference(*(torch.from_numpy(a) for a in inputs))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref.numpy(), rtol=0, atol=1e-4)
+
+
+def test_grid_sum_order_matches_pallas_interpret():
+    """The same order against the Pallas kernel in interpret mode at H 160,
+    a grid plan forced below the cap (20 blocks of 8 units; no padding)."""
+    T, B, H = 16, 3, 160
+    inputs = list(_seq_inputs(np.random.default_rng(T), T, B, H))
+    inputs[1] /= np.float32(0.3 * np.sqrt(H))
+    assert grid_plan(1, B, H, H100)["blocks"] == 20
+    ref = jax_gru_sequence(*(jnp.asarray(a) for a in inputs), True)
+    np.testing.assert_allclose(_grid_sum_order(*inputs), np.asarray(ref), rtol=0, atol=1e-4)
 
 
 def _one_bwd_wave_exists(nb, B, H, numbers):
