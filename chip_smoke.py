@@ -23,7 +23,9 @@ failure is swallowed):
              cuobjdump -sass
              counts the
              HGMMA (wgmma) instructions of every K3a, K3b and K3c instance,
-             the wide K3a, K3b and K3c (head dims past 128) included;
+             the wide K3a, K3b and K3c (head dims past 128) included, and of
+             K1's grid forward, and the HMMA (mma.sync) instructions of K1's
+             grid backward;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the main paths give it, with both times and its
              bound (FLOPs at the TF32 tensor-core rate or bytes at the HBM
@@ -51,17 +53,16 @@ failure is swallowed):
              orders 2 and 8, float64 and float32, over a 60 s trial against
              its plain version and over an hour against scipy's lfilter, with
              its step-chain floor; K1's wide route (H past 128, forward and
-             backward, each on a thread-block cluster up to its cap; past
-             it the forward on one cooperative grid, the backward on the
-             streaming kernel) against its plain versions at H 129, 256 and
-             512 (nb 2, odd B and T) and at the cluster routes' cap and past
-             it, each line with each half's route, cluster C, rows R and
-             waves or grid blocks and waves and the step-chain floors, and
-             against cuDNN's GRU forward and backward at (1, 768, 64, 256),
-             512 and 1024, each cluster and grid kernel in turns with the
-             streaming one it replaced and beside every cluster plan that
-             fits; the grid forward in waves of buckets against the
-             streaming forward at nb 3 and 18;
+             backward, each on a thread-block cluster up to its cap and on
+             one cooperative grid past it) against its plain versions at H
+             129, 256 and 512 (nb 2, odd B and T) and at the cluster routes'
+             cap and past it, each line with each half's route, cluster C,
+             rows R and waves or grid blocks and waves and the step-chain
+             floors, and against cuDNN's GRU forward and backward at (1,
+             768, 64, 256), 512 and 1024, each cluster and grid kernel in
+             turns with the streaming one it replaced and beside every
+             cluster plan that fits; the grid forward and backward in waves
+             of buckets against the streaming kernels at nb 3 and 18;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -122,9 +123,8 @@ failure is swallowed):
              train/timegan.py's step functions: one AE and one SUP step, its
              GAN steps at B 16, T 768, synthesize(); the wide K1 forward and
              backward launched (at h256 on their cluster kernels, at h1024
-             the forward on the grid and the backward streaming), never the
-             streaming forward, no K2; one GAN step at B 4, T 96 against the
-             CPU;
+             on their grid kernels), never the streaming kernels, no K2; one
+             GAN step at B 4, T 96 against the CPU;
 5h. convert — ``python -m eegsynth_torch.convert_torch_ckpt``: a
              reference-shaped TimeGAN checkpoint and conv generator made in
              torch, converted and served over HTTP (the TimeGAN equal to the
@@ -136,7 +136,7 @@ failure is swallowed):
              hung client for 5 s against the server, 0 errors),
              ``tools.bench_kernels`` (H 56, 128, 256, 512 and 1024, forward
              and backward: the wide forward and backward on clusters and, at
-             1024, the grid forward and the streaming backward);
+             1024, on their grids);
 6. cgan    — train_one_condition (v1) at the JAX defaults (dim 256, depth 4,
              heads 4, patch 8, batch 64) on 9 random posture buckets for 2
              epochs with flash attention forced; artifacts, finite
@@ -273,9 +273,10 @@ from eegsynth_torch.nn.attention import (
 )
 from eegsynth_torch.nn.gru_sequence import (
     MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_chain_probe, cluster_bwd_fits, cluster_bwd_plan,
-    cluster_card, cluster_chain_probe, cluster_fits, cluster_plan, forward_tile, grid_chain_probe,
-    gru_sequence, gru_sequence_bwd, gru_sequence_bwd_recurrence, gru_sequence_bwd_reference,
-    gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide, wide_plan, wide_tile,
+    cluster_card, cluster_chain_probe, cluster_fits, cluster_plan, forward_tile,
+    grid_bwd_chain_probe, grid_chain_probe, gru_sequence, gru_sequence_bwd,
+    gru_sequence_bwd_recurrence, gru_sequence_bwd_reference, gru_sequence_bwd_wide,
+    gru_sequence_reference, gru_sequence_wide, wide_bwd_plan, wide_plan, wide_tile,
 )
 from eegsynth_torch.nn.layers import xavier_uniform
 from eegsynth_torch.nn.multigru import (
@@ -347,22 +348,21 @@ BWD_SHAPES = ((18, 768, 63, 56), (18, 768, 63, 28), (3, 1024, 37, 128),
 BWD_CUDNN_SHAPE = (1, 768, 63, 56)
 # K1's wide route (H past 128: the forward and the backward on thread-block
 # clusters in gru_seq_cluster.cu and gru_seq_cluster_bwd.cu up to the H a
-# cluster holds; above it the forward on one cooperative grid,
-# gru_seq_grid.cu, and the backward on gru_seq_wide.cu's streaming kernel):
+# cluster holds; above it each on one cooperative grid, gru_seq_grid.cu and
+# gru_seq_grid_bwd.cu):
 # the first width past the register kernels' cap, H 256 and 512
 # (bench_kernels' sweep) at nb 2 with odd T and B, and the cluster routes'
 # last H and the next (found from the card's numbers), against the plain
 # versions; at one bucket of the sequential trainer's B 64 and T 768, H 256
 # (the headline: the TimeGAN of [timegan-wide]), 512 and 1024 (the grid
-# forward's and the streaming backward's headline: the widest H of
-# bench_kernels' sweep here and of [timegan-wide]), against cuDNN's GRU
-# forward and backward in turns, each cluster and grid forward also against
-# the streaming one
+# kernels' headline: the widest H of bench_kernels' sweep here and of
+# [timegan-wide]), against cuDNN's GRU forward and backward in turns, each
+# cluster and grid kernel also against the streaming one
 WIDE_K1_SHAPES = ((2, 301, 37, 129), (2, 303, 33, 256), (2, 151, 37, 512))
 WIDE_K1_CAP_SHAPES = ((2, 151, 37), (1, 101, 9))   # (nb, T, B) at the cap and past it
 WIDE_K1_CUDNN_SHAPES = ((1, 768, 64, 256), (1, 768, 64, 512), (1, 768, 64, 1024))
-# the grid forward in waves (a bucket's blocks fill more than half the SMs
-# past the cap: one bucket a wave) against the streaming forward, which runs
+# the grid kernels in waves (a bucket's blocks fill more than half the SMs
+# past the cap: one bucket a wave) against the streaming kernels, which run
 # every bucket at once, in turns: three buckets at a ragged H and eighteen
 # (the parallel trainer's buckets at the D step's batch) at the cap + 1
 WIDE_K1_WAVE_SHAPES = ((3, 768, 64, 600), (18, 768, 63, 545))
@@ -557,8 +557,8 @@ FIG_TSNE_ROWS, FIG_TSNE_KL_RTOL, FIG_TSNE_TW_TOL = 600, 0.05, 0.02
 
 # [timegan-wide]: TimeGANs at x14/z64/h256 and x14/z64/h1024 (TimeGANConfigs
 # the JAX package builds; their generator and supervisor recurrences run K1's
-# wide route: at h256 both halves on clusters, at h1024 the forward on the
-# grid and the backward on the streaming kernel; the embedder's and
+# wide route: at h256 both halves on clusters, at h1024 both on their grids;
+# the embedder's and
 # recovery's at H 64 the register kernels), each on one random bucket: one
 # AE and one SUP step, its GAN steps (TG_WIDE_CONFIGS) at B TG_WIDE_BATCH,
 # T 768, then synthesis of 64 windows; one GAN step at B 4, T TG_WIDE_CHECK_T
@@ -579,8 +579,8 @@ PIPE_CONFIG = {"ae_epochs": 1, "sup_epochs": 1, "gan_steps": 2, "chunk": 2,
 # [bench-tools]: bench_synthesis' parity at the long horizon and one row of
 # each model at bench.py's batch; bench_serve's closed loop (4 clients, the
 # hung client) for BENCH_SERVE_SECONDS; bench_kernels' default sweep (H 56,
-# 128, 256, 512 at B 64, T 768) and H 1024, past the cluster forward's cap
-# (the grid forward and the streaming backward)
+# 128, 256, 512 at B 64, T 768) and H 1024, past the clusters' cap (the grid
+# forward and backward)
 BENCH_SYNTH_RUNS = (["--parity", "--batch", "256", "--T", "8192", "--time_chunk", "1024"],
                     ["--batch", "2048", "--iters", "5"])
 BENCH_SERVE_SECONDS = 5.0
@@ -590,7 +590,10 @@ BENCH_KERNEL_ARGS = ["--iters", "3", "--hs", ",".join(map(str, BENCH_KERNEL_HS))
 # each timed in turns in the phase named), and why
 OFF_PATH = {"gru_sequence_wide": "the streaming forward runs only on plan={'route': "
                                  "'stream'}; the grid forward took its place past the "
-                                 "cluster cap (timed in turns in _check_k1_wide)"}
+                                 "cluster cap (timed in turns in _check_k1_wide)",
+            "gru_sequence_bwd_wide": "the streaming backward runs only on plan={'route': "
+                                     "'stream'}; the grid backward took its place past the "
+                                     "cluster cap (timed in turns in _check_k1_wide)"}
 
 
 def fail(msg: str) -> None:
@@ -656,28 +659,33 @@ def _check_spills(kernel: str, report: str) -> None:
 def phase_sass() -> None:
     """The HGMMA (wgmma) instructions of every instance of the tensor-core
     flash kernels K3a, K3b and K3c, of the wide K3a, K3b and K3c, and of K1's
-    grid forward, in the built library, from ``cuobjdump -sass``: each
+    grid forward, and the HMMA (mma.sync) instructions of both instances of
+    K1's grid backward, in the built library, from ``cuobjdump -sass``: each
     instance must have some, or its products do not run on the tensor
     cores."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    counts: dict[str, dict[int, int]] = {}
+    counts: dict[str, dict[int, list]] = {}   # kernel -> instance -> [HGMMA, HMMA]
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", line)
-            wide = re.search(r"flash_(?:fwd|dq|dkv)_wide_tc_kernel|gru_grid_fwd_kernel(?=ILb0E)",
-                             line)
+            wide = re.search(r"flash_(?:fwd|dq|dkv)_wide_tc_kernel"
+                             r"|gru_grid_fwd_kernel(?=ILb0E)", line)
+            bwd = re.search(r"(gru_grid_bwd_kernel)ILb0ELi(\d+)E", line)
             name = ((m.group(1), int(m.group(2))) if m else
+                    (bwd.group(1), int(bwd.group(2))) if bwd else
                     (wide.group(0), 0) if wide else None)
             if name:
-                counts.setdefault(name[0], {})[name[1]] = 0
+                counts.setdefault(name[0], {})[name[1]] = [0, 0]
         elif name and "HGMMA" in line:
-            counts[name[0]][name[1]] += 1
+            counts[name[0]][name[1]][0] += 1
+        elif name and "HMMA" in line:
+            counts[name[0]][name[1]][1] += 1
     for kernel in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
-        per_dp = counts.get(kernel, {})
+        per_dp = {dp: n[0] for dp, n in counts.get(kernel, {}).items()}
         print(f"[sass] {kernel} HGMMA per instance: " + ", ".join(
             f"DP {dp}: {n}" for dp, n in sorted(per_dp.items())), flush=True)
         if sorted(per_dp) != [16, 32, 64, 128] or not all(per_dp.values()):
@@ -686,10 +694,15 @@ def phase_sass() -> None:
                          ("flash_dq_wide_tc_kernel", "head dims past 128"),
                          ("flash_dkv_wide_tc_kernel", "head dims past 128"),
                          ("gru_grid_fwd_kernel", "K1 forward past the clusters' cap")):
-        n = counts.get(kernel, {}).get(0, 0)
+        n = counts.get(kernel, {}).get(0, [0, 0])[0]
         print(f"[sass] {kernel} ({what}) HGMMA: {n}", flush=True)
         if not n:
             fail(f"{kernel}: missing or without HGMMA")
+    per_ahead = {k: n[1] for k, n in counts.get("gru_grid_bwd_kernel", {}).items()}
+    print(f"[sass] gru_grid_bwd_kernel (K1 backward past the clusters' cap) HMMA per instance: "
+          + ", ".join(f"{k} parts ahead: {n}" for k, n in sorted(per_ahead.items())), flush=True)
+    if len(per_ahead) != 2 or not all(per_ahead.values()):
+        fail(f"gru_grid_bwd_kernel: instances without HMMA or missing: {per_ahead}")
 
 
 def _time_ms(fn, reps: int, warm: bool = True) -> float:
@@ -992,11 +1005,11 @@ def _k1_bwd_vs_cudnn(smi: str, shape: tuple, seed: int) -> None:
 def _wide_route_counts() -> tuple:
     """K1 forward, K1 backward, the wide route's cluster forward, its grid
     forward, its streaming forward, its cluster backward, its streaming
-    backward."""
+    backward, its grid backward."""
     return (gru_sequence.launches, gru_sequence_bwd.launches,
             gru_sequence_wide.cluster_launches, gru_sequence_wide.grid_launches,
             gru_sequence_wide.launches, gru_sequence_bwd_wide.cluster_launches,
-            gru_sequence_bwd_wide.launches)
+            gru_sequence_bwd_wide.launches, gru_sequence_bwd_wide.grid_launches)
 
 
 def _cluster_cap(plan=cluster_plan) -> int:
@@ -1022,7 +1035,8 @@ def _wide_bwd_alone(args, ys, d_ys):
     """The wide backward's kernel alone on a given plan, as the wrapper
     feeds it (hp from the batched product, h_prev) but writing dhp to a
     buffer of its own so that hp stays intact from one timed launch to the
-    next; and the plan's step-chain probe on the same inputs."""
+    next; and the step-chain probe of a cluster or grid plan on the same
+    inputs."""
     xp, w_hh_t, b_hh, h0 = args
     nb, T, B, H = ys.shape
     h_prev = torch.cat([h0.unsqueeze(1), ys[:, :T - 1]], dim=1).reshape(nb, T * B, H)
@@ -1030,8 +1044,9 @@ def _wide_bwd_alone(args, ys, d_ys):
     dhp = torch.empty_like(hp)
     return (lambda plan: lambda: gru_sequence_bwd_wide(xp, hp, h_prev, d_ys, w_hh_t, b_hh,
                                                        dhp, plan),
-            lambda plan: lambda: cluster_bwd_chain_probe(xp, hp, h_prev, d_ys, w_hh_t, b_hh,
-                                                         plan))
+            lambda plan: lambda: (cluster_bwd_chain_probe if plan["route"] == "cluster"
+                                  else grid_bwd_chain_probe)(xp, hp, h_prev, d_ys, w_hh_t,
+                                                             b_hh, plan))
 
 
 def _cluster_bwd_plans(alone, H: int, plan: dict) -> str:
@@ -1068,10 +1083,13 @@ def _sweep_bwd_plans(smi: str) -> None:
 
 def _plan_text(plan: dict, probe: str) -> str:
     """A cluster plan's C, R and geometry, clusters and waves; a grid plan's
-    U, blocks, chunk, stages and waves (the only grid plan that fits)."""
+    U, blocks, its operand's stages (or parts in flight) and waves (the only
+    grid plan that fits)."""
     if plan["route"] == "grid":
+        operand = (f"{plan['stages']} stages of {plan['chunk']} deep" if "stages" in plan
+                   else f"{plan['ahead']} parts of dhp in flight a lane")
         return (f"grid of {plan['blocks']} blocks x U {plan['U']} units ({plan['threads']} "
-                f"threads, {plan['stages']} stages of {plan['chunk']} deep, {plan['smem']} B "
+                f"threads, {operand}, {plan['smem']} B "
                 f"shared; {plan['buckets_per_wave']} bucket(s) a wave of {plan['resident']} "
                 f"resident blocks, {plan['waves']} wave(s); the only plan that fits); "
                 f"step-chain floor {probe}")
@@ -1089,25 +1107,27 @@ def _check_k1_wide(smi: str) -> dict:
     WIDE_K1_CUDNN_SHAPES against the plain versions and cuDNN's GRU
     (forward, and backward by autograd.grad) in turns; each shape's forward
     and backward route, cluster C, rows R and waves, or grid blocks, U and
-    waves; on a cluster or grid route the step-chain floor (the probe of
-    the same plan: the exchange and the wait alone, and on the grid the
-    read of h from L2), and on the same inputs the streaming kernel in
-    turns (the kernel the route had before); at one bucket every cluster
-    plan that fits, forward and backward; the grid forward in waves against
-    the streaming forward in turns at WIDE_K1_WAVE_SHAPES; then the
-    backward's plans at WIDE_K1_BWD_SWEEP_SHAPES.
+    waves; the step-chain floor of each half (the probe of the same plan:
+    the exchange and the wait alone, and on the grid the read of the
+    exchanged operand from L2) and the backward's kernel alone, and on the
+    same inputs the streaming kernels in turns (the kernels the routes had
+    before; past the cap the streaming backward's kernel alone too); at one
+    bucket every cluster plan that fits, forward and backward; the grid
+    forward and backward in waves against the streaming kernels in turns at
+    WIDE_K1_WAVE_SHAPES; then the backward's plans at
+    WIDE_K1_BWD_SWEEP_SHAPES.
     The kernels line takes (1, 768, 64, 256) for the cluster forward and
-    backward and (1, 768, 64, 1024) for the grid forward, the streaming
-    forward (timed in turns beside it) and the streaming backward."""
+    backward and (1, 768, 64, 1024) for the grid forward and backward and
+    the streaming forward and backward (timed in turns beside them)."""
     cap, bwd_cap = _cluster_cap(), _cluster_cap(cluster_bwd_plan)
     shapes = (WIDE_K1_SHAPES + tuple((*s, H) for s, H in zip(WIDE_K1_CAP_SHAPES, (cap, cap + 1)))
               + WIDE_K1_CUDNN_SHAPES)
     print(f"[kernel] K1's wide route: the cluster forward up to H {cap}, the grid forward "
-          f"above it, the cluster backward up to H {bwd_cap} on this card's numbers | {smi}",
-          flush=True)
+          f"above it, the cluster backward up to H {bwd_cap}, the grid backward above it on "
+          f"this card's numbers | {smi}", flush=True)
     rows, worst = {}, {"gru_sequence_wide_cluster": 0.0, "gru_sequence_wide_grid": 0.0,
                        "gru_sequence_wide": 0.0, "gru_sequence_bwd_wide_cluster": 0.0,
-                       "gru_sequence_bwd_wide": 0.0}
+                       "gru_sequence_bwd_wide_grid": 0.0, "gru_sequence_bwd_wide": 0.0}
     for i, (nb, T, B, H) in enumerate(shapes):
         args = _gru_inputs(nb, T, B, H, 28, seed=40 + i, device="cuda")
         tile = wide_tile(nb, B, H)
@@ -1117,12 +1137,12 @@ def _check_k1_wide(smi: str) -> dict:
             fail(f"the wide forward's route at nb={nb} B={B} H={H} is {plan['route']}, the "
                  f"cluster cap H {cap}")
         bplan = tile["bwd_plan"]
-        bwd_cluster = bplan["route"] == "cluster"
-        if bwd_cluster != (H <= bwd_cap):
+        bwd_cluster, bwd_grid = bplan["route"] == "cluster", bplan["route"] == "grid"
+        if bwd_grid != (H > bwd_cap) or bwd_cluster != (H <= bwd_cap):
             fail(f"the wide backward's route at nb={nb} B={B} H={H} is {bplan['route']}, "
                  f"its cap H {bwd_cap}")
         name = "gru_sequence_wide_cluster" if cluster else "gru_sequence_wide_grid"
-        bwd_name = "gru_sequence_bwd_wide_cluster" if bwd_cluster else "gru_sequence_bwd_wide"
+        bwd_name = "gru_sequence_bwd_wide_cluster" if bwd_cluster else "gru_sequence_bwd_wide_grid"
         with torch.no_grad():
             before = _wide_route_counts()
             ys = gru_sequence(*args)
@@ -1139,6 +1159,12 @@ def _check_k1_wide(smi: str) -> dict:
                    "streaming": lambda: gru_sequence_wide(*args, plan={"route": "stream"})}
             stream_err = (fwd["streaming"]() - ref_ys).abs().max().item()
             worst["gru_sequence_wide"] = max(worst["gru_sequence_wide"], stream_err)
+            bwd = {"kernel": lambda: gru_sequence_bwd(*args, ys, d_ys),
+                   "streaming": lambda: gru_sequence_bwd(*args, ys, d_ys,
+                                                         plan={"route": "stream"})}
+            stream_bwd_errs, _, stream_bwd_ok = _bwd_errors(bwd["streaming"](), ref)
+            worst["gru_sequence_bwd_wide"] = max(worst["gru_sequence_bwd_wide"],
+                                                 stream_bwd_errs[0], stream_bwd_errs[3])
             if nb == 1:
                 one = [a[0] for a in args]
                 fwd["cuDNN"] = _cudnn_gru(*one)
@@ -1147,13 +1173,11 @@ def _check_k1_wide(smi: str) -> dict:
             ms, lib_ms = times["kernel"], times.get("cuDNN")
             probe = cluster_chain_probe if cluster else grid_chain_probe
             floor_ms = _time_ms(lambda: probe(*args, plan), reps=5)
-            bwd = {"kernel": lambda: gru_sequence_bwd(*args, ys, d_ys)}
-            if bwd_cluster:
-                bwd["streaming"] = lambda: gru_sequence_bwd(*args, ys, d_ys,
-                                                            plan={"route": "stream"})
-                alone, bprobe = _wide_bwd_alone(args, ys, d_ys)
-                bwd_alone_ms = _time_ms(alone(bplan), reps=5)
-                bwd_floor_ms = _time_ms(bprobe(bplan), reps=5)
+            alone, bprobe = _wide_bwd_alone(args, ys, d_ys)
+            bwd_alone_ms = _time_ms(alone(bplan), reps=5)
+            bwd_floor_ms = _time_ms(bprobe(bplan), reps=5)
+            stream_alone_ms = (_time_ms(alone({"route": "stream"}), reps=3) if bwd_grid
+                               else None)
             plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS,
                                 warm=False)
             plain_bwd_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
@@ -1166,28 +1190,28 @@ def _check_k1_wide(smi: str) -> dict:
         bwd_ms, lib_bwd_ms = btimes["kernel"], btimes.get("cuDNN")
         route = _plan_text(plan, f"{floor_ms:.4f} ms; the streaming forward on the same "
                                  f"inputs {times['streaming']:.4f} ms in turns")
-        bwd_route = (_plan_text(bplan, f"{bwd_floor_ms:.4f} ms, kernel alone "
-                                       f"{bwd_alone_ms:.4f} ms; the streaming backward's "
-                                       f"whole call on the same inputs "
-                                       f"{btimes['streaming']:.4f} ms in turns")
-                     if bwd_cluster else f"streaming, {tile['rows']} rows x {tile['blocks']} "
-                     f"tiles of {tile['threads']} threads, {tile['bwd_smem']} B shared")
+        stream_alone = ("" if stream_alone_ms is None
+                        else f", its kernel alone {stream_alone_ms:.4f} ms")
+        bwd_route = _plan_text(bplan, f"{bwd_floor_ms:.4f} ms, kernel alone "
+                                      f"{bwd_alone_ms:.4f} ms; the streaming backward's whole "
+                                      f"call on the same inputs {btimes['streaming']:.4f} ms "
+                                      f"in turns{stream_alone}")
         print(f"[kernel] gru_sequence_wide nb={nb} T={T} B={B} H={H}: forward route {route}; "
               f"backward route {bwd_route}; max|diff| ys {err:.3e}, dxp {errs[0]:.3e} dh0 "
               f"{errs[3]:.3e} (tol {KERNEL_TOL:g}); dW {errs[1]:.3e} of {scale[1]:.3g}, db "
-              f"{errs[2]:.3e} of {scale[2]:.3g} (tol {KERNEL_TOL:g} relative); launches K1 "
-              f"fwd / bwd / cluster fwd / grid fwd / streaming fwd / cluster bwd / streaming "
-              f"bwd {routes}; forward {ms:.4f} ms (plain {plain_ms:.4f}), backward whole call "
-              f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}) | {smi}", flush=True)
+              f"{errs[2]:.3e} of {scale[2]:.3g} (tol {KERNEL_TOL:g} relative); the streaming "
+              f"kernels ys {stream_err:.3e}, dxp {stream_bwd_errs[0]:.3e} dh0 "
+              f"{stream_bwd_errs[3]:.3e}; launches K1 fwd / bwd / cluster fwd / grid fwd / "
+              f"streaming fwd / cluster bwd / streaming bwd / grid bwd {routes}; forward "
+              f"{ms:.4f} ms (plain {plain_ms:.4f}), backward whole call {bwd_ms:.4f} ms (plain "
+              f"{plain_bwd_ms:.4f}) | {smi}", flush=True)
         if nb == 1:
-            bstream = (f", the streaming backward {btimes['streaming']:.4f} ms"
-                       if "streaming" in btimes else "")
             print(f"[kernel] gru_sequence_wide nb=1 T={T} B={B} H={H} vs cuDNN GRU: "
                   f"forward {ms:.4f}, the streaming forward {times['streaming']:.4f} ms "
                   f"against {lib_ms:.4f} ms (max|diff| "
-                  f"{lib_err:.3e}), backward whole call {bwd_ms:.4f}{bstream} against "
-                  f"{lib_bwd_ms:.4f} ms (cuDNN dxp {lib_bwd_err[0]:.3e}), in turns | {smi}",
-                  flush=True)
+                  f"{lib_err:.3e}), backward whole call {bwd_ms:.4f}, the streaming backward "
+                  f"{btimes['streaming']:.4f} ms against {lib_bwd_ms:.4f} ms (cuDNN dxp "
+                  f"{lib_bwd_err[0]:.3e}), in turns | {smi}", flush=True)
         if nb == 1:
             if cluster:
                 print(f"[kernel] gru_sequence_wide_cluster nb=1 T={T} B={B} H={H} plans (ms): "
@@ -1196,24 +1220,25 @@ def _check_k1_wide(smi: str) -> dict:
                 print(f"[kernel] gru_sequence_bwd_wide_cluster nb=1 T={T} B={B} H={H} plans "
                       f"(kernel alone, ms): {_cluster_bwd_plans(alone, H, bplan)} | {smi}",
                       flush=True)
-        want = [0, 0, int(cluster), plan["waves"] if grid else 0, 0, int(bwd_cluster),
-                int(not bwd_cluster)]
+        want = [0, 0, int(cluster), plan["waves"] if grid else 0, 0, int(bwd_cluster), 0,
+                bplan["waves"] if bwd_grid else 0]
         if routes != want:
             fail(f"the wide route at nb={nb} B={B} H={H} launched {routes} (K1 fwd, bwd, "
-                 f"cluster fwd, grid fwd, streaming fwd, cluster bwd, streaming bwd), "
+                 f"cluster fwd, grid fwd, streaming fwd, cluster bwd, streaming bwd, grid bwd), "
                  f"expected {want}")
         if not ok or not bool(torch.isfinite(ys).all()) or err > KERNEL_TOL:
             fail(f"K1's wide route disagrees with its plain version at nb={nb} T={T} "
                  f"B={B} H={H}: ys {err}, backward {errs}")
-        if worst["gru_sequence_wide"] > KERNEL_TOL:
-            fail(f"the streaming forward disagrees with its plain version at nb={nb} T={T} "
-                 f"B={B} H={H}: {worst['gru_sequence_wide']}")
+        if worst["gru_sequence_wide"] > KERNEL_TOL or not stream_bwd_ok:
+            fail(f"the streaming kernels disagree with their plain versions at nb={nb} T={T} "
+                 f"B={B} H={H}: forward {worst['gru_sequence_wide']}, backward "
+                 f"{stream_bwd_errs}")
         worst[name] = max(worst[name], err)
         worst[bwd_name] = max(worst[bwd_name], errs[0], errs[3])
         bound = _bound(2 * nb * T * B * H * 3 * H, *args, ys)
         fwd_row = _row(ms, plain_ms, bound, lib_ms)
-        bwd_row = _row(bwd_ms, plain_bwd_ms, _bound(3 * 2 * nb * T * B * H * 3 * H, *args,
-                                                   ys, d_ys, *got), lib_bwd_ms)
+        bwd_bound = _bound(3 * 2 * nb * T * B * H * 3 * H, *args, ys, d_ys, *got)
+        bwd_row = _row(bwd_ms, plain_bwd_ms, bwd_bound, lib_bwd_ms)
         label = f"nb={nb} T={T} B={B} H={H}"
         _roofline(f"{name} {label}", fwd_row, smi, "cuDNN GRU" if nb == 1 else None)
         what = (f"the exchange and the wait alone, {T} steps on clusters of {plan['C']}"
@@ -1225,22 +1250,27 @@ def _check_k1_wide(smi: str) -> dict:
               f"{times['streaming']:.4f} ms in turns | {smi}", flush=True)
         _roofline(f"{bwd_name} {label}", bwd_row, smi,
                   "cuDNN GRU backward" if nb == 1 else None)
-        if bwd_cluster:
-            print(f"[bound] {bwd_name} {label}: step-chain floor {bwd_floor_ms:.4f} ms (the "
-                  f"exchange of the partials and the wait alone, {T} steps on clusters of "
-                  f"{bplan['C']}, {bplan['waves']} wave(s)), bound {bwd_row['bound_ms']:.4f} "
-                  f"ms ({bwd_row['bound_by']}); kernel alone {bwd_alone_ms:.4f} ms, "
-                  f"{bwd_alone_ms / bwd_floor_ms:.2f}x the floor; whole call {bwd_ms:.4f} "
-                  f"ms, the streaming backward's {btimes['streaming']:.4f} ms | {smi}",
-                  flush=True)
+        bwhat = (f"the exchange of the partials and the wait alone, {T} steps on clusters of "
+                 f"{bplan['C']}" if bwd_cluster else
+                 f"the wait, the read of dhp from L2 and the publication alone, {T} steps on "
+                 f"{bplan['blocks']} blocks")
+        print(f"[bound] {bwd_name} {label}: step-chain floor {bwd_floor_ms:.4f} ms ({bwhat}, "
+              f"{bplan['waves']} wave(s)), bound {bwd_row['bound_ms']:.4f} ms "
+              f"({bwd_row['bound_by']}); kernel alone {bwd_alone_ms:.4f} ms, "
+              f"{bwd_alone_ms / bwd_floor_ms:.2f}x the floor; whole call {bwd_ms:.4f} ms, the "
+              f"streaming backward's {btimes['streaming']:.4f} ms{stream_alone} | {smi}",
+              flush=True)
         if (nb, T, B, H) in (WIDE_K1_CUDNN_SHAPES[0], WIDE_K1_CUDNN_SHAPES[-1]):
             rows.update({name: fwd_row, bwd_name: bwd_row})
             if grid:
                 rows["gru_sequence_wide"] = _row(times["streaming"], plain_ms, bound, lib_ms)
+            if bwd_grid:
+                rows["gru_sequence_bwd_wide"] = _row(btimes["streaming"], plain_bwd_ms,
+                                                     bwd_bound, lib_bwd_ms)
     if set(rows) != set(worst):
         fail(f"the wide route's headline shapes took {sorted(rows)}: the cluster routes at "
-             f"H {WIDE_K1_CUDNN_SHAPES[0][3]}, the grid forward and the streaming forward "
-             f"and backward at {WIDE_K1_CUDNN_SHAPES[-1][3]} expected (caps {cap}, {bwd_cap})")
+             f"H {WIDE_K1_CUDNN_SHAPES[0][3]}, the grid routes and the streaming kernels at "
+             f"{WIDE_K1_CUDNN_SHAPES[-1][3]} expected (caps {cap}, {bwd_cap})")
     _grid_waves(smi, worst)
     for name, err in worst.items():
         rows[name]["max_abs_err"] = err
@@ -1249,36 +1279,68 @@ def _check_k1_wide(smi: str) -> dict:
 
 
 def _grid_waves(smi: str, worst: dict) -> None:
-    """The automatic route at WIDE_K1_WAVE_SHAPES (the grid forward, one
-    launch a wave of buckets) and the streaming forward on the same inputs,
-    each against the plain version, timed in turns; adds their errors to
+    """The automatic route at WIDE_K1_WAVE_SHAPES (the grid forward and
+    backward, one launch a wave of buckets each) and the streaming forward
+    and backward on the same inputs, each against the plain version, timed
+    in turns (the backward's whole calls); adds their errors to
     ``worst``."""
     for i, (nb, T, B, H) in enumerate(WIDE_K1_WAVE_SHAPES):
         args = _gru_inputs(nb, T, B, H, 28, seed=70 + i, device="cuda")
-        plan = wide_plan(nb, B, H, cluster_card())
-        fwd = {"grid": lambda: gru_sequence(*args),
-               "streaming": lambda: gru_sequence_wide(*args, plan={"route": "stream"})}
+        card = cluster_card()
+        plan, bplan = wide_plan(nb, B, H, card), wide_bwd_plan(nb, B, H, card)
         with torch.no_grad():
+            before = _wide_route_counts()
+            ys = gru_sequence(*args)
+            d_ys = torch.randn(ys.shape, device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(70 + i))
+            got = gru_sequence_bwd(*args, ys, d_ys)
+            torch.cuda.synchronize()
+            launched = [a - b for a, b in zip(_wide_route_counts(), before)]
             ref = gru_sequence_reference(*args)
-            before = gru_sequence_wide.grid_launches
-            errs = {k: (f() - ref).abs().max().item() for k, f in fwd.items()}
-            launched = gru_sequence_wide.grid_launches - before
-            times = _in_turns(fwd, reps=3)
+            errs = {"grid": (ys - ref).abs().max().item(),
+                    "streaming": (gru_sequence_wide(*args, plan={"route": "stream"})
+                                  - ref).abs().max().item()}
+            del ref
+            bref = gru_sequence_bwd_reference(*args, ys, d_ys)
+            berrs = {"grid": _bwd_errors(got, bref)}
+            del got
+            berrs["streaming"] = _bwd_errors(
+                gru_sequence_bwd(*args, ys, d_ys, plan={"route": "stream"}), bref)
+            del bref
+            times = _in_turns({"grid": lambda: gru_sequence(*args),
+                               "streaming": lambda: gru_sequence_wide(
+                                   *args, plan={"route": "stream"})}, reps=3)
+            btimes = _in_turns({"grid": lambda: gru_sequence_bwd(*args, ys, d_ys),
+                                "streaming": lambda: gru_sequence_bwd(
+                                    *args, ys, d_ys, plan={"route": "stream"})}, reps=3)
         print(f"[kernel] gru_sequence_wide_grid nb={nb} T={T} B={B} H={H} in waves: "
               f"{plan['waves']} wave(s) of {plan['buckets_per_wave']} bucket(s) x "
-              f"{plan['blocks']} blocks ({launched} launches); grid {times['grid']:.4f} ms, "
+              f"{plan['blocks']} blocks ({launched[3]} launches); grid {times['grid']:.4f} ms, "
               f"the streaming forward {times['streaming']:.4f} ms in turns "
               f"({times['streaming'] / times['grid']:.2f}x); max|diff| grid "
               f"{errs['grid']:.3e}, streaming {errs['streaming']:.3e} (tol {KERNEL_TOL:g}) "
               f"| {smi}", flush=True)
-        if plan["route"] != "grid" or launched != plan["waves"]:
-            fail(f"the wide forward at nb={nb} B={B} H={H}: route {plan['route']}, "
-                 f"{launched} grid launches for {plan.get('waves')} waves")
-        if max(errs.values()) > KERNEL_TOL:
-            fail(f"the grid or streaming forward disagrees with its plain version at "
-                 f"nb={nb} T={T} B={B} H={H}: {errs}")
+        print(f"[kernel] gru_sequence_bwd_wide_grid nb={nb} T={T} B={B} H={H} in waves: "
+              f"{bplan['waves']} wave(s) of {bplan['buckets_per_wave']} bucket(s) x "
+              f"{bplan['blocks']} blocks ({launched[7]} launches); whole call grid "
+              f"{btimes['grid']:.4f} ms, the streaming backward {btimes['streaming']:.4f} ms "
+              f"in turns ({btimes['streaming'] / btimes['grid']:.2f}x); max|diff| dxp / dh0 "
+              f"grid {berrs['grid'][0][0]:.3e} / {berrs['grid'][0][3]:.3e}, streaming "
+              f"{berrs['streaming'][0][0]:.3e} / {berrs['streaming'][0][3]:.3e} (tol "
+              f"{KERNEL_TOL:g}) | {smi}", flush=True)
+        want = [0, 0, 0, plan["waves"], 0, 0, 0, bplan["waves"]]
+        if plan["route"] != "grid" or bplan["route"] != "grid" or launched != want:
+            fail(f"the wide route at nb={nb} B={B} H={H}: routes {plan['route']}, "
+                 f"{bplan['route']}, launches {launched}, expected {want}")
+        if max(errs.values()) > KERNEL_TOL or not all(e[2] for e in berrs.values()):
+            fail(f"the grid or streaming kernels disagree with their plain versions at "
+                 f"nb={nb} T={T} B={B} H={H}: forward {errs}, backward "
+                 f"{ {k: e[0] for k, e in berrs.items()} }")
         worst["gru_sequence_wide_grid"] = max(worst["gru_sequence_wide_grid"], errs["grid"])
         worst["gru_sequence_wide"] = max(worst["gru_sequence_wide"], errs["streaming"])
+        for k, key in (("grid", "gru_sequence_bwd_wide_grid"),
+                       ("streaming", "gru_sequence_bwd_wide")):
+            worst[key] = max(worst[key], berrs[k][0][0], berrs[k][0][3])
 
 
 def _multigru_inputs(nb, T, B, dims, seed):
@@ -4280,8 +4342,8 @@ def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
     SUP step, the config's GAN steps on a random bucket of
     (TG_WIDE_WINDOWS, 768, 14), then synthesize() of 64 windows; K1's wide
     route launched (at h256 the forward and the backward on their cluster
-    kernels; at h1024 the forward on the grid kernel and the backward on the
-    streaming kernel, the streaming forward never), no K2 (the D-step inputs
+    kernels; at h1024 both on their grid kernels; the streaming kernels
+    never), no K2 (the D-step inputs
     take the composed route past H 128), finite losses and windows; then one
     GAN step at B 4, T TG_WIDE_CHECK_T on the card against the CPU. Returns
     the launches of the training and synthesis runs."""
@@ -4329,15 +4391,15 @@ def _timegan_wide_run(smi: str, device: str, x_dim: int, z_dim: int, h_dim: int,
     windows = synthesize(model, 64, SEQ_LEN,
                          generator=torch.Generator(device=device).manual_seed(2))
     synth_s = time.perf_counter() - t0
-    k1, k1_bwd, cluster, grid, wide, cluster_bwd, wide_bwd, k2 = _since(before)
+    k1, k1_bwd, cluster, grid, wide, cluster_bwd, wide_bwd, grid_bwd, k2 = _since(before)
     fmt = lambda row: ", ".join(f"{c}={v:.5f}" for c, v in zip(LOG_COLUMNS, row))  # noqa
     print(f"[timegan-wide] x{x_dim}/z{z_dim}/h{h_dim}, B {B}, T {SEQ_LEN}: AE loss "
           f"{losses['ae']:.6f}, SUP loss {losses['sup']:.6f}; GAN step {gan_steps}: "
           f"{fmt(logs[-1])}; AE + SUP + {gan_steps} GAN step(s) {train_s:.2f} s, "
           f"synthesize(64 x {SEQ_LEN}) {synth_s:.2f} s -> {windows.shape}; launches K1 "
           f"forward {k1}, backward {k1_bwd}, wide forward on clusters {cluster}, on the grid "
-          f"{grid}, streaming {wide}, wide backward on clusters {cluster_bwd}, streaming "
-          f"{wide_bwd}, K2 {k2} | {smi}", flush=True)
+          f"{grid}, streaming {wide}, wide backward on clusters {cluster_bwd}, on the grid "
+          f"{grid_bwd}, streaming {wide_bwd}, K2 {k2} | {smi}", flush=True)
     if not (np.isfinite(logs).all() and all(np.isfinite(v) for v in losses.values())):
         fail(f"[timegan-wide] h{h_dim}: non-finite losses: {losses}, {logs}")
     if windows.shape != (64, SEQ_LEN, x_dim) or not np.isfinite(windows).all():
@@ -4349,17 +4411,17 @@ def _timegan_wide_run(smi: str, device: str, x_dim: int, z_dim: int, h_dim: int,
         bwd_clustered = cluster_bwd_plan(1, B, h_dim, card)["route"] == "cluster"
         if not ((cluster >= 1) == clustered and (grid >= 1) != clustered and wide == 0
                 and (cluster_bwd >= 1) == bwd_clustered
-                and (wide_bwd >= 1) != bwd_clustered and k2 == 0):
+                and (grid_bwd >= 1) != bwd_clustered and wide_bwd == 0 and k2 == 0):
             fail(f"[timegan-wide] h{h_dim}: launches wide forward on clusters {cluster}, on "
                  f"the grid {grid}, streaming {wide}, wide backward on clusters "
-                 f"{cluster_bwd}, streaming {wide_bwd}, K2 {k2}; expected the "
-                 f"{'cluster' if clustered else 'grid'} forward and no streaming forward, the "
-                 f"{'cluster' if bwd_clustered else 'streaming'} backward, no K2")
+                 f"{cluster_bwd}, on the grid {grid_bwd}, streaming {wide_bwd}, K2 {k2}; "
+                 f"expected the {'cluster' if clustered else 'grid'} forward and backward, "
+                 f"no streaming kernel, no K2")
     _wide_step_check(smi, device, (x_dim, z_dim, h_dim))
     return {"gru_sequence": k1, "gru_sequence_bwd": k1_bwd,
             "gru_sequence_wide_cluster": cluster, "gru_sequence_wide_grid": grid,
             "gru_sequence_wide": wide, "gru_sequence_bwd_wide_cluster": cluster_bwd,
-            "gru_sequence_bwd_wide": wide_bwd}
+            "gru_sequence_bwd_wide_grid": grid_bwd, "gru_sequence_bwd_wide": wide_bwd}
 
 
 def _wide_step_check(smi: str, device: str, dims: tuple, B: int = 4) -> None:
@@ -4401,7 +4463,7 @@ def _wide_step_check(smi: str, device: str, dims: tuple, B: int = 4) -> None:
           f"values {log_err:.3e} (tol {STEP_LOG_RTOL:g}), parameters {p_err:.3e} (tol "
           f"{STEP_PARAM_ATOL:g}), Adam first moments {mu_err:.3e} (tol {STEP_MU_RTOL:g}); "
           f"launches K1 fwd / bwd / cluster fwd / grid fwd / streaming fwd / cluster bwd / "
-          f"streaming bwd / K2 {launched} | {smi}", flush=True)
+          f"streaming bwd / grid bwd / K2 {launched} | {smi}", flush=True)
     if log_err > STEP_LOG_RTOL or p_err > STEP_PARAM_ATOL or not mu_err <= STEP_MU_RTOL:
         fail(f"[timegan-wide] h{h_dim}: the card's GAN step disagrees with the CPU: logs "
              f"{log_err}, params {p_err}, mu {mu_err}")
@@ -4626,7 +4688,7 @@ def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> dict:
     BENCH_SERVE_SECONDS with 4 clients and the hung client against the
     port's server on two full-width TimeGAN runs, 0 errors; bench_kernels'
     default sweep and H 1024 (past the cluster routes' cap: the grid
-    forward and the streaming backward), forward and backward. Returns the
+    forward and backward), forward and backward. Returns the
     launches of K1 in the served run and of the wide route in
     bench_kernels."""
     for args in BENCH_SYNTH_RUNS:
@@ -4658,16 +4720,19 @@ def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> dict:
               f"{json.dumps(rows)} | {smi}", flush=True)
         if [r["H"] for r in rows] != BENCH_KERNEL_HS:
             fail(f"[bench-tools] bench_kernels rows {rows}")
-    _, _, cluster, grid, stream, cluster_bwd, wide_bwd = (
+    _, _, cluster, grid, stream, cluster_bwd, wide_bwd, grid_bwd = (
         a - b for a, b in zip(_wide_route_counts(), before))
     print(f"[bench-tools] bench_kernels launched the wide forward on clusters {cluster} "
           f"times, on the grid {grid}, streaming {stream}, the wide backward on clusters "
-          f"{cluster_bwd}, streaming {wide_bwd} | {smi}", flush=True)
-    if torch.device(device).type == "cuda" and not (grid >= 1 and stream == 0):
-        fail(f"[bench-tools] bench_kernels at H 1024: grid forward {grid}, streaming {stream}")
+          f"{cluster_bwd}, on the grid {grid_bwd}, streaming {wide_bwd} | {smi}", flush=True)
+    if torch.device(device).type == "cuda" and not (grid >= 1 and stream == 0
+                                                    and grid_bwd >= 1 and wide_bwd == 0):
+        fail(f"[bench-tools] bench_kernels at H 1024: grid forward {grid}, streaming {stream}, "
+             f"grid backward {grid_bwd}, streaming {wide_bwd}")
     return {"gru_sequence": launches, "gru_sequence_wide_cluster": cluster,
             "gru_sequence_wide_grid": grid, "gru_sequence_wide": stream,
-            "gru_sequence_bwd_wide_cluster": cluster_bwd, "gru_sequence_bwd_wide": wide_bwd}
+            "gru_sequence_bwd_wide_cluster": cluster_bwd,
+            "gru_sequence_bwd_wide_grid": grid_bwd, "gru_sequence_bwd_wide": wide_bwd}
 
 
 def main() -> None:
@@ -4729,7 +4794,7 @@ def main() -> None:
                    for k in ("gru_sequence", "gru_sequence_bwd", "gru_sequence_wide_cluster",
                              "gru_sequence_wide_grid", "gru_sequence_wide",
                              "gru_sequence_bwd_wide_cluster",
-                             "gru_sequence_bwd_wide",
+                             "gru_sequence_bwd_wide_grid", "gru_sequence_bwd_wide",
                              "multigru_disc_inputs")}}
     launches["gru_sequence"] += (serve_launches + synth_launches + figure_launches
                                  + convert_launches)
@@ -4755,6 +4820,8 @@ def main() -> None:
                                      "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_bwd_wide_cluster": ("eegsynth_torch/csrc/gru_seq_cluster_bwd.cu",
                                                  "eegsynth/nn/pallas_gru.py:81"),
+               "gru_sequence_bwd_wide_grid": ("eegsynth_torch/csrc/gru_seq_grid_bwd.cu",
+                                              "eegsynth/nn/pallas_gru.py:81"),
                "gru_sequence_bwd_wide": ("eegsynth_torch/csrc/gru_seq_wide.cu",
                                          "eegsynth/nn/pallas_gru.py:81"),
                "multigru_disc_inputs": ("eegsynth_torch/csrc/multigru.cu",

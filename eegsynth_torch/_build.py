@@ -113,6 +113,8 @@ def load_library() -> ctypes.CDLL:
                                      ("gru_seq_cluster_bwd", 9, 9),
                                      ("gru_seq_cluster_bwd_chain", 9, 9),
                                      ("gru_seq_grid_fwd", 6, 6), ("gru_seq_grid_chain", 6, 6),
+                                     ("gru_seq_grid_bwd", 10, 6),
+                                     ("gru_seq_grid_bwd_chain", 10, 6),
                                      ("multigru_fwd", 16, 7), ("flash_fwd", 5, 3),
                                      ("flash_bwd_dq", 7, 3), ("flash_bwd_dkv", 9, 3),
                                      ("flash_fwd_wide", 5, 3), ("flash_bwd_dq_wide", 7, 3),
@@ -124,11 +126,12 @@ def load_library() -> ctypes.CDLL:
             for fn in ("gru_seq_fwd_tile", "gru_seq_wide_tile"):
                 getattr(lib, fn).argtypes = [i32] * 3 + [ptr]
                 getattr(lib, fn).restype = i32
-            for fn in ("gru_seq_cluster_card", "gru_seq_grid_card"):
+            for fn in ("gru_seq_cluster_card", "gru_seq_grid_card", "gru_seq_grid_bwd_card"):
                 getattr(lib, fn).argtypes = [ptr]
                 getattr(lib, fn).restype = i32
-            lib.gru_seq_grid_workspace.argtypes = [i32] * 3
-            lib.gru_seq_grid_workspace.restype = ctypes.c_longlong
+            for fn in ("gru_seq_grid_workspace", "gru_seq_grid_bwd_workspace"):
+                getattr(lib, fn).argtypes = [i32] * 3
+                getattr(lib, fn).restype = ctypes.c_longlong
             lib.multigru_fwd_tile.argtypes = [i32] * 6 + [ptr]
             lib.multigru_fwd_tile.restype = i32
             lib.flash_bwd_dkv_scratch.argtypes = [i32] * 3

@@ -84,28 +84,18 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "grid.cuh"        // the grid's constants, flags, phys_k
 #include "gru_cell.cuh"    // sigmoid_fwd
 #include "tf32_wgmma.cuh"  // cp_async16, Wgmma, split, slice_desc, wgmma_*
 
 namespace {
 
-constexpr int kGridThreads = 2 * kWG;  // two warpgroups: k-slices 2 pp and 2 pp + 1 of each part
-constexpr int kUnits = 8;              // a block's units: N = 24 gate columns
-constexpr int kN = 3 * kUnits;
-constexpr int kTileRows = 64;          // batch rows of one wgmma tile
-constexpr int kPad = 32;               // h's depth is padded to a multiple of this
-constexpr int kPart = 16;              // depth of a lane's float4 pair (two k-slices)
-constexpr int kSets = 2;               // parts in flight a warpgroup (fragments, chains)
-constexpr int kChunk = 64;             // a stage holds 64 rows x 64 of h's depth (16 KB)
-constexpr int kStages = 2;             // the ring of h chunks: one landing, one multiplied
+constexpr int kN = 3 * kUnits;  // a block's 8 units: N = 24 gate columns
+constexpr int kSets = 2;        // parts in flight a warpgroup (fragments, chains)
+constexpr int kChunk = 64;      // a stage holds 64 rows x 64 of h's depth (16 KB)
+constexpr int kStages = 2;      // the ring of h chunks: one landing, one multiplied
 constexpr int kStageFloats = kTileRows * kChunk;
 constexpr int kCopies = kStageFloats / 4 / kGridThreads;  // 16-byte copies a thread a stage
-constexpr int kMaxHidden = 1024;       // MAX_WIDE_HIDDEN
-constexpr long long kSpinClocks = 1LL << 34;
-
-int padded_depth(int H) { return (H + kPad - 1) / kPad * kPad; }
-int grid_blocks(int H) { return (H + kUnits - 1) / kUnits; }
-int flag_pitch(int G) { return (G + 3) & ~3; }  // a bucket's flags, 16 bytes aligned
 
 size_t grid_smem(int H) {
   return sizeof(float) * (2 * (size_t)padded_depth(H) * kN + (size_t)kStages * kStageFloats);
@@ -117,25 +107,9 @@ size_t grid_workspace(int nb, int B, int H) {
   return (size_t)nb * flag_pitch(grid_blocks(H)) + (size_t)nb * 2 * B * padded_depth(H);
 }
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
-}
-
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Depth of h behind column j of k-slice kk (logical depth 8 kk + j).
-__device__ __forceinline__ int phys_k(int kl) {
-  const int kk = kl >> 3, j = kl & 7;
-  return (kk >> 1) * kPart + (j & 3) * 4 + (kk & 1) * 2 + (j >> 2);
 }
 
 // Parts of 16 (even, at least 4) a stage holds at n rows, at most the

@@ -26,12 +26,13 @@
 // their shared memory instead: the forward in gru_seq_cluster.cu (h
 // all-gathered through distributed shared memory every step), the backward
 // in gru_seq_cluster_bwd.cu (dh reduce-scattered every step). Above the
-// clusters' cap (H 545 to 1024 on the H100) the forward runs on one
-// cooperative grid whose blocks split W_hh^T's units between their shared
-// memory (gru_seq_grid.cu, h exchanged through L2 every step) and the
-// backward here. This forward runs only where a plan asks for it
-// (gru_sequence_wide(..., plan={"route": "stream"}): timing in turns, its
-// card tests, bench_kernels' streaming column).
+// clusters' cap (H 545 to 1024 on the H100) each half runs on one
+// cooperative grid whose blocks split W_hh's units between their shared
+// memory and exchange one operand through L2 every step: the forward in
+// gru_seq_grid.cu (h), the backward in gru_seq_grid_bwd.cu (dhp). Both
+// kernels here run only where a plan asks for them (plan={"route":
+// "stream"} to gru_sequence_wide or gru_sequence_bwd_wide: timing in turns,
+// their card tests).
 //
 // Forward: thread j (one per column, the block H threads rounded up to a
 // warp, so H <= 1024) computes hp[r, g H + j] for the three gates g and the
@@ -43,8 +44,7 @@
 // them. Thread j then forms the gates of column j and writes h' to the
 // other h buffer and to ys: one barrier a step.
 //
-// Backward (exact reverse-time BPTT of _gru_seq_bwd, above the cluster
-// backward's cap), as gru_seq.cu's: the
+// Backward (exact reverse-time BPTT of _gru_seq_bwd), as gru_seq.cu's: the
 // wrapper computes hp = h_prev W_hh^T for all T B rows as one batched
 // product before the kernel (the kernel adds b_hh), and dW_hh^T = h_prev^T
 // dhp and db_hh = sum dhp after it (gru_sequence.py weight_grads). Only

@@ -1,8 +1,9 @@
 // Split-TF32 warpgroup MMA for Hopper (sm_90a): the primitives the
 // tensor-core flash-attention kernels share (flash_attn_tc.cu: K3a, K3b and
 // K3c for head dims to 128; flash_attn_wide.cu: K3a past 128;
-// flash_attn_wide_bwd.cu: K3b and K3c past 128), and K1's grid forward
-// (gru_seq_grid.cu: N = 24, A from registers).
+// flash_attn_wide_bwd.cu: K3b and K3c past 128), K1's grid forward
+// (gru_seq_grid.cu: N = 24, A from registers) and K1's grid backward
+// (gru_seq_grid_bwd.cu: the warp-level mma.sync m16n8k8).
 //
 // - cp.async copies of raw row-major tiles into shared memory, 16 or 4
 //   bytes a copy, zero-filled past the matrix's rows and columns;
@@ -14,6 +15,7 @@
 //   bytes contiguous, 8-row groups 128 bytes apart, 4-value chunks along K
 //   LBO bytes apart) and wgmma m64nNk8 f32 += tf32 x tf32, A from shared
 //   memory (ss) or registers (rs), N = 16, 32, 64 or 128 (and 24: rs);
+// - mma.sync m16n8k8 f32 += tf32 x tf32, one warp, all operands in registers;
 // - mma_ss and mma_rs, a product over K as three wgmma passes a k-slice
 //   (lo.hi + hi.lo + hi.hi: about 2^-21 relative, float32's order);
 // - the launch helpers: one grid dimension, the scale D^-0.5.
@@ -247,6 +249,18 @@ struct Wgmma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
+
+// D += A B, m16n8k8, f32 += tf32 x tf32 on one warp (mma.sync): A's registers
+// hold rows g, g + 8 at column t and t + 4 (g = lane / 4, t = lane % 4), B's
+// rows t and t + 4 at column g, D's row g at columns 2 t, 2 t + 1, then row
+// g + 8 the same.
+__device__ __forceinline__ void mma_16n8k8(float (&d)[4], const uint32_t (&a)[4],
+                                           const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 // ---- split-TF32 and the tile passes -------------------------------------------
 

@@ -17,12 +17,14 @@ H100's):
   :func:`cluster_plan`), the backward in
   ``eegsynth_torch/csrc/gru_seq_cluster_bwd.cu`` (dh reduce-scattered each
   step, :func:`cluster_bwd_plan`);
-- above the cap up to H 1024 (:data:`MAX_WIDE_HIDDEN`), the forward runs on
-  one cooperative grid whose blocks hold W_hhᵀ's slices in shared memory
-  and exchange h through L2 once a step
-  (``eegsynth_torch/csrc/gru_seq_grid.cu``, :func:`grid_plan`), the backward
-  on ``eegsynth_torch/csrc/gru_seq_wide.cu``, W_hh streamed from L2 each
-  step (that file's streaming forward runs only when a plan asks for it).
+- above the cap up to H 1024 (:data:`MAX_WIDE_HIDDEN`), each half runs on
+  one cooperative grid whose blocks hold the slice of their units in shared
+  memory and exchange one operand through L2 once a step: the forward holds
+  W_hhᵀ's columns and all-gathers h (``eegsynth_torch/csrc/gru_seq_grid.cu``,
+  :func:`grid_plan`), the backward W_hh's columns and all-gathers dhp
+  (``eegsynth_torch/csrc/gru_seq_grid_bwd.cu``, :func:`grid_bwd_plan`).
+  ``eegsynth_torch/csrc/gru_seq_wide.cu``'s streaming kernels, which read
+  all of W_hh from L2 each step, run only when a plan asks for them.
 
 On a CPU tensor each half runs its plain PyTorch
 version (:func:`gru_sequence_reference`, :func:`gru_sequence_bwd_reference`),
@@ -53,10 +55,11 @@ which holds W_hhᵀ slices in registers the same way; ``adaptive_dims`` caps
 h_dim here. K1 takes wider H through the wide route."""
 
 MAX_WIDE_HIDDEN = 1024
-"""Largest H of K1's wide route: of the grid forward (``gru_seq_grid.cu``,
-whose W_hhᵀ in split TF32 fills 128 blocks' shared memory at H 1024) and of
-the streaming backward (``gru_seq_wide.cu``: one thread a column, 1024
-threads a block); the wrappers raise above it."""
+"""Largest H of K1's wide route: of the grid forward and backward
+(``gru_seq_grid.cu``, ``gru_seq_grid_bwd.cu``, whose W_hh in split TF32
+fills 128 blocks' shared memory at H 1024) and of the streaming kernels
+(``gru_seq_wide.cu``: one thread a column, 1024 threads a block); the
+wrappers raise above it."""
 
 
 def _gates(x: torch.Tensor, hp: torch.Tensor, H: int):
@@ -414,16 +417,18 @@ def cluster_bwd_plan(nb: int, B: int, H: int, card: dict) -> dict:
     than one cluster of twice the rows), the plan of the fewest modelled
     clocks (waves × :func:`_bwd_step_clocks`), one wave first. Where
     nothing fits (past the cap: H 544 on the H100 with clusters of 16, else
-    384), the route is ``"stream"``: ``gru_seq_wide.cu``'s backward."""
+    384), the route is ``"stream"``, and :func:`wide_bwd_plan` takes the
+    grid plan instead."""
     return _best_plan(nb, B, card, cluster_bwd_fits(H, card), _bwd_step_clocks,
                       lambda C, R, g: (C, g["S"], R))
 
 
 GRID_UNITS = 8
-"""Units a block of K1's grid forward (``gru_seq_grid.cu``) owns: its wgmma
-is N = 3U = 24 gate columns wide (a multiple of 8). Sixteen units' slice of
-W_hhᵀ fits a block's shared memory only up to H 544, below the grid's
-widths."""
+"""Units a block of K1's grid forward (``gru_seq_grid.cu``) and backward
+(``gru_seq_grid_bwd.cu``) owns: the forward's wgmma is N = 3U = 24 gate
+columns wide, the backward's N = U = 8 columns of dh (multiples of 8).
+Sixteen units' slice of W_hh fits a block's shared memory only up to H
+544, below the grid's widths."""
 
 GRID_STAGES = 2
 """Stages of the grid forward's ring of h chunks: one landing while the
@@ -435,17 +440,18 @@ GRID_CHUNK = 64
 rows a stage holds proportionally more depth)."""
 
 GRID_PAD = 32
-"""The grid forward pads h's depth (and W_hhᵀ's rows) to a multiple of this:
-two 16-deep parts, one for each set of fragments a warpgroup keeps in
-flight."""
+"""The grid kernels pad H (h's depth in the forward, each gate of dhp in the
+backward, and W's rows with them) to a multiple of this: two 16-deep parts,
+one for each set of fragments a forward warpgroup keeps in flight."""
 
 GRID_TILE_ROWS = 64
-"""Batch rows of the grid forward's wgmma tile; a block loops over
-ceil(B / 64) tiles a step."""
+"""Batch rows of the grid kernels' tile (the forward's wgmma M, four of the
+backward's 16-row `mma.sync` tiles); a block loops over ceil(B / 64) tiles a
+step."""
 
 GRID_THREADS = 256
-"""Threads a block of the grid forward: two warpgroups, one for each k-slice
-of a 16-deep part of h."""
+"""Threads a block of the grid kernels: the forward's two warpgroups, one for
+each k-slice of a 16-deep part of h; the backward's eight warps."""
 
 
 def grid_smem(H: int) -> int:
@@ -457,13 +463,50 @@ def grid_smem(H: int) -> int:
     return 4 * (2 * depth * 3 * GRID_UNITS + GRID_STAGES * GRID_TILE_ROWS * GRID_CHUNK)
 
 
-def grid_resident(card: dict, smem: int) -> int:
-    """Blocks of the grid forward at ``smem`` shared bytes resident at once:
-    the card's SMs times the blocks an SM holds, the fewer of its count at no
-    dynamic shared memory (``card["grid_blocks_sm"]``, 0 without cooperative
-    launches) and its shared memory's."""
+GRID_BWD_AHEAD = (2, 8)
+"""Parts of 16 of dhp whose rows a lane of the grid backward
+(``gru_seq_grid_bwd.cu``) has in flight from L2 while it multiplies the part
+before: in its instance for two blocks an SM (at most 128 registers a
+thread), taken where two blocks fit an SM's shared memory, and in the one
+for a block alone on its SM."""
+
+
+def grid_bwd_smem(H: int) -> int:
+    """Shared bytes of a block of the grid backward (as
+    ``gru_seq_grid_bwd.cu``'s ``grid_bwd_smem``): W_hh's columns of
+    :data:`GRID_UNITS` units over the three gates, each padded to
+    :data:`GRID_PAD`, TF32 hi and lo, and each warp's sums of a 16-row
+    tile."""
+    depth = 3 * (-(-H // GRID_PAD) * GRID_PAD)
+    return 4 * (2 * depth * GRID_UNITS + GRID_THREADS // 32 * 16 * GRID_UNITS)
+
+
+def grid_resident(card: dict, smem: int, blocks_sm: str = "grid_blocks_sm") -> int:
+    """Blocks of a grid kernel at ``smem`` shared bytes resident at once: the
+    card's SMs times the blocks an SM holds, the fewer of the kernel's count
+    at no dynamic shared memory (``card[blocks_sm]``: ``"grid_blocks_sm"``
+    for the forward, ``"grid_bwd_blocks_sm"`` for the backward; 0 without
+    cooperative launches) and its shared memory's."""
     by_smem = card["smem_sm"] // (smem + card["smem_reserved"])
-    return card["sms"] * min(card["grid_blocks_sm"], by_smem)
+    return card["sms"] * min(card[blocks_sm], by_smem)
+
+
+def _grid_plan(what: str, nb: int, H: int, smem: int, card: dict, blocks_sm: str,
+               **shape) -> dict:
+    """The plan of a grid kernel (``what``) of ``smem`` shared bytes a block:
+    ceil(H / 8) blocks a bucket, waves of the buckets resident at once, and
+    the kernel's ``shape`` keys; raises where one bucket's blocks are not."""
+    blocks = -(-H // GRID_UNITS)
+    resident = grid_resident(card, smem, blocks_sm) if smem <= card["smem"] else 0
+    if resident < blocks:
+        raise RuntimeError(
+            f"K1's {what} at H {H}: {blocks} blocks of {smem} shared bytes, "
+            f"{resident} resident at once on this card (cooperative launches "
+            f"{'yes' if card[blocks_sm] else 'no'})")
+    per_wave = max(1, min(max(nb, 1), resident // blocks))
+    return {"route": "grid", "U": GRID_UNITS, "blocks": blocks, **shape,
+            "threads": GRID_THREADS, "buckets_per_wave": per_wave,
+            "waves": -(-nb // per_wave), "smem": smem, "resident": resident}
 
 
 def grid_plan(nb: int, B: int, H: int, card: dict) -> dict:
@@ -475,17 +518,23 @@ def grid_plan(nb: int, B: int, H: int, card: dict) -> dict:
     the batch in tiles of 64 rows. Raises where one bucket's blocks do not
     fit resident at once (a card without cooperative launches, or too
     little shared memory): no other route takes its place."""
-    blocks, smem = -(-H // GRID_UNITS), grid_smem(H)
-    resident = grid_resident(card, smem) if smem <= card["smem"] else 0
-    if resident < blocks:
-        raise RuntimeError(
-            f"K1's grid forward at H {H}: {blocks} blocks of {smem} shared bytes, "
-            f"{resident} resident at once on this card (cooperative launches "
-            f"{'yes' if card['grid_blocks_sm'] else 'no'})")
-    per_wave = max(1, min(max(nb, 1), resident // blocks))
-    return {"route": "grid", "U": GRID_UNITS, "blocks": blocks, "chunk": GRID_CHUNK,
-            "stages": GRID_STAGES, "threads": GRID_THREADS, "buckets_per_wave": per_wave,
-            "waves": -(-nb // per_wave), "smem": smem, "resident": resident}
+    return _grid_plan("grid forward", nb, H, grid_smem(H), card, "grid_blocks_sm",
+                      chunk=GRID_CHUNK, stages=GRID_STAGES)
+
+
+def grid_bwd_plan(nb: int, B: int, H: int, card: dict) -> dict:
+    """K1's grid backward for (nb, B, H) on the card's numbers, in the form
+    of :func:`grid_plan`: ceil(H / 8) blocks a bucket of
+    :func:`grid_bwd_smem` shared bytes, the buckets resident at once a wave
+    (the backward's own count of blocks an SM, ``card["grid_bwd_blocks_sm"]``,
+    that of its instance for two blocks an SM: at H up to 576 two blocks
+    share an SM), and its parts in flight (:data:`GRID_BWD_AHEAD`).
+    Raises where one bucket's blocks do not fit resident at once: no other
+    route takes its place."""
+    smem = grid_bwd_smem(H)
+    two = 2 * (smem + card["smem_reserved"]) <= card["smem_sm"]
+    return _grid_plan("grid backward", nb, H, smem, card, "grid_bwd_blocks_sm",
+                      ahead=GRID_BWD_AHEAD[0 if two else 1])
 
 
 def wide_plan(nb: int, B: int, H: int, card: dict) -> dict:
@@ -496,15 +545,26 @@ def wide_plan(nb: int, B: int, H: int, card: dict) -> dict:
     return plan if plan["route"] == "cluster" else grid_plan(nb, B, H, card)
 
 
+def wide_bwd_plan(nb: int, B: int, H: int, card: dict) -> dict:
+    """K1's wide backward route for (nb, B, H) on the card's numbers: the
+    cluster backward's plan (:func:`cluster_bwd_plan`) up to its cap, the
+    grid backward's (:func:`grid_bwd_plan`, which raises where it cannot
+    launch) above it."""
+    plan = cluster_bwd_plan(nb, B, H, card)
+    return plan if plan["route"] == "cluster" else grid_bwd_plan(nb, B, H, card)
+
+
 _CARDS: dict[int, dict] = {}
 
 
 def cluster_card(device: torch.device | None = None) -> dict:
-    """The numbers :func:`cluster_plan` and :func:`grid_plan` take, from the
-    card itself (``gru_seq_cluster_card``, ``gru_seq_grid_card``; kept per
-    device): SMs, shared bytes a block and an SM and those reserved a block,
-    clusters of each C resident at once, one block an SM, and the grid
-    forward's blocks resident on an SM at no dynamic shared memory
+    """The numbers :func:`cluster_plan`, :func:`grid_plan` and
+    :func:`grid_bwd_plan` take, from the card itself
+    (``gru_seq_cluster_card``, ``gru_seq_grid_card``,
+    ``gru_seq_grid_bwd_card``; kept per device): SMs, shared bytes a block
+    and an SM and those reserved a block, clusters of each C resident at
+    once, one block an SM, and the grid forward's and backward's blocks
+    resident on an SM at no dynamic shared memory
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 where the card has no
     cooperative launches)."""
     device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
@@ -512,14 +572,16 @@ def cluster_card(device: torch.device | None = None) -> dict:
     if index not in _CARDS:
         lib = _build.load_library()
         out = (ctypes.c_int * 8)()
-        grid = (ctypes.c_int * 2)()
+        grid, grid_bwd = (ctypes.c_int * 2)(), (ctypes.c_int * 2)()
         with torch.cuda.device(index):
             _build.check(lib, "gru_seq_cluster_card", lib.gru_seq_cluster_card(out))
             _build.check(lib, "gru_seq_grid_card", lib.gru_seq_grid_card(grid))
+            _build.check(lib, "gru_seq_grid_bwd_card", lib.gru_seq_grid_bwd_card(grid_bwd))
         _CARDS[index] = {"sms": out[0], "smem": out[1], "smem_sm": out[2],
                          "smem_reserved": out[3],
                          "resident": dict(zip(CLUSTER_SIZES, out[4:8])),
-                         "grid_blocks_sm": grid[1] * grid[0]}
+                         "grid_blocks_sm": grid[1] * grid[0],
+                         "grid_bwd_blocks_sm": grid_bwd[1] * grid_bwd[0]}
     return _CARDS[index]
 
 
@@ -542,8 +604,9 @@ def gru_sequence_wide(xp, w_hh_t, b_hh, h0, plan: dict | None = None) -> torch.T
                     *(plan[k] for k in ("C", "R", "S", "KL", "U")))
             gru_sequence_wide.cluster_launches += 1
         elif plan["route"] == "grid":
-            gru_sequence_wide.grid_launches += _grid_launch("gru_seq_grid_fwd", xp, w_hh_t,
-                                                            b_hh, h0, ys, plan)
+            gru_sequence_wide.grid_launches += _grid_waves(
+                "gru_seq_grid_fwd", "gru_seq_grid_workspace", (xp, w_hh_t, b_hh, h0, ys),
+                (nb, T, B, H), plan)
         elif plan["route"] == "stream":
             _launch("gru_seq_wide_fwd", xp, w_hh_t, b_hh, h0, ys, nb, T, B, H)
             gru_sequence_wide.launches += 1
@@ -552,21 +615,20 @@ def gru_sequence_wide(xp, w_hh_t, b_hh, h0, plan: dict | None = None) -> torch.T
     return ys
 
 
-def _grid_launch(fn: str, xp, w_hh_t, b_hh, h0, ys, plan: dict) -> int:
-    """Launch ``fn`` (the grid forward or its probe) once for each wave of
-    the plan's ``buckets_per_wave`` buckets, on one zeroed workspace (the
-    flags and the exchange buffers of h of every bucket); returns the
-    launches."""
-    nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
+def _grid_waves(fn: str, workspace: str, tensors: tuple, dims: tuple, plan: dict) -> int:
+    """Launch ``fn`` (a grid kernel or its probe) on ``tensors`` once for each
+    wave of the plan's ``buckets_per_wave`` buckets, on one zeroed workspace
+    of ``workspace``'s words (the flags and the exchange buffers of every
+    bucket); returns the launches."""
+    nb, T, B, H = dims
     lib = _build.load_library()
-    words = lib.gru_seq_grid_workspace(nb, B, H)
+    words = getattr(lib, workspace)(nb, B, H)
     if words < 0:
         raise ValueError(f"{fn}: no workspace for nb={nb} B={B} H={H}")
-    ws = torch.zeros(words, dtype=torch.int32, device=xp.device)
+    ws = torch.zeros(words, dtype=torch.int32, device=tensors[0].device)
     per_wave = plan["buckets_per_wave"]
     for first in range(0, nb, per_wave):
-        _launch(fn, xp, w_hh_t, b_hh, h0, ys, ws, nb, T, B, H, first,
-                min(per_wave, nb - first))
+        _launch(fn, *tensors, ws, nb, T, B, H, first, min(per_wave, nb - first))
     return -(-nb // per_wave)
 
 
@@ -588,7 +650,8 @@ def grid_chain_probe(xp, w_hh_t, b_hh, h0, plan: dict) -> None:
     the wait, the read of h from L2 and the publication alone. It writes
     only its workspace, is counted by no launch counter, and is timed as the
     route's step-chain floor."""
-    _grid_launch("gru_seq_grid_chain", xp, w_hh_t, b_hh, h0, xp, plan)
+    _grid_waves("gru_seq_grid_chain", "gru_seq_grid_workspace", (xp, w_hh_t, b_hh, h0, xp),
+                _check_shapes(xp, w_hh_t, b_hh, h0), plan)
 
 
 def wide_tile(nb: int, B: int, H: int) -> dict:
@@ -597,7 +660,7 @@ def wide_tile(nb: int, B: int, H: int) -> dict:
     ``C`` and rows ``R`` (None off the cluster kernel) and ``plan``
     (:func:`wide_plan`: the cluster or the grid plan); the backward's the
     same under ``bwd_route``, ``bwd_C``, ``bwd_R`` and ``bwd_plan``
-    (:func:`cluster_bwd_plan`); and the streaming kernels' tile: batch rows
+    (:func:`wide_bwd_plan`); and the streaming kernels' tile: batch rows
     a block, tiles a bucket, threads a block, and the forward's and the
     backward's shared bytes."""
     lib = _build.load_library()
@@ -605,7 +668,7 @@ def wide_tile(nb: int, B: int, H: int) -> dict:
     _build.check(lib, "gru_seq_wide_tile", lib.gru_seq_wide_tile(nb, B, H, out))
     card = cluster_card()
     plan = wide_plan(nb, B, H, card)
-    bwd = cluster_bwd_plan(nb, B, H, card)
+    bwd = wide_bwd_plan(nb, B, H, card)
     return {"route": plan["route"], "C": plan.get("C"), "R": plan.get("R"), "plan": plan,
             "bwd_route": bwd["route"], "bwd_C": bwd.get("C"), "bwd_R": bwd.get("R"),
             "bwd_plan": bwd,
@@ -654,7 +717,8 @@ def gru_sequence_bwd(xp, w_hh_t, b_hh, h0, ys, d_ys, plan: dict | None = None):
     writes dhp over hp; past H 128 :func:`gru_sequence_bwd_wide`); then
     :func:`weight_grads`, dW_hhᵀ = h_prevᵀ dhp as batched products and
     db_hh = Σ dhp as one sum. ``gru_sequence_bwd.launches``,
-    ``gru_sequence_bwd_wide.cluster_launches`` and
+    ``gru_sequence_bwd_wide.cluster_launches``,
+    ``gru_sequence_bwd_wide.grid_launches`` and
     ``gru_sequence_bwd_wide.launches`` count the kernels' launches. A
     ``plan`` (past H 128 only) is the wide backward's, as
     :func:`gru_sequence_bwd_wide` takes it."""
@@ -685,28 +749,51 @@ _BWD_PLAN_KEYS = ("C", "R", "S", "KE", "U")
 def gru_sequence_bwd_wide(xp, hp, h_prev, d_ys, w_hh_t, b_hh, dhp, plan: dict | None = None):
     """Launch K1's wide backward on CUDA tensors: the arguments and results
     of :func:`gru_sequence_bwd_recurrence`, for any H up to
-    :data:`MAX_WIDE_HIDDEN`. The cluster kernel where
-    :func:`cluster_bwd_plan` (or the ``plan`` given) finds a cluster that
-    holds W_hhᵀ, counted by ``gru_sequence_bwd_wide.cluster_launches``; else
-    the streaming kernel, which streams W_hh and is passed W_hhᵀ transposed
-    back, contiguous, counted by ``gru_sequence_bwd_wide.launches``. A plan
-    the kernel cannot launch raises."""
+    :data:`MAX_WIDE_HIDDEN`, on :func:`wide_bwd_plan`'s route, or the
+    ``plan`` given: the cluster kernel (counted by
+    ``gru_sequence_bwd_wide.cluster_launches``) where a cluster holds
+    W_hhᵀ, the grid kernel (one launch a wave of buckets, each counted by
+    ``gru_sequence_bwd_wide.grid_launches``; none at T = 0, where dh0 is
+    zero) above that, and the streaming kernel, which streams W_hh and is
+    passed W_hhᵀ transposed back, contiguous
+    (``gru_sequence_bwd_wide.launches``), only for ``{"route": "stream"}``.
+    A plan the card cannot launch raises."""
     nb, T, B, H = d_ys.shape
     dxp = torch.empty_like(xp)
     dh0 = torch.empty((nb, B, H), dtype=torch.float32, device=xp.device)
     if nb and B:
         if plan is None:
-            plan = cluster_bwd_plan(nb, B, H, cluster_card(xp.device))
+            plan = wide_bwd_plan(nb, B, H, cluster_card(xp.device))
         if plan["route"] == "cluster":
             _launch("gru_seq_cluster_bwd", xp, hp, h_prev, d_ys, w_hh_t, b_hh, dxp, dhp, dh0,
                     nb, T, B, H, *(plan[k] for k in _BWD_PLAN_KEYS))
             gru_sequence_bwd_wide.cluster_launches += 1
-        else:
+        elif plan["route"] == "grid":
+            if T:
+                gru_sequence_bwd_wide.grid_launches += _grid_waves(
+                    "gru_seq_grid_bwd", "gru_seq_grid_bwd_workspace",
+                    (xp, hp, h_prev, d_ys, w_hh_t, b_hh, dxp, dhp, dh0), (nb, T, B, H), plan)
+            else:
+                dh0.zero_()
+        elif plan["route"] == "stream":
             w_hh = w_hh_t.transpose(-1, -2).contiguous()
             _launch("gru_seq_wide_bwd", xp, hp, h_prev, d_ys, w_hh, b_hh, dxp, dhp, dh0,
                     nb, T, B, H)
             gru_sequence_bwd_wide.launches += 1
+        else:
+            raise ValueError(f"gru_sequence_bwd_wide: no route {plan['route']!r}")
     return dxp, dh0
+
+
+def grid_bwd_chain_probe(xp, hp, h_prev, d_ys, w_hh_t, b_hh, plan: dict) -> None:
+    """Launch the grid backward's step-chain probe (``gru_seq_grid_bwd_chain``)
+    on the inputs of a :func:`gru_sequence_bwd_wide` call and its grid plan:
+    the same launches with each step's coefficients, product and dhp left
+    out, T steps of the wait, the read of dhp from L2 and the publication
+    alone. It writes only its workspace, is counted by no launch counter,
+    and is timed as the route's step-chain floor."""
+    _grid_waves("gru_seq_grid_bwd_chain", "gru_seq_grid_bwd_workspace",
+                (xp, hp, h_prev, d_ys, w_hh_t, b_hh, xp, xp, xp), d_ys.shape, plan)
 
 
 def cluster_bwd_chain_probe(xp, hp, h_prev, d_ys, w_hh_t, b_hh, plan: dict) -> None:
@@ -750,7 +837,8 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
     ``gru_sequence_wide.grid_launches`` and ``gru_sequence_wide.launches``
     the wide route's past it (the cluster, the grid and the streaming
     kernel; and ``gru_sequence_bwd``,
-    ``gru_sequence_bwd_wide.cluster_launches`` and
+    ``gru_sequence_bwd_wide.cluster_launches``,
+    ``gru_sequence_bwd_wide.grid_launches`` and
     ``gru_sequence_bwd_wide.launches`` the backward's).
     H past :data:`MAX_WIDE_HIDDEN` raises."""
     if xp.dim() == 3:
@@ -765,3 +853,4 @@ gru_sequence_wide.cluster_launches = 0
 gru_sequence_wide.grid_launches = 0
 gru_sequence_bwd_wide.launches = 0
 gru_sequence_bwd_wide.cluster_launches = 0
+gru_sequence_bwd_wide.grid_launches = 0

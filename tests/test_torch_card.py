@@ -38,9 +38,9 @@ from eegsynth_torch.nn.attention import (
 )
 from eegsynth_torch.nn.gru_sequence import (
     MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_geometry, cluster_bwd_plan, cluster_card,
-    cluster_geometry, cluster_plan, grid_plan, gru_sequence, gru_sequence_bwd,
+    cluster_geometry, cluster_plan, grid_bwd_plan, grid_plan, gru_sequence, gru_sequence_bwd,
     gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide,
-    weight_grads, wide_plan,
+    weight_grads, wide_bwd_plan, wide_plan,
 )
 from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
@@ -218,11 +218,11 @@ def test_backward_repeats_bitwise(cuda_device, nb, T, B, H):
 
 def _wide_counts() -> tuple:
     """K1 forward, the wide route's cluster, grid and streaming forwards, K1
-    backward, the wide route's cluster and streaming backwards."""
+    backward, the wide route's cluster, streaming and grid backwards."""
     return (gru_sequence.launches, gru_sequence_wide.cluster_launches,
             gru_sequence_wide.grid_launches, gru_sequence_wide.launches,
             gru_sequence_bwd.launches, gru_sequence_bwd_wide.cluster_launches,
-            gru_sequence_bwd_wide.launches)
+            gru_sequence_bwd_wide.launches, gru_sequence_bwd_wide.grid_launches)
 
 
 def _wide_forward(nb, B, H) -> list:
@@ -236,16 +236,16 @@ def _wide_forward(nb, B, H) -> list:
 
 def _wide_backward(nb, B, H) -> list:
     """The wide backward's launches _wide_counts expects at (nb, B, H): the
-    cluster kernel where the card's backward plan fits, else the streaming
-    kernel."""
-    cluster = cluster_bwd_plan(nb, B, H, cluster_card())["route"] == "cluster"
-    return [0, int(cluster), int(not cluster)]
+    cluster kernel where the card's backward plan fits, else the grid kernel
+    (one launch a wave of buckets)."""
+    plan = wide_bwd_plan(nb, B, H, cluster_card())
+    cluster = plan["route"] == "cluster"
+    return [0, int(cluster), 0, 0 if cluster else plan["waves"]]
 
 
 # K1's wide route (H past 128; each half on a cluster up to its cap, in
-# gru_seq_cluster.cu and gru_seq_cluster_bwd.cu; past it the forward on the
-# grid of gru_seq_grid.cu, the backward on the streaming kernel of
-# gru_seq_wide.cu): the first width past the register kernels' cap (3H
+# gru_seq_cluster.cu and gru_seq_cluster_bwd.cu; past it each half on a
+# grid, gru_seq_grid.cu and gru_seq_grid_bwd.cu): the first width past the register kernels' cap (3H
 # and H not multiples of 4: the scalar tails), H 256 and 512
 # (bench_kernels' sweep) with odd T and B, a batch past one wave, one step,
 # and the largest H
@@ -282,7 +282,7 @@ def test_cluster_forward_each_size_matches_plain(cuda_device, C, R, nb, T, B, H)
     before = _wide_counts()
     ys = gru_sequence_wide(*inputs, plan=plan)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0, 0, 0]
     assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
     assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
 
@@ -295,7 +295,7 @@ def test_cluster_route_matches_plain(cuda_device, nb, T, B, H):
     before = _wide_counts()
     ys = gru_sequence(*inputs)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0, 0, 0]
     assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
 
 
@@ -307,7 +307,7 @@ def test_cluster_route_ends_at_its_cap(cuda_device):
     card = cluster_card()
     cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
               if cluster_plan(1, 1, H, card)["route"] == "cluster")
-    for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0])):
+    for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0, 0])):
         inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
         before = _wide_counts()
         ys = gru_sequence(*inputs)
@@ -339,7 +339,7 @@ def test_grid_forward_matches_plain(cuda_device, nb, T, B, H):
     before = _wide_counts()
     ys = gru_sequence_wide(*inputs, plan=plan)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, plan["waves"], 0, 0, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, plan["waves"], 0, 0, 0, 0, 0]
     assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
     assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
 
@@ -354,8 +354,8 @@ def test_grid_route_takes_over_past_the_cluster_cap(cuda_device):
     card = cluster_card()
     cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
               if cluster_plan(1, 1, H, card)["route"] == "cluster")
-    for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0]),
-                    (MAX_WIDE_HIDDEN, [0, 0, 1, 0, 0, 0, 0])):
+    for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0, 0]),
+                    (MAX_WIDE_HIDDEN, [0, 0, 1, 0, 0, 0, 0, 0])):
         inputs = _inputs(40, 9, H, cuda_device, seed=H, lead=(1,))
         before = _wide_counts()
         ys = gru_sequence(*inputs)
@@ -369,7 +369,7 @@ def test_grid_route_takes_over_past_the_cluster_cap(cuda_device):
     ys = gru_sequence(*inputs)
     torch.cuda.synchronize()
     assert ys.shape == (3, 0, 9, 1024)
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 7
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 8
     inputs = _inputs(10, 3, 1024, cuda_device, seed=8, lead=(2,))
     plan = grid_plan(2, 3, 1024, card)
     too_many = {**plan, "buckets_per_wave": 2}
@@ -404,7 +404,7 @@ def test_cluster_backward_each_size_matches_plain(cuda_device, C, R, S, nb, T, B
     dxp, dh0 = gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
                                      plan=plan)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0, 0]
     ref = gru_sequence_bwd_reference(*inputs, ys, d_ys)
     dw, db = weight_grads(h_prev, hp)
     _assert_bwd_matches((dxp, dw, db, dh0), ref)
@@ -420,19 +420,19 @@ def test_cluster_backward_route_matches_plain(cuda_device, nb, T, B, H):
     before = _wide_counts()
     got = gru_sequence_bwd(*inputs, ys, d_ys)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0, 0]
     _assert_bwd_matches(got, gru_sequence_bwd_reference(*inputs, ys, d_ys))
 
 
 def test_cluster_backward_ends_at_its_cap(cuda_device):
     """The largest H a backward cluster holds on this card runs the cluster
-    backward, the next H the streaming one; both match the plain backward.
+    backward, the next H the grid one; both match the plain backward.
     Two calls of the cluster backward give the same bits, T = 0 gives zero
     gradients, and a plan it cannot launch raises."""
     card = cluster_card()
     cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
               if cluster_bwd_plan(1, 1, H, card)["route"] == "cluster")
-    for H, want in ((cap, [0, 0, 0, 0, 0, 1, 0]), (cap + 1, [0, 0, 0, 0, 0, 0, 1])):
+    for H, want in ((cap, [0, 0, 0, 0, 0, 1, 0, 0]), (cap + 1, [0, 0, 0, 0, 0, 0, 0, 1])):
         inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
         ys = gru_sequence_reference(*inputs)
         d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(H)).to(cuda_device)
@@ -451,7 +451,7 @@ def test_cluster_backward_ends_at_its_cap(cuda_device):
     before = _wide_counts()
     dxp, dw, db, dh0 = gru_sequence_bwd(*inputs, ys, torch.zeros_like(ys))
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0, 0]
     assert dxp.shape == inputs[0].shape
     for t in (dw, db, dh0):
         assert torch.equal(t, torch.zeros_like(t))
@@ -460,6 +460,86 @@ def test_cluster_backward_ends_at_its_cap(cuda_device):
     with pytest.raises(RuntimeError, match="gru_seq_cluster_bwd"):
         gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
                               plan=empty_block)
+
+
+# the grid backward (gru_seq_grid_bwd.cu), the card's plan given: below the
+# cap at H 160 and 544 (forced; 20 and 68 blocks), the cap + 1 (69 blocks,
+# the last owning one unit), a ragged depth (600, 777: each gate padded),
+# the largest H (128 blocks), nb 3 (three waves), B 1, 5, 9, 64 and 70 (a
+# full and a ragged 64-row tile), T 1
+@pytest.mark.parametrize("nb,T,B,H", [(1, 30, 9, 160), (1, 30, 5, 544), (1, 101, 9, 545),
+                                      (3, 40, 64, 600), (1, 20, 70, 777), (3, 25, 64, 1024),
+                                      (1, 1, 1, 1024), (1, 50, 1, 545), (3, 1, 9, 777),
+                                      (1, 40, 70, 160), (1, 30, 5, 1024), (1, 30, 70, 1024)])
+def test_grid_backward_matches_plain(cuda_device, nb, T, B, H):
+    inputs, ys, d_ys, h_prev, hp = _wide_bwd_inputs(nb, T, B, H, cuda_device, seed=H + T)
+    plan = grid_bwd_plan(nb, B, H, cluster_card())
+    before = _wide_counts()
+    dxp, dh0 = gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
+                                     plan=plan)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 7 + [plan["waves"]]
+    ref = gru_sequence_bwd_reference(*inputs, ys, d_ys)
+    dw, db = weight_grads(h_prev, hp)
+    _assert_bwd_matches((dxp, dw, db, dh0), ref)
+
+
+def test_grid_backward_takes_over_past_the_cluster_cap(cuda_device):
+    """The automatic route: the largest H a backward cluster holds on this
+    card runs the cluster backward, the next H and 1024 the grid backward,
+    by the counters; all match the plain backward. Two calls of the grid
+    backward give the same bits; T = 0 launches nothing and gives zero
+    gradients; a plan with more blocks than the card holds resident at once
+    is refused by the cooperative launch and raises."""
+    card = cluster_card()
+    cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
+              if cluster_bwd_plan(1, 1, H, card)["route"] == "cluster")
+    for H, want in ((cap, [0, 0, 0, 0, 0, 1, 0, 0]), (cap + 1, [0, 0, 0, 0, 0, 0, 0, 1]),
+                    (MAX_WIDE_HIDDEN, [0, 0, 0, 0, 0, 0, 0, 1])):
+        inputs = _inputs(40, 9, H, cuda_device, seed=H, lead=(1,))
+        ys = gru_sequence_reference(*inputs)
+        d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(H)).to(cuda_device)
+        before = _wide_counts()
+        got = gru_sequence_bwd(*inputs, ys, d_ys)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_wide_counts(), before)] == want, H
+        _assert_bwd_matches(got, gru_sequence_bwd_reference(*inputs, ys, d_ys))
+    inputs = _inputs(200, 37, 777, cuda_device, seed=7, lead=(2,))
+    ys = gru_sequence(*inputs)
+    d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(9)).to(cuda_device)
+    for a, b in zip(gru_sequence_bwd(*inputs, ys, d_ys), gru_sequence_bwd(*inputs, ys, d_ys)):
+        assert torch.equal(a, b)
+    inputs = _inputs(0, 9, 1024, cuda_device, lead=(3,))
+    ys = gru_sequence_reference(*inputs)
+    before = _wide_counts()
+    dxp, dw, db, dh0 = gru_sequence_bwd(*inputs, ys, torch.zeros_like(ys))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 8
+    assert dxp.shape == inputs[0].shape
+    for t in (dw, db, dh0):
+        assert torch.equal(t, torch.zeros_like(t))
+    inputs, ys, d_ys, h_prev, hp = _wide_bwd_inputs(2, 10, 3, 1024, cuda_device, seed=8)
+    plan = grid_bwd_plan(2, 3, 1024, card)
+    too_many = {**plan, "buckets_per_wave": 2}
+    assert 2 * plan["blocks"] > plan["resident"]
+    with pytest.raises(RuntimeError, match="gru_seq_grid_bwd"):
+        gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
+                              plan=too_many)
+
+
+# the streaming backward (gru_seq_wide.cu), which no automatic route takes
+# any more: past the cap and at H 1024 with nb 2, on plan={"route":
+# "stream"}, as chip_smoke.py times it in turns
+@pytest.mark.parametrize("nb,T,B,H", [(1, 40, 9, 545), (2, 30, 5, 1024)])
+def test_streaming_backward_runs_only_when_asked(cuda_device, nb, T, B, H):
+    inputs, ys, d_ys, h_prev, hp = _wide_bwd_inputs(nb, T, B, H, cuda_device, seed=H + 1)
+    before = _wide_counts()
+    dxp, dh0 = gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
+                                     plan={"route": "stream"})
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 0, 1, 0]
+    dw, db = weight_grads(h_prev, hp)
+    _assert_bwd_matches((dxp, dw, db, dh0), gru_sequence_bwd_reference(*inputs, ys, d_ys))
 
 
 def test_wide_kernels_repeat_bitwise_and_take_unaligned_inputs(cuda_device):
@@ -511,8 +591,8 @@ def test_wide_timegan_step_runs_on_wide_k1(cuda_device):
     card = step(cuda_device)
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(counts(), before)]
-    assert launched[7] == 0 and launched[1] >= 2 and launched[2] == launched[3] == 0
-    assert launched[5] >= 1 and launched[6] == 0
+    assert launched[8] == 0 and launched[1] >= 2 and launched[2] == launched[3] == 0
+    assert launched[5] >= 1 and launched[6] == launched[7] == 0
     host = step("cpu")
     logs = (card[3].cpu() - host[3]).abs() / host[3].abs().clamp(min=1.0)
     assert torch.isfinite(card[3]).all() and logs.max().item() <= 1e-4

@@ -1,12 +1,12 @@
 """K1's wide forward and backward on thread-block clusters
 (``csrc/gru_seq_cluster.cu``, ``csrc/gru_seq_cluster_bwd.cu``) and, past the
-clusters' cap, the forward on one cooperative grid (``csrc/gru_seq_grid.cu``)
-on the CPU: the route, cluster and rows that ``cluster_plan`` and
-``cluster_bwd_plan`` pick at the H100's numbers and the grid plan above the
-cap, and each kernel's summation order, emulated in numpy float32, against
-the plain versions and the Pallas kernel (and its custom VJP) in interpret
-mode. The kernels themselves run on the card (tests/test_torch_card.py,
-chip_smoke.py)."""
+clusters' cap, on one cooperative grid (``csrc/gru_seq_grid.cu``,
+``csrc/gru_seq_grid_bwd.cu``) on the CPU: the route, cluster and rows that
+``cluster_plan`` and ``cluster_bwd_plan`` pick at the H100's numbers and the
+grid plans above the cap, and each kernel's summation order, emulated in
+numpy float32, against the plain versions and the Pallas kernel (and its
+custom VJP) in interpret mode. The kernels themselves run on the card
+(tests/test_torch_card.py, chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -19,21 +19,23 @@ from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth.nn.pallas_gru import gru_sequence as jax_gru_sequence
 from eegsynth_torch.nn.gru_sequence import (
-    CLUSTER_MAX_THREADS, CLUSTER_ROWS, GRID_CHUNK, GRID_PAD, GRID_STAGES, GRID_UNITS,
-    MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_fits, cluster_bwd_plan, cluster_bwd_smem,
-    cluster_fits, cluster_plan, cluster_smem, grid_plan, grid_resident, grid_smem,
-    gru_sequence_bwd_reference, gru_sequence_reference, resident_clusters, weight_grads,
+    CLUSTER_MAX_THREADS, CLUSTER_ROWS, GRID_BWD_AHEAD, GRID_CHUNK, GRID_PAD, GRID_STAGES,
+    GRID_THREADS, GRID_UNITS, MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_fits, cluster_bwd_plan,
+    cluster_bwd_smem, cluster_fits, cluster_plan, cluster_smem, grid_bwd_plan, grid_bwd_smem,
+    grid_plan, grid_resident, grid_smem, gru_sequence_bwd_reference, gru_sequence_bwd_wide,
+    gru_sequence_reference, gru_sequence_wide, resident_clusters, weight_grads, wide_bwd_plan,
     wide_plan)
 
 # The H100 SXM's numbers (132 SMs, 232,448 shared bytes a block, 233,472 an
 # SM, 1,024 reserved a block) with the clusters resident at once for each C
 # at one block an SM (cudaOccupancyMaxActiveClusters) and the grid
-# forward's blocks an SM at no dynamic shared memory
-# (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its 256 threads' registers
-# allow one) that the H100 80GB HBM3 reports; and the same card without
-# clusters of 16.
+# forward's and backward's blocks an SM at no dynamic shared memory
+# (cudaOccupancyMaxActiveBlocksPerMultiprocessor: the forward's 256 threads'
+# registers allow one, the backward's two) that the H100 80GB HBM3 reports;
+# and the same card without clusters of 16.
 H100 = {"sms": 132, "smem": 232448, "smem_sm": 233472, "smem_reserved": 1024,
-        "resident": {2: 66, 4: 30, 8: 15, 16: 7}, "grid_blocks_sm": 1}
+        "resident": {2: 66, 4: 30, 8: 15, 16: 7}, "grid_blocks_sm": 1,
+        "grid_bwd_blocks_sm": 2}
 H100_PORTABLE = {**H100, "resident": {**H100["resident"], 16: 0}}
 CAPS = {"16 blocks": (H100, 544), "8 blocks": (H100_PORTABLE, 384)}
 
@@ -229,58 +231,69 @@ def _tf32(x):
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
+def _tf32_slices(x):
+    """x (R, K), K a multiple of 16, in the grid kernels' k-slices of 8
+    (slice 2c + s, column j holds depth 16c + 4(j % 4) + 2s + j / 4),
+    split x = hi + lo in TF32: two (K / 8, R, 8) arrays."""
+    R, K = x.shape
+    kl = np.arange(K)
+    kk, j = kl // 8, kl % 8
+    x = x[:, (kk // 2) * 16 + (j % 4) * 4 + (kk % 2) * 2 + j // 4]
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    return tuple(y.reshape(R, K // 8, 8).transpose(1, 0, 2) for y in (hi, lo))
+
+
+def _grid_product(w):
+    """The grid kernels' product a ↦ a w (csrc/gru_seq_grid.cu,
+    csrc/gru_seq_grid_bwd.cu) in their order, in numpy float32, for W (K,
+    N) with K a multiple of GRID_PAD (zeros in the padding) and a (B, K):
+    the depth taken in k-slices of 8 in the kernels' order (slice 2c + s,
+    column j holds depth 16c + 4(j % 4) + 2s + j / 4), each side split x =
+    hi + lo in TF32; each k-slice's 8 products of lo.hi, hi.lo and hi.hi
+    summed in float32 (a wgmma's partial); warpgroup s takes the slices 2c
+    + s, each pass a chain for each part parity c mod 2 summed in slice
+    order from zero (np.add.accumulate: one float32 rounding a slice, in
+    order); a warpgroup's sum is hh + (lh + hl) with the two sets added in
+    order, warpgroup 0's plus warpgroup 1's. Which block owns a unit, the
+    chunk and the ring of stages change no sum."""
+    slices = w.shape[0] // 8
+    w_hi, w_lo = (np.ascontiguousarray(x.transpose(0, 2, 1))    # (slices, 8, N)
+                  for x in _tf32_slices(w.T))
+
+    def product(a):
+        B = a.shape[0]
+        a_hi, a_lo = _tf32_slices(a)
+        # chain r = s + 2c of each pass (lo.hi, hi.lo, hi.hi): the slices r,
+        # r + 4, r + 8, ... in order
+        lh, hl, hh = (np.add.accumulate((x @ y).reshape(slices // 4, 4, B, -1), axis=0)[-1]
+                      for x, y in ((a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)))
+        acc = None
+        for s in (0, 1):
+            part = (hh[s] + hh[s + 2]) + ((lh[s] + lh[s + 2]) + (hl[s] + hl[s + 2]))
+            acc = part if acc is None else acc + part
+        return acc
+
+    return product
+
+
 def _grid_sum_order(xp, w, b, h0):
     """K1 grid forward's arithmetic in its order (csrc/gru_seq_grid.cu), in
-    numpy float32: h and W padded with zeros to a depth of GRID_PAD, their
-    depth taken in k-slices of 8 in the kernel's order (slice 2c + s, column
-    j holds depth 16c + 4(j % 4) + 2s + j / 4), each split x = hi + lo in
-    TF32; each k-slice's 8 products of lo.hi, hi.lo and hi.hi summed in
-    float32 (a wgmma's partial); warpgroup s takes the slices 2c + s, each
-    pass a chain for each part parity c mod 2 summed in slice order from
-    zero; a warpgroup's sum is hh + (lh + hl) with the two sets added in
-    order, warpgroup 0's plus warpgroup 1's; then b_hh and the gates with
-    the kernel's sigmoid 1/2 + tanh(x/2)/2. Which block owns a unit, the
-    chunk and the ring of stages change no sum."""
+    numpy float32: h and W_hhᵀ padded with zeros to a depth of GRID_PAD,
+    h W_hhᵀ as _grid_product; then b_hh and the gates with the kernel's
+    sigmoid 1/2 + tanh(x/2)/2."""
     T, B, G = xp.shape
     H = G // 3
     kp = -(-H // GRID_PAD) * GRID_PAD
-    par = 2
-    kl = np.arange(kp)
-    kk, j = kl // 8, kl % 8
-    phys = (kk // 2) * 16 + (j % 4) * 4 + (kk % 2) * 2 + j // 4
     w_pad = np.zeros((kp, G), np.float32)
     w_pad[:H] = w
-    slices = kp // 8
-    w_log = w_pad[phys]
-    w_hi = _tf32(w_log)
-    w_lo = _tf32(w_log - w_hi)
-    w_hi, w_lo = (a.reshape(slices, 8, G) for a in (w_hi, w_lo))
-    # chain set c of warpgroup s holds the slices s + 2c, s + 2c + 2 par, ..., in order
-
-    def chain(p, s, c):
-        acc = p[s + 2 * c].copy()
-        for kg in range(s + 2 * c + 2 * par, slices, 2 * par):
-            acc += p[kg]        # float32, one rounding a slice
-        return acc
-
+    product = _grid_product(w_pad)
     h = h0.astype(np.float32)
     ys = np.empty((T, B, H), np.float32)
     for t in range(T):
         h_pad = np.zeros((B, kp), np.float32)
         h_pad[:, :H] = h
-        a = h_pad[:, phys]
-        a_hi = _tf32(a)
-        a_lo = _tf32(a - a_hi)
-        a_hi, a_lo = (x.reshape(B, slices, 8).transpose(1, 0, 2) for x in (a_hi, a_lo))
-        parts = (a_lo @ w_hi, a_hi @ w_lo, a_hi @ w_hi)   # (slices, B, G) each
-        acc = None
-        for wg in (0, 1):
-            sums = [[chain(p, wg, c) for p in parts] for c in range(par)]
-            sl, sm, sh = sums[0]
-            for c in range(1, par):
-                sl, sm, sh = sl + sums[c][0], sm + sums[c][1], sh + sums[c][2]
-            part = sh + (sl + sm)
-            acc = part if acc is None else acc + part
+        acc = product(h_pad)
         x = xp[t]
         r = _sigmoid_fwd(x[:, :H] + (acc[:, :H] + b[0, :H]))
         z = _sigmoid_fwd(x[:, H:2 * H] + (acc[:, H:2 * H] + b[0, H:2 * H]))
@@ -329,7 +342,8 @@ def _one_bwd_wave_exists(nb, B, H, numbers):
 @pytest.mark.parametrize("B", [1, 4, 37, 64, 600])
 def test_cluster_bwd_plan_covers_every_wide_width(card, B):
     """For every H from 129 to 1024: the cluster backward up to the same
-    cap as the forward and the streaming backward above it; a plan's shared
+    cap as the forward and the grid backward above it (wide_bwd_plan); a
+    cluster plan's shared
     bytes fit a block, its tiles of R rows cover B, every block owns at
     least four units and C·U covers H (the last block's ragged slice
     masked), its S slices of KE entries (a multiple of 4) cover the block's
@@ -340,7 +354,7 @@ def test_cluster_bwd_plan_covers_every_wide_width(card, B):
     for nb in (1, 3):
         routes = {}
         for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1):
-            plan = cluster_bwd_plan(nb, B, H, numbers)
+            plan = wide_bwd_plan(nb, B, H, numbers)
             routes[H] = plan["route"]
             if plan["route"] != "cluster":
                 continue
@@ -362,7 +376,7 @@ def test_cluster_bwd_plan_covers_every_wide_width(card, B):
             assert plan["waves"] == 1 or not one_wave, (nb, B, H, plan)
         assert [H for H, r in routes.items() if r == "cluster"] == list(
             range(MAX_HIDDEN + 1, cap + 1))
-        assert all(r == "stream" for H, r in routes.items() if H > cap)
+        assert all(r == "grid" for H, r in routes.items() if H > cap)
 
 
 def test_cluster_bwd_plan_at_the_headline_shapes():
@@ -371,8 +385,8 @@ def test_cluster_bwd_plan_at_the_headline_shapes():
     wave; (1, 64, 512) on sixteen blocks at one block an SM, four rows
     (eight do not fit), in three waves; the x14/z64/h256 TimeGAN's B 16 on
     eight clusters of two rows, four lanes a quad (not sixteen clusters of
-    one row: two clusters sharing an SM ran slower); H 545 on the
-    streaming kernel; nothing resident, no cluster."""
+    one row: two clusters sharing an SM ran slower); H 545 on the grid
+    kernel; nothing resident, no cluster."""
     plan = cluster_bwd_plan(1, 64, 256, H100)
     assert (plan["C"], plan["R"], plan["S"], plan["KE"], plan["U"], plan["threads"],
             plan["resident"], plan["waves"]) == (16, 4, 2, 24, 16, 128, 21, 1)
@@ -380,7 +394,7 @@ def test_cluster_bwd_plan_at_the_headline_shapes():
     assert (plan["C"], plan["R"], plan["resident"], plan["waves"]) == (16, 4, 7, 3)
     plan = cluster_bwd_plan(1, 16, 256, H100)
     assert (plan["C"], plan["R"], plan["S"], plan["clusters"], plan["waves"]) == (16, 2, 4, 8, 1)
-    assert cluster_bwd_plan(1, 64, 545, H100) == {"route": "stream"}
+    assert wide_bwd_plan(1, 64, 545, H100)["route"] == "grid"
     none = {**H100, "resident": {c: 0 for c in H100["resident"]}}
     assert cluster_bwd_plan(1, 64, 256, none) == {"route": "stream"}
 
@@ -391,11 +405,39 @@ def _fma(a, b, c):
     return (a * b + c).astype(np.float32)
 
 
+def _bwd_coefficients(xp, w, b, h0, ys):
+    """The wide backwards' coefficients of every step, in numpy float32:
+    hp = h_prev W_hhᵀ as one float32 product, b_hh added in the kernel;
+    (c_r, c_z, c_n, (1 - z)(1 - n²), z) from xp, hp and h_prev with the
+    sigmoid 1/2 + tanh(x/2)/2, as csrc/gru_seq_cluster_bwd.cu and
+    csrc/gru_seq_grid_bwd.cu form them."""
+    T, B, G = xp.shape
+    H = G // 3
+    f32 = np.float32
+    h_prev = np.concatenate([h0[None], ys[:T - 1]]).astype(f32)
+    hp = (h_prev.reshape(T * B, H) @ w).reshape(T, B, G).astype(f32)
+    hr, hz, hn = (hp[..., k * H:(k + 1) * H] + b[0, k * H:(k + 1) * H] for k in range(3))
+    r = _sigmoid_fwd(xp[..., :H] + hr)
+    z = _sigmoid_fwd(xp[..., H:2 * H] + hz)
+    n = np.tanh(xp[..., 2 * H:] + r * hn).astype(f32)
+    omz = f32(1) - z
+    e = omz * (f32(1) - n * n)
+    return ((e * hn) * (r * (f32(1) - r)), (h_prev - n) * (z * omz), e * r, e, z)
+
+
+def _bwd_step(dh, dy_t, coef, t):
+    """Step t of the wide backwards from dh_t: (dxp_t, dhp_t, d z) with d =
+    dh_t + d_ys_t."""
+    d = (dh + dy_t).astype(np.float32)
+    d_r, d_z, d_n = (d * coef[k][t] for k in range(3))
+    return (np.concatenate([d_r, d_z, d * coef[3][t]], axis=-1),
+            np.concatenate([d_r, d_z, d_n], axis=-1), d * coef[4][t])
+
+
 def _cluster_bwd_sum_order(xp, w, b, h0, ys, dy, plan):
     """K1 cluster backward's arithmetic in its order
-    (csrc/gru_seq_cluster_bwd.cu), in numpy float32: hp = h_prev W_hhᵀ as
-    one float32 product, b_hh added in the kernel; the coefficients from
-    xp, hp and h_prev with the sigmoid 1/2 + tanh(x/2)/2; then the reverse
+    (csrc/gru_seq_cluster_bwd.cu), in numpy float32: the coefficients of
+    _bwd_coefficients; then the reverse
     chain, in which block c of the plan's C (units [cU, cU + U)) sums, for
     every output i, its 3U entries e = gU + j of dhp_t (gate g, unit j;
     zeros past its units) times W_hh[gH + cU + j, i]: each of S lanes a
@@ -407,15 +449,7 @@ def _cluster_bwd_sum_order(xp, w, b, h0, ys, dy, plan):
     H = G // 3
     C, S, KE, U = (plan[k] for k in ("C", "S", "KE", "U"))
     f32 = np.float32
-    h_prev = np.concatenate([h0[None], ys[:T - 1]]).astype(f32)
-    hp = (h_prev.reshape(T * B, H) @ w).reshape(T, B, G).astype(f32)
-    hr, hz, hn = (hp[..., k * H:(k + 1) * H] + b[0, k * H:(k + 1) * H] for k in range(3))
-    r = _sigmoid_fwd(xp[..., :H] + hr)
-    z = _sigmoid_fwd(xp[..., H:2 * H] + hz)
-    n = np.tanh(xp[..., 2 * H:] + r * hn).astype(f32)
-    omz = f32(1) - z
-    e = omz * (f32(1) - n * n)
-    coef = ((e * hn) * (r * (f32(1) - r)), (h_prev - n) * (z * omz), e * r, e, z)
+    coef = _bwd_coefficients(xp, w, b, h0, ys)
     # each block's entries as rows m of W_hh, zeros past 3U and past its units
     ent = np.arange(S * KE)
     g, j = ent // U, ent % U
@@ -431,11 +465,7 @@ def _cluster_bwd_sum_order(xp, w, b, h0, ys, dy, plan):
     dhp = np.empty_like(xp)
     dh = np.zeros((B, H), f32)
     for t in range(T - 1, -1, -1):
-        d = (dh + dy[t]).astype(f32)
-        d_r, d_z, d_n = (d * coef[k][t] for k in range(3))
-        st = d * coef[4][t]
-        dxp[t] = np.concatenate([d_r, d_z, d * coef[3][t]], axis=-1)
-        dhp[t] = np.concatenate([d_r, d_z, d_n], axis=-1)
+        dxp[t], dhp[t], st = _bwd_step(dh, dy[t], coef, t)
         g_sl = (dhp[t][:, m] * mask).transpose(1, 0, 2).reshape(C, B, S, KE)
         g_sl = g_sl.transpose(0, 2, 1, 3).astype(np.float64)     # (C, S, B, KE)
         part = np.zeros((C, S, B, H), f32)
@@ -506,3 +536,173 @@ def test_cluster_bwd_sum_order_matches_pallas_interpret():
                           *(jnp.asarray(a) for a in inputs))
     np.testing.assert_allclose(np.asarray(ys_jax), ys, rtol=0, atol=1e-5)
     _assert_grads_close(got, vjp(jnp.asarray(dy)))
+
+
+@pytest.mark.parametrize("card", sorted(CAPS))
+@pytest.mark.parametrize("B", [1, 4, 37, 64, 600])
+def test_grid_bwd_plan_covers_every_width_past_the_cap(card, B):
+    """For every H from the clusters' cap + 1 to 1024 and nb 1 and 3, the
+    grid backward's plan (wide_bwd_plan's there): its shared bytes fit a
+    block, its blocks each own a unit and together cover H (U·blocks >= H >
+    U·(blocks - 1)), the blocks of a wave's buckets are resident at once, a
+    wave holds as many buckets as are resident, and its waves take all nb
+    buckets; B does not enter. A card without cooperative launches gets no
+    grid plan: grid_bwd_plan and wide_bwd_plan raise there."""
+    numbers, cap = CAPS[card]
+    none = {**numbers, "grid_bwd_blocks_sm": 0}
+    for nb in (1, 3):
+        for H in range(cap + 1, MAX_WIDE_HIDDEN + 1):
+            plan = grid_bwd_plan(nb, B, H, numbers)
+            assert plan == grid_bwd_plan(nb, 1, H, numbers) == wide_bwd_plan(nb, B, H, numbers)
+            U, blocks = plan["U"], plan["blocks"]
+            assert plan["route"] == "grid" and U == GRID_UNITS and plan["threads"] == GRID_THREADS
+            two = 2 * (plan["smem"] + numbers["smem_reserved"]) <= numbers["smem_sm"]
+            assert plan["ahead"] == GRID_BWD_AHEAD[0 if two else 1]
+            assert plan["smem"] == grid_bwd_smem(H) <= numbers["smem"]
+            assert blocks * U >= H > (blocks - 1) * U
+            assert plan["resident"] == grid_resident(numbers, plan["smem"], "grid_bwd_blocks_sm")
+            per_wave = plan["buckets_per_wave"]
+            assert 1 <= per_wave <= nb and blocks * per_wave <= plan["resident"]
+            assert per_wave == min(nb, plan["resident"] // blocks), (nb, H, plan)
+            assert plan["waves"] == -(-nb // per_wave)
+        for H in (cap + 1, 777, MAX_WIDE_HIDDEN):
+            with pytest.raises(RuntimeError, match="grid backward"):
+                grid_bwd_plan(nb, B, H, none)
+            with pytest.raises(RuntimeError, match="grid backward"):
+                wide_bwd_plan(nb, B, H, none)
+
+
+def test_grid_bwd_plan_at_the_headline_shapes():
+    """The grid backward's plans the card's main paths start from: (1, 64,
+    1024) on 128 blocks of 8 units, 196,608 bytes of W_hh's columns and 4,096
+    of the warps' sums (200,704 shared bytes a block), one block an SM, one
+    wave, eight parts in flight a lane; three buckets in three waves; (1, 9,
+    545) on 69 blocks of 114,688 bytes, two an SM, two parts in flight;
+    three buckets at H 545 in one wave and eighteen in six; the automatic
+    route turns from the cluster backward to the grid at H 545."""
+    plan = grid_bwd_plan(1, 64, 1024, H100)
+    assert (plan["U"], plan["blocks"], plan["ahead"], plan["smem"], plan["resident"],
+            plan["waves"]) == (8, 128, 8, 196608 + 4096, 132, 1)
+    plan = grid_bwd_plan(3, 64, 1024, H100)
+    assert (plan["waves"], plan["buckets_per_wave"]) == (3, 1)
+    plan = grid_bwd_plan(1, 9, 545, H100)
+    assert (plan["blocks"], plan["ahead"], plan["smem"], plan["resident"], plan["waves"]) == (
+        69, 2, 110592 + 4096, 264, 1)
+    assert grid_bwd_plan(3, 63, 545, H100)["waves"] == 1
+    assert grid_bwd_plan(18, 63, 545, H100)["waves"] == 6
+    assert wide_bwd_plan(1, 64, 544, H100)["route"] == "cluster"
+    assert wide_bwd_plan(1, 64, 545, H100)["route"] == "grid"
+
+
+def _grid_bwd_product(w):
+    """The grid backward's product a ↦ a w (csrc/gru_seq_grid_bwd.cu) in its
+    order, in numpy float32, for W (K, N) with K a multiple of GRID_PAD
+    (zeros in the padding) and a (B, K): the depth in _tf32_slices' k-slices,
+    both sides split in TF32. The rows go in tiles of 64, each cut into nt =
+    ceil(n / 16) tiles of 16 (1, 2, or 3 and 4 taken as 4); the block's 8
+    warps split evenly over them, ways = 8 / tiles warps a tile, and warp v
+    of a tile takes the 16-deep parts p = v mod ways in order, each as its
+    slices 2p and 2p + 1, with one chain for each product (lo.hi, hi.lo,
+    hi.hi): a slice's 8 products summed in float32 (an mma's partial),
+    added in slice order from zero (np.add.accumulate); a warp's sum is hh
+    + (lh + hl), a tile's warps' sums are added in order."""
+    parts = w.shape[0] // 16
+    w_hi, w_lo = (np.ascontiguousarray(x.transpose(0, 2, 1))    # (slices, 8, N)
+                  for x in _tf32_slices(w.T))
+
+    def product(a):
+        a_hi, a_lo = _tf32_slices(a)
+        passes = (a_lo @ w_hi, a_hi @ w_lo, a_hi @ w_hi)     # (slices, B, N) each
+        acc = np.empty(passes[0].shape[1:], np.float32)
+        for m0 in range(0, a.shape[0], 64):
+            rows = slice(m0, m0 + 64)
+            nt = -(-min(64, a.shape[0] - m0) // 16)
+            ways = 8 // (nt if nt < 3 else 4)
+            tile = None
+            for v in range(ways):
+                idx = [s for p in range(v, parts, ways) for s in (2 * p, 2 * p + 1)]
+                lh, hl, hh = (np.add.accumulate(x[idx, rows], axis=0)[-1] for x in passes)
+                part = hh + (lh + hl)
+                tile = part if tile is None else tile + part
+            acc[rows] = tile
+        return acc
+
+    return product
+
+
+def _grid_bwd_sum_order(xp, w, b, h0, ys, dy):
+    """K1 grid backward's arithmetic in its order (csrc/gru_seq_grid_bwd.cu),
+    in numpy float32: the coefficients of _bwd_coefficients; then the reverse
+    chain, in which dhp_t is laid out gate by gate, each gate padded with
+    zeros to Hp (H rounded up to GRID_PAD), and multiplied by W_hh's rows in
+    the same padded order (zeros in the padding) as _grid_bwd_product, over
+    K = 3 Hp; then dh_{t-1} = d z + that sum. Which block owns a unit, the
+    ring of stages and the 16-row tiles change no sum: a unit's whole sum is
+    made in one block. Returns (dxp, dhp, dh0), dhp as (T, B, 3H)."""
+    T, B, G = xp.shape
+    H = G // 3
+    hp = -(-H // GRID_PAD) * GRID_PAD
+    coef = _bwd_coefficients(xp, w, b, h0, ys)
+    w_pad = np.zeros((3 * hp, H), np.float32)
+    for g in range(3):
+        w_pad[g * hp:g * hp + H] = w[:, g * H:(g + 1) * H].T    # W_hh's rows of gate g
+    product = _grid_bwd_product(w_pad)
+    dxp = np.empty_like(xp)
+    dhp = np.empty_like(xp)
+    dh = np.zeros((B, H), np.float32)
+    for t in range(T - 1, -1, -1):
+        dxp[t], dhp[t], st = _bwd_step(dh, dy[t], coef, t)
+        a = np.zeros((B, 3 * hp), np.float32)
+        for g in range(3):
+            a[:, g * hp:g * hp + H] = dhp[t][:, g * H:(g + 1) * H]
+        dh = (st + product(a)).astype(np.float32)
+    return dxp, dhp, dh
+
+
+# past the cap: a ragged depth (600: each gate padded by 8) and a ragged
+# last block (75 blocks of 8 units), and the largest H (128 blocks), eight
+# warps on one 16-row tile; and 40 rows (three 16-row tiles: two warps a
+# tile)
+@pytest.mark.parametrize("T,B,H", [(768, 2, 600), (768, 2, 1024), (64, 40, 600)])
+def test_grid_bwd_sum_order_matches_reference(T, B, H):
+    """The grid backward's summation order (split-TF32 products over the
+    gate-padded depth, its warps' k-slices and chains) stays within the card
+    tests' 1e-4 of the plain backward over 768 reverse steps, W at its init
+    scale (~1/sqrt(H)): dxp and dh0, and dW and db (relative to their scale)
+    through weight_grads."""
+    inputs, ys, dy = _bwd_inputs(T, B, H)
+    assert wide_bwd_plan(1, B, H, H100)["route"] == "grid"
+    got = _grads_of(inputs, ys, *_grid_bwd_sum_order(*inputs, ys, dy))
+    ref = gru_sequence_bwd_reference(*(torch.from_numpy(a) for a in (*inputs, ys, dy)))
+    _assert_grads_close(got, [t.numpy() for t in ref])
+
+
+def test_grid_bwd_sum_order_matches_pallas_interpret():
+    """The same order against the custom VJP of the Pallas kernel in
+    interpret mode at H 160, a grid plan forced below the cap (20 blocks of
+    8 units; 160 is a multiple of 32: no padding)."""
+    T, B, H = 16, 3, 160
+    inputs, ys, dy = _bwd_inputs(T, B, H)
+    assert grid_bwd_plan(1, B, H, H100)["blocks"] == 20
+    got = _grads_of(inputs, ys, *_grid_bwd_sum_order(*inputs, ys, dy))
+    ys_jax, vjp = jax.vjp(lambda *a: jax_gru_sequence(*a, True),
+                          *(jnp.asarray(a) for a in inputs))
+    np.testing.assert_allclose(np.asarray(ys_jax), ys, rtol=0, atol=1e-5)
+    _assert_grads_close(got, vjp(jnp.asarray(dy)))
+
+
+@pytest.mark.parametrize("half", ["forward", "backward"])
+def test_wide_route_refuses_an_unknown_plan(half):
+    """A plan whose route is none of the cluster, grid and streaming
+    kernels raises before anything is launched, on whatever device the
+    tensors lie: no route is taken in its place."""
+    nb, T, B, H = 1, 3, 2, 160
+    xp, w, b, h0 = (torch.zeros(shape) for shape in ((nb, T, B, 3 * H), (nb, H, 3 * H),
+                                                     (nb, 1, 3 * H), (nb, B, H)))
+    with pytest.raises(ValueError, match="no route 'tiles'"):
+        if half == "forward":
+            gru_sequence_wide(xp, w, b, h0, plan={"route": "tiles"})
+        else:
+            h_prev = torch.zeros(nb, T * B, H)
+            gru_sequence_bwd_wide(xp, xp.reshape(nb, T * B, 3 * H), h_prev,
+                                  torch.zeros(nb, T, B, H), w, b, xp, plan={"route": "tiles"})
