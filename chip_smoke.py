@@ -51,8 +51,10 @@ failure is swallowed):
              timed in turns with K2's route at z28/h56 and z40/h80; the IIR
              filter kernel (no Pallas kernel: the JAX package's lax.scan) at
              orders 2 and 8, float64 and float32, over a 60 s trial against
-             its plain version and over an hour against scipy's lfilter, with
-             its step-chain floor; K1's wide route (H past 128, forward and
+             its plain version and over an hour against scipy's lfilter, bit
+             for bit (the count of unequal elements is 0), with its plan's
+             route and its step-chain floor measured by the chain probe (and
+             with a shuffle round trip a step); K1's wide route (H past 128, forward and
              backward, each on a thread-block cluster up to its cap and on
              one cooperative grid past it) against its plain versions at H
              129, 256 and 512 (nb 2, odd B and T) and at the cluster routes'
@@ -283,7 +285,9 @@ from eegsynth_torch.nn.multigru import (
     k2_tile, multigru_disc_inputs, multigru_disc_inputs_reference,
 )
 from eegsynth_torch.nn.precision import cast_floating
-from eegsynth_torch.ops.filtering import lfilter, lfilter_reference, lfilter_zi
+from eegsynth_torch.ops.filtering import (
+    iir_chain_probe, iir_plan, lfilter, lfilter_reference, lfilter_zi,
+)
 from eegsynth_torch.pipeline import main as pipeline_cli
 from eegsynth_torch.preprocess import main as preprocess_cli
 from eegsynth_torch.preprocessing_plots import main as preprocessing_plots_cli
@@ -531,10 +535,17 @@ IIR_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # One H100 SXM (NVIDIA's data sheet, 700 W): FP64 and FP32 FLOP/s outside the
 # tensor cores, the IIR kernel's units
 PEAK_FLOPS_F64, PEAK_FLOPS_F32 = 34e12, 67e12
-# The step-chain floor: z0 -> y (add) -> a1 * y (mul) -> z0' (sub) a step, at
-# an assumed dependent-issue latency in cycles (not measured)
+# The step-chain floor: z0 -> y (add) -> a1 * y (mul) -> z0' (sub) a step,
+# measured by the chain probe (iir_chain_probe); the floor it replaces took an
+# assumed dependent-issue latency in cycles, printed beside it
 IIR_CHAIN_OPS = 3
 IIR_LATENCY = {torch.float64: 8, torch.float32: 4}
+# The IIR kernel's time is one call, as every kernel's on the kernels line;
+# beside it its device time, IIR_BATCH calls back to back between two events,
+# so that the host's part of a call (~0.1 ms of wrapper around a 0.3 ms
+# kernel) overlaps the card's work. The chain probe, a floor of device time,
+# is timed so too, and held to the kernel's device time
+IIR_BATCH = 8
 # [preprocess]: a raw tree like the reference's 6s_window/ (participants and
 # seconds a trial: 3 and 30, where they were 4 and 60, to pay for the figures
 # inside the script's time, since the CPU run's plain recurrence scales with
@@ -3843,8 +3854,12 @@ def _check_iir(smi: str) -> dict:
     on the host (the same operations in the same order, equal to the plain
     version bit for bit: tests/test_torch_filtering.py) at one hour's, where
     the plain version would take millions of launches; orders 2 and 8, float64
-    and float32. Each with its time, the byte and operation bounds and the
-    step-chain floor. The kernels line takes (7734, 14), order 8, float64."""
+    and float32. Each with the plan's route, its count of elements unequal to
+    each reference (the kernel rounds as they do: any is a fault), its time
+    (one call, and its device time in a run of calls), the byte and operation
+    bounds, and the step-chain floor measured by the chain probe (alone and
+    with a shuffle round trip a step) beside the assumed one it replaces. The
+    kernels line takes (7734, 14), order 8, float64, one call."""
     import scipy.signal
 
     clock = _sm_clock_mhz()
@@ -3860,43 +3875,70 @@ def _check_iir(smi: str) -> dict:
                                               x.cpu().numpy(), axis=0,
                                               zi=zi.cpu().numpy())
                 scipy_ms = (time.perf_counter() - t0) * 1e3
-                ref = torch.from_numpy(ref).cuda()
+                refs = {"scipy": torch.from_numpy(ref).cuda()}
                 plain_ms = None
                 if T == IIR_SHAPES[0][0]:
                     bt, at = (torch.as_tensor(c).to(dtype) for c in (b, a))
-                    ref = lfilter_reference(bt, at, x, zi)
+                    refs = {"plain": lfilter_reference(bt, at, x, zi), **refs}
                     plain_ms = _time_ms(lambda: lfilter_reference(bt, at, x, zi), reps=1,
                                         warm=False)
                 torch.cuda.synchronize()
+                unequal = {k: int((got != r).sum().item()) for k, r in refs.items()}
+                ref = next(iter(refs.values()))
                 err = (got - ref).abs().max().item()
                 rel = err / ref.abs().max().item()
-                ms = _time_ms(lambda: lfilter(b, a, x, zi=zi), reps=20 if T < 10 ** 5 else 5)
+                reps = 20 if T < 10 ** 5 else 5
+                ms = _time_ms(lambda: lfilter(b, a, x, zi=zi), reps=reps)
+                run_ms = _time_ms(lambda: [lfilter(b, a, x, zi=zi) for _ in range(IIR_BATCH)],
+                                  reps=reps) / IIR_BATCH
                 flops = T * M * (4 * order + 2)
                 peak = PEAK_FLOPS_F64 if dtype == torch.float64 else PEAK_FLOPS_F32
                 ops_ms = flops / peak * 1e3
                 bytes_ms = sum(t.numel() * t.element_size() for t in (x, zi, got)) \
                     / PEAK_BYTES * 1e3
                 bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-                chain_ms = T * IIR_CHAIN_OPS * IIR_LATENCY[dtype] / (clock * 1e6) * 1e3
+                chain_ms, shfl_ms = (
+                    _time_ms(lambda: [iir_chain_probe(T, dtype, shuffle)
+                                      for _ in range(IIR_BATCH)], reps=reps) / IIR_BATCH
+                    for shuffle in (False, True))
+                probe_finite = bool(torch.isfinite(iir_chain_probe(T, dtype)).all())
+                cycles = [t * 1e-3 * clock * 1e6 / T for t in (chain_ms, shfl_ms)]
+                assumed_ms = T * IIR_CHAIN_OPS * IIR_LATENCY[dtype] / (clock * 1e6) * 1e3
+                plan = iir_plan(M, order + 1, dtype)
                 tag = f"iir_filter T={T} M={M} order {order} {str(dtype)[6:]}"
                 against = "plain (on the card)" if plain_ms is not None else \
                     "scipy.signal.lfilter (host)"
                 plain = f"plain {plain_ms:.4f} ms, " if plain_ms is not None else \
                     "plain not timed (T x 3 launches), "
-                print(f"[kernel] {tag}: max|diff| / max|{against}| = {rel:.3e} (tol "
-                      f"{IIR_RTOL[dtype]:g}) kernel {ms:.4f} ms, {plain}scipy.signal."
-                      f"lfilter on the host {scipy_ms:.4f} ms | {smi}", flush=True)
-                if not bool(torch.isfinite(got).all()) or rel > IIR_RTOL[dtype]:
-                    fail(f"iir_filter disagrees with {against} at {tag}: "
+                print(f"[kernel] {tag}: route {plan['route']} ({plan['lanes']} lanes a "
+                      f"column, {plan['blocks']} blocks); unequal elements "
+                      f"{', '.join(f'{n} against {k}' for k, n in unequal.items())}; "
+                      f"max|diff| / max|{against}| = {rel:.3e} (tol "
+                      f"{IIR_RTOL[dtype]:g}) kernel {ms:.4f} ms one call, device time "
+                      f"{run_ms:.4f} ms a call in a run of {IIR_BATCH} back to back "
+                      f"({run_ms * 1e-3 * clock * 1e6 / T:.1f} cycles a step), {plain}"
+                      f"scipy.signal.lfilter on the host {scipy_ms:.4f} ms | {smi}",
+                      flush=True)
+                if not bool(torch.isfinite(got).all()) or rel > IIR_RTOL[dtype] \
+                        or any(unequal.values()):
+                    fail(f"iir_filter disagrees at {tag}: unequal elements {unequal}, "
                          f"relative max|diff| {rel}")
+                if not probe_finite:
+                    fail(f"iir_filter_chain's result is not finite at {tag}")
                 worst = max(worst, err)
                 row = _row(ms, plain_ms, bound)
                 _roofline(tag, row, smi)
-                print(f"[bound] {tag}: step-chain floor {chain_ms:.4f} ms ({T} steps x "
-                      f"{IIR_CHAIN_OPS} dependent operations x {IIR_LATENCY[dtype]} "
-                      f"cycles assumed, at the {clock:.0f} MHz maximum SM clock): kernel "
-                      f"at {100 * chain_ms / ms:.1f} % of it; bytes {bytes_ms:.5f} ms, "
-                      f"operations {ops_ms:.5f} ms | {smi}", flush=True)
+                print(f"[bound] {tag}: step-chain floor measured {chain_ms:.4f} ms "
+                      f"({cycles[0]:.1f} cycles a step, the chain probe in a run of "
+                      f"{IIR_BATCH}: {T} steps of "
+                      f"{IIR_CHAIN_OPS} dependent operations, at the {clock:.0f} MHz "
+                      f"maximum SM clock), with a __shfl_sync round trip a step "
+                      f"{shfl_ms:.4f} ms ({cycles[1]:.1f}; the shuffle "
+                      f"{cycles[1] - cycles[0]:.1f} cycles); it replaces the assumed "
+                      f"{assumed_ms:.4f} ms ({IIR_CHAIN_OPS} operations x "
+                      f"{IIR_LATENCY[dtype]} cycles); the kernel's device time at "
+                      f"{100 * chain_ms / run_ms:.1f} % of the measured floor; bytes "
+                      f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms | {smi}", flush=True)
                 if head is None:
                     head = row
     return {"max_abs_err": worst, **head}

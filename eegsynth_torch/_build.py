@@ -119,7 +119,9 @@ def load_library() -> ctypes.CDLL:
                                      ("flash_bwd_dq", 7, 3), ("flash_bwd_dkv", 9, 3),
                                      ("flash_fwd_wide", 5, 3), ("flash_bwd_dq_wide", 7, 3),
                                      ("flash_bwd_dkv_wide", 8, 3),
-                                     ("iir_filter_f64", 5, 3), ("iir_filter_f32", 5, 3)):
+                                     ("iir_filter_f64", 5, 4), ("iir_filter_f32", 5, 4),
+                                     ("iir_filter_chain_f64", 3, 3),
+                                     ("iir_filter_chain_f32", 3, 3)):
                 f = getattr(lib, fn)
                 f.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
                 f.restype = i32

@@ -15,7 +15,9 @@ it launches the kernel or raises.
 The kernel and the plain version round alike: each step is ``y = b0·x + z0``,
 then ``z_i ← (b_{i+1}·x + z_{i+1}) − a_{i+1}·y``, every product and sum
 rounded on its own (no fused multiply-add), in the input's dtype (float32 or
-float64).
+float64). In float64 the kernel spreads a column's state over a group of
+lanes (lane 0 forms y and the first :data:`IIR_LOCAL` elements, lane g ≥ 1
+one element each); in float32 one thread holds it; :func:`iir_plan` picks.
 """
 
 from __future__ import annotations
@@ -27,6 +29,48 @@ from eegsynth_torch import _build
 
 MAX_TAPS = 9
 """Longest b or a the kernel takes: order 8, a 4th-order Butterworth band-pass."""
+
+IIR_THREADS = 128
+"""Threads a block of the IIR kernel (``iir_filter.cu`` ``kThreads``): one
+warp on each of an SM's four schedulers."""
+
+IIR_CHUNK = 16
+"""Rows of x a lane holds in registers, loaded a chunk ahead, and of y lane 0
+of a group stores after each chunk (``kChunk``)."""
+
+IIR_LOCAL = 2
+"""State elements lane 0 of a lane group holds and forms itself, with its own
+y (``kLocal``): the loop through the first element held by another lane then
+spans IIR_LOCAL + 1 steps and two shuffles."""
+
+
+def iir_lanes(n: int, local: int = IIR_LOCAL) -> int:
+    """Lanes a column on the lanes route for ``n`` taps (``iir_filter.cu``
+    ``lanes_for``): the fewest, a power of two, whose lanes 1.. hold the
+    ``n − 1 − local`` state elements lane 0 does not (1: lane 0 holds them
+    all, the column route's kernel)."""
+    order = n - 1
+    need = order - min(local, order) + 1
+    return 1 << (need - 1).bit_length()
+
+
+def iir_plan(M: int, n: int, dtype: torch.dtype) -> dict:
+    """The IIR kernel's launch for ``M`` columns of ``n`` taps in ``dtype``:
+    the route (``"lanes"``: float64, :func:`iir_lanes` lanes a column, lane 0
+    holding ``local`` state elements; ``"column"``: one thread a column
+    holding them all, in float32, whose four-cycle operations leave the
+    shuffles' latency on the lanes' step, or where one lane holds the whole
+    state), ``lanes``, ``columns_per_block`` (IIR_THREADS / lanes), ``blocks``
+    and the ``chunk`` of rows. Column c goes to block c // columns_per_block,
+    lanes (c % columns_per_block)·lanes onwards. Raises past
+    :data:`MAX_TAPS`."""
+    if not 1 <= n <= MAX_TAPS:
+        raise ValueError(f"lfilter: {n} taps, not 1 to {MAX_TAPS}")
+    lanes = iir_lanes(n) if dtype == torch.float64 else 1
+    per_block = IIR_THREADS // lanes
+    return {"route": "lanes" if lanes > 1 else "column", "lanes": lanes,
+            "local": IIR_LOCAL if lanes > 1 else n - 1, "columns_per_block": per_block,
+            "threads": IIR_THREADS, "blocks": -(-M // per_block), "chunk": IIR_CHUNK}
 
 
 def lfilter_zi(b, a) -> np.ndarray:
@@ -99,16 +143,46 @@ def _launch(b: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
     if T and M:
         lib = _build.load_library()
         fn = "iir_filter_f64" if x.dtype == torch.float64 else "iir_filter_f32"
+        plan = iir_plan(M, b.shape[0], x.dtype)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             # b and a stay on the host: the C entry point copies them into
             # the kernel's parameters
             code = getattr(lib, fn)(x.data_ptr(), zi.data_ptr(), b.data_ptr(),
                                     a.data_ptr(), y.data_ptr(), T, M, b.shape[0],
-                                    stream)
+                                    plan["lanes"], stream)
         _build.check(lib, fn, code)
         lfilter.launches += 1
     return y
+
+
+CHAIN_TAPS = ((0.5, 0.25, 1.0), (1.0, -0.5, 0.125))
+"""The step-chain probe's b and a: b0, b1, a1 of a stable step, and its
+fixed x (b[2]) and z1 (a[2]): from every lane's own start the chain
+converges to the same finite y, 1.75."""
+
+
+def iir_chain_probe(T: int, dtype: torch.dtype, shuffle: bool = False,
+                    device: torch.device | str = "cuda") -> torch.Tensor:
+    """Launch the IIR kernel's step-chain probe (``iir_filter_chain_f64`` /
+    ``_f32``) on one warp: ``T`` steps of lane 0's chain (y = b0·x + z0,
+    a1·y, z0' = (b1·x + z1) − a1·y, each rounded on its own) with no loads
+    and one store, and with ``shuffle`` a ``__shfl_sync`` round trip of y a
+    step. Returns the warp's last y (32,), finite. Timed as the kernel's
+    step-chain floor; counted by no launch counter."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"iir_chain_probe: no kernel for device {device}")
+    b, a = (torch.tensor(c, dtype=dtype) for c in CHAIN_TAPS)
+    out = torch.empty(32, dtype=dtype, device=device)
+    lib = _build.load_library()
+    fn = "iir_filter_chain_f64" if dtype == torch.float64 else "iir_filter_chain_f32"
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, fn)(b.data_ptr(), a.data_ptr(), out.data_ptr(), T, 32,
+                                int(shuffle), stream)
+    _build.check(lib, fn, code)
+    return out
 
 
 def lfilter(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,

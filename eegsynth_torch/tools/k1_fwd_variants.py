@@ -100,14 +100,20 @@ def _compile(name: str, src: str, out: Path) -> tuple[str, str]:
     return name, proc.stdout + proc.stderr
 
 
-def _report(name: str, log: str) -> None:
-    inst = None
+def _fwd_label(m: re.Match) -> str:
+    return f"KL {m.group(1)}, S {m.group(2)}" + (f", H <= {m.group(3)}" if m.group(3) else "")
+
+
+def _report(name: str, log: str, kernel: str = r"gru_seq_fwd_kernelILi(\d+)ELi(\d+)E(?:Li(\d+)E)?",
+            label=_fwd_label) -> None:
+    """Print ptxas's registers and spills of each instance of ``kernel`` (a
+    pattern of its mangled name) in ``log``, named ``label(match)``; an
+    instance whose label is None is left out."""
+    inst = spill = None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*gru_seq_fwd_kernel"
-                      r"ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?", line)
+        m = re.search(rf"Function properties for \S*{kernel}", line)
         if m:
-            inst = f"KL {m.group(1)}, S {m.group(2)}" + (
-                f", H <= {m.group(3)}" if m.group(3) else "")
+            inst = label(m)
         elif inst and "spill" in line:
             spill = line.strip()
         elif inst and "Used" in line:

@@ -36,7 +36,7 @@ import torch
 from eegsynth_torch.nn.gru_sequence import (
     cluster_card, grid_bwd_plan, grid_plan, gru_sequence_bwd_reference, gru_sequence_reference,
 )
-from eegsynth_torch.tools.k1_fwd_variants import CSRC, _compile, _time_ms
+from eegsynth_torch.tools.k1_fwd_variants import CSRC, _compile, _report, _time_ms
 
 REPS = 10
 # (nb, T, B, H): past the cap at chip_smoke.py's cap + 1 shape, the
@@ -107,19 +107,9 @@ HALVES = {
 }
 
 
-def _report(name: str, log: str, kernel: str) -> None:
-    inst = spill = None
-    for line in log.splitlines():
-        m = re.search(rf"Function properties for \S*{kernel}ILb(\d)E(?:Li(\d+)E)?", line)
-        if m:
-            inst = ("probe" if m.group(1) == "1" else "kernel") + (
-                f", {m.group(2)} parts ahead" if m.group(2) else "")
-        elif inst and "spill" in line:
-            spill = line.strip()
-        elif inst and "Used" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            print(f"[ptxas] {name}: {inst}: {regs} registers; {spill}", flush=True)
-            inst = None
+def _grid_label(m: re.Match) -> str:
+    return ("probe" if m.group(1) == "1" else "kernel") + (
+        f", {m.group(2)} parts ahead" if m.group(2) else "")
 
 
 def _load(path: Path, fns: tuple, workspace: str, n_ptr: int) -> ctypes.CDLL:
@@ -191,7 +181,7 @@ def _run(jobs: dict, work: Path, smi: str, backward: bool) -> None:
                    for i, (name, (src, _)) in enumerate(jobs.items())]
         for i, fut in enumerate(futures):
             name, log = fut.result()
-            _report(name, log, kernel)
+            _report(name, log, rf"{kernel}ILb(\d)E(?:Li(\d+)E)?", _grid_label)
             libs[name] = _load(work / f"lib{i}.so", fns, workspace, n_ptr)
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator().manual_seed(0)

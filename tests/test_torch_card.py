@@ -1394,8 +1394,8 @@ def _iir_case(T, M, order, dtype, seed):
 def test_iir_kernel_matches_plain(cuda_device, order, dtype, T, M):
     """The IIR kernel against its plain version (run on the CPU on the same
     inputs: the same operations in the same order, each rounded on its
-    own): within 1e-12 (float64) or 1e-5 (float32) of the largest output,
-    one launch a call."""
+    own): equal bit for bit (so within 1e-12 (float64) or 1e-5 (float32) of
+    the largest output), one launch a call."""
     from eegsynth_torch.ops.filtering import _taps, lfilter, lfilter_reference
     b, a, x, zi = _iir_case(T, M, order, dtype, seed=T + M + order)
     before = lfilter.launches
@@ -1406,6 +1406,63 @@ def test_iir_kernel_matches_plain(cuda_device, order, dtype, T, M):
     assert got.dtype == dtype and got.shape == (T, M)
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     assert (got.cpu() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("M", [14, 4099])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", range(1, 10))
+def test_iir_kernel_routes_equal_plain(cuda_device, n, dtype, M):
+    """Every tap count 1 to 9 on each route the plan keeps, at 14 columns
+    and at a wide batch: float64 takes the lane groups (one thread a column
+    where lane 0 holds the whole state), float32 one thread a column; stable
+    Butterworth low-passes, a ragged last chunk: equal to the plain version
+    bit for bit."""
+    import scipy.signal
+    from eegsynth_torch.ops.filtering import (
+        _taps, iir_lanes, iir_plan, lfilter, lfilter_reference,
+    )
+    lanes = dtype == torch.float64 and iir_lanes(n) > 1
+    assert iir_plan(M, n, dtype)["route"] == ("lanes" if lanes else "column")
+    b, a = scipy.signal.butter(n - 1, 0.3) if n > 1 else (np.array([0.7]), np.array([1.0]))
+    T = 1000 + 7
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((T, M)).cumsum(axis=0)).to(dtype)
+    zi = torch.from_numpy(np.random.default_rng(n + 1).standard_normal((n - 1, M))).to(dtype)
+    got = lfilter(b, a, x.to(cuda_device), zi=zi.to(cuda_device))
+    ref = lfilter_reference(*_taps(b, a, dtype), x, zi)
+    assert torch.isfinite(ref).all()
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_iir_float32_refuses_the_lanes_route(cuda_device):
+    """The float32 entry point builds no lane groups: it refuses the lanes
+    the float64 plan takes, and launches nothing."""
+    from eegsynth_torch import _build
+    from eegsynth_torch.ops.filtering import iir_lanes
+    lib = _build.load_library()
+    x = torch.zeros(16, 14, device=cuda_device)
+    zi, y = torch.zeros(8, 14, device=cuda_device), torch.empty_like(x)
+    b, a = torch.ones(9), torch.ones(9)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert lib.iir_filter_f32(x.data_ptr(), zi.data_ptr(), b.data_ptr(), a.data_ptr(),
+                              y.data_ptr(), 16, 14, 9, iir_lanes(9), stream) != 0
+    assert lib.iir_filter_f32(x.data_ptr(), zi.data_ptr(), b.data_ptr(), a.data_ptr(),
+                              y.data_ptr(), 16, 14, 9, 1, stream) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iir_chain_probe_launches(cuda_device, dtype):
+    """The step-chain probe, alone and with a shuffle round trip a step,
+    launches, returns the chain's finite y in every lane (the same in both),
+    and counts no IIR launch."""
+    from eegsynth_torch.ops.filtering import iir_chain_probe, lfilter
+    before = lfilter.launches
+    outs = [iir_chain_probe(7734, dtype, shuffle) for shuffle in (False, True)]
+    torch.cuda.synchronize()
+    assert lfilter.launches == before
+    for out in outs:
+        assert out.shape == (32,) and out.dtype == dtype and torch.isfinite(out).all()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[0][:1].expand(32))
 
 
 def test_filtfilt_on_the_card_matches_cpu(cuda_device):
