@@ -54,17 +54,25 @@ failure is swallowed):
              its plain version and over an hour against scipy's lfilter, bit
              for bit (the count of unequal elements is 0), with its plan's
              route and its step-chain floor measured by the chain probe (and
-             with a shuffle round trip a step); K1's wide route (H past 128, forward and
-             backward, each on a thread-block cluster up to its cap and on
-             one cooperative grid past it) against its plain versions at H
+             with a shuffle round trip a step); then at 10, 17 and 41 taps
+             (the lanes route to 17 taps in float64, the column route to 17
+             in float32, the runtime route past them) in both dtypes, and at
+             17 taps in bfloat16 and float16 (the runtime route), bit for
+             bit against its plain version; K1's wide route (H past 128, forward and
+             backward, each on a thread-block cluster up to its cap, on
+             one cooperative grid past it to H 1024, on the streaming
+             kernels past that) against its plain versions at H
              129, 256 and 512 (nb 2, odd B and T) and at the cluster routes'
              cap and past it, each line with each half's route, cluster C,
              rows R and waves or grid blocks and waves and the step-chain
              floors, and against cuDNN's GRU forward and backward at (1,
-             768, 64, 256), 512 and 1024, each cluster and grid kernel in
-             turns with the streaming one it replaced and beside every
+             768, 64, 256), 512 and 1024, each cluster and grid kernel
+             beside one call of the streaming one and beside every
              cluster plan that fits; the grid forward and backward in waves
-             of buckets against the streaming kernels at nb 3 and 18;
+             of buckets against the streaming kernels at nb 3 and 18; the
+             streaming forward and backward past H 1024 (H 1025, 1536, 2048
+             and the wide route's cap) against their plain versions, and at
+             (1, 768, 64, 1536) and 2048 against cuDNN's GRU in turns;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -121,12 +129,13 @@ failure is swallowed):
              bucket) and --parallel_buckets (two), one traced GAN step
              each: the Chrome trace parses, and the hand kernels it holds
              (events, device time) against the launches;
-5g. timegan-wide — TimeGANs at x14/z64/h256 and x14/z64/h1024 through
-             train/timegan.py's step functions: one AE and one SUP step, its
-             GAN steps at B 16, T 768, synthesize(); the wide K1 forward and
-             backward launched (at h256 on their cluster kernels, at h1024
-             on their grid kernels), never the streaming kernels, no K2; one
-             GAN step at B 4, T 96 against the CPU;
+5g. timegan-wide — TimeGANs at x14/z64/h256, x14/z64/h1024 and
+             x14/z64/h1536 through train/timegan.py's step functions: one AE
+             and one SUP step, its GAN steps at B 16, T 768, synthesize();
+             the wide K1 forward and backward launched (at h256 on their
+             cluster kernels, at h1024 on their grid kernels, at h1536 on the
+             streaming kernels, each route alone), no K2; one GAN step at B
+             4, T 96 against the CPU;
 5h. convert — ``python -m eegsynth_torch.convert_torch_ckpt``: a
              reference-shaped TimeGAN checkpoint and conv generator made in
              torch, converted and served over HTTP (the TimeGAN equal to the
@@ -274,11 +283,12 @@ from eegsynth_torch.nn.attention import (
     flash_forward, flash_forward_plain, mha, set_attention_impl,
 )
 from eegsynth_torch.nn.gru_sequence import (
-    MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_chain_probe, cluster_bwd_fits, cluster_bwd_plan,
+    GRID_MAX_HIDDEN, MAX_HIDDEN, cluster_bwd_chain_probe, cluster_bwd_fits, cluster_bwd_plan,
     cluster_card, cluster_chain_probe, cluster_fits, cluster_plan, forward_tile,
     grid_bwd_chain_probe, grid_chain_probe, gru_sequence, gru_sequence_bwd,
     gru_sequence_bwd_recurrence, gru_sequence_bwd_reference, gru_sequence_bwd_wide,
-    gru_sequence_reference, gru_sequence_wide, wide_bwd_plan, wide_plan, wide_tile,
+    gru_sequence_reference, gru_sequence_wide, stream_plan, wide_bwd_plan, wide_cap, wide_plan,
+    wide_tile,
 )
 from eegsynth_torch.nn.layers import xavier_uniform
 from eegsynth_torch.nn.multigru import (
@@ -286,7 +296,7 @@ from eegsynth_torch.nn.multigru import (
 )
 from eegsynth_torch.nn.precision import cast_floating
 from eegsynth_torch.ops.filtering import (
-    iir_chain_probe, iir_plan, lfilter, lfilter_reference, lfilter_zi,
+    _taps, iir_chain_probe, iir_plan, lfilter, lfilter_reference, lfilter_zi,
 )
 from eegsynth_torch.pipeline import main as pipeline_cli
 from eegsynth_torch.preprocess import main as preprocess_cli
@@ -361,20 +371,30 @@ BWD_CUDNN_SHAPE = (1, 768, 63, 56)
 # (the headline: the TimeGAN of [timegan-wide]), 512 and 1024 (the grid
 # kernels' headline: the widest H of bench_kernels' sweep here and of
 # [timegan-wide]), against cuDNN's GRU forward and backward in turns, each
-# cluster and grid kernel also against the streaming one
+# cluster and grid kernel also against one call of the streaming one
 WIDE_K1_SHAPES = ((2, 301, 37, 129), (2, 303, 33, 256), (2, 151, 37, 512))
 WIDE_K1_CAP_SHAPES = ((2, 151, 37), (1, 101, 9))   # (nb, T, B) at the cap and past it
 WIDE_K1_CUDNN_SHAPES = ((1, 768, 64, 256), (1, 768, 64, 512), (1, 768, 64, 1024))
 # the grid kernels in waves (a bucket's blocks fill more than half the SMs
-# past the cap: one bucket a wave) against the streaming kernels, which run
-# every bucket at once, in turns: three buckets at a ragged H and eighteen
-# (the parallel trainer's buckets at the D step's batch) at the cap + 1
+# past the cap: one bucket a wave) against one call of the streaming
+# kernels, which run every bucket at once: three buckets at a ragged H and
+# eighteen (the parallel trainer's buckets at the D step's batch) at the
+# cap + 1
 WIDE_K1_WAVE_SHAPES = ((3, 768, 64, 600), (18, 768, 63, 545))
 # the wide backward's plan sweep beside those two: [timegan-wide]'s
 # generator batch (B 16), its CPU check's (B 4, T 96), H 129, 200 and 384
 # at one bucket of B 64, and the cluster cap at nb 2
 WIDE_K1_BWD_SWEEP_SHAPES = ((1, 768, 16, 256), (1, 96, 4, 256), (1, 768, 64, 129),
                             (1, 768, 64, 200), (1, 768, 64, 384), (2, 151, 37, 544))
+# Past the grids (H 1024), the streaming kernels (gru_seq_wide.cu) on their
+# planned route: H 1025 at nb 2 (two columns a thread), [timegan-wide]'s
+# h1536 and 2048 at one bucket of the sequential trainer's B 64 and T 768
+# (timed in turns against cuDNN's GRU forward and backward: the kernels
+# line's rows are H 1536's), and the wide route's cap (None: wide_cap of
+# the card) at a short T and B (ten columns a thread, one row a block: W_hh
+# is 1.1 GB)
+STREAM_K1_SHAPES = ((2, 151, 37, 1025), (1, 768, 64, 1536), (1, 768, 64, 2048), (1, 8, 2, None))
+STREAM_K1_HEADLINE = (1, 768, 64, 1536)
 # K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims (the headline), and
 # adaptive_dims' T > 800 dims z36/h72, 20 channels' z40/h80, the widest
 # width z64/h128, a ragged narrow shape at z16/h32, and the sequential
@@ -536,10 +556,15 @@ IIR_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # tensor cores, the IIR kernel's units
 PEAK_FLOPS_F64, PEAK_FLOPS_F32 = 34e12, 67e12
 # The step-chain floor: z0 -> y (add) -> a1 * y (mul) -> z0' (sub) a step,
-# measured by the chain probe (iir_chain_probe); the floor it replaces took an
-# assumed dependent-issue latency in cycles, printed beside it
-IIR_CHAIN_OPS = 3
-IIR_LATENCY = {torch.float64: 8, torch.float32: 4}
+# measured by the chain probe (iir_chain_probe)
+# Past preprocessing's 9 taps, at one trial's (7734, 14): 10 and 17 taps
+# (the float64 lanes route and the float32 column route, 17 the widest of
+# both) and 41 (the runtime route in both), float64 and float32, each
+# filter's up to 8 poles within 0.5; and 17 taps in bfloat16 and float16 (the
+# runtime route, theirs at every n); each bit for bit against the plain
+# version on the card
+IIR_WIDE_TAPS = (10, 17, 41)
+IIR_HALF_TAPS = 17
 # The IIR kernel's time is one call, as every kernel's on the kernels line;
 # beside it its device time, IIR_BATCH calls back to back between two events,
 # so that the host's part of a call (~0.1 ms of wrapper around a 0.3 ms
@@ -566,16 +591,19 @@ FIG_WINDOWS, FIG_TSNE_MAX = 200, 6000
 FIG_PCA_ROWS, FIG_PCA_RTOL = 1000, 1e-6
 FIG_TSNE_ROWS, FIG_TSNE_KL_RTOL, FIG_TSNE_TW_TOL = 600, 0.05, 0.02
 
-# [timegan-wide]: TimeGANs at x14/z64/h256 and x14/z64/h1024 (TimeGANConfigs
-# the JAX package builds; their generator and supervisor recurrences run K1's
-# wide route: at h256 both halves on clusters, at h1024 both on their grids;
-# the embedder's and
+# [timegan-wide]: TimeGANs at x14/z64/h256, x14/z64/h1024 and x14/z64/h1536
+# (TimeGANConfigs the JAX package builds; their generator and supervisor
+# recurrences run K1's wide route: at h256 both halves on clusters, at
+# h1024 both on their grids, at h1536 both on the streaming kernels; the
+# embedder's and
 # recovery's at H 64 the register kernels), each on one random bucket: one
 # AE and one SUP step, its GAN steps (TG_WIDE_CONFIGS) at B TG_WIDE_BATCH,
-# T 768, then synthesis of 64 windows; one GAN step at B 4, T TG_WIDE_CHECK_T
-# on the card against the CPU (the step tolerances)
-TG_WIDE_CONFIGS = ((14, 64, 256, 2), (14, 64, 1024, 1))   # (x, z, h, GAN steps)
-TG_WIDE_WINDOWS, TG_WIDE_BATCH, TG_WIDE_CHECK_T = 32, 16, 96
+# T 768, then synthesis of 64 windows; one GAN step at B 4 and a short T on
+# the card against the CPU (the step tolerances)
+# (x, z, h, GAN steps, the CPU check's T: shorter at h1536, where the CPU's
+# plain step costs most)
+TG_WIDE_CONFIGS = ((14, 64, 256, 2, 96), (14, 64, 1024, 1, 96), (14, 64, 1536, 1, 48))
+TG_WIDE_WINDOWS, TG_WIDE_BATCH = 32, 16
 # [convert]: a reference-shaped TimeGAN checkpoint (x14/z28/h56) and conv
 # generator (9 classes, the legacy key names) made in torch, converted,
 # served; the served conv generator against a functional torch version of
@@ -596,15 +624,7 @@ BENCH_SYNTH_RUNS = (["--parity", "--batch", "256", "--T", "8192", "--time_chunk"
                     ["--batch", "2048", "--iters", "5"])
 BENCH_SERVE_SECONDS = 5.0
 BENCH_KERNEL_HS = [56, 128, 256, 512, 1024]
-BENCH_KERNEL_ARGS = ["--iters", "3", "--hs", ",".join(map(str, BENCH_KERNEL_HS))]
-# kernels of the kernels line that no main path takes any more (launches 0;
-# each timed in turns in the phase named), and why
-OFF_PATH = {"gru_sequence_wide": "the streaming forward runs only on plan={'route': "
-                                 "'stream'}; the grid forward took its place past the "
-                                 "cluster cap (timed in turns in _check_k1_wide)",
-            "gru_sequence_bwd_wide": "the streaming backward runs only on plan={'route': "
-                                     "'stream'}; the grid backward took its place past the "
-                                     "cluster cap (timed in turns in _check_k1_wide)"}
+BENCH_KERNEL_ARGS = ["--iters", "1", "--hs", ",".join(map(str, BENCH_KERNEL_HS))]
 
 
 def fail(msg: str) -> None:
@@ -757,12 +777,13 @@ def _on_card(prof) -> list[_CardOp]:
     return list(ops.values())
 
 
-def _in_turns(fns: dict, reps: int) -> dict:
+def _in_turns(fns: dict, reps: int, warm: bool = True) -> dict:
     """Each call's median of ``reps``, timed in turns (a, b, ..., b, a);
-    the mean of its two medians."""
+    the mean of its two medians. ``warm`` False: no warm-up call before
+    each median (the caller has made every call once)."""
     times = {name: [] for name in fns}
     for name in list(fns) + list(fns)[::-1]:
-        times[name].append(_time_ms(fns[name], reps))
+        times[name].append(_time_ms(fns[name], reps, warm))
     return {name: statistics.mean(t) for name, t in times.items()}
 
 
@@ -815,17 +836,22 @@ def phase_kernels(smi: str) -> dict:
     Returns, per kernel, the largest error and the times at its headline
     shape (K1 forward: the serving shape; the others: the training shape)."""
     rows, seconds = {}, {}
-    # (tag, the kernel's name, or None where the check returns rows by name)
+    # (tag, the kernel's name, or None where the check returns rows by name;
+    # a kernel two checks hold takes the later's row and the worse error)
     for tag, name, check in (("K1 forward", "gru_sequence", _check_k1_fwd),
                              ("K1 backward", "gru_sequence_bwd", _check_k1_bwd),
                              ("wide K1", None, _check_k1_wide),
+                             ("streaming K1", None, _check_k1_stream),
                              ("K2", "multigru_disc_inputs", _check_k2),
                              ("K3", None, _check_k3), ("wide K3", None, _check_k3_wide),
                              ("IIR", "iir_filter", _check_iir)):
         t0 = time.perf_counter()
         out = check(smi)
         seconds[tag] = round(time.perf_counter() - t0, 2)
-        rows.update(out if name is None else {name: out})
+        for k, row in (out if name is None else {name: out}).items():
+            if k in rows:
+                row = {**row, "max_abs_err": max(row["max_abs_err"], rows[k]["max_abs_err"])}
+            rows[k] = row
     print(f"[kernels] seconds by check: {seconds} | {smi}", flush=True)
     return rows
 
@@ -1027,7 +1053,7 @@ def _cluster_cap(plan=cluster_plan) -> int:
     """The largest H on the cluster forward (``plan`` cluster_plan) or
     backward (cluster_bwd_plan) with this card's numbers."""
     card = cluster_card()
-    return max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
+    return max(H for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1)
                if plan(1, 1, H, card)["route"] == "cluster")
 
 
@@ -1037,7 +1063,7 @@ def _cluster_plans(args, plan: dict) -> str:
     out = []
     for C, R, g, _ in cluster_fits(args[3].shape[2], cluster_card()):
         one = {"route": "cluster", "C": C, "R": R, **g}
-        ms = _time_ms(lambda: gru_sequence_wide(*args, plan=one), reps=3)  # noqa: B023
+        ms = _time_ms(lambda: gru_sequence_wide(*args, plan=one), reps=1)  # noqa: B023
         out.append(f"C{C} R{R}{'*' if (C, R) == (plan['C'], plan['R']) else ''} {ms:.4f}")
     return "; ".join(out)
 
@@ -1066,7 +1092,7 @@ def _cluster_bwd_plans(alone, H: int, plan: dict) -> str:
     marked *."""
     out = []
     for C, R, g, _ in cluster_bwd_fits(H, cluster_card()):
-        ms = _time_ms(alone({"route": "cluster", "C": C, "R": R, **g}), reps=3)
+        ms = _time_ms(alone({"route": "cluster", "C": C, "R": R, **g}), reps=1)
         pick = (C, g["S"], R) == (plan["C"], plan["S"], plan["R"])
         out.append(f"C{C} S{g['S']} R{R}{'*' if pick else ''} {ms:.4f}")
     return "; ".join(out)
@@ -1121,15 +1147,15 @@ def _check_k1_wide(smi: str) -> dict:
     waves; the step-chain floor of each half (the probe of the same plan:
     the exchange and the wait alone, and on the grid the read of the
     exchanged operand from L2) and the backward's kernel alone, and on the
-    same inputs the streaming kernels in turns (the kernels the routes had
-    before; past the cap the streaming backward's kernel alone too); at one
-    bucket every cluster plan that fits, forward and backward; the grid
-    forward and backward in waves against the streaming kernels in turns at
-    WIDE_K1_WAVE_SHAPES; then the backward's plans at
+    same inputs one call of the streaming kernels, forced (the kernels the
+    routes had before; past the cap the streaming backward's kernel alone
+    too); at one bucket every cluster plan that fits, forward and backward;
+    the grid forward and backward in waves against one call of the
+    streaming kernels at WIDE_K1_WAVE_SHAPES; then the backward's plans at
     WIDE_K1_BWD_SWEEP_SHAPES.
     The kernels line takes (1, 768, 64, 256) for the cluster forward and
-    backward and (1, 768, 64, 1024) for the grid forward and backward and
-    the streaming forward and backward (timed in turns beside them)."""
+    backward and (1, 768, 64, 1024) for the grid forward and backward; the
+    streaming kernels' errors here join their rows (_check_k1_stream)."""
     cap, bwd_cap = _cluster_cap(), _cluster_cap(cluster_bwd_plan)
     shapes = (WIDE_K1_SHAPES + tuple((*s, H) for s, H in zip(WIDE_K1_CAP_SHAPES, (cap, cap + 1)))
               + WIDE_K1_CUDNN_SHAPES)
@@ -1166,14 +1192,16 @@ def _check_k1_wide(smi: str) -> dict:
             ref = gru_sequence_bwd_reference(*args, ys, d_ys)
             err = (ys - ref_ys).abs().max().item()
             errs, scale, ok = _bwd_errors(got, ref)
-            fwd = {"kernel": lambda: gru_sequence(*args),
-                   "streaming": lambda: gru_sequence_wide(*args, plan={"route": "stream"})}
-            stream_err = (fwd["streaming"]() - ref_ys).abs().max().item()
+            fwd = {"kernel": lambda: gru_sequence(*args)}
+            stream_fwd = lambda: gru_sequence_wide(*args, plan={"route": "stream"})  # noqa: E731
+            stream_err = (stream_fwd() - ref_ys).abs().max().item()
+            stream_ms = _time_ms(stream_fwd, reps=1, warm=False)
             worst["gru_sequence_wide"] = max(worst["gru_sequence_wide"], stream_err)
-            bwd = {"kernel": lambda: gru_sequence_bwd(*args, ys, d_ys),
-                   "streaming": lambda: gru_sequence_bwd(*args, ys, d_ys,
-                                                         plan={"route": "stream"})}
-            stream_bwd_errs, _, stream_bwd_ok = _bwd_errors(bwd["streaming"](), ref)
+            bwd = {"kernel": lambda: gru_sequence_bwd(*args, ys, d_ys)}
+            stream_bwd = lambda: gru_sequence_bwd(*args, ys, d_ys,  # noqa: E731
+                                                  plan={"route": "stream"})
+            stream_bwd_errs, _, stream_bwd_ok = _bwd_errors(stream_bwd(), ref)
+            stream_bwd_ms = _time_ms(stream_bwd, reps=1, warm=False)
             worst["gru_sequence_bwd_wide"] = max(worst["gru_sequence_bwd_wide"],
                                                  stream_bwd_errs[0], stream_bwd_errs[3])
             if nb == 1:
@@ -1187,7 +1215,7 @@ def _check_k1_wide(smi: str) -> dict:
             alone, bprobe = _wide_bwd_alone(args, ys, d_ys)
             bwd_alone_ms = _time_ms(alone(bplan), reps=5)
             bwd_floor_ms = _time_ms(bprobe(bplan), reps=5)
-            stream_alone_ms = (_time_ms(alone({"route": "stream"}), reps=3) if bwd_grid
+            stream_alone_ms = (_time_ms(alone({"route": "stream"}), reps=1) if bwd_grid
                                else None)
             plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS,
                                 warm=False)
@@ -1200,13 +1228,13 @@ def _check_k1_wide(smi: str) -> dict:
             btimes = _in_turns(bwd, reps=3 if nb == 1 else 5)
         bwd_ms, lib_bwd_ms = btimes["kernel"], btimes.get("cuDNN")
         route = _plan_text(plan, f"{floor_ms:.4f} ms; the streaming forward on the same "
-                                 f"inputs {times['streaming']:.4f} ms in turns")
+                                 f"inputs {stream_ms:.4f} ms, one call")
         stream_alone = ("" if stream_alone_ms is None
                         else f", its kernel alone {stream_alone_ms:.4f} ms")
         bwd_route = _plan_text(bplan, f"{bwd_floor_ms:.4f} ms, kernel alone "
                                       f"{bwd_alone_ms:.4f} ms; the streaming backward's whole "
-                                      f"call on the same inputs {btimes['streaming']:.4f} ms "
-                                      f"in turns{stream_alone}")
+                                      f"call on the same inputs {stream_bwd_ms:.4f} ms, one "
+                                      f"call{stream_alone}")
         print(f"[kernel] gru_sequence_wide nb={nb} T={T} B={B} H={H}: forward route {route}; "
               f"backward route {bwd_route}; max|diff| ys {err:.3e}, dxp {errs[0]:.3e} dh0 "
               f"{errs[3]:.3e} (tol {KERNEL_TOL:g}); dW {errs[1]:.3e} of {scale[1]:.3g}, db "
@@ -1218,11 +1246,10 @@ def _check_k1_wide(smi: str) -> dict:
               f"{plain_bwd_ms:.4f}) | {smi}", flush=True)
         if nb == 1:
             print(f"[kernel] gru_sequence_wide nb=1 T={T} B={B} H={H} vs cuDNN GRU: "
-                  f"forward {ms:.4f}, the streaming forward {times['streaming']:.4f} ms "
-                  f"against {lib_ms:.4f} ms (max|diff| "
-                  f"{lib_err:.3e}), backward whole call {bwd_ms:.4f}, the streaming backward "
-                  f"{btimes['streaming']:.4f} ms against {lib_bwd_ms:.4f} ms (cuDNN dxp "
-                  f"{lib_bwd_err[0]:.3e}), in turns | {smi}", flush=True)
+                  f"forward {ms:.4f} against {lib_ms:.4f} ms (max|diff| {lib_err:.3e}), backward "
+                  f"whole call {bwd_ms:.4f} against {lib_bwd_ms:.4f} ms (cuDNN dxp "
+                  f"{lib_bwd_err[0]:.3e}), in turns; the streaming forward {stream_ms:.4f}, "
+                  f"backward {stream_bwd_ms:.4f} ms, one call each | {smi}", flush=True)
         if nb == 1:
             if cluster:
                 print(f"[kernel] gru_sequence_wide_cluster nb=1 T={T} B={B} H={H} plans (ms): "
@@ -1258,7 +1285,7 @@ def _check_k1_wide(smi: str) -> dict:
         print(f"[bound] {name} {label}: step-chain floor {floor_ms:.4f} ms ({what}), bound "
               f"{fwd_row['bound_ms']:.4f} ms ({fwd_row['bound_by']}); kernel {ms:.4f} ms, "
               f"{ms / floor_ms:.2f}x the floor; the streaming forward "
-              f"{times['streaming']:.4f} ms in turns | {smi}", flush=True)
+              f"{stream_ms:.4f} ms, one call | {smi}", flush=True)
         _roofline(f"{bwd_name} {label}", bwd_row, smi,
                   "cuDNN GRU backward" if nb == 1 else None)
         bwhat = (f"the exchange of the partials and the wait alone, {T} steps on clusters of "
@@ -1269,31 +1296,27 @@ def _check_k1_wide(smi: str) -> dict:
               f"{bplan['waves']} wave(s)), bound {bwd_row['bound_ms']:.4f} ms "
               f"({bwd_row['bound_by']}); kernel alone {bwd_alone_ms:.4f} ms, "
               f"{bwd_alone_ms / bwd_floor_ms:.2f}x the floor; whole call {bwd_ms:.4f} ms, the "
-              f"streaming backward's {btimes['streaming']:.4f} ms{stream_alone} | {smi}",
+              f"streaming backward's {stream_bwd_ms:.4f} ms{stream_alone} | {smi}",
               flush=True)
         if (nb, T, B, H) in (WIDE_K1_CUDNN_SHAPES[0], WIDE_K1_CUDNN_SHAPES[-1]):
             rows.update({name: fwd_row, bwd_name: bwd_row})
-            if grid:
-                rows["gru_sequence_wide"] = _row(times["streaming"], plain_ms, bound, lib_ms)
-            if bwd_grid:
-                rows["gru_sequence_bwd_wide"] = _row(btimes["streaming"], plain_bwd_ms,
-                                                     bwd_bound, lib_bwd_ms)
-    if set(rows) != set(worst):
+    streaming = {"gru_sequence_wide", "gru_sequence_bwd_wide"}
+    if set(rows) != set(worst) - streaming:
         fail(f"the wide route's headline shapes took {sorted(rows)}: the cluster routes at "
-             f"H {WIDE_K1_CUDNN_SHAPES[0][3]}, the grid routes and the streaming kernels at "
+             f"H {WIDE_K1_CUDNN_SHAPES[0][3]}, the grid routes at "
              f"{WIDE_K1_CUDNN_SHAPES[-1][3]} expected (caps {cap}, {bwd_cap})")
     _grid_waves(smi, worst)
     for name, err in worst.items():
-        rows[name]["max_abs_err"] = err
+        rows.setdefault(name, {})["max_abs_err"] = err
     _sweep_bwd_plans(smi)
     return rows
 
 
 def _grid_waves(smi: str, worst: dict) -> None:
     """The automatic route at WIDE_K1_WAVE_SHAPES (the grid forward and
-    backward, one launch a wave of buckets each) and the streaming forward
-    and backward on the same inputs, each against the plain version, timed
-    in turns (the backward's whole calls); adds their errors to
+    backward, one launch a wave of buckets each), timed, and one call of the
+    streaming forward and backward forced on the same inputs, each against
+    the plain version (the backward's whole calls); adds their errors to
     ``worst``."""
     for i, (nb, T, B, H) in enumerate(WIDE_K1_WAVE_SHAPES):
         args = _gru_inputs(nb, T, B, H, 28, seed=70 + i, device="cuda")
@@ -1318,24 +1341,24 @@ def _grid_waves(smi: str, worst: dict) -> None:
             berrs["streaming"] = _bwd_errors(
                 gru_sequence_bwd(*args, ys, d_ys, plan={"route": "stream"}), bref)
             del bref
-            times = _in_turns({"grid": lambda: gru_sequence(*args),
-                               "streaming": lambda: gru_sequence_wide(
-                                   *args, plan={"route": "stream"})}, reps=3)
-            btimes = _in_turns({"grid": lambda: gru_sequence_bwd(*args, ys, d_ys),
-                                "streaming": lambda: gru_sequence_bwd(
-                                    *args, ys, d_ys, plan={"route": "stream"})}, reps=3)
+            times = {"grid": _time_ms(lambda: gru_sequence(*args), reps=3),
+                     "streaming": _time_ms(lambda: gru_sequence_wide(
+                         *args, plan={"route": "stream"}), reps=1)}
+            btimes = {"grid": _time_ms(lambda: gru_sequence_bwd(*args, ys, d_ys), reps=3),
+                      "streaming": _time_ms(lambda: gru_sequence_bwd(
+                          *args, ys, d_ys, plan={"route": "stream"}), reps=1)}
         print(f"[kernel] gru_sequence_wide_grid nb={nb} T={T} B={B} H={H} in waves: "
               f"{plan['waves']} wave(s) of {plan['buckets_per_wave']} bucket(s) x "
               f"{plan['blocks']} blocks ({launched[3]} launches); grid {times['grid']:.4f} ms, "
-              f"the streaming forward {times['streaming']:.4f} ms in turns "
+              f"the streaming forward {times['streaming']:.4f} ms, one call "
               f"({times['streaming'] / times['grid']:.2f}x); max|diff| grid "
               f"{errs['grid']:.3e}, streaming {errs['streaming']:.3e} (tol {KERNEL_TOL:g}) "
               f"| {smi}", flush=True)
         print(f"[kernel] gru_sequence_bwd_wide_grid nb={nb} T={T} B={B} H={H} in waves: "
               f"{bplan['waves']} wave(s) of {bplan['buckets_per_wave']} bucket(s) x "
               f"{bplan['blocks']} blocks ({launched[7]} launches); whole call grid "
-              f"{btimes['grid']:.4f} ms, the streaming backward {btimes['streaming']:.4f} ms "
-              f"in turns ({btimes['streaming'] / btimes['grid']:.2f}x); max|diff| dxp / dh0 "
+              f"{btimes['grid']:.4f} ms, the streaming backward {btimes['streaming']:.4f} ms, "
+              f"one call ({btimes['streaming'] / btimes['grid']:.2f}x); max|diff| dxp / dh0 "
               f"grid {berrs['grid'][0][0]:.3e} / {berrs['grid'][0][3]:.3e}, streaming "
               f"{berrs['streaming'][0][0]:.3e} / {berrs['streaming'][0][3]:.3e} (tol "
               f"{KERNEL_TOL:g}) | {smi}", flush=True)
@@ -1352,6 +1375,101 @@ def _grid_waves(smi: str, worst: dict) -> None:
         for k, key in (("grid", "gru_sequence_bwd_wide_grid"),
                        ("streaming", "gru_sequence_bwd_wide")):
             worst[key] = max(worst[key], berrs[k][0][0], berrs[k][0][3])
+
+
+def _check_k1_stream(smi: str) -> dict:
+    """K1's streaming forward and backward (csrc/gru_seq_wide.cu) on their
+    planned route past the grids, at STREAM_K1_SHAPES: each half's plan
+    (stream_plan, held to the tile the kernel makes on the card), the
+    streaming kernels alone by the counters, ys and the backward's whole
+    call (hp product, kernel, dW product) against the plain versions; at
+    one bucket of T 768 both halves timed in turns with cuDNN's GRU forward
+    and backward, beside their bounds. The kernels line takes
+    STREAM_K1_HEADLINE."""
+    card = cluster_card()
+    cap = wide_cap(card)
+    print(f"[kernel] K1's streaming route: both halves from H {GRID_MAX_HIDDEN + 1} to the "
+          f"wide route's cap H {cap} on this card's numbers ({card['smem']} shared bytes a "
+          f"block: the backward's one-row tile, 2 x 3H floats of dhp) | {smi}", flush=True)
+    rows, worst = {}, {"gru_sequence_wide": 0.0, "gru_sequence_bwd_wide": 0.0}
+    for i, (nb, T, B, H) in enumerate(STREAM_K1_SHAPES):
+        H = cap if H is None else H
+        plan, bplan, mirror = (wide_plan(nb, B, H, card), wide_bwd_plan(nb, B, H, card),
+                               stream_plan(nb, B, H, card))
+        tile = wide_tile(nb, B, H)
+        made = tuple(tile[k] for k in ("rows", "blocks", "threads", "fwd_smem", "bwd_smem"))
+        mirrored = tuple(mirror[k] for k in ("R", "blocks", "threads", "fwd_smem", "bwd_smem"))
+        if plan != mirror or bplan != mirror or made != mirrored:
+            fail(f"K1 at nb={nb} B={B} H={H}: plans {plan}, {bplan}, stream_plan {mirror}, the "
+                 f"kernel's tile {made}")
+        args = _gru_inputs(nb, T, B, H, 28, seed=80 + i, device="cuda")
+        timed = nb == 1 and T == STREAM_K1_HEADLINE[1]
+        with torch.no_grad():
+            before = _wide_route_counts()
+            ys = gru_sequence(*args)
+            d_ys = torch.randn(ys.shape, device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(80 + i))
+            got = gru_sequence_bwd(*args, ys, d_ys)
+            torch.cuda.synchronize()
+            routes = [a - b for a, b in zip(_wide_route_counts(), before)]
+            err = (ys - gru_sequence_reference(*args)).abs().max().item()
+            ref = gru_sequence_bwd_reference(*args, ys, d_ys)
+            errs, scale, ok = _bwd_errors(got, ref)
+            if timed:
+                fwd = {"kernel": lambda: gru_sequence(*args),
+                       "cuDNN": _cudnn_gru(*(a[0] for a in args))}
+                lib_err = (fwd["cuDNN"]() - ys[0]).abs().max().item()
+                times = _in_turns(fwd, reps=1, warm=False)
+                plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS,
+                                    warm=False)
+                plain_bwd_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
+                                        reps=PLAIN_REPS, warm=False)
+        text = ""
+        if timed:
+            bwd = {"kernel": lambda: gru_sequence_bwd(*args, ys, d_ys)}
+            bwd["cuDNN"], as_k1 = _cudnn_gru_bwd(*(a[0] for a in args), d_ys[0])
+            lib_bwd_err = _bwd_errors(as_k1(bwd["cuDNN"]()), ref)[0]
+            with torch.no_grad():
+                btimes = _in_turns(bwd, reps=1, warm=False)
+            text = (f"; forward {times['kernel']:.4f} ms ({1e3 * times['kernel'] / T:.2f} us a "
+                    f"step) against cuDNN's {times['cuDNN']:.4f} (max|diff| {lib_err:.3e}), "
+                    f"backward whole call {btimes['kernel']:.4f} against cuDNN's "
+                    f"{btimes['cuDNN']:.4f} (dxp {lib_bwd_err[0]:.3e}), in turns; plain "
+                    f"{plain_ms:.4f} / {plain_bwd_ms:.4f} ms")
+        del ref
+        print(f"[kernel] gru_sequence_wide (streaming) nb={nb} T={T} B={B} H={H}: R "
+              f"{plan['R']} rows x {plan['blocks']} blocks a bucket, {plan['threads']} threads "
+              f"of {plan['cols']} columns, {plan['fwd_smem']} / {plan['bwd_smem']} B shared; "
+              f"max|diff| ys {err:.3e}, dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol "
+              f"{KERNEL_TOL:g}); dW {errs[1]:.3e} of {scale[1]:.3g}, db {errs[2]:.3e} of "
+              f"{scale[2]:.3g} (tol {KERNEL_TOL:g} relative); launches K1 fwd / bwd / cluster "
+              f"fwd / grid fwd / streaming fwd / cluster bwd / streaming bwd / grid bwd "
+              f"{routes}{text} | {smi}", flush=True)
+        if routes != [0, 0, 0, 0, 1, 0, 1, 0]:
+            fail(f"K1 at nb={nb} B={B} H={H} launched {routes}: the streaming forward and "
+                 f"backward alone expected")
+        if not ok or not bool(torch.isfinite(ys).all()) or err > KERNEL_TOL:
+            fail(f"the streaming kernels disagree with their plain versions at nb={nb} T={T} "
+                 f"B={B} H={H}: ys {err}, backward {errs}")
+        worst["gru_sequence_wide"] = max(worst["gru_sequence_wide"], err)
+        worst["gru_sequence_bwd_wide"] = max(worst["gru_sequence_bwd_wide"], errs[0], errs[3])
+        if timed:
+            label = f"nb={nb} T={T} B={B} H={H}"
+            fwd_row = _row(times["kernel"], plain_ms,
+                           _bound(2 * nb * T * B * H * 3 * H, *args, ys), times["cuDNN"])
+            bwd_row = _row(btimes["kernel"], plain_bwd_ms,
+                           _bound(3 * 2 * nb * T * B * H * 3 * H, *args, ys, d_ys, *got),
+                           btimes["cuDNN"])
+            _roofline(f"gru_sequence_wide {label}", fwd_row, smi, "cuDNN GRU")
+            _roofline(f"gru_sequence_bwd_wide {label}", bwd_row, smi, "cuDNN GRU backward")
+            if (nb, T, B, H) == STREAM_K1_HEADLINE:
+                rows = {"gru_sequence_wide": fwd_row, "gru_sequence_bwd_wide": bwd_row}
+        del args, ys, d_ys, got
+    if not rows:
+        fail(f"the streaming kernels' headline {STREAM_K1_HEADLINE} was not timed")
+    for name, err in worst.items():
+        rows[name]["max_abs_err"] = err
+    return rows
 
 
 def _multigru_inputs(nb, T, B, dims, seed):
@@ -3858,8 +3976,9 @@ def _check_iir(smi: str) -> dict:
     each reference (the kernel rounds as they do: any is a fault), its time
     (one call, and its device time in a run of calls), the byte and operation
     bounds, and the step-chain floor measured by the chain probe (alone and
-    with a shuffle round trip a step) beside the assumed one it replaces. The
-    kernels line takes (7734, 14), order 8, float64, one call."""
+    with a shuffle round trip a step); then past 9 taps and in bfloat16 and
+    float16 (_check_iir_orders). The kernels line takes (7734, 14), order 8,
+    float64, one call."""
     import scipy.signal
 
     clock = _sm_clock_mhz()
@@ -3903,7 +4022,6 @@ def _check_iir(smi: str) -> dict:
                     for shuffle in (False, True))
                 probe_finite = bool(torch.isfinite(iir_chain_probe(T, dtype)).all())
                 cycles = [t * 1e-3 * clock * 1e6 / T for t in (chain_ms, shfl_ms)]
-                assumed_ms = T * IIR_CHAIN_OPS * IIR_LATENCY[dtype] / (clock * 1e6) * 1e3
                 plan = iir_plan(M, order + 1, dtype)
                 tag = f"iir_filter T={T} M={M} order {order} {str(dtype)[6:]}"
                 against = "plain (on the card)" if plain_ms is not None else \
@@ -3930,18 +4048,67 @@ def _check_iir(smi: str) -> dict:
                 _roofline(tag, row, smi)
                 print(f"[bound] {tag}: step-chain floor measured {chain_ms:.4f} ms "
                       f"({cycles[0]:.1f} cycles a step, the chain probe in a run of "
-                      f"{IIR_BATCH}: {T} steps of "
-                      f"{IIR_CHAIN_OPS} dependent operations, at the {clock:.0f} MHz "
-                      f"maximum SM clock), with a __shfl_sync round trip a step "
-                      f"{shfl_ms:.4f} ms ({cycles[1]:.1f}; the shuffle "
-                      f"{cycles[1] - cycles[0]:.1f} cycles); it replaces the assumed "
-                      f"{assumed_ms:.4f} ms ({IIR_CHAIN_OPS} operations x "
-                      f"{IIR_LATENCY[dtype]} cycles); the kernel's device time at "
+                      f"{IIR_BATCH}: {T} steps of 3 dependent operations, at the "
+                      f"{clock:.0f} MHz maximum SM clock), with a __shfl_sync round trip a "
+                      f"step {shfl_ms:.4f} ms ({cycles[1]:.1f}; the shuffle "
+                      f"{cycles[1] - cycles[0]:.1f} cycles); the kernel's device time at "
                       f"{100 * chain_ms / run_ms:.1f} % of the measured floor; bytes "
                       f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms | {smi}", flush=True)
                 if head is None:
                     head = row
+    _check_iir_orders(smi)
     return {"max_abs_err": worst, **head}
+
+
+def _stable_taps(n: int, seed: int):
+    """b, a of n taps, stable with their taps rounded to bfloat16 or float16
+    (as tests/iir_cases.py's stable_taps): b random, scaled by 1 / n; a of
+    up to 8 poles within radius 0.5, padded with zeros to n."""
+    rng = np.random.default_rng(seed)
+    poles = min(n - 1, 8)
+    theta = rng.uniform(0.1, 3.0, poles // 2)
+    radius = 0.5 * rng.uniform(0.6, 1.0, poles // 2)
+    roots = np.concatenate([radius * np.exp(1j * theta), radius * np.exp(-1j * theta),
+                            [0.25] * (poles % 2)])
+    a = np.zeros(n)
+    a[:poles + 1] = np.real(np.poly(roots))
+    return rng.standard_normal(n) / n, a
+
+
+def _check_iir_orders(smi: str) -> None:
+    """The IIR kernel past preprocessing's 9 taps (IIR_WIDE_TAPS, float64
+    and float32) and in bfloat16 and float16 (IIR_HALF_TAPS) at one trial's
+    (7734, 14), a random walk and a random zi: each with its plan's route,
+    its count of elements unequal to the plain version on the card (any is
+    a fault) and its time, one call (the plain version's: its one call, a
+    cold one)."""
+    T, M = IIR_SHAPES[0]
+    cases = [(n, dtype) for n in IIR_WIDE_TAPS for dtype in (torch.float64, torch.float32)]
+    cases += [(IIR_HALF_TAPS, dtype) for dtype in (torch.bfloat16, torch.float16)]
+    for n, dtype in cases:
+        b, a = _stable_taps(n, seed=n)
+        rng = np.random.default_rng(T + n)
+        x = torch.from_numpy(rng.standard_normal((T, M)).cumsum(axis=0)).to(dtype).cuda()
+        zi = torch.from_numpy(rng.standard_normal((n - 1, M))).to(dtype).cuda()
+        got = lfilter(b, a, x, zi=zi)
+        bt, at = (t.cuda() for t in _taps(b, a, dtype))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = lfilter_reference(bt, at, x, zi)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        unequal = int((got != ref).sum().item())
+        ms = _time_ms(lambda: lfilter(b, a, x, zi=zi), reps=10)  # noqa: B023
+        plan = iir_plan(M, n, dtype)
+        state = f", state in {plan['state']} memory" if "state" in plan else ""
+        print(f"[kernel] iir_filter T={T} M={M} {n} taps {str(dtype)[6:]}: route "
+              f"{plan['route']} ({plan['lanes']} lanes a column{state}); unequal elements "
+              f"{unequal} against plain (on the card); kernel {ms:.4f} ms one call, plain "
+              f"{plain_ms:.4f} ms | {smi}", flush=True)
+        if unequal or not bool(torch.isfinite(ref).all()):
+            fail(f"iir_filter disagrees with its plain version at {n} taps {dtype}: "
+                 f"{unequal} unequal elements")
 
 
 def _hold_prep(card: Path, host: Path) -> int:
@@ -4379,25 +4546,26 @@ def _since(before: tuple) -> list:
 
 
 def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
-    """TimeGANs at each of TG_WIDE_CONFIGS (x14/z64/h256 and x14/z64/h1024)
-    through train/timegan.py's step functions on the card: one AE and one
-    SUP step, the config's GAN steps on a random bucket of
+    """TimeGANs at each of TG_WIDE_CONFIGS (x14/z64/h256, x14/z64/h1024 and
+    x14/z64/h1536) through train/timegan.py's step functions on the card:
+    one AE and one SUP step, the config's GAN steps on a random bucket of
     (TG_WIDE_WINDOWS, 768, 14), then synthesize() of 64 windows; K1's wide
-    route launched (at h256 the forward and the backward on their cluster
-    kernels; at h1024 both on their grid kernels; the streaming kernels
-    never), no K2 (the D-step inputs
-    take the composed route past H 128), finite losses and windows; then one
-    GAN step at B 4, T TG_WIDE_CHECK_T on the card against the CPU. Returns
+    route launched on the planned kernels alone (at h256 the forward and the
+    backward on their cluster kernels, at h1024 on their grid kernels, at
+    h1536 on the streaming kernels), no K2 (the D-step inputs take the
+    composed route past H 128), finite losses and windows; then one GAN step
+    at B 4 and the config's check T on the card against the CPU. Returns
     the launches of the training and synthesis runs."""
     totals: dict = {}
-    for x_dim, z_dim, h_dim, gan_steps in TG_WIDE_CONFIGS:
-        for k, n in _timegan_wide_run(smi, device, x_dim, z_dim, h_dim, gan_steps).items():
+    for x_dim, z_dim, h_dim, gan_steps, check_t in TG_WIDE_CONFIGS:
+        for k, n in _timegan_wide_run(smi, device, x_dim, z_dim, h_dim, gan_steps,
+                                      check_t).items():
             totals[k] = totals.get(k, 0) + n
     return totals
 
 
 def _timegan_wide_run(smi: str, device: str, x_dim: int, z_dim: int, h_dim: int,
-                      gan_steps: int) -> dict:
+                      gan_steps: int, check_t: int) -> dict:
     """One config of phase_timegan_wide."""
     cfg = TimeGANConfig(x_dim=x_dim, z_dim=z_dim, h_dim=h_dim)
     params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(0)], device=device)
@@ -4449,30 +4617,29 @@ def _timegan_wide_run(smi: str, device: str, x_dim: int, z_dim: int, h_dim: int,
              f"{np.isfinite(windows).all()}")
     if torch.device(device).type == "cuda":
         card = cluster_card()
-        clustered = cluster_plan(1, B, h_dim, card)["route"] == "cluster"
-        bwd_clustered = cluster_bwd_plan(1, B, h_dim, card)["route"] == "cluster"
-        if not ((cluster >= 1) == clustered and (grid >= 1) != clustered and wide == 0
-                and (cluster_bwd >= 1) == bwd_clustered
-                and (grid_bwd >= 1) != bwd_clustered and wide_bwd == 0 and k2 == 0):
+        route = wide_plan(1, B, h_dim, card)["route"]
+        bwd_route = wide_bwd_plan(1, B, h_dim, card)["route"]
+        fwd_n = {"cluster": cluster, "grid": grid, "stream": wide}
+        bwd_n = {"cluster": cluster_bwd, "grid": grid_bwd, "stream": wide_bwd}
+        if not (all((n >= 1) == (r == route) for r, n in fwd_n.items())
+                and all((n >= 1) == (r == bwd_route) for r, n in bwd_n.items()) and k2 == 0):
             fail(f"[timegan-wide] h{h_dim}: launches wide forward on clusters {cluster}, on "
                  f"the grid {grid}, streaming {wide}, wide backward on clusters "
                  f"{cluster_bwd}, on the grid {grid_bwd}, streaming {wide_bwd}, K2 {k2}; "
-                 f"expected the {'cluster' if clustered else 'grid'} forward and backward, "
-                 f"no streaming kernel, no K2")
-    _wide_step_check(smi, device, (x_dim, z_dim, h_dim))
+                 f"expected the {route} forward and the {bwd_route} backward alone, no K2")
+    _wide_step_check(smi, device, (x_dim, z_dim, h_dim), check_t)
     return {"gru_sequence": k1, "gru_sequence_bwd": k1_bwd,
             "gru_sequence_wide_cluster": cluster, "gru_sequence_wide_grid": grid,
             "gru_sequence_wide": wide, "gru_sequence_bwd_wide_cluster": cluster_bwd,
             "gru_sequence_bwd_wide_grid": grid_bwd, "gru_sequence_bwd_wide": wide_bwd}
 
 
-def _wide_step_check(smi: str, device: str, dims: tuple, B: int = 4) -> None:
-    """One GAN step of a TimeGAN of ``dims`` (x, z, h) at T TG_WIDE_CHECK_T on
-    the card against the CPU plain path, on the same parameters and draws:
-    the step check's tolerances on the logged values, parameters and Adam's
-    first moments."""
+def _wide_step_check(smi: str, device: str, dims: tuple, T: int, B: int = 4) -> None:
+    """One GAN step of a TimeGAN of ``dims`` (x, z, h) at T on the card
+    against the CPU plain path, on the same parameters and draws: the step
+    check's tolerances on the logged values, parameters and Adam's first
+    moments."""
     x_dim, z_dim, h_dim = dims
-    T = TG_WIDE_CHECK_T
     cfg = TimeGANConfig(x_dim=x_dim, z_dim=z_dim, h_dim=h_dim)
     params = timegan_init_stacked(cfg, [torch.Generator().manual_seed(3)], device="cpu")
     hp = TimeGANHParams(**_train_hparams(gan_steps=GAN_STEPS, batch_size=B))
@@ -4843,10 +5010,7 @@ def main() -> None:
     launches["flash_forward"] = cgan_launches["flash_forward"] + cgan_serve_launches
     launches["iir_filter"] = iir_launches
     for k, n in launches.items():
-        if k in OFF_PATH:
-            if n:
-                fail(f"the main paths launched {k} {n} times: {OFF_PATH[k]}")
-        elif n < 1:
+        if n < 1:
             fail(f"the main paths launched {k} no time")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds "
           f"by phase: {seconds}", flush=True)

@@ -120,6 +120,10 @@ def load_library() -> ctypes.CDLL:
                                      ("flash_fwd_wide", 5, 3), ("flash_bwd_dq_wide", 7, 3),
                                      ("flash_bwd_dkv_wide", 8, 3),
                                      ("iir_filter_f64", 5, 4), ("iir_filter_f32", 5, 4),
+                                     ("iir_filter_runtime_f64", 4, 3),
+                                     ("iir_filter_runtime_f32", 4, 3),
+                                     ("iir_filter_runtime_bf16", 4, 3),
+                                     ("iir_filter_runtime_f16", 4, 3),
                                      ("iir_filter_chain_f64", 3, 3),
                                      ("iir_filter_chain_f32", 3, 3)):
                 f = getattr(lib, fn)

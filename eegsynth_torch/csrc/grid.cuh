@@ -25,7 +25,7 @@ constexpr int kUnits = 8;              // a block's units
 constexpr int kTileRows = 64;          // batch rows of a tile: a wgmma's M, four mma's
 constexpr int kPad = 32;               // the exchanged operand's depth is padded to a multiple of this
 constexpr int kPart = 16;              // depth of a lane's float4 pair (two k-slices)
-constexpr int kMaxHidden = 1024;       // MAX_WIDE_HIDDEN
+constexpr int kMaxHidden = 1024;       // GRID_MAX_HIDDEN
 constexpr long long kSpinClocks = 1LL << 34;
 
 int padded_depth(int H) { return (H + kPad - 1) / kPad * kPad; }

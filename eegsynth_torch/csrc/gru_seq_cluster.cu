@@ -77,7 +77,7 @@ namespace {
 
 constexpr int kMaxThreads = 512;  // a block: U S rounded up to a warp
 constexpr int kMinHidden = 1;
-constexpr int kMaxHidden = 1024;  // MAX_WIDE_HIDDEN; the plan's shared memory caps it lower
+constexpr int kMaxHidden = 1024;  // the grids' bound; the plan's shared memory caps it lower
 constexpr int kBarBytes = 16;     // the two mbarriers, ahead of W_hh^T's slice
 
 __host__ __device__ inline int slice_pitch(int KL) { return KL % 8 == 0 ? KL + 4 : KL + 8; }

@@ -96,7 +96,7 @@
 namespace {
 
 constexpr int kMaxThreads = 512;  // a block: ceil(H / 4) S rounded up to a warp
-constexpr int kMaxHidden = 1024;  // MAX_WIDE_HIDDEN; the plan's shared memory caps it lower
+constexpr int kMaxHidden = 1024;  // the grids' bound; the plan's shared memory caps it lower
 constexpr int kBarBytes = 16;     // the two mbarriers, ahead of W_hh's slice
 
 __host__ __device__ inline int quads(int H) { return (H + 3) / 4; }

@@ -20,44 +20,58 @@
 // What bounds it: each step every block reads all of W_hh^T (3 H^2 floats)
 // from L2 and does R 3 H^2 multiply-adds on it, after the step before has
 // finished; T steps in a chain. At H 512 that is 3 MB of L2 traffic a block
-// a step, so the per-SM L2 bandwidth, times T, bounds it, far above the HBM
-// bytes of xp and ys. Up to the H a cluster's shared memory holds, both
-// halves run on a cluster of blocks that splits W_hh^T's units between
-// their shared memory instead: the forward in gru_seq_cluster.cu (h
-// all-gathered through distributed shared memory every step), the backward
-// in gru_seq_cluster_bwd.cu (dh reduce-scattered every step). Above the
+// a step, at H 2048 50 MB (the whole L2, so HBM in practice), so the per-SM
+// L2 bandwidth, times T, bounds it, far above the HBM bytes of xp and ys.
+// Up to the H a cluster's shared memory holds, both halves run on a
+// cluster of blocks that splits W_hh^T's units between their shared memory
+// instead: the forward in gru_seq_cluster.cu (h all-gathered through
+// distributed shared memory every step), the backward in
+// gru_seq_cluster_bwd.cu (dh reduce-scattered every step). Above the
 // clusters' cap (H 545 to 1024 on the H100) each half runs on one
 // cooperative grid whose blocks split W_hh's units between their shared
 // memory and exchange one operand through L2 every step: the forward in
-// gru_seq_grid.cu (h), the backward in gru_seq_grid_bwd.cu (dhp). Both
-// kernels here run only where a plan asks for them (plan={"route":
-// "stream"} to gru_sequence_wide or gru_sequence_bwd_wide: timing in turns,
-// their card tests).
+// gru_seq_grid.cu (h), the backward in gru_seq_grid_bwd.cu (dhp). Past the
+// H where a grid's blocks are resident at once (1024 on the H100: W_hh in
+// split TF32 outgrows the card's shared memory near H 1100), both halves
+// run here: nn/gru_sequence.py's wide_plan and wide_bwd_plan plan this
+// route from the card's numbers.
 //
-// Forward: thread j (one per column, the block H threads rounded up to a
-// warp, so H <= 1024) computes hp[r, g H + j] for the three gates g and the
-// R rows r of its tile: the k loop reads W_hh^T[k, g H + j] (a warp reads
-// 32 neighbouring floats of one row: one 128-byte line) and h[r, k] from
-// shared memory (one address for the whole warp: a broadcast), four k at a
-// time as a float4 of h. The sums run over k in order, one fmaf each. The
-// step's xp is loaded before the sums so that its latency hides behind
-// them. Thread j then forms the gates of column j and writes h' to the
-// other h buffer and to ys: one barrier a step.
+// The tile (make_wide_tile, mirrored by gru_sequence.py stream_plan): R
+// rows a block (1, 2 or 4: one tile per SM where the batch allows, and no
+// more than the backward's two (R, 3H) buffers of dhp hold in one block's
+// shared memory), min(1024, H rounded up to a warp) threads a block. Thread
+// j owns the columns j, j + threads, j + 2 threads, ... below H. The cap is
+// the H whose one-row backward tile, 2 x 3H floats, still fits the card's
+// opt-in shared memory a block: H 9685 on the H100 (232,448 bytes).
+//
+// Forward: for each column c it owns, thread j computes hp[r, g H + c] for
+// the three gates g and the R rows r of its tile: the k loop reads
+// W_hh^T[k, g H + c] (a warp reads 32 neighbouring floats of one row: one
+// 128-byte line) and h[r, k] from shared memory (one address for the whole
+// warp: a broadcast), four k at a time as a float4 of h. The sums run over
+// k in order, one fmaf each. The column's xp is loaded before its sums so
+// that its latency hides behind them. Thread j then forms the gates of
+// column c and writes h' to the other h buffer and to ys; after its last
+// column, one barrier a step.
 //
 // Backward (exact reverse-time BPTT of _gru_seq_bwd), as gru_seq.cu's: the
 // wrapper computes hp = h_prev W_hh^T for all T B rows as one batched
 // product before the kernel (the kernel adds b_hh), and dW_hh^T = h_prev^T
 // dhp and db_hh = sum dhp after it (gru_sequence.py weight_grads). Only
-// dh_{t-1} = dh_t z + dhp_t W_hh stays on the chain. Thread i owns column i
-// of dh for the tile's rows, in registers for all T steps. The coefficients
-// of a step (c_r, c_z, c_n, (1-z)(1-n^2), z) depend on xp, hp and h_prev
-// alone, so step t - 1's are computed in step t, before the barrier, off
-// the chain. In step t the owner forms dhp_t = dh_t (c_r, c_z, c_n), writes
-// it to shared memory and over hp in HBM, and dxp_t; after the barrier
-// every thread sums dhp_t[r, m] W_hh[m, i] over m < 3H, W_hh (nb, 3H, H)
-// streamed from L2 the same way (the wrapper passes it contiguous), dhp_t
-// broadcast from shared memory. dhp lies in two buffers: one barrier a
-// step.
+// dh_{t-1} = dh_t z + dhp_t W_hh stays on the chain. The thread owning
+// column c keeps dh[r, c] for all T steps in dh0's entry, which it alone
+// reads and writes (any number of columns a thread, in no register
+// array). The coefficients of a step (c_r, c_z, c_n, (1-z)(1-n^2), z) and
+// its d_ys depend on xp, hp and h_prev alone, so step t - 1's are formed in
+// step t, before the barrier, off the chain, and staged in step t - 1's
+// own dxp and dhp entries of the column (the same thread overwrites them
+// with their values in step t - 1). In step t the owner forms dhp_t = d
+// (c_r, c_z, c_n) with d = dh_t + d_ys_t, writes it to shared memory and
+// over hp in HBM, and dxp_t, and parks d z in dh0; after the barrier it
+// sums dhp_t[r, m] W_hh[m, c] over m < 3H for each of its columns, W_hh
+// (nb, 3H, H) streamed from L2 the same way (the wrapper passes it
+// contiguous), dhp_t broadcast from shared memory, and adds d z. dhp lies
+// in two buffers: one barrier a step.
 //
 // Both kernels use gru_cell.cuh's sigmoid (1/2 + tanh(x/2)/2) and the
 // accurate expf and tanhf, as gru_seq.cu does. They allocate nothing and do
@@ -72,12 +86,11 @@
 
 namespace {
 
-constexpr int kMinWideHidden = 1;
-constexpr int kMaxWideHidden = 1024;  // one thread a column, 1024 threads a block
-constexpr int kMaxRows = 4;           // a tile's rows: 3 R sums a thread in registers
+constexpr int kMaxThreads = 1024;  // threads a block; a thread owns ceil(H / threads) columns
+constexpr int kMaxRows = 4;        // a tile's rows: 3 R sums a thread in registers
 
 template <int R>
-__global__ void __launch_bounds__(kMaxWideHidden)
+__global__ void __launch_bounds__(kMaxThreads)
 gru_wide_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh_t,
                     const float* __restrict__ b_hh, const float* __restrict__ h0,
                     float* __restrict__ ys, int T, int B, int H) {
@@ -102,60 +115,56 @@ gru_wide_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh
   }
   __syncthreads();
 
-  const int j = threadIdx.x;
-  const bool live = j < H;
-  const int jc = live ? j : H - 1;  // lanes past H read column H - 1, store nothing
-  const float br = b_hh[jc], bz = b_hh[H + jc], bn = b_hh[2 * H + jc];
-  const float* wc = w_hh_t + jc;
   const int H4 = H & ~3;
-
   for (int t = 0; t < T; ++t) {
     const float* hc = h_s + (t & 1) * R * HP;
     float* hn = h_s + ((t + 1) & 1) * R * HP;
-    float x[R][3];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float* xr = xp + ((size_t)t * B + b0 + min(r, n - 1)) * G + jc;
-      x[r][0] = xr[0];
-      x[r][1] = xr[H];
-      x[r][2] = xr[2 * H];
-    }
-    float acc[R][3];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.f;
-    for (int k = 0; k < H4; k += 4) {
-      float w[4][3];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float* wk = wc + (size_t)(k + q) * G;
-        w[q][0] = __ldg(wk);
-        w[q][1] = __ldg(wk + H);
-        w[q][2] = __ldg(wk + 2 * H);
-      }
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      float x[R][3];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float4 h4 = *reinterpret_cast<const float4*>(hc + r * HP + k);
+        const float* xr = xp + ((size_t)t * B + b0 + min(r, n - 1)) * G + j;
+        x[r][0] = xr[0];
+        x[r][1] = xr[H];
+        x[r][2] = xr[2 * H];
+      }
+      const float* wc = w_hh_t + j;
+      float acc[R][3];
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          acc[r][g] = fmaf(h4.x, w[0][g], acc[r][g]);
-          acc[r][g] = fmaf(h4.y, w[1][g], acc[r][g]);
-          acc[r][g] = fmaf(h4.z, w[2][g], acc[r][g]);
-          acc[r][g] = fmaf(h4.w, w[3][g], acc[r][g]);
+      for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.f;
+      for (int k = 0; k < H4; k += 4) {
+        float w[4][3];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float* wk = wc + (size_t)(k + q) * G;
+          w[q][0] = __ldg(wk);
+          w[q][1] = __ldg(wk + H);
+          w[q][2] = __ldg(wk + 2 * H);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 h4 = *reinterpret_cast<const float4*>(hc + r * HP + k);
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            acc[r][g] = fmaf(h4.x, w[0][g], acc[r][g]);
+            acc[r][g] = fmaf(h4.y, w[1][g], acc[r][g]);
+            acc[r][g] = fmaf(h4.z, w[2][g], acc[r][g]);
+            acc[r][g] = fmaf(h4.w, w[3][g], acc[r][g]);
+          }
         }
       }
-    }
-    for (int k = H4; k < H; ++k) {
-      const float* wk = wc + (size_t)k * G;
-      const float w0 = __ldg(wk), w1 = __ldg(wk + H), w2 = __ldg(wk + 2 * H);
+      for (int k = H4; k < H; ++k) {
+        const float* wk = wc + (size_t)k * G;
+        const float w0 = __ldg(wk), w1 = __ldg(wk + H), w2 = __ldg(wk + 2 * H);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float h = hc[r * HP + k];
-        acc[r][0] = fmaf(h, w0, acc[r][0]);
-        acc[r][1] = fmaf(h, w1, acc[r][1]);
-        acc[r][2] = fmaf(h, w2, acc[r][2]);
+        for (int r = 0; r < R; ++r) {
+          const float h = hc[r * HP + k];
+          acc[r][0] = fmaf(h, w0, acc[r][0]);
+          acc[r][1] = fmaf(h, w1, acc[r][1]);
+          acc[r][2] = fmaf(h, w2, acc[r][2]);
+        }
       }
-    }
-    if (live) {
+      const float br = b_hh[j], bz = b_hh[H + j], bn = b_hh[2 * H + j];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r < n) {
@@ -174,10 +183,10 @@ gru_wide_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh
 }
 
 // hp and dhp may be one buffer (written over in place), so neither is
-// __restrict__. Each (t, row, column) of hp is read and then written by the
-// same thread, and read by no other.
+// __restrict__. Each (t, row, column) of hp, dhp, dxp and dh0 is read and
+// written by the thread owning the column alone.
 template <int R>
-__global__ void __launch_bounds__(kMaxWideHidden)
+__global__ void __launch_bounds__(kMaxThreads)
 gru_wide_bwd_kernel(const float* __restrict__ xp, const float* hp,
                     const float* __restrict__ h_prev, const float* __restrict__ d_ys,
                     const float* __restrict__ w_hh, const float* __restrict__ b_hh,
@@ -201,126 +210,138 @@ gru_wide_bwd_kernel(const float* __restrict__ xp, const float* hp,
   const int n = min(R, B - b0);
   float* g_s = wide_bwd_smem;  // two buffers of (R, GP)
   for (int i = threadIdx.x; i < 2 * R * GP; i += blockDim.x) g_s[i] = 0.f;
-
-  const int i = threadIdx.x;
-  const bool live = i < H;
-  const int ic = live ? i : H - 1;
-  const float bias[3] = {b_hh[ic], b_hh[H + ic], b_hh[2 * H + ic]};
-  const float* wc = w_hh + ic;
   const int G4 = G & ~3;
 
-  // step u's coefficients of column ic for the tile's rows (rows past n
-  // repeat row n - 1) and its d_ys
-  float c[R][5], dy[R];
-  auto coefficients = [&](int u) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const size_t row = (size_t)u * B + b0 + min(r, n - 1);
-      const float* x = xp + row * G + ic;
-      const float* p = hp + row * G + ic;
-      const float hp_r = p[0] + bias[0], hp_z = p[H] + bias[1], hp_n = p[2 * H] + bias[2];
-      const float rg = sigmoid_fwd(x[0] + hp_r);
-      const float zg = sigmoid_fwd(x[H] + hp_z);
-      const float ng = tanhf(x[2 * H] + rg * hp_n);
-      const float omz = 1.0f - zg;
-      const float e = omz * (1.0f - ng * ng);
-      c[r][0] = (e * hp_n) * (rg * (1.0f - rg));
-      c[r][1] = (h_prev[row * H + ic] - ng) * (zg * omz);
-      c[r][2] = e * rg;
-      c[r][3] = e;
-      c[r][4] = zg;
-      dy[r] = d_ys[row * H + ic];
+  // step u's coefficients and d_ys of each of this thread's columns, rows
+  // below n, staged in step u's dxp entries (c_r, c_z, c_n) and dhp entries
+  // ((1-z)(1-n^2), z, d_ys); hp is read before dhp (maybe hp itself) is
+  // written
+  auto stage = [&](int u) {
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      const float br = b_hh[j], bz = b_hh[H + j], bn = b_hh[2 * H + j];
+      for (int r = 0; r < n; ++r) {
+        const size_t row = (size_t)u * B + b0 + r;
+        const float* x = xp + row * G + j;
+        const float* p = hp + row * G + j;
+        const float hp_r = p[0] + br, hp_z = p[H] + bz, hp_n = p[2 * H] + bn;
+        const float rg = sigmoid_fwd(x[0] + hp_r);
+        const float zg = sigmoid_fwd(x[H] + hp_z);
+        const float ng = tanhf(x[2 * H] + rg * hp_n);
+        const float omz = 1.0f - zg;
+        const float e = omz * (1.0f - ng * ng);
+        const float dy = d_ys[row * H + j];
+        const float hv = h_prev[row * H + j];
+        float* sx = dxp + row * G + j;
+        float* sp = dhp + row * G + j;
+        sx[0] = (e * hp_n) * (rg * (1.0f - rg));
+        sx[H] = (hv - ng) * (zg * omz);
+        sx[2 * H] = e * rg;
+        sp[0] = e;
+        sp[H] = zg;
+        sp[2 * H] = dy;
+      }
     }
   };
 
-  float dh[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) dh[r] = 0.f;
-  if (T > 0) coefficients(T - 1);
+  for (int j = threadIdx.x; j < H; j += blockDim.x)
+    for (int r = 0; r < n; ++r) dh0[(size_t)(b0 + r) * H + j] = 0.f;
+  if (T > 0) stage(T - 1);
   __syncthreads();  // both dhp buffers are zero
 
   for (int t = T - 1; t >= 0; --t) {
     float* gs = g_s + (t & 1) * R * GP;
-    float st[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float d = dh[r] + dy[r];
-      const float d_r = d * c[r][0], d_z = d * c[r][1], d_n = d * c[r][2];
-      st[r] = d * c[r][4];
-      if (live && r < n) {
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      for (int r = 0; r < n; ++r) {
         const size_t row = (size_t)t * B + b0 + r;
-        float* g = gs + r * GP + i;
+        float* sx = dxp + row * G + j;
+        float* sp = dhp + row * G + j;
+        float* dh = dh0 + (size_t)(b0 + r) * H + j;
+        const float c_r = sx[0], c_z = sx[H], c_n = sx[2 * H];
+        const float e = sp[0], zg = sp[H], dy = sp[2 * H];
+        const float d = *dh + dy;
+        const float d_r = d * c_r, d_z = d * c_z, d_n = d * c_n;
+        float* g = gs + r * GP + j;
         g[0] = d_r;
         g[H] = d_z;
         g[2 * H] = d_n;
-        float* dp = dhp + row * G + i;
-        dp[0] = d_r;
-        dp[H] = d_z;
-        dp[2 * H] = d_n;
-        float* dx = dxp + row * G + i;
-        dx[0] = d_r;
-        dx[H] = d_z;
-        dx[2 * H] = d * c[r][3];
+        sp[0] = d_r;
+        sp[H] = d_z;
+        sp[2 * H] = d_n;
+        sx[0] = d_r;
+        sx[H] = d_z;
+        sx[2 * H] = d * e;
+        *dh = d * zg;  // d z; the sum over m is added after the barrier
       }
     }
-    if (t > 0) coefficients(t - 1);  // off the chain: no dependence on dh
-    __syncthreads();                 // dhp_t of every column is in place
-    float acc[R];
+    if (t > 0) stage(t - 1);  // off the chain: no dependence on dh
+    __syncthreads();          // dhp_t of every column is in place
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      const float* wc = w_hh + j;
+      float acc[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    for (int m = 0; m < G4; m += 4) {
-      const float w0 = __ldg(wc + (size_t)m * H), w1 = __ldg(wc + (size_t)(m + 1) * H);
-      const float w2 = __ldg(wc + (size_t)(m + 2) * H), w3 = __ldg(wc + (size_t)(m + 3) * H);
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      for (int m = 0; m < G4; m += 4) {
+        const float w0 = __ldg(wc + (size_t)m * H), w1 = __ldg(wc + (size_t)(m + 1) * H);
+        const float w2 = __ldg(wc + (size_t)(m + 2) * H), w3 = __ldg(wc + (size_t)(m + 3) * H);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 g4 = *reinterpret_cast<const float4*>(gs + r * GP + m);
+          acc[r] = fmaf(g4.x, w0, acc[r]);
+          acc[r] = fmaf(g4.y, w1, acc[r]);
+          acc[r] = fmaf(g4.z, w2, acc[r]);
+          acc[r] = fmaf(g4.w, w3, acc[r]);
+        }
+      }
+      for (int m = G4; m < G; ++m) {
+        const float w = __ldg(wc + (size_t)m * H);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(gs[r * GP + m], w, acc[r]);
+      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float4 g4 = *reinterpret_cast<const float4*>(gs + r * GP + m);
-        acc[r] = fmaf(g4.x, w0, acc[r]);
-        acc[r] = fmaf(g4.y, w1, acc[r]);
-        acc[r] = fmaf(g4.z, w2, acc[r]);
-        acc[r] = fmaf(g4.w, w3, acc[r]);
+        if (r < n) {
+          float* dh = dh0 + (size_t)(b0 + r) * H + j;
+          *dh = *dh + acc[r];
+        }
       }
-    }
-    for (int m = G4; m < G; ++m) {
-      const float w = __ldg(wc + (size_t)m * H);
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(gs[r * GP + m], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) dh[r] = st[r] + acc[r];
-  }
-  if (live) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < n) dh0[(size_t)(b0 + r) * H + i] = dh[r];
     }
   }
 }
 
 bool bad_wide_dims(int nb, int T, int B, int H) {
-  return nb < 0 || T < 0 || B < 0 || H < kMinWideHidden || H > kMaxWideHidden ||
-         nb > 65535;
+  return nb < 0 || T < 0 || B < 0 || H < 1 || nb > 65535;
 }
 
 // The tile: rows a block (1, 2 or 4: one tile per SM where the batch
-// allows), tiles a bucket, threads, and the shared bytes of the forward and
-// of the backward.
+// allows, halved until the backward's shared bytes fit a block), tiles a
+// bucket, threads, and the shared bytes of the forward and of the
+// backward. Past the cap (the one-row backward tile does not fit)
+// cudaErrorInvalidValue.
 struct WideTile {
   int rows, blocks, threads;
   size_t fwd_smem, bwd_smem;
 };
 
+size_t fwd_smem_bytes(int rows, int H) { return sizeof(float) * 2 * rows * ((H + 3) & ~3); }
+size_t bwd_smem_bytes(int rows, int H) { return sizeof(float) * 2 * rows * ((3 * H + 3) & ~3); }
+
 cudaError_t make_wide_tile(int nb, int B, int H, WideTile* tile) {
-  int dev = 0, sms = 0;
+  int dev = 0, sms = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   const long long total = (long long)std::max(nb, 1) * std::max(B, 1);
   const long long want = (total + sms - 1) / sms;
-  tile->rows = want <= 1 ? 1 : want <= 2 ? 2 : kMaxRows;
-  tile->blocks = (B + tile->rows - 1) / tile->rows;
-  tile->threads = (H + 31) / 32 * 32;
-  tile->fwd_smem = sizeof(float) * 2 * tile->rows * ((H + 3) & ~3);
-  tile->bwd_smem = sizeof(float) * 2 * tile->rows * ((3 * H + 3) & ~3);
+  int rows = want <= 1 ? 1 : want <= 2 ? 2 : kMaxRows;
+  while (rows > 1 && bwd_smem_bytes(rows, H) > (size_t)max_smem) rows /= 2;
+  if (bwd_smem_bytes(rows, H) > (size_t)max_smem) return cudaErrorInvalidValue;
+  tile->rows = rows;
+  tile->blocks = (B + rows - 1) / rows;
+  tile->threads = std::min(kMaxThreads, (H + 31) / 32 * 32);
+  tile->fwd_smem = fwd_smem_bytes(rows, H);
+  tile->bwd_smem = bwd_smem_bytes(rows, H);
   return cudaSuccess;
 }
 

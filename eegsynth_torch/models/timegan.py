@@ -329,7 +329,8 @@ def _takes_k2(params: Params) -> bool:
     """K2's route: single-layer stacks with generator and supervisor
     projections and every width at most 128 (every ``adaptive_dims`` width;
     K2 holds its weights in registers and stops there). Wider stacks take
-    the composed route, whose K1 runs at any width to 1024. Decided from
+    the composed route, whose K1 runs at any width to its cap (H 9685 on
+    the H100, ``nn/gru_sequence.py`` ``wide_cap``). Decided from
     the shapes alone, before any launch, so the CPU takes the card's
     route."""
     g, s = params["generator"], params["supervisor"]

@@ -17,14 +17,18 @@ H100's):
   :func:`cluster_plan`), the backward in
   ``eegsynth_torch/csrc/gru_seq_cluster_bwd.cu`` (dh reduce-scattered each
   step, :func:`cluster_bwd_plan`);
-- above the cap up to H 1024 (:data:`MAX_WIDE_HIDDEN`), each half runs on
-  one cooperative grid whose blocks hold the slice of their units in shared
-  memory and exchange one operand through L2 once a step: the forward holds
-  W_hhᵀ's columns and all-gathers h (``eegsynth_torch/csrc/gru_seq_grid.cu``,
-  :func:`grid_plan`), the backward W_hh's columns and all-gathers dhp
-  (``eegsynth_torch/csrc/gru_seq_grid_bwd.cu``, :func:`grid_bwd_plan`).
-  ``eegsynth_torch/csrc/gru_seq_wide.cu``'s streaming kernels, which read
-  all of W_hh from L2 each step, run only when a plan asks for them.
+- above the cap up to H 1024, each half runs on one cooperative grid
+  whose blocks hold the slice of their units in shared memory and exchange
+  one operand through L2 once a step: the forward holds W_hhᵀ's columns and
+  all-gathers h (``eegsynth_torch/csrc/gru_seq_grid.cu``, :func:`grid_plan`),
+  the backward W_hh's columns and all-gathers dhp
+  (``eegsynth_torch/csrc/gru_seq_grid_bwd.cu``, :func:`grid_bwd_plan`);
+- past that, where a grid's blocks cannot all be resident at once (W_hh in
+  split TF32 outgrows the card's shared memory near H 1100), each half
+  runs on ``eegsynth_torch/csrc/gru_seq_wide.cu``'s streaming kernels,
+  which read all of W_hh from L2 each step (:func:`stream_plan`), up to
+  :func:`wide_cap` (H 9685: the backward's one-row tile of dhp fills a
+  block's shared memory).
 
 On a CPU tensor each half runs its plain PyTorch
 version (:func:`gru_sequence_reference`, :func:`gru_sequence_bwd_reference`),
@@ -53,13 +57,6 @@ MAX_HIDDEN = 128
 """Largest H of K1's register-resident kernels (``gru_seq.cu``) and of K2,
 which holds W_hhᵀ slices in registers the same way; ``adaptive_dims`` caps
 h_dim here. K1 takes wider H through the wide route."""
-
-MAX_WIDE_HIDDEN = 1024
-"""Largest H of K1's wide route: of the grid forward and backward
-(``gru_seq_grid.cu``, ``gru_seq_grid_bwd.cu``, whose W_hh in split TF32
-fills 128 blocks' shared memory at H 1024) and of the streaming kernels
-(``gru_seq_wide.cu``: one thread a column, 1024 threads a block); the
-wrappers raise above it."""
 
 
 def _gates(x: torch.Tensor, hp: torch.Tensor, H: int):
@@ -140,14 +137,20 @@ def _device_of(name: str, *tensors: torch.Tensor) -> torch.device:
     return device
 
 
-def _check_cuda(name: str, H: int, cap: int = MAX_HIDDEN,
+def _check_cuda(name: str, H: int, cap: int | None = MAX_HIDDEN,
                 **tensors: torch.Tensor) -> None:
+    """dtype and layout of the kernel's inputs, and H up to ``cap``; None
+    is K1's: past :data:`MAX_HIDDEN`, :func:`wide_cap` of the tensors'
+    card."""
     for key, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    if H > cap:
+    if cap is None:
+        if H > MAX_HIDDEN:
+            _check_wide(name, H, cluster_card(next(iter(tensors.values())).device))
+    elif H > cap:
         raise ValueError(f"{name}: H={H} > {cap}")
 
 
@@ -176,8 +179,7 @@ def _forward(xp, w_hh_t, b_hh, h0) -> torch.Tensor:
     nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
     if _device_of("gru_sequence", xp, w_hh_t, b_hh, h0).type == "cpu":
         return gru_sequence_reference(xp, w_hh_t, b_hh, h0)
-    _check_cuda("gru_sequence", H, MAX_WIDE_HIDDEN, xp=xp, w_hh_t=w_hh_t,
-                b_hh=b_hh, h0=h0)
+    _check_cuda("gru_sequence", H, None, xp=xp, w_hh_t=w_hh_t, b_hh=b_hh, h0=h0)
     if H > MAX_HIDDEN:
         return gru_sequence_wide(xp, w_hh_t, b_hh, h0)
     ys = torch.empty((nb, T, B, H), dtype=torch.float32, device=xp.device)
@@ -314,7 +316,8 @@ def cluster_plan(nb: int, B: int, H: int, card: dict) -> dict:
     clocks (waves × :func:`_step_clocks`) among those in one wave, or among
     all where none is; the smaller C on a tie. Where no C fits (past the
     cap: H 544 on the H100 with clusters of 16, else 384), the route is
-    ``"stream"``, and :func:`wide_plan` takes the grid plan instead."""
+    ``"stream"``, and :func:`wide_plan` takes the grid or the streaming plan
+    instead."""
     return _best_plan(nb, B, card, cluster_fits(H, card), _step_clocks,
                       lambda C, R, g: C)
 
@@ -418,7 +421,7 @@ def cluster_bwd_plan(nb: int, B: int, H: int, card: dict) -> dict:
     clocks (waves × :func:`_bwd_step_clocks`), one wave first. Where
     nothing fits (past the cap: H 544 on the H100 with clusters of 16, else
     384), the route is ``"stream"``, and :func:`wide_bwd_plan` takes the
-    grid plan instead."""
+    grid or the streaming plan instead."""
     return _best_plan(nb, B, card, cluster_bwd_fits(H, card), _bwd_step_clocks,
                       lambda C, R, g: (C, g["S"], R))
 
@@ -429,6 +432,12 @@ GRID_UNITS = 8
 columns wide, the backward's N = U = 8 columns of dh (multiples of 8).
 Sixteen units' slice of W_hh fits a block's shared memory only up to H
 544, below the grid's widths."""
+
+GRID_MAX_HIDDEN = 1024
+"""The widest H of the grid forward and backward (``grid.cuh``
+``kMaxHidden``): their W_hh in split TF32, 24·H² bytes, fills the H100's
+132 blocks of shared memory near it (25.2 MB at H 1024). Past it
+:func:`wide_plan` and :func:`wide_bwd_plan` take the streaming kernels."""
 
 GRID_STAGES = 2
 """Stages of the grid forward's ring of h chunks: one landing while the
@@ -492,13 +501,18 @@ def grid_resident(card: dict, smem: int, blocks_sm: str = "grid_blocks_sm") -> i
 
 
 def _grid_plan(what: str, nb: int, H: int, smem: int, card: dict, blocks_sm: str,
-               **shape) -> dict:
+               must: bool = True, **shape) -> dict | None:
     """The plan of a grid kernel (``what``) of ``smem`` shared bytes a block:
     ceil(H / 8) blocks a bucket, waves of the buckets resident at once, and
-    the kernel's ``shape`` keys; raises where one bucket's blocks are not."""
+    the kernel's ``shape`` keys. Where one bucket's blocks are not resident
+    at once (none are past :data:`GRID_MAX_HIDDEN`) it raises, or with
+    ``must`` False returns None."""
     blocks = -(-H // GRID_UNITS)
-    resident = grid_resident(card, smem, blocks_sm) if smem <= card["smem"] else 0
+    resident = (grid_resident(card, smem, blocks_sm)
+                if smem <= card["smem"] and H <= GRID_MAX_HIDDEN else 0)
     if resident < blocks:
+        if not must:
+            return None
         raise RuntimeError(
             f"K1's {what} at H {H}: {blocks} blocks of {smem} shared bytes, "
             f"{resident} resident at once on this card (cooperative launches "
@@ -509,7 +523,7 @@ def _grid_plan(what: str, nb: int, H: int, smem: int, card: dict, blocks_sm: str
             "waves": -(-nb // per_wave), "smem": smem, "resident": resident}
 
 
-def grid_plan(nb: int, B: int, H: int, card: dict) -> dict:
+def grid_plan(nb: int, B: int, H: int, card: dict, must: bool = True) -> dict | None:
     """K1's grid forward for (nb, B, H) on the card's numbers
     (:func:`cluster_card`): ceil(H / 8) blocks a bucket (each owning a unit,
     the last one's slice masked) of :func:`grid_smem` shared bytes; a
@@ -517,49 +531,113 @@ def grid_plan(nb: int, B: int, H: int, card: dict) -> dict:
     the rest go in further launches. B does not enter: a block loops over
     the batch in tiles of 64 rows. Raises where one bucket's blocks do not
     fit resident at once (a card without cooperative launches, or too
-    little shared memory): no other route takes its place."""
-    return _grid_plan("grid forward", nb, H, grid_smem(H), card, "grid_blocks_sm",
+    little shared memory), or with ``must`` False returns None there
+    (:func:`wide_plan` then plans the streaming kernel)."""
+    return _grid_plan("grid forward", nb, H, grid_smem(H), card, "grid_blocks_sm", must,
                       chunk=GRID_CHUNK, stages=GRID_STAGES)
 
 
-def grid_bwd_plan(nb: int, B: int, H: int, card: dict) -> dict:
+def grid_bwd_plan(nb: int, B: int, H: int, card: dict, must: bool = True) -> dict | None:
     """K1's grid backward for (nb, B, H) on the card's numbers, in the form
     of :func:`grid_plan`: ceil(H / 8) blocks a bucket of
     :func:`grid_bwd_smem` shared bytes, the buckets resident at once a wave
     (the backward's own count of blocks an SM, ``card["grid_bwd_blocks_sm"]``,
     that of its instance for two blocks an SM: at H up to 576 two blocks
     share an SM), and its parts in flight (:data:`GRID_BWD_AHEAD`).
-    Raises where one bucket's blocks do not fit resident at once: no other
-    route takes its place."""
+    Raises where one bucket's blocks do not fit resident at once, or with
+    ``must`` False returns None there (:func:`wide_bwd_plan` then plans the
+    streaming kernel)."""
     smem = grid_bwd_smem(H)
     two = 2 * (smem + card["smem_reserved"]) <= card["smem_sm"]
-    return _grid_plan("grid backward", nb, H, smem, card, "grid_bwd_blocks_sm",
+    return _grid_plan("grid backward", nb, H, smem, card, "grid_bwd_blocks_sm", must,
                       ahead=GRID_BWD_AHEAD[0 if two else 1])
+
+
+STREAM_MAX_THREADS = 1024
+"""Threads a block of the streaming kernels (``gru_seq_wide.cu``
+``kMaxThreads``, their launch bound): a thread owns every column j + k·1024
+past that."""
+
+STREAM_ROWS = (1, 2, 4)
+"""Batch rows a block of the streaming kernels (``kMaxRows`` 4)."""
+
+
+def stream_smem(R: int, H: int) -> tuple[int, int]:
+    """Shared bytes of a block of the streaming forward and backward at R
+    rows (as ``gru_seq_wide.cu``'s ``fwd_smem_bytes`` / ``bwd_smem_bytes``):
+    two buffers of R rows of h at a pitch of H rounded up to 4, and two of
+    dhp at 3H rounded up to 4."""
+    return 4 * 2 * R * ((H + 3) & ~3), 4 * 2 * R * ((3 * H + 3) & ~3)
+
+
+def wide_cap(card: dict) -> int:
+    """The widest H of K1's wide route on the card's numbers: the streaming
+    backward's one-row tile holds two rows of dhp, 2·3H floats (3H rounded
+    up to 4), in one block's shared memory (``card["smem"]``, the opt-in
+    bytes a block; the card reserves its 1 KB a block on top). H 9685 on
+    the H100's 232,448 bytes. Past it no route holds a step's dhp, and the
+    wrappers raise."""
+    return card["smem"] // 8 // 4 * 4 // 3
+
+
+def _check_wide(name: str, H: int, card: dict) -> None:
+    cap = wide_cap(card)
+    if H > cap:
+        raise ValueError(
+            f"{name}: H={H} past the wide route's cap H {cap} on this card: the streaming "
+            f"backward's one-row tile, 2 x 3H floats of dhp, must fit a block's "
+            f"{card['smem']} shared bytes")
+
+
+def stream_plan(nb: int, B: int, H: int, card: dict) -> dict:
+    """The streaming kernels' tile for (nb, B, H) on the card's numbers (as
+    ``gru_seq_wide.cu``'s ``make_wide_tile``): R rows a block, the fewest of
+    :data:`STREAM_ROWS` that give one tile per SM for the launch's nb·B
+    rows (else 4), halved while the backward's shared bytes
+    (:func:`stream_smem`) do not fit a block; ceil(B / R) blocks a bucket;
+    min(1024, H rounded up to a warp) threads a block, each owning ``cols``
+    = ceil(H / threads) columns; both halves' shared bytes. Raises past
+    :func:`wide_cap`."""
+    _check_wide("K1's streaming kernels", H, card)
+    want = -(-max(nb, 1) * max(B, 1) // card["sms"])
+    R = 1 if want <= 1 else 2 if want <= 2 else STREAM_ROWS[-1]
+    while R > 1 and stream_smem(R, H)[1] > card["smem"]:
+        R //= 2
+    threads = min(STREAM_MAX_THREADS, -(-H // 32) * 32)
+    fwd_smem, bwd_smem = stream_smem(R, H)
+    return {"route": "stream", "R": R, "blocks": -(-B // R), "threads": threads,
+            "cols": -(-H // threads), "fwd_smem": fwd_smem, "bwd_smem": bwd_smem}
 
 
 def wide_plan(nb: int, B: int, H: int, card: dict) -> dict:
     """K1's wide forward route for (nb, B, H) on the card's numbers: the
     cluster plan (:func:`cluster_plan`) up to the clusters' cap, the grid
-    plan (:func:`grid_plan`, which raises where it cannot launch) above it."""
+    plan (:func:`grid_plan`) where a bucket's grid blocks are resident at
+    once (to H 1024 on the H100), else the streaming kernel's
+    (:func:`stream_plan`, which raises past :func:`wide_cap`)."""
     plan = cluster_plan(nb, B, H, card)
-    return plan if plan["route"] == "cluster" else grid_plan(nb, B, H, card)
+    if plan["route"] == "cluster":
+        return plan
+    return grid_plan(nb, B, H, card, must=False) or stream_plan(nb, B, H, card)
 
 
 def wide_bwd_plan(nb: int, B: int, H: int, card: dict) -> dict:
     """K1's wide backward route for (nb, B, H) on the card's numbers: the
     cluster backward's plan (:func:`cluster_bwd_plan`) up to its cap, the
-    grid backward's (:func:`grid_bwd_plan`, which raises where it cannot
-    launch) above it."""
+    grid backward's (:func:`grid_bwd_plan`) where a bucket's blocks are
+    resident at once, else the streaming kernel's (:func:`stream_plan`)."""
     plan = cluster_bwd_plan(nb, B, H, card)
-    return plan if plan["route"] == "cluster" else grid_bwd_plan(nb, B, H, card)
+    if plan["route"] == "cluster":
+        return plan
+    return grid_bwd_plan(nb, B, H, card, must=False) or stream_plan(nb, B, H, card)
 
 
 _CARDS: dict[int, dict] = {}
 
 
 def cluster_card(device: torch.device | None = None) -> dict:
-    """The numbers :func:`cluster_plan`, :func:`grid_plan` and
-    :func:`grid_bwd_plan` take, from the card itself
+    """The numbers :func:`cluster_plan`, :func:`grid_plan`,
+    :func:`grid_bwd_plan` and :func:`stream_plan` take, from the card itself
     (``gru_seq_cluster_card``, ``gru_seq_grid_card``,
     ``gru_seq_grid_bwd_card``; kept per device): SMs, shared bytes a block
     and an SM and those reserved a block, clusters of each C resident at
@@ -587,13 +665,15 @@ def cluster_card(device: torch.device | None = None) -> dict:
 
 def gru_sequence_wide(xp, w_hh_t, b_hh, h0, plan: dict | None = None) -> torch.Tensor:
     """Launch K1's wide forward on stacked, checked CUDA tensors (any H up
-    to :data:`MAX_WIDE_HIDDEN`; :func:`gru_sequence` takes it past
+    to :func:`wide_cap`; :func:`gru_sequence` takes it past
     :data:`MAX_HIDDEN`) on :func:`wide_plan`'s route, or the ``plan`` given:
     the cluster kernel (counted by ``gru_sequence_wide.cluster_launches``)
     where a cluster holds W_hhᵀ, the grid kernel (one launch a wave of
-    buckets, each counted by ``gru_sequence_wide.grid_launches``) above
-    that, and the streaming kernel (``gru_sequence_wide.launches``) only
-    for ``{"route": "stream"}``. A plan the card cannot launch raises."""
+    buckets, each counted by ``gru_sequence_wide.grid_launches``) where a
+    bucket's grid blocks are resident at once, and the streaming kernel
+    (``gru_sequence_wide.launches``; ``{"route": "stream"}``, whose tile
+    the kernel takes from the card, as :func:`stream_plan`) past that. A
+    plan the card cannot launch raises."""
     nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
     ys = torch.empty((nb, T, B, H), dtype=torch.float32, device=xp.device)
     if nb and T and B:
@@ -656,12 +736,13 @@ def grid_chain_probe(xp, w_hh_t, b_hh, h0, plan: dict) -> None:
 
 def wide_tile(nb: int, B: int, H: int) -> dict:
     """The wide route for (nb, B, H) on the current card: the forward's
-    ``route`` (``"cluster"`` or ``"grid"``) with its cluster
+    ``route`` (``"cluster"``, ``"grid"`` or ``"stream"``) with its cluster
     ``C`` and rows ``R`` (None off the cluster kernel) and ``plan``
-    (:func:`wide_plan`: the cluster or the grid plan); the backward's the
-    same under ``bwd_route``, ``bwd_C``, ``bwd_R`` and ``bwd_plan``
-    (:func:`wide_bwd_plan`); and the streaming kernels' tile: batch rows
-    a block, tiles a bucket, threads a block, and the forward's and the
+    (:func:`wide_plan`: the cluster, grid or streaming plan); the backward's
+    the same under ``bwd_route``, ``bwd_C``, ``bwd_R`` and ``bwd_plan``
+    (:func:`wide_bwd_plan`); and the streaming kernels' tile as the kernel
+    makes it on the card (:func:`stream_plan` mirrors it): batch rows a
+    block, tiles a bucket, threads a block, and the forward's and the
     backward's shared bytes."""
     lib = _build.load_library()
     out = (ctypes.c_int * 5)()
@@ -729,7 +810,7 @@ def gru_sequence_bwd(xp, w_hh_t, b_hh, h0, ys, d_ys, plan: dict | None = None):
     device = _device_of("gru_sequence_bwd", xp, w_hh_t, b_hh, h0, ys, d_ys)
     if device.type == "cpu":
         return gru_sequence_bwd_reference(xp, w_hh_t, b_hh, h0, ys, d_ys)
-    _check_cuda("gru_sequence_bwd", H, MAX_WIDE_HIDDEN, xp=xp, w_hh_t=w_hh_t,
+    _check_cuda("gru_sequence_bwd", H, None, xp=xp, w_hh_t=w_hh_t,
                 b_hh=b_hh, h0=h0, ys=ys, d_ys=d_ys)
     h_prev = torch.cat([h0.unsqueeze(1), ys[:, :T - 1]], dim=1) if T else ys
     h_prev = h_prev.reshape(nb, T * B, H)
@@ -749,15 +830,16 @@ _BWD_PLAN_KEYS = ("C", "R", "S", "KE", "U")
 def gru_sequence_bwd_wide(xp, hp, h_prev, d_ys, w_hh_t, b_hh, dhp, plan: dict | None = None):
     """Launch K1's wide backward on CUDA tensors: the arguments and results
     of :func:`gru_sequence_bwd_recurrence`, for any H up to
-    :data:`MAX_WIDE_HIDDEN`, on :func:`wide_bwd_plan`'s route, or the
-    ``plan`` given: the cluster kernel (counted by
+    :func:`wide_cap`, on :func:`wide_bwd_plan`'s route, or the ``plan``
+    given: the cluster kernel (counted by
     ``gru_sequence_bwd_wide.cluster_launches``) where a cluster holds
     W_hhᵀ, the grid kernel (one launch a wave of buckets, each counted by
     ``gru_sequence_bwd_wide.grid_launches``; none at T = 0, where dh0 is
-    zero) above that, and the streaming kernel, which streams W_hh and is
-    passed W_hhᵀ transposed back, contiguous
-    (``gru_sequence_bwd_wide.launches``), only for ``{"route": "stream"}``.
-    A plan the card cannot launch raises."""
+    zero) where a bucket's grid blocks are resident at once, and the
+    streaming kernel past that (``{"route": "stream"}``), which streams
+    W_hh and is passed W_hhᵀ transposed back, contiguous
+    (``gru_sequence_bwd_wide.launches``). A plan the card cannot launch
+    raises."""
     nb, T, B, H = d_ys.shape
     dxp = torch.empty_like(xp)
     dh0 = torch.empty((nb, B, H), dtype=torch.float32, device=xp.device)
@@ -840,7 +922,7 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
     ``gru_sequence_bwd_wide.cluster_launches``,
     ``gru_sequence_bwd_wide.grid_launches`` and
     ``gru_sequence_bwd_wide.launches`` the backward's).
-    H past :data:`MAX_WIDE_HIDDEN` raises."""
+    H past :func:`wide_cap` (H 9685 on the H100) raises."""
     if xp.dim() == 3:
         return gru_sequence(xp[None], w_hh_t[None], b_hh[None], h0[None])[0]
     return GRUSequence.apply(xp, w_hh_t, b_hh, h0)

@@ -14,10 +14,15 @@ it launches the kernel or raises.
 
 The kernel and the plain version round alike: each step is ``y = b0·x + z0``,
 then ``z_i ← (b_{i+1}·x + z_{i+1}) − a_{i+1}·y``, every product and sum
-rounded on its own (no fused multiply-add), in the input's dtype (float32 or
-float64). In float64 the kernel spreads a column's state over a group of
-lanes (lane 0 forms y and the first :data:`IIR_LOCAL` elements, lane g ≥ 1
-one element each); in float32 one thread holds it; :func:`iir_plan` picks.
+rounded on its own (no fused multiply-add), in the input's dtype: float64,
+float32, or bfloat16 and float16, where each operation is taken in float32
+and rounded to the dtype, as PyTorch does. Any number of taps n ≥ 1, as
+the JAX ``lfilter``. In float64 the kernel spreads a column's state over a
+group of lanes (lane 0 forms y and the first :data:`IIR_LOCAL` elements,
+lane g ≥ 1 one element each) up to :data:`IIR_MAX_LANE_TAPS` taps; in
+float32 one thread holds it in registers up to :data:`IIR_MAX_COLUMN_TAPS`;
+past those, and in bfloat16 and float16, one thread a column holds it in
+memory, the order an argument (the runtime route); :func:`iir_plan` picks.
 """
 
 from __future__ import annotations
@@ -27,8 +32,24 @@ import torch
 
 from eegsynth_torch import _build
 
-MAX_TAPS = 9
-"""Longest b or a the kernel takes: order 8, a 4th-order Butterworth band-pass."""
+IIR_MAX_LANE_TAPS = 17
+"""Most taps of the lanes route (float64, ``iir_filter.cu``
+``kMaxLaneTaps``): 16 lanes a column. A warp would hold a column to 34
+taps; each n is a kernel instance of its own, and the build stops here."""
+
+IIR_MAX_COLUMN_TAPS = 17
+"""Most taps of the column route in float32 (``kMaxColumnTaps``): 16 state
+elements, 34 taps and three chunks of x and y in one thread's registers.
+bfloat16 and float16 take the runtime route at every n."""
+
+IIR_SHARED_STATE_BYTES = 49152
+"""The runtime route keeps a block's columns' states in shared memory up to
+this many bytes (``kSharedStateBytes``: what every card gives a block
+without opting in), else in a global buffer."""
+
+IIR_DTYPES = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float16: "f16"}
+"""The dtypes the kernel takes, and its entry points' suffixes."""
 
 IIR_THREADS = 128
 """Threads a block of the IIR kernel (``iir_filter.cu`` ``kThreads``): one
@@ -56,21 +77,31 @@ def iir_lanes(n: int, local: int = IIR_LOCAL) -> int:
 
 def iir_plan(M: int, n: int, dtype: torch.dtype) -> dict:
     """The IIR kernel's launch for ``M`` columns of ``n`` taps in ``dtype``:
-    the route (``"lanes"``: float64, :func:`iir_lanes` lanes a column, lane 0
-    holding ``local`` state elements; ``"column"``: one thread a column
-    holding them all, in float32, whose four-cycle operations leave the
-    shuffles' latency on the lanes' step, or where one lane holds the whole
-    state), ``lanes``, ``columns_per_block`` (IIR_THREADS / lanes), ``blocks``
-    and the ``chunk`` of rows. Column c goes to block c // columns_per_block,
-    lanes (c % columns_per_block)·lanes onwards. Raises past
-    :data:`MAX_TAPS`."""
-    if not 1 <= n <= MAX_TAPS:
-        raise ValueError(f"lfilter: {n} taps, not 1 to {MAX_TAPS}")
-    lanes = iir_lanes(n) if dtype == torch.float64 else 1
+    the route (``"lanes"``: float64 up to :data:`IIR_MAX_LANE_TAPS` taps,
+    :func:`iir_lanes` lanes a column, lane 0 holding ``local`` state
+    elements; ``"column"``: one thread a column holding them all in
+    registers, in float32 up to :data:`IIR_MAX_COLUMN_TAPS` taps, whose
+    four-cycle operations leave the shuffles' latency on the lanes' step,
+    or in float64 where one lane holds the whole state; ``"runtime"``: past
+    those, and in bfloat16 and float16, one thread a column holding its
+    ``n − 1`` state elements in memory, ``state`` ``"shared"`` where a
+    block's fit :data:`IIR_SHARED_STATE_BYTES`, else ``"global"``), ``lanes``,
+    ``columns_per_block`` (IIR_THREADS / lanes), ``blocks`` and the
+    ``chunk`` of rows. Column c goes to block c // columns_per_block, lanes
+    (c % columns_per_block)·lanes onwards. Raises for fewer than one tap."""
+    if n < 1:
+        raise ValueError(f"lfilter: {n} taps, not 1 or more")
+    lanes = iir_lanes(n) if dtype == torch.float64 and n <= IIR_MAX_LANE_TAPS else 1
     per_block = IIR_THREADS // lanes
-    return {"route": "lanes" if lanes > 1 else "column", "lanes": lanes,
+    plan = {"route": "lanes" if lanes > 1 else "column", "lanes": lanes,
             "local": IIR_LOCAL if lanes > 1 else n - 1, "columns_per_block": per_block,
             "threads": IIR_THREADS, "blocks": -(-M // per_block), "chunk": IIR_CHUNK}
+    column = dtype in (torch.float64, torch.float32) and n <= IIR_MAX_COLUMN_TAPS
+    if lanes == 1 and not column:
+        smem = IIR_THREADS * (n - 1) * torch.empty((), dtype=dtype).element_size()
+        plan.update(route="runtime", local=0,
+                    state="shared" if smem <= IIR_SHARED_STATE_BYTES else "global")
+    return plan
 
 
 def lfilter_zi(b, a) -> np.ndarray:
@@ -98,6 +129,8 @@ def _taps(b, a, dtype) -> tuple[torch.Tensor, torch.Tensor]:
     b = torch.as_tensor(np.asarray(b, dtype=np.float64)).to(dtype)
     a = torch.as_tensor(np.asarray(a, dtype=np.float64)).to(dtype)
     n = max(b.shape[0], a.shape[0])
+    if n < 1:
+        raise ValueError(f"lfilter: {n} taps, not 1 or more")
     b = torch.nn.functional.pad(b, (0, n - b.shape[0]))
     a = torch.nn.functional.pad(a, (0, n - a.shape[0]))
     return b / a[0], a / a[0]
@@ -127,30 +160,39 @@ def lfilter_reference(b: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
     return u[:, 0].contiguous()
 
 
-def _check_cuda(x: torch.Tensor, zi: torch.Tensor, n: int) -> None:
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"lfilter: x must be float32 or float64, got {x.dtype}")
+def _check_cuda(x: torch.Tensor, zi: torch.Tensor) -> None:
+    if x.dtype not in IIR_DTYPES:
+        raise TypeError(f"lfilter: x must be float64, float32, bfloat16 or float16, "
+                        f"got {x.dtype}")
     if zi.device != x.device or zi.dtype != x.dtype:
         raise ValueError("lfilter: zi must lie on x's device, in x's dtype")
-    if n > MAX_TAPS:
-        raise ValueError(f"lfilter: {n} taps > {MAX_TAPS}")
 
 
 def _launch(b: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
             zi: torch.Tensor) -> torch.Tensor:
     T, M = x.shape
+    n = b.shape[0]
+    plan = iir_plan(M, n, x.dtype)
     y = torch.empty_like(x)
     if T and M:
         lib = _build.load_library()
-        fn = "iir_filter_f64" if x.dtype == torch.float64 else "iir_filter_f32"
-        plan = iir_plan(M, b.shape[0], x.dtype)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            # b and a stay on the host: the C entry point copies them into
-            # the kernel's parameters
-            code = getattr(lib, fn)(x.data_ptr(), zi.data_ptr(), b.data_ptr(),
-                                    a.data_ptr(), y.data_ptr(), T, M, b.shape[0],
-                                    plan["lanes"], stream)
+            if plan["route"] == "runtime":
+                # the taps in a device buffer; the state in a copy of zi,
+                # which the kernel may overwrite
+                fn = f"iir_filter_runtime_{IIR_DTYPES[x.dtype]}"
+                taps = torch.cat([b, a]).to(x.device)
+                state = zi.clone()
+                code = getattr(lib, fn)(x.data_ptr(), state.data_ptr(), taps.data_ptr(),
+                                        y.data_ptr(), T, M, n, stream)
+            else:
+                # b and a stay on the host: the C entry point copies them
+                # into the kernel's parameters
+                fn = f"iir_filter_{IIR_DTYPES[x.dtype]}"
+                code = getattr(lib, fn)(x.data_ptr(), zi.data_ptr(), b.data_ptr(),
+                                        a.data_ptr(), y.data_ptr(), T, M, n,
+                                        plan["lanes"], stream)
         _build.check(lib, fn, code)
         lfilter.launches += 1
     return y
@@ -207,7 +249,7 @@ def lfilter(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
     if x.device.type == "cpu":
         y = lfilter_reference(b, a, x2, zi2)
     elif x.device.type == "cuda":
-        _check_cuda(x2, zi2, b.shape[0])
+        _check_cuda(x2, zi2)
         y = _launch(b, a, x2, zi2)
     else:
         raise ValueError(f"lfilter: no kernel for device {x.device}")

@@ -68,9 +68,9 @@ SHAPES = ((7734, 14, 8, F64), (7734, 14, 2, F64), (7734, 14, 8, F32), (7734, 14,
 BOTH_DTYPES = (("constexpr bool kLanesRoute = sizeof(T) == 8;",
                 "constexpr bool kLanesRoute = true;"),)
 LOCAL_1 = (("constexpr int kLocal = 2;", "constexpr int kLocal = 1;"),)
-NO_LOADS = (("buf[u] = (kAll || u < rows) ? xc[static_cast<size_t>(u) * stride] : T(0);",
+NO_LOADS = (("buf[u] = (kAll || u < rows) ? xc[static_cast<size_t>(u) * stride] : zero<T>();",
              "buf[u] = kAll ? cur[(u + 1) % kChunk] : (u < rows) ? "
-             "xc[static_cast<size_t>(u) * stride] : T(0);"),
+             "xc[static_cast<size_t>(u) * stride] : zero<T>();"),
             ("void load_rows(T (&buf)[kChunk], const T* __restrict__ xc,",
              "void load_rows(T (&buf)[kChunk], const T (&cur)[kChunk], const T* __restrict__ xc,"),
             ("load_rows<false>(cur, xc, min(kChunk, T_len), stride);",

@@ -37,10 +37,10 @@ from eegsynth_torch.nn.attention import (
     flash_dq_plain, flash_forward, flash_forward_plain, mha,
 )
 from eegsynth_torch.nn.gru_sequence import (
-    MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_geometry, cluster_bwd_plan, cluster_card,
+    GRID_MAX_HIDDEN, MAX_HIDDEN, cluster_bwd_geometry, cluster_bwd_plan, cluster_card,
     cluster_geometry, cluster_plan, grid_bwd_plan, grid_plan, gru_sequence, gru_sequence_bwd,
     gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide,
-    weight_grads, wide_bwd_plan, wide_plan,
+    weight_grads, wide_bwd_plan, wide_cap, wide_plan,
 )
 from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
@@ -71,6 +71,17 @@ def _inputs(T, B, H, device, seed=0, lead=()):
     b = (rng.standard_normal((*lead, 1, 3 * H)) * 0.1).astype(np.float32)
     h0 = rng.uniform(-0.5, 0.5, (*lead, B, H)).astype(np.float32)
     return [torch.from_numpy(a).to(device) for a in (xp, w, b, h0)]
+
+
+def _device_inputs(T, B, H, device, seed=0, lead=()):
+    """_inputs' distributions drawn on the card: at the wide route's cap W_hhᵀ
+    alone is 1.1 GB of float32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    xp = torch.randn((*lead, T, B, 3 * H), generator=g, device=device)
+    w = torch.randn((*lead, H, 3 * H), generator=g, device=device) / H ** 0.5
+    b = torch.randn((*lead, 1, 3 * H), generator=g, device=device) * 0.1
+    h0 = torch.rand((*lead, B, H), generator=g, device=device) - 0.5
+    return [xp, w, b, h0]
 
 
 # serving width, embedder width, H cap with a ragged batch, a batch just
@@ -122,8 +133,11 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
         gru_sequence(xp, w.t().contiguous().t(), b, h0)
     with pytest.raises(ValueError, match="several devices"):
         gru_sequence(xp, w.cpu(), b, h0)
-    with pytest.raises(ValueError, match="H=1056"):
-        gru_sequence(*_inputs(2, 2, 1056, cuda_device))
+    past = wide_cap(cluster_card()) + 1
+    with pytest.raises(ValueError, match=f"H={past} past the wide route's cap H {past - 1}"):
+        gru_sequence(*(torch.zeros(shape, device=cuda_device)
+                       for shape in ((2, 2, 3 * past), (past, 3 * past), (1, 3 * past),
+                                     (2, past))))
     ys = gru_sequence(xp, w, b, h0)[None]
     with pytest.raises(TypeError, match="float32"):
         gru_sequence_bwd(xp[None], w[None], b[None], h0[None], ys, ys.double())
@@ -227,33 +241,49 @@ def _wide_counts() -> tuple:
 
 def _wide_forward(nb, B, H) -> list:
     """The wide forward's launches _wide_counts expects at (nb, B, H): the
-    cluster kernel where the card's cluster plan fits, else the grid kernel
-    (one launch a wave of buckets)."""
+    cluster kernel where the card's cluster plan fits, the grid kernel (one
+    launch a wave of buckets) where its blocks are resident, else the
+    streaming kernel."""
     plan = wide_plan(nb, B, H, cluster_card())
-    cluster = plan["route"] == "cluster"
-    return [0, int(cluster), 0 if cluster else plan["waves"], 0]
+    route = plan["route"]
+    return [0, int(route == "cluster"), plan["waves"] if route == "grid" else 0,
+            int(route == "stream")]
 
 
 def _wide_backward(nb, B, H) -> list:
     """The wide backward's launches _wide_counts expects at (nb, B, H): the
-    cluster kernel where the card's backward plan fits, else the grid kernel
-    (one launch a wave of buckets)."""
+    cluster kernel where the card's backward plan fits, the grid kernel (one
+    launch a wave of buckets) where its blocks are resident, else the
+    streaming kernel."""
     plan = wide_bwd_plan(nb, B, H, cluster_card())
-    cluster = plan["route"] == "cluster"
-    return [0, int(cluster), 0, 0 if cluster else plan["waves"]]
+    route = plan["route"]
+    return [0, int(route == "cluster"), int(route == "stream"),
+            plan["waves"] if route == "grid" else 0]
 
 
 # K1's wide route (H past 128; each half on a cluster up to its cap, in
 # gru_seq_cluster.cu and gru_seq_cluster_bwd.cu; past it each half on a
-# grid, gru_seq_grid.cu and gru_seq_grid_bwd.cu): the first width past the register kernels' cap (3H
-# and H not multiples of 4: the scalar tails), H 256 and 512
-# (bench_kernels' sweep) with odd T and B, a batch past one wave, one step,
-# and the largest H
+# grid, gru_seq_grid.cu and gru_seq_grid_bwd.cu; past H 1024 on the
+# streaming kernels, gru_seq_wide.cu): the first width past the register
+# kernels' cap (3H and H not multiples of 4: the scalar tails), H 256 and
+# 512 (bench_kernels' sweep) with odd T and B, a batch past one wave, one
+# step, the grids' largest H; past it H 1025 (two columns a thread, nb 2),
+# 1536 (four rows a block), 2048 and the wide route's cap on this card
+# (ten columns a thread, one row a block, the backward's dhp filling a
+# block's shared memory) at a short T
 @pytest.mark.parametrize("nb,T,B,H", [(2, 101, 37, 129), (2, 301, 33, 256),
                                       (2, 77, 5, 512), (1, 50, 600, 200),
-                                      (3, 1, 5, 256), (1, 20, 3, 1024)])
+                                      (3, 1, 5, 256), (1, 20, 3, 1024),
+                                      (2, 40, 5, 1025), (1, 30, 600, 1536),
+                                      (1, 20, 3, 2048), (1, 4, 2, "cap")])
 def test_wide_kernels_match_plain(cuda_device, nb, T, B, H):
-    inputs = _inputs(T, B, H, cuda_device, seed=H, lead=(nb,))
+    if H == "cap":
+        H = wide_cap(cluster_card())
+        inputs = _device_inputs(T, B, H, cuda_device, seed=H, lead=(nb,))
+    else:
+        inputs = _inputs(T, B, H, cuda_device, seed=H, lead=(nb,))
+    if H > GRID_MAX_HIDDEN:
+        assert _wide_forward(nb, B, H) + _wide_backward(nb, B, H) == [0, 0, 0, 1, 0, 0, 1, 0]
     before = _wide_counts()
     ys = gru_sequence(*inputs)
     ref = gru_sequence_reference(*inputs)
@@ -305,7 +335,7 @@ def test_cluster_route_ends_at_its_cap(cuda_device):
     calls of the cluster kernel give the same bits, and a plan it cannot
     launch raises."""
     card = cluster_card()
-    cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
+    cap = max(H for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1)
               if cluster_plan(1, 1, H, card)["route"] == "cluster")
     for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0, 0])):
         inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
@@ -352,10 +382,10 @@ def test_grid_route_takes_over_past_the_cluster_cap(cuda_device):
     the card holds resident at once is refused by the cooperative launch and
     raises."""
     card = cluster_card()
-    cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
+    cap = max(H for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1)
               if cluster_plan(1, 1, H, card)["route"] == "cluster")
     for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0, 0]),
-                    (MAX_WIDE_HIDDEN, [0, 0, 1, 0, 0, 0, 0, 0])):
+                    (GRID_MAX_HIDDEN, [0, 0, 1, 0, 0, 0, 0, 0])):
         inputs = _inputs(40, 9, H, cuda_device, seed=H, lead=(1,))
         before = _wide_counts()
         ys = gru_sequence(*inputs)
@@ -430,7 +460,7 @@ def test_cluster_backward_ends_at_its_cap(cuda_device):
     Two calls of the cluster backward give the same bits, T = 0 gives zero
     gradients, and a plan it cannot launch raises."""
     card = cluster_card()
-    cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
+    cap = max(H for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1)
               if cluster_bwd_plan(1, 1, H, card)["route"] == "cluster")
     for H, want in ((cap, [0, 0, 0, 0, 0, 1, 0, 0]), (cap + 1, [0, 0, 0, 0, 0, 0, 0, 1])):
         inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
@@ -492,10 +522,10 @@ def test_grid_backward_takes_over_past_the_cluster_cap(cuda_device):
     gradients; a plan with more blocks than the card holds resident at once
     is refused by the cooperative launch and raises."""
     card = cluster_card()
-    cap = max(H for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1)
+    cap = max(H for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1)
               if cluster_bwd_plan(1, 1, H, card)["route"] == "cluster")
     for H, want in ((cap, [0, 0, 0, 0, 0, 1, 0, 0]), (cap + 1, [0, 0, 0, 0, 0, 0, 0, 1]),
-                    (MAX_WIDE_HIDDEN, [0, 0, 0, 0, 0, 0, 0, 1])):
+                    (GRID_MAX_HIDDEN, [0, 0, 0, 0, 0, 0, 0, 1])):
         inputs = _inputs(40, 9, H, cuda_device, seed=H, lead=(1,))
         ys = gru_sequence_reference(*inputs)
         d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(H)).to(cuda_device)
@@ -527,9 +557,9 @@ def test_grid_backward_takes_over_past_the_cluster_cap(cuda_device):
                               plan=too_many)
 
 
-# the streaming backward (gru_seq_wide.cu), which no automatic route takes
-# any more: past the cap and at H 1024 with nb 2, on plan={"route":
-# "stream"}, as chip_smoke.py times it in turns
+# the streaming backward (gru_seq_wide.cu), which the automatic route takes
+# only past H 1024: below it, past the clusters' cap and at H 1024 with nb
+# 2, on plan={"route": "stream"}, as chip_smoke.py times it in turns
 @pytest.mark.parametrize("nb,T,B,H", [(1, 40, 9, 545), (2, 30, 5, 1024)])
 def test_streaming_backward_runs_only_when_asked(cuda_device, nb, T, B, H):
     inputs, ys, d_ys, h_prev, hp = _wide_bwd_inputs(nb, T, B, H, cuda_device, seed=H + 1)
@@ -593,6 +623,44 @@ def test_wide_timegan_step_runs_on_wide_k1(cuda_device):
     launched = [a - b for a, b in zip(counts(), before)]
     assert launched[8] == 0 and launched[1] >= 2 and launched[2] == launched[3] == 0
     assert launched[5] >= 1 and launched[6] == launched[7] == 0
+    host = step("cpu")
+    logs = (card[3].cpu() - host[3]).abs() / host[3].abs().clamp(min=1.0)
+    assert torch.isfinite(card[3]).all() and logs.max().item() <= 1e-4
+
+
+def test_wide_timegan_step_runs_on_streaming_k1(cuda_device):
+    """A TimeGAN at z64/h1536 (a TimeGANConfig the JAX package builds, past
+    the grids' H 1024): one GAN step on the card takes the composed D-step
+    route, no K2; the generator's and supervisor's recurrences run the
+    streaming K1 forward and backward, no cluster and no grid kernel; the
+    step matches the CPU."""
+    cfg = TimeGANConfig(x_dim=14, z_dim=64, h_dim=1536)
+    nb, B, T = 1, 4, 32
+    params = timegan_init_stacked(
+        cfg, [torch.Generator().manual_seed(b) for b in range(nb)], device="cpu")
+    hp = ttrain.TimeGANHParams(batch_size=B)
+    optD, optG = make_gan_opts(hp)
+    rng = np.random.default_rng(1)
+    X = torch.from_numpy(rng.uniform(0, 1, (nb, 16, T, 14)).astype(np.float32))
+    gens = [torch.Generator().manual_seed(b) for b in range(nb)]
+    draws = ttrain.draw_gan(gens, torch.full((nb,), 16.0), B, T, cfg.z_dim, device="cpu")
+    x = ttrain.gather_batch(X, draws.idx)
+
+    def step(device):
+        p = tree_map(lambda t: t.to(device), params)
+        d = type(draws)(**{k: tree_map(lambda t: t.to(device), v)
+                           for k, v in vars(draws).items()})
+        d_state = optD.init(p["discriminator"])
+        g_state = optG.init({k: p[k] for k in ttrain.GEN_NETS})
+        return ttrain.gan_step(p, optD, d_state, optG, g_state, x.to(device), d, 1, hp)
+
+    counts = lambda: (*_wide_counts(), multigru_disc_inputs.launches)  # noqa: E731
+    before = counts()
+    card = step(cuda_device)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(counts(), before)]
+    assert launched[8] == 0 and launched[3] >= 2 and launched[1] == launched[2] == 0
+    assert launched[6] >= 1 and launched[5] == launched[7] == 0
     host = step("cpu")
     logs = (card[3].cpu() - host[3]).abs() / host[3].abs().clamp(min=1.0)
     assert torch.isfinite(card[3]).all() and logs.max().item() <= 1e-4
@@ -1409,22 +1477,40 @@ def test_iir_kernel_matches_plain(cuda_device, order, dtype, T, M):
     assert torch.equal(got.cpu(), ref)
 
 
+# every tap count to 9, the lanes route's 10 and widest 17 in float64, the
+# column route's widest (17) in float32, the runtime route's first (18)
+# in both, 34, 35 and 41 taps (its state in shared memory) and 200 (in a
+# global buffer); bfloat16 and float16 take the runtime route at every n
 @pytest.mark.parametrize("M", [14, 4099])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", range(1, 10))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", [*range(1, 10), 10, 17, 18, 34, 35, 41, 200])
 def test_iir_kernel_routes_equal_plain(cuda_device, n, dtype, M):
-    """Every tap count 1 to 9 on each route the plan keeps, at 14 columns
-    and at a wide batch: float64 takes the lane groups (one thread a column
-    where lane 0 holds the whole state), float32 one thread a column; stable
-    Butterworth low-passes, a ragged last chunk: equal to the plain version
-    bit for bit."""
+    """Every route the plan keeps, at 14 columns and at a wide batch:
+    float64 takes the lane groups up to 17 taps (one thread a column where
+    lane 0 holds the whole state), float32 one thread a column up to 17, and
+    past those (and in bfloat16 and float16) one thread a column holding its
+    state in memory;
+    stable Butterworth low-passes to 17 taps in float32 and float64, past
+    them and in bfloat16 and float16 filters of up to 8 poles within 0.5; a
+    ragged last chunk: equal to the plain version (on the CPU, in the same
+    dtype) bit for bit."""
     import scipy.signal
+    from iir_cases import stable_taps
     from eegsynth_torch.ops.filtering import (
         _taps, iir_lanes, iir_plan, lfilter, lfilter_reference,
     )
-    lanes = dtype == torch.float64 and iir_lanes(n) > 1
-    assert iir_plan(M, n, dtype)["route"] == ("lanes" if lanes else "column")
-    b, a = scipy.signal.butter(n - 1, 0.3) if n > 1 else (np.array([0.7]), np.array([1.0]))
+    if dtype in (torch.float32, torch.float64) and n <= 17:
+        lanes = dtype == torch.float64 and iir_lanes(n) > 1
+        assert iir_plan(M, n, dtype)["route"] == ("lanes" if lanes else "column")
+    else:
+        assert iir_plan(M, n, dtype)["route"] == "runtime"
+    if n == 1:
+        b, a = np.array([0.7]), np.array([1.0])
+    elif n <= 17 and dtype in (torch.float32, torch.float64):
+        b, a = scipy.signal.butter(n - 1, 0.3)
+    else:
+        b, a = stable_taps(n, seed=n)
     T = 1000 + 7
     x = torch.from_numpy(np.random.default_rng(n).standard_normal((T, M)).cumsum(axis=0)).to(dtype)
     zi = torch.from_numpy(np.random.default_rng(n + 1).standard_normal((n - 1, M))).to(dtype)
@@ -1478,6 +1564,32 @@ def test_filtfilt_on_the_card_matches_cpu(cuda_device):
     assert (got.cpu() - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", [10, 17, 41])
+def test_filtfilt_past_9_taps_on_the_card_equals_cpu(cuda_device, n, dtype):
+    """filtfilt at 10, 17 and 41 taps in every dtype the kernel takes: two
+    launches, equal to the CPU's filtfilt (the plain version) bit for bit,
+    and in float64 and float32 to scipy's lfilter pass by pass."""
+    import scipy.signal
+    from iir_cases import stable_taps
+    from eegsynth_torch.ops.filtering import filtfilt, lfilter
+    b, a = stable_taps(n, seed=n + 1)
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((3, 900, 5))).to(dtype)
+    before = lfilter.launches
+    got = filtfilt(b, a, x.to(cuda_device), axis=1)
+    assert lfilter.launches == before + 2
+    ref = filtfilt(b, a, x, axis=1)
+    assert got.dtype == dtype and torch.isfinite(ref).all()
+    assert torch.equal(got.cpu(), ref)
+    if dtype in (torch.float64, torch.float32):
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        xs = x[0].numpy()
+        ys = lfilter(b, a, x[0].to(cuda_device)).cpu().numpy()
+        want = scipy.signal.lfilter(b.astype(np_dtype), a.astype(np_dtype), xs, axis=0)
+        np.testing.assert_array_equal(ys, want)
+
+
 def test_iir_kernel_failure_raises(cuda_device, monkeypatch):
     """A CUDA tensor whose kernel call fails raises: it never returns the
     plain version's result."""
@@ -1502,9 +1614,9 @@ def test_iir_kernel_failure_raises(cuda_device, monkeypatch):
         filtering.lfilter(b, a, x, zi=zi)
     assert filtering.lfilter.launches == before
     with pytest.raises(ValueError, match="taps"):
-        filtering.lfilter(np.ones(10), np.ones(10), x, zi=torch.zeros(9, 3).to(x))
-    with pytest.raises(TypeError, match="float32 or float64"):
-        filtering.lfilter(b, a, x.to(torch.float16), zi=zi.to(torch.float16))
+        filtering.lfilter(np.ones(0), np.ones(0), x, zi=torch.zeros(0, 3).to(x))
+    with pytest.raises(TypeError, match="float64, float32, bfloat16 or float16"):
+        filtering.lfilter(b, a, x.to(torch.int32), zi=zi.to(torch.int32))
 
 
 def test_preprocess_on_the_card_matches_cpu(cuda_device, tmp_path):

@@ -1,9 +1,10 @@
 """eegsynth_torch's zero-phase filtering and filter design against the JAX
 package and scipy on the same numpy inputs: ``lfilter_zi``, the plain
 ``lfilter`` (the IIR kernel's CPU path and oracle) and ``filtfilt`` for the
-band-pass and the notch in float64 and float32, the too-short input, the
-designs, the mains detection and the fs estimate. The card runs the IIR
-kernel (tests/test_torch_card.py, chip_smoke.py)."""
+band-pass and the notch in float64 and float32, the plain ``lfilter`` at 10,
+17 and 41 taps, and in bfloat16, the too-short input, the designs, the mains
+detection and the fs estimate. The card runs the IIR kernel
+(tests/test_torch_card.py, chip_smoke.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +12,7 @@ import pytest
 import scipy.signal as sig
 import torch
 
+from iir_cases import stable_taps
 from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth.data import filters as jfilters
@@ -24,6 +26,11 @@ JAX_RTOL, SCIPY_RTOL = 1e-9, 1e-6
 # float32 against JAX's float32 scan, relative to the largest output (see
 # test_filtfilt_float32_matches_jax_float32)
 F32_BP_RTOL, F32_NOTCH_RTOL = 3e-3, 1e-5
+# bfloat16 against JAX's bfloat16 scan, relative to the largest output: one
+# unit in bfloat16's last place (2^-7). Both round every operation of the
+# step to bfloat16 in the same order (equal on these inputs); the unit is
+# XLA's freedom to keep a fused expression in float32
+BF16_RTOL = 2.0 ** -7
 
 
 def _design(kind, notch_hz=60.0):
@@ -55,6 +62,60 @@ def test_lfilter_plain_equals_scipy_bit_for_bit(kind, dtype):
     ref, _ = sig.lfilter(b.astype(dtype), a.astype(dtype), x, axis=0, zi=zi)
     assert ours.dtype == dtype
     np.testing.assert_array_equal(ours, ref)
+
+
+def _taps_of(n):
+    """A 9th-order Butterworth low-pass (10 taps) and stable filters of 17
+    and 41 taps (up to 8 poles within radius 0.5: a 16th-order design's
+    float32 output grows without bound)."""
+    return sig.butter(9, 0.3) if n == 10 else stable_taps(n, seed=n)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n", [10, 17, 41])
+def test_lfilter_plain_equals_scipy_at_any_order(n, dtype):
+    """Past the nine taps of preprocessing's band-pass (the kernel's lanes,
+    column and runtime routes on the card) the plain recurrence still
+    rounds as scipy's C loop: equal outputs in both dtypes."""
+    b, a = _taps_of(n)
+    x = _walk((1500, 5), seed=n).astype(dtype)
+    zi = (sig.lfilter_zi(b, a)[:, None] * x[0]).astype(dtype)
+    ours = tfilt.lfilter(b, a, torch.from_numpy(x), zi=torch.from_numpy(zi)).numpy()
+    ref, _ = sig.lfilter(b.astype(dtype), a.astype(dtype), x, axis=0, zi=zi)
+    assert ours.dtype == dtype and np.isfinite(ours).all()
+    np.testing.assert_array_equal(ours, ref)
+
+
+def test_lfilter_matches_jax_at_17_taps():
+    """An 8th-order Butterworth band-pass (17 taps), float64, against the
+    JAX scan, lfilter and filtfilt."""
+    b, a = sig.butter(8, [0.1, 0.4], btype="band")
+    x = _walk((2000, 14), seed=17)
+    zi = tfilt.lfilter_zi(b, a)[:, None] * x[0]
+    ours = tfilt.lfilter(b, a, torch.from_numpy(x), zi=torch.from_numpy(zi)).numpy()
+    ref = np.asarray(jfilt.lfilter(b, a, jnp.asarray(x), zi=jnp.asarray(zi)))
+    np.testing.assert_allclose(ours, ref, atol=JAX_RTOL * np.abs(ref).max(), rtol=0)
+    ours = tfilt.filtfilt(b, a, torch.from_numpy(x)).numpy()
+    ref = np.asarray(jfilt.filtfilt(b, a, jnp.asarray(x), axis=0))
+    np.testing.assert_allclose(ours, ref, atol=JAX_RTOL * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("n", [5, 20])
+def test_lfilter_bfloat16_matches_jax_bfloat16(n):
+    """The plain lfilter in bfloat16 (the kernel's oracle on the card, where
+    it takes x's dtype) against JAX's scan in bfloat16 within BF16_RTOL of
+    the largest float64 output, and no farther from float64 than twice
+    JAX's distance."""
+    b, a = stable_taps(n, seed=n)
+    x = np.random.default_rng(n).standard_normal((1500, 6)).astype(np.float32)
+    ours = tfilt.lfilter(b, a, torch.from_numpy(x).to(torch.bfloat16))
+    ref = jfilt.lfilter(b, a, jnp.asarray(x).astype(jnp.bfloat16))
+    assert ours.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    ours, ref = ours.float().numpy(), np.asarray(ref).astype(np.float32)
+    exact = sig.lfilter(b, a, x.astype(np.float64), axis=0)
+    scale = np.abs(exact).max()
+    np.testing.assert_allclose(ours, ref, atol=BF16_RTOL * scale, rtol=0)
+    assert np.abs(ours - exact).max() <= 2 * np.abs(ref - exact).max()
 
 
 @pytest.mark.parametrize("kind", ["bandpass", "notch"])

@@ -1,11 +1,13 @@
 """K1's wide forward and backward on thread-block clusters
-(``csrc/gru_seq_cluster.cu``, ``csrc/gru_seq_cluster_bwd.cu``) and, past the
-clusters' cap, on one cooperative grid (``csrc/gru_seq_grid.cu``,
-``csrc/gru_seq_grid_bwd.cu``) on the CPU: the route, cluster and rows that
-``cluster_plan`` and ``cluster_bwd_plan`` pick at the H100's numbers and the
-grid plans above the cap, and each kernel's summation order, emulated in
-numpy float32, against the plain versions and the Pallas kernel (and its
-custom VJP) in interpret mode. The kernels themselves run on the card
+(``csrc/gru_seq_cluster.cu``, ``csrc/gru_seq_cluster_bwd.cu``), past the
+clusters' cap on one cooperative grid (``csrc/gru_seq_grid.cu``,
+``csrc/gru_seq_grid_bwd.cu``) and past the grids on the streaming kernels
+(``csrc/gru_seq_wide.cu``) on the CPU: the route, cluster and rows that
+``cluster_plan`` and ``cluster_bwd_plan`` pick at the H100's numbers, the
+grid plans above the cap and the streaming tile past H 1024 up to the wide
+route's cap, and each kernel's summation order, emulated in numpy float32,
+against the plain versions and the Pallas kernel (and its custom VJP) in
+interpret mode. The kernels themselves run on the card
 (tests/test_torch_card.py, chip_smoke.py)."""
 
 import jax
@@ -19,12 +21,13 @@ from test_torch_threads import one_thread_each  # noqa: F401
 
 from eegsynth.nn.pallas_gru import gru_sequence as jax_gru_sequence
 from eegsynth_torch.nn.gru_sequence import (
-    CLUSTER_MAX_THREADS, CLUSTER_ROWS, GRID_BWD_AHEAD, GRID_CHUNK, GRID_PAD, GRID_STAGES,
-    GRID_THREADS, GRID_UNITS, MAX_HIDDEN, MAX_WIDE_HIDDEN, cluster_bwd_fits, cluster_bwd_plan,
-    cluster_bwd_smem, cluster_fits, cluster_plan, cluster_smem, grid_bwd_plan, grid_bwd_smem,
-    grid_plan, grid_resident, grid_smem, gru_sequence_bwd_reference, gru_sequence_bwd_wide,
-    gru_sequence_reference, gru_sequence_wide, resident_clusters, weight_grads, wide_bwd_plan,
-    wide_plan)
+    CLUSTER_MAX_THREADS, CLUSTER_ROWS, GRID_BWD_AHEAD, GRID_CHUNK, GRID_MAX_HIDDEN, GRID_PAD,
+    GRID_STAGES, GRID_THREADS, GRID_UNITS, MAX_HIDDEN, STREAM_MAX_THREADS, STREAM_ROWS,
+    cluster_bwd_fits, cluster_bwd_plan, cluster_bwd_smem, cluster_fits, cluster_plan,
+    cluster_smem, grid_bwd_plan, grid_bwd_smem, grid_plan, grid_resident, grid_smem,
+    gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference,
+    gru_sequence_wide, resident_clusters, stream_plan, stream_smem, weight_grads,
+    wide_bwd_plan, wide_cap, wide_plan)
 
 # The H100 SXM's numbers (132 SMs, 232,448 shared bytes a block, 233,472 an
 # SM, 1,024 reserved a block) with the clusters resident at once for each C
@@ -38,6 +41,9 @@ H100 = {"sms": 132, "smem": 232448, "smem_sm": 233472, "smem_reserved": 1024,
         "grid_bwd_blocks_sm": 2}
 H100_PORTABLE = {**H100, "resident": {**H100["resident"], 16: 0}}
 CAPS = {"16 blocks": (H100, 544), "8 blocks": (H100_PORTABLE, 384)}
+# the wide route's cap on the H100: the streaming backward's one-row tile,
+# 2·3H floats of dhp (3H rounded up to 4), in 232,448 shared bytes
+H100_CAP = 9685
 
 
 def _one_wave_exists(nb, B, H, numbers):
@@ -59,7 +65,7 @@ def test_cluster_plan_covers_every_wide_width(card, B):
     numbers, cap = CAPS[card]
     for nb in (1, 3):
         routes = {}
-        for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1):
+        for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1):
             plan = wide_plan(nb, B, H, numbers)
             routes[H] = plan["route"]
             if plan["route"] != "cluster":
@@ -95,7 +101,7 @@ def test_grid_plan_covers_every_width_past_the_cap(card, B):
     rows."""
     numbers, cap = CAPS[card]
     for nb in (1, 3):
-        for H in range(cap + 1, MAX_WIDE_HIDDEN + 1):
+        for H in range(cap + 1, GRID_MAX_HIDDEN + 1):
             plan = grid_plan(nb, B, H, numbers)
             assert plan == grid_plan(nb, 1, H, numbers)
             U, chunk, stages, blocks = (plan[k] for k in ("U", "chunk", "stages", "blocks"))
@@ -116,7 +122,8 @@ def test_grid_plan_at_the_headline_shapes():
     block), one wave; three buckets in three waves; (1, 9, 545) on 69 blocks,
     chunks of 64 in two stages (143,360 bytes); the automatic route turns
     from the cluster kernel to the grid at H 545; a card without cooperative
-    launches gets no grid plan, and the route past the cap raises there."""
+    launches gets no grid plan, and the route past the cap takes the
+    streaming kernel there."""
     plan = grid_plan(1, 64, 1024, H100)
     assert (plan["U"], plan["blocks"], plan["chunk"], plan["stages"], plan["smem"],
             plan["resident"], plan["waves"]) == (8, 128, 64, 2, 229376, 132, 1)
@@ -131,8 +138,9 @@ def test_grid_plan_at_the_headline_shapes():
     for H in (545, 1024):
         with pytest.raises(RuntimeError, match="grid forward"):
             grid_plan(1, 64, H, none)
-        with pytest.raises(RuntimeError, match="grid forward"):
-            wide_plan(1, 64, H, none)
+        assert grid_plan(1, 64, H, none, must=False) is None
+        assert wide_plan(1, 64, H, none) == stream_plan(1, 64, H, none)
+        assert wide_plan(1, 64, H, none)["route"] == "stream"
     assert wide_plan(1, 64, 544, none)["route"] == "cluster"
 
 
@@ -353,7 +361,7 @@ def test_cluster_bwd_plan_covers_every_wide_width(card, B):
     numbers, cap = CAPS[card]
     for nb in (1, 3):
         routes = {}
-        for H in range(MAX_HIDDEN + 1, MAX_WIDE_HIDDEN + 1):
+        for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1):
             plan = wide_bwd_plan(nb, B, H, numbers)
             routes[H] = plan["route"]
             if plan["route"] != "cluster":
@@ -547,11 +555,12 @@ def test_grid_bwd_plan_covers_every_width_past_the_cap(card, B):
     U·(blocks - 1)), the blocks of a wave's buckets are resident at once, a
     wave holds as many buckets as are resident, and its waves take all nb
     buckets; B does not enter. A card without cooperative launches gets no
-    grid plan: grid_bwd_plan and wide_bwd_plan raise there."""
+    grid plan: grid_bwd_plan raises there, and wide_bwd_plan takes the
+    streaming kernel."""
     numbers, cap = CAPS[card]
     none = {**numbers, "grid_bwd_blocks_sm": 0}
     for nb in (1, 3):
-        for H in range(cap + 1, MAX_WIDE_HIDDEN + 1):
+        for H in range(cap + 1, GRID_MAX_HIDDEN + 1):
             plan = grid_bwd_plan(nb, B, H, numbers)
             assert plan == grid_bwd_plan(nb, 1, H, numbers) == wide_bwd_plan(nb, B, H, numbers)
             U, blocks = plan["U"], plan["blocks"]
@@ -565,11 +574,10 @@ def test_grid_bwd_plan_covers_every_width_past_the_cap(card, B):
             assert 1 <= per_wave <= nb and blocks * per_wave <= plan["resident"]
             assert per_wave == min(nb, plan["resident"] // blocks), (nb, H, plan)
             assert plan["waves"] == -(-nb // per_wave)
-        for H in (cap + 1, 777, MAX_WIDE_HIDDEN):
+        for H in (cap + 1, 777, GRID_MAX_HIDDEN):
             with pytest.raises(RuntimeError, match="grid backward"):
                 grid_bwd_plan(nb, B, H, none)
-            with pytest.raises(RuntimeError, match="grid backward"):
-                wide_bwd_plan(nb, B, H, none)
+            assert wide_bwd_plan(nb, B, H, none) == stream_plan(nb, B, H, none)
 
 
 def test_grid_bwd_plan_at_the_headline_shapes():
@@ -706,3 +714,184 @@ def test_wide_route_refuses_an_unknown_plan(half):
             h_prev = torch.zeros(nb, T * B, H)
             gru_sequence_bwd_wide(xp, xp.reshape(nb, T * B, 3 * H), h_prev,
                                   torch.zeros(nb, T, B, H), w, b, xp, plan={"route": "tiles"})
+
+
+@pytest.mark.parametrize("card", sorted(CAPS))
+@pytest.mark.parametrize("B", [1, 4, 37, 64, 600])
+def test_wide_plans_keep_their_routes_up_to_1024(card, B):
+    """For every H from 129 to 1024 and nb 1 and 3, wide_plan and
+    wide_bwd_plan are the plans they were before the streaming kernels
+    joined the route: the cluster plan where one fits, else the grid plan
+    (which raises where it cannot launch); never the streaming kernel."""
+    numbers, _ = CAPS[card]
+    for nb in (1, 3):
+        for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1):
+            for wide, cluster, grid in ((wide_plan, cluster_plan, grid_plan),
+                                        (wide_bwd_plan, cluster_bwd_plan, grid_bwd_plan)):
+                plan = cluster(nb, B, H, numbers)
+                want = plan if plan["route"] == "cluster" else grid(nb, B, H, numbers)
+                assert wide(nb, B, H, numbers) == want, (wide.__name__, nb, B, H)
+
+
+@pytest.mark.parametrize("nb,B", [(1, 1), (1, 16), (1, 64), (18, 63), (1, 600)])
+def test_wide_plans_stream_past_1024(nb, B):
+    """For every H from 1025 to the cap (9685 on the H100), both halves of
+    the wide route take the streaming kernels: wide_plan and wide_bwd_plan
+    are stream_plan's tile, on the card with clusters of 16 and without."""
+    for numbers in (H100, H100_PORTABLE):
+        assert wide_cap(numbers) == H100_CAP
+        for H in range(GRID_MAX_HIDDEN + 1, H100_CAP + 1):
+            plan = stream_plan(nb, B, H, numbers)
+            assert plan["route"] == "stream"
+            assert wide_plan(nb, B, H, numbers) == plan == wide_bwd_plan(nb, B, H, numbers)
+
+
+def _owners(H, threads):
+    """How many threads own each column when thread j owns j, j + threads,
+    j + 2·threads, ... below H (gru_seq_wide.cu's loops)."""
+    cols = np.concatenate([np.arange(j, H, threads) for j in range(threads)])
+    return np.bincount(cols, minlength=H)
+
+
+@pytest.mark.parametrize("nb,B", [(1, 1), (1, 2), (1, 64), (3, 64), (18, 63), (1, 600)])
+def test_stream_tile_fits_every_width_to_the_cap(nb, B):
+    """For every H from 1 to the cap: the streaming tile's rows are the
+    fewest of 1, 2, 4 that give one tile per SM (else 4), halved while the
+    backward's two (R, 3H) buffers of dhp do not fit a block; both halves'
+    shared bytes fit a block; its blocks of R rows cover B; its threads are
+    min(1024, H rounded up to a warp) and own ceil(H / threads) columns each,
+    which cover H exactly once. One row more does not fit at the cap's H."""
+    smem = H100["smem"]
+    want = -(-nb * B // H100["sms"])
+    for H in range(1, H100_CAP + 1):
+        plan = stream_plan(nb, B, H, H100)
+        R, threads, cols = plan["R"], plan["threads"], plan["cols"]
+        assert R in STREAM_ROWS
+        first = 1 if want <= 1 else 2 if want <= 2 else 4
+        assert R <= first and (R == first or stream_smem(2 * R, H)[1] > smem)
+        assert (plan["fwd_smem"], plan["bwd_smem"]) == stream_smem(R, H)
+        assert plan["fwd_smem"] <= plan["bwd_smem"] <= smem
+        assert plan["blocks"] * R >= B > (plan["blocks"] - 1) * R
+        assert threads == min(STREAM_MAX_THREADS, -(-H // 32) * 32) and threads % 32 == 0
+        assert cols * threads >= H > (cols - 1) * threads
+    for H in (1, 31, 129, 1024, 1025, 1536, 2048, 4097, H100_CAP):
+        threads = stream_plan(nb, B, H, H100)["threads"]
+        assert (_owners(H, threads) == 1).all(), H
+    assert stream_smem(1, H100_CAP)[1] <= smem < stream_smem(1, H100_CAP + 1)[1]
+
+
+@pytest.mark.parametrize("half", ["forward", "backward", "tile"])
+def test_wide_route_past_the_cap_names_the_cap(half):
+    """Past the cap no route holds a step's dhp: the plans raise, and the
+    error names the cap and why; the cap itself plans the streaming
+    kernels (one row a block: R 4 and R 2 no longer fit)."""
+    plan = {"forward": wide_plan, "backward": wide_bwd_plan, "tile": stream_plan}[half]
+    assert plan(1, 64, H100_CAP, H100)["route"] == "stream"
+    assert plan(1, 64, H100_CAP, H100)["R"] == 1
+    with pytest.raises(ValueError, match=f"H={H100_CAP + 1} past the wide route's cap "
+                                         f"H {H100_CAP}.*dhp"):
+        plan(1, 64, H100_CAP + 1, H100)
+
+
+def _sequential_product(a, w, chunk=64):
+    """a (B, K) w (K, N) as the streaming kernels sum it, in numpy float32:
+    each output's sum over the depth k in order, from zero, one float32
+    addition a product (np.add.reduce down axis 0 adds row after row); each
+    product is rounded to float32 before its addition, once more than the
+    kernels' fmaf rounds. The depth goes in chunks that stay in cache; the
+    float4 reads change no sum."""
+    B, K = a.shape
+    buf = np.empty((chunk + 1, B, w.shape[1]), np.float32)
+    acc = np.zeros((B, w.shape[1]), np.float32)
+    a_t = np.ascontiguousarray(a.T)
+    for k0 in range(0, K, chunk):
+        k1 = min(K, k0 + chunk)
+        buf[0] = acc
+        np.multiply(w[k0:k1, None, :], a_t[k0:k1, :, None], out=buf[1:k1 - k0 + 1])
+        acc = np.add.reduce(buf[:k1 - k0 + 1], axis=0)
+    return acc
+
+
+def _stream_sum_order(xp, w, b, h0):
+    """K1 streaming forward's arithmetic in its order
+    (csrc/gru_seq_wide.cu), in numpy float32: h W_hhᵀ as
+    _sequential_product, then b_hh and the gates with the kernel's sigmoid
+    1/2 + tanh(x/2)/2. Which thread owns a column changes no sum."""
+    T, B, G = xp.shape
+    H = G // 3
+    h = h0.astype(np.float32)
+    ys = np.empty((T, B, H), np.float32)
+    for t in range(T):
+        acc = _sequential_product(h, w)
+        x = xp[t]
+        r = _sigmoid_fwd(x[:, :H] + (acc[:, :H] + b[0, :H]))
+        z = _sigmoid_fwd(x[:, H:2 * H] + (acc[:, H:2 * H] + b[0, H:2 * H]))
+        n = np.tanh(x[:, 2 * H:] + r * (acc[:, 2 * H:] + b[0, 2 * H:]))
+        h = ((1 - z) * n + z * h).astype(np.float32)
+        ys[t] = h
+    return ys
+
+
+# past the grids' 1024: two columns a thread from H 1025 (1056: the first H
+# a bucket's grid blocks outnumber the SMs), and H 2048
+@pytest.mark.parametrize("H", [1056, 2048])
+def test_stream_sum_order_matches_reference(H):
+    """The streaming forward's summation order (a chain over the whole depth
+    a column) stays within the card tests' 1e-4 of the plain recurrence over
+    768 dependent steps, W at its init scale (~1/sqrt(H))."""
+    T, B = 768, 2
+    inputs = list(_seq_inputs(np.random.default_rng(T + H), T, B, H))
+    inputs[1] /= np.float32(0.3 * np.sqrt(H))
+    assert wide_plan(1, B, H, H100)["route"] == "stream"
+    got = _stream_sum_order(*inputs)
+    ref = gru_sequence_reference(*(torch.from_numpy(a) for a in inputs))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref.numpy(), rtol=0, atol=1e-4)
+
+
+def _stream_bwd_sum_order(xp, w, b, h0, ys, dy):
+    """K1 streaming backward's arithmetic in its order
+    (csrc/gru_seq_wide.cu), in numpy float32: the coefficients of
+    _bwd_coefficients (staged in dxp and dhp, which changes no value); then
+    the reverse chain, dh_{t-1} = d z + dhp_t W_hh with the sum over the 3H
+    rows of W_hh in order (_sequential_product). Returns (dxp, dhp, dh0),
+    dhp as (T, B, 3H)."""
+    T, B, G = xp.shape
+    coef = _bwd_coefficients(xp, w, b, h0, ys)
+    w_hh = np.ascontiguousarray(w.T)                    # (3H, H)
+    dxp = np.empty_like(xp)
+    dhp = np.empty_like(xp)
+    dh = np.zeros(h0.shape, np.float32)
+    for t in range(T - 1, -1, -1):
+        dxp[t], dhp[t], st = _bwd_step(dh, dy[t], coef, t)
+        dh = (st + _sequential_product(dhp[t], w_hh)).astype(np.float32)
+    return dxp, dhp, dh
+
+
+@pytest.mark.parametrize("H", [1056, 2048])
+def test_stream_bwd_sum_order_matches_reference(H):
+    """The streaming backward's summation order stays within the card tests'
+    1e-4 of the plain backward over 768 reverse steps, W at its init scale
+    (~1/sqrt(H)): dxp and dh0, and dW and db (relative to their scale)
+    through weight_grads."""
+    T, B = 768, 2
+    inputs, ys, dy = _bwd_inputs(T, B, H)
+    assert wide_bwd_plan(1, B, H, H100)["route"] == "stream"
+    got = _grads_of(inputs, ys, *_stream_bwd_sum_order(*inputs, ys, dy))
+    ref = gru_sequence_bwd_reference(*(torch.from_numpy(a) for a in (*inputs, ys, dy)))
+    _assert_grads_close(got, [t.numpy() for t in ref])
+
+
+def test_plain_twins_match_pallas_past_1024():
+    """Past the grids, the plain forward and backward (the CPU path and the
+    streaming kernels' oracle) against the Pallas kernel in interpret mode
+    and its custom VJP at H 1040, float32."""
+    T, B, H = 8, 2, 1040
+    inputs, ys, dy = _bwd_inputs(T, B, H)
+    assert all(a.dtype == np.float32 for a in (*inputs, ys, dy))
+    ys_jax, vjp = jax.vjp(lambda *a: jax_gru_sequence(*a, True),
+                          *(jnp.asarray(a) for a in inputs))
+    assert ys_jax.dtype == jnp.float32
+    np.testing.assert_allclose(np.asarray(ys_jax), ys, rtol=0, atol=1e-5)
+    ref = gru_sequence_bwd_reference(*(torch.from_numpy(a) for a in (*inputs, ys, dy)))
+    _assert_grads_close([t.numpy() for t in ref], vjp(jnp.asarray(dy)))
