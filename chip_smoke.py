@@ -23,9 +23,9 @@ failure is swallowed):
              cuobjdump -sass
              counts the
              HGMMA (wgmma) instructions of every K3a, K3b and K3c instance,
-             the wide K3a, K3b and K3c (head dims past 128) included, and of
-             K1's grid forward, and the HMMA (mma.sync) instructions of K1's
-             grid backward;
+             the wide K3a, K3b and K3c (head dims past 128) included, of
+             K1's grid forward and of each of its ten instances past H 1024,
+             and the HMMA (mma.sync) instructions of K1's grid backward;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes the main paths give it, with both times and its
              bound (FLOPs at the TF32 tensor-core rate or bytes at the HBM
@@ -60,8 +60,9 @@ failure is swallowed):
              17 taps in bfloat16 and float16 (the runtime route), bit for
              bit against its plain version; K1's wide route (H past 128, forward and
              backward, each on a thread-block cluster up to its cap, on
-             one cooperative grid past it to H 1024, on the streaming
-             kernels past that) against its plain versions at H
+             one cooperative grid past it to H 1024; past that the forward
+             on a grid that streams W's remainder, the backward on the
+             streaming kernel) against its plain versions at H
              129, 256 and 512 (nb 2, odd B and T) and at the cluster routes'
              cap and past it, each line with each half's route, cluster C,
              rows R and waves or grid blocks and waves and the step-chain
@@ -69,10 +70,12 @@ failure is swallowed):
              768, 64, 256), 512 and 1024, each cluster and grid kernel
              beside one call of the streaming one and beside every
              cluster plan that fits; the grid forward and backward in waves
-             of buckets against the streaming kernels at nb 3 and 18; the
-             streaming forward and backward past H 1024 (H 1025, 1536, 2048
-             and the wide route's cap) against their plain versions, and at
-             (1, 768, 64, 1536) and 2048 against cuDNN's GRU in turns;
+             of buckets against the streaming kernels at nb 3 and 18; past
+             H 1024 (H 1025, 1536, 2048 and the wide route's cap) the grid
+             forward that streams W's remainder and the streaming backward
+             against their plain versions, and at (1, 768, 64, 1536) and
+             2048 against cuDNN's GRU and the streaming forward forced, in
+             turns, beside the forward's bound and step-chain floor;
 4. serve   — two full-width TimeGAN runs (x14/z28/h56, random weights from a
              seed) served over HTTP by eegsynth_torch.serve at
              serve_batch 256 / time_chunk 768; launch counts, seeded
@@ -133,8 +136,9 @@ failure is swallowed):
              x14/z64/h1536 through train/timegan.py's step functions: one AE
              and one SUP step, its GAN steps at B 16, T 768, synthesize();
              the wide K1 forward and backward launched (at h256 on their
-             cluster kernels, at h1024 on their grid kernels, at h1536 on the
-             streaming kernels, each route alone), no K2; one GAN step at B
+             cluster kernels, at h1024 on their grid kernels, at h1536 the
+             forward on the grid past H 1024 and the backward on the
+             streaming kernel, each route alone), no K2; one GAN step at B
              4, T 96 against the CPU;
 5h. convert — ``python -m eegsynth_torch.convert_torch_ckpt``: a
              reference-shaped TimeGAN checkpoint and conv generator made in
@@ -285,10 +289,10 @@ from eegsynth_torch.nn.attention import (
 from eegsynth_torch.nn.gru_sequence import (
     GRID_MAX_HIDDEN, MAX_HIDDEN, cluster_bwd_chain_probe, cluster_bwd_fits, cluster_bwd_plan,
     cluster_card, cluster_chain_probe, cluster_fits, cluster_plan, forward_tile,
-    grid_bwd_chain_probe, grid_chain_probe, gru_sequence, gru_sequence_bwd,
-    gru_sequence_bwd_recurrence, gru_sequence_bwd_reference, gru_sequence_bwd_wide,
-    gru_sequence_reference, gru_sequence_wide, stream_plan, wide_bwd_plan, wide_cap, wide_plan,
-    wide_tile,
+    grid_bwd_chain_probe, grid_chain_probe, grid_stream_chain_probe, grid_stream_plan,
+    gru_sequence, gru_sequence_bwd, gru_sequence_bwd_recurrence, gru_sequence_bwd_reference,
+    gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide, stream_plan,
+    wide_bwd_plan, wide_cap, wide_plan, wide_tile,
 )
 from eegsynth_torch.nn.layers import xavier_uniform
 from eegsynth_torch.nn.multigru import (
@@ -386,13 +390,16 @@ WIDE_K1_WAVE_SHAPES = ((3, 768, 64, 600), (18, 768, 63, 545))
 # at one bucket of B 64, and the cluster cap at nb 2
 WIDE_K1_BWD_SWEEP_SHAPES = ((1, 768, 16, 256), (1, 96, 4, 256), (1, 768, 64, 129),
                             (1, 768, 64, 200), (1, 768, 64, 384), (2, 151, 37, 544))
-# Past the grids (H 1024), the streaming kernels (gru_seq_wide.cu) on their
-# planned route: H 1025 at nb 2 (two columns a thread), [timegan-wide]'s
+# Past the grids (H 1024), the forward on the grid that streams W's
+# remainder (gru_seq_grid_stream.cu) and the backward on the streaming
+# kernel (gru_seq_wide.cu), their planned route: H 1025 at nb 2 (two waves
+# of 129 blocks forward, two columns a thread backward), [timegan-wide]'s
 # h1536 and 2048 at one bucket of the sequential trainer's B 64 and T 768
-# (timed in turns against cuDNN's GRU forward and backward: the kernels
-# line's rows are H 1536's), and the wide route's cap (None: wide_cap of
-# the card) at a short T and B (ten columns a thread, one row a block: W_hh
-# is 1.1 GB)
+# (timed in turns against cuDNN's GRU forward and backward and the
+# streaming forward forced: the kernels line's rows are H 1536's), and the
+# wide route's cap (None: wide_cap of the card) at a short T and B (ten
+# groups of 8 units a block, all of W streamed, forward; one row a block
+# backward: W_hh is 1.1 GB)
 STREAM_K1_SHAPES = ((2, 151, 37, 1025), (1, 768, 64, 1536), (1, 768, 64, 2048), (1, 8, 2, None))
 STREAM_K1_HEADLINE = (1, 768, 64, 1536)
 # K2 (nb, T, B, (He, Hg, Hs, Z)): the reference dims (the headline), and
@@ -594,7 +601,8 @@ FIG_TSNE_ROWS, FIG_TSNE_KL_RTOL, FIG_TSNE_TW_TOL = 600, 0.05, 0.02
 # [timegan-wide]: TimeGANs at x14/z64/h256, x14/z64/h1024 and x14/z64/h1536
 # (TimeGANConfigs the JAX package builds; their generator and supervisor
 # recurrences run K1's wide route: at h256 both halves on clusters, at
-# h1024 both on their grids, at h1536 both on the streaming kernels; the
+# h1024 both on their grids, at h1536 the forward on the grid that streams
+# W's remainder and the backward on the streaming kernel; the
 # embedder's and
 # recovery's at H 64 the register kernels), each on one random bucket: one
 # AE and one SUP step, its GAN steps (TG_WIDE_CONFIGS) at B TG_WIDE_BATCH,
@@ -625,6 +633,13 @@ BENCH_SYNTH_RUNS = (["--parity", "--batch", "256", "--T", "8192", "--time_chunk"
 BENCH_SERVE_SECONDS = 5.0
 BENCH_KERNEL_HS = [56, 128, 256, 512, 1024]
 BENCH_KERNEL_ARGS = ["--iters", "1", "--hs", ",".join(map(str, BENCH_KERNEL_HS))]
+
+
+# kernels of the kernels line that no main path takes any more (launches 0;
+# each timed in turns in the phase named), and why
+OFF_PATH = {"gru_sequence_wide": "the streaming forward runs only on plan={'route': "
+                                 "'stream'}; the grid forward past H 1024 took its place "
+                                 "(timed in turns in _check_k1_stream)"}
 
 
 def fail(msg: str) -> None:
@@ -689,8 +704,9 @@ def _check_spills(kernel: str, report: str) -> None:
 
 def phase_sass() -> None:
     """The HGMMA (wgmma) instructions of every instance of the tensor-core
-    flash kernels K3a, K3b and K3c, of the wide K3a, K3b and K3c, and of K1's
-    grid forward, and the HMMA (mma.sync) instructions of both instances of
+    flash kernels K3a, K3b and K3c, of the wide K3a, K3b and K3c, of K1's
+    grid forward and of its ten instances past H 1024 (J 1 to 10 groups a
+    block), and the HMMA (mma.sync) instructions of both instances of
     K1's grid backward, in the built library, from ``cuobjdump -sass``: each
     instance must have some, or its products do not run on the tensor
     cores."""
@@ -706,8 +722,10 @@ def phase_sass() -> None:
             wide = re.search(r"flash_(?:fwd|dq|dkv)_wide_tc_kernel"
                              r"|gru_grid_fwd_kernel(?=ILb0E)", line)
             bwd = re.search(r"(gru_grid_bwd_kernel)ILb0ELi(\d+)E", line)
+            stream = re.search(r"(gru_grid_stream_kernel)ILi(\d+)ELb0E", line)
             name = ((m.group(1), int(m.group(2))) if m else
                     (bwd.group(1), int(bwd.group(2))) if bwd else
+                    (stream.group(1), int(stream.group(2))) if stream else
                     (wide.group(0), 0) if wide else None)
             if name:
                 counts.setdefault(name[0], {})[name[1]] = [0, 0]
@@ -729,6 +747,11 @@ def phase_sass() -> None:
         print(f"[sass] {kernel} ({what}) HGMMA: {n}", flush=True)
         if not n:
             fail(f"{kernel}: missing or without HGMMA")
+    per_j = {k: n[0] for k, n in counts.get("gru_grid_stream_kernel", {}).items()}
+    print(f"[sass] gru_grid_stream_kernel (K1 forward past H 1024) HGMMA per instance: "
+          + ", ".join(f"J {k}: {n}" for k, n in sorted(per_j.items())), flush=True)
+    if sorted(per_j) != list(range(1, 11)) or not all(per_j.values()):
+        fail(f"gru_grid_stream_kernel: instances without HGMMA or missing: {per_j}")
     per_ahead = {k: n[1] for k, n in counts.get("gru_grid_bwd_kernel", {}).items()}
     print(f"[sass] gru_grid_bwd_kernel (K1 backward past the clusters' cap) HMMA per instance: "
           + ", ".join(f"{k} parts ahead: {n}" for k, n in sorted(per_ahead.items())), flush=True)
@@ -1042,11 +1065,16 @@ def _k1_bwd_vs_cudnn(smi: str, shape: tuple, seed: int) -> None:
 def _wide_route_counts() -> tuple:
     """K1 forward, K1 backward, the wide route's cluster forward, its grid
     forward, its streaming forward, its cluster backward, its streaming
-    backward, its grid backward."""
+    backward, its grid backward, its grid forward past H 1024."""
     return (gru_sequence.launches, gru_sequence_bwd.launches,
             gru_sequence_wide.cluster_launches, gru_sequence_wide.grid_launches,
             gru_sequence_wide.launches, gru_sequence_bwd_wide.cluster_launches,
-            gru_sequence_bwd_wide.launches, gru_sequence_bwd_wide.grid_launches)
+            gru_sequence_bwd_wide.launches, gru_sequence_bwd_wide.grid_launches,
+            gru_sequence_wide.grid_stream_launches)
+
+
+ROUTE_LABEL = ("K1 fwd / bwd / cluster fwd / grid fwd / streaming fwd / cluster bwd / "
+               "streaming bwd / grid bwd / grid fwd past 1024")
 
 
 def _cluster_cap(plan=cluster_plan) -> int:
@@ -1121,7 +1149,15 @@ def _sweep_bwd_plans(smi: str) -> None:
 def _plan_text(plan: dict, probe: str) -> str:
     """A cluster plan's C, R and geometry, clusters and waves; a grid plan's
     U, blocks, its operand's stages (or parts in flight) and waves (the only
-    grid plan that fits)."""
+    grid plan that fits); a grid_stream plan's U, blocks, W's resident and
+    streamed rows, stages and waves."""
+    if plan["route"] == "grid_stream":
+        return (f"grid of {plan['blocks']} blocks x U {plan['U']} units ({plan['groups']} "
+                f"groups, {plan['threads']} threads, {plan['resident_depth']} of W's rows "
+                f"resident and {plan['streamed_depth']} streamed a step, {plan['stages']} "
+                f"stages of {plan['chunk']} deep, {plan['smem']} B shared; "
+                f"{plan['buckets_per_wave']} bucket(s) a wave of {plan['resident']} resident "
+                f"blocks, {plan['waves']} wave(s)); step-chain floor {probe}")
     if plan["route"] == "grid":
         operand = (f"{plan['stages']} stages of {plan['chunk']} deep" if "stages" in plan
                    else f"{plan['ahead']} parts of dhp in flight a lane")
@@ -1240,8 +1276,7 @@ def _check_k1_wide(smi: str) -> dict:
               f"{errs[3]:.3e} (tol {KERNEL_TOL:g}); dW {errs[1]:.3e} of {scale[1]:.3g}, db "
               f"{errs[2]:.3e} of {scale[2]:.3g} (tol {KERNEL_TOL:g} relative); the streaming "
               f"kernels ys {stream_err:.3e}, dxp {stream_bwd_errs[0]:.3e} dh0 "
-              f"{stream_bwd_errs[3]:.3e}; launches K1 fwd / bwd / cluster fwd / grid fwd / "
-              f"streaming fwd / cluster bwd / streaming bwd / grid bwd {routes}; forward "
+              f"{stream_bwd_errs[3]:.3e}; launches {ROUTE_LABEL} {routes}; forward "
               f"{ms:.4f} ms (plain {plain_ms:.4f}), backward whole call {bwd_ms:.4f} ms (plain "
               f"{plain_bwd_ms:.4f}) | {smi}", flush=True)
         if nb == 1:
@@ -1259,10 +1294,9 @@ def _check_k1_wide(smi: str) -> dict:
                       f"(kernel alone, ms): {_cluster_bwd_plans(alone, H, bplan)} | {smi}",
                       flush=True)
         want = [0, 0, int(cluster), plan["waves"] if grid else 0, 0, int(bwd_cluster), 0,
-                bplan["waves"] if bwd_grid else 0]
+                bplan["waves"] if bwd_grid else 0, 0]
         if routes != want:
-            fail(f"the wide route at nb={nb} B={B} H={H} launched {routes} (K1 fwd, bwd, "
-                 f"cluster fwd, grid fwd, streaming fwd, cluster bwd, streaming bwd, grid bwd), "
+            fail(f"the wide route at nb={nb} B={B} H={H} launched {routes} ({ROUTE_LABEL}), "
                  f"expected {want}")
         if not ok or not bool(torch.isfinite(ys).all()) or err > KERNEL_TOL:
             fail(f"K1's wide route disagrees with its plain version at nb={nb} T={T} "
@@ -1362,7 +1396,7 @@ def _grid_waves(smi: str, worst: dict) -> None:
               f"grid {berrs['grid'][0][0]:.3e} / {berrs['grid'][0][3]:.3e}, streaming "
               f"{berrs['streaming'][0][0]:.3e} / {berrs['streaming'][0][3]:.3e} (tol "
               f"{KERNEL_TOL:g}) | {smi}", flush=True)
-        want = [0, 0, 0, plan["waves"], 0, 0, 0, bplan["waves"]]
+        want = [0, 0, 0, plan["waves"], 0, 0, 0, bplan["waves"], 0]
         if plan["route"] != "grid" or bplan["route"] != "grid" or launched != want:
             fail(f"the wide route at nb={nb} B={B} H={H}: routes {plan['route']}, "
                  f"{bplan['route']}, launches {launched}, expected {want}")
@@ -1378,20 +1412,28 @@ def _grid_waves(smi: str, worst: dict) -> None:
 
 
 def _check_k1_stream(smi: str) -> dict:
-    """K1's streaming forward and backward (csrc/gru_seq_wide.cu) on their
-    planned route past the grids, at STREAM_K1_SHAPES: each half's plan
-    (stream_plan, held to the tile the kernel makes on the card), the
-    streaming kernels alone by the counters, ys and the backward's whole
-    call (hp product, kernel, dW product) against the plain versions; at
-    one bucket of T 768 both halves timed in turns with cuDNN's GRU forward
-    and backward, beside their bounds. The kernels line takes
-    STREAM_K1_HEADLINE."""
+    """K1 past the grids' H 1024 on its planned route, at STREAM_K1_SHAPES:
+    the forward on the grid that streams W's remainder
+    (csrc/gru_seq_grid_stream.cu; grid_stream_plan), the backward on the
+    streaming kernel (csrc/gru_seq_wide.cu; stream_plan, held to the tile
+    the kernel makes on the card); the counters show those two alone; ys and
+    the backward's whole call (hp product, kernel, dW product) against the
+    plain versions. At one bucket of T 768 the forward timed in turns with
+    cuDNN's GRU forward and with the streaming forward forced on the same
+    inputs (the route it replaced; one call each a turn, held to the plain
+    version too), beside its bound and its step-chain floor (the probe: the
+    wait, the copies of h and of W's streamed rows and the publication
+    alone), and the backward in turns with cuDNN's GRU backward. The
+    kernels line takes STREAM_K1_HEADLINE's rows: the new forward, the
+    streaming forward (off the main paths) and the streaming backward."""
     card = cluster_card()
     cap = wide_cap(card)
-    print(f"[kernel] K1's streaming route: both halves from H {GRID_MAX_HIDDEN + 1} to the "
-          f"wide route's cap H {cap} on this card's numbers ({card['smem']} shared bytes a "
-          f"block: the backward's one-row tile, 2 x 3H floats of dhp) | {smi}", flush=True)
-    rows, worst = {}, {"gru_sequence_wide": 0.0, "gru_sequence_bwd_wide": 0.0}
+    print(f"[kernel] K1 past H {GRID_MAX_HIDDEN}: the forward on the grid that streams W's "
+          f"remainder, the backward on the streaming kernel, to the wide route's cap H {cap} "
+          f"on this card's numbers ({card['smem']} shared bytes a block: the backward's "
+          f"one-row tile, 2 x 3H floats of dhp) | {smi}", flush=True)
+    rows, worst = {}, {"gru_sequence_wide_grid_stream": 0.0, "gru_sequence_wide": 0.0,
+                       "gru_sequence_bwd_wide": 0.0}
     for i, (nb, T, B, H) in enumerate(STREAM_K1_SHAPES):
         H = cap if H is None else H
         plan, bplan, mirror = (wide_plan(nb, B, H, card), wide_bwd_plan(nb, B, H, card),
@@ -1399,9 +1441,10 @@ def _check_k1_stream(smi: str) -> dict:
         tile = wide_tile(nb, B, H)
         made = tuple(tile[k] for k in ("rows", "blocks", "threads", "fwd_smem", "bwd_smem"))
         mirrored = tuple(mirror[k] for k in ("R", "blocks", "threads", "fwd_smem", "bwd_smem"))
-        if plan != mirror or bplan != mirror or made != mirrored:
+        if (plan != grid_stream_plan(nb, B, H, card) or plan["route"] != "grid_stream"
+                or bplan != mirror or made != mirrored):
             fail(f"K1 at nb={nb} B={B} H={H}: plans {plan}, {bplan}, stream_plan {mirror}, the "
-                 f"kernel's tile {made}")
+                 f"streaming kernel's tile {made}")
         args = _gru_inputs(nb, T, B, H, 28, seed=80 + i, device="cuda")
         timed = nb == 1 and T == STREAM_K1_HEADLINE[1]
         with torch.no_grad():
@@ -1412,18 +1455,25 @@ def _check_k1_stream(smi: str) -> dict:
             got = gru_sequence_bwd(*args, ys, d_ys)
             torch.cuda.synchronize()
             routes = [a - b for a, b in zip(_wide_route_counts(), before)]
-            err = (ys - gru_sequence_reference(*args)).abs().max().item()
+            ref_ys = gru_sequence_reference(*args)
+            err = (ys - ref_ys).abs().max().item()
             ref = gru_sequence_bwd_reference(*args, ys, d_ys)
             errs, scale, ok = _bwd_errors(got, ref)
             if timed:
-                fwd = {"kernel": lambda: gru_sequence(*args),
-                       "cuDNN": _cudnn_gru(*(a[0] for a in args))}
+                stream_fwd = lambda: gru_sequence_wide(  # noqa: E731
+                    *args, plan={"route": "stream"})
+                stream_err = (stream_fwd() - ref_ys).abs().max().item()
+                worst["gru_sequence_wide"] = max(worst["gru_sequence_wide"], stream_err)
+                fwd = {"cuDNN": _cudnn_gru(*(a[0] for a in args)),
+                       "kernel": lambda: gru_sequence(*args), "streaming": stream_fwd}
                 lib_err = (fwd["cuDNN"]() - ys[0]).abs().max().item()
                 times = _in_turns(fwd, reps=1, warm=False)
+                floor_ms = _time_ms(lambda: grid_stream_chain_probe(*args, plan), reps=3)
                 plain_ms = _time_ms(lambda: gru_sequence_reference(*args), reps=PLAIN_REPS,
                                     warm=False)
                 plain_bwd_ms = _time_ms(lambda: gru_sequence_bwd_reference(*args, ys, d_ys),
                                         reps=PLAIN_REPS, warm=False)
+            del ref_ys
         text = ""
         if timed:
             bwd = {"kernel": lambda: gru_sequence_bwd(*args, ys, d_ys)}
@@ -1432,41 +1482,59 @@ def _check_k1_stream(smi: str) -> dict:
             with torch.no_grad():
                 btimes = _in_turns(bwd, reps=1, warm=False)
             text = (f"; forward {times['kernel']:.4f} ms ({1e3 * times['kernel'] / T:.2f} us a "
-                    f"step) against cuDNN's {times['cuDNN']:.4f} (max|diff| {lib_err:.3e}), "
-                    f"backward whole call {btimes['kernel']:.4f} against cuDNN's "
-                    f"{btimes['cuDNN']:.4f} (dxp {lib_bwd_err[0]:.3e}), in turns; plain "
+                    f"step; step-chain floor {floor_ms:.4f}) against cuDNN's "
+                    f"{times['cuDNN']:.4f} (max|diff| {lib_err:.3e}) and the streaming "
+                    f"forward's {times['streaming']:.4f} (max|diff| {stream_err:.3e}), in "
+                    f"turns, one call each; backward whole call {btimes['kernel']:.4f} against "
+                    f"cuDNN's {btimes['cuDNN']:.4f} (dxp {lib_bwd_err[0]:.3e}), in turns; plain "
                     f"{plain_ms:.4f} / {plain_bwd_ms:.4f} ms")
         del ref
-        print(f"[kernel] gru_sequence_wide (streaming) nb={nb} T={T} B={B} H={H}: R "
-              f"{plan['R']} rows x {plan['blocks']} blocks a bucket, {plan['threads']} threads "
-              f"of {plan['cols']} columns, {plan['fwd_smem']} / {plan['bwd_smem']} B shared; "
-              f"max|diff| ys {err:.3e}, dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol "
-              f"{KERNEL_TOL:g}); dW {errs[1]:.3e} of {scale[1]:.3g}, db {errs[2]:.3e} of "
-              f"{scale[2]:.3g} (tol {KERNEL_TOL:g} relative); launches K1 fwd / bwd / cluster "
-              f"fwd / grid fwd / streaming fwd / cluster bwd / streaming bwd / grid bwd "
-              f"{routes}{text} | {smi}", flush=True)
-        if routes != [0, 0, 0, 0, 1, 0, 1, 0]:
-            fail(f"K1 at nb={nb} B={B} H={H} launched {routes}: the streaming forward and "
-                 f"backward alone expected")
+        print(f"[kernel] gru_sequence_wide past 1024 nb={nb} T={T} B={B} H={H}: forward route "
+              f"{_plan_text(plan, 'below' if timed else 'not timed')}; backward R {bplan['R']} "
+              f"rows x {bplan['blocks']} blocks a bucket, {bplan['threads']} threads of "
+              f"{bplan['cols']} columns, {bplan['bwd_smem']} B shared; max|diff| ys {err:.3e}, "
+              f"dxp {errs[0]:.3e} dh0 {errs[3]:.3e} (tol {KERNEL_TOL:g}); dW {errs[1]:.3e} of "
+              f"{scale[1]:.3g}, db {errs[2]:.3e} of {scale[2]:.3g} (tol {KERNEL_TOL:g} "
+              f"relative); launches {ROUTE_LABEL} {routes}{text} | {smi}", flush=True)
+        want = [0, 0, 0, 0, 0, 0, 1, 0, plan["waves"]]
+        if routes != want:
+            fail(f"K1 at nb={nb} B={B} H={H} launched {routes} ({ROUTE_LABEL}): the grid "
+                 f"forward past H 1024 and the streaming backward alone expected, {want}")
         if not ok or not bool(torch.isfinite(ys).all()) or err > KERNEL_TOL:
-            fail(f"the streaming kernels disagree with their plain versions at nb={nb} T={T} "
-                 f"B={B} H={H}: ys {err}, backward {errs}")
-        worst["gru_sequence_wide"] = max(worst["gru_sequence_wide"], err)
+            fail(f"K1 past H {GRID_MAX_HIDDEN} disagrees with its plain versions at nb={nb} "
+                 f"T={T} B={B} H={H}: ys {err}, backward {errs}")
+        if worst["gru_sequence_wide"] > KERNEL_TOL:
+            fail(f"the streaming forward disagrees with its plain version at nb={nb} T={T} "
+                 f"B={B} H={H}: {worst['gru_sequence_wide']}")
+        worst["gru_sequence_wide_grid_stream"] = max(worst["gru_sequence_wide_grid_stream"], err)
         worst["gru_sequence_bwd_wide"] = max(worst["gru_sequence_bwd_wide"], errs[0], errs[3])
         if timed:
             label = f"nb={nb} T={T} B={B} H={H}"
-            fwd_row = _row(times["kernel"], plain_ms,
-                           _bound(2 * nb * T * B * H * 3 * H, *args, ys), times["cuDNN"])
+            bound = _bound(2 * nb * T * B * H * 3 * H, *args, ys)
+            fwd_row = _row(times["kernel"], plain_ms, bound, times["cuDNN"])
+            stream_row = _row(times["streaming"], plain_ms, bound, times["cuDNN"])
             bwd_row = _row(btimes["kernel"], plain_bwd_ms,
                            _bound(3 * 2 * nb * T * B * H * 3 * H, *args, ys, d_ys, *got),
                            btimes["cuDNN"])
-            _roofline(f"gru_sequence_wide {label}", fwd_row, smi, "cuDNN GRU")
+            _roofline(f"gru_sequence_wide_grid_stream {label}", fwd_row, smi, "cuDNN GRU")
+            print(f"[bound] gru_sequence_wide_grid_stream {label}: step-chain floor "
+                  f"{floor_ms:.4f} ms (the wait, the copies of h and of {plan['streamed_depth']} "
+                  f"of W's rows a step from L2 and the publication alone, {T} steps on "
+                  f"{plan['blocks']} blocks), bound {fwd_row['bound_ms']:.4f} ms "
+                  f"({fwd_row['bound_by']}); kernel {times['kernel']:.4f} ms, "
+                  f"{times['kernel'] / floor_ms:.2f}x the floor; the streaming forward "
+                  f"{times['streaming']:.4f} ms ({times['streaming'] / times['kernel']:.2f}x), "
+                  f"cuDNN's GRU {times['cuDNN']:.4f} ms ({times['cuDNN'] / times['kernel']:.2f}x)"
+                  f" | {smi}", flush=True)
+            _roofline(f"gru_sequence_wide (streaming, forced) {label}", stream_row, smi,
+                      "cuDNN GRU")
             _roofline(f"gru_sequence_bwd_wide {label}", bwd_row, smi, "cuDNN GRU backward")
             if (nb, T, B, H) == STREAM_K1_HEADLINE:
-                rows = {"gru_sequence_wide": fwd_row, "gru_sequence_bwd_wide": bwd_row}
+                rows = {"gru_sequence_wide_grid_stream": fwd_row, "gru_sequence_wide": stream_row,
+                        "gru_sequence_bwd_wide": bwd_row}
         del args, ys, d_ys, got
     if not rows:
-        fail(f"the streaming kernels' headline {STREAM_K1_HEADLINE} was not timed")
+        fail(f"K1's headline past H {GRID_MAX_HIDDEN}, {STREAM_K1_HEADLINE}, was not timed")
     for name, err in worst.items():
         rows[name]["max_abs_err"] = err
     return rows
@@ -4080,8 +4148,9 @@ def _check_iir_orders(smi: str) -> None:
     and float32) and in bfloat16 and float16 (IIR_HALF_TAPS) at one trial's
     (7734, 14), a random walk and a random zi: each with its plan's route,
     its count of elements unequal to the plain version on the card (any is
-    a fault) and its time, one call (the plain version's: its one call, a
-    cold one)."""
+    a fault), its time, one call (the plain version's: its one call, a cold
+    one), and its bound: x, zi and the taps read once and y written once at
+    the HBM rate (an IIR step does a few operations an element)."""
     T, M = IIR_SHAPES[0]
     cases = [(n, dtype) for n in IIR_WIDE_TAPS for dtype in (torch.float64, torch.float32)]
     cases += [(IIR_HALF_TAPS, dtype) for dtype in (torch.bfloat16, torch.float16)]
@@ -4102,10 +4171,11 @@ def _check_iir_orders(smi: str) -> None:
         ms = _time_ms(lambda: lfilter(b, a, x, zi=zi), reps=10)  # noqa: B023
         plan = iir_plan(M, n, dtype)
         state = f", state in {plan['state']} memory" if "state" in plan else ""
+        bound = _bound(0, x, zi, bt, at, got)
         print(f"[kernel] iir_filter T={T} M={M} {n} taps {str(dtype)[6:]}: route "
               f"{plan['route']} ({plan['lanes']} lanes a column{state}); unequal elements "
               f"{unequal} against plain (on the card); kernel {ms:.4f} ms one call, plain "
-              f"{plain_ms:.4f} ms | {smi}", flush=True)
+              f"{plain_ms:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}) | {smi}", flush=True)
         if unequal or not bool(torch.isfinite(ref).all()):
             fail(f"iir_filter disagrees with its plain version at {n} taps {dtype}: "
                  f"{unequal} unequal elements")
@@ -4552,7 +4622,8 @@ def phase_timegan_wide(smi: str, device: str = "cuda") -> dict:
     (TG_WIDE_WINDOWS, 768, 14), then synthesize() of 64 windows; K1's wide
     route launched on the planned kernels alone (at h256 the forward and the
     backward on their cluster kernels, at h1024 on their grid kernels, at
-    h1536 on the streaming kernels), no K2 (the D-step inputs take the
+    h1536 the forward on the grid past H 1024 and the backward on the
+    streaming kernel), no K2 (the D-step inputs take the
     composed route past H 128), finite losses and windows; then one GAN step
     at B 4 and the config's check T on the card against the CPU. Returns
     the launches of the training and synthesis runs."""
@@ -4601,15 +4672,17 @@ def _timegan_wide_run(smi: str, device: str, x_dim: int, z_dim: int, h_dim: int,
     windows = synthesize(model, 64, SEQ_LEN,
                          generator=torch.Generator(device=device).manual_seed(2))
     synth_s = time.perf_counter() - t0
-    k1, k1_bwd, cluster, grid, wide, cluster_bwd, wide_bwd, grid_bwd, k2 = _since(before)
+    (k1, k1_bwd, cluster, grid, wide, cluster_bwd, wide_bwd, grid_bwd, grid_stream,
+     k2) = _since(before)
     fmt = lambda row: ", ".join(f"{c}={v:.5f}" for c, v in zip(LOG_COLUMNS, row))  # noqa
     print(f"[timegan-wide] x{x_dim}/z{z_dim}/h{h_dim}, B {B}, T {SEQ_LEN}: AE loss "
           f"{losses['ae']:.6f}, SUP loss {losses['sup']:.6f}; GAN step {gan_steps}: "
           f"{fmt(logs[-1])}; AE + SUP + {gan_steps} GAN step(s) {train_s:.2f} s, "
           f"synthesize(64 x {SEQ_LEN}) {synth_s:.2f} s -> {windows.shape}; launches K1 "
           f"forward {k1}, backward {k1_bwd}, wide forward on clusters {cluster}, on the grid "
-          f"{grid}, streaming {wide}, wide backward on clusters {cluster_bwd}, on the grid "
-          f"{grid_bwd}, streaming {wide_bwd}, K2 {k2} | {smi}", flush=True)
+          f"{grid}, on the grid past H 1024 {grid_stream}, streaming {wide}, wide backward on "
+          f"clusters {cluster_bwd}, on the grid {grid_bwd}, streaming {wide_bwd}, K2 {k2} | "
+          f"{smi}", flush=True)
     if not (np.isfinite(logs).all() and all(np.isfinite(v) for v in losses.values())):
         fail(f"[timegan-wide] h{h_dim}: non-finite losses: {losses}, {logs}")
     if windows.shape != (64, SEQ_LEN, x_dim) or not np.isfinite(windows).all():
@@ -4619,17 +4692,19 @@ def _timegan_wide_run(smi: str, device: str, x_dim: int, z_dim: int, h_dim: int,
         card = cluster_card()
         route = wide_plan(1, B, h_dim, card)["route"]
         bwd_route = wide_bwd_plan(1, B, h_dim, card)["route"]
-        fwd_n = {"cluster": cluster, "grid": grid, "stream": wide}
+        fwd_n = {"cluster": cluster, "grid": grid, "grid_stream": grid_stream, "stream": wide}
         bwd_n = {"cluster": cluster_bwd, "grid": grid_bwd, "stream": wide_bwd}
         if not (all((n >= 1) == (r == route) for r, n in fwd_n.items())
                 and all((n >= 1) == (r == bwd_route) for r, n in bwd_n.items()) and k2 == 0):
             fail(f"[timegan-wide] h{h_dim}: launches wide forward on clusters {cluster}, on "
-                 f"the grid {grid}, streaming {wide}, wide backward on clusters "
+                 f"the grid {grid}, on the grid past H 1024 {grid_stream}, streaming {wide}, "
+                 f"wide backward on clusters "
                  f"{cluster_bwd}, on the grid {grid_bwd}, streaming {wide_bwd}, K2 {k2}; "
                  f"expected the {route} forward and the {bwd_route} backward alone, no K2")
     _wide_step_check(smi, device, (x_dim, z_dim, h_dim), check_t)
     return {"gru_sequence": k1, "gru_sequence_bwd": k1_bwd,
             "gru_sequence_wide_cluster": cluster, "gru_sequence_wide_grid": grid,
+            "gru_sequence_wide_grid_stream": grid_stream,
             "gru_sequence_wide": wide, "gru_sequence_bwd_wide_cluster": cluster_bwd,
             "gru_sequence_bwd_wide_grid": grid_bwd, "gru_sequence_bwd_wide": wide_bwd}
 
@@ -4671,8 +4746,7 @@ def _wide_step_check(smi: str, device: str, dims: tuple, T: int, B: int = 4) -> 
     print(f"[timegan-wide] h{h_dim}: one GAN step at B {B}, T {T}, card vs CPU: logged "
           f"values {log_err:.3e} (tol {STEP_LOG_RTOL:g}), parameters {p_err:.3e} (tol "
           f"{STEP_PARAM_ATOL:g}), Adam first moments {mu_err:.3e} (tol {STEP_MU_RTOL:g}); "
-          f"launches K1 fwd / bwd / cluster fwd / grid fwd / streaming fwd / cluster bwd / "
-          f"streaming bwd / grid bwd / K2 {launched} | {smi}", flush=True)
+          f"launches {ROUTE_LABEL} / K2 {launched} | {smi}", flush=True)
     if log_err > STEP_LOG_RTOL or p_err > STEP_PARAM_ATOL or not mu_err <= STEP_MU_RTOL:
         fail(f"[timegan-wide] h{h_dim}: the card's GAN step disagrees with the CPU: logs "
              f"{log_err}, params {p_err}, mu {mu_err}")
@@ -4929,17 +5003,18 @@ def phase_bench_tools(smi: str, root: Path, device: str = "cuda") -> dict:
               f"{json.dumps(rows)} | {smi}", flush=True)
         if [r["H"] for r in rows] != BENCH_KERNEL_HS:
             fail(f"[bench-tools] bench_kernels rows {rows}")
-    _, _, cluster, grid, stream, cluster_bwd, wide_bwd, grid_bwd = (
+    _, _, cluster, grid, stream, cluster_bwd, wide_bwd, grid_bwd, grid_stream = (
         a - b for a, b in zip(_wide_route_counts(), before))
     print(f"[bench-tools] bench_kernels launched the wide forward on clusters {cluster} "
           f"times, on the grid {grid}, streaming {stream}, the wide backward on clusters "
           f"{cluster_bwd}, on the grid {grid_bwd}, streaming {wide_bwd} | {smi}", flush=True)
-    if torch.device(device).type == "cuda" and not (grid >= 1 and stream == 0
+    if torch.device(device).type == "cuda" and not (grid >= 1 and stream == grid_stream == 0
                                                     and grid_bwd >= 1 and wide_bwd == 0):
         fail(f"[bench-tools] bench_kernels at H 1024: grid forward {grid}, streaming {stream}, "
              f"grid backward {grid_bwd}, streaming {wide_bwd}")
     return {"gru_sequence": launches, "gru_sequence_wide_cluster": cluster,
             "gru_sequence_wide_grid": grid, "gru_sequence_wide": stream,
+            "gru_sequence_wide_grid_stream": grid_stream,
             "gru_sequence_bwd_wide_cluster": cluster_bwd,
             "gru_sequence_bwd_wide_grid": grid_bwd, "gru_sequence_bwd_wide": wide_bwd}
 
@@ -5001,8 +5076,8 @@ def main() -> None:
     launches = {**cgan_launches, **wide_attn_launches,
                 **{k: sum(r.get(k, 0) for r in runs)
                    for k in ("gru_sequence", "gru_sequence_bwd", "gru_sequence_wide_cluster",
-                             "gru_sequence_wide_grid", "gru_sequence_wide",
-                             "gru_sequence_bwd_wide_cluster",
+                             "gru_sequence_wide_grid", "gru_sequence_wide_grid_stream",
+                             "gru_sequence_wide", "gru_sequence_bwd_wide_cluster",
                              "gru_sequence_bwd_wide_grid", "gru_sequence_bwd_wide",
                              "multigru_disc_inputs")}}
     launches["gru_sequence"] += (serve_launches + synth_launches + figure_launches
@@ -5010,7 +5085,10 @@ def main() -> None:
     launches["flash_forward"] = cgan_launches["flash_forward"] + cgan_serve_launches
     launches["iir_filter"] = iir_launches
     for k, n in launches.items():
-        if n < 1:
+        if k in OFF_PATH:
+            if n:
+                fail(f"the main paths launched {k} {n} times: {OFF_PATH[k]}")
+        elif n < 1:
             fail(f"the main paths launched {k} no time")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds "
           f"by phase: {seconds}", flush=True)
@@ -5022,6 +5100,8 @@ def main() -> None:
                                              "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_wide_grid": ("eegsynth_torch/csrc/gru_seq_grid.cu",
                                           "eegsynth/nn/pallas_gru.py:52"),
+               "gru_sequence_wide_grid_stream": ("eegsynth_torch/csrc/gru_seq_grid_stream.cu",
+                                                 "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_wide": ("eegsynth_torch/csrc/gru_seq_wide.cu",
                                      "eegsynth/nn/pallas_gru.py:52"),
                "gru_sequence_bwd_wide_cluster": ("eegsynth_torch/csrc/gru_seq_cluster_bwd.cu",

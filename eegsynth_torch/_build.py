@@ -115,6 +115,8 @@ def load_library() -> ctypes.CDLL:
                                      ("gru_seq_grid_fwd", 6, 6), ("gru_seq_grid_chain", 6, 6),
                                      ("gru_seq_grid_bwd", 10, 6),
                                      ("gru_seq_grid_bwd_chain", 10, 6),
+                                     ("gru_seq_grid_stream_fwd", 6, 8),
+                                     ("gru_seq_grid_stream_chain", 6, 8),
                                      ("multigru_fwd", 16, 7), ("flash_fwd", 5, 3),
                                      ("flash_bwd_dq", 7, 3), ("flash_bwd_dkv", 9, 3),
                                      ("flash_fwd_wide", 5, 3), ("flash_bwd_dq_wide", 7, 3),
@@ -132,12 +134,15 @@ def load_library() -> ctypes.CDLL:
             for fn in ("gru_seq_fwd_tile", "gru_seq_wide_tile"):
                 getattr(lib, fn).argtypes = [i32] * 3 + [ptr]
                 getattr(lib, fn).restype = i32
-            for fn in ("gru_seq_cluster_card", "gru_seq_grid_card", "gru_seq_grid_bwd_card"):
+            for fn in ("gru_seq_cluster_card", "gru_seq_grid_card", "gru_seq_grid_bwd_card",
+                       "gru_seq_grid_stream_card"):
                 getattr(lib, fn).argtypes = [ptr]
                 getattr(lib, fn).restype = i32
             for fn in ("gru_seq_grid_workspace", "gru_seq_grid_bwd_workspace"):
                 getattr(lib, fn).argtypes = [i32] * 3
                 getattr(lib, fn).restype = ctypes.c_longlong
+            lib.gru_seq_grid_stream_workspace.argtypes = [i32] * 4
+            lib.gru_seq_grid_stream_workspace.restype = ctypes.c_longlong
             lib.multigru_fwd_tile.argtypes = [i32] * 6 + [ptr]
             lib.multigru_fwd_tile.restype = i32
             lib.flash_bwd_dkv_scratch.argtypes = [i32] * 3

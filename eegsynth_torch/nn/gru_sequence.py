@@ -23,12 +23,18 @@ H100's):
   all-gathers h (``eegsynth_torch/csrc/gru_seq_grid.cu``, :func:`grid_plan`),
   the backward W_hh's columns and all-gathers dhp
   (``eegsynth_torch/csrc/gru_seq_grid_bwd.cu``, :func:`grid_bwd_plan`);
-- past that, where a grid's blocks cannot all be resident at once (W_hh in
-  split TF32 outgrows the card's shared memory near H 1100), each half
-  runs on ``eegsynth_torch/csrc/gru_seq_wide.cu``'s streaming kernels,
-  which read all of W_hh from L2 each step (:func:`stream_plan`), up to
-  :func:`wide_cap` (H 9685: the backward's one-row tile of dhp fills a
-  block's shared memory).
+- past that, where a grid's blocks cannot hold all of W_hh (in split TF32
+  it outgrows the card's shared memory near H 1100), up to
+  :func:`wide_cap` (H 9685: the streaming backward's one-row tile of dhp
+  fills a block's shared memory): the forward runs on one cooperative grid
+  whose blocks own 8·J units each, keep what fits of their slice of W_hhᵀ
+  in shared memory and stream the rest of it once a step beside h
+  (``eegsynth_torch/csrc/gru_seq_grid_stream.cu``,
+  :func:`grid_stream_plan`); the backward on
+  ``eegsynth_torch/csrc/gru_seq_wide.cu``'s streaming kernel, which reads
+  all of W_hh from L2 each step in every block (:func:`stream_plan`; the
+  streaming forward beside it runs only on the plan ``{"route":
+  "stream"}``).
 
 On a CPU tensor each half runs its plain PyTorch
 version (:func:`gru_sequence_reference`, :func:`gru_sequence_bwd_reference`),
@@ -437,7 +443,9 @@ GRID_MAX_HIDDEN = 1024
 """The widest H of the grid forward and backward (``grid.cuh``
 ``kMaxHidden``): their W_hh in split TF32, 24·H² bytes, fills the H100's
 132 blocks of shared memory near it (25.2 MB at H 1024). Past it
-:func:`wide_plan` and :func:`wide_bwd_plan` take the streaming kernels."""
+:func:`wide_plan` takes the grid that streams W's remainder
+(:func:`grid_stream_plan`) and :func:`wide_bwd_plan` the streaming
+kernel."""
 
 GRID_STAGES = 2
 """Stages of the grid forward's ring of h chunks: one landing while the
@@ -553,6 +561,76 @@ def grid_bwd_plan(nb: int, B: int, H: int, card: dict, must: bool = True) -> dic
                       ahead=GRID_BWD_AHEAD[0 if two else 1])
 
 
+GRID_STREAM_MAX_GROUPS = 10
+"""Groups of :data:`GRID_UNITS` units a block of K1's grid forward past
+H 1024 (``gru_seq_grid_stream.cu`` ``kMaxGroups``) owns at most: J groups
+make N = 24·J gate columns, one wgmma m64nNk8 a k-slice (N ≤ 256). Ten (80
+units) put H 9685 on 122 blocks of the H100's 132."""
+
+GRID_STREAM_CHUNK = 32
+"""Depth of a chunk of the grid forward past H 1024: two 16-deep parts of h
+(one for each warpgroup's k-slice of a part) and, past the resident rows,
+W's 32 rows of the chunk, hi and lo, in one stage of its ring."""
+
+
+def grid_stream_stages(J: int) -> int:
+    """Stages of the ring of the grid forward past H 1024 at J groups (as
+    ``gru_seq_grid_stream.cu``'s ``stream_stages``): four up to J 8, else
+    three (four stages of J 9 outgrow a block); stages - 2 chunks are in
+    flight."""
+    return 4 if J <= 8 else 3
+
+
+def grid_stream_smem(J: int, resident_depth: int) -> int:
+    """Shared bytes of a block of the grid forward past H 1024 (as
+    ``gru_seq_grid_stream.cu``'s ``stream_smem``): W's resident rows of
+    24·J columns, TF32 hi and lo, and the ring, each stage 64 rows × 32 of
+    h and 32 rows of W hi and lo."""
+    stage = GRID_TILE_ROWS * GRID_STREAM_CHUNK + 2 * GRID_STREAM_CHUNK * 3 * GRID_UNITS * J
+    return 4 * (2 * resident_depth * 3 * GRID_UNITS * J + grid_stream_stages(J) * stage)
+
+
+def grid_stream_plan(nb: int, B: int, H: int, card: dict) -> dict:
+    """K1's forward past the grid's H 1024 for (nb, B, H) on the card's
+    numbers (:func:`cluster_card`): one cooperative grid of one block an SM
+    (the block takes the most shared bytes an SM gives one block), so
+    ``card["sms"]`` blocks resident where the kernel's registers allow one
+    (``card["grid_stream_blocks_sm"]``; 0 without cooperative launches).
+    The fewest groups J of :data:`GRID_UNITS` units a block (to
+    :data:`GRID_STREAM_MAX_GROUPS`) that put a bucket's ceil(H / 8J) blocks
+    resident at once; each block keeps the most rows of its slice's depth
+    (H padded to :data:`GRID_PAD`), a multiple of
+    :data:`GRID_STREAM_CHUNK`, that fit its shared memory beside the ring
+    (:func:`grid_stream_smem`) and streams the rest each step. A wave holds
+    the buckets resident at once. B does not enter: a block loops over the
+    batch in tiles of 64 rows. Raises where no J puts a bucket resident,
+    naming what did not fit."""
+    depth = -(-H // GRID_PAD) * GRID_PAD
+    per_sm = min(card["grid_stream_blocks_sm"], 1)
+    resident = card["sms"] * per_sm
+    room = min(card["smem"], card["smem_sm"] - card["smem_reserved"])
+    for J in range(1, GRID_STREAM_MAX_GROUPS + 1):
+        blocks = -(-H // (GRID_UNITS * J))
+        ring = grid_stream_smem(J, 0)
+        if blocks <= resident and ring <= room:
+            break
+    else:
+        raise RuntimeError(
+            f"K1's grid forward past H {GRID_MAX_HIDDEN} at H {H}: {blocks} blocks of "
+            f"{GRID_UNITS * J} units at the most ({J} groups), {resident} resident at once "
+            f"on this card, one block an SM (cooperative launches "
+            f"{'yes' if card['grid_stream_blocks_sm'] else 'no'}), its ring {ring} of "
+            f"{room} shared bytes")
+    row = 2 * 4 * 3 * GRID_UNITS * J
+    kept = min(depth, (room - ring) // row // GRID_STREAM_CHUNK * GRID_STREAM_CHUNK)
+    per_wave = max(1, min(max(nb, 1), resident // blocks))
+    return {"route": "grid_stream", "U": GRID_UNITS * J, "groups": J, "blocks": blocks,
+            "threads": GRID_THREADS, "blocks_sm": per_sm, "resident_depth": kept,
+            "streamed_depth": depth - kept, "chunk": GRID_STREAM_CHUNK,
+            "stages": grid_stream_stages(J), "smem": grid_stream_smem(J, kept),
+            "buckets_per_wave": per_wave, "waves": -(-nb // per_wave), "resident": resident}
+
+
 STREAM_MAX_THREADS = 1024
 """Threads a block of the streaming kernels (``gru_seq_wide.cu``
 ``kMaxThreads``, their launch bound): a thread owns every column j + k·1024
@@ -613,11 +691,17 @@ def wide_plan(nb: int, B: int, H: int, card: dict) -> dict:
     """K1's wide forward route for (nb, B, H) on the card's numbers: the
     cluster plan (:func:`cluster_plan`) up to the clusters' cap, the grid
     plan (:func:`grid_plan`) where a bucket's grid blocks are resident at
-    once (to H 1024 on the H100), else the streaming kernel's
-    (:func:`stream_plan`, which raises past :func:`wide_cap`)."""
+    once (to H 1024 on the H100; the streaming kernel's,
+    :func:`stream_plan`, on a card without cooperative launches), and past
+    :data:`GRID_MAX_HIDDEN` the grid that streams W's remainder
+    (:func:`grid_stream_plan`, which raises where it cannot launch) up to
+    :func:`wide_cap` (raises past it)."""
     plan = cluster_plan(nb, B, H, card)
     if plan["route"] == "cluster":
         return plan
+    if H > GRID_MAX_HIDDEN:
+        _check_wide("K1's wide forward", H, card)
+        return grid_stream_plan(nb, B, H, card)
     return grid_plan(nb, B, H, card, must=False) or stream_plan(nb, B, H, card)
 
 
@@ -637,29 +721,33 @@ _CARDS: dict[int, dict] = {}
 
 def cluster_card(device: torch.device | None = None) -> dict:
     """The numbers :func:`cluster_plan`, :func:`grid_plan`,
-    :func:`grid_bwd_plan` and :func:`stream_plan` take, from the card itself
-    (``gru_seq_cluster_card``, ``gru_seq_grid_card``,
-    ``gru_seq_grid_bwd_card``; kept per device): SMs, shared bytes a block
-    and an SM and those reserved a block, clusters of each C resident at
-    once, one block an SM, and the grid forward's and backward's blocks
-    resident on an SM at no dynamic shared memory
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 where the card has no
+    :func:`grid_bwd_plan`, :func:`grid_stream_plan` and :func:`stream_plan`
+    take, from the card itself (``gru_seq_cluster_card``,
+    ``gru_seq_grid_card``, ``gru_seq_grid_bwd_card``,
+    ``gru_seq_grid_stream_card``; kept per device): SMs, shared bytes a
+    block and an SM and those reserved a block, clusters of each C resident
+    at once, one block an SM, and the grid forward's, the grid backward's
+    and the grid forward past H 1024's blocks resident on an SM at no
+    dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    the last the fewest of its instances; 0 where the card has no
     cooperative launches)."""
     device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _CARDS:
         lib = _build.load_library()
         out = (ctypes.c_int * 8)()
-        grid, grid_bwd = (ctypes.c_int * 2)(), (ctypes.c_int * 2)()
+        grid, grid_bwd, stream = ((ctypes.c_int * 2)() for _ in range(3))
         with torch.cuda.device(index):
             _build.check(lib, "gru_seq_cluster_card", lib.gru_seq_cluster_card(out))
             _build.check(lib, "gru_seq_grid_card", lib.gru_seq_grid_card(grid))
             _build.check(lib, "gru_seq_grid_bwd_card", lib.gru_seq_grid_bwd_card(grid_bwd))
+            _build.check(lib, "gru_seq_grid_stream_card", lib.gru_seq_grid_stream_card(stream))
         _CARDS[index] = {"sms": out[0], "smem": out[1], "smem_sm": out[2],
                          "smem_reserved": out[3],
                          "resident": dict(zip(CLUSTER_SIZES, out[4:8])),
                          "grid_blocks_sm": grid[1] * grid[0],
-                         "grid_bwd_blocks_sm": grid_bwd[1] * grid_bwd[0]}
+                         "grid_bwd_blocks_sm": grid_bwd[1] * grid_bwd[0],
+                         "grid_stream_blocks_sm": stream[1] * stream[0]}
     return _CARDS[index]
 
 
@@ -672,8 +760,11 @@ def gru_sequence_wide(xp, w_hh_t, b_hh, h0, plan: dict | None = None) -> torch.T
     buckets, each counted by ``gru_sequence_wide.grid_launches``) where a
     bucket's grid blocks are resident at once, and the streaming kernel
     (``gru_sequence_wide.launches``; ``{"route": "stream"}``, whose tile
-    the kernel takes from the card, as :func:`stream_plan`) past that. A
-    plan the card cannot launch raises."""
+    the kernel takes from the card, as :func:`stream_plan`), which the
+    planned route no longer takes; past H 1024 the grid that streams W's
+    remainder (one launch a wave of buckets, each counted by
+    ``gru_sequence_wide.grid_stream_launches``). A plan the card cannot
+    launch raises."""
     nb, T, B, H = _check_shapes(xp, w_hh_t, b_hh, h0)
     ys = torch.empty((nb, T, B, H), dtype=torch.float32, device=xp.device)
     if nb and T and B:
@@ -687,6 +778,10 @@ def gru_sequence_wide(xp, w_hh_t, b_hh, h0, plan: dict | None = None) -> torch.T
             gru_sequence_wide.grid_launches += _grid_waves(
                 "gru_seq_grid_fwd", "gru_seq_grid_workspace", (xp, w_hh_t, b_hh, h0, ys),
                 (nb, T, B, H), plan)
+        elif plan["route"] == "grid_stream":
+            gru_sequence_wide.grid_stream_launches += _grid_waves(
+                "gru_seq_grid_stream_fwd", "gru_seq_grid_stream_workspace",
+                (xp, w_hh_t, b_hh, h0, ys), (nb, T, B, H), plan, *_stream_args(plan))
         elif plan["route"] == "stream":
             _launch("gru_seq_wide_fwd", xp, w_hh_t, b_hh, h0, ys, nb, T, B, H)
             gru_sequence_wide.launches += 1
@@ -695,21 +790,30 @@ def gru_sequence_wide(xp, w_hh_t, b_hh, h0, plan: dict | None = None) -> torch.T
     return ys
 
 
-def _grid_waves(fn: str, workspace: str, tensors: tuple, dims: tuple, plan: dict) -> int:
+def _grid_waves(fn: str, workspace: str, tensors: tuple, dims: tuple, plan: dict,
+                *extra: int) -> int:
     """Launch ``fn`` (a grid kernel or its probe) on ``tensors`` once for each
     wave of the plan's ``buckets_per_wave`` buckets, on one zeroed workspace
     of ``workspace``'s words (the flags and the exchange buffers of every
-    bucket); returns the launches."""
+    bucket, and past H 1024 W's slices), ``extra`` (the plan's own ints;
+    the first also the workspace's) after the wave's buckets; returns the
+    launches."""
     nb, T, B, H = dims
     lib = _build.load_library()
-    words = getattr(lib, workspace)(nb, B, H)
+    words = getattr(lib, workspace)(nb, B, H, *extra[:1])
     if words < 0:
         raise ValueError(f"{fn}: no workspace for nb={nb} B={B} H={H}")
     ws = torch.zeros(words, dtype=torch.int32, device=tensors[0].device)
     per_wave = plan["buckets_per_wave"]
     for first in range(0, nb, per_wave):
-        _launch(fn, *tensors, ws, nb, T, B, H, first, min(per_wave, nb - first))
+        _launch(fn, *tensors, ws, nb, T, B, H, first, min(per_wave, nb - first), *extra)
     return -(-nb // per_wave)
+
+
+def _stream_args(plan: dict) -> tuple[int, int]:
+    """The ints a grid_stream plan hands its kernel: J and the resident
+    depth."""
+    return plan["groups"], plan["resident_depth"]
 
 
 def cluster_chain_probe(xp, w_hh_t, b_hh, h0, plan: dict) -> None:
@@ -734,11 +838,25 @@ def grid_chain_probe(xp, w_hh_t, b_hh, h0, plan: dict) -> None:
                 _check_shapes(xp, w_hh_t, b_hh, h0), plan)
 
 
+def grid_stream_chain_probe(xp, w_hh_t, b_hh, h0, plan: dict) -> None:
+    """Launch the step-chain probe of the grid forward past H 1024
+    (``gru_seq_grid_stream_chain``) on the inputs of a
+    :func:`gru_sequence_wide` call and its grid_stream plan: the same
+    launches with W's prep, each step's product and gates left out, T steps
+    of the wait, the copies of h and of W's streamed rows from L2 and the
+    publication alone. It writes only its workspace, is counted by no launch
+    counter, and is timed as the route's step-chain floor."""
+    _grid_waves("gru_seq_grid_stream_chain", "gru_seq_grid_stream_workspace",
+                (xp, w_hh_t, b_hh, h0, xp), _check_shapes(xp, w_hh_t, b_hh, h0), plan,
+                *_stream_args(plan))
+
+
 def wide_tile(nb: int, B: int, H: int) -> dict:
     """The wide route for (nb, B, H) on the current card: the forward's
-    ``route`` (``"cluster"``, ``"grid"`` or ``"stream"``) with its cluster
-    ``C`` and rows ``R`` (None off the cluster kernel) and ``plan``
-    (:func:`wide_plan`: the cluster, grid or streaming plan); the backward's
+    ``route`` (``"cluster"``, ``"grid"``, ``"grid_stream"`` or ``"stream"``)
+    with its cluster ``C`` and rows ``R`` (None off the cluster kernel) and
+    ``plan`` (:func:`wide_plan`: the cluster, grid, grid_stream or streaming
+    plan); the backward's
     the same under ``bwd_route``, ``bwd_C``, ``bwd_R`` and ``bwd_plan``
     (:func:`wide_bwd_plan`); and the streaming kernels' tile as the kernel
     makes it on the card (:func:`stream_plan` mirrors it): batch rows a
@@ -916,9 +1034,11 @@ def gru_sequence(xp: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
     CPU tensors take the plain versions; CUDA tensors launch the kernels:
     ``gru_sequence.launches`` counts the forward launches at H up to
     :data:`MAX_HIDDEN`, ``gru_sequence_wide.cluster_launches``,
-    ``gru_sequence_wide.grid_launches`` and ``gru_sequence_wide.launches``
-    the wide route's past it (the cluster, the grid and the streaming
-    kernel; and ``gru_sequence_bwd``,
+    ``gru_sequence_wide.grid_launches``,
+    ``gru_sequence_wide.grid_stream_launches`` and
+    ``gru_sequence_wide.launches`` the wide route's past it (the cluster,
+    the grid, the grid past H 1024 and the streaming kernel; and
+    ``gru_sequence_bwd``,
     ``gru_sequence_bwd_wide.cluster_launches``,
     ``gru_sequence_bwd_wide.grid_launches`` and
     ``gru_sequence_bwd_wide.launches`` the backward's).
@@ -933,6 +1053,7 @@ gru_sequence_bwd.launches = 0
 gru_sequence_wide.launches = 0
 gru_sequence_wide.cluster_launches = 0
 gru_sequence_wide.grid_launches = 0
+gru_sequence_wide.grid_stream_launches = 0
 gru_sequence_bwd_wide.launches = 0
 gru_sequence_bwd_wide.cluster_launches = 0
 gru_sequence_bwd_wide.grid_launches = 0

@@ -38,9 +38,9 @@ from eegsynth_torch.nn.attention import (
 )
 from eegsynth_torch.nn.gru_sequence import (
     GRID_MAX_HIDDEN, MAX_HIDDEN, cluster_bwd_geometry, cluster_bwd_plan, cluster_card,
-    cluster_geometry, cluster_plan, grid_bwd_plan, grid_plan, gru_sequence, gru_sequence_bwd,
-    gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference, gru_sequence_wide,
-    weight_grads, wide_bwd_plan, wide_cap, wide_plan,
+    cluster_geometry, cluster_plan, grid_bwd_plan, grid_plan, grid_stream_plan, gru_sequence,
+    gru_sequence_bwd, gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference,
+    gru_sequence_wide, weight_grads, wide_bwd_plan, wide_cap, wide_plan,
 )
 from eegsynth_torch.nn.multigru import (
     multigru_disc_inputs, multigru_disc_inputs_reference,
@@ -231,23 +231,26 @@ def test_backward_repeats_bitwise(cuda_device, nb, T, B, H):
 
 
 def _wide_counts() -> tuple:
-    """K1 forward, the wide route's cluster, grid and streaming forwards, K1
-    backward, the wide route's cluster, streaming and grid backwards."""
+    """K1 forward, the wide route's cluster, grid, streaming and grid past
+    H 1024 forwards, K1 backward, the wide route's cluster, streaming and
+    grid backwards."""
     return (gru_sequence.launches, gru_sequence_wide.cluster_launches,
             gru_sequence_wide.grid_launches, gru_sequence_wide.launches,
-            gru_sequence_bwd.launches, gru_sequence_bwd_wide.cluster_launches,
-            gru_sequence_bwd_wide.launches, gru_sequence_bwd_wide.grid_launches)
+            gru_sequence_wide.grid_stream_launches, gru_sequence_bwd.launches,
+            gru_sequence_bwd_wide.cluster_launches, gru_sequence_bwd_wide.launches,
+            gru_sequence_bwd_wide.grid_launches)
 
 
 def _wide_forward(nb, B, H) -> list:
     """The wide forward's launches _wide_counts expects at (nb, B, H): the
     cluster kernel where the card's cluster plan fits, the grid kernel (one
-    launch a wave of buckets) where its blocks are resident, else the
-    streaming kernel."""
+    launch a wave of buckets) where its blocks are resident, past H 1024 the
+    grid that streams W's remainder (one launch a wave), else the streaming
+    kernel."""
     plan = wide_plan(nb, B, H, cluster_card())
     route = plan["route"]
     return [0, int(route == "cluster"), plan["waves"] if route == "grid" else 0,
-            int(route == "stream")]
+            int(route == "stream"), plan["waves"] if route == "grid_stream" else 0]
 
 
 def _wide_backward(nb, B, H) -> list:
@@ -263,14 +266,16 @@ def _wide_backward(nb, B, H) -> list:
 
 # K1's wide route (H past 128; each half on a cluster up to its cap, in
 # gru_seq_cluster.cu and gru_seq_cluster_bwd.cu; past it each half on a
-# grid, gru_seq_grid.cu and gru_seq_grid_bwd.cu; past H 1024 on the
-# streaming kernels, gru_seq_wide.cu): the first width past the register
-# kernels' cap (3H and H not multiples of 4: the scalar tails), H 256 and
-# 512 (bench_kernels' sweep) with odd T and B, a batch past one wave, one
-# step, the grids' largest H; past it H 1025 (two columns a thread, nb 2),
-# 1536 (four rows a block), 2048 and the wide route's cap on this card
-# (ten columns a thread, one row a block, the backward's dhp filling a
-# block's shared memory) at a short T
+# grid, gru_seq_grid.cu and gru_seq_grid_bwd.cu; past H 1024 the forward on
+# the grid that streams W's remainder, gru_seq_grid_stream.cu, and the
+# backward on the streaming kernel, gru_seq_wide.cu): the first width past
+# the register kernels' cap (3H and H not multiples of 4: the scalar
+# tails), H 256 and 512 (bench_kernels' sweep) with odd T and B, a batch
+# past one wave, one step, the grids' largest H; past it H 1025 (nb 2: two
+# waves forward, two columns a thread backward), 1536 (ten 64-row tiles
+# forward, four rows a block backward), 2048 and the wide route's cap on
+# this card (ten groups a block forward; one row a block backward, its dhp
+# filling a block's shared memory) at a short T
 @pytest.mark.parametrize("nb,T,B,H", [(2, 101, 37, 129), (2, 301, 33, 256),
                                       (2, 77, 5, 512), (1, 50, 600, 200),
                                       (3, 1, 5, 256), (1, 20, 3, 1024),
@@ -283,7 +288,9 @@ def test_wide_kernels_match_plain(cuda_device, nb, T, B, H):
     else:
         inputs = _inputs(T, B, H, cuda_device, seed=H, lead=(nb,))
     if H > GRID_MAX_HIDDEN:
-        assert _wide_forward(nb, B, H) + _wide_backward(nb, B, H) == [0, 0, 0, 1, 0, 0, 1, 0]
+        waves = wide_plan(nb, B, H, cluster_card())["waves"]
+        assert _wide_forward(nb, B, H) + _wide_backward(nb, B, H) == [0, 0, 0, 0, waves,
+                                                                      0, 0, 1, 0]
     before = _wide_counts()
     ys = gru_sequence(*inputs)
     ref = gru_sequence_reference(*inputs)
@@ -312,7 +319,7 @@ def test_cluster_forward_each_size_matches_plain(cuda_device, C, R, nb, T, B, H)
     before = _wide_counts()
     ys = gru_sequence_wide(*inputs, plan=plan)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0, 0, 0, 0]
     assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
     assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
 
@@ -325,7 +332,7 @@ def test_cluster_route_matches_plain(cuda_device, nb, T, B, H):
     before = _wide_counts()
     ys = gru_sequence(*inputs)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 1, 0, 0, 0, 0, 0, 0, 0]
     assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
 
 
@@ -337,7 +344,7 @@ def test_cluster_route_ends_at_its_cap(cuda_device):
     card = cluster_card()
     cap = max(H for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1)
               if cluster_plan(1, 1, H, card)["route"] == "cluster")
-    for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0, 0])):
+    for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0, 0, 0])):
         inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
         before = _wide_counts()
         ys = gru_sequence(*inputs)
@@ -369,7 +376,8 @@ def test_grid_forward_matches_plain(cuda_device, nb, T, B, H):
     before = _wide_counts()
     ys = gru_sequence_wide(*inputs, plan=plan)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, plan["waves"], 0, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, plan["waves"], 0, 0,
+                                                              0, 0, 0, 0]
     assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
     assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
 
@@ -384,8 +392,8 @@ def test_grid_route_takes_over_past_the_cluster_cap(cuda_device):
     card = cluster_card()
     cap = max(H for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1)
               if cluster_plan(1, 1, H, card)["route"] == "cluster")
-    for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0, 0]),
-                    (GRID_MAX_HIDDEN, [0, 0, 1, 0, 0, 0, 0, 0])):
+    for H, want in ((cap, [0, 1, 0, 0, 0, 0, 0, 0, 0]), (cap + 1, [0, 0, 1, 0, 0, 0, 0, 0, 0]),
+                    (GRID_MAX_HIDDEN, [0, 0, 1, 0, 0, 0, 0, 0, 0])):
         inputs = _inputs(40, 9, H, cuda_device, seed=H, lead=(1,))
         before = _wide_counts()
         ys = gru_sequence(*inputs)
@@ -399,13 +407,64 @@ def test_grid_route_takes_over_past_the_cluster_cap(cuda_device):
     ys = gru_sequence(*inputs)
     torch.cuda.synchronize()
     assert ys.shape == (3, 0, 9, 1024)
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 8
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 9
     inputs = _inputs(10, 3, 1024, cuda_device, seed=8, lead=(2,))
     plan = grid_plan(2, 3, 1024, card)
     too_many = {**plan, "buckets_per_wave": 2}
     assert 2 * plan["blocks"] > plan["resident"]
     with pytest.raises(RuntimeError, match="gru_seq_grid_fwd"):
         gru_sequence_wide(*inputs, plan=too_many)
+
+
+# the grid forward past H 1024 (gru_seq_grid_stream.cu) on its planned
+# route: H 1025 at nb 2 (two waves of 129 blocks of 8 units), 1536 and 2048
+# at the sequential trainer's bucket (96 and 128 blocks of 16 units), a
+# ragged B (63) and T (767), three 64-row tiles (B 130), every other group
+# count its plans take (J 3 to 9 at H 3000 to 9000), and the wide route's
+# cap (T 8, B 2: ten groups, all of W streamed)
+@pytest.mark.parametrize("nb,T,B,H", [(2, 40, 37, 1025), (1, 30, 64, 1536), (1, 20, 64, 2048),
+                                      (1, 25, 63, 1536), (1, 767, 64, 1536), (1, 6, 130, 1536),
+                                      (1, 6, 5, 3000), (1, 6, 5, 4000), (1, 6, 5, 5000),
+                                      (1, 6, 5, 6000), (1, 6, 5, 7000), (1, 6, 5, 8000),
+                                      (1, 6, 5, 9000), (1, 8, 2, "cap")])
+def test_grid_stream_forward_matches_plain(cuda_device, nb, T, B, H):
+    if H == "cap":
+        H = wide_cap(cluster_card())
+    inputs = _device_inputs(T, B, H, cuda_device, seed=H + T, lead=(nb,))
+    plan = wide_plan(nb, B, H, cluster_card())
+    assert plan["route"] == "grid_stream"
+    assert plan == grid_stream_plan(nb, B, H, cluster_card())
+    before = _wide_counts()
+    ys = gru_sequence_wide(*inputs)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, plan["waves"],
+                                                              0, 0, 0, 0]
+    assert ys.shape == (nb, T, B, H) and torch.isfinite(ys).all()
+    assert (ys - gru_sequence_reference(*inputs)).abs().max().item() <= 1e-4
+
+
+def test_grid_stream_forward_repeats_bitwise_and_takes_unaligned_inputs(cuda_device):
+    """The grid forward past H 1024 sums in a fixed order: two calls give
+    the same bits; xp and W_hhᵀ 4 bytes into their storage are read as they
+    are; T = 0 launches nothing; a plan with more blocks than the card holds
+    resident at once is refused by the cooperative launch and raises."""
+    nb, T, B, H = 2, 30, 9, 1100
+    xp, w, b, h0 = _inputs(T, B, H, cuda_device, seed=11, lead=(nb,))
+    xp = torch.cat([xp.new_zeros(1), xp.reshape(-1)])[1:].view(xp.shape)
+    w = torch.cat([w.new_zeros(1), w.reshape(-1)])[1:].view(w.shape)
+    ys = gru_sequence(xp, w, b, h0)
+    assert torch.equal(ys, gru_sequence(xp, w, b, h0))
+    assert (ys - gru_sequence_reference(xp, w, b, h0)).abs().max().item() <= 1e-4
+    inputs = _inputs(0, 9, H, cuda_device, lead=(3,))
+    before = _wide_counts()
+    assert gru_sequence(*inputs).shape == (3, 0, 9, H)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 9
+    plan = grid_stream_plan(nb, B, H, cluster_card())
+    too_many = {**plan, "buckets_per_wave": 2}
+    assert 2 * plan["blocks"] > plan["resident"]
+    with pytest.raises(RuntimeError, match="gru_seq_grid_stream_fwd"):
+        gru_sequence_wide(xp, w, b, h0, plan=too_many)
 
 
 def _wide_bwd_inputs(nb, T, B, H, device, seed):
@@ -434,7 +493,7 @@ def test_cluster_backward_each_size_matches_plain(cuda_device, C, R, S, nb, T, B
     dxp, dh0 = gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
                                      plan=plan)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 0, 1, 0, 0]
     ref = gru_sequence_bwd_reference(*inputs, ys, d_ys)
     dw, db = weight_grads(h_prev, hp)
     _assert_bwd_matches((dxp, dw, db, dh0), ref)
@@ -450,7 +509,7 @@ def test_cluster_backward_route_matches_plain(cuda_device, nb, T, B, H):
     before = _wide_counts()
     got = gru_sequence_bwd(*inputs, ys, d_ys)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 0, 1, 0, 0]
     _assert_bwd_matches(got, gru_sequence_bwd_reference(*inputs, ys, d_ys))
 
 
@@ -462,7 +521,7 @@ def test_cluster_backward_ends_at_its_cap(cuda_device):
     card = cluster_card()
     cap = max(H for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1)
               if cluster_bwd_plan(1, 1, H, card)["route"] == "cluster")
-    for H, want in ((cap, [0, 0, 0, 0, 0, 1, 0, 0]), (cap + 1, [0, 0, 0, 0, 0, 0, 0, 1])):
+    for H, want in ((cap, [0, 0, 0, 0, 0, 0, 1, 0, 0]), (cap + 1, [0, 0, 0, 0, 0, 0, 0, 0, 1])):
         inputs = _inputs(40, 5, H, cuda_device, seed=H, lead=(1,))
         ys = gru_sequence_reference(*inputs)
         d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(H)).to(cuda_device)
@@ -481,7 +540,7 @@ def test_cluster_backward_ends_at_its_cap(cuda_device):
     before = _wide_counts()
     dxp, dw, db, dh0 = gru_sequence_bwd(*inputs, ys, torch.zeros_like(ys))
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 1, 0, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 0, 1, 0, 0]
     assert dxp.shape == inputs[0].shape
     for t in (dw, db, dh0):
         assert torch.equal(t, torch.zeros_like(t))
@@ -508,7 +567,7 @@ def test_grid_backward_matches_plain(cuda_device, nb, T, B, H):
     dxp, dh0 = gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
                                      plan=plan)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 7 + [plan["waves"]]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 8 + [plan["waves"]]
     ref = gru_sequence_bwd_reference(*inputs, ys, d_ys)
     dw, db = weight_grads(h_prev, hp)
     _assert_bwd_matches((dxp, dw, db, dh0), ref)
@@ -524,8 +583,8 @@ def test_grid_backward_takes_over_past_the_cluster_cap(cuda_device):
     card = cluster_card()
     cap = max(H for H in range(MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 1)
               if cluster_bwd_plan(1, 1, H, card)["route"] == "cluster")
-    for H, want in ((cap, [0, 0, 0, 0, 0, 1, 0, 0]), (cap + 1, [0, 0, 0, 0, 0, 0, 0, 1]),
-                    (GRID_MAX_HIDDEN, [0, 0, 0, 0, 0, 0, 0, 1])):
+    for H, want in ((cap, [0, 0, 0, 0, 0, 0, 1, 0, 0]), (cap + 1, [0, 0, 0, 0, 0, 0, 0, 0, 1]),
+                    (GRID_MAX_HIDDEN, [0, 0, 0, 0, 0, 0, 0, 0, 1])):
         inputs = _inputs(40, 9, H, cuda_device, seed=H, lead=(1,))
         ys = gru_sequence_reference(*inputs)
         d_ys = torch.randn(ys.shape, generator=torch.Generator().manual_seed(H)).to(cuda_device)
@@ -544,7 +603,7 @@ def test_grid_backward_takes_over_past_the_cluster_cap(cuda_device):
     before = _wide_counts()
     dxp, dw, db, dh0 = gru_sequence_bwd(*inputs, ys, torch.zeros_like(ys))
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 8
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0] * 9
     assert dxp.shape == inputs[0].shape
     for t in (dw, db, dh0):
         assert torch.equal(t, torch.zeros_like(t))
@@ -567,7 +626,7 @@ def test_streaming_backward_runs_only_when_asked(cuda_device, nb, T, B, H):
     dxp, dh0 = gru_sequence_bwd_wide(inputs[0], hp, h_prev, d_ys, inputs[1], inputs[2], hp,
                                      plan={"route": "stream"})
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_wide_counts(), before)] == [0, 0, 0, 0, 0, 0, 0, 1, 0]
     dw, db = weight_grads(h_prev, hp)
     _assert_bwd_matches((dxp, dw, db, dh0), gru_sequence_bwd_reference(*inputs, ys, d_ys))
 
@@ -621,8 +680,8 @@ def test_wide_timegan_step_runs_on_wide_k1(cuda_device):
     card = step(cuda_device)
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(counts(), before)]
-    assert launched[8] == 0 and launched[1] >= 2 and launched[2] == launched[3] == 0
-    assert launched[5] >= 1 and launched[6] == launched[7] == 0
+    assert launched[9] == 0 and launched[1] >= 2 and launched[2] == launched[3] == 0
+    assert launched[4] == 0 and launched[6] >= 1 and launched[7] == launched[8] == 0
     host = step("cpu")
     logs = (card[3].cpu() - host[3]).abs() / host[3].abs().clamp(min=1.0)
     assert torch.isfinite(card[3]).all() and logs.max().item() <= 1e-4
@@ -631,9 +690,10 @@ def test_wide_timegan_step_runs_on_wide_k1(cuda_device):
 def test_wide_timegan_step_runs_on_streaming_k1(cuda_device):
     """A TimeGAN at z64/h1536 (a TimeGANConfig the JAX package builds, past
     the grids' H 1024): one GAN step on the card takes the composed D-step
-    route, no K2; the generator's and supervisor's recurrences run the
-    streaming K1 forward and backward, no cluster and no grid kernel; the
-    step matches the CPU."""
+    route, no K2; the generator's and supervisor's recurrences run their
+    forwards on the grid that streams W's remainder and their backwards on
+    the streaming kernel, no cluster, no H <= 1024 grid kernel and no
+    streaming forward; the step matches the CPU."""
     cfg = TimeGANConfig(x_dim=14, z_dim=64, h_dim=1536)
     nb, B, T = 1, 4, 32
     params = timegan_init_stacked(
@@ -659,8 +719,8 @@ def test_wide_timegan_step_runs_on_streaming_k1(cuda_device):
     card = step(cuda_device)
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(counts(), before)]
-    assert launched[8] == 0 and launched[3] >= 2 and launched[1] == launched[2] == 0
-    assert launched[6] >= 1 and launched[5] == launched[7] == 0
+    assert launched[9] == 0 and launched[4] >= 2 and launched[1] == launched[2] == 0
+    assert launched[3] == 0 and launched[7] >= 1 and launched[6] == launched[8] == 0
     host = step("cpu")
     logs = (card[3].cpu() - host[3]).abs() / host[3].abs().clamp(min=1.0)
     assert torch.isfinite(card[3]).all() and logs.max().item() <= 1e-4

@@ -1,14 +1,15 @@
 """K1's wide forward and backward on thread-block clusters
 (``csrc/gru_seq_cluster.cu``, ``csrc/gru_seq_cluster_bwd.cu``), past the
 clusters' cap on one cooperative grid (``csrc/gru_seq_grid.cu``,
-``csrc/gru_seq_grid_bwd.cu``) and past the grids on the streaming kernels
-(``csrc/gru_seq_wide.cu``) on the CPU: the route, cluster and rows that
-``cluster_plan`` and ``cluster_bwd_plan`` pick at the H100's numbers, the
-grid plans above the cap and the streaming tile past H 1024 up to the wide
-route's cap, and each kernel's summation order, emulated in numpy float32,
-against the plain versions and the Pallas kernel (and its custom VJP) in
-interpret mode. The kernels themselves run on the card
-(tests/test_torch_card.py, chip_smoke.py)."""
+``csrc/gru_seq_grid_bwd.cu``), past the grids the forward on a grid that
+streams W's remainder (``csrc/gru_seq_grid_stream.cu``) and the backward on
+the streaming kernel (``csrc/gru_seq_wide.cu``) on the CPU: the route,
+cluster and rows that ``cluster_plan`` and ``cluster_bwd_plan`` pick at the
+H100's numbers, the grid plans above the cap, ``grid_stream_plan`` and the
+streaming tile past H 1024 up to the wide route's cap, and each kernel's
+summation order, emulated in numpy float32, against the plain versions and
+the Pallas kernel (and its custom VJP) in interpret mode. The kernels
+themselves run on the card (tests/test_torch_card.py, chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -22,9 +23,10 @@ from test_torch_threads import one_thread_each  # noqa: F401
 from eegsynth.nn.pallas_gru import gru_sequence as jax_gru_sequence
 from eegsynth_torch.nn.gru_sequence import (
     CLUSTER_MAX_THREADS, CLUSTER_ROWS, GRID_BWD_AHEAD, GRID_CHUNK, GRID_MAX_HIDDEN, GRID_PAD,
-    GRID_STAGES, GRID_THREADS, GRID_UNITS, MAX_HIDDEN, STREAM_MAX_THREADS, STREAM_ROWS,
-    cluster_bwd_fits, cluster_bwd_plan, cluster_bwd_smem, cluster_fits, cluster_plan,
-    cluster_smem, grid_bwd_plan, grid_bwd_smem, grid_plan, grid_resident, grid_smem,
+    GRID_STAGES, GRID_STREAM_CHUNK, GRID_STREAM_MAX_GROUPS, GRID_THREADS, GRID_UNITS,
+    MAX_HIDDEN, STREAM_MAX_THREADS, STREAM_ROWS, cluster_bwd_fits, cluster_bwd_plan,
+    cluster_bwd_smem, cluster_fits, cluster_plan, cluster_smem, grid_bwd_plan, grid_bwd_smem,
+    grid_plan, grid_resident, grid_smem, grid_stream_plan, grid_stream_smem, grid_stream_stages,
     gru_sequence_bwd_reference, gru_sequence_bwd_wide, gru_sequence_reference,
     gru_sequence_wide, resident_clusters, stream_plan, stream_smem, weight_grads,
     wide_bwd_plan, wide_cap, wide_plan)
@@ -32,13 +34,14 @@ from eegsynth_torch.nn.gru_sequence import (
 # The H100 SXM's numbers (132 SMs, 232,448 shared bytes a block, 233,472 an
 # SM, 1,024 reserved a block) with the clusters resident at once for each C
 # at one block an SM (cudaOccupancyMaxActiveClusters) and the grid
-# forward's and backward's blocks an SM at no dynamic shared memory
-# (cudaOccupancyMaxActiveBlocksPerMultiprocessor: the forward's 256 threads'
-# registers allow one, the backward's two) that the H100 80GB HBM3 reports;
-# and the same card without clusters of 16.
+# forward's, the grid backward's and the grid forward past H 1024's blocks
+# an SM at no dynamic shared memory
+# (cudaOccupancyMaxActiveBlocksPerMultiprocessor: the forwards' 256
+# threads' registers allow one, the backward's two) that the H100 80GB HBM3
+# reports; and the same card without clusters of 16.
 H100 = {"sms": 132, "smem": 232448, "smem_sm": 233472, "smem_reserved": 1024,
         "resident": {2: 66, 4: 30, 8: 15, 16: 7}, "grid_blocks_sm": 1,
-        "grid_bwd_blocks_sm": 2}
+        "grid_bwd_blocks_sm": 2, "grid_stream_blocks_sm": 1}
 H100_PORTABLE = {**H100, "resident": {**H100["resident"], 16: 0}}
 CAPS = {"16 blocks": (H100, 544), "8 blocks": (H100_PORTABLE, 384)}
 # the wide route's cap on the H100: the streaming backward's one-row tile,
@@ -735,15 +738,89 @@ def test_wide_plans_keep_their_routes_up_to_1024(card, B):
 
 @pytest.mark.parametrize("nb,B", [(1, 1), (1, 16), (1, 64), (18, 63), (1, 600)])
 def test_wide_plans_stream_past_1024(nb, B):
-    """For every H from 1025 to the cap (9685 on the H100), both halves of
-    the wide route take the streaming kernels: wide_plan and wide_bwd_plan
-    are stream_plan's tile, on the card with clusters of 16 and without."""
+    """For every H from 1025 to the cap (9685 on the H100), the forward
+    takes the grid that streams W's remainder (wide_plan is
+    grid_stream_plan's plan) and the backward the streaming kernel
+    (wide_bwd_plan is stream_plan's tile), on the card with clusters of 16
+    and without."""
     for numbers in (H100, H100_PORTABLE):
         assert wide_cap(numbers) == H100_CAP
         for H in range(GRID_MAX_HIDDEN + 1, H100_CAP + 1):
             plan = stream_plan(nb, B, H, numbers)
-            assert plan["route"] == "stream"
-            assert wide_plan(nb, B, H, numbers) == plan == wide_bwd_plan(nb, B, H, numbers)
+            assert plan["route"] == "stream" and plan == wide_bwd_plan(nb, B, H, numbers)
+            fwd = wide_plan(nb, B, H, numbers)
+            assert fwd["route"] == "grid_stream" and fwd == grid_stream_plan(nb, B, H, numbers)
+
+
+# the paths' (nb, B) past H 1024: the sequential trainer's bucket,
+# [timegan-wide]'s generator batch, chip_smoke.py's two waves at H 1025, and
+# the parallel trainer's eighteen buckets at the D step's batch
+@pytest.mark.parametrize("nb,B", [(1, 64), (1, 16), (2, 37), (18, 63)])
+def test_grid_stream_plan_covers_every_width_past_1024(nb, B):
+    """For every H from 1025 to the cap, grid_stream_plan at the H100's
+    numbers: the fewest groups J (to GRID_STREAM_MAX_GROUPS) whose blocks of
+    8J units, one an SM, are resident at once, and they cover H; 3U a
+    multiple of 8 and at most 256 (J wgmma n24 a k-slice); its shared bytes
+    (grid_stream_smem) fit a block and an SM; the resident and the streamed
+    depth, multiples of GRID_STREAM_CHUNK, cover W's padded depth exactly
+    once, the resident as deep as fits; a wave's buckets are resident at
+    once and the waves take all nb. B does not enter. A card without
+    cooperative launches gets no plan: grid_stream_plan and wide_plan raise
+    there, naming what did not fit. H up to 1024 keeps its plans."""
+    none = {**H100, "grid_stream_blocks_sm": 0}
+    room = min(H100["smem"], H100["smem_sm"] - H100["smem_reserved"])
+    for H in range(GRID_MAX_HIDDEN + 1, H100_CAP + 1):
+        plan = grid_stream_plan(nb, B, H, H100)
+        assert plan == grid_stream_plan(nb, 1, H, H100)
+        J, U, blocks = plan["groups"], plan["U"], plan["blocks"]
+        assert 1 <= J <= GRID_STREAM_MAX_GROUPS and U == GRID_UNITS * J
+        assert (3 * U) % 8 == 0 and 3 * U <= 256
+        assert blocks * U >= H > (blocks - 1) * U
+        assert plan["resident"] == H100["sms"] and plan["blocks_sm"] == 1
+        assert blocks <= plan["resident"]
+        assert J == 1 or -(-H // (GRID_UNITS * (J - 1))) > plan["resident"]
+        depth = -(-H // GRID_PAD) * GRID_PAD
+        kept, streamed = plan["resident_depth"], plan["streamed_depth"]
+        assert kept + streamed == depth and kept >= 0 and streamed >= 0
+        assert kept % GRID_STREAM_CHUNK == 0 and streamed % GRID_STREAM_CHUNK == 0
+        assert plan["smem"] == grid_stream_smem(J, kept) <= room
+        assert kept == depth or grid_stream_smem(J, kept + GRID_STREAM_CHUNK) > room
+        assert plan["stages"] == grid_stream_stages(J) and plan["chunk"] == GRID_STREAM_CHUNK
+        assert plan["threads"] == GRID_THREADS
+        per_wave = plan["buckets_per_wave"]
+        assert per_wave == min(nb, plan["resident"] // blocks) and blocks * per_wave <= 132
+        assert plan["waves"] == -(-nb // per_wave)
+    for H in (GRID_MAX_HIDDEN + 1, 1536, 2048, H100_CAP):
+        with pytest.raises(RuntimeError, match="grid forward past H 1024.*resident"):
+            grid_stream_plan(nb, B, H, none)
+        with pytest.raises(RuntimeError, match="cooperative launches no"):
+            wide_plan(nb, B, H, none)
+    for H in (MAX_HIDDEN + 1, 544, 545, 777, GRID_MAX_HIDDEN):
+        assert wide_plan(nb, B, H, H100)["route"] in ("cluster", "grid")
+
+
+def test_grid_stream_plan_at_the_headline_shapes():
+    """The plans the card's main paths start from past H 1024: (1, 64,
+    1536) on 96 blocks of 16 units, 384 of W's 1536 rows resident and 1152
+    streamed, four stages (229,376 shared bytes), one wave; (1, 64, 2048) on
+    128 blocks, 1664 rows streamed; H 1025 on 129 blocks of 8 units (1056
+    deep: 896 resident), two buckets in two waves and eighteen in eighteen;
+    H 2113 the first on three groups; the cap on 122 blocks of 80 units,
+    three stages, all 9696 rows streamed."""
+    plan = grid_stream_plan(1, 64, 1536, H100)
+    assert (plan["groups"], plan["blocks"], plan["resident_depth"], plan["streamed_depth"],
+            plan["stages"], plan["smem"], plan["waves"]) == (2, 96, 384, 1152, 4, 229376, 1)
+    plan = grid_stream_plan(1, 64, 2048, H100)
+    assert (plan["groups"], plan["blocks"], plan["streamed_depth"]) == (2, 128, 1664)
+    plan = grid_stream_plan(2, 37, 1025, H100)
+    assert (plan["groups"], plan["blocks"], plan["resident_depth"], plan["waves"]) == (
+        1, 129, 896, 2)
+    assert grid_stream_plan(18, 63, 1025, H100)["waves"] == 18
+    assert grid_stream_plan(1, 64, 2112, H100)["groups"] == 2
+    assert grid_stream_plan(1, 64, 2113, H100)["groups"] == 3
+    plan = grid_stream_plan(1, 2, H100_CAP, H100)
+    assert (plan["groups"], plan["blocks"], plan["stages"], plan["resident_depth"],
+            plan["streamed_depth"]) == (10, 122, 3, 0, 9696)
 
 
 def _owners(H, threads):
@@ -783,11 +860,15 @@ def test_stream_tile_fits_every_width_to_the_cap(nb, B):
 @pytest.mark.parametrize("half", ["forward", "backward", "tile"])
 def test_wide_route_past_the_cap_names_the_cap(half):
     """Past the cap no route holds a step's dhp: the plans raise, and the
-    error names the cap and why; the cap itself plans the streaming
-    kernels (one row a block: R 4 and R 2 no longer fit)."""
+    error names the cap and why; the cap itself plans the grid forward past
+    H 1024 (ten groups of 8 units a block) and the streaming backward (one
+    row a block: R 4 and R 2 no longer fit)."""
     plan = {"forward": wide_plan, "backward": wide_bwd_plan, "tile": stream_plan}[half]
-    assert plan(1, 64, H100_CAP, H100)["route"] == "stream"
-    assert plan(1, 64, H100_CAP, H100)["R"] == 1
+    at_cap = plan(1, 64, H100_CAP, H100)
+    if half == "forward":
+        assert at_cap["route"] == "grid_stream" and at_cap["groups"] == GRID_STREAM_MAX_GROUPS
+    else:
+        assert at_cap["route"] == "stream" and at_cap["R"] == 1
     with pytest.raises(ValueError, match=f"H={H100_CAP + 1} past the wide route's cap "
                                          f"H {H100_CAP}.*dhp"):
         plan(1, 64, H100_CAP + 1, H100)
@@ -837,16 +918,100 @@ def _stream_sum_order(xp, w, b, h0):
 @pytest.mark.parametrize("H", [1056, 2048])
 def test_stream_sum_order_matches_reference(H):
     """The streaming forward's summation order (a chain over the whole depth
-    a column) stays within the card tests' 1e-4 of the plain recurrence over
-    768 dependent steps, W at its init scale (~1/sqrt(H))."""
+    a column; the kernel of the plan {"route": "stream"}, past H 1024 the
+    planned route's comparison) stays within the card tests' 1e-4 of the
+    plain recurrence over 768 dependent steps, W at its init scale
+    (~1/sqrt(H)). The planned forward there is the grid that streams W's
+    remainder, the planned backward the streaming kernel."""
     T, B = 768, 2
     inputs = list(_seq_inputs(np.random.default_rng(T + H), T, B, H))
     inputs[1] /= np.float32(0.3 * np.sqrt(H))
-    assert wide_plan(1, B, H, H100)["route"] == "stream"
+    assert wide_plan(1, B, H, H100)["route"] == "grid_stream"
+    assert stream_plan(1, B, H, H100)["route"] == wide_bwd_plan(1, B, H, H100)["route"] == "stream"
     got = _stream_sum_order(*inputs)
     ref = gru_sequence_reference(*(torch.from_numpy(a) for a in inputs))
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref.numpy(), rtol=0, atol=1e-4)
+
+
+def _grid_stream_product(w):
+    """The grid forward past H 1024's product a ↦ a w
+    (csrc/gru_seq_grid_stream.cu) in its order, in numpy float32, for W (K,
+    N) with K a multiple of GRID_PAD (zeros in the padding) and a (B, K):
+    the depth in _tf32_slices' k-slices, both sides split in TF32; each
+    k-slice's 8 products of lo.hi, hi.lo and hi.hi summed in float32 (a
+    wgmma's partial); warpgroup s takes the slices 2p + s and adds the
+    partials into one float32 sum from zero in the kernel's order, slice by
+    slice, lo.hi then hi.lo then hi.hi (np.add.accumulate); warpgroup 0's
+    sum plus warpgroup 1's. Which block and group own a unit, the resident
+    and the streamed rows and the ring change no sum."""
+    w_hi, w_lo = (np.ascontiguousarray(x.transpose(0, 2, 1))    # (slices, 8, N)
+                  for x in _tf32_slices(w.T))
+
+    def product(a):
+        a_hi, a_lo = _tf32_slices(a)
+        passes = np.stack([a_lo @ w_hi, a_hi @ w_lo, a_hi @ w_hi], axis=1)  # (slices, 3, B, N)
+        acc = None
+        for s in (0, 1):
+            terms = passes[s::2].reshape(-1, *passes.shape[2:])
+            part = np.add.accumulate(terms, axis=0)[-1]
+            acc = part if acc is None else acc + part
+        return acc
+
+    return product
+
+
+def _grid_stream_sum_order(xp, w, b, h0):
+    """K1 grid forward past H 1024's arithmetic in its order
+    (csrc/gru_seq_grid_stream.cu), in numpy float32: h and W_hhᵀ padded with
+    zeros to a depth of GRID_PAD, h W_hhᵀ as _grid_stream_product; then b_hh
+    and the gates with the kernel's sigmoid 1/2 + tanh(x/2)/2."""
+    T, B, G = xp.shape
+    H = G // 3
+    kp = -(-H // GRID_PAD) * GRID_PAD
+    w_pad = np.zeros((kp, G), np.float32)
+    w_pad[:H] = w
+    product = _grid_stream_product(w_pad)
+    h = h0.astype(np.float32)
+    ys = np.empty((T, B, H), np.float32)
+    for t in range(T):
+        h_pad = np.zeros((B, kp), np.float32)
+        h_pad[:, :H] = h
+        acc = product(h_pad)
+        x = xp[t]
+        r = _sigmoid_fwd(x[:, :H] + (acc[:, :H] + b[0, :H]))
+        z = _sigmoid_fwd(x[:, H:2 * H] + (acc[:, H:2 * H] + b[0, H:2 * H]))
+        n = np.tanh(x[:, 2 * H:] + r * (acc[:, 2 * H:] + b[0, 2 * H:]))
+        h = ((1 - z) * n + z * h).astype(np.float32)
+        ys[t] = h
+    return ys
+
+
+# [timegan-wide]'s h1536 (96 blocks of 16 units) and H 1025 (129 blocks of
+# 8, a depth padded by 31 zeros), at a short T
+@pytest.mark.parametrize("T,B,H", [(96, 3, 1536), (96, 2, 1025)])
+def test_grid_stream_sum_order_matches_reference(T, B, H):
+    """The grid forward past H 1024's summation order (split-TF32 products,
+    its k-slices, one sum a warpgroup) stays within the card tests' 1e-4 of
+    the plain recurrence, W at its init scale (~1/sqrt(H))."""
+    inputs = list(_seq_inputs(np.random.default_rng(T + H), T, B, H))
+    inputs[1] /= np.float32(0.3 * np.sqrt(H))
+    assert wide_plan(1, B, H, H100)["route"] == "grid_stream"
+    got = _grid_stream_sum_order(*inputs)
+    ref = gru_sequence_reference(*(torch.from_numpy(a) for a in inputs))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref.numpy(), rtol=0, atol=1e-4)
+
+
+def test_grid_stream_sum_order_matches_pallas_interpret():
+    """The same order against the Pallas kernel in interpret mode at H 160
+    (a multiple of 32: no padding)."""
+    T, B, H = 16, 3, 160
+    inputs = list(_seq_inputs(np.random.default_rng(T + 1), T, B, H))
+    inputs[1] /= np.float32(0.3 * np.sqrt(H))
+    ref = jax_gru_sequence(*(jnp.asarray(a) for a in inputs), True)
+    np.testing.assert_allclose(_grid_stream_sum_order(*inputs), np.asarray(ref), rtol=0,
+                               atol=1e-4)
 
 
 def _stream_bwd_sum_order(xp, w, b, h0, ys, dy):
